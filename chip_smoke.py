@@ -7,15 +7,26 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
   1. device: require CUDA, print the card's name and power limit, TF32 off;
   2. build: compile the CUDA kernels of paddle_tpu_torch/csrc from this checkout;
   3. kernels: hold every kernel against its plain PyTorch version on the card,
-     float32 and bfloat16, at the shapes BERT-base serving gives them, and time
-     kernel, plain version and one PyTorch library call (CUDA events, median);
+     float32 and bfloat16, at the shapes BERT-base serving and training give
+     them (backward reductions also run twice and must agree bit for bit), and
+     time kernel, plain version and one PyTorch library call (CUDA events,
+     median);
   4. serve: build BERT-base at full width in bf16, save it, load it through
      AnalysisConfig / create_predictor on cuda:0 and answer requests at batch
      1, 8, 32 and 32 (and one more at 32 under torch.profiler); every request
      must launch the LayerNorm, bias-act and attention kernels exactly 25, 12
      and 12 times;
   5. parity: a float32 BERT-base (2 layers) served on the card and on the CPU
-     (plain path) must agree to 1e-3 in the logits.
+     (plain path) must agree to 1e-3 in the logits;
+  6. train: bf16 BERT-base at full width (12 layers, unfused attention,
+     dropout 0.1) with Adam(1e-4).minimize(loss) trains 6 steps through
+     Executor(CUDAPlace(0)).run on one fixed batch of 32 x 128: the loss is
+     finite and falls, and every step launches each kernel exactly as often as
+     the program has ops for it (LN 25 + 25, bias-act 12 + 12, xent 1 + 1,
+     Adam 198); one more step runs under torch.profiler;
+  7. train parity: a float32 BERT-base (2 layers, dropout 0) trained 3 Adam
+     steps on the card and on the CPU from the same numpy state must agree in
+     the losses (1e-3) and in every parameter (2*lr*steps + 1e-5).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -35,18 +46,65 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # float32 outside the tensor cores
 BATCHES = (1, 8, 32, 32)
-PER_REQUEST = {"ln_residual_fwd": 25, "bias_act_fwd": 12, "sdpa_fwd": 12}  # 12 layers
-TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4},
-       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2}}
+# launches per request of BERT-base (12 layers) served with fused attention:
+# every LN, every GELU and every attention is a kernel; no backward kernel runs
+PER_REQUEST = {"ln_residual_fwd": 25, "ln_residual_bwd": 0, "bias_act_fwd": 12,
+               "bias_act_bwd": 0, "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0,
+               "sdpa_fwd": 12}
+# launches per training step of BERT-base (12 layers, unfused attention):
+# 1 embedding LN + 2 per layer, 1 GELU per layer, one loss, and one Adam
+# update per parameter (4 embedding/LN + 16 per layer + 2 LM head = 198);
+# phase 6 derives the same counts from the program and holds both against each other
+PER_STEP = {"ln_residual_fwd": 25, "ln_residual_bwd": 25, "bias_act_fwd": 12, "bias_act_bwd": 12,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "adam": 198, "sdpa_fwd": 0}
+TRAIN_STEPS = 6
+PARITY_STEPS = 3
+LR = 1e-4
+# forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
+# tests); gradients: grad_tol below
+TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4,
+                   "softmax_xent_fwd": 2e-5, "adam": 2e-6},
+       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2,
+                    "softmax_xent_fwd": 5e-2, "adam": 1e-2}}
 KERNEL_INFO = {
     "ln_residual_fwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:170"),
+    "ln_residual_bwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:200"),
     "bias_act_fwd": ("paddle_tpu_torch/csrc/bias_act.cu", "paddle_tpu/ops/pallas_kernels.py:548"),
+    "bias_act_bwd": ("paddle_tpu_torch/csrc/bias_act.cu", "paddle_tpu/ops/pallas_kernels.py:565"),
+    "softmax_xent_fwd": ("paddle_tpu_torch/csrc/softmax_xent.cu", "paddle_tpu/ops/pallas_kernels.py:444"),
+    "softmax_xent_bwd": ("paddle_tpu_torch/csrc/softmax_xent.cu", "paddle_tpu/ops/pallas_kernels.py:462"),
+    "adam": ("paddle_tpu_torch/csrc/adam.cu", "paddle_tpu/ops/pallas_kernels.py:368"),
     "sdpa_fwd": ("paddle_tpu_torch/csrc/sdpa.cu", "paddle_tpu/ops/pallas_attention.py:193"),
 }
 
 
+def grad_tol(dtype, ref):
+    """Gradients: 1e-4 * (1 + max|ref|) in float32, as tests/test_pallas_kernels.py
+    holds the Pallas backward kernels; 5e-2 relative to max|ref| in bfloat16."""
+    peak = float(ref.float().abs().max())
+    return 1e-4 * (1.0 + peak) if dtype == "float32" else 5e-2 * peak
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def dname(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def check(kernel, what, dtype, case, got, want, tol):
+    """Hold a kernel's output against its plain version's; raise past `tol`."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    emit({"check": kernel, "out": what, "dtype": dname(dtype), "case": case,
+          "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        raise AssertionError(f"{kernel} {what} {case} {dtype}: max |kernel - plain| "
+                             f"{err} > {tol}")
+    return err
 
 
 def time_ms(fn, warmup=10, iters=100):
@@ -92,14 +150,7 @@ def check_kernels(torch, ck, ca):
         return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
 
     def compare(kernel, dtype, case, got, want):
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = TOL[str(dtype).split(".")[-1]][kernel]
-        emit({"check": kernel, "dtype": str(dtype).split(".")[-1], "case": case,
-              "max_abs_err": err, "tol": tol})
-        if not err <= tol:
-            raise AssertionError(f"{kernel} {case} {dtype}: max |kernel - plain| {err} > {tol}")
-        return err
+        return check(kernel, "out", dtype, case, got, want, TOL[dname(dtype)][kernel])
 
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -120,6 +171,7 @@ def check_kernels(torch, ck, ca):
                     ms=time_ms(lambda: ck.fused_ln_residual(x, res, scale, bias, 1e-5)),
                     plain_ms=time_ms(lambda: ck.ln_residual_plain(x, res, scale, bias, 1e-5)),
                     library_ms=time_ms(lambda: F.layer_norm(x + res, (768,), w_x, b_x, 1e-5)),
+                    library="F.layer_norm(x+res)",
                     bound_ms=b_ms, bound_by=b_by, shape="[4096,768] bf16 + residual")
         # bias + activation: the BERT-base FFN rows of 3072
         for act in ("gelu", "relu"):
@@ -135,6 +187,7 @@ def check_kernels(torch, ck, ca):
                     ms=time_ms(lambda: ck.fused_bias_act(x, b, "gelu")),
                     plain_ms=time_ms(lambda: ck.bias_act_plain(x, b, "gelu")),
                     library_ms=time_ms(lambda: F.gelu(x + b_x)),
+                    library="F.gelu(x+b)",
                     bound_ms=b_ms, bound_by=b_by, shape="[4096,3072] bf16 gelu")
         # attention: the serving shape in every bias mode and causal, L = 1024,
         # and causal queries against a longer key sequence
@@ -160,7 +213,165 @@ def check_kernels(torch, ck, ca):
                     ms=time_ms(lambda: ca.fused_sdpa(q, k, v, None, False, scale)),
                     plain_ms=time_ms(lambda: ca.sdpa_plain(q, k, v, None, False, scale)),
                     library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                    library="F.scaled_dot_product_attention",
                     bound_ms=b_ms, bound_by=b_by, shape="[32,12,128,64] bf16")
+    for name, rec in record.items():
+        emit({"timing": name, **rec})
+    return record
+
+
+def check_train_kernels(torch, ck):
+    """Phase 3, the training slice's kernels: each against its plain version
+    on the card, float32 and bfloat16, at BERT-base training shapes (R = 32 x
+    128 rows), ragged R for the two row backwards, MLM labels for the loss,
+    Adam at the largest parameter and an odd size; the backward reductions
+    run twice and must agree bit for bit.  Returns the timing record."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    def repeatable(kernel, what, a, b):
+        torch.cuda.synchronize()
+        same = torch.equal(a, b)
+        emit({"repeat": kernel, "out": what, "bitwise_equal": same})
+        if not same:
+            raise AssertionError(f"{kernel}: {what} differs between two runs on the same inputs")
+
+    record = {}
+    eps = 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(dtype)
+        # LayerNorm + residual backward: BERT-base rows of 768, ragged R, no residual
+        for rows, with_res in ((4096, True), (4095, True), (4096, False)):
+            x = randn(rows, 768, dtype=dtype)
+            res = randn(rows, 768, dtype=dtype) if with_res else None
+            scale = randn(768, s=0.2) + 1.0
+            g = randn(rows, 768, dtype=dtype)
+            case = f"[{rows},768] residual={with_res}"
+            got = ck.ln_residual_bwd(x, res, scale, g, eps)
+            want = ck.ln_residual_bwd_plain(x, res, scale, g, eps)
+            errs = [check("ln_residual_bwd", w, dtype, case, a, b, grad_tol(dn, b))
+                    for w, a, b in zip(("dx", "dscale", "dbias"), got, want)]
+            again = ck.ln_residual_bwd(x, res, scale, g, eps)
+            repeatable("ln_residual_bwd", f"dscale {case} {dn}", got[1], again[1])
+            repeatable("ln_residual_bwd", f"dbias {case} {dn}", got[2], again[2])
+            if dtype == torch.bfloat16 and rows == 4096 and with_res:
+                z = (x + res)
+                w_x, b_x = scale.to(dtype), randn(768, dtype=dtype, s=0.1)
+                _, mean, rstd = torch.ops.aten.native_layer_norm(z, [768], w_x, b_x, eps)
+                b_ms, b_by = bound(nbytes(x, res, scale, g, x) + 2 * 768 * 4, 20.0 * x.numel(),
+                                   F32_FLOPS)
+                record["ln_residual_bwd"] = dict(
+                    max_abs_err=max(errs),
+                    ms=time_ms(lambda: ck.ln_residual_bwd(x, res, scale, g, eps)),
+                    plain_ms=time_ms(lambda: ck.ln_residual_bwd_plain(x, res, scale, g, eps)),
+                    library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                        g, z, [768], mean, rstd, w_x, b_x, [True, True, True])),
+                    library="aten.native_layer_norm_backward of F.layer_norm(x+res)",
+                    bound_ms=b_ms, bound_by=b_by, shape="[4096,768] bf16 + residual")
+        # bias + activation backward: the FFN rows of 3072, ragged R, gelu and relu
+        for rows in (4096, 4095):
+            x = randn(rows, 3072, dtype=dtype)
+            b = randn(3072, s=0.1)
+            g = randn(rows, 3072, dtype=dtype)
+            for act in ("gelu", "relu"):
+                case = f"[{rows},3072] {act}"
+                got = ck.bias_act_bwd(x, b, g, act)
+                want = ck.bias_act_bwd_plain(x, b, g, act)
+                errs = [check("bias_act_bwd", w, dtype, case, a, c, grad_tol(dn, c))
+                        for w, a, c in zip(("dx", "dbias"), got, want)]
+                repeatable("bias_act_bwd", f"dbias {case} {dn}", got[1],
+                           ck.bias_act_bwd(x, b, g, act)[1])
+                if dtype == torch.bfloat16 and rows == 4096 and act == "gelu":
+                    z = x + b.to(dtype)
+                    b_ms, b_by = bound(nbytes(x, b, g, x) + 3072 * 4, 30.0 * x.numel(),
+                                       F32_FLOPS)
+
+                    def library():
+                        torch.ops.aten.gelu_backward(g, z).sum(0)
+
+                    record["bias_act_bwd"] = dict(
+                        max_abs_err=max(errs),
+                        ms=time_ms(lambda: ck.bias_act_bwd(x, b, g, "gelu")),
+                        plain_ms=time_ms(lambda: ck.bias_act_bwd_plain(x, b, g, "gelu")),
+                        library_ms=time_ms(library),
+                        library="aten.gelu_backward(g, x+b) then .sum(0): two calls, x+b "
+                                "precomputed",
+                        bound_ms=b_ms, bound_by=b_by, shape="[4096,3072] bf16 gelu")
+        # softmax cross-entropy: the LM head's [4096, 30522] logits, labels at the
+        # MLM share (85% ignored), one row labelled 0 and one labelled V-1
+        V = 30522
+        logits = randn(4096, V, dtype=dtype, s=2.0)
+        labels = torch.randint(0, V, (4096,), generator=gen, device=dev)
+        masked = torch.rand(4096, generator=gen, device=dev) < 0.85
+        labels = torch.where(masked, torch.full_like(labels, -100), labels)
+        labels[0], labels[1], labels[2] = 0, V - 1, -100
+        labels = labels.to(torch.int32)
+        live = labels != -100
+        case = f"[4096,{V}] {int(live.sum())} rows labelled"
+        loss, lse = ck.softmax_xent_fwd(logits, labels, -100)
+        loss_p, lse_p = ck.softmax_xent_fwd_plain(logits, labels, -100)
+        err_f = check("softmax_xent_fwd", "loss", dtype, case, loss, loss_p,
+                      TOL[dn]["softmax_xent_fwd"])
+        check("softmax_xent_fwd", "lse of labelled rows", dtype, case, lse[live], lse_p[live],
+              TOL[dn]["softmax_xent_fwd"])
+        g = 1.0 + torch.rand(4096, generator=gen, device=dev)
+        dx = ck.softmax_xent_bwd(logits, labels, lse, g, -100)
+        dx_p = ck.softmax_xent_bwd_plain(logits, labels, lse_p, g, -100)
+        err_b = check("softmax_xent_bwd", "dlogits", dtype, case, dx, dx_p, grad_tol(dn, dx_p))
+        if dtype == torch.bfloat16:
+            n_live = int(live.sum())
+            row = V * logits.element_size()
+            lab64 = labels.long()
+            lx = logits.detach().requires_grad_()
+            lib_loss = F.cross_entropy(lx, lab64, reduction="none", ignore_index=-100)
+            # the data decides the work: only labelled rows are read
+            f_ms, f_by = bound(n_live * row + 4096 * 4 * 3, 5.0 * n_live * V, F32_FLOPS)
+            record["softmax_xent_fwd"] = dict(
+                max_abs_err=err_f,
+                ms=time_ms(lambda: ck.softmax_xent_fwd(logits, labels, -100)),
+                plain_ms=time_ms(lambda: ck.softmax_xent_fwd_plain(logits, labels, -100)),
+                library_ms=time_ms(lambda: F.cross_entropy(logits, lab64, reduction="none",
+                                                           ignore_index=-100)),
+                library="F.cross_entropy(reduction='none', ignore_index=-100)",
+                bound_ms=f_ms, bound_by=f_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
+            b_ms, b_by = bound(n_live * row + 4096 * 4 * 3 + 4096 * row, 4.0 * n_live * V,
+                               F32_FLOPS)
+            record["softmax_xent_bwd"] = dict(
+                max_abs_err=err_b,
+                ms=time_ms(lambda: ck.softmax_xent_bwd(logits, labels, lse, g, -100)),
+                plain_ms=time_ms(lambda: ck.softmax_xent_bwd_plain(logits, labels, lse, g, -100)),
+                library_ms=time_ms(lambda: torch.autograd.grad(lib_loss, lx, g,
+                                                               retain_graph=True)),
+                library="backward of F.cross_entropy(reduction='none', ignore_index=-100)",
+                bound_ms=b_ms, bound_by=b_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
+        # Adam: the token embedding (30522 x 768) and an odd size
+        for n in (23_440_896, 1_000_003):
+            p = randn(n, dtype=dtype, s=0.25)  # |p| < 2: a bf16 ulp stays under the tolerance
+            g = randn(n, dtype=dtype, s=0.01)
+            m = randn(n, s=0.001)
+            v = torch.rand(n, generator=gen, device=dev) * 1e-4
+            lr_t = torch.full((1,), 1e-3, device=dev)
+            want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
+            got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
+            errs = [check("adam", w, dtype, f"n={n}", a, c, TOL[dn]["adam"])
+                    for w, a, c in zip(("p", "m", "v"), got, want)]
+            if dtype == torch.float32 and n == 23_440_896:
+                step = torch.zeros((), device=dev)
+                b_ms, b_by = bound(nbytes(p, m, v, g, p, m, v), 10.0 * n, F32_FLOPS)
+                record["adam"] = dict(
+                    max_abs_err=max(errs),
+                    ms=time_ms(lambda: ck.fused_adam(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)),
+                    plain_ms=time_ms(lambda: ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)),
+                    library_ms=time_ms(lambda: torch._fused_adam_(
+                        [p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999,
+                        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)),
+                    library="torch._fused_adam_ on one tensor",
+                    bound_ms=b_ms, bound_by=b_by, shape=f"[{n}] float32")
     for name, rec in record.items():
         emit({"timing": name, **rec})
     return record
@@ -230,28 +441,37 @@ def serve(fluid, torch, ck, tmp, card):
                                  f"{bool(np.isfinite(logits).all())}")
         if delta != PER_REQUEST:
             raise AssertionError(f"batch {batch}: kernel launches {delta} != {PER_REQUEST}")
-    profile_request(torch, predictor, make_fake_batch(BATCHES[-1], 128, 30522, rng=rng), card)
-    return dict(ck.LAUNCHES)
+    launches = dict(ck.LAUNCHES)  # read before the profiled request
+    feed = make_fake_batch(BATCHES[-1], 128, 30522, rng=rng)
+    profile_run(torch, BATCHES[-1], lambda: predictor.run(feed, return_numpy=False), card)
+    return launches
 
 
-def profile_request(torch, predictor, feed, card):
-    """One more warm request under torch.profiler: device time by kernel and
-    the device's idle share of the request's run (profiler overhead included)."""
+def profile_run(torch, what, run, card):
+    """One more warm run of `run()` under torch.profiler: device time by kernel
+    and the device's idle share of the run (profiler overhead included)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.run(feed, return_numpy=False)
+        run()
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith("aten::")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    emit({"profile": feed["ids"].shape[0], "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
+    top_host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:10]
+    emit({"profile": what, "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e3 / run_ms, "card": card,
+          "kernel_launches": sum(e.count for e in kernels),
+          "host_aten_calls": sum(e.count for e in host_ops),
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
-                           "device_ms": e.self_device_time_total / 1e3} for e in top]})
+                           "device_ms": e.self_device_time_total / 1e3} for e in top],
+          "top_host_ops": [{"name": e.key, "calls": e.count,
+                            "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in top_host]})
 
 
 def parity(fluid, torch, tmp):
@@ -270,6 +490,134 @@ def parity(fluid, torch, tmp):
           "max_abs_logits": float(np.abs(cpu).max()), "tol": 1e-3})
     if not diff <= 1e-3:
         raise AssertionError(f"card vs CPU logits differ by {diff} > 1e-3")
+
+
+def build_train(fluid, dtype, n_layers, dropout_prob):
+    """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention,
+    through the two fusion passes; returns (main, startup, loss name)."""
+    from paddle_tpu_torch.models import transformer
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = transformer.build_bert(
+            vocab_size=30522, seq_len=128, d_model=768, n_layers=n_layers, n_heads=12,
+            d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
+            use_fused_attention=False, with_optimizer=True)
+    startup.random_seed = 0
+    main.random_seed = 0
+    loss = fetches["loss"].name
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=[loss])
+    return main, startup, loss
+
+
+def launches_of_program(main, loss):
+    """Kernel launches one step of `main` makes, read off its pruned ops: every
+    layer_norm takes the LN kernel (nothing reads its Mean/Variance), every
+    elementwise_add with fuse_act the bias-act kernel, the loss the xent
+    kernel, every adam op the Adam kernel; each forward kernel has its backward."""
+    from paddle_tpu_torch.core.executor import _prune, _runnable_ops
+
+    persistable = {v.name for v in main.list_vars() if v.persistable}
+    ops = _prune(_runnable_ops(main.global_block()), [loss], persistable)
+    read = {n for op in ops for n in op.input_arg_names}
+    lns = [op for op in ops if op.type == "layer_norm"]
+    if any(n in read for op in lns for n in op.output("Mean") + op.output("Variance")):
+        raise AssertionError("a layer_norm's statistics are read: it would not take the kernel")
+    n_ln = len(lns)
+    n_act = sum(1 for op in ops if op.type == "elementwise_add" and op.attrs.get("fuse_act"))
+    n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy")
+    n_adam = sum(1 for op in ops if op.type == "adam")
+    return {"ln_residual_fwd": n_ln, "ln_residual_bwd": n_ln, "bias_act_fwd": n_act,
+            "bias_act_bwd": n_act, "softmax_xent_fwd": n_xent, "softmax_xent_bwd": n_xent,
+            "adam": n_adam, "sdpa_fwd": 0}
+
+
+def train(fluid, torch, ck, card):
+    """Phase 6: bf16 BERT-base (12 layers, dropout 0.1, Adam lr 1e-4, batch 32)
+    trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1)
+    derived = launches_of_program(main, loss)
+    if derived != PER_STEP:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {PER_STEP}")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0))
+    emit({"phase": "train", "model": "bert-base bf16, unfused attention, dropout 0.1, "
+          "Adam lr 1e-4", "batch": 32, "setup_s": time.perf_counter() - t0})
+    ck.reset_launches()  # the main path's count starts here
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        emit({"step": step, "loss": losses[-1], "step_ms": step_ms[-1], "launches": delta,
+              "card": card})
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"step {step}: loss {losses[-1]}")
+        if delta != PER_STEP:
+            raise AssertionError(f"step {step}: kernel launches {delta} != {PER_STEP}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    launches = dict(ck.LAUNCHES)  # read before the profiled step
+    emit({"phase": "train", "losses": losses, "warm_step_ms": statistics.median(step_ms[1:]),
+          "first_step_ms": step_ms[0], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": card})
+    profile_run(torch, "train step",
+                lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                                return_numpy=False), card)
+    return launches
+
+
+def train_parity(fluid, torch):
+    """Phase 7: float32 BERT-base (2 layers, dropout 0) trains PARITY_STEPS Adam
+    steps on the card and on the CPU (plain path) from the same numpy state.
+    The losses must agree to 1e-3 and every parameter to 2*lr*steps + 1e-5: at
+    the first step Adam's m/sqrt(v) is +-1 wherever a gradient is near 0, so the
+    summation order can flip its sign, and no step moves a weight by more than
+    about lr."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    for name in state:
+        if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
+            state[name] = np.ones_like(state[name])
+    feed = make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1))
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
+                  for _ in range(PARITY_STEPS)]
+        runs.append((losses, scope))
+    (gl, gs), (cl, cs) = runs
+    dloss = max(abs(a - b) for a, b in zip(gl, cl))
+    tol = 2 * LR * PARITY_STEPS + 1e-5
+    worst_p = max((float(np.abs(gs.to_numpy(p.name) - cs.to_numpy(p.name)).max()), p.name)
+                  for p in main.all_parameters())
+    worst_m = max(float(np.abs(gs.to_numpy(n) - cs.to_numpy(n)).max())
+                  for n in state if "moment" in n)
+    emit({"phase": "train_parity", "model": "bert-base f32, 2 layers, dropout 0",
+          "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss, "loss_tol": 1e-3,
+          "max_abs_dparam": worst_p[0], "param": worst_p[1], "param_tol": tol,
+          "max_abs_dmoment": worst_m})
+    if not dloss <= 1e-3:
+        raise AssertionError(f"card vs CPU losses differ by {dloss} > 1e-3")
+    if not worst_p[0] <= tol:
+        raise AssertionError(f"card vs CPU parameter {worst_p[1]} differs by {worst_p[0]} > {tol}")
 
 
 def main():
@@ -295,24 +643,32 @@ def main():
                     if "Used" in line or "spill" in line or line.startswith("==")), flush=True)
 
     timings = check_kernels(torch, ck, ca)
+    timings.update(check_train_kernels(torch, ck))
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     try:
-        launches = serve(fluid, torch, ck, tmp, card)
+        served = serve(fluid, torch, ck, tmp, card)
         parity(fluid, torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    trained = train(fluid, torch, ck, card)
+    train_parity(fluid, torch)
 
+    # each path must have launched each of its kernels; `launches` is the
+    # count on this slice's path (training) where the kernel runs there
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+        for path, want, got in (("serve", PER_REQUEST, served), ("train", PER_STEP, trained)):
+            if want[name] and got[name] == 0:
+                raise AssertionError(f"{name} was never launched on the {path} path")
         rec = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "launches": trained[name] or served[name],
+                        "launches_by_path": {"serve": served[name], "train": trained[name]},
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "shape": rec["shape"], "card": card})
+                        "library": rec["library"], "shape": rec["shape"], "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,13 +8,16 @@ the import:
 
 Programs, saved models and parameters are interchangeable with paddle_tpu.
 The port imports torch and numpy, never jax or paddle_tpu.  It covers the
-serving path of BERT-base so far: its ops, passes, layers, io and
-Predictor, with hand-written Hopper kernels (csrc/) for LayerNorm+residual,
-bias+GELU and attention.
+serving and the static training path of BERT-base so far: its ops, passes,
+layers, io, Predictor, `append_backward` and `optimizer.Adam`, with
+hand-written Hopper kernels (csrc/) for LayerNorm+residual and bias+GELU
+(forward and backward), attention (forward), softmax cross-entropy (forward
+and backward) and the Adam update.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import flags, inference, io, layers, models  # noqa: F401
-from .core import initializer, passes, unique_name  # noqa: F401
+from . import clip, flags, inference, io, layers, models, optimizer  # noqa: F401
+from .core import initializer, passes, regularizer, unique_name  # noqa: F401
+from .core.autodiff import append_backward, calc_gradient  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, TPUPlace  # noqa: F401
 from .core.param_attr import ParamAttr  # noqa: F401
 from .core.program import (  # noqa: F401

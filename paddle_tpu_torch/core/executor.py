@@ -1,10 +1,15 @@
 """Executor: eager runs of whole programs (counterpart of paddle_tpu/core/executor.py).
 
 `run()` prunes the global block to what the fetches and the persistable
-writes need, runs the ops' torch lowerings in order under
-`torch.inference_mode()`, writes persistable outputs back to the Scope
-(startup state included) and returns the fetches.  There is no compile
-cache, no `run_async` and no `steps > 1` yet.
+writes need, runs the ops' torch lowerings in order, writes persistable
+outputs back to the Scope (startup state, and the parameters and
+accumulators an optimizer op updates) and returns the fetches.  A program
+without a `backward` op runs under `torch.no_grad()`; one with `backward`
+ops runs its regions through `torch.autograd.grad`
+(core/lowering.py run_block_with_backward).  Nothing runs under
+`torch.inference_mode()`: its tensors could never be trained, and the
+Scope keeps them across runs.  The generator in the Scope advances across
+runs.  There is no compile cache, no `run_async` and no `steps > 1` yet.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 
 from .. import flags
 from .dtypes import to_numpy, to_tensor
-from .lowering import LoweringContext, run_ops
+from .lowering import LoweringContext, run_block_with_backward
 from .program import Program, Variable, default_main_program
 from .scope import RNG_STATE_VAR, Scope, global_scope
 
@@ -60,7 +65,8 @@ def _runnable_ops(block):
 
 def _prune(ops, fetch_names, persistable):
     """Fetch-driven dead-op elimination: keep an op if it (transitively)
-    feeds a fetch or writes a persistable var."""
+    feeds a fetch or writes a persistable var.  A kept `backward` op needs
+    its loss and its parameters."""
     needed = set(fetch_names)
     kept = []
     for op in reversed(ops):
@@ -68,8 +74,21 @@ def _prune(ops, fetch_names, persistable):
         if any(o in persistable or o in needed for o in outs):
             kept.append(op)
             needed.update(op.input_arg_names)
+            if op.type == "backward":
+                needed.add(op.attrs["loss_name"])
+                needed.update(op.attrs.get("param_names", []))
     kept.reverse()
     return kept
+
+
+def _read_names(ops):
+    """Every name the ops read, a `backward` op's parameters included."""
+    names = set()
+    for op in ops:
+        names.update(op.input_arg_names)
+        if op.type == "backward":
+            names.update(op.attrs.get("param_names", []))
+    return names
 
 
 class Executor:
@@ -95,7 +114,7 @@ class Executor:
 
         persistable = {v.name for v in program.list_vars() if v.persistable}
         ops = _prune(_runnable_ops(block), fetch_names, persistable)
-        read_names = {n for op in ops for n in op.input_arg_names}
+        read_names = _read_names(ops)
 
         env: Dict[str, torch.Tensor] = {}
         for name in sorted((read_names | set(fetch_names)) & persistable):
@@ -117,8 +136,7 @@ class Executor:
             scope.set_var(RNG_STATE_VAR, gen)
 
         ctx = LoweringContext(gen, device, fetch_names=fetch_names, read_names=read_names)
-        with torch.inference_mode():
-            run_ops(ctx, ops, env)
+        env = run_block_with_backward(ctx, ops, env)
         for op in ops:
             for n in op.output_arg_names:
                 if n in persistable and n in env:
@@ -127,7 +145,7 @@ class Executor:
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not produced by the program")
-        fetches = [env[n] for n in fetch_names]
+        fetches = [env[n].detach() for n in fetch_names]
         if flags.flag("FLAGS_check_nan_inf"):
             for name, t in zip(fetch_names, fetches):
                 if t.is_floating_point() and not bool(torch.isfinite(t).all()):

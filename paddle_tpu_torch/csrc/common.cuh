@@ -53,4 +53,41 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// Second pass of the backward kernels' column reductions: out[k][c] =
+// sum over r < n of part[k][r][c], for k = blockIdx.z.  A block takes 32
+// columns; its kSumRows thread rows each add every kSumRows-th partial row
+// of those columns in row order, and thread row 0 adds the kSumRows sums in
+// order.  Which thread adds which value is fixed by the shape alone, so the
+// result does not depend on how blocks were scheduled: no float atomics,
+// bitwise repeatable.  (Internal linkage: every object that includes this
+// header has its own copy.)
+namespace {
+constexpr int kSumRows = 8;
+
+__global__ void column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  int n, int d) {
+  __shared__ float sums[kSumRows][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const float* p = part + static_cast<int64_t>(blockIdx.z) * n * d + col;
+  float t = 0.f;
+  if (col < d)
+    for (int r = threadIdx.y; r < n; r += kSumRows) t += p[static_cast<int64_t>(r) * d];
+  sums[threadIdx.y][threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < d) {
+    float u = 0.f;
+#pragma unroll
+    for (int y = 0; y < kSumRows; ++y) u += sums[y][threadIdx.x];
+    out[static_cast<int64_t>(blockIdx.z) * d + col] = u;
+  }
+}
+
+// part: [k][n][d] float32, out: [k][d] float32.
+cudaError_t column_sum(const float* part, float* out, int k, int n, int d, cudaStream_t stream) {
+  const dim3 grid((d + 31) / 32, 1, k);
+  column_sum_kernel<<<grid, dim3(32, kSumRows), 0, stream>>>(part, out, n, d);
+  return cudaGetLastError();
+}
+}  // namespace
+
 }  // namespace ptt

@@ -137,8 +137,10 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
 
 
 def load_numpy_params(scope: Scope, params: Dict[str, np.ndarray], device="cpu") -> None:
-    """Put numpy arrays (for instance the JAX package's parameters, numpy
-    bfloat16 included) into `scope` as tensors on `device`."""
+    """Put numpy arrays into `scope` as tensors on `device`: for instance the
+    JAX package's whole persistable state -- parameters, Adam's moment1 /
+    moment2 and float32 beta pows, the learning-rate var -- numpy bfloat16
+    included."""
     for name, arr in params.items():
         scope.set_var(name, to_tensor(arr, None, device))
 

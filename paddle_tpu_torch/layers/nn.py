@@ -1,4 +1,4 @@
-"""NN layer builders of the serving slice (counterpart of
+"""NN layer builders (counterpart of
 paddle_tpu/layers/nn.py).  Builders only: each appends program ops; all
 numerics live in ops/ lowerings.  Each builder emits the same ops, vars and
 attrs as its JAX counterpart, so programs serialize identically."""
@@ -107,8 +107,6 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
 
 def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-100,
                                numeric_stable_mode=True, return_softmax=False):
-    """Builder only: the op's lowering comes with the training slice (the
-    served program is pruned to its `Logits` input)."""
     helper = LayerHelper("softmax_with_cross_entropy")
     loss_shape = tuple(logits.shape[:-1]) + (1,) if logits.shape is not None else None
     softmax_out = _out(helper, logits.dtype, shape=logits.shape)
@@ -125,16 +123,43 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-10
 
 
 def mean(x, name=None):
-    """Builder only: the lowering comes with the training slice."""
     helper = LayerHelper("mean", name=name)
     out = _out(helper, x.dtype, shape=(1,))
     helper.append_op("mean", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
     return out
 
 
+def _matmul_shape(xs, ys, transpose_x, transpose_y):
+    """The output shape of matmul when both input shapes are known and the
+    batch dims broadcast (-1, the unknown batch, unifies with anything);
+    else None.  The fusion passes compare shapes, as the JAX package's
+    shape inference gives them."""
+    if xs is None or ys is None or len(xs) < 2 or len(ys) < 2:
+        return None
+    if transpose_x:
+        xs = xs[:-2] + (xs[-1], xs[-2])
+    if transpose_y:
+        ys = ys[:-2] + (ys[-1], ys[-2])
+    bx, by = xs[:-2], ys[:-2]
+    if len(bx) < len(by):
+        bx, by = by, bx
+    by = (1,) * (len(bx) - len(by)) + by
+    batch = []
+    for a, b in zip(bx, by):
+        if a == b or b == 1:
+            batch.append(a)
+        elif a == 1:
+            batch.append(b)
+        elif -1 in (a, b):
+            batch.append(a if b == -1 else b)
+        else:
+            return None
+    return tuple(batch) + (xs[-2], ys[-1])
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
-    out = _out(helper, x.dtype)
+    out = _out(helper, x.dtype, shape=_matmul_shape(x.shape, y.shape, transpose_x, transpose_y))
     helper.append_op(
         "matmul",
         inputs={"X": [x.name], "Y": [y.name]},

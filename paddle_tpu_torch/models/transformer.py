@@ -2,14 +2,13 @@
 
 `build_bert` emits the same program as the JAX package's builder (same
 ops, names and attrs under the same unique-name guard), so a model built,
-trained or saved by either package serves in the other.  This slice serves:
-`with_optimizer=True` raises until the training slice.
+trained or saved by either package trains or serves in the other.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .. import layers
+from .. import layers, optimizer
 from ..core.initializer import NormalInitializer
 from ..core.param_attr import ParamAttr
 from ..core.program import Program, program_guard
@@ -96,16 +95,13 @@ def build_bert(
     dtype="float32",
     attention_score_dtype=None,
 ):
-    """BERT-base-style masked-LM program.
+    """BERT-base-style masked-LM pretraining program.
 
     feeds: ids (B,L) int64, labels (B,L) int64 (-100 = ignored), pos_ids (B,L).
     dtype="bfloat16" runs the encoder and LM head in bf16 with float32
-    master weights; LayerNorm statistics stay float32.
+    master weights; LayerNorm statistics and the loss stay float32.
+    with_optimizer=True appends Adam(learning_rate).minimize(loss).
     Returns (main, startup, feeds {name: Variable}, fetches {"loss": Variable})."""
-    if with_optimizer:
-        raise NotImplementedError(
-            "build_bert(with_optimizer=True) needs the optimizer and backward ops of "
-            "the training slice; build with with_optimizer=False to serve")
     main, startup = Program(), Program()
     with program_guard(main, startup):
         ids = layers.data("ids", [seq_len], dtype="int64")
@@ -129,6 +125,8 @@ def build_bert(
         flat_labels = layers.reshape(labels, [-1, 1])
         loss_per = layers.softmax_with_cross_entropy(flat_logits, flat_labels, ignore_index=-100)
         loss = layers.mean(loss_per)
+        if with_optimizer:
+            optimizer.Adam(learning_rate=learning_rate).minimize(loss)
     return main, startup, {"ids": ids, "labels": labels, "pos_ids": pos_ids}, {"loss": loss}
 
 

@@ -2,7 +2,9 @@
 PyTorch version (counterpart of paddle_tpu/ops/pallas_attention.py).
 
 Routing as in ops/cuda_kernels.py: CPU tensors take `sdpa_plain`, CUDA
-tensors launch `csrc/sdpa.cu` and bump `LAUNCHES["sdpa_fwd"]`.
+tensors launch `csrc/sdpa.cu` and bump `LAUNCHES["sdpa_fwd"]`.  The backward
+kernel is not ported: CUDA inputs that require grad raise (on the CPU,
+autograd differentiates the plain version).
 
 Contract (the JAX fused_sdpa's): q [B, H, Lq, dh], k and v [B, H, Lk, dh],
 one dtype (float32 or bfloat16), max(Lq, Lk) <= 1024; optional additive
@@ -50,6 +52,12 @@ def fused_sdpa(q, k, v, bias, causal, scale):
         raise ValueError(f"fused_sdpa: bias {tuple(bias.shape)} is not [{B}, 1|{H}, {Lq}, {Lk}]")
     if not on_card("fused_sdpa", q, k, v, bias):
         return sdpa_plain(q, k, v, bias, causal, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "fused_sdpa: inputs require grad, but only the forward kernel is ported; its "
+            "backward (_fused_sdpa_bwd) comes with the attention-training slice, one "
+            "FlashAttention-style forward and backward.  Train with "
+            "use_fused_attention=False")
     for what, t in (("q", q), ("k", k), ("v", v)):
         check_operand("fused_sdpa", what, t, q.dtype)
         if t.data_ptr() % 16:

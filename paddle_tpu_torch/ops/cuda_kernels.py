@@ -1,17 +1,23 @@
-"""Hand-written Hopper kernels for LayerNorm+residual and bias+activation,
-with their plain PyTorch versions (counterpart of paddle_tpu/ops/pallas_kernels.py).
+"""Hand-written Hopper kernels for LayerNorm+residual, bias+activation,
+softmax cross-entropy and the Adam update, with their plain PyTorch versions
+(counterpart of paddle_tpu/ops/pallas_kernels.py).
 
-Each wrapper keeps the JAX package's name and contract.  The tensor's
-device picks the route:
+Each public function keeps the JAX package's name and contract.  The
+tensor's device picks the route:
 
-  * CPU tensors take the plain version (the CPU tests, the CPU Predictor);
+  * CPU tensors take the plain version (the CPU tests, the CPU Executor);
   * CUDA tensors launch the kernel from `csrc/` on the current stream, into
-    an output from `torch.empty`, and bump `LAUNCHES[<kernel>]`;
+    outputs from `torch.empty`, and bump `LAUNCHES[<kernel>]`;
   * anything else raises.  A kernel that fails to build or launch raises:
     there is no fallback to the plain version on the card.
 
-This slice is forward only (serving); a CUDA input that requires grad
-raises until the backward kernels arrive with the training slice.
+`fused_ln_residual`, `fused_bias_act` and `fused_softmax_xent` are
+`torch.autograd.Function`s, as the JAX functions are custom VJPs: the
+forward and the backward each take the kernel on the card, and on the CPU
+the plain forward and an explicit plain backward (`*_bwd_plain`, the
+backward's own arithmetic, not autograd of the plain forward).
+`fused_adam` updates p, m and v in place on the card (the TPU kernel's
+`input_output_aliases`); its plain version returns new tensors.
 """
 from __future__ import annotations
 
@@ -23,10 +29,14 @@ import torch.nn.functional as F
 from .. import _build
 
 # launches per kernel, counted where each wrapper launches and nowhere else
-LAUNCHES: Dict[str, int] = {"ln_residual_fwd": 0, "bias_act_fwd": 0, "sdpa_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "ln_residual_fwd": 0, "ln_residual_bwd": 0, "bias_act_fwd": 0, "bias_act_bwd": 0,
+    "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0, "sdpa_fwd": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"relu": 0, "gelu": 1}
+LN_BWD_MAX_D = 1024  # the backward kernel holds a row in one warp's registers
 
 
 def reset_launches() -> None:
@@ -45,11 +55,6 @@ def on_card(name: str, *tensors: Optional[torch.Tensor]) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if t is not None and t.requires_grad:
-            raise NotImplementedError(
-                f"{name}: inputs require grad, but only the forward kernel is ported; "
-                "the backward kernels come with the training slice")
     return True
 
 
@@ -64,6 +69,17 @@ def check_operand(name: str, what: str, t: torch.Tensor, dtype=None) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _row_blocks(rows: int, rows_per_block: int, cap: int) -> int:
+    """Blocks of the backward kernels' first pass: about `rows_per_block`
+    rows each, at most `cap`.  A function of the shape alone, so the
+    column sums are added in the same order on every run."""
+    return max(1, min(-(-rows // rows_per_block), cap))
 
 
 # --------------------------------------------------------------------------
@@ -82,11 +98,26 @@ def ln_residual_plain(x, res, scale, bias, eps=1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def fused_ln_residual(x, res, scale, bias, eps):
-    """y = LayerNorm(x + res) * scale + bias over the LAST axis.
+def ln_residual_bwd_plain(x, res, scale, g, eps=1e-5):
+    """The arithmetic of paddle_tpu/ops/pallas_kernels.py _ln_bwd_kernel:
+    statistics recomputed in float32 from x (+ res), then
+    dx = inv * (g*s - mean(g*s) - xhat * mean(g*s*xhat)).  Returns
+    (dx in x.dtype, dscale, dbias), the last two float32 [D]."""
+    r = x.float() if res is None else x.float() + res.float()
+    mean = r.mean(-1, keepdim=True)
+    c = r - mean
+    inv = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    xhat = c * inv
+    gf = g.float()
+    gs = gf * scale.float()
+    m1 = gs.mean(-1, keepdim=True)
+    m2 = (gs * xhat).mean(-1, keepdim=True)
+    dx = inv * (gs - m1 - xhat * m2)
+    d = x.shape[-1]
+    return dx.to(x.dtype), (gf * xhat).reshape(-1, d).sum(0), gf.reshape(-1, d).sum(0)
 
-    res may be None.  scale/bias are [D] (computed in float32); the
-    statistics are float32; y has x's dtype and shape."""
+
+def _ln_fwd(x, res, scale, bias, eps):
     if not on_card("fused_ln_residual", x, res, scale, bias):
         return ln_residual_plain(x, res, scale, bias, eps)
     check_operand("fused_ln_residual", "x", x)
@@ -100,11 +131,66 @@ def fused_ln_residual(x, res, scale, bias, eps):
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
-    _build.call("ptt_ln_residual_fwd", x.data_ptr(), res.data_ptr() if res is not None else None,
-                scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // max(d, 1), d,
-                float(eps), _DTYPE_CODE[x.dtype], stream_ptr(x))
+    _build.call("ptt_ln_residual_fwd", x.data_ptr(), _ptr(res), scale.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), x.numel() // max(d, 1), d, float(eps),
+                _DTYPE_CODE[x.dtype], stream_ptr(x))
     LAUNCHES["ln_residual_fwd"] += 1
     return out
+
+
+def ln_residual_bwd(x, res, scale, g, eps):
+    """(dx, dscale, dbias) of fused_ln_residual: the kernel on the card, the
+    plain backward on the CPU."""
+    if not on_card("fused_ln_residual backward", x, res, scale, g):
+        return ln_residual_bwd_plain(x, res, scale, g, eps)
+    name = "fused_ln_residual backward"
+    check_operand(name, "x", x)
+    check_operand(name, "g", g, x.dtype)
+    if res is not None:
+        check_operand(name, "res", res, x.dtype)
+    d = x.shape[-1]
+    if g.shape != x.shape or (res is not None and res.shape != x.shape):
+        raise ValueError(f"{name}: x, res and g must share a shape")
+    if d > LN_BWD_MAX_D:
+        raise ValueError(f"{name}: rows of {d} > {LN_BWD_MAX_D} are not supported by the kernel")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dsdb = torch.zeros(2, d, dtype=torch.float32, device=x.device)
+    if rows:
+        n_blocks = _row_blocks(rows, 16, 2 * 132)
+        part = torch.empty(2, n_blocks, d, dtype=torch.float32, device=x.device)
+        scale = scale.float().contiguous()
+        _build.call("ptt_ln_residual_bwd", x.data_ptr(), _ptr(res), scale.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), part.data_ptr(), dsdb.data_ptr(), rows, d,
+                    float(eps), n_blocks, _DTYPE_CODE[x.dtype], stream_ptr(x))
+        LAUNCHES["ln_residual_bwd"] += 1
+    return dx, dsdb[0], dsdb[1]
+
+
+class _LNResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, res, scale, bias, eps):
+        ctx.save_for_backward(x, res, scale)
+        ctx.eps = eps
+        ctx.bias_dtype = bias.dtype
+        return _ln_fwd(x, res, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, res, scale = ctx.saved_tensors
+        dx, ds, db = ln_residual_bwd(x, res, scale, g.contiguous(), ctx.eps)
+        dres = None if res is None or not ctx.needs_input_grad[1] else dx.to(res.dtype)
+        return dx, dres, ds.to(scale.dtype), db.to(ctx.bias_dtype), None
+
+
+def fused_ln_residual(x, res, scale, bias, eps):
+    """y = LayerNorm(x + res) * scale + bias over the LAST axis.
+
+    res may be None.  scale/bias are [D] (computed in float32); the
+    statistics are float32; y has x's dtype and shape.  The backward
+    recomputes the statistics (only x, res and scale are saved) and gives
+    dres = dx."""
+    return _LNResidual.apply(x, res, scale, bias, eps)
 
 
 # --------------------------------------------------------------------------
@@ -120,11 +206,23 @@ def bias_act_plain(x, b, act="gelu"):
     return y.to(x.dtype)
 
 
-def fused_bias_act(x, bias, act="gelu"):
-    """y = act(x + bias) with bias [D] broadcast over the rows of x:[R, D];
-    act in ("relu", "gelu"), gelu the exact erf form."""
-    if act not in _ACT_CODE:
-        raise ValueError(f"fused_bias_act: act must be relu or gelu, got {act!r}")
+def _act_grad(z, act):
+    """paddle_tpu/ops/pallas_kernels.py _act_grad: relu's step, or exact
+    gelu's Phi(z) + z * phi(z)."""
+    if act == "relu":
+        return (z > 0.0).float()
+    phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(z * 2.0 ** -0.5)) + z * phi
+
+
+def bias_act_bwd_plain(x, b, g, act="gelu"):
+    """The arithmetic of _bias_act_bwd_kernel: dz = g * act'(x + b) in
+    float32; returns (dx in x.dtype, dbias float32 [D])."""
+    dz = g.float() * _act_grad(x.float() + b.float(), act)
+    return dz.to(x.dtype), dz.sum(0)
+
+
+def _bias_act_fwd(x, bias, act):
     if not on_card("fused_bias_act", x, bias):
         return bias_act_plain(x, bias, act)
     check_operand("fused_bias_act", "x", x)
@@ -137,3 +235,193 @@ def fused_bias_act(x, bias, act="gelu"):
                 x.shape[0], x.shape[1], _ACT_CODE[act], _DTYPE_CODE[x.dtype], stream_ptr(x))
     LAUNCHES["bias_act_fwd"] += 1
     return out
+
+
+def bias_act_bwd(x, bias, g, act):
+    """(dx, dbias) of fused_bias_act: the kernel on the card, the plain
+    backward on the CPU."""
+    name = "fused_bias_act backward"
+    if not on_card(name, x, bias, g):
+        return bias_act_bwd_plain(x, bias, g, act)
+    check_operand(name, "x", x)
+    check_operand(name, "g", g, x.dtype)
+    if x.dim() != 2 or g.shape != x.shape or bias.shape != (x.shape[1],):
+        raise ValueError(f"{name}: x and g must be [R, D] and bias [D]")
+    rows, d = x.shape
+    dx = torch.empty_like(x)
+    db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if rows:
+        n_blocks = _row_blocks(rows, 16, max(1, 4 * 132 // -(-d // 1024)))
+        part = torch.empty(n_blocks, d, dtype=torch.float32, device=x.device)
+        bias = bias.float().contiguous()
+        _build.call("ptt_bias_act_bwd", x.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), part.data_ptr(), db.data_ptr(), rows, d, _ACT_CODE[act],
+                    n_blocks, _DTYPE_CODE[x.dtype], stream_ptr(x))
+        LAUNCHES["bias_act_bwd"] += 1
+    return dx, db
+
+
+class _BiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, act):
+        ctx.save_for_backward(x, bias)
+        ctx.act = act
+        return _bias_act_fwd(x, bias, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        dx, db = bias_act_bwd(x, bias, g.contiguous(), ctx.act)
+        return dx, db.to(bias.dtype), None
+
+
+def fused_bias_act(x, bias, act="gelu"):
+    """y = act(x + bias) with bias [D] broadcast over the rows of x:[R, D];
+    act in ("relu", "gelu"), gelu the exact erf form.  The backward
+    recomputes the pre-activation (only x and bias are saved)."""
+    if act not in _ACT_CODE:
+        raise ValueError(f"fused_bias_act: act must be relu or gelu, got {act!r}")
+    return _BiasAct.apply(x, bias, act)
+
+
+# --------------------------------------------------------------------------
+# softmax + cross-entropy (hard labels)
+# --------------------------------------------------------------------------
+
+
+def softmax_xent_fwd_plain(logits, labels, ignore_index=-100):
+    """The arithmetic of paddle_tpu/ops/pallas_kernels.py _sxe_fwd_kernel:
+    loss = lse(x) - x[label] in float32, 0 where label == ignore_index (and
+    a label outside [0, V) picks 0).  Returns (loss [R], lse [R]), both
+    float32; the kernel saves lse for its backward."""
+    xf = logits.float()
+    m = xf.max(-1, keepdim=True).values
+    lse = (torch.log(torch.exp(xf - m).sum(-1, keepdim=True)) + m)[:, 0]
+    v = logits.shape[-1]
+    lab = labels.long()
+    inside = (lab >= 0) & (lab < v)
+    picked = xf.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    loss = torch.where(lab == ignore_index, torch.zeros_like(lse), lse - picked)
+    return loss, lse
+
+
+def softmax_xent_bwd_plain(logits, labels, lse, g, ignore_index=-100):
+    """The arithmetic of _sxe_bwd_kernel, with the softmax taken from the
+    saved lse: dx = (exp(x - lse) - onehot(label)) * g, 0 on ignored rows,
+    in logits' dtype."""
+    xf = logits.float()
+    lab = labels.long()
+    v = logits.shape[-1]
+    onehot = torch.arange(v, device=logits.device)[None, :] == lab[:, None]
+    dx = (torch.exp(xf - lse[:, None]) - onehot.float()) * g.float()[:, None]
+    dx = torch.where((lab == ignore_index)[:, None], torch.zeros_like(dx), dx)
+    return dx.to(logits.dtype)
+
+
+def _check_xent(name, logits, labels):
+    if logits.dim() != 2 or labels.shape != (logits.shape[0],):
+        raise ValueError(f"{name}: logits must be [R, V] and labels [R], got "
+                         f"{tuple(logits.shape)} and {tuple(labels.shape)}")
+    check_operand(name, "logits", logits)
+
+
+def softmax_xent_fwd(logits, labels, ignore_index=-100):
+    """(loss [R], lse [R]) float32: the kernel on the card, the plain
+    version on the CPU.  Labels are taken as int32 (the x32 rule)."""
+    name = "fused_softmax_xent"
+    if not on_card(name, logits, labels):
+        return softmax_xent_fwd_plain(logits, labels, ignore_index)
+    _check_xent(name, logits, labels)
+    labels = labels.to(torch.int32).contiguous()
+    rows, v = logits.shape
+    loss = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    _build.call("ptt_softmax_xent_fwd", logits.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+                lse.data_ptr(), rows, v, int(ignore_index), _DTYPE_CODE[logits.dtype],
+                stream_ptr(logits))
+    LAUNCHES["softmax_xent_fwd"] += 1
+    return loss, lse
+
+
+def softmax_xent_bwd(logits, labels, lse, g, ignore_index=-100):
+    """d(loss)/d(logits) for the upstream g [R]: the kernel on the card,
+    the plain backward on the CPU."""
+    name = "fused_softmax_xent backward"
+    if not on_card(name, logits, labels, lse, g):
+        return softmax_xent_bwd_plain(logits, labels, lse, g, ignore_index)
+    _check_xent(name, logits, labels)
+    labels = labels.to(torch.int32).contiguous()
+    g = g.float().contiguous()
+    if lse.shape != labels.shape or g.shape != labels.shape or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse and g must be float32 [{labels.shape[0]}]")
+    dx = torch.empty_like(logits)
+    rows, v = logits.shape
+    _build.call("ptt_softmax_xent_bwd", logits.data_ptr(), labels.data_ptr(),
+                lse.contiguous().data_ptr(), g.data_ptr(), dx.data_ptr(), rows, v,
+                int(ignore_index), _DTYPE_CODE[logits.dtype], stream_ptr(logits))
+    LAUNCHES["softmax_xent_bwd"] += 1
+    return dx
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_index):
+        loss, lse = softmax_xent_fwd(logits, labels, ignore_index)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.ignore_index = ignore_index
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return softmax_xent_bwd(logits, labels, lse, g.contiguous(), ctx.ignore_index), None, None
+
+
+def fused_softmax_xent(logits, labels, ignore_index=-100):
+    """loss[i] = logsumexp(logits[i]) - logits[i, labels[i]].
+
+    logits: [R, V]; labels: [R] integer.  Loss is float32 [R, 1]; rows whose
+    label equals ignore_index get zero loss and zero gradient.  The softmax
+    is never materialized."""
+    return _SoftmaxXent.apply(logits, labels, int(ignore_index))[:, None]
+
+
+# --------------------------------------------------------------------------
+# Adam
+# --------------------------------------------------------------------------
+
+
+def adam_plain(p, g, m, v, lr_t, beta1, beta2, eps):
+    """paddle_tpu/ops/pallas_kernels.py _adam_kernel: one Adam step in
+    float32 with the bias-corrected step size lr_t given; returns new
+    (p, m, v) in the dtypes of the inputs."""
+    gf = g.float()
+    m2 = beta1 * m.float() + (1.0 - beta1) * gf
+    v2 = beta2 * v.float() + (1.0 - beta2) * (gf * gf)
+    p2 = p.float() - lr_t * m2 / (torch.sqrt(v2) + eps)
+    return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
+
+
+def fused_adam(p, g, m, v, lr_t, beta1, beta2, eps):
+    """One Adam step over a parameter of any shape and size; lr_t is a
+    float32 tensor of one element, read by the kernel on the device.
+
+    On the card p, m and v are updated in place and returned; on the CPU
+    the plain version returns new tensors."""
+    name = "fused_adam"
+    if not on_card(name, p, g, m, v, lr_t):
+        return adam_plain(p, g, m, v, lr_t.reshape(()).float(), beta1, beta2, eps)
+    check_operand(name, "p", p)
+    check_operand(name, "g", g)
+    check_operand(name, "m", m)
+    check_operand(name, "v", v, m.dtype)
+    if not (p.shape == g.shape == m.shape == v.shape):
+        raise ValueError(f"{name}: p, g, m and v must share a shape")
+    if lr_t.numel() != 1 or lr_t.dtype != torch.float32:
+        raise ValueError(f"{name}: lr_t must be one float32")
+    _build.call("ptt_adam", p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                lr_t.contiguous().data_ptr(), p.numel(), float(beta1), float(beta2), float(eps),
+                _DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype], _DTYPE_CODE[m.dtype], stream_ptr(p))
+    LAUNCHES["adam"] += 1
+    return p, m, v

@@ -1,5 +1,5 @@
 """Math lowerings: elementwise_add (with the fused bias-act epilogue),
-activations, mul and matmul (counterpart of paddle_tpu/ops/math_ops.py).
+activations, mean, mul and matmul (counterpart of paddle_tpu/ops/math_ops.py).
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -52,6 +52,12 @@ def _elementwise_add(ctx, op, ins):
         out = fused_bias_act(x.reshape(-1, x.shape[-1]), y, act)
         return {"Out": out.reshape(x.shape)}
     return {"Out": _UNARY[act](_add(op, ins))}
+
+
+@register_op("mean")
+def _mean(ctx, op, ins):
+    # a (1,) tensor, as the reference's mean_op
+    return {"Out": torch.mean(first(ins, "X")).reshape(1)}
 
 
 @register_op("mul")

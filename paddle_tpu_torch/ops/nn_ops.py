@@ -1,5 +1,5 @@
-"""NN lowerings of the serving slice: lookup_table, layer_norm (with the
-fused residual), dropout at inference, softmax and fused_attention
+"""NN lowerings: lookup_table, layer_norm (with the fused residual),
+dropout, softmax, softmax_with_cross_entropy and fused_attention
 (counterpart of paddle_tpu/ops/nn_ops.py)."""
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 from ..core.registry import register_op
 from .common import first, flatten_lookup_ids, match_dtype
 from .cuda_attention import MAX_SEQ, fused_sdpa, sdpa_plain
-from .cuda_kernels import fused_ln_residual
+from .cuda_kernels import fused_ln_residual, fused_softmax_xent
 
 
 @register_op("lookup_table")
@@ -66,25 +66,71 @@ def _layer_norm(ctx, op, ins):
 
 @register_op("dropout")
 def _dropout(ctx, op, ins):
-    """Inference only: identity under upscale_in_train, x * (1 - p) under
-    downgrade_in_infer.  Training-mode dropout comes with the training slice."""
+    """Training: keep each element with probability 1 - p, drawn from the
+    run's generator (or a generator seeded by the op's `seed` under
+    fix_seed); upscale_in_train scales the kept ones by 1 / (1 - p).
+    Inference: identity under upscale_in_train, x * (1 - p) under
+    downgrade_in_infer.  The Mask slot is built only when something reads it."""
     x = first(ins, "X")
-    if not (op.attr("is_test", False) or ctx.is_test):
-        raise NotImplementedError(
-            "dropout with is_test=False comes with the training slice; serve a "
-            "program.clone(for_test=True)")
     p = op.attr("dropout_prob", 0.5)
-    if op.attr("dropout_implementation", "downgrade_in_infer") == "upscale_in_train":
-        out = x
+    upscale = op.attr("dropout_implementation", "downgrade_in_infer") == "upscale_in_train"
+    if op.attr("is_test", False) or ctx.is_test:
+        out = x if upscale else x * (1.0 - p)
+        mask = torch.ones_like(x) if ctx.wants(op, "Mask") else None
+        return {"Out": out, "Mask": mask}
+    gen = ctx.generator
+    if op.attr("fix_seed", False):
+        gen = torch.Generator(device=x.device).manual_seed(int(op.attr("seed", 0)))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    if upscale:
+        out = torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
     else:
-        out = x * (1.0 - p)
-    mask = torch.ones_like(x) if ctx.wants(op, "Mask") else None
+        out = x * keep.to(x.dtype)
+    mask = keep.to(x.dtype) if ctx.wants(op, "Mask") else None
     return {"Out": out, "Mask": mask}
 
 
 @register_op("softmax")
 def _softmax(ctx, op, ins):
     return {"Out": torch.softmax(first(ins, "X"), dim=op.attr("axis", -1))}
+
+
+@register_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ctx, op, ins):
+    """loss = lse(x) - x[label], reductions in float32.
+
+    Hard labels over >= 2-D logits whose Softmax slot nothing reads take
+    ops/cuda_kernels.py fused_softmax_xent (the kernel on the card, its plain
+    version on the CPU).  Every other case, soft labels included, takes the
+    composite, which builds Softmax only when it is read."""
+    logits = first(ins, "Logits")
+    label = first(ins, "Label")
+    ignore = int(op.attr("ignore_index", -100))
+    if not op.attr("soft_label", False) and logits.dim() >= 2 and not ctx.wants(op, "Softmax"):
+        lab = label
+        if lab.dim() == logits.dim() and lab.shape[-1] == 1:
+            lab = lab[..., 0]
+        lead = tuple(logits.shape[:-1])
+        loss = fused_softmax_xent(logits.reshape(-1, logits.shape[-1]), lab.reshape(-1), ignore)
+        return {"Loss": loss.reshape(lead + (1,))}
+    # the max shift is a constant for autodiff, as jax.lax.stop_gradient
+    m = logits.max(-1, keepdim=True).values.detach()
+    shifted = (logits - m).float()
+    sumexp = torch.exp(shifted).sum(-1, keepdim=True)
+    lse = torch.log(sumexp) + m.float()
+    softmax = (torch.exp(shifted) / sumexp).to(logits.dtype) if ctx.wants(op, "Softmax") else None
+    if op.attr("soft_label", False):
+        # -sum(label * (x - lse)) = lse*sum(label) - sum(label*x)
+        wx = (label * logits).float().sum(-1, keepdim=True)
+        loss = lse * label.float().sum(-1, keepdim=True) - wx
+    else:
+        idx = label if label.dim() == logits.dim() and label.shape[-1] == 1 else label[..., None]
+        onehot = torch.arange(logits.shape[-1], device=logits.device) == idx
+        picked = torch.where(onehot, logits, torch.zeros((), dtype=logits.dtype,
+                                                         device=logits.device))
+        loss = lse - picked.float().sum(-1, keepdim=True)
+        loss = torch.where(idx == ignore, torch.zeros_like(loss), loss)
+    return {"Loss": loss, "Softmax": softmax}
 
 
 @register_op("fused_attention")

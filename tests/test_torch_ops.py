@@ -71,6 +71,23 @@ CASES = [
      {"Q": F32(2, 2, 5, 8), "K": F32(2, 2, 7, 8), "V": F32(2, 2, 7, 8), "Bias": F32(2, 1, 5, 7)},
      {"causal": True, "scale": 0.3}, ["Out"], 1e-5),
     ("fill_constant", "fill_constant", {}, {"shape": [2, 3], "dtype": "float32", "value": 2.5}, ["Out"], 0.0),
+    ("mean", "mean", {"X": F32(3, 4, 5)}, {}, ["Out"], 1e-6),
+    ("xent_hard", "softmax_with_cross_entropy",
+     {"Logits": F32(6, 9) * 3, "Label": np.array([[0], [8], [-100], [3], [-100], [5]])},
+     {"ignore_index": -100}, ["Loss"], 1e-5),
+    ("xent_rank1_label", "softmax_with_cross_entropy",
+     {"Logits": F32(4, 7), "Label": np.array([1, 6, 0, 2])}, {}, ["Loss"], 1e-5),
+    ("xent_softmax_read", "softmax_with_cross_entropy",
+     {"Logits": F32(5, 7), "Label": np.array([[1], [6], [0], [2], [3]])}, {}, ["Loss", "Softmax"],
+     1e-5),
+    ("xent_soft", "softmax_with_cross_entropy",
+     {"Logits": F32(5, 7), "Label": np.abs(F32(5, 7)) / 7}, {"soft_label": True}, ["Loss"], 1e-5),
+    ("adam", "adam",
+     {"Param": F32(4, 6), "Grad": F32(4, 6) * 0.1, "Moment1": F32(4, 6) * 0.01,
+      "Moment2": np.abs(F32(4, 6)) * 1e-3, "Beta1Pow": np.array([0.9 ** 3], np.float32),
+      "Beta2Pow": np.array([0.999 ** 3], np.float32), "LearningRate": np.array([0.01], np.float32)},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+     ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"], 1e-6),
 ]
 
 
@@ -117,8 +134,15 @@ def test_random_ops_by_moments(op_type, attrs, mean, std):
 
 
 def test_training_mode_dropout_is_not_ported():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _run(tfluid, "dropout", {"X": F32(2, 2)}, {"is_test": False}, ["Out"])
+    """The name dates from when training-mode dropout was refused; it is
+    ported now.  The two packages' random streams differ; the kept share and
+    the upscaled values agree."""
+    x = np.ones((300, 200), np.float32)
+    attrs = {"is_test": False, "dropout_prob": 0.25, "dropout_implementation": "upscale_in_train"}
+    for fluid in (jfluid, tfluid):
+        out, mask = _run(fluid, "dropout", {"X": x}, attrs, ["Out", "Mask"])
+        assert abs(mask.mean() - 0.75) < 0.01
+        np.testing.assert_allclose(out, mask / 0.75, rtol=1e-6)
 
 
 def test_unknown_op_names_close_matches():

@@ -237,9 +237,38 @@ def test_missing_startup_state_is_named(tmp_path):
                                                scope=tfluid.Scope())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_builders_emit_the_same_ops(dtype):
+    """build_bert(with_optimizer=True): the same op types, slots and attrs in
+    both packages, the backward op and the Adam updates and their startup
+    fill_constants included."""
+    config = dict(TINY, with_optimizer=True, use_fused_attention=False)
+    progs = []
+    for unique, transformer in ((j_unique, j_transformer), (t_unique, t_transformer)):
+        with unique.guard():
+            main, startup, _, _ = transformer.build_bert(dtype=dtype, **config)
+        progs.append((main, startup))
+    (jm, js), (tm, ts) = progs
+    for a, b in ((jm, tm), (js, ts)):
+        assert a.to_dict()["blocks"][0]["ops"] == b.to_dict()["blocks"][0]["ops"]
+    types = [op.type for op in tm.global_block().ops]
+    assert types.count("backward") == 1 and types.count("adam") == len(tm.all_parameters())
+
+
 def test_training_program_is_refused():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_transformer.build_bert(**dict(TINY, with_optimizer=True))
+    """A training program the port cannot run yet is refused, naming what is
+    missing: SelectedRows gradients of is_sparse embeddings (ROADMAP A5)."""
+    main, startup = TProgram(), TProgram()
+    with t_unique.guard(), tfluid.program_guard(main, startup):
+        ids = tfluid.layers.data("ids", [4], dtype="int64")
+        emb = tfluid.layers.embedding(ids, [10, 3], is_sparse=True)
+        loss = tfluid.layers.mean(emb)
+        tfluid.optimizer.Adam(0.1).minimize(loss)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        exe.run(main, feed={"ids": np.zeros((2, 4), np.int64)}, fetch_list=[loss], scope=scope)
 
 
 def test_host_arrays_in_scope_are_moved_to_the_place():
