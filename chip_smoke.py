@@ -26,7 +26,9 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      Adam 198); one more step runs under torch.profiler;
   7. train parity: a float32 BERT-base (2 layers, dropout 0) trained 3 Adam
      steps on the card and on the CPU from the same numpy state must agree in
-     the losses (1e-3) and in every parameter (2*lr*steps + 1e-5).
+     the losses (1e-3), in every parameter (1e-5, save where the CPU's
+     gradient is 0 to rounding: 2*lr*steps + 1e-5) and in the moments (1e-4
+     of the largest of their kind).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -60,12 +62,20 @@ PER_STEP = {"ln_residual_fwd": 25, "ln_residual_bwd": 25, "bias_act_fwd": 12, "b
 TRAIN_STEPS = 6
 PARITY_STEPS = 3
 LR = 1e-4
+ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
-# tests); gradients: grad_tol below
+# tests), save the loss and lse of the cross-entropy, which are float32 on both
+# sides whatever the logits' type; gradients: grad_tol below; the cross-entropy
+# backward and Adam element by element (check_within)
 TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4,
-                   "softmax_xent_fwd": 2e-5, "adam": 2e-6},
+                   "softmax_xent_fwd": 2e-5},
        "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2,
-                    "softmax_xent_fwd": 5e-2, "adam": 1e-2}}
+                    "softmax_xent_fwd": 2e-5}}
+XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+# Adam: the float32 arithmetic of each output, a few roundings of the terms
+# that make it, plus one rounding of a stored bfloat16 value
+F32_ERR = 2.0 ** -20
+STORED_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 KERNEL_INFO = {
     "ln_residual_fwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:170"),
     "ln_residual_bwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:200"),
@@ -104,6 +114,23 @@ def check(kernel, what, dtype, case, got, want, tol):
     if not err <= tol:
         raise AssertionError(f"{kernel} {what} {case} {dtype}: max |kernel - plain| "
                              f"{err} > {tol}")
+    return err
+
+
+def check_within(kernel, what, dtype, case, got, want, allowed, rule):
+    """Hold a kernel's output against its plain version's element by element:
+    |got - want| <= allowed (a tensor of want's shape); raise past it."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    share = float((diff / allowed).max())
+    emit({"check": kernel, "out": what, "dtype": dname(dtype), "case": case,
+          "max_abs_err": err, "rule": rule, "worst_share_of_allowed": share})
+    if not share <= 1.0:
+        raise AssertionError(f"{kernel} {what} {case} {dtype}: |kernel - plain| exceeds "
+                             f"{rule} by a factor {share} (max abs {err})")
     return err
 
 
@@ -320,9 +347,26 @@ def check_train_kernels(torch, ck):
         check("softmax_xent_fwd", "lse of labelled rows", dtype, case, lse[live], lse_p[live],
               TOL[dn]["softmax_xent_fwd"])
         g = 1.0 + torch.rand(4096, generator=gen, device=dev)
-        dx = ck.softmax_xent_bwd(logits, labels, lse, g, -100)
-        dx_p = ck.softmax_xent_bwd_plain(logits, labels, lse_p, g, -100)
-        err_b = check("softmax_xent_bwd", "dlogits", dtype, case, dx, dx_p, grad_tol(dn, dx_p))
+
+        def xent_bwd_check(case, x, lab, lse_ref):
+            # both sides take the same lse, so this holds the backward alone;
+            # both compute in float32 and round once to the logits' type
+            dx = ck.softmax_xent_bwd(x, lab, lse_ref, g[:x.shape[0]], -100)
+            dx_p = ck.softmax_xent_bwd_plain(x, lab, lse_ref, g[:x.shape[0]], -100)
+            rel = XENT_BWD_REL[dn]
+            return check_within("softmax_xent_bwd", "dlogits", dtype, case, dx, dx_p,
+                                rel * dx_p.float().abs() + 1e-12, f"{rel:g}*|plain| + 1e-12")
+
+        err_b = xent_bwd_check(case, logits, labels, lse_p)
+        # a contiguous view that starts one element off the 16-byte grid:
+        # the backward writes its fresh, aligned dx element by element
+        off = randn(64 * V + 1, dtype=dtype, s=2.0)[1:].view(64, V)
+        off_case = f"[64,{V}] view one element off the 16-byte grid"
+        off_loss, off_lse = ck.softmax_xent_fwd(off, labels[:64], -100)
+        off_loss_p, off_lse_p = ck.softmax_xent_fwd_plain(off, labels[:64], -100)
+        check("softmax_xent_fwd", "loss", dtype, off_case, off_loss, off_loss_p,
+              TOL[dn]["softmax_xent_fwd"])
+        xent_bwd_check(off_case, off, labels[:64], off_lse_p)
         if dtype == torch.bfloat16:
             n_live = int(live.sum())
             row = V * logits.element_size()
@@ -349,17 +393,30 @@ def check_train_kernels(torch, ck):
                                                                retain_graph=True)),
                 library="backward of F.cross_entropy(reduction='none', ignore_index=-100)",
                 bound_ms=b_ms, bound_by=b_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
-        # Adam: the token embedding (30522 x 768) and an odd size
+        # Adam: the token embedding (30522 x 768) and an odd size.  Weights at
+        # BERT's init scale, g^2 of v's order, so that one step moves p, m and v
+        # each by about 1e3 times the allowance: each output must agree to
+        # F32_ERR of the magnitudes of its terms (p: p and the step taken
+        # without cancellation; m: b1*m and (1-b1)*g; v: b2*v and (1-b2)*g^2),
+        # plus one rounding where it is stored in bfloat16
         for n in (23_440_896, 1_000_003):
-            p = randn(n, dtype=dtype, s=0.25)  # |p| < 2: a bf16 ulp stays under the tolerance
+            p = randn(n, dtype=dtype, s=0.02)
             g = randn(n, dtype=dtype, s=0.01)
-            m = randn(n, s=0.001)
-            v = torch.rand(n, generator=gen, device=dev) * 1e-4
+            m = randn(n, s=0.01)
+            v = (0.5 + torch.rand(n, generator=gen, device=dev)) * 1e-4
             lr_t = torch.full((1,), 1e-3, device=dev)
             want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
             got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
-            errs = [check("adam", w, dtype, f"n={n}", a, c, TOL[dn]["adam"])
-                    for w, a, c in zip(("p", "m", "v"), got, want)]
+            gf = g.float()
+            terms_m = 0.9 * m.abs() + 0.1 * gf.abs()
+            terms_v = 0.999 * v + 0.001 * gf * gf
+            terms_p = p.float().abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8)
+            errs = []
+            for what, terms, a, c in zip(("p", "m", "v"), (terms_p, terms_m, terms_v), got, want):
+                ulp = STORED_ULP[dname(c.dtype)]
+                allowed = F32_ERR * terms + ulp * c.float().abs() + 1e-30
+                errs.append(check_within("adam", what, dtype, f"n={n}", a, c, allowed,
+                                         f"2^-20*|terms| + {ulp:g}*|plain|"))
             if dtype == torch.float32 and n == 23_440_896:
                 step = torch.zeros((), device=dev)
                 b_ms, b_by = bound(nbytes(p, m, v, g, p, m, v), 10.0 * n, F32_FLOPS)
@@ -580,10 +637,12 @@ def train(fluid, torch, ck, card):
 def train_parity(fluid, torch):
     """Phase 7: float32 BERT-base (2 layers, dropout 0) trains PARITY_STEPS Adam
     steps on the card and on the CPU (plain path) from the same numpy state.
-    The losses must agree to 1e-3 and every parameter to 2*lr*steps + 1e-5: at
-    the first step Adam's m/sqrt(v) is +-1 wherever a gradient is near 0, so the
-    summation order can flip its sign, and no step moves a weight by more than
-    about lr."""
+    The losses must agree to 1e-3; every parameter to 1e-5, save the elements
+    whose CPU gradient lies within ZERO_GRAD of the model's largest at some
+    step: Adam's first step moves a weight by lr * g / (|g| + eps), so where g
+    is 0 to rounding the summation order can flip the step's sign, and those
+    keep the bound 2*lr*steps + 1e-5.  The moments must agree to 1e-4 of the
+    largest of their kind."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
@@ -595,29 +654,58 @@ def train_parity(fluid, torch):
         if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
             state[name] = np.ones_like(state[name])
     feed = make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1))
+    params = [p.name for p in main.all_parameters()]
+    near_zero = {}  # param -> elements whose CPU gradient is 0 to rounding at some step
     runs = []
     for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
         scope = fluid.Scope()
         fluid.io.load_numpy_params(scope, state, device=place.device)
         exe = fluid.Executor(place)
-        losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
-                  for _ in range(PARITY_STEPS)]
+        on_cpu = isinstance(place, fluid.CPUPlace)
+        losses = []
+        for _ in range(PARITY_STEPS):
+            out = exe.run(main, feed=feed, scope=scope, fetch_list=[loss] + (
+                [f"{p}@GRAD" for p in params] if on_cpu else []))
+            losses.append(float(out[0].reshape(-1)[0]))
+            if on_cpu:
+                peak = max(float(np.abs(g).max()) for g in out[1:])
+                for p, g in zip(params, out[1:]):
+                    small = np.abs(g) <= ZERO_GRAD * peak
+                    near_zero[p] = small | near_zero[p] if p in near_zero else small
         runs.append((losses, scope))
     (gl, gs), (cl, cs) = runs
     dloss = max(abs(a - b) for a, b in zip(gl, cl))
-    tol = 2 * LR * PARITY_STEPS + 1e-5
-    worst_p = max((float(np.abs(gs.to_numpy(p.name) - cs.to_numpy(p.name)).max()), p.name)
-                  for p in main.all_parameters())
-    worst_m = max(float(np.abs(gs.to_numpy(n) - cs.to_numpy(n)).max())
-                  for n in state if "moment" in n)
+    flip_tol, param_tol = 2 * LR * PARITY_STEPS + 1e-5, 1e-5
+    worst_p, worst_flip, n_excused = (0.0, ""), 0.0, 0
+    for p in params:
+        err = np.abs(gs.to_numpy(p) - cs.to_numpy(p))
+        held = err[~near_zero[p]]
+        worst_p = max(worst_p, (float(held.max()) if held.size else 0.0, p))
+        worst_flip = max(worst_flip, float(err.max()))
+        n_excused += int(near_zero[p].sum())
+    moments = {}
+    for kind in ("moment1", "moment2"):
+        names = [n for n in state if n.endswith(f"_{kind}_0")]
+        peak = max(float(np.abs(cs.to_numpy(n)).max()) for n in names)
+        worst = max(float(np.abs(gs.to_numpy(n) - cs.to_numpy(n)).max()) for n in names)
+        moments[kind] = (worst, 1e-4 * peak)
     emit({"phase": "train_parity", "model": "bert-base f32, 2 layers, dropout 0",
           "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss, "loss_tol": 1e-3,
-          "max_abs_dparam": worst_p[0], "param": worst_p[1], "param_tol": tol,
-          "max_abs_dmoment": worst_m})
+          "max_abs_dparam": worst_p[0], "param": worst_p[1], "param_tol": param_tol,
+          "elements_with_gradient_0_to_rounding": n_excused,
+          "max_abs_dparam_all": worst_flip, "sign_flip_tol": flip_tol,
+          "max_abs_dmoment": {k: w for k, (w, _) in moments.items()},
+          "moment_tol": {k: t for k, (_, t) in moments.items()}})
     if not dloss <= 1e-3:
         raise AssertionError(f"card vs CPU losses differ by {dloss} > 1e-3")
-    if not worst_p[0] <= tol:
-        raise AssertionError(f"card vs CPU parameter {worst_p[1]} differs by {worst_p[0]} > {tol}")
+    if not worst_p[0] <= param_tol:
+        raise AssertionError(f"card vs CPU parameter {worst_p[1]} differs by {worst_p[0]} > "
+                             f"{param_tol}")
+    if not worst_flip <= flip_tol:
+        raise AssertionError(f"card vs CPU parameters differ by {worst_flip} > {flip_tol}")
+    for kind, (worst, tol) in moments.items():
+        if not worst <= tol:
+            raise AssertionError(f"card vs CPU {kind} differs by {worst} > {tol}")
 
 
 def main():

@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry point -> (argtypes, restype)
 SIGNATURES = {
     "ptt_ln_residual_fwd": ([_P, _P, _P, _P, _P, _L, _I, _F, _I, _P], _I),
@@ -43,7 +44,7 @@ SIGNATURES = {
     "ptt_bias_act_bwd": ([_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "ptt_softmax_xent_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_softmax_xent_bwd": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-    "ptt_adam": ([_P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _I, _I, _P], _I),
+    "ptt_adam": ([_P, _P, _P, _P, _P, _L, _D, _D, _F, _I, _I, _I, _P], _I),
     "ptt_sdpa_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }

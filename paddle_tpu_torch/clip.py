@@ -1,27 +1,21 @@
 """Gradient clipping (counterpart of paddle_tpu/clip.py).
 
-`set_gradient_clip` records a clip strategy on the program and
-Optimizer.apply_gradients applies it between the backward and the update,
-as in the JAX package.  The port covers the path without a clip: every
-clip strategy appends ops that have no lowering in the port yet, so
-`minimize` raises and names the first such op.
+`set_gradient_clip` records a clip strategy on the program, as in the JAX
+package.  The port has no lowering yet for the ops a clip appends, so
+Optimizer.apply_gradients refuses a program that has one and names
+`first_op`, the first op the JAX package would append for it.
 """
 from __future__ import annotations
 
 from .core.program import default_main_program
-from .core.regularizer import require_lowerings
 
 
 class BaseGradientClipAttr:
-    op_types: tuple = ()
-
-    def _append_clip_op(self, params_grads):
-        require_lowerings(type(self).__name__, self.op_types)
-        raise NotImplementedError(f"{type(self).__name__} is not ported yet")
+    first_op = ""
 
 
 class GradientClipByValue(BaseGradientClipAttr):
-    op_types = ("clip",)
+    first_op = "clip"
 
     def __init__(self, max, min=None):
         self.max = float(max)
@@ -29,37 +23,21 @@ class GradientClipByValue(BaseGradientClipAttr):
 
 
 class GradientClipByNorm(BaseGradientClipAttr):
-    op_types = ("clip_by_norm",)
+    first_op = "clip_by_norm"
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
 
 class GradientClipByGlobalNorm(BaseGradientClipAttr):
-    op_types = ("square", "reduce_sum", "sum", "sqrt", "fill_constant", "elementwise_max",
-                "elementwise_div", "elementwise_mul")
+    first_op = "square"
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
 
 def set_gradient_clip(clip, param_list=None, program=None):
-    """Record the clip strategy on the program; Optimizer.apply_gradients applies it."""
+    """Record the clip strategy on the program.  Optimizer.apply_gradients
+    refuses any clip until its ops are ported, whatever `param_list` names."""
     program = program or default_main_program()
     program._grad_clip = clip
-    program._grad_clip_params = (
-        {p if isinstance(p, str) else p.name for p in param_list} if param_list else None
-    )
-
-
-def append_gradient_clip_ops(params_grads):
-    program = default_main_program()
-    clip = getattr(program, "_grad_clip", None)
-    if clip is None:
-        return params_grads
-    only = getattr(program, "_grad_clip_params", None)
-    if only is None:
-        return clip._append_clip_op(params_grads)
-    subset = [(p, g) for p, g in params_grads if p.name in only]
-    rest = [(p, g) for p, g in params_grads if p.name not in only]
-    return clip._append_clip_op(subset) + rest

@@ -1,48 +1,26 @@
 """Weight-decay regularizers (counterpart of paddle_tpu/core/regularizer.py).
 
-`append_regularization_ops`, called by Optimizer.apply_gradients, is where
-the JAX package appends grad := grad + penalty ops.  The port covers the
-path without a regularizer; every regularizer appends ops that have no
-lowering in the port yet, so `minimize` raises and names the first such op.
+The port has no lowering yet for the ops a regularizer appends, so these
+classes only carry their settings: Optimizer.apply_gradients refuses a
+parameter that has one and names `first_op`, the first op the JAX package
+would append for it.
 """
 from __future__ import annotations
 
-from .registry import registered_ops
-
-
-def require_lowerings(what: str, op_types) -> None:
-    """Raise NotImplementedError naming the first of `op_types` that the
-    port cannot lower, so a program that could not run is refused when it
-    is built."""
-    have = set(registered_ops())
-    for t in op_types:
-        if t not in have:
-            raise NotImplementedError(
-                f"{what} appends op {t!r}, which has no lowering in paddle_tpu_torch yet")
-
 
 class Regularizer:
-    op_types: tuple = ()
+    first_op = ""
 
     def __init__(self, regularization_coeff: float = 0.0):
         self.coeff = regularization_coeff
 
 
 class L2DecayRegularizer(Regularizer):
-    op_types = ("scale", "sum")
+    first_op = "scale"
 
 
 class L1DecayRegularizer(Regularizer):
-    op_types = ("sign", "scale", "sum")
-
-
-def append_regularization_ops(params_grads, regularization=None):
-    for param, _ in params_grads:
-        regularizer = param.regularizer or regularization
-        if regularizer is not None:
-            require_lowerings(type(regularizer).__name__, regularizer.op_types)
-            raise NotImplementedError(f"{type(regularizer).__name__} is not ported yet")
-    return params_grads
+    first_op = "sign"
 
 
 L2Decay = L2DecayRegularizer

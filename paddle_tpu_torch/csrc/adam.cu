@@ -24,13 +24,19 @@
 
 namespace {
 
+// The EMA weights come in pairs: b and 1 - b, the latter rounded once from
+// the double difference as the JAX package's weakly typed `1.0 - beta` is
+// (1 - 0.999f in float would be off by 1.3e-5 relative).
+struct Betas {
+  float b1, omb1, b2, omb2, eps;
+};
+
 template <typename TP, typename TM, typename TG>
-__device__ __forceinline__ void adam_one(TP& p, TM& m, TM& v, TG g, float lr, float b1,
-                                         float b2, float eps) {
+__device__ __forceinline__ void adam_one(TP& p, TM& m, TM& v, TG g, float lr, const Betas& k) {
   const float gf = ptt::to_f32(g);
-  const float mf = b1 * ptt::to_f32(m) + (1.f - b1) * gf;
-  const float vf = b2 * ptt::to_f32(v) + (1.f - b2) * (gf * gf);
-  p = ptt::from_f32<TP>(ptt::to_f32(p) - lr * mf / (sqrtf(vf) + eps));
+  const float mf = k.b1 * ptt::to_f32(m) + k.omb1 * gf;
+  const float vf = k.b2 * ptt::to_f32(v) + k.omb2 * (gf * gf);
+  p = ptt::from_f32<TP>(ptt::to_f32(p) - lr * mf / (sqrtf(vf) + k.eps));
   m = ptt::from_f32<TM>(mf);
   v = ptt::from_f32<TM>(vf);
 }
@@ -38,7 +44,7 @@ __device__ __forceinline__ void adam_one(TP& p, TM& m, TM& v, TG g, float lr, fl
 template <typename TP, typename TM, typename TG, int VEC>
 __global__ void adam_kernel(TP* __restrict__ p, const TG* __restrict__ g, TM* __restrict__ m,
                             TM* __restrict__ v, const float* __restrict__ lr_t, int64_t n,
-                            float b1, float b2, float eps) {
+                            Betas k) {
   const float lr = *lr_t;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -49,17 +55,17 @@ __global__ void adam_kernel(TP* __restrict__ p, const TG* __restrict__ g, TM* __
     ptt::Vec<TM, VEC> vv = reinterpret_cast<ptt::Vec<TM, VEC>*>(v)[i];
     const ptt::Vec<TG, VEC> gv = reinterpret_cast<const ptt::Vec<TG, VEC>*>(g)[i];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) adam_one(pv.v[k], mv.v[k], vv.v[k], gv.v[k], lr, b1, b2, eps);
+    for (int e = 0; e < VEC; ++e) adam_one(pv.v[e], mv.v[e], vv.v[e], gv.v[e], lr, k);
     reinterpret_cast<ptt::Vec<TP, VEC>*>(p)[i] = pv;
     reinterpret_cast<ptt::Vec<TM, VEC>*>(m)[i] = mv;
     reinterpret_cast<ptt::Vec<TM, VEC>*>(v)[i] = vv;
   }
-  for (int64_t j = n_vec * VEC + tid; j < n; j += step) adam_one(p[j], m[j], v[j], g[j], lr, b1, b2, eps);
+  for (int64_t j = n_vec * VEC + tid; j < n; j += step) adam_one(p[j], m[j], v[j], g[j], lr, k);
 }
 
 template <typename TP, typename TM, typename TG>
 cudaError_t launch(void* p, const void* g, void* m, void* v, const void* lr_t, int64_t n,
-                   float b1, float b2, float eps, cudaStream_t stream) {
+                   const Betas& k, cudaStream_t stream) {
   constexpr int kThreads = 256;
   constexpr int kVec = 4;
   const bool vec = ptt::aligned16(p) && ptt::aligned16(g) && ptt::aligned16(m) &&
@@ -76,30 +82,27 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, const void* lr_t, i
   auto* lp = static_cast<const float*>(lr_t);
   if (vec)
     adam_kernel<TP, TM, TG, kVec><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        pp, gp, mp, vp, lp, n, b1, b2, eps);
+        pp, gp, mp, vp, lp, n, k);
   else
     adam_kernel<TP, TM, TG, 1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        pp, gp, mp, vp, lp, n, b1, b2, eps);
+        pp, gp, mp, vp, lp, n, k);
   return cudaGetLastError();
 }
 
 template <typename TP, typename TM>
 cudaError_t dispatch_g(int g_dtype, void* p, const void* g, void* m, void* v, const void* lr_t,
-                       int64_t n, float b1, float b2, float eps, cudaStream_t s) {
-  if (g_dtype == ptt::kFloat32) return launch<TP, TM, float>(p, g, m, v, lr_t, n, b1, b2, eps, s);
-  if (g_dtype == ptt::kBFloat16)
-    return launch<TP, TM, __nv_bfloat16>(p, g, m, v, lr_t, n, b1, b2, eps, s);
+                       int64_t n, const Betas& k, cudaStream_t s) {
+  if (g_dtype == ptt::kFloat32) return launch<TP, TM, float>(p, g, m, v, lr_t, n, k, s);
+  if (g_dtype == ptt::kBFloat16) return launch<TP, TM, __nv_bfloat16>(p, g, m, v, lr_t, n, k, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename TP>
 cudaError_t dispatch_m(int m_dtype, int g_dtype, void* p, const void* g, void* m, void* v,
-                       const void* lr_t, int64_t n, float b1, float b2, float eps,
-                       cudaStream_t s) {
-  if (m_dtype == ptt::kFloat32)
-    return dispatch_g<TP, float>(g_dtype, p, g, m, v, lr_t, n, b1, b2, eps, s);
+                       const void* lr_t, int64_t n, const Betas& k, cudaStream_t s) {
+  if (m_dtype == ptt::kFloat32) return dispatch_g<TP, float>(g_dtype, p, g, m, v, lr_t, n, k, s);
   if (m_dtype == ptt::kBFloat16)
-    return dispatch_g<TP, __nv_bfloat16>(g_dtype, p, g, m, v, lr_t, n, b1, b2, eps, s);
+    return dispatch_g<TP, __nv_bfloat16>(g_dtype, p, g, m, v, lr_t, n, k, s);
   return cudaErrorInvalidValue;
 }
 
@@ -107,16 +110,18 @@ cudaError_t dispatch_m(int m_dtype, int g_dtype, void* p, const void* g, void* m
 
 // p: [n] dtype p_dtype; g: [n] dtype g_dtype; m, v: [n] dtype m_dtype (all
 // contiguous); lr_t: one float32 on the device.  Updates p, m and v in place.
+// beta1 and beta2 come as doubles: 1 - beta is taken in double, then rounded once.
 extern "C" int ptt_adam(void* p, const void* g, void* m, void* v, const void* lr_t, int64_t n,
-                        float beta1, float beta2, float eps, int p_dtype, int g_dtype,
+                        double beta1, double beta2, float eps, int p_dtype, int g_dtype,
                         int m_dtype, void* stream) {
   if (n == 0) return 0;
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  const Betas k{static_cast<float>(beta1), static_cast<float>(1.0 - beta1),
+                static_cast<float>(beta2), static_cast<float>(1.0 - beta2), eps};
   if (p_dtype == ptt::kFloat32)
-    return dispatch_m<float>(m_dtype, g_dtype, p, g, m, v, lr_t, n, beta1, beta2, eps, s);
+    return dispatch_m<float>(m_dtype, g_dtype, p, g, m, v, lr_t, n, k, s);
   if (p_dtype == ptt::kBFloat16)
-    return dispatch_m<__nv_bfloat16>(m_dtype, g_dtype, p, g, m, v, lr_t, n, beta1, beta2, eps,
-                                     s);
+    return dispatch_m<__nv_bfloat16>(m_dtype, g_dtype, p, g, m, v, lr_t, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

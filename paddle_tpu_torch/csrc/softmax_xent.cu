@@ -18,7 +18,8 @@
 // (loss 0) and only writes its zeros in the backward: none of its logits are
 // read.  Otherwise the block streams the row with 16-byte loads (a row of
 // odd length starts off the 16-byte grid: a few scalar elements first, then
-// vectors, then a scalar tail), each thread keeping a running max and a sum
+// vectors, then a scalar tail; the backward writes dx in vectors only where
+// dx's rows share x's offset from the 16-byte grid), each thread keeping a running max and a sum
 // of exponentials rescaled to that max (the online softmax), and the block
 // combines the threads' pairs in a fixed tree, so the result is bitwise
 // repeatable.  The picked logit is read by its index.  The forward saves
@@ -117,14 +118,16 @@ template <typename T>
 __global__ void softmax_xent_bwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ g, T* __restrict__ dx, int v,
-                                        int ignore) {
+                                        int ignore, bool vec) {
   constexpr int VEC = 16 / sizeof(T);
   using Vt = ptt::Vec<T, VEC>;
   const int64_t row = blockIdx.x;
   const int lab = labels[row];
   const T* xr = x + row * v;
   T* dr = dx + row * v;
-  const int head = head_len(xr, v);  // dx rows sit on the same grid as x rows
+  // with `vec`, dx rows sit on the same 16-byte grid as x rows; without it
+  // the whole row is the scalar head
+  const int head = vec ? head_len(xr, v) : v;
   const int n_vec = (v - head) / VEC;
   Vt* body = reinterpret_cast<Vt*>(dr + head);
   if (lab == ignore) {
@@ -177,7 +180,10 @@ extern "C" int ptt_softmax_xent_fwd(const void* x, const void* labels, void* los
 }
 
 // x, dx: [rows, v] contiguous, dtype `dtype`; labels: [rows] int32;
-// lse (from the forward), g: [rows] float32.
+// lse (from the forward), g: [rows] float32.  The rows move in 16-byte
+// vectors only when x and dx lie equally far off the 16-byte grid (a fresh
+// dx is aligned; x may be a view that starts at any element); otherwise
+// every element is read and written alone.
 extern "C" int ptt_softmax_xent_bwd(const void* x, const void* labels, const void* lse,
                                     const void* g, void* dx, int64_t rows, int v, int ignore,
                                     int dtype, void* stream) {
@@ -185,16 +191,17 @@ extern "C" int ptt_softmax_xent_bwd(const void* x, const void* labels, const voi
   if (rows < 0 || rows > 0x7fffffff || v <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(rows);
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(dx)) & 15u) == 0;
   if (dtype == ptt::kFloat32)
     softmax_xent_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const int*>(labels),
         static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<float*>(dx), v,
-        ignore);
+        ignore, vec);
   else if (dtype == ptt::kBFloat16)
     softmax_xent_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(labels),
         static_cast<const float*>(lse), static_cast<const float*>(g),
-        static_cast<__nv_bfloat16*>(dx), v, ignore);
+        static_cast<__nv_bfloat16*>(dx), v, ignore, vec);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

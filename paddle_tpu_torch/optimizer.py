@@ -15,7 +15,6 @@ from .core import unique_name
 from .core.autodiff import append_backward
 from .core.dtypes import canonical_dtype
 from .core.program import Parameter, Variable, default_main_program, default_startup_program
-from .core.regularizer import append_regularization_ops
 
 
 class Optimizer:
@@ -75,10 +74,22 @@ class Optimizer:
         raise NotImplementedError
 
     # --- public API -------------------------------------------------------
-    def apply_gradients(self, params_grads) -> List:
-        from .clip import append_gradient_clip_ops
+    def _refuse_clip_and_regularizers(self, program, dense_pg) -> None:
+        """The JAX package appends a gradient clip's ops, then each
+        regularizer's, between the backward and the updates.  The port has
+        no lowering for them yet, so it refuses both here and names the
+        first op that would be appended."""
+        clip = getattr(program, "_grad_clip", None)
+        regularizers = [p.regularizer or self.regularization for p, _ in dense_pg]
+        found = next((x for x in [clip, *regularizers] if x is not None), None)
+        if found is not None:
+            raise NotImplementedError(
+                f"{type(found).__name__} appends op {found.first_op!r}, which has no lowering "
+                "in paddle_tpu_torch yet")
 
-        block = default_main_program().global_block()
+    def apply_gradients(self, params_grads) -> List:
+        program = default_main_program()
+        block = program.global_block()
         self._create_global_learning_rate()
         # SelectedRows grads (is_sparse embeddings) bypass clip and
         # regularization, whose ops rewrite a dense grad var
@@ -88,8 +99,7 @@ class Optimizer:
                 sparse_set.update(op.attrs.get("sparse_param_names", []))
         sparse_pg = [(p, g) for p, g in params_grads if p.name in sparse_set]
         dense_pg = [(p, g) for p, g in params_grads if p.name not in sparse_set]
-        dense_pg = append_gradient_clip_ops(dense_pg)
-        dense_pg = append_regularization_ops(dense_pg, self.regularization)
+        self._refuse_clip_and_regularizers(program, dense_pg)
         params_grads = dense_pg + sparse_pg
         self._create_accumulators(block, [p for p, _ in params_grads])
         ops = []

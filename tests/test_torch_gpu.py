@@ -131,30 +131,45 @@ def test_training_kernels_match_plain_on_card(dtype):
     labels = torch.randint(0, 1001, (64,), generator=g, device="cuda").to(torch.int32)
     labels[::3] = -100
     labels[1], labels[2] = 0, 1000
-    loss, lse = ck.softmax_xent_fwd(logits, labels)
-    loss_p, lse_p = ck.softmax_xent_fwd_plain(logits, labels)
-    assert _err(loss, loss_p) <= (2e-5 if dtype == "float32" else 5e-2)
     gl = 1.0 + torch.rand(64, generator=g, device="cuda")
-    dx = ck.softmax_xent_bwd(logits, labels, lse, gl)
-    dx_p = ck.softmax_xent_bwd_plain(logits, labels, lse_p, gl)
-    assert _err(dx, dx_p) <= _grad_tol(dtype, dx_p) and not dx[::3].any()
-    p, gr = rn(1001, s=0.25), rn(1001, s=0.01)
-    m, v = rn(1001, s=1e-3, d=torch.float32), torch.rand(1001, device="cuda") * 1e-4
+    # the logits as they are, and as a view one element off the 16-byte grid
+    for x in (logits, rn(64 * 1001 + 1, s=2.0)[1:].view(64, 1001)):
+        loss, lse = ck.softmax_xent_fwd(x, labels)
+        loss_p, lse_p = ck.softmax_xent_fwd_plain(x, labels)
+        assert _err(loss, loss_p) <= 2e-5  # float32 on both sides
+        dx = ck.softmax_xent_bwd(x, labels, lse_p, gl)
+        dx_p = ck.softmax_xent_bwd_plain(x, labels, lse_p, gl)
+        rel = 1e-6 if dtype == "float32" else 2.0 ** -7
+        assert ((dx.float() - dx_p.float()).abs() <= rel * dx_p.float().abs() + 1e-12).all()
+        assert not dx[::3].any()
+    # g^2 of v's order: one step moves p, m and v by ~1e3 times the allowance,
+    # 2^-20 of the magnitudes of each output's terms (+ a bf16 rounding of p)
+    p, gr = rn(1001, s=0.02), rn(1001, s=0.01)
+    m = rn(1001, s=0.01, d=torch.float32)
+    v = (0.5 + torch.rand(1001, generator=g, device="cuda")) * 1e-4
     lr_t = torch.full((1,), 1e-3, device="cuda")
     want = ck.adam_plain(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8)
+    terms_m = 0.9 * m.abs() + 0.1 * gr.float().abs()
+    terms = (p.float().abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8), terms_m,
+             0.999 * v + 0.001 * gr.float() ** 2)
     got = ck.fused_adam(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8)
     assert got[0] is p  # updated in place
-    for a, w in zip(got, want):
-        assert _err(a, w) <= (2e-6 if dtype == "float32" else 1e-2)
+    for a, w, t in zip(got, want, terms):
+        ulp = 0.0 if w.dtype == torch.float32 else 2.0 ** -7
+        assert ((a.float() - w.float()).abs() <= 2.0 ** -20 * t + ulp * w.float().abs()
+                + 1e-30).all()
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
-        NO_LAUNCHES, ln_residual_bwd=2, bias_act_bwd=2, softmax_xent_fwd=1, softmax_xent_bwd=1,
+        NO_LAUNCHES, ln_residual_bwd=2, bias_act_bwd=2, softmax_xent_fwd=2, softmax_xent_bwd=2,
         adam=1)
 
 
 @pytest.mark.gpu
 def test_tiny_bert_trains_on_card_like_cpu():
     """Adam steps of the tiny BERT (unfused attention, dropout 0, float32) on
-    the card match the CPU's, and each step launches every training kernel."""
+    the card match the CPU's, and each step launches every training kernel.
+    Parameters agree to 1e-5, save the elements whose CPU gradient is 0 to
+    rounding (within 1e-6 of the largest) at some step, where the summation
+    order can flip the sign of Adam's first step: 2*lr*steps + 1e-5."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     config = dict(TINY, use_fused_attention=False, dropout_prob=0.0, learning_rate=1e-3,
@@ -168,20 +183,29 @@ def test_tiny_bert_trains_on_card_like_cpu():
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
     feed = transformer.make_fake_batch(4, 16, 200, rng=np.random.RandomState(1))
+    params = [p.name for p in main.all_parameters()]
+    grads = [f"{p}@GRAD" for p in params]
     runs = []
     for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
         scope = fluid.Scope()
         fluid.io.load_numpy_params(scope, state, device=place.device)
         exe = fluid.Executor(place)
         before = dict(ck.LAUNCHES)
-        losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])
-                  for _ in range(3)]
-        runs.append((losses, scope, {k: ck.LAUNCHES[k] - before[k] for k in before}))
-    (gl, gs, gd), (cl, cs, cd) = runs
+        outs = [exe.run(main, feed=feed, fetch_list=[loss] + grads, scope=scope)
+                for _ in range(3)]
+        runs.append(([float(o[0][0]) for o in outs], scope, [o[1:] for o in outs],
+                     {k: ck.LAUNCHES[k] - before[k] for k in before}))
+    (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
     assert gd == dict(NO_LAUNCHES, ln_residual_fwd=15, ln_residual_bwd=15, bias_act_fwd=6,
                       bias_act_bwd=6, softmax_xent_fwd=3, softmax_xent_bwd=3,
                       adam=3 * len(main.all_parameters()))
     assert cd == NO_LAUNCHES
     np.testing.assert_allclose(gl, cl, atol=1e-4)
-    for p in main.all_parameters():
-        assert np.abs(gs.to_numpy(p.name) - cs.to_numpy(p.name)).max() <= 2 * 1e-3 * 3 + 1e-5
+    peaks = [max(float(np.abs(g).max()) for g in step) for step in cpu_grads]
+    for i, p in enumerate(params):
+        err = np.abs(gs.to_numpy(p) - cs.to_numpy(p))
+        near_zero = np.zeros(err.shape, bool)
+        for step, peak in zip(cpu_grads, peaks):
+            near_zero |= np.abs(step[i]) <= 1e-6 * peak
+        assert err.max() <= 2 * 1e-3 * 3 + 1e-5, p
+        assert not (err[~near_zero] > 1e-5).any(), p

@@ -6,12 +6,17 @@ packages, with the fusion passes on and off, in float32 and bfloat16.  The
 JAX package's whole persistable state after its startup (parameters from a
 numpy seed, Adam's moments and beta pows, the learning rate) goes to the
 port through `io.load_numpy_params`; both then train 3 steps on the same
-feeds.  Tolerances: losses float32 1e-4, bfloat16 5e-2; parameters
-2*lr*steps + 1e-5 (at the first step Adam's m/sqrt(v) is +-1 wherever a
-gradient is near 0, so summation order can flip its sign, and no step moves
-a weight by more than about lr); other state 1e-4 (float32) or 5e-2
-(bfloat16) of its largest magnitude.  The kernels' plain versions are held
-against the Pallas kernels run in interpret mode."""
+feeds.  Tolerances: losses float32 1e-4, bfloat16 5e-2; other state than
+parameters 1e-4 (float32) or 5e-2 (bfloat16) of its largest magnitude.
+Parameters: Adam's first step moves a weight by lr * g / (|g| + eps), +-lr
+wherever |g| > eps, so where a gradient is 0 to rounding the summation order
+can flip the step's sign.  In float32 every parameter agrees to 1e-5, save
+the elements whose JAX gradient lies within 1e-6 of the model's largest at
+some step, which keep the bound 2*lr*steps + 1e-5.  In bfloat16 the
+gradients themselves differ by the activations' rounding, so elementwise
+only that bound holds, and the whole update (parameters after minus before)
+must agree to 10% in L2.  The kernels' plain versions are held against the
+Pallas kernels run in interpret mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +38,10 @@ TINY = dict(vocab_size=200, seq_len=16, d_model=32, n_layers=2, n_heads=2, d_ff=
             use_fused_attention=False, dropout_prob=0.0, learning_rate=LR, with_optimizer=True)
 LOSS_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 STATE_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
-PARAM_TOL = 2 * LR * STEPS + 1e-5
+PARAM_TOL = 1e-5  # float32
+SIGN_FLIP_TOL = 2 * LR * STEPS + 1e-5
+ZERO_GRAD = 1e-6  # of the model's largest gradient at the step
+UPDATE_RTOL_BF16 = 0.1
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 PASSES = ("fuse_ln_residual", "fuse_bias_act")
 
@@ -102,10 +110,11 @@ def _state_kind(name):
 
 
 def _state_tols(names, dtype, scope):
-    """name -> tolerance.  Parameters: the Adam bound.  Moments: relative to
-    the largest moment of the same kind in the model (a parameter whose exact
-    gradient is 0, like an attention key bias, holds only rounding noise of
-    the others).  Beta pows and the learning rate: relative to themselves."""
+    """name -> tolerance of the state other than parameters.  Moments:
+    relative to the largest moment of the same kind in the model (a
+    parameter whose exact gradient is 0, like an attention key bias, holds
+    only rounding noise of the others).  Beta pows and the learning rate:
+    relative to themselves."""
     peak = {}
     for n in names:
         kind = _state_kind(n)
@@ -115,8 +124,8 @@ def _state_tols(names, dtype, scope):
     for n in names:
         kind = _state_kind(n)
         if kind == "param":
-            tols[n] = PARAM_TOL
-        elif kind.startswith("moment"):
+            continue
+        if kind.startswith("moment"):
             tols[n] = STATE_RTOL[dtype] * peak[kind]
         else:
             tols[n] = STATE_RTOL[dtype] * float(np.abs(np.asarray(scope.find_var(n))).max())
@@ -138,15 +147,42 @@ def _train_both(dtype, passes):
         tscope = tfluid.Scope()
         tfluid.io.load_numpy_params(tscope, state)
         feed = _batch()
-        jl_steps, tl_steps = [], []
+        params = [p.name for p in jm.all_parameters()]
+        jl_steps, tl_steps, jgrads = [], [], []
         for _ in range(STEPS):
-            jl_steps.append(float(np.asarray(
-                jexe.run(jm, feed=feed, fetch_list=[jl], scope=jscope)[0]).reshape(-1)[0]))
+            out = jexe.run(jm, feed=feed, fetch_list=[jl] + [f"{p}@GRAD" for p in params],
+                           scope=jscope)
+            jl_steps.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            jgrads.append(dict(zip(params, (np.asarray(g, np.float32) for g in out[1:]))))
             tl_steps.append(float(
                 texe.run(tm, feed=feed, fetch_list=[tl], scope=tscope)[0].reshape(-1)[0]))
         _TRAINED[key] = dict(jl=jl_steps, tl=tl_steps, jm=jm, tm=tm, jexe=jexe, texe=texe,
-                             jscope=jscope, tscope=tscope, state=state)
+                             jscope=jscope, tscope=tscope, state=state, jgrads=jgrads)
     return _TRAINED[key]
+
+
+def _check_params(run, dtype):
+    """The port's parameters after the steps against the JAX package's, by
+    the rule in the module's docstring."""
+    params = [p.name for p in run["jm"].all_parameters()]
+    peaks = [max(float(np.abs(g).max()) for g in step.values()) for step in run["jgrads"]]
+    sq_diff = sq_update = 0.0
+    for name in params:
+        before = run["state"][name].astype(np.float32)
+        want = np.asarray(run["jscope"].find_var(name), np.float32)
+        got = run["tscope"].to_numpy(name).astype(np.float32)
+        err = np.abs(got - want)
+        assert err.max() <= SIGN_FLIP_TOL, (name, float(err.max()))
+        if dtype == "float32":
+            near_zero = np.zeros(err.shape, bool)
+            for step, peak in zip(run["jgrads"], peaks):
+                near_zero |= np.abs(step[name]) <= ZERO_GRAD * peak
+            held = err[~near_zero]
+            assert held.size == 0 or held.max() <= PARAM_TOL, (name, float(held.max()))
+        sq_diff += float(np.sum((got - want) ** 2))
+        sq_update += float(np.sum((want - before) ** 2))
+    if dtype == "bfloat16":
+        assert np.sqrt(sq_diff / sq_update) <= UPDATE_RTOL_BF16, np.sqrt(sq_diff / sq_update)
 
 
 @pytest.mark.parametrize("passes", [True, False], ids=["passes", "no_passes"])
@@ -155,17 +191,19 @@ def test_three_adam_steps_match_jax(dtype, passes):
     run = _train_both(dtype, passes)
     assert np.isfinite(run["tl"]).all() and run["tl"][-1] < run["tl"][0]
     np.testing.assert_allclose(run["tl"], run["jl"], atol=LOSS_TOL[dtype], rtol=0)
-    moved = 0
     names = _persistables(run["jm"])
     tols = _state_tols(names, dtype, run["jscope"])
     for name in names:
         want = np.asarray(run["jscope"].find_var(name)).astype(np.float32)
         got = run["tscope"].to_numpy(name).astype(np.float32)
         assert got.shape == want.shape, name
-        err = float(np.abs(got - want).max())
-        assert err <= tols[name], (name, err, tols[name])
-        moved += not np.array_equal(want, run["state"][name].astype(np.float32))
-    assert moved > len(run["jm"].all_parameters())  # parameters and accumulators all moved
+        if name in tols:
+            err = float(np.abs(got - want).max())
+            assert err <= tols[name], (name, err, tols[name])
+        # the port's steps moved every parameter and accumulator
+        moved = not np.array_equal(got, run["state"][name].astype(np.float32))
+        assert moved == (_state_kind(name) != "learning_rate"), name
+    _check_params(run, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
