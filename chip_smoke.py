@@ -28,7 +28,26 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      steps on the card and on the CPU from the same numpy state must agree in
      the losses (1e-3), in every parameter (1e-5, save where the CPU's
      gradient is 0 to rounding: 2*lr*steps + 1e-5) and in the moments (1e-4
-     of the largest of their kind).
+     of the largest of their kind);
+  8. resnet_serve: bf16 ResNet-50 at full width (224 x 224, 1000 classes,
+     space-to-depth stem, fuse_bn_relu) saved for inference and served
+     through AnalysisConfig / create_predictor on cuda:0 at batch 1, 32, 256
+     and 256 (and 256 under torch.profiler): every request launches the BN
+     epilogue forward exactly 53 times and no other kernel;
+  9. resnet_parity: a float32 ResNet-50 served on the card and on the CPU
+     from the same saved model must agree to 1e-3 in the logits;
+ 10. resnet_train: bf16 ResNet-50 at full width with Momentum(0.1, 0.9)
+     trains 6 steps at batch 256 through Executor(CUDAPlace(0)).run on one
+     fixed batch: the loss is finite, falls on the first step and ends below
+     where it started, the running statistics move,
+     and every step launches the BN epilogue forward and backward 53 times
+     each and the cross-entropy forward and backward once, as the program's
+     ops say; one more step runs under torch.profiler;
+ 11. resnet_train_parity: a float32 ResNet-50 (batch 8, lr 0.01) takes 3
+     Momentum steps on the CPU; each step also runs on the card from the
+     CPU's state before it, and the two must agree in the loss, the running
+     statistics, and each velocity and parameter update (resnet_train_parity
+     says why per tensor in L2).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -48,34 +67,6 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # float32 outside the tensor cores
 BATCHES = (1, 8, 32, 32)
-# launches per request of BERT-base (12 layers) served with fused attention:
-# every LN, every GELU and every attention is a kernel; no backward kernel runs
-PER_REQUEST = {"ln_residual_fwd": 25, "ln_residual_bwd": 0, "bias_act_fwd": 12,
-               "bias_act_bwd": 0, "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0,
-               "sdpa_fwd": 12}
-# launches per training step of BERT-base (12 layers, unfused attention):
-# 1 embedding LN + 2 per layer, 1 GELU per layer, one loss, and one Adam
-# update per parameter (4 embedding/LN + 16 per layer + 2 LM head = 198);
-# phase 6 derives the same counts from the program and holds both against each other
-PER_STEP = {"ln_residual_fwd": 25, "ln_residual_bwd": 25, "bias_act_fwd": 12, "bias_act_bwd": 12,
-            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "adam": 198, "sdpa_fwd": 0}
-TRAIN_STEPS = 6
-PARITY_STEPS = 3
-LR = 1e-4
-ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
-# forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
-# tests), save the loss and lse of the cross-entropy, which are float32 on both
-# sides whatever the logits' type; gradients: grad_tol below; the cross-entropy
-# backward and Adam element by element (check_within)
-TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4,
-                   "softmax_xent_fwd": 2e-5},
-       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2,
-                    "softmax_xent_fwd": 2e-5}}
-XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
-# Adam: the float32 arithmetic of each output, a few roundings of the terms
-# that make it, plus one rounding of a stored bfloat16 value
-F32_ERR = 2.0 ** -20
-STORED_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 KERNEL_INFO = {
     "ln_residual_fwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:170"),
     "ln_residual_bwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:200"),
@@ -85,7 +76,47 @@ KERNEL_INFO = {
     "softmax_xent_bwd": ("paddle_tpu_torch/csrc/softmax_xent.cu", "paddle_tpu/ops/pallas_kernels.py:462"),
     "adam": ("paddle_tpu_torch/csrc/adam.cu", "paddle_tpu/ops/pallas_kernels.py:368"),
     "sdpa_fwd": ("paddle_tpu_torch/csrc/sdpa.cu", "paddle_tpu/ops/pallas_attention.py:193"),
+    "bn_epilogue_fwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:271"),
+    "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
 }
+NONE = dict.fromkeys(KERNEL_INFO, 0)
+# launches per request of BERT-base (12 layers) served with fused attention:
+# every LN, every GELU and every attention is a kernel; no backward kernel runs
+PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12, sdpa_fwd=12)
+# launches per training step of BERT-base (12 layers, unfused attention):
+# 1 embedding LN + 2 per layer, 1 GELU per layer, one loss, and one Adam
+# update per parameter (4 embedding/LN + 16 per layer + 2 LM head = 198);
+# phase 6 derives the same counts from the program and holds both against each other
+PER_STEP = dict(NONE, ln_residual_fwd=25, ln_residual_bwd=25, bias_act_fwd=12, bias_act_bwd=12,
+                softmax_xent_fwd=1, softmax_xent_bwd=1, adam=198)
+# ResNet-50 has 53 batch_norms (the stem, 3 per bottleneck x 16, 4 shortcuts),
+# each the epilogue kernel (33 with fuse_relu); its residual adds are not
+# 1-D bias adds, so no bias-act kernel; Momentum has no kernel
+RESNET_PER_REQUEST = dict(NONE, bn_epilogue_fwd=53)
+RESNET_PER_STEP = dict(NONE, bn_epilogue_fwd=53, bn_epilogue_bwd=53, softmax_xent_fwd=1,
+                       softmax_xent_bwd=1)
+# the JAX package's full ResNet-50 training configuration (tools/bench_kit.py:120-131)
+RESNET = dict(depth=50, class_dim=1000, stem="space_to_depth", data_format="NCHW")
+RESNET_BATCHES = (1, 32, 256, 256)
+RESNET_TRAIN_BATCH = 256
+RESNET_PARITY_LR = 0.01
+TRAIN_STEPS = 6
+PARITY_STEPS = 3
+LR = 1e-4
+ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
+# forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
+# tests), save the loss and lse of the cross-entropy, which are float32 on both
+# sides whatever the logits' type; gradients: grad_tol below; the cross-entropy
+# backward, Adam and the BN epilogue backward element by element (check_within)
+TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4,
+                   "softmax_xent_fwd": 2e-5, "bn_epilogue_fwd": 2e-5},
+       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2,
+                    "softmax_xent_fwd": 2e-5, "bn_epilogue_fwd": 2e-2}}
+XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+# Adam: the float32 arithmetic of each output, a few roundings of the terms
+# that make it, plus one rounding of a stored bfloat16 value
+F32_ERR = 2.0 ** -20
+STORED_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 
 
 def grad_tol(dtype, ref):
@@ -132,6 +163,32 @@ def check_within(kernel, what, dtype, case, got, want, allowed, rule):
         raise AssertionError(f"{kernel} {what} {case} {dtype}: |kernel - plain| exceeds "
                              f"{rule} by a factor {share} (max abs {err})")
     return err
+
+
+def repeatable(kernel, what, a, b):
+    """Two runs of a backward reduction on the same inputs agree bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    emit({"repeat": kernel, "out": what, "bitwise_equal": same})
+    if not same:
+        raise AssertionError(f"{kernel}: {what} differs between two runs on the same inputs")
+
+
+def epilogue_bwd_allowed(x, mul, g, want):
+    """What the BN epilogue backward may differ from its plain version by,
+    element by element, given the plain (dx, dmul, dadd) in `want`: dx is one
+    product rounded once to x's dtype on both sides, so one rounding of it;
+    dmul and dadd are float32 row sums taken in another order, so 1e-5 of the
+    sum of the magnitudes of their terms, sum|g*x| and sum|g| over the row.
+    A kernel that drops the relu mask or a row misses by orders of magnitude
+    (tests/test_torch_resnet.py shows it on the CPU)."""
+    ulp = 2.0 ** -23 if dname(x.dtype) == "float32" else 2.0 ** -8
+    gf = g.float()
+    return (ulp * want[0].float().abs() + 1e-30,
+            1e-5 * (gf * x.float()).abs().sum(-1) + 1e-30,
+            1e-5 * gf.abs().sum(-1) + 1e-30)
 
 
 def time_ms(fn, warmup=10, iters=100):
@@ -260,13 +317,6 @@ def check_train_kernels(torch, ck):
 
     def randn(*shape, dtype=torch.float32, s=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
-
-    def repeatable(kernel, what, a, b):
-        torch.cuda.synchronize()
-        same = torch.equal(a, b)
-        emit({"repeat": kernel, "out": what, "bitwise_equal": same})
-        if not same:
-            raise AssertionError(f"{kernel}: {what} differs between two runs on the same inputs")
 
     record = {}
     eps = 1e-5
@@ -434,6 +484,81 @@ def check_train_kernels(torch, ck):
     return record
 
 
+def check_bn_kernels(torch, ck):
+    """Phase 3, the ResNet-50 slice's kernels: the BN epilogue forward and
+    backward against their plain versions at the stem's rows ([256*64,
+    12544]), the last stage's ([256*2048, 49]) and an odd R of 49, float32
+    and bfloat16, relu on and off.  The forward at FUSED_KERNELS'
+    tolerances, the backward element by element (epilogue_bwd_allowed), its
+    row sums bit for bit on a second run.  Returns the timing record."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    record = {}
+    shapes = ((256 * 64, 12544, "stem"), (256 * 2048, 49, "last stage"), (65535, 49, "odd R"))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(dtype)
+        for rows, w, where in shapes:
+            x = randn(rows, w, dtype=dtype)
+            g = randn(rows, w, dtype=dtype)
+            mul = 0.5 + torch.rand(rows, generator=gen, device=dev)
+            add = randn(rows, s=0.5)
+            for relu in (True, False):
+                case = f"[{rows},{w}] {where} relu={relu}"
+                err_f = check("bn_epilogue_fwd", "y", dtype, case, ck._epilogue_fwd(x, mul, add, relu),
+                              ck.bn_epilogue_plain(x, mul, add, relu), TOL[dn]["bn_epilogue_fwd"])
+                got = ck.bn_epilogue_bwd(x, mul, add, g, relu)
+                want = ck.bn_epilogue_bwd_plain(x, mul, add, g, relu)
+                allowed = epilogue_bwd_allowed(x, mul, g, want)
+                rules = ("one rounding of |plain|", "1e-5*sum|g*x| of the row",
+                         "1e-5*sum|g| of the row")
+                errs = [check_within("bn_epilogue_bwd", what, dtype, case, a, b, t, rule)
+                        for what, a, b, t, rule in zip(("dx", "dmul", "dadd"), got, want, allowed,
+                                                       rules)]
+                again = ck.bn_epilogue_bwd(x, mul, add, g, relu)
+                for what, i in (("dmul", 1), ("dadd", 2)):
+                    repeatable("bn_epilogue_bwd", f"{what} {case} {dn}", got[i], again[i])
+                del got, want, allowed, again
+                if dtype == torch.bfloat16 and where == "stem" and relu:
+                    # the library yardsticks take mul/add in x's dtype, so their
+                    # outputs are x's dtype too
+                    mul_x, add_x = mul.to(dtype)[:, None], add.to(dtype)[:, None]
+                    y = ck.bn_epilogue_plain(x, mul, add, True)
+                    f_ms, f_by = bound(2 * nbytes(x) + 8 * rows, 3.0 * x.numel(), F32_FLOPS)
+                    record["bn_epilogue_fwd"] = dict(
+                        max_abs_err=err_f,
+                        ms=time_ms(lambda: ck._epilogue_fwd(x, mul, add, True)),
+                        plain_ms=time_ms(lambda: ck.bn_epilogue_plain(x, mul, add, True)),
+                        library_ms=time_ms(lambda: torch.addcmul(add_x, x, mul_x).relu_()),
+                        library="torch.addcmul(add, x, mul).relu_(): two calls",
+                        bound_ms=f_ms, bound_by=f_by, shape=f"[{rows},{w}] bf16 relu")
+
+                    def library_bwd():
+                        gm = torch.ops.aten.threshold_backward(g, y, 0)
+                        gm * mul_x
+                        (gm * x).sum(-1, dtype=torch.float32)
+                        gm.sum(-1, dtype=torch.float32)
+
+                    b_ms, b_by = bound(3 * nbytes(x) + 16 * rows, 6.0 * x.numel(), F32_FLOPS)
+                    record["bn_epilogue_bwd"] = dict(
+                        max_abs_err=max(errs),
+                        ms=time_ms(lambda: ck.bn_epilogue_bwd(x, mul, add, g, True)),
+                        plain_ms=time_ms(lambda: ck.bn_epilogue_bwd_plain(x, mul, add, g, True)),
+                        library_ms=time_ms(library_bwd),
+                        library="aten.threshold_backward(g, y, 0), then gm*mul, (gm*x).sum(-1) "
+                                "and gm.sum(-1): five calls",
+                        bound_ms=b_ms, bound_by=b_by, shape=f"[{rows},{w}] bf16 relu")
+                    del y
+            del x, g
+    torch.cuda.empty_cache()
+    for name, rec in record.items():
+        emit({"timing": name, **rec})
+    return record
+
+
 def build_bert(fluid, dtype, n_layers):
     """Full-width BERT-base, random weights from seed 0, run through the two fusion
     passes; returns (main, startup, logits name)."""
@@ -570,23 +695,29 @@ def build_train(fluid, dtype, n_layers, dropout_prob):
 def launches_of_program(main, loss):
     """Kernel launches one step of `main` makes, read off its pruned ops: every
     layer_norm takes the LN kernel (nothing reads its Mean/Variance), every
-    elementwise_add with fuse_act the bias-act kernel, the loss the xent
-    kernel, every adam op the Adam kernel; each forward kernel has its backward."""
+    elementwise_add with fuse_act over a 1-D bias the bias-act kernel, every
+    batch_norm over NC + spatial dims the BN epilogue, the loss the xent
+    kernel, every adam op the Adam kernel; each forward kernel has its
+    backward."""
     from paddle_tpu_torch.core.executor import _prune, _runnable_ops
 
+    block = main.global_block()
     persistable = {v.name for v in main.list_vars() if v.persistable}
-    ops = _prune(_runnable_ops(main.global_block()), [loss], persistable)
+    ops = _prune(_runnable_ops(block), [loss], persistable)
     read = {n for op in ops for n in op.input_arg_names}
     lns = [op for op in ops if op.type == "layer_norm"]
     if any(n in read for op in lns for n in op.output("Mean") + op.output("Variance")):
         raise AssertionError("a layer_norm's statistics are read: it would not take the kernel")
     n_ln = len(lns)
-    n_act = sum(1 for op in ops if op.type == "elementwise_add" and op.attrs.get("fuse_act"))
+    n_act = sum(1 for op in ops if op.type == "elementwise_add" and op.attrs.get("fuse_act")
+                and len(block.var(op.input("Y")[0]).shape) == 1)
+    n_bn = sum(1 for op in ops if op.type == "batch_norm"
+               and len(block.var(op.input("X")[0]).shape) >= 3)
     n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy")
     n_adam = sum(1 for op in ops if op.type == "adam")
-    return {"ln_residual_fwd": n_ln, "ln_residual_bwd": n_ln, "bias_act_fwd": n_act,
-            "bias_act_bwd": n_act, "softmax_xent_fwd": n_xent, "softmax_xent_bwd": n_xent,
-            "adam": n_adam, "sdpa_fwd": 0}
+    return dict(NONE, ln_residual_fwd=n_ln, ln_residual_bwd=n_ln, bias_act_fwd=n_act,
+                bias_act_bwd=n_act, softmax_xent_fwd=n_xent, softmax_xent_bwd=n_xent,
+                adam=n_adam, bn_epilogue_fwd=n_bn, bn_epilogue_bwd=n_bn)
 
 
 def train(fluid, torch, ck, card):
@@ -708,6 +839,245 @@ def train_parity(fluid, torch):
             raise AssertionError(f"card vs CPU {kind} differs by {worst} > {tol}")
 
 
+def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1):
+    """ResNet-50 in the JAX package's full configuration (NCHW, space-to-depth
+    stem, 1000 classes, 224 x 224, Momentum 0.9), random weights from seed 0,
+    through fuse_bn_relu and fuse_bias_act; returns (main, startup, fetches)."""
+    from paddle_tpu_torch.models import resnet
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = resnet.build(dtype=dtype, with_optimizer=with_optimizer,
+                                                 learning_rate=learning_rate, momentum=0.9,
+                                                 **RESNET)
+    startup.random_seed = 0
+    main.random_seed = 0
+    keep = [fetches["loss"].name, fetches["logits"].name]
+    for p in ("fuse_bn_relu", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=keep)
+    return main, startup, fetches
+
+
+def images(batch, seed):
+    """A seeded batch of 224 x 224 images in [0, 1) and labels of 1000 classes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"img": rng.rand(batch, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, 1000, (batch, 1)).astype(np.int64)}
+
+
+def bn_ops(main):
+    return [op for op in main.global_block().ops if op.type == "batch_norm"]
+
+
+def calibrate(fluid, main, exe, scope, feed):
+    """Set every batch_norm's running mean and variance to the statistics of
+    `feed` (a training-mode forward of `main`), so the served activations keep
+    the scale they have in training."""
+    bns = bn_ops(main)
+    stats = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                    fetch_list=[op.output(s)[0] for op in bns for s in ("SavedMean", "SavedVariance")])
+    for op, m, v in zip(bns, stats[0::2], stats[1::2]):
+        scope.set_var(op.input("Mean")[0], m.float().clone())
+        scope.set_var(op.input("Variance")[0], v.float().clone())
+
+
+def save_resnet(fluid, place, dirname, dtype, calib_feed):
+    main, startup, fetches = build_resnet(fluid, dtype, with_optimizer=False)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    calibrate(fluid, main, exe, scope, calib_feed)
+    fluid.io.save_inference_model(dirname, ["img"], [fetches["logits"]], exe, main, scope)
+
+
+def resnet_serve(fluid, torch, ck, tmp, card):
+    """Phase 8: bf16 ResNet-50 through AnalysisConfig / create_predictor on cuda:0."""
+    import numpy as np
+    from paddle_tpu_torch.core.dtypes import to_numpy
+
+    model_dir = os.path.join(tmp, "resnet50_bf16")
+    t0 = time.perf_counter()
+    save_resnet(fluid, fluid.CUDAPlace(0), model_dir, "bfloat16", images(32, 10))
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    emit({"phase": "resnet_serve", "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu",
+          "setup_s": time.perf_counter() - t0, "place": repr(predictor.config.place)})
+    ck.reset_launches()  # the main path's count starts here
+    for i, batch in enumerate(RESNET_BATCHES):
+        feed = {"img": images(batch, 20 + i)["img"]}
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = predictor.run(feed, return_numpy=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = to_numpy(out)
+        t2 = time.perf_counter()
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        emit({"resnet_request": batch, "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
+              "fetch_ms": (t2 - t1) * 1e3, "logits_shape": list(logits.shape),
+              "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
+        if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
+            raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
+                                 f"{bool(np.isfinite(logits).all())}")
+        if delta != RESNET_PER_REQUEST:
+            raise AssertionError(f"batch {batch}: kernel launches {delta} != {RESNET_PER_REQUEST}")
+    launches = dict(ck.LAUNCHES)  # read before the profiled request
+    feed = {"img": images(RESNET_BATCHES[-1], 30)["img"]}
+    profile_run(torch, f"resnet request {RESNET_BATCHES[-1]}",
+                lambda: predictor.run(feed, return_numpy=False), card)
+    return launches
+
+
+def resnet_parity(fluid, torch, tmp):
+    """Phase 9: float32 ResNet-50 logits on the card against the CPU plain
+    path, from one saved model whose running statistics are the served
+    batch's own (a well-conditioned forward)."""
+    import numpy as np
+
+    model_dir = os.path.join(tmp, "resnet50_f32")
+    feed = images(4, 40)
+    save_resnet(fluid, fluid.CPUPlace(), model_dir, "float32", feed)
+    inf = fluid.inference
+    img = {"img": feed["img"]}
+    gpu = inf.create_predictor(inf.AnalysisConfig(model_dir)).run(img)[0]
+    cpu = inf.create_predictor(inf.AnalysisConfig(model_dir, fluid.CPUPlace())).run(img)[0]
+    diff = float(np.abs(gpu - cpu).max())
+    emit({"phase": "resnet_parity", "model": "resnet-50 f32, batch 4", "max_abs_dlogits": diff,
+          "max_abs_logits": float(np.abs(cpu).max()), "tol": 1e-3})
+    if not diff <= 1e-3:
+        raise AssertionError(f"card vs CPU ResNet-50 logits differ by {diff} > 1e-3")
+
+
+def resnet_train(fluid, torch, ck, card):
+    """Phase 10: bf16 ResNet-50 (Momentum lr 0.1, 0.9, batch 256) trains
+    TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    loss = fetches["loss"].name
+    derived = launches_of_program(main, loss)
+    if derived != RESNET_PER_STEP:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {RESNET_PER_STEP}")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    # the batch is made once and put on the card: loading data is set-up
+    feed = {k: torch.from_numpy(v).cuda() for k, v in images(RESNET_TRAIN_BATCH, 50).items()}
+    stats = [op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")]
+    stats0 = {n: scope.find_var(n).clone() for n in stats}
+    emit({"phase": "resnet_train", "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu, "
+          "Momentum lr 0.1 mu 0.9", "batch": RESNET_TRAIN_BATCH,
+          "setup_s": time.perf_counter() - t0})
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()  # the main path's count starts here
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        emit({"resnet_step": step, "loss": losses[-1], "step_ms": step_ms[-1], "launches": delta,
+              "card": card})
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"step {step}: loss {losses[-1]}")
+        if delta != RESNET_PER_STEP:
+            raise AssertionError(f"step {step}: kernel launches {delta} != {RESNET_PER_STEP}")
+    # the first update must lower the loss of the batch it was taken on, and
+    # the last loss must be below the first; in between, momentum 0.9 at lr
+    # 0.1 overshoots on one fixed batch from random weights (the H100 at batch
+    # 256: 7.65, 6.53, 5.92, 5.78, 5.97, 6.15)
+    if not (losses[1] < losses[0] and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    still = [n for n in stats if torch.equal(scope.find_var(n), stats0[n])]
+    if still:
+        raise AssertionError(f"running statistics that did not move: {still[:4]}")
+    launches = dict(ck.LAUNCHES)  # read before the profiled step
+    warm = statistics.median(step_ms[1:])
+    emit({"phase": "resnet_train", "losses": losses, "warm_step_ms": warm,
+          "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    profile_run(torch, "resnet train step",
+                lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                                return_numpy=False), card)
+    return launches
+
+
+def resnet_train_parity(fluid, torch):
+    """Phase 11: float32 ResNet-50 (batch 8, lr RESNET_PARITY_LR) takes
+    PARITY_STEPS Momentum steps on the CPU; before each, the CPU's state is
+    loaded on the card, which takes the same step.  Batch statistics make a
+    ResNet-50's gradients at initialization explode with depth, so two
+    implementations that round differently agree on single gradient
+    elements only to tens of percent (a 1e-6 perturbation of the images moves
+    them 3% in the median, tests/test_torch_resnet.py), and their
+    trajectories part within steps; hence one step at a time from one
+    state.  Each step must agree in the loss (1e-3 * max(1, |loss|)), in the
+    running mean and variance (1e-3 of how far the step moved them, per
+    tensor), and per tensor in L2 in each velocity and parameter update
+    (0.2 of the CPU's; two CPU implementations measured <= 0.05), with the
+    velocities' cosine >= 0.99.  A frozen, doubled or sign-flipped update
+    scores >= 1; a velocity that lost its momentum ~0.5 or more."""
+    import numpy as np
+
+    main, startup, fetches = build_resnet(fluid, "float32", with_optimizer=True,
+                                          learning_rate=RESNET_PARITY_LR)
+    loss = fetches["loss"].name
+    cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
+    params = {p.name for p in main.all_parameters() if p.trainable}
+    feed = images(8, 60)
+    worst = {"loss": 0.0, "stat": (0.0, ""), "velocity": (0.0, ""), "update": (0.0, "")}
+    cosines, losses = [], []
+    for step in range(PARITY_STEPS):
+        state = {n: cpu.to_numpy(n) for n in names}
+        gpu = fluid.Scope()
+        fluid.io.load_numpy_params(gpu, state, device="cuda:0")
+        gl = float(gpu_exe.run(main, feed=feed, fetch_list=[loss], scope=gpu)[0].reshape(-1)[0])
+        cl = float(cpu_exe.run(main, feed=feed, fetch_list=[loss], scope=cpu)[0].reshape(-1)[0])
+        losses.append((gl, cl))
+        worst["loss"] = max(worst["loss"], abs(gl - cl) / max(1.0, abs(cl)))
+        dot = ng = nc = 0.0
+        for n in names:
+            got, want, before = gpu.to_numpy(n), cpu.to_numpy(n), state[n]
+            if n in stats:
+                moved = float(np.abs(want - before).max())
+                share = float(np.abs(got - want).max()) / max(moved, 1e-30)
+                worst["stat"] = max(worst["stat"], (share, n))
+            elif n.endswith("_velocity_0"):
+                share = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+                worst["velocity"] = max(worst["velocity"], (share, n))
+                dot += float(np.sum(got.astype(np.float64) * want))
+                ng += float(np.sum(got.astype(np.float64) ** 2))
+                nc += float(np.sum(want.astype(np.float64) ** 2))
+            elif n in params:
+                upd = want - before
+                share = float(np.linalg.norm(got - want) / max(np.linalg.norm(upd), 1e-30))
+                worst["update"] = max(worst["update"], (share, n))
+        cosines.append(dot / np.sqrt(ng * nc))
+    emit({"phase": "resnet_train_parity", "model": "resnet-50 f32, batch 8, Momentum lr "
+          f"{RESNET_PARITY_LR}", "losses_card_cpu": losses, "worst_loss_share": worst["loss"],
+          "worst_stat_share": worst["stat"], "worst_velocity_l2_share": worst["velocity"],
+          "worst_update_l2_share": worst["update"], "velocity_cosines": cosines,
+          "bounds": {"loss": 1e-3, "stat": 1e-3, "velocity": 0.2, "update": 0.2, "cosine": 0.99}})
+    if not (np.isfinite([c for pair in losses for c in pair]).all() and losses[-1][1] != losses[0][1]):
+        raise AssertionError(f"the CPU's losses are not finite or did not move: {losses}")
+    for what, limit in (("stat", 1e-3), ("velocity", 0.2), ("update", 0.2)):
+        if not worst[what][0] <= limit:
+            raise AssertionError(f"card vs CPU {what} {worst[what][1]} off by {worst[what][0]} "
+                                 f"> {limit}")
+    if not worst["loss"] <= 1e-3:
+        raise AssertionError(f"card vs CPU losses differ: {losses}")
+    if not min(cosines) >= 0.99:
+        raise AssertionError(f"card vs CPU velocity cosines {cosines} < 0.99")
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -732,27 +1102,41 @@ def main():
 
     timings = check_kernels(torch, ck, ca)
     timings.update(check_train_kernels(torch, ck))
+    timings.update(check_bn_kernels(torch, ck))
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     try:
         served = serve(fluid, torch, ck, tmp, card)
         parity(fluid, torch, tmp)
+        trained = train(fluid, torch, ck, card)
+        train_parity(fluid, torch)
+        resnet_served = resnet_serve(fluid, torch, ck, tmp, card)
+        resnet_parity(fluid, torch, tmp)
+        resnet_trained = resnet_train(fluid, torch, ck, card)
+        resnet_train_parity(fluid, torch)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    trained = train(fluid, torch, ck, card)
-    train_parity(fluid, torch)
 
-    # each path must have launched each of its kernels; `launches` is the
-    # count on this slice's path (training) where the kernel runs there
+    # each path must have launched each of its kernels, and every kernel must
+    # have run on some path; `launches` is the count on this slice's path
+    # (ResNet-50 training) where the kernel runs there
+    paths = {"serve": (PER_REQUEST, served), "train": (PER_STEP, trained),
+             "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
+             "resnet_train": (RESNET_PER_STEP, resnet_trained)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        for path, want, got in (("serve", PER_REQUEST, served), ("train", PER_STEP, trained)):
+        for path, (want, got) in paths.items():
             if want[name] and got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the {path} path")
+        by_path = {path: got[name] for path, (_, got) in paths.items()}
+        if not any(by_path.values()):
+            raise AssertionError(f"{name} was launched on no path")
         rec = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": trained[name] or served[name],
-                        "launches_by_path": {"serve": served[name], "train": trained[name]},
+                        "launches": next(n for n in (by_path["resnet_train"],
+                                                     by_path["resnet_serve"], by_path["train"],
+                                                     by_path["serve"]) if n),
+                        "launches_by_path": by_path,
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

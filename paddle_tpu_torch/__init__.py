@@ -8,11 +8,12 @@ the import:
 
 Programs, saved models and parameters are interchangeable with paddle_tpu.
 The port imports torch and numpy, never jax or paddle_tpu.  It covers the
-serving and the static training path of BERT-base so far: its ops, passes,
-layers, io, Predictor, `append_backward` and `optimizer.Adam`, with
-hand-written Hopper kernels (csrc/) for LayerNorm+residual and bias+GELU
-(forward and backward), attention (forward), softmax cross-entropy (forward
-and backward) and the Adam update.
+serving and the static training paths of BERT-base and ResNet-50 (and the
+MNIST CNN) so far: their ops, passes, layers, io, Predictor,
+`append_backward`, `optimizer.Adam` and `optimizer.Momentum`, with
+hand-written Hopper kernels (csrc/) for LayerNorm+residual, bias+GELU and
+the batch-norm epilogue (forward and backward), attention (forward),
+softmax cross-entropy (forward and backward) and the Adam update.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
 from . import clip, flags, inference, io, layers, models, optimizer  # noqa: F401

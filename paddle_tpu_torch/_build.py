@@ -45,6 +45,8 @@ SIGNATURES = {
     "ptt_softmax_xent_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_softmax_xent_bwd": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_adam": ([_P, _P, _P, _P, _P, _L, _D, _D, _F, _I, _I, _I, _P], _I),
+    "ptt_bn_epilogue_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
+    "ptt_bn_epilogue_bwd": ([_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_sdpa_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }

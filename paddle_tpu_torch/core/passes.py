@@ -1,8 +1,8 @@
-"""Program-rewrite passes (counterpart of paddle_tpu/core/passes.py): the two
-fusions whose ops reach the port's kernels, `fuse_ln_residual` and
-`fuse_bias_act`, with the pass registry and `PassBuilder`.  A pass is a
-callable Program -> None that mutates the program in place; the
-post-pass verifier arrives with core/analysis.py."""
+"""Program-rewrite passes (counterpart of paddle_tpu/core/passes.py): the
+fusions whose ops reach the port's kernels, `fuse_bn_relu`,
+`fuse_ln_residual` and `fuse_bias_act`, with the pass registry and
+`PassBuilder`.  A pass is a callable Program -> None that mutates the
+program in place; the post-pass verifier arrives with core/analysis.py."""
 from __future__ import annotations
 
 import bisect
@@ -91,6 +91,50 @@ def _outside_reads(program):
             n_blocks_reading[n] = n_blocks_reading.get(n, 0) + 1
     return [{n for n, c in n_blocks_reading.items() if c > (1 if n in reads else 0)}
             for reads in block_reads]
+
+
+@register_pass("fuse_bn_relu")
+def fuse_bn_relu(program, keep=()):
+    """Merge `batch_norm` -> `relu` pairs into batch_norm(fuse_relu=True), so
+    the relu runs in the BN epilogue kernel's pass over the activation
+    (ops/cuda_kernels.py bn_epilogue).
+
+    Safe only when the BN's Y is read by exactly that relu (not fetched via
+    `keep`, not read from another block, not persistable), and no op between
+    the two writes Y or reads or writes the relu's Out: fusing moves the
+    write of Out up to the BN."""
+    keep = set(keep)
+    for block, outside in zip(program.blocks, _outside_reads(program)):
+        readers = _reader_counts(block)
+        writes, reads = _rw_positions(block)
+        by_out = {}
+        for i, op in enumerate(block.ops):
+            if op.type == "batch_norm" and not op.attrs.get("fuse_relu"):
+                by_out[op.output("Y")[0]] = (op, i)
+        kept = []
+        for i, op in enumerate(block.ops):
+            if op.type == "relu":
+                src = op.input_arg_names[0]
+                bn, bn_i = by_out.get(src, (None, -1))
+                # by_out keeps the LAST batch_norm writing each Y name; it must
+                # also precede this relu
+                if bn is not None and bn_i >= i:
+                    bn = None
+                out_name = op.output("Out")[0] if bn is not None else None
+                hazard = bn is not None and (
+                    _accessed_between(writes, src, bn_i, i)
+                    or _accessed_between(writes, out_name, bn_i, i)
+                    or _accessed_between(reads, out_name, bn_i, i))
+                if (bn is not None and not hazard and readers.get(src, 0) == 1
+                        and src not in keep and src not in outside):
+                    v = block._find_var_recursive(src)
+                    if v is None or not v.persistable:
+                        # the BN now writes the relu's output var
+                        bn.outputs["Y"] = [op.output("Out")[0]]
+                        bn.attrs["fuse_relu"] = True
+                        continue
+            kept.append(op)
+        block.ops = kept
 
 
 @register_pass("fuse_ln_residual")

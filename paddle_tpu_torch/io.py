@@ -139,7 +139,8 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
 def load_numpy_params(scope: Scope, params: Dict[str, np.ndarray], device="cpu") -> None:
     """Put numpy arrays into `scope` as tensors on `device`: for instance the
     JAX package's whole persistable state -- parameters, Adam's moment1 /
-    moment2 and float32 beta pows, the learning-rate var -- numpy bfloat16
+    moment2 and float32 beta pows, Momentum's velocities, batch norm's
+    running mean and variance, the learning-rate var -- numpy bfloat16
     included."""
     for name, arr in params.items():
         scope.set_var(name, to_tensor(arr, None, device))

@@ -1,6 +1,9 @@
-"""fluid.layers-compatible namespace: the builders of the serving slice."""
+"""fluid.layers-compatible namespace: the builders of the ported slices."""
 from .io import data  # noqa: F401
+from .metric import accuracy  # noqa: F401
 from .nn import (  # noqa: F401
+    batch_norm,
+    conv2d,
     dropout,
     elementwise_add,
     embedding,
@@ -9,9 +12,11 @@ from .nn import (  # noqa: F401
     layer_norm,
     matmul,
     mean,
+    pool2d,
     reshape,
     softmax,
     softmax_with_cross_entropy,
+    topk,
     transpose,
 )
 from .tensor import cast  # noqa: F401

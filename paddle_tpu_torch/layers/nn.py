@@ -6,8 +6,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.initializer import ConstantInitializer
+from ..core.initializer import ConstantInitializer, NormalInitializer
 from ..core.layer_helper import LayerHelper
+from ..core.param_attr import ParamAttr
 
 
 def _out(helper, dtype, shape=None):
@@ -54,6 +55,140 @@ def embedding(input, size, is_sparse=False, is_distributed=False, padding_idx=No
                "padding_idx": padding_idx},
     )
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1, groups=None,
+           param_attr=None, bias_attr=None, use_cudnn=True, act=None, name=None,
+           data_format="NCHW"):
+    """2-D convolution; the filter is OIHW in either layout, initialized
+    N(0, 2 / fan_in); `padding` is [ph, pw] or [top, bottom, left, right].
+    The builder records NHWC as the JAX package does; the port's lowering
+    runs NCHW only."""
+    helper = LayerHelper("conv2d", name=name, act=act)
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"conv2d: data_format must be NCHW or NHWC, got {data_format!r}")
+    ch_axis = 1 if data_format == "NCHW" else 3
+    num_channels = input.shape[ch_axis]
+    filter_shape = [num_filters, num_channels // groups, filter_size[0], filter_size[1]]
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(param_attr, filter_shape, input.dtype,
+                                default_initializer=NormalInitializer(0.0, float(np.sqrt(2.0 / fan_in))))
+    out_shape = None
+    h_axis, w_axis = (2, 3) if data_format == "NCHW" else (1, 2)
+    pad_hw = (((padding[0], padding[1]), (padding[2], padding[3])) if len(padding) == 4
+              else ((padding[0], padding[0]), (padding[1], padding[1])))
+    if input.shape is not None and input.shape[h_axis] is not None:
+        def _osz(i, k, p2, s, d):
+            if i is None or i < 0:
+                return -1
+            return (i + p2[0] + p2[1] - (d * (k - 1) + 1)) // s + 1
+        oh = _osz(input.shape[h_axis], filter_size[0], pad_hw[0], stride[0], dilation[0])
+        ow = _osz(input.shape[w_axis], filter_size[1], pad_hw[1], stride[1], dilation[1])
+        out_shape = ((input.shape[0], num_filters, oh, ow) if data_format == "NCHW"
+                     else (input.shape[0], oh, ow, num_filters))
+    pre_bias = _out(helper, input.dtype, shape=out_shape)
+    helper.append_op(
+        "conv2d",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation, "groups": groups,
+               "data_format": data_format},
+    )
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, [num_filters], dim_start=ch_axis)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, exclusive=True, name=None,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"pool2d: data_format must be NCHW or NHWC, got {data_format!r}")
+    h_axis, w_axis = (2, 3) if data_format == "NCHW" else (1, 2)
+    out_shape = None
+    if input.shape is not None and not global_pooling:
+        def _osz(i, k, p, s):
+            if i is None or i < 0:
+                return -1
+            return (i + 2 * p - k) // s + 1
+        oh = _osz(input.shape[h_axis], pool_size[0], pool_padding[0], pool_stride[0])
+        ow = _osz(input.shape[w_axis], pool_size[1], pool_padding[1], pool_stride[1])
+        out_shape = ((input.shape[0], input.shape[1], oh, ow) if data_format == "NCHW"
+                     else (input.shape[0], oh, ow, input.shape[3]))
+    elif input.shape is not None:
+        out_shape = ((input.shape[0], input.shape[1], 1, 1) if data_format == "NCHW"
+                     else (input.shape[0], 1, 1, input.shape[3]))
+    out = _out(helper, input.dtype, shape=out_shape)
+    helper.append_op(
+        "pool2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size, "strides": pool_stride,
+               "paddings": pool_padding, "global_pooling": global_pooling,
+               "ceil_mode": ceil_mode, "exclusive": exclusive, "data_format": data_format},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5, param_attr=None,
+               bias_attr=None, data_layout="NCHW", name=None, moving_mean_name=None,
+               moving_variance_name=None, use_global_stats=False):
+    """Scale, bias and the running mean / variance are float32 whatever the
+    input's dtype; the running statistics are persistable, not trainable
+    (no gradient, no optimizer update)."""
+    helper = LayerHelper("batch_norm", name=name, act=act)
+    ch = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = input.dtype
+    param_dtype = "float32" if str(dtype) in ("bfloat16", "float16") else dtype
+    scale = helper.create_parameter(param_attr, [ch], param_dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [ch], param_dtype, is_bias=True)
+    mean_attr = ParamAttr(name=moving_mean_name, initializer=ConstantInitializer(0.0),
+                          trainable=False)
+    var_attr = ParamAttr(name=moving_variance_name, initializer=ConstantInitializer(1.0),
+                         trainable=False)
+    mean = helper.create_parameter(mean_attr, [ch], param_dtype)
+    variance = helper.create_parameter(var_attr, [ch], param_dtype)
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = _out(helper, dtype, shape=(ch,))
+    saved_var = _out(helper, dtype, shape=(ch,))
+    out = _out(helper, dtype, shape=input.shape)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name], "Bias": [bias.name],
+                "Mean": [mean.name], "Variance": [variance.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name], "VarianceOut": [variance.name],
+                 "SavedMean": [saved_mean.name], "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout, "use_global_stats": use_global_stats},
+    )
+    return helper.append_activation(out)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,) if input.shape is not None else None
+    values = _out(helper, input.dtype, shape=shape)
+    indices = _out(helper, "int64", shape=shape)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name], "Indices": [indices.name]}, attrs={"k": k})
+    return values, indices
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,

@@ -1,6 +1,6 @@
-"""Hand-written Hopper kernels for LayerNorm+residual, bias+activation,
-softmax cross-entropy and the Adam update, with their plain PyTorch versions
-(counterpart of paddle_tpu/ops/pallas_kernels.py).
+"""Hand-written Hopper kernels for LayerNorm+residual, bias+activation, the
+batch-norm epilogue, softmax cross-entropy and the Adam update, with their
+plain PyTorch versions (counterpart of paddle_tpu/ops/pallas_kernels.py).
 
 Each public function keeps the JAX package's name and contract.  The
 tensor's device picks the route:
@@ -11,8 +11,8 @@ tensor's device picks the route:
   * anything else raises.  A kernel that fails to build or launch raises:
     there is no fallback to the plain version on the card.
 
-`fused_ln_residual`, `fused_bias_act` and `fused_softmax_xent` are
-`torch.autograd.Function`s, as the JAX functions are custom VJPs: the
+`fused_ln_residual`, `fused_bias_act`, `fused_scale_shift_relu` and
+`fused_softmax_xent` are `torch.autograd.Function`s, as the JAX functions are custom VJPs: the
 forward and the backward each take the kernel on the card, and on the CPU
 the plain forward and an explicit plain backward (`*_bwd_plain`, the
 backward's own arithmetic, not autograd of the plain forward).
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +34,7 @@ from .. import _build
 LAUNCHES: Dict[str, int] = {
     "ln_residual_fwd": 0, "ln_residual_bwd": 0, "bias_act_fwd": 0, "bias_act_bwd": 0,
     "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0, "sdpa_fwd": 0,
+    "bn_epilogue_fwd": 0, "bn_epilogue_bwd": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -282,6 +285,113 @@ def fused_bias_act(x, bias, act="gelu"):
     if act not in _ACT_CODE:
         raise ValueError(f"fused_bias_act: act must be relu or gelu, got {act!r}")
     return _BiasAct.apply(x, bias, act)
+
+
+# --------------------------------------------------------------------------
+# batch-norm epilogue: per-row scale / shift (+ relu)
+# --------------------------------------------------------------------------
+
+
+def bn_epilogue_plain(x, mul, add, relu=True):
+    """paddle_tpu/ops/pallas_kernels.py _epilogue_fwd_kernel over x:[R, W]
+    with per-row float32 mul/add: max(x*mul + add, 0), or without the relu,
+    in float32 (a multiply, then an add), output in x.dtype."""
+    y = x.float() * mul.float()[:, None] + add.float()[:, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def bn_epilogue_bwd_plain(x, mul, add, g, relu=True):
+    """The arithmetic of _epilogue_bwd_kernel: the relu mask recomputed as
+    x*mul + add > 0, dx = g*mul*live in x.dtype, and per-row float32
+    dmul = sum(g*live*x), dadd = sum(g*live)."""
+    xf = x.float()
+    m = mul.float()[:, None]
+    gf = g.float()
+    if relu:
+        live = (xf * m + add.float()[:, None]) > 0.0
+        gf = torch.where(live, gf, torch.zeros_like(gf))
+    return (gf * m).to(x.dtype), (gf * xf).sum(-1), gf.sum(-1)
+
+
+def _check_epilogue(name, x, mul, add, g=None):
+    check_operand(name, "x", x)
+    if g is not None:
+        check_operand(name, "g", g, x.dtype)
+    if x.dim() != 2 or (g is not None and g.shape != x.shape):
+        raise ValueError(f"{name}: x (and g) must be [R, W], got {tuple(x.shape)}")
+    for what, v in (("mul", mul), ("add", add)):
+        if v.dtype != torch.float32 or v.shape != (x.shape[0],) or not v.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous float32 [{x.shape[0]}], got "
+                             f"{v.dtype} {tuple(v.shape)}")
+
+
+def _epilogue_fwd(x, mul, add, relu):
+    name = "fused_scale_shift_relu"
+    if not on_card(name, x, mul, add):
+        return bn_epilogue_plain(x, mul, add, relu)
+    _check_epilogue(name, x, mul, add)
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.call("ptt_bn_epilogue_fwd", x.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                    out.data_ptr(), x.shape[0], x.shape[1], int(relu), _DTYPE_CODE[x.dtype],
+                    stream_ptr(x))
+        LAUNCHES["bn_epilogue_fwd"] += 1
+    return out
+
+
+def bn_epilogue_bwd(x, mul, add, g, relu=True):
+    """(dx, dmul, dadd) of fused_scale_shift_relu: the kernel on the card, the
+    plain backward on the CPU."""
+    name = "fused_scale_shift_relu backward"
+    if not on_card(name, x, mul, add, g):
+        return bn_epilogue_bwd_plain(x, mul, add, g, relu)
+    _check_epilogue(name, x, mul, add, g)
+    dx = torch.empty_like(x)
+    dmul = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    dadd = torch.empty_like(dmul)
+    if x.numel():
+        _build.call("ptt_bn_epilogue_bwd", x.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                    g.data_ptr(), dx.data_ptr(), dmul.data_ptr(), dadd.data_ptr(), x.shape[0],
+                    x.shape[1], int(relu), _DTYPE_CODE[x.dtype], stream_ptr(x))
+        LAUNCHES["bn_epilogue_bwd"] += 1
+    else:
+        dmul.zero_()
+        dadd.zero_()
+    return dx, dmul, dadd
+
+
+class _ScaleShiftRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mul, add, relu):
+        ctx.save_for_backward(x, mul, add)
+        ctx.relu = relu
+        return _epilogue_fwd(x, mul, add, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mul, add = ctx.saved_tensors
+        dx, dm, da = bn_epilogue_bwd(x, mul, add, g.contiguous(), ctx.relu)
+        return dx, dm, da, None
+
+
+def fused_scale_shift_relu(x, mul, add, relu=True):
+    """y = max(x * mul + add, 0) (or without the relu) with PER-ROW float32
+    mul/add [R] over x:[R, W]; y has x's dtype.  The backward recomputes the
+    mask (only x, mul and add are saved) and gives dx in x.dtype and per-row
+    float32 dmul, dadd."""
+    return _ScaleShiftRelu.apply(x, mul, add, bool(relu))
+
+
+def bn_epilogue(x, mul, add, relu):
+    """The fused epilogue over an NCHW / NC* activation with per-channel
+    float32 mul/add (channel axis 1): flatten to [N*C, prod(spatial)], tile
+    the channel vectors to rows, run the kernel, restore the shape."""
+    n, c = x.shape[0], x.shape[1]
+    x2 = x.reshape(n * c, math.prod(x.shape[2:])).contiguous()
+    y = fused_scale_shift_relu(x2, mul.reshape(-1).repeat(n), add.reshape(-1).repeat(n), relu)
+    return y.reshape(x.shape)
 
 
 # --------------------------------------------------------------------------

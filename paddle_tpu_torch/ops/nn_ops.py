@@ -1,16 +1,164 @@
-"""NN lowerings: lookup_table, layer_norm (with the fused residual),
-dropout, softmax, softmax_with_cross_entropy and fused_attention
-(counterpart of paddle_tpu/ops/nn_ops.py)."""
+"""NN lowerings: conv2d, pool2d, batch_norm (with the fused epilogue),
+lookup_table, layer_norm (with the fused residual), dropout, softmax,
+softmax_with_cross_entropy, fused_attention, top_k and accuracy
+(counterpart of paddle_tpu/ops/nn_ops.py).
+
+Layouts are NCHW only: the JAX package's channels-last paths (the
+`data_format` / `data_layout` attrs, `_NHWC_LOWERING`) are TPU layout
+levers, and the port picks its layout on the card's own evidence later
+(ROADMAP A3).  `conv2d` and the pools are PyTorch's: the JAX package leaves
+them to XLA outside any Pallas kernel."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import first, flatten_lookup_ids, match_dtype
+from .common import canon_dtype, first, flatten_lookup_ids, match_dtype
 from .cuda_attention import MAX_SEQ, fused_sdpa, sdpa_plain
-from .cuda_kernels import fused_ln_residual, fused_softmax_xent
+from .cuda_kernels import bn_epilogue, fused_ln_residual, fused_softmax_xent
+
+# paddle_tpu/ops/nn_ops.py: bf16 batch norm keeps its elementwise math in
+# bf16 with float32 reduction accumulators, and takes its training
+# statistics in one fused pass, E[x] and E[x^2]
+_BN_BF16_COMPUTE = True
+_BN_BF16_FUSED_DEFAULT = True
+
+
+def _nchw_only(op_type, layout):
+    if layout != "NCHW":
+        raise NotImplementedError(
+            f"{op_type}: layout {layout!r} is not ported; the port runs NCHW only until the "
+            "card's own evidence picks a layout (ROADMAP A3)")
+
+
+@register_op("conv2d")
+def _conv2d(ctx, op, ins):
+    """NCHW input, OIHW filter (cast to the input's dtype), with strides,
+    dilations, groups, and paddings [ph, pw] or [top, bottom, left, right]."""
+    x = first(ins, "Input")
+    w = match_dtype(x, first(ins, "Filter"))
+    _nchw_only("conv2d", op.attr("data_format", "NCHW"))
+    pads = list(op.attr("paddings", [0, 0]))
+    if len(pads) == 4:
+        top, bottom, left, right = pads
+        if (top, left) != (bottom, right):
+            # F.conv2d pads symmetrically; F.pad takes (left, right, top, bottom)
+            x = F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        pads = [top, left]
+    return {"Output": F.conv2d(x, w, None, tuple(op.attr("strides", [1, 1])), tuple(pads),
+                               tuple(op.attr("dilations", [1, 1])), op.attr("groups", 1) or 1)}
+
+
+@register_op("pool2d")
+def _pool2d(ctx, op, ins):
+    """Max or average pooling with the JAX package's arithmetic: explicit
+    padding, high-side padding for ceil_mode, and an exclusive average that
+    divides each window by its count of valid elements."""
+    x = first(ins, "X")
+    _nchw_only("pool2d", op.attr("data_format", "NCHW"))
+    ksize = list(op.attr("ksize", [2, 2]))
+    strides = list(op.attr("strides", [1, 1]))
+    pads = list(op.attr("paddings", [0, 0]))
+    if op.attr("global_pooling", False):
+        ksize, strides, pads = [x.shape[2], x.shape[3]], [1, 1], [0, 0]
+    pad_hi = [pads[0], pads[1]]
+    if op.attr("ceil_mode", False):
+        # extra high-side padding so the window count rounds up
+        for d in (0, 1):
+            span = x.shape[2 + d] + 2 * pads[d] - ksize[d]
+            pad_hi[d] += (-(-span // strides[d]) - span // strides[d]) * strides[d]
+    pad4 = (pads[1], pad_hi[1], pads[0], pad_hi[0])  # F.pad order: W then H
+    any_pad = any(pad4)
+    if op.attr("pooling_type", "max") == "max":
+        fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
+        return {"Out": F.max_pool2d(F.pad(x, pad4, value=fill) if any_pad else x, ksize, strides)}
+    xp = F.pad(x, pad4) if any_pad else x
+    if op.attr("exclusive", True) and any_pad:
+        summed = F.avg_pool2d(xp, ksize, strides, divisor_override=1)
+        ones = F.pad(torch.ones_like(x[:1, :1]), pad4)
+        return {"Out": summed / F.avg_pool2d(ones, ksize, strides, divisor_override=1)}
+    return {"Out": F.avg_pool2d(xp, ksize, strides)}
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx, op, ins):
+    """paddle_tpu/ops/nn_ops.py _batch_norm over NCHW / NC*.
+
+    Test mode and use_global_stats take the running statistics.  Training
+    takes the batch's: bf16 in one fused pass (float32 sums of x and of its
+    bf16 square, var = max(E[x^2] - mean^2, 0)), float32 in two (the mean,
+    then the biased variance); MeanOut / VarianceOut move by `momentum`, and
+    SavedMean / SavedVariance are written only when something reads them.
+    With a channel axis and spatial dims the normalization is the epilogue
+    kernel (ops/cuda_kernels.py bn_epilogue) with float32 per-channel
+    mul = rsqrt(var + eps) * scale and add = bias - mean * mul, built under
+    autograd, so gradients reach x through the statistics too; the
+    composite takes every other shape."""
+    x = first(ins, "X")
+    _nchw_only("batch_norm", op.attr("data_layout", "NCHW"))
+    orig_dtype = x.dtype
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    bf16_fast = _BN_BF16_COMPUTE and low
+    if low and not bf16_fast:
+        x = x.float()
+    scale = first(ins, "Scale")
+    bias = first(ins, "Bias")
+    mean_in = first(ins, "Mean")
+    var_in = first(ins, "Variance")
+    eps = op.attr("epsilon", 1e-5)
+    momentum = op.attr("momentum", 0.9)
+    axes = [i for i in range(x.dim()) if i != 1]
+    bshape = [1] * x.dim()
+    bshape[1] = x.shape[1]
+    training = not (op.attr("is_test", False) or op.attr("use_global_stats", False))
+    # fp16 never takes the fused pass: its square overflows at |x| >= 256
+    fused_pass = bf16_fast and x.dtype == torch.bfloat16 and _BN_BF16_FUSED_DEFAULT
+    if not training:
+        mean, var = mean_in, var_in
+        mean_out, var_out = mean_in, var_in
+    else:
+        if fused_pass:
+            inv_n = 1.0 / math.prod(x.shape[i] for i in axes)
+            mean = x.sum(axes, dtype=torch.float32) * inv_n
+            var = torch.clamp_min(torch.square(x).sum(axes, dtype=torch.float32) * inv_n
+                                  - torch.square(mean), 0.0)
+        else:
+            mean = x.mean(axes, dtype=torch.float32)
+            if bf16_fast:  # fp16: the centered variance keeps the squares small
+                centered = x - mean.to(x.dtype).reshape(bshape)
+                var = torch.square(centered).mean(axes, dtype=torch.float32)
+            else:
+                var = x.var(axes, correction=0)
+        mean_out = momentum * mean_in + (1.0 - momentum) * mean
+        var_out = momentum * var_in + (1.0 - momentum) * var
+
+    inv = torch.rsqrt(var.reshape(bshape) + eps)
+    fuse_relu = op.attr("fuse_relu", False)  # core/passes.py fuse_bn_relu
+    if x.dim() >= 3:
+        mul_c = inv.reshape(-1) * scale.float()
+        add_c = bias.float() - mean.reshape(-1) * mul_c
+        y = bn_epilogue(x, mul_c, add_c, fuse_relu)
+    else:
+        sf = scale.float().reshape(bshape)
+        if bf16_fast:
+            # per-channel multipliers computed in float32, applied in bf16
+            y = (x * (inv * sf).to(x.dtype)
+                 + (bias.float().reshape(bshape) - mean.reshape(bshape) * inv * sf).to(x.dtype))
+        else:
+            y = (x - mean.reshape(bshape)) * inv * sf + bias.reshape(bshape)
+        if fuse_relu:
+            y = torch.relu(y)
+    return {
+        "Y": y.to(orig_dtype),
+        "MeanOut": mean_out,
+        "VarianceOut": var_out,
+        "SavedMean": mean if ctx.wants(op, "SavedMean") else None,
+        "SavedVariance": var if ctx.wants(op, "SavedVariance") else None,
+    }
 
 
 @register_op("lookup_table")
@@ -157,3 +305,25 @@ def _fused_attention(ctx, op, ins):
             "the streaming flash kernel (paddle_tpu/ops/nn_ops.py:637, JAX's "
             "pallas.ops.tpu.flash_attention), which is not ported to the card yet")
     return {"Out": sdpa_plain(q, k, v, bias, causal, float(scale))}
+
+
+@register_op("top_k")
+def _top_k(ctx, op, ins):
+    """The k largest along the last axis; indices int32 (the x32 rule)."""
+    vals, idx = torch.topk(first(ins, "X"), op.attr("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx.to(canon_dtype("int64"))}
+
+
+@register_op("accuracy")
+def _accuracy(ctx, op, ins):
+    """Share of rows whose label is among their top-k indices; Correct and
+    Total int32 [1]."""
+    indices = first(ins, "Indices")
+    label = first(ins, "Label")
+    correct = (indices == label.to(indices.dtype)).any(-1).sum(dtype=torch.int32)
+    total = indices.shape[0]
+    return {
+        "Accuracy": (correct.float() / float(total)).reshape(1),
+        "Correct": correct.reshape(1),
+        "Total": torch.full((1,), total, dtype=torch.int32, device=indices.device),
+    }

@@ -1,5 +1,5 @@
 """Optimizer update lowerings (counterpart of paddle_tpu/ops/optimizer_ops.py):
-`adam` so far.
+`adam` and `momentum` so far.
 
 Each update writes its `<Slot>Out` outputs in the dtype of `<Slot>`, as the
 JAX package's register_opt does.  The bias-corrected step size and the
@@ -18,17 +18,36 @@ def _lr(ins):
     return first(ins, "LearningRate").reshape(())
 
 
+def _dense_grad(op, g):
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            f"{op.type}: grad of {op.input('Param')[0]!r} is {type(g).__name__}; SelectedRows "
+            "(sparse) gradients are not ported yet (ROADMAP A5)")
+    return g
+
+
+@register_op("momentum")
+def _momentum(ctx, op, ins):
+    """Dense momentum, plain torch (the JAX package has no kernel for it):
+    v' = mu*v + g, then p' = p - lr*v', or p - lr*(g + mu*v') with
+    use_nesterov.  New tensors, each in its slot's dtype."""
+    p = first(ins, "Param")
+    g = _dense_grad(op, first(ins, "Grad"))
+    v = first(ins, "Velocity")
+    mu = op.attr("mu", 0.9)
+    lr = _lr(ins)
+    v_new = mu * v + g
+    step = g + mu * v_new if op.attr("use_nesterov", False) else v_new
+    return {"ParamOut": (p - lr * step).to(p.dtype), "VelocityOut": v_new.to(v.dtype)}
+
+
 @register_op("adam")
 def _adam(ctx, op, ins):
     """Dense Adam through ops/cuda_kernels.py fused_adam: the kernel updates
     Param, Moment1 and Moment2 in place on the card (their outputs name the
     same vars); the CPU takes the plain version."""
     p = first(ins, "Param")
-    g = first(ins, "Grad")
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"adam: grad of {op.input('Param')[0]!r} is {type(g).__name__}; SelectedRows "
-            "(sparse) gradients are not ported yet (ROADMAP A5)")
+    g = _dense_grad(op, first(ins, "Grad"))
     m1 = first(ins, "Moment1")
     m2 = first(ins, "Moment2")
     b1p = first(ins, "Beta1Pow").reshape(())

@@ -4,8 +4,8 @@
 parameter.  The learning rate is a persistable [1] variable and the
 accumulators are persistable variables, each initialized by a
 `fill_constant` in the startup program, with the same names, ops and attrs
-as the JAX package.  This slice ports `Adam`; the other optimizers and the
-dygraph (eager) updates come with later slices.
+as the JAX package.  The port has `Adam` and `Momentum` so far; the other
+optimizers and the dygraph (eager) updates come with later slices.
 """
 from __future__ import annotations
 
@@ -117,6 +117,28 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  lazy_mode=False, **kw):
@@ -165,3 +187,4 @@ class AdamOptimizer(Optimizer):
 
 
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer

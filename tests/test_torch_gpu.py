@@ -164,6 +164,63 @@ def test_training_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("rows,w", [(2 * 64, 12544), (3 * 2048 + 1, 49), (5, 7)])
+def test_bn_epilogue_kernels_match_plain_on_card(rows, w, relu, dtype):
+    """Both BN epilogue kernels against their plain versions at the
+    ResNet-50 stem's and last stage's row widths, an odd R and a row shorter
+    than a 16-byte vector: the forward at FUSED_KERNELS' tolerance (f32
+    2e-5, bf16 2e-2), the backward element by element (dx within one
+    rounding, dmul / dadd within 1e-5 of sum|g*x| and sum|g| of the row),
+    the row sums bit for bit on a second run; and a view one element off
+    the 16-byte grid (the scalar path)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(rows, w, generator=g, device="cuda").to(dt)
+    gy = torch.randn(rows, w, generator=g, device="cuda").to(dt)
+    mul = torch.rand(rows, generator=g, device="cuda") + 0.5
+    add = torch.randn(rows, generator=g, device="cuda") * 0.1
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    before = dict(ck.LAUNCHES)
+    assert _err(ck._epilogue_fwd(x, mul, add, relu), ck.bn_epilogue_plain(x, mul, add, relu)) <= tol
+    off = torch.randn(rows * w + 1, generator=g, device="cuda").to(dt)[1:].view(rows, w)
+    assert _err(ck._epilogue_fwd(off, mul, add, relu),
+                ck.bn_epilogue_plain(off, mul, add, relu)) <= tol
+    got = ck.bn_epilogue_bwd(x, mul, add, gy, relu)
+    want = ck.bn_epilogue_bwd_plain(x, mul, add, gy, relu)
+    gf = gy.float()
+    ulp = 2.0 ** -23 if dtype == "float32" else 2.0 ** -8
+    allowed = (ulp * want[0].float().abs() + 1e-30, 1e-5 * (gf * x.float()).abs().sum(-1) + 1e-30,
+               1e-5 * gf.abs().sum(-1) + 1e-30)
+    for a, b, t in zip(got, want, allowed):
+        assert ((a.float() - b.float()).abs() <= t).all()
+    again = ck.bn_epilogue_bwd(x, mul, add, gy, relu)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
+        NO_LAUNCHES, bn_epilogue_fwd=2, bn_epilogue_bwd=2)
+
+
+@pytest.mark.gpu
+def test_bn_epilogue_checks_its_operands_on_card():
+    _need_card()
+    x = torch.zeros(4, 6, device="cuda")
+    v = torch.ones(4, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        ck.fused_scale_shift_relu(x, v.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.fused_scale_shift_relu(x.t().contiguous().t(), v, v)
+    with pytest.raises(TypeError, match="not supported"):
+        ck.fused_scale_shift_relu(x.half(), v, v)
+    # a CUDA input that requires grad is fine: the backward is a kernel too
+    xg = torch.randn(2, 3, 4, 4, device="cuda", requires_grad=True)
+    m = torch.ones(3, device="cuda", requires_grad=True)
+    (ck.bn_epilogue(xg, m, torch.zeros(3, device="cuda"), True).sum()).backward()
+    assert xg.grad is not None and m.grad is not None
+
+
+@pytest.mark.gpu
 def test_tiny_bert_trains_on_card_like_cpu():
     """Adam steps of the tiny BERT (unfused attention, dropout 0, float32) on
     the card match the CPU's, and each step launches every training kernel.

@@ -41,7 +41,7 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "sys.modules['paddle_tpu'] = None\n"
         "import paddle_tpu_torch as fluid\n"
         "from paddle_tpu_torch.core.registry import registered_ops\n"
-        "assert 'fused_attention' in registered_ops()\n"
+        "assert {'fused_attention', 'batch_norm', 'conv2d', 'momentum'} <= set(registered_ops())\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', 'paddle_tpu.'))"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n"
@@ -54,7 +54,7 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
 
 
 @pytest.mark.parametrize("src", ["ln_residual.cu", "bias_act.cu", "sdpa.cu", "softmax_xent.cu",
-                                 "adam.cu"])
+                                 "adam.cu", "bn_epilogue.cu"])
 def test_kernel_source_names_what_it_replaces(src):
     """Every CUDA source opens with the TPU kernel it replaces and its bound."""
     with open(os.path.join(ROOT, "paddle_tpu_torch", "csrc", src)) as f:

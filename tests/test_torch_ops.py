@@ -2,6 +2,7 @@
 single-op program, built in both packages from the same numpy inputs, runs
 through the JAX Executor and the port's Executor on the CPU and must give
 the same fetches.  Random ops are checked by their moments."""
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -13,7 +14,11 @@ from paddle_tpu_torch.ops import cuda_kernels as ck
 
 
 def _run(fluid, op_type, inputs, attrs, out_slots):
-    """Build {slot: array} -> one op -> fetch out_slots, on the CPU."""
+    """Build {slot: array} -> one op -> fetch out_slots, on the CPU.  The
+    output vars take attrs' `out_dtype`, or per slot `out_dtypes` (not an
+    attr of the op)."""
+    attrs = dict(attrs)
+    out_dtypes = attrs.pop("out_dtypes", {})
     prog = fluid.Program()
     feed = {}
     with fluid.program_guard(prog, fluid.Program()):
@@ -27,7 +32,8 @@ def _run(fluid, op_type, inputs, attrs, out_slots):
             in_io[slot] = [name]
         out_io = {}
         for slot in out_slots:
-            block.create_var(f"out_{slot}", dtype=attrs.get("out_dtype", "float32"))
+            block.create_var(f"out_{slot}",
+                             dtype=out_dtypes.get(slot, attrs.get("out_dtype", "float32")))
             out_io[slot] = [f"out_{slot}"]
         block.append_op(op_type, inputs=in_io, outputs=out_io, attrs=dict(attrs))
     exe = fluid.Executor(fluid.CPUPlace())
@@ -36,6 +42,13 @@ def _run(fluid, op_type, inputs, attrs, out_slots):
 
 rng = np.random.RandomState(0)
 F32 = lambda *s: rng.randn(*s).astype("float32")  # noqa: E731
+BF16 = lambda *s: rng.randn(*s).astype(ml_dtypes.bfloat16)  # noqa: E731
+POS = lambda *s: (rng.rand(*s) + 0.5).astype("float32")  # noqa: E731
+BN_OUT = ["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"]
+
+
+def _bn(x, c=3):
+    return {"X": x, "Scale": POS(c), "Bias": F32(c), "Mean": F32(c) * 0.1, "Variance": POS(c)}
 
 CASES = [
     # (id, op_type, inputs, attrs, out_slots, atol)
@@ -88,6 +101,66 @@ CASES = [
       "Beta2Pow": np.array([0.999 ** 3], np.float32), "LearningRate": np.array([0.01], np.float32)},
      {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
      ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"], 1e-6),
+    # conv2d: NCHW / OIHW; symmetric and [top, bottom, left, right] padding
+    ("conv_sym", "conv2d", {"Input": F32(2, 4, 9, 9), "Filter": F32(6, 4, 3, 3)},
+     {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1], "groups": 1}, ["Output"], 1e-4),
+    ("conv_pad4_s2d", "conv2d", {"Input": F32(2, 12, 8, 8), "Filter": F32(5, 12, 4, 4)},
+     {"strides": [1, 1], "paddings": [2, 1, 2, 1], "dilations": [1, 1], "groups": 1}, ["Output"], 1e-4),
+    ("conv_pad4_stride", "conv2d", {"Input": F32(2, 3, 11, 10), "Filter": F32(4, 3, 3, 3)},
+     {"strides": [2, 2], "paddings": [0, 2, 1, 0], "dilations": [1, 1], "groups": 1}, ["Output"], 1e-4),
+    ("conv_dilation", "conv2d", {"Input": F32(2, 3, 10, 10), "Filter": F32(4, 3, 3, 3)},
+     {"strides": [1, 1], "paddings": [2, 2], "dilations": [2, 2], "groups": 1}, ["Output"], 1e-4),
+    ("conv_groups", "conv2d", {"Input": F32(2, 6, 7, 7), "Filter": F32(9, 2, 3, 3)},
+     {"strides": [2, 1], "paddings": [1, 0], "dilations": [1, 1], "groups": 3}, ["Output"], 1e-4),
+    # pool2d: max and both averages with padding and ceil_mode, global
+    ("pool_max_pad", "pool2d", {"X": F32(2, 3, 9, 9)},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}, ["Out"], 0.0),
+    ("pool_max_ceil", "pool2d", {"X": F32(2, 3, 10, 10)},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1],
+      "ceil_mode": True}, ["Out"], 0.0),
+    ("pool_avg_excl_ceil", "pool2d", {"X": F32(2, 3, 10, 10)},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1],
+      "ceil_mode": True, "exclusive": True}, ["Out"], 1e-6),
+    ("pool_avg_incl_ceil", "pool2d", {"X": F32(2, 3, 10, 10)},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1],
+      "ceil_mode": True, "exclusive": False}, ["Out"], 1e-6),
+    ("pool_avg_excl_ceil_nopad", "pool2d", {"X": F32(2, 3, 7, 7)},
+     {"pooling_type": "avg", "ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0],
+      "ceil_mode": True}, ["Out"], 1e-6),
+    ("pool_avg_global", "pool2d", {"X": F32(2, 5, 7, 7)},
+     {"pooling_type": "avg", "global_pooling": True, "ksize": [1, 1]}, ["Out"], 1e-6),
+    # batch_norm: train and test, float32 and bf16, fuse_relu, SavedMean fetched
+    ("bn_train", "batch_norm", _bn(F32(4, 3, 5, 5) * 2 + 1),
+     {"is_test": False, "momentum": 0.9, "epsilon": 1e-5}, BN_OUT, 1e-5),
+    ("bn_train_relu", "batch_norm", _bn(F32(4, 3, 5, 5) * 2 + 1),
+     {"is_test": False, "momentum": 0.8, "epsilon": 1e-3, "fuse_relu": True}, BN_OUT, 1e-5),
+    ("bn_test", "batch_norm", _bn(F32(4, 3, 5, 5)),
+     {"is_test": True, "fuse_relu": True}, ["Y", "MeanOut", "SavedMean"], 1e-5),
+    ("bn_global_stats", "batch_norm", _bn(F32(4, 3, 6)),
+     {"is_test": False, "use_global_stats": True}, ["Y", "VarianceOut"], 1e-5),
+    ("bn_train_2d", "batch_norm", _bn(F32(6, 3) + 2),
+     {"is_test": False, "fuse_relu": True}, BN_OUT, 1e-5),
+    # bf16: float32 statistics of bf16 x.  The port rounds x^2 to bf16 (the
+    # dtype of jnp.square(x)); XLA on the CPU keeps it unrounded: 1e-4 on
+    # variances near 1.  Y differs by bf16 roundings (the JAX package's CPU
+    # composite rounds mul/add to bf16, the port's epilogue does not)
+    ("bn_train_bf16", "batch_norm", _bn(BF16(4, 3, 5, 5)),
+     {"is_test": False, "fuse_relu": True}, ["MeanOut", "VarianceOut", "SavedMean"], 1e-4),
+    ("bn_train_bf16_y", "batch_norm", _bn(BF16(4, 3, 5, 5)),
+     {"is_test": False, "fuse_relu": True}, ["Y"], 5e-2),
+    ("bn_test_bf16_y", "batch_norm", _bn(BF16(4, 3, 5, 5)), {"is_test": True}, ["Y"], 5e-2),
+    ("top_k", "top_k", {"X": F32(4, 7)}, {"k": 3, "out_dtypes": {"Indices": "int64"}},
+     ["Out", "Indices"], 0.0),
+    ("accuracy", "accuracy",
+     {"Out": F32(5, 2), "Indices": np.array([[1, 2], [0, 3], [4, 4], [2, 1], [3, 0]]),
+      "Label": np.array([[2], [1], [4], [0], [0]])}, {}, ["Accuracy", "Correct", "Total"], 0.0),
+    ("momentum", "momentum",
+     {"Param": F32(4, 6), "Grad": F32(4, 6), "Velocity": F32(4, 6),
+      "LearningRate": np.array([0.1], np.float32)}, {"mu": 0.9}, ["ParamOut", "VelocityOut"], 1e-6),
+    ("momentum_nesterov", "momentum",
+     {"Param": F32(4, 6), "Grad": F32(4, 6), "Velocity": F32(4, 6),
+      "LearningRate": np.array([0.1], np.float32)}, {"mu": 0.9, "use_nesterov": True},
+     ["ParamOut", "VelocityOut"], 1e-6),
 ]
 
 
