@@ -10,12 +10,14 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      float32 and bfloat16, at the shapes BERT-base serving and training give
      them (backward reductions also run twice and must agree bit for bit), and
      time kernel, plain version and one PyTorch library call (CUDA events,
-     median);
+     median); the attention forward, dQ and dK/dV kernels also at seq 2048,
+     long causal, causal with Lq < Lk and Lq > Lk, dh 128 and rows whose max
+     moves late, within 1/8 of a score tensor of extra memory at kv >= 2048;
   4. serve: build BERT-base at full width in bf16, save it, load it through
      AnalysisConfig / create_predictor on cuda:0 and answer requests at batch
      1, 8, 32 and 32 (and one more at 32 under torch.profiler); every request
-     must launch the LayerNorm, bias-act and attention kernels exactly 25, 12
-     and 12 times;
+     must launch the LayerNorm, bias-act and attention forward kernels exactly
+     25, 12 and 12 times;
   5. parity: a float32 BERT-base (2 layers) served on the card and on the CPU
      (plain path) must agree to 1e-3 in the logits;
   6. train: bf16 BERT-base at full width (12 layers, unfused attention,
@@ -47,7 +49,14 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      Momentum steps on the CPU; each step also runs on the card from the
      CPU's state before it, and the two must agree in the loss, the running
      statistics, and each velocity and parameter update (resnet_train_parity
-     says why per tensor in L2).
+     says why per tensor in L2);
+ 12. train_fused: phase 6 with the fused_attention op (the JAX package's
+     benchmark configuration, tools/bench_kit.py:184-187): every step also
+     launches the attention forward, dQ and dK/dV kernels 12 times each;
+ 13. train_long: the same at seq 2048, batch 8 (16,384 tokens a step), with
+     peak memory and sequences and tokens per second;
+ 14. train_fused_parity: phase 7 with the fused_attention op at batch 32 x 128
+     and 1 x 2048.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -75,20 +84,35 @@ KERNEL_INFO = {
     "softmax_xent_fwd": ("paddle_tpu_torch/csrc/softmax_xent.cu", "paddle_tpu/ops/pallas_kernels.py:444"),
     "softmax_xent_bwd": ("paddle_tpu_torch/csrc/softmax_xent.cu", "paddle_tpu/ops/pallas_kernels.py:462"),
     "adam": ("paddle_tpu_torch/csrc/adam.cu", "paddle_tpu/ops/pallas_kernels.py:368"),
-    "sdpa_fwd": ("paddle_tpu_torch/csrc/sdpa.cu", "paddle_tpu/ops/pallas_attention.py:193"),
+    "attention_fwd": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:193 (row 10, fused_sdpa forward) and "
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758 (row 12a, stock forward, called "
+        "at paddle_tpu/ops/nn_ops.py:637-643)"),
+    "attention_bwd_dkv": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dk, dv) and "
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (row 12b, stock dK/dV)"),
+    "attention_bwd_dq": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dq) and "
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (row 12c, stock dQ)"),
     "bn_epilogue_fwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:271"),
     "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
 }
 NONE = dict.fromkeys(KERNEL_INFO, 0)
 # launches per request of BERT-base (12 layers) served with fused attention:
 # every LN, every GELU and every attention is a kernel; no backward kernel runs
-PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12, sdpa_fwd=12)
+PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12, attention_fwd=12)
 # launches per training step of BERT-base (12 layers, unfused attention):
 # 1 embedding LN + 2 per layer, 1 GELU per layer, one loss, and one Adam
 # update per parameter (4 embedding/LN + 16 per layer + 2 LM head = 198);
 # phase 6 derives the same counts from the program and holds both against each other
 PER_STEP = dict(NONE, ln_residual_fwd=25, ln_residual_bwd=25, bias_act_fwd=12, bias_act_bwd=12,
                 softmax_xent_fwd=1, softmax_xent_bwd=1, adam=198)
+# with fused attention each of the 12 layers adds one attention forward and
+# one each of its backward kernels (one backward region: the forward runs once)
+FUSED_PER_STEP = dict(PER_STEP, attention_fwd=12, attention_bwd_dkv=12, attention_bwd_dq=12)
 # ResNet-50 has 53 batch_norms (the stem, 3 per bottleneck x 16, 4 shortcuts),
 # each the epilogue kernel (33 with fuse_relu); its residual adds are not
 # 1-D bias adds, so no bias-act kernel; Momentum has no kernel
@@ -103,15 +127,18 @@ RESNET_PARITY_LR = 0.01
 TRAIN_STEPS = 6
 PARITY_STEPS = 3
 LR = 1e-4
+# the path whose count a kernel's `launches` reports: this slice's first
+LAUNCH_ORDER = ("train_fused", "resnet_train", "resnet_serve", "train", "serve", "train_long")
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
 # tests), save the loss and lse of the cross-entropy, which are float32 on both
 # sides whatever the logits' type; gradients: grad_tol below; the cross-entropy
 # backward, Adam and the BN epilogue backward element by element (check_within)
-TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "sdpa_fwd": 1e-4,
+TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "attention_fwd": 1e-4,
                    "softmax_xent_fwd": 2e-5, "bn_epilogue_fwd": 2e-5},
-       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "sdpa_fwd": 5e-2,
-                    "softmax_xent_fwd": 2e-5, "bn_epilogue_fwd": 2e-2}}
+       "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "softmax_xent_fwd": 2e-5,
+                    "bn_epilogue_fwd": 2e-2}}
+ATTENTION_BF16_RULE = "2^-7 * (|plain| + sdpa_plain(q, k, |v|)), at most 5e-2"
 XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 # Adam: the float32 arithmetic of each output, a few roundings of the terms
 # that make it, plus one rounding of a stored bfloat16 value
@@ -176,6 +203,22 @@ def repeatable(kernel, what, a, b):
         raise AssertionError(f"{kernel}: {what} differs between two runs on the same inputs")
 
 
+def attention_fwd_allowed(ca, q, k, v, bias, causal, scale, want):
+    """What the bfloat16 attention forward may differ from its plain output
+    `want` by, element by element: the worst case of the roundings the two
+    make differently.  Each rounds every probability to bfloat16 before the
+    PV product (the kernel the unnormalized exp(s - m), the plain version
+    the normalized p), 2^-8 of each term at most, so 2^-7 * sum_j p_j |v_j|
+    for the two, which is sdpa_plain(q, k, |v|); each rounds its output
+    once, 2^-7 * |want| for the two.  At most the flat 5e-2 of the other
+    bfloat16 forwards.  At seq 2048 a row spreads over hundreds of keys and
+    |out| is ~0.04, below what a flat 5e-2 can see."""
+    import torch
+
+    pv = ca.sdpa_plain(q, k, v.abs(), bias, causal, scale).float()
+    return torch.clamp(2.0 ** -7 * (want.float().abs() + pv), max=5e-2)
+
+
 def epilogue_bwd_allowed(x, mul, g, want):
     """What the BN epilogue backward may differ from its plain version by,
     element by element, given the plain (dx, dmul, dadd) in `want`: dx is one
@@ -223,7 +266,7 @@ def bound(bytes_moved, ops, flops_rate):
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def check_kernels(torch, ck, ca):
+def check_kernels(torch, ck):
     """Phase 3: every kernel against its plain version; returns the timing record."""
     import torch.nn.functional as F
 
@@ -273,35 +316,157 @@ def check_kernels(torch, ck, ca):
                     library_ms=time_ms(lambda: F.gelu(x + b_x)),
                     library="F.gelu(x+b)",
                     bound_ms=b_ms, bound_by=b_by, shape="[4096,3072] bf16 gelu")
-        # attention: the serving shape in every bias mode and causal, L = 1024,
-        # and causal queries against a longer key sequence
-        cases = [((32, 12, 128, 128), None, False), ((32, 12, 128, 128), "bcast", False),
-                 ((32, 12, 128, 128), "per_head", False), ((32, 12, 128, 128), None, True),
-                 ((2, 12, 1024, 1024), None, False), ((2, 12, 128, 512), None, True)]
-        for (B, H, Lq, Lk), bias_kind, causal in cases:
-            q = randn(B, H, Lq, 64, dtype=dtype)
-            k = randn(B, H, Lk, 64, dtype=dtype)
-            v = randn(B, H, Lk, 64, dtype=dtype)
-            bias = None
-            if bias_kind is not None:
-                bias = randn(B, 1 if bias_kind == "bcast" else H, Lq, Lk, s=2.0)
-            scale = 64 ** -0.5
-            err = compare("sdpa_fwd", dtype,
-                          f"[{B},{H},{Lq},64] x {Lk} bias={bias_kind} causal={causal}",
-                          ca.fused_sdpa(q, k, v, bias, causal, scale),
-                          ca.sdpa_plain(q, k, v, bias, causal, scale))
-            if dtype == torch.bfloat16 and (B, Lq, Lk, bias_kind, causal) == (32, 128, 128, None, False):
-                b_ms, b_by = bound(nbytes(q, k, v, q), 4.0 * B * H * Lq * Lk * 64, BF16_TENSOR_FLOPS)
-                record["sdpa_fwd"] = dict(
-                    max_abs_err=err,
-                    ms=time_ms(lambda: ca.fused_sdpa(q, k, v, None, False, scale)),
-                    plain_ms=time_ms(lambda: ca.sdpa_plain(q, k, v, None, False, scale)),
-                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-                    library="F.scaled_dot_product_attention",
-                    bound_ms=b_ms, bound_by=b_by, shape="[32,12,128,64] bf16")
     for name, rec in record.items():
         emit({"timing": name, **rec})
     return record
+
+
+# attention cases of phase 3: (B, H, Lq, Lk, dh, bias, causal, inputs)
+ATTENTION_CASES = [
+    (32, 12, 128, 128, 64, None, False, "normal"),      # BERT-base, seq 128
+    (32, 12, 128, 128, 64, "bcast", False, "normal"),
+    (32, 12, 128, 128, 64, "per_head", False, "normal"),
+    (32, 12, 128, 128, 64, None, True, "normal"),
+    (2, 12, 1024, 1024, 64, None, False, "normal"),
+    (2, 12, 128, 512, 64, None, True, "normal"),         # causal, Lq < Lk: key offset
+    (2, 12, 200, 72, 64, None, True, "normal"),          # causal, Lq > Lk: rows with no key
+    (8, 12, 2048, 2048, 64, None, False, "normal"),      # BERT-base, seq 2048
+    (1, 12, 4096, 4096, 64, None, True, "normal"),
+    (4, 8, 384, 384, 128, "bcast", False, "normal"),     # dh 128
+    (4, 12, 512, 512, 64, "bcast", False, "late_bias"),  # the row max moves late
+    (4, 12, 512, 512, 64, None, False, "late_keys"),
+]
+ATTENTION_TIMED = {(32, 128): "seq 128", (8, 2048): "seq 2048"}
+
+
+def attention_bound(q, k, v, causal, extra_bytes, ops_per_qk):
+    """Bound of one attention kernel: its tensors' bytes (each read or written
+    once) over HBM, or ops_per_qk * B*H*Lq*Lk*dh operations, halved when
+    causal, over the bf16 tensor-core peak."""
+    B, H, Lq, dh = q.shape
+    ops = ops_per_qk * B * H * Lq * k.shape[2] * dh * (0.5 if causal else 1.0)
+    return bound(extra_bytes, ops, BF16_TENSOR_FLOPS)
+
+
+def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32", "bfloat16")):
+    """Phase 3, the attention kernels (forward, dQ, dK/dV): each against its
+    plain version on the card, float32 and bfloat16, at ATTENTION_CASES: the
+    BERT-base shapes at seq 128 and 2048, every bias mode, causal with Lq < Lk
+    and Lq > Lk, long causal, dh 128, and rows whose max moves late (a bias
+    that grows along the keys; keys scaled by position), which an online
+    softmax that forgets to rescale fails by orders of magnitude.  The
+    bfloat16 forward is held element by element (attention_fwd_allowed).  The
+    backward is held against sdpa_bwd_plain on the kernel's own output (so it
+    is held alone), two runs must agree bit for bit, and at kv >= 2048 in
+    bfloat16 the forward plus backward may allocate less than 1/8 of one
+    float32 score tensor [B, H, Lq, Lk].  Times the forward, each backward
+    kernel and the whole backward at [32,12,128,64] and [8,12,2048,64] bf16
+    against their bounds and plain versions, and the forward and the whole
+    backward against F.scaled_dot_product_attention (a yardstick only).
+    `cases` and `dtypes` narrow the checks, to run one case alone; only the
+    full set is timed."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    record = {}
+    for dtype in (getattr(torch, d) for d in dtypes):
+        dn = dname(dtype)
+        for B, H, Lq, Lk, dh, bias_kind, causal, inputs in cases:
+            q = randn(B, H, Lq, dh, dtype=dtype)
+            k = randn(B, H, Lk, dh, dtype=dtype)
+            v = randn(B, H, Lk, dh, dtype=dtype)
+            do = randn(B, H, Lq, dh, dtype=dtype)
+            bias = None
+            if bias_kind is not None:
+                bias = randn(B, 1 if bias_kind == "bcast" else H, Lq, Lk, s=2.0)
+            if inputs == "late_bias":
+                bias = torch.linspace(0.0, 12.0, Lk, device=dev).expand(B, 1, Lq, Lk).contiguous()
+            elif inputs == "late_keys":
+                k = (k.float() * torch.linspace(0.1, 4.0, Lk, device=dev)[:, None]).to(dtype)
+            scale = dh ** -0.5
+            case = (f"[{B},{H},{Lq},{dh}] x {Lk} bias={bias_kind} causal={causal} "
+                    f"inputs={inputs}")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, lse = ca.attention_fwd(q, k, v, bias, causal, scale)
+            dq, di = ca.attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, do)
+            dk, dv = ca.attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, do)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            score_bytes = 4 * B * H * Lq * Lk
+            emit({"memory": "attention forward + backward", "case": case, "dtype": dn,
+                  "peak_extra_bytes": extra, "score_tensor_bytes": score_bytes})
+            if dtype == torch.bfloat16 and Lk >= 2048 and not extra < score_bytes / 8:
+                raise AssertionError(f"attention {case}: forward + backward allocated {extra} "
+                                     f"bytes, not under 1/8 of a score tensor ({score_bytes})")
+            again = ca.attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, do)[0]
+            repeatable("attention_bwd_dq", f"dq {case} {dn}", dq, again)
+            again = ca.attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, do)
+            repeatable("attention_bwd_dkv", f"dk {case} {dn}", dk, again[0])
+            repeatable("attention_bwd_dkv", f"dv {case} {dn}", dv, again[1])
+            del again
+            want = ca.sdpa_plain(q, k, v, bias, causal, scale)
+            if dtype == torch.float32:
+                err_f = check("attention_fwd", "out", dtype, case, out, want,
+                              TOL[dn]["attention_fwd"])
+            else:
+                err_f = check_within("attention_fwd", "out", dtype, case, out, want,
+                                     attention_fwd_allowed(ca, q, k, v, bias, causal, scale, want),
+                                     ATTENTION_BF16_RULE)
+            want = ca.sdpa_bwd_plain(q, k, v, bias, causal, scale, out, do)
+            err_q = check("attention_bwd_dq", "dq", dtype, case, dq, want[0], grad_tol(dn, want[0]))
+            err_kv = max(check("attention_bwd_dkv", w, dtype, case, a, b, grad_tol(dn, b))
+                         for w, a, b in zip(("dk", "dv"), (dk, dv), want[1:]))
+            del want
+            torch.cuda.empty_cache()
+            where = ATTENTION_TIMED.get((B, Lq)) if cases is ATTENTION_CASES else None
+            if not (dtype == torch.bfloat16 and where and bias is None and not causal):
+                continue
+            slow = dict(warmup=2, iters=10)  # the plain versions and library calls at L = 2048
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            no_lib = "none: no one PyTorch call computes it alone (attention_bwd has the library's)"
+            qkv = nbytes(q, k, v)
+            args = (q, k, v, None, False, scale)
+            timed = {
+                "attention_fwd": (lambda: ca.attention_fwd(*args), qkv + nbytes(out, lse), 4.0,
+                                  err_f, lambda: ca.sdpa_plain(*args),
+                                  lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                                  "F.scaled_dot_product_attention"),
+                "attention_bwd_dq": (
+                    lambda: ca.attention_bwd_dq(*args, out, lse, do),
+                    qkv + nbytes(out, do, lse, dq, di), 6.0, err_q,
+                    lambda: ca.sdpa_bwd_dq_plain(*args, out, do), None, no_lib),
+                "attention_bwd_dkv": (
+                    lambda: ca.attention_bwd_dkv(*args, lse, di, do),
+                    qkv + nbytes(do, lse, di, dk, dv), 8.0, err_kv,
+                    lambda: ca.sdpa_bwd_dkv_plain(*args, out, do), None, no_lib),
+                "attention_bwd": (
+                    lambda: ca.attention_bwd(*args, out, lse, do),
+                    qkv + nbytes(out, do, lse, dq, dk, dv), 10.0, max(err_q, err_kv),
+                    lambda: ca.sdpa_bwd_plain(*args, out, do),
+                    lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True),
+                    "backward of F.scaled_dot_product_attention"),
+            }
+            for name, (fn, moved, ops, err, plain, lib_fn, lib) in timed.items():
+                b_ms, b_by = attention_bound(q, k, v, False, moved, ops)
+                rec = dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain, **slow),
+                           library_ms=None if lib_fn is None else time_ms(lib_fn, **slow),
+                           library=lib, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"[{B},{H},{Lq},{dh}] bf16")
+                emit({"timing": name, "at": where, **rec})
+                record.setdefault(name, {})[where] = rec
+            del ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    # the kernels' line reports the seq-128 shape; seq 2048 rides beside it
+    return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
+            for name, by_seq in record.items()}
 
 
 def check_train_kernels(torch, ck):
@@ -674,16 +839,17 @@ def parity(fluid, torch, tmp):
         raise AssertionError(f"card vs CPU logits differ by {diff} > 1e-3")
 
 
-def build_train(fluid, dtype, n_layers, dropout_prob):
-    """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention,
-    through the two fusion passes; returns (main, startup, loss name)."""
+def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False):
+    """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention or
+    the fused_attention op, through the two fusion passes; returns (main,
+    startup, loss name)."""
     from paddle_tpu_torch.models import transformer
 
     with fluid.unique_name.guard():
         main, startup, _, fetches = transformer.build_bert(
-            vocab_size=30522, seq_len=128, d_model=768, n_layers=n_layers, n_heads=12,
+            vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
             d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
-            use_fused_attention=False, with_optimizer=True)
+            use_fused_attention=fused, with_optimizer=True)
     startup.random_seed = 0
     main.random_seed = 0
     loss = fetches["loss"].name
@@ -697,8 +863,9 @@ def launches_of_program(main, loss):
     layer_norm takes the LN kernel (nothing reads its Mean/Variance), every
     elementwise_add with fuse_act over a 1-D bias the bias-act kernel, every
     batch_norm over NC + spatial dims the BN epilogue, the loss the xent
-    kernel, every adam op the Adam kernel; each forward kernel has its
-    backward."""
+    kernel, every adam op the Adam kernel, every fused_attention op the
+    attention forward; each forward kernel has its backward (attention: the
+    dQ and the dK/dV kernel)."""
     from paddle_tpu_torch.core.executor import _prune, _runnable_ops
 
     block = main.global_block()
@@ -715,28 +882,35 @@ def launches_of_program(main, loss):
                and len(block.var(op.input("X")[0]).shape) >= 3)
     n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy")
     n_adam = sum(1 for op in ops if op.type == "adam")
+    n_attn = sum(1 for op in ops if op.type == "fused_attention")
     return dict(NONE, ln_residual_fwd=n_ln, ln_residual_bwd=n_ln, bias_act_fwd=n_act,
                 bias_act_bwd=n_act, softmax_xent_fwd=n_xent, softmax_xent_bwd=n_xent,
-                adam=n_adam, bn_epilogue_fwd=n_bn, bn_epilogue_bwd=n_bn)
+                adam=n_adam, bn_epilogue_fwd=n_bn, bn_epilogue_bwd=n_bn, attention_fwd=n_attn,
+                attention_bwd_dkv=n_attn, attention_bwd_dq=n_attn)
 
 
-def train(fluid, torch, ck, card):
-    """Phase 6: bf16 BERT-base (12 layers, dropout 0.1, Adam lr 1e-4, batch 32)
-    trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch."""
+def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
+          per_step=PER_STEP):
+    """Phases 6, 12 and 13: bf16 BERT-base (12 layers, dropout 0.1, Adam lr
+    1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed
+    batch of `batch` x `seq_len`, with unfused attention (phase 6) or the
+    fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8)."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
     t0 = time.perf_counter()
-    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1)
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused)
     derived = launches_of_program(main, loss)
-    if derived != PER_STEP:
-        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {PER_STEP}")
+    if derived != per_step:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0))
-    emit({"phase": "train", "model": "bert-base bf16, unfused attention, dropout 0.1, "
-          "Adam lr 1e-4", "batch": 32, "setup_s": time.perf_counter() - t0})
+    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0))
+    attention = "fused attention" if fused else "unfused attention"
+    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4",
+          "batch": batch, "seq_len": seq_len, "setup_s": time.perf_counter() - t0})
+    torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
@@ -747,27 +921,31 @@ def train(fluid, torch, ck, card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.reshape(-1)[0]))
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        emit({"step": step, "loss": losses[-1], "step_ms": step_ms[-1], "launches": delta,
-              "card": card})
+        emit({"phase": phase, "step": step, "loss": losses[-1], "step_ms": step_ms[-1],
+              "launches": delta, "card": card})
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"step {step}: loss {losses[-1]}")
-        if delta != PER_STEP:
-            raise AssertionError(f"step {step}: kernel launches {delta} != {PER_STEP}")
+        if delta != per_step:
+            raise AssertionError(f"step {step}: kernel launches {delta} != {per_step}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     launches = dict(ck.LAUNCHES)  # read before the profiled step
-    emit({"phase": "train", "losses": losses, "warm_step_ms": statistics.median(step_ms[1:]),
+    warm = statistics.median(step_ms[1:])
+    emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
+          "sequences_per_s": batch / warm * 1e3, "tokens_per_s": batch * seq_len / warm * 1e3,
           "first_step_ms": step_ms[0], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
-    profile_run(torch, "train step",
+    profile_run(torch, f"{phase} step",
                 lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                                 return_numpy=False), card)
     return launches
 
 
-def train_parity(fluid, torch):
-    """Phase 7: float32 BERT-base (2 layers, dropout 0) trains PARITY_STEPS Adam
-    steps on the card and on the CPU (plain path) from the same numpy state.
+def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2):
+    """Phases 7 and 14: float32 BERT-base (2 layers, dropout 0) trains
+    PARITY_STEPS Adam steps on the card and on the CPU (plain path) from the
+    same numpy state: unfused attention at batch 2 x 128 (phase 7), the
+    fused_attention op at 32 x 128 and 1 x 2048 (phase 14).
     The losses must agree to 1e-3; every parameter to 1e-5, save the elements
     whose CPU gradient lies within ZERO_GRAD of the model's largest at some
     step: Adam's first step moves a weight by lr * g / (|g| + eps), so where g
@@ -777,14 +955,14 @@ def train_parity(fluid, torch):
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
-    main, startup, loss = build_train(fluid, "float32", 2, 0.0)
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0, seq_len, fused)
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
     for name in state:
         if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
             state[name] = np.ones_like(state[name])
-    feed = make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1))
+    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(1))
     params = [p.name for p in main.all_parameters()]
     near_zero = {}  # param -> elements whose CPU gradient is 0 to rounding at some step
     runs = []
@@ -820,7 +998,9 @@ def train_parity(fluid, torch):
         peak = max(float(np.abs(cs.to_numpy(n)).max()) for n in names)
         worst = max(float(np.abs(gs.to_numpy(n) - cs.to_numpy(n)).max()) for n in names)
         moments[kind] = (worst, 1e-4 * peak)
-    emit({"phase": "train_parity", "model": "bert-base f32, 2 layers, dropout 0",
+    attention = "fused attention" if fused else "unfused attention"
+    emit({"phase": phase, "model": f"bert-base f32, 2 layers, dropout 0, {attention}",
+          "batch": batch, "seq_len": seq_len,
           "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss, "loss_tol": 1e-3,
           "max_abs_dparam": worst_p[0], "param": worst_p[1], "param_tol": param_tol,
           "elements_with_gradient_0_to_rounding": n_excused,
@@ -1100,7 +1280,8 @@ def main():
     print("\n".join(line for line in info["log"].splitlines()
                     if "Used" in line or "spill" in line or line.startswith("==")), flush=True)
 
-    timings = check_kernels(torch, ck, ca)
+    timings = check_kernels(torch, ck)
+    timings.update(check_attention_kernels(torch, ca))
     timings.update(check_train_kernels(torch, ck))
     timings.update(check_bn_kernels(torch, ck))
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
@@ -1114,15 +1295,21 @@ def main():
         resnet_parity(fluid, torch, tmp)
         resnet_trained = resnet_train(fluid, torch, ck, card)
         resnet_train_parity(fluid, torch)
+        fused_trained = train(fluid, torch, ck, card, "train_fused", True, 128, 32, FUSED_PER_STEP)
+        long_trained = train(fluid, torch, ck, card, "train_long", True, 2048, 8, FUSED_PER_STEP)
+        for seq_len, batch in ((128, 32), (2048, 1)):
+            train_parity(fluid, torch, "train_fused_parity", True, seq_len, batch)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # each path must have launched each of its kernels, and every kernel must
-    # have run on some path; `launches` is the count on this slice's path
-    # (ResNet-50 training) where the kernel runs there
+    # have run on some path; `launches` is the count on the first path of
+    # LAUNCH_ORDER that runs the kernel
     paths = {"serve": (PER_REQUEST, served), "train": (PER_STEP, trained),
              "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
-             "resnet_train": (RESNET_PER_STEP, resnet_trained)}
+             "resnet_train": (RESNET_PER_STEP, resnet_trained),
+             "train_fused": (FUSED_PER_STEP, fused_trained),
+             "train_long": (FUSED_PER_STEP, long_trained)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():
@@ -1133,14 +1320,13 @@ def main():
             raise AssertionError(f"{name} was launched on no path")
         rec = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": next(n for n in (by_path["resnet_train"],
-                                                     by_path["resnet_serve"], by_path["train"],
-                                                     by_path["serve"]) if n),
+                        "launches": next(by_path[p] for p in LAUNCH_ORDER if by_path[p]),
                         "launches_by_path": by_path,
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "library": rec["library"], "shape": rec["shape"], "card": card})
+                        "library": rec["library"], "shape": rec["shape"], "card": card,
+                        **({"at_seq_2048": rec["at_seq_2048"]} if "at_seq_2048" in rec else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,75 +1,215 @@
-"""Hand-written Hopper scaled-dot-product attention forward, with its plain
-PyTorch version (counterpart of paddle_tpu/ops/pallas_attention.py).
+"""Hand-written Hopper scaled-dot-product attention, forward and backward,
+with its plain PyTorch versions (counterpart of
+paddle_tpu/ops/pallas_attention.py fused_sdpa and of the stock streaming
+flash kernel that paddle_tpu/ops/nn_ops.py calls for long sequences).
 
-Routing as in ops/cuda_kernels.py: CPU tensors take `sdpa_plain`, CUDA
-tensors launch `csrc/sdpa.cu` and bump `LAUNCHES["sdpa_fwd"]`.  The backward
-kernel is not ported: CUDA inputs that require grad raise (on the CPU,
-autograd differentiates the plain version).
+Routing as in ops/cuda_kernels.py: CPU tensors take `sdpa_plain` and
+`sdpa_bwd_plain`; CUDA tensors launch `csrc/flash_attention.cu` (forward,
+then in the backward the dQ kernel and the dK/dV kernel) and bump
+`LAUNCHES["attention_fwd"]`, `["attention_bwd_dq"]` and
+`["attention_bwd_dkv"]`.
 
-Contract (the JAX fused_sdpa's): q [B, H, Lq, dh], k and v [B, H, Lk, dh],
-one dtype (float32 or bfloat16), max(Lq, Lk) <= 1024; optional additive
-bias [B, 1|H, Lq, Lk], not differentiable; causal masking keeps key c for
-query i when c <= i + (Lk - Lq).
+Contract (the JAX composite's and fused_sdpa's): q [B, H, Lq, dh], k and v
+[B, H, Lk, dh], one dtype (float32 or bfloat16), dh in {16, 32, 64, 128} on
+the card, any length; optional additive bias [B, 1|H, Lq, Lk], not
+differentiable (pallas_attention.py:16-19); causal masking keeps key c for
+query i when c <= i + (Lk - Lq), masked scores are -1e30.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .cuda_kernels import LAUNCHES, _DTYPE_CODE, check_operand, on_card, stream_ptr
+from .cuda_kernels import LAUNCHES, _DTYPE_CODE, _ptr, check_operand, on_card, stream_ptr
 
-MAX_SEQ = 1024  # the whole-row kernel's limit, as the TPU kernel's (pallas_attention.py:185)
 _HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _scores_plain(q, k, bias, causal, scale):
+    """float32 scores of the composite, and the causal keep-mask (or None)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    keep = None
+    if causal:
+        lq, lk = s.shape[-2], s.shape[-1]
+        keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril(lk - lq)
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    return s, keep
 
 
 def sdpa_plain(q, k, v, bias, causal, scale):
     """The JAX composite attention (paddle_tpu/ops/nn_ops.py:672-689): float32
     scores and softmax, P rounded to q.dtype before the PV product, which
     accumulates in float32."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.float()
-    if causal:
-        lq, lk = s.shape[-2], s.shape[-1]
-        keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril(lk - lq)
-        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    s, _ = _scores_plain(q, k, bias, causal, scale)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
-def fused_sdpa(q, k, v, bias, causal, scale):
-    """Fused attention over [B, H, L, dh]; bias is not differentiable."""
+def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout):
+    """float32 P and dS of the backward: dP = dO V^T, di = rowsum(dO * O)
+    from the forward's output, dS = P (dP - di) scale rounded to q.dtype.
+    A masked score is a constant, so its dS is 0."""
+    s, keep = _scores_plain(q, k, bias, causal, scale)
+    p = torch.softmax(s, dim=-1)
+    do = dout.float()
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    di = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - di) * scale
+    if keep is not None:
+        ds = torch.where(keep, ds, torch.zeros_like(ds))
+    return p, ds.to(q.dtype).float()
+
+
+def sdpa_bwd_dq_plain(q, k, v, bias, causal, scale, out, dout):
+    """dq of `sdpa_plain`, the plain version of the dQ kernel: dQ = dS K."""
+    _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def sdpa_bwd_dkv_plain(q, k, v, bias, causal, scale, out, dout):
+    """(dk, dv) of `sdpa_plain`, the plain version of the dK/dV kernel:
+    dK = dS^T Q, dV = P^T dO with P rounded to q.dtype."""
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    return _dkv(p, ds, q, v, dout)
+
+
+def _dkv(p, ds, q, v, dout):
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dout.float())
+    return dk.to(q.dtype), dv.to(v.dtype)
+
+
+def sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout):
+    """(dq, dk, dv) of `sdpa_plain` for the output gradient `dout`, by the
+    backward's own arithmetic (the Pallas _sdpa_tile_bwd's): P recomputed in
+    float32, dS as in `_probs_and_dscores`, dQ = dS K, dK = dS^T Q,
+    dV = P^T dO, all accumulated in float32."""
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    return (torch.matmul(ds, k.float()).to(q.dtype),) + _dkv(p, ds, q, v, dout)
+
+
+def _check_shapes(name, q, k, v, bias):
+    """q [B, H, Lq, dh], k and v [B, H, Lk, dh], bias [B, 1|H, Lq, Lk]."""
     B, H, Lq, dh = q.shape
     Lk = k.shape[2]
-    if max(Lq, Lk) > MAX_SEQ:
-        raise ValueError(f"fused_sdpa: sequence {max(Lq, Lk)} > {MAX_SEQ}; longer "
-                         "attention is the streaming flash kernel's")
     if k.shape != (B, H, Lk, dh) or v.shape != k.shape:
-        raise ValueError(f"fused_sdpa: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if bias is not None and (bias.dim() != 4 or bias.shape[0] != B
-                             or bias.shape[1] not in (1, H) or bias.shape[2:] != (Lq, Lk)):
-        raise ValueError(f"fused_sdpa: bias {tuple(bias.shape)} is not [{B}, 1|{H}, {Lq}, {Lk}]")
-    if not on_card("fused_sdpa", q, k, v, bias):
-        return sdpa_plain(q, k, v, bias, causal, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "fused_sdpa: inputs require grad, but only the forward kernel is ported; its "
-            "backward (_fused_sdpa_bwd) comes with the attention-training slice, one "
-            "FlashAttention-style forward and backward.  Train with "
-            "use_fused_attention=False")
-    for what, t in (("q", q), ("k", k), ("v", v)):
-        check_operand("fused_sdpa", what, t, q.dtype)
+    if bias is not None and (bias.dim() != 4 or bias.shape[0] != B or bias.shape[1] not in (1, H)
+                             or bias.shape[2:] != (Lq, Lk)):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not [{B}, 1|{H}, {Lq}, {Lk}]")
+
+
+def _check(name, q, k, v, bias, more=(), stats=()):
+    """Operands of a kernel: all on one CUDA device; q, k, v and `more`
+    (shaped as q) of one dtype, contiguous, 16-byte aligned, dh the kernel
+    takes; `stats` contiguous float32 [B, H, Lq].  Returns the bias as a
+    contiguous float32 tensor (or None)."""
+    if not on_card(name, q, k, v, bias, *(t for _, t in more + stats)):
+        raise ValueError(f"{name}: the kernel takes CUDA tensors")
+    _check_shapes(name, q, k, v, bias)
+    for what, t in (("q", q), ("k", k), ("v", v)) + more:
+        check_operand(name, what, t, q.dtype)
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_sdpa: {what} must be 16-byte aligned")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"fused_sdpa: head dim {dh} not in {_HEAD_DIMS}")
-    if bias is not None:
-        bias = bias.float().contiguous()
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+    for what, t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} is not q's {tuple(q.shape)}")
+    for what, t in stats:
+        if t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous float32 {tuple(q.shape[:3])}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    return None if bias is None else bias.float().contiguous()
+
+
+def _dims(q, k, bias):
+    B, H, Lq, dh = q.shape
+    return (B, H, Lq, k.shape[2], dh, 0 if bias is None else bias.shape[1])
+
+
+def attention_fwd(q, k, v, bias, causal, scale):
+    """(out, lse): the forward kernel on the card (lse float32 [B, H, Lq],
+    the log-sum-exp of each score row, saved for the backward); on the CPU
+    (sdpa_plain, None)."""
+    name = "attention forward"
+    if not on_card(name, q, k, v, bias):
+        return sdpa_plain(q, k, v, bias, causal, scale), None
+    bias = _check(name, q, k, v, bias)
     out = torch.empty_like(q)
-    _build.call("ptt_sdpa_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                B, H, Lq, Lk, dh, 0 if bias is None else bias.shape[1], float(scale),
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _build.call("ptt_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                out.data_ptr(), lse.data_ptr(), *_dims(q, k, bias), float(scale),
                 int(bool(causal)), _DTYPE_CODE[q.dtype], stream_ptr(q))
-    LAUNCHES["sdpa_fwd"] += 1
-    return out
+    LAUNCHES["attention_fwd"] += 1
+    return out, lse
+
+
+def attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout):
+    """(dq, di) on the card: the dQ kernel, which also writes di =
+    rowsum(dout * out) (float32 [B, H, Lq]) for the dK/dV kernel."""
+    name = "attention backward dQ"
+    bias = _check(name, q, k, v, bias, (("out", out), ("dout", dout)), (("lse", lse),))
+    dq = torch.empty_like(q)
+    di = torch.empty_like(lse)
+    _build.call("ptt_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                out.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                *_dims(q, k, bias), float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+                stream_ptr(q))
+    LAUNCHES["attention_bwd_dq"] += 1
+    return dq, di
+
+
+def attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout):
+    """(dk, dv) on the card: the dK/dV kernel, from the forward's lse and
+    the dQ kernel's di."""
+    name = "attention backward dK/dV"
+    bias = _check(name, q, k, v, bias, (("dout", dout),), (("lse", lse), ("di", di)))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _build.call("ptt_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *_dims(q, k, bias), float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+                stream_ptr(q))
+    LAUNCHES["attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def attention_bwd(q, k, v, bias, causal, scale, out, lse, dout):
+    """(dq, dk, dv): on the card the dQ kernel, then the dK/dV kernel; on the
+    CPU sdpa_bwd_plain."""
+    if not on_card("attention backward", q, k, v, bias, out, lse, dout):
+        return sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout)
+    dq, di = attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout)
+    dk, dv = attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        out, lse = attention_fwd(q, k, v, bias, causal, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, bias, ctx.causal, ctx.scale, out, lse,
+                                   dout.contiguous())
+        return dq, dk, dv, None, None, None
+
+
+def fused_sdpa(q, k, v, bias, causal, scale):
+    """Fused attention over [B, H, L, dh], any length; the backward
+    recomputes P (only q, k, v, out and lse are saved).  The bias is not
+    differentiable: one that requires grad raises."""
+    _check_shapes("fused_sdpa", q, k, v, bias)
+    if bias is not None and torch.is_grad_enabled() and bias.requires_grad:
+        raise ValueError("fused_sdpa: the bias requires grad, but it is not differentiable "
+                         "in the fused_sdpa contract (paddle_tpu/ops/pallas_attention.py"
+                         ":16-19); detach it")
+    return _Attention.apply(q, k, v, bias, bool(causal), float(scale))

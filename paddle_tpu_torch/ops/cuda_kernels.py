@@ -33,8 +33,8 @@ from .. import _build
 # launches per kernel, counted where each wrapper launches and nowhere else
 LAUNCHES: Dict[str, int] = {
     "ln_residual_fwd": 0, "ln_residual_bwd": 0, "bias_act_fwd": 0, "bias_act_bwd": 0,
-    "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0, "sdpa_fwd": 0,
-    "bn_epilogue_fwd": 0, "bn_epilogue_bwd": 0,
+    "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0, "attention_fwd": 0,
+    "attention_bwd_dkv": 0, "attention_bwd_dq": 0, "bn_epilogue_fwd": 0, "bn_epilogue_bwd": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

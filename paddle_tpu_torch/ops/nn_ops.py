@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register_op
 from .common import canon_dtype, first, flatten_lookup_ids, match_dtype
-from .cuda_attention import MAX_SEQ, fused_sdpa, sdpa_plain
+from .cuda_attention import fused_sdpa
 from .cuda_kernels import bn_epilogue, fused_ln_residual, fused_softmax_xent
 
 # paddle_tpu/ops/nn_ops.py: bf16 batch norm keeps its elementwise math in
@@ -283,10 +283,12 @@ def _softmax_with_cross_entropy(ctx, op, ins):
 
 @register_op("fused_attention")
 def _fused_attention(ctx, op, ins):
-    """Scaled-dot-product attention over (B, H, L, dh).  Up to MAX_SEQ keys
-    and queries it is ops/cuda_attention.py fused_sdpa (the kernel on the
-    card, its plain version on the CPU); longer sequences are the streaming
-    flash kernel's, not ported yet."""
+    """Scaled-dot-product attention over (B, H, L, dh) at every length:
+    ops/cuda_attention.py fused_sdpa (the flash kernels on the card, forward
+    and backward; the plain versions on the CPU).  One contract, the JAX
+    composite's, where the JAX package also sends kv >= 2048 to the stock
+    flash kernel on a TPU (ROADMAP C: that kernel's bias and causal rules
+    differ from the composite's)."""
     q = first(ins, "Q")
     k = first(ins, "K")
     v = first(ins, "V")
@@ -297,14 +299,7 @@ def _fused_attention(ctx, op, ins):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if op.attr("score_dtype", "float32") == "bfloat16":
         raise NotImplementedError("fused_attention score_dtype='bfloat16' is not ported yet")
-    if max(q.shape[2], k.shape[2]) <= MAX_SEQ:
-        return {"Out": fused_sdpa(q, k, v, bias, causal, float(scale))}
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"fused_attention over {max(q.shape[2], k.shape[2])} > {MAX_SEQ} positions needs "
-            "the streaming flash kernel (paddle_tpu/ops/nn_ops.py:637, JAX's "
-            "pallas.ops.tpu.flash_attention), which is not ported to the card yet")
-    return {"Out": sdpa_plain(q, k, v, bias, causal, float(scale))}
+    return {"Out": fused_sdpa(q, k, v, bias, causal, float(scale))}
 
 
 @register_op("top_k")

@@ -1,0 +1,189 @@
+"""The port's attention, forward and backward, against the JAX package on
+the CPU.
+
+The plain versions (`sdpa_plain`, `sdpa_bwd_plain`, reached through
+`fused_sdpa`'s autograd Function on CPU tensors) are held against
+`fused_sdpa` of paddle_tpu/ops/pallas_attention.py in interpret mode and its
+jax.vjp, and against the stock TPU flash kernel (the JAX package's route for
+kv >= 2048 on a TPU) run in TPU interpret mode, where the two contracts
+agree (no bias, Lq == Lk).  Inputs come from numpy seeds.  Tolerances:
+forward float32 1e-4, bfloat16 5e-2; gradients 1e-4 * (1 + max|ref|) in
+float32 (as tests/test_pallas_kernels.py holds the Pallas backward),
+5e-2 * max|ref| in bfloat16.  The kernels run only on the card
+(tests/test_torch_gpu.py, chip_smoke.py)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention
+
+from paddle_tpu.ops import pallas_attention as jatt
+from paddle_tpu_torch.core.dtypes import to_tensor
+from paddle_tpu_torch.ops import cuda_attention as ca
+from paddle_tpu_torch.ops import cuda_kernels as ck
+from test_torch_kernels import SDPA_CASES
+
+DTYPES = ["float32", "bfloat16"]
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+FWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+@pytest.fixture(autouse=True)
+def launches_unchanged():
+    before = dict(ck.LAUNCHES)
+    yield
+    assert ck.LAUNCHES == before, "a CPU call must not count a kernel launch"
+
+
+def _grad_tol(dtype, ref):
+    peak = float(np.abs(np.asarray(ref, np.float32)).max())
+    return 1e-4 * (1.0 + peak) if dtype == "float32" else 5e-2 * peak
+
+
+def _err(want, got):
+    return float(np.abs(np.asarray(want, np.float32) - got.detach().float().numpy()).max())
+
+
+def _inputs(rng, B, H, Lq, Lk, dh, dtype, bias_kind=None):
+    q, k, v = (jnp.asarray(rng.randn(B, H, L, dh), JDT[dtype]) for L in (Lq, Lk, Lk))
+    g = jnp.asarray(rng.randn(B, H, Lq, dh), JDT[dtype])
+    bias = None
+    if bias_kind is not None:
+        bias = jnp.asarray(rng.randn(B, 1 if bias_kind == "bcast" else H, Lq, Lk) * 2, jnp.float32)
+    return q, k, v, g, bias
+
+
+def _port(q, k, v, g, bias, causal, scale):
+    """out and (dq, dk, dv) of the port's fused_sdpa on the CPU, through its
+    autograd Function (plain forward, explicit plain backward)."""
+    tq, tk, tv = (to_tensor(np.asarray(a)).clone().requires_grad_(True) for a in (q, k, v))
+    tb = None if bias is None else to_tensor(np.asarray(bias))
+    out = ca.fused_sdpa(tq, tk, tv, tb, causal, scale)
+    return out, torch.autograd.grad(out, (tq, tk, tv), to_tensor(np.asarray(g)))
+
+
+def _hold(dtype, want_out, want_grads, out, grads):
+    assert _err(want_out, out) <= FWD_TOL[dtype]
+    for name, w, got in zip(("dq", "dk", "dv"), want_grads, grads):
+        assert got.dtype == out.dtype
+        assert _err(w, got) <= _grad_tol(dtype, w), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SDPA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_forward_and_backward_match_fused_sdpa(dtype, case):
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    q, k, v, g, bias = _inputs(np.random.RandomState(0), B, H, Lq, Lk, dh, dtype, bias_kind)
+    scale = 1.0 / np.sqrt(dh)
+    want, vjp = jax.vjp(lambda q, k, v: jatt.fused_sdpa(q, k, v, bias, causal, scale, True),
+                        q, k, v)
+    out, grads = _port(q, k, v, g, bias, causal, scale)
+    assert out.shape == (B, H, Lq, dh)
+    _hold(dtype, want, vjp(g), out, grads)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_plain_forward_and_backward_match_stock_flash_kernel(causal, dtype):
+    """The stock kernel (jax/experimental/pallas/ops/tpu/flash_attention.py)
+    in TPU interpret mode at [1, 2, 256, 32]: no bias and Lq == Lk, where its
+    bias-before-scale and offset-free causal rules agree with the composite."""
+    q, k, v, g, _ = _inputs(np.random.RandomState(1), 1, 2, 256, 256, 32, dtype)
+    scale = 32 ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                                            sm_scale=scale), q, k, v)
+        want_grads = vjp(g)
+    out, grads = _port(q, k, v, g, None, causal, scale)
+    _hold(dtype, want, want_grads, out, grads)
+
+
+def _composite(q, k, v, bias, causal, scale):
+    """The JAX package's composite attention (paddle_tpu/ops/nn_ops.py:672-689)."""
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32) * scale
+    if bias is not None:
+        s = s + bias
+    if causal:
+        Lq, Lk = s.shape[-2], s.shape[-1]
+        s = jnp.where(jnp.tril(jnp.ones((Lq, Lk), bool), k=Lk - Lq), s, -1e30)
+    p = jax.nn.softmax(s, axis=-1)
+    out = jnp.einsum("bhqk,bhkd->bhqd", p.astype(q.dtype), v, preferred_element_type=jnp.float32)
+    return out.astype(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("late", ["bias_grows_along_keys", "keys_scaled_by_position"])
+def test_late_moving_row_max(late, dtype):
+    """Rows whose max sits in the last keys (the case an online softmax that
+    forgets to rescale gets wrong), over 200 keys: more than three of the
+    kernel's 64-key tiles."""
+    rng = np.random.RandomState(2)
+    q, k, v, g, _ = _inputs(rng, 1, 2, 40, 200, 16, dtype)
+    bias = None
+    if late == "bias_grows_along_keys":
+        bias = jnp.asarray(np.broadcast_to(np.linspace(0.0, 12.0, 200), (1, 1, 40, 200)),
+                           jnp.float32)
+    else:
+        k = (k.astype(jnp.float32) * jnp.linspace(0.1, 4.0, 200)[None, None, :, None]).astype(k.dtype)
+    scale = 0.25
+    want, vjp = jax.vjp(lambda q, k, v: jatt.fused_sdpa(q, k, v, bias, False, scale, True), q, k, v)
+    out, grads = _port(q, k, v, g, bias, False, scale)
+    # the max does move late: past the kernel's first two tiles in most rows
+    s = np.einsum("bhqd,bhkd->bhqk", np.asarray(q, np.float32), np.asarray(k, np.float32)) * scale
+    if bias is not None:
+        s = s + np.asarray(bias)
+    assert (s.argmax(-1) >= 128).mean() >= 0.9
+    _hold(dtype, want, vjp(g), out, grads)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rows_with_no_visible_key(dtype):
+    """Causal with Lq > Lk: the first Lq - Lk query rows see no key.  The
+    composite masks with the finite -1e30, so such a row is the uniform
+    average of V, and its scores are constants: no gradient reaches q or k
+    from it.  Held against jax.vjp of the composite (fused_sdpa's VJP
+    differentiates the masked scores of such rows; ROADMAP C)."""
+    q, k, v, g, _ = _inputs(np.random.RandomState(3), 1, 2, 24, 8, 8, dtype)
+    scale = 8 ** -0.5
+    want, vjp = jax.vjp(lambda q, k, v: _composite(q, k, v, None, True, scale), q, k, v)
+    out, grads = _port(q, k, v, g, None, True, scale)
+    uniform = np.asarray(v, np.float32).mean(2)
+    assert np.abs(out[:, :, :16].detach().float().numpy() - uniform[:, :, None]).max() <= FWD_TOL[dtype]
+    assert not grads[0][:, :, :16].any()
+    _hold(dtype, want, vjp(g), out, grads)
+    fwd = jatt.fused_sdpa(q, k, v, None, True, scale, True)
+    assert _err(fwd, out) <= FWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_plain_backwards_split_the_plain_backward(dtype):
+    """The plain versions of the dQ and the dK/dV kernel give, bit for bit,
+    the parts of sdpa_bwd_plain."""
+    rng = np.random.RandomState(5)
+    q, k, v, g, bias = (None if a is None else to_tensor(np.asarray(a))
+                        for a in _inputs(rng, 2, 2, 24, 40, 16, dtype, "per_head"))
+    out = ca.sdpa_plain(q, k, v, bias, True, 0.25)
+    dq, dk, dv = ca.sdpa_bwd_plain(q, k, v, bias, True, 0.25, out, g)
+    assert torch.equal(ca.sdpa_bwd_dq_plain(q, k, v, bias, True, 0.25, out, g), dq)
+    got = ca.sdpa_bwd_dkv_plain(q, k, v, bias, True, 0.25, out, g)
+    assert torch.equal(got[0], dk) and torch.equal(got[1], dv)
+
+
+def test_backward_kernel_wrappers_refuse_operands_off_one_device():
+    """The dQ and dK/dV wrappers take their saved statistics and bias on q's
+    device only (a CUDA q with a host lse would hand the kernel a host
+    pointer); any other device raises before a launch."""
+    q = torch.zeros(1, 1, 8, 16)
+    lse = torch.zeros(1, 1, 8)
+    meta = torch.zeros(1, 1, 8, device="meta")
+    bias = torch.zeros(1, 1, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dq(q, q, q, None, False, 1.0, q, meta, q)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dkv(q, q, q, None, False, 1.0, lse, meta, q)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dkv(q, q, q, bias, False, 1.0, lse, lse, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ca.attention_bwd_dq(q, q, q, None, False, 1.0, q, lse, q)

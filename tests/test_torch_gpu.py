@@ -46,7 +46,7 @@ def test_kernels_match_plain_on_card(dtype):
     tol = 1e-4 if dtype == "float32" else 5e-2
     assert (out.float() - ca.sdpa_plain(q, q, q, None, True, 0.125).float()).abs().max() <= tol
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
-        NO_LAUNCHES, ln_residual_fwd=1, bias_act_fwd=1, sdpa_fwd=1)
+        NO_LAUNCHES, ln_residual_fwd=1, bias_act_fwd=1, attention_fwd=1)
 
 
 @pytest.mark.gpu
@@ -60,10 +60,23 @@ def test_kernel_wrappers_check_their_operands_on_card():
     q = torch.zeros(1, 1, 4, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         ca.fused_sdpa(q, q, q, None, False, 1.0)
-    # only attention still lacks its backward kernel on the card
-    q = torch.zeros(1, 1, 4, 16, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="attention-training slice"):
-        ca.fused_sdpa(q, q, q, None, False, 1.0)
+    # a CUDA input that requires grad takes the backward kernels: dq, dk and dv
+    # against the plain backward, and the same bits on a second run
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        q, k, v, do = (torch.randn(2, 3, n, 32, generator=g, device="cuda").to(dt)
+                       for n in (100, 150, 150, 100))
+        bias = torch.randn(2, 1, 100, 150, generator=g, device="cuda")
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = ca.fused_sdpa(*leaves, bias, True, 0.2)
+            runs.append(torch.autograd.grad(out, leaves, do))
+        want = ca.sdpa_bwd_plain(q, k, v, bias, True, 0.2, out.detach(), do)
+        for a, b, w in zip(*runs, want):
+            assert torch.equal(a, b)
+            peak = float(w.float().abs().max())
+            assert _err(a, w) <= (tol * (1.0 + peak) if dt == torch.float32 else tol * peak)
     with pytest.raises(ValueError, match="share a shape"):
         ck.fused_adam(x, x, x, torch.zeros(8, device="cuda"), torch.ones(1, device="cuda"),
                       0.9, 0.999, 1e-8)
@@ -87,7 +100,7 @@ def test_tiny_bert_served_on_card_launches_each_kernel(tmp_path):
     before = dict(ck.LAUNCHES)
     got = card.run(feed)[0]
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
-        NO_LAUNCHES, ln_residual_fwd=5, bias_act_fwd=2, sdpa_fwd=2)
+        NO_LAUNCHES, ln_residual_fwd=5, bias_act_fwd=2, attention_fwd=2)
     cpu = fluid.inference.create_predictor(
         fluid.inference.AnalysisConfig(str(tmp_path), fluid.CPUPlace())).run(feed)[0]
     assert np.abs(got - cpu).max() <= 5e-2
@@ -221,15 +234,36 @@ def test_bn_epilogue_checks_its_operands_on_card():
 
 
 @pytest.mark.gpu
-def test_tiny_bert_trains_on_card_like_cpu():
-    """Adam steps of the tiny BERT (unfused attention, dropout 0, float32) on
-    the card match the CPU's, and each step launches every training kernel.
-    Parameters agree to 1e-5, save the elements whose CPU gradient is 0 to
-    rounding (within 1e-6 of the largest) at some step, where the summation
-    order can flip the sign of Adam's first step: 2*lr*steps + 1e-5."""
+def test_attention_backward_wrappers_check_their_operands_on_card():
+    """A CUDA q with a host lse, di or bias, or k and v that do not fit q,
+    raises before a launch."""
     _need_card()
+    q = torch.zeros(1, 2, 8, 16, device="cuda")
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    host = torch.zeros(1, 2, 8)
+    host_bias = torch.zeros(1, 1, 8, 8)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dq(q, q, q, None, False, 1.0, q, host, q)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dkv(q, q, q, None, False, 1.0, lse, host, q)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd_dkv(q, q, q, host_bias, False, 1.0, lse, lse, q)
+    with pytest.raises(ValueError, match="several devices"):
+        ca.attention_bwd(q, q, q, None, False, 1.0, q, host, q)
+    with pytest.raises(ValueError, match="do not match"):
+        ca.attention_bwd_dq(q, q[:, :1], q, None, False, 1.0, q, lse, q)
+    short = torch.zeros(1, 2, 4, 16, device="cuda")
+    with pytest.raises(ValueError, match="is not q's"):
+        ca.attention_bwd_dkv(q, q, q, None, False, 1.0, lse, lse, short)
+    assert ck.LAUNCHES == before
+
+
+def _train_tiny_on_card_and_cpu(fused, steps):
+    """Adam steps of the tiny BERT (dropout 0, float32) on the card and on the
+    CPU from one state: the card's losses, scope and launches, the CPU's."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    config = dict(TINY, use_fused_attention=False, dropout_prob=0.0, learning_rate=1e-3,
+    config = dict(TINY, use_fused_attention=fused, dropout_prob=0.0, learning_rate=1e-3,
                   with_optimizer=True)
     with fluid.unique_name.guard():
         main, startup, _, fetches = transformer.build_bert(**config)
@@ -249,13 +283,10 @@ def test_tiny_bert_trains_on_card_like_cpu():
         exe = fluid.Executor(place)
         before = dict(ck.LAUNCHES)
         outs = [exe.run(main, feed=feed, fetch_list=[loss] + grads, scope=scope)
-                for _ in range(3)]
+                for _ in range(steps)]
         runs.append(([float(o[0][0]) for o in outs], scope, [o[1:] for o in outs],
                      {k: ck.LAUNCHES[k] - before[k] for k in before}))
     (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
-    assert gd == dict(NO_LAUNCHES, ln_residual_fwd=15, ln_residual_bwd=15, bias_act_fwd=6,
-                      bias_act_bwd=6, softmax_xent_fwd=3, softmax_xent_bwd=3,
-                      adam=3 * len(main.all_parameters()))
     assert cd == NO_LAUNCHES
     np.testing.assert_allclose(gl, cl, atol=1e-4)
     peaks = [max(float(np.abs(g).max()) for g in step) for step in cpu_grads]
@@ -264,5 +295,33 @@ def test_tiny_bert_trains_on_card_like_cpu():
         near_zero = np.zeros(err.shape, bool)
         for step, peak in zip(cpu_grads, peaks):
             near_zero |= np.abs(step[i]) <= 1e-6 * peak
-        assert err.max() <= 2 * 1e-3 * 3 + 1e-5, p
+        assert err.max() <= 2 * 1e-3 * steps + 1e-5, p
         assert not (err[~near_zero] > 1e-5).any(), p
+    return main, gd
+
+
+@pytest.mark.gpu
+def test_tiny_bert_trains_on_card_like_cpu():
+    """Adam steps of the tiny BERT (unfused attention, dropout 0, float32) on
+    the card match the CPU's, and each step launches every training kernel.
+    Parameters agree to 1e-5, save the elements whose CPU gradient is 0 to
+    rounding (within 1e-6 of the largest) at some step, where the summation
+    order can flip the sign of Adam's first step: 2*lr*steps + 1e-5."""
+    _need_card()
+    main, launches = _train_tiny_on_card_and_cpu(False, 3)
+    assert launches == dict(NO_LAUNCHES, ln_residual_fwd=15, ln_residual_bwd=15, bias_act_fwd=6,
+                            bias_act_bwd=6, softmax_xent_fwd=3, softmax_xent_bwd=3,
+                            adam=3 * len(main.all_parameters()))
+
+
+@pytest.mark.gpu
+def test_tiny_bert_with_fused_attention_trains_on_card_like_cpu():
+    """Two Adam steps of the tiny BERT with the fused_attention op, by the
+    rule above: each step runs the attention forward, dQ and dK/dV kernels
+    once per layer."""
+    _need_card()
+    main, launches = _train_tiny_on_card_and_cpu(True, 2)
+    assert launches == dict(NO_LAUNCHES, ln_residual_fwd=10, ln_residual_bwd=10, bias_act_fwd=4,
+                            bias_act_bwd=4, softmax_xent_fwd=2, softmax_xent_bwd=2,
+                            attention_fwd=4, attention_bwd_dq=4, attention_bwd_dkv=4,
+                            adam=2 * len(main.all_parameters()))

@@ -53,8 +53,8 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("src", ["ln_residual.cu", "bias_act.cu", "sdpa.cu", "softmax_xent.cu",
-                                 "adam.cu", "bn_epilogue.cu"])
+@pytest.mark.parametrize("src", ["ln_residual.cu", "bias_act.cu", "flash_attention.cu",
+                                 "softmax_xent.cu", "adam.cu", "bn_epilogue.cu"])
 def test_kernel_source_names_what_it_replaces(src):
     """Every CUDA source opens with the TPU kernel it replaces and its bound."""
     with open(os.path.join(ROOT, "paddle_tpu_torch", "csrc", src)) as f:

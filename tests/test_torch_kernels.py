@@ -106,12 +106,20 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_sdpa_contract_checks():
+    """No length limit; the bias shape, a bias that requires grad (not
+    differentiable in the fused_sdpa contract) and mismatched head dims raise."""
     q = torch.zeros(1, 2, 1025, 8)
-    with pytest.raises(ValueError, match="1024"):
-        ca.fused_sdpa(q, q, q, None, False, 1.0)
+    assert ca.fused_sdpa(q, q, q, None, False, 1.0).shape == q.shape
     q = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="bias"):
         ca.fused_sdpa(q, q, q, torch.zeros(1, 3, 4, 4), False, 1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        ca.fused_sdpa(q, torch.zeros(1, 2, 4, 16), q, None, False, 1.0)
+    bias = torch.zeros(1, 1, 4, 4, requires_grad=True)
+    with pytest.raises(ValueError, match="not differentiable"):
+        ca.fused_sdpa(q, q, q, bias, False, 1.0)
+    with torch.no_grad():  # where nothing differentiates, such a bias is fine
+        assert ca.fused_sdpa(q, q, q, bias, False, 1.0).shape == q.shape
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

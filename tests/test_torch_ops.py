@@ -181,11 +181,18 @@ def test_op_matches_jax(case):
 
 
 def test_long_attention_takes_plain_path_on_cpu():
-    """Beyond 1024 positions the CPU runs the plain attention (the card
-    would need the streaming kernel)."""
+    """Beyond 1024 positions, the old whole-row limit, the CPU runs the plain
+    attention, as at every length (on the card the flash kernels take it):
+    the fused_attention op at Lq = Lk = 1100 against the JAX composite, full
+    at dh 4 and causal at dh 8."""
     q = F32(1, 1, 1100, 4)
     want = _run(jfluid, "fused_attention", {"Q": q, "K": q, "V": q}, {}, ["Out"])[0]
     got = _run(tfluid, "fused_attention", {"Q": q, "K": q, "V": q}, {}, ["Out"])[0]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    qkv = {n: F32(1, 2, 1100, 8) for n in ("Q", "K", "V")}
+    want = _run(jfluid, "fused_attention", qkv, {"causal": True}, ["Out"])[0]
+    got = _run(tfluid, "fused_attention", qkv, {"causal": True}, ["Out"])[0]
+    assert got.shape == (1, 2, 1100, 8)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 

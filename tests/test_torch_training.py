@@ -135,13 +135,15 @@ def _state_tols(names, dtype, scope):
 _TRAINED = {}
 
 
-def _train_both(dtype, passes):
+def _train_both(dtype, passes, fused=False):
     """Train 3 steps in both packages from the same state (cached per config):
-    returns the per-step losses and the programs, executors and scopes."""
-    key = (dtype, passes)
+    returns the per-step losses and the programs, executors and scopes.
+    `fused` builds the attention as the fused_attention op (the JAX package
+    runs its composite on the CPU, the port its plain forward and backward)."""
+    key = (dtype, passes, fused)
     if key not in _TRAINED:
-        jm, js, jl = _build("jax", dtype, passes)
-        tm, ts, tl = _build("torch", dtype, passes)
+        jm, js, jl = _build("jax", dtype, passes, use_fused_attention=fused)
+        tm, ts, tl = _build("torch", dtype, passes, use_fused_attention=fused)
         jexe, jscope, state = _jax_state(jm, js)
         texe = tfluid.Executor(tfluid.CPUPlace())
         tscope = tfluid.Scope()
@@ -185,10 +187,13 @@ def _check_params(run, dtype):
         assert np.sqrt(sq_diff / sq_update) <= UPDATE_RTOL_BF16, np.sqrt(sq_diff / sq_update)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused_attention", "fused_attention"])
 @pytest.mark.parametrize("passes", [True, False], ids=["passes", "no_passes"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_three_adam_steps_match_jax(dtype, passes):
-    run = _train_both(dtype, passes)
+def test_three_adam_steps_match_jax(dtype, passes, fused):
+    run = _train_both(dtype, passes, fused)
+    if fused:
+        assert "fused_attention" in [op.type for op in run["tm"].global_block().ops]
     assert np.isfinite(run["tl"]).all() and run["tl"][-1] < run["tl"][0]
     np.testing.assert_allclose(run["tl"], run["jl"], atol=LOSS_TOL[dtype], rtol=0)
     names = _persistables(run["jm"])
