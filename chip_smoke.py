@@ -5,10 +5,13 @@
 
 Phases, each of which raises on failure (exit code 1, traceback, no result):
   1. device: require CUDA, print the card's name and power limit, TF32 off;
-  2. build: compile the CUDA kernels of paddle_tpu_torch/csrc from this checkout;
+  2. build: compile the CUDA kernels of paddle_tpu_torch/csrc from this checkout,
+     print ptxas's registers and spills of each kernel and what the card makes
+     of each attention kernel (CTAs an SM, registers, shared bytes, spills);
   3. kernels: hold every kernel against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes BERT-base serving and training give
-     them (backward reductions also run twice and must agree bit for bit), and
+     them (backward reductions also run twice and must agree bit for bit; the
+     bfloat16 attention gradients element by element), and
      time kernel, plain version and one PyTorch library call (CUDA events,
      median); the attention forward, dQ and dK/dV kernels also at seq 2048,
      long causal, causal with Lq < Lk and Lq > Lk, dh 128 and rows whose max
@@ -139,6 +142,8 @@ TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "attention_fwd
        "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "softmax_xent_fwd": 2e-5,
                     "bn_epilogue_fwd": 2e-2}}
 ATTENTION_BF16_RULE = "2^-7 * (|plain| + sdpa_plain(q, k, |v|)), at most 5e-2"
+# the bfloat16 attention gradients: cuda_attention.BWD_BF16_RULE, element by
+# element (sdpa_bwd_bf16_allowed), at most the flat 5e-2 * max|plain| of grad_tol
 XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 # Adam: the float32 arithmetic of each output, a few roundings of the terms
 # that make it, plus one rounding of a stored bfloat16 value
@@ -357,8 +362,9 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
     softmax that forgets to rescale fails by orders of magnitude.  The
     bfloat16 forward is held element by element (attention_fwd_allowed).  The
     backward is held against sdpa_bwd_plain on the kernel's own output (so it
-    is held alone), two runs must agree bit for bit, and at kv >= 2048 in
-    bfloat16 the forward plus backward may allocate less than 1/8 of one
+    is held alone), in bfloat16 element by element
+    (cuda_attention.sdpa_bwd_bf16_allowed), two runs must agree bit for bit,
+    and at kv >= 2048 in bfloat16 the forward plus backward may allocate less than 1/8 of one
     float32 score tensor [B, H, Lq, Lk].  Times the forward, each backward
     kernel and the whole backward at [32,12,128,64] and [8,12,2048,64] bf16
     against their bounds and plain versions, and the forward and the whole
@@ -420,9 +426,19 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
                                      attention_fwd_allowed(ca, q, k, v, bias, causal, scale, want),
                                      ATTENTION_BF16_RULE)
             want = ca.sdpa_bwd_plain(q, k, v, bias, causal, scale, out, do)
-            err_q = check("attention_bwd_dq", "dq", dtype, case, dq, want[0], grad_tol(dn, want[0]))
-            err_kv = max(check("attention_bwd_dkv", w, dtype, case, a, b, grad_tol(dn, b))
-                         for w, a, b in zip(("dk", "dv"), (dk, dv), want[1:]))
+            if dtype == torch.float32:
+                err_q = check("attention_bwd_dq", "dq", dtype, case, dq, want[0],
+                              grad_tol(dn, want[0]))
+                err_kv = max(check("attention_bwd_dkv", w, dtype, case, a, b, grad_tol(dn, b))
+                             for w, a, b in zip(("dk", "dv"), (dk, dv), want[1:]))
+            else:
+                allowed = ca.sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, do, want)
+                err_q = check_within("attention_bwd_dq", "dq", dtype, case, dq, want[0],
+                                     allowed[0], ca.BWD_BF16_RULE)
+                err_kv = max(check_within("attention_bwd_dkv", w, dtype, case, a, b, t,
+                                          ca.BWD_BF16_RULE)
+                             for w, a, b, t in zip(("dk", "dv"), (dk, dv), want[1:], allowed[1:]))
+                del allowed
             del want
             torch.cuda.empty_cache()
             where = ATTENTION_TIMED.get((B, Lq)) if cases is ATTENTION_CASES else None
@@ -467,6 +483,23 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
     # the kernels' line reports the seq-128 shape; seq 2048 rides beside it
     return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
             for name, by_seq in record.items()}
+
+
+def attention_occupancy(_build):
+    """Phase 2: what the card makes of each attention kernel (forward, dQ,
+    dK/dV; float32 and bfloat16; dh 16-128): CTAs an SM holds, registers a
+    thread, dynamic shared bytes a CTA and local (spilled) bytes a thread,
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+    cudaFuncGetAttributes."""
+    import ctypes
+
+    for which, name in enumerate(("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")):
+        for dtype, code in (("float32", 0), ("bfloat16", 1)):
+            for dh in (16, 32, 64, 128):
+                out = (ctypes.c_int * 4)()
+                _build.call("ptt_attention_occupancy", which, dh, code, out)
+                emit({"occupancy": name, "dtype": dtype, "dh": dh, "ctas_per_sm": out[0],
+                      "registers": out[1], "smem_bytes": out[2], "local_bytes": out[3]})
 
 
 def check_train_kernels(torch, ck):
@@ -1278,7 +1311,9 @@ def main():
     info = _build.build()
     emit({"phase": "build", "seconds": info["seconds"]})
     print("\n".join(line for line in info["log"].splitlines()
-                    if "Used" in line or "spill" in line or line.startswith("==")), flush=True)
+                    if "Used" in line or "spill" in line or "entry function" in line
+                    or line.startswith("==")), flush=True)
+    attention_occupancy(_build)
 
     timings = check_kernels(torch, ck)
     timings.update(check_attention_kernels(torch, ca))

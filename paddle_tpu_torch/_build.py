@@ -50,6 +50,7 @@ SIGNATURES = {
     "ptt_attention_fwd": ([_P] * 6 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "ptt_attention_bwd_dq": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "ptt_attention_bwd_dkv": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    "ptt_attention_occupancy": ([_I, _I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -23,42 +23,82 @@
 // forward does 4*B*H*Lq*Lk*dh operations (half when causal) on q, k, v and
 // o; at [8, 12, 2048, 64] bf16 that is 103 GFLOP, 104 us at 989 TFLOP/s,
 // against 101 MB, 30 us at 3.35 TB/s.  At [32, 12, 128, 64] it is 1.6 GFLOP
-// against 25 MB: 7.5 us of bytes.  The backward does 10*B*H*Lq*Lk*dh
-// operations in all (S and dP recomputed, dV, dQ, dK).  What the TPU
-// kernels keep out of HBM, the [Lq, Lk] scores and probabilities, stays out
-// here too: only o, lse (float32 [B, H, Lq]) and di (float32 [B, H, Lq])
-// are written besides the gradients.
+// against 25 MB: 7.5 us of bytes.  The backward recomputes S and dP in both
+// of its kernels: 6 units of B*H*Lq*Lk*dh in dQ (S, dP, dS K) and 8 in
+// dK/dV (S^T, P^T dO, dP^T, dS^T Q), 14 in all against the 10 one kernel
+// with float atomics would do; at [8, 12, 2048, 64] 0.156 ms and 0.209 ms
+// of bf16 tensor-core peak.  What the TPU kernels keep out of HBM, the
+// [Lq, Lk] scores and probabilities, stays out here too: only o, lse
+// (float32 [B, H, Lq]) and di (float32 [B, H, Lq]) are written besides the
+// gradients.
 //
-// Design (simple and right first; wgmma, TMA and warp specialization are
-// later work): 128 threads, 4 warps, 64 rows of the CTA's own axis, each
-// warp owning 16 of them, so everything after a tile load is warp-local.
-//   forward: one CTA per (b*h, 64 query rows); K/V tiles of 64 keys stream
-//     through shared memory; S = Q K^T lands in a float32 tile, each row's
-//     running max and sum move online, P = exp(S - m_run) is rounded to the
-//     input type before P V, and the float32 O tile in shared memory is
-//     rescaled by exp(m_old - m_new) before each P V; O / l at the end.
-//   dQ: one CTA per (b*h, 64 query rows); it first writes di for its rows,
-//     then streams K/V tiles: S, P = exp(S - lse), dP = dO V^T, dS rounded
-//     to the input type, dQ += dS K.
-//   dK/dV: one CTA per (b*h, 64 key rows); query tiles stream through
-//     shared memory, the warp works on S^T (its 16 keys against 64 queries):
-//     dV += P^T dO, dP^T = V dO^T, dK += dS^T Q.
-// dK/dV and dQ are separate kernels, as in the stock kernel, so no float
-// atomics: the gradients repeat bit for bit.  bf16 products run on the
-// tensor cores through WMMA 16x16x16 with float32 accumulators; float32
-// products run as FFMA on the CUDA cores (never TF32).  Causal tiles that
-// every row of the CTA masks are skipped only when Lq <= Lk (then every row
-// sees key 0 and a masked probability is exactly 0); with Lq > Lk no tile
-// is skipped, so rows with no visible key stay the uniform average.  In the
-// backward a masked score is a constant: its dS is 0, and its P is 1/Lk in
-// a row with no visible key, else 0 (taken from the indices, since lse of
-// such a row is -1e30 + log(Lk), which float32 cannot tell from -1e30).
+// Forward (simple and right first; its redesign on the fragments of
+// mma_sm80.cuh is later work): 128 threads, 4 warps, 64 query rows a CTA,
+// each warp owning 16, so everything after a tile load is warp-local.  K/V
+// tiles of 64 keys stream through shared memory; S = Q K^T (WMMA 16x16x16
+// in bf16, FFMA in float32) lands in a float32 tile, each row's running max
+// and sum move online, P = exp(S - m_run) is rounded to the input type
+// before P V, and the float32 O tile in shared memory is rescaled by
+// exp(m_old - m_new) before each P V; O / l at the end.
+//
+// bf16 backward (the main path: BERT training): two kernels of 4 warps.
+//   dQ: a CTA owns 64 query rows, a warp 16; it writes di for its rows.
+//   dK/dV: a CTA owns 64 keys, a warp 16.
+// Every product is mma.sync m16n8k16 bf16 -> float32 (mma_sm80.cuh), its
+// operands from shared memory by ldmatrix (.trans where the B operand lies
+// row-major: dO in P^T dO, Q in dS^T Q, K in dS K).  S, P, dP and dS never
+// leave registers: each product's C fragments are the next one's A
+// fragments after a pairwise round to bf16 (P^T into dV += P^T dO, dS into
+// dQ += dS K, dS^T into dK += dS^T Q), and the accumulators (dQ; dK and dV)
+// stay in registers for the whole loop, 16 x dh float32 a warp.  A warp
+// takes a streamed tile 32 columns at a time, so S and dP are 16 registers
+// each.  The CTA's own two tiles load once (dQ: Q and dO, held as A
+// fragments for the whole loop; dK/dV: K and V, whose A fragments ldmatrix
+// takes one k-step at a time, since held beside dK and dV they spilled at
+// dh 64); the streamed tiles (dQ: K and V; dK/dV: Q, dO, lse and di) go
+// through a 2-stage ring of 16-byte cp.async.cg copies, zero-filled past
+// the end of the sequence, so tile t + 1 is in flight while tile t is
+// computed.  Tiles are [64][dh + 8] bf16: the pad puts the 8 rows of an
+// ldmatrix on distinct banks.  Shared memory is only tiles; launch bounds
+// ask for 3 CTAs an SM (at most 168 registers a thread) to dh 64 and 2 at
+// dh 128.  Each instantiation on the H100 (ptxas -v; CTAs an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, chip_smoke.py phase 2):
+//   kernel  dh   registers  spill bytes  shared bytes  CTAs (warps) an SM
+//   dQ      16   106        0            18,688        4 (16)
+//   dQ      32   150        0            30,976        3 (12)
+//   dQ      64   168        0            55,552        3 (12)
+//   dQ      128  255        0            104,704       2 (8)
+//   dK/dV   16   102        0            19,456        4 (16)
+//   dK/dV   32   140        0            31,744        3 (12)
+//   dK/dV   64   166        0            56,320        3 (12)
+//   dK/dV   128  253        0            105,472       2 (8)
+// Registers, not shared memory, set the count to dh 64.
+// Tiles with ragged rows, masked scores or a bias take a per-element path;
+// the others (all of BERT's) take one without checks.
+//
+// float32 backward (for float32 parity with the CPU; untimed): the same split,
+// FFMA on the CUDA cores (never TF32), S, P, dP, dS and the accumulators in
+// shared memory tiles, synchronous tile loads.
+//
+// Why two kernels and no atomics: dK/dV and dQ reduce over different axes
+// (queries and keys).  One kernel would have to add its dQ partial sums
+// across CTAs with float atomics, in an order that changes from run to
+// run; instead each gradient is summed by one CTA in a fixed order, and
+// two runs agree bit for bit, at the price of S and dP computed twice.
+// Causal tiles that every row of the CTA masks are skipped only when
+// Lq <= Lk (then every row sees key 0 and a masked probability is exactly
+// 0); with Lq > Lk no tile is skipped, so rows with no visible key stay the
+// uniform average.  In the backward a masked score is a constant: its dS is
+// 0, and its P is 1/Lk in a row with no visible key, else 0 (taken from the
+// indices, since lse of such a row is -1e30 + log(Lk), which float32 cannot
+// tell from -1e30).
 #include <mma.h>
 
 #include <cmath>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -85,14 +125,12 @@ struct Ld {
   static constexpr size_t kFBytes = align128(sizeof(float) * kRows * kF);
   static constexpr size_t kAccBytes = align128(sizeof(float) * kRows * kAcc);
   static constexpr size_t kVecBytes = align128(sizeof(float) * kRows);
-  // float32 inputs keep P in the T tile itself (T is float): no second S tile
-  static constexpr size_t kDPBytes = kBF16 ? kFBytes : 0;
   // forward: q, k, v tiles, S, P, O and the running max, sum and rescale
   static constexpr size_t kFwd = 3 * kTileBytes + kFBytes + kPBytes + kAccBytes + 3 * kVecBytes;
-  // dQ: four tiles, S, P, dP (bf16), the dQ accumulator, lse and di
-  static constexpr size_t kDQ = 4 * kTileBytes + kFBytes + kPBytes + kDPBytes + kAccBytes +
-                                2 * kVecBytes;
-  // dK/dV: the same with two accumulators (float32 at dh 128: 231,936 bytes)
+  // float32 backward, dQ: four tiles, S (then dP), P (then dS), the dQ
+  // accumulator, lse and di
+  static constexpr size_t kDQ = 4 * kTileBytes + kFBytes + kPBytes + kAccBytes + 2 * kVecBytes;
+  // float32 backward, dK/dV: the same with two accumulators (231,936 bytes at dh 128)
   static constexpr size_t kDKV = kDQ + kAccBytes;
 };
 
@@ -330,50 +368,419 @@ __global__ void __launch_bounds__(kThreads)
     lse[static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane] = m_s[wr + lane] + logf(l_s[wr + lane]);
 }
 
-// dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it).
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const float* __restrict__ bias,
-                            const T* __restrict__ out, const T* __restrict__ dout,
+// ---------------------------------------------------------------------------
+// The bfloat16 backward: mma.sync fragments in registers, cp.async ring.
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared tiles of the bf16 backward: [64][DH + 8] bf16, the 16-byte pad
+// putting the 8 row addresses of each ldmatrix on 8 distinct 16-byte bank
+// groups.  A CTA holds its own two tiles for the whole loop and a ring of
+// kStages pairs of streamed tiles.
+template <int DH>
+struct MmaTiles {
+  static constexpr int kLd = DH + 8;
+  static constexpr int kStages = 2;
+  static constexpr int kChunk = 32;  // streamed rows a warp takes in one pass (columns of S)
+  static constexpr int kTileElems = kRows * kLd;
+  static constexpr size_t kTileBytes = sizeof(bf16) * kTileElems;
+  static constexpr size_t kVecBytes = sizeof(float) * kRows;
+  // dQ: Q, dO, di of the CTA's rows; a stage is a K and a V tile
+  static constexpr size_t kStageDQ = 2 * kTileBytes;
+  static constexpr size_t kDQ = 2 * kTileBytes + kVecBytes + kStages * kStageDQ;
+  // dK/dV: K, V; a stage is a Q and a dO tile, then lse and di
+  static constexpr size_t kStageDKV = 2 * kTileBytes + 2 * kVecBytes;
+  static constexpr size_t kDKV = 2 * kTileBytes + kStages * kStageDKV;
+  // registers: at most 168 a thread (3 CTAs an SM) to dh 64, 255 at dh 128
+  static constexpr int kMinBlocks = DH <= 64 ? 3 : 2;
+};
+
+// Start copying rows [0, 64) of a [rows][DH] bf16 block into a tile (rows
+// at or past `valid` become zeros, and nothing past them is read).
+template <int DH>
+__device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src, int valid) {
+  constexpr int kPerRow = DH / 8;  // 16-byte pieces of a row
+  constexpr int kLd = MmaTiles<DH>::kLd;
+#pragma unroll
+  for (int it = 0; it < kRows * kPerRow / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kPerRow, c = i % kPerRow * 8;
+    const bool in = r < valid;
+    ptt::frag::cp_async_16(dst + r * kLd + c, in ? src + static_cast<int64_t>(r) * DH + c : src, in);
+  }
+}
+
+// Write a warp's 16 x DH float32 accumulator fragments, rounded, to rows
+// [row0, row0 + 16) of a [rows][DH] bf16 tensor; rows at or past `valid` are
+// not written.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 8][4], int row0,
+                                           int valid) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= valid) continue;
+    bf16* p = dst + static_cast<int64_t>(row) * DH + c2;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) = ptt::frag::pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// dQ kernel, per pass of N keys: S (this lane's fragments) becomes dS = P *
+// (dP - di) * scale with P = exp(S * scale + bias - lse), in place.  The
+// lane's element (j, e) is query row r + 8 * (e / 2) of the CTA and key
+// column c + 8 * j + e % 2 of the tile.  kEdge: the tile has ragged rows or
+// columns, masked scores or a bias, each checked per element (P and dS of
+// a masked or absent score are 0); else none of them.
+template <bool kEdge, int N>
+__device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp)[N / 8][4],
+                                          const float (&lse)[2], const float (&di)[2],
+                                          const Problem& pr, const float* bias, int q0, int k0,
+                                          int r, int c, int q_rows, int kv_rows) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p;
+      if constexpr (kEdge) {
+        const int row = r + 8 * h, col = c + 8 * j + (e & 1);
+        const int qi = q0 + row, kc = k0 + col;
+        p = 0.f;
+        if (row < q_rows && col < kv_rows && !pr.masked(qi, kc)) {
+          float x = s[j][e] * pr.scale;
+          if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+          p = exp2f((x - lse[h]) * kLog2e);
+        }
+      } else {
+        p = exp2f((s[j][e] * pr.scale - lse[h]) * kLog2e);
+      }
+      s[j][e] = p * (dp[j][e] - di[h]) * pr.scale;
+    }
+}
+
+// dK/dV kernel, per pass of N queries: S^T (keys x queries) becomes P^T in
+// place.  The lane's element (j, e) is key row r + 8 * (e / 2) of the CTA
+// and query column c + 8 * j + e % 2 of the tile; lse holds the tile's 64
+// values.  A masked score's P is 0, or 1/Lk in a query row with no visible
+// key (its scores are all the constant -1e30: the uniform average).
+template <bool kEdge, int N>
+__device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse,
+                                          const Problem& pr, const float* bias, int q0, int k0,
+                                          int r, int c, int q_rows, int k_rows) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + c + 8 * j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lq = e & 1 ? l.y : l.x;
+      if constexpr (kEdge) {
+        const int row = r + 8 * (e >> 1), col = c + 8 * j + (e & 1);
+        const int kc = k0 + row, qi = q0 + col;
+        float p = 0.f;
+        if (col < q_rows && row < k_rows) {
+          if (pr.masked(qi, kc)) {
+            p = qi + pr.offset() < 0 ? 1.f / pr.Lk : 0.f;
+          } else {
+            float x = s[j][e] * pr.scale;
+            if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+            p = exp2f((x - lq) * kLog2e);
+          }
+        }
+        s[j][e] = p;
+      } else {
+        s[j][e] = exp2f((s[j][e] * pr.scale - lq) * kLog2e);
+      }
+    }
+  }
+}
+
+// dK/dV kernel: dS^T = P^T * (dP^T - di) * scale, 0 at masked scores, into dp.
+template <bool kEdge, int N>
+__device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (&p)[N / 8][4],
+                                            const float* di, const Problem& pr, int q0, int k0,
+                                            int r, int c) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 d = *reinterpret_cast<const float2*>(di + c + 8 * j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float ds = p[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x)) * pr.scale;
+      if constexpr (kEdge) {
+        if (pr.masked(q0 + c + 8 * j + (e & 1), k0 + r + 8 * (e >> 1))) ds = 0.f;
+      }
+      dp[j][e] = ds;
+    }
+  }
+}
+
+// dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it), bf16.
+// One CTA per (b*h, 64 query rows), each warp 16 of them.  Q and dO load
+// once and stay as A fragments in registers; K and V tiles of 64 keys
+// stream through a 2-stage cp.async ring; per pass of 32 keys a warp does
+// S = Q K^T and dP = dO V^T, dS = P (dP - di) scale rounded to bf16 as the A
+// fragments of dQ += dS K, all in registers.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
+    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const float* __restrict__ bias,
+                            const bf16* __restrict__ out, const bf16* __restrict__ dout,
                             const float* __restrict__ lse, float* __restrict__ di,
-                            T* __restrict__ dq, Problem pr) {
-  using L = Ld<T, DH>;
-  constexpr bool kBF16 = L::kBF16;
+                            bf16* __restrict__ dq, Problem pr) {
+  using M = MmaTiles<DH>;
+  constexpr int kLd = M::kLd, kC = M::kChunk;
+  namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Qs = cv.take<T>(L::kTileBytes);
-  T* dOs = cv.take<T>(L::kTileBytes);
-  T* Ks = cv.take<T>(L::kTileBytes);
-  T* Vs = cv.take<T>(L::kTileBytes);
-  float* Sb = cv.take<float>(L::kFBytes);
-  T* PT = cv.take<T>(L::kPBytes);
-  float* DPb = kBF16 ? cv.take<float>(L::kDPBytes) : Sb;
+  bf16* Qs = cv.take<bf16>(M::kTileBytes);
+  bf16* dOs = cv.take<bf16>(M::kTileBytes);
+  float* di_s = cv.take<float>(M::kVecBytes);
+  bf16* ring = cv.take<bf16>(M::kStages * M::kStageDQ);  // stage st: K, then V
+  auto k_tile = [&](int st) { return ring + 2 * st * M::kTileElems; };
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int q_rows = min(kRows, pr.Lq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
+  const bf16* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const bf16* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* bias_bh = pr.bias_of(bias, bh);
+  const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1: every row sees key 0 or all keys
+
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * kRows, rows = min(kRows, pr.Lk - k0);
+    cp_async_tile<DH>(k_tile(st), kp + static_cast<int64_t>(k0) * DH, rows);
+    cp_async_tile<DH>(k_tile(st) + M::kTileElems, vp + static_cast<int64_t>(k0) * DH, rows);
+    fr::cp_async_commit();
+  };
+  cp_async_tile<DH>(Qs, q + row0 * DH, q_rows);
+  cp_async_tile<DH>(dOs, dout + row0 * DH, q_rows);
+  load_kv(0, 0);  // one group with Q and dO
+
+  // di of the warp's rows from O and dO in device memory, while the copies
+  // fly: DH / 8 lanes a row, 16 bytes a lane
+  {
+    constexpr int kLanes = DH / 8, kPerPass = 32 / kLanes;
+    for (int r0 = 0; r0 < 16; r0 += kPerPass) {
+      const int row = wr + r0 + lane / kLanes, c = lane % kLanes * 8;
+      float acc = 0.f;
+      if (row < q_rows) {
+        const uint4 o = *reinterpret_cast<const uint4*>(out + (row0 + row) * DH + c);
+        const uint4 d = *reinterpret_cast<const uint4*>(dout + (row0 + row) * DH + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+          acc += of.x * df.x + of.y * df.y;
+        }
+      }
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane % kLanes == 0) {
+        di_s[row] = acc;
+        if (row < q_rows) di[row0 + row] = acc;
+      }
+    }
+  }
+  float lse_r[2], di_r[2];  // rows wr + g and wr + g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr + g + 8 * h;
+    lse_r[h] = row < q_rows ? lse[row0 + row] : 0.f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) di_r[h] = di_s[wr + g + 8 * h];
+
+  uint32_t qa[DH / 16][4], doa[DH / 16][4];
+  float acc[DH / 8][4] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % M::kStages;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, (t + 1) % M::kStages);
+      fr::cp_async_wait<1>();
+    } else {
+      fr::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and at t = 0 Q and dO) landed for every thread
+    if (t == 0) {
+      fr::load_a<DH>(qa, Qs + wr * kLd, kLd);
+      fr::load_a<DH>(doa, dOs + wr * kLd, kLd);
+    }
+    const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+    const bool edge = bias_bh != nullptr || q_rows < kRows || kv_rows < kRows ||
+                      (pr.causal && k0 + kRows - 1 > q0 + pr.offset());
+#pragma unroll
+    for (int c0 = 0; c0 < kRows; c0 += kC) {
+      const bf16* Kc = k_tile(st) + c0 * kLd;
+      float s[kC / 8][4] = {}, dp[kC / 8][4] = {};
+      fr::gemm_nt<DH, kC>(s, qa, Kc, kLd);
+      fr::gemm_nt<DH, kC>(dp, doa, Kc + M::kTileElems, kLd);  // V
+      if (edge)
+        dq_scores<true, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                            kv_rows - c0);
+      else
+        dq_scores<false, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                             kv_rows - c0);
+      uint32_t ds[kC / 16][4];
+      fr::to_a<kC>(ds, s);  // dS rounded to bf16
+      fr::gemm_nn<kC, DH>(acc, ds, Kc, kLd);
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  store_rows<DH>(dq + row0 * DH, acc, wr, q_rows);
+}
+
+// dK and dV, bf16, from the forward's lse and the dQ kernel's di.  One CTA
+// per (b*h, 64 key rows), each warp 16 keys.  K and V load once into shared
+// memory, whence ldmatrix takes their A fragments one k-step at a time (held
+// in registers they would spill beside dK and dV); Q, dO, lse and di tiles
+// of 64 queries stream through a 2-stage cp.async ring.  Per pass of 32 queries a
+// warp does S^T = K Q^T, P^T in place, dV += bf16(P^T) dO, dP^T = V dO^T,
+// dS^T rounded to bf16, dK += dS^T Q, all in registers.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
+    attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const float* __restrict__ bias,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ di, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, Problem pr) {
+  using M = MmaTiles<DH>;
+  constexpr int kLd = M::kLd, kC = M::kChunk;
+  namespace fr = ptt::frag;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  bf16* Ks = cv.take<bf16>(M::kTileBytes);
+  bf16* Vs = cv.take<bf16>(M::kTileBytes);
+  unsigned char* ring = cv.take<unsigned char>(M::kStages * M::kStageDKV);
+  // stage st: Q, dO, then lse and di of its 64 queries
+  auto q_tile = [&](int st) { return reinterpret_cast<bf16*>(ring + st * M::kStageDKV); };
+  auto lse_of = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * M::kStageDKV + 2 * M::kTileBytes);
+  };
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
+  const int k_rows = min(kRows, pr.Lk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int64_t key0 = static_cast<int64_t>(bh) * pr.Lk + k0;
+  const int64_t qrow0 = static_cast<int64_t>(bh) * pr.Lq;
+  const float* bias_bh = pr.bias_of(bias, bh);
+  // with Lq <= Lk, queries before k0 - (Lk - Lq) see none of these keys;
+  // t_begin < t_end, since k0 - (Lk - Lq) < Lq
+  int t_begin = 0;
+  if (pr.causal && pr.Lk >= pr.Lq && k0 - pr.offset() > 0) t_begin = (k0 - pr.offset()) / kRows;
+  const int t_end = (pr.Lq + kRows - 1) / kRows;
+
+  auto load_q = [&](int t, int st) {
+    const int q0 = t * kRows, rows = min(kRows, pr.Lq - q0);
+    cp_async_tile<DH>(q_tile(st), q + (qrow0 + q0) * DH, rows);
+    cp_async_tile<DH>(q_tile(st) + M::kTileElems, dout + (qrow0 + q0) * DH, rows);
+    // threads 0-63 copy lse, 64-127 di (kThreads = 2 * kRows): 4 bytes
+    // each, zeros past the end
+    const int i = threadIdx.x % kRows;
+    const float* src = (threadIdx.x < kRows ? lse : di) + qrow0 + q0;
+    fr::cp_async_4(lse_of(st) + threadIdx.x, src + (i < rows ? i : 0), i < rows);
+    fr::cp_async_commit();
+  };
+  cp_async_tile<DH>(Ks, k + key0 * DH, k_rows);
+  cp_async_tile<DH>(Vs, v + key0 * DH, k_rows);
+  load_q(t_begin, 0);  // one group with K and V
+
+  const bf16* Kw = Ks + wr * kLd;  // the warp's 16 keys
+  const bf16* Vw = Vs + wr * kLd;
+  float dk_acc[DH / 8][4] = {}, dv_acc[DH / 8][4] = {};
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) % M::kStages;
+    if (t + 1 < t_end) {
+      load_q(t + 1, (t + 1 - t_begin) % M::kStages);
+      fr::cp_async_wait<1>();
+    } else {
+      fr::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and at the first K and V) landed for every thread
+    const int q0 = t * kRows, q_rows = min(kRows, pr.Lq - q0);
+    const bool edge = bias_bh != nullptr || q_rows < kRows || k_rows < kRows ||
+                      (pr.causal && k0 + kRows - 1 > q0 + pr.offset());
+    // not unrolled: two passes interleaved by the compiler spill at dh 64
+#pragma unroll 1
+    for (int c0 = 0; c0 < kRows; c0 += kC) {
+      const bf16* Qc = q_tile(st) + c0 * kLd;
+      const bf16* dOc = Qc + M::kTileElems;
+      const float* lse_c = lse_of(st) + c0;
+      const float* di_c = lse_c + kRows;
+      float s[kC / 8][4] = {};
+      fr::gemm_nt_smem<DH, kC>(s, Kw, kLd, Qc, kLd);  // S^T: the warp's 16 keys x 32 queries
+      if (edge)
+        dkv_probs<true, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
+                            q_rows - c0, k_rows);
+      else
+        dkv_probs<false, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
+                             q_rows - c0, k_rows);
+      uint32_t a[kC / 16][4];
+      fr::to_a<kC>(a, s);  // P^T rounded to bf16
+      fr::gemm_nn<kC, DH>(dv_acc, a, dOc, kLd);
+      float dp[kC / 8][4] = {};
+      fr::gemm_nt_smem<DH, kC>(dp, Vw, kLd, dOc, kLd);  // dP^T
+      if (edge)
+        dkv_dscores<true, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+      else
+        dkv_dscores<false, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+      fr::to_a<kC>(a, dp);  // dS^T rounded to bf16
+      fr::gemm_nn<kC, DH>(dk_acc, a, Qc, kLd);
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  store_rows<DH>(dk + key0 * DH, dk_acc, wr, k_rows);
+  store_rows<DH>(dv + key0 * DH, dv_acc, wr, k_rows);
+}
+
+// ---------------------------------------------------------------------------
+// The float32 backward: FFMA on the CUDA cores, tiles in shared memory.
+
+// dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it).
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ bias,
+                                const float* __restrict__ out, const float* __restrict__ dout,
+                                const float* __restrict__ lse, float* __restrict__ di,
+                                float* __restrict__ dq, Problem pr) {
+  using L = Ld<float, DH>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  float* Qs = cv.take<float>(L::kTileBytes);
+  float* dOs = cv.take<float>(L::kTileBytes);
+  float* Ks = cv.take<float>(L::kTileBytes);
+  float* Vs = cv.take<float>(L::kTileBytes);
+  float* Sb = cv.take<float>(L::kFBytes);  // S, then dP
+  float* PT = cv.take<float>(L::kPBytes);  // P, then dS
   float* dQb = cv.take<float>(L::kAccBytes);
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
-  // P in float32: the S tile itself (bf16), or the float P tile (float32)
-  float* P32 = kBF16 ? Sb : reinterpret_cast<float*>(PT);
-  const int ldp32 = kBF16 ? L::kF : L::kP;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int q_rows = min(kRows, pr.Lq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
   const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
-  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
 
-  load_tile<T, DH, L::kTile>(Qs, q + row0 * DH, q_rows);
-  load_tile<T, DH, L::kTile>(dOs, dout + row0 * DH, q_rows);
+  load_tile<float, DH, L::kTile>(Qs, q + row0 * DH, q_rows);
+  load_tile<float, DH, L::kTile>(dOs, dout + row0 * DH, q_rows);
   for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) dQb[i] = 0.f;
   // di of the warp's rows, from O and dO in device memory
   for (int r = 0; r < 16; ++r) {
     const int row = wr + r;
     float acc = 0.f;
     if (row < q_rows)
-      for (int c = lane; c < DH; c += 32)
-        acc += ptt::to_f32(out[(row0 + row) * DH + c]) * ptt::to_f32(dout[(row0 + row) * DH + c]);
+      for (int c = lane; c < DH; c += 32) acc += out[(row0 + row) * DH + c] * dout[(row0 + row) * DH + c];
     acc = ptt::warp_sum(acc);
     if (lane == 0) {
       di_s[row] = acc;
@@ -385,10 +792,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
     __syncthreads();
-    load_tile<T, DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
-    load_tile<T, DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
+    load_tile<float, DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
+    load_tile<float, DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
     __syncthreads();
-    warp_nt<T, DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
+    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
     __syncwarp();
     for (int r = 0; r < 16; ++r) {  // P = exp(S - lse) where it feeds dS
       const int row = wr + r, qi = q0 + row;
@@ -401,51 +808,47 @@ __global__ void __launch_bounds__(kThreads)
           if (bias_bh != nullptr) s += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
           p = expf(s - lse_s[row]);
         }
-        P32[row * ldp32 + c] = p;
+        PT[row * L::kP + c] = p;
       }
     }
     __syncwarp();
-    warp_nt<T, DH, kRows>(DPb + wr * L::kF, L::kF, dOs + wr * L::kTile, L::kTile, Vs, L::kTile);
+    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, dOs + wr * L::kTile, L::kTile, Vs, L::kTile);
     __syncwarp();
     for (int e = lane; e < 16 * kRows; e += 32) {  // dS; 0 where the score is a constant
       const int row = wr + e / kRows, c = e % kRows;
-      const float ds = P32[row * ldp32 + c] * (DPb[row * L::kF + c] - di_s[row]) * pr.scale;
-      PT[row * L::kP + c] = ptt::from_f32<T>(ds);
+      PT[row * L::kP + c] = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]) * pr.scale;
     }
     __syncwarp();
-    warp_nn_acc<T, kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks, L::kTile);
+    warp_nn_acc<float, kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks,
+                                  L::kTile);
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
     const int row = wr + e / DH;
-    if (row < q_rows) dq[(row0 + row) * DH + e % DH] = ptt::from_f32<T>(dQb[row * L::kAcc + e % DH]);
+    if (row < q_rows) dq[(row0 + row) * DH + e % DH] = dQb[row * L::kAcc + e % DH];
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const float* __restrict__ bias,
-                             const T* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ di, T* __restrict__ dk,
-                             T* __restrict__ dv, Problem pr) {
-  using L = Ld<T, DH>;
-  constexpr bool kBF16 = L::kBF16;
+    attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ bias,
+                                 const float* __restrict__ dout, const float* __restrict__ lse,
+                                 const float* __restrict__ di, float* __restrict__ dk,
+                                 float* __restrict__ dv, Problem pr) {
+  using L = Ld<float, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Ks = cv.take<T>(L::kTileBytes);
-  T* Vs = cv.take<T>(L::kTileBytes);
-  T* Qs = cv.take<T>(L::kTileBytes);
-  T* dOs = cv.take<T>(L::kTileBytes);
-  float* Sb = cv.take<float>(L::kFBytes);
-  T* PT = cv.take<T>(L::kPBytes);
-  float* DPb = kBF16 ? cv.take<float>(L::kDPBytes) : Sb;
+  float* Ks = cv.take<float>(L::kTileBytes);
+  float* Vs = cv.take<float>(L::kTileBytes);
+  float* Qs = cv.take<float>(L::kTileBytes);
+  float* dOs = cv.take<float>(L::kTileBytes);
+  float* Sb = cv.take<float>(L::kFBytes);  // S^T, then dP^T
+  float* PT = cv.take<float>(L::kPBytes);  // P^T, then dS^T
   float* dKb = cv.take<float>(L::kAccBytes);
   float* dVb = cv.take<float>(L::kAccBytes);
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
-  float* P32 = kBF16 ? Sb : reinterpret_cast<float*>(PT);
-  const int ldp32 = kBF16 ? L::kF : L::kP;
 
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   const int k_rows = min(kRows, pr.Lk - k0);
@@ -455,8 +858,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* bias_bh = pr.bias_of(bias, bh);
   const float uniform = 1.f / pr.Lk;  // P of a row with no visible key
 
-  load_tile<T, DH, L::kTile>(Ks, k + key0 * DH, k_rows);
-  load_tile<T, DH, L::kTile>(Vs, v + key0 * DH, k_rows);
+  load_tile<float, DH, L::kTile>(Ks, k + key0 * DH, k_rows);
+  load_tile<float, DH, L::kTile>(Vs, v + key0 * DH, k_rows);
   for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) dKb[i] = dVb[i] = 0.f;
   // with Lq <= Lk, queries before k0 - (Lk - Lq) see none of these keys
   int t_begin = 0;
@@ -465,8 +868,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t_begin; t < t_end; ++t) {
     const int q0 = t * kRows, q_rows = min(kRows, pr.Lq - q0);
     __syncthreads();
-    load_tile<T, DH, L::kTile>(Qs, q + (qrow0 + q0) * DH, q_rows);
-    load_tile<T, DH, L::kTile>(dOs, dout + (qrow0 + q0) * DH, q_rows);
+    load_tile<float, DH, L::kTile>(Qs, q + (qrow0 + q0) * DH, q_rows);
+    load_tile<float, DH, L::kTile>(dOs, dout + (qrow0 + q0) * DH, q_rows);
     if (threadIdx.x < kRows) {
       const bool in = static_cast<int>(threadIdx.x) < q_rows;
       lse_s[threadIdx.x] = in ? lse[qrow0 + q0 + threadIdx.x] : 0.f;
@@ -474,7 +877,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     // S^T: the warp's 16 keys against the tile's 64 queries
-    warp_nt<T, DH, kRows>(Sb + wr * L::kF, L::kF, Ks + wr * L::kTile, L::kTile, Qs, L::kTile);
+    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Ks + wr * L::kTile, L::kTile, Qs, L::kTile);
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r, kc = k0 + row;
@@ -491,36 +894,41 @@ __global__ void __launch_bounds__(kThreads)
             p = expf(s - lse_s[j]);
           }
         }
-        P32[row * ldp32 + j] = p;
-        if constexpr (kBF16) PT[row * L::kP + j] = ptt::from_f32<T>(p);
+        PT[row * L::kP + j] = p;
       }
     }
     __syncwarp();
-    warp_nn_acc<T, kRows, DH>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs, L::kTile);
-    warp_nt<T, DH, kRows>(DPb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
+    warp_nn_acc<float, kRows, DH>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs,
+                                  L::kTile);
+    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
     __syncwarp();
     for (int e = lane; e < 16 * kRows; e += 32) {
       const int row = wr + e / kRows, j = e % kRows, qi = q0 + j;
       float ds = 0.f;
       if (j < q_rows && row < k_rows && !pr.masked(qi, k0 + row))
-        ds = P32[row * ldp32 + j] * (DPb[row * L::kF + j] - di_s[j]) * pr.scale;
-      PT[row * L::kP + j] = ptt::from_f32<T>(ds);
+        ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]) * pr.scale;
+      PT[row * L::kP + j] = ds;
     }
     __syncwarp();
-    warp_nn_acc<T, kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs, L::kTile);
+    warp_nn_acc<float, kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs,
+                                  L::kTile);
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
     const int row = wr + e / DH, c = e % DH;
     if (row < k_rows) {
-      dk[(key0 + row) * DH + c] = ptt::from_f32<T>(dKb[row * L::kAcc + c]);
-      dv[(key0 + row) * DH + c] = ptt::from_f32<T>(dVb[row * L::kAcc + c]);
+      dk[(key0 + row) * DH + c] = dKb[row * L::kAcc + c];
+      dv[(key0 + row) * DH + c] = dVb[row * L::kAcc + c];
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launch.
+
 enum Which { kForward, kBwdDQ, kBwdDKV };
 
+// Each kernel's pointer parameters (the ones it does not take are null).
 struct Args {
   const void *q, *k, *v, *bias, *out, *dout;
   void *o_or_dq, *dk, *dv;
@@ -531,53 +939,82 @@ struct Args {
 };
 
 template <typename T, int DH>
-cudaError_t launch(Which which, const Args& a, int B, int H, const Problem& pr,
-                   cudaStream_t stream) {
-  using L = Ld<T, DH>;
-  const size_t bytes = which == kForward ? L::kFwd : which == kBwdDQ ? L::kDQ : L::kDKV;
-  if (bytes > 227u * 1024u) return cudaErrorInvalidValue;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const float* bias = static_cast<const float*>(a.bias);
-  const int own = which == kBwdDKV ? pr.Lk : pr.Lq;
-  const dim3 grid((own + kRows - 1) / kRows, static_cast<unsigned>(B) * H);
-  cudaError_t e = cudaSuccess;
-  if (which == kForward) {
-    auto kern = attention_fwd_kernel<T, DH>;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, static_cast<T*>(a.o_or_dq), a.lse_w,
-                                            pr);
-  } else if (which == kBwdDQ) {
-    auto kern = attention_bwd_dq_kernel<T, DH>;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, static_cast<const T*>(a.out),
-                                            static_cast<const T*>(a.dout), a.lse_r, a.di_w,
-                                            static_cast<T*>(a.o_or_dq), pr);
-  } else {
-    auto kern = attention_bwd_dkv_kernel<T, DH>;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kThreads, bytes, stream>>>(q, k, v, bias, static_cast<const T*>(a.dout),
-                                            a.lse_r, a.di_r, static_cast<T*>(a.dk),
-                                            static_cast<T*>(a.dv), pr);
-  }
-  return cudaGetLastError();
+const void* kernel_of(Which which) {
+  if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<T, DH>);
+  if constexpr (std::is_same<T, bf16>::value)
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH>);
+  else
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<DH>);
 }
 
+// Dynamic shared memory of a kernel, in bytes.
+template <typename T, int DH>
+size_t smem_of(Which which) {
+  if (which == kForward) return Ld<T, DH>::kFwd;
+  if constexpr (std::is_same<T, bf16>::value)
+    return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
+  else
+    return which == kBwdDQ ? Ld<T, DH>::kDQ : Ld<T, DH>::kDKV;
+}
+
+template <typename T, int DH>
+cudaError_t prepare(Which which) {
+  const size_t bytes = smem_of<T, DH>(which);
+  if (bytes > 227u * 1024u) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel_of<T, DH>(which),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+template <typename T, int DH>
+cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t stream) {
+  cudaError_t e = prepare<T, DH>(which);
+  if (e != cudaSuccess) return e;
+  const int own = which == kBwdDKV ? pr.Lk : pr.Lq;
+  const dim3 grid((own + kRows - 1) / kRows, static_cast<unsigned>(B) * H);
+  // each kernel's parameters, in order
+  void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};
+  void* dq[] = {&a.q, &a.k, &a.v, &a.bias, &a.out, &a.dout, &a.lse_r, &a.di_w, &a.o_or_dq, &pr};
+  void* dkv[] = {&a.q, &a.k, &a.v, &a.bias, &a.dout, &a.lse_r, &a.di_r, &a.dk, &a.dv, &pr};
+  return cudaLaunchKernel(kernel_of<T, DH>(which), grid, dim3(kThreads),
+                          which == kForward ? fwd : which == kBwdDQ ? dq : dkv,
+                          smem_of<T, DH>(which), stream);
+}
+
+// What the card makes of a kernel: out = {CTAs an SM holds, registers a
+// thread, dynamic shared bytes a CTA, local (spilled) bytes a thread}.
+template <typename T, int DH>
+cudaError_t occupancy(Which which, int* out) {
+  cudaError_t e = prepare<T, DH>(which);
+  if (e != cudaSuccess) return e;
+  const void* kern = kernel_of<T, DH>(which);
+  const size_t bytes = smem_of<T, DH>(which);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, kThreads, bytes);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(bytes);
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return e;
+}
+
+template <typename T, int DH>
+cudaError_t launch_or_query(Which which, const Args* a, int B, int H, const Problem& pr,
+                            cudaStream_t s, int* occ) {
+  return a != nullptr ? launch<T, DH>(which, *a, B, H, pr, s) : occupancy<T, DH>(which, occ);
+}
+
+// Launch (a != null) or ask for the occupancy (into occ) of one instantiation.
 template <typename T>
-cudaError_t dispatch(Which which, const Args& a, int B, int H, int dh, const Problem& pr,
-                     cudaStream_t s) {
+cudaError_t dispatch(Which which, const Args* a, int B, int H, int dh, const Problem& pr,
+                     cudaStream_t s, int* occ) {
   switch (dh) {
-    case 16: return launch<T, 16>(which, a, B, H, pr, s);
-    case 32: return launch<T, 32>(which, a, B, H, pr, s);
-    case 64: return launch<T, 64>(which, a, B, H, pr, s);
-    case 128: return launch<T, 128>(which, a, B, H, pr, s);
+    case 16: return launch_or_query<T, 16>(which, a, B, H, pr, s, occ);
+    case 32: return launch_or_query<T, 32>(which, a, B, H, pr, s, occ);
+    case 64: return launch_or_query<T, 64>(which, a, B, H, pr, s, occ);
+    case 128: return launch_or_query<T, 128>(which, a, B, H, pr, s, occ);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -602,8 +1039,8 @@ int run(Which which, const Args& a, const void* const* aligned, int n_aligned, i
   pr.scale = scale;
   pr.causal = causal;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kFloat32) return dispatch<float>(which, a, B, H, dh, pr, s);
-  if (dtype == ptt::kBFloat16) return dispatch<__nv_bfloat16>(which, a, B, H, dh, pr, s);
+  if (dtype == ptt::kFloat32) return dispatch<float>(which, &a, B, H, dh, pr, s, nullptr);
+  if (dtype == ptt::kBFloat16) return dispatch<bf16>(which, &a, B, H, dh, pr, s, nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -648,4 +1085,16 @@ extern "C" int ptt_attention_bwd_dkv(const void* q, const void* k, const void* v
          static_cast<const float*>(lse), nullptr, static_cast<const float*>(di)};
   const void* al[] = {q, k, v, dout, dk, dv};
   return run(kBwdDKV, a, al, 6, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, stream);
+}
+
+// out[0..3] = CTAs an SM holds, registers a thread, dynamic shared bytes a
+// CTA and local (spilled) bytes a thread of one kernel: `which` 0 forward,
+// 1 dQ, 2 dK/dV, at head dim `dh` and dtype `dtype`.
+extern "C" int ptt_attention_occupancy(int which, int dh, int dtype, int* out) {
+  if (which < kForward || which > kBwdDKV) return static_cast<int>(cudaErrorInvalidValue);
+  const Which w = static_cast<Which>(which);
+  const Problem pr{};
+  if (dtype == ptt::kFloat32) return dispatch<float>(w, nullptr, 0, 0, dh, pr, nullptr, out);
+  if (dtype == ptt::kBFloat16) return dispatch<bf16>(w, nullptr, 0, 0, dh, pr, nullptr, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

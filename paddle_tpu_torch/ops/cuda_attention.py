@@ -81,6 +81,42 @@ def _dkv(p, ds, q, v, dout):
     return dk.to(q.dtype), dv.to(v.dtype)
 
 
+BWD_BF16_RULE = ("2^-7 * (|plain| + |dS| |K|) + E |K| for dq, 2^-7 * (|plain| + |dS|^T |Q|) "
+                 "+ E^T |Q| for dk, 2^-7 * (|plain| + P^T |dO|) for dv, E = 2^-16 * P * scale * "
+                 "(|dO| |V|^T + rowsum(|dO| |O|)); at most 5e-2 * max|plain|")
+
+
+def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want):
+    """What a bfloat16 backward's (dq, dk, dv) may differ from the plain
+    versions' `want` by, element by element (BWD_BF16_RULE): the roundings
+    the two make differently.  Both round dS (and, for dv, P) to bfloat16
+    from float32 values whose last bits differ (sums taken in another
+    order), so a term of each product may land one bfloat16 step apart, at
+    most 2^-7 of it: 2^-7 |dS| |K|, |dS|^T |Q|, P^T |dO| summed.  Where
+    dP - di cancels (a query row that sees one key has dP = di), dS is the
+    float32 error of dP - di itself, not relative to dS: each of the two
+    dh-term sums is off by at most dh * 2^-24 <= 2^-17 of the sum of its
+    terms' magnitudes on either side, so E = 2^-16 * P * scale * (|dO| |V|^T
+    + rowsum(|dO| |O|)) more in dS.  Both round their float32 sums once, at
+    most 2^-7 |want| apart.  Capped at the flat 5e-2 * max|want| it
+    replaces."""
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    ado = dout.float().abs()
+    e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
+    e += (ado * out.float().abs()).sum(-1, keepdim=True)
+    e *= p * (2.0 ** -16 * scale)
+    ads = ds.abs().mul_(2.0 ** -7).add_(e)
+    del e
+    terms = (torch.matmul(ads, k.float().abs()),
+             torch.matmul(ads.transpose(-1, -2), q.float().abs()),
+             2.0 ** -7 * torch.matmul(p.to(q.dtype).float().transpose(-1, -2), ado))
+    allowed = []
+    for w, t in zip(want, terms):
+        wf = w.float().abs()
+        allowed.append(torch.clamp(2.0 ** -7 * wf + t, max=5e-2 * float(wf.max())) + 1e-30)
+    return tuple(allowed)
+
+
 def sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout):
     """(dq, dk, dv) of `sdpa_plain` for the output gradient `dout`, by the
     backward's own arithmetic (the Pallas _sdpa_tile_bwd's): P recomputed in

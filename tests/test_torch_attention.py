@@ -171,6 +171,41 @@ def test_kernel_plain_backwards_split_the_plain_backward(dtype):
     assert torch.equal(got[0], dk) and torch.equal(got[1], dv)
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_backward_rule_admits_other_roundings_and_sees_a_skipped_tile(causal):
+    """sdpa_bwd_bf16_allowed, the rule the bfloat16 backward kernels are held
+    to on the card: the backward taken in float64, which rounds P and dS to
+    bfloat16 from other last bits as a kernel does, stays within it; the
+    same with the last 64 keys left out of dq, or the last 64 queries out of
+    dk and dv (a kernel that skips its last tile), does not."""
+    rng = np.random.RandomState(6)
+    L, dh, scale = 512, 32, 32 ** -0.5
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 2, L, dh)).to(torch.bfloat16) for _ in range(4))
+    out = ca.sdpa_plain(q, k, v, None, causal, scale)
+    want = ca.sdpa_bwd_plain(q, k, v, None, causal, scale, out, g)
+    allowed = ca.sdpa_bwd_bf16_allowed(q, k, v, None, causal, scale, out, g, want)
+    q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
+    s = torch.matmul(q64, k64.transpose(-1, -2)) * scale
+    keep = torch.ones(L, L, dtype=torch.bool).tril() if causal else torch.ones(L, L, dtype=torch.bool)
+    p = torch.softmax(torch.where(keep, s, torch.full_like(s, -1e30)), dim=-1)
+    dp = torch.matmul(g64, v64.transpose(-1, -2))
+    di = (g64 * out.double()).sum(-1, keepdim=True)
+    ds = torch.where(keep, p * (dp - di) * scale, torch.zeros_like(p))
+    ds, pb = ds.to(torch.bfloat16).double(), p.to(torch.bfloat16).double()
+
+    def grads(n):  # keys [0, n) in dq, queries [0, n) in dk and dv
+        return (torch.matmul(ds[..., :n], k64[..., :n, :]),
+                torch.matmul(ds[..., :n, :].transpose(-1, -2), q64[..., :n, :]),
+                torch.matmul(pb[..., :n, :].transpose(-1, -2), g64[..., :n, :]))
+
+    def share(got):
+        return [float(((a.to(torch.bfloat16).float() - w.float()).abs() / t).max())
+                for a, w, t in zip(got, want, allowed)]
+
+    assert max(share(grads(L))) <= 1.0
+    assert min(share(grads(L - 64))) > 2.0
+
+
 def test_backward_kernel_wrappers_refuse_operands_off_one_device():
     """The dQ and dK/dV wrappers take their saved statistics and bias on q's
     device only (a CUDA q with a host lse would hand the kernel a host

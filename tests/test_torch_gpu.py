@@ -325,3 +325,55 @@ def test_tiny_bert_with_fused_attention_trains_on_card_like_cpu():
                             bias_act_bwd=4, softmax_xent_fwd=2, softmax_xent_bwd=2,
                             attention_fwd=4, attention_bwd_dq=4, attention_bwd_dkv=4,
                             adam=2 * len(main.all_parameters()))
+
+
+# the backward kernels at their edges: lengths that are not multiples of the
+# 64-row tiles and 32-column passes, causal with Lq > Lk (rows with no visible
+# key) and Lq < Lk with a per-head bias, dh 16 and 128
+BWD_EDGE_CASES = [
+    (2, 3, 129, 129, 64, None, False),
+    (2, 3, 200, 72, 64, None, True),
+    (2, 3, 72, 200, 64, "per_head", True),
+    (2, 2, 129, 129, 16, None, False),
+    (2, 2, 200, 72, 16, None, True),
+    (2, 2, 129, 129, 128, None, False),
+    (2, 2, 72, 200, 128, "per_head", True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_backward_kernels_at_their_edges_on_card(case, dtype):
+    """dq against sdpa_bwd_dq_plain and dk, dv against sdpa_bwd_dkv_plain, on
+    the kernels' own forward output: float32 within 1e-4 * (1 + max|ref|),
+    bfloat16 element by element (cuda_attention.BWD_BF16_RULE); a second run
+    gives the same bits; each wrapper launches its kernel once a call."""
+    _need_card()
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(B, H, n, dh, generator=g, device="cuda").to(dt)
+                   for n in (Lq, Lk, Lk, Lq))
+    bias = None
+    if bias_kind == "per_head":
+        bias = torch.randn(B, H, Lq, Lk, generator=g, device="cuda") * 2.0
+    scale = dh ** -0.5
+    out, lse = ca.attention_fwd(q, k, v, bias, causal, scale)
+    before = dict(ck.LAUNCHES)
+    dq, di = ca.attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, do)
+    dk, dv = ca.attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, do)
+    assert {n: ck.LAUNCHES[n] - before[n] for n in before} == dict(
+        NO_LAUNCHES, attention_bwd_dq=1, attention_bwd_dkv=1)
+    assert torch.equal(dq, ca.attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, do)[0])
+    again = ca.attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, do)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    want = (ca.sdpa_bwd_dq_plain(q, k, v, bias, causal, scale, out, do),
+            *ca.sdpa_bwd_dkv_plain(q, k, v, bias, causal, scale, out, do))
+    if dtype == "float32":
+        allowed = [_grad_tol(dtype, w) for w in want]
+    else:
+        allowed = ca.sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, do, want)
+    for name, got, w, a in zip(("dq", "dk", "dv"), (dq, dk, dv), want, allowed):
+        assert got.dtype == dt and got.shape == w.shape
+        assert ((got.float() - w.float()).abs() <= a).all(), name
