@@ -32,14 +32,25 @@
 // (float32 [B, H, Lq]) and di (float32 [B, H, Lq]) are written besides the
 // gradients.
 //
-// Forward (simple and right first; its redesign on the fragments of
-// mma_sm80.cuh is later work): 128 threads, 4 warps, 64 query rows a CTA,
-// each warp owning 16, so everything after a tile load is warp-local.  K/V
-// tiles of 64 keys stream through shared memory; S = Q K^T (WMMA 16x16x16
-// in bf16, FFMA in float32) lands in a float32 tile, each row's running max
-// and sum move online, P = exp(S - m_run) is rounded to the input type
-// before P V, and the float32 O tile in shared memory is rescaled by
-// exp(m_old - m_new) before each P V; O / l at the end.
+// bf16 forward (the main path: BERT serving and training; TPU rows 10 and
+// 12a): one kernel of 4 warps, FlashAttention-2's forward on mma.sync.  A
+// CTA owns FwdTiles::kRowsQ query rows, a warp FwdTiles::kWarpRows of them
+// (kMT tiles of 16 rows that share every B fragment ldmatrix brings).  Q is
+// copied once by cp.async and held as A fragments in registers; K and V
+// tiles of 64 keys stream through a 2-stage cp.async ring, so tile t + 1 is
+// in flight while tile t is computed.  Per pass of kC keys S = Q K^T lands
+// in C fragments; the online softmax runs on them in registers: the row max
+// over the lane's own elements, then across its quad (the 4 lanes that hold
+// rows g and g + 8), alpha = 2^(m_old - m_new) and P = 2^(s scale log2e -
+// m_new) on the special-function unit, the running sum l kept per lane and
+// added across the quad once at the end.  O is a float32 accumulator in
+// registers, rescaled by alpha per row; P is rounded to bf16 pairwise into
+// the A fragments of O += P V (V through ldmatrix.trans).  At the end O / l
+// goes out by 4-byte stores and lse = m + log l from the lanes that own a
+// row's first column.  Shared memory holds only the Q tile and the ring.
+// Passes with ragged keys, a bias, causal keys past the diagonal (or a
+// scale <= 0) take a per-element path; BERT's take one without checks,
+// whose row max is taken on the raw scores and scaled once.
 //
 // bf16 backward (the main path: BERT training): two kernels of 4 warps.
 //   dQ: a CTA owns 64 query rows, a warp 16; it writes di for its rows.
@@ -61,9 +72,15 @@
 // computed.  Tiles are [64][dh + 8] bf16: the pad puts the 8 rows of an
 // ldmatrix on distinct banks.  Shared memory is only tiles; launch bounds
 // ask for 3 CTAs an SM (at most 168 registers a thread) to dh 64 and 2 at
-// dh 128.  Each instantiation on the H100 (ptxas -v; CTAs an SM from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor, chip_smoke.py phase 2):
+// dh 128.  Each instantiation, the forward's too, on an NVIDIA H100 80GB
+// HBM3 at 700 W (ptxas -v;
+// CTAs an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// chip_smoke.py phase 2; the forward with 32 rows a warp to dh 64):
 //   kernel  dh   registers  spill bytes  shared bytes  CTAs (warps) an SM
+//   fwd     16   166        0            18,432        3 (12)
+//   fwd     32   200        0            30,720        2 (8)
+//   fwd     64   255        0            55,296        2 (8)
+//   fwd     128  251        0            87,040        2 (8)
 //   dQ      16   106        0            18,688        4 (16)
 //   dQ      32   150        0            30,976        3 (12)
 //   dQ      64   168        0            55,552        3 (12)
@@ -72,13 +89,14 @@
 //   dK/dV   32   140        0            31,744        3 (12)
 //   dK/dV   64   166        0            56,320        3 (12)
 //   dK/dV   128  253        0            105,472       2 (8)
-// Registers, not shared memory, set the count to dh 64.
-// Tiles with ragged rows, masked scores or a bias take a per-element path;
+// Registers, not shared memory, set the count to dh 64.  The backward's
+// tiles with ragged rows, masked scores or a bias take a per-element path;
 // the others (all of BERT's) take one without checks.
 //
-// float32 backward (for float32 parity with the CPU; untimed): the same split,
-// FFMA on the CUDA cores (never TF32), S, P, dP, dS and the accumulators in
-// shared memory tiles, synchronous tile loads.
+// float32 forward and backward (for float32 parity with the CPU; untimed):
+// 64 rows a CTA, 16 a warp, the backward's split, FFMA on the CUDA cores
+// (never TF32), S, P, dP, dS and the accumulators in shared memory tiles,
+// synchronous tile loads.
 //
 // Why two kernels and no atomics: dK/dV and dQ reduce over different axes
 // (queries and keys).  One kernel would have to add its dQ partial sums
@@ -92,8 +110,6 @@
 // 0, and its P is 1/Lk in a row with no visible key, else 0 (taken from the
 // indices, since lse of such a row is -1e30 + log(Lk), which float32 cannot
 // tell from -1e30).
-#include <mma.h>
-
 #include <cmath>
 #include <type_traits>
 
@@ -102,35 +118,31 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kRows = 64;  // rows of a CTA's own axis, and of each streamed tile
 constexpr int kThreads = 128;
 constexpr float kMasked = -1e30f;
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-// Leading dimensions (in elements) of the shared tiles.  bf16: multiples of 8
-// (WMMA, 16-byte vector stores), float32 accumulators multiples of 4.  float:
-// odd strides, so the FFMA lanes that walk different rows hit different banks.
-template <typename T, int DH>
+// Leading dimensions (in elements) of the float32 kernels' shared tiles: odd
+// strides, so the FFMA lanes that walk different rows hit different banks.
+template <int DH>
 struct Ld {
-  static constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int kTile = kBF16 ? DH + 8 : DH + 1;  // T [64][DH]: q, k, v, dO tiles
-  static constexpr int kP = kBF16 ? kRows + 8 : kRows + 1;  // T [64][64]: P or dS
-  static constexpr int kF = kBF16 ? kRows + 4 : kRows + 1;  // float [64][64]: S, dP
-  static constexpr int kAcc = kBF16 ? DH + 4 : DH + 1;  // float [64][DH]: O, dQ, dK, dV
-  static constexpr size_t kTileBytes = align128(sizeof(T) * kRows * kTile);
-  static constexpr size_t kPBytes = align128(sizeof(T) * kRows * kP);
+  static constexpr int kTile = DH + 1;  // [64][DH]: q, k, v, dO tiles
+  static constexpr int kP = kRows + 1;  // [64][64]: P or dS
+  static constexpr int kF = kRows + 1;  // [64][64]: S, dP
+  static constexpr int kAcc = DH + 1;   // [64][DH]: O, dQ, dK, dV
+  static constexpr size_t kTileBytes = align128(sizeof(float) * kRows * kTile);
+  static constexpr size_t kPBytes = align128(sizeof(float) * kRows * kP);
   static constexpr size_t kFBytes = align128(sizeof(float) * kRows * kF);
   static constexpr size_t kAccBytes = align128(sizeof(float) * kRows * kAcc);
   static constexpr size_t kVecBytes = align128(sizeof(float) * kRows);
   // forward: q, k, v tiles, S, P, O and the running max, sum and rescale
   static constexpr size_t kFwd = 3 * kTileBytes + kFBytes + kPBytes + kAccBytes + 3 * kVecBytes;
-  // float32 backward, dQ: four tiles, S (then dP), P (then dS), the dQ
+  // dQ: four tiles, S (then dP), P (then dS), the dQ
   // accumulator, lse and di
   static constexpr size_t kDQ = 4 * kTileBytes + kFBytes + kPBytes + kAccBytes + 2 * kVecBytes;
-  // float32 backward, dK/dV: the same with two accumulators (231,936 bytes at dh 128)
+  // dK/dV: the same with two accumulators (231,936 bytes at dh 128)
   static constexpr size_t kDKV = kDQ + kAccBytes;
 };
 
@@ -146,115 +158,69 @@ struct Carve {
 };
 
 // dst[r * LD + c] = r < valid ? src[r * DH + c] : 0, for r < kRows, c < DH.
-template <typename T, int DH, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int valid) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int kPerRow = DH / 8;  // 16-byte vectors per row
-    for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
-      const int r = i / kPerRow, c = i % kPerRow;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid) val = reinterpret_cast<const uint4*>(src + static_cast<int64_t>(r) * DH)[c];
-      *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * DH; i += kThreads) {
-      const int r = i / DH, c = i % DH;
-      dst[r * LD + c] = r < valid ? src[static_cast<int64_t>(r) * DH + c] : T(0);
-    }
+template <int DH, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int valid) {
+  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) {
+    const int r = i / DH, c = i % DH;
+    dst[r * LD + c] = r < valid ? src[static_cast<int64_t>(r) * DH + c] : 0.f;
   }
 }
 
-// One warp: C[16][N] = A[16][K] * B[N][K]^T (A and B row-major in shared
-// memory, C float32).
-template <typename T, int K, int N>
-__device__ __forceinline__ void warp_nt(float* C, int ldc, const T* A, int lda, const T* B,
-                                        int ldb) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+// One warp, FFMA: C[16][N] = A[16][K] * B[N][K]^T (row-major in shared
+// memory); the lane holds rows r0..r0+3, columns c0 + 8j.
+template <int K, int N>
+__device__ __forceinline__ void warp_nt(float* C, int ldc, const float* A, int lda,
+                                        const float* B, int ldb) {
+  const int lane = threadIdx.x & 31, r0 = (lane >> 3) * 4, c0 = lane & 7;
+  float acc[4][N / 8];
 #pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, A + k0, lda);
-        wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);  // B^T, column-major
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + n0, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    // lane: rows r0..r0+3, columns c0 + 8j
-    const int lane = threadIdx.x & 31, r0 = (lane >> 3) * 4, c0 = lane & 7;
-    float acc[4][N / 8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < N / 8; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < K; ++d) {
-      float a[4];
+  for (int d = 0; d < K; ++d) {
+    float a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(r0 + i) * lda + d];
+    for (int i = 0; i < 4; ++i) a[i] = A[(r0 + i) * lda + d];
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const float b = B[(c0 + 8 * j) * ldb + d];
+    for (int j = 0; j < N / 8; ++j) {
+      const float b = B[(c0 + 8 * j) * ldb + d];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-      }
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j) C[(r0 + i) * ldc + c0 + 8 * j] = acc[i][j];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) C[(r0 + i) * ldc + c0 + 8 * j] = acc[i][j];
 }
 
-// One warp: C[16][N] += A[16][K] * B[K][N] (A and B row-major in shared
-// memory, C float32 in shared memory).
-template <typename T, int K, int N>
-__device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const T* A, int lda, const T* B,
-                                            int ldb) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+// One warp, FFMA: C[16][N] += A[16][K] * B[K][N] (row-major in shared memory).
+template <int K, int N>
+__device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const float* A, int lda,
+                                            const float* B, int ldb) {
+  const int lane = threadIdx.x & 31, r0 = (lane >> 3) * 4, c0 = lane & 7;
+  float acc[4][N / 8];
 #pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, C + n0, ldc, wmma::mem_row_major);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, A + k0, lda);
-        wmma::load_matrix_sync(b, B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + n0, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31, r0 = (lane >> 3) * 4, c0 = lane & 7;
-    float acc[4][N / 8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j) acc[i][j] = C[(r0 + i) * ldc + c0 + 8 * j];
+    for (int j = 0; j < N / 8; ++j) acc[i][j] = C[(r0 + i) * ldc + c0 + 8 * j];
 #pragma unroll 4
-    for (int kk = 0; kk < K; ++kk) {
-      float a[4];
+  for (int kk = 0; kk < K; ++kk) {
+    float a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(r0 + i) * lda + kk];
+    for (int i = 0; i < 4; ++i) a[i] = A[(r0 + i) * lda + kk];
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const float b = B[kk * ldb + c0 + 8 * j];
+    for (int j = 0; j < N / 8; ++j) {
+      const float b = B[kk * ldb + c0 + 8 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-      }
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j) C[(r0 + i) * ldc + c0 + 8 * j] = acc[i][j];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) C[(r0 + i) * ldc + c0 + 8 * j] = acc[i][j];
 }
 
 // What every kernel needs to know about one (batch, head) pair.
@@ -277,107 +243,17 @@ struct Problem {
   }
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const float* __restrict__ bias, T* __restrict__ out,
-                         float* __restrict__ lse, Problem pr) {
-  using L = Ld<T, DH>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(L::kTileBytes);
-  T* Ks = cv.take<T>(L::kTileBytes);
-  T* Vs = cv.take<T>(L::kTileBytes);
-  float* Sb = cv.take<float>(L::kFBytes);
-  T* PT = cv.take<T>(L::kPBytes);
-  float* Ob = cv.take<float>(L::kAccBytes);
-  float* m_s = cv.take<float>(L::kVecBytes);
-  float* l_s = cv.take<float>(L::kVecBytes);
-  float* a_s = cv.take<float>(L::kVecBytes);
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int q_rows = min(kRows, pr.Lq - q0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
-  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const float* bias_bh = pr.bias_of(bias, bh);
-
-  load_tile<T, DH, L::kTile>(Qs, q + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH, q_rows);
-  for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) Ob[i] = 0.f;
-  if (threadIdx.x < kRows) {
-    m_s[threadIdx.x] = -INFINITY;
-    l_s[threadIdx.x] = 0.f;
-  }
-  const int n_tiles = pr.key_tiles(q0 + q_rows);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
-    __syncthreads();  // the previous K/V tiles are consumed
-    load_tile<T, DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
-    load_tile<T, DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
-    __syncthreads();
-    warp_nt<T, DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
-    __syncwarp();
-    // the warp's 16 rows one at a time, two key columns a lane
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r, qi = q0 + row;
-      float s[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h, kc = k0 + c;
-        if (c >= kv_rows) {
-          s[h] = -INFINITY;  // past the end of the keys: no weight at all
-        } else {
-          s[h] = Sb[row * L::kF + c] * pr.scale;
-          if (row < q_rows) {
-            if (bias_bh != nullptr) s[h] += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
-            if (pr.masked(qi, kc)) s[h] = kMasked;
-          }
-        }
-      }
-      // tile 0 holds a real key, so m_new is finite from the first tile on
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, ptt::warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      PT[row * L::kP + lane] = ptt::from_f32<T>(p0);
-      PT[row * L::kP + lane + 32] = ptt::from_f32<T>(p1);
-      const float psum = ptt::warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile (m_old = -inf)
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * alpha + psum;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * DH; e += 32) {
-      const int row = wr + e / DH;
-      Ob[row * L::kAcc + e % DH] *= a_s[row];
-    }
-    __syncwarp();
-    warp_nn_acc<T, kRows, DH>(Ob + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Vs, L::kTile);
-  }
-  __syncwarp();
-  T* op = out + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH;
-  for (int e = lane; e < 16 * DH; e += 32) {
-    const int row = wr + e / DH;
-    if (row < q_rows)
-      op[static_cast<int64_t>(row) * DH + e % DH] =
-          ptt::from_f32<T>(Ob[row * L::kAcc + e % DH] / l_s[row]);
-  }
-  if (lane < 16 && wr + lane < q_rows)
-    lse[static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane] = m_s[wr + lane] + logf(l_s[wr + lane]);
-}
-
 // ---------------------------------------------------------------------------
-// The bfloat16 backward: mma.sync fragments in registers, cp.async ring.
+// The bfloat16 kernels: mma.sync fragments in registers, cp.async ring.
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared tiles of the bf16 backward: [64][DH + 8] bf16, the 16-byte pad
+// Shared tiles of the bf16 kernels: [64][DH + 8] bf16, the 16-byte pad
 // putting the 8 row addresses of each ldmatrix on 8 distinct 16-byte bank
-// groups.  A CTA holds its own two tiles for the whole loop and a ring of
-// kStages pairs of streamed tiles.
+// groups.  A backward CTA holds its own two tiles for the whole loop and a
+// ring of kStages pairs of streamed tiles.
 template <int DH>
 struct MmaTiles {
   static constexpr int kLd = DH + 8;
@@ -428,6 +304,202 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 8]
       *reinterpret_cast<uint32_t*>(p + 8 * j) = ptt::frag::pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The bfloat16 forward.
+
+// m16 tiles of query rows a warp owns, and keys a warp takes in one pass, at
+// dh <= 64 (dh 128 takes one tile: two would hold 128 accumulator
+// registers).  At [8, 12, 2048, 64] on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/port_attention_variants.py) 2 tiles and 32 keys beat 1 tile and
+// 64 keys by 5%; 2 tiles and 64 keys were faster still but spilled.
+constexpr int kFwdWarpTiles = 2;
+constexpr int kFwdChunk = 32;
+
+// Shapes of the bf16 forward: a CTA's Q tile, then a ring of kStages K and V
+// tile pairs, [rows][DH + 8] bf16 as in MmaTiles.
+template <int DH>
+struct FwdTiles {
+  static constexpr int kMT = DH <= 64 ? kFwdWarpTiles : 1;
+  static constexpr int kC = DH <= 64 ? kFwdChunk : 64;
+  static constexpr int kWarpRows = 16 * kMT;
+  static constexpr int kRowsQ = 4 * kWarpRows;  // query rows a CTA owns
+  static constexpr int kLd = MmaTiles<DH>::kLd;
+  static constexpr int kStages = MmaTiles<DH>::kStages;
+  static constexpr int kTileElems = MmaTiles<DH>::kTileElems;  // one K or V tile
+  static constexpr size_t kBytes = sizeof(bf16) * (kRowsQ * kLd + kStages * 2 * kTileElems);
+  // registers: at most 168 a thread (3 CTAs an SM) with 16 rows a warp to
+  // dh 64, else 255 (2 CTAs: 32 rows a warp hold twice the fragments)
+  static constexpr int kMinBlocks = DH <= 64 && kMT == 1 ? 3 : 2;
+};
+
+// Forward, per pass of N keys that needs checks (ragged keys, a bias,
+// causal keys past the diagonal, or a scale <= 0): the lane's raw scores
+// become (s * scale + bias) * log2(e), kMasked * log2(e) where causal masks
+// them, and -inf past the end of the keys.  Element (m, j, e) is query row
+// r + 16 m + 8 (e / 2) of the CTA and key column c + 8 j + e % 2 of the pass.
+template <int MT, int N>
+__device__ __forceinline__ void fwd_edge_scores(float (&s)[MT][N / 8][4], const Problem& pr,
+                                                const float* bias, int q0, int k0, int r, int c,
+                                                int q_rows, int kv_rows) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r + 16 * m + 8 * (e >> 1), col = c + 8 * j + (e & 1);
+        float x = -INFINITY;  // past the end of the keys: no weight at all
+        if (col < kv_rows) {
+          const int qi = q0 + row, kc = k0 + col;
+          x = s[m][j][e] * pr.scale;
+          if (row < q_rows) {
+            if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+            if (pr.masked(qi, kc)) x = kMasked;
+          }
+          x *= kLog2e;
+        }
+        s[m][j][e] = x;
+      }
+}
+
+// out = attention(q, k, v) and lse, bf16.  One CTA per (b*h, kRowsQ query
+// rows), each warp kWarpRows of them; Q held as A fragments, K and V tiles
+// through the cp.async ring, S, P, the running max and sum and O in
+// registers (see the note at the top).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
+    attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ bias,
+                         bf16* __restrict__ out, float* __restrict__ lse, Problem pr) {
+  using F = FwdTiles<DH>;
+  constexpr int kLd = F::kLd, kMT = F::kMT, kC = F::kC;
+  namespace fr = ptt::frag;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + F::kRowsQ * kLd;  // stage st: K, then V
+  auto k_tile = [&](int st) { return ring + 2 * st * F::kTileElems; };
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * F::kRowsQ;
+  const int q_rows = min(F::kRowsQ, pr.Lq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * F::kWarpRows;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
+  const bf16* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const bf16* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* bias_bh = pr.bias_of(bias, bh);
+  const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1; the forward's key tiles
+  const float scale_log2 = pr.scale * kLog2e;
+
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * kRows, rows = min(kRows, pr.Lk - k0);
+    cp_async_tile<DH>(k_tile(st), kp + static_cast<int64_t>(k0) * DH, rows);
+    cp_async_tile<DH>(k_tile(st) + F::kTileElems, vp + static_cast<int64_t>(k0) * DH, rows);
+    fr::cp_async_commit();
+  };
+#pragma unroll
+  for (int h = 0; h < F::kRowsQ / kRows; ++h) {  // Q, 64 rows at a time
+    const int rows = q_rows - h * kRows;
+    cp_async_tile<DH>(Qs + h * kRows * kLd, q + (row0 + (rows > 0 ? h * kRows : 0)) * DH, rows);
+  }
+  load_kv(0, 0);  // one group with Q
+
+  uint32_t qa[kMT][DH / 16][4];
+  float o[kMT][DH / 8][4] = {};
+  // rows wr + 16 m + g + 8 h: the running max of the scores in log2 units,
+  // and this lane's share of the running sum of P
+  float m_run[kMT][2], l_run[kMT][2];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_run[m][h] = -INFINITY;
+      l_run[m][h] = 0.f;
+    }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % F::kStages;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, (t + 1) % F::kStages);
+      fr::cp_async_wait<1>();
+    } else {
+      fr::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and at t = 0 Q) landed for every thread
+    if (t == 0) {
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) fr::load_a<DH>(qa[m], Qs + (wr + 16 * m) * kLd, kLd);
+    }
+    const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+#pragma unroll
+    for (int c0 = 0; c0 < kRows; c0 += kC) {
+      const bf16* Kc = k_tile(st) + c0 * kLd;
+      float s[kMT][kC / 8][4] = {};
+      fr::gemm_nt_rows<kMT, DH, kC>(s, qa, Kc, kLd);
+      const bool edge = bias_bh != nullptr || kv_rows < c0 + kC || !(pr.scale > 0.f) ||
+                        (pr.causal && k0 + c0 + kC - 1 > q0 + wr + pr.offset());
+      if (edge)
+        fwd_edge_scores<kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows, kv_rows - c0);
+      // the edge path's scores are in log2 units already; the others are
+      // raw, and scale > 0 keeps their max where it is
+      const float mul = edge ? 1.f : scale_log2;
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < kC / 8; ++j) mx = fmaxf(mx, fmaxf(s[m][j][2 * h], s[m][j][2 * h + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // finite from the first pass on: it holds key 0, a real key
+          const float m_new = fmaxf(m_run[m][h], mx * mul);
+          const float alpha = fr::exp2_approx(m_run[m][h] - m_new);  // 0 on the first pass
+          m_run[m][h] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kC / 8; ++j)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              const float p = fr::exp2_approx(fmaf(s[m][j][e], mul, -m_new));
+              s[m][j][e] = p;
+              sum += p;
+            }
+          l_run[m][h] = l_run[m][h] * alpha + sum;
+#pragma unroll
+          for (int j = 0; j < DH / 8; ++j) {
+            o[m][j][2 * h] *= alpha;
+            o[m][j][2 * h + 1] *= alpha;
+          }
+        }
+      uint32_t pa[kMT][kC / 16][4];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) fr::to_a<kC>(pa[m], s[m]);  // P rounded to bf16
+      fr::gemm_nn_rows<kMT, kC, DH>(o, pa, Kc + F::kTileElems, kLd);  // V
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+#pragma unroll
+  for (int m = 0; m < kMT; ++m) {
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[m][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[h] = 1.f / l;
+      const int row = wr + 16 * m + g + 8 * h;
+      if (c2 == 0 && row < q_rows) lse[row0 + row] = (m_run[m][h] + log2f(l)) * kLn2;
+    }
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[m][j][e] *= inv[e >> 1];
+    store_rows<DH>(out + row0 * DH, o[m], wr + 16 * m, q_rows);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bfloat16 backward.
 
 // dQ kernel, per pass of N keys: S (this lane's fragments) becomes dS = P *
 // (dP - di) * scale with P = exp(S * scale + bias - lse), in place.  The
@@ -741,7 +813,101 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// The float32 backward: FFMA on the CUDA cores, tiles in shared memory.
+// The float32 forward and backward: FFMA on the CUDA cores, tiles in shared
+// memory.
+
+// out = attention(q, k, v) and lse, float32: the warp's 16 rows one at a
+// time, two key columns a lane, with a full-warp max and sum per row.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ bias,
+                             float* __restrict__ out, float* __restrict__ lse, Problem pr) {
+  using L = Ld<DH>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Carve cv{smem};
+  float* Qs = cv.take<float>(L::kTileBytes);
+  float* Ks = cv.take<float>(L::kTileBytes);
+  float* Vs = cv.take<float>(L::kTileBytes);
+  float* Sb = cv.take<float>(L::kFBytes);
+  float* PT = cv.take<float>(L::kPBytes);
+  float* Ob = cv.take<float>(L::kAccBytes);
+  float* m_s = cv.take<float>(L::kVecBytes);
+  float* l_s = cv.take<float>(L::kVecBytes);
+  float* a_s = cv.take<float>(L::kVecBytes);
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int q_rows = min(kRows, pr.Lq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
+  const float* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const float* bias_bh = pr.bias_of(bias, bh);
+
+  load_tile<DH, L::kTile>(Qs, q + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH, q_rows);
+  for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) Ob[i] = 0.f;
+  if (threadIdx.x < kRows) {
+    m_s[threadIdx.x] = -INFINITY;
+    l_s[threadIdx.x] = 0.f;
+  }
+  const int n_tiles = pr.key_tiles(q0 + q_rows);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+    __syncthreads();  // the previous K/V tiles are consumed
+    load_tile<DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
+    load_tile<DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
+    __syncthreads();
+    warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
+    __syncwarp();
+    // the warp's 16 rows one at a time, two key columns a lane
+    for (int r = 0; r < 16; ++r) {
+      const int row = wr + r, qi = q0 + row;
+      float s[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h, kc = k0 + c;
+        if (c >= kv_rows) {
+          s[h] = -INFINITY;  // past the end of the keys: no weight at all
+        } else {
+          s[h] = Sb[row * L::kF + c] * pr.scale;
+          if (row < q_rows) {
+            if (bias_bh != nullptr) s[h] += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
+            if (pr.masked(qi, kc)) s[h] = kMasked;
+          }
+        }
+      }
+      // tile 0 holds a real key, so m_new is finite from the first tile on
+      const float m_old = m_s[row];
+      const float m_new = fmaxf(m_old, ptt::warp_max(fmaxf(s[0], s[1])));
+      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
+      PT[row * L::kP + lane] = p0;
+      PT[row * L::kP + lane + 32] = p1;
+      const float psum = ptt::warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);  // 0 on the first tile (m_old = -inf)
+        m_s[row] = m_new;
+        l_s[row] = l_s[row] * alpha + psum;
+        a_s[row] = alpha;
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * DH; e += 32) {
+      const int row = wr + e / DH;
+      Ob[row * L::kAcc + e % DH] *= a_s[row];
+    }
+    __syncwarp();
+    warp_nn_acc<kRows, DH>(Ob + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Vs, L::kTile);
+  }
+  __syncwarp();
+  float* op = out + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH;
+  for (int e = lane; e < 16 * DH; e += 32) {
+    const int row = wr + e / DH;
+    if (row < q_rows)
+      op[static_cast<int64_t>(row) * DH + e % DH] =
+          Ob[row * L::kAcc + e % DH] / l_s[row];
+  }
+  if (lane < 16 && wr + lane < q_rows)
+    lse[static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane] = m_s[wr + lane] + logf(l_s[wr + lane]);
+}
 
 // dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it).
 template <int DH>
@@ -751,7 +917,7 @@ __global__ void __launch_bounds__(kThreads)
                                 const float* __restrict__ out, const float* __restrict__ dout,
                                 const float* __restrict__ lse, float* __restrict__ di,
                                 float* __restrict__ dq, Problem pr) {
-  using L = Ld<float, DH>;
+  using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   float* Qs = cv.take<float>(L::kTileBytes);
@@ -772,8 +938,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
 
-  load_tile<float, DH, L::kTile>(Qs, q + row0 * DH, q_rows);
-  load_tile<float, DH, L::kTile>(dOs, dout + row0 * DH, q_rows);
+  load_tile<DH, L::kTile>(Qs, q + row0 * DH, q_rows);
+  load_tile<DH, L::kTile>(dOs, dout + row0 * DH, q_rows);
   for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) dQb[i] = 0.f;
   // di of the warp's rows, from O and dO in device memory
   for (int r = 0; r < 16; ++r) {
@@ -792,10 +958,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
     __syncthreads();
-    load_tile<float, DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
-    load_tile<float, DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
+    load_tile<DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
+    load_tile<DH, L::kTile>(Vs, vp + static_cast<int64_t>(k0) * DH, kv_rows);
     __syncthreads();
-    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
+    warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
     __syncwarp();
     for (int r = 0; r < 16; ++r) {  // P = exp(S - lse) where it feeds dS
       const int row = wr + r, qi = q0 + row;
@@ -812,15 +978,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, dOs + wr * L::kTile, L::kTile, Vs, L::kTile);
+    warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, dOs + wr * L::kTile, L::kTile, Vs, L::kTile);
     __syncwarp();
     for (int e = lane; e < 16 * kRows; e += 32) {  // dS; 0 where the score is a constant
       const int row = wr + e / kRows, c = e % kRows;
       PT[row * L::kP + c] = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]) * pr.scale;
     }
     __syncwarp();
-    warp_nn_acc<float, kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks,
-                                  L::kTile);
+    warp_nn_acc<kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks,
+                           L::kTile);
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
@@ -836,7 +1002,7 @@ __global__ void __launch_bounds__(kThreads)
                                  const float* __restrict__ dout, const float* __restrict__ lse,
                                  const float* __restrict__ di, float* __restrict__ dk,
                                  float* __restrict__ dv, Problem pr) {
-  using L = Ld<float, DH>;
+  using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   float* Ks = cv.take<float>(L::kTileBytes);
@@ -858,8 +1024,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* bias_bh = pr.bias_of(bias, bh);
   const float uniform = 1.f / pr.Lk;  // P of a row with no visible key
 
-  load_tile<float, DH, L::kTile>(Ks, k + key0 * DH, k_rows);
-  load_tile<float, DH, L::kTile>(Vs, v + key0 * DH, k_rows);
+  load_tile<DH, L::kTile>(Ks, k + key0 * DH, k_rows);
+  load_tile<DH, L::kTile>(Vs, v + key0 * DH, k_rows);
   for (int i = threadIdx.x; i < kRows * L::kAcc; i += kThreads) dKb[i] = dVb[i] = 0.f;
   // with Lq <= Lk, queries before k0 - (Lk - Lq) see none of these keys
   int t_begin = 0;
@@ -868,8 +1034,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t_begin; t < t_end; ++t) {
     const int q0 = t * kRows, q_rows = min(kRows, pr.Lq - q0);
     __syncthreads();
-    load_tile<float, DH, L::kTile>(Qs, q + (qrow0 + q0) * DH, q_rows);
-    load_tile<float, DH, L::kTile>(dOs, dout + (qrow0 + q0) * DH, q_rows);
+    load_tile<DH, L::kTile>(Qs, q + (qrow0 + q0) * DH, q_rows);
+    load_tile<DH, L::kTile>(dOs, dout + (qrow0 + q0) * DH, q_rows);
     if (threadIdx.x < kRows) {
       const bool in = static_cast<int>(threadIdx.x) < q_rows;
       lse_s[threadIdx.x] = in ? lse[qrow0 + q0 + threadIdx.x] : 0.f;
@@ -877,7 +1043,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     // S^T: the warp's 16 keys against the tile's 64 queries
-    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Ks + wr * L::kTile, L::kTile, Qs, L::kTile);
+    warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Ks + wr * L::kTile, L::kTile, Qs, L::kTile);
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r, kc = k0 + row;
@@ -898,9 +1064,9 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_nn_acc<float, kRows, DH>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs,
-                                  L::kTile);
-    warp_nt<float, DH, kRows>(Sb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
+    warp_nn_acc<kRows, DH>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs,
+                           L::kTile);
+    warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
     __syncwarp();
     for (int e = lane; e < 16 * kRows; e += 32) {
       const int row = wr + e / kRows, j = e % kRows, qi = q0 + j;
@@ -910,8 +1076,8 @@ __global__ void __launch_bounds__(kThreads)
       PT[row * L::kP + j] = ds;
     }
     __syncwarp();
-    warp_nn_acc<float, kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs,
-                                  L::kTile);
+    warp_nn_acc<kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs,
+                           L::kTile);
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
@@ -940,23 +1106,35 @@ struct Args {
 
 template <typename T, int DH>
 const void* kernel_of(Which which) {
-  if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<T, DH>);
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<DH>);
     return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH>)
                            : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH>);
-  else
+  } else {
+    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_f32_kernel<DH>);
     return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH>)
                            : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<DH>);
+  }
 }
 
 // Dynamic shared memory of a kernel, in bytes.
 template <typename T, int DH>
 size_t smem_of(Which which) {
-  if (which == kForward) return Ld<T, DH>::kFwd;
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (which == kForward) return FwdTiles<DH>::kBytes;
     return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
-  else
-    return which == kBwdDQ ? Ld<T, DH>::kDQ : Ld<T, DH>::kDKV;
+  } else {
+    if (which == kForward) return Ld<DH>::kFwd;
+    return which == kBwdDQ ? Ld<DH>::kDQ : Ld<DH>::kDKV;
+  }
+}
+
+// Rows of its own axis a CTA of the kernel owns (queries, or dK/dV's keys).
+template <typename T, int DH>
+int cta_rows(Which which) {
+  if constexpr (std::is_same<T, bf16>::value)
+    if (which == kForward) return FwdTiles<DH>::kRowsQ;
+  return kRows;
 }
 
 template <typename T, int DH>
@@ -971,8 +1149,8 @@ template <typename T, int DH>
 cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t stream) {
   cudaError_t e = prepare<T, DH>(which);
   if (e != cudaSuccess) return e;
-  const int own = which == kBwdDKV ? pr.Lk : pr.Lq;
-  const dim3 grid((own + kRows - 1) / kRows, static_cast<unsigned>(B) * H);
+  const int own = which == kBwdDKV ? pr.Lk : pr.Lq, rows = cta_rows<T, DH>(which);
+  const dim3 grid((own + rows - 1) / rows, static_cast<unsigned>(B) * H);
   // each kernel's parameters, in order
   void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};
   void* dq[] = {&a.q, &a.k, &a.v, &a.bias, &a.out, &a.dout, &a.lse_r, &a.di_w, &a.o_or_dq, &pr};

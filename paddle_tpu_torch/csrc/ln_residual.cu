@@ -26,14 +26,25 @@
 // BERT-base training shape (R = 4096, D = 768, bf16) 25.2 MB, 7.5 us at
 // 3.35 TB/s.  The TPU kernel adds dscale/dbias into one shared block across
 // its grid steps, which is right only because a TPU grid runs in order.
-// Here one warp takes one row at a time (the statistics recomputed in
-// float32 from registers, as _ln_bwd_kernel does), each lane keeps its
-// columns' dscale/dbias in registers across the rows it visits, the block
-// adds its warps' sums in warp order into a partial row [n_blocks, D], and a
-// second kernel adds the partial rows in an order fixed by the shape
-// (common.cuh column_sum).  No float atomics: the gradients are bitwise
-// repeatable.  The register tile limits D to 1024.
+// Here two launches, and no memset (the second writes every output):
+//   - the row kernel: blocks of 4 warps, one wave of the card (at most 3
+//     blocks an SM); a warp takes one row at a time, recomputing the
+//     statistics in float32 as _ln_bwd_kernel does.  A lane owns the same
+//     columns of every row, so its share of dscale/dbias stays in
+//     registers across rows; the scale row sits in shared memory.  Each
+//     lane copies its own 16-byte pieces of the warp's next two rows into
+//     shared memory by cp.async and reads back only those, so the next
+//     rows' loads fly through this row's three rounds of warp reductions
+//     with no barrier, and registers hold one row of floats (prefetched
+//     into registers instead, the rows spilled).  The block adds its warps'
+//     sums in warp order through shared memory into a partial row
+//     [n_blocks, D] of each;
+//   - the column pass adds the partial rows in an order fixed by the shape,
+//     eight independent loads in flight a thread.
+// No float atomics: the gradients are bitwise repeatable.  The register
+// tile limits D to 1024.
 #include "common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -147,70 +158,119 @@ cudaError_t dispatch(const void* x, const void* res, const void* scale, const vo
 // Backward
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdWarps = 8;  // rows in flight per block, one per warp
+constexpr int kBwdWarps = 4;   // warps of a row-kernel block, one row each at a time
+constexpr int kBwdStages = 2;  // rows a warp has in flight ahead of the one it computes
+constexpr int kColRows = 8;    // thread rows of a column-pass block
+constexpr int kColUnroll = 8;  // partial rows a column-pass thread has in flight
 
-// Sum the per-lane column accumulators of the block's warps, in warp order,
-// through shared memory `red` [warps][d], into out[0:d].
-template <int VEC, int E>
-__device__ __forceinline__ void block_partial(const float (&acc)[E], float* red, float* out,
-                                              int d, int lane, int warp, int warps) {
-#pragma unroll
-  for (int c = 0; c < E / VEC; ++c) {
-    const int col = c * 32 * VEC + lane * VEC;
-    if (col < d) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) red[warp * d + col + i] = acc[c * VEC + i];
-    }
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < d; col += blockDim.x) {
-    float t = 0.f;
-    for (int w = 0; w < warps; ++w) t += red[w * d + col];
-    out[col] = t;
-  }
-  __syncthreads();
+// Row-kernel blocks an SM that the launch bounds ask for: 3 (at most 170
+// registers a thread) where a lane's columns fit, bf16 to d = 768, else 2.
+constexpr int bwd_min_blocks(int elem_bytes, int e) { return elem_bytes == 2 && e <= 24 ? 3 : 2; }
+
+// Dynamic shared memory of the row kernel: the scale row, then the warps'
+// row stages (16-byte pieces only), which the block's dscale/dbias sums
+// [2][kBwdWarps][d] reuse at the end.
+template <typename T, int VEC>
+size_t bwd_smem(int d) {
+  const size_t ring = VEC * sizeof(T) == 16 ? sizeof(T) * kBwdWarps * kBwdStages * 3 * d : 0;
+  const size_t red = sizeof(float) * 2 * kBwdWarps * d;
+  return sizeof(float) * d + (ring > red ? ring : red);
 }
 
-// One warp per row.  Lane `lane` owns the columns c*32*VEC + lane*VEC + i
-// (c < E/VEC, i < VEC) of every row it visits, so it can keep its share of
-// dscale and dbias in registers across rows.  E >= ceil(d / 32): d <= 32*E.
+// VEC floats from shared memory, 16 bytes at a time where VEC allows.
+template <int VEC>
+__device__ __forceinline__ void load_f32(float (&dst)[VEC], const float* src) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(src)[q];
+      dst[4 * q] = t.x;
+      dst[4 * q + 1] = t.y;
+      dst[4 * q + 2] = t.z;
+      dst[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+  }
+}
+
+// One warp per row at a time.  Lane `lane` owns the columns c*32*VEC +
+// lane*VEC + i (c < E/VEC, i < VEC) of every row it visits, so it keeps its
+// share of dscale and dbias in registers across rows.  With 16-byte pieces
+// (VEC * sizeof(T) == 16) each lane copies its own pieces of the warp's
+// next kBwdStages rows (x, res, g) into the warp's stages of shared memory
+// by cp.async and reads back only what it copied, so no barrier is needed
+// and those rows' loads fly while the warp computes this one; registers
+// hold only this row's floats.  Other shapes read device memory directly.
+// E >= ceil(d / 32): d <= 32*E.
 template <typename T, int VEC, int E>
-__global__ void ln_residual_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                                       const float* __restrict__ scale,
-                                       const T* __restrict__ g, T* __restrict__ dx,
-                                       float* __restrict__ part, int64_t rows, int d,
-                                       float eps) {
-  extern __shared__ float red[];  // [warps][d]
+__global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
+    ln_residual_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                           const float* __restrict__ scale, const T* __restrict__ g,
+                           T* __restrict__ dx, float* __restrict__ part, int64_t rows, int d,
+                           float eps) {
   constexpr int C = E / VEC;
+  constexpr bool kStaged = VEC * sizeof(T) == 16;
   using V = ptt::Vec<T, VEC>;
+  // the scale row, then the warps' stages [kBwdWarps][kBwdStages][x, res, g][d]
+  extern __shared__ __align__(16) float smem[];
+  float* sc = smem;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+  T* stages = reinterpret_cast<T*>(smem + d) + static_cast<int64_t>(warp) * kBwdStages * 3 * d;
   const float inv_d = 1.f / static_cast<float>(d);
+  const auto col_of = [lane](int c) { return c * 32 * VEC + lane * VEC; };
 
+  for (int i = threadIdx.x; i < d; i += blockDim.x) sc[i] = scale[i];
+  __syncthreads();
   float ds[E], db[E];
 #pragma unroll
   for (int k = 0; k < E; ++k) ds[k] = db[k] = 0.f;
 
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * warps + warp; row < rows;
-       row += static_cast<int64_t>(gridDim.x) * warps) {
-    const int64_t base = row * d;
-    float v[E], gv[E];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBwdWarps;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * kBwdWarps + warp;
+  // copy this lane's pieces of row `r` into stage `st`; one group, maybe empty
+  const auto stage_row = [&](int64_t r, int st) {
+    T* b = stages + st * 3 * d;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = col_of(c);
+      if (r < rows && col < d) {
+        const int64_t at = r * d + col;
+        ptt::frag::cp_async_16(b + col, x + at, true);
+        if (res != nullptr) ptt::frag::cp_async_16(b + d + col, res + at, true);
+        ptt::frag::cp_async_16(b + 2 * d + col, g + at, true);
+      }
+    }
+    ptt::frag::cp_async_commit();
+  };
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int st = 0; st < kBwdStages; ++st) stage_row(row + st * stride, st);
+  }
+  for (int it = 0; row < rows; ++it, row += stride) {
+    const T *xs = x + row * d, *rs = res == nullptr ? nullptr : res + row * d, *gs = g + row * d;
+    if constexpr (kStaged) {
+      ptt::frag::cp_async_wait<kBwdStages - 1>();  // this lane's pieces of `row` landed
+      xs = stages + (it % kBwdStages) * 3 * d;
+      rs = xs + d;
+      gs = xs + 2 * d;
+    }
+    float v[E];
     float sum = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int col = c * 32 * VEC + lane * VEC;
+      const int col = col_of(c);
       if (col < d) {
-        const V xv = *reinterpret_cast<const V*>(x + base + col);
-        const V gw = *reinterpret_cast<const V*>(g + base + col);
+        const V xv = *reinterpret_cast<const V*>(xs + col);
         V rv;
-        if (res != nullptr) rv = *reinterpret_cast<const V*>(res + base + col);
+        if (res != nullptr) rv = *reinterpret_cast<const V*>(rs + col);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           float t = ptt::to_f32(xv.v[i]);
           if (res != nullptr) t += ptt::to_f32(rv.v[i]);
           v[c * VEC + i] = t;
-          gv[c * VEC + i] = ptt::to_f32(gw.v[i]);
           sum += t;
         }
       }
@@ -219,7 +279,7 @@ __global__ void ln_residual_bwd_kernel(const T* __restrict__ x, const T* __restr
     float sq = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      if (c * 32 * VEC + lane * VEC < d) {
+      if (col_of(c) < d) {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float t = v[c * VEC + i] - mean;
@@ -232,58 +292,125 @@ __global__ void ln_residual_bwd_kernel(const T* __restrict__ x, const T* __restr
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int col = c * 32 * VEC + lane * VEC;
+      const int col = col_of(c);
       if (col < d) {
+        const V gw = *reinterpret_cast<const V*>(gs + col);
+        float scv[VEC];
+        load_f32<VEC>(scv, sc + col);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const int k = c * VEC + i;
+          const float gk = ptt::to_f32(gw.v[i]);
           const float xhat = v[k] * inv;
-          const float gs = gv[k] * scale[col + i];
+          const float gsk = gk * scv[i];
           v[k] = xhat;
-          s1 += gs;
-          s2 += gs * xhat;
-          ds[k] += gv[k] * xhat;
-          db[k] += gv[k];
+          s1 += gsk;
+          s2 += gsk * xhat;
+          ds[k] += gk * xhat;
+          db[k] += gk;
         }
       }
     }
-    const float m1 = ptt::warp_sum(s1) * inv_d;
-    const float m2 = ptt::warp_sum(s2) * inv_d;
+    // the two sums share their shuffle rounds
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float m1 = s1 * inv_d, m2 = s2 * inv_d;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int col = c * 32 * VEC + lane * VEC;
+      const int col = col_of(c);
       if (col < d) {
+        const V gw = *reinterpret_cast<const V*>(gs + col);
+        float scv[VEC];
+        load_f32<VEC>(scv, sc + col);
         V ov;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const int k = c * VEC + i;
-          ov.v[i] = ptt::from_f32<T>(inv * (gv[k] * scale[col + i] - m1 - v[k] * m2));
-        }
-        *reinterpret_cast<V*>(dx + base + col) = ov;
+        for (int i = 0; i < VEC; ++i)
+          ov.v[i] = ptt::from_f32<T>(inv * (ptt::to_f32(gw.v[i]) * scv[i] - m1 - v[c * VEC + i] * m2));
+        *reinterpret_cast<V*>(dx + row * d + col) = ov;
+      }
+    }
+    if constexpr (kStaged) stage_row(row + kBwdStages * stride, it % kBwdStages);
+  }
+
+  // This block's dscale / dbias partials, part[0][block][:] and
+  // part[1][block][:]: the warps' register sums added in warp order,
+  // through the shared memory of the stages (no copy is left in flight)
+  ptt::frag::cp_async_wait<0>();
+  __syncthreads();
+  float* red = smem + d;  // [2][kBwdWarps][d]
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (col_of(c) < d) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        red[warp * d + col_of(c) + i] = ds[c * VEC + i];
+        red[(kBwdWarps + warp) * d + col_of(c) + i] = db[c * VEC + i];
       }
     }
   }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * d; j += blockDim.x) {
+    const int k = j / d, col = j % d;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) t += red[(k * kBwdWarps + w) * d + col];
+    part[(static_cast<int64_t>(k) * gridDim.x + blockIdx.x) * d + col] = t;
+  }
+}
 
-  // This block's dscale / dbias partials: part[0][block][:] and
-  // part[1][block][:], the warps' register sums added in warp order.
-  block_partial<VEC, E>(ds, red, part + static_cast<int64_t>(blockIdx.x) * d, d, lane, warp,
-                        warps);
-  block_partial<VEC, E>(db, red, part + (static_cast<int64_t>(gridDim.x) + blockIdx.x) * d, d,
-                        lane, warp, warps);
+// Second pass: out[k][c] = the sum over r < n of part[k][r][c], k =
+// blockIdx.z.  A block takes 32 columns; its thread row y adds partial rows
+// y, y + kColRows, ... in row order, kColUnroll loads at a time, and thread
+// row 0 adds the kColRows sums in order.  Which thread adds which value, and
+// in what order, is fixed by the shape alone: no float atomics, bitwise
+// repeatable.
+__global__ void __launch_bounds__(32 * kColRows)
+    ln_bwd_column_kernel(const float* __restrict__ part, float* __restrict__ out, int n, int d) {
+  __shared__ float sums[kColRows][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const float* p = part + static_cast<int64_t>(blockIdx.z) * n * d + col;
+  float t = 0.f;
+  if (col < d) {
+    int r = threadIdx.y;
+    for (; r + (kColUnroll - 1) * kColRows < n; r += kColUnroll * kColRows) {
+      float a[kColUnroll];
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u) a[u] = p[static_cast<int64_t>(r + u * kColRows) * d];
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u) t += a[u];
+    }
+    for (; r < n; r += kColRows) t += p[static_cast<int64_t>(r) * d];
+  }
+  sums[threadIdx.y][threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < d) {
+    float u = 0.f;
+#pragma unroll
+    for (int y = 0; y < kColRows; ++y) u += sums[y][threadIdx.x];
+    out[static_cast<int64_t>(blockIdx.z) * d + col] = u;
+  }
 }
 
 template <typename T, int VEC, int E>
 cudaError_t launch_bwd(const void* x, const void* res, const void* scale, const void* g,
                        void* dx, void* part, void* dsdb, int64_t rows, int d, float eps,
                        int n_blocks, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kBwdWarps * d;
+  const size_t smem = bwd_smem<T, VEC>(d);
+  cudaError_t err = cudaFuncSetAttribute(ln_residual_bwd_kernel<T, VEC, E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   ln_residual_bwd_kernel<T, VEC, E><<<n_blocks, 32 * kBwdWarps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const float*>(scale),
       static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(part), rows, d, eps);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return ptt::column_sum(static_cast<const float*>(part), static_cast<float*>(dsdb), 2,
-                         n_blocks, d, stream);
+  ln_bwd_column_kernel<<<dim3((d + 31) / 32, 1, 2), dim3(32, kColRows), 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(dsdb), n_blocks, d);
+  return cudaGetLastError();
 }
 
 template <typename T, int VEC>

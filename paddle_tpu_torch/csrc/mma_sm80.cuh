@@ -4,6 +4,8 @@
 //   - mma.sync m16n8k16 bf16 x bf16 -> float32,
 //   - the repack of float32 C fragments into the bf16 A fragment of the
 //     next product,
+//   - products over several 16-row tiles that share each B fragment,
+//   - exp2 on the special-function unit,
 //   - cp.async copies of 16 and 4 bytes with zero-fill, and their groups.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 with
@@ -136,6 +138,57 @@ __device__ __forceinline__ void gemm_nn(float (&acc)[N / 8][4], const uint32_t (
       mma_16816(acc[2 * n], a[k], b[0], b[1]);
       mma_16816(acc[2 * n + 1], a[k], b[2], b[3]);
     }
+}
+
+// acc[m] += A_m * B^T for MT 16-row tiles m (B as in gemm_nt): each B
+// fragment that ldmatrix brings feeds MT products.
+template <int MT, int K, int N>
+__device__ __forceinline__ void gemm_nt_rows(float (&acc)[MT][N / 8][4],
+                                             const uint32_t (&a)[MT][K / 16][4],
+                                             const __nv_bfloat16* B, int ld) {
+  const __nv_bfloat16* pb = nt_b_row(B, ld);
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k)
+#pragma unroll
+    for (int n = 0; n < N / 16; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4(b, pb + n * 16 * ld + 16 * k);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_16816(acc[m][2 * n], a[m][k], b[0], b[1]);
+        mma_16816(acc[m][2 * n + 1], a[m][k], b[2], b[3]);
+      }
+    }
+}
+
+// acc[m] += A_m * B for MT 16-row tiles m (B as in gemm_nn, transposed by
+// ldmatrix.trans): each B fragment feeds MT products.
+template <int MT, int K, int N>
+__device__ __forceinline__ void gemm_nn_rows(float (&acc)[MT][N / 8][4],
+                                             const uint32_t (&a)[MT][K / 16][4],
+                                             const __nv_bfloat16* B, int ld) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* p = B + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k)
+#pragma unroll
+    for (int n = 0; n < N / 16; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, p + k * 16 * ld + n * 16);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_16816(acc[m][2 * n], a[m][k], b[0], b[1]);
+        mma_16816(acc[m][2 * n + 1], a[m][k], b[2], b[3]);
+      }
+    }
+}
+
+// 2^x on the special-function unit (ex2.approx: about 2 ulp; results below
+// 2^-126 flush to 0, and 2^-inf is 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The float32 C fragments of a 16 x N result as the bf16 A fragments of a

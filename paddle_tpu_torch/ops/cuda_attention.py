@@ -81,6 +81,23 @@ def _dkv(p, ds, q, v, dout):
     return dk.to(q.dtype), dv.to(v.dtype)
 
 
+FWD_BF16_RULE = "2^-7 * (|plain| + sdpa_plain(q, k, |v|)), at most 5e-2"
+
+
+def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want):
+    """What a bfloat16 forward's output may differ from the plain output
+    `want` by, element by element (FWD_BF16_RULE): the worst case of the
+    roundings the two make differently.  Each rounds every probability to
+    bfloat16 before the PV product (a kernel the unnormalized exp(s - m),
+    the plain version the normalized p), 2^-8 of each term at most, so
+    2^-7 * sum_j p_j |v_j| for the two, which is sdpa_plain(q, k, |v|); each
+    rounds its output once, 2^-7 * |want| for the two.  At most the flat
+    5e-2 of the other bfloat16 forwards.  At seq 2048 a row spreads over
+    hundreds of keys and |out| is ~0.04, below what a flat 5e-2 can see."""
+    pv = sdpa_plain(q, k, v.abs(), bias, causal, scale).float()
+    return torch.clamp(2.0 ** -7 * (want.float().abs() + pv), max=5e-2)
+
+
 BWD_BF16_RULE = ("2^-7 * (|plain| + |dS| |K|) + E |K| for dq, 2^-7 * (|plain| + |dS|^T |Q|) "
                  "+ E^T |Q| for dk, 2^-7 * (|plain| + P^T |dO|) for dv, E = 2^-16 * P * scale * "
                  "(|dO| |V|^T + rowsum(|dO| |O|)); at most 5e-2 * max|plain|")

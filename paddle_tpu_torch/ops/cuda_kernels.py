@@ -101,16 +101,20 @@ def ln_residual_plain(x, res, scale, bias, eps=1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def _ln_xhat(x, res, eps):
+    """(rstd, xhat) of LN(x + res), statistics recomputed in float32."""
+    r = x.float() if res is None else x.float() + res.float()
+    c = r - r.mean(-1, keepdim=True)
+    inv = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    return inv, c * inv
+
+
 def ln_residual_bwd_plain(x, res, scale, g, eps=1e-5):
     """The arithmetic of paddle_tpu/ops/pallas_kernels.py _ln_bwd_kernel:
     statistics recomputed in float32 from x (+ res), then
     dx = inv * (g*s - mean(g*s) - xhat * mean(g*s*xhat)).  Returns
     (dx in x.dtype, dscale, dbias), the last two float32 [D]."""
-    r = x.float() if res is None else x.float() + res.float()
-    mean = r.mean(-1, keepdim=True)
-    c = r - mean
-    inv = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
-    xhat = c * inv
+    inv, xhat = _ln_xhat(x, res, eps)
     gf = g.float()
     gs = gf * scale.float()
     m1 = gs.mean(-1, keepdim=True)
@@ -118,6 +122,23 @@ def ln_residual_bwd_plain(x, res, scale, g, eps=1e-5):
     dx = inv * (gs - m1 - xhat * m2)
     d = x.shape[-1]
     return dx.to(x.dtype), (gf * xhat).reshape(-1, d).sum(0), gf.reshape(-1, d).sum(0)
+
+
+LN_BWD_RULE = "1e-5 * sum|g * xhat| (dscale), 1e-5 * sum|g| (dbias) of the column"
+
+
+def ln_residual_bwd_allowed(x, res, g, eps=1e-5):
+    """What a backward's (dscale, dbias) may differ from the plain versions'
+    by, column by column (LN_BWD_RULE): both are float32 sums of the rows'
+    terms g * xhat and g, taken in another order and from xhat whose last
+    bits differ, so 1e-5 of the sum of the magnitudes of their terms.  A
+    kernel that loses a block of 16 rows moves a column by about 4 terms,
+    orders of magnitude past it."""
+    _, xhat = _ln_xhat(x, res, eps)
+    d = x.shape[-1]
+    gf = g.float().reshape(-1, d)
+    return (1e-5 * (gf * xhat.reshape(-1, d)).abs().sum(0) + 1e-30,
+            1e-5 * gf.abs().sum(0) + 1e-30)
 
 
 def _ln_fwd(x, res, scale, bias, eps):
@@ -158,9 +179,13 @@ def ln_residual_bwd(x, res, scale, g, eps):
         raise ValueError(f"{name}: rows of {d} > {LN_BWD_MAX_D} are not supported by the kernel")
     rows = x.numel() // d
     dx = torch.empty_like(x)
-    dsdb = torch.zeros(2, d, dtype=torch.float32, device=x.device)
-    if rows:
-        n_blocks = _row_blocks(rows, 16, 2 * 132)
+    if not rows:
+        dsdb = torch.zeros(2, d, dtype=torch.float32, device=x.device)
+    else:
+        # the column pass writes every element; one wave of the H100's 132
+        # SMs at 3 blocks each
+        dsdb = torch.empty(2, d, dtype=torch.float32, device=x.device)
+        n_blocks = _row_blocks(rows, 8, 3 * 132)
         part = torch.empty(2, n_blocks, d, dtype=torch.float32, device=x.device)
         scale = scale.float().contiguous()
         _build.call("ptt_ln_residual_bwd", x.data_ptr(), _ptr(res), scale.data_ptr(),

@@ -206,6 +206,57 @@ def test_bf16_backward_rule_admits_other_roundings_and_sees_a_skipped_tile(causa
     assert min(share(grads(L - 64))) > 2.0
 
 
+def _online_forward(q, k, v, causal, scale, keys=None, rescale=True):
+    """The bfloat16 forward kernel's arithmetic in float64: tiles of 64 keys,
+    the running max m, alpha = exp(m_old - m_new) rescaling O and the sum l,
+    P = exp(s - m_new) rounded to bfloat16 before P V (l sums the unrounded
+    P), and O / l rounded once.  `keys` keeps keys [0, keys) only; with
+    `rescale` False alpha is left out."""
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    s = torch.matmul(q64, k64.transpose(-1, -2)) * scale
+    if causal:
+        lq, lk = s.shape[-2:]
+        keep = torch.ones(lq, lk, dtype=torch.bool).tril(lk - lq)
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    n = s.shape[-1] if keys is None else keys
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"), dtype=torch.float64)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=torch.float64)
+    for t0 in range(0, n, 64):
+        st = s[..., t0:min(t0 + 64, n)]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new) if rescale else torch.ones_like(m)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.matmul(p.to(torch.bfloat16).double(), v64[..., t0:t0 + st.shape[-1], :])
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_forward_rule_admits_other_roundings_and_sees_a_wrong_kernel(causal):
+    """sdpa_fwd_bf16_allowed, the rule the bfloat16 forward kernel is held to
+    on the card: the kernel's own arithmetic taken in float64 (unnormalized
+    P rounded to bfloat16 a tile at a time, the output rounded once) stays
+    within it; the same with the last 64 keys left out (a kernel that skips
+    its last tile) fails it by more than 2x, and so does, on keys scaled by
+    position (the row max moves late), the same without the alpha rescale."""
+    rng = np.random.RandomState(7)
+    L, dh, scale = 512, 32, 32 ** -0.5
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, L, dh)).to(torch.bfloat16) for _ in range(3))
+    late = (k.float() * torch.linspace(0.1, 4.0, L)[:, None]).to(torch.bfloat16)
+
+    def share(keys_in, got):
+        want = ca.sdpa_plain(q, keys_in, v, None, causal, scale)
+        allowed = ca.sdpa_fwd_bf16_allowed(q, keys_in, v, None, causal, scale, want)
+        return float(((got.float() - want.float()).abs() / allowed).max())
+
+    assert share(k, _online_forward(q, k, v, causal, scale)) <= 1.0
+    assert share(late, _online_forward(q, late, v, causal, scale)) <= 1.0
+    assert share(k, _online_forward(q, k, v, causal, scale, keys=L - 64)) > 2.0
+    assert share(late, _online_forward(q, late, v, causal, scale, rescale=False)) > 2.0
+
+
 def test_backward_kernel_wrappers_refuse_operands_off_one_device():
     """The dQ and dK/dV wrappers take their saved statistics and bias on q's
     device only (a CUDA q with a host lse would hand the kernel a host

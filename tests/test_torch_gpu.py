@@ -132,9 +132,16 @@ def test_training_kernels_match_plain_on_card(dtype):
     x, r, gy = rn(301, 768), rn(301, 768), rn(301, 768)
     s = rn(768, s=0.2, d=torch.float32) + 1.0
     got = ck.ln_residual_bwd(x, r, s, gy, 1e-5)
-    for a, b in zip(got, ck.ln_residual_bwd_plain(x, r, s, gy, 1e-5)):
-        assert _err(a, b) <= _grad_tol(dtype, b)
-    assert torch.equal(got[1], ck.ln_residual_bwd(x, r, s, gy, 1e-5)[1])
+    want = ck.ln_residual_bwd_plain(x, r, s, gy, 1e-5)
+    assert _err(got[0], want[0]) <= _grad_tol(dtype, want[0])
+    # dscale and dbias column by column (ck.LN_BWD_RULE), in float32 also
+    # within the flat gradient tolerance
+    for a, b, t in zip(got[1:], want[1:], ck.ln_residual_bwd_allowed(x, r, gy, 1e-5)):
+        if dtype == "float32":
+            t = torch.clamp(t, max=_grad_tol(dtype, b))
+        assert ((a - b).abs() <= t).all()
+    again = ck.ln_residual_bwd(x, r, s, gy, 1e-5)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
     x, gy, b = rn(301, 1000), rn(301, 1000), rn(1000, s=0.1, d=torch.float32)
     got = ck.bias_act_bwd(x, b, gy, "gelu")
     for a, w in zip(got, ck.bias_act_bwd_plain(x, b, gy, "gelu")):
@@ -327,10 +334,10 @@ def test_tiny_bert_with_fused_attention_trains_on_card_like_cpu():
                             adam=2 * len(main.all_parameters()))
 
 
-# the backward kernels at their edges: lengths that are not multiples of the
-# 64-row tiles and 32-column passes, causal with Lq > Lk (rows with no visible
-# key) and Lq < Lk with a per-head bias, dh 16 and 128
-BWD_EDGE_CASES = [
+# the attention kernels at their edges: lengths that are not multiples of
+# the 64-row tiles and 32-column passes, causal with Lq > Lk (rows with no
+# visible key) and Lq < Lk with a per-head bias, dh 16 and 128
+EDGE_CASES = [
     (2, 3, 129, 129, 64, None, False),
     (2, 3, 200, 72, 64, None, True),
     (2, 3, 72, 200, 64, "per_head", True),
@@ -343,7 +350,7 @@ BWD_EDGE_CASES = [
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", BWD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_attention_backward_kernels_at_their_edges_on_card(case, dtype):
     """dq against sdpa_bwd_dq_plain and dk, dv against sdpa_bwd_dkv_plain, on
     the kernels' own forward output: float32 within 1e-4 * (1 + max|ref|),
@@ -377,3 +384,35 @@ def test_attention_backward_kernels_at_their_edges_on_card(case, dtype):
     for name, got, w, a in zip(("dq", "dk", "dv"), (dq, dk, dv), want, allowed):
         assert got.dtype == dt and got.shape == w.shape
         assert ((got.float() - w.float()).abs() <= a).all(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_forward_kernel_at_its_edges_on_card(case, dtype):
+    """out against sdpa_plain: float32 within 1e-4, bfloat16 element by
+    element (cuda_attention.FWD_BF16_RULE); lse against the float32
+    logsumexp of the plain scores within 1e-5 * (1 + |ref|) (a row with no
+    visible key: -1e30); one launch a call."""
+    _need_card()
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(B, H, n, dh, generator=g, device="cuda").to(dt) for n in (Lq, Lk, Lk))
+    bias = None
+    if bias_kind == "per_head":
+        bias = torch.randn(B, H, Lq, Lk, generator=g, device="cuda") * 2.0
+    scale = dh ** -0.5
+    before = dict(ck.LAUNCHES)
+    out, lse = ca.attention_fwd(q, k, v, bias, causal, scale)
+    assert {n: ck.LAUNCHES[n] - before[n] for n in before} == dict(NO_LAUNCHES, attention_fwd=1)
+    want = ca.sdpa_plain(q, k, v, bias, causal, scale)
+    assert out.dtype == dt and out.shape == want.shape
+    if dtype == "float32":
+        assert _err(out, want) <= 1e-4
+    else:
+        allowed = ca.sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want)
+        assert ((out.float() - want.float()).abs() <= allowed).all()
+    ref = torch.logsumexp(ca._scores_plain(q, k, bias, causal, scale)[0], dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == ref.shape
+    assert ((lse - ref).abs() <= 1e-5 * (1.0 + ref.abs())).all()

@@ -1,5 +1,5 @@
-"""The port stands alone: paddle_tpu_torch (and chip_smoke.py) import
-neither jax nor anything of paddle_tpu."""
+"""The port stands alone: paddle_tpu_torch (and chip_smoke.py and the
+port's tools) import neither jax nor anything of paddle_tpu."""
 import ast
 import glob
 import os
@@ -12,7 +12,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, "paddle_tpu_torch", "**", "*.py"), recursive=True)
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py"] + sorted(
+    os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "tools", "port_*.py")))
 
 
 def _forbidden(module: str) -> bool:

@@ -54,6 +54,33 @@ def test_ln_residual_matches_pallas(dtype, residual, launches_unchanged):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_ln_backward_column_rule_admits_another_order_and_sees_lost_rows(dtype):
+    """ln_residual_bwd_allowed, the rule the LayerNorm backward kernel's
+    dscale and dbias are held to on the card: the column sums taken in
+    float64 and in another row order stay within it; the same sums with 16
+    rows left out (a lost block of the kernel's first pass) fail it by more
+    than 2x."""
+    rng = np.random.RandomState(8)
+    rows, d = 1024, 256
+    x, res, g = (torch.from_numpy(rng.randn(rows, d)).to(getattr(torch, dtype)) for _ in range(3))
+    scale = torch.from_numpy(rng.rand(d) + 0.5).float()
+    _, dscale, dbias = ck.ln_residual_bwd_plain(x, res, scale, g, 1e-5)
+    allowed = ck.ln_residual_bwd_allowed(x, res, g, 1e-5)
+    r = x.double() + res.double()
+    c = r - r.mean(-1, keepdim=True)
+    xhat = c / torch.sqrt((c * c).mean(-1, keepdim=True) + 1e-5)
+    terms = (g.double() * xhat, g.double())
+    order = torch.from_numpy(rng.permutation(rows))
+
+    def share(keep):
+        return max(float(((t[keep].sum(0) - w.double()).abs() / a.double()).max())
+                   for t, w, a in zip(terms, (dscale, dbias), allowed))
+
+    assert share(order) <= 1.0
+    assert share(order[16:]) > 2.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("act", ["gelu", "relu"])
 def test_bias_act_matches_pallas(dtype, act, launches_unchanged):
     spec = jpk.FUSED_KERNELS["bias_act"]
