@@ -11,9 +11,11 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
   3. kernels: hold every kernel against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes BERT-base serving and training give
      them (backward reductions also run twice and must agree bit for bit; the
-     bfloat16 attention forward and gradients and the LayerNorm backward's
-     column sums element by element; the LayerNorm backward's device time
-     split by launch), and
+     bfloat16 attention forward and gradients, the LayerNorm backward's
+     column sums and the bias+GELU backward's dx and dbias element by
+     element; the LayerNorm forward and the bias+GELU backward into
+     NaN-poisoned memory and also at the seq-2048 rows [16384, .]; the two
+     row backwards' device time split by launch), and
      time kernel, plain version and one PyTorch library call (CUDA events,
      median); the attention forward, dQ and dK/dV kernels also at seq 2048,
      long causal, causal with Lq < Lk and Lq > Lk, dh 128 and rows whose max
@@ -69,6 +71,7 @@ of the repository, it exits non-zero and prints no result.
 """
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -106,6 +109,9 @@ KERNEL_INFO = {
     "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
 }
 NONE = dict.fromkeys(KERNEL_INFO, 0)
+# a kernel of paddle_tpu_torch/csrc by its function name, in a profiler trace
+PORT_KERNEL = re.compile(
+    r"::(ln_residual|bias_act|softmax_xent|adam|attention|epilogue|column_sum)\w*_kernel\b")
 # launches per request of BERT-base (12 layers) served with fused attention:
 # every LN, every GELU and every attention is a kernel; no backward kernel runs
 PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12, attention_fwd=12)
@@ -272,6 +278,46 @@ def bound(bytes_moved, ops, flops_rate):
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def poison(torch, *outputs):
+    """Fill the memory the next outputs of these (shape, dtype)s will take
+    with NaN: empty the caching allocator, allocate NaN tensors of those
+    sizes and free them, so the kernel's `torch.empty` gets them back.  An
+    element the kernel fails to write then reads NaN, not a right value
+    left there by an earlier call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for shape, dtype in outputs:
+        torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
+def hold_ln_fwd(torch, ck, x, res, scale, bias, case):
+    """One call of ck.fused_ln_residual into NaN-poisoned memory against
+    ln_residual_plain at FUSED_KERNELS' tolerance; returns the error."""
+    poison(torch, (x.shape, x.dtype))
+    got = ck.fused_ln_residual(x, res, scale, bias, 1e-5)
+    return check("ln_residual_fwd", "out", x.dtype, case, got,
+                 ck.ln_residual_plain(x, res, scale, bias, 1e-5),
+                 TOL[dname(x.dtype)]["ln_residual_fwd"])
+
+
+def hold_bias_act_bwd(torch, ck, x, b, g, act, case):
+    """One call of ck.bias_act_bwd into NaN-poisoned memory against
+    bias_act_bwd_plain, element by element (dx) and column by column
+    (dbias) by ck.bias_act_bwd_allowed, in float32 also within grad_tol;
+    dbias bit for bit on a second call.  Returns the largest error."""
+    dn = dname(x.dtype)
+    poison(torch, (x.shape, x.dtype), ((x.shape[1],), torch.float32))
+    got = ck.bias_act_bwd(x, b, g, act)
+    want = ck.bias_act_bwd_plain(x, b, g, act)
+    errs = []
+    for w, a, c, t in zip(("dx", "dbias"), got, want, ck.bias_act_bwd_allowed(x, b, g, act, want)):
+        if dn == "float32":
+            t = torch.clamp(t, max=grad_tol(dn, c))
+        errs.append(check_within("bias_act_bwd", w, x.dtype, case, a, c, t, ck.BIAS_ACT_BWD_RULE))
+    repeatable("bias_act_bwd", f"dbias {case} {dn}", got[1], ck.bias_act_bwd(x, b, g, act)[1])
+    return max(errs)
+
+
 def check_kernels(torch, ck):
     """Phase 3: every kernel against its plain version; returns the timing record."""
     import torch.nn.functional as F
@@ -288,24 +334,27 @@ def check_kernels(torch, ck):
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
         # LayerNorm + residual: BERT-base rows (B=32 x 128) of 768, a ragged R, no residual
-        for rows, with_res in ((4096, True), (4096, False), (4095, True)):
+        # and the seq-2048 training rows (8 x 2048), into NaN-poisoned memory
+        for rows, with_res in ((4096, True), (4096, False), (4095, True), (16384, True)):
             x = randn(rows, 768, dtype=dtype)
             res = randn(rows, 768, dtype=dtype) if with_res else None
             scale = randn(768, s=0.2) + 1.0
             bias = randn(768, s=0.1)
-            err = compare("ln_residual_fwd", dtype, f"[{rows},768] residual={with_res}",
-                          ck.fused_ln_residual(x, res, scale, bias, 1e-5),
-                          ck.ln_residual_plain(x, res, scale, bias, 1e-5))
-            if dtype == torch.bfloat16 and rows == 4096 and with_res:
+            err = hold_ln_fwd(torch, ck, x, res, scale, bias, f"[{rows},768] residual={with_res}")
+            if dtype == torch.bfloat16 and rows in (4096, 16384) and with_res:
                 w_x, b_x = scale.to(dtype), bias.to(dtype)
                 b_ms, b_by = bound(nbytes(x, res, x, scale, bias), 10.0 * x.numel(), F32_FLOPS)
-                record["ln_residual_fwd"] = dict(
+                rec = dict(
                     max_abs_err=err,
                     ms=time_ms(lambda: ck.fused_ln_residual(x, res, scale, bias, 1e-5)),
                     plain_ms=time_ms(lambda: ck.ln_residual_plain(x, res, scale, bias, 1e-5)),
                     library_ms=time_ms(lambda: F.layer_norm(x + res, (768,), w_x, b_x, 1e-5)),
                     library="F.layer_norm(x+res)",
-                    bound_ms=b_ms, bound_by=b_by, shape="[4096,768] bf16 + residual")
+                    bound_ms=b_ms, bound_by=b_by, shape=f"[{rows},768] bf16 + residual")
+                if rows == 4096:
+                    record["ln_residual_fwd"] = rec
+                else:
+                    record["ln_residual_fwd"]["at_16384"] = rec
         # bias + activation: the BERT-base FFN rows of 3072
         for act in ("gelu", "relu"):
             x = randn(4096, 3072, dtype=dtype)
@@ -560,20 +609,17 @@ def check_train_kernels(torch, ck):
                         g, z, [768], mean, rstd, w_x, b_x, [True, True, True])),
                     library="aten.native_layer_norm_backward of F.layer_norm(x+res)",
                     bound_ms=b_ms, bound_by=b_by, shape="[4096,768] bf16 + residual")
-        # bias + activation backward: the FFN rows of 3072, ragged R, gelu and relu
-        for rows in (4096, 4095):
+        # bias + activation backward: the FFN rows of 3072, ragged R and the
+        # seq-2048 training rows (8 x 2048), gelu and relu, into NaN-poisoned
+        # memory, held element by element and column by column
+        for rows in (4096, 4095, 16384):
             x = randn(rows, 3072, dtype=dtype)
             b = randn(3072, s=0.1)
             g = randn(rows, 3072, dtype=dtype)
             for act in ("gelu", "relu"):
                 case = f"[{rows},3072] {act}"
-                got = ck.bias_act_bwd(x, b, g, act)
-                want = ck.bias_act_bwd_plain(x, b, g, act)
-                errs = [check("bias_act_bwd", w, dtype, case, a, c, grad_tol(dn, c))
-                        for w, a, c in zip(("dx", "dbias"), got, want)]
-                repeatable("bias_act_bwd", f"dbias {case} {dn}", got[1],
-                           ck.bias_act_bwd(x, b, g, act)[1])
-                if dtype == torch.bfloat16 and rows == 4096 and act == "gelu":
+                err = hold_bias_act_bwd(torch, ck, x, b, g, act, case)
+                if dtype == torch.bfloat16 and rows in (4096, 16384) and act == "gelu":
                     z = x + b.to(dtype)
                     b_ms, b_by = bound(nbytes(x, b, g, x) + 3072 * 4, 30.0 * x.numel(),
                                        F32_FLOPS)
@@ -581,14 +627,23 @@ def check_train_kernels(torch, ck):
                     def library():
                         torch.ops.aten.gelu_backward(g, z).sum(0)
 
-                    record["bias_act_bwd"] = dict(
-                        max_abs_err=max(errs),
+                    rec = dict(
+                        max_abs_err=err,
                         ms=time_ms(lambda: ck.bias_act_bwd(x, b, g, "gelu")),
                         plain_ms=time_ms(lambda: ck.bias_act_bwd_plain(x, b, g, "gelu")),
                         library_ms=time_ms(library),
                         library="aten.gelu_backward(g, x+b) then .sum(0): two calls, x+b "
                                 "precomputed",
-                        bound_ms=b_ms, bound_by=b_by, shape="[4096,3072] bf16 gelu")
+                        bound_ms=b_ms, bound_by=b_by, shape=f"[{rows},3072] bf16 gelu")
+                    if rows == 4096:
+                        split = launch_split(torch, lambda: ck.bias_act_bwd(x, b, g, "gelu"))
+                        emit({"launch_split": "bias_act_bwd", "case": case, "us_per_call": split})
+                        record["bias_act_bwd"] = dict(rec, launch_split_us=split)
+                    else:
+                        record["bias_act_bwd"]["at_16384"] = rec
+                    del z
+            del x, g
+            torch.cuda.empty_cache()
         # softmax cross-entropy: the LM head's [4096, 30522] logits, labels at the
         # MLM share (85% ignored), one row labelled 0 and one labelled V-1
         V = 30522
@@ -841,7 +896,8 @@ def serve(fluid, torch, ck, tmp, card):
 
 def profile_run(torch, what, run, card):
     """One more warm run of `run()` under torch.profiler: device time by kernel
-    and the device's idle share of the run (profiler overhead included)."""
+    (the ten largest, and every kernel of the port's own) and the device's
+    idle share of the run (profiler overhead included)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -856,12 +912,17 @@ def profile_run(torch, what, run, card):
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     top_host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:10]
+    # the port's own kernels (csrc/), whatever their rank
+    ours = sorted((e for e in kernels if PORT_KERNEL.search(e.key)),
+                  key=lambda e: -e.self_device_time_total)
     emit({"profile": what, "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e3 / run_ms, "card": card,
           "kernel_launches": sum(e.count for e in kernels),
           "host_aten_calls": sum(e.count for e in host_ops),
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": e.self_device_time_total / 1e3} for e in top],
+          "port_kernels": [{"name": e.key[:80], "calls": e.count,
+                            "device_ms": e.self_device_time_total / 1e3} for e in ours],
           "top_host_ops": [{"name": e.key, "calls": e.count,
                             "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in top_host]})
 
@@ -1373,7 +1434,8 @@ def main():
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                         "library": rec["library"], "shape": rec["shape"], "card": card,
-                        **({"at_seq_2048": rec["at_seq_2048"]} if "at_seq_2048" in rec else {})})
+                        **{k: v for k, v in rec.items()
+                           if k.startswith("at_") or k == "launch_split_us"}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,12 +12,19 @@
 //
 // Design: one row is held in registers by one warp (D <= 1024 in bf16) or
 // by 2..32 warps of one block (wider rows), loaded with 16-byte vector
-// loads when D and the pointers allow it.  The row is read from HBM once;
-// the mean, then the variance of the centred values (the TPU kernel's
-// two-pass formula, not E[x^2] - mean^2) and the affine output are
-// computed from the registers.  Rows are independent, so any R works and
-// the ragged end of D is masked; the TPU kernel's divisor rule for its row
-// slabs (_pick_slab) was a VMEM constraint and has no counterpart here.
+// loads when D and the pointers allow it; a block holds 4 warps.  The row
+// is read from HBM once; the mean, then the variance of the centred values
+// (the TPU kernel's two-pass formula, not E[x^2] - mean^2) and the affine
+// output are computed from the registers in float32.  Scale and bias are
+// read 16 bytes at a time beside the row's chunk: read as scalars, each
+// warp-wide load touched 8 cache lines, 4.8 of the kernel's 10.4 us at
+// [4096, 768] bf16 (NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+// tools/port_rowwise_ab.py).  A persistent grid that staged a warp's next
+// rows by cp.async was tried and gained too little over this to keep.
+// Rows are independent, so any R works and the ragged end of D is masked;
+// D % VEC != 0 or pointers off the 16-byte grid take the scalar route.  The
+// TPU kernel's divisor rule for its row slabs (_pick_slab) was a VMEM
+// constraint and has no counterpart here.
 //
 // Backward: dx (which is also dres), dscale and dbias from x, res, scale and
 // the output gradient g.  Replaces _ln_bwd / _ln_bwd_kernel (the
@@ -44,7 +51,6 @@
 // No float atomics: the gradients are bitwise repeatable.  The register
 // tile limits D to 1024.
 #include "common.cuh"
-#include "mma_sm80.cuh"
 
 namespace {
 
@@ -63,6 +69,27 @@ __device__ __forceinline__ float row_sum(float v, float* red, int wpr, int warp,
   return t;
 }
 
+// VEC floats, 16 bytes at a time where VEC allows (src then 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_f32(float (&dst)[VEC], const float* src) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(src)[q];
+      dst[4 * q] = t.x;
+      dst[4 * q + 1] = t.y;
+      dst[4 * q + 2] = t.z;
+      dst[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+  }
+}
+
+// One row is held in registers by one warp (d <= 1024 in bf16) or by
+// wpr = 2..32 warps of one block, which add their sums through shared
+// memory; blockDim.y rows a block.
 template <typename T, int VEC>
 __global__ void ln_residual_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                                        const float* __restrict__ scale,
@@ -118,10 +145,12 @@ __global__ void ln_residual_fwd_kernel(const T* __restrict__ x, const T* __restr
   for (int c = 0; c < kMaxChunks; ++c) {
     const int col = c * stride + threadIdx.x * VEC;
     if (active && col < d) {
+      float sc[VEC], bi[VEC];
+      load_f32<VEC>(sc, scale + col);
+      load_f32<VEC>(bi, bias + col);
       V ov;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        ov.v[i] = ptt::from_f32<T>(v[c][i] * inv * scale[col + i] + bias[col + i]);
+      for (int i = 0; i < VEC; ++i) ov.v[i] = ptt::from_f32<T>(v[c][i] * inv * sc[i] + bi[i]);
       *reinterpret_cast<V*>(out + base + col) = ov;
     }
   }
@@ -149,7 +178,8 @@ cudaError_t dispatch(const void* x, const void* res, const void* scale, const vo
                      void* out, int64_t rows, int d, float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool vec = d % kVec == 0 && ptt::aligned16(x) && ptt::aligned16(out) &&
-                   (res == nullptr || ptt::aligned16(res));
+                   (res == nullptr || ptt::aligned16(res)) && ptt::aligned16(scale) &&
+                   ptt::aligned16(bias);
   if (vec) return launch<T, kVec>(x, res, scale, bias, out, rows, d, eps, stream);
   return launch<T, 1>(x, res, scale, bias, out, rows, d, eps, stream);
 }
@@ -160,8 +190,6 @@ cudaError_t dispatch(const void* x, const void* res, const void* scale, const vo
 
 constexpr int kBwdWarps = 4;   // warps of a row-kernel block, one row each at a time
 constexpr int kBwdStages = 2;  // rows a warp has in flight ahead of the one it computes
-constexpr int kColRows = 8;    // thread rows of a column-pass block
-constexpr int kColUnroll = 8;  // partial rows a column-pass thread has in flight
 
 // Row-kernel blocks an SM that the launch bounds ask for: 3 (at most 170
 // registers a thread) where a lane's columns fit, bf16 to d = 768, else 2.
@@ -175,24 +203,6 @@ size_t bwd_smem(int d) {
   const size_t ring = VEC * sizeof(T) == 16 ? sizeof(T) * kBwdWarps * kBwdStages * 3 * d : 0;
   const size_t red = sizeof(float) * 2 * kBwdWarps * d;
   return sizeof(float) * d + (ring > red ? ring : red);
-}
-
-// VEC floats from shared memory, 16 bytes at a time where VEC allows.
-template <int VEC>
-__device__ __forceinline__ void load_f32(float (&dst)[VEC], const float* src) {
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(src)[q];
-      dst[4 * q] = t.x;
-      dst[4 * q + 1] = t.y;
-      dst[4 * q + 2] = t.z;
-      dst[4 * q + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
-  }
 }
 
 // One warp per row at a time.  Lane `lane` owns the columns c*32*VEC +
@@ -238,12 +248,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
       const int col = col_of(c);
       if (r < rows && col < d) {
         const int64_t at = r * d + col;
-        ptt::frag::cp_async_16(b + col, x + at, true);
-        if (res != nullptr) ptt::frag::cp_async_16(b + d + col, res + at, true);
-        ptt::frag::cp_async_16(b + 2 * d + col, g + at, true);
+        ptt::cp_async_16(b + col, x + at, true);
+        if (res != nullptr) ptt::cp_async_16(b + d + col, res + at, true);
+        ptt::cp_async_16(b + 2 * d + col, g + at, true);
       }
     }
-    ptt::frag::cp_async_commit();
+    ptt::cp_async_commit();
   };
   if constexpr (kStaged) {
 #pragma unroll
@@ -252,7 +262,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
   for (int it = 0; row < rows; ++it, row += stride) {
     const T *xs = x + row * d, *rs = res == nullptr ? nullptr : res + row * d, *gs = g + row * d;
     if constexpr (kStaged) {
-      ptt::frag::cp_async_wait<kBwdStages - 1>();  // this lane's pieces of `row` landed
+      ptt::cp_async_wait<kBwdStages - 1>();  // this lane's pieces of `row` landed
       xs = stages + (it % kBwdStages) * 3 * d;
       rs = xs + d;
       gs = xs + 2 * d;
@@ -338,7 +348,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
   // This block's dscale / dbias partials, part[0][block][:] and
   // part[1][block][:]: the warps' register sums added in warp order,
   // through the shared memory of the stages (no copy is left in flight)
-  ptt::frag::cp_async_wait<0>();
+  ptt::cp_async_wait<0>();
   __syncthreads();
   float* red = smem + d;  // [2][kBwdWarps][d]
 #pragma unroll
@@ -361,39 +371,6 @@ __global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
   }
 }
 
-// Second pass: out[k][c] = the sum over r < n of part[k][r][c], k =
-// blockIdx.z.  A block takes 32 columns; its thread row y adds partial rows
-// y, y + kColRows, ... in row order, kColUnroll loads at a time, and thread
-// row 0 adds the kColRows sums in order.  Which thread adds which value, and
-// in what order, is fixed by the shape alone: no float atomics, bitwise
-// repeatable.
-__global__ void __launch_bounds__(32 * kColRows)
-    ln_bwd_column_kernel(const float* __restrict__ part, float* __restrict__ out, int n, int d) {
-  __shared__ float sums[kColRows][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  const float* p = part + static_cast<int64_t>(blockIdx.z) * n * d + col;
-  float t = 0.f;
-  if (col < d) {
-    int r = threadIdx.y;
-    for (; r + (kColUnroll - 1) * kColRows < n; r += kColUnroll * kColRows) {
-      float a[kColUnroll];
-#pragma unroll
-      for (int u = 0; u < kColUnroll; ++u) a[u] = p[static_cast<int64_t>(r + u * kColRows) * d];
-#pragma unroll
-      for (int u = 0; u < kColUnroll; ++u) t += a[u];
-    }
-    for (; r < n; r += kColRows) t += p[static_cast<int64_t>(r) * d];
-  }
-  sums[threadIdx.y][threadIdx.x] = t;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < d) {
-    float u = 0.f;
-#pragma unroll
-    for (int y = 0; y < kColRows; ++y) u += sums[y][threadIdx.x];
-    out[static_cast<int64_t>(blockIdx.z) * d + col] = u;
-  }
-}
-
 template <typename T, int VEC, int E>
 cudaError_t launch_bwd(const void* x, const void* res, const void* scale, const void* g,
                        void* dx, void* part, void* dsdb, int64_t rows, int d, float eps,
@@ -408,9 +385,8 @@ cudaError_t launch_bwd(const void* x, const void* res, const void* scale, const 
       static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(part), rows, d, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_column_kernel<<<dim3((d + 31) / 32, 1, 2), dim3(32, kColRows), 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(dsdb), n_blocks, d);
-  return cudaGetLastError();
+  return ptt::column_sum(static_cast<const float*>(part), static_cast<float*>(dsdb), 2, n_blocks,
+                         d, stream);
 }
 
 template <typename T, int VEC>

@@ -5,8 +5,8 @@
 //   - the repack of float32 C fragments into the bf16 A fragment of the
 //     next product,
 //   - products over several 16-row tiles that share each B fragment,
-//   - exp2 on the special-function unit,
-//   - cp.async copies of 16 and 4 bytes with zero-fill, and their groups.
+// and, from common.cuh, exp2 on the special-function unit and the cp.async
+// copies.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 with
 // floating point type"), with g = lane / 4 and c = 2 * (lane % 4), each
@@ -24,12 +24,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace ptt {
 namespace frag {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using ptt::cp_async_16;
+using ptt::cp_async_4;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
+using ptt::exp2_approx;
+using ptt::smem_addr;
 
 // r[i]: this lane's fragment of the 8 x 8 bf16 matrix i whose rows lanes
 // 8i .. 8i+7 address (16 bytes each, 16-byte aligned).
@@ -183,14 +188,6 @@ __device__ __forceinline__ void gemm_nn_rows(float (&acc)[MT][N / 8][4],
     }
 }
 
-// 2^x on the special-function unit (ex2.approx: about 2 ulp; results below
-// 2^-126 flush to 0, and 2^-inf is 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The float32 C fragments of a 16 x N result as the bf16 A fragments of a
 // 16 x N operand: C tiles 2k and 2k+1 are A tile k, element for element.
 template <int N>
@@ -202,28 +199,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&c)[
     a[k][2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
     a[k][3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
   }
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with `valid` false nothing is read and the 16 bytes are zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-// The same for 4 bytes (a float of a row that need not be 16-byte aligned).
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-// Close the group of the copies this thread issued since the last commit.
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most N of this thread's groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace frag

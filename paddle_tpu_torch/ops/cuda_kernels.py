@@ -250,6 +250,40 @@ def bias_act_bwd_plain(x, b, g, act="gelu"):
     return dz.to(x.dtype), dz.sum(0)
 
 
+BIAS_ACT_BWD_RULE = ("dx: one rounding of x's dtype of |plain| + 2^-20 * |g| * the magnitudes "
+                     "of act'(z)'s terms; dbias: 1e-5 * sum|dz| + 2^-20 * sum(|g| * terms) of "
+                     "the column")
+
+
+def bias_act_bwd_allowed(x, b, g, act, want):
+    """What a backward's (dx, dbias) may differ from bias_act_bwd_plain's
+    (`want`) by, element by element and column by column
+    (BIAS_ACT_BWD_RULE).  dx: the float32 dz = g * act'(z) of both sides
+    differ by the float32 noise of act'(z) (erf, exp and the sum of gelu's
+    terms 0.5, 0.5*erf and z*phi each carry a few roundings; relu's step
+    none), under 2^-20 of the terms' magnitudes times |g|; rounding to x's
+    dtype then adds at most one unit in the last place, 2^-7 of |dx| in
+    bfloat16 (2^-23 in float32).  dbias: float32 column sums of dz taken in
+    another order, 1e-5 of the sum of their magnitudes, plus the sum of dz's
+    own noise (where Phi(z) and z*phi(z) cancel, as near z = -0.75, a small
+    dz carries the noise of its larger terms; with few rows that noise is
+    the column's).  A kernel that loses a band of 16 rows moves a column by
+    about 4 terms, orders of magnitude past it; gelu' swapped for relu'
+    moves dx by about phi(z)*|g|."""
+    z = x.float() + b.float()
+    gf = g.float()
+    if act == "relu":
+        terms = (z > 0.0).float()
+    else:
+        phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
+        terms = 0.5 * (1.0 + torch.erf(z * 2.0 ** -0.5).abs()) + (z * phi).abs()
+    ulp = 2.0 ** -23 if x.dtype == torch.float32 else 2.0 ** -7
+    noise = 2.0 ** -20 * gf.abs() * terms
+    dz = gf * _act_grad(z, act)
+    return (ulp * want[0].float().abs() + noise + 1e-30,
+            1e-5 * dz.abs().sum(0) + noise.sum(0) + 1e-30)
+
+
 def _bias_act_fwd(x, bias, act):
     if not on_card("fused_bias_act", x, bias):
         return bias_act_plain(x, bias, act)
@@ -277,9 +311,15 @@ def bias_act_bwd(x, bias, g, act):
         raise ValueError(f"{name}: x and g must be [R, D] and bias [D]")
     rows, d = x.shape
     dx = torch.empty_like(x)
-    db = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if rows:
-        n_blocks = _row_blocks(rows, 16, max(1, 4 * 132 // -(-d // 1024)))
+    if not rows:
+        db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    else:
+        # the column pass writes every element of db.  part holds a row for
+        # each band the kernel may take: bands of at least 16 rows, at most
+        # 1024; the kernel takes as many of them as one wave of its blocks
+        # fills
+        db = torch.empty(d, dtype=torch.float32, device=x.device)
+        n_blocks = _row_blocks(rows, 16, 1024)
         part = torch.empty(n_blocks, d, dtype=torch.float32, device=x.device)
         bias = bias.float().contiguous()
         _build.call("ptt_bias_act_bwd", x.data_ptr(), bias.data_ptr(), g.data_ptr(),

@@ -142,10 +142,15 @@ def test_training_kernels_match_plain_on_card(dtype):
         assert ((a - b).abs() <= t).all()
     again = ck.ln_residual_bwd(x, r, s, gy, 1e-5)
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    # dx element by element and dbias column by column (ck.BIAS_ACT_BWD_RULE),
+    # in float32 also within the flat gradient tolerance
     x, gy, b = rn(301, 1000), rn(301, 1000), rn(1000, s=0.1, d=torch.float32)
     got = ck.bias_act_bwd(x, b, gy, "gelu")
-    for a, w in zip(got, ck.bias_act_bwd_plain(x, b, gy, "gelu")):
-        assert _err(a, w) <= _grad_tol(dtype, w)
+    want = ck.bias_act_bwd_plain(x, b, gy, "gelu")
+    for a, w, t in zip(got, want, ck.bias_act_bwd_allowed(x, b, gy, "gelu", want)):
+        if dtype == "float32":
+            t = torch.clamp(t, max=_grad_tol(dtype, w))
+        assert ((a.float() - w.float()).abs() <= t).all()
     assert torch.equal(got[1], ck.bias_act_bwd(x, b, gy, "gelu")[1])
     logits = rn(64, 1001, s=2.0)
     labels = torch.randint(0, 1001, (64,), generator=g, device="cuda").to(torch.int32)
@@ -181,6 +186,85 @@ def test_training_kernels_match_plain_on_card(dtype):
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
         NO_LAUNCHES, ln_residual_bwd=2, bias_act_bwd=2, softmax_xent_fwd=2, softmax_xent_bwd=2,
         adam=1)
+
+
+ROW_COUNTS = [1, 3, 301, 4095, 16384]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [768, 1000, 1024, 3072])
+@pytest.mark.parametrize("rows", ROW_COUNTS)
+def test_bias_act_backward_kernel_at_its_edges_on_card(rows, d, dtype):
+    """dx and dbias against bias_act_bwd_plain by ck.BIAS_ACT_BWD_RULE (in
+    float32 also within the flat gradient tolerance), gelu and relu, into
+    NaN-poisoned memory, with x as it is and as a view one element off the
+    16-byte grid (the scalar route; so is d = 1000); dbias bit for bit on a
+    rerun; one launch a call."""
+    _need_card()
+    import chip_smoke  # the repository root's: NaN into the outputs' memory
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, g = (torch.randn(rows, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    off = torch.randn(rows * d + 1, generator=gen, device="cuda").to(dt)[1:].view(rows, d)
+    b = torch.randn(d, generator=gen, device="cuda") * 0.1
+    for act in ("gelu", "relu"):
+        for xs in (x, off):
+            chip_smoke.poison(torch, (xs.shape, dt), ((d,), torch.float32))
+            before = dict(ck.LAUNCHES)
+            got = ck.bias_act_bwd(xs, b, g, act)
+            assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
+                NO_LAUNCHES, bias_act_bwd=1)
+            want = ck.bias_act_bwd_plain(xs, b, g, act)
+            for a, w, t in zip(got, want, ck.bias_act_bwd_allowed(xs, b, g, act, want)):
+                if dtype == "float32":
+                    t = torch.clamp(t, max=_grad_tol(dtype, w))
+                assert a.dtype == w.dtype and a.shape == w.shape
+                assert ((a.float() - w.float()).abs() <= t).all(), act
+            assert torch.equal(got[1], ck.bias_act_bwd(xs, b, g, act)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [768, 1000, 1024, 2048, 3072, 4096])
+@pytest.mark.parametrize("rows", ROW_COUNTS)
+def test_ln_forward_kernel_at_its_edges_on_card(rows, d, dtype):
+    """The LayerNorm+residual forward against ln_residual_plain, with and
+    without the residual, into NaN-poisoned memory, with x as it is and as a
+    view one element off the 16-byte grid (the scalar route; so is d =
+    1000); rows up to 1024 take one warp a row, wider ones several; one
+    launch a call.  float32 within FUSED_KERNELS' 2e-5.  bfloat16 against
+    the plain version run in float32 on the same values and rounded once,
+    the kernel's own contract (the bfloat16 plain version rounds x + res to
+    bfloat16 first), element by element within one rounding, 2^-7 of
+    |plain|, plus 1e-4 for the float32 statistics' noise where y is near 0
+    (FUSED_KERNELS' flat 5e-2 is less than one unit in the last place once
+    |y| >= 8, which 16384 rows of 3072 reach)."""
+    _need_card()
+    import chip_smoke  # the repository root's: NaN into the outputs' memory
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, res = (torch.randn(rows, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    off = torch.randn(rows * d + 1, generator=gen, device="cuda").to(dt)[1:].view(rows, d)
+    scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(d, generator=gen, device="cuda") * 0.1
+    for r in (res, None):
+        for xs in (x, off):
+            chip_smoke.poison(torch, (xs.shape, dt))
+            before = dict(ck.LAUNCHES)
+            got = ck.fused_ln_residual(xs, r, scale, bias, 1e-5)
+            assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
+                NO_LAUNCHES, ln_residual_fwd=1)
+            want = ck.ln_residual_plain(xs.float(), None if r is None else r.float(), scale,
+                                        bias, 1e-5).to(dt)
+            assert got.dtype == dt and got.shape == want.shape
+            if dtype == "float32":
+                assert _err(got, want) <= 2e-5, r is None
+            else:
+                allowed = 2.0 ** -7 * want.float().abs() + 1e-4
+                assert ((got.float() - want.float()).abs() <= allowed).all(), r is None
 
 
 @pytest.mark.gpu

@@ -81,6 +81,47 @@ def test_ln_backward_column_rule_admits_another_order_and_sees_lost_rows(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_bias_act_backward_rule_admits_another_order_and_sees_lost_rows(dtype):
+    """bias_act_bwd_allowed, the rule the bias+activation backward kernel's
+    dx and dbias are held to on the card: dz taken in float64, rounded once
+    to x's dtype and summed over the rows in another order, stays within it;
+    the same sums with one band of 16 rows left out (a lost band of the
+    kernel's first pass) fail it by more than 2x, and so does a dx computed
+    with relu' in place of gelu'.  One thread: torch's threaded float32 erf
+    on the CPU is off by ~2e-4 at an element in about one run in six, which
+    the float64 comparison here would see."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _bias_act_rule_cases(dtype)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _bias_act_rule_cases(dtype):
+    rng = np.random.RandomState(9)
+    rows, d = 1024, 256
+    dt = getattr(torch, dtype)
+    x, g = (torch.from_numpy(rng.randn(rows, d)).to(dt) for _ in range(2))
+    b = torch.from_numpy(rng.randn(d) * 0.1).float()
+    want = ck.bias_act_bwd_plain(x, b, g, "gelu")
+    allowed = ck.bias_act_bwd_allowed(x, b, g, "gelu", want)
+    z = x.double() + b.double()
+    gelu_grad = (0.5 * (1.0 + torch.erf(z / np.sqrt(2.0)))
+                 + z * torch.exp(-0.5 * z * z) / np.sqrt(2.0 * np.pi))
+    dz = g.double() * gelu_grad
+    order = torch.from_numpy(rng.permutation(rows))
+
+    def share(got, i):
+        return float(((got.double() - want[i].double()).abs() / allowed[i].double()).max())
+
+    assert share(dz.to(dt), 0) <= 1.0
+    assert share(dz[order].sum(0), 1) <= 1.0
+    assert share(dz[order[16:]].sum(0), 1) > 2.0
+    assert share((g.double() * (z > 0).double()).to(dt), 0) > 2.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("act", ["gelu", "relu"])
 def test_bias_act_matches_pallas(dtype, act, launches_unchanged):
     spec = jpk.FUSED_KERNELS["bias_act"]

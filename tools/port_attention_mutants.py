@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Mutation check of the bfloat16 attention kernels' element-by-element
-rules (paddle_tpu_torch.ops.cuda_attention.FWD_BF16_RULE and BWD_BF16_RULE)
-on a CUDA card.
+"""Mutation check of the port's element-by-element kernel rules on a CUDA
+card: the bfloat16 attention kernels' (paddle_tpu_torch.ops.cuda_attention
+FWD_BF16_RULE and BWD_BF16_RULE), the bias+activation backward's
+(cuda_kernels.BIAS_ACT_BWD_RULE) and the LayerNorm+residual forward's
+(FUSED_KERNELS' tolerance).
 
-    python3 tools/port_attention_mutants.py
+    python3 tools/port_attention_mutants.py [NAME ...]
 
 Builds deliberately broken copies of paddle_tpu_torch in temporary
-directories outside the checkout, each with its own kernel build, and runs
-chip_smoke.check_attention_kernels on each, in its own process, at
-[8, 12, 2048, 64] bf16 (BERT-base at seq 2048, no bias, not causal):
+directories outside the checkout, each with its own kernel build, and holds
+each against its plain version in its own process.  The attention mutants
+run chip_smoke.check_attention_kernels at [8, 12, 2048, 64] bf16 (BERT-base
+at seq 2048, no bias, not causal):
   - fwd_skips_last_key_tile: the forward stops before its last tile of 64
     keys;
   - fwd_leaves_out_last_key: the forward treats the last key as past the
@@ -17,9 +20,23 @@ chip_smoke.check_attention_kernels on each, in its own process, at
     64 queries;
   - dq_skips_last_key_tile: the dQ kernel stops before its last tile of 64
     keys.
-Prints one JSON line per mutant (whether the check rejected it, the check
-records of the attention kernels, the error), and exits 0 only when every
-mutant was rejected.  Imports nothing of JAX or paddle_tpu.
+The row-wise mutants run one call at the BERT-base training shape, bf16,
+[4096, 3072] gelu for the bias+activation backward and [4096, 768] with a
+residual for the LayerNorm forward.  Before the call the caching allocator
+is poisoned with NaN tensors of the outputs' sizes (chip_smoke.poison), so
+memory left by an earlier correct call cannot hide an element the mutant
+fails to write; every output is then held to its rule:
+  - bias_act_bwd_skips_last_band_row: each band of the backward stops one
+    row short;
+  - bias_act_bwd_drops_a_partial_row: the column pass leaves out the last
+    band's partial row of dbias;
+  - ln_fwd_stops_one_row_early: the forward leaves out the last row;
+  - ln_fwd_drops_last_chunk: the forward leaves out the last 16-byte chunk
+    of every row.
+Prints one JSON line per mutant (whether a check rejected it, each checked
+output's worst share of its allowance (NaN where poisoned memory showed
+through), the error), and exits 0 only when every mutant was rejected.
+Imports nothing of JAX or paddle_tpu.
 """
 import json
 import os
@@ -29,51 +46,112 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
-# name -> (line of the source to break, what follows it in the mutant)
+ATTENTION = "paddle_tpu_torch/csrc/flash_attention.cu"
+BIAS_ACT = "paddle_tpu_torch/csrc/bias_act.cu"
+LAYER_NORM = "paddle_tpu_torch/csrc/ln_residual.cu"
+
+
+def _after(path, anchor, extra):
+    return path, anchor, anchor + extra
+
+
+# name -> (source, a line of it, what replaces that line in the mutant)
 MUTANTS = {
-    "fwd_skips_last_key_tile": (
-        "    __syncthreads();  // tile t (and at t = 0 Q) landed for every thread\n",
+    "fwd_skips_last_key_tile": _after(
+        ATTENTION, "    __syncthreads();  // tile t (and at t = 0 Q) landed for every thread\n",
         "    if (t == n_tiles - 1) break;\n"),
-    "fwd_leaves_out_last_key": (
+    "fwd_leaves_out_last_key": _after(
+        ATTENTION,
         "  const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1; the forward's key tiles\n",
         "  pr.Lk -= 1;\n"),
-    "dkv_skips_last_query_tile": (
+    "dkv_skips_last_query_tile": _after(
+        ATTENTION,
         "    __syncthreads();  // tile t (and at the first K and V) landed for every thread\n",
         "    if (t == t_end - 1) break;\n"),
-    "dq_skips_last_key_tile": (
+    "dq_skips_last_key_tile": _after(
+        ATTENTION,
         "    __syncthreads();  // tile t (and at t = 0 Q and dO) landed for every thread\n",
         "    if (t == n_tiles - 1) break;\n"),
+    "bias_act_bwd_skips_last_band_row": _after(
+        BIAS_ACT, "      if (row >= r1) break;  // past the group's last row of the band\n",
+        "      if (row == r1 - 1) break;\n"),
+    "bias_act_bwd_drops_a_partial_row": (
+        BIAS_ACT, "                         static_cast<int>(bands), d, stream);\n",
+        "                         static_cast<int>(bands) - 1, d, stream);\n"),
+    "ln_fwd_stops_one_row_early": (
+        LAYER_NORM,
+        "  const bool active = row < rows;  // no early return: row_sum synchronises the block\n",
+        "  const bool active = row < rows - 1;\n"),
+    "ln_fwd_drops_last_chunk": _after(
+        LAYER_NORM, "    if (active && col < d) {\n      float sc[VEC], bi[VEC];\n",
+        "      if (col + VEC >= d) continue;\n"),
 }
-CHECK = ("import torch, chip_smoke\n"
-         "from paddle_tpu_torch.ops import cuda_attention as ca\n"
-         "chip_smoke.check_attention_kernels(torch, ca, cases=[(8, 12, 2048, 2048, 64, None, False, "
-         "'normal')], dtypes=('bfloat16',))\n")
+CHECK_ATTENTION = (
+    "import torch, chip_smoke\n"
+    "from paddle_tpu_torch.ops import cuda_attention as ca\n"
+    "chip_smoke.check_attention_kernels(torch, ca, cases=[(8, 12, 2048, 2048, 64, None, False, "
+    "'normal')], dtypes=('bfloat16',))\n")
+# one poisoned call; every output's worst share of its allowance is printed
+# before the verdict, so a mutant shows each output it broke
+CHECK_ROWWISE = """
+import json, math, torch, chip_smoke
+from paddle_tpu_torch.ops import cuda_kernels as ck
+gen = torch.Generator(device="cuda").manual_seed(7)
+def rn(*shape, s=1.0, d=torch.bfloat16):
+    return (torch.randn(*shape, generator=gen, device="cuda") * s).to(d)
+shares = {}
+if KERNEL == "bias_act_bwd":
+    x, g, b = rn(4096, 3072), rn(4096, 3072), rn(3072, s=0.1, d=torch.float32)
+    chip_smoke.poison(torch, (x.shape, x.dtype), ((3072,), torch.float32))
+    got = ck.bias_act_bwd(x, b, g, "gelu")
+    want = ck.bias_act_bwd_plain(x, b, g, "gelu")
+    for w, a, c, t in zip(("dx", "dbias"), got, want, ck.bias_act_bwd_allowed(x, b, g, "gelu", want)):
+        shares[w] = float(((a.float() - c.float()).abs() / t).max())
+else:
+    x, r = rn(4096, 768), rn(4096, 768)
+    s, b = rn(768, s=0.2, d=torch.float32) + 1.0, rn(768, s=0.1, d=torch.float32)
+    chip_smoke.poison(torch, (x.shape, x.dtype))
+    got = ck.fused_ln_residual(x, r, s, b, 1e-5)
+    err = float((got.float() - ck.ln_residual_plain(x, r, s, b, 1e-5).float()).abs().max())
+    shares["out"] = err / chip_smoke.TOL["bfloat16"]["ln_residual_fwd"]
+print(json.dumps({"kernel": KERNEL, "worst_share_of_allowed": shares}))
+bad = {k: v for k, v in shares.items() if not v <= 1.0}
+if bad:
+    raise AssertionError(f"{KERNEL}: the worst share of the allowance exceeds 1: {bad}")
+"""
 
 
-def copy_port(workdir, edits):
+def check_code(source):
+    if source == ATTENTION:
+        return CHECK_ATTENTION
+    kernel = "bias_act_bwd" if source == BIAS_ACT else "ln_residual_fwd"
+    return f"KERNEL = {kernel!r}\n" + CHECK_ROWWISE
+
+
+def copy_port(workdir, edits, source=ATTENTION):
     """Copy paddle_tpu_torch (without its build) and chip_smoke.py into
-    `workdir`, then replace in SOURCE each `old` of `edits` [(old, new)],
+    `workdir`, then replace in `source` each `old` of `edits` [(old, new)],
     which must occur exactly once."""
     shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), os.path.join(workdir, "paddle_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), workdir)
-    path = os.path.join(workdir, SOURCE)
+    path = os.path.join(workdir, source)
     with open(path) as f:
         src = f.read()
     for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"{SOURCE}: {old.strip()!r} occurs {src.count(old)} times")
+            raise RuntimeError(f"{source}: {old.strip()!r} occurs {src.count(old)} times")
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
 
 
-def run_in_copy(edits, code, timeout=900):
-    """Run `code` with Python in a fresh copy of the port built with `edits`."""
+def run_in_copy(edits, code, timeout=900, source=ATTENTION):
+    """Run `code` with Python in a fresh copy of the port built with `edits`
+    of `source`."""
     workdir = tempfile.mkdtemp(prefix="port-copy-")
     try:
-        copy_port(workdir, edits)
+        copy_port(workdir, edits, source)
         return subprocess.run([sys.executable, "-c", code], cwd=workdir, capture_output=True,
                               text=True, timeout=timeout)
     finally:
@@ -81,16 +159,20 @@ def run_in_copy(edits, code, timeout=900):
 
 
 def main():
+    names = sys.argv[1:] or list(MUTANTS)
     rejected_all = True
-    for name, (anchor, extra) in MUTANTS.items():
-        run = run_in_copy([(anchor, anchor + extra)], CHECK)
+    for name in names:
+        source, old, new = MUTANTS[name]
+        run = run_in_copy([(old, new)], check_code(source), source=source)
         records = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
-        checks = [r for r in records if r.get("check", "").startswith("attention_")]
+        checks = [r for r in records if r.get("check", "").startswith("attention_")
+                  or "worst_share_of_allowed" in r and "kernel" in r]
         error = (run.stderr.strip().splitlines() or [""])[-1]
-        rejected = run.returncode != 0 and "exceeds" in error
+        rejected = run.returncode != 0 and error.startswith("AssertionError") and (
+            "exceeds" in error)
         rejected_all &= rejected
         print(json.dumps({"mutant": name, "rejected": rejected, "returncode": run.returncode,
-                          "attention_checks": checks, "error": error[:400]}), flush=True)
+                          "checks": checks, "error": error[:400]}), flush=True)
     return 0 if rejected_all else 1
 
 
