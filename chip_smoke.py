@@ -14,8 +14,10 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      bfloat16 attention forward and gradients, the LayerNorm backward's
      column sums and the bias+GELU backward's dx and dbias element by
      element; the LayerNorm forward and the bias+GELU backward into
-     NaN-poisoned memory and also at the seq-2048 rows [16384, .]; the two
-     row backwards' device time split by launch), and
+     NaN-poisoned memory and also at the seq-2048 rows [16384, .]; the
+     cross-entropy forward into NaN-poisoned memory, twice bit for bit, at
+     [4096|16384, 30522] with MLM labels and ResNet's [256, 1000]; the row
+     kernels' device time split by launch), and
      time kernel, plain version and one PyTorch library call (CUDA events,
      median); the attention forward, dQ and dK/dV kernels also at seq 2048,
      long causal, causal with Lq < Lk and Lq > Lk, dh 128 and rows whose max
@@ -63,7 +65,20 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  13. train_long: the same at seq 2048, batch 8 (16,384 tokens a step), with
      peak memory and sequences and tokens per second;
  14. train_fused_parity: phase 7 with the fused_attention op at batch 32 x 128
-     and 1 x 2048.
+     and 1 x 2048;
+ 15. deepfm_train: DeepFM at full width (26 fields, vocab 200,000, embed 16,
+     MLP 400 x 3, float32, tools/donation_audit.py:128-132) at batch 4096
+     with is_sparse tables: 6 Adagrad(0.05) steps through
+     Executor(CUDAPlace(0)).run on one fixed batch (SelectedRows gradients;
+     only the touched rows of the tables and moments change; no kernel), then
+     6 steps of the default, densifying Adam (the Adam kernel 10 times a
+     step, as the program's ops say); the loss is finite and falls; then the
+     model is saved and served through create_predictor at batch 1 and 4096,
+     as the Executor's test program computes it;
+ 16. deepfm_train_parity: float32 DeepFM (MLP 64 x 64), 3 Adagrad and 3
+     lazy_mode Adam steps from one numpy state on the card twice (bit for
+     bit) and on the CPU (losses 1e-5 relative, every persistable 1e-5 of
+     its largest magnitude).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -130,6 +145,25 @@ FUSED_PER_STEP = dict(PER_STEP, attention_fwd=12, attention_bwd_dkv=12, attentio
 RESNET_PER_REQUEST = dict(NONE, bn_epilogue_fwd=53)
 RESNET_PER_STEP = dict(NONE, bn_epilogue_fwd=53, bn_epilogue_bwd=53, softmax_xent_fwd=1,
                        softmax_xent_bwd=1)
+# DeepFM in the JAX package's full configuration (tools/donation_audit.py:128-132);
+# the batch is the port's choice.  DeepFM reaches no row kernel: dense Adam is
+# its one kernel, once per adam op that is not lazy over a sparse table (2
+# tables, 4 fc weights, 4 fc biases)
+DEEPFM = dict(num_fields=26, vocab_size=200000, embed_dim=16, mlp_dims=(400, 400, 400))
+DEEPFM_BATCH = 4096
+DEEPFM_PER_STEP = dict(NONE, adam=10)
+# phase 16: the MLP cut to 64 x 64, so that the CPU's steps take seconds.
+# Its float32 steps must be well conditioned for card and CPU to agree to
+# 1e-5.  A first Adagrad step from a zero moment is lr * g / (|g| + 1e-6):
+# where |g| is near 1e-6, rounding noise in g moves the step, and a one-ulp
+# change of the fc weights on the CPU alone moved deepfm_v by 6x the
+# tolerance (Adam's first step likewise near its epsilon).  So phase 16
+# starts Adagrad's moment at 0.1, which makes its steps proportional to g,
+# and gives lazy Adam an epsilon of 1e-6: the same one-ulp change then moves
+# no persistable by more than 0.07 of its tolerance.
+DEEPFM_PARITY = dict(DEEPFM, mlp_dims=(64, 64))
+DEEPFM_PARITY_BATCH = 512
+PARITY_LR = {"adagrad": 0.05, "adam": 1e-3}
 # the JAX package's full ResNet-50 training configuration (tools/bench_kit.py:120-131)
 RESNET = dict(depth=50, class_dim=1000, stem="space_to_depth", data_format="NCHW")
 RESNET_BATCHES = (1, 32, 256, 256)
@@ -139,7 +173,8 @@ TRAIN_STEPS = 6
 PARITY_STEPS = 3
 LR = 1e-4
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("train_fused", "resnet_train", "resnet_serve", "train", "serve", "train_long")
+LAUNCH_ORDER = ("deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
+                "train_long")
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
 # tests), save the loss and lse of the cross-entropy, which are float32 on both
@@ -316,6 +351,27 @@ def hold_bias_act_bwd(torch, ck, x, b, g, act, case):
         errs.append(check_within("bias_act_bwd", w, x.dtype, case, a, c, t, ck.BIAS_ACT_BWD_RULE))
     repeatable("bias_act_bwd", f"dbias {case} {dn}", got[1], ck.bias_act_bwd(x, b, g, act)[1])
     return max(errs)
+
+
+def hold_xent_fwd(torch, ck, logits, labels, case):
+    """One call of ck.softmax_xent_fwd into NaN-poisoned memory against
+    softmax_xent_fwd_plain: the loss, and lse (0 on ignored rows), within
+    2e-5 (float32 on both sides); a second call bit for bit.  Returns the
+    error and the plain lse."""
+    rows = logits.shape[0]
+    poison(torch, ((rows,), torch.float32), ((rows,), torch.float32))
+    loss, lse = ck.softmax_xent_fwd(logits, labels, -100)
+    loss_p, lse_p = ck.softmax_xent_fwd_plain(logits, labels, -100)
+    want_lse = torch.where(labels != -100, lse_p, torch.zeros_like(lse_p))
+    dn = dname(logits.dtype)
+    err = max(check("softmax_xent_fwd", "loss", logits.dtype, case, loss, loss_p,
+                    TOL[dn]["softmax_xent_fwd"]),
+              check("softmax_xent_fwd", "lse (0 where ignored)", logits.dtype, case, lse,
+                    want_lse, TOL[dn]["softmax_xent_fwd"]))
+    again = ck.softmax_xent_fwd(logits, labels, -100)
+    repeatable("softmax_xent_fwd", f"loss {case} {dn}", loss, again[0])
+    repeatable("softmax_xent_fwd", f"lse {case} {dn}", lse, again[1])
+    return err, lse_p
 
 
 def check_kernels(torch, ck):
@@ -644,23 +700,11 @@ def check_train_kernels(torch, ck):
                     del z
             del x, g
             torch.cuda.empty_cache()
-        # softmax cross-entropy: the LM head's [4096, 30522] logits, labels at the
-        # MLM share (85% ignored), one row labelled 0 and one labelled V-1
+        # softmax cross-entropy: the LM head's logits at seq 128 ([4096, V]) and
+        # seq 2048 ([16384, V]) with labels at the MLM share (85% ignored, one
+        # row labelled 0 and one V-1), and ResNet's [256, 1000], every row
+        # labelled; the forward into NaN-poisoned memory and twice bit for bit
         V = 30522
-        logits = randn(4096, V, dtype=dtype, s=2.0)
-        labels = torch.randint(0, V, (4096,), generator=gen, device=dev)
-        masked = torch.rand(4096, generator=gen, device=dev) < 0.85
-        labels = torch.where(masked, torch.full_like(labels, -100), labels)
-        labels[0], labels[1], labels[2] = 0, V - 1, -100
-        labels = labels.to(torch.int32)
-        live = labels != -100
-        case = f"[4096,{V}] {int(live.sum())} rows labelled"
-        loss, lse = ck.softmax_xent_fwd(logits, labels, -100)
-        loss_p, lse_p = ck.softmax_xent_fwd_plain(logits, labels, -100)
-        err_f = check("softmax_xent_fwd", "loss", dtype, case, loss, loss_p,
-                      TOL[dn]["softmax_xent_fwd"])
-        check("softmax_xent_fwd", "lse of labelled rows", dtype, case, lse[live], lse_p[live],
-              TOL[dn]["softmax_xent_fwd"])
         g = 1.0 + torch.rand(4096, generator=gen, device=dev)
 
         def xent_bwd_check(case, x, lab, lse_ref):
@@ -672,42 +716,64 @@ def check_train_kernels(torch, ck):
             return check_within("softmax_xent_bwd", "dlogits", dtype, case, dx, dx_p,
                                 rel * dx_p.float().abs() + 1e-12, f"{rel:g}*|plain| + 1e-12")
 
-        err_b = xent_bwd_check(case, logits, labels, lse_p)
-        # a contiguous view that starts one element off the 16-byte grid:
-        # the backward writes its fresh, aligned dx element by element
-        off = randn(64 * V + 1, dtype=dtype, s=2.0)[1:].view(64, V)
-        off_case = f"[64,{V}] view one element off the 16-byte grid"
-        off_loss, off_lse = ck.softmax_xent_fwd(off, labels[:64], -100)
-        off_loss_p, off_lse_p = ck.softmax_xent_fwd_plain(off, labels[:64], -100)
-        check("softmax_xent_fwd", "loss", dtype, off_case, off_loss, off_loss_p,
-              TOL[dn]["softmax_xent_fwd"])
-        xent_bwd_check(off_case, off, labels[:64], off_lse_p)
-        if dtype == torch.bfloat16:
+        for rows, v in ((4096, V), (16384, V), (256, 1000)):
+            logits = randn(rows, v, dtype=dtype, s=2.0)
+            labels = torch.randint(0, v, (rows,), generator=gen, device=dev)
+            if v == V:
+                masked = torch.rand(rows, generator=gen, device=dev) < 0.85
+                labels = torch.where(masked, torch.full_like(labels, -100), labels)
+                labels[0], labels[1], labels[2] = 0, V - 1, -100
+            labels = labels.to(torch.int32)
+            live = labels != -100
             n_live = int(live.sum())
-            row = V * logits.element_size()
+            case = f"[{rows},{v}] {n_live} rows labelled"
+            err_f, lse_p = hold_xent_fwd(torch, ck, logits, labels, case)
+            if rows == 4096:
+                err_b = xent_bwd_check(case, logits, labels, lse_p)
+                # a contiguous view that starts one element off the 16-byte
+                # grid: the backward writes its fresh, aligned dx element by
+                # element
+                off = randn(64 * V + 1, dtype=dtype, s=2.0)[1:].view(64, V)
+                off_case = f"[64,{V}] view one element off the 16-byte grid"
+                _, off_lse_p = hold_xent_fwd(torch, ck, off, labels[:64], off_case)
+                xent_bwd_check(off_case, off, labels[:64], off_lse_p)
+            if dtype != torch.bfloat16:
+                continue
+            row = v * logits.element_size()
             lab64 = labels.long()
-            lx = logits.detach().requires_grad_()
-            lib_loss = F.cross_entropy(lx, lab64, reduction="none", ignore_index=-100)
             # the data decides the work: only labelled rows are read
-            f_ms, f_by = bound(n_live * row + 4096 * 4 * 3, 5.0 * n_live * V, F32_FLOPS)
-            record["softmax_xent_fwd"] = dict(
+            f_ms, f_by = bound(n_live * row + rows * 4 * 3, 5.0 * n_live * v, F32_FLOPS)
+            rec = dict(
                 max_abs_err=err_f,
                 ms=time_ms(lambda: ck.softmax_xent_fwd(logits, labels, -100)),
                 plain_ms=time_ms(lambda: ck.softmax_xent_fwd_plain(logits, labels, -100)),
                 library_ms=time_ms(lambda: F.cross_entropy(logits, lab64, reduction="none",
                                                            ignore_index=-100)),
                 library="F.cross_entropy(reduction='none', ignore_index=-100)",
-                bound_ms=f_ms, bound_by=f_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
-            b_ms, b_by = bound(n_live * row + 4096 * 4 * 3 + 4096 * row, 4.0 * n_live * V,
-                               F32_FLOPS)
-            record["softmax_xent_bwd"] = dict(
-                max_abs_err=err_b,
-                ms=time_ms(lambda: ck.softmax_xent_bwd(logits, labels, lse, g, -100)),
-                plain_ms=time_ms(lambda: ck.softmax_xent_bwd_plain(logits, labels, lse, g, -100)),
-                library_ms=time_ms(lambda: torch.autograd.grad(lib_loss, lx, g,
-                                                               retain_graph=True)),
-                library="backward of F.cross_entropy(reduction='none', ignore_index=-100)",
-                bound_ms=b_ms, bound_by=b_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
+                bound_ms=f_ms, bound_by=f_by, shape=f"[{rows},{v}] bf16, {n_live} rows labelled")
+            if rows == 4096:
+                split = launch_split(torch, lambda: ck.softmax_xent_fwd(logits, labels, -100))
+                emit({"launch_split": "softmax_xent_fwd", "case": case, "us_per_call": split})
+                record["softmax_xent_fwd"] = dict(rec, launch_split_us=split)
+                lx = logits.detach().requires_grad_()
+                lib_loss = F.cross_entropy(lx, lab64, reduction="none", ignore_index=-100)
+                b_ms, b_by = bound(n_live * row + rows * 4 * 3 + rows * row, 4.0 * n_live * v,
+                                   F32_FLOPS)
+                lse = ck.softmax_xent_fwd(logits, labels, -100)[1]
+                record["softmax_xent_bwd"] = dict(
+                    max_abs_err=err_b,
+                    ms=time_ms(lambda: ck.softmax_xent_bwd(logits, labels, lse, g, -100)),
+                    plain_ms=time_ms(lambda: ck.softmax_xent_bwd_plain(logits, labels, lse, g,
+                                                                       -100)),
+                    library_ms=time_ms(lambda: torch.autograd.grad(lib_loss, lx, g,
+                                                                   retain_graph=True)),
+                    library="backward of F.cross_entropy(reduction='none', ignore_index=-100)",
+                    bound_ms=b_ms, bound_by=b_by, shape=f"[4096,{V}] bf16, {n_live} rows labelled")
+                del lx, lib_loss
+            else:
+                record["softmax_xent_fwd"][f"at_{rows}x{v}"] = rec
+        del logits
+        torch.cuda.empty_cache()
         # Adam: the token embedding (30522 x 768) and an odd size.  Weights at
         # BERT's init scale, g^2 of v's order, so that one step moves p, m and v
         # each by about 1e3 times the allowance: each output must agree to
@@ -969,7 +1035,8 @@ def launches_of_program(main, loss):
     layer_norm takes the LN kernel (nothing reads its Mean/Variance), every
     elementwise_add with fuse_act over a 1-D bias the bias-act kernel, every
     batch_norm over NC + spatial dims the BN epilogue, the loss the xent
-    kernel, every adam op the Adam kernel, every fused_attention op the
+    kernel, every adam op the Adam kernel (save a lazy_mode one over a
+    sparse table's SelectedRows gradient), every fused_attention op the
     attention forward; each forward kernel has its backward (attention: the
     dQ and the dK/dV kernel)."""
     from paddle_tpu_torch.core.executor import _prune, _runnable_ops
@@ -987,7 +1054,10 @@ def launches_of_program(main, loss):
     n_bn = sum(1 for op in ops if op.type == "batch_norm"
                and len(block.var(op.input("X")[0]).shape) >= 3)
     n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy")
-    n_adam = sum(1 for op in ops if op.type == "adam")
+    # a lazy_mode adam op over a SelectedRows gradient updates its rows in plain torch
+    sparse = {n for op in ops if op.type == "backward" for n in op.attrs.get("sparse_param_names", [])}
+    n_adam = sum(1 for op in ops if op.type == "adam" and not (
+        op.attrs.get("lazy_mode") and op.input("Param")[0] in sparse))
     n_attn = sum(1 for op in ops if op.type == "fused_attention")
     return dict(NONE, ln_residual_fwd=n_ln, ln_residual_bwd=n_ln, bias_act_fwd=n_act,
                 bias_act_bwd=n_act, softmax_xent_fwd=n_xent, softmax_xent_bwd=n_xent,
@@ -1364,6 +1434,244 @@ def resnet_train_parity(fluid, torch):
         raise AssertionError(f"card vs CPU velocity cosines {cosines} < 0.99")
 
 
+def build_deepfm(fluid, config, make_optimizer):
+    """DeepFM minimizing its sigmoid cross-entropy with `make_optimizer()`;
+    returns (main, startup, loss name, prediction var)."""
+    from paddle_tpu_torch.models import deepfm
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = deepfm.build(with_optimizer=False, **config)
+        with fluid.program_guard(main, startup):
+            make_optimizer().minimize(fetches["loss"])
+    startup.random_seed = 0
+    main.random_seed = 0
+    return main, startup, fetches["loss"].name, fetches["prediction"]
+
+
+def deepfm_feed(batch, config, seed):
+    """Field ids uniform over the vocabulary (a batch of 4096 x 26 repeats
+    rows: the merge sums them) and 30% positive labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"feat_ids": rng.randint(0, config["vocab_size"], (batch, config["num_fields"]))
+            .astype("int64"), "label": (rng.rand(batch, 1) < 0.3).astype("float32")}
+
+
+def moved_rows_only(torch, scope, before, touched):
+    """Raise unless each tensor in `before` ({name: copy}) changed in the
+    rows `touched` and kept every other row bit for bit."""
+    for name, old in before.items():
+        new = scope.find_var(name)
+        still = torch.ones(old.shape[0], dtype=torch.bool, device=old.device)
+        still[touched] = False
+        if not torch.equal(new[still], old[still]):
+            raise AssertionError(f"{name}: an untouched row changed")
+        if torch.equal(new[touched], old[touched]):
+            raise AssertionError(f"{name}: the touched rows did not move")
+
+
+def adam_scope_after(fluid, exe, startup, main, trained):
+    """A scope with the Adam program's startup state (moments, beta pows,
+    learning rate) and the parameters of the `trained` scope."""
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for p in main.all_parameters():
+        scope.set_var(p.name, trained.find_var(p.name))
+    return scope
+
+
+def deepfm_steps(torch, ck, exe, main, loss, scope, feed, per_step, phase, opt, card):
+    """TRAIN_STEPS steps of `main` on `feed`, each launching exactly
+    `per_step`; returns the losses and step times."""
+    import numpy as np
+
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        emit({"phase": phase, "optimizer": opt, "step": step, "loss": losses[-1],
+              "step_ms": step_ms[-1], "launches": delta, "card": card})
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"{opt} step {step}: loss {losses[-1]}")
+        if delta != per_step:
+            raise AssertionError(f"{opt} step {step}: kernel launches {delta} != {per_step}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{opt}: the loss did not fall: {losses}")
+    return losses, step_ms
+
+
+def deepfm_train(fluid, torch, ck, tmp, card):
+    """Phase 15: DeepFM at full width (26 fields, vocab 200,000, embed 16, MLP
+    400 x 3, float32) on one fixed batch of DEEPFM_BATCH through
+    Executor(CUDAPlace(0)).run: 6 Adagrad(0.05) steps with SelectedRows
+    table gradients, in which only the touched rows of the tables and of
+    Adagrad's moments change and no kernel launches; then 6 steps of the
+    default (densifying) Adam(1e-3) from the trained parameters, each
+    launching the Adam kernel once per adam op (10); the loss is finite and
+    falls in both.  The model is then saved for inference and served through
+    create_predictor at batch 1 and 4096, launching no kernel, and must agree
+    with the Executor's test-mode program."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ada_main, ada_startup, ada_loss, _ = build_deepfm(
+        fluid, DEEPFM, lambda: fluid.optimizer.Adagrad(0.05))
+    adam_main, adam_startup, adam_loss, pred = build_deepfm(
+        fluid, DEEPFM, lambda: fluid.optimizer.Adam(1e-3))
+    for main, loss, want in ((ada_main, ada_loss, NONE), (adam_main, adam_loss, DEEPFM_PER_STEP)):
+        derived = launches_of_program(main, loss)
+        if derived != want:
+            raise AssertionError(f"the program's kernel ops {derived} != the reckoned {want}")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(ada_startup, scope=scope)
+    feed = deepfm_feed(DEEPFM_BATCH, DEEPFM, 0)
+    touched = torch.unique(torch.as_tensor(feed["feat_ids"]).reshape(-1)).to(
+        scope.find_var("deepfm_w").device)
+    rows = ["deepfm_w", "deepfm_v", "deepfm_w_moment_0", "deepfm_v_moment_0"]
+    before = {n: scope.find_var(n).clone() for n in rows}
+    emit({"phase": "deepfm_train", "model": "deepfm f32, 26 fields, vocab 200000, embed 16, "
+          "mlp 400x3", "batch": DEEPFM_BATCH, "rows_touched": int(touched.numel()),
+          "setup_s": time.perf_counter() - t0})
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()  # the main path's count starts here
+    ada_losses, ada_ms = deepfm_steps(torch, ck, exe, ada_main, ada_loss, scope, feed, NONE,
+                                      "deepfm_train", "adagrad", card)
+    moved_rows_only(torch, scope, before, touched)
+    adam = adam_scope_after(fluid, exe, adam_startup, adam_main, scope)
+    adam_losses, adam_ms = deepfm_steps(torch, ck, exe, adam_main, adam_loss, adam, feed,
+                                        DEEPFM_PER_STEP, "deepfm_train", "adam", card)
+    launches = dict(ck.LAUNCHES)  # read before the profiled step
+    warm = {opt: statistics.median(ms[1:]) for opt, ms in (("adagrad", ada_ms), ("adam", adam_ms))}
+    emit({"phase": "deepfm_train", "losses": {"adagrad": ada_losses, "adam": adam_losses},
+          "warm_step_ms": warm, "examples_per_s": {k: DEEPFM_BATCH / v * 1e3 for k, v in warm.items()},
+          "first_step_ms": {"adagrad": ada_ms[0], "adam": adam_ms[0]},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    for opt, main, loss, sc in (("adagrad", ada_main, ada_loss, scope),
+                                ("adam", adam_main, adam_loss, adam)):
+        profile_run(torch, f"deepfm_train {opt} step",
+                    lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                                    return_numpy=False), card)
+    model_dir = os.path.join(tmp, "deepfm")
+    fluid.io.save_inference_model(model_dir, ["feat_ids"], [pred], exe, main_program=adam_main,
+                                  scope=adam)
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    test = adam_main.clone(for_test=True)
+    for batch in (1, DEEPFM_BATCH):
+        ids = deepfm_feed(batch, DEEPFM, 1)["feat_ids"]
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = predictor.run({"feat_ids": ids})
+        latency = (time.perf_counter() - t0) * 1e3
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        (want,) = exe.run(test, feed={"feat_ids": ids}, fetch_list=[pred], scope=adam)
+        diff = float(np.abs(out - want).max())
+        emit({"phase": "deepfm_serve", "request": batch, "latency_ms": latency,
+              "max_abs_dpred": diff, "launches": delta, "card": card})
+        if out.shape != (batch, 1) or not (np.isfinite(out).all() and (out >= 0).all()
+                                           and (out <= 1).all()):
+            raise AssertionError(f"batch {batch}: predictions {out.shape} out of [0, 1]")
+        if delta != NONE or not diff <= 1e-6:
+            raise AssertionError(f"batch {batch}: launches {delta}, |predictor - executor| {diff}")
+    return launches
+
+
+def deepfm_train_parity(fluid, torch, ck):
+    """Phase 16: float32 DeepFM (DEEPFM_PARITY: the MLP cut to 64 x 64) at
+    batch 512, from one numpy state: 3 Adagrad(0.05) steps from a moment of
+    0.1, then 3 lazy_mode Adam(1e-3, epsilon 1e-6) steps from the trained
+    parameters (DEEPFM_PARITY says why), twice on the card and once on the
+    CPU (plain path).  The card's two runs agree bit
+    for bit (the merge of repeated rows adds in a fixed order); card and CPU
+    agree in the losses to 1e-5 relative and in every persistable to 1e-5 of
+    its largest magnitude, save the elements whose CPU gradient is 0 to
+    rounding (ZERO_GRAD of the model's largest) at some step: a first
+    Adagrad or Adam step moves them by +-lr with the sign of that noise, so
+    they keep 2*(lr_adagrad + lr_adam)*steps + 1e-5.  The card's Adam steps
+    launch the kernel for the fc parameters only."""
+    import numpy as np
+
+    ada_main, ada_startup, ada_loss, _ = build_deepfm(
+        fluid, DEEPFM_PARITY,
+        lambda: fluid.optimizer.Adagrad(PARITY_LR["adagrad"], initial_accumulator_value=0.1))
+    adam_main, adam_startup, adam_loss, _ = build_deepfm(
+        fluid, DEEPFM_PARITY,
+        lambda: fluid.optimizer.Adam(PARITY_LR["adam"], epsilon=1e-6, lazy_mode=True))
+    adam_launches = launches_of_program(adam_main, adam_loss)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    states = []
+    for main, startup in ((ada_main, ada_startup), (adam_main, adam_startup)):
+        init = fluid.Scope()
+        cpu.run(startup, scope=init)
+        states.append({v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable})
+    feed = deepfm_feed(DEEPFM_PARITY_BATCH, DEEPFM_PARITY, 2)
+    params = [p.name for p in adam_main.all_parameters()]
+    near_zero = {}
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CUDAPlace(0), fluid.CPUPlace()):
+        on_cpu = isinstance(place, fluid.CPUPlace)
+        exe = fluid.Executor(place)
+        scopes = []
+        losses = []
+        for (main, loss, startup), state in zip(((ada_main, ada_loss, ada_startup),
+                                                 (adam_main, adam_loss, adam_startup)), states):
+            scope = fluid.Scope()
+            fluid.io.load_numpy_params(scope, state, device=place.device)
+            for p in main.all_parameters() if scopes else ():
+                scope.set_var(p.name, scopes[0].find_var(p.name))
+            want = adam_launches if main is adam_main else NONE
+            for _ in range(PARITY_STEPS):
+                before = dict(ck.LAUNCHES)
+                grads = [f"{p}@GRAD" for p in params] if on_cpu else []
+                out = exe.run(main, feed=feed, fetch_list=[loss] + grads, scope=scope)
+                losses.append(float(out[0].reshape(-1)[0]))
+                delta = {k: v - before[k] for k, v in ck.LAUNCHES.items()}
+                if not on_cpu and delta != want:
+                    raise AssertionError(f"deepfm parity: launches {delta} != {want}")
+                if grads:
+                    peak = max(float(np.abs(g).max()) for g in out[1:])
+                    for p, g in zip(params, out[1:]):
+                        small = np.abs(g) <= ZERO_GRAD * peak
+                        near_zero[p] = small | near_zero[p] if p in near_zero else small
+            scopes.append(scope)
+        runs.append((losses, {n: sc.to_numpy(n) for sc, st in zip(scopes, states) for n in st}))
+    (g1, s1), (g2, s2), (cl, cs) = runs
+    same = g1 == g2 and all(np.array_equal(s1[n], s2[n]) for n in s1)
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(g1, cl))
+    flip_tol = 2 * (PARITY_LR["adagrad"] + PARITY_LR["adam"]) * PARITY_STEPS + 1e-5
+    worst, worst_name, n_excused = 0.0, "", 0
+    for name, want in cs.items():
+        err = np.abs(s1[name] - want)
+        tol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+        if name in near_zero:
+            n_excused += int(near_zero[name].sum())
+            if not float(err.max()) <= tol + flip_tol:
+                raise AssertionError(f"deepfm parity: {name} differs by {float(err.max())}")
+            err = err[~near_zero[name]]
+        share = float(err.max()) / tol if err.size else 0.0
+        if share > worst:
+            worst, worst_name = share, name
+    emit({"phase": "deepfm_train_parity", "model": "deepfm f32, 26 fields, vocab 200000, embed 16, "
+          "mlp 64x64", "batch": DEEPFM_PARITY_BATCH,
+          "steps": "3 adagrad(0.05, moment from 0.1) + 3 lazy adam(1e-3, epsilon 1e-6)",
+          "losses_card": g1, "losses_cpu": cl, "max_rel_dloss": dloss, "loss_tol": 1e-5,
+          "worst_share_of_param_tol": worst, "worst": worst_name, "param_tol": "1e-5 * max|cpu|",
+          "elements_with_gradient_0_to_rounding": n_excused, "card_runs_bitwise_equal": same,
+          "adam_launches_per_step": adam_launches["adam"]})
+    if not same:
+        raise AssertionError("deepfm parity: two runs on the card differ")
+    if not dloss <= 1e-5:
+        raise AssertionError(f"deepfm parity: card vs CPU losses differ by {dloss} (relative)")
+    if not worst <= 1.0:
+        raise AssertionError(f"deepfm parity: {worst_name} exceeds its tolerance {worst}x")
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -1407,6 +1715,8 @@ def main():
         long_trained = train(fluid, torch, ck, card, "train_long", True, 2048, 8, FUSED_PER_STEP)
         for seq_len, batch in ((128, 32), (2048, 1)):
             train_parity(fluid, torch, "train_fused_parity", True, seq_len, batch)
+        deepfm_trained = deepfm_train(fluid, torch, ck, tmp, card)
+        deepfm_train_parity(fluid, torch, ck)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1417,7 +1727,8 @@ def main():
              "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
              "resnet_train": (RESNET_PER_STEP, resnet_trained),
              "train_fused": (FUSED_PER_STEP, fused_trained),
-             "train_long": (FUSED_PER_STEP, long_trained)}
+             "train_long": (FUSED_PER_STEP, long_trained),
+             "deepfm_train": (DEEPFM_PER_STEP, deepfm_trained)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

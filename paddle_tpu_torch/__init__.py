@@ -8,9 +8,10 @@ the import:
 
 Programs, saved models and parameters are interchangeable with paddle_tpu.
 The port imports torch and numpy, never jax or paddle_tpu.  It covers the
-serving and the static training paths of BERT-base and ResNet-50 (and the
-MNIST CNN) so far: their ops, passes, layers, io, Predictor,
-`append_backward`, `optimizer.Adam` and `optimizer.Momentum`, with
+serving and the static training paths of BERT-base, ResNet-50 and DeepFM
+(and the MNIST CNN) so far: their ops, passes, layers, io, Predictor,
+`append_backward` with SelectedRows gradients for `is_sparse` tables, and
+`optimizer.SGD`, `Momentum`, `Adam` and `Adagrad`, with
 hand-written Hopper kernels (csrc/) for LayerNorm+residual, bias+GELU and
 the batch-norm epilogue (forward and backward), attention (forward),
 softmax cross-entropy (forward and backward) and the Adam update.

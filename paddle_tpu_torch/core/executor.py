@@ -9,7 +9,9 @@ ops runs its regions through `torch.autograd.grad`
 (core/lowering.py run_block_with_backward).  Nothing runs under
 `torch.inference_mode()`: its tensors could never be trained, and the
 Scope keeps them across runs.  The generator in the Scope advances across
-runs.  There is no compile cache, no `run_async` and no `steps > 1` yet.
+runs.  A fetched SelectedRows gradient (an `is_sparse` table's) comes back
+as its dense view, or as the SelectedRows itself with return_numpy=False.
+There is no compile cache, no `run_async` and no `steps > 1` yet.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from .dtypes import to_numpy, to_tensor
 from .lowering import LoweringContext, run_block_with_backward
 from .program import Program, Variable, default_main_program
 from .scope import RNG_STATE_VAR, Scope, global_scope
+from .selected_rows import SelectedRows
 
 
 class Place:
@@ -145,11 +148,14 @@ class Executor:
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not produced by the program")
-        fetches = [env[n].detach() for n in fetch_names]
+        fetches = [env[n] if isinstance(env[n], SelectedRows) else env[n].detach()
+                   for n in fetch_names]
         if flags.flag("FLAGS_check_nan_inf"):
             for name, t in zip(fetch_names, fetches):
+                t = t.values if isinstance(t, SelectedRows) else t
                 if t.is_floating_point() and not bool(torch.isfinite(t).all()):
                     raise FloatingPointError(f"FLAGS_check_nan_inf: fetch {name!r} contains NaN/Inf")
         if return_numpy:
-            return [to_numpy(t) for t in fetches]
+            # a SelectedRows gradient comes back as its dense view
+            return [t.numpy() if isinstance(t, SelectedRows) else to_numpy(t) for t in fetches]
         return fetches

@@ -4,16 +4,20 @@ Where the JAX package traces a block once into one XLA computation, the
 port runs each op's torch lowering in order on real tensors.  A `backward`
 op (core/autodiff.py) splits the op list: the forward segment before it
 runs with its parameters as leaves that require grad, and
-`torch.autograd.grad` takes the place of `jax.vjp`.
+`torch.autograd.grad` takes the place of `jax.vjp`.  A table that only
+`is_sparse` lookups read gets a SelectedRows gradient
+(core/selected_rows.py): each of its lookups' outputs is an autograd leaf
+of its own (`SparseTaps`), whose gradient is that lookup's row slab.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from .program import Operator
 from .registry import get_op_def
+from .selected_rows import SelectedRows
 
 
 class LoweringContext:
@@ -31,10 +35,53 @@ class LoweringContext:
         self.is_test = is_test
         self.fetch_names = tuple(fetch_names)
         self.read_names = frozenset(read_names)
+        self.sparse_taps: Optional["SparseTaps"] = None  # set while a backward region runs
 
     def wants(self, op: Operator, slot: str) -> bool:
         """True when an output of `op` in `slot` is read by an op of the run or fetched."""
         return any(n in self.read_names or n in self.fetch_names for n in op.outputs.get(slot, ()))
+
+
+class SparseTaps:
+    """The is_sparse lookups of a backward region's forward (counterpart of
+    paddle_tpu/core/lowering.py SparseTapCollector).
+
+    Where the JAX package adds a zero delta to each tapped lookup output and
+    differentiates by it, torch needs no record phase: the lookup output
+    itself, detached, becomes a leaf that requires grad, and its gradient is
+    exactly the lookup's per-row slab.  A lookup taps before its
+    `padding_idx` mask, so padded positions get a zero gradient."""
+
+    def __init__(self, params):
+        self.params = set(params)
+        self.taps: list = []  # (table name, flat ids, leaf)
+
+    def tap(self, w_name: str, flat_ids: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        if w_name not in self.params:
+            return out
+        leaf = out.detach().requires_grad_(True)
+        self.taps.append((w_name, flat_ids, leaf))
+        return leaf
+
+    def leaves(self) -> List[torch.Tensor]:
+        return [leaf for _, _, leaf in self.taps]
+
+    def gradient(self, param: str, table: torch.Tensor, grads) -> SelectedRows:
+        """The SelectedRows gradient of `param`, given the gradient of each
+        tap's leaf in tap order (None where it does not reach the loss):
+        several lookups of one table concatenate, and a table never looked
+        up gets an empty slab."""
+        dim = table.shape[1] if table.dim() > 1 else 1
+        rows, vals = [], []
+        for (w_name, ids, leaf), g in zip(self.taps, grads):
+            if w_name == param:
+                rows.append(ids.reshape(-1).to(torch.int32))
+                vals.append((torch.zeros_like(leaf) if g is None else g).reshape(-1, dim))
+        if not rows:
+            return SelectedRows(torch.zeros(0, dtype=torch.int32, device=table.device),
+                                torch.zeros(0, dim, dtype=table.dtype, device=table.device),
+                                table.shape[0])
+        return SelectedRows(torch.cat(rows), torch.cat(vals), table.shape[0])
 
 
 # ops the executor handles itself
@@ -110,11 +157,6 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
     param_names: List[str] = list(bw.attrs["param_names"])
     grad_names: List[str] = list(bw.attrs["grad_names"])
     sparse = [n for n in bw.attrs.get("sparse_param_names", []) if n in param_names]
-    if sparse:
-        raise NotImplementedError(
-            f"backward: {sparse} are read only by is_sparse lookup_table ops and take "
-            "SelectedRows gradients, which are not ported yet (ROADMAP A5); build the "
-            "embeddings with is_sparse=False")
     fwd_ops = [o for o in ops[:split] if o.type != "backward"]
 
     env = dict(start_env)
@@ -122,27 +164,40 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
     for p in param_names:
         if p not in env:
             raise KeyError(f"backward: parameter {p!r} not initialized (run the startup program)")
-    # parameters enter as leaves sharing the scope's storage; a name that is
-    # not a float tensor (an int feed, say) gets a zero gradient
+    # dense parameters enter as leaves sharing the scope's storage; a name
+    # that is not a float tensor (an int feed, say) gets a zero gradient;
+    # a sparse table stays a constant and its lookups are tapped
     leaves = {}
     for p in param_names:
-        if env[p].is_floating_point():
+        if p not in sparse and env[p].is_floating_point():
             leaves[p] = env[p].detach().requires_grad_(True)
             env[p] = leaves[p]
-    with torch.enable_grad():
-        run_ops(ctx, fwd_ops, env)
-        loss = env[loss_name]
-        got = [None] * len(leaves)
-        if leaves and loss.requires_grad:  # else no parameter reaches the loss: zero grads
-            got = torch.autograd.grad(loss, list(leaves.values()), torch.ones_like(loss),
-                                      allow_unused=True)
+    taps = SparseTaps(sparse)
+    ctx.sparse_taps = taps if sparse else None
+    try:
+        with torch.enable_grad():
+            run_ops(ctx, fwd_ops, env)
+            loss = env[loss_name]
+            inputs = list(leaves.values()) + taps.leaves()
+            got = [None] * len(inputs)
+            if inputs and loss.requires_grad:  # else no parameter reaches the loss: zero grads
+                got = torch.autograd.grad(loss, inputs, torch.ones_like(loss), allow_unused=True)
+    finally:
+        ctx.sparse_taps = None
     by_param = dict(zip(leaves, got))
     # downstream ops read the scope's tensors and values without history
-    out = {n: (start_env[n] if n in leaves else v.detach()) for n, v in env.items()}
+    out = {n: (start_env[n] if n in leaves else _detached(v)) for n, v in env.items()}
     for p, g in zip(param_names, grad_names):
-        gval = by_param.get(p)
-        if gval is None:
-            gval = torch.zeros_like(start_env[p])
+        if p in sparse:
+            gval = taps.gradient(p, start_env[p], got[len(leaves):])
+        else:
+            gval = by_param.get(p)
+            if gval is None:
+                gval = torch.zeros_like(start_env[p])
         out[g] = gval
         grads_so_far[g] = gval
     return out
+
+
+def _detached(v):
+    return v.detach() if isinstance(v, torch.Tensor) else v

@@ -50,6 +50,33 @@ class Variable:
     def program(self) -> "Program":
         return self.block.program
 
+    # Python operator sugar, as the JAX package's Variable has it
+    def _binary(self, other, op):
+        from ..layers import math_sugar
+
+        return math_sugar.binary(self, other, op)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        from ..layers import math_sugar
+
+        return math_sugar.binary(other, self, "elementwise_sub")
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, dtype={self.dtype}, "
                 f"persistable={self.persistable})")

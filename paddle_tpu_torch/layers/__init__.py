@@ -13,9 +13,14 @@ from .nn import (  # noqa: F401
     matmul,
     mean,
     pool2d,
+    reduce_sum,
     reshape,
+    scale,
+    sigmoid,
+    sigmoid_cross_entropy_with_logits,
     softmax,
     softmax_with_cross_entropy,
+    square,
     topk,
     transpose,
 )

@@ -264,6 +264,58 @@ def mean(x, name=None):
     return out
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x.name], "Label": [label.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = _out(helper, input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": [dim] if isinstance(dim, int) else list(dim), "keep_dim": keep_dim,
+                 "reduce_all": False}
+    helper.append_op("reduce_sum", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+                     attrs=attrs)
+    return out
+
+
+def _act_layer(op_type):
+    def f(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = _out(helper, x.dtype, shape=x.shape)
+        helper.append_op(op_type, inputs={"X": [x.name]}, outputs={"Out": [out.name]})
+        return out
+
+    f.__name__ = op_type
+    return f
+
+
+sigmoid = _act_layer("sigmoid")
+square = _act_layer("square")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op(
+        "scale",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name]},
+        attrs={"scale": float(scale), "bias": float(bias), "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
+
+
 def _matmul_shape(xs, ys, transpose_x, transpose_y):
     """The output shape of matmul when both input shapes are known and the
     batch dims broadcast (-1, the unknown batch, unifies with anything);

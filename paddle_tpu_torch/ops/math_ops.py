@@ -1,5 +1,6 @@
 """Math lowerings: elementwise_add (with the fused bias-act epilogue),
-activations, mean, mul and matmul (counterpart of paddle_tpu/ops/math_ops.py).
+elementwise_sub and elementwise_mul, activations, scale, reduce_sum, mean,
+mul and matmul (counterpart of paddle_tpu/ops/math_ops.py).
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -17,6 +18,8 @@ from .cuda_kernels import fused_bias_act
 _UNARY = {
     "relu": torch.relu,
     "gelu": F.gelu,  # exact erf form, as jax.nn.gelu(approximate=False)
+    "sigmoid": torch.sigmoid,
+    "square": torch.square,
 }
 
 
@@ -31,10 +34,55 @@ for _name, _fn in _UNARY.items():
     register_op(_name)(_unary(_fn))
 
 
-def _add(op, ins):
+def _operands(op, ins):
+    """X, and Y broadcast to X from `axis` in X's float type."""
     x = first(ins, "X")
-    y = match_dtype(x, bcast_y_to_x(x, first(ins, "Y"), op.attr("axis", -1)))
+    return x, match_dtype(x, bcast_y_to_x(x, first(ins, "Y"), op.attr("axis", -1)))
+
+
+def _add(op, ins):
+    x, y = _operands(op, ins)
     return x + y
+
+
+def _binary(fn):
+    def lower(ctx, op, ins):
+        return {"Out": fn(*_operands(op, ins))}
+
+    return lower
+
+
+register_op("elementwise_sub")(_binary(torch.sub))
+register_op("elementwise_mul")(_binary(torch.mul))
+
+
+@register_op("scale")
+def _scale(ctx, op, ins):
+    """x * scale + bias, or (x + bias) * scale without bias_after_scale."""
+    x = first(ins, "X")
+    scale = op.attr("scale", 1.0)
+    bias = op.attr("bias", 0.0)
+    if op.attr("bias_after_scale", True):
+        return {"Out": x * scale + bias}
+    return {"Out": (x + bias) * scale}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, op, ins):
+    """Sum over `dim` (every axis with reduce_all), keeping the reduced axes
+    as 1 with keep_dim.  An integer sum stays int32 (the x32 rule), where
+    torch would widen it to int64."""
+    x = first(ins, "X")
+    if op.attr("reduce_all", False):
+        axes = tuple(range(x.dim()))
+    else:
+        dim = op.attr("dim", [0])
+        dim = [dim] if isinstance(dim, int) else dim
+        axes = tuple(sorted({d % x.dim() for d in dim}))
+    if not axes:
+        return {"Out": x}
+    out = x.sum(axes, keepdim=op.attr("keep_dim", False))
+    return {"Out": out if x.is_floating_point() else out.to(torch.int32)}
 
 
 @register_op("elementwise_add")

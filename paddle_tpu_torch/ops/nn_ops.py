@@ -1,6 +1,7 @@
 """NN lowerings: conv2d, pool2d, batch_norm (with the fused epilogue),
-lookup_table, layer_norm (with the fused residual), dropout, softmax,
-softmax_with_cross_entropy, fused_attention, top_k and accuracy
+lookup_table (with its sparse gradient tap), layer_norm (with the fused
+residual), dropout, softmax, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, fused_attention, top_k and accuracy
 (counterpart of paddle_tpu/ops/nn_ops.py).
 
 Layouts are NCHW only: the JAX package's channels-last paths (the
@@ -163,15 +164,23 @@ def _batch_norm(ctx, op, ins):
 
 @register_op("lookup_table")
 def _lookup_table(ctx, op, ins):
-    """ids carry a trailing dim of 1; padding_idx rows read as zeros."""
+    """ids carry a trailing dim of 1; padding_idx rows read as zeros.  Under
+    is_sparse=True inside a backward region the output is tapped
+    (core/lowering.py SparseTaps) before the padding mask, so the table's
+    gradient is a SelectedRows slab and padded positions get none."""
     w = first(ins, "W")
     flat = flatten_lookup_ids(first(ins, "Ids"))
     out = w[flat]
+    if ctx.sparse_taps is not None and op.attr("is_sparse", False):
+        out = ctx.sparse_taps.tap(op.input("W")[0], flat, out)
     pad = op.attr("padding_idx", None)
     if pad is not None:
         real_pad = pad if pad >= 0 else w.shape[0] + pad
         out = out.masked_fill((flat == real_pad).unsqueeze(-1), 0.0)
     return {"Out": out}
+
+
+register_op("lookup_table_v2")(_lookup_table)
 
 
 def _ln_stats_consumed(ctx, op):
@@ -279,6 +288,22 @@ def _softmax_with_cross_entropy(ctx, op, ins):
         loss = lse - picked.float().sum(-1, keepdim=True)
         loss = torch.where(idx == ignore, torch.zeros_like(loss), loss)
     return {"Loss": loss, "Softmax": softmax}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, op, ins):
+    """max(x, 0) - x*z + log(1 + exp(-|x|)), 0 where the label equals
+    ignore_index; with `normalize`, divided by the count of the other labels
+    (at least 1)."""
+    x = first(ins, "X")
+    label = first(ins, "Label")
+    loss = torch.clamp_min(x, 0.0) - x * label + torch.log1p(torch.exp(-torch.abs(x)))
+    ignore = op.attr("ignore_index", -100)
+    kept = label != ignore
+    loss = torch.where(kept, loss, torch.zeros((), dtype=loss.dtype, device=loss.device))
+    if op.attr("normalize", False):
+        loss = loss / torch.clamp_min(kept.to(x.dtype).sum(), 1.0)
+    return {"Out": loss}
 
 
 @register_op("fused_attention")

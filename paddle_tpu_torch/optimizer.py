@@ -4,8 +4,9 @@
 parameter.  The learning rate is a persistable [1] variable and the
 accumulators are persistable variables, each initialized by a
 `fill_constant` in the startup program, with the same names, ops and attrs
-as the JAX package.  The port has `Adam` and `Momentum` so far; the other
-optimizers and the dygraph (eager) updates come with later slices.
+as the JAX package.  The port has `SGD`, `Momentum`, `Adam` and `Adagrad`
+so far; the other optimizers and the dygraph (eager) updates come with
+later slices.
 """
 from __future__ import annotations
 
@@ -117,6 +118,16 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p.name], "Grad": [g.name], "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name]},
+        )
+
+
 class MomentumOptimizer(Optimizer):
     def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
         super().__init__(learning_rate, **kw)
@@ -186,5 +197,29 @@ class AdamOptimizer(Optimizer):
         )
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p, fill_value=self._initial)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"epsilon": self._epsilon},
+        )
+
+
+SGD = SGDOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer
 Momentum = MomentumOptimizer

@@ -500,3 +500,118 @@ def test_attention_forward_kernel_at_its_edges_on_card(case, dtype):
     ref = torch.logsumexp(ca._scores_plain(q, k, bias, causal, scale)[0], dim=-1)
     assert lse.dtype == torch.float32 and lse.shape == ref.shape
     assert ((lse - ref).abs() <= 1e-5 * (1.0 + ref.abs())).all()
+
+
+# the cross-entropy forward at its edges: one row, a few columns, V below and
+# above the block's vectors, odd V (bf16 rows off the 16-byte grid), BERT's
+# vocabulary at seq 128 and 2048
+XENT_SHAPES = [(1, 1), (3, 7), (301, 1000), (301, 1001), (4096, 30522), (16384, 30522)]
+
+
+def _xent_labels(kind, rows, v, g):
+    labels = torch.randint(0, v, (rows,), generator=g, device="cuda")
+    if kind == "all_ignored":
+        labels[:] = -100
+    else:  # ignored rows, 0, V-1 and labels outside [0, V) that pick 0, in turn
+        cycle = torch.tensor([-100, 0, v - 1, v + 3, -7, -100, -100], device="cuda")
+        pick = torch.arange(rows, device="cuda") % 9
+        labels = torch.where(pick < 7, cycle[pick.clamp(max=6)], labels)
+    return labels.to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["mixed", "all_ignored"])
+@pytest.mark.parametrize("rows,v", XENT_SHAPES, ids=lambda s: str(s))
+def test_xent_forward_kernel_at_its_edges_on_card(rows, v, kind, dtype):
+    """loss and lse against softmax_xent_fwd_plain within 2e-5 (float32 on
+    both sides), lse 0 on ignored rows, into NaN-poisoned memory, for the
+    logits as they are and as a view one element off the 16-byte grid; a
+    second call bit for bit; one launch a call."""
+    _need_card()
+    import chip_smoke  # the repository root's: NaN into the outputs' memory
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    labels = _xent_labels(kind, rows, v, g)
+    live = labels != -100
+    base = (torch.randn(rows * v + 1, generator=g, device="cuda") * 2.0).to(dt)
+    for x in (base[:-1].view(rows, v), base[1:].view(rows, v)):
+        chip_smoke.poison(torch, ((rows,), torch.float32), ((rows,), torch.float32))
+        before = dict(ck.LAUNCHES)
+        loss, lse = ck.softmax_xent_fwd(x, labels)
+        assert {n: ck.LAUNCHES[n] - before[n] for n in before} == dict(NO_LAUNCHES,
+                                                                       softmax_xent_fwd=1)
+        loss_p, lse_p = ck.softmax_xent_fwd_plain(x, labels)
+        assert _err(loss, loss_p) <= 2e-5
+        if bool(live.any()):
+            assert _err(lse[live], lse_p[live]) <= 2e-5
+        assert not loss[~live].any() and not lse[~live].any()
+        again = ck.softmax_xent_fwd(x, labels)
+        assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+
+
+def _tiny_deepfm(opt, lazy=False):
+    """build_zoo(tiny=True)'s DeepFM with Adagrad(0.05) or Adam(1e-3)."""
+    from paddle_tpu_torch.models import deepfm
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = deepfm.build(num_fields=4, vocab_size=50, embed_dim=4,
+                                                 mlp_dims=(8,), with_optimizer=False)
+        with fluid.program_guard(main, startup):
+            (fluid.optimizer.Adagrad(0.05) if opt == "adagrad"
+             else fluid.optimizer.Adam(1e-3, lazy_mode=lazy)).minimize(fetches["loss"])
+    return main, startup, fetches["loss"].name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt,lazy", [("adagrad", False), ("adam", False), ("adam", True)],
+                         ids=["adagrad", "adam", "lazy_adam"])
+def test_tiny_deepfm_trains_on_card_like_cpu(opt, lazy):
+    """3 steps of the tiny DeepFM from one numpy state on the card and on the
+    CPU: losses within 1e-5 relative, every persistable within 1e-5 of its
+    largest magnitude, save (Adam) the elements whose CPU gradient is 0 to
+    rounding at some step, which keep 2*lr*steps + 1e-5.  The Adam kernel
+    runs once per adam op a step, save a lazy one over a SelectedRows
+    gradient; Adagrad launches nothing."""
+    _need_card()
+    main, startup, loss = _tiny_deepfm(opt, lazy)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    rng = np.random.RandomState(0)
+    feed = {"feat_ids": rng.randint(0, 50, (4, 4)).astype("int64"),
+            "label": (rng.rand(4, 1) < 0.3).astype("float32")}
+    params = [p.name for p in main.all_parameters()]
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        before = dict(ck.LAUNCHES)
+        losses, grads = [], []
+        for _ in range(3):
+            out = exe.run(main, feed=feed, fetch_list=[loss] + [f"{p}@GRAD" for p in params],
+                          scope=scope)
+            losses.append(float(out[0].reshape(-1)[0]))
+            grads.append(out[1:])
+        launches = {n: ck.LAUNCHES[n] - before[n] for n in before}
+        runs.append((losses, scope, grads, launches))
+    (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
+    n_adam = 0 if opt == "adagrad" else (len(params) - 2 if lazy else len(params))
+    assert gd == dict(NO_LAUNCHES, adam=3 * n_adam) and cd == NO_LAUNCHES
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    near_zero = {p: np.zeros(state[p].shape, bool) for p in params}
+    if opt == "adam":
+        for step in cpu_grads:
+            peak = max(float(np.abs(g).max()) for g in step)
+            for p, g in zip(params, step):
+                near_zero[p] |= np.abs(g) <= 1e-6 * peak
+    for name in state:
+        want = cs.to_numpy(name)
+        err = np.abs(gs.to_numpy(name) - want)
+        tol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+        if name in near_zero:
+            assert err.max() <= tol + 2 * 1e-3 * 3, name
+            err = err[~near_zero[name]]
+        assert not (err > tol).any(), name

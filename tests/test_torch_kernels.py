@@ -162,6 +162,48 @@ def test_sdpa_matches_pallas(dtype, case, launches_unchanged):
     assert _err(want, got) <= SDPA_TOL[dtype]
 
 
+def _xent_edge_labels(case, rows, v):
+    rng = np.random.RandomState(3)
+    labels = rng.randint(0, v, rows)
+    if case == "all_ignored":
+        labels[:] = -100
+    elif case == "first_and_last":
+        labels[::2], labels[1::2] = 0, v - 1
+    elif case == "outside":  # neither in [0, V) nor ignored: picks 0
+        labels[::3], labels[1::3] = v + 3, -7
+        labels[2] = -100
+    return labels.astype(np.int32)
+
+
+XENT_EDGES = [("all_ignored", 8, 33), ("first_and_last", 8, 33), ("outside", 9, 64),
+              ("odd_v", 6, 1001)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case,rows,v", XENT_EDGES, ids=[c[0] for c in XENT_EDGES])
+def test_xent_forward_edges_match_pallas(case, rows, v, dtype, launches_unchanged):
+    """The cross-entropy forward's plain version (what the CPU runs, and what
+    the card's kernel is held to) against the Pallas kernel in interpret
+    mode at the row-6 kernel's edges: every row ignored (loss 0), labels 0
+    and V-1, labels outside [0, V) that are not ignored (they pick 0), and
+    an odd V, whose bf16 rows start off the 16-byte grid.  Loss float32 on
+    both sides: 2e-5, as FUSED_KERNELS."""
+    logits = (np.random.RandomState(4).randn(rows, v) * 3).astype(np.float32)
+    logits = np.asarray(jnp.asarray(logits, JDT[dtype]))
+    labels = _xent_edge_labels(case, rows, v)
+    want = np.asarray(jpk.fused_softmax_xent(jnp.asarray(logits), jnp.asarray(labels), -100, True))
+    loss, lse = ck.softmax_xent_fwd(_t(logits), _t(labels), -100)
+    assert loss.dtype == lse.dtype == torch.float32
+    assert float(np.abs(loss.numpy() - want[:, 0]).max()) <= 2e-5
+    assert (loss.numpy()[labels == -100] == 0).all()
+    if case == "all_ignored":
+        assert not loss.any()
+    if case == "outside":  # picks 0: the loss is the row's lse
+        out = (labels < 0) & (labels != -100) | (labels >= v)
+        assert out.sum() == 6
+        np.testing.assert_allclose(loss.numpy()[out], lse.numpy()[out], atol=1e-6)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty(4, 8, device="meta")
     b = torch.empty(8, device="meta")

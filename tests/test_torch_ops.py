@@ -161,6 +161,32 @@ CASES = [
      {"Param": F32(4, 6), "Grad": F32(4, 6), "Velocity": F32(4, 6),
       "LearningRate": np.array([0.1], np.float32)}, {"mu": 0.9, "use_nesterov": True},
      ["ParamOut", "VelocityOut"], 1e-6),
+    # the DeepFM slice's ops
+    ("reduce_sum_dims", "reduce_sum", {"X": F32(3, 4, 5)},
+     {"dim": [1, 2], "keep_dim": False, "reduce_all": False}, ["Out"], 1e-5),
+    ("reduce_sum_keep_neg", "reduce_sum", {"X": F32(3, 4, 5)},
+     {"dim": [-1], "keep_dim": True, "reduce_all": False}, ["Out"], 1e-5),
+    ("reduce_sum_all", "reduce_sum", {"X": F32(3, 4, 5)},
+     {"dim": [0], "keep_dim": False, "reduce_all": True}, ["Out"], 1e-5),
+    ("reduce_sum_int32", "reduce_sum", {"X": rng.randint(-9, 9, (3, 4)).astype("int32")},
+     {"dim": [0], "out_dtype": "int32"}, ["Out"], 0.0),
+    ("reduce_sum_bf16", "reduce_sum", {"X": BF16(4, 6)}, {"dim": [1]}, ["Out"], 5e-2),
+    ("square", "square", {"X": F32(4, 5)}, {}, ["Out"], 1e-6),
+    ("sigmoid", "sigmoid", {"X": F32(4, 5) * 4}, {}, ["Out"], 1e-6),
+    ("sub_axis", "elementwise_sub", {"X": F32(2, 3, 4), "Y": F32(3)}, {"axis": 1}, ["Out"], 1e-6),
+    ("sub_same", "elementwise_sub", {"X": F32(2, 3), "Y": F32(2, 3)}, {"axis": -1}, ["Out"], 1e-6),
+    ("mul_axis", "elementwise_mul", {"X": F32(2, 3, 4), "Y": F32(4)}, {"axis": 2}, ["Out"], 1e-6),
+    ("mul_bf16_f32", "elementwise_mul", {"X": BF16(3, 4), "Y": F32(3, 4)},
+     {"axis": -1, "out_dtype": "bfloat16"}, ["Out"], 0.0),
+    ("scale", "scale", {"X": F32(3, 4)}, {"scale": 0.5, "bias": 0.25}, ["Out"], 1e-6),
+    ("scale_bias_first", "scale", {"X": F32(3, 4)},
+     {"scale": -2.0, "bias": 1.5, "bias_after_scale": False}, ["Out"], 1e-6),
+    ("sigmoid_ce", "sigmoid_cross_entropy_with_logits",
+     {"X": F32(6, 1) * 3, "Label": np.array([[1], [0], [-100], [1], [0], [-100]], np.float32)},
+     {"ignore_index": -100}, ["Out"], 1e-6),
+    ("sigmoid_ce_normalize", "sigmoid_cross_entropy_with_logits",
+     {"X": F32(4, 3) * 3, "Label": (rng.rand(4, 3) < 0.5).astype(np.float32)},
+     {"normalize": True}, ["Out"], 1e-6),
 ]
 
 

@@ -257,7 +257,9 @@ def test_training_builders_emit_the_same_ops(dtype):
 
 def test_training_program_is_refused():
     """A training program the port cannot run yet is refused, naming what is
-    missing: SelectedRows gradients of is_sparse embeddings (ROADMAP A5)."""
+    missing: an update op that carries the AMP decorator's FoundInf (ROADMAP
+    A9).  The is_sparse embedding that was refused here before trains since
+    ROADMAP A5 (tests/test_torch_sparse.py): its gradient is a SelectedRows."""
     main, startup = TProgram(), TProgram()
     with t_unique.guard(), tfluid.program_guard(main, startup):
         ids = tfluid.layers.data("ids", [4], dtype="int64")
@@ -267,8 +269,15 @@ def test_training_program_is_refused():
     exe = tfluid.Executor(tfluid.CPUPlace())
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        exe.run(main, feed={"ids": np.zeros((2, 4), np.int64)}, fetch_list=[loss], scope=scope)
+    feed = {"ids": np.zeros((2, 4), np.int64)}
+    grad = next(n for n in main.global_block().ops[-1].input("Grad"))
+    (sr,) = exe.run(main, feed=feed, fetch_list=[grad], scope=scope, return_numpy=False)
+    assert type(sr).__name__ == "SelectedRows" and tuple(sr.values.shape) == (8, 3)
+    main.global_block().create_var("found_inf", shape=(1,), dtype="bool", is_data=True)
+    main.global_block().ops[-1].inputs["FoundInf"] = ["found_inf"]
+    with pytest.raises(NotImplementedError, match="FoundInf"):
+        exe.run(main, feed=dict(feed, found_inf=np.array([False])), fetch_list=[loss],
+                scope=scope)
 
 
 def test_host_arrays_in_scope_are_moved_to_the_place():

@@ -2,8 +2,9 @@
 """Mutation check of the port's element-by-element kernel rules on a CUDA
 card: the bfloat16 attention kernels' (paddle_tpu_torch.ops.cuda_attention
 FWD_BF16_RULE and BWD_BF16_RULE), the bias+activation backward's
-(cuda_kernels.BIAS_ACT_BWD_RULE) and the LayerNorm+residual forward's
-(FUSED_KERNELS' tolerance).
+(cuda_kernels.BIAS_ACT_BWD_RULE), the LayerNorm+residual forward's
+(FUSED_KERNELS' tolerance) and the softmax cross-entropy forward's (2e-5 on
+the loss and lse).
 
     python3 tools/port_attention_mutants.py [NAME ...]
 
@@ -21,8 +22,9 @@ at seq 2048, no bias, not causal):
   - dq_skips_last_key_tile: the dQ kernel stops before its last tile of 64
     keys.
 The row-wise mutants run one call at the BERT-base training shape, bf16,
-[4096, 3072] gelu for the bias+activation backward and [4096, 768] with a
-residual for the LayerNorm forward.  Before the call the caching allocator
+[4096, 3072] gelu for the bias+activation backward, [4096, 768] with a
+residual for the LayerNorm forward and [4096, 30522] with MLM labels (85%
+ignored) for the cross-entropy forward.  Before the call the caching allocator
 is poisoned with NaN tensors of the outputs' sizes (chip_smoke.poison), so
 memory left by an earlier correct call cannot hide an element the mutant
 fails to write; every output is then held to its rule:
@@ -32,7 +34,11 @@ fails to write; every output is then held to its rule:
     band's partial row of dbias;
   - ln_fwd_stops_one_row_early: the forward leaves out the last row;
   - ln_fwd_drops_last_chunk: the forward leaves out the last 16-byte chunk
-    of every row.
+    of every row;
+  - xent_fwd_skips_last_live_row: the softmax cross-entropy forward stops
+    before the last row, which the check labels;
+  - xent_fwd_drops_last_chunk: the cross-entropy forward leaves out the last
+    16-byte chunk of every row.
 Prints one JSON line per mutant (whether a check rejected it, each checked
 output's worst share of its allowance (NaN where poisoned memory showed
 through), the error), and exits 0 only when every mutant was rejected.
@@ -49,6 +55,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTENTION = "paddle_tpu_torch/csrc/flash_attention.cu"
 BIAS_ACT = "paddle_tpu_torch/csrc/bias_act.cu"
 LAYER_NORM = "paddle_tpu_torch/csrc/ln_residual.cu"
+XENT = "paddle_tpu_torch/csrc/softmax_xent.cu"
 
 
 def _after(path, anchor, extra):
@@ -85,6 +92,11 @@ MUTANTS = {
     "ln_fwd_drops_last_chunk": _after(
         LAYER_NORM, "    if (active && col < d) {\n      float sc[VEC], bi[VEC];\n",
         "      if (col + VEC >= d) continue;\n"),
+    "xent_fwd_skips_last_live_row": _after(
+        XENT, "    if (row >= rows) break;\n", "    if (row == rows - 1) break;\n"),
+    "xent_fwd_drops_last_chunk": (
+        XENT, "    if (i < n_vec) {\n      dst[k] = body[i];\n",
+        "    if (i < n_vec - 1) {\n      dst[k] = body[i];\n"),
 }
 CHECK_ATTENTION = (
     "import torch, chip_smoke\n"
@@ -107,6 +119,21 @@ if KERNEL == "bias_act_bwd":
     want = ck.bias_act_bwd_plain(x, b, g, "gelu")
     for w, a, c, t in zip(("dx", "dbias"), got, want, ck.bias_act_bwd_allowed(x, b, g, "gelu", want)):
         shares[w] = float(((a.float() - c.float()).abs() / t).max())
+elif KERNEL == "softmax_xent_fwd":
+    V = 30522
+    x = rn(4096, V, s=2.0)
+    lab = torch.randint(0, V, (4096,), generator=gen, device="cuda")
+    masked = torch.rand(4096, generator=gen, device="cuda") < 0.85
+    lab = torch.where(masked, torch.full_like(lab, -100), lab)
+    lab[-1] = 7  # the last row is labelled: the last live row
+    lab = lab.to(torch.int32)
+    live = lab != -100
+    chip_smoke.poison(torch, ((4096,), torch.float32), ((4096,), torch.float32))
+    loss, lse = ck.softmax_xent_fwd(x, lab)
+    loss_p, lse_p = ck.softmax_xent_fwd_plain(x, lab)
+    tol = chip_smoke.TOL["bfloat16"]["softmax_xent_fwd"]
+    shares["loss"] = float((loss - loss_p).abs().max()) / tol
+    shares["lse"] = float((lse - lse_p)[live].abs().max()) / tol
 else:
     x, r = rn(4096, 768), rn(4096, 768)
     s, b = rn(768, s=0.2, d=torch.float32) + 1.0, rn(768, s=0.1, d=torch.float32)
@@ -124,7 +151,8 @@ if bad:
 def check_code(source):
     if source == ATTENTION:
         return CHECK_ATTENTION
-    kernel = "bias_act_bwd" if source == BIAS_ACT else "ln_residual_fwd"
+    kernel = {BIAS_ACT: "bias_act_bwd", LAYER_NORM: "ln_residual_fwd",
+              XENT: "softmax_xent_fwd"}[source]
     return f"KERNEL = {kernel!r}\n" + CHECK_ROWWISE
 
 

@@ -3,19 +3,27 @@
 against each other on one CUDA card, in turns, and count the instructions
 of their loops.
 
-    python3 tools/port_rowwise_ab.py --parent DIR [--sass] [--out DIR]
+    python3 tools/port_rowwise_ab.py --parent DIR [--kernels NAME ...] [--sass] [--out DIR]
 
 DIR is an unpacked tree of an earlier commit (`git archive`).  The trees
 run in turns, parent, this tree, this tree, parent, each in its own process
-with its own kernel build:
-  - the bias+activation backward (`ck.bias_act_bwd`, gelu) at [4096, 3072]
-    and [16384, 3072] bf16;
-  - the LayerNorm+residual forward (`ck.fused_ln_residual`) at [4096, 768]
-    and [16384, 768] bf16 with a residual, and at the serving batch-1 shape
-    [128, 768].
+with its own kernel build.  The kernels (all three unless --kernels names
+some):
+  - bias_act_bwd: the bias+activation backward (`ck.bias_act_bwd`, gelu) at
+    [4096, 3072] and [16384, 3072] bf16;
+  - ln_residual_fwd: the LayerNorm+residual forward (`ck.fused_ln_residual`)
+    at [4096, 768] and [16384, 768] bf16 with a residual, and at the serving
+    batch-1 shape [128, 768];
+  - softmax_xent_fwd: the softmax cross-entropy forward
+    (`ck.softmax_xent_fwd`) at [4096, 30522] and [16384, 30522] bf16 with
+    MLM labels (85% ignored, as chip_smoke's phase 3 draws them), at
+    [4096, 30522] float32 with the same labels, at ResNet's [256, 1000]
+    bf16 and float32 with every row labelled, and, to split its time, at
+    [4096, 30522] bf16 with every row ignored and with every row labelled.
 Each process first holds each wrapper's output against its plain version
 (the bias-act backward by `ck.bias_act_bwd_allowed` where the tree has it,
-else within 5e-2 * max|plain|; the forward within 5e-2), then times it with
+else within 5e-2 * max|plain|; the forward within 5e-2; the cross-entropy's
+loss and the labelled rows' lse within 2e-5), then times it with
 chip_smoke.time_ms of this tree (CUDA events, median of 100, stream backed
 up), records the device time of each kernel one call launches
 (chip_smoke.launch_split, torch.profiler) at [4096, .], and the host time
@@ -23,8 +31,8 @@ of one call (`host_us`: the median and least of 21 rounds of 50 calls
 enqueued behind a sleeping stream, so none waits for the device, over the
 host clock). With `--sass`, each process also disassembles its tree's
 kernel library (`cuobjdump -sass`) and prints, for each instantiation of
-the two kernels, the instructions of every loop (a backward branch and its
-target) and the opcodes among them, and writes the whole listing under
+the timed kernels, the instructions of every loop (a backward branch and
+its target) and the opcodes among them, and writes the whole listing under
 --out.
 Prints one JSON line per process run.  Imports nothing of JAX or
 paddle_tpu.
@@ -48,8 +56,7 @@ rec = {"tree": TREE}
 info = _build.build()
 log = info["log"].splitlines()
 rec["ptxas"] = [" | ".join(l.strip() for l in log[i:i + 4]) for i, l in enumerate(log)
-                if "Compiling entry function" in l
-                and ("bias_act_bwd" in l or "ln_residual_fwd" in l)]
+                if "Compiling entry function" in l and any(k in l for k in KERNELS)]
 if SASS:
     rec["sass_loops"] = cs_sass(info["path"])
 def host_us(fn, n=50, rounds=21):
@@ -73,7 +80,7 @@ gen = torch.Generator(device="cuda").manual_seed(0)
 dt = torch.bfloat16
 def rn(*shape, s=1.0, d=dt):
     return (torch.randn(*shape, generator=gen, device="cuda") * s).to(d)
-for rows in (4096, 16384):
+for rows in (4096, 16384) if "bias_act_bwd" in KERNELS else ():
     x, g, b = rn(rows, 3072), rn(rows, 3072), rn(3072, s=0.1, d=torch.float32)
     got, want = ck.bias_act_bwd(x, b, g, "gelu"), ck.bias_act_bwd_plain(x, b, g, "gelu")
     if hasattr(ck, "bias_act_bwd_allowed"):
@@ -90,7 +97,7 @@ for rows in (4096, 16384):
         rec[key]["us_per_call"] = cs.launch_split(torch, call)
         rec[key]["host_us"] = host_us(call)
     del x, g, got, want
-for rows in (4096, 16384, 128):
+for rows in (4096, 16384, 128) if "ln_residual_fwd" in KERNELS else ():
     x, r = rn(rows, 768), rn(rows, 768)
     s, b = rn(768, s=0.2, d=torch.float32) + 1.0, rn(768, s=0.1, d=torch.float32)
     err = float((ck.fused_ln_residual(x, r, s, b, 1e-5).float()
@@ -103,20 +110,48 @@ for rows in (4096, 16384, 128):
         rec[key]["us_per_call"] = cs.launch_split(torch, call)
     if rows in (4096, 128):
         rec[key]["host_us"] = host_us(call)
+    del x, r
+XENT = [  # (rows, V, dtype, labels)
+    (4096, 30522, torch.bfloat16, "mlm"), (16384, 30522, torch.bfloat16, "mlm"),
+    (4096, 30522, torch.float32, "mlm"), (256, 1000, torch.bfloat16, "all"),
+    (256, 1000, torch.float32, "all"), (4096, 30522, torch.bfloat16, "none"),
+    (4096, 30522, torch.bfloat16, "all")]
+for rows, v, d, which in XENT if "softmax_xent_fwd" in KERNELS else ():
+    x = rn(rows, v, s=2.0, d=d)
+    lab = torch.randint(0, v, (rows,), generator=gen, device="cuda")
+    if which != "all":
+        masked = torch.rand(rows, generator=gen, device="cuda") < (0.85 if which == "mlm" else 2.0)
+        lab = torch.where(masked, torch.full_like(lab, -100), lab)
+    if which == "mlm":
+        lab[0], lab[1], lab[2] = 0, v - 1, -100
+    lab = lab.to(torch.int32)
+    live = lab != -100
+    (loss, lse), (loss_p, lse_p) = ck.softmax_xent_fwd(x, lab), ck.softmax_xent_fwd_plain(x, lab)
+    err = max(float((loss - loss_p).abs().max()), float((lse - lse_p)[live].abs().max())
+              if bool(live.any()) else 0.0)
+    assert err <= 2e-5, ("softmax_xent_fwd", rows, v, which, err)
+    key = f"softmax_xent_fwd [{rows},{v}] {str(d).split('.')[-1]} {int(live.sum())} rows labelled"
+    call = lambda: ck.softmax_xent_fwd(x, lab)
+    rec[key] = {"ms": cs.time_ms(call), "max_abs_err": err}
+    if (rows, v, d, which) == XENT[0]:
+        rec[key]["us_per_call"] = cs.launch_split(torch, call)
+        rec[key]["host_us"] = host_us(call)
+    del x, loss_p, lse_p
+    torch.cuda.empty_cache()
 print(json.dumps(rec))
 '''
 
 SASS_FN = r'''
 import re
 def cs_sass(lib):
-    """Loops of the two kernels' instantiations in `lib`: for each backward
+    """Loops of the timed kernels' instantiations in `lib`: for each backward
     branch, the instructions from its target to it and their opcodes."""
     cuobj = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")  # beside nvcc
     text = subprocess.run([cuobj, "-sass", lib], capture_output=True, text=True).stdout
     out, keep = {}, []
     for block in text.split("Function : ")[1:]:
         name = block.splitlines()[0].strip()
-        if "bias_act_bwd" not in name and "ln_residual_fwd" not in name:
+        if not any(k in name for k in KERNELS):
             continue
         keep.append("Function : " + block)
         ins, labels, pending = [], {}, []
@@ -161,8 +196,12 @@ def cs_sass(lib):
 '''
 
 
-def run_tree(name, tree, sass, out):
+KERNELS = ("bias_act_bwd", "ln_residual_fwd", "softmax_xent_fwd")
+
+
+def run_tree(name, tree, sass, out, kernels=KERNELS):
     code = (f"ROOT = {ROOT!r}\nTREE = {name!r}\nSASS = {sass!r}\nOUT = {out!r}\n"
+            f"KERNELS = {tuple(kernels)!r}\n"
             + RUN.replace("if SASS:", SASS_FN + "\nif SASS:"))
     run = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True,
                          timeout=900)
@@ -175,15 +214,18 @@ def run_tree(name, tree, sass, out):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="an unpacked tree of an earlier commit")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the kernels to time (default: all)")
     ap.add_argument("--sass", action="store_true", help="count the loops' instructions")
     ap.add_argument("--out", default="", help="directory for the SASS listings")
     args = ap.parse_args()
-    if args.out:
+    if args.out:  # absolute: each tree's process runs in its own directory
+        args.out = os.path.abspath(args.out)
         os.makedirs(args.out, exist_ok=True)
     trees = {"parent": os.path.abspath(args.parent), "this": ROOT}
     ok = True
     for name in ("parent", "this", "this", "parent"):
-        rec = run_tree(name, trees[name], args.sass, args.out)
+        rec = run_tree(name, trees[name], args.sass, args.out, args.kernels)
         ok &= "error" not in rec
         print(json.dumps(rec), flush=True)
     return 0 if ok else 1
