@@ -16,7 +16,9 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      element; the LayerNorm forward and the bias+GELU backward into
      NaN-poisoned memory and also at the seq-2048 rows [16384, .]; the
      cross-entropy forward into NaN-poisoned memory, twice bit for bit, at
-     [4096|16384, 30522] with MLM labels and ResNet's [256, 1000]; the row
+     [4096|16384, 30522] with MLM labels and ResNet's [256, 1000]; NMT's
+     LayerNorm over 512 and bias+ReLU over 2048, forward and backward, at
+     2048 and 2047 rows into NaN-poisoned memory; the row
      kernels' device time split by launch), and
      time kernel, plain version and one PyTorch library call (CUDA events,
      median); the attention forward, dQ and dK/dV kernels also at seq 2048,
@@ -78,7 +80,32 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  16. deepfm_train_parity: float32 DeepFM (MLP 64 x 64), 3 Adagrad and 3
      lazy_mode Adam steps from one numpy state on the card twice (bit for
      bit) and on the CPU (losses 1e-5 relative, every persistable 1e-5 of
-     its largest magnitude).
+     its largest magnitude);
+ 17. nmt_train: Transformer-base NMT at full width (vocab 8000, d 512, 6 + 6
+     layers, 8 heads, d_ff 2048, dropout 0.1, label smoothing 0.1,
+     Adam(noam_decay(512, 400, 2.0), beta2 0.997, epsilon 1e-9); the JAX
+     package's benchmark configuration, tools/bench_kit.py:223-225) trains 6
+     steps on its benchmark's ragged batch (32 pairs of LoDTensors, lengths
+     20-63, bucket 64) through Executor(CUDAPlace(0)).run, float32 then
+     bfloat16: finite losses, the first step (lr 0) leaves every parameter
+     bit for bit unchanged, every step launches LN 30 + 30, bias+ReLU 12 +
+     12 and Adam 256 (no xent, no attention kernel: the soft-label loss and
+     the attention are composites); one more step under torch.profiler;
+ 18. nmt_train_parity: float32 NMT at full width with 2 + 2 layers, dropout
+     0, 3 Adam steps on 4 ragged pairs on the card and on the CPU from one
+     numpy state (phase 7's tolerances; the step counter and the beta pows
+     equal);
+ 19. nmt_decode: build_beam_decode at full width (batch 32, src_len 64, beam
+     4, max_len 64: the encoder once, then a While over the full decoder and
+     one beam_search step) with phase 17's float32 weights through
+     Executor.run: one decode launches the LN forward 12 + 18 x iterations
+     and the bias+ReLU forward 6 + 6 x iterations times, and no backward
+     kernel; one more decode under torch.profiler;
+ 20. nmt_decode_parity: the 2-layer weights of phase 18 decode 4 sentences
+     (beam 4, max_len 16) on the card and on the CPU (ids equal, scores
+     within 1e-4, the smallest top-k margin printed), also with proj.b[eos]
+     lifted so that beams finish at different steps and the loop leaves
+     early; on the card the compiled decode gives the host loop's ids.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -164,6 +191,27 @@ DEEPFM_PER_STEP = dict(NONE, adam=10)
 DEEPFM_PARITY = dict(DEEPFM, mlp_dims=(64, 64))
 DEEPFM_PARITY_BATCH = 512
 PARITY_LR = {"adagrad": 0.05, "adam": 1e-3}
+# Transformer-base NMT in the JAX package's benchmark configuration
+# (tools/bench_kit.py:223-225, tools/donation_audit.py:113-116; Adam's betas and
+# epsilon at paddle_tpu/models/nmt.py:139-142), on its benchmark's batch: 32
+# pairs, lengths uniform in [20, 64) (tools/bench_kit.py:230-240), so the time
+# axis buckets to 64
+NMT = dict(src_vocab=8000, tgt_vocab=8000, d_model=512, n_layers=6, n_heads=8, d_ff=2048,
+           dropout=0.1, label_smooth_eps=0.1, learning_rate=2.0, warmup_steps=400)
+NMT_BATCH = 32
+NMT_T = 64
+# per step: 5 LayerNorms a layer pair (2 encoder, 3 decoder), each with its
+# residual folded in, one bias+ReLU a layer, one Adam update per parameter
+# (src/tgt embedding, proj w/b, 16 per encoder layer, 26 per decoder layer);
+# the soft-label loss and the attention are composites: no xent or attention kernel
+NMT_PER_STEP = dict(NONE, ln_residual_fwd=30, ln_residual_bwd=30, bias_act_fwd=12, bias_act_bwd=12,
+                    adam=256)
+NMT_DECODE = dict(batch_size=NMT_BATCH, src_len=NMT_T, beam_size=4, max_len=64, bos=1, eos=2)
+# phase 20: the 2-layer weights of phase 18, a few sentences
+NMT_PARITY_DECODE = dict(batch_size=4, src_len=16, beam_size=4, max_len=16, bos=1, eos=2)
+# phase 20's second case lifts proj.b[eos] by this, so that beams finish at
+# different steps and the While leaves before max_len
+NMT_EOS_LIFT = 6.0
 # the JAX package's full ResNet-50 training configuration (tools/bench_kit.py:120-131)
 RESNET = dict(depth=50, class_dim=1000, stem="space_to_depth", data_format="NCHW")
 RESNET_BATCHES = (1, 32, 256, 256)
@@ -173,7 +221,7 @@ TRAIN_STEPS = 6
 PARITY_STEPS = 3
 LR = 1e-4
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
+LAUNCH_ORDER = ("nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long")
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
@@ -351,6 +399,37 @@ def hold_bias_act_bwd(torch, ck, x, b, g, act, case):
         errs.append(check_within("bias_act_bwd", w, x.dtype, case, a, c, t, ck.BIAS_ACT_BWD_RULE))
     repeatable("bias_act_bwd", f"dbias {case} {dn}", got[1], ck.bias_act_bwd(x, b, g, act)[1])
     return max(errs)
+
+
+def hold_ln_bwd(torch, ck, x, res, scale, g, case, eps=1e-5):
+    """One call of ck.ln_residual_bwd into NaN-poisoned memory against
+    ln_residual_bwd_plain: dx within grad_tol, dscale and dbias column by
+    column (ck.ln_residual_bwd_allowed), in float32 also within grad_tol;
+    dscale and dbias bit for bit on a second call.  Returns the largest
+    error."""
+    dn = dname(x.dtype)
+    d = (x.shape[1],)
+    poison(torch, (x.shape, x.dtype), (d, torch.float32), (d, torch.float32))
+    got = ck.ln_residual_bwd(x, res, scale, g, eps)
+    want = ck.ln_residual_bwd_plain(x, res, scale, g, eps)
+    errs = [check("ln_residual_bwd", "dx", x.dtype, case, got[0], want[0], grad_tol(dn, want[0]))]
+    for w, a, b, t in zip(("dscale", "dbias"), got[1:], want[1:],
+                          ck.ln_residual_bwd_allowed(x, res, g, eps)):
+        if dn == "float32":
+            t = torch.clamp(t, max=grad_tol(dn, b))
+        errs.append(check_within("ln_residual_bwd", w, x.dtype, case, a, b, t, ck.LN_BWD_RULE))
+    again = ck.ln_residual_bwd(x, res, scale, g, eps)
+    repeatable("ln_residual_bwd", f"dscale {case} {dn}", got[1], again[1])
+    repeatable("ln_residual_bwd", f"dbias {case} {dn}", got[2], again[2])
+    return max(errs)
+
+
+def hold_bias_act_fwd(torch, ck, x, b, act, case):
+    """One call of ck.fused_bias_act into NaN-poisoned memory against
+    bias_act_plain at FUSED_KERNELS' tolerance; returns the error."""
+    poison(torch, (x.shape, x.dtype))
+    return check("bias_act_fwd", "out", x.dtype, case, ck.fused_bias_act(x, b, act),
+                 ck.bias_act_plain(x, b, act), TOL[dname(x.dtype)]["bias_act_fwd"])
 
 
 def hold_xent_fwd(torch, ck, logits, labels, case):
@@ -634,21 +713,7 @@ def check_train_kernels(torch, ck):
             scale = randn(768, s=0.2) + 1.0
             g = randn(rows, 768, dtype=dtype)
             case = f"[{rows},768] residual={with_res}"
-            got = ck.ln_residual_bwd(x, res, scale, g, eps)
-            want = ck.ln_residual_bwd_plain(x, res, scale, g, eps)
-            errs = [check("ln_residual_bwd", "dx", dtype, case, got[0], want[0],
-                          grad_tol(dn, want[0]))]
-            # dscale and dbias column by column (ln_residual_bwd_allowed), in
-            # float32 also within grad_tol
-            for w, a, b, t in zip(("dscale", "dbias"), got[1:], want[1:],
-                                  ck.ln_residual_bwd_allowed(x, res, g, eps)):
-                if dtype == torch.float32:
-                    t = torch.clamp(t, max=grad_tol(dn, b))
-                errs.append(check_within("ln_residual_bwd", w, dtype, case, a, b, t,
-                                         ck.LN_BWD_RULE))
-            again = ck.ln_residual_bwd(x, res, scale, g, eps)
-            repeatable("ln_residual_bwd", f"dscale {case} {dn}", got[1], again[1])
-            repeatable("ln_residual_bwd", f"dbias {case} {dn}", got[2], again[2])
+            errs = [hold_ln_bwd(torch, ck, x, res, scale, g, case)]
             if dtype == torch.bfloat16 and rows == 4096 and with_res:
                 z = (x + res)
                 w_x, b_x = scale.to(dtype), randn(768, dtype=dtype, s=0.1)
@@ -813,6 +878,81 @@ def check_train_kernels(torch, ck):
     for name, rec in record.items():
         emit({"timing": name, **rec})
     return record
+
+
+def check_nmt_kernels(torch, ck, record):
+    """Phase 3, the shapes Transformer-base NMT gives the row kernels: its
+    LayerNorms over D = 512 (another warps-per-row and vector path than
+    BERT's 768) and its bias+ReLU over W = 2048, at the training step's rows
+    (32 x 64 = 2048) and a row count off every tile (2047, as a decode of a
+    few sentences gives), float32 and bfloat16, forward and backward, all
+    into NaN-poisoned memory.  Adds their times at 2048 rows to `record`
+    under at_2048x512_<dtype> and at_2048x2048_relu_<dtype>."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    def timed(err, fn, plain, library, library_name, bytes_moved, ops, shape):
+        b_ms, b_by = bound(bytes_moved, ops, F32_FLOPS)
+        return dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+                    library_ms=time_ms(library), library=library_name, bound_ms=b_ms,
+                    bound_by=b_by, shape=shape)
+
+    eps = 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(dtype)
+        for rows in (2048, 2047):
+            x = randn(rows, 512, dtype=dtype)
+            res = randn(rows, 512, dtype=dtype)
+            scale = randn(512, s=0.2) + 1.0
+            bias = randn(512, s=0.1)
+            g = randn(rows, 512, dtype=dtype)
+            case = f"[{rows},512] residual=True"
+            err_f = hold_ln_fwd(torch, ck, x, res, scale, bias, case)
+            err_b = hold_ln_bwd(torch, ck, x, res, scale, g, case)
+            if rows == 2048:
+                w_x, b_x = scale.to(dtype), bias.to(dtype)
+                z = x + res
+                _, mean, rstd = torch.ops.aten.native_layer_norm(z, [512], w_x, b_x, eps)
+                shape = f"[2048,512] {dn} + residual"
+                record["ln_residual_fwd"][f"at_2048x512_{dn}"] = timed(
+                    err_f, lambda: ck.fused_ln_residual(x, res, scale, bias, eps),
+                    lambda: ck.ln_residual_plain(x, res, scale, bias, eps),
+                    lambda: F.layer_norm(x + res, (512,), w_x, b_x, eps), "F.layer_norm(x+res)",
+                    nbytes(x, res, x, scale, bias), 10.0 * x.numel(), shape)
+                record["ln_residual_bwd"][f"at_2048x512_{dn}"] = timed(
+                    err_b, lambda: ck.ln_residual_bwd(x, res, scale, g, eps),
+                    lambda: ck.ln_residual_bwd_plain(x, res, scale, g, eps),
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        g, z, [512], mean, rstd, w_x, b_x, [True, True, True]),
+                    "aten.native_layer_norm_backward of F.layer_norm(x+res)",
+                    nbytes(x, res, scale, g, x) + 2 * 512 * 4, 20.0 * x.numel(), shape)
+            x = randn(rows, 2048, dtype=dtype)
+            b = randn(2048, s=0.1)
+            g = randn(rows, 2048, dtype=dtype)
+            case = f"[{rows},2048] relu"
+            err_f = hold_bias_act_fwd(torch, ck, x, b, "relu", case)
+            err_b = hold_bias_act_bwd(torch, ck, x, b, g, "relu", case)
+            if rows == 2048:
+                b_x = b.to(dtype)
+                z = x + b_x
+                shape = f"[2048,2048] {dn} relu"
+                record["bias_act_fwd"][f"at_2048x2048_relu_{dn}"] = timed(
+                    err_f, lambda: ck.fused_bias_act(x, b, "relu"),
+                    lambda: ck.bias_act_plain(x, b, "relu"), lambda: F.relu(x + b_x),
+                    "F.relu(x+b)", nbytes(x, x, b), 2.0 * x.numel(), shape)
+                record["bias_act_bwd"][f"at_2048x2048_relu_{dn}"] = timed(
+                    err_b, lambda: ck.bias_act_bwd(x, b, g, "relu"),
+                    lambda: ck.bias_act_bwd_plain(x, b, g, "relu"),
+                    lambda: torch.ops.aten.threshold_backward(g, z, 0).sum(0),
+                    "aten.threshold_backward(g, x+b, 0) then .sum(0): two calls, x+b precomputed",
+                    nbytes(x, b, g, x) + 2048 * 4, 3.0 * x.numel(), shape)
+    for name in ("ln_residual_fwd", "ln_residual_bwd", "bias_act_fwd", "bias_act_bwd"):
+        emit({"timing": name, **{k: v for k, v in record[name].items() if k.startswith("at_2048x")}})
 
 
 def check_bn_kernels(torch, ck):
@@ -1034,8 +1174,8 @@ def launches_of_program(main, loss):
     """Kernel launches one step of `main` makes, read off its pruned ops: every
     layer_norm takes the LN kernel (nothing reads its Mean/Variance), every
     elementwise_add with fuse_act over a 1-D bias the bias-act kernel, every
-    batch_norm over NC + spatial dims the BN epilogue, the loss the xent
-    kernel, every adam op the Adam kernel (save a lazy_mode one over a
+    batch_norm over NC + spatial dims the BN epilogue, a hard-label loss the
+    xent kernel, every adam op the Adam kernel (save a lazy_mode one over a
     sparse table's SelectedRows gradient), every fused_attention op the
     attention forward; each forward kernel has its backward (attention: the
     dQ and the dK/dV kernel)."""
@@ -1053,7 +1193,9 @@ def launches_of_program(main, loss):
                 and len(block.var(op.input("Y")[0]).shape) == 1)
     n_bn = sum(1 for op in ops if op.type == "batch_norm"
                and len(block.var(op.input("X")[0]).shape) >= 3)
-    n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy")
+    # a soft-label loss (NMT's label smoothing) takes the composite
+    n_xent = sum(1 for op in ops if op.type == "softmax_with_cross_entropy"
+                 and not op.attrs.get("soft_label"))
     # a lazy_mode adam op over a SelectedRows gradient updates its rows in plain torch
     sparse = {n for op in ops if op.type == "backward" for n in op.attrs.get("sparse_param_names", [])}
     n_adam = sum(1 for op in ops if op.type == "adam" and not (
@@ -1117,30 +1259,15 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     return launches
 
 
-def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2):
-    """Phases 7 and 14: float32 BERT-base (2 layers, dropout 0) trains
-    PARITY_STEPS Adam steps on the card and on the CPU (plain path) from the
-    same numpy state: unfused attention at batch 2 x 128 (phase 7), the
-    fused_attention op at 32 x 128 and 1 x 2048 (phase 14).
-    The losses must agree to 1e-3; every parameter to 1e-5, save the elements
-    whose CPU gradient lies within ZERO_GRAD of the model's largest at some
-    step: Adam's first step moves a weight by lr * g / (|g| + eps), so where g
-    is 0 to rounding the summation order can flip the step's sign, and those
-    keep the bound 2*lr*steps + 1e-5.  The moments must agree to 1e-4 of the
-    largest of their kind."""
+def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS):
+    """`steps` runs of `main` from the numpy `state` on the card, then on the
+    CPU (plain path): [(losses, scope)] in that order, and param -> the
+    elements whose CPU gradient lies within ZERO_GRAD of the model's largest
+    at some step."""
     import numpy as np
-    from paddle_tpu_torch.models.transformer import make_fake_batch
 
-    main, startup, loss = build_train(fluid, "float32", 2, 0.0, seq_len, fused)
-    init = fluid.Scope()
-    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
-    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
-    for name in state:
-        if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
-            state[name] = np.ones_like(state[name])
-    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(1))
     params = [p.name for p in main.all_parameters()]
-    near_zero = {}  # param -> elements whose CPU gradient is 0 to rounding at some step
+    near_zero = {}
     runs = []
     for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
         scope = fluid.Scope()
@@ -1148,7 +1275,7 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
         exe = fluid.Executor(place)
         on_cpu = isinstance(place, fluid.CPUPlace)
         losses = []
-        for _ in range(PARITY_STEPS):
+        for _ in range(steps):
             out = exe.run(main, feed=feed, scope=scope, fetch_list=[loss] + (
                 [f"{p}@GRAD" for p in params] if on_cpu else []))
             losses.append(float(out[0].reshape(-1)[0]))
@@ -1158,28 +1285,39 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
                     small = np.abs(g) <= ZERO_GRAD * peak
                     near_zero[p] = small | near_zero[p] if p in near_zero else small
         runs.append((losses, scope))
+    return runs, near_zero
+
+
+def hold_parity(record, runs, near_zero, state, lr, steps=PARITY_STEPS):
+    """Card against CPU after Adam steps from one state: the losses to 1e-3;
+    every parameter to 1e-5, save the elements whose CPU gradient is 0 to
+    rounding at some step (`near_zero`): Adam's first step moves a weight by
+    lr * g / (|g| + eps), so where g is 0 to rounding the summation order can
+    flip the step's sign, and those keep the bound 2*lr*steps + 1e-5 (`lr`
+    the largest learning rate of the steps); the moments to 1e-4 of the
+    largest of their kind.  Emits `record` with the numbers, then raises
+    past a tolerance."""
+    import numpy as np
+
     (gl, gs), (cl, cs) = runs
     dloss = max(abs(a - b) for a, b in zip(gl, cl))
-    flip_tol, param_tol = 2 * LR * PARITY_STEPS + 1e-5, 1e-5
+    flip_tol, param_tol = 2 * lr * steps + 1e-5, 1e-5
     worst_p, worst_flip, n_excused = (0.0, ""), 0.0, 0
-    for p in params:
+    for p, small in near_zero.items():
         err = np.abs(gs.to_numpy(p) - cs.to_numpy(p))
-        held = err[~near_zero[p]]
+        held = err[~small]
         worst_p = max(worst_p, (float(held.max()) if held.size else 0.0, p))
         worst_flip = max(worst_flip, float(err.max()))
-        n_excused += int(near_zero[p].sum())
+        n_excused += int(small.sum())
     moments = {}
     for kind in ("moment1", "moment2"):
         names = [n for n in state if n.endswith(f"_{kind}_0")]
         peak = max(float(np.abs(cs.to_numpy(n)).max()) for n in names)
         worst = max(float(np.abs(gs.to_numpy(n) - cs.to_numpy(n)).max()) for n in names)
         moments[kind] = (worst, 1e-4 * peak)
-    attention = "fused attention" if fused else "unfused attention"
-    emit({"phase": phase, "model": f"bert-base f32, 2 layers, dropout 0, {attention}",
-          "batch": batch, "seq_len": seq_len,
-          "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss, "loss_tol": 1e-3,
-          "max_abs_dparam": worst_p[0], "param": worst_p[1], "param_tol": param_tol,
-          "elements_with_gradient_0_to_rounding": n_excused,
+    emit({**record, "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss,
+          "loss_tol": 1e-3, "max_abs_dparam": worst_p[0], "param": worst_p[1],
+          "param_tol": param_tol, "elements_with_gradient_0_to_rounding": n_excused,
           "max_abs_dparam_all": worst_flip, "sign_flip_tol": flip_tol,
           "max_abs_dmoment": {k: w for k, (w, _) in moments.items()},
           "moment_tol": {k: t for k, (_, t) in moments.items()}})
@@ -1193,6 +1331,28 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
     for kind, (worst, tol) in moments.items():
         if not worst <= tol:
             raise AssertionError(f"card vs CPU {kind} differs by {worst} > {tol}")
+
+
+def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2):
+    """Phases 7 and 14: float32 BERT-base (2 layers, dropout 0) trains
+    PARITY_STEPS Adam(LR) steps on the card and on the CPU (plain path) from
+    the same numpy state, held by hold_parity: unfused attention at batch 2 x
+    128 (phase 7), the fused_attention op at 32 x 128 and 1 x 2048 (phase 14)."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0, seq_len, fused)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    for name in state:
+        if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
+            state[name] = np.ones_like(state[name])
+    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(1))
+    runs, near_zero = parity_runs(fluid, main, loss, state, feed)
+    attention = "fused attention" if fused else "unfused attention"
+    hold_parity({"phase": phase, "model": f"bert-base f32, 2 layers, dropout 0, {attention}",
+                 "batch": batch, "seq_len": seq_len}, runs, near_zero, state, LR)
 
 
 def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1):
@@ -1672,6 +1832,300 @@ def deepfm_train_parity(fluid, torch, ck):
         raise AssertionError(f"deepfm parity: {worst_name} exceeds its tolerance {worst}x")
 
 
+def nmt_batch(fluid):
+    """The JAX package's NMT benchmark batch for one step (tools/bench_kit.py
+    :230-240): source lengths, source ids, target lengths, target ids and
+    label ids in that order from RandomState(0), lengths uniform in [20, 64),
+    ids in [1, 8000).  Returns the LoDTensor feed and the lengths."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    lens, feed = {}, {}
+    for name in ("src_word", "trg_word", "lbl_word"):
+        side = "src" if name == "src_word" else "tgt"
+        if side not in lens:
+            lens[side] = rng.randint(20, NMT_T, size=NMT_BATCH)
+        ids = rng.randint(1, 8000, size=(NMT_BATCH, NMT_T, 1))
+        feed[name] = fluid.LoDTensor([ids[i, :n] for i, n in enumerate(lens[side])])
+    return feed, lens
+
+
+def build_nmt(fluid, dtype, n_layers=6, dropout=0.1):
+    """Transformer-base NMT (NMT) with Adam on the noam schedule, random
+    weights from seed 0, through the two fusion passes; returns (main,
+    startup, loss name)."""
+    from paddle_tpu_torch.models import nmt
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = nmt.build_transformer_nmt(
+            **dict(NMT, n_layers=n_layers, dropout=dropout), dtype=dtype)
+    startup.random_seed = 0
+    main.random_seed = 0
+    loss = fetches["loss"].name
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=[loss])
+    return main, startup, loss
+
+
+def nmt_train(fluid, torch, ck, card):
+    """Phase 17: Transformer-base NMT at full width (NMT) trains TRAIN_STEPS
+    steps through Executor(CUDAPlace(0)).run on the benchmark's ragged batch
+    (nmt_batch), float32 and then bfloat16: every loss is finite, the first
+    step (the noam schedule's lr 0) leaves every parameter bit for bit
+    unchanged, and every step launches each kernel as the program's ops say
+    (NMT_PER_STEP).  Records whether the loss of the last step is below that
+    of the second (lr, warmup and dropout are the configuration's, not tuned
+    for 6 steps).  Returns the launches of the counted steps and the
+    float32 scope."""
+    import numpy as np
+
+    feed, lens = nmt_batch(fluid)
+    real_tokens = int(lens["tgt"].sum())
+    launches = dict(NONE)
+    f32_scope = None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        main, startup, loss = build_nmt(fluid, dtype)
+        derived = launches_of_program(main, loss)
+        if derived != NMT_PER_STEP:
+            raise AssertionError(f"the program's kernel ops {derived} != the reckoned {NMT_PER_STEP}")
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        before = {p: scope.find_var(p).clone() for p in params}
+        emit({"phase": "nmt_train", "model": f"transformer-base nmt {dtype}, 6+6 layers, d 512, "
+              "vocab 8000, dropout 0.1, label smoothing 0.1, Adam(noam(512, 400, 2.0))",
+              "batch": NMT_BATCH, "bucket": NMT_T, "real_target_tokens": real_tokens,
+              "parameters": len(params), "setup_s": time.perf_counter() - t0})
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launches()  # the main path's count starts here
+        losses, step_ms = [], []
+        for step in range(TRAIN_STEPS):
+            b4 = dict(ck.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(-1)[0]))
+            delta = {k: ck.LAUNCHES[k] - b4[k] for k in ck.LAUNCHES}
+            emit({"phase": "nmt_train", "dtype": dtype, "step": step, "loss": losses[-1],
+                  "step_ms": step_ms[-1], "launches": delta, "card": card})
+            if not np.isfinite(losses[-1]):
+                raise AssertionError(f"nmt {dtype} step {step}: loss {losses[-1]}")
+            if delta != NMT_PER_STEP:
+                raise AssertionError(f"nmt {dtype} step {step}: launches {delta} != {NMT_PER_STEP}")
+            if step == 0:
+                moved = [p for p in params if not torch.equal(scope.find_var(p), before[p])]
+                if moved:
+                    raise AssertionError(f"nmt {dtype}: the lr-0 first step moved {moved[:4]}")
+        for k, v in ck.LAUNCHES.items():  # read before the profiled step
+            launches[k] += v
+        del before
+        warm = statistics.median(step_ms[1:])
+        emit({"phase": "nmt_train", "dtype": dtype, "losses": losses, "warm_step_ms": warm,
+              "sentences_per_s": NMT_BATCH / warm * 1e3,
+              "real_target_tokens_per_s": real_tokens / warm * 1e3,
+              "padded_target_tokens_per_s": NMT_BATCH * NMT_T / warm * 1e3,
+              "first_step_ms": step_ms[0], "loss_step6_below_step2": losses[-1] < losses[1],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+        profile_run(torch, f"nmt_train {dtype} step",
+                    lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                                    return_numpy=False), card)
+        if dtype == "float32":
+            f32_scope = scope
+    return launches, f32_scope
+
+
+def nmt_train_parity(fluid, torch):
+    """Phase 18: float32 NMT at full width, 2 + 2 layers, dropout 0, trains
+    PARITY_STEPS Adam steps on the noam schedule on 4 ragged pairs, on the
+    card and on the CPU from one numpy state (LN gains 1), held by
+    hold_parity; the step counter and every beta pow must be equal.  Returns
+    the CPU's state after the steps."""
+    import numpy as np
+    from paddle_tpu_torch.models import nmt
+
+    main, startup, loss = build_nmt(fluid, "float32", n_layers=2, dropout=0.0)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    for name in state:
+        if name.endswith(".ln.w"):
+            state[name] = np.ones_like(state[name])
+    feed = nmt.make_fake_nmt_batch([23, 41, 9, 60], [30, 12, 55, 37], 8000, 8000, seed=1)
+    runs, near_zero = parity_runs(fluid, main, loss, state, feed)
+    # the noam lr of the last step, the largest: the counter reads PARITY_STEPS - 1
+    n = PARITY_STEPS - 1
+    lr = NMT["learning_rate"] * NMT["d_model"] ** -0.5 * min(n ** -0.5,
+                                                             n * NMT["warmup_steps"] ** -1.5)
+    hold_parity({"phase": "nmt_train_parity", "model": "transformer nmt f32, 2+2 layers, d 512, "
+                 "vocab 8000, dropout 0", "batch": 4, "lr_last_step": lr}, runs, near_zero,
+                state, lr)
+    (_, gs), (_, cs) = runs
+    counters = [n for n in state if n == "@LR_DECAY_COUNTER@" or "_pow_acc_" in n]
+    unequal = [n for n in counters if not np.array_equal(gs.to_numpy(n), cs.to_numpy(n))]
+    if unequal:
+        raise AssertionError(f"card vs CPU: {unequal[:4]} differ")
+    return {n: cs.to_numpy(n) for n in state}
+
+
+def build_nmt_decode(fluid, n_layers, config):
+    """build_beam_decode at NMT's widths through the two fusion passes (both
+    blocks); returns (main, fetch names: ids, scores, the loop counter, the
+    beams [b, k, max_len])."""
+    from paddle_tpu_torch.models import nmt
+
+    widths = {k: NMT[k] for k in ("src_vocab", "tgt_vocab", "d_model", "n_heads", "d_ff")}
+    with fluid.unique_name.guard():
+        main, _, _, fetches = nmt.build_beam_decode(n_layers=n_layers, **widths, **config)
+    body = main.blocks[1].ops
+    step = next(op.output("Out")[0] for op in body if op.type == "increment")
+    beams = next(op.input("Seqs")[0] for op in body if op.type == "beam_search")
+    names = [fetches["out_ids"].name, fetches["out_scores"].name, step, beams]
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=names)
+    return main, names
+
+
+def launches_of_decode(main, fetch_names, iterations):
+    """Kernel launches of one decode read off its ops: the LayerNorms and the
+    fused bias+ReLU adds of the encoder (block 0, pruned to the fetches) once,
+    those of the While's body once an iteration; no backward kernel."""
+    from paddle_tpu_torch.core.executor import _prune, _runnable_ops
+
+    def counts(ops):
+        ln = sum(1 for op in ops if op.type == "layer_norm" and op.input("Residual"))
+        act = sum(1 for op in ops if op.type == "elementwise_add" and op.attrs.get("fuse_act"))
+        return ln, act
+
+    ln0, act0 = counts(_prune(_runnable_ops(main.global_block()), fetch_names, set()))
+    ln1, act1 = counts(main.blocks[1].ops)
+    return dict(NONE, ln_residual_fwd=ln0 + iterations * ln1,
+                bias_act_fwd=act0 + iterations * act1)
+
+
+def decode_feed(src_rows, src_len):
+    import numpy as np
+
+    padded = np.zeros((len(src_rows), src_len), "int64")
+    for i, r in enumerate(src_rows):
+        padded[i, :len(r)] = r[:, 0]
+    return {"src_word": padded,
+            "src_len_vec": np.array([len(r) for r in src_rows], "int32")}
+
+
+def nmt_decode(fluid, torch, ck, card, scope):
+    """Phase 19: build_beam_decode at NMT's full width (NMT_DECODE: batch 32,
+    src_len 64, beam 4, max_len 64) decodes the benchmark batch's sources with
+    phase 17's float32 weights through Executor(CUDAPlace(0)).run: the While
+    runs on the host, one condition read an iteration.  One decode warms,
+    the next is timed and counted: it launches the LayerNorm forward 12 +
+    18 x iterations times and the bias+ReLU forward 6 + 6 x iterations (as
+    the program's ops say) and no backward kernel; the ids start with bos
+    and are valid tokens, the scores finite.  Returns its launches."""
+    import numpy as np
+
+    feed_t, _ = nmt_batch(fluid)
+    feed = decode_feed(feed_t["src_word"].sequences, NMT_T)
+    main, names = build_nmt_decode(fluid, NMT["n_layers"], NMT_DECODE)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(main, feed=feed, fetch_list=names, scope=scope)  # warm
+    ck.reset_launches()  # the main path's count starts here
+    t0 = time.perf_counter()
+    ids, scores, t_end, _ = exe.run(main, feed=feed, fetch_list=names, scope=scope)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ck.LAUNCHES)
+    iterations = int(t_end[0]) - 1
+    derived = launches_of_decode(main, names, iterations)
+    want = dict(NONE, ln_residual_fwd=12 + 18 * iterations, bias_act_fwd=6 + 6 * iterations)
+    # the best hypothesis of each sentence, bos left out, up to its first eos
+    eos = NMT_DECODE["eos"]
+    ended = (ids[:, 1:] == eos).cumsum(1)
+    out_tokens = int(((ended == 0) | ((ended == 1) & (ids[:, 1:] == eos))).sum())
+    emit({"phase": "nmt_decode", "model": "transformer-base nmt f32, 6+6 layers, beam 4, "
+          "max_len 64, phase 17's weights", "batch": NMT_BATCH, "src_len": NMT_T,
+          "decode_ms": decode_ms, "while_iterations": iterations,
+          "ms_per_iteration": decode_ms / iterations, "output_tokens": out_tokens,
+          "output_tokens_per_s": out_tokens / decode_ms * 1e3,
+          "beam_tokens_per_s": NMT_BATCH * NMT_DECODE["beam_size"] * iterations / decode_ms * 1e3,
+          "launches": launches, "card": card})
+    if not derived == want == launches:
+        raise AssertionError(f"decode launches {launches}, program {derived}, reckoned {want}")
+    if ids.shape != (NMT_BATCH, NMT_DECODE["max_len"]) or not (ids[:, 0] == 1).all() or not (
+            (ids >= 0) & (ids < NMT["tgt_vocab"])).all() or not np.isfinite(scores).all():
+        raise AssertionError(f"decode: ids {ids.shape} / scores out of range")
+    profile_run(torch, "nmt_decode request",
+                lambda: exe.run(main, feed=feed, fetch_list=names, scope=scope), card)
+    return launches
+
+
+def nmt_decode_parity(fluid, torch, state):
+    """Phase 20: build_beam_decode with the 2-layer float32 weights of phase
+    18 (NMT_PARITY_DECODE: batch 4, src_len 16, beam 4, max_len 16), on the
+    card and on the CPU: the ids equal and the scores within 1e-4; the
+    smallest top-k margin of the CPU's search (the k-th candidate's score
+    less the first rejected one's) is printed, so that a flip is explained.
+    The second case lifts proj.b[eos] (NMT_EOS_LIFT): beams finish at
+    different steps and the While leaves early.  On the card the compiled
+    decode also equals the port's host-loop beam_search_decode."""
+    import numpy as np
+    from paddle_tpu_torch.models import nmt
+    from paddle_tpu_torch.ops import misc_ops
+
+    cfg = NMT_PARITY_DECODE
+    rng = np.random.RandomState(5)
+    rows = [rng.randint(3, 8000, (n, 1)) for n in rng.randint(4, cfg["src_len"] + 1,
+                                                              cfg["batch_size"])]
+    feed = decode_feed(rows, cfg["src_len"])
+    main, names = build_nmt_decode(fluid, 2, cfg)
+    widths = {k: NMT[k] for k in ("src_vocab", "tgt_vocab", "d_model", "n_heads", "d_ff")}
+    with fluid.unique_name.guard():
+        infer, _, _, ifetch = nmt.build_nmt_infer(n_layers=2, **widths)
+    top_k = misc_ops.top_k_lower_index_first
+    for lift in (0.0, NMT_EOS_LIFT):
+        params = {n: a.copy() for n, a in state.items()}
+        params["proj.b"][cfg["eos"]] += lift
+        out, margins = [], []
+
+        def top_k_with_margin(x, k):
+            vals, idx = top_k(x, k + 1)
+            margins.append(float((vals[:, k - 1] - vals[:, k]).min()))
+            return vals[:, :k], idx[:, :k]
+
+        for place, on_cpu in ((fluid.CUDAPlace(0), False), (fluid.CPUPlace(), True)):
+            scope = fluid.Scope()
+            fluid.io.load_numpy_params(scope, params, device=place.device)
+            misc_ops.top_k_lower_index_first = top_k_with_margin if on_cpu else top_k
+            try:
+                exe = fluid.Executor(place)
+                out.append(exe.run(main, feed=feed, fetch_list=names, scope=scope))
+            finally:
+                misc_ops.top_k_lower_index_first = top_k
+            if not on_cpu:
+                host_ids, _ = nmt.beam_search_decode(
+                    exe, infer, ifetch["logits"], scope, rows, bos=cfg["bos"], eos=cfg["eos"],
+                    beam_size=cfg["beam_size"], max_len=cfg["max_len"])
+        (g_ids, g_scores, g_t, _), (c_ids, c_scores, c_t, c_beams) = out
+        dscore = float(np.abs(g_scores - c_scores).max())
+        # the step at which each beam emitted its first eos (max_len: never)
+        is_eos = c_beams[:, :, 1:] == cfg["eos"]
+        finish = np.where(is_eos.any(-1), is_eos.argmax(-1) + 1, cfg["max_len"])
+        emit({"phase": "nmt_decode_parity", "eos_lift": lift, "iterations_card": int(g_t[0]) - 1,
+              "iterations_cpu": int(c_t[0]) - 1, "ids_equal": bool(np.array_equal(g_ids, c_ids)),
+              "host_loop_ids_equal": bool(np.array_equal(g_ids, host_ids)),
+              "max_abs_dscore": dscore, "score_tol": 1e-4, "min_top_k_margin": min(margins),
+              "finish_steps": sorted(set(finish.reshape(-1).tolist())), "ids_cpu": c_ids.tolist()})
+        if not (np.array_equal(g_ids, c_ids) and dscore <= 1e-4 and int(g_t[0]) == int(c_t[0])):
+            raise AssertionError(f"decode parity (eos lift {lift}): card vs CPU ids or scores "
+                                 f"differ (|dscore| {dscore})")
+        if not np.array_equal(g_ids, host_ids):
+            raise AssertionError(f"decode parity (eos lift {lift}): compiled vs host-loop ids differ")
+        if lift and not (int(c_t[0]) < cfg["max_len"] and len(set(finish.reshape(-1))) > 1):
+            raise AssertionError("decode parity: with the lifted eos the beams did not finish at "
+                                 f"different steps before max_len: {finish.tolist()}")
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -1699,6 +2153,7 @@ def main():
     timings = check_kernels(torch, ck)
     timings.update(check_attention_kernels(torch, ca))
     timings.update(check_train_kernels(torch, ck))
+    check_nmt_kernels(torch, ck, timings)
     timings.update(check_bn_kernels(torch, ck))
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
@@ -1717,6 +2172,10 @@ def main():
             train_parity(fluid, torch, "train_fused_parity", True, seq_len, batch)
         deepfm_trained = deepfm_train(fluid, torch, ck, tmp, card)
         deepfm_train_parity(fluid, torch, ck)
+        nmt_trained, nmt_scope = nmt_train(fluid, torch, ck, card)
+        nmt_state = nmt_train_parity(fluid, torch)
+        nmt_decoded = nmt_decode(fluid, torch, ck, card, nmt_scope)
+        nmt_decode_parity(fluid, torch, nmt_state)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1728,7 +2187,9 @@ def main():
              "resnet_train": (RESNET_PER_STEP, resnet_trained),
              "train_fused": (FUSED_PER_STEP, fused_trained),
              "train_long": (FUSED_PER_STEP, long_trained),
-             "deepfm_train": (DEEPFM_PER_STEP, deepfm_trained)}
+             "deepfm_train": (DEEPFM_PER_STEP, deepfm_trained),
+             "nmt_train": (NMT_PER_STEP, nmt_trained),
+             "nmt_decode": (dict(NONE, ln_residual_fwd=1, bias_act_fwd=1), nmt_decoded)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

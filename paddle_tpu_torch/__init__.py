@@ -8,16 +8,17 @@ the import:
 
 Programs, saved models and parameters are interchangeable with paddle_tpu.
 The port imports torch and numpy, never jax or paddle_tpu.  It covers the
-serving and the static training paths of BERT-base, ResNet-50 and DeepFM
-(and the MNIST CNN) so far: their ops, passes, layers, io, Predictor,
-`append_backward` with SelectedRows gradients for `is_sparse` tables, and
-`optimizer.SGD`, `Momentum`, `Adam` and `Adagrad`, with
+serving and the static training paths of BERT-base, ResNet-50, DeepFM and
+Transformer NMT (and the MNIST CNN) so far: their ops, passes, layers, io,
+Predictor, `append_backward` with SelectedRows gradients for `is_sparse`
+tables, ragged `LoDTensor` feeds, `While` and the in-program beam search,
+`noam_decay`, and `optimizer.SGD`, `Momentum`, `Adam` and `Adagrad`, with
 hand-written Hopper kernels (csrc/) for LayerNorm+residual, bias+GELU and
 the batch-norm epilogue (forward and backward), attention (forward),
 softmax cross-entropy (forward and backward) and the Adam update.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import clip, flags, inference, io, layers, models, optimizer  # noqa: F401
+from . import clip, flags, inference, io, layers, lod, models, optimizer  # noqa: F401
 from .core import initializer, passes, regularizer, unique_name  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, TPUPlace  # noqa: F401
@@ -32,3 +33,4 @@ from .core.program import (  # noqa: F401
 )
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
+from .lod import LoDTensor, create_lod_tensor  # noqa: F401

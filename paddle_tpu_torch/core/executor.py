@@ -11,15 +11,20 @@ ops runs its regions through `torch.autograd.grad`
 Scope keeps them across runs.  The generator in the Scope advances across
 runs.  A fetched SelectedRows gradient (an `is_sparse` table's) comes back
 as its dense view, or as the SelectedRows itself with return_numpy=False.
+A ragged feed (a `LoDTensor`) becomes its padded carrier and lengths
+(paddle_tpu_torch/lod.py); a `while` op's sub-block counts for pruning
+and write-back as the op's own reads and writes.
 There is no compile cache, no `run_async` and no `steps > 1` yet.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .. import flags
+from ..lod import LoDTensor, lod_var_name
 from .dtypes import to_numpy, to_tensor
 from .lowering import LoweringContext, run_block_with_backward
 from .program import Program, Variable, default_main_program
@@ -66,17 +71,29 @@ def _runnable_ops(block):
     return [op for op in block.ops if op.type not in ("feed", "fetch")]
 
 
+def _effective_io(op):
+    """(reads, writes) of `op`, a `while` op's sub-block included."""
+    reads = list(op.input_arg_names)
+    writes = list(op.output_arg_names)
+    if op.type == "while":
+        for sop in op.block.program.blocks[op.attr("sub_block")].ops:
+            r, w = _effective_io(sop)
+            reads.extend(r)
+            writes.extend(w)
+    return reads, writes
+
+
 def _prune(ops, fetch_names, persistable):
     """Fetch-driven dead-op elimination: keep an op if it (transitively)
-    feeds a fetch or writes a persistable var.  A kept `backward` op needs
-    its loss and its parameters."""
+    feeds a fetch or writes a persistable var, counting a `while` op's
+    sub-block.  A kept `backward` op needs its loss and its parameters."""
     needed = set(fetch_names)
     kept = []
     for op in reversed(ops):
-        outs = op.output_arg_names
+        reads, outs = _effective_io(op)
         if any(o in persistable or o in needed for o in outs):
             kept.append(op)
-            needed.update(op.input_arg_names)
+            needed.update(reads)
             if op.type == "backward":
                 needed.add(op.attrs["loss_name"])
                 needed.update(op.attrs.get("param_names", []))
@@ -85,13 +102,31 @@ def _prune(ops, fetch_names, persistable):
 
 
 def _read_names(ops):
-    """Every name the ops read, a `backward` op's parameters included."""
+    """Every name the ops read, a `while` op's sub-block and a `backward`
+    op's parameters included."""
     names = set()
     for op in ops:
-        names.update(op.input_arg_names)
+        names.update(_effective_io(op)[0])
         if op.type == "backward":
             names.update(op.attrs.get("param_names", []))
     return names
+
+
+def _expand_ragged_feeds(block, feed):
+    """A `LoDTensor`, or a list of per-sequence arrays fed to a var declared
+    with lod_level >= 1, becomes the padded carrier (time axis bucketed,
+    lod.bucket_length) and the int32 lengths `<name>@LOD`."""
+    out = {}
+    for name, value in feed.items():
+        declared_ragged = block.has_var(name) and block.var(name).lod_level >= 1
+        if isinstance(value, LoDTensor) or (
+                declared_ragged and isinstance(value, (list, tuple)) and len(value) > 0
+                and all(isinstance(s, np.ndarray) for s in value)):
+            lt = value if isinstance(value, LoDTensor) else LoDTensor(value)
+            out[name], out[lod_var_name(name)] = lt.padded(bucket=True)
+        else:
+            out[name] = value
+    return out
 
 
 class Executor:
@@ -128,7 +163,7 @@ class Executor:
                 v = to_tensor(v, None, device)  # host arrays, other devices
                 scope.set_var(name, v)
             env[name] = v
-        for name, value in feed.items():
+        for name, value in _expand_ragged_feeds(block, feed).items():
             dtype = block.var(name).dtype if block.has_var(name) else None
             env[name] = to_tensor(value, dtype, device)
 
@@ -141,7 +176,7 @@ class Executor:
         ctx = LoweringContext(gen, device, fetch_names=fetch_names, read_names=read_names)
         env = run_block_with_backward(ctx, ops, env)
         for op in ops:
-            for n in op.output_arg_names:
+            for n in _effective_io(op)[1]:
                 if n in persistable and n in env:
                     scope.set_var(n, env[n])
 

@@ -94,8 +94,34 @@ def run_ops(ctx: LoweringContext, ops: List[Operator], env: Dict[str, torch.Tens
         if op.type in _STRUCTURAL_OPS:
             raise RuntimeError(f"structural op {op.type!r} reached the interpreter; "
                                "the executor must handle it")
-        lower_one(ctx, op, env)
+        if op.type == "while":
+            run_while(ctx, op, env)
+        else:
+            lower_one(ctx, op, env)
     return env
+
+
+def run_while(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) -> None:
+    """A `while` op (counterpart of paddle_tpu/ops/control_flow_ops.py): run
+    its sub-block while the Condition var is true, reading the condition on
+    the host once an iteration.  The carry is what the JAX package's
+    lax.while_loop carries: each name the body writes that exists before
+    the loop.  Each iteration starts from the env before the loop updated
+    by the carry, and only the carry is written back."""
+    cond = op.input("Condition")[0]
+    if cond not in env:
+        raise KeyError(f"while: condition var {cond!r} must exist before the loop")
+    body = [o for o in op.block.program.blocks[op.attr("sub_block")].ops
+            if o.type not in ("feed", "fetch")]
+    written = dict.fromkeys(n for o in body for n in o.output_arg_names)
+    carry = {n: env[n] for n in written if n in env}
+    carry[cond] = env[cond]
+    while bool(carry[cond].reshape(())):
+        inner = dict(env)
+        inner.update(carry)
+        run_ops(ctx, body, inner)
+        carry = {n: inner[n] for n in carry}
+    env.update(carry)
 
 
 def lower_one(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) -> None:

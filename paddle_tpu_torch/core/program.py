@@ -260,6 +260,18 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block under the current one (or `parent_idx`), made current."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self) -> List[Parameter]:
         return self.global_block().all_parameters()
 

@@ -15,6 +15,16 @@ def _out(helper, dtype, shape=None):
     return helper.create_variable_for_type_inference(dtype, shape=shape)
 
 
+def _keep_lod(src, out):
+    """Carry the ragged lengths companion of `src` to `out`, for a layer
+    whose output keeps the time axis (paddle_tpu_torch/lod.py)."""
+    ref = getattr(src, "_lod_ref", None)
+    if ref is not None:
+        out._lod_ref = ref
+        out.lod_level = 1
+    return out
+
+
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
     helper = LayerHelper("fc", name=name, act=act)
     inputs = input if isinstance(input, (list, tuple)) else [input]
@@ -34,7 +44,9 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=Non
     if len(mul_results) != 1:
         raise NotImplementedError("fc over several inputs needs the `sum` op, not ported yet")
     pre_act = helper.append_bias_op(mul_results[0], bias_attr, [size], dim_start=num_flatten_dims)
-    return helper.append_activation(pre_act)
+    out = helper.append_activation(pre_act)
+    # a projection that keeps the time axis keeps the lengths companion
+    return _keep_lod(inputs[0], out) if num_flatten_dims >= 2 else out
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False, padding_idx=None,
@@ -54,7 +66,7 @@ def embedding(input, size, is_sparse=False, is_distributed=False, padding_idx=No
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": padding_idx},
     )
-    return out
+    return _keep_lod(input, out)
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1, groups=None,
@@ -213,7 +225,7 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
         outputs={"Y": [out.name], "Mean": [mean.name], "Variance": [var.name]},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
     )
-    return helper.append_activation(out)
+    return _keep_lod(input, helper.append_activation(out))
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
@@ -229,7 +241,7 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
                "seed": seed if seed is not None else 0,
                "dropout_implementation": dropout_implementation},
     )
-    return out
+    return _keep_lod(x, out)
 
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):
@@ -252,6 +264,7 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-10
         outputs={"Loss": [loss.name], "Softmax": [softmax_out.name]},
         attrs={"soft_label": soft_label, "ignore_index": ignore_index},
     )
+    _keep_lod(logits, loss)
     if return_softmax:
         return loss, softmax_out
     return loss
@@ -313,7 +326,34 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
         outputs={"Out": [out.name]},
         attrs={"scale": float(scale), "bias": float(bias), "bias_after_scale": bias_after_scale},
     )
-    return helper.append_activation(out)
+    return _keep_lod(x, helper.append_activation(out))
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("pow", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"factor": float(factor)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = _out(helper, "float32")
+    helper.append_op("one_hot", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = _out(helper, dtype, shape=label.shape)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    helper.append_op("label_smooth", inputs=inputs, outputs={"Out": [out.name]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
 
 
 def _matmul_shape(xs, ys, transpose_x, transpose_y):
@@ -385,12 +425,21 @@ def transpose(x, perm, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name, act=act)
-    out = _out(helper, x.dtype, shape=x.shape)
-    helper.append_op("elementwise_add", inputs={"X": [x.name], "Y": [y.name]},
-                     outputs={"Out": [out.name]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+def _elementwise_layer(op_type):
+    def f(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = _out(helper, x.dtype, shape=x.shape)
+        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                         outputs={"Out": [out.name]}, attrs={"axis": axis})
+        return _keep_lod(x, helper.append_activation(out))
+
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_min = _elementwise_layer("elementwise_min")
 
 
 def fused_attention(q, k, v, bias=None, causal=False, scale=None, score_dtype=None, name=None):

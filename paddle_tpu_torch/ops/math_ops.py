@@ -1,6 +1,7 @@
 """Math lowerings: elementwise_add (with the fused bias-act epilogue),
-elementwise_sub and elementwise_mul, activations, scale, reduce_sum, mean,
-mul and matmul (counterpart of paddle_tpu/ops/math_ops.py).
+elementwise_sub, _mul, _div and _min, activations, pow, scale, reduce_sum,
+mean, mul, matmul, less_than and logical_and (counterpart of
+paddle_tpu/ops/math_ops.py).
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -54,6 +55,26 @@ def _binary(fn):
 
 register_op("elementwise_sub")(_binary(torch.sub))
 register_op("elementwise_mul")(_binary(torch.mul))
+register_op("elementwise_div")(_binary(torch.div))
+register_op("elementwise_min")(_binary(torch.minimum))
+
+
+@register_op("pow")
+def _pow(ctx, op, ins):
+    """x ** factor, IEEE as jnp.power: 0 ** -0.5 is +inf (the noam schedule's
+    first step reads it)."""
+    return {"Out": torch.pow(first(ins, "X"), op.attr("factor", 1.0))}
+
+
+@register_op("less_than")
+def _less_than(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": torch.lt(x, bcast_y_to_x(x, first(ins, "Y"), op.attr("axis", -1)))}
+
+
+@register_op("logical_and")
+def _logical_and(ctx, op, ins):
+    return {"Out": torch.logical_and(first(ins, "X"), first(ins, "Y"))}
 
 
 @register_op("scale")

@@ -347,3 +347,15 @@ def _accuracy(ctx, op, ins):
         "Correct": correct.reshape(1),
         "Total": torch.full((1,), total, dtype=torch.int32, device=indices.device),
     }
+
+
+@register_op("label_smooth")
+def _label_smooth(ctx, op, ins):
+    """(1 - eps) * x + eps * prior, the prior uniform over the last axis
+    unless PriorDist is given."""
+    x = first(ins, "X")
+    eps = op.attr("epsilon", 0.1)
+    prior = first(ins, "PriorDist")
+    if prior is not None:
+        return {"Out": (1.0 - eps) * x + eps * prior}
+    return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}

@@ -1,7 +1,9 @@
 """Tensor creation / manipulation lowerings (counterpart of
-paddle_tpu/ops/tensor_ops.py)."""
+paddle_tpu/ops/tensor_ops.py): fill_constant, assign, assign_value, the random
+fills, cast, reshape2, transpose2, expand, one_hot and increment."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.dtypes import as_torch_dtype
@@ -66,3 +68,44 @@ def _transpose2(ctx, op, ins):
     # materialized, as the JAX transpose is: the kernels downstream take
     # contiguous tensors
     return {"Out": x.permute(*op.attr("axis")).contiguous(), "XShape": _xshape(ctx, op, x)}
+
+
+@register_op("one_hot")
+def _one_hot(ctx, op, ins):
+    """float32 one-hot over a trailing `depth` axis (ids of shape [..., 1]
+    drop their last axis first); an id outside [0, depth) gives a zero row,
+    as jax.nn.one_hot."""
+    x = first(ins, "X")
+    flat = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
+    classes = torch.arange(op.attr("depth"), device=x.device)
+    return {"Out": (flat[..., None] == classes).to(torch.float32)}
+
+
+@register_op("increment")
+def _increment(ctx, op, ins):
+    """x + step in x's own dtype: an int counter stays int."""
+    x = first(ins, "X")
+    step = op.attr("step", 1.0)
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
+
+
+@register_op("assign_value")
+def _assign_value(ctx, op, ins):
+    """A constant from the op's `values` attr, int64 / float64 as int32 /
+    float32 (the x32 rule)."""
+    out = torch.as_tensor(np.asarray(op.attr("values"))).to(
+        device=ctx.device, dtype=canon_dtype(op.attr("dtype", "float32")))
+    shape = op.attr("shape")
+    return {"Out": out.reshape(shape) if shape else out}
+
+
+@register_op("expand")
+def _expand(ctx, op, ins):
+    """Tile x `expand_times` times along each axis (numpy / jnp.tile)."""
+    return {"Out": torch.tile(first(ins, "X"), tuple(op.attr("expand_times")))}
+
+
+@register_op("assign")
+def _assign(ctx, op, ins):
+    # a copy: the Adam kernel updates its parameter in place
+    return {"Out": first(ins, "X").clone()}

@@ -615,3 +615,107 @@ def test_tiny_deepfm_trains_on_card_like_cpu(opt, lazy):
             assert err.max() <= tol + 2 * 1e-3 * 3, name
             err = err[~near_zero[name]]
         assert not (err > tol).any(), name
+
+
+def _tiny_nmt(builder, **config):
+    """The tiny NMT of tests/test_torch_nmt.py through the two fusion passes."""
+    from paddle_tpu_torch.models import nmt
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = getattr(nmt, builder)(
+            src_vocab=64, tgt_vocab=80, d_model=32, n_layers=2, n_heads=2, d_ff=64, **config)
+    keep = [v.name for v in fetches.values()]
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=keep)
+    return main, startup, fetches
+
+
+@pytest.mark.gpu
+def test_tiny_nmt_trains_and_decodes_on_card_like_cpu():
+    """3 Adam steps of the tiny NMT (noam schedule, ragged feeds) from one
+    numpy state on the card and on the CPU, by chip_smoke's phase 7 rule:
+    losses within 1e-5 relative, parameters within 1e-5 save the elements
+    whose CPU gradient is 0 to rounding at some step (2*lr*steps + 1e-5),
+    moments within 1e-4 of the largest of their kind, the beta pows and
+    the step counter equal; each step launches LN 10 + 10, bias+ReLU 4 + 4
+    and Adam 88.  Then
+    the compiled beam decode (beam 3) from the CPU's state: the card's ids
+    equal the CPU's, the scores within 1e-5, and the kernels launch once a
+    LayerNorm and once a bias+ReLU of the encoder and once each an iteration
+    in the While's body."""
+    _need_card()
+    from paddle_tpu_torch.models import nmt
+
+    main, startup, fetches = _tiny_nmt("build_transformer_nmt", dropout=0.0)
+    loss = fetches["loss"].name
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    for name in state:
+        if name.endswith(".ln.w"):
+            state[name] = np.ones_like(state[name])
+    feed = nmt.make_fake_nmt_batch([5, 9, 3, 7], [6, 4, 8, 2], 64, 80, seed=1)
+    params = [p.name for p in main.all_parameters()]
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        before = dict(ck.LAUNCHES)
+        losses, grads = [], []
+        for _ in range(3):
+            out = exe.run(main, feed=feed, fetch_list=[loss] + [f"{p}@GRAD" for p in params],
+                          scope=scope)
+            losses.append(float(out[0].reshape(-1)[0]))
+            grads.append(out[1:])
+        runs.append((losses, scope, grads, {n: ck.LAUNCHES[n] - before[n] for n in before}))
+    (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
+    assert gd == dict(NO_LAUNCHES, ln_residual_fwd=30, ln_residual_bwd=30, bias_act_fwd=12,
+                      bias_act_bwd=12, adam=3 * len(params)) and cd == NO_LAUNCHES
+    assert len(params) == 88
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    near_zero = {p: np.zeros(state[p].shape, bool) for p in params}
+    for step in cpu_grads:
+        peak = max(float(np.abs(g).max()) for g in step)
+        for p, g in zip(params, step):
+            near_zero[p] |= np.abs(g) <= 1e-6 * peak
+    lr = 2.0 * 32 ** -0.5 * 2 * 400 ** -1.5  # the noam rate of the third step
+    peak = {kind: max(float(np.abs(cs.to_numpy(n)).max()) for n in state
+                      if n.endswith(f"_{kind}_0")) for kind in ("moment1", "moment2")}
+    for name in state:
+        want = cs.to_numpy(name)
+        err = np.abs(gs.to_numpy(name) - want)
+        kind = next((k for k in peak if name.endswith(f"_{k}_0")), None)
+        if name in near_zero:
+            assert err.max() <= 1e-5 + 2 * lr * 3, name
+            held = err[~near_zero[name]]
+            assert held.size == 0 or held.max() <= 1e-5, (name, float(held.max()))
+        elif kind is not None:
+            # a key bias's exact gradient is 0: its moments hold rounding
+            # noise, held against the largest moment of their kind
+            assert err.max() <= 1e-4 * peak[kind], (name, float(err.max()))
+        else:  # beta pows and the step counter
+            np.testing.assert_array_equal(gs.to_numpy(name), want, err_msg=name)
+
+    decode, _, dfetch = _tiny_nmt("build_beam_decode", batch_size=3, src_len=7, beam_size=3,
+                                  max_len=8)
+    step = next(op.output("Out")[0] for op in decode.blocks[1].ops if op.type == "increment")
+    rng = np.random.RandomState(3)
+    src = rng.randint(3, 64, (3, 7)).astype("int64")
+    lens = np.array([7, 4, 5], "int32")
+    src[np.arange(7)[None, :] >= lens[:, None]] = 0
+    outs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, {n: cs.to_numpy(n) for n in params}, device=place.device)
+        before = dict(ck.LAUNCHES)
+        out = fluid.Executor(place).run(
+            decode, feed={"src_word": src, "src_len_vec": lens},
+            fetch_list=[dfetch["out_ids"], dfetch["out_scores"], step], scope=scope)
+        outs.append((out, {n: ck.LAUNCHES[n] - before[n] for n in before}))
+    ((g_ids, g_scores, g_t), g_launch), ((c_ids, c_scores, c_t), c_launch) = outs
+    np.testing.assert_array_equal(g_ids, c_ids)
+    np.testing.assert_allclose(g_scores, c_scores, atol=1e-5, rtol=0)
+    it = int(c_t[0]) - 1
+    assert int(g_t[0]) == int(c_t[0]) and c_launch == NO_LAUNCHES
+    assert g_launch == dict(NO_LAUNCHES, ln_residual_fwd=4 + 6 * it, bias_act_fwd=2 + 2 * it)

@@ -41,8 +41,15 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['paddle_tpu'] = None\n"
         "import paddle_tpu_torch as fluid\n"
+        "from paddle_tpu_torch import lod\n"
+        "from paddle_tpu_torch.layers import control_flow, learning_rate_scheduler, misc, sequence\n"
+        "from paddle_tpu_torch.models import nmt\n"
         "from paddle_tpu_torch.core.registry import registered_ops\n"
         "assert {'fused_attention', 'batch_norm', 'conv2d', 'momentum'} <= set(registered_ops())\n"
+        "assert {'attention_bias', 'position_encoding', 'sequence_pool', 'sequence_mask',\n"
+        "        'one_hot', 'label_smooth', 'pow', 'elementwise_min', 'elementwise_div',\n"
+        "        'increment', 'assign_value', 'less_than', 'logical_and', 'expand',\n"
+        "        'key_padding_bias', 'beam_search', 'beam_search_decode'} <= set(registered_ops())\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', 'paddle_tpu.'))"
         " and sys.modules[m] is not None]\n"
         "print('ok')\n"

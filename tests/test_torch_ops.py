@@ -187,6 +187,95 @@ CASES = [
     ("sigmoid_ce_normalize", "sigmoid_cross_entropy_with_logits",
      {"X": F32(4, 3) * 3, "Label": (rng.rand(4, 3) < 0.5).astype(np.float32)},
      {"normalize": True}, ["Out"], 1e-6),
+    # the NMT slice's ops: training
+    ("pow", "pow", {"X": POS(3, 4)}, {"factor": -0.5}, ["Out"], 1e-6),
+    ("pow_zero_to_inf", "pow", {"X": np.array([0.0, 1.0, 4.0], np.float32)}, {"factor": -0.5},
+     ["Out"], 0.0),
+    ("div_same", "elementwise_div", {"X": F32(2, 3), "Y": POS(2, 3)}, {"axis": -1}, ["Out"], 1e-6),
+    ("div_axis", "elementwise_div", {"X": F32(2, 3, 4), "Y": POS(3)}, {"axis": 1}, ["Out"], 1e-6),
+    ("min_same", "elementwise_min", {"X": F32(2, 3), "Y": F32(2, 3)}, {"axis": -1}, ["Out"], 0.0),
+    ("min_of_inf", "elementwise_min", {"X": np.array([np.inf, 1.0, -2.0], np.float32),
+                                       "Y": np.array([0.0, 2.0, np.inf], np.float32)},
+     {"axis": -1}, ["Out"], 0.0),
+    ("one_hot", "one_hot", {"X": np.array([[[3], [0]], [[5], [1]]])}, {"depth": 6}, ["Out"], 0.0),
+    ("one_hot_out_of_range", "one_hot", {"X": np.array([2, -1, 6, 0])}, {"depth": 6}, ["Out"], 0.0),
+    ("label_smooth", "label_smooth", {"X": np.eye(5, dtype=np.float32)[[0, 3, 4]]},
+     {"epsilon": 0.1}, ["Out"], 1e-7),
+    ("label_smooth_prior", "label_smooth",
+     {"X": np.eye(4, dtype=np.float32)[[1, 2]], "PriorDist": POS(1, 4) / 4}, {"epsilon": 0.2},
+     ["Out"], 1e-7),
+    ("increment_float", "increment", {"X": np.array([-1.0], np.float32)}, {"step": 1.0},
+     ["Out"], 0.0),
+    ("increment_int", "increment", {"X": np.array([3], np.int32)},
+     {"step": 2.0, "out_dtype": "int32"}, ["Out"], 0.0),
+    ("seq_pool_sum", "sequence_pool", {"X": F32(3, 5, 2), "XLod": np.array([2, 5, 1], np.int32)},
+     {"pooltype": "SUM"}, ["Out"], 1e-6),
+    ("seq_pool_average", "sequence_pool",
+     {"X": F32(3, 5, 2), "XLod": np.array([2, 5, 0], np.int32)}, {"pooltype": "AVERAGE"},
+     ["Out"], 1e-6),
+    ("seq_pool_sqrt", "sequence_pool", {"X": F32(3, 4), "XLod": np.array([1, 4, 3], np.int32)},
+     {"pooltype": "SQRT"}, ["Out"], 1e-6),
+    ("seq_pool_max", "sequence_pool", {"X": F32(3, 5, 2), "XLod": np.array([2, 5, 1], np.int32)},
+     {"pooltype": "MAX", "out_dtypes": {"MaxIndex": "int32"}}, ["Out", "MaxIndex"], 0.0),
+    ("seq_pool_last", "sequence_pool", {"X": F32(3, 5, 2), "XLod": np.array([2, 5, 1], np.int32)},
+     {"pooltype": "LAST"}, ["Out"], 0.0),
+    ("seq_pool_first", "sequence_pool", {"X": F32(3, 5), "XLod": np.array([2, 5, 1], np.int32)},
+     {"pooltype": "FIRST"}, ["Out"], 0.0),
+    ("attention_bias", "attention_bias",
+     {"Q": F32(2, 4, 8), "K": F32(2, 6, 8), "KLod": np.array([3, 6], np.int32)}, {},
+     ["Out"], 0.0),
+    ("attention_bias_causal", "attention_bias",
+     {"Q": F32(2, 5, 8), "K": F32(2, 5, 8), "KLod": np.array([2, 5], np.int32)},
+     {"causal": True}, ["Out"], 0.0),
+    ("position_encoding", "position_encoding", {"X": F32(2, 5, 6)}, {}, ["Out"], 1e-6),
+    ("position_encoding_odd_d", "position_encoding", {"X": F32(2, 3, 7)}, {}, ["Out"], 1e-6),
+    # the NMT slice's ops: decoding
+    ("assign_value_int64", "assign_value", {},
+     {"values": np.arange(6).reshape(2, 3), "dtype": "int64", "shape": [2, 3],
+      "out_dtype": "int64"}, ["Out"], 0.0),
+    ("assign_value_float", "assign_value", {},
+     {"values": F32(2, 2), "dtype": "float32", "shape": [2, 2]}, ["Out"], 0.0),
+    ("assign_value_bool", "assign_value", {},
+     {"values": np.array([[True, False]]), "dtype": "bool", "shape": [1, 2], "out_dtype": "bool"},
+     ["Out"], 0.0),
+    ("expand", "expand", {"X": F32(2, 1, 3)}, {"expand_times": [1, 4, 2]}, ["Out"], 0.0),
+    ("assign", "assign", {"X": F32(3, 4)}, {}, ["Out"], 0.0),
+    ("less_than_scalar", "less_than",
+     {"X": np.array([3], np.int32), "Y": np.array([4], np.int32)}, {"out_dtype": "bool"},
+     ["Out"], 0.0),
+    ("less_than", "less_than", {"X": F32(3, 4), "Y": F32(3, 4)}, {"out_dtype": "bool"},
+     ["Out"], 0.0),
+    ("logical_and", "logical_and",
+     {"X": np.array([True, True, False, False]), "Y": np.array([True, False, True, False])},
+     {"out_dtype": "bool"}, ["Out"], 0.0),
+    ("sequence_mask", "sequence_mask", {"X": np.array([3, 0, 6], np.int32)},
+     {"maxlen": 6, "out_dtype": "float32"}, ["Y"], 0.0),
+    ("sequence_mask_int64", "sequence_mask", {"X": np.array([[2], [5]], np.int32)},
+     {"maxlen": 4, "out_dtype": "int64"}, ["Y"], 0.0),
+    ("key_padding_bias", "key_padding_bias", {"X": (rng.rand(3, 5) < 0.6).astype(np.float32)},
+     {}, ["Out"], 0.0),
+    ("beam_search", "beam_search",
+     {"Logits": F32(6, 6, 10), "Seqs": rng.randint(3, 10, (2, 3, 6)).astype(np.int32),
+      "Scores": F32(2, 3), "Finished": np.array([[False, False, False], [False, False, True]]),
+      "StepIdx": np.array([2], np.int32)},
+     {"beam_size": 3, "end_id": 2,
+      "out_dtypes": {"SelectedSeqs": "int32", "FinishedOut": "bool"}},
+     ["SelectedSeqs", "SelectedScores", "FinishedOut"], 1e-6),
+    ("beam_search_first_step", "beam_search",
+     {"Logits": F32(4, 5, 7), "Seqs": np.full((2, 2, 5), 2, np.int32),
+      "Scores": np.array([[0.0, -1e9], [0.0, -1e9]], np.float32),
+      "Finished": np.zeros((2, 2), bool), "StepIdx": np.array([1], np.int32)},
+     {"beam_size": 2, "end_id": 2,
+      "out_dtypes": {"SelectedSeqs": "int32", "FinishedOut": "bool"}},
+     ["SelectedSeqs", "SelectedScores", "FinishedOut"], 1e-6),
+    ("beam_search_decode", "beam_search_decode",
+     {"Seqs": rng.randint(0, 6, (3, 4, 5)).astype(np.int32), "Scores": F32(3, 4)},
+     {"end_id": 2, "out_dtypes": {"SentenceIds": "int32"}},
+     ["SentenceIds", "SentenceScores"], 0.0),
+    ("beam_search_decode_penalty", "beam_search_decode",
+     {"Seqs": rng.randint(0, 6, (3, 4, 5)).astype(np.int32), "Scores": -POS(3, 4)},
+     {"end_id": 2, "length_penalty": 0.6, "out_dtypes": {"SentenceIds": "int32"}},
+     ["SentenceIds", "SentenceScores"], 1e-6),
 ]
 
 
