@@ -25,10 +25,15 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      long causal, causal with Lq < Lk and Lq > Lk, dh 128 and rows whose max
      moves late, within 1/8 of a score tensor of extra memory at kv >= 2048;
   4. serve: build BERT-base at full width in bf16, save it, load it through
-     AnalysisConfig / create_predictor on cuda:0 and answer requests at batch
-     1, 8, 32 and 32 (and one more at 32 under torch.profiler); every request
-     must launch the LayerNorm, bias-act and attention forward kernels exactly
-     25, 12 and 12 times;
+     AnalysisConfig / create_predictor on cuda:0, eager and graphed predictors
+     in turns (eager, graphed, eager, graphed), 3 requests at batch 1, 8 and
+     32 each turn, timed as run and fetch; every request launches the
+     LayerNorm, bias-act and attention forward kernels exactly 25, 12 and 12
+     times (a graphed predictor: its first request at a batch eagerly, its
+     second captures them into a CUDA graph, later ones replay it, and a
+     profiled replay shows the 25, 12 and 12 kernels); the graphed logits
+     equal the eager ones within 5e-2; a batch-32 fetch is staged through
+     pinned host memory;
   5. parity: a float32 BERT-base (2 layers) served on the card and on the CPU
      (plain path) must agree to 1e-3 in the logits;
   6. train: bf16 BERT-base at full width (12 layers, unfused attention,
@@ -36,7 +41,8 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      Executor(CUDAPlace(0)).run on one fixed batch of 32 x 128: the loss is
      finite and falls, and every step launches each kernel exactly as often as
      the program has ops for it (LN 25 + 25, bias-act 12 + 12, xent 1 + 1,
-     Adam 198); one more step runs under torch.profiler;
+     Adam 198); from the second step on the step is a CUDA graph's replay,
+     and one more step, profiled, must show exactly those kernels;
   7. train parity: a float32 BERT-base (2 layers, dropout 0) trained 3 Adam
      steps on the card and on the CPU from the same numpy state must agree in
      the losses (1e-3), in every parameter (1e-5, save where the CPU's
@@ -44,9 +50,10 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      of the largest of their kind);
   8. resnet_serve: bf16 ResNet-50 at full width (224 x 224, 1000 classes,
      space-to-depth stem, fuse_bn_relu) saved for inference and served
-     through AnalysisConfig / create_predictor on cuda:0 at batch 1, 32, 256
-     and 256 (and 256 under torch.profiler): every request launches the BN
-     epilogue forward exactly 53 times and no other kernel;
+     through AnalysisConfig / create_predictor on cuda:0, 3 requests at batch
+     1, 32 and 256 (graphed from the second; one more at 256 profiled): every
+     request launches the BN epilogue forward exactly 53 times and no other
+     kernel;
   9. resnet_parity: a float32 ResNet-50 served on the card and on the CPU
      from the same saved model must agree to 1e-3 in the logits;
  10. resnet_train: bf16 ResNet-50 at full width with Momentum(0.1, 0.9)
@@ -55,7 +62,9 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      where it started, the running statistics move,
      and every step launches the BN epilogue forward and backward 53 times
      each and the cross-entropy forward and backward once, as the program's
-     ops say; one more step runs under torch.profiler;
+     ops say; graphed from the second step (Momentum's velocities and the
+     running statistics are copied back inside the graph); one more step
+     profiled;
  11. resnet_train_parity: a float32 ResNet-50 (batch 8, lr 0.01) takes 3
      Momentum steps on the CPU; each step also runs on the card from the
      CPU's state before it, and the two must agree in the loss, the running
@@ -64,6 +73,10 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  12. train_fused: phase 6 with the fused_attention op (the JAX package's
      benchmark configuration, tools/bench_kit.py:184-187): every step also
      launches the attention forward, dQ and dK/dV kernels 12 times each;
+     eager and graphed in turns (eager, graphed, eager, graphed, each from the
+     startup's seed): warm step, tokens a second, idle share, ATen calls a
+     step and peak memory of each, and the two graphed runs (dropout 0.1)
+     agree bit for bit;
  13. train_long: the same at seq 2048, batch 8 (16,384 tokens a step), with
      peak memory and sequences and tokens per second;
  14. train_fused_parity: phase 7 with the fused_attention op at batch 32 x 128
@@ -74,7 +87,9 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      Executor(CUDAPlace(0)).run on one fixed batch (SelectedRows gradients;
      only the touched rows of the tables and moments change; no kernel), then
      6 steps of the default, densifying Adam (the Adam kernel 10 times a
-     step, as the program's ops say); the loss is finite and falls; then the
+     step, as the program's ops say); the loss is finite and falls; both plans
+     are refused a CUDA graph (SelectedRows gradients) and run eagerly, the
+     reason printed; then the
      model is saved and served through create_predictor at batch 1 and 4096,
      as the Executor's test program computes it;
  16. deepfm_train_parity: float32 DeepFM (MLP 64 x 64), 3 Adagrad and 3
@@ -87,10 +102,12 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      package's benchmark configuration, tools/bench_kit.py:223-225) trains 6
      steps on its benchmark's ragged batch (32 pairs of LoDTensors, lengths
      20-63, bucket 64) through Executor(CUDAPlace(0)).run, float32 then
-     bfloat16: finite losses, the first step (lr 0) leaves every parameter
-     bit for bit unchanged, every step launches LN 30 + 30, bias+ReLU 12 +
-     12 and Adam 256 (no xent, no attention kernel: the soft-label loss and
-     the attention are composites); one more step under torch.profiler;
+     bfloat16, each eager and graphed in turns as phase 12: finite losses,
+     the first step (lr 0) leaves every parameter bit for bit unchanged,
+     every step launches LN 30 + 30, bias+ReLU 12 + 12 and Adam 256 (no
+     xent, no attention kernel: the soft-label loss and the attention are
+     composites), the two graphed runs agree bit for bit; one more step of
+     each under torch.profiler;
  18. nmt_train_parity: float32 NMT at full width with 2 + 2 layers, dropout
      0, 3 Adam steps on 4 ragged pairs on the card and on the CPU from one
      numpy state (phase 7's tolerances; the step counter and the beta pows
@@ -100,18 +117,43 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      one beam_search step) with phase 17's float32 weights through
      Executor.run: one decode launches the LN forward 12 + 18 x iterations
      and the bias+ReLU forward 6 + 6 x iterations times, and no backward
-     kernel; one more decode under torch.profiler;
+     kernel; the plan is refused a CUDA graph (the While reads its condition
+     on the host), the reason printed; one more decode under torch.profiler;
  20. nmt_decode_parity: the 2-layer weights of phase 18 decode 4 sentences
      (beam 4, max_len 16) on the card and on the CPU (ids equal, scores
      within 1e-4, the smallest top-k margin printed), also with proj.b[eos]
      lifted so that beams finish at different steps and the loop leaves
-     early; on the card the compiled decode gives the host loop's ids.
+     early; on the card the compiled decode gives the host loop's ids;
+ 21. graph_parity: 3 Adam steps graphed against 3 eager on the card from one
+     numpy state, by phase 7's tolerances: float32 BERT-base with 2 layers
+     (fused attention, dropout 0, batch 8 x 128) and float32 NMT 2 + 2 (phase
+     18's batch); says whether they agree bit for bit; then conv_order:
+     tiny MNIST with Momentum, 4 steps in two eager and two graphed arms,
+     under cuDNN's default and its deterministic algorithms, each pair's
+     largest difference printed (graphed = eager held under deterministic);
+ 22. executor_depth: bf16 BERT-base at 32 x 128 (fused attention, dropout
+     0.1), six batches: steps=4 over the first four equals four graphed runs
+     bit for bit (losses and every persistable), pipeline.train_loop with
+     max_inflight 2 over the six equals the six runs' losses bit for bit;
+ 23. remat_parity: BuildStrategy.memory_optimize against none, both graphed,
+     3 Adam steps of float32 BERT-base with 2 layers, dropout 0.1, batch 8 x
+     128, by phase 7's tolerances, with each arm's peak memory.
+
+The Executor replays each plan as a CUDA graph from its second run, so a
+wrapper's launch count moves at the first run (eager) and the second (the
+capture) only: each phase holds those counts and reads a replay's launches
+off a profiled replay (`hold_run_launches`, `profile_replay`); the kernels
+line gives the wrappers' counts, the replays' and their sum by path.  The
+executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15 and 17 print its
+counters (held), its dispatch and fetch spans and memory gauges a run of
+steps or requests (`read_monitor`).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 import json
+import math
 import os
 import re
 import shutil
@@ -125,7 +167,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # float32 outside the tensor cores
-BATCHES = (1, 8, 32, 32)
+BATCHES = (1, 8, 32)
+# requests at each batch size in a serving turn: the first of a size runs
+# eagerly, the second captures its CUDA graph, the rest replay it
+REQUESTS = 3
+# eager and graphed in turns, on one host: an A/B of the executor's graphs
+AB_ARMS = ("eager", "graphed", "eager", "graphed")
 KERNEL_INFO = {
     "ln_residual_fwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:170"),
     "ln_residual_bwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:200"),
@@ -154,6 +201,15 @@ NONE = dict.fromkeys(KERNEL_INFO, 0)
 # a kernel of paddle_tpu_torch/csrc by its function name, in a profiler trace
 PORT_KERNEL = re.compile(
     r"::(ln_residual|bias_act|softmax_xent|adam|attention|epilogue|column_sum)\w*_kernel\b")
+# such a kernel's LAUNCHES key (the column sums belong to the LN and bias-act
+# backward launches that start them)
+KERNEL_OF = re.compile(r"::(\w+?)(?:_f32)?_kernel\b")
+KERNEL_KEY = {"ln_residual_fwd": "ln_residual_fwd", "ln_residual_bwd": "ln_residual_bwd",
+              "bias_act_fwd": "bias_act_fwd", "bias_act_bwd": "bias_act_bwd",
+              "softmax_xent_fwd": "softmax_xent_fwd", "softmax_xent_bwd": "softmax_xent_bwd",
+              "adam": "adam", "attention_fwd": "attention_fwd",
+              "attention_bwd_dq": "attention_bwd_dq", "attention_bwd_dkv": "attention_bwd_dkv",
+              "epilogue_fwd": "bn_epilogue_fwd", "epilogue_bwd": "bn_epilogue_bwd"}
 # launches per request of BERT-base (12 layers) served with fused attention:
 # every LN, every GELU and every attention is a kernel; no backward kernel runs
 PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12, attention_fwd=12)
@@ -214,7 +270,7 @@ NMT_PARITY_DECODE = dict(batch_size=4, src_len=16, beam_size=4, max_len=16, bos=
 NMT_EOS_LIFT = 6.0
 # the JAX package's full ResNet-50 training configuration (tools/bench_kit.py:120-131)
 RESNET = dict(depth=50, class_dim=1000, stem="space_to_depth", data_format="NCHW")
-RESNET_BATCHES = (1, 32, 256, 256)
+RESNET_BATCHES = (1, 32, 256)
 RESNET_TRAIN_BATCH = 256
 RESNET_PARITY_LR = 0.01
 TRAIN_STEPS = 6
@@ -1063,7 +1119,12 @@ def save_model(fluid, torch, dirname, dtype, n_layers, unit_ln_scale=False):
 
 
 def serve(fluid, torch, ck, tmp, card):
-    """Phase 4: bf16 BERT-base through AnalysisConfig / create_predictor on cuda:0."""
+    """Phase 4: bf16 BERT-base through AnalysisConfig / create_predictor on
+    cuda:0: an eager and a graphed predictor in turns (AB_ARMS), REQUESTS
+    requests at each batch of BATCHES a turn, timed as run (to the
+    device's end) and fetch (the host copy); the graphed predictor's
+    logits equal the eager one's within the bf16 forward tolerance; a
+    batch-32 fetch is staged through pinned host memory."""
     import numpy as np
     from paddle_tpu_torch.core.dtypes import to_numpy
     from paddle_tpu_torch.models.transformer import make_fake_batch
@@ -1071,39 +1132,129 @@ def serve(fluid, torch, ck, tmp, card):
     model_dir = os.path.join(tmp, "bert_base_bf16")
     t0 = time.perf_counter()
     save_model(fluid, torch, model_dir, "bfloat16", 12)
-    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    predictors = {}
+    for arm in ("eager", "graphed"):
+        config = fluid.inference.AnalysisConfig(model_dir)
+        config._graphs = arm == "graphed"
+        predictors[arm] = fluid.inference.create_predictor(config)
     emit({"phase": "serve", "model": "bert-base bf16", "setup_s": time.perf_counter() - t0,
-          "place": repr(predictor.config.place)})
+          "place": repr(predictors["graphed"].config.place)})
     rng = np.random.RandomState(0)
+    feeds = {b: make_fake_batch(b, 128, 30522, rng=rng) for b in BATCHES}
+    torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
-    for batch in BATCHES:
-        feed = make_fake_batch(batch, 128, 30522, rng=rng)
-        before = dict(ck.LAUNCHES)
+    runs = {arm: dict.fromkeys(BATCHES, 0) for arm in predictors}
+    warm = {arm: {b: [] for b in BATCHES} for arm in predictors}
+    eager_logits = {}
+    for turn, arm in enumerate(AB_ARMS):
+        predictor = predictors[arm]
+        fluid.monitor.reset()
+        indices = []
+        for batch in BATCHES:
+            for _ in range(REQUESTS):
+                i = runs[arm][batch]
+                indices.append(i)
+                runs[arm][batch] += 1
+                before = dict(ck.LAUNCHES)
+                t0 = time.perf_counter()
+                (out,) = predictor.run(feeds[batch], return_numpy=False)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits = to_numpy(out)
+                t2 = time.perf_counter()
+                delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+                replayed = hold_run_launches(predictor.exe, i, delta, PER_REQUEST,
+                                             f"serve {arm} batch {batch}", "serve")
+                emit({"request": batch, "arm": arm, "graphed": replayed,
+                      "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
+                      "fetch_ms": (t2 - t1) * 1e3, "logits_shape": list(logits.shape),
+                      "launches": delta, "card": card})
+                if logits.shape != (batch * 128, 30522) or not np.isfinite(logits).all():
+                    raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
+                                         f"{bool(np.isfinite(logits).all())}")
+                if i >= (2 if arm == "graphed" else 1):  # warm: past warm-up and capture
+                    warm[arm][batch].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+                if arm == "eager" and batch not in eager_logits:
+                    eager_logits[batch] = logits
+                elif arm == "graphed" and i == 2:
+                    diff = float(np.abs(logits - eager_logits[batch]).max())
+                    emit({"request": batch, "graphed_vs_eager_max_abs_dlogits": diff,
+                          "tol": TOL["bfloat16"]["ln_residual_fwd"]})
+                    if not diff <= TOL["bfloat16"]["ln_residual_fwd"]:
+                        raise AssertionError(f"batch {batch}: graphed vs eager logits differ "
+                                             f"by {diff}")
+        read_monitor(f"serve {arm} turn {turn}", monitor_want(indices, arm == "graphed"), card)
+    del eager_logits
+    launches = dict(ck.LAUNCHES)  # read before the checks and profiled requests below
+    emit({"phase": "serve", "card": card, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "warm": {arm: {str(b): {"run_ms": statistics.median(r for r, _ in v),
+                                  "fetch_ms": statistics.median(f for _, f in v),
+                                  "requests": len(v)} for b, v in per.items()}
+                   for arm, per in warm.items()}})
+    # the fetch of return_numpy=True goes through pinned host memory
+    staged, real_empty = [], torch.empty
+
+    def spy(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        if kwargs.get("pin_memory"):
+            staged.append({"shape": list(t.shape), "dtype": str(t.dtype), "pinned": t.is_pinned()})
+        return t
+
+    big = BATCHES[-1]
+    torch.empty = spy
+    try:
         t0 = time.perf_counter()
-        (out,) = predictor.run(feed, return_numpy=False)
+        (logits,) = predictors["graphed"].run(feeds[big])
+        request_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.empty = real_empty
+    # where the fetch's time goes: the pinned copy, the host's widening of
+    # the bf16 copy, and beside them a pageable copy and a widening on the
+    # device followed by a pinned copy of the float32 logits; each timed
+    # twice, the second kept (the caching host allocator then has the
+    # pinned blocks, as a serving loop's fetches find them)
+    (out,) = predictors["graphed"].run(feeds[big], return_numpy=False)
+    split, host, wide = {}, None, None
+    for what in [w for w in ("pinned_copy", "host_widen", "pageable_copy",
+                             "device_widen_pinned_copy") for _ in range(2)]:
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        logits = to_numpy(out)
-        t2 = time.perf_counter()
-        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        emit({"request": batch, "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
-              "fetch_ms": (t2 - t1) * 1e3, "logits_shape": list(logits.shape),
-              "launches": delta, "card": card})
-        if logits.shape != (batch * 128, 30522) or not np.isfinite(logits).all():
-            raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
-                                 f"{bool(np.isfinite(logits).all())}")
-        if delta != PER_REQUEST:
-            raise AssertionError(f"batch {batch}: kernel launches {delta} != {PER_REQUEST}")
-    launches = dict(ck.LAUNCHES)  # read before the profiled request
-    feed = make_fake_batch(BATCHES[-1], 128, 30522, rng=rng)
-    profile_run(torch, BATCHES[-1], lambda: predictor.run(feed, return_numpy=False), card)
+        t0 = time.perf_counter()
+        if what == "pinned_copy":
+            host = None  # back to the allocator's cache first
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.synchronize()
+        elif what == "host_widen":
+            host.float().numpy()
+        elif what == "pageable_copy":
+            out.cpu()
+        else:
+            wide = None
+            wide = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
+            wide.copy_(out.float(), non_blocking=True)
+            torch.cuda.synchronize()
+        split[f"{what}_ms"] = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "serve_fetch", "batch": big, "request_ms": request_ms, "staged": staged,
+          "bytes": out.numel() * out.element_size(), **split, "card": card})
+    if not (len(staged) == 1 and staged[0]["pinned"] and staged[0]["dtype"] == "torch.bfloat16"
+            and logits.shape == (big * 128, 30522)):
+        raise AssertionError(f"the batch-{big} fetch was not staged through pinned memory: {staged}")
+    profile_replay(torch, f"serve graphed request {big}",
+                   lambda: predictors["graphed"].run(feeds[big], return_numpy=False), card,
+                   PER_REQUEST)
+    profile_run(torch, f"serve eager request {big}",
+                lambda: predictors["eager"].run(feeds[big], return_numpy=False), card)
     return launches
 
 
 def profile_run(torch, what, run, card):
     """One more warm run of `run()` under torch.profiler: device time by kernel
     (the ten largest, and every kernel of the port's own) and the device's
-    idle share of the run (profiler overhead included)."""
+    idle share of the run (profiler overhead included).  Returns the port's
+    kernels that ran, by LAUNCHES key (a CUDA graph's replay shows each of
+    its kernels, so a replayed step's launches are read here), and the
+    record."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1121,16 +1272,117 @@ def profile_run(torch, what, run, card):
     # the port's own kernels (csrc/), whatever their rank
     ours = sorted((e for e in kernels if PORT_KERNEL.search(e.key)),
                   key=lambda e: -e.self_device_time_total)
-    emit({"profile": what, "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e3 / run_ms, "card": card,
-          "kernel_launches": sum(e.count for e in kernels),
-          "host_aten_calls": sum(e.count for e in host_ops),
-          "top_kernels": [{"name": e.key[:80], "calls": e.count,
-                           "device_ms": e.self_device_time_total / 1e3} for e in top],
-          "port_kernels": [{"name": e.key[:80], "calls": e.count,
-                            "device_ms": e.self_device_time_total / 1e3} for e in ours],
-          "top_host_ops": [{"name": e.key, "calls": e.count,
-                            "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in top_host]})
+    counts = dict(NONE)
+    for e in ours:
+        key = KERNEL_KEY.get(KERNEL_OF.search(e.key).group(1))
+        if key is not None:
+            counts[key] += e.count
+    record = {"profile": what, "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
+              "device_idle_share": 1.0 - busy_us / 1e3 / run_ms, "card": card,
+              "kernel_launches": sum(e.count for e in kernels),
+              "graph_launches": sum(e.count for e in events if e.key == "cudaGraphLaunch"),
+              "host_aten_calls": sum(e.count for e in host_ops),
+              "port_kernel_launches": {k: v for k, v in counts.items() if v},
+              "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                               "device_ms": e.self_device_time_total / 1e3} for e in top],
+              "port_kernels": [{"name": e.key[:80], "calls": e.count,
+                                "device_ms": e.self_device_time_total / 1e3} for e in ours],
+              "top_host_ops": [{"name": e.key, "calls": e.count,
+                                "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in top_host]}
+    emit(record)
+    return counts, record
+
+
+# the kernels that replays ran on each path of the kernels line, by path: a
+# replay runs no wrapper, so hold_run_launches adds the graph's launches
+# (held at its capture, and read off a profiled replay by profile_replay)
+# for each run after the capture
+REPLAYED = {}
+
+
+def hold_run_launches(exe, run_index, delta, per_run, what, path=None):
+    """Hold the launches the wrappers counted in one run of a plan: an eager
+    plan counts `per_run` every run; a graphed one counts them at its first
+    run (eager, the warm-up) and its second (the capture, which records one
+    step into the graph and then replays it), and none after (replays), and
+    its graph must hold exactly `per_run`.  A replay after the capture adds
+    `per_run` to REPLAYED[path].  Returns whether the run replayed a
+    graph."""
+    plan = exe.last_plan
+    want = per_run if not plan.graphable or run_index < 2 else NONE
+    if delta != want:
+        raise AssertionError(f"{what}, run {run_index}: launches {delta} != {want}")
+    replayed = plan.graphable and run_index >= 1
+    if replayed and not (plan.graphed and plan.captured_launches == per_run):
+        raise AssertionError(f"{what}, run {run_index}: no graph holding {per_run} was replayed "
+                             f"(graphed {plan.graphed}, captured {plan.captured_launches})")
+    if path is not None and replayed and run_index >= 2:
+        add_launches(REPLAYED.setdefault(path, dict(NONE)), per_run)
+    return replayed
+
+
+def monitor_want(run_indices, graphed, refused=0):
+    """The executor's counters over runs of plans whose indices (each the
+    plan's how-many-th run, from 0) are `run_indices`: a cache miss at a
+    plan's first run and a hit after, one step record a run; a graphed
+    plan captures at its second run and replays from there on; `refused`
+    plans built with their graph refused."""
+    want = {"executor.cache_miss": sum(i == 0 for i in run_indices),
+            "executor.cache_hit": sum(i > 0 for i in run_indices),
+            "executor.steps": len(run_indices), "executor.graph_refused": refused}
+    if graphed:
+        want["executor.graph_capture"] = sum(i == 1 for i in run_indices)
+        want["executor.graph_replay"] = sum(i > 0 for i in run_indices)
+    return {k: v for k, v in want.items() if v}
+
+
+def read_monitor(what, want, card):
+    """The executor layer's metrics (PERF.md section 3) over the runs since
+    the monitor's last reset: its counters, held equal to `want`
+    (monitor_want); the spans executor.dispatch (feeds in, plan found, the
+    step enqueued), executor.fetch (host copies and the NaN/Inf guard) and
+    executor.build (a miss's plan), with calls, mean, min and max ms; each
+    run's dispatch ms, in order, from the step records (the first runs of a
+    plan, warm-up and capture, dominate the mean); the memory gauges.
+    Emitted, then the monitor is reset.  Returns the record."""
+    from paddle_tpu_torch import monitor
+
+    mon = monitor.get_monitor()
+    counters = {k: v for k, v in mon.counter_values().items() if v}
+    spans = {n: {"calls": a["calls"], "mean_ms": a["total_s"] / a["calls"] * 1e3,
+                 "min_ms": a["min_s"] * 1e3, "max_ms": a["max_s"] * 1e3}
+             for n, a in sorted(mon.span_stats().items())}
+    dispatch = [r["t_dispatch_s"] * 1e3 for r in mon.step_records() if r["kind"] == "step"]
+    gauges = {n: mon.gauge(n).read() for n in ("memory.device_bytes_in_use",
+                                                "memory.device_bytes_reserved",
+                                                "memory.device_alloc_retries")}
+    record = {"monitor": what, "counters": counters, "spans": spans,
+              "dispatch_ms_by_run": dispatch, "gauges": gauges, "card": card}
+    emit(record)
+    monitor.reset()
+    if counters != want:
+        raise AssertionError(f"{what}: the executor's monitor counted {counters} != {want}")
+    return record
+
+
+def profile_replay(torch, what, run, card, per_run):
+    """profile_run of a graph's replay, whose port kernels must equal the
+    reckoned launches `per_run`.  The profiler once lost the first ~500
+    kernel records of a 3,189-kernel replay (12.6 of its 17.0 ms of kernels
+    seen, the forward's uncounted), so a replay whose count differs is
+    profiled again, up to 3 times: the graph replays the same kernels every
+    time, so a wrong graph never passes.  Returns the passing record."""
+    for attempt in range(3):
+        counts, record = profile_run(torch, what, run, card)
+        emit({"replay_launches": what, "graphed": True, "attempt": attempt, "launches": counts})
+        if counts == per_run:
+            return record
+    raise AssertionError(f"{what}: the profiled graph replay launched {counts} != {per_run}")
+
+
+def add_launches(total, delta):
+    for k, v in delta.items():
+        total[k] += v
 
 
 def parity(fluid, torch, tmp):
@@ -1207,29 +1459,26 @@ def launches_of_program(main, loss):
                 attention_bwd_dkv=n_attn, attention_bwd_dq=n_attn)
 
 
-def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
-          per_step=PER_STEP):
-    """Phases 6, 12 and 13: bf16 BERT-base (12 layers, dropout 0.1, Adam lr
-    1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed
-    batch of `batch` x `seq_len`, with unfused attention (phase 6) or the
-    fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8)."""
+def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per_step,
+              launches, tokens, check_first_step=None):
+    """TRAIN_STEPS steps of `main` on one fixed `feed` through a fresh
+    Executor(CUDAPlace(0)) and scope, eager or graphed (`arm`): every loss
+    finite, the last below the first, each step's launches held
+    (hold_run_launches), added to `launches`, the executor's monitor read
+    (read_monitor); then one step profiled (a graphed arm's replay must
+    launch exactly `per_step`).  Returns the losses, the scope and the
+    arm's record (warm step: the median of steps 3-6, past the warm-up and
+    the capture)."""
     import numpy as np
-    from paddle_tpu_torch.models.transformer import make_fake_batch
 
-    t0 = time.perf_counter()
-    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused)
-    derived = launches_of_program(main, loss)
-    if derived != per_step:
-        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
-    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=arm == "graphed")
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0))
-    attention = "fused attention" if fused else "unfused attention"
-    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4",
-          "batch": batch, "seq_len": seq_len, "setup_s": time.perf_counter() - t0})
+    if check_first_step is not None:
+        check_first_step(scope, None)
+    fluid.monitor.reset()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()  # the main path's count starts here
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
@@ -1239,47 +1488,113 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.reshape(-1)[0]))
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        emit({"phase": phase, "step": step, "loss": losses[-1], "step_ms": step_ms[-1],
-              "launches": delta, "card": card})
+        add_launches(launches, delta)
+        replayed = hold_run_launches(exe, step, delta, per_step, f"{phase} {arm}", phase)
+        emit({"phase": phase, "arm": arm, "step": step, "graphed": replayed, "loss": losses[-1],
+              "step_ms": step_ms[-1], "launches": delta, "card": card})
         if not np.isfinite(losses[-1]):
-            raise AssertionError(f"step {step}: loss {losses[-1]}")
-        if delta != per_step:
-            raise AssertionError(f"step {step}: kernel launches {delta} != {per_step}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    launches = dict(ck.LAUNCHES)  # read before the profiled step
-    warm = statistics.median(step_ms[1:])
-    emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
-          "sequences_per_s": batch / warm * 1e3, "tokens_per_s": batch * seq_len / warm * 1e3,
-          "first_step_ms": step_ms[0], "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "card": card})
-    profile_run(torch, f"{phase} step",
-                lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                                return_numpy=False), card)
+            raise AssertionError(f"{phase} {arm} step {step}: loss {losses[-1]}")
+        if step == 0 and check_first_step is not None:
+            check_first_step(scope, step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mon = read_monitor(f"{phase} {arm}", monitor_want(range(TRAIN_STEPS), arm == "graphed"), card)
+    step = lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,  # noqa: E731
+                           return_numpy=False)
+    if arm == "graphed":
+        prof = profile_replay(torch, f"{phase} graphed step", step, card, per_step)
+    else:
+        _, prof = profile_run(torch, f"{phase} {arm} step", step, card)
+    warm = statistics.median(step_ms[2:])
+    record = {"phase": phase, "arm": arm, "graphed": arm == "graphed", "losses": losses,
+              "warm_step_ms": warm, "steps_per_s": 1e3 / warm,
+              **{f"{k}_per_s": v / warm * 1e3 for k, v in tokens.items()},
+              "first_step_ms": step_ms[0], "second_step_ms": step_ms[1], "peak_mem_gb": peak,
+              "warm_dispatch_ms": statistics.median(mon["dispatch_ms_by_run"][2:]),
+              "profiled_step_ms": prof["run_ms"], "device_busy_ms": prof["device_busy_ms"],
+              "device_idle_share": prof["device_idle_share"],
+              "host_aten_calls": prof["host_aten_calls"], "card": card}
+    emit(record)
+    return losses, scope, record
+
+
+def hold_graphed_repeat(phase, runs):
+    """Two graphed arms from one seed (dropout included) agree bit for bit in
+    every loss and every persistable."""
+    import torch
+
+    (l1, s1), (l2, s2) = runs
+    names = sorted(s1.local_var_names())
+    differ = [n for n in names if n != "__rng_state__" and isinstance(s1.find_var(n), torch.Tensor)
+              and not torch.equal(s1.find_var(n), s2.find_var(n))]
+    same = l1 == l2 and not differ
+    emit({"phase": "graph_repeat", "of": phase, "losses": [l1, l2], "bitwise_equal": same,
+          "persistables": len(names), "persistables_that_differ": differ[:8]})
+    if not (same and all(map(math.isfinite, l1))):
+        raise AssertionError(f"{phase}: two graphed runs from one seed differ: losses {l1} / {l2}, "
+                             f"persistables {differ[:8]}")
+
+
+def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
+          per_step=PER_STEP, arms=("graphed",)):
+    """Phases 6, 12 and 13: bf16 BERT-base (12 layers, dropout 0.1, Adam lr
+    1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed
+    batch of `batch` x `seq_len`, with unfused attention (phase 6) or the
+    fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8), once
+    per arm of `arms` (train_arm).  Two graphed arms (phase 12's
+    AB_ARMS) must agree bit for bit.  Returns the launches counted."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused)
+    derived = launches_of_program(main, loss)
+    if derived != per_step:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
+    feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0))
+    attention = "fused attention" if fused else "unfused attention"
+    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4",
+          "batch": batch, "seq_len": seq_len, "arms": list(arms),
+          "setup_s": time.perf_counter() - t0})
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    graphed = []
+    for arm in arms:
+        losses, scope, _ = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed,
+                                     per_step, launches,
+                                     {"sequences": batch, "tokens": batch * seq_len})
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{phase} {arm}: the loss did not fall: {losses}")
+        if arm == "graphed":
+            graphed.append((losses, scope))
+        del scope
+    if len(graphed) == 2:
+        hold_graphed_repeat(phase, graphed)
     return launches
 
 
-def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS):
-    """`steps` runs of `main` from the numpy `state` on the card, then on the
-    CPU (plain path): [(losses, scope)] in that order, and param -> the
-    elements whose CPU gradient lies within ZERO_GRAD of the model's largest
-    at some step."""
+def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None):
+    """`steps` runs from the numpy `state` in each arm (place, graphs,
+    program): by default the card (`main`, graphed from its second run),
+    then the CPU (plain path).  Returns [(losses, scope)] in that order, and
+    param -> the elements whose gradient in the last arm (the reference)
+    lies within ZERO_GRAD of the model's largest at some step."""
     import numpy as np
 
+    arms = arms or ((fluid.CUDAPlace(0), True, main), (fluid.CPUPlace(), True, main))
     params = [p.name for p in main.all_parameters()]
     near_zero = {}
     runs = []
-    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+    for i, (place, graphs, program) in enumerate(arms):
         scope = fluid.Scope()
         fluid.io.load_numpy_params(scope, state, device=place.device)
-        exe = fluid.Executor(place)
-        on_cpu = isinstance(place, fluid.CPUPlace)
+        exe = fluid.Executor(place, _graphs=graphs)
+        reference = i == len(arms) - 1
         losses = []
         for _ in range(steps):
-            out = exe.run(main, feed=feed, scope=scope, fetch_list=[loss] + (
-                [f"{p}@GRAD" for p in params] if on_cpu else []))
+            out = exe.run(program, feed=feed, scope=scope, fetch_list=[loss] + (
+                [f"{p}@GRAD" for p in params] if reference else []))
             losses.append(float(out[0].reshape(-1)[0]))
-            if on_cpu:
+            if reference:
                 peak = max(float(np.abs(g).max()) for g in out[1:])
                 for p, g in zip(params, out[1:]):
                     small = np.abs(g) <= ZERO_GRAD * peak
@@ -1408,7 +1723,9 @@ def save_resnet(fluid, place, dirname, dtype, calib_feed):
 
 
 def resnet_serve(fluid, torch, ck, tmp, card):
-    """Phase 8: bf16 ResNet-50 through AnalysisConfig / create_predictor on cuda:0."""
+    """Phase 8: bf16 ResNet-50 through AnalysisConfig / create_predictor on
+    cuda:0, REQUESTS requests at each batch of RESNET_BATCHES: the first runs
+    eagerly, the second captures a CUDA graph, the rest replay it."""
     import numpy as np
     from paddle_tpu_torch.core.dtypes import to_numpy
 
@@ -1418,29 +1735,36 @@ def resnet_serve(fluid, torch, ck, tmp, card):
     predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
     emit({"phase": "resnet_serve", "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu",
           "setup_s": time.perf_counter() - t0, "place": repr(predictor.config.place)})
+    torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
     for i, batch in enumerate(RESNET_BATCHES):
         feed = {"img": images(batch, 20 + i)["img"]}
-        before = dict(ck.LAUNCHES)
-        t0 = time.perf_counter()
-        (out,) = predictor.run(feed, return_numpy=False)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        logits = to_numpy(out)
-        t2 = time.perf_counter()
-        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        emit({"resnet_request": batch, "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
-              "fetch_ms": (t2 - t1) * 1e3, "logits_shape": list(logits.shape),
-              "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
-        if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
-            raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
-                                 f"{bool(np.isfinite(logits).all())}")
-        if delta != RESNET_PER_REQUEST:
-            raise AssertionError(f"batch {batch}: kernel launches {delta} != {RESNET_PER_REQUEST}")
+        for r in range(REQUESTS):
+            before = dict(ck.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = predictor.run(feed, return_numpy=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = to_numpy(out)
+            t2 = time.perf_counter()
+            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+            replayed = hold_run_launches(predictor.exe, r, delta, RESNET_PER_REQUEST,
+                                         f"resnet_serve batch {batch}", "resnet_serve")
+            emit({"resnet_request": batch, "graphed": replayed, "latency_ms": (t2 - t0) * 1e3,
+                  "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3,
+                  "logits_shape": list(logits.shape),
+                  "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
+            if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
+                raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
+                                     f"{bool(np.isfinite(logits).all())}")
     launches = dict(ck.LAUNCHES)  # read before the profiled request
-    feed = {"img": images(RESNET_BATCHES[-1], 30)["img"]}
-    profile_run(torch, f"resnet request {RESNET_BATCHES[-1]}",
-                lambda: predictor.run(feed, return_numpy=False), card)
+    read_monitor("resnet_serve", monitor_want(list(range(REQUESTS)) * len(RESNET_BATCHES), True),
+                 card)
+    emit({"phase": "resnet_serve", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9, "card": card})
+    profile_replay(torch, f"resnet request {RESNET_BATCHES[-1]}",
+                   lambda: predictor.run(feed, return_numpy=False), card, RESNET_PER_REQUEST)
     return launches
 
 
@@ -1466,7 +1790,10 @@ def resnet_parity(fluid, torch, tmp):
 
 def resnet_train(fluid, torch, ck, card):
     """Phase 10: bf16 ResNet-50 (Momentum lr 0.1, 0.9, batch 256) trains
-    TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch."""
+    TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch, from
+    the second step on as a CUDA graph (Momentum's velocities and batch
+    norm's running statistics are new tensors a step, copied back inside
+    the graph)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -1487,6 +1814,7 @@ def resnet_train(fluid, torch, ck, card):
           "setup_s": time.perf_counter() - t0})
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
@@ -1496,29 +1824,32 @@ def resnet_train(fluid, torch, ck, card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.reshape(-1)[0]))
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        emit({"resnet_step": step, "loss": losses[-1], "step_ms": step_ms[-1], "launches": delta,
-              "card": card})
+        replayed = hold_run_launches(exe, step, delta, RESNET_PER_STEP, "resnet_train",
+                                     "resnet_train")
+        emit({"resnet_step": step, "graphed": replayed, "loss": losses[-1],
+              "step_ms": step_ms[-1], "launches": delta, "card": card})
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"step {step}: loss {losses[-1]}")
-        if delta != RESNET_PER_STEP:
-            raise AssertionError(f"step {step}: kernel launches {delta} != {RESNET_PER_STEP}")
     # the first update must lower the loss of the batch it was taken on, and
     # the last loss must be below the first; in between, momentum 0.9 at lr
     # 0.1 overshoots on one fixed batch from random weights (the H100 at batch
     # 256: 7.65, 6.53, 5.92, 5.78, 5.97, 6.15)
     if not (losses[1] < losses[0] and losses[-1] < losses[0]):
         raise AssertionError(f"the loss did not fall: {losses}")
+    # the graph copies the new running statistics (and velocities) into the
+    # tensors the scope holds
     still = [n for n in stats if torch.equal(scope.find_var(n), stats0[n])]
     if still:
         raise AssertionError(f"running statistics that did not move: {still[:4]}")
     launches = dict(ck.LAUNCHES)  # read before the profiled step
-    warm = statistics.median(step_ms[1:])
+    read_monitor("resnet_train", monitor_want(range(TRAIN_STEPS), True), card)
+    warm = statistics.median(step_ms[2:])
     emit({"phase": "resnet_train", "losses": losses, "warm_step_ms": warm,
           "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
-    profile_run(torch, "resnet train step",
-                lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                                return_numpy=False), card)
+    profile_replay(torch, "resnet train step",
+                   lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                                   return_numpy=False), card, RESNET_PER_STEP)
     return launches
 
 
@@ -1641,11 +1972,14 @@ def adam_scope_after(fluid, exe, startup, main, trained):
     return scope
 
 
-def deepfm_steps(torch, ck, exe, main, loss, scope, feed, per_step, phase, opt, card):
+def deepfm_steps(fluid, torch, ck, exe, main, loss, scope, feed, per_step, phase, opt, card):
     """TRAIN_STEPS steps of `main` on `feed`, each launching exactly
-    `per_step`; returns the losses and step times."""
+    `per_step`: its SelectedRows gradients keep the plan off CUDA graphs
+    (eager every step, the refusal printed and counted); returns the losses
+    and step times."""
     import numpy as np
 
+    fluid.monitor.reset()
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
@@ -1663,6 +1997,12 @@ def deepfm_steps(torch, ck, exe, main, loss, scope, feed, per_step, phase, opt, 
             raise AssertionError(f"{opt} step {step}: kernel launches {delta} != {per_step}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{opt}: the loss did not fall: {losses}")
+    read_monitor(f"{phase} {opt}", monitor_want(range(TRAIN_STEPS), False, refused=1), card)
+    refusal = exe.last_plan.graph_refusal
+    emit({"phase": phase, "optimizer": opt, "graphed": exe.last_plan.graphed,
+          "graph_refusal": refusal})
+    if not refusal or "SelectedRows" not in refusal:
+        raise AssertionError(f"{opt}: a SelectedRows plan was not refused a CUDA graph: {refusal}")
     return losses, step_ms
 
 
@@ -1701,11 +2041,11 @@ def deepfm_train(fluid, torch, ck, tmp, card):
           "setup_s": time.perf_counter() - t0})
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
-    ada_losses, ada_ms = deepfm_steps(torch, ck, exe, ada_main, ada_loss, scope, feed, NONE,
-                                      "deepfm_train", "adagrad", card)
+    ada_losses, ada_ms = deepfm_steps(fluid, torch, ck, exe, ada_main, ada_loss, scope, feed,
+                                      NONE, "deepfm_train", "adagrad", card)
     moved_rows_only(torch, scope, before, touched)
     adam = adam_scope_after(fluid, exe, adam_startup, adam_main, scope)
-    adam_losses, adam_ms = deepfm_steps(torch, ck, exe, adam_main, adam_loss, adam, feed,
+    adam_losses, adam_ms = deepfm_steps(fluid, torch, ck, exe, adam_main, adam_loss, adam, feed,
                                         DEEPFM_PER_STEP, "deepfm_train", "adam", card)
     launches = dict(ck.LAUNCHES)  # read before the profiled step
     warm = {opt: statistics.median(ms[1:]) for opt, ms in (("adagrad", ada_ms), ("adam", adam_ms))}
@@ -1870,70 +2210,57 @@ def build_nmt(fluid, dtype, n_layers=6, dropout=0.1):
 def nmt_train(fluid, torch, ck, card):
     """Phase 17: Transformer-base NMT at full width (NMT) trains TRAIN_STEPS
     steps through Executor(CUDAPlace(0)).run on the benchmark's ragged batch
-    (nmt_batch), float32 and then bfloat16: every loss is finite, the first
-    step (the noam schedule's lr 0) leaves every parameter bit for bit
-    unchanged, and every step launches each kernel as the program's ops say
-    (NMT_PER_STEP).  Records whether the loss of the last step is below that
-    of the second (lr, warmup and dropout are the configuration's, not tuned
-    for 6 steps).  Returns the launches of the counted steps and the
-    float32 scope."""
-    import numpy as np
-
+    (nmt_batch), float32 and then bfloat16, each in AB_ARMS (train_arm):
+    every loss is finite, the first step (the noam schedule's lr 0) leaves
+    every parameter bit for bit unchanged, every step launches each kernel as
+    the program's ops say (NMT_PER_STEP), the two graphed arms agree bit for
+    bit.  Records whether the loss of the last step is below that of the
+    second (lr, warmup and dropout are the configuration's, not tuned for 6
+    steps).  Returns the launches counted and a float32 graphed scope."""
     feed, lens = nmt_batch(fluid)
     real_tokens = int(lens["tgt"].sum())
     launches = dict(NONE)
     f32_scope = None
+    ck.reset_launches()  # the main path's count starts here
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
         main, startup, loss = build_nmt(fluid, dtype)
         derived = launches_of_program(main, loss)
         if derived != NMT_PER_STEP:
             raise AssertionError(f"the program's kernel ops {derived} != the reckoned {NMT_PER_STEP}")
-        exe = fluid.Executor(fluid.CUDAPlace(0))
-        scope = fluid.Scope()
-        exe.run(startup, scope=scope)
         params = [p.name for p in main.all_parameters()]
-        before = {p: scope.find_var(p).clone() for p in params}
         emit({"phase": "nmt_train", "model": f"transformer-base nmt {dtype}, 6+6 layers, d 512, "
               "vocab 8000, dropout 0.1, label smoothing 0.1, Adam(noam(512, 400, 2.0))",
               "batch": NMT_BATCH, "bucket": NMT_T, "real_target_tokens": real_tokens,
-              "parameters": len(params), "setup_s": time.perf_counter() - t0})
-        torch.cuda.reset_peak_memory_stats()
-        ck.reset_launches()  # the main path's count starts here
-        losses, step_ms = [], []
-        for step in range(TRAIN_STEPS):
-            b4 = dict(ck.LAUNCHES)
-            t0 = time.perf_counter()
-            (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(out.reshape(-1)[0]))
-            delta = {k: ck.LAUNCHES[k] - b4[k] for k in ck.LAUNCHES}
-            emit({"phase": "nmt_train", "dtype": dtype, "step": step, "loss": losses[-1],
-                  "step_ms": step_ms[-1], "launches": delta, "card": card})
-            if not np.isfinite(losses[-1]):
-                raise AssertionError(f"nmt {dtype} step {step}: loss {losses[-1]}")
-            if delta != NMT_PER_STEP:
-                raise AssertionError(f"nmt {dtype} step {step}: launches {delta} != {NMT_PER_STEP}")
-            if step == 0:
-                moved = [p for p in params if not torch.equal(scope.find_var(p), before[p])]
-                if moved:
-                    raise AssertionError(f"nmt {dtype}: the lr-0 first step moved {moved[:4]}")
-        for k, v in ck.LAUNCHES.items():  # read before the profiled step
-            launches[k] += v
-        del before
-        warm = statistics.median(step_ms[1:])
-        emit({"phase": "nmt_train", "dtype": dtype, "losses": losses, "warm_step_ms": warm,
-              "sentences_per_s": NMT_BATCH / warm * 1e3,
-              "real_target_tokens_per_s": real_tokens / warm * 1e3,
-              "padded_target_tokens_per_s": NMT_BATCH * NMT_T / warm * 1e3,
-              "first_step_ms": step_ms[0], "loss_step6_below_step2": losses[-1] < losses[1],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
-        profile_run(torch, f"nmt_train {dtype} step",
-                    lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                                    return_numpy=False), card)
+              "parameters": len(params), "arms": list(AB_ARMS),
+              "setup_s": time.perf_counter() - t0})
+        held = {}
+
+        def lr0_step(scope, step):
+            if step is None:
+                held.update((p, scope.find_var(p).clone()) for p in params)
+                return
+            moved = [p for p in params if not torch.equal(scope.find_var(p), held[p])]
+            held.clear()
+            if moved:
+                raise AssertionError(f"nmt {dtype}: the lr-0 first step moved {moved[:4]}")
+
+        graphed = []
+        for arm in AB_ARMS:
+            losses, scope, record = train_arm(
+                fluid, torch, ck, card, "nmt_train", arm, main, startup, loss, feed,
+                NMT_PER_STEP, launches,
+                {"sentences": NMT_BATCH, "real_target_tokens": real_tokens,
+                 "padded_target_tokens": NMT_BATCH * NMT_T}, check_first_step=lr0_step)
+            emit({"phase": "nmt_train", "dtype": dtype, "arm": arm,
+                  "loss_step6_below_step2": losses[-1] < losses[1]})
+            if arm == "graphed":
+                graphed.append((losses, scope))
+            del scope
+        hold_graphed_repeat(f"nmt_train {dtype}", graphed)
         if dtype == "float32":
-            f32_scope = scope
+            f32_scope = graphed[-1][1]
+        del graphed
     return launches, f32_scope
 
 
@@ -2049,7 +2376,10 @@ def nmt_decode(fluid, torch, ck, card, scope):
           "ms_per_iteration": decode_ms / iterations, "output_tokens": out_tokens,
           "output_tokens_per_s": out_tokens / decode_ms * 1e3,
           "beam_tokens_per_s": NMT_BATCH * NMT_DECODE["beam_size"] * iterations / decode_ms * 1e3,
-          "launches": launches, "card": card})
+          "launches": launches, "graphed": exe.last_plan.graphed,
+          "graph_refusal": exe.last_plan.graph_refusal, "card": card})
+    if "while op" not in (exe.last_plan.graph_refusal or ""):
+        raise AssertionError(f"decode: a while plan was not refused a CUDA graph")
     if not derived == want == launches:
         raise AssertionError(f"decode launches {launches}, program {derived}, reckoned {want}")
     if ids.shape != (NMT_BATCH, NMT_DECODE["max_len"]) or not (ids[:, 0] == 1).all() or not (
@@ -2126,6 +2456,198 @@ def nmt_decode_parity(fluid, torch, state):
                                  f"different steps before max_len: {finish.tolist()}")
 
 
+def bitwise_equal(runs, state):
+    """Whether two runs' losses and every persistable agree bit for bit."""
+    import numpy as np
+
+    (l1, s1), (l2, s2) = runs
+    return l1 == l2 and all(np.array_equal(s1.to_numpy(n), s2.to_numpy(n)) for n in state)
+
+
+def graph_parity(fluid, torch):
+    """Phase 21: graphed against eager steps on the card from one numpy
+    state, held by hold_parity (phase 7's tolerances; the eager arm's
+    gradients say which elements are 0 to rounding): float32 BERT-base with
+    2 layers, fused attention, dropout 0, batch 8 x 128, and float32 NMT
+    with 2 + 2 layers, dropout 0, on phase 18's 4 ragged pairs, PARITY_STEPS
+    Adam steps each.  Says whether the two agree bit for bit."""
+    import numpy as np
+    from paddle_tpu_torch.models import nmt
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    cases = []
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0, 128, True)
+    cases.append(("bert-base f32, 2 layers, fused attention, dropout 0", main, startup, loss,
+                  make_fake_batch(8, 128, 30522, rng=np.random.RandomState(1)), LR,
+                  ("emb_ln.w", ".ln1.w", ".ln2.w")))
+    main, startup, loss = build_nmt(fluid, "float32", n_layers=2, dropout=0.0)
+    n = PARITY_STEPS - 1
+    nmt_lr = NMT["learning_rate"] * NMT["d_model"] ** -0.5 * min(n ** -0.5,
+                                                                 n * NMT["warmup_steps"] ** -1.5)
+    cases.append(("transformer nmt f32, 2+2 layers, dropout 0", main, startup, loss,
+                  nmt.make_fake_nmt_batch([23, 41, 9, 60], [30, 12, 55, 37], 8000, 8000, seed=1),
+                  nmt_lr, (".ln.w",)))
+    for model, main, startup, loss, feed, lr, unit_gains in cases:
+        init = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+        state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+        for name in state:
+            if name.endswith(unit_gains):  # LN gains near 1: O(1) activations
+                state[name] = np.ones_like(state[name])
+        card = fluid.CUDAPlace(0)
+        runs, near_zero = parity_runs(fluid, main, loss, state, feed,
+                                      arms=((card, True, main), (card, False, main)))
+        hold_parity({"phase": "graph_parity", "model": model, "arms": "graphed vs eager",
+                     "bitwise_equal": bitwise_equal(runs, state)}, runs, near_zero, state, lr)
+
+
+def conv_order(fluid, torch, card):
+    """Phase 21, conv nets: the tiny MNIST (two conv-pools, batch 8) with
+    Momentum 0.05, 0.9 takes 4 steps from one numpy state in four arms
+    (eager, eager, graphed, graphed), under cuDNN's default algorithms and
+    then under its deterministic ones.  Emits the largest difference of any
+    persistable (relative to its largest magnitude, at least 1, as the gpu
+    test measures it) between the two eager arms, between the two graphed
+    arms, and between graphed and eager: whether cuDNN's summation order or
+    the capture moves a conv step.  Holds graphed = eager within phase 7's
+    1e-5 under the deterministic algorithms only; the default's readings
+    are recorded."""
+    import numpy as np
+    from paddle_tpu_torch.models import mnist
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = mnist.build(with_optimizer=False)
+        with fluid.program_guard(main, startup):
+            fluid.optimizer.Momentum(0.05, 0.9).minimize(fetches["loss"])
+    main.random_seed = startup.random_seed = 0
+    loss = fetches["loss"].name
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    rng = np.random.RandomState(2)
+    feeds = [{"img": rng.rand(8, 1, 28, 28).astype("f4"),
+              "label": rng.randint(0, 10, (8, 1)).astype("int64")} for _ in range(4)]
+
+    def spread(a, b):
+        return max((float(np.abs(a[n] - b[n]).max()) / max(float(np.abs(b[n]).max()), 1.0), n)
+                   for n in state)
+
+    readings, saved = {}, torch.backends.cudnn.deterministic
+    try:
+        for mode in ("default", "deterministic"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            arms = []
+            for graphs in (False, False, True, True):
+                scope = fluid.Scope()
+                fluid.io.load_numpy_params(scope, state, device="cuda:0")
+                exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=graphs)
+                for f in feeds:
+                    exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+                if exe.last_plan.graphed != graphs:
+                    raise AssertionError(f"conv_order {mode}: graphed {exe.last_plan.graphed}")
+                arms.append({n: scope.to_numpy(n).astype(np.float64) for n in state})
+            readings[mode] = {"eager_vs_eager": spread(arms[1], arms[0]),
+                              "graphed_vs_graphed": spread(arms[3], arms[2]),
+                              "graphed_vs_eager": max(spread(arms[2], arms[0]),
+                                                      spread(arms[3], arms[1]))}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    emit({"phase": "conv_order", "model": "tiny mnist f32, Momentum 0.05 0.9, batch 8",
+          "steps": len(feeds), "tol": 1e-5, "card": card,
+          **{mode: {pair: {"max_rel_diff": d, "persistable": n} for pair, (d, n) in r.items()}
+             for mode, r in readings.items()}})
+    worst, name = readings["deterministic"]["graphed_vs_eager"]
+    if not worst <= 1e-5:
+        raise AssertionError(f"conv_order: graphed vs eager {name} differs by {worst} under "
+                             "cuDNN's deterministic algorithms")
+
+
+def executor_depth(fluid, torch, card):
+    """Phase 22: on bf16 BERT-base at 32 x 128 (fused attention, dropout 0.1,
+    Adam lr 1e-4), six different batches from one seed: six graphed runs;
+    steps=4 over the first four stacked (one upload, one warm-up step, the
+    graph replayed three times, one sync) equals the first four runs bit for
+    bit in the losses and every persistable; pipeline.train_loop with
+    max_inflight 2 over the six equals the six runs' losses bit for bit."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, 128, True)
+    rng = np.random.RandomState(7)
+    feeds = [dict(make_fake_batch(32, 128, 30522, rng=rng)) for _ in range(TRAIN_STEPS)]
+
+    def fresh():
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        return exe, scope
+
+    exe, scope = fresh()
+    serial, after4 = [], None
+    for i, f in enumerate(feeds):
+        serial.append(float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0].reshape(-1)[0]))
+        if i == 3:
+            after4 = {n: scope.find_var(n).clone() for n in scope.local_var_names()
+                      if isinstance(scope.find_var(n), torch.Tensor)}
+    del exe, scope
+    exe, scope = fresh()
+    stacked = {k: np.stack([f[k] for f in feeds[:4]]) for k in feeds[0]}
+    t0 = time.perf_counter()
+    (k_losses,) = exe.run(main, feed=stacked, fetch_list=[loss], scope=scope, steps=4)
+    steps4_ms = (time.perf_counter() - t0) * 1e3
+    k_losses = [float(v) for v in k_losses.reshape(4)]
+    differ = [n for n, t in after4.items() if not torch.equal(scope.find_var(n), t)]
+    emit({"phase": "steps", "steps": 4, "losses": k_losses, "serial_losses": serial[:4],
+          "graphed": exe.last_plan.graphed, "ms": steps4_ms,
+          "persistables_that_differ": differ[:8], "card": card})
+    if k_losses != serial[:4] or differ or not exe.last_plan.graphed:
+        raise AssertionError(f"steps=4 {k_losses} vs 4 runs {serial[:4]}; differ {differ[:8]}")
+    del exe, scope, after4
+    exe, scope = fresh()
+    stats = fluid.train_loop(exe, main, iter(feeds), [loss], scope=scope, max_inflight=2,
+                             log_period=1)
+    piped = [float(v[0].reshape(-1)[0]) for _, v in stats.logged]
+    emit({"phase": "train_loop", "max_inflight": 2, "steps": stats.steps, "losses": piped,
+          "serial_losses": serial, "max_inflight_seen": stats.max_inflight_seen,
+          "wall_s": stats.wall_s, "host_blocked_frac": stats.host_blocked_frac,
+          "graphed": exe.last_plan.graphed, "card": card})
+    if piped != serial or stats.max_inflight_seen != 2 or not all(map(math.isfinite, serial)):
+        raise AssertionError(f"train_loop losses {piped} != serial {serial}")
+
+
+def remat_parity(fluid, torch, card):
+    """Phase 23: BuildStrategy.memory_optimize (remat: each backward region's
+    forward under torch.utils.checkpoint, its dropout masks repeated from a
+    generator synced to the step's start) against no remat, both graphed on
+    the card, PARITY_STEPS Adam steps of float32 BERT-base with 2 layers,
+    fused attention, dropout 0.1, batch 8 x 128, from one numpy state: held
+    by hold_parity, with each arm's peak memory."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "float32", 2, 0.1, 128, True)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    feed = make_fake_batch(8, 128, 30522, rng=np.random.RandomState(1))
+    strategy = fluid.BuildStrategy()
+    strategy.memory_optimize = True
+    remat = fluid.CompiledProgram(main, strategy)
+    peaks = {}
+    runs, near_zero = [], None
+    for arm, program in (("remat", remat), ("no remat", main)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, nz = parity_runs(fluid, main, loss, state, feed,
+                              arms=((fluid.CUDAPlace(0), True, program),))
+        peaks[arm] = torch.cuda.max_memory_allocated() / 1e9
+        runs += got
+        near_zero = nz
+    hold_parity({"phase": "remat_parity", "model": "bert-base f32, 2 layers, fused attention, "
+                 "dropout 0.1", "batch": 8, "peak_mem_gb": peaks,
+                 "bitwise_equal": bitwise_equal(runs, state), "card": card},
+                runs, near_zero, state, LR)
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -2157,6 +2679,7 @@ def main():
     timings.update(check_bn_kernels(torch, ck))
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
+    fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
     try:
         served = serve(fluid, torch, ck, tmp, card)
         parity(fluid, torch, tmp)
@@ -2166,7 +2689,8 @@ def main():
         resnet_parity(fluid, torch, tmp)
         resnet_trained = resnet_train(fluid, torch, ck, card)
         resnet_train_parity(fluid, torch)
-        fused_trained = train(fluid, torch, ck, card, "train_fused", True, 128, 32, FUSED_PER_STEP)
+        fused_trained = train(fluid, torch, ck, card, "train_fused", True, 128, 32, FUSED_PER_STEP,
+                              arms=AB_ARMS)
         long_trained = train(fluid, torch, ck, card, "train_long", True, 2048, 8, FUSED_PER_STEP)
         for seq_len, batch in ((128, 32), (2048, 1)):
             train_parity(fluid, torch, "train_fused_parity", True, seq_len, batch)
@@ -2176,12 +2700,20 @@ def main():
         nmt_state = nmt_train_parity(fluid, torch)
         nmt_decoded = nmt_decode(fluid, torch, ck, card, nmt_scope)
         nmt_decode_parity(fluid, torch, nmt_state)
+        graph_parity(fluid, torch)
+        conv_order(fluid, torch, card)
+        executor_depth(fluid, torch, card)
+        remat_parity(fluid, torch, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # each path must have launched each of its kernels, and every kernel must
-    # have run on some path; `launches` is the count on the first path of
-    # LAUNCH_ORDER that runs the kernel
+    # have run on some path; `launches` is the wrappers' count on the first
+    # path of LAUNCH_ORDER that runs the kernel, `launches_by_path` the
+    # wrappers' count on each path (eager runs and captures),
+    # `replayed_by_path` what the graph replays after each capture ran
+    # (REPLAYED), and `ran_by_path` the two together: how often the path ran
+    # the kernel
     paths = {"serve": (PER_REQUEST, served), "train": (PER_STEP, trained),
              "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
              "resnet_train": (RESNET_PER_STEP, resnet_trained),
@@ -2196,12 +2728,14 @@ def main():
             if want[name] and got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the {path} path")
         by_path = {path: got[name] for path, (_, got) in paths.items()}
+        replayed = {path: REPLAYED.get(path, NONE)[name] for path in paths}
         if not any(by_path.values()):
             raise AssertionError(f"{name} was launched on no path")
         rec = timings[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": next(by_path[p] for p in LAUNCH_ORDER if by_path[p]),
-                        "launches_by_path": by_path,
+                        "launches_by_path": by_path, "replayed_by_path": replayed,
+                        "ran_by_path": {p: by_path[p] + replayed[p] for p in paths},
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

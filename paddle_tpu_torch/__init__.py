@@ -15,13 +15,18 @@ tables, ragged `LoDTensor` feeds, `While` and the in-program beam search,
 `noam_decay`, and `optimizer.SGD`, `Momentum`, `Adam` and `Adagrad`, with
 hand-written Hopper kernels (csrc/) for LayerNorm+residual, bias+GELU and
 the batch-norm epilogue (forward and backward), attention (forward),
-softmax cross-entropy (forward and backward) and the Adam update.
+softmax cross-entropy (forward and backward) and the Adam update.  The
+Executor caches a plan per (program, feeds, fetches) and replays it as a
+CUDA graph on the card; `steps > 1`, `run_async` / `FetchHandle`,
+`pipeline.train_loop` and remat (`BuildStrategy.memory_optimize`) follow
+the JAX package.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import clip, flags, inference, io, layers, lod, models, optimizer  # noqa: F401
+from . import (clip, errors, flags, inference, io, layers, lod, models, monitor,  # noqa: F401
+               optimizer, pipeline)
 from .core import initializer, passes, regularizer, unique_name  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
-from .core.executor import CPUPlace, CUDAPlace, Executor, TPUPlace  # noqa: F401
+from .core.executor import CPUPlace, CUDAPlace, Executor, FetchHandle, TPUPlace  # noqa: F401
 from .core.param_attr import ParamAttr  # noqa: F401
 from .core.program import (  # noqa: F401
     Parameter,
@@ -34,3 +39,5 @@ from .core.program import (  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .lod import LoDTensor, create_lod_tensor  # noqa: F401
+from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
+from .pipeline import PipelineStats, train_loop  # noqa: F401

@@ -82,12 +82,29 @@ def to_tensor(value, dtype=None, device="cpu") -> torch.Tensor:
     return t.to(device=device, dtype=want)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host copy of a tensor.  numpy has no bfloat16: a bf16 tensor comes
-    back as its exact float32 value.  The widening happens after the copy:
-    the copy into pageable host memory bounds a large fetch, and widening
-    first would double its bytes (PERF.md, section 6)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.numpy()
+def host_copies(tensors) -> list:
+    """Host copies of tensors, as numpy arrays.  A CUDA tensor goes into
+    pinned host memory drawn from PyTorch's caching host allocator (after
+    the first fetch of a size, no allocation), copied with non_blocking=True,
+    all of them before one sync; numpy has no bfloat16, so only then is a
+    bf16 copy widened to its exact float32 value, on the host (widening
+    first would double the bytes the copy moves)."""
+    staged, streams = [], set()
+    for t in tensors:
+        t = t.detach()
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            streams.add(torch.cuda.current_stream(t.device))
+            t = h
+        staged.append(t)
+    for s in streams:
+        s.synchronize()
+    return [(t.float() if t.dtype == torch.bfloat16 else t).numpy() for t in staged]
+
+
+def to_numpy(t) -> np.ndarray:
+    """Host copy of one tensor (`host_copies`)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    return host_copies([t])[0]

@@ -1,32 +1,66 @@
-"""Executor: eager runs of whole programs (counterpart of paddle_tpu/core/executor.py).
+"""Executor: cached plans of whole programs, replayed as CUDA graphs on the
+card (counterpart of paddle_tpu/core/executor.py).
 
-`run()` prunes the global block to what the fetches and the persistable
-writes need, runs the ops' torch lowerings in order, writes persistable
-outputs back to the Scope (startup state, and the parameters and
-accumulators an optimizer op updates) and returns the fetches.  A program
-without a `backward` op runs under `torch.no_grad()`; one with `backward`
-ops runs its regions through `torch.autograd.grad`
-(core/lowering.py run_block_with_backward).  Nothing runs under
-`torch.inference_mode()`: its tensors could never be trained, and the
-Scope keeps them across runs.  The generator in the Scope advances across
-runs.  A fetched SelectedRows gradient (an `is_sparse` table's) comes back
+`run()` keys a `_Plan` on what the JAX package keys its compiled step on
+(program uuid and version, the sorted (feed, shape, dtype) triples, the
+fetch names, the scope's uuid, `steps`, remat and the lowering flags) and
+keeps the plans in an LRU cache of FLAGS_executor_cache_capacity entries,
+counting `executor.cache_hit` / `executor.cache_miss` in the monitor.  A
+plan holds the pruned ops (those that feed a fetch or write a persistable,
+a `while` op's sub-block counted as its own reads and writes), the names
+they read, and the persistables they write back.
+
+A plan runs its ops' torch lowerings in order (core/lowering.py); a
+program with `backward` ops runs its regions through
+`torch.autograd.grad`.  Nothing runs under `torch.inference_mode()`: the
+Scope keeps its tensors across runs, trainable.  The generator in the
+Scope advances across runs.  A fetched SelectedRows gradient comes back
 as its dense view, or as the SelectedRows itself with return_numpy=False.
 A ragged feed (a `LoDTensor`) becomes its padded carrier and lengths
-(paddle_tpu_torch/lod.py); a `while` op's sub-block counts for pruning
-and write-back as the op's own reads and writes.
-There is no compile cache, no `run_async` and no `steps > 1` yet.
+(paddle_tpu_torch/lod.py), so its bucket is part of the key.
+
+On the card, the counterpart of the JAX package's one dispatch a step is a
+CUDA graph.  The first run of a plan runs eagerly on a side stream (the
+warm-up); the second captures one step with `torch.cuda.graph` and every
+run from then on copies its feeds into the plan's static buffers and
+replays it.  The scope's generator, and the rerun generators the lowering
+draws repeated forwards from, are registered with the graph, so each
+replay draws new dropout masks.  A persistable whose update is a new
+tensor (Momentum, SGD, the beta pows, batch norm's running statistics) is
+copied back into the tensor the scope holds inside the graph: after a
+replay the scope holds the same tensor objects as before.  When some
+`set_var` happened since a plan's last run (`scope.writes()`), the plan
+copies a replaced state tensor into the one it captured, or captures anew
+if its shape or dtype changed.  Whether a plan can be captured is decided
+from its ops before capture (`_graph_refusal`): a `while` op, whose
+condition the host reads every iteration, and SelectedRows gradients,
+whose merge waits for the card, run eagerly, with the reason in
+`plan.graph_refusal` and the counter `executor.graph_refused`.  A capture
+or replay that fails raises.
+
+`steps=K` runs K steps from feeds stacked on a leading [K] axis, uploaded
+once, and returns fetches stacked the same way; `run_async` returns
+`FetchHandle`s as soon as the step is enqueued, and the host copy, through
+pinned memory, and the FLAGS_check_nan_inf guard happen at resolution.
 """
 from __future__ import annotations
 
+import threading
+import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import flags
+from ..errors import NumericError, classify
 from ..lod import LoDTensor, lod_var_name
-from .dtypes import to_numpy, to_tensor
-from .lowering import LoweringContext, run_block_with_backward
+from ..monitor import MONITOR as _MON
+from ..ops import cuda_kernels
+from . import scope as scope_mod
+from .dtypes import host_copies, to_tensor
+from .lowering import LoweringContext, rerun_generators_needed, run_block_with_backward
 from .program import Program, Variable, default_main_program
 from .scope import RNG_STATE_VAR, Scope, global_scope
 from .selected_rows import SelectedRows
@@ -112,7 +146,29 @@ def _read_names(ops):
     return names
 
 
-def _expand_ragged_feeds(block, feed):
+def _graph_refusal(ops) -> Optional[str]:
+    """Why a plan's step cannot be captured as a CUDA graph, read off its
+    ops before any capture; None when it can."""
+    if any(op.type == "while" for op in ops):
+        return ("a while op: its condition is read on the host every iteration "
+                "(core/lowering.py run_while)")
+    for op in ops:
+        if op.type == "backward" and set(op.attrs.get("sparse_param_names", [])) & set(
+                op.attrs.get("param_names", [])):
+            return ("SelectedRows gradients: merging their rows calls torch.unique_consecutive, "
+                    "which waits for the card (core/selected_rows.py)")
+    return None
+
+
+def _lowering_flags():
+    """Process-wide switches that change the kernels a step runs; part of
+    the plan key, since a captured graph keeps the kernels it was captured
+    with."""
+    return ("tf32", torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            "cudnn", torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def _expand_ragged_feeds(block, feed, steps=1):
     """A `LoDTensor`, or a list of per-sequence arrays fed to a var declared
     with lod_level >= 1, becomes the padded carrier (time axis bucketed,
     lod.bucket_length) and the int32 lengths `<name>@LOD`."""
@@ -122,6 +178,12 @@ def _expand_ragged_feeds(block, feed):
         if isinstance(value, LoDTensor) or (
                 declared_ragged and isinstance(value, (list, tuple)) and len(value) > 0
                 and all(isinstance(s, np.ndarray) for s in value)):
+            if steps > 1:
+                raise ValueError(
+                    f"steps>1 does not support ragged/LoDTensor feeds (got one for "
+                    f"'{name}'): the padded expansion has no [steps] axis. Stack "
+                    f"pre-padded dense arrays [steps, b, T, ...] plus the lengths "
+                    f"companion instead, or run with steps=1.")
             lt = value if isinstance(value, LoDTensor) else LoDTensor(value)
             out[name], out[lod_var_name(name)] = lt.padded(bucket=True)
         else:
@@ -129,11 +191,306 @@ def _expand_ragged_feeds(block, feed):
     return out
 
 
-class Executor:
-    """`Executor(place).run(program, feed, fetch_list, scope, return_numpy)`."""
+def _dense(t):
+    return t.to_dense() if isinstance(t, SelectedRows) else t
 
-    def __init__(self, place: Optional[Place] = None):
+
+class _Plan:
+    """One cached step: the pruned ops of (program version, feeds, fetches,
+    scope, steps, remat), run eagerly or, on the card, replayed from a
+    CUDA graph captured at its second run."""
+
+    def __init__(self, program: Program, fetch_names: Sequence[str], device: torch.device,
+                 steps: int, remat: bool, graphs: bool):
+        block = program.global_block()
+        self.persistable = frozenset(v.name for v in program.list_vars() if v.persistable)
+        self.ops = _prune(_runnable_ops(block), fetch_names, self.persistable)
+        self.read_names = frozenset(_read_names(self.ops))
+        self.fetch_names = list(fetch_names)
+        self.state_names = sorted((self.read_names | set(fetch_names)) & self.persistable)
+        self.written = list(dict.fromkeys(
+            n for op in self.ops for n in _effective_io(op)[1] if n in self.persistable))
+        if steps > 1:
+            missing = [n for n in self.written if n not in self.read_names]
+            if missing:
+                raise ValueError(f"steps>1 needs write-back state to be read by the program "
+                                 f"too; write-only persistables: {missing}")
+        self.device = device
+        self.remat = remat
+        self.program_u8 = program._uuid[:8]
+        self.constants: dict = {}
+        self.rerun = [torch.Generator(device=device)
+                      for _ in range(rerun_generators_needed(self.ops, remat))]
+        on_card = graphs and device.type == "cuda"
+        self.graph_refusal = _graph_refusal(self.ops) if on_card else None
+        self.graphable = on_card and self.graph_refusal is None
+        if self.graph_refusal is not None:
+            _MON.counter("executor.graph_refused").inc()
+        self.runs = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captured_launches: Optional[Dict[str, int]] = None
+        self._lock = threading.Lock()  # one replay at a time: the buffers are shared
+        self._static_feeds: Dict[str, torch.Tensor] = {}
+        self._static_outs: List[torch.Tensor] = []
+        self._state: Dict[str, torch.Tensor] = {}  # what the graph reads and writes
+        self._gen: Optional[torch.Generator] = None
+        self._seen_writes = -1
+
+    @property
+    def graphed(self) -> bool:
+        return self.graph is not None
+
+    def _context(self, gen: torch.Generator) -> LoweringContext:
+        return LoweringContext(gen, self.device, fetch_names=self.fetch_names,
+                               read_names=self.read_names, rerun_generators=self.rerun,
+                               persistable=self.persistable, constants=self.constants,
+                               remat=self.remat)
+
+    def _state_env(self, scope: Scope) -> Dict[str, torch.Tensor]:
+        env = {}
+        for name in self.state_names:
+            v = scope.find_var(name)
+            if v is None:
+                continue  # written by this run (startup) or reported missing by the op
+            if not isinstance(v, torch.Tensor) or v.device != self.device:
+                v = to_tensor(v, None, self.device)  # host arrays, other devices
+                scope.set_var(name, v)
+            env[name] = v
+        return env
+
+    def _outputs(self, env) -> List[object]:
+        missing = [n for n in self.fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch targets {missing} were not produced by the program")
+        # a fetched persistable is copied: a later step may update it in place
+        return [env[n] if isinstance(env[n], SelectedRows)
+                else env[n].detach().clone() if n in self.persistable else env[n].detach()
+                for n in self.fetch_names]
+
+    def run(self, scope: Scope, gen: torch.Generator, feeds: Dict[str, torch.Tensor],
+            side_stream) -> List[object]:
+        """One step from `feeds` (tensors on the plan's device); returns the
+        fetches, tensors the caller may keep."""
+        for r in self.rerun:  # every repeated forward starts where this step does
+            r.set_state(gen.get_state())
+        if not self.graphable:
+            return self._eager(scope, gen, feeds)
+        with self._lock:
+            if self.graph is not None and not self._state_current(scope, gen):
+                self._drop_graph()
+            if self.runs == 0:
+                outs = self._warm_up(scope, gen, feeds, side_stream)
+            else:
+                if self.graph is None:
+                    self._capture(scope, gen, feeds)
+                outs = self._replay(feeds)
+            self._seen_writes = scope_mod.writes()
+            return outs
+
+    def _eager(self, scope, gen, feeds):
+        env = self._state_env(scope)
+        env.update(feeds)
+        env = run_block_with_backward(self._context(gen), self.ops, env)
+        for n in self.written:
+            if n in env:
+                scope.set_var(n, env[n])
+        self.runs += 1
+        return self._outputs(env)
+
+    def _warm_up(self, scope, gen, feeds, side_stream):
+        """The first run: eager, on a side stream, as torch.cuda.graph asks
+        (lazy initialisations happen outside the capture)."""
+        cur = torch.cuda.current_stream(self.device)
+        side_stream.wait_stream(cur)
+        with torch.cuda.stream(side_stream):
+            outs = self._eager(scope, gen, feeds)
+        cur.wait_stream(side_stream)
+        return outs
+
+    def _capture(self, scope, gen, feeds):
+        state = self._state_env(scope)
+        # two names holding one storage would stay coupled in the graph
+        seen = {}
+        for n, t in state.items():
+            if t.data_ptr() in seen:
+                t = t.clone()
+                scope.set_var(n, t)
+                state[n] = t
+            seen[t.data_ptr()] = n
+        targets = {n: scope.find_var(n) for n in self.written}
+        targets = {n: t for n, t in targets.items() if isinstance(t, torch.Tensor)}
+        self._static_feeds = {n: v.clone() for n, v in feeds.items()}
+        graph = torch.cuda.CUDAGraph()
+        for g in [gen] + self.rerun:
+            graph.register_generator_state(g)
+        before = dict(cuda_kernels.LAUNCHES)
+        with torch.cuda.graph(graph):
+            env = dict(state)
+            env.update(self._static_feeds)
+            env = run_block_with_backward(self._context(gen), self.ops, env)
+            outs = self._outputs(env)
+            # an output that is another target's tensor is read before the copies
+            srcs = {n: env[n] for n in targets if n in env}
+            ids = {id(t) for t in targets.values()}
+            for n, v in srcs.items():
+                if v is not targets[n] and id(v) in ids:
+                    srcs[n] = v.clone()
+            for n, v in srcs.items():
+                if v is not targets[n]:
+                    targets[n].copy_(v)
+        self.captured_launches = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+        self._static_outs = outs
+        self._state = {**state, **targets}
+        self._gen = gen
+        self.graph = graph
+        _MON.counter("executor.graph_capture").inc()
+
+    def _replay(self, feeds):
+        for n, v in feeds.items():
+            self._static_feeds[n].copy_(v, non_blocking=True)
+        self.graph.replay()
+        self.runs += 1
+        _MON.counter("executor.graph_replay").inc()
+        # the static outputs are overwritten by the next replay
+        return [t.clone() for t in self._static_outs]
+
+    def _state_current(self, scope, gen) -> bool:
+        """Is the captured state still the scope's?  Checked only when some
+        set_var happened since this plan's last run.  A replaced tensor of
+        the same shape and dtype is copied into the captured one, which the
+        scope then holds again; anything else needs a new capture."""
+        if gen is not self._gen:
+            return False
+        if scope_mod.writes() == self._seen_writes:
+            return True
+        for n, t in self._state.items():
+            v = scope.find_var(n)
+            if v is t:
+                continue
+            if not (isinstance(v, torch.Tensor) and v.shape == t.shape and v.dtype == t.dtype):
+                return False
+            t.copy_(v)
+            scope.set_var(n, t)
+        return True
+
+    def _drop_graph(self):
+        self.graph = None
+        self._static_feeds, self._static_outs, self._state = {}, [], {}
+        self.runs = 0  # the next run warms up and the one after captures
+
+
+class _PendingFetches:
+    """Shared state behind the FetchHandles of one `run_async` dispatch:
+    the in-flight fetch tensors and a CUDA event recorded after them.
+    Resolution happens at most once; an error raised during it is sticky,
+    so every handle of the dispatch reports the same failure."""
+
+    __slots__ = ("fetch_names", "fetches", "event", "program_u8", "_np", "_exc", "_done")
+
+    def __init__(self, fetch_names, fetches, event, program_u8):
+        self.fetch_names = list(fetch_names)
+        self.fetches = list(fetches)
+        self.event = event
+        self.program_u8 = program_u8
+        self._np = None
+        self._exc = None
+        self._done = False
+
+    @property
+    def want_names(self):
+        return self.fetch_names
+
+    def wait(self):
+        """Block until the dispatched step has run on the card: no host copy."""
+        if self.event is not None:
+            self.event.synchronize()
+
+    def ready(self) -> bool:
+        """Non-blocking readiness probe."""
+        return self.event is None or self.event.query()
+
+    def resolve(self):
+        """The fetches as numpy (first call only), through pinned host
+        memory, then the NaN/Inf guard.  An in-flight error raises here,
+        not at dispatch; the scope already holds the step's state."""
+        if self._done:
+            if self._exc is not None:
+                raise self._exc
+            return self._np
+        t0 = time.perf_counter()
+        try:
+            vals = host_copies([_dense(t) for t in self.fetches])
+            Executor._check_nan_inf(self.fetch_names, vals)
+            self._np = vals
+        except BaseException as e:
+            ce = classify(e)
+            self._exc = ce
+            if ce is e:
+                raise
+            raise ce from e
+        finally:
+            # one-shot: drop the device buffers so a kept handle pins nothing
+            self._done = True
+            self.fetches = []
+            self.event = None
+        _MON.observe("executor.fetch", time.perf_counter() - t0, program=self.program_u8)
+        return self._np
+
+
+class FetchHandle:
+    """Lazy fetch result from `Executor.run_async`: one output of a dispatch
+    still in flight on the card.  The host copy (and the NaN/Inf guard)
+    happens on first access: `numpy()`, `np.asarray(handle)`, `float(handle)`."""
+
+    __slots__ = ("_pending", "_idx", "name")
+
+    def __init__(self, pending: _PendingFetches, idx: int, name: str):
+        self._pending = pending
+        self._idx = idx
+        self.name = name
+
+    def numpy(self) -> np.ndarray:
+        return self._pending.resolve()[self._idx]
+
+    def wait(self):
+        """Block until the step has run on the card, WITHOUT a host copy."""
+        self._pending.wait()
+        return self
+
+    def block_until_ready(self):
+        return self.wait()
+
+    def is_ready(self) -> bool:
+        return self._pending._done or self._pending.ready()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __float__(self):
+        return float(np.asarray(self.numpy()).reshape(-1)[0])
+
+    def __repr__(self):
+        state = "resolved" if self._pending._done else "in-flight"
+        return f"FetchHandle({self.name!r}, {state})"
+
+
+class Executor:
+    """`Executor(place).run(program, feed, fetch_list, scope, return_numpy, steps)`.
+
+    `_graphs=False` keeps every plan eager on the card: the eager-versus-
+    graphed comparisons of the tests and chip_smoke.py use it."""
+
+    def __init__(self, place: Optional[Place] = None, _graphs: bool = True):
         self.place = place if place is not None else CUDAPlace(0)
+        self._graphs = _graphs
+        self._cache: "OrderedDict[tuple, _Plan]" = OrderedDict()
+        self._cache_lock = threading.Lock()
+        self._side_stream = None
+        self.last_plan: Optional[_Plan] = None  # the plan of the latest run
+
+    def close(self):
+        self._cache.clear()
 
     def run(
         self,
@@ -142,55 +499,151 @@ class Executor:
         fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
         scope: Optional[Scope] = None,
         return_numpy: bool = True,
+        use_program_cache: bool = True,  # parity arg; the cache is always on
+        steps: int = 1,
     ) -> List[object]:
-        program = program if program is not None else default_main_program()
-        scope = scope if scope is not None else global_scope()
-        feed = feed or {}
-        fetch_names = [f.name if isinstance(f, Variable) else str(f) for f in (fetch_list or [])]
-        device = self.place.device
-        block = program.global_block()
+        """steps > 1 runs K steps: every feed must carry a leading [steps]
+        axis and fetches come back stacked [steps, ...]."""
+        return self._run_impl(program, feed, fetch_list, scope, return_numpy, steps, False)
 
-        persistable = {v.name for v in program.list_vars() if v.persistable}
-        ops = _prune(_runnable_ops(block), fetch_names, persistable)
-        read_names = _read_names(ops)
+    def run_async(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, object]] = None,
+        fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+        scope: Optional[Scope] = None,
+        use_program_cache: bool = True,
+        steps: int = 1,
+    ) -> List[FetchHandle]:
+        """`run` minus the blocking tail: one `FetchHandle` per fetch as soon
+        as the step is enqueued on the card.  The scope already holds the
+        step's state and generator, so the next run chains correctly; the
+        host copy and the FLAGS_check_nan_inf guard run at resolution, where
+        an in-flight error surfaces.  See pipeline.train_loop."""
+        return self._run_impl(program, feed, fetch_list, scope, True, steps, True)
 
-        env: Dict[str, torch.Tensor] = {}
-        for name in sorted((read_names | set(fetch_names)) & persistable):
-            v = scope.find_var(name)
-            if v is None:
-                continue  # written by this run (startup) or reported missing by the op
-            if not isinstance(v, torch.Tensor) or v.device != device:
-                v = to_tensor(v, None, device)  # host arrays, other devices
-                scope.set_var(name, v)
-            env[name] = v
-        for name, value in _expand_ragged_feeds(block, feed).items():
+    def _feeds(self, block, feed, steps) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, value in _expand_ragged_feeds(block, feed, steps).items():
             dtype = block.var(name).dtype if block.has_var(name) else None
-            env[name] = to_tensor(value, dtype, device)
+            out[name] = to_tensor(value, dtype, self.place.device)
+        if steps > 1:
+            for name, t in out.items():
+                shape = tuple(t.shape)
+                if len(shape) == 0 or shape[0] != steps:
+                    raise ValueError(
+                        f"steps={steps} requires every feed to carry a leading "
+                        f"[steps] axis; feed '{name}' has shape {shape}. Stack K "
+                        f"batches along axis 0 (fetches come back stacked the "
+                        f"same way).")
+        return out
 
+    @staticmethod
+    def _key(program, feeds, fetch_names, scope, steps, remat):
+        return (program._uuid, program.version,
+                tuple(sorted((n, tuple(t.shape), str(t.dtype)) for n, t in feeds.items())),
+                tuple(fetch_names), scope._uuid, steps, remat, _lowering_flags())
+
+    def _plan(self, key, program, fetch_names, steps, remat):
+        with self._cache_lock:
+            plan = self._cache.pop(key, None)
+            if plan is not None:
+                self._cache[key] = plan  # re-insert: LRU order
+                _MON.counter("executor.cache_hit").inc()
+                return plan, True
+        with _MON.span("executor.build", program=program._uuid[:8]):
+            plan = _Plan(program, fetch_names, self.place.device, steps, remat, self._graphs)
+        with self._cache_lock:
+            existing = self._cache.get(key)
+            if existing is not None:  # a racing thread built it: keep one plan
+                _MON.counter("executor.cache_hit").inc()
+                return existing, True
+            _MON.counter("executor.cache_miss").inc()
+            self._cache[key] = plan
+            while len(self._cache) > flags.flag("FLAGS_executor_cache_capacity"):
+                self._cache.popitem(last=False)  # drops the plan's graph and buffers
+        return plan, False
+
+    def _generator(self, scope, program) -> torch.Generator:
+        device = self.place.device
         gen = scope.find_var(RNG_STATE_VAR)
         if gen is None or gen.device != device:
             gen = torch.Generator(device=device)
             gen.manual_seed(program.random_seed if program.random_seed is not None else 0)
             scope.set_var(RNG_STATE_VAR, gen)
+        return gen
 
-        ctx = LoweringContext(gen, device, fetch_names=fetch_names, read_names=read_names)
-        env = run_block_with_backward(ctx, ops, env)
-        for op in ops:
-            for n in _effective_io(op)[1]:
-                if n in persistable and n in env:
-                    scope.set_var(n, env[n])
-
-        missing = [n for n in fetch_names if n not in env]
-        if missing:
-            raise KeyError(f"fetch targets {missing} were not produced by the program")
-        fetches = [env[n] if isinstance(env[n], SelectedRows) else env[n].detach()
-                   for n in fetch_names]
-        if flags.flag("FLAGS_check_nan_inf"):
-            for name, t in zip(fetch_names, fetches):
-                t = t.values if isinstance(t, SelectedRows) else t
-                if t.is_floating_point() and not bool(torch.isfinite(t).all()):
-                    raise FloatingPointError(f"FLAGS_check_nan_inf: fetch {name!r} contains NaN/Inf")
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy, steps, async_mode):
+        program, remat = _unwrap(program if program is not None else default_main_program())
+        scope = scope if scope is not None else global_scope()
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        fetch_names = _fetch_names(fetch_list)
+        t0 = time.perf_counter()
+        feeds = self._feeds(program.global_block(), feed or {}, steps)
+        key = self._key(program, feeds, fetch_names, scope, steps, remat)
+        plan, hit = self._plan(key, program, fetch_names, steps, remat)
+        self.last_plan = plan
+        gen = self._generator(scope, program)
+        if self.place.device.type == "cuda" and self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.place.device)
+        if steps == 1:
+            fetches = plan.run(scope, gen, feeds, self._side_stream)
+        else:
+            per_step = [plan.run(scope, gen, {n: t[k] for n, t in feeds.items()},
+                                 self._side_stream) for k in range(steps)]
+            fetches = [torch.stack([_dense(outs[i]) for outs in per_step])
+                       for i in range(len(fetch_names))]
+        t_dispatch = time.perf_counter() - t0
+        _MON.observe("executor.dispatch", t_dispatch, program=plan.program_u8)
+        record = {"program": plan.program_u8, "steps": steps, "async": async_mode,
+                  "cache_hit": hit, "graphed": plan.graphed, "t_dispatch_s": t_dispatch}
+        if async_mode:
+            event = None
+            if self.place.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.place.device))
+            _MON.record_step(record)
+            pending = _PendingFetches(fetch_names, fetches, event, plan.program_u8)
+            return [FetchHandle(pending, i, n) for i, n in enumerate(fetch_names)]
+        t1 = time.perf_counter()
         if return_numpy:
-            # a SelectedRows gradient comes back as its dense view
-            return [t.numpy() if isinstance(t, SelectedRows) else to_numpy(t) for t in fetches]
-        return fetches
+            out = [t.numpy() if isinstance(t, SelectedRows) else None for t in fetches]
+            copies = iter(host_copies([t for t in fetches if not isinstance(t, SelectedRows)]))
+            out = [v if v is not None else next(copies) for v in out]
+        else:
+            out = fetches
+        self._check_nan_inf(fetch_names, out)
+        record["t_fetch_s"] = time.perf_counter() - t1
+        _MON.observe("executor.fetch", record["t_fetch_s"], program=plan.program_u8)
+        _MON.record_step(record)
+        return out
+
+    @staticmethod
+    def _check_nan_inf(fetch_names, values):
+        if not flags.flag("FLAGS_check_nan_inf"):
+            return
+        for name, val in zip(fetch_names, values):
+            if isinstance(val, SelectedRows):
+                val = val.values
+            if isinstance(val, torch.Tensor):
+                bad = val.is_floating_point() and not bool(torch.isfinite(val).all())
+            else:
+                arr = np.asarray(val)
+                bad = np.issubdtype(arr.dtype, np.floating) and not np.isfinite(arr).all()
+            if bad:
+                # NumericError subclasses RuntimeError, as in the JAX package
+                raise NumericError(f"FLAGS_check_nan_inf: fetch {name!r} contains "
+                                   f"NaN/Inf (reference CheckTensorNANOrInf)")
+
+
+def _fetch_names(fetch_list) -> List[str]:
+    return [f.name if isinstance(f, Variable) else str(f) for f in (fetch_list or [])]
+
+
+def _unwrap(program):
+    """(Program, remat) of a Program or a CompiledProgram: a BuildStrategy
+    with memory_optimize runs the backward regions rematerialized."""
+    if hasattr(program, "program") and hasattr(program, "build_strategy"):
+        return program.program, bool(getattr(program.build_strategy, "memory_optimize", False))
+    return program, False

@@ -8,12 +8,24 @@ runs with its parameters as leaves that require grad, and
 `is_sparse` lookups read gets a SelectedRows gradient
 (core/selected_rows.py): each of its lookups' outputs is an autograd leaf
 of its own (`SparseTaps`), whose gradient is that lookup's row slab.
+With `ctx.remat` (BuildStrategy.memory_optimize) a region's forward runs
+under `torch.utils.checkpoint`, as the JAX package wraps it in
+`jax.checkpoint`: autograd keeps only the region's inputs and recomputes
+the rest during the backward.
+
+The same code runs eagerly and under CUDA-graph capture
+(core/executor.py), so nothing here reads a tensor on the host or moves
+a generator's state: a forward that must repeat the step's random draws
+(a later backward region, remat's recompute) draws from a generator the
+executor synced to the run's generator before the run
+(`ctx.rerun_generators`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .program import Operator
 from .registry import get_op_def
@@ -26,20 +38,53 @@ class LoweringContext:
     `generator` draws every random op without a seed attr (the counterpart of
     the JAX package's threaded PRNG key); `device` is where new tensors go;
     `fetch_names` and `read_names` let a lowering skip an output slot that
-    nothing reads (eager torch has no dead-code elimination)."""
+    nothing reads (eager torch has no dead-code elimination).
+    `rerun_generators` are generators in the state `generator` had when the
+    run began, one for each forward that repeats the step's draws
+    (`rerun_generators_needed`); `persistable` names the vars the executor
+    writes back; `constants` holds tensors a lowering builds once per plan
+    (`constant`); `remat` checkpoints each backward region's forward."""
 
     def __init__(self, generator: torch.Generator, device: torch.device, is_test: bool = False,
-                 fetch_names: Sequence[str] = (), read_names=frozenset()):
+                 fetch_names: Sequence[str] = (), read_names=frozenset(),
+                 rerun_generators: Sequence[torch.Generator] = (), persistable=frozenset(),
+                 constants: Optional[dict] = None, remat: bool = False):
         self.generator = generator
         self.device = device
         self.is_test = is_test
         self.fetch_names = tuple(fetch_names)
         self.read_names = frozenset(read_names)
+        self.rerun_generators = list(rerun_generators)
+        self.persistable = frozenset(persistable)
+        self.constants = {} if constants is None else constants
+        self.remat = remat
         self.sparse_taps: Optional["SparseTaps"] = None  # set while a backward region runs
 
     def wants(self, op: Operator, slot: str) -> bool:
         """True when an output of `op` in `slot` is read by an op of the run or fetched."""
         return any(n in self.read_names or n in self.fetch_names for n in op.outputs.get(slot, ()))
+
+    def constant(self, key, build: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """`build()`, made at the plan's first run and reused after: a tensor
+        made from host data, or from a generator of its own, costs a host
+        copy that CUDA-graph capture forbids.  Callers must not write it."""
+        t = self.constants.get(key)
+        if t is None:
+            t = self.constants[key] = build()
+        return t
+
+    def take_rerun_generator(self) -> torch.Generator:
+        if not self.rerun_generators:
+            raise RuntimeError("a forward that repeats the step's random draws found no generator "
+                               "synced to the run's start (rerun_generators_needed undercounted)")
+        return self.rerun_generators.pop(0)
+
+
+def rerun_generators_needed(ops: List[Operator], remat: bool) -> int:
+    """Forwards of a run that repeat its first forward's random draws: each
+    backward region after the first, and with remat each region's recompute."""
+    regions = sum(1 for op in ops if op.type == "backward")
+    return max(regions - 1, 0) + (regions if remat else 0)
 
 
 class SparseTaps:
@@ -155,7 +200,8 @@ def run_block_with_backward(ctx: LoweringContext, ops: List[Operator],
     """Run a block that may hold `backward` ops.
 
     Each region differentiates the whole op prefix before its `backward` op,
-    re-run from the block-start env with the generator's state restored, so
+    re-run from the block-start env, the first from the run's generator and
+    each later one from a rerun generator in the same starting state, so
     every region sees the same dropout masks (the JAX package pins `key0`);
     grads of earlier regions enter later regions as constants.  One region
     runs its forward once.  The ops after the last `backward` (the optimizer
@@ -165,12 +211,15 @@ def run_block_with_backward(ctx: LoweringContext, ops: List[Operator],
     if not splits:
         with torch.no_grad():
             return run_ops(ctx, ops, env)
-    state0 = ctx.generator.get_state()
+    gen = ctx.generator
     start_env = dict(env)
     grads_so_far: Dict[str, torch.Tensor] = {}
-    for si in splits:
-        ctx.generator.set_state(state0)
-        env = _run_one_backward_region(ctx, ops, si, start_env, grads_so_far)
+    try:
+        for k, si in enumerate(splits):
+            ctx.generator = gen if k == 0 else ctx.take_rerun_generator()
+            env = _run_one_backward_region(ctx, ops, si, start_env, grads_so_far)
+    finally:
+        ctx.generator = gen
     with torch.no_grad():
         return run_ops(ctx, ops[splits[-1] + 1:], env)
 
@@ -202,7 +251,16 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
     ctx.sparse_taps = taps if sparse else None
     try:
         with torch.enable_grad():
-            run_ops(ctx, fwd_ops, env)
+            if ctx.remat:
+                if sparse:
+                    raise NotImplementedError(
+                        "remat (BuildStrategy.memory_optimize) with is_sparse tables: a "
+                        "recompute would tap its lookups again; turn one of the two off")
+                keep = ({loss_name} | set(ctx.fetch_names) | ctx.persistable
+                        | {n for o in ops[split + 1:] for n in o.input_arg_names})
+                env = _checkpointed_forward(ctx, fwd_ops, env, leaves, keep)
+            else:
+                run_ops(ctx, fwd_ops, env)
             loss = env[loss_name]
             inputs = list(leaves.values()) + taps.leaves()
             got = [None] * len(inputs)
@@ -222,6 +280,40 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
                 gval = torch.zeros_like(start_env[p])
         out[g] = gval
         grads_so_far[g] = gval
+    return out
+
+
+def _checkpointed_forward(ctx: LoweringContext, fwd_ops: List[Operator],
+                          env: Dict[str, torch.Tensor], leaves: Dict[str, torch.Tensor],
+                          keep) -> Dict[str, torch.Tensor]:
+    """Run `fwd_ops` over `env` under torch.utils.checkpoint, with the dense
+    parameter `leaves` as its inputs; returns `env` plus the outputs named
+    in `keep`.  The recompute draws from a rerun generator in the state the
+    forward started from, so it repeats the forward's dropout masks
+    (`preserve_rng_state` saves only the default generators, not the
+    scope's)."""
+    names = list(leaves)
+    gens = [ctx.generator, ctx.take_rerun_generator()]
+    calls = []
+    out_names: List[str] = []
+
+    def forward(*values):
+        e = dict(env)
+        e.update(zip(names, values))
+        ctx.generator = gens[min(len(calls), 1)]
+        calls.append(None)
+        try:
+            run_ops(ctx, fwd_ops, e)
+        finally:
+            ctx.generator = gens[0]
+        if not out_names:
+            produced = dict.fromkeys(n for o in fwd_ops for n in o.output_arg_names)
+            out_names.extend(n for n in produced if n in keep and n in e)
+        return tuple(e[n] for n in out_names)
+
+    outs = checkpoint(forward, *leaves.values(), use_reentrant=False, preserve_rng_state=False)
+    out = dict(env)
+    out.update(zip(out_names, outs))
     return out
 
 

@@ -27,6 +27,7 @@ def apply_pass(program, name: str, **kw):
     if name not in _PASS_REGISTRY:
         raise KeyError(f"unknown pass {name!r}; known: {registered_passes()}")
     _PASS_REGISTRY[name](program, **kw)
+    program._bump()  # the rewritten ops need a new plan
     return program
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -184,11 +185,13 @@ class Block:
             return self.vars[name]
         v = Variable(self, name, **kw)
         self.vars[name] = v
+        self.program._bump()
         return v
 
     def create_parameter(self, name: str, shape, dtype, **kw) -> Parameter:
         p = Parameter(self, name, shape=shape, dtype=dtype, **kw)
         self.vars[name] = p
+        self.program._bump()
         return p
 
     def var(self, name: str) -> Variable:
@@ -216,6 +219,7 @@ class Block:
         # package) arrives with the port of core/analysis.py
         op = Operator(self, type, _normalize_io(inputs), _normalize_io(outputs), attrs)
         self.ops.append(op)
+        self.program._bump()
         return op
 
     def to_dict(self) -> dict:
@@ -251,8 +255,16 @@ class Program:
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
+        # stable identity for the executor's plan-cache keys (an id() can be
+        # reused after gc; clone() gets a fresh one)
+        self._uuid = uuid.uuid4().hex
         self.current_block_idx = 0
         self.random_seed: Optional[int] = None
+        self.version = 0
+
+    def _bump(self):
+        """Mark a mutation: plans cached for the old version are not reused."""
+        self.version += 1
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -266,6 +278,7 @@ class Program:
         b = Block(self, len(self.blocks), parent)
         self.blocks.append(b)
         self.current_block_idx = b.idx
+        self._bump()
         return b
 
     def rollback(self):
@@ -283,6 +296,7 @@ class Program:
         """Deep copy.  for_test=True switches every `is_test` attr on (dropout
         becomes identity) and cuts the block at its `backward` op."""
         p = copy.deepcopy(self)
+        p._uuid = uuid.uuid4().hex
         if for_test:
             for blk in p.blocks:
                 cut = None
@@ -294,6 +308,7 @@ class Program:
                         op.attrs["is_test"] = True
                 if cut is not None and blk.idx == 0:
                     blk.ops = blk.ops[:cut]
+        p._bump()
         return p
 
     def to_dict(self) -> dict:
@@ -324,6 +339,7 @@ class Program:
             p.blocks.append(b)
         if not p.blocks:
             p.blocks = [Block(p, 0)]
+        p._bump()
         return p
 
     def __repr__(self):

@@ -2,11 +2,16 @@
 
 Holds the persistent state between runs (parameters, the RNG generator)
 as torch tensors on the place's device; the executor writes a run's
-persistable outputs back here.
+persistable outputs back here.  `Scope._uuid` keys the executor's plan
+cache.  Every `set_var` of any scope advances one process-wide write
+count (`writes()`): a plan replayed from a CUDA graph reads the tensors it
+captured, and it checks them against the scope only when that count moved
+since its last run.
 """
 from __future__ import annotations
 
 import contextlib
+import uuid
 from typing import Dict, Optional
 
 import numpy as np
@@ -15,14 +20,24 @@ from .dtypes import to_numpy
 
 RNG_STATE_VAR = "__rng_state__"
 
+_writes = 0
+
+
+def writes() -> int:
+    """How many `set_var` calls any scope has taken so far."""
+    return _writes
+
 
 class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, object] = {}
         self.parent = parent
+        self._uuid = uuid.uuid4().hex
 
     def set_var(self, name: str, value) -> None:
+        global _writes
         self._vars[name] = value
+        _writes += 1
 
     def find_var(self, name: str):
         s: Optional[Scope] = self
@@ -34,6 +49,9 @@ class Scope:
 
     def has_var(self, name: str) -> bool:
         return self.find_var(name) is not None
+
+    def local_var_names(self):
+        return list(self._vars)
 
     def to_numpy(self, name: str) -> np.ndarray:
         v = self.find_var(name)

@@ -1138,11 +1138,22 @@ int cta_rows(Which which) {
 }
 
 template <typename T, int DH>
-cudaError_t prepare(Which which) {
+cudaError_t set_smem_attribute(Which which) {
   const size_t bytes = smem_of<T, DH>(which);
   if (bytes > 227u * 1024u) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel_of<T, DH>(which),
                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+// The shared-memory attributes of an instantiation's three kernels, set
+// once, at its first launch or query: a launch then makes no runtime call
+// but its own, as a CUDA graph's capture wants.
+template <typename T, int DH>
+cudaError_t prepare(Which which) {
+  static const cudaError_t set[3] = {set_smem_attribute<T, DH>(kForward),
+                                     set_smem_attribute<T, DH>(kBwdDQ),
+                                     set_smem_attribute<T, DH>(kBwdDKV)};
+  return set[which];
 }
 
 template <typename T, int DH>

@@ -371,14 +371,23 @@ __global__ void __launch_bounds__(32 * kBwdWarps, bwd_min_blocks(sizeof(T), E))
   }
 }
 
+// The shared-memory attribute of one instantiation, set once, for the
+// widest row it takes (d = 32 * E): a launch then makes no runtime call but
+// its own, as a CUDA graph's capture wants.
+template <typename T, int VEC, int E>
+cudaError_t bwd_smem_attribute() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      ln_residual_bwd_kernel<T, VEC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bwd_smem<T, VEC>(32 * E)));
+  return err;
+}
+
 template <typename T, int VEC, int E>
 cudaError_t launch_bwd(const void* x, const void* res, const void* scale, const void* g,
                        void* dx, void* part, void* dsdb, int64_t rows, int d, float eps,
                        int n_blocks, cudaStream_t stream) {
   const size_t smem = bwd_smem<T, VEC>(d);
-  cudaError_t err = cudaFuncSetAttribute(ln_residual_bwd_kernel<T, VEC, E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = bwd_smem_attribute<T, VEC, E>();
   if (err != cudaSuccess) return err;
   ln_residual_bwd_kernel<T, VEC, E><<<n_blocks, 32 * kBwdWarps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const float*>(scale),

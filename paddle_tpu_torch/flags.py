@@ -43,3 +43,6 @@ _define("FLAGS_check_nan_inf", bool, False,
 _define("FLAGS_integrity_verify_load", bool, True,
         "verify the sha256 + byte-length stamps of a model directory's manifest "
         "whenever it is loaded")
+_define("FLAGS_executor_cache_capacity", int, 128,
+        "LRU capacity of the executor's plan cache (program x feed signature x "
+        "fetch list); an evicted plan drops its CUDA graph and static buffers")

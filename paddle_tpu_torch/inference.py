@@ -3,9 +3,14 @@
 `create_predictor(AnalysisConfig(model_dir))` loads a saved inference model
 (`io.save_inference_model` of either package) onto the config's place --
 the card, `CUDAPlace(0)`, unless the caller passes another -- and serves
-`run` calls through an eager `Executor`.  `clone()` shares the program and
-the weights; `run` / `run_zero_copy` hold a per-predictor re-entrant lock,
-and a zero-copy transaction spanning several calls holds `lock()`.
+`run` calls through its `Executor`: one cached plan for each batch shape,
+replayed as a CUDA graph on the card from its second request (the first
+runs eagerly).  `run` copies the outputs to the host through pinned
+memory; `run_zero_copy` leaves them on the device until `copy_to_cpu`,
+which takes the same pinned path.  `clone()` shares the program, the
+weights and the executor's plans; `run` / `run_zero_copy` hold a
+per-predictor re-entrant lock, and a zero-copy transaction spanning
+several calls holds `lock()`.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ class AnalysisConfig:
     def __init__(self, model_dir: str, place: Optional[Place] = None):
         self.model_dir = model_dir
         self.place = place if place is not None else CUDAPlace(0)
+        self._graphs = True  # False: an eager Executor (the graphed-vs-eager A/B)
 
 
 class PredictorTensor:
@@ -60,7 +66,7 @@ class Predictor:
             self.program, self.feed_names, self.fetch_names, self.scope, self.exe = _shared
         else:
             self.scope = Scope()
-            self.exe = Executor(config.place)
+            self.exe = Executor(config.place, _graphs=config._graphs)
             self.program, self.feed_names, self.fetch_names = _io.load_inference_model(
                 config.model_dir, self.exe, scope=self.scope)
         self._lock = threading.RLock()

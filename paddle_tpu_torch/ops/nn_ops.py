@@ -235,10 +235,13 @@ def _dropout(ctx, op, ins):
         out = x if upscale else x * (1.0 - p)
         mask = torch.ones_like(x) if ctx.wants(op, "Mask") else None
         return {"Out": out, "Mask": mask}
-    gen = ctx.generator
-    if op.attr("fix_seed", False):
-        gen = torch.Generator(device=x.device).manual_seed(int(op.attr("seed", 0)))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    if op.attr("fix_seed", False):  # the same mask every run: drawn once per plan
+        seed = int(op.attr("seed", 0))
+        keep = ctx.constant(("dropout", id(op), tuple(x.shape), seed), lambda: torch.rand(
+            x.shape, generator=torch.Generator(device=x.device).manual_seed(seed),
+            device=x.device) < (1.0 - p))
+    else:
+        keep = torch.rand(x.shape, generator=ctx.generator, device=x.device) < (1.0 - p)
     if upscale:
         out = torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
     else:

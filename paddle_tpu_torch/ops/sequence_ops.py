@@ -62,7 +62,7 @@ def _attention_bias(ctx, op, ins):
     k = first(ins, "K")
     klens = first(ins, "KLod")
     b, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
-    neg = torch.tensor(NEG_INF_BIAS, dtype=torch.float32, device=klens.device)
+    neg = torch.full((), NEG_INF_BIAS, dtype=torch.float32, device=klens.device)
     zero = torch.zeros((), dtype=torch.float32, device=klens.device)
     m = torch.arange(Tk, device=klens.device)[None, :] < klens[:, None]  # [b, Tk]
     bias = torch.where(m, zero, neg)[:, None, None, :].expand(b, 1, Tq, Tk)
@@ -81,7 +81,7 @@ def _position_encoding(ctx, op, ins):
     T, d = x.shape[1], x.shape[2]
     pos = torch.arange(T, dtype=torch.float32, device=x.device)[:, None]
     i = torch.arange(d // 2, dtype=torch.float32, device=x.device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=x.device), 2.0 * i / d)
+    angle = pos / torch.pow(10000.0, 2.0 * i / d)
     pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
     if pe.shape[-1] < d:  # odd d
         pe = torch.nn.functional.pad(pe, (0, d - pe.shape[-1]))

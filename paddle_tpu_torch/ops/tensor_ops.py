@@ -11,12 +11,16 @@ from ..core.registry import register_op
 from .common import canon_dtype, first
 
 
-def _generator(ctx, op):
-    """An op-level `seed` attr pins the stream; otherwise draw from the run's generator."""
+def _draw(ctx, op, shape, draw):
+    """`draw(shape, generator)`: from the run's generator, or, where an
+    op-level `seed` attr pins the stream, the same values every run, drawn
+    once per plan from a generator of that seed (a copy, since the caller
+    may write its output in place)."""
     seed = op.attr("seed", 0)
-    if seed:
-        return torch.Generator(device=ctx.device).manual_seed(int(seed))
-    return ctx.generator
+    if not seed:
+        return draw(shape, ctx.generator)
+    return ctx.constant((op.type, id(op), shape, int(seed)), lambda: draw(
+        shape, torch.Generator(device=ctx.device).manual_seed(int(seed)))).clone()
 
 
 @register_op("fill_constant")
@@ -30,14 +34,16 @@ def _fill_constant(ctx, op, ins):
 def _uniform_random(ctx, op, ins):
     shape = tuple(op.attr("shape"))
     lo, hi = op.attr("min", -1.0), op.attr("max", 1.0)
-    u = torch.rand(shape, generator=_generator(ctx, op), dtype=torch.float32, device=ctx.device)
+    u = _draw(ctx, op, shape, lambda s, g: torch.rand(s, generator=g, dtype=torch.float32,
+                                                      device=ctx.device))
     return {"Out": (u * (hi - lo) + lo).to(as_torch_dtype(op.attr("dtype", "float32")))}
 
 
 @register_op("gaussian_random")
 def _gaussian_random(ctx, op, ins):
     shape = tuple(op.attr("shape"))
-    z = torch.randn(shape, generator=_generator(ctx, op), dtype=torch.float32, device=ctx.device)
+    z = _draw(ctx, op, shape, lambda s, g: torch.randn(s, generator=g, dtype=torch.float32,
+                                                       device=ctx.device))
     out = op.attr("mean", 0.0) + op.attr("std", 1.0) * z
     return {"Out": out.to(as_torch_dtype(op.attr("dtype", "float32")))}
 
@@ -92,11 +98,12 @@ def _increment(ctx, op, ins):
 @register_op("assign_value")
 def _assign_value(ctx, op, ins):
     """A constant from the op's `values` attr, int64 / float64 as int32 /
-    float32 (the x32 rule)."""
-    out = torch.as_tensor(np.asarray(op.attr("values"))).to(
-        device=ctx.device, dtype=canon_dtype(op.attr("dtype", "float32")))
+    float32 (the x32 rule): copied to the device once per plan, then a
+    device copy a run."""
+    out = ctx.constant((op.type, id(op)), lambda: torch.as_tensor(np.asarray(op.attr("values"))).to(
+        device=ctx.device, dtype=canon_dtype(op.attr("dtype", "float32"))))
     shape = op.attr("shape")
-    return {"Out": out.reshape(shape) if shape else out}
+    return {"Out": (out.reshape(shape) if shape else out).clone()}
 
 
 @register_op("expand")

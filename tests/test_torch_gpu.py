@@ -25,6 +25,25 @@ def _need_card():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
+@pytest.fixture
+def exact_card_math():
+    """TF32 off for matmuls and convolutions, and cuDNN's deterministic
+    algorithms (its weight gradients may add in any order otherwise), for
+    one test: the process's switches are restored after it, so no later
+    test inherits them."""
+    switches = [(torch.backends.cuda.matmul, "allow_tf32", False),
+                (torch.backends.cudnn, "allow_tf32", False),
+                (torch.backends.cudnn, "deterministic", True)]
+    saved = [getattr(module, name) for module, name, _ in switches]
+    for module, name, value in switches:
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for (module, name, _), value in zip(switches, saved):
+            setattr(module, name, value)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(dtype):
@@ -352,8 +371,8 @@ def test_attention_backward_wrappers_check_their_operands_on_card():
 
 def _train_tiny_on_card_and_cpu(fused, steps):
     """Adam steps of the tiny BERT (dropout 0, float32) on the card and on the
-    CPU from one state: the card's losses, scope and launches, the CPU's."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    CPU from one state: the card's losses, scope and launches, the CPU's
+    (the caller's test holds exact_card_math)."""
     config = dict(TINY, use_fused_attention=fused, dropout_prob=0.0, learning_rate=1e-3,
                   with_optimizer=True)
     with fluid.unique_name.guard():
@@ -376,8 +395,8 @@ def _train_tiny_on_card_and_cpu(fused, steps):
         outs = [exe.run(main, feed=feed, fetch_list=[loss] + grads, scope=scope)
                 for _ in range(steps)]
         runs.append(([float(o[0][0]) for o in outs], scope, [o[1:] for o in outs],
-                     {k: ck.LAUNCHES[k] - before[k] for k in before}))
-    (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
+                     {k: ck.LAUNCHES[k] - before[k] for k in before}, exe.last_plan))
+    (gl, gs, _, gd, plan), (cl, cs, cpu_grads, cd, _) = runs
     assert cd == NO_LAUNCHES
     np.testing.assert_allclose(gl, cl, atol=1e-4)
     peaks = [max(float(np.abs(g).max()) for g in step) for step in cpu_grads]
@@ -388,34 +407,45 @@ def _train_tiny_on_card_and_cpu(fused, steps):
             near_zero |= np.abs(step[i]) <= 1e-6 * peak
         assert err.max() <= 2 * 1e-3 * steps + 1e-5, p
         assert not (err[~near_zero] > 1e-5).any(), p
-    return main, gd
+    return main, gd, plan
+
+
+def _hold_graphed_launches(launches, plan, per_step):
+    """A plan that ran >= 2 steps on the card: the first ran eagerly, the
+    second captured one step into a CUDA graph that every later step
+    replays.  The wrappers count a launch where they enqueue one, so the
+    eager step and the capture each count one step's launches, and the
+    graph holds exactly one step's."""
+    assert plan.graphed and plan.graph_refusal is None
+    assert plan.captured_launches == per_step
+    assert launches == {k: 2 * v for k, v in per_step.items()}
 
 
 @pytest.mark.gpu
-def test_tiny_bert_trains_on_card_like_cpu():
+def test_tiny_bert_trains_on_card_like_cpu(exact_card_math):
     """Adam steps of the tiny BERT (unfused attention, dropout 0, float32) on
     the card match the CPU's, and each step launches every training kernel.
     Parameters agree to 1e-5, save the elements whose CPU gradient is 0 to
     rounding (within 1e-6 of the largest) at some step, where the summation
     order can flip the sign of Adam's first step: 2*lr*steps + 1e-5."""
     _need_card()
-    main, launches = _train_tiny_on_card_and_cpu(False, 3)
-    assert launches == dict(NO_LAUNCHES, ln_residual_fwd=15, ln_residual_bwd=15, bias_act_fwd=6,
-                            bias_act_bwd=6, softmax_xent_fwd=3, softmax_xent_bwd=3,
-                            adam=3 * len(main.all_parameters()))
+    main, launches, plan = _train_tiny_on_card_and_cpu(False, 3)
+    _hold_graphed_launches(launches, plan, dict(
+        NO_LAUNCHES, ln_residual_fwd=5, ln_residual_bwd=5, bias_act_fwd=2, bias_act_bwd=2,
+        softmax_xent_fwd=1, softmax_xent_bwd=1, adam=len(main.all_parameters())))
 
 
 @pytest.mark.gpu
-def test_tiny_bert_with_fused_attention_trains_on_card_like_cpu():
+def test_tiny_bert_with_fused_attention_trains_on_card_like_cpu(exact_card_math):
     """Two Adam steps of the tiny BERT with the fused_attention op, by the
     rule above: each step runs the attention forward, dQ and dK/dV kernels
     once per layer."""
     _need_card()
-    main, launches = _train_tiny_on_card_and_cpu(True, 2)
-    assert launches == dict(NO_LAUNCHES, ln_residual_fwd=10, ln_residual_bwd=10, bias_act_fwd=4,
-                            bias_act_bwd=4, softmax_xent_fwd=2, softmax_xent_bwd=2,
-                            attention_fwd=4, attention_bwd_dq=4, attention_bwd_dkv=4,
-                            adam=2 * len(main.all_parameters()))
+    main, launches, plan = _train_tiny_on_card_and_cpu(True, 2)
+    _hold_graphed_launches(launches, plan, dict(
+        NO_LAUNCHES, ln_residual_fwd=5, ln_residual_bwd=5, bias_act_fwd=2, bias_act_bwd=2,
+        softmax_xent_fwd=1, softmax_xent_bwd=1, attention_fwd=2, attention_bwd_dq=2,
+        attention_bwd_dkv=2, adam=len(main.all_parameters())))
 
 
 # the attention kernels at their edges: lengths that are not multiples of
@@ -638,7 +668,7 @@ def test_tiny_nmt_trains_and_decodes_on_card_like_cpu():
     whose CPU gradient is 0 to rounding at some step (2*lr*steps + 1e-5),
     moments within 1e-4 of the largest of their kind, the beta pows and
     the step counter equal; each step launches LN 10 + 10, bias+ReLU 4 + 4
-    and Adam 88.  Then
+    and Adam 88 (from the second step on, as one CUDA graph).  Then
     the compiled beam decode (beam 3) from the CPU's state: the card's ids
     equal the CPU's, the scores within 1e-5, and the kernels launch once a
     LayerNorm and once a bias+ReLU of the encoder and once each an iteration
@@ -668,10 +698,12 @@ def test_tiny_nmt_trains_and_decodes_on_card_like_cpu():
                           scope=scope)
             losses.append(float(out[0].reshape(-1)[0]))
             grads.append(out[1:])
-        runs.append((losses, scope, grads, {n: ck.LAUNCHES[n] - before[n] for n in before}))
-    (gl, gs, _, gd), (cl, cs, cpu_grads, cd) = runs
-    assert gd == dict(NO_LAUNCHES, ln_residual_fwd=30, ln_residual_bwd=30, bias_act_fwd=12,
-                      bias_act_bwd=12, adam=3 * len(params)) and cd == NO_LAUNCHES
+        runs.append((losses, scope, grads, {n: ck.LAUNCHES[n] - before[n] for n in before},
+                     exe.last_plan))
+    (gl, gs, _, gd, plan), (cl, cs, cpu_grads, cd, _) = runs
+    _hold_graphed_launches(gd, plan, dict(NO_LAUNCHES, ln_residual_fwd=10, ln_residual_bwd=10,
+                                          bias_act_fwd=4, bias_act_bwd=4, adam=len(params)))
+    assert cd == NO_LAUNCHES
     assert len(params) == 88
     np.testing.assert_allclose(gl, cl, rtol=1e-5)
     near_zero = {p: np.zeros(state[p].shape, bool) for p in params}
@@ -719,3 +751,173 @@ def test_tiny_nmt_trains_and_decodes_on_card_like_cpu():
     it = int(c_t[0]) - 1
     assert int(g_t[0]) == int(c_t[0]) and c_launch == NO_LAUNCHES
     assert g_launch == dict(NO_LAUNCHES, ln_residual_fwd=4 + 6 * it, bias_act_fwd=2 + 2 * it)
+
+
+# --------------------------------------------------------------------------
+# the executor's CUDA graphs
+# --------------------------------------------------------------------------
+
+
+def _tiny_bert_train(dropout):
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = transformer.build_bert(**dict(
+            TINY, use_fused_attention=True, dropout_prob=dropout, learning_rate=1e-3,
+            with_optimizer=True))
+    main.random_seed = startup.random_seed = 0
+    return main, startup, fetches["loss"].name
+
+
+def _tiny_mnist_momentum():
+    from paddle_tpu_torch.models import mnist
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = mnist.build(with_optimizer=False)
+        with fluid.program_guard(main, startup):
+            fluid.optimizer.Momentum(0.05, 0.9).minimize(fetches["loss"])
+    main.random_seed = startup.random_seed = 0
+    return main, startup, fetches["loss"].name
+
+
+def _state_of(main, startup):
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    return {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+
+
+def _feeds_of(model, n):
+    rng = np.random.RandomState(2)
+    if model == "mnist":
+        return [{"img": rng.rand(8, 1, 28, 28).astype("f4"),
+                 "label": rng.randint(0, 10, (8, 1)).astype("int64")} for _ in range(n)]
+    return [dict(transformer.make_fake_batch(4, 16, 200, rng=rng)) for _ in range(n)]
+
+
+def _card_run(main, state, feeds, fetches, graphs, program=None):
+    """Steps on the card from `state` (the caller's test holds
+    exact_card_math)."""
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device="cuda:0")
+    exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=graphs)
+    outs, ids = [], []
+    for f in feeds:
+        outs.append(exe.run(program or main, feed=f, fetch_list=fetches, scope=scope))
+        ids.append({n: id(scope.find_var(n)) for n in state})
+    return outs, scope, exe, ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["bert_adam_dropout", "mnist_momentum"])
+def test_graphed_steps_match_eager_steps_on_card(model, exact_card_math):
+    """4 steps replayed from a CUDA graph against 4 eager steps from one
+    state: the tiny BERT (fused attention, dropout 0.1: the graph draws the
+    scope generator's masks) with Adam, and the tiny MNIST with Momentum,
+    whose velocities, like its parameters, are new tensors each step.  The
+    fetches and every persistable agree within phase 7's tolerances
+    (losses 1e-3, state 1e-5 of its largest magnitude), the plan is
+    graphed, and from the capture on the scope holds the same tensors."""
+    _need_card()
+    main, startup, loss = (_tiny_mnist_momentum() if model == "mnist_momentum"
+                           else _tiny_bert_train(0.1))
+    state = _state_of(main, startup)
+    feeds = _feeds_of("mnist" if model == "mnist_momentum" else "bert", 4)
+    g_out, g_scope, g_exe, g_ids = _card_run(main, state, feeds, [loss], True)
+    e_out, e_scope, e_exe, _ = _card_run(main, state, feeds, [loss], False)
+    assert g_exe.last_plan.graphed and not e_exe.last_plan.graphed
+    assert g_ids[1] == g_ids[2] == g_ids[3]
+    np.testing.assert_allclose([o[0] for o in g_out], [o[0] for o in e_out], atol=1e-3, rtol=0)
+    for n in state:
+        want = e_scope.to_numpy(n)
+        err = float(np.abs(g_scope.to_numpy(n).astype(np.float32) - want).max())
+        assert err <= 1e-5 * max(float(np.abs(want).max()), 1.0), (n, err)
+        assert not np.array_equal(want, state[n]) or "velocity" not in n, n
+
+
+@pytest.mark.gpu
+def test_graph_refused_plans_run_eagerly_on_card():
+    """A `while` plan and a SelectedRows plan carry their refusal and run."""
+    _need_card()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        i = fluid.layers.assign(np.zeros(1, "int32"))
+        n = fluid.layers.assign(np.full(1, 3, "int32"))
+        cond = fluid.layers.less_than(i, n)
+        w = fluid.layers.While(cond)
+        with w.block():
+            fluid.layers.increment(i)
+            fluid.layers.less_than(i, n, cond=cond)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    for _ in range(3):
+        (got,) = exe.run(main, fetch_list=[i.name], scope=scope)
+        assert int(got[0]) == 3
+    assert "while op" in exe.last_plan.graph_refusal and not exe.last_plan.graphed
+    main, startup, loss = _tiny_deepfm("adagrad")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"feat_ids": np.random.RandomState(0).randint(0, 50, (4, 4)).astype("int64"),
+            "label": np.ones((4, 1), "float32")}
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
+              for _ in range(3)]
+    assert "SelectedRows" in exe.last_plan.graph_refusal and not exe.last_plan.graphed
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+def test_steps_k_equals_k_runs_on_card(exact_card_math):
+    """steps=3 from stacked feeds (one warm-up step, then the graph replayed
+    twice) against 3 graphed runs: the same losses and state."""
+    _need_card()
+    main, startup, loss = _tiny_bert_train(0.0)
+    state = _state_of(main, startup)
+    feeds = _feeds_of("bert", 3)
+    runs, r_scope, _, _ = _card_run(main, state, feeds, [loss], True)
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device="cuda:0")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    stacked = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    (losses,) = exe.run(main, feed=stacked, fetch_list=[loss], scope=scope, steps=3)
+    assert exe.last_plan.graphed and losses.shape[0] == 3
+    np.testing.assert_array_equal(losses, np.stack([o[0] for o in runs]))
+    for n in state:
+        np.testing.assert_array_equal(scope.to_numpy(n), r_scope.to_numpy(n), err_msg=n)
+
+
+@pytest.mark.gpu
+def test_run_async_train_loop_and_remat_on_card(exact_card_math):
+    """On graphed plans: run_async's handles equal run's; train_loop with
+    max_inflight 2 equals the serial losses; remat equals no remat with
+    dropout 0.1 (the recompute repeats the masks) within phase 7's
+    tolerances; a set_var between replays is seen by the next step."""
+    _need_card()
+    main, startup, loss = _tiny_bert_train(0.1)
+    state = _state_of(main, startup)
+    feeds = _feeds_of("bert", 6)
+    serial, s_scope, _, _ = _card_run(main, state, feeds, [loss], True)
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device="cuda:0")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    handles = [exe.run_async(main, feed=f, fetch_list=[loss], scope=scope) for f in feeds]
+    for (h,), want in zip(handles, serial):
+        np.testing.assert_array_equal(h.numpy(), want[0])
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device="cuda:0")
+    stats = fluid.train_loop(fluid.Executor(fluid.CUDAPlace(0)), main, iter(feeds), [loss],
+                             scope=scope, max_inflight=2, log_period=1)
+    assert stats.steps == 6 and stats.max_inflight_seen == 2
+    for s, vals in stats.logged:
+        np.testing.assert_array_equal(vals[0], serial[s][0])
+    strategy = fluid.BuildStrategy()
+    strategy.memory_optimize = True
+    compiled = fluid.CompiledProgram(main, strategy)
+    remat, r_scope, r_exe, _ = _card_run(main, state, feeds, [loss], True, compiled)
+    assert r_exe.last_plan.graphed and r_exe.last_plan.remat
+    np.testing.assert_allclose([o[0] for o in remat], [o[0] for o in serial], atol=1e-3, rtol=0)
+    for n in state:
+        want = s_scope.to_numpy(n)
+        err = float(np.abs(r_scope.to_numpy(n).astype(np.float32) - want).max())
+        assert err <= 1e-5 * max(float(np.abs(want).max()), 1.0), (n, err)
+    w = main.all_parameters()[0].name
+    r_scope.set_var(w, torch.zeros_like(r_scope.find_var(w)))
+    r_exe.run(compiled, feed=feeds[0], fetch_list=[loss], scope=r_scope)
+    assert r_exe.last_plan.graphed and r_exe.last_plan.runs == 7
+    moved = r_scope.to_numpy(w)
+    assert float(np.abs(moved).max()) <= 1e-2  # one Adam step from zero, lr 1e-3

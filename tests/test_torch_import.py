@@ -44,6 +44,9 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "from paddle_tpu_torch import lod\n"
         "from paddle_tpu_torch.layers import control_flow, learning_rate_scheduler, misc, sequence\n"
         "from paddle_tpu_torch.models import nmt\n"
+        "from paddle_tpu_torch import errors, monitor, pipeline, parallel\n"
+        "from paddle_tpu_torch.monitor import memstats\n"
+        "assert fluid.CompiledProgram is parallel.CompiledProgram\n"
         "from paddle_tpu_torch.core.registry import registered_ops\n"
         "assert {'fused_attention', 'batch_norm', 'conv2d', 'momentum'} <= set(registered_ops())\n"
         "assert {'attention_bias', 'position_encoding', 'sequence_pool', 'sequence_mask',\n"
