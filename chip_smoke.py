@@ -137,21 +137,42 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      max_inflight 2 over the six equals the six runs' losses bit for bit;
  23. remat_parity: BuildStrategy.memory_optimize against none, both graphed,
      3 Adam steps of float32 BERT-base with 2 layers, dropout 0.1, batch 8 x
-     128, by phase 7's tolerances, with each arm's peak memory.
+     128, by phase 7's tolerances, with each arm's peak memory;
+ 24. train_clipped: phase 12 as BERT fine-tuning runs it, Adam(1e-4) with
+     L2Decay(0.01) under set_gradient_clip(GradientClipByGlobalNorm(1.0)),
+     the program built with the port's own layers and inferred shapes: the
+     clip and decay tail (~200 square + reduce_sum, one sum / sqrt / max /
+     div, ~200 elementwise_mul, ~200 scale + sum) takes no kernel, so a
+     step's launches stay exactly phase 12's; eager and graphed in turns,
+     with phase 12's numbers and the verifier's span and counters;
+ 25. train_clipped_parity: phase 7 with the clip and decay (fused
+     attention), the global norm fetched each step and above 1.0 at some
+     step; then the fit-a-line program, 50 SGD steps, card vs CPU within
+     1e-5, the loss falling;
+ 26. checkpoint_resume: phase 24's path with dropout 0: 3 steps,
+     io.save_persistables, a fresh Scope, io.load_persistables, 3 steps,
+     against 6 steps straight through: losses and every persistable bitwise
+     equal, the save's and the load's seconds and bytes printed.
+
+Before phase 1 the host's ml_dtypes is required: a numpy fetch of a bf16
+value is an ml_dtypes bfloat16 array of the card's bits (ROADMAP C1), and
+phase 4 splits the batch-32 fetch into the pinned copy and that view.
 
 The Executor replays each plan as a CUDA graph from its second run, so a
 wrapper's launch count moves at the first run (eager) and the second (the
 capture) only: each phase holds those counts and reads a replay's launches
 off a profiled replay (`hold_run_launches`, `profile_replay`); the kernels
 line gives the wrappers' counts, the replays' and their sum by path.  The
-executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15 and 17 print its
-counters (held), its dispatch and fetch spans and memory gauges a run of
-steps or requests (`read_monitor`).
+executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15, 17 and 24 print
+its counters (held, the verifier's runs among them), its dispatch, fetch
+and verify spans and memory gauges a run of steps or requests
+(`read_monitor`).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
+import gc
 import json
 import math
 import os
@@ -276,6 +297,13 @@ RESNET_PARITY_LR = 0.01
 TRAIN_STEPS = 6
 PARITY_STEPS = 3
 LR = 1e-4
+# BERT fine-tuning as its users run it: weight decay and a global-norm clip
+# of 1.0 (phases 24-26)
+CLIP_NORM = 1.0
+WEIGHT_DECAY = 0.01
+# phase 25's fit-a-line program (the verify skill's): SGD steps, card vs CPU
+FIT_A_LINE_STEPS = 50
+FIT_A_LINE_TOL = 1e-5
 # the path whose count a kernel's `launches` reports: this slice's first
 LAUNCH_ORDER = ("nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long")
@@ -1177,7 +1205,9 @@ def serve(fluid, torch, ck, tmp, card):
                 if arm == "eager" and batch not in eager_logits:
                     eager_logits[batch] = logits
                 elif arm == "graphed" and i == 2:
-                    diff = float(np.abs(logits - eager_logits[batch]).max())
+                    # bf16 arrays (ml_dtypes) subtract in bf16: widen first
+                    diff = float(np.abs(logits.astype(np.float32)
+                                        - eager_logits[batch].astype(np.float32)).max())
                     emit({"request": batch, "graphed_vs_eager_max_abs_dlogits": diff,
                           "tol": TOL["bfloat16"]["ln_residual_fwd"]})
                     if not diff <= TOL["bfloat16"]["ln_residual_fwd"]:
@@ -1209,15 +1239,17 @@ def serve(fluid, torch, ck, tmp, card):
         request_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.empty = real_empty
-    # where the fetch's time goes: the pinned copy, the host's widening of
-    # the bf16 copy, and beside them a pageable copy and a widening on the
-    # device followed by a pinned copy of the float32 logits; each timed
-    # twice, the second kept (the caching host allocator then has the
-    # pinned blocks, as a serving loop's fetches find them)
+    # where the fetch's time goes: the pinned copy, the view of the bf16
+    # copy as an ml_dtypes array (no widening, ROADMAP C1), the whole fetch
+    # (host_copies), and beside them a pageable copy; each timed twice, the
+    # second kept (the caching host allocator then has the pinned blocks, as
+    # a serving loop's fetches find them)
+    from paddle_tpu_torch.core.dtypes import _as_numpy, host_copies
+
     (out,) = predictors["graphed"].run(feeds[big], return_numpy=False)
-    split, host, wide = {}, None, None
-    for what in [w for w in ("pinned_copy", "host_widen", "pageable_copy",
-                             "device_widen_pinned_copy") for _ in range(2)]:
+    split, host = {}, None
+    for what in [w for w in ("pinned_copy", "host_view", "host_copies", "pageable_copy")
+                 for _ in range(2)]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if what == "pinned_copy":
@@ -1225,21 +1257,24 @@ def serve(fluid, torch, ck, tmp, card):
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             torch.cuda.synchronize()
-        elif what == "host_widen":
-            host.float().numpy()
-        elif what == "pageable_copy":
-            out.cpu()
+        elif what == "host_view":
+            _as_numpy(host)
+        elif what == "host_copies":
+            host_copies([out])
         else:
-            wide = None
-            wide = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
-            wide.copy_(out.float(), non_blocking=True)
-            torch.cuda.synchronize()
+            out.cpu()
         split[f"{what}_ms"] = (time.perf_counter() - t0) * 1e3
+    bits_kept = bool(np.array_equal(logits.view(np.uint16),
+                                     out.view(torch.int16).cpu().numpy().view(np.uint16)))
     emit({"phase": "serve_fetch", "batch": big, "request_ms": request_ms, "staged": staged,
-          "bytes": out.numel() * out.element_size(), **split, "card": card})
+          "bytes": out.numel() * out.element_size(), "numpy_dtype": str(logits.dtype),
+          "bits_kept": bits_kept, **split, "card": card})
     if not (len(staged) == 1 and staged[0]["pinned"] and staged[0]["dtype"] == "torch.bfloat16"
             and logits.shape == (big * 128, 30522)):
         raise AssertionError(f"the batch-{big} fetch was not staged through pinned memory: {staged}")
+    if not (logits.dtype.name == "bfloat16" and bits_kept):
+        raise AssertionError(f"the batch-{big} fetch is {logits.dtype}, bits kept {bits_kept}: "
+                             "a bf16 fetch is an ml_dtypes bfloat16 array of the card's bits")
     profile_replay(torch, f"serve graphed request {big}",
                    lambda: predictors["graphed"].run(feeds[big], return_numpy=False), card,
                    PER_REQUEST)
@@ -1326,10 +1361,12 @@ def monitor_want(run_indices, graphed, refused=0):
     plan's how-many-th run, from 0) are `run_indices`: a cache miss at a
     plan's first run and a hit after, one step record a run; a graphed
     plan captures at its second run and replays from there on; `refused`
-    plans built with their graph refused."""
+    plans built with their graph refused; the verifier runs at each miss."""
     want = {"executor.cache_miss": sum(i == 0 for i in run_indices),
             "executor.cache_hit": sum(i > 0 for i in run_indices),
-            "executor.steps": len(run_indices), "executor.graph_refused": refused}
+            "executor.steps": len(run_indices), "executor.graph_refused": refused,
+            # the verifier runs once per plan-cache miss (FLAGS_verify_program)
+            "analysis.verify_runs": sum(i == 0 for i in run_indices)}
     if graphed:
         want["executor.graph_capture"] = sum(i == 1 for i in run_indices)
         want["executor.graph_replay"] = sum(i > 0 for i in run_indices)
@@ -1338,10 +1375,13 @@ def monitor_want(run_indices, graphed, refused=0):
 
 def read_monitor(what, want, card):
     """The executor layer's metrics (PERF.md section 3) over the runs since
-    the monitor's last reset: its counters, held equal to `want`
-    (monitor_want); the spans executor.dispatch (feeds in, plan found, the
-    step enqueued), executor.fetch (host copies and the NaN/Inf guard) and
-    executor.build (a miss's plan), with calls, mean, min and max ms; each
+    the monitor's last reset: its counters (the executor's and the
+    verifier's runs held equal to `want`, monitor_want; the others, such
+    as the verifier's diagnostics, printed); the spans executor.dispatch
+    (feeds in, plan found, the step enqueued), executor.fetch (host copies
+    and the NaN/Inf guard), executor.build (a miss's plan) and
+    analysis.verify (a miss's check_program), with calls, mean, min and
+    max ms; each
     run's dispatch ms, in order, from the step records (the first runs of a
     plan, warm-up and capture, dominate the mean); the memory gauges.
     Emitted, then the monitor is reset.  Returns the record."""
@@ -1360,8 +1400,10 @@ def read_monitor(what, want, card):
               "dispatch_ms_by_run": dispatch, "gauges": gauges, "card": card}
     emit(record)
     monitor.reset()
-    if counters != want:
-        raise AssertionError(f"{what}: the executor's monitor counted {counters} != {want}")
+    held = {k: v for k, v in counters.items()
+            if k.startswith("executor.") or k == "analysis.verify_runs"}
+    if held != want:
+        raise AssertionError(f"{what}: the executor's monitor counted {held} != {want}")
     return record
 
 
@@ -1403,23 +1445,46 @@ def parity(fluid, torch, tmp):
         raise AssertionError(f"card vs CPU logits differ by {diff} > 1e-3")
 
 
-def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False):
+def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
+                clip_decay=False):
     """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention or
     the fused_attention op, through the two fusion passes; returns (main,
-    startup, loss name)."""
+    startup, loss name).  `clip_decay` builds it as a fine-tuning user does:
+    Adam(LR, regularization=L2Decay(WEIGHT_DECAY)) under
+    set_gradient_clip(GradientClipByGlobalNorm(CLIP_NORM)), the program's
+    shapes inferred by the port's own layers; the global norm's var then
+    stays fetchable (global_norm_name)."""
     from paddle_tpu_torch.models import transformer
 
     with fluid.unique_name.guard():
         main, startup, _, fetches = transformer.build_bert(
             vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
             d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
-            use_fused_attention=fused, with_optimizer=True)
+            use_fused_attention=fused, with_optimizer=not clip_decay)
+        if clip_decay:
+            with fluid.program_guard(main, startup):
+                fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
+                fluid.optimizer.Adam(LR, regularization=fluid.regularizer.L2Decay(
+                    WEIGHT_DECAY)).minimize(fetches["loss"])
     startup.random_seed = 0
     main.random_seed = 0
     loss = fetches["loss"].name
+    keep = [loss] + ([global_norm_name(main)] if clip_decay else [])
     for p in ("fuse_ln_residual", "fuse_bias_act"):
-        fluid.passes.apply_pass(main, p, keep=[loss])
+        fluid.passes.apply_pass(main, p, keep=keep)
     return main, startup, loss
+
+
+def global_norm_name(main):
+    """The var GradientClipByGlobalNorm's sqrt writes: the gradients' global norm."""
+    return next(op for op in main.global_block().ops if op.type == "sqrt").output("Out")[0]
+
+
+def clip_decay_ops(main):
+    """Op counts of the clip and decay tail, between the backward and the updates."""
+    ops = [op.type for op in main.global_block().ops]
+    tail = ops[ops.index("backward") + 1:]
+    return {t: tail.count(t) for t in sorted(set(tail)) if t != "adam"}
 
 
 def launches_of_program(main, loss):
@@ -1477,8 +1542,10 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
     if check_first_step is not None:
         check_first_step(scope, None)
     fluid.monitor.reset()
+    gc.collect()  # an earlier phase's plans and scopes, freed before the peak is read
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 1e9  # this arm's scope and whatever else lives
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
@@ -1509,6 +1576,7 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
               "warm_step_ms": warm, "steps_per_s": 1e3 / warm,
               **{f"{k}_per_s": v / warm * 1e3 for k, v in tokens.items()},
               "first_step_ms": step_ms[0], "second_step_ms": step_ms[1], "peak_mem_gb": peak,
+              "start_mem_gb": start, "peak_above_start_gb": peak - start,
               "warm_dispatch_ms": statistics.median(mon["dispatch_ms_by_run"][2:]),
               "profiled_step_ms": prof["run_ms"], "device_busy_ms": prof["device_busy_ms"],
               "device_idle_share": prof["device_idle_share"],
@@ -1535,25 +1603,30 @@ def hold_graphed_repeat(phase, runs):
 
 
 def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
-          per_step=PER_STEP, arms=("graphed",)):
-    """Phases 6, 12 and 13: bf16 BERT-base (12 layers, dropout 0.1, Adam lr
-    1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed
-    batch of `batch` x `seq_len`, with unfused attention (phase 6) or the
-    fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8), once
-    per arm of `arms` (train_arm).  Two graphed arms (phase 12's
-    AB_ARMS) must agree bit for bit.  Returns the launches counted."""
+          per_step=PER_STEP, arms=("graphed",), clip_decay=False):
+    """Phases 6, 12, 13 and 24: bf16 BERT-base (12 layers, dropout 0.1, Adam
+    lr 1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one
+    fixed batch of `batch` x `seq_len`, with unfused attention (phase 6) or
+    the fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8;
+    24: phase 12 with L2Decay and a global-norm clip, `clip_decay`), once
+    per arm of `arms` (train_arm).  Two graphed arms (the AB_ARMS of phases
+    12 and 24) must agree bit for bit.  Returns the launches counted."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
     t0 = time.perf_counter()
-    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused)
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused, clip_decay)
     derived = launches_of_program(main, loss)
     if derived != per_step:
         raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
     feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0))
     attention = "fused attention" if fused else "unfused attention"
-    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4",
+    tail = (f", L2Decay({WEIGHT_DECAY}), GradientClipByGlobalNorm({CLIP_NORM})"
+            if clip_decay else "")
+    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4{tail}",
           "batch": batch, "seq_len": seq_len, "arms": list(arms),
+          "ops": len(main.global_block().ops),
+          **({"clip_decay_ops": clip_decay_ops(main)} if clip_decay else {}),
           "setup_s": time.perf_counter() - t0})
     launches = dict(NONE)
     ck.reset_launches()  # the main path's count starts here
@@ -1572,12 +1645,15 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     return launches
 
 
-def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None):
+def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None, also=(),
+                seen=None):
     """`steps` runs from the numpy `state` in each arm (place, graphs,
     program): by default the card (`main`, graphed from its second run),
     then the CPU (plain path).  Returns [(losses, scope)] in that order, and
     param -> the elements whose gradient in the last arm (the reference)
-    lies within ZERO_GRAD of the model's largest at some step."""
+    lies within ZERO_GRAD of the model's largest at some step.  The scalar
+    vars named in `also` are fetched too, seen[arm index] = [[values] a
+    step]."""
     import numpy as np
 
     arms = arms or ((fluid.CUDAPlace(0), True, main), (fluid.CPUPlace(), True, main))
@@ -1591,9 +1667,13 @@ def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None):
         reference = i == len(arms) - 1
         losses = []
         for _ in range(steps):
-            out = exe.run(program, feed=feed, scope=scope, fetch_list=[loss] + (
+            out = exe.run(program, feed=feed, scope=scope, fetch_list=[loss] + list(also) + (
                 [f"{p}@GRAD" for p in params] if reference else []))
             losses.append(float(out[0].reshape(-1)[0]))
+            if seen is not None:
+                seen.setdefault(i, []).append([float(v.reshape(-1)[0])
+                                               for v in out[1:1 + len(also)]])
+            out = out[:1] + out[1 + len(also):]
             if reference:
                 peak = max(float(np.abs(g).max()) for g in out[1:])
                 for p, g in zip(params, out[1:]):
@@ -2648,6 +2728,133 @@ def remat_parity(fluid, torch, card):
                 runs, near_zero, state, LR)
 
 
+def train_clipped_parity(fluid, torch, card):
+    """Phase 25: float32 BERT-base (2 layers, fused attention, dropout 0) with
+    L2Decay and the global-norm clip, PARITY_STEPS Adam steps on the card and
+    on the CPU from one numpy state, held by hold_parity (phase 7's
+    tolerances); the gradients' global norm is fetched every step and must
+    exceed CLIP_NORM at some step, so that the clip scales.  Then the
+    fit-a-line program: FIT_A_LINE_STEPS SGD steps on the card and on the
+    CPU from one state, the loss falls and the two agree within
+    FIT_A_LINE_TOL of max(1, |loss|) at every step."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0, 128, True, clip_decay=True)
+    norm = global_norm_name(main)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    for name in state:
+        if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
+            state[name] = np.ones_like(state[name])
+    feed = make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1))
+    seen = {}
+    runs, near_zero = parity_runs(fluid, main, loss, state, feed, also=[norm], seen=seen)
+    norms = {"card": [v[0] for v in seen[0]], "cpu": [v[0] for v in seen[1]]}
+    hold_parity({"phase": "train_clipped_parity", "model": "bert-base f32, 2 layers, fused "
+                 f"attention, dropout 0, L2Decay({WEIGHT_DECAY}), "
+                 f"GradientClipByGlobalNorm({CLIP_NORM})", "batch": 2, "seq_len": 128,
+                 "global_norm": norms, "clip_norm": CLIP_NORM,
+                 "clip_decay_ops": clip_decay_ops(main), "card": card},
+                runs, near_zero, state, LR)
+    if not max(norms["cpu"]) > CLIP_NORM:
+        raise AssertionError(f"the global norm {norms} never exceeds {CLIP_NORM}: the clip "
+                             "was not exercised")
+    del runs
+    with fluid.unique_name.guard():
+        line_main, line_startup = fluid.Program(), fluid.Program()
+        line_startup.random_seed = 0
+        with fluid.program_guard(line_main, line_startup):
+            x = fluid.layers.data("x", [13])
+            y = fluid.layers.data("y", [1])
+            line_loss = fluid.layers.mean(fluid.layers.square_error_cost(fluid.layers.fc(x, 1), y))
+            fluid.optimizer.SGD(0.05).minimize(line_loss)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(line_startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in line_main.list_vars() if v.persistable}
+    rng = np.random.RandomState(0)
+    feeds = []
+    for _ in range(FIT_A_LINE_STEPS):
+        xv = rng.rand(32, 13).astype("f4")
+        feeds.append({"x": xv, "y": xv.sum(1, keepdims=True)})
+    losses = {}
+    for arm, place in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        losses[arm] = [float(exe.run(line_main, feed=f, fetch_list=[line_loss],
+                                     scope=scope)[0].reshape(-1)[0]) for f in feeds]
+    worst = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses["card"], losses["cpu"]))
+    emit({"phase": "fit_a_line", "steps": FIT_A_LINE_STEPS, "first_losses": losses["card"][:3],
+          "last_losses": losses["card"][-3:], "max_rel_dloss_card_vs_cpu": worst,
+          "tol": FIT_A_LINE_TOL, "card": card})
+    if not (worst <= FIT_A_LINE_TOL and all(map(math.isfinite, losses["card"]))
+            and np.mean(losses["card"][-5:]) < 0.1 * np.mean(losses["card"][:5])):
+        raise AssertionError(f"fit-a-line: card vs CPU {worst} (tol {FIT_A_LINE_TOL}), losses "
+                             f"{losses['card'][:3]} ... {losses['card'][-3:]}")
+
+
+def checkpoint_resume(fluid, torch, tmp, card):
+    """Phase 26: the card path of phase 24 (bf16 BERT-base 32 x 128, fused
+    attention, L2Decay and the global-norm clip) with dropout 0, on
+    TRAIN_STEPS different batches from one seed: the first half of them,
+    save_persistables, a fresh Scope, load_persistables (onto the card),
+    then the second half, against all of them straight through in one
+    scope.  The losses and every persistable must be bitwise equal; the
+    save's and the load's seconds and bytes are printed."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.0, 128, True, clip_decay=True)
+    rng = np.random.RandomState(11)
+    feeds = [dict(make_fake_batch(32, 128, 30522, rng=rng)) for _ in range(TRAIN_STEPS)]
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    half = TRAIN_STEPS // 2
+
+    def steps(exe, scope, batch):
+        return [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
+                for f in batch]
+
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    straight = steps(exe, scope, feeds)
+    want = {n: scope.find_var(n).clone() for n in names}
+    del exe, scope
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    resumed = steps(exe, scope, feeds[:half])
+    ckpt = os.path.join(tmp, "bert_clipped_ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saved = fluid.io.save_persistables(exe, ckpt, main, scope)
+    save_s = time.perf_counter() - t0
+    del scope
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    loaded = fluid.io.load_persistables(exe, ckpt, main, scope)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    devices = sorted({str(scope.find_var(n).device) for n in loaded})
+    resumed += steps(exe, scope, feeds[half:])
+    diffs = {}
+    for n in names:
+        got = scope.find_var(n)
+        if not torch.equal(got, want[n]):
+            diffs[n] = float((got.float() - want[n].float()).abs().max())
+    largest = max(diffs.items(), key=lambda kv: kv[1]) if diffs else None
+    emit({"phase": "checkpoint_resume", "model": "bert-base bf16, fused attention, dropout 0, "
+          f"L2Decay({WEIGHT_DECAY}), GradientClipByGlobalNorm({CLIP_NORM})", "batch": 32,
+          "seq_len": 128, "steps": [half, TRAIN_STEPS - half], "save_s": save_s, "load_s": load_s,
+          "files": len(saved), "bytes": sum(e["bytes"] for e in saved),
+          "loaded_to": devices, "losses_straight": straight, "losses_resumed": resumed,
+          "bitwise_equal": straight == resumed and not diffs, "persistables": len(names),
+          "persistables_that_differ": len(diffs), "largest_difference": largest, "card": card})
+    if straight != resumed or diffs or devices != ["cuda:0"]:
+        raise AssertionError(f"checkpoint_resume: losses {straight} vs {resumed}, {len(diffs)} "
+                             f"persistables differ (largest {largest}), loaded to {devices}")
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -2663,7 +2870,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
-    emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda, "card": card})
+    try:  # a numpy fetch of a bf16 value is an ml_dtypes array (ROADMAP C1)
+        import ml_dtypes
+        numpy_bf16 = ml_dtypes.__version__
+    except ImportError:
+        numpy_bf16 = None
+    emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "ml_dtypes": numpy_bf16, "card": card})
+    if numpy_bf16 is None:
+        raise AssertionError("ml_dtypes does not import on this host: bf16 fetches would raise")
 
     info = _build.build()
     emit({"phase": "build", "seconds": info["seconds"]})
@@ -2704,6 +2919,10 @@ def main():
         conv_order(fluid, torch, card)
         executor_depth(fluid, torch, card)
         remat_parity(fluid, torch, card)
+        clipped_trained = train(fluid, torch, ck, card, "train_clipped", True, 128, 32,
+                                FUSED_PER_STEP, arms=AB_ARMS, clip_decay=True)
+        train_clipped_parity(fluid, torch, card)
+        checkpoint_resume(fluid, torch, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2718,6 +2937,7 @@ def main():
              "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
              "resnet_train": (RESNET_PER_STEP, resnet_trained),
              "train_fused": (FUSED_PER_STEP, fused_trained),
+             "train_clipped": (FUSED_PER_STEP, clipped_trained),
              "train_long": (FUSED_PER_STEP, long_trained),
              "deepfm_train": (DEEPFM_PER_STEP, deepfm_trained),
              "nmt_train": (NMT_PER_STEP, nmt_trained),

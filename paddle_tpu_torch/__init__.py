@@ -12,7 +12,10 @@ serving and the static training paths of BERT-base, ResNet-50, DeepFM and
 Transformer NMT (and the MNIST CNN) so far: their ops, passes, layers, io,
 Predictor, `append_backward` with SelectedRows gradients for `is_sparse`
 tables, ragged `LoDTensor` feeds, `While` and the in-program beam search,
-`noam_decay`, and `optimizer.SGD`, `Momentum`, `Adam` and `Adagrad`, with
+`noam_decay`, and `optimizer.SGD`, `Momentum`, `Adam` and `Adagrad` with
+the regularizers (`L2Decay`, `L1Decay`) and gradient clips (`clip.py`),
+checkpoints (`io.save_persistables` / `load_persistables`), build-time
+shape inference and the program verifier (`analysis`), with
 hand-written Hopper kernels (csrc/) for LayerNorm+residual, bias+GELU and
 the batch-norm epilogue (forward and backward), attention (forward),
 softmax cross-entropy (forward and backward) and the Adam update.  The
@@ -24,7 +27,7 @@ the JAX package.
 from . import ops  # registers the op lowerings  # noqa: F401
 from . import (clip, errors, flags, inference, io, layers, lod, models, monitor,  # noqa: F401
                optimizer, pipeline)
-from .core import initializer, passes, regularizer, unique_name  # noqa: F401
+from .core import analysis, initializer, passes, regularizer, unique_name  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, FetchHandle, TPUPlace  # noqa: F401
 from .core.param_attr import ParamAttr  # noqa: F401

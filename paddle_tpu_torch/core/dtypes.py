@@ -1,9 +1,11 @@
 """Dtype vocabulary for the program IR (counterpart of paddle_tpu/core/dtypes.py).
 
 The IR names dtypes by string, exactly as the JAX package does, so programs
-serialize identically in both.  bfloat16 comes from torch; numpy has no
-bfloat16, so host copies of bf16 tensors travel as uint16 bit patterns
-(see `to_tensor` / `to_numpy`).
+serialize identically in both.  numpy itself has no bfloat16; host copies of
+bf16 tensors are `ml_dtypes.bfloat16` arrays, the numpy bfloat16 the JAX
+package hands out, holding the tensor's exact 16-bit patterns (`to_numpy` /
+`host_copies` view the bits, they do not widen).  `to_tensor` takes such an
+array back bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ _TORCH = {
     "float64": torch.float64,
     "int8": torch.int8,
     "uint8": torch.uint8,
+    "uint32": torch.uint32,
+    "uint64": torch.uint64,
     "int16": torch.int16,
     "int32": torch.int32,
     "int64": torch.int64,
@@ -67,11 +71,16 @@ def as_torch_dtype(dtype) -> torch.dtype:
 
 def to_tensor(value, dtype=None, device="cpu") -> torch.Tensor:
     """numpy array / scalar / tensor -> tensor on `device`, cast to `dtype`
-    when given.  A numpy bfloat16 array (ml_dtypes) keeps its exact bits."""
+    when given.  A numpy array is cast on the host, as the JAX package casts
+    its feeds, so the card receives the cast bytes in one copy.  A numpy
+    bfloat16 array (ml_dtypes) keeps its exact bits."""
     if isinstance(value, torch.Tensor):
         t = value
     else:
         arr = np.asarray(value)
+        if (dtype is not None and "bfloat16" not in arr.dtype.name
+                and canonical_dtype(dtype) != "bfloat16"):
+            arr = arr.astype(canonical_dtype(dtype), copy=False)
         if not arr.flags.writeable:  # torch.from_numpy shares memory; own a copy
             arr = arr.copy()
         if "bfloat16" in arr.dtype.name:
@@ -82,13 +91,30 @@ def to_tensor(value, dtype=None, device="cpu") -> torch.Tensor:
     return t.to(device=device, dtype=want)
 
 
+def _numpy_bfloat16():
+    try:
+        import ml_dtypes
+    except ImportError as e:
+        raise ImportError(
+            "a numpy copy of a bfloat16 value needs the ml_dtypes package (numpy has no "
+            "bfloat16 of its own); fetch it with return_numpy=False to keep the tensor") from e
+    return ml_dtypes.bfloat16
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bfloat16 as an ml_dtypes array over the same bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_numpy_bfloat16())
+    return t.numpy()
+
+
 def host_copies(tensors) -> list:
     """Host copies of tensors, as numpy arrays.  A CUDA tensor goes into
     pinned host memory drawn from PyTorch's caching host allocator (after
     the first fetch of a size, no allocation), copied with non_blocking=True,
-    all of them before one sync; numpy has no bfloat16, so only then is a
-    bf16 copy widened to its exact float32 value, on the host (widening
-    first would double the bytes the copy moves)."""
+    all of them before one sync.  A bf16 copy is then viewed as an
+    ml_dtypes bfloat16 array, its bits unchanged, as the JAX package's
+    `np.asarray` of a bf16 array gives it."""
     staged, streams = [], set()
     for t in tensors:
         t = t.detach()
@@ -100,7 +126,7 @@ def host_copies(tensors) -> list:
         staged.append(t)
     for s in streams:
         s.synchronize()
-    return [(t.float() if t.dtype == torch.bfloat16 else t).numpy() for t in staged]
+    return [_as_numpy(t) for t in staged]
 
 
 def to_numpy(t) -> np.ndarray:

@@ -1,11 +1,15 @@
 """Executor: cached plans of whole programs, replayed as CUDA graphs on the
 card (counterpart of paddle_tpu/core/executor.py).
 
-`run()` keys a `_Plan` on what the JAX package keys its compiled step on
-(program uuid and version, the sorted (feed, shape, dtype) triples, the
-fetch names, the scope's uuid, `steps`, remat and the lowering flags) and
-keeps the plans in an LRU cache of FLAGS_executor_cache_capacity entries,
-counting `executor.cache_hit` / `executor.cache_miss` in the monitor.  A
+`run()` casts each feed to its var's dtype and through the x32 rule, as
+the JAX package does, and keys a `_Plan` on what the JAX package keys its
+compiled step on (program uuid and version, the sorted (feed, shape, dtype)
+triples, the fetch names, the scope's uuid, `steps`, remat and the lowering
+flags).  It keeps the plans in an LRU cache of
+FLAGS_executor_cache_capacity entries, counting `executor.cache_hit` /
+`executor.cache_miss` in the monitor; a miss first runs the program
+verifier under FLAGS_verify_program (core/analysis.py `check_program`, in
+an `analysis.verify` span).  A
 plan holds the pruned ops (those that feed a fetch or write a persistable,
 a `while` op's sub-block counted as its own reads and writes), the names
 they read, and the persistables they write back.
@@ -58,6 +62,7 @@ from ..errors import NumericError, classify
 from ..lod import LoDTensor, lod_var_name
 from ..monitor import MONITOR as _MON
 from ..ops import cuda_kernels
+from ..ops.common import canon_dtype
 from . import scope as scope_mod
 from .dtypes import host_copies, to_tensor
 from .lowering import LoweringContext, rerun_generators_needed, run_block_with_backward
@@ -523,10 +528,17 @@ class Executor:
         return self._run_impl(program, feed, fetch_list, scope, True, steps, True)
 
     def _feeds(self, block, feed, steps) -> Dict[str, torch.Tensor]:
+        """Each feed cast to its var's declared dtype, then through the x32
+        rule (ops/common.py canon_dtype: int64 -> int32, uint64 -> uint32,
+        float64 -> float32), as the JAX package does at its feed boundary;
+        ragged feeds and their `@LOD` lengths included."""
         out = {}
         for name, value in _expand_ragged_feeds(block, feed, steps).items():
-            dtype = block.var(name).dtype if block.has_var(name) else None
-            out[name] = to_tensor(value, dtype, self.place.device)
+            if block.has_var(name):
+                dtype = block.var(name).dtype
+            else:
+                dtype = value.dtype if isinstance(value, torch.Tensor) else np.asarray(value).dtype
+            out[name] = to_tensor(value, canon_dtype(dtype), self.place.device)
         if steps > 1:
             for name, t in out.items():
                 shape = tuple(t.shape)
@@ -544,13 +556,23 @@ class Executor:
                 tuple(sorted((n, tuple(t.shape), str(t.dtype)) for n, t in feeds.items())),
                 tuple(fetch_names), scope._uuid, steps, remat, _lowering_flags())
 
-    def _plan(self, key, program, fetch_names, steps, remat):
+    def _plan(self, key, program, feed_names, fetch_names, steps, remat):
         with self._cache_lock:
             plan = self._cache.pop(key, None)
             if plan is not None:
                 self._cache[key] = plan  # re-insert: LRU order
                 _MON.counter("executor.cache_hit").inc()
                 return plan, True
+        # the static analysis, once per plan-cache miss (FLAGS_verify_program):
+        # a malformed program raises ProgramVerificationError naming the op,
+        # var and block before any of it runs; a plan's later runs pay nothing
+        level = flags.flag("FLAGS_verify_program")
+        if level not in ("", "off"):
+            from .analysis import check_program
+
+            with _MON.span("analysis.verify", program=program._uuid[:8]):
+                check_program(program, level=level, feed_names=list(feed_names),
+                              fetch_names=fetch_names)
         with _MON.span("executor.build", program=program._uuid[:8]):
             plan = _Plan(program, fetch_names, self.place.device, steps, remat, self._graphs)
         with self._cache_lock:
@@ -582,7 +604,7 @@ class Executor:
         t0 = time.perf_counter()
         feeds = self._feeds(program.global_block(), feed or {}, steps)
         key = self._key(program, feeds, fetch_names, scope, steps, remat)
-        plan, hit = self._plan(key, program, fetch_names, steps, remat)
+        plan, hit = self._plan(key, program, feeds, fetch_names, steps, remat)
         self.last_plan = plan
         gen = self._generator(scope, program)
         if self.place.device.type == "cuda" and self._side_stream is None:

@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .analysis import STRUCTURAL_OPS
 from .program import Operator
 from .registry import get_op_def
 from .selected_rows import SelectedRows
@@ -129,14 +130,10 @@ class SparseTaps:
         return SelectedRows(torch.cat(rows), torch.cat(vals), table.shape[0])
 
 
-# ops the executor handles itself
-_STRUCTURAL_OPS = ("feed", "fetch", "backward")
-
-
 def run_ops(ctx: LoweringContext, ops: List[Operator], env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Run `ops` over `env` (var name -> tensor), in order."""
     for op in ops:
-        if op.type in _STRUCTURAL_OPS:
+        if op.type in STRUCTURAL_OPS:
             raise RuntimeError(f"structural op {op.type!r} reached the interpreter; "
                                "the executor must handle it")
         if op.type == "while":

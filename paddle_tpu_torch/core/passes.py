@@ -1,8 +1,11 @@
 """Program-rewrite passes (counterpart of paddle_tpu/core/passes.py): the
 fusions whose ops reach the port's kernels, `fuse_bn_relu`,
-`fuse_ln_residual` and `fuse_bias_act`, with the pass registry and
-`PassBuilder`.  A pass is a callable Program -> None that mutates the
-program in place; the post-pass verifier arrives with core/analysis.py."""
+`fuse_ln_residual` and `fuse_bias_act`, and the program-level rewrites
+`remove_identity_ops`, `fold_scale_chains` and `prune_dead_ops`, with the
+pass registry and `PassBuilder`.  A pass is a callable Program -> None that
+mutates the program in place; under FLAGS_verify_program every applied
+pass is followed by the program verifier (core/analysis.py), so a pass
+that breaks the program raises `PassVerificationError` naming it."""
 from __future__ import annotations
 
 import bisect
@@ -23,16 +26,34 @@ def registered_passes() -> List[str]:
     return sorted(_PASS_REGISTRY)
 
 
+def _verify_after(program, pass_name: str):
+    """Under FLAGS_verify_program, verify the program after a rewrite, so a
+    pass bug surfaces as a diagnostic naming the op and var instead of wrong
+    numerics when the program runs."""
+    from ..flags import flag
+
+    level = flag("FLAGS_verify_program")
+    if level in ("", "off"):
+        return
+    from .analysis import SEV_ERROR, PassVerificationError, verify_program
+
+    errors = [d for d in verify_program(program, level=level) if d.severity == SEV_ERROR]
+    if errors:
+        raise PassVerificationError(pass_name, errors)
+
+
 def apply_pass(program, name: str, **kw):
     if name not in _PASS_REGISTRY:
         raise KeyError(f"unknown pass {name!r}; known: {registered_passes()}")
     _PASS_REGISTRY[name](program, **kw)
     program._bump()  # the rewritten ops need a new plan
+    _verify_after(program, name)
     return program
 
 
 class PassBuilder:
-    """An ordered pass pipeline."""
+    """An ordered pass pipeline, applied in the order the passes were
+    appended, each followed by the verifier (`_verify_after`)."""
 
     def __init__(self, passes: Optional[Sequence[str]] = None):
         self._passes: List[str] = list(passes or [])
@@ -43,10 +64,91 @@ class PassBuilder:
         self._passes.append(name)
         return self
 
+    def remove_pass(self, name: str) -> "PassBuilder":
+        self._passes.remove(name)
+        return self
+
+    def all_passes(self) -> List[str]:
+        return list(self._passes)
+
     def apply(self, program):
         for p in self._passes:
             apply_pass(program, p)
         return program
+
+
+def _rewire(block, old: str, new: str, start: int):
+    """Replace reads of `old` with `new` in ops from index `start` on."""
+    for op in block.ops[start:]:
+        for slot, names in op.inputs.items():
+            op.inputs[slot] = [new if n == old else n for n in names]
+
+
+@register_pass("remove_identity_ops")
+def remove_identity_ops(program, keep=()):
+    """Drop `assign` and no-op `scale` (scale=1, bias=0) ops, rewiring
+    same-block consumers to the producer.
+
+    `keep`: names that must stay written (fetch targets).  Identities whose
+    output is kept, persistable, or read from another block (control-flow
+    sub-blocks) stay, as does an identity whose input or output some later
+    op writes (t = x; x += 1; use t is a real copy)."""
+    keep = set(keep)
+    for block, outside in zip(program.blocks, _outside_reads(program)):
+        last_write: Dict[str, int] = {}
+        for i, op in enumerate(block.ops):
+            for out_name in op.output_arg_names:
+                last_write[out_name] = i
+        kept = []
+        for i, op in enumerate(block.ops):
+            is_identity = op.type == "assign" or (
+                op.type == "scale" and op.attrs.get("scale", 1.0) == 1.0
+                and op.attrs.get("bias", 0.0) == 0.0)
+            if not is_identity:
+                kept.append(op)
+                continue
+            src = op.input_arg_names[0]
+            dst = op.output_arg_names[0]
+            dst_var = block._find_var_recursive(dst)
+            if dst in keep or dst in outside or (dst_var is not None and dst_var.persistable):
+                kept.append(op)
+                continue
+            if last_write.get(src, -1) > i or last_write.get(dst, -1) > i:
+                kept.append(op)
+                continue
+            _rewire(block, dst, src, i + 1)
+        block.ops = kept
+
+
+@register_pass("fold_scale_chains")
+def fold_scale_chains(program):
+    """Fold consecutive scale ops (y = a2*(a1*x + b1) + b2) into one.  The
+    bypassed op stays in the program (other consumers or a fetch may read
+    it); the executor's prune drops it when it is dead."""
+    for block in program.blocks:
+        by_output = {}
+        for op in block.ops:
+            if op.type == "scale" and op.attrs.get("bias_after_scale", True):
+                src = op.input_arg_names[0]
+                prev = by_output.get(src)
+                if prev is not None and prev.attrs.get("bias_after_scale", True):
+                    a1 = prev.attrs.get("scale", 1.0)
+                    b1 = prev.attrs.get("bias", 0.0)
+                    a2 = op.attrs.get("scale", 1.0)
+                    b2 = op.attrs.get("bias", 0.0)
+                    op.inputs["X"] = [prev.input_arg_names[0]]
+                    op.attrs["scale"] = a1 * a2
+                    op.attrs["bias"] = a2 * b1 + b2
+                by_output[op.output_arg_names[0]] = op
+            # any write drops the cached chains that read or wrote the name
+            # (an in-place op like increment would otherwise be folded across)
+            for out in op.output_arg_names:
+                if op.type != "scale" or out != op.output_arg_names[0]:
+                    by_output.pop(out, None)
+                stale = [k for k, v in by_output.items()
+                         if v.input_arg_names[0] == out and v is not op]
+                for k in stale:
+                    by_output.pop(k)
 
 
 def _reader_counts(block):
@@ -226,3 +328,18 @@ def fuse_bias_act(program, keep=()):
                         continue
             kept.append(op)
         block.ops = kept
+
+
+@register_pass("prune_dead_ops")
+def prune_dead_ops(program, targets: Optional[Sequence[str]] = None):
+    """Fetch-driven dead-op elimination of the global block, as the
+    executor prunes each plan.  `targets` is required: guessing the live
+    outputs would delete independent branches."""
+    from .executor import _prune, _runnable_ops
+
+    if not targets:
+        raise ValueError("prune_dead_ops: pass the fetch targets explicitly "
+                         "(apply_pass(prog, 'prune_dead_ops', targets=[...]))")
+    persistable = {v.name for v in program.list_vars() if v.persistable}
+    block = program.global_block()
+    block.ops = _prune(_runnable_ops(block), list(targets), persistable)

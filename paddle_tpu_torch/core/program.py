@@ -4,8 +4,9 @@ paddle_tpu/core/program.py).
 The same IR as the JAX package, serialized the same way
 (`Program.to_dict` / `from_dict`), so a program built or saved by either
 package loads in the other.  Ops carry no kernels: a type, slot-named
-inputs/outputs and attrs.  The executor interprets them eagerly with torch
-(core/lowering.py).
+inputs/outputs and attrs; `Block.append_op` infers their outputs' shapes
+and dtypes (core/analysis.py).  The executor interprets them eagerly with
+torch (core/lowering.py).
 """
 from __future__ import annotations
 
@@ -215,10 +216,14 @@ class Block:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None) -> Operator:
-        # build-time shape inference (registry.infer_and_check in the JAX
-        # package) arrives with the port of core/analysis.py
+        """Append an op and run its build-time shape/dtype inference
+        (registry.infer_and_check), which fills or checks its outputs'
+        declared shapes and dtypes."""
+        from .registry import infer_and_check  # late import: registry needs Block
+
         op = Operator(self, type, _normalize_io(inputs), _normalize_io(outputs), attrs)
         self.ops.append(op)
+        infer_and_check(op, self)
         self.program._bump()
         return op
 

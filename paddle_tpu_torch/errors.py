@@ -9,6 +9,12 @@
     FatalError            what `classify` cannot place in a recoverable class
     ResourceError         the program cannot fit in device memory (a
                           FatalError; the port has no static planner yet)
+    IntegrityError        a file named by a manifest no longer hashes to
+                          its recorded sha256 and byte length (io.load_vars)
+
+The build-time analysis failures (StaticAnalysisError and its subclasses,
+FatalErrors) live with the verifier in core/analysis.py, as in the JAX
+package.
 
 `attach_context` leaves step breadcrumbs on an exception without changing
 its type; `get_context` reads them; `classify` maps an exception onto the
@@ -22,7 +28,7 @@ from typing import Optional
 import torch
 
 __all__ = ["TrainingError", "NumericError", "TransientDeviceError", "FatalError",
-           "ResourceError", "attach_context", "get_context", "classify"]
+           "ResourceError", "IntegrityError", "attach_context", "get_context", "classify"]
 
 
 class TrainingError(RuntimeError):
@@ -85,6 +91,41 @@ class ResourceError(FatalError):
         self.needed_bytes = needed_bytes
         self.limit_bytes = limit_bytes
         self.watermark_ops = list(watermark_ops or [])
+
+
+class IntegrityError(TrainingError):
+    """Wrong but finite state made loud.  Raised at rest: a file named by a
+    checkpoint or inference-model manifest is missing, or no longer hashes
+    to its recorded sha256 and byte length (`file` / `expected` /
+    `actual`).  The JAX package also raises it for a live digest divergence
+    across data-parallel ranks (`corrupt_ranks`, `attributed`,
+    `safe_step`); the port keeps those fields for the same signature.
+    Never retried in place: the state itself is poison."""
+
+    def __init__(self, message: str, *, corrupt_ranks=None,
+                 attributed: bool = True, safe_step: Optional[int] = None,
+                 file: Optional[str] = None, expected: Optional[str] = None,
+                 actual: Optional[str] = None, **kw):
+        kw.setdefault("phase", "integrity")
+        super().__init__(message, **kw)
+        self.corrupt_ranks = list(corrupt_ranks or [])
+        self.attributed = bool(attributed)
+        self.safe_step = safe_step
+        self.file = file
+        self.expected = expected
+        self.actual = actual
+
+    def __str__(self):
+        base = super().__str__()
+        ctx = []
+        if self.corrupt_ranks:
+            ctx.append(f"corrupt_ranks={self.corrupt_ranks}"
+                       + ("" if self.attributed else " (unattributed)"))
+        if self.safe_step is not None:
+            ctx.append(f"safe_step={self.safe_step}")
+        if self.file:
+            ctx.append(f"file={self.file}")
+        return f"{base} [{', '.join(ctx)}]" if ctx else base
 
 
 def attach_context(exc: BaseException, *, step: Optional[int] = None,

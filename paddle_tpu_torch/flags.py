@@ -1,5 +1,7 @@
 """Typed flag registry with FLAGS_* environment passthrough (counterpart of
-paddle_tpu/flags.py), holding the flags this port reads so far."""
+paddle_tpu/flags.py), holding the flags this port reads so far.  The JAX
+package defines 39; each of the others arrives with the module that reads
+it."""
 from __future__ import annotations
 
 import os
@@ -46,3 +48,14 @@ _define("FLAGS_integrity_verify_load", bool, True,
 _define("FLAGS_executor_cache_capacity", int, 128,
         "LRU capacity of the executor's plan cache (program x feed signature x "
         "fetch list); an evicted plan drops its CUDA graph and static buffers")
+_define("FLAGS_verify_program", str, "structural",
+        "static-analysis level applied to programs before they run "
+        "(core/analysis.py): 'off' trusts the builder (and turns off the "
+        "append_op-time shape/dtype inference), 'structural' (default) runs "
+        "the program verifier (def-before-use, dangling vars, unregistered "
+        "ops, orphan sub-blocks, duplicate parameter writes, feed/fetch "
+        "targets) on every executor plan-cache miss and after every "
+        "registered pass, 'full' adds whole-program shape/dtype re-inference "
+        "and the hazard lints (donation, recompile, RNG determinism).  "
+        "Error-severity findings raise ProgramVerificationError naming the "
+        "op, var and block")

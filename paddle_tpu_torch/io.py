@@ -1,11 +1,18 @@
-"""Variable and inference-model save/load (counterpart of paddle_tpu/io.py).
+"""Checkpoint and inference-model save/load (counterpart of paddle_tpu/io.py).
 
-The on-disk format is the JAX package's: `__model__.json` holds the pruned
-test-mode Program (plus "feed_names"/"fetch_names"), one `.npy` per
-persistable, and `__manifest__.json` lists every file with its sha256 and
-byte length.  bfloat16 arrays are stored as their uint16 bit pattern with
-dtype "bfloat16" in the manifest.  A model saved by either package loads
-in the other.  Int8 models come with a later slice.
+The on-disk format is the JAX package's: one `.npy` per variable and
+`__manifest__.json` listing every file with its sha256 and byte length;
+an inference model adds `__model__.json`, the pruned test-mode Program
+(plus "feed_names"/"fetch_names").  bfloat16 arrays are stored as their
+uint16 bit pattern with dtype "bfloat16" in the manifest.  A checkpoint or
+model saved by either package loads in the other.  `save_persistables` /
+`load_persistables` carry every persistable (parameters, optimizer
+accumulators, the learning rate), so training resumes exactly;
+`save_params` / `load_params` carry the parameters only.  A load verifies
+each file against its manifest stamp (FLAGS_integrity_verify_load) and
+raises `errors.IntegrityError` on a mismatch.  The sharded checkpoints
+(`save_sharded` / `load_sharded`) come with data parallelism (ROADMAP A10)
+and int8 models with a later slice.
 """
 from __future__ import annotations
 
@@ -19,17 +26,14 @@ import torch
 
 from . import flags
 from .core.dtypes import to_tensor
-from .core.executor import _prune, _runnable_ops
+from .core.executor import CUDAPlace, _prune, _runnable_ops
 from .core.program import Program, Variable, default_main_program
 from .core.scope import Scope, global_scope
+from .errors import IntegrityError  # also reachable as io.IntegrityError
 
 MODEL_FILENAME = "__model__.json"
 MANIFEST = "__manifest__.json"
 QUANT_MANIFEST = "__quant__.json"
-
-
-class IntegrityError(IOError):
-    """A file named by a manifest is missing, truncated or altered."""
 
 
 def _atomic_commit(path: str, mode: str, write_cb):
@@ -59,18 +63,27 @@ def _file_stamp(path: str) -> dict:
 
 
 def _verify(dirname: str, entry: dict):
+    """The file of a manifest entry against its recorded sha256 and byte
+    length; an entry without a digest (an old manifest) passes unchecked."""
     sha = entry.get("sha256")
     if not sha:
-        return  # manifests written before digests pass unchecked
-    path = os.path.join(dirname, entry["file"])
-    if not os.path.exists(path):
-        raise IntegrityError(f"manifest names {entry['file']!r} but it is missing")
-    got = _file_stamp(path)
+        return
+    fname = entry["file"]
+    try:
+        got = _file_stamp(os.path.join(dirname, fname))
+    except OSError as e:
+        raise IntegrityError(f"manifest names {fname!r} but it cannot be read "
+                             f"({type(e).__name__}: {e})", file=fname) from e
     if entry.get("bytes") is not None and got["bytes"] != int(entry["bytes"]):
-        raise IntegrityError(f"{entry['file']!r} is {got['bytes']} bytes, the manifest "
-                             f"recorded {entry['bytes']}")
+        raise IntegrityError(
+            f"{fname!r} is {got['bytes']} bytes but the manifest recorded {entry['bytes']} "
+            f"-- truncated or grown since save", file=fname, expected=str(entry["bytes"]),
+            actual=str(got["bytes"]))
     if got["sha256"] != sha:
-        raise IntegrityError(f"{entry['file']!r} content digest mismatch")
+        raise IntegrityError(
+            f"{fname!r} content digest mismatch: manifest recorded sha256 {sha[:16]}..., "
+            f"file hashes to {got['sha256'][:16]}... -- the bytes changed since save",
+            file=fname, expected=sha, actual=got["sha256"])
 
 
 def _host_array(t) -> np.ndarray:
@@ -148,6 +161,43 @@ def load_numpy_params(scope: Scope, params: Dict[str, np.ndarray], device="cpu")
 
 def _persistables(program: Program) -> List[Variable]:
     return [v for v in program.list_vars() if v.persistable]
+
+
+def save_persistables(executor, dirname: str, main_program: Optional[Program] = None,
+                      scope: Optional[Scope] = None) -> List[dict]:
+    """Every persistable var of the program (parameters, optimizer
+    accumulators, the learning rate), so training resumes exactly."""
+    program = main_program or default_main_program()
+    return save_vars(dirname, [v.name for v in _persistables(program)], scope)
+
+
+def save_params(executor, dirname: str, main_program: Optional[Program] = None,
+                scope: Optional[Scope] = None) -> List[dict]:
+    """The program's parameters only."""
+    program = main_program or default_main_program()
+    return save_vars(dirname, [p.name for p in program.all_parameters()], scope)
+
+
+def _load_device(executor):
+    """The executor's device; with no executor, the card."""
+    return (executor.place if executor is not None else CUDAPlace(0)).device
+
+
+def load_persistables(executor, dirname: str, main_program: Optional[Program] = None,
+                      scope: Optional[Scope] = None) -> List[str]:
+    """Every persistable var of the program, onto the executor's device;
+    a var the checkpoint lacks raises KeyError."""
+    program = main_program or default_main_program()
+    return load_vars(dirname, [v.name for v in _persistables(program)], scope,
+                     device=_load_device(executor))
+
+
+def load_params(executor, dirname: str, main_program: Optional[Program] = None,
+                scope: Optional[Scope] = None) -> List[str]:
+    """The program's parameters, onto the executor's device."""
+    program = main_program or default_main_program()
+    return load_vars(dirname, [p.name for p in program.all_parameters()], scope,
+                     device=_load_device(executor))
 
 
 def save_inference_model(dirname: str, feeded_var_names: Sequence[str],

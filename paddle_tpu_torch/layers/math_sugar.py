@@ -4,14 +4,9 @@ the same ops as in the JAX package.  A scalar operand of add, sub, mul and
 div becomes one `scale` op; any other becomes a [1] `fill_constant`."""
 from __future__ import annotations
 
+from ..core.analysis import BOOL_OUT_OPS  # shared with the infer rules: they cannot drift
 from ..core.layer_helper import LayerHelper
 from ..core.program import Variable
-
-# compare and logical ops produce bool whatever their operands' dtype
-BOOL_OUT_OPS = frozenset({
-    "equal", "not_equal", "less_than", "less_equal", "greater_than",
-    "greater_equal", "logical_and", "logical_or", "logical_xor",
-})
 
 
 def binary(x, y, op_type: str):

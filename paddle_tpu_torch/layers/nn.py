@@ -41,9 +41,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=Non
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
         )
         mul_results.append(out)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs needs the `sum` op, not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0], bias_attr, [size], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = _out(helper, mul_results[0].dtype, shape=mul_results[0].shape)
+        helper.append_op("sum", inputs={"X": [v.name for v in mul_results]},
+                         outputs={"Out": [pre_bias.name]})
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, [size], dim_start=num_flatten_dims)
     out = helper.append_activation(pre_act)
     # a projection that keeps the time axis keeps the lengths companion
     return _keep_lod(inputs[0], out) if num_flatten_dims >= 2 else out
@@ -252,6 +256,19 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     return out
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    shape = tuple(input.shape[:-1]) + (1,) if input.shape is not None else None
+    out = _out(helper, input.dtype, shape=shape)
+    helper.append_op(
+        "cross_entropy",
+        inputs={"X": [input.name], "Label": [label.name]},
+        outputs={"Y": [out.name]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-100,
                                numeric_stable_mode=True, return_softmax=False):
     helper = LayerHelper("softmax_with_cross_entropy")
@@ -268,6 +285,14 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-10
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = _out(helper, input.dtype, shape=input.shape)
+    helper.append_op("square_error_cost", inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def mean(x, name=None):
@@ -313,8 +338,11 @@ def _act_layer(op_type):
     return f
 
 
+relu = _act_layer("relu")
 sigmoid = _act_layer("sigmoid")
+sqrt = _act_layer("sqrt")
 square = _act_layer("square")
+gelu = _act_layer("gelu")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -337,6 +365,22 @@ def pow(x, factor=1.0, name=None):
     return out
 
 
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("clip", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("clip_by_norm", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"max_norm": max_norm})
+    return out
+
+
 def one_hot(input, depth):
     helper = LayerHelper("one_hot")
     out = _out(helper, "float32")
@@ -356,37 +400,21 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None
     return out
 
 
-def _matmul_shape(xs, ys, transpose_x, transpose_y):
-    """The output shape of matmul when both input shapes are known and the
-    batch dims broadcast (-1, the unknown batch, unifies with anything);
-    else None.  The fusion passes compare shapes, as the JAX package's
-    shape inference gives them."""
-    if xs is None or ys is None or len(xs) < 2 or len(ys) < 2:
-        return None
-    if transpose_x:
-        xs = xs[:-2] + (xs[-1], xs[-2])
-    if transpose_y:
-        ys = ys[:-2] + (ys[-1], ys[-2])
-    bx, by = xs[:-2], ys[:-2]
-    if len(bx) < len(by):
-        bx, by = by, bx
-    by = (1,) * (len(bx) - len(by)) + by
-    batch = []
-    for a, b in zip(bx, by):
-        if a == b or b == 1:
-            batch.append(a)
-        elif a == 1:
-            batch.append(b)
-        elif -1 in (a, b):
-            batch.append(a if b == -1 else b)
-        else:
-            return None
-    return tuple(batch) + (xs[-2], ys[-1])
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    helper = LayerHelper("mul")
+    out = _out(helper, x.dtype)
+    helper.append_op(
+        "mul",
+        inputs={"X": [x.name], "Y": [y.name]},
+        outputs={"Out": [out.name]},
+        attrs={"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims},
+    )
+    return out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
-    out = _out(helper, x.dtype, shape=_matmul_shape(x.shape, y.shape, transpose_x, transpose_y))
+    out = _out(helper, x.dtype)  # its shape is inferred at append_op
     helper.append_op(
         "matmul",
         inputs={"X": [x.name], "Y": [y.name]},
@@ -438,7 +466,10 @@ def _elementwise_layer(op_type):
 
 
 elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
+elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
 elementwise_min = _elementwise_layer("elementwise_min")
 
 

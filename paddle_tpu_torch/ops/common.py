@@ -25,9 +25,11 @@ def bcast_y_to_x(x, y, axis: int):
 
 def canon_dtype(dtype) -> torch.dtype:
     """The x32 rule of the JAX package (which runs with jax_enable_x64 off):
-    in-program casts to int64 / float64 compute as int32 / float32."""
+    int64 / uint64 / float64 compute as int32 / uint32 / float32, in
+    in-program casts and at the feed boundary (core/executor.py)."""
     d = as_torch_dtype(dtype)
-    return {torch.int64: torch.int32, torch.float64: torch.float32}.get(d, d)
+    return {torch.int64: torch.int32, torch.uint64: torch.uint32,
+            torch.float64: torch.float32}.get(d, d)
 
 
 def match_dtype(x, y):

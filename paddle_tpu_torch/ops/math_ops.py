@@ -1,7 +1,8 @@
 """Math lowerings: elementwise_add (with the fused bias-act epilogue),
-elementwise_sub, _mul, _div and _min, activations, pow, scale, reduce_sum,
-mean, mul, matmul, less_than and logical_and (counterpart of
-paddle_tpu/ops/math_ops.py).
+elementwise_sub, _mul, _div, _max and _min, sum, activations, pow, clip,
+clip_by_norm, scale, reduce_sum, mean, mul, matmul, less_than and
+logical_and (counterpart of paddle_tpu/ops/math_ops.py), with their
+build-time inference rules.
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -21,6 +22,8 @@ _UNARY = {
     "gelu": F.gelu,  # exact erf form, as jax.nn.gelu(approximate=False)
     "sigmoid": torch.sigmoid,
     "square": torch.square,
+    "sqrt": torch.sqrt,
+    "sign": torch.sign,
 }
 
 
@@ -57,6 +60,32 @@ register_op("elementwise_sub")(_binary(torch.sub))
 register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.div))
 register_op("elementwise_min")(_binary(torch.minimum))
+register_op("elementwise_max")(_binary(torch.maximum))
+
+
+@register_op("sum")
+def _sum(ctx, op, ins):
+    """The summands added in order (the regularizers' grad + decay, the
+    global norm's squared sums), with torch's type promotion as jnp's."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("clip")
+def _clip(ctx, op, ins):
+    return {"Out": torch.clamp(first(ins, "X"), op.attr("min"), op.attr("max"))}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, op, ins):
+    """x scaled by max_norm / ||x||_2 where the norm exceeds max_norm."""
+    x = first(ins, "X")
+    max_norm = op.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": torch.where(norm > max_norm, x * (max_norm / norm), x)}
 
 
 @register_op("pow")
@@ -155,3 +184,83 @@ def _matmul(ctx, op, ins):
     if alpha != 1.0:
         out = out * alpha
     return {"Out": out}
+
+
+# --- build-time shape/dtype inference (core/analysis.py), as the JAX
+# package registers it next to the same lowerings
+
+from ..core import analysis as _A
+
+_A.register_elementwise_infer("elementwise_add", "elementwise_sub", "elementwise_mul",
+                              "elementwise_div", "elementwise_max", "elementwise_min")
+_A.register_elementwise_infer("less_than", "logical_and", out_dtype="bool")
+_A.register_unary_infer(*_UNARY, "pow", "clip", "clip_by_norm", "scale")
+_A.register_reduce_infer("reduce_sum")
+
+
+def _infer_sum(ctx):
+    out = None
+    for i in range(ctx.n_inputs("X")):
+        s = ctx.in_shape("X", i)
+        if s is None:
+            continue
+        out = s if out is None else _A.fluid_broadcast(out, s, -1)
+        if out is None:
+            ctx.fail("summands have incompatible shapes", var=ctx.op.input("X")[i])
+    ctx.set_out("Out", out, ctx.in_dtype("X"))
+
+
+_A.register_rule(["sum"], _infer_sum)
+
+
+def _infer_mean(ctx):
+    ctx.set_out("Out", (1,), ctx.in_dtype("X"))
+
+
+_A.register_rule(["mean"], _infer_mean)
+
+
+def _infer_mul(ctx):
+    xs = ctx.in_shape("X")
+    ys = ctx.in_shape("Y")
+    if xs is None or ys is None:
+        return
+    xd = ctx.op.attr("x_num_col_dims", 1)
+    yd = ctx.op.attr("y_num_col_dims", 1)
+    if not (0 < xd <= len(xs) and 0 < yd < len(ys) + 1):
+        ctx.fail(f"num_col_dims ({xd},{yd}) out of range for X{tuple(xs)} Y{tuple(ys)}")
+    inner_x = xs[xd:]
+    inner_y = ys[:yd]
+    if all(d != _A.DYN for d in inner_x) and all(d != _A.DYN for d in inner_y):
+        if math.prod(inner_x) != math.prod(inner_y):
+            ctx.fail(f"flattened contraction dims do not match: X{tuple(xs)} cols "
+                     f"{tuple(inner_x)} vs Y{tuple(ys)} rows {tuple(inner_y)}",
+                     var=ctx.op.input("Y")[0])
+    ctx.set_out("Out", tuple(xs[:xd]) + tuple(ys[yd:]), ctx.in_dtype("X"))
+
+
+_A.register_rule(["mul"], _infer_mul)
+
+
+def _infer_matmul(ctx):
+    xs = ctx.in_shape("X")
+    ys = ctx.in_shape("Y")
+    if xs is None or ys is None or len(xs) < 2 or len(ys) < 2:
+        return
+    if ctx.op.attr("transpose_X", False):
+        xs = xs[:-2] + (xs[-1], xs[-2])
+    if ctx.op.attr("transpose_Y", False):
+        ys = ys[:-2] + (ys[-1], ys[-2])
+    if _A.unify_dim(xs[-1], ys[-2]) is None:
+        ctx.fail(f"contraction dims do not match: X[...,{xs[-1]}] vs Y[{ys[-2]},...]",
+                 var=ctx.op.input("Y")[0])
+    bx, by = xs[:-2], ys[:-2]
+    if len(bx) < len(by):
+        bx, by = by, bx
+    batch = _A.fluid_broadcast(bx, by, -1) if by else tuple(bx)
+    if batch is None:
+        ctx.fail(f"batch dims do not broadcast: {tuple(xs[:-2])} vs {tuple(ys[:-2])}")
+    ctx.set_out("Out", tuple(batch) + (xs[-2], ys[-1]), ctx.in_dtype("X"))
+
+
+_A.register_rule(["matmul"], _infer_matmul)

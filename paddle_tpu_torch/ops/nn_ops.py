@@ -1,8 +1,9 @@
 """NN lowerings: conv2d, pool2d, batch_norm (with the fused epilogue),
 lookup_table (with its sparse gradient tap), layer_norm (with the fused
-residual), dropout, softmax, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, fused_attention, top_k and accuracy
-(counterpart of paddle_tpu/ops/nn_ops.py).
+residual), dropout, softmax, cross_entropy, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, square_error_cost, fused_attention, top_k
+and accuracy, with their build-time inference rules (counterpart of
+paddle_tpu/ops/nn_ops.py).
 
 Layouts are NCHW only: the JAX package's channels-last paths (the
 `data_format` / `data_layout` attrs, `_NHWC_LOWERING`) are TPU layout
@@ -255,6 +256,29 @@ def _softmax(ctx, op, ins):
     return {"Out": torch.softmax(first(ins, "X"), dim=op.attr("axis", -1))}
 
 
+@register_op("cross_entropy")
+def _cross_entropy(ctx, op, ins):
+    """-log(x[label]) of a probability distribution x (x clipped to 1e-20),
+    0 where the label equals ignore_index; with soft_label,
+    -sum(label * log(x)) over the last axis."""
+    x = first(ins, "X")
+    label = first(ins, "Label")
+    if op.attr("soft_label", False):
+        return {"Y": -torch.sum(label * torch.log(torch.clamp(x, min=1e-20)), -1, keepdim=True)}
+    idx = label if label.dim() == x.dim() and label.shape[-1] == 1 else label[..., None]
+    # an ignored label may lie outside [0, V): gather a clamped index, masked below
+    picked = torch.gather(x, -1, idx.long().clamp(0, x.shape[-1] - 1))
+    loss = -torch.log(torch.clamp(picked, min=1e-20))
+    ignore = op.attr("ignore_index", -100)
+    return {"Y": torch.where(idx == ignore, torch.zeros((), dtype=loss.dtype, device=loss.device),
+                             loss)}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, op, ins):
+    return {"Out": torch.square(first(ins, "X") - first(ins, "Y"))}
+
+
 @register_op("softmax_with_cross_entropy")
 def _softmax_with_cross_entropy(ctx, op, ins):
     """loss = lse(x) - x[label], reductions in float32.
@@ -362,3 +386,198 @@ def _label_smooth(ctx, op, ins):
     if prior is not None:
         return {"Out": (1.0 - eps) * x + eps * prior}
     return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}
+
+
+# --- build-time shape/dtype inference (core/analysis.py), as the JAX
+# package registers it next to the same lowerings.  fused_attention has no
+# rule there either.
+
+from ..core import analysis as _A
+
+_A.register_unary_infer("softmax", "label_smooth", "sigmoid_cross_entropy_with_logits")
+_A.register_elementwise_infer("square_error_cost")
+
+
+def _infer_dropout(ctx):
+    # one rule for both outputs: set_infer replaces, so a rule per output
+    # would leave the first one registered unchecked
+    xs = ctx.in_shape("X")
+    dt = ctx.in_dtype("X")
+    ctx.set_out("Out", xs, dt)
+    ctx.set_out("Mask", xs, dt)
+
+
+_A.register_rule(["dropout"], _infer_dropout)
+
+
+def _conv_dim(in_sz, k, stride, pad_lo, pad_hi, dil):
+    if in_sz == _A.DYN or k == _A.DYN:
+        return _A.DYN
+    eff = (k - 1) * dil + 1
+    return (in_sz + pad_lo + pad_hi - eff) // stride + 1
+
+
+def _infer_conv2d(ctx):
+    xs = ctx.in_shape("Input")
+    ws = ctx.in_shape("Filter")
+    if xs is None or ws is None or len(xs) != 4 or len(ws) != 4:
+        return
+    op = ctx.op
+    strides = list(op.attr("strides", [1, 1]))
+    pads = list(op.attr("paddings", [0, 0]))
+    dil = list(op.attr("dilations", [1, 1]))
+    groups = op.attr("groups", 1) or 1
+    if len(pads) == 4:
+        plo, phi = (pads[0], pads[2]), (pads[1], pads[3])
+    else:
+        plo = phi = (pads[0], pads[1])
+    nhwc = op.attr("data_format", "NCHW") == "NHWC"
+    n, h, w, c = (xs[0], xs[1], xs[2], xs[3]) if nhwc else (xs[0], xs[2], xs[3], xs[1])
+    o, i_g, kh, kw = ws
+    if c != _A.DYN and i_g != _A.DYN and c != i_g * groups:
+        ctx.fail(f"input channels {c} != Filter in-channels*groups {i_g}*{groups}",
+                 var=op.input("Input")[0])
+    oh = _conv_dim(h, kh, strides[0], plo[0], phi[0], dil[0])
+    ow = _conv_dim(w, kw, strides[1], plo[1], phi[1], dil[1])
+    ctx.set_out("Output", (n, oh, ow, o) if nhwc else (n, o, oh, ow), ctx.in_dtype("Input"))
+
+
+_A.register_rule(["conv2d"], _infer_conv2d)
+
+
+def _infer_pool2d(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None or len(xs) != 4:
+        return
+    op = ctx.op
+    cl = op.attr("data_format", "NCHW") == "NHWC"
+    n = xs[0]
+    h, w = (xs[1], xs[2]) if cl else (xs[2], xs[3])
+    c = xs[3] if cl else xs[1]
+    if op.attr("global_pooling", False):
+        oh = ow = 1
+    else:
+        ksize = list(op.attr("ksize", [2, 2]))
+        strides = list(op.attr("strides", [1, 1]))
+        pads = list(op.attr("paddings", [0, 0]))
+        ceil = op.attr("ceil_mode", False)
+
+        def od(in_sz, k, s, p):
+            if in_sz == _A.DYN:
+                return _A.DYN
+            if ceil:
+                return -(-(in_sz + 2 * p - k) // s) + 1
+            return (in_sz + 2 * p - k) // s + 1
+
+        oh = od(h, ksize[0], strides[0], pads[0])
+        ow = od(w, ksize[1], strides[1], pads[1])
+    ctx.set_out("Out", (n, oh, ow, c) if cl else (n, c, oh, ow), ctx.in_dtype("X"))
+
+
+_A.register_rule(["pool2d"], _infer_pool2d)
+
+
+def _infer_batch_norm(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    layout = ctx.op.attr("data_layout", "NCHW")
+    ch = xs[1 if layout == "NCHW" else len(xs) - 1]
+    for slot in ("Scale", "Bias", "Mean", "Variance"):
+        s = ctx.in_shape(slot)
+        if s is not None and ch != _A.DYN and _A.unify_shape(s, (ch,)) is None:
+            ctx.fail(f"{slot} shape {tuple(s)} != (C,) = ({ch},)", var=ctx.op.input(slot)[0])
+    ctx.set_out("Y", xs, ctx.in_dtype("X"))
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        ctx.set_out(slot, (ch,) if ch != _A.DYN else None)
+
+
+_A.register_rule(["batch_norm"], _infer_batch_norm)
+
+
+def _infer_layer_norm(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    begin = ctx.op.attr("begin_norm_axis", 1)
+    ctx.set_out("Y", xs, ctx.in_dtype("X"))
+    ctx.set_out("Mean", tuple(xs[:begin]))
+    ctx.set_out("Variance", tuple(xs[:begin]))
+
+
+_A.register_rule(["layer_norm"], _infer_layer_norm)
+
+
+def _label_rank_match(logits, label):
+    """label is index-shaped: logits' rank with a trailing 1, or one less."""
+    return (len(label) == len(logits) and label[-1] == 1) or len(label) == len(logits) - 1
+
+
+def _infer_softmax_ce(ctx):
+    ls = ctx.in_shape("Logits")
+    lab = ctx.in_shape("Label")
+    if ls is None:
+        return
+    if lab is not None and not ctx.op.attr("soft_label", False):
+        if not (_label_rank_match(ls, lab)
+                and _A.unify_shape(tuple(ls[:-1]), tuple(lab[:len(ls) - 1])) is not None):
+            ctx.fail(f"Label shape {tuple(lab)} does not index Logits{tuple(ls)} (want "
+                     f"{tuple(ls[:-1])} or {tuple(ls[:-1]) + (1,)})",
+                     var=ctx.op.input("Label")[0])
+    ctx.set_out("Loss", tuple(ls[:-1]) + (1,))
+    ctx.set_out("Softmax", ls, ctx.in_dtype("Logits"))
+
+
+_A.register_rule(["softmax_with_cross_entropy"], _infer_softmax_ce)
+
+
+def _infer_cross_entropy(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    ctx.set_out("Y", tuple(xs[:-1]) + (1,), ctx.in_dtype("X"))
+
+
+_A.register_rule(["cross_entropy"], _infer_cross_entropy)
+
+
+def _infer_lookup_table(ctx):
+    ws = ctx.in_shape("W")
+    ids = ctx.in_shape("Ids")
+    if ws is None or ids is None or not ids:
+        return
+    if ids[-1] == _A.DYN:
+        return  # cannot tell whether the trailing dim-1 strip applies
+    base = tuple(ids[:-1]) if ids[-1] == 1 else tuple(ids)
+    ctx.set_out("Out", base + tuple(ws[1:]), ctx.in_dtype("W"))
+
+
+_A.register_rule(["lookup_table", "lookup_table_v2"], _infer_lookup_table)
+
+
+def _infer_top_k(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    k = ctx.op.attr("k", 1)
+    if xs[-1] != _A.DYN and k > xs[-1]:
+        ctx.fail(f"k={k} > last dim of X{tuple(xs)}", var=ctx.op.input("X")[0])
+    out = tuple(xs[:-1]) + (k,)
+    ctx.set_out("Out", out, ctx.in_dtype("X"))
+    ctx.set_out("Indices", out, "int64")
+
+
+_A.register_rule(["top_k"], _infer_top_k)
+
+
+def _infer_accuracy(ctx):
+    ind = ctx.in_shape("Indices")
+    lab = ctx.in_shape("Label")
+    if ind is not None and lab is not None and _A.unify_dim(ind[0], lab[0]) is None:
+        ctx.fail(f"Indices batch {ind[0]} != Label batch {lab[0]}", var=ctx.op.input("Label")[0])
+    ctx.set_out("Accuracy", (1,))
+    ctx.set_out("Correct", (1,))
+    ctx.set_out("Total", (1,))
+
+
+_A.register_rule(["accuracy"], _infer_accuracy)

@@ -149,3 +149,12 @@ def _adagrad(ctx, op, ins):
                 "MomentOut": _set_rows(moment, m, mr)}
     m_new = moment + torch.square(g)
     return {"ParamOut": p - lr * g / (torch.sqrt(m_new) + eps), "MomentOut": m_new}
+
+
+# --- build-time shape/dtype inference (core/analysis.py): every update
+# writes `<Slot>Out` mirroring `<Slot>`'s shape and dtype, and Grad must
+# match Param, as the JAX package registers it
+
+from ..core import analysis as _A
+
+_A.register_state_update_infer("sgd", "momentum", "adam", "adagrad")

@@ -86,3 +86,39 @@ def _position_encoding(ctx, op, ins):
     if pe.shape[-1] < d:  # odd d
         pe = torch.nn.functional.pad(pe, (0, d - pe.shape[-1]))
     return {"Out": x + pe[None].to(x.dtype)}
+
+
+# --- build-time shape/dtype inference (core/analysis.py), as the JAX
+# package registers it next to the same lowerings.  sequence_mask has no
+# rule there either.
+
+from ..core import analysis as _A
+
+
+def _infer_sequence_pool(ctx):
+    """[b, T, *f] pooled over the time axis -> [b, *f] (+ MaxIndex for MAX
+    pooling, same shape, int32)."""
+    xs = ctx.in_shape("X")
+    if xs is None or len(xs) < 2:
+        return
+    out = (xs[0],) + tuple(xs[2:])
+    ctx.set_out("Out", out, ctx.in_dtype("X"))
+    ctx.set_out("MaxIndex", out, "int32")
+
+
+_A.register_rule(["sequence_pool"], _infer_sequence_pool)
+
+
+def _infer_attention_bias(ctx):
+    """[b, 1, Tq, Tk] additive bias from the Q/K ragged carriers."""
+    qs = ctx.in_shape("Q")
+    ks = ctx.in_shape("K")
+    if qs is None or ks is None or len(qs) < 2 or len(ks) < 2:
+        return
+    ctx.set_out("Out", (qs[0], 1, qs[1], ks[1]), "float32")
+
+
+_A.register_rule(["attention_bias"], _infer_attention_bias)
+
+# position_encoding adds a sinusoid table to X: Out mirrors X
+_A.register_unary_infer("position_encoding")

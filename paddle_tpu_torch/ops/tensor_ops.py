@@ -116,3 +116,96 @@ def _expand(ctx, op, ins):
 def _assign(ctx, op, ins):
     # a copy: the Adam kernel updates its parameter in place
     return {"Out": first(ins, "X").clone()}
+
+
+# --- build-time shape/dtype inference (core/analysis.py), as the JAX
+# package registers it next to the same lowerings.  assign_value and expand
+# have no rule there either.
+
+from ..core import analysis as _A
+from ..core.dtypes import canonical_dtype as _canon
+
+_A.register_unary_infer("assign", "increment")
+
+
+def _infer_filled(ctx):
+    shape = ctx.op.attr("shape", None)
+    if not shape:
+        return
+    ctx.set_out("Out", tuple(shape), _canon(ctx.op.attr("dtype", "float32")))
+
+
+_A.register_rule(["fill_constant", "uniform_random", "gaussian_random"], _infer_filled)
+
+
+def _infer_cast(ctx):
+    dt = ctx.op.attr("out_dtype", ctx.op.attr("dtype", None))
+    ctx.set_out("Out", ctx.in_shape("X"), _canon(dt) if dt else None)
+
+
+_A.register_rule(["cast"], _infer_cast)
+
+
+def _infer_reshape(ctx):
+    xs = ctx.in_shape("X")
+    tgt = list(ctx.op.attr("shape", []))
+    if not tgt:
+        return
+    if tgt.count(-1) > 1:
+        ctx.fail(f"reshape target {tgt} has more than one -1")
+    if xs is None:
+        return
+    out = []
+    for i, s in enumerate(tgt):
+        if s == 0:
+            if i >= len(xs):
+                ctx.fail(f"reshape target {tgt} copies dim {i} (the 0 "
+                         f"entry) but X{tuple(xs)} has rank {len(xs)}")
+            out.append(xs[i])
+        else:
+            out.append(int(s))
+    if all(d != _A.DYN for d in xs):
+        total = int(np.prod(xs)) if xs else 1
+        if -1 in out:
+            neg = out.index(-1)
+            rest = int(np.prod([d for j, d in enumerate(out) if j != neg]) or 1)
+            if rest <= 0 or total % rest != 0:
+                ctx.fail(f"cannot reshape X{tuple(xs)} ({total} elements) into {tgt}")
+            out[neg] = total // rest
+        elif all(d != _A.DYN for d in out) and int(np.prod(out) if out else 1) != total:
+            ctx.fail(f"cannot reshape X{tuple(xs)} ({total} elements) into "
+                     f"{tgt} ({int(np.prod(out) if out else 1)} elements)")
+    ctx.set_out("Out", tuple(out), ctx.in_dtype("X"))
+    if ctx.op.output("XShape"):
+        ctx.set_out("XShape", (0,) + tuple(xs), ctx.in_dtype("X"))
+
+
+_A.register_rule(["reshape2"], _infer_reshape)
+
+
+def _infer_transpose(ctx):
+    xs = ctx.in_shape("X")
+    axis = ctx.op.attr("axis")
+    if xs is None or axis is None:
+        return
+    if sorted(a % len(xs) for a in axis) != list(range(len(xs))):
+        ctx.fail(f"transpose axis {list(axis)} is not a permutation of "
+                 f"X{tuple(xs)}'s rank {len(xs)}")
+    ctx.set_out("Out", tuple(xs[a] for a in axis), ctx.in_dtype("X"))
+    if ctx.op.output("XShape"):
+        ctx.set_out("XShape", (0,) + tuple(xs), ctx.in_dtype("X"))
+
+
+_A.register_rule(["transpose2"], _infer_transpose)
+
+
+def _infer_one_hot(ctx):
+    xs = ctx.in_shape("X")
+    depth = ctx.op.attr("depth")
+    if xs is None or depth is None:
+        return
+    base = tuple(xs[:-1]) if (xs and xs[-1] == 1) else tuple(xs)
+    ctx.set_out("Out", base + (int(depth),), "float32")
+
+
+_A.register_rule(["one_hot"], _infer_one_hot)

@@ -4,9 +4,11 @@
 parameter.  The learning rate is a persistable [1] variable and the
 accumulators are persistable variables, each initialized by a
 `fill_constant` in the startup program, with the same names, ops and attrs
-as the JAX package.  The port has `SGD`, `Momentum`, `Adam` and `Adagrad`
-so far; the other optimizers and the dygraph (eager) updates come with
-later slices.
+as the JAX package.  Between the backward and the updates come the
+program's gradient clip and the regularizers' decay ops (clip.py,
+core/regularizer.py), on the dense gradients only.  The port has `SGD`,
+`Momentum`, `Adam` and `Adagrad` so far; the other optimizers and the
+dygraph (eager) updates come with later slices.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from .core import unique_name
 from .core.autodiff import append_backward
 from .core.dtypes import canonical_dtype
 from .core.program import Parameter, Variable, default_main_program, default_startup_program
+from .core.regularizer import append_regularization_ops
 
 
 class Optimizer:
@@ -75,22 +78,12 @@ class Optimizer:
         raise NotImplementedError
 
     # --- public API -------------------------------------------------------
-    def _refuse_clip_and_regularizers(self, program, dense_pg) -> None:
-        """The JAX package appends a gradient clip's ops, then each
-        regularizer's, between the backward and the updates.  The port has
-        no lowering for them yet, so it refuses both here and names the
-        first op that would be appended."""
-        clip = getattr(program, "_grad_clip", None)
-        regularizers = [p.regularizer or self.regularization for p, _ in dense_pg]
-        found = next((x for x in [clip, *regularizers] if x is not None), None)
-        if found is not None:
-            raise NotImplementedError(
-                f"{type(found).__name__} appends op {found.first_op!r}, which has no lowering "
-                "in paddle_tpu_torch yet")
-
     def apply_gradients(self, params_grads) -> List:
-        program = default_main_program()
-        block = program.global_block()
+        """The program's gradient clip, then each parameter's regularizer,
+        on the dense gradients; then one update op per parameter."""
+        from .clip import append_gradient_clip_ops
+
+        block = default_main_program().global_block()
         self._create_global_learning_rate()
         # SelectedRows grads (is_sparse embeddings) bypass clip and
         # regularization, whose ops rewrite a dense grad var
@@ -100,7 +93,8 @@ class Optimizer:
                 sparse_set.update(op.attrs.get("sparse_param_names", []))
         sparse_pg = [(p, g) for p, g in params_grads if p.name in sparse_set]
         dense_pg = [(p, g) for p, g in params_grads if p.name not in sparse_set]
-        self._refuse_clip_and_regularizers(program, dense_pg)
+        dense_pg = append_gradient_clip_ops(dense_pg)
+        dense_pg = append_regularization_ops(dense_pg, self.regularization)
         params_grads = dense_pg + sparse_pg
         self._create_accumulators(block, [p for p, _ in params_grads])
         ops = []

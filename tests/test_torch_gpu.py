@@ -122,7 +122,8 @@ def test_tiny_bert_served_on_card_launches_each_kernel(tmp_path):
         NO_LAUNCHES, ln_residual_fwd=5, bias_act_fwd=2, attention_fwd=2)
     cpu = fluid.inference.create_predictor(
         fluid.inference.AnalysisConfig(str(tmp_path), fluid.CPUPlace())).run(feed)[0]
-    assert np.abs(got - cpu).max() <= 5e-2
+    # bf16 fetches (ml_dtypes arrays) subtract in bf16: widen first
+    assert np.abs(got.astype(np.float32) - cpu.astype(np.float32)).max() <= 5e-2
 
 
 def _err(a, b):

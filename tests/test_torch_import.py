@@ -46,8 +46,19 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "from paddle_tpu_torch.models import nmt\n"
         "from paddle_tpu_torch import errors, monitor, pipeline, parallel\n"
         "from paddle_tpu_torch.monitor import memstats\n"
-        "assert fluid.CompiledProgram is parallel.CompiledProgram\n"
         "from paddle_tpu_torch.core.registry import registered_ops\n"
+        "from paddle_tpu_torch import clip, flags, io\n"
+        "from paddle_tpu_torch.core import analysis, passes, regularizer\n"
+        "from paddle_tpu_torch.layers import tail, tensor\n"
+        "from paddle_tpu_torch.ops import control_flow_ops\n"
+        "assert fluid.analysis is analysis and io.IntegrityError is errors.IntegrityError\n"
+        "assert issubclass(analysis.ProgramVerificationError, errors.FatalError)\n"
+        "assert {'remove_identity_ops', 'fold_scale_chains', 'prune_dead_ops'} <= set("
+        "passes.registered_passes())\n"
+        "assert fluid.get_flags('FLAGS_verify_program') == {'FLAGS_verify_program': 'structural'}\n"
+        "assert {'sum', 'sqrt', 'sign', 'elementwise_max', 'clip', 'clip_by_norm',\n"
+        "        'square_error_cost', 'cross_entropy', 'while'} <= set(registered_ops())\n"
+        "assert fluid.CompiledProgram is parallel.CompiledProgram\n"
         "assert {'fused_attention', 'batch_norm', 'conv2d', 'momentum'} <= set(registered_ops())\n"
         "assert {'attention_bias', 'position_encoding', 'sequence_pool', 'sequence_mask',\n"
         "        'one_hot', 'label_smooth', 'pow', 'elementwise_min', 'elementwise_div',\n"

@@ -14,7 +14,7 @@ from paddle_tpu_torch.ops import cuda_kernels as ck
 
 
 def _run(fluid, op_type, inputs, attrs, out_slots):
-    """Build {slot: array} -> one op -> fetch out_slots, on the CPU.  The
+    """Build {slot: array or [arrays]} -> one op -> fetch out_slots, on the CPU.  The
     output vars take attrs' `out_dtype`, or per slot `out_dtypes` (not an
     attr of the op)."""
     attrs = dict(attrs)
@@ -25,11 +25,15 @@ def _run(fluid, op_type, inputs, attrs, out_slots):
         block = prog.global_block()
         in_io = {}
         for slot, val in inputs.items():
-            arr = np.asarray(val)
-            name = f"in_{slot}"
-            block.create_var(name, shape=arr.shape, dtype=j_canon(arr.dtype), is_data=True)
-            feed[name] = arr
-            in_io[slot] = [name]
+            # a list feeds several vars into one slot (sum's X)
+            vals = val if isinstance(val, list) else [val]
+            in_io[slot] = []
+            for k, v in enumerate(vals):
+                arr = np.asarray(v)
+                name = f"in_{slot}" if len(vals) == 1 else f"in_{slot}{k}"
+                block.create_var(name, shape=arr.shape, dtype=j_canon(arr.dtype), is_data=True)
+                feed[name] = arr
+                in_io[slot].append(name)
         out_io = {}
         for slot in out_slots:
             block.create_var(f"out_{slot}",
@@ -272,6 +276,26 @@ CASES = [
      {"Seqs": rng.randint(0, 6, (3, 4, 5)).astype(np.int32), "Scores": F32(3, 4)},
      {"end_id": 2, "out_dtypes": {"SentenceIds": "int32"}},
      ["SentenceIds", "SentenceScores"], 0.0),
+    # the clips', regularizers' and losses' ops
+    ("sum", "sum", {"X": [F32(3, 4), F32(3, 4), F32(3, 4)]}, {}, ["Out"], 1e-6),
+    ("sum_broadcast_scalars", "sum", {"X": [np.float32(0.5), F32(1), F32(1)]}, {}, ["Out"], 1e-6),
+    ("sqrt", "sqrt", {"X": POS(3, 4)}, {}, ["Out"], 1e-6),
+    ("sign", "sign", {"X": np.concatenate([F32(3, 4), np.zeros((1, 4), np.float32)])}, {},
+     ["Out"], 0.0),
+    ("elementwise_max", "elementwise_max", {"X": F32(2, 3, 4), "Y": F32(4)}, {"axis": -1},
+     ["Out"], 0.0),
+    ("elementwise_max_scalar", "elementwise_max", {"X": F32(1), "Y": F32(1)}, {}, ["Out"], 0.0),
+    ("clip", "clip", {"X": F32(3, 4)}, {"min": -0.5, "max": 0.7}, ["Out"], 0.0),
+    ("clip_by_norm", "clip_by_norm", {"X": F32(3, 4)}, {"max_norm": 1.0}, ["Out"], 1e-6),
+    ("clip_by_norm_below", "clip_by_norm", {"X": F32(3, 4)}, {"max_norm": 100.0}, ["Out"], 0.0),
+    ("square_error_cost", "square_error_cost", {"X": F32(4, 1), "Y": F32(4, 1)}, {}, ["Out"], 1e-6),
+    ("cross_entropy", "cross_entropy",
+     {"X": POS(4, 5) / 5.0, "Label": rng.randint(0, 5, (4, 1)).astype(np.int64)}, {}, ["Y"], 1e-6),
+    ("cross_entropy_ignore", "cross_entropy",
+     {"X": POS(4, 5) / 5.0, "Label": np.array([1, -100, 3, 0], np.int64)},
+     {"ignore_index": -100}, ["Y"], 1e-6),
+    ("cross_entropy_soft", "cross_entropy", {"X": POS(4, 5) / 5.0, "Label": POS(4, 5) / 5.0},
+     {"soft_label": True}, ["Y"], 1e-6),
     ("beam_search_decode_penalty", "beam_search_decode",
      {"Seqs": rng.randint(0, 6, (3, 4, 5)).astype(np.int32), "Scores": -POS(3, 4)},
      {"end_id": 2, "length_penalty": 0.6, "out_dtypes": {"SentenceIds": "int32"}},
@@ -288,8 +312,7 @@ def test_op_matches_jax(case):
     assert ck.LAUNCHES == before
     for slot, w, g in zip(out_slots, want, got):
         w = np.asarray(w)
-        if w.dtype.name != "bfloat16":  # numpy has no bf16: the port hands back float32
-            assert g.dtype == w.dtype, (slot, g.dtype, w.dtype)
+        assert g.dtype == w.dtype, (slot, g.dtype, w.dtype)  # bfloat16 too: ml_dtypes in both
         assert g.shape == w.shape, (slot, g.shape, w.shape)
         np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64), atol=atol, rtol=0,
                                    err_msg=f"{op_type} {slot}")
@@ -341,8 +364,23 @@ def test_training_mode_dropout_is_not_ported():
 
 
 def test_unknown_op_names_close_matches():
-    with pytest.raises(NotImplementedError, match="layer_norm"):
+    """The executor's verifier (FLAGS_verify_program, on by default) refuses
+    an op without a lowering before the program runs, naming close matches,
+    with the JAX package's error class; with the verifier off the lowering
+    lookup itself names them."""
+    from paddle_tpu.core.analysis import ProgramVerificationError as JError
+    from paddle_tpu_torch.core.analysis import ProgramVerificationError as TError
+
+    with pytest.raises(JError, match="layer_norm"):
+        _run(jfluid, "layer_nrom", {"X": F32(2, 2)}, {}, ["Y"])
+    with pytest.raises(TError, match="layer_norm"):
         _run(tfluid, "layer_nrom", {"X": F32(2, 2)}, {}, ["Y"])
+    tfluid.set_flags({"FLAGS_verify_program": "off"})
+    try:
+        with pytest.raises(NotImplementedError, match="layer_norm"):
+            _run(tfluid, "layer_nrom", {"X": F32(2, 2)}, {}, ["Y"])
+    finally:
+        tfluid.set_flags({"FLAGS_verify_program": "structural"})
 
 
 def test_xshape_is_built_only_when_read():

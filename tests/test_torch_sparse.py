@@ -281,16 +281,21 @@ def test_table_read_by_two_lookups_concatenates_and_an_unread_table_is_empty():
 _DEEPFM_TINY = dict(num_fields=4, vocab_size=50, embed_dim=4, mlp_dims=(8,))  # build_zoo(tiny=True)
 
 
-def _deepfm(pkg, opt_name, lazy=False):
-    """Tiny DeepFM with Adagrad(0.05), Adam(0.05) or lazy Adam(0.05)."""
+def _deepfm(pkg, opt_name, lazy=False, clip_decay=False):
+    """Tiny DeepFM with Adagrad(0.05), Adam(0.05) or lazy Adam(0.05); with
+    `clip_decay`, L2Decay(0.01) and GradientClipByGlobalNorm(0.05) too."""
     fluid, unique = _pkg(pkg)
     deepfm = j_deepfm if pkg == "jax" else t_deepfm
     with unique.guard():
         main, startup, _, fetches = deepfm.build(learning_rate=0.05, with_optimizer=False,
                                                  **_DEEPFM_TINY)
         with fluid.program_guard(main, startup):
-            opt = (fluid.optimizer.Adagrad(0.05) if opt_name == "adagrad"
-                   else fluid.optimizer.Adam(0.05, lazy_mode=lazy))
+            kw = {}
+            if clip_decay:
+                fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(0.05))
+                kw["regularization"] = fluid.regularizer.L2Decay(0.01)
+            opt = (fluid.optimizer.Adagrad(0.05, **kw) if opt_name == "adagrad"
+                   else fluid.optimizer.Adam(0.05, lazy_mode=lazy, **kw))
             opt.minimize(fetches["loss"])
     return main, startup, fetches["loss"].name
 
@@ -326,3 +331,34 @@ def test_tiny_deepfm_three_steps_match_jax(opt_name, lazy):
     (g,) = texe.run(tm, feed=feed, fetch_list=["deepfm_v@GRAD"], scope=tscope,
                     return_numpy=False)
     assert isinstance(g, SelectedRows) and g.values.shape == (16, 4)
+
+
+@pytest.mark.parametrize("opt_name", ["adagrad", "adam"])
+def test_tiny_deepfm_with_clip_and_decay_matches_jax(opt_name):
+    """L2Decay and a global-norm clip on the tiny DeepFM: the dense
+    gradients are clipped and decayed, the is_sparse tables' SelectedRows
+    gradients bypass both, as in the JAX package (the same ops; the tables'
+    updates read their raw gradients; their untouched rows do not decay).
+    3 steps from one numpy state: losses and every persistable agree."""
+    jm, js, jl = _deepfm("jax", opt_name, clip_decay=True)
+    tm, _, tl = _deepfm("torch", opt_name, clip_decay=True)
+    assert tm.to_dict() == jm.to_dict()
+    ops = tm.global_block().ops
+    for table in ("deepfm_w", "deepfm_v"):
+        readers = [op.type for op in ops if f"{table}@GRAD" in op.input_arg_names]
+        assert readers == [opt_name], (table, readers)
+    assert any(op.type == "sqrt" for op in ops) and any(op.type == "sum" for op in ops)
+    jexe, jscope, state = _jax_start(jm, js)
+    texe, tscope = _torch_start(state)
+    rng = np.random.RandomState(0)
+    feed = {"feat_ids": rng.randint(0, 50, (4, 4)).astype("i4"),
+            "label": (rng.rand(4, 1) < 0.3).astype("f4")}
+    jlosses = _train("jax", jm, jl, jexe, jscope, [feed] * 3)
+    tlosses = _train("torch", tm, tl, texe, tscope, [feed] * 3)
+    np.testing.assert_allclose(tlosses, jlosses, atol=TOL, rtol=0)
+    for name in _persistables(jm):
+        _close(tscope.to_numpy(name), jscope.find_var(name), name)
+    untouched = [r for r in range(50) if r not in set(feed["feat_ids"].reshape(-1).tolist())]
+    for name in ("deepfm_w", "deepfm_v"):
+        np.testing.assert_array_equal(tscope.to_numpy(name)[untouched],
+                                      state[name][untouched], err_msg=name)

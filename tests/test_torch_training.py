@@ -15,8 +15,10 @@ the elements whose JAX gradient lies within 1e-6 of the model's largest at
 some step, which keep the bound 2*lr*steps + 1e-5.  In bfloat16 the
 gradients themselves differ by the activations' rounding, so elementwise
 only that bound holds, and the whole update (parameters after minus before)
-must agree to 10% in L2.  The kernels' plain versions are held against the
-Pallas kernels run in interpret mode."""
+must agree to 10% in L2.  The same rule holds the tiny BERT trained with
+each regularizer and gradient clip (CLIP_DECAY), built as a user would.
+The kernels' plain versions are held against the Pallas kernels run in
+interpret mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,12 +55,36 @@ def launches_unchanged():
     assert ck.LAUNCHES == before, "a CPU run must not count a kernel launch"
 
 
-def _build(pkg, dtype, passes, **config):
-    """(main, startup, loss name) of the tiny BERT with Adam built by `pkg`."""
-    unique, transformer = ((j_unique, j_transformer) if pkg == "jax"
-                           else (tfluid.unique_name, t_transformer))
+# regularizers and gradient clips on the tiny BERT's Adam, each built as a user
+# would (`regularization=` / `set_gradient_clip`): the clips' thresholds lie
+# below the tiny BERT's gradients (global norm ~0.45, per-parameter norms up
+# to ~0.33, elements up to ~0.08), so every clip scales or cuts some of them
+CLIP_DECAY = {
+    "l2decay": lambda f: (f.regularizer.L2Decay(0.01), None),
+    "l1decay": lambda f: (f.regularizer.L1Decay(1e-3), None),
+    "clip_by_value": lambda f: (None, f.clip.GradientClipByValue(0.02)),
+    "clip_by_norm": lambda f: (None, f.clip.GradientClipByNorm(0.05)),
+    "clip_by_global_norm": lambda f: (f.regularizer.L2Decay(0.01),
+                                      f.clip.GradientClipByGlobalNorm(0.2)),
+}
+
+
+def _build(pkg, dtype, passes, clip_decay=None, **config):
+    """(main, startup, loss name) of the tiny BERT with Adam built by `pkg`,
+    with a regularizer and gradient clip of CLIP_DECAY when named."""
+    unique, transformer, fluid = ((j_unique, j_transformer, jfluid) if pkg == "jax"
+                                  else (tfluid.unique_name, t_transformer, tfluid))
     with unique.guard():
-        main, startup, _, fetches = transformer.build_bert(dtype=dtype, **dict(TINY, **config))
+        if clip_decay is None:
+            main, startup, _, fetches = transformer.build_bert(dtype=dtype, **dict(TINY, **config))
+        else:
+            main, startup, _, fetches = transformer.build_bert(
+                dtype=dtype, **dict(TINY, **config, with_optimizer=False))
+            regularization, clip = CLIP_DECAY[clip_decay](fluid)
+            with fluid.program_guard(main, startup):
+                if clip is not None:
+                    fluid.clip.set_gradient_clip(clip)
+                fluid.optimizer.Adam(LR, regularization=regularization).minimize(fetches["loss"])
     loss = fetches["loss"].name
     if passes:
         for p in PASSES:
@@ -135,15 +161,16 @@ def _state_tols(names, dtype, scope):
 _TRAINED = {}
 
 
-def _train_both(dtype, passes, fused=False):
+def _train_both(dtype, passes, fused=False, clip_decay=None):
     """Train 3 steps in both packages from the same state (cached per config):
     returns the per-step losses and the programs, executors and scopes.
     `fused` builds the attention as the fused_attention op (the JAX package
-    runs its composite on the CPU, the port its plain forward and backward)."""
-    key = (dtype, passes, fused)
+    runs its composite on the CPU, the port its plain forward and backward);
+    `clip_decay` names a CLIP_DECAY variant."""
+    key = (dtype, passes, fused, clip_decay)
     if key not in _TRAINED:
-        jm, js, jl = _build("jax", dtype, passes, use_fused_attention=fused)
-        tm, ts, tl = _build("torch", dtype, passes, use_fused_attention=fused)
+        jm, js, jl = _build("jax", dtype, passes, clip_decay, use_fused_attention=fused)
+        tm, ts, tl = _build("torch", dtype, passes, clip_decay, use_fused_attention=fused)
         jexe, jscope, state = _jax_state(jm, js)
         texe = tfluid.Executor(tfluid.CPUPlace())
         tscope = tfluid.Scope()
@@ -194,6 +221,36 @@ def test_three_adam_steps_match_jax(dtype, passes, fused):
     run = _train_both(dtype, passes, fused)
     if fused:
         assert "fused_attention" in [op.type for op in run["tm"].global_block().ops]
+    _check_run(run, dtype)
+
+
+def _clip_is_active(run, clip_decay):
+    """The JAX package's raw gradients of the first step reach the clip."""
+    g = run["jgrads"][0]
+    norms = [float(np.linalg.norm(v)) for v in g.values()]
+    return {"clip_by_value": max(float(np.abs(v).max()) for v in g.values()) > 0.02,
+            "clip_by_norm": max(norms) > 0.05 > min(norms),
+            "clip_by_global_norm": float(np.sqrt(np.sum(np.square(norms)))) > 0.2,
+            }.get(clip_decay, True)
+
+
+@pytest.mark.parametrize("clip_decay", sorted(CLIP_DECAY))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_adam_steps_with_clip_and_decay_match_jax(dtype, clip_decay):
+    """The tiny BERT with a regularizer and/or gradient clip on its Adam,
+    the JAX package's state carried across: the same rule and tolerances as
+    test_three_adam_steps_match_jax."""
+    run = _train_both(dtype, True, True, clip_decay)
+    types = [op.type for op in run["tm"].global_block().ops]
+    assert types == [op.type for op in run["jm"].global_block().ops]
+    first = {"l2decay": "scale", "l1decay": "sign", "clip_by_value": "clip",
+             "clip_by_norm": "clip_by_norm", "clip_by_global_norm": "sqrt"}[clip_decay]
+    assert first in types
+    assert _clip_is_active(run, clip_decay)
+    _check_run(run, dtype)
+
+
+def _check_run(run, dtype):
     assert np.isfinite(run["tl"]).all() and run["tl"][-1] < run["tl"][0]
     np.testing.assert_allclose(run["tl"], run["jl"], atol=LOSS_TOL[dtype], rtol=0)
     names = _persistables(run["jm"])
@@ -441,16 +498,3 @@ def test_plain_backward_matches_pallas_vjp(kernel, dtype):
         pairs = [("dlogits", dx, jdx), ("autograd dlogits", dx, auto.float().numpy())]
     for name, got, want in pairs:
         _close(f"{kernel} {name}", got, want, dtype)
-
-
-def test_regularizer_and_clip_without_lowerings_raise_at_minimize():
-    for kw, clip, op in (({"regularization": tfluid.regularizer.L2Decay(1e-4)}, None, "scale"),
-                         ({}, tfluid.clip.GradientClipByGlobalNorm(1.0), "square")):
-        main, startup = tfluid.Program(), tfluid.Program()
-        with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
-            x = tfluid.layers.data("x", [4], dtype="float32")
-            loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
-            if clip is not None:
-                tfluid.clip.set_gradient_clip(clip)
-            with pytest.raises(NotImplementedError, match=repr(op)):
-                tfluid.optimizer.Adam(0.1, **kw).minimize(loss)
