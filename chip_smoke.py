@@ -152,7 +152,37 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  26. checkpoint_resume: phase 24's path with dropout 0: 3 steps,
      io.save_persistables, a fresh Scope, io.load_persistables, 3 steps,
      against 6 steps straight through: losses and every persistable bitwise
-     equal, the save's and the load's seconds and bytes printed.
+     equal, the save's and the load's seconds and bytes printed;
+ 27. loader_resnet: phase 10's ResNet-50 from a RecordIO file of 8 batches of
+     uint8 224 x 224 x 3 images: reader.shuffle(seed=0) -> batch ->
+     map_readers (float32 NCHW) -> DataLoader(capacity=4, pinned staging, a
+     side stream) -> pipeline.train_loop(max_inflight=2), against the same
+     batches as numpy feeds through Executor.run, in turns (numpy, loader,
+     numpy, loader): warm step, images/s, executor.dispatch, reader.wait
+     (total, share of the wall), reader.bytes_staged and a profiled step's
+     idle share each; launches held every step; all arms' losses bitwise
+     equal under cuDNN's deterministic algorithms; one 154 MB batch's
+     upload pinned against pageable;
+ 28. dataset_deepfm: phase 15's DeepFM from 4 batches of 4096 slot records
+     over two RecordIO files through QueueDataset (one thread) and
+     Executor.train_from_dataset, 4 Adagrad steps, against the same batches
+     through Executor.run: losses and every persistable bitwise equal, the
+     touched rows moved and no other; a second pass from the dataset's
+     state after batch 2 yields batches 3-4; examples/s of both;
+ 29. resilient_resnet: phase 27's model and source under
+     resilient_train_loop with CheckpointManager(save_every_steps=4),
+     nan_mode skip_step, through bad_batch@2;nan@5;device@8:UNAVAILABLE;
+     device@10:RESOURCE_EXHAUSTED;preempt@13, then a resume in a fresh
+     Scope and Executor to step 16: one of each in ResilienceStats,
+     max_inflight halved, every dispatch's launches held, the persistables
+     bitwise equal to a clean run over the surviving batches (cuDNN's
+     deterministic algorithms); wall times, checkpoint seconds and bytes;
+ 30. resilient_bert: phase 12's BERT-base (dropout 0.1) on token ids from a
+     RecordIO file through a shuffled, checkpointable reader,
+     resilient_train_loop with preempt@5, then a resume to step 10: losses
+     and every persistable, the generator's state included, bitwise equal
+     to 10 straight steps; launches FUSED_PER_STEP for each eager or
+     captured step.
 
 Before phase 1 the host's ml_dtypes is required: a numpy fetch of a bf16
 value is an ml_dtypes bfloat16 array of the card's bits (ROADMAP C1), and
@@ -166,7 +196,8 @@ line gives the wrappers' counts, the replays' and their sum by path.  The
 executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15, 17 and 24 print
 its counters (held, the verifier's runs among them), its dispatch, fetch
 and verify spans and memory gauges a run of steps or requests
-(`read_monitor`).
+(`read_monitor`); phases 27-30 also print the reader's and the resilience
+layer's spans and counters.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a checkout
@@ -304,9 +335,24 @@ WEIGHT_DECAY = 0.01
 # phase 25's fit-a-line program (the verify skill's): SGD steps, card vs CPU
 FIT_A_LINE_STEPS = 50
 FIT_A_LINE_TOL = 1e-5
+# the data pipeline and the resilience layer (phases 27-30): phase 10's
+# ResNet-50 from 8 batches of uint8 images in a RecordIO file, shuffled
+# through a 512-sample buffer; DeepFM from 4 batches over two files; the
+# chaos schedule of phase 29 and the preemption of phase 30
+LOADER_BATCHES = 8
+LOADER_SHUFFLE = 512
+LOADER_CHUNK = 64  # records a RecordIO chunk: 9.6 MB of images
+RESILIENT_SPEC = ("bad_batch@2;nan@5;device@8:UNAVAILABLE;device@10:RESOURCE_EXHAUSTED;"
+                  "preempt@13")
+RESILIENT_DROPPED = (2, 6)  # raw batches: the bad one, and the one step 5's NaN lands in
+RESILIENT_STEPS = 16
+RESILIENT_EPOCHS = 3  # 24 raw batches, 18 of them needed
+BERT_RESUME_SPEC = "preempt@5"
+BERT_RESUME_STEPS = 10
 # the path whose count a kernel's `launches` reports: this slice's first
 LAUNCH_ORDER = ("nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
-                "train_long")
+                "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
+                "resilient_bert")
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
 # tests), save the loss and lse of the cross-entropy, which are float32 on both
@@ -2855,6 +2901,507 @@ def checkpoint_resume(fluid, torch, tmp, card):
                              f"persistables differ (largest {largest}), loaded to {devices}")
 
 
+def write_images(fluid, tmp):
+    """Phase 27's data: LOADER_BATCHES x RESNET_TRAIN_BATCH samples, each a
+    uint8 224 x 224 x 3 image and an int64 label, written with
+    recordio.write_arrays from seeded numpy; returns (path, seconds, bytes)."""
+    import numpy as np
+
+    rng = np.random.RandomState(27)
+    path = os.path.join(tmp, "images.rio")
+
+    def samples():
+        for _ in range(LOADER_BATCHES):
+            imgs = rng.randint(0, 256, (RESNET_TRAIN_BATCH, 224, 224, 3), dtype=np.uint8)
+            labels = rng.randint(0, 1000, (RESNET_TRAIN_BATCH, 1)).astype(np.int64)
+            for img, label in zip(imgs, labels):
+                yield img, label
+
+    t0 = time.perf_counter()
+    fluid.recordio.write_arrays(path, samples(), max_chunk_records=LOADER_CHUNK)
+    return path, time.perf_counter() - t0, os.path.getsize(path)
+
+
+def normalize_images(batch):
+    """A batch of (uint8 HWC image, label) samples as ResNet-50's feeds:
+    float32 NCHW in [0, 1] and int64 labels [B, 1]."""
+    import numpy as np
+
+    img = np.stack([s[0] for s in batch]).transpose(0, 3, 1, 2).astype(np.float32)
+    img *= np.float32(1.0 / 255.0)
+    return {"img": np.ascontiguousarray(img), "label": np.stack([s[1] for s in batch])}
+
+
+def image_reader(fluid, path, epochs=1):
+    """reader.shuffle(seed=0) -> batch -> map_readers(normalize_images) over
+    the images file, `epochs` passes (reader.chain of the one shuffled
+    reader: each pass permutes anew); checkpointable throughout."""
+    r = fluid.reader
+    shuffled = r.shuffle(fluid.recordio.reader_creator(path), LOADER_SHUFFLE, seed=0)
+    if epochs > 1:
+        shuffled = r.chain(*([shuffled] * epochs))
+    return r.map_readers(normalize_images, r.batch(shuffled, RESNET_TRAIN_BATCH, drop_last=True))
+
+
+def image_loader(fluid, main, path, epochs=1):
+    """DataLoader(capacity=4) on the card over image_reader."""
+    block = main.global_block()
+    loader = fluid.DataLoader.from_generator([block.var("img"), block.var("label")], capacity=4,
+                                             device=fluid.CUDAPlace(0))
+    return loader.set_batch_generator(image_reader(fluid, path, epochs))
+
+
+def counted_dispatch(exe, ck, per_step, what, path):
+    """Hold each dispatch of `exe` (Executor.run or run_async) by
+    hold_run_launches: its eager step and its capture launch `per_step`, a
+    replay none and adds `per_step` to REPLAYED[path].  Returns (the list
+    of run indices seen, a function that removes the hold)."""
+    seen = []
+    run_impl = exe._run_impl
+
+    def counted(*a, **kw):
+        before = dict(ck.LAUNCHES)
+        out = run_impl(*a, **kw)
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        index = exe.last_plan.runs - 1
+        hold_run_launches(exe, index, delta, per_step, what, path)
+        seen.append(index)
+        return out
+
+    exe._run_impl = counted
+    return seen, lambda: exe.__dict__.pop("_run_impl", None)
+
+
+def upload_ms(torch, arr):
+    """Host-to-card copy of one numpy array: (pinned ms, pageable ms, host
+    ms of the copy into pinned memory), each the median of 5 CUDA-event
+    pairs (the host copy by the host's clock)."""
+    src = torch.from_numpy(arr)
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    dev = torch.empty(src.shape, dtype=src.dtype, device="cuda")
+    out = {"pinned": [], "pageable": [], "host": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pinned.copy_(src)
+        out["host"].append((time.perf_counter() - t0) * 1e3)
+        for kind, host in (("pinned", pinned), ("pageable", src)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            dev.copy_(host, non_blocking=kind == "pinned")
+            end.record()
+            torch.cuda.synchronize()
+            out[kind].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def span_total(mon, name):
+    stats = mon.span_stats().get(name)
+    return (stats["calls"], stats["total_s"]) if stats else (0, 0.0)
+
+
+def loader_resnet(fluid, torch, ck, tmp, card):
+    """Phase 27: phase 10's bf16 ResNet-50 (batch 256, Momentum 0.1 / 0.9)
+    fed from a RecordIO file of uint8 images: reader.shuffle(seed=0) ->
+    batch -> map_readers (float32 NCHW) -> DataLoader(capacity=4), which
+    stages each batch in pinned memory and uploads it on its own stream ->
+    pipeline.train_loop(max_inflight=2).  Two arms in turns on one host
+    (numpy, loader, numpy, loader): the numpy arm feeds the same batches as
+    numpy arrays through Executor.run (the executor uploads them from
+    pageable memory).  Each arm: the warm step and images/s, the
+    executor.dispatch span, reader.wait (total and share of the wall),
+    reader.bytes_staged, a profiled step's idle share; every step's
+    launches held (BN epilogue 53 + 53, xent 1 + 1, graphed from the second
+    step); all arms' losses bitwise equal (cuDNN's deterministic
+    algorithms).  Also the upload of one 154 MB float32 batch, pinned
+    against pageable.  Returns the wrappers' launches over the loader
+    arms."""
+
+    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    loss = fetches["loss"].name
+    if launches_of_program(main, loss) != RESNET_PER_STEP:
+        raise AssertionError("the program's kernel ops differ from RESNET_PER_STEP")
+    path, write_s, nbytes = write_images(fluid, tmp)
+    t0 = time.perf_counter()
+    batches = list(image_reader(fluid, path)())
+    read_s = time.perf_counter() - t0
+    up = upload_ms(torch, batches[0]["img"])
+    emit({"phase": "loader_resnet", "model": "resnet-50 bf16, Momentum lr 0.1 mu 0.9",
+          "batch": RESNET_TRAIN_BATCH, "batches": len(batches), "file_bytes": nbytes,
+          "write_s": write_s, "read_and_normalize_s": read_s,
+          "batch_mb": batches[0]["img"].nbytes / 1e6, "upload_pinned_ms": up["pinned"],
+          "upload_pageable_ms": up["pageable"], "host_copy_to_pinned_ms": up["host"],
+          "card": card})
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, launches = [], dict(NONE)
+    try:
+        for arm in ("numpy", "loader", "numpy", "loader"):
+            gc.collect()
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            fluid.monitor.reset()
+            ck.reset_launches()  # each arm's count starts here; the path's is the loader's
+            seen, unhold = counted_dispatch(exe, ck, RESNET_PER_STEP, f"loader_resnet {arm}",
+                                            "loader_resnet" if arm == "loader" else None)
+            t0 = time.perf_counter()
+            if arm == "numpy":
+                losses, step_ms = [], []
+                for b in batches:
+                    t1 = time.perf_counter()
+                    (out,) = exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+                    losses.append(float(out.reshape(-1)[0]))
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+                last = batches[-1]
+            else:
+                box = {}
+
+                def kept(loader):
+                    for b in loader:
+                        box["last"] = b
+                        yield b
+
+                stats = fluid.train_loop(exe, main, kept(image_loader(fluid, main, path)), [loss],
+                                         scope=scope, max_inflight=2, log_period=1)
+                losses = [float(v[0].reshape(-1)[0]) for _, v in stats.logged]
+                step_ms = [r["t_step_wall_s"] * 1e3 for r in fluid.monitor.step_records()
+                           if r.get("kind") == "pipeline_step"]
+                last = box["last"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            unhold()
+            if arm == "loader":
+                add_launches(launches, ck.LAUNCHES)
+            mon = fluid.monitor.get_monitor()
+            waits, wait_s = span_total(mon, "reader.wait")
+            staged = mon.counter("reader.bytes_staged").value
+            read = read_monitor(f"loader_resnet {arm}", monitor_want(range(len(batches)), True),
+                                card)
+            if seen != list(range(len(batches))):
+                raise AssertionError(f"loader_resnet {arm}: dispatches {seen}")
+            warm = statistics.median(step_ms[2:])
+            prof = profile_replay(torch, f"loader_resnet {arm} step",
+                                  lambda: exe.run(main, feed=last, fetch_list=[loss], scope=scope,
+                                                  return_numpy=False), card, RESNET_PER_STEP)
+            rec = {"phase": "loader_resnet", "arm": arm, "losses": losses, "wall_s": wall,
+                   "warm_step_ms": warm, "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3,
+                   "warm_dispatch_ms": statistics.median(read["dispatch_ms_by_run"][2:]),
+                   "dispatch_ms_by_run": read["dispatch_ms_by_run"],
+                   "reader_wait_s": wait_s, "reader_waits": waits,
+                   "reader_wait_share": wait_s / wall, "reader_bytes_staged": staged,
+                   "profiled_step_ms": prof["run_ms"],
+                   "device_idle_share": prof["device_idle_share"], "card": card}
+            emit(rec)
+            runs.append(rec)
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"loader_resnet {arm}: losses {losses}")
+            del exe, scope, last
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = saved
+    equal = all(r["losses"] == runs[0]["losses"] for r in runs)
+    emit({"phase": "loader_resnet", "bitwise_equal": equal, "arms": [r["arm"] for r in runs]})
+    if not equal:
+        raise AssertionError(f"loader_resnet: losses differ between arms "
+                             f"{[r['losses'] for r in runs]}")
+    loader_bytes = [r["reader_bytes_staged"] for r in runs if r["arm"] == "loader"]
+    want = sum(b["img"].nbytes + b["label"].nbytes // 2 for b in batches)  # int64 -> int32
+    if loader_bytes != [want, want]:
+        raise AssertionError(f"reader.bytes_staged {loader_bytes} != {want}")
+    return launches
+
+
+def deepfm_files(fluid, tmp, feeds):
+    """The feeds as slot records (26 int64 ids, one float32 label) over two
+    RecordIO files, half the batches each."""
+    files = []
+    half = len(feeds) // 2
+    for k in range(2):
+        path = os.path.join(tmp, f"deepfm{k}.rio")
+        part = feeds[k * half:(k + 1) * half]
+        fluid.recordio.write_arrays(path, ((f["feat_ids"][j], f["label"][j]) for f in part
+                                           for j in range(DEEPFM_BATCH)), max_chunk_records=1024)
+        files.append(path)
+    return files
+
+
+def deepfm_dataset(fluid, files):
+    ds = fluid.QueueDataset()
+    ds.set_batch_size(DEEPFM_BATCH)
+    ds.set_thread(1)  # one worker drains the files in order: checkpointable
+    ds.set_filelist(files)
+    ds.set_use_var(["feat_ids", "label"])
+    return ds
+
+
+def dataset_deepfm(fluid, torch, ck, tmp, card):
+    """Phase 28: DeepFM at phase 15's full width, 4 Adagrad(0.05) steps on 4
+    batches of 4096 slot records over two RecordIO files, through
+    QueueDataset (one thread) and Executor.train_from_dataset, against the
+    same batches fed to Executor.run from the same startup, in turns
+    (direct, dataset, direct, dataset: the first arm of a process pays its
+    one-time costs): the losses and every persistable (the tables' touched
+    rows among them, the others unmoved) bitwise equal in all arms; no
+    kernel launches (SelectedRows steps, refused a graph); a second pass
+    from the dataset's state after batch 2 yields batches 3 and 4 again.
+    The examples/s of each arm.  Returns the wrappers' launches over the
+    dataset arms."""
+    import numpy as np
+
+    main, startup, loss, _ = build_deepfm(fluid, DEEPFM, lambda: fluid.optimizer.Adagrad(0.05))
+    feeds = [deepfm_feed(DEEPFM_BATCH, DEEPFM, 280 + i) for i in range(4)]
+    t0 = time.perf_counter()
+    files = deepfm_files(fluid, tmp, feeds)
+    write_s = time.perf_counter() - t0
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    examples = len(feeds) * DEEPFM_BATCH
+    runs, launches, tables = [], dict(NONE), None
+    for arm in ("direct", "dataset", "direct", "dataset"):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if tables is None:
+            tables = {n: scope.find_var(n).clone() for n in ("deepfm_w", "deepfm_v")}
+        fluid.monitor.reset()
+        ck.reset_launches()  # each arm's path count starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arm == "direct":
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0].reshape(-1)[0])
+                      for f in feeds]
+        else:
+            logs = exe.train_from_dataset(main, deepfm_dataset(fluid, files), scope=scope,
+                                          fetch_list=[loss], print_period=1)
+            losses = [float(d[loss][0]) for _, d in logs]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        delta = dict(ck.LAUNCHES)
+        if arm == "dataset":
+            add_launches(launches, delta)
+        read_monitor(f"dataset_deepfm {arm}", monitor_want(range(len(feeds)), False, refused=1),
+                     card)
+        runs.append({"arm": arm, "losses": losses, "seconds": seconds,
+                     "examples_per_s": examples / seconds, "launches": delta,
+                     "state": {n: scope.find_var(n).clone() for n in names}})
+        emit({"phase": "dataset_deepfm", "arm": arm, "losses": losses, "seconds": seconds,
+              "examples_per_s": examples / seconds, "card": card})
+        last = scope
+        del exe
+    differ = sorted({n for r in runs[1:] for n in names
+                     if not torch.equal(r["state"][n], runs[0]["state"][n])})
+    same_losses = all(r["losses"] == runs[0]["losses"] for r in runs)
+    touched = torch.unique(torch.as_tensor(np.concatenate([f["feat_ids"] for f in feeds]))
+                           .reshape(-1)).to(tables["deepfm_w"].device)
+    moved_rows_only(torch, last, tables, touched)
+    ds = deepfm_dataset(fluid, files)
+    it = ds.batches()
+    next(it)
+    next(it)
+    state = ds.state_dict()
+    again = deepfm_dataset(fluid, files)
+    again.load_state_dict(state)
+    rest = list(again.batches())
+    resumed = len(rest) == 2 and all(
+        np.array_equal(b["feat_ids"], f["feat_ids"]) and np.array_equal(b["label"], f["label"])
+        for b, f in zip(rest, feeds[2:]))
+    emit({"phase": "dataset_deepfm", "model": "deepfm f32, 26 fields, vocab 200000, embed 16, "
+          "mlp 400x3, Adagrad 0.05", "batch": DEEPFM_BATCH, "files": len(files),
+          "write_s": write_s, "arms": [r["arm"] for r in runs],
+          "examples_per_s": [r["examples_per_s"] for r in runs],
+          "bitwise_equal": same_losses and not differ, "persistables": len(names),
+          "persistables_that_differ": differ[:8], "rows_touched": int(touched.numel()),
+          "state_after_2": state, "resumed_batches_equal": resumed, "launches": launches,
+          "card": card})
+    if not same_losses or differ or not resumed or any(r["launches"] != NONE for r in runs):
+        raise AssertionError(f"dataset_deepfm: losses {[r['losses'] for r in runs]}, "
+                             f"{len(differ)} persistables differ, resumed {resumed}, launches "
+                             f"{[r['launches'] for r in runs]}")
+    return launches
+
+
+def skipping(it, dropped):
+    """The batches of `it` save the raw indices in `dropped`."""
+    for i, b in enumerate(it):
+        if i not in dropped:
+            yield b
+
+
+def ckpt_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def resilient_resnet(fluid, torch, ck, tmp, card, path):
+    """Phase 29: phase 27's model and source (RESILIENT_EPOCHS passes of
+    the shuffled images through the DataLoader) under
+    resilient_train_loop with a CheckpointManager(save_every_steps=4),
+    nan_mode skip_step and max_inflight 2, through RESILIENT_SPEC: a bad
+    batch, a NaN planted in a feed on the card, a device error, an
+    out-of-memory (halving max_inflight) and a preemption at step 13; then
+    a resume from the manager in a fresh Scope and Executor to step 16.
+    Held under cuDNN's deterministic algorithms: ResilienceStats counts one
+    of each, max_inflight was halved, every dispatch's launches, and the
+    final persistables bitwise equal to a clean run over the surviving
+    batches.  The wall time of both runs, the checkpoints' save and restore
+    seconds and bytes.  Returns the wrappers' launches."""
+    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    loss = fetches["loss"].name
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    policy = fluid.RetryPolicy(backoff_base_s=0.0)
+    root = os.path.join(tmp, "resnet_ckpt")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gc.collect()
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        clean = fluid.resilient_train_loop(
+            exe, main, lambda: skipping(image_loader(fluid, main, path, RESILIENT_EPOCHS),
+                                        RESILIENT_DROPPED),
+            [loss], scope=scope, max_inflight=2, policy=policy, max_steps=RESILIENT_STEPS)
+        want = {n: scope.find_var(n).clone() for n in names}
+        clean_losses = {s: float(v[0].reshape(-1)[0]) for s, v in clean.logged}
+        del exe, scope
+        gc.collect()
+        ck.reset_launches()  # the main path's count starts here
+        fluid.monitor.reset()
+        segments = []
+        for resume in (False, True):
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            cm = fluid.CheckpointManager(root, program=main, scope=scope, save_every_steps=4)
+            counted_dispatch(exe, ck, RESNET_PER_STEP, f"resilient_resnet resume={resume}",
+                             "resilient_resnet")
+            stats = fluid.resilient_train_loop(
+                exe, main, lambda: image_loader(fluid, main, path, RESILIENT_EPOCHS), [loss],
+                scope=scope, injector=None if resume else fluid.FaultInjector(RESILIENT_SPEC),
+                nan_mode="skip_step", checkpoint_manager=cm, resume=resume, max_inflight=2,
+                policy=policy, max_steps=RESILIENT_STEPS)
+            segments.append(stats)
+        launches = dict(ck.LAUNCHES)
+        mon = fluid.monitor.get_monitor()
+        saves, save_s = span_total(mon, "checkpoint.save")
+        restores, restore_s = span_total(mon, "checkpoint.restore")
+        snaps, snap_s = span_total(mon, "resilience.snapshot")
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = saved
+    chaos, resumed = segments
+    differ = [n for n in names if not torch.equal(scope.find_var(n), want[n])]
+    losses = {s: float(v[0].reshape(-1)[0]) for st in segments for s, v in st.logged}
+    ledger = {k: getattr(chaos, k) for k in ("steps", "preempted", "resume_step",
+                                             "skipped_batches", "skipped_steps", "retries",
+                                             "degraded_inflight", "final_max_inflight")}
+    counters = {k: v for k, v in mon.counter_values().items()
+                if k.startswith(("resilience.", "faults.", "checkpoint."))}
+    emit({"phase": "resilient_resnet", "spec": RESILIENT_SPEC, "ledger": ledger,
+          "resumed_steps": resumed.steps, "counters": counters,
+          "clean_wall_s": clean.wall_s, "chaos_wall_s": chaos.wall_s,
+          "resume_wall_s": resumed.wall_s, "checkpoint_saves": saves,
+          "checkpoint_save_s": save_s, "checkpoint_restores": restores,
+          "checkpoint_restore_s": restore_s, "checkpoint_bytes_on_disk": ckpt_bytes(root),
+          "checkpoint_bytes_each": ckpt_bytes(root) // max(1, len(os.listdir(root))),
+          "checkpoints": sorted(os.listdir(root)), "snapshots": snaps, "snapshot_s": snap_s,
+          "losses": [losses[s] for s in sorted(losses)],
+          "clean_losses": [clean_losses[s] for s in sorted(clean_losses)],
+          "bitwise_equal": not differ, "persistables": len(names),
+          "persistables_that_differ": differ[:8], "card": card})
+    mon.reset()
+    if ledger != {"steps": 13, "preempted": True, "resume_step": 13, "skipped_batches": 1,
+                  "skipped_steps": 1, "retries": 2, "degraded_inflight": 1,
+                  "final_max_inflight": 1} or resumed.steps != RESILIENT_STEPS or differ:
+        raise AssertionError(f"resilient_resnet: ledger {ledger}, resumed to {resumed.steps}, "
+                             f"{len(differ)} persistables differ from the clean run")
+    return launches
+
+
+def bert_token_reader(fluid, path, keys):
+    """Token-id batches from a RecordIO file (one batch a record) through a
+    shuffled, checkpointable reader."""
+    r = fluid.reader
+    return r.map_readers(lambda rec: dict(zip(keys, rec)),
+                         r.shuffle(fluid.recordio.reader_creator(path), 4, seed=1))
+
+
+def resilient_bert(fluid, torch, ck, tmp, card):
+    """Phase 30: phase 12's bf16 BERT-base (32 x 128, fused attention,
+    dropout 0.1), its token-id batches read from a RecordIO file through a
+    shuffled, checkpointable reader: resilient_train_loop with preempt@5
+    (the flush carries the generator's state and the reader's), then a
+    resume in a fresh Scope and Executor to step 10, against 10 straight
+    steps: the losses and every persistable, the generator's state
+    included, bitwise equal; each dispatch's launches held
+    (FUSED_PER_STEP for the eager step and the capture of each
+    executor).  Returns the wrappers' launches."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, 128, True)
+    rng = np.random.RandomState(30)
+    batches = [dict(make_fake_batch(32, 128, 30522, rng=rng)) for _ in range(BERT_RESUME_STEPS + 2)]
+    keys = sorted(batches[0])
+    path = os.path.join(tmp, "bert_tokens.rio")
+    fluid.recordio.write_arrays(path, [tuple(b[k] for k in keys) for b in batches])
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    policy = fluid.RetryPolicy(backoff_base_s=0.0)
+    root = os.path.join(tmp, "bert_ckpt")
+
+    def factory():
+        return bert_token_reader(fluid, path, keys)
+
+    gc.collect()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    straight = fluid.resilient_train_loop(exe, main, factory, [loss], scope=scope, max_inflight=2,
+                                          policy=policy, max_steps=BERT_RESUME_STEPS)
+    want = {n: scope.find_var(n).clone() for n in names}
+    want_rng = scope.find_var("__rng_state__").get_state()
+    want_losses = [float(v[0].reshape(-1)[0]) for _, v in straight.logged]
+    del exe, scope
+    gc.collect()
+    ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
+    segments = []
+    for resume in (False, True):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        cm = fluid.CheckpointManager(root, program=main, scope=scope)
+        counted_dispatch(exe, ck, FUSED_PER_STEP, f"resilient_bert resume={resume}",
+                         "resilient_bert")
+        segments.append(fluid.resilient_train_loop(
+            exe, main, factory, [loss], scope=scope,
+            injector=None if resume else fluid.FaultInjector(BERT_RESUME_SPEC),
+            checkpoint_manager=cm, resume=resume, max_inflight=2, policy=policy,
+            max_steps=BERT_RESUME_STEPS))
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    mon = fluid.monitor.get_monitor()
+    saves, save_s = span_total(mon, "checkpoint.save")
+    restores, restore_s = span_total(mon, "checkpoint.restore")
+    chaos, resumed = segments
+    losses = [float(v[0].reshape(-1)[0]) for st in segments for _, v in st.logged]
+    differ = [n for n in names if not torch.equal(scope.find_var(n), want[n])]
+    rng_equal = torch.equal(scope.find_var("__rng_state__").get_state(), want_rng)
+    emit({"phase": "resilient_bert", "model": "bert-base bf16, fused attention, dropout 0.1",
+          "batch": 32, "seq_len": 128, "spec": BERT_RESUME_SPEC, "preempted": chaos.preempted,
+          "resume_step": chaos.resume_step, "resumed_steps": resumed.steps,
+          "stream_seeks": mon.counter("resilience.stream_seek").value,
+          "losses_straight": want_losses, "losses_resumed": losses,
+          "bitwise_equal": losses == want_losses and not differ and rng_equal,
+          "generator_state_equal": rng_equal, "persistables": len(names),
+          "persistables_that_differ": differ[:8], "straight_wall_s": straight.wall_s,
+          "chaos_wall_s": chaos.wall_s, "resume_wall_s": resumed.wall_s,
+          "checkpoint_saves": saves, "checkpoint_save_s": save_s,
+          "checkpoint_restores": restores, "checkpoint_restore_s": restore_s,
+          "checkpoint_bytes_on_disk": ckpt_bytes(root), "card": card})
+    mon.reset()
+    if not (chaos.preempted and chaos.resume_step == 5 and resumed.steps == BERT_RESUME_STEPS
+            and losses == want_losses and not differ and rng_equal):
+        raise AssertionError(f"resilient_bert: preempted {chaos.preempted} at "
+                             f"{chaos.resume_step}, resumed to {resumed.steps}, losses "
+                             f"{losses} vs {want_losses}, {len(differ)} persistables differ, "
+                             f"generator equal {rng_equal}")
+    return launches
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -2923,6 +3470,11 @@ def main():
                                 FUSED_PER_STEP, arms=AB_ARMS, clip_decay=True)
         train_clipped_parity(fluid, torch, card)
         checkpoint_resume(fluid, torch, tmp, card)
+        loader_trained = loader_resnet(fluid, torch, ck, tmp, card)
+        dataset_trained = dataset_deepfm(fluid, torch, ck, tmp, card)
+        resilient_trained = resilient_resnet(fluid, torch, ck, tmp, card,
+                                             os.path.join(tmp, "images.rio"))
+        bert_resumed = resilient_bert(fluid, torch, ck, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2941,7 +3493,11 @@ def main():
              "train_long": (FUSED_PER_STEP, long_trained),
              "deepfm_train": (DEEPFM_PER_STEP, deepfm_trained),
              "nmt_train": (NMT_PER_STEP, nmt_trained),
-             "nmt_decode": (dict(NONE, ln_residual_fwd=1, bias_act_fwd=1), nmt_decoded)}
+             "nmt_decode": (dict(NONE, ln_residual_fwd=1, bias_act_fwd=1), nmt_decoded),
+             "loader_resnet": (RESNET_PER_STEP, loader_trained),
+             "dataset_deepfm": (NONE, dataset_trained),
+             "resilient_resnet": (RESNET_PER_STEP, resilient_trained),
+             "resilient_bert": (FUSED_PER_STEP, bert_resumed)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

@@ -22,11 +22,24 @@ softmax cross-entropy (forward and backward) and the Adam update.  The
 Executor caches a plan per (program, feeds, fetches) and replays it as a
 CUDA graph on the card; `steps > 1`, `run_async` / `FetchHandle`,
 `pipeline.train_loop` and remat (`BuildStrategy.memory_optimize`) follow
-the JAX package.
+the JAX package.  The data pipeline reads RecordIO files (`recordio`,
+`recordio_writer`) through the reader decorators and `DataLoader`, which
+stages batches in pinned memory and uploads them on a side stream, or
+through `QueueDataset` / `Executor.train_from_dataset` (`dataset`,
+`datasets`); `CheckpointManager`, `resilient_train_loop`, `FaultInjector`
+and `integrity` make a single-device run survive bad batches, NaNs,
+device errors, storage faults and preemption, resuming bit for bit.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
 from . import (clip, errors, flags, inference, io, layers, lod, models, monitor,  # noqa: F401
                optimizer, pipeline)
+from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
+               recordio_writer, resilience)
+from .checkpoint_manager import CheckpointManager  # noqa: F401
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
+from .faults import FaultInjector  # noqa: F401
+from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
+from .resilience import ResilienceStats, RetryPolicy, resilient_train_loop  # noqa: F401
 from .core import analysis, initializer, passes, regularizer, unique_name  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor, FetchHandle, TPUPlace  # noqa: F401

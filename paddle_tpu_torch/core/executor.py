@@ -329,7 +329,10 @@ class _Plan:
         for g in [gen] + self.rerun:
             graph.register_generator_state(g)
         before = dict(cuda_kernels.LAUNCHES)
-        with torch.cuda.graph(graph):
+        # thread_local: a DataLoader's producer thread may allocate, pin
+        # and upload the next batches on its own stream while this thread
+        # captures; only this thread's calls are checked against the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             env = dict(state)
             env.update(self._static_feeds)
             env = run_block_with_backward(self._context(gen), self.ops, env)
@@ -640,6 +643,20 @@ class Executor:
         _MON.observe("executor.fetch", record["t_fetch_s"], program=plan.program_u8)
         _MON.record_step(record)
         return out
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None, thread=0,
+                           debug=False, fetch_list=None, fetch_info=None, print_period=100):
+        """Drive `program` from a Dataset's batches (dataset.py), one run a
+        batch; returns [(batch index, {fetch: first values})] every
+        `print_period` batches, as the JAX package does."""
+        from ..dataset import train_from_dataset as _tfd
+
+        return _tfd(self, program if program is not None else default_main_program(),
+                    dataset, scope=scope, fetch_list=fetch_list, fetch_info=fetch_info,
+                    print_period=print_period)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None, **kw):
+        return self.train_from_dataset(program, dataset, scope, **kw)
 
     @staticmethod
     def _check_nan_inf(fetch_names, values):

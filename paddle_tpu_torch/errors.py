@@ -1,14 +1,27 @@
-"""Failure taxonomy (a subset of paddle_tpu/errors.py, same names and bases).
+"""Failure taxonomy (paddle_tpu/errors.py without the serving, parameter-
+server and distributed classes; same names, bases and messages).
 
     TrainingError         base: RuntimeError with step / batch / phase context
+    DataError             a batch the input pipeline could not produce or
+                          parse (reader.py, recordio.py): skippable within a
+                          budget
     NumericError          the FLAGS_check_nan_inf guard tripped (NaN/Inf in
                           a fetched value)
     TransientDeviceError  a failure the next attempt may not see; on the
                           card, the caching allocator running out of memory
                           (`torch.cuda.OutOfMemoryError`)
+    PreemptionError       the process got its preemption notice (SIGTERM):
+                          flush a checkpoint and exit resumable
     FatalError            what `classify` cannot place in a recoverable class
+    LockTimeoutError      a named lock not acquired within
+                          FLAGS_lock_timeout_s (core/locks.py; a FatalError)
     ResourceError         the program cannot fit in device memory (a
                           FatalError; the port has no static planner yet)
+    CheckpointError       a checkpoint that must not be loaded as asked
+    StorageError          the storage layer failed an I/O operation
+                          (phase="storage", the io.py choke point): transient
+                          errnos are retried, terminal ones skip to the
+                          fallback dir / degraded mode
     IntegrityError        a file named by a manifest no longer hashes to
                           its recorded sha256 and byte length (io.load_vars)
 
@@ -23,12 +36,20 @@ use them.
 """
 from __future__ import annotations
 
+import errno as _errno
 from typing import Optional
 
 import torch
 
-__all__ = ["TrainingError", "NumericError", "TransientDeviceError", "FatalError",
-           "ResourceError", "IntegrityError", "attach_context", "get_context", "classify"]
+__all__ = ["TrainingError", "DataError", "NumericError", "TransientDeviceError",
+           "PreemptionError", "FatalError", "CheckpointError", "ResourceError",
+           "LockTimeoutError", "IntegrityError", "StorageError", "attach_context",
+           "get_context", "classify", "TRANSIENT_STORAGE_ERRNOS", "TERMINAL_STORAGE_ERRNOS"]
+
+# The storage-failure split: transient errnos may pass (space freed, a
+# flapping mount); terminal ones need another destination or an operator.
+TRANSIENT_STORAGE_ERRNOS = (_errno.ENOSPC, _errno.EIO, _errno.EAGAIN, _errno.ETIMEDOUT)
+TERMINAL_STORAGE_ERRNOS = (_errno.EROFS, _errno.EACCES)
 
 
 class TrainingError(RuntimeError):
@@ -56,6 +77,13 @@ class TrainingError(RuntimeError):
         return f"{base} [{', '.join(ctx)}]" if ctx else base
 
 
+class DataError(TrainingError):
+    """The input pipeline failed to produce a batch (parse error, corrupt
+    record, a feed that fails FeedSpec, an injected bad batch).  Dropping
+    the batch is sound; the resilient loop does so within
+    `RetryPolicy.max_bad_batches`."""
+
+
 class NumericError(TrainingError):
     """NaN/Inf reached a fetched value (the FLAGS_check_nan_inf guard).
     The step that produced it already wrote its (poisoned) update into the
@@ -74,9 +102,31 @@ class TransientDeviceError(TrainingError):
         self.resource_exhausted = bool(resource_exhausted or code == "RESOURCE_EXHAUSTED")
 
 
+class PreemptionError(TrainingError):
+    """The process received its preemption notice (SIGTERM).  Not an error
+    to retry: flush a checkpoint, report where to resume."""
+
+
 class FatalError(TrainingError):
     """Anything `classify` cannot place in a recoverable class: program
     bugs, user-code exceptions.  Never retried."""
+
+
+class LockTimeoutError(FatalError):
+    """A `locks.named_lock` acquisition did not complete within
+    FLAGS_lock_timeout_s (core/locks.py): a deadlock or a lock held across
+    blocking work, both program bugs.  `wanted` / `wanted_rank` name the
+    lock that timed out, `held` the [(name, rank), ...] the thread holds."""
+
+    def __init__(self, message: str, *, wanted: Optional[str] = None,
+                 wanted_rank: Optional[int] = None, held=None,
+                 timeout_s: Optional[float] = None, **kw):
+        kw.setdefault("phase", "locking")
+        super().__init__(message, **kw)
+        self.wanted = wanted
+        self.wanted_rank = wanted_rank
+        self.held = list(held or [])
+        self.timeout_s = timeout_s
 
 
 class ResourceError(FatalError):
@@ -91,6 +141,54 @@ class ResourceError(FatalError):
         self.needed_bytes = needed_bytes
         self.limit_bytes = limit_bytes
         self.watermark_ops = list(watermark_ops or [])
+
+
+class CheckpointError(TrainingError):
+    """A checkpoint cannot be loaded as asked: the saved world size differs
+    from the restoring one, or a var holds state this package cannot
+    continue (a JAX PRNG key where the port keeps a torch generator's
+    state).  Never retried.  `saved_world` / `current_world` carry the two
+    sizes when a world-size mismatch is the cause."""
+
+    def __init__(self, message: str, *, saved_world: Optional[int] = None,
+                 current_world: Optional[int] = None, **kw):
+        kw.setdefault("phase", "checkpoint")
+        super().__init__(message, **kw)
+        self.saved_world = saved_world
+        self.current_world = current_world
+
+
+class StorageError(TrainingError):
+    """The storage layer failed an I/O operation (phase="storage": every
+    checkpoint, manifest and sidecar byte crosses the io.py choke point).
+    `transient` (ENOSPC, EIO, EAGAIN, ETIMEDOUT) is retried with seeded
+    backoff and, for checkpoints, degrades to lag-bounded unprotected
+    training; terminal (EROFS, EACCES) skips the retries.  `op` is
+    "read"/"write", `path` the failing file, `errno` the OS code."""
+
+    def __init__(self, message: str, *, op: Optional[str] = None,
+                 path: Optional[str] = None, errno: Optional[int] = None,
+                 transient: Optional[bool] = None, **kw):
+        kw.setdefault("phase", "storage")
+        super().__init__(message, **kw)
+        self.op = op
+        self.path = path
+        self.errno = errno
+        if transient is None:
+            transient = errno in TRANSIENT_STORAGE_ERRNOS
+        self.transient = bool(transient)
+
+    def __str__(self):
+        base = super().__str__()
+        ctx = []
+        if self.op:
+            ctx.append(f"op={self.op}")
+        if self.errno is not None:
+            ctx.append(f"errno={_errno.errorcode.get(self.errno, self.errno)}")
+        ctx.append("transient" if self.transient else "terminal")
+        if self.path:
+            ctx.append(f"path={self.path}")
+        return f"{base} [{', '.join(ctx)}]"
 
 
 class IntegrityError(TrainingError):
@@ -128,6 +226,12 @@ class IntegrityError(TrainingError):
         return f"{base} [{', '.join(ctx)}]" if ctx else base
 
 
+# runtime status codes whose failures are worth retrying (the JAX package's
+# XLA codes); INVALID_ARGUMENT / INTERNAL / UNIMPLEMENTED reproduce
+_TRANSIENT_CODES = ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "ABORTED",
+                    "DEADLINE_EXCEEDED", "CANCELLED")
+
+
 def attach_context(exc: BaseException, *, step: Optional[int] = None,
                    batch_index: Optional[int] = None,
                    phase: Optional[str] = None) -> BaseException:
@@ -159,15 +263,18 @@ def get_context(exc: BaseException) -> dict:
 
 
 def classify(exc: BaseException, wrap_unknown: bool = False) -> BaseException:
-    """Map an exception onto the taxonomy.
+    """Map an exception onto the taxonomy, as the JAX package does.
 
     Returns the exception itself when it is already a `TrainingError` or
     when no class applies (with `wrap_unknown=True`, a `FatalError` around
-    it instead).  The card's out-of-memory error becomes a
-    `TransientDeviceError(code="RESOURCE_EXHAUSTED")`, where the JAX
-    package maps XLA's RESOURCE_EXHAUSTED; the NaN guard's message becomes
-    a `NumericError`.  A mapped exception carries the original as
-    `__cause__` and its step/batch context."""
+    it instead).  In order: the card's out-of-memory error, and a message
+    carrying a transient status code, become a `TransientDeviceError`
+    (RESOURCE_EXHAUSTED for the former); an OSError with a storage errno
+    and the phase="storage" breadcrumb a `StorageError`; anything with the
+    loader's or the feed boundary's breadcrumb (phase "loader" / "feed") a
+    `DataError`; a bare OSError with a storage errno a `StorageError`; the
+    NaN guard's message a `NumericError`.  A mapped exception carries the
+    original as `__cause__` and its step/batch context."""
     if isinstance(exc, TrainingError):
         return exc
     ctx = get_context(exc)
@@ -181,10 +288,27 @@ def classify(exc: BaseException, wrap_unknown: bool = False) -> BaseException:
 
     if not isinstance(exc, Exception):  # KeyboardInterrupt / SystemExit
         return exc
+    msg = str(exc)
+    # checked before the loader breadcrumb: running out of device memory
+    # while the producer thread stages a batch is not skippable data
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         kw["phase"] = "device"
         return _wrap(TransientDeviceError, code="RESOURCE_EXHAUSTED")
-    if isinstance(exc, (RuntimeError, FloatingPointError)) and "NaN/Inf" in str(exc):
+    if isinstance(exc, (RuntimeError, OSError)):
+        for code in _TRANSIENT_CODES:
+            if code in msg:
+                kw["phase"] = "device"
+                return _wrap(TransientDeviceError, code=code)
+    eno = getattr(exc, "errno", None) if isinstance(exc, OSError) else None
+    storage_errno = eno in TRANSIENT_STORAGE_ERRNOS or eno in TERMINAL_STORAGE_ERRNOS
+    if storage_errno and ctx.get("phase") == "storage":
+        return _wrap(StorageError, errno=eno, path=getattr(exc, "filename", None))
+    if ctx.get("phase") in ("loader", "feed"):
+        return _wrap(DataError)
+    if storage_errno and ctx.get("phase") is None:
+        kw["phase"] = "storage"
+        return _wrap(StorageError, errno=eno, path=getattr(exc, "filename", None))
+    if isinstance(exc, (RuntimeError, FloatingPointError)) and "NaN/Inf" in msg:
         return _wrap(NumericError)
     if wrap_unknown:
         return _wrap(FatalError)

@@ -1,7 +1,7 @@
 """Typed flag registry with FLAGS_* environment passthrough (counterpart of
 paddle_tpu/flags.py), holding the flags this port reads so far.  The JAX
 package defines 39; each of the others arrives with the module that reads
-it."""
+it.  Types and defaults are the JAX package's."""
 from __future__ import annotations
 
 import os
@@ -28,6 +28,10 @@ def set_flags(flags: Dict[str, Any]):
         if k not in _REGISTRY:
             raise KeyError(f"unknown flag {k!r}; known: {sorted(_REGISTRY)}")
         _REGISTRY[k]["value"] = _coerce(_REGISTRY[k]["type"], v)
+        if k in ("FLAGS_lock_telemetry", "FLAGS_lock_timeout_s"):
+            from .core import locks
+
+            locks.refresh_from_flags()
 
 
 def get_flags(names) -> Dict[str, Any]:
@@ -59,3 +63,41 @@ _define("FLAGS_verify_program", str, "structural",
         "and the hazard lints (donation, recompile, RNG determinism).  "
         "Error-severity findings raise ProgramVerificationError naming the "
         "op, var and block")
+_define("FLAGS_feed_validation", str, "shape",
+        "feed-boundary validation at DataLoader / DataFeeder (reader.py FeedSpec): "
+        "'off' trusts the caller, 'shape' (default) checks dtype kind and shape "
+        "against the feed vars and raises DataError naming the slot before "
+        "lowering, 'full' also scans floating feeds for NaN/Inf")
+_define("FLAGS_data_corrupt_budget", int, 0,
+        "corrupt or truncated RecordIO chunks one run may skip before the data "
+        "layer aborts with a DataError (recordio.py; the data.corrupt_chunks "
+        "counter counts them).  0 (default): the first corrupt chunk raises "
+        "IOError")
+_define("FLAGS_fault_spec", str, "",
+        "deterministic fault-injection schedule for the resilience layer "
+        "(faults.py), e.g. 'bad_batch@2;nan@5;device@7:RESOURCE_EXHAUSTED;"
+        "preempt@11'; each resilient_train_loop call builds one injector from "
+        "it, and every entry fires once.  Empty (default) injects nothing")
+_define("FLAGS_integrity_check_period", int, 0,
+        "live content digests of the training state (integrity.py): every "
+        "PERIOD steps the persistables are digested, 1/PERIOD of them a step.  "
+        "0 (default) digests nothing")
+_define("FLAGS_ckpt_fallback_dir", str, "",
+        "second checkpoint root (another filesystem) tried when a save to the "
+        "primary fails its storage retries or hits EROFS / EACCES "
+        "(checkpoint_manager.py); restore walks both.  Empty (default): none")
+_define("FLAGS_max_ckpt_lag_steps", int, 0,
+        "degraded-mode bound (checkpoint_manager.py): steps training may run "
+        "past its last committed checkpoint while storage fails before a save "
+        "raises a terminal StorageError.  0 (default): unbounded")
+_define("FLAGS_publish_period_steps", int, 0,
+        "resilient_train_loop calls its publish hook every N steps "
+        "(resilience.py); a failed publish is counted and training goes on.  "
+        "0 (default): no publish hook")
+_define("FLAGS_lock_telemetry", bool, False,
+        "per-lock monitor counters lock.<name>.acquires / contended / wait_us / "
+        "hold_us and lock.order_inversions for every named lock (core/locks.py)")
+_define("FLAGS_lock_timeout_s", float, 0.0,
+        "deadline on every blocking named-lock acquisition (core/locks.py): "
+        "past it the acquire raises LockTimeoutError naming the wanted lock "
+        "and every lock the thread holds.  0 (default): no deadline")

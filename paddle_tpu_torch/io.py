@@ -10,14 +10,24 @@ model saved by either package loads in the other.  `save_persistables` /
 accumulators, the learning rate), so training resumes exactly;
 `save_params` / `load_params` carry the parameters only.  A load verifies
 each file against its manifest stamp (FLAGS_integrity_verify_load) and
-raises `errors.IntegrityError` on a mismatch.  The sharded checkpoints
-(`save_sharded` / `load_sharded`) come with data parallelism (ROADMAP A10)
-and int8 models with a later slice.
+raises `errors.IntegrityError` on a mismatch.  `save_sharded` /
+`load_sharded` write and read the JAX package's sharded checkpoint format
+for one process (`__sharded_manifest__.json`, one `<name>.p0s0.npy` a
+var; SelectedRows as row and value files), which `CheckpointManager` uses;
+a mesh and multi-process shards come with data parallelism (ROADMAP A10),
+int8 models with a later slice.
+
+Storage choke point, as in the JAX package: every checkpoint, manifest
+and sidecar byte goes through `atomic_write` / `save_array` (writes) and
+`open_for_read` / `load_array` (reads).  One hook (`set_io_fault_hook`,
+armed by faults.py) sees every operation first, writes are tmp + fsync +
+rename, and an OSError crossing the seam carries phase="storage", which
+`errors.classify` maps onto `StorageError`.
 """
 from __future__ import annotations
 
-import hashlib
 import json
+import logging
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -25,65 +35,133 @@ import numpy as np
 import torch
 
 from . import flags
+from . import integrity as _integrity
 from .core.dtypes import to_tensor
 from .core.executor import CUDAPlace, _prune, _runnable_ops
 from .core.program import Program, Variable, default_main_program
-from .core.scope import Scope, global_scope
-from .errors import IntegrityError  # also reachable as io.IntegrityError
+from .core.scope import RNG_STATE_VAR, Scope, global_scope
+from .errors import IntegrityError  # also reachable as io.IntegrityError  # noqa: F401
 
 MODEL_FILENAME = "__model__.json"
 MANIFEST = "__manifest__.json"
 QUANT_MANIFEST = "__quant__.json"
 
 
-def _atomic_commit(path: str, mode: str, write_cb):
-    """Write via `write_cb(f)` to a temp name, fsync, rename into place:
-    the file exists whole or not at all."""
+# --- storage choke point ----------------------------------------------------
+
+_IO_FAULT_HOOK = None  # callable(op: "read" | "write", path) -> None; may raise
+# path prefixes the fault hook leaves alone (a checkpoint fallback dir
+# models another device: a fault injected on the primary must not follow)
+_FAULT_EXEMPT: List[str] = []
+
+
+class fault_exempt:
+    """Context manager: operations on paths under `prefix` are exempt from
+    fault injection while it is open (re-entrant; compared absolute)."""
+
+    def __init__(self, prefix: str):
+        self._p = os.path.abspath(prefix)
+
+    def __enter__(self):
+        _FAULT_EXEMPT.append(self._p)
+        return self
+
+    def __exit__(self, *exc):
+        _FAULT_EXEMPT.remove(self._p)
+        return False
+
+
+def fault_exempt_prefixes():
+    return tuple(_FAULT_EXEMPT)
+
+
+def set_io_fault_hook(hook):
+    """Install (or, with None, remove) the storage-fault hook every choke-
+    point operation consults first; returns the previous hook."""
+    global _IO_FAULT_HOOK
+    prev, _IO_FAULT_HOOK = _IO_FAULT_HOOK, hook
+    return prev
+
+
+def _storage_ctx(e: BaseException) -> BaseException:
+    from .errors import attach_context
+
+    return attach_context(e, phase="storage")
+
+
+def _gate(op: str, path: str):
+    hook = _IO_FAULT_HOOK
+    if hook is not None:
+        try:
+            hook(op, path)
+        except OSError as e:
+            raise _storage_ctx(e)
+
+
+def _atomic_commit(path: str, mode: str, write_cb, fsync: bool = True):
+    """Write via `write_cb(f)` to a writer-unique temp name, fsync, rename
+    into place: the file exists whole or not at all.  A failure removes the
+    temp and re-raises with the storage breadcrumb."""
     tmp = f"{path}.{os.getpid()}.tmp~"
     try:
         with open(tmp, mode) as f:
             write_cb(f)
-            f.flush()
-            os.fsync(f.fileno())
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
-    except OSError:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
-
-
-def _file_stamp(path: str) -> dict:
-    h = hashlib.sha256()
-    n = 0
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-            n += len(chunk)
-    return {"sha256": h.hexdigest(), "bytes": n}
-
-
-def _verify(dirname: str, entry: dict):
-    """The file of a manifest entry against its recorded sha256 and byte
-    length; an entry without a digest (an old manifest) passes unchecked."""
-    sha = entry.get("sha256")
-    if not sha:
-        return
-    fname = entry["file"]
-    try:
-        got = _file_stamp(os.path.join(dirname, fname))
     except OSError as e:
-        raise IntegrityError(f"manifest names {fname!r} but it cannot be read "
-                             f"({type(e).__name__}: {e})", file=fname) from e
-    if entry.get("bytes") is not None and got["bytes"] != int(entry["bytes"]):
-        raise IntegrityError(
-            f"{fname!r} is {got['bytes']} bytes but the manifest recorded {entry['bytes']} "
-            f"-- truncated or grown since save", file=fname, expected=str(entry["bytes"]),
-            actual=str(got["bytes"]))
-    if got["sha256"] != sha:
-        raise IntegrityError(
-            f"{fname!r} content digest mismatch: manifest recorded sha256 {sha[:16]}..., "
-            f"file hashes to {got['sha256'][:16]}... -- the bytes changed since save",
-            file=fname, expected=sha, actual=got["sha256"])
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise _storage_ctx(e)
+
+
+def atomic_write(path: str, data, *, fsync: bool = True):
+    """The write discipline for small control files (manifests, markers,
+    sidecars): gate, then `_atomic_commit`."""
+    _gate("write", path)
+    mode = "wb" if isinstance(data, (bytes, bytearray)) else "w"
+    _atomic_commit(path, mode, lambda f: f.write(data), fsync=fsync)
+
+
+def save_array(path: str, arr) -> Optional[str]:
+    """Atomic .npy write through the choke point; returns the `stored_as`
+    tag ("bfloat16_as_uint16": a bf16 array is stored as its bits)."""
+    _gate("write", path)
+    stored_as = None
+    if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
+        stored_as = "bfloat16_as_uint16"
+    arr = _host_array(arr)
+    if arr.dtype.kind == "V" or "bfloat16" in str(arr.dtype):
+        arr = arr.view(np.uint16)
+        stored_as = "bfloat16_as_uint16"
+    _atomic_commit(path, "wb", lambda f: np.save(f, arr))
+    return stored_as
+
+
+def open_for_read(path: str, mode: str = "rb"):
+    """The read seam: a failing store surfaces as a storage failure here."""
+    _gate("read", path)
+    try:
+        return open(path, mode)
+    except OSError as e:
+        raise _storage_ctx(e)
+
+
+def load_array(path: str, mmap_mode=None):
+    """np.load through the read seam."""
+    _gate("read", path)
+    try:
+        return np.load(path, mmap_mode=mmap_mode)
+    except OSError as e:
+        raise _storage_ctx(e)
+
+
+def read_json(path: str):
+    with open_for_read(path, "r") as f:
+        return json.load(f)
 
 
 def _host_array(t) -> np.ndarray:
@@ -109,11 +187,10 @@ def save_vars(dirname: str, var_names: Sequence[str], scope: Optional[Scope] = N
         dtype = dtype or str(arr.dtype)
         fname = name.replace("/", "%2F") + ".npy"
         path = os.path.join(dirname, fname)
-        _atomic_commit(path, "wb", lambda f: np.save(f, arr))
+        save_array(path, arr)
         saved.append({"name": name, "file": fname, "shape": list(arr.shape), "dtype": dtype,
-                      **_file_stamp(path)})
-    _atomic_commit(os.path.join(dirname, MANIFEST), "w",
-                   lambda f: f.write(json.dumps({"vars": saved}, indent=1)))
+                      **_integrity.stamp_file(path)})
+    atomic_write(os.path.join(dirname, MANIFEST), json.dumps({"vars": saved}, indent=1))
     return saved
 
 
@@ -123,8 +200,7 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
     """Load a save_vars directory into `scope` as tensors on `device`.
     `verify=None` follows FLAGS_integrity_verify_load."""
     scope = scope or global_scope()
-    with open(os.path.join(dirname, MANIFEST)) as f:
-        manifest = json.load(f)
+    manifest = read_json(os.path.join(dirname, MANIFEST))
     if os.path.exists(os.path.join(dirname, QUANT_MANIFEST)):
         raise NotImplementedError("int8 (quantized) inference models are not ported yet")
     verify = flags.flag("FLAGS_integrity_verify_load") if verify is None else bool(verify)
@@ -133,9 +209,10 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
     for entry in manifest["vars"]:
         if want is not None and entry["name"] not in want:
             continue
-        if verify:
-            _verify(dirname, entry)
-        arr = np.load(os.path.join(dirname, entry["file"]))
+        if verify:  # an entry without a digest (an old manifest) passes unchecked
+            _integrity.verify_file_entry(dirname, entry["file"], entry.get("sha256"),
+                                         entry.get("bytes"))
+        arr = load_array(os.path.join(dirname, entry["file"]))
         if entry.get("dtype") == "bfloat16" and arr.dtype == np.uint16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
         else:
@@ -200,6 +277,249 @@ def load_params(executor, dirname: str, main_program: Optional[Program] = None,
                      device=_load_device(executor))
 
 
+# --- sharded checkpoints (the JAX package's format, one process) -------------
+
+SHARDED_MANIFEST = "__sharded_manifest__.json"
+
+_log = logging.getLogger("paddle_tpu_torch.io")
+
+
+def _whole(shape) -> list:
+    return [[0, int(d)] for d in shape]
+
+
+def save_sharded(dirname: str, var_names: Optional[Sequence[str]] = None,
+                 scope: Optional[Scope] = None, program: Optional[Program] = None,
+                 process_index: Optional[int] = None) -> List[str]:
+    """The JAX package's sharded checkpoint for one process: each var one
+    shard `<name>.p0s0.npy` covering it whole (a SelectedRows var its row
+    and value files), stamped with sha256 and byte length, listed in
+    `__sharded_manifest__.json` with its global shape and dtype.  The
+    scope's torch generator (`RNG_STATE_VAR`) is stored as its state, a
+    uint8 array, with `"generator"` naming its device type.  Multi-process
+    shards come with ROADMAP A10."""
+    from .core.selected_rows import SelectedRows
+
+    if process_index not in (None, 0):
+        raise NotImplementedError(
+            f"save_sharded(process_index={process_index}): shards of several processes "
+            "come with data parallelism (ROADMAP A10)")
+    scope = scope or global_scope()
+    if var_names is None:
+        program = program or default_main_program()
+        var_names = [v.name for v in _persistables(program)]
+    os.makedirs(dirname, exist_ok=True)
+    entries = []
+    for name in var_names:
+        v = scope.find_var(name)
+        if v is None:
+            raise KeyError(f"save_sharded: {name!r} not found in scope")
+        safe = name.replace("/", "%2F")
+        if isinstance(v, SelectedRows):
+            rows_f, vals_f = f"{safe}.rows.p0s0.npy", f"{safe}.vals.p0s0.npy"
+            save_array(os.path.join(dirname, rows_f), v.rows)
+            stored_as = save_array(os.path.join(dirname, vals_f), v.values)
+            rstamp = _integrity.stamp_file(os.path.join(dirname, rows_f))
+            vstamp = _integrity.stamp_file(os.path.join(dirname, vals_f))
+            entries.append({"name": name, "selected_rows": True, "height": int(v.height),
+                            "global_shape": list(v.shape),
+                            "dtype": "bfloat16" if stored_as else str(_host_array(v.values).dtype),
+                            "spec": None,
+                            "shards": [{"rows_file": rows_f, "values_file": vals_f,
+                                        "stored_as": stored_as,
+                                        "rows_sha256": rstamp["sha256"],
+                                        "rows_bytes": rstamp["bytes"],
+                                        "values_sha256": vstamp["sha256"],
+                                        "values_bytes": vstamp["bytes"]}]})
+            continue
+        extra = {}
+        if isinstance(v, torch.Generator):
+            extra["generator"] = v.device.type
+            v = v.get_state()
+        fname = f"{safe}.p0s0.npy"
+        arr = _host_array(v)
+        stored_as = save_array(os.path.join(dirname, fname), v)
+        entries.append({"name": name, "global_shape": list(arr.shape),
+                        "dtype": "bfloat16" if stored_as else str(arr.dtype), "spec": None,
+                        "shards": [{"file": fname, "index": _whole(arr.shape),
+                                    "stored_as": stored_as,
+                                    **_integrity.stamp_file(os.path.join(dirname, fname))}],
+                        **extra})
+    atomic_write(os.path.join(dirname, SHARDED_MANIFEST),
+                 json.dumps({"vars": entries, "process": 0}, indent=1))
+    return [e["name"] for e in entries]
+
+
+def _read_region(name, shape, shards) -> np.ndarray:
+    """The whole array from its shards (a multi-process save of the JAX
+    package covers it with several), checking that they cover it."""
+    out = covered = None
+    for idx, mm in shards:
+        sel = tuple(slice(a, b) for a, b in idx)
+        if out is None:
+            out = np.empty(shape, mm.dtype)
+            covered = np.zeros(shape, bool)
+        out[sel] = mm
+        covered[sel] = True
+    if out is None or not covered.all():
+        raise ValueError(f"checkpoint shards do not fully cover {name} (missing shard files? "
+                         f"partial multi-host save?)")
+    return out
+
+
+def _as_tensor(arr: np.ndarray, stored_as, device) -> torch.Tensor:
+    if stored_as == "bfloat16_as_uint16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return to_tensor(np.array(arr), None, device)
+
+
+def _restore_generator(scope: Scope, entry: dict, arr: np.ndarray, device):
+    """`RNG_STATE_VAR` back into a torch generator on `device`: the scope's
+    own generator takes the state in place (a captured CUDA graph keeps
+    drawing from it).  A uint8 array is a torch generator's state.  A
+    uint32 array is a JAX PRNG key, which no torch generator can continue:
+    the generator is seeded from the key's 64 bits, deterministically,
+    with a warning and the `checkpoint.rng_reseeded` counter (never the
+    program's seed)."""
+    from .errors import CheckpointError
+    from .monitor import MONITOR as _MON
+
+    gen = scope.find_var(RNG_STATE_VAR)
+    if not isinstance(gen, torch.Generator) or gen.device != torch.device(device):
+        gen = torch.Generator(device=device)
+    if arr.dtype == np.uint8:
+        try:
+            gen.set_state(torch.from_numpy(np.array(arr)))
+        except RuntimeError as e:
+            raise CheckpointError(
+                f"checkpoint var {RNG_STATE_VAR!r} holds the state of a torch generator on "
+                f"{entry.get('generator', 'another device')!r} ({arr.size} bytes), which the "
+                f"generator on {device} cannot take: {e}") from e
+    elif arr.dtype == np.uint32 and arr.size == 2:
+        k = [int(x) for x in np.asarray(arr).reshape(-1)]
+        seed = (k[0] << 32) | k[1]
+        gen.manual_seed(seed)
+        _MON.counter("checkpoint.rng_reseeded").inc()
+        _log.warning("checkpoint var %r is a JAX PRNG key %s: no torch generator can continue "
+                     "its stream, so the generator is seeded with %d from it", RNG_STATE_VAR,
+                     k, seed)
+    else:
+        raise CheckpointError(
+            f"checkpoint var {RNG_STATE_VAR!r} is a {arr.dtype} array of shape {arr.shape}: "
+            "neither a torch generator's state (uint8) nor a JAX PRNG key (2 x uint32)")
+    scope.set_var(RNG_STATE_VAR, gen)
+
+
+def load_sharded(dirname: str, var_names: Optional[Sequence[str]] = None,
+                 scope: Optional[Scope] = None, mesh=None, row_shard: Optional[tuple] = None,
+                 verify: Optional[bool] = None, device="cpu",
+                 into_existing: bool = False) -> List[str]:
+    """Restore a sharded checkpoint of either package onto `device`:
+    every shard is verified against its stamp (FLAGS_integrity_verify_load)
+    before any is read, shards are assembled on the host, and each var is
+    set in `scope`.  With `into_existing`, a var the scope already holds as
+    a tensor of the same shape and dtype is copied into that tensor (a
+    captured CUDA graph keeps reading it).  A mesh, and a row shard of more
+    than one rank, come with ROADMAP A10."""
+    import glob as _glob
+
+    from .core.selected_rows import SelectedRows
+
+    if mesh is not None:
+        raise NotImplementedError("load_sharded(mesh=...): sharded placement comes with data "
+                                  "parallelism (ROADMAP A10)")
+    if row_shard is not None and int(row_shard[1]) > 1:
+        raise NotImplementedError(f"load_sharded(row_shard={row_shard}): re-dealing rows over "
+                                  "several ranks comes with ROADMAP A10")
+    scope = scope or global_scope()
+    manifest = read_json(os.path.join(dirname, SHARDED_MANIFEST))
+    by_name = {e["name"]: e for e in manifest["vars"]}
+    for extra in sorted(_glob.glob(os.path.join(dirname, "__sharded_manifest__.p*.json"))):
+        for e in read_json(extra)["vars"]:
+            tgt = by_name.get(e["name"])
+            if tgt is None:
+                manifest["vars"].append(e)
+                by_name[e["name"]] = e
+                continue
+            key = "rows_file" if e.get("selected_rows") else "index"
+            have = {json.dumps(sh.get(key)) for sh in tgt["shards"]}
+            tgt["shards"] += [sh for sh in e["shards"] if json.dumps(sh.get(key)) not in have]
+    want = set(var_names) if var_names is not None else None
+    verify = flags.flag("FLAGS_integrity_verify_load") if verify is None else bool(verify)
+    loaded = []
+    for entry in manifest["vars"]:
+        name = entry["name"]
+        if want is not None and name not in want:
+            continue
+        if entry.get("selected_rows"):
+            rows, vals = [], []
+            for sh in entry["shards"]:
+                if verify:
+                    _integrity.verify_file_entry(dirname, sh["rows_file"], sh.get("rows_sha256"),
+                                                 sh.get("rows_bytes"))
+                    _integrity.verify_file_entry(dirname, sh["values_file"],
+                                                 sh.get("values_sha256"), sh.get("values_bytes"))
+                rows.append(load_array(os.path.join(dirname, sh["rows_file"])))
+                vals.append(_as_tensor(load_array(os.path.join(dirname, sh["values_file"])),
+                                       sh.get("stored_as"), "cpu"))
+            height = int(entry["height"])
+            r = np.concatenate(rows)
+            live = r != height  # the merge's parking row
+            order = np.argsort(r[live], kind="stable")
+            v = torch.cat(vals)[torch.from_numpy(np.flatnonzero(live)[order])]
+            scope.set_var(name, SelectedRows(torch.from_numpy(r[live][order]).to(device),
+                                             v.to(device), height))
+            loaded.append(name)
+            continue
+        shape = tuple(entry["global_shape"])
+        if verify:
+            for sh in entry["shards"]:
+                _integrity.verify_file_entry(dirname, sh["file"], sh.get("sha256"),
+                                             sh.get("bytes"))
+        arr = _read_region(name, shape, [(sh["index"], load_array(os.path.join(dirname, sh["file"])))
+                                         for sh in entry["shards"]])
+        stored_as = entry["shards"][0].get("stored_as")
+        if name == RNG_STATE_VAR:
+            _restore_generator(scope, entry, arr, device)
+            loaded.append(name)
+            continue
+        t = _as_tensor(arr, stored_as, device)
+        old = scope.find_var(name) if into_existing else None
+        if (isinstance(old, torch.Tensor) and old.shape == t.shape and old.dtype == t.dtype
+                and old.device == t.device):
+            old.copy_(t)
+        else:
+            scope.set_var(name, t)
+        loaded.append(name)
+    if want is not None:
+        missing = want - set(loaded)
+        if missing:
+            raise KeyError(f"load_sharded: checkpoint lacks {sorted(missing)}")
+    return loaded
+
+
+# --- stream-state serde -------------------------------------------------------
+# Reader states (reader.py state_dict) are nested dicts that may hold
+# non-JSON values (random.Random states); a RESUME.json sidecar stores them
+# pickled and base64'd, byte-compatible with the JAX package's.
+
+def pack_stream_state(state) -> str:
+    """Pickle + base64 a reader state for embedding in a JSON sidecar."""
+    import base64
+    import pickle
+
+    return base64.b64encode(pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)).decode("ascii")
+
+
+def unpack_stream_state(packed: str):
+    """Inverse of pack_stream_state."""
+    import base64
+    import pickle
+
+    return pickle.loads(base64.b64decode(packed.encode("ascii")))
+
+
 def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
                          target_vars: Sequence[Variable], executor=None,
                          main_program: Optional[Program] = None,
@@ -216,7 +536,7 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
     doc = inference.to_dict()
     doc["feed_names"] = list(feeded_var_names)
     doc["fetch_names"] = target_names
-    _atomic_commit(os.path.join(dirname, MODEL_FILENAME), "w", lambda f: f.write(json.dumps(doc)))
+    atomic_write(os.path.join(dirname, MODEL_FILENAME), json.dumps(doc))
     save_vars(dirname, [v.name for v in _persistables(inference) if v.name in used], scope)
     return target_names
 

@@ -922,3 +922,73 @@ def test_run_async_train_loop_and_remat_on_card(exact_card_math):
     assert r_exe.last_plan.graphed and r_exe.last_plan.runs == 7
     moved = r_scope.to_numpy(w)
     assert float(np.abs(moved).max()) <= 1e-2  # one Adam step from zero, lr 1e-3
+
+
+@pytest.mark.gpu
+def test_dataloader_batch_equals_its_source_on_card():
+    """Six 16 MB batches through DataLoader(capacity=1) onto the card, the
+    loader's upload stream held back by a sleep kernel so that every copy
+    is still queued when its batch is yielded: a kernel reading each batch
+    right after the hand-off, while the producer refills the three pinned
+    buffers with later batches, sees exactly its numpy source (float64 ->
+    float32 and int64 -> int32 on the host first)."""
+    _need_card()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [1024, 1024], dtype="float32")
+        ids = fluid.layers.data("ids", [8], dtype="int64")
+    rng = np.random.RandomState(5)
+    batches = [{"x": rng.rand(4, 1024, 1024), "ids": rng.randint(0, 1 << 40, (4, 8))}
+               for _ in range(6)]
+    loader = fluid.DataLoader.from_generator([x, ids], capacity=1, device=fluid.CUDAPlace(0))
+    loader.set_batch_generator(lambda: iter(batches))
+    with torch.cuda.stream(loader._stream):
+        torch.cuda._sleep(500_000_000)  # ~0.3 s: the uploads queue behind it
+    seen = []
+    for b in loader:
+        assert b["x"].is_cuda and b["x"].dtype == torch.float32 and b["ids"].dtype == torch.int32
+        seen.append({k: v * 1 for k, v in b.items()})  # a kernel on the consumer's stream
+    torch.cuda.synchronize()
+    assert all(len(slots) == 3 for slots in loader._pool.bufs.values())  # buffers were reused
+    for got, want in zip(seen, batches):
+        np.testing.assert_array_equal(got["x"].cpu().numpy(), want["x"].astype(np.float32))
+        np.testing.assert_array_equal(got["ids"].cpu().numpy(), want["ids"].astype(np.int32))
+
+
+@pytest.mark.gpu
+def test_snapshot_restore_between_replays_equals_eager_restore_on_card(exact_card_math):
+    """The tiny BERT (dropout 0.1): 4 steps, a snapshot at the dispatch
+    boundary of step 2, a restore after step 3, steps 2 and 3 again.  On a
+    graphed executor the redone steps are replays of the graph captured at
+    step 1 (the restore copies into the tensors it reads and sets the
+    generator's state in place); on an eager one they run op by op.  Losses,
+    every persistable and the generator are bit for bit the same in both,
+    and the redone steps repeat the first pass."""
+    from paddle_tpu_torch.resilience import _restore_scope, _snapshot_scope
+
+    _need_card()
+    main, startup, loss = _tiny_bert_train(0.1)
+    state = _state_of(main, startup)
+    feeds = _feeds_of("bert", 4)
+    arms = {}
+    for graphs in (True, False):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device="cuda:0")
+        exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=graphs)
+        exe._generator(scope, main).manual_seed(7)
+        losses, snap = [], None
+        for i, f in enumerate(feeds + feeds[2:]):
+            if i == 2:
+                snap = _snapshot_scope(scope)
+            if i == 4:
+                _restore_scope(scope, snap)
+            losses.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0])
+        assert exe.last_plan.graphed == graphs and (not graphs or exe.last_plan.runs == 6)
+        arms[graphs] = (losses, {n: scope.to_numpy(n) for n in state},
+                        scope.find_var("__rng_state__").get_state())
+    for graphs, (losses, _, _) in arms.items():
+        np.testing.assert_array_equal(np.stack(losses[4:]), np.stack(losses[2:4]))
+    np.testing.assert_array_equal(np.stack(arms[True][0]), np.stack(arms[False][0]))
+    for n in state:
+        np.testing.assert_array_equal(arms[True][1][n], arms[False][1][n], err_msg=n)
+    assert torch.equal(arms[True][2], arms[False][2])

@@ -51,6 +51,22 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "from paddle_tpu_torch.core import analysis, passes, regularizer\n"
         "from paddle_tpu_torch.layers import tail, tensor\n"
         "from paddle_tpu_torch.ops import control_flow_ops\n"
+        "from paddle_tpu_torch import (checkpoint_manager, dataset, datasets, faults, integrity,\n"
+        "                              reader, recordio, recordio_writer, resilience)\n"
+        "from paddle_tpu_torch.core import locks\n"
+        "assert fluid.DataLoader is fluid.PyReader is reader.DataLoader\n"
+        "assert fluid.CheckpointManager is checkpoint_manager.CheckpointManager\n"
+        "assert fluid.QueueDataset is dataset.QueueDataset and fluid.InMemoryDataset\n"
+        "assert fluid.resilient_train_loop is resilience.resilient_train_loop\n"
+        "assert fluid.FaultInjector is faults.FaultInjector and fluid.RetryPolicy\n"
+        "assert fluid.ResilienceStats and fluid.DataFeeder and fluid.integrity is integrity\n"
+        "assert issubclass(errors.LockTimeoutError, errors.FatalError)\n"
+        "assert issubclass(errors.StorageError, errors.TrainingError)\n"
+        "assert {'FLAGS_feed_validation', 'FLAGS_data_corrupt_budget', 'FLAGS_fault_spec',\n"
+        "        'FLAGS_integrity_check_period', 'FLAGS_max_ckpt_lag_steps',\n"
+        "        'FLAGS_ckpt_fallback_dir', 'FLAGS_publish_period_steps'} <= set(flags._REGISTRY)\n"
+        "assert hasattr(fluid.Executor, 'train_from_dataset')\n"
+        "assert locks.named_lock('data.recordio_lib', rank=50).rank == 50\n"
         "assert fluid.analysis is analysis and io.IntegrityError is errors.IntegrityError\n"
         "assert issubclass(analysis.ProgramVerificationError, errors.FatalError)\n"
         "assert {'remove_identity_ops', 'fold_scale_chains', 'prune_dead_ops'} <= set("
