@@ -178,11 +178,12 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      bitwise equal to a clean run over the surviving batches (cuDNN's
      deterministic algorithms); wall times, checkpoint seconds and bytes;
  30. resilient_bert: phase 12's BERT-base (dropout 0.1) on token ids from a
-     RecordIO file through a shuffled, checkpointable reader,
-     resilient_train_loop with preempt@5, then a resume to step 10: losses
-     and every persistable, the generator's state included, bitwise equal
-     to 10 straight steps; launches FUSED_PER_STEP for each eager or
-     captured step.
+     RecordIO file through a shuffled, checkpointable reader and, in the
+     chaos and resume runs, a DataLoader on the card (three feeds of one
+     shape and dtype), resilient_train_loop with preempt@5, then a resume
+     to step 10: losses and every persistable, the generator's state
+     included, bitwise equal to 10 straight steps fed from numpy; launches
+     FUSED_PER_STEP for each eager or captured step.
 
 Before phase 1 the host's ml_dtypes is required: a numpy fetch of a bf16
 value is an ml_dtypes bfloat16 array of the card's bits (ROADMAP C1), and
@@ -474,9 +475,11 @@ def launch_split(torch, fn, iters=50):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     return {e.key[:80]: e.self_device_time_total / iters for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
@@ -1329,6 +1332,14 @@ def serve(fluid, torch, ck, tmp, card):
     return launches
 
 
+# idle host time at each end of a profiler session: the profiler keeps only
+# the records it places inside its window, and it places a kernel by a
+# conversion of the card's clock to the host's, which can be off by
+# milliseconds for a whole process (phase 24 once missed one of the step's
+# LayerNorm forwards in every session of a process)
+PROFILE_MARGIN_S = 0.05
+
+
 def profile_run(torch, what, run, card):
     """One more warm run of `run()` under torch.profiler: device time by kernel
     (the ten largest, and every kernel of the port's own) and the device's
@@ -1339,10 +1350,12 @@ def profile_run(torch, what, run, card):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
@@ -1457,7 +1470,8 @@ def profile_replay(torch, what, run, card, per_run):
     """profile_run of a graph's replay, whose port kernels must equal the
     reckoned launches `per_run`.  The profiler once lost the first ~500
     kernel records of a 3,189-kernel replay (12.6 of its 17.0 ms of kernels
-    seen, the forward's uncounted), so a replay whose count differs is
+    seen, the forward's uncounted), and in another process the first 14 of
+    every session (PROFILE_MARGIN_S), so a replay whose count differs is
     profiled again, up to 3 times: the graph replays the same kernels every
     time, so a wrong graph never passes.  Returns the passing record."""
     for attempt in range(3):
@@ -3326,11 +3340,13 @@ def resilient_bert(fluid, torch, ck, tmp, card):
     dropout 0.1), its token-id batches read from a RecordIO file through a
     shuffled, checkpointable reader: resilient_train_loop with preempt@5
     (the flush carries the generator's state and the reader's), then a
-    resume in a fresh Scope and Executor to step 10, against 10 straight
-    steps: the losses and every persistable, the generator's state
-    included, bitwise equal; each dispatch's launches held
-    (FUSED_PER_STEP for the eager step and the capture of each
-    executor).  Returns the wrappers' launches."""
+    resume in a fresh Scope and Executor to step 10, both fed through a
+    DataLoader(capacity=4) on the card, against 10 straight steps fed the
+    reader's numpy batches: the losses and every persistable, the
+    generator's state included, bitwise equal, so the loader handed each
+    of the three int32 [32, 128] feeds its own ids; each dispatch's
+    launches held (FUSED_PER_STEP for the eager step and the capture of
+    each executor).  Returns the wrappers' launches."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
@@ -3346,6 +3362,12 @@ def resilient_bert(fluid, torch, ck, tmp, card):
 
     def factory():
         return bert_token_reader(fluid, path, keys)
+
+    def loader():
+        block = main.global_block()
+        return fluid.DataLoader.from_generator(
+            [block.var(k) for k in keys], capacity=4,
+            device=fluid.CUDAPlace(0)).set_batch_generator(factory())
 
     gc.collect()
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
@@ -3367,7 +3389,7 @@ def resilient_bert(fluid, torch, ck, tmp, card):
         counted_dispatch(exe, ck, FUSED_PER_STEP, f"resilient_bert resume={resume}",
                          "resilient_bert")
         segments.append(fluid.resilient_train_loop(
-            exe, main, factory, [loss], scope=scope,
+            exe, main, loader, [loss], scope=scope,
             injector=None if resume else fluid.FaultInjector(BERT_RESUME_SPEC),
             checkpoint_manager=cm, resume=resume, max_inflight=2, policy=policy,
             max_steps=BERT_RESUME_STEPS))
@@ -3376,6 +3398,8 @@ def resilient_bert(fluid, torch, ck, tmp, card):
     mon = fluid.monitor.get_monitor()
     saves, save_s = span_total(mon, "checkpoint.save")
     restores, restore_s = span_total(mon, "checkpoint.restore")
+    staged = mon.counter("reader.bytes_staged").value
+    batch_bytes = sum(batches[0][k].size * 4 for k in keys)  # int64 -> int32
     chaos, resumed = segments
     losses = [float(v[0].reshape(-1)[0]) for st in segments for _, v in st.logged]
     differ = [n for n in names if not torch.equal(scope.find_var(n), want[n])]
@@ -3391,14 +3415,16 @@ def resilient_bert(fluid, torch, ck, tmp, card):
           "chaos_wall_s": chaos.wall_s, "resume_wall_s": resumed.wall_s,
           "checkpoint_saves": saves, "checkpoint_save_s": save_s,
           "checkpoint_restores": restores, "checkpoint_restore_s": restore_s,
-          "checkpoint_bytes_on_disk": ckpt_bytes(root), "card": card})
+          "checkpoint_bytes_on_disk": ckpt_bytes(root), "reader_bytes_staged": staged,
+          "card": card})
     mon.reset()
     if not (chaos.preempted and chaos.resume_step == 5 and resumed.steps == BERT_RESUME_STEPS
-            and losses == want_losses and not differ and rng_equal):
+            and losses == want_losses and not differ and rng_equal
+            and staged >= BERT_RESUME_STEPS * batch_bytes and staged % batch_bytes == 0):
         raise AssertionError(f"resilient_bert: preempted {chaos.preempted} at "
                              f"{chaos.resume_step}, resumed to {resumed.steps}, losses "
                              f"{losses} vs {want_losses}, {len(differ)} persistables differ, "
-                             f"generator equal {rng_equal}")
+                             f"generator equal {rng_equal}, {staged} bytes staged")
     return launches
 
 

@@ -6,363 +6,66 @@ names and ranks: `data.recordio_lib` 50, `data.corrupt_budget` 52,
     from paddle_tpu_torch.core.locks import named_lock
     _LOCK = named_lock("data.recordio_lib", rank=50)
 
-``name`` is a stable dotted identifier (it keys the telemetry counters and
-appears in every diagnostic); ``rank`` declares the lock's place in the
-process-wide partial order: **a thread may only acquire a lock whose rank
-is strictly greater than every lock it already holds** (re-entrant
-same-name acquisition through a ``reentrant=True`` lock is exempt).
+``name`` is a stable dotted identifier; ``rank`` declares the lock's place
+in the process-wide partial order: a thread may only acquire a lock whose
+rank is strictly greater than every lock it already holds.  One rank per
+name: a second creation site that declares another rank raises.
 
-Runtime checks, both opt-in (off, an acquire is one module-global branch
-plus the raw primitive):
-
-* ``FLAGS_lock_telemetry`` -- per-lock monitor counters
-  ``lock.<name>.acquires`` / ``.contended`` / ``.wait_us`` / ``.hold_us``
-  plus ``lock.order_inversions`` when an acquisition inverts the declared
-  ranks.
-* ``FLAGS_lock_timeout_s`` -- every blocking ``acquire`` gets a deadline;
-  on expiry an ``errors.LockTimeoutError`` names the wanted lock and every
-  lock the thread holds, each with its rank.
+The JAX package's opt-in telemetry and acquisition deadline
+(FLAGS_lock_telemetry, FLAGS_lock_timeout_s) are not ported: a lock here
+is the raw ``threading.Lock`` under its name.
 """
 from __future__ import annotations
 
 import threading
-import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict
 
-__all__ = ["NamedLock", "NamedCondition", "named_lock", "named_rlock",
-           "named_condition", "lock_ranks", "held_locks"]
+__all__ = ["NamedLock", "named_lock"]
 
-# name -> (rank, reentrant); one rank per name, process-wide.  Multiple
-# instances may share a name (e.g. every monitor Counter's lock is
-# "monitor.counter"): they are one lock *class* in the declared order.
-_RANKS: Dict[str, Tuple[int, bool]] = {}
-# Guards _RANKS/_COUNTERS registration only (module-internal; creation
-# time, never the acquire hot path).  Deliberately a raw lock: it orders
-# nothing user-visible.
-_REG_GUARD = threading.Lock()
-
-_TLS = threading.local()
-
-# Config cache, refreshed from the flag registry (flags.set_flags hooks
-# back into refresh_from_flags; import-time init reads the env-seeded
-# values).  _ACTIVE gates ALL slow-path work with one global load.
-_TELEMETRY = False
-_TIMEOUT_S = 0.0
-_ACTIVE = False
-
-_MON_REF = None  # lazily bound monitor singleton (avoids an import cycle:
-# monitor.core builds its own locks through this module)
-
-# per-name cached counter tuple (acquires, contended, wait_us, hold_us)
-_COUNTERS: Dict[str, tuple] = {}
-
-
-def refresh_from_flags():
-    """Re-read FLAGS_lock_telemetry / FLAGS_lock_timeout_s (called by
-    flags.set_flags; import below seeds from the env)."""
-    global _TELEMETRY, _TIMEOUT_S, _ACTIVE
-    from ..flags import flag
-
-    _TELEMETRY = bool(flag("FLAGS_lock_telemetry"))
-    _TIMEOUT_S = float(flag("FLAGS_lock_timeout_s"))
-    _ACTIVE = _TELEMETRY or _TIMEOUT_S > 0
-
-
-def _mon():
-    global _MON_REF
-    if _MON_REF is None:
-        from ..monitor import MONITOR
-
-        _MON_REF = MONITOR
-    return _MON_REF
-
-
-def _counters(name: str) -> tuple:
-    c = _COUNTERS.get(name)
-    if c is None:
-        # counters are created outside _REG_GUARD; Monitor.counter is
-        # idempotent, so a racing double-create is fine
-        mon = _mon()
-        tup = (mon.counter(f"lock.{name}.acquires"),
-               mon.counter(f"lock.{name}.contended"),
-               mon.counter(f"lock.{name}.wait_us"),
-               mon.counter(f"lock.{name}.hold_us"))
-        with _REG_GUARD:
-            c = _COUNTERS.setdefault(name, tup)
-    return c
-
-
-def _held() -> list:
-    h = getattr(_TLS, "held", None)
-    if h is None:
-        h = _TLS.held = []
-    return h
-
-
-def held_locks() -> List[Tuple[str, int]]:
-    """[(name, rank)] of the named locks THIS thread currently holds —
-    only tracked while telemetry or a lock timeout is active (the
-    disabled hot path keeps no per-thread state)."""
-    return [(lk.name, lk.rank) for lk in _held()]
-
-
-def lock_ranks() -> Dict[str, int]:
-    """{name: declared rank} for every lock registered in this process."""
-    with _REG_GUARD:
-        return {n: r for n, (r, _) in sorted(_RANKS.items())}
-
-
-def _register(name: str, rank: int, reentrant: bool):
-    with _REG_GUARD:
-        prev = _RANKS.get(name)
-        if prev is not None and prev[0] != rank:
-            raise ValueError(
-                f"lock {name!r} already registered with rank {prev[0]}; "
-                f"a second creation site declared rank {rank} — one rank "
-                f"per name")
-        _RANKS[name] = (int(rank), bool(reentrant))
+_RANKS: Dict[str, int] = {}
+_REG_GUARD = threading.Lock()  # guards _RANKS at creation time only
 
 
 class NamedLock:
-    """A ``threading.Lock``/``RLock`` with a registered name + rank.
+    """A ``threading.Lock`` with a registered name and rank; a context
+    manager with ``acquire`` / ``release`` / ``locked`` like the raw lock."""
 
-    Context-manager and acquire/release compatible with the raw
-    primitives (Condition-compatible too: ``NamedCondition`` wraps one).
-    """
+    __slots__ = ("name", "rank", "_lock")
 
-    __slots__ = ("name", "rank", "telemetry", "reentrant", "_lock",
-                 "_t_hold", "_depth")
-
-    def __init__(self, name: str, rank: int, *, reentrant: bool = False,
-                 telemetry: bool = True):
-        _register(name, rank, reentrant)
+    def __init__(self, name: str, rank: int):
+        with _REG_GUARD:
+            prev = _RANKS.get(name)
+            if prev is not None and prev != rank:
+                raise ValueError(
+                    f"lock {name!r} already registered with rank {prev}; "
+                    f"a second creation site declared rank {rank} — one rank "
+                    f"per name")
+            _RANKS[name] = int(rank)
         self.name = name
         self.rank = int(rank)
-        self.reentrant = bool(reentrant)
-        self.telemetry = bool(telemetry)
-        self._lock = threading.RLock() if reentrant else threading.Lock()
-        self._t_hold = 0.0
-        self._depth = 0  # reentrant recursion depth (holder-only state)
+        self._lock = threading.Lock()
 
-    # -- core protocol -----------------------------------------------------
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        if not _ACTIVE:
-            return self._lock.acquire(blocking, timeout)
-        return self._acquire_slow(blocking, timeout)
+        return self._lock.acquire(blocking, timeout)
 
     def release(self):
-        # Bookkeeping is cleaned up unconditionally, NOT gated on the
-        # CURRENT flag state: a flag toggled mid-hold must not strand a
-        # held-stack entry (poisoning later inversion counts and timeout
-        # reports for this thread) or leak a stale _t_hold into a bogus
-        # wall-clock-sized hold_us after re-enable.  Never-activated
-        # processes pay one tls getattr + two falsy checks here.
-        h = getattr(_TLS, "held", None)
-        if h:
-            for i in range(len(h) - 1, -1, -1):
-                if h[i] is self:
-                    del h[i]
-                    break
-        if self._depth > 0:  # only ever set by reentrant slow-path holds
-            self._depth -= 1
-            last = self._depth == 0
-        else:
-            last = True
-        if self._t_hold and last:
-            # safe un-locked: only the holder reaches this between its
-            # acquire and release
-            if _TELEMETRY and self.telemetry:
-                _counters(self.name)[3].inc(
-                    int((time.perf_counter() - self._t_hold) * 1e6))
-            self._t_hold = 0.0
         self._lock.release()
 
+    def locked(self) -> bool:
+        return self._lock.locked()
+
     def __enter__(self):
-        self.acquire()
+        self._lock.acquire()
         return self
 
     def __exit__(self, *exc):
-        self.release()
+        self._lock.release()
         return False
 
-    def locked(self) -> bool:
-        probe = getattr(self._lock, "locked", None)
-        if probe is not None:
-            return probe()
-        # RLock pre-3.14 has no locked(); a bare acquire(False) probe
-        # would RE-ENTER when this thread is the holder and report the
-        # held lock as free — check ownership first
-        owned = getattr(self._lock, "_is_owned", None)
-        if owned is not None and owned():
-            return True
-        if self._lock.acquire(False):
-            self._lock.release()
-            return False
-        return True
-
-    # -- slow path ---------------------------------------------------------
-    def _acquire_slow(self, blocking, timeout, use_timeout=True) -> bool:
-        tel = _TELEMETRY and self.telemetry
-        if tel:
-            held = _held()
-            if held:
-                top = max((lk.rank for lk in held if lk.name != self.name),
-                          default=-1)
-                if top >= self.rank:
-                    # observed, never raised: telemetry counts the
-                    # evidence of an inverted order
-                    _mon().counter("lock.order_inversions").inc()
-        if not blocking or timeout != -1:
-            # caller manages its own non-blocking/deadline semantics
-            ok = self._lock.acquire(blocking, timeout)
-            if ok:
-                self._track_acquired(tel, contended=False, t0=0.0)
-            return ok
-        t0 = time.perf_counter() if tel else 0.0
-        contended = False
-        timeout_s = _TIMEOUT_S if use_timeout else 0.0
-        if tel and not self._lock.acquire(False):
-            contended = True
-            ok = (self._lock.acquire(True, timeout_s) if timeout_s > 0
-                  else self._lock.acquire())
-        elif not tel:
-            ok = (self._lock.acquire(True, timeout_s) if timeout_s > 0
-                  else self._lock.acquire())
-        else:
-            ok = True
-        if not ok:
-            self._raise_timeout()
-        self._track_acquired(tel, contended, t0)
-        return True
-
-    def _track_acquired(self, tel, contended, t0):
-        _held().append(self)
-        if self.reentrant:
-            self._depth += 1
-        if tel:
-            c = _counters(self.name)
-            c[0].inc()
-            if contended:
-                c[1].inc()
-                c[2].inc(int((time.perf_counter() - t0) * 1e6))
-            if not self.reentrant or self._depth == 1:
-                # a nested re-entry must not clobber the outer hold's
-                # start: hold_us spans first-acquire to last-release
-                self._t_hold = time.perf_counter()
-
-    def _raise_timeout(self):
-        from ..errors import LockTimeoutError
-
-        held = [(lk.name, lk.rank) for lk in _held() if lk is not self]
-        held_s = (", ".join(f"{n!r} (rank {r})" for n, r in held)
-                  or "no named locks")
-        raise LockTimeoutError(
-            f"could not acquire lock {self.name!r} (rank {self.rank}) "
-            f"within FLAGS_lock_timeout_s={_TIMEOUT_S}s; this thread "
-            f"holds {held_s} — suspected deadlock or lock-order "
-            f"inversion",
-            wanted=self.name, wanted_rank=self.rank, held=held,
-            timeout_s=_TIMEOUT_S)
-
-    # -- threading.Condition integration -----------------------------------
-    def _release_save(self):
-        self.release()
-
-    def _acquire_restore(self, _saved):
-        """Condition.wait's lock re-acquisition — EXEMPT from
-        FLAGS_lock_timeout_s: the waiter holds nothing (it just released
-        this very lock), so a slow reacquire is queueing behind short
-        critical sections, not the deadlock class the timeout hunts; and
-        raising here would propagate out of wait() with the lock UNHELD,
-        making the enclosing with-block's release() raise and mask the
-        diagnostic."""
-        if not _ACTIVE:
-            self._lock.acquire()
-            return
-        self._acquire_slow(True, -1, use_timeout=False)
-
-    def _is_owned(self) -> bool:
-        inner = self._lock
-        owned = getattr(inner, "_is_owned", None)
-        if owned is not None:
-            return owned()
-        if inner.acquire(False):
-            inner.release()
-            return False
-        return True
-
     def __repr__(self):
-        return (f"NamedLock({self.name!r}, rank={self.rank}"
-                f"{', reentrant' if self.reentrant else ''})")
+        return f"NamedLock({self.name!r}, rank={self.rank})"
 
 
-class NamedCondition:
-    """``threading.Condition`` over a ``NamedLock`` (non-reentrant): the
-    condition's lock participates in the declared order and telemetry
-    exactly like any other named lock; ``wait()`` releases/reacquires
-    through the wrapper so the held-lock bookkeeping stays true."""
-
-    __slots__ = ("_nl", "_cond")
-
-    def __init__(self, name: str, rank: int, *, telemetry: bool = True):
-        self._nl = NamedLock(name, rank, telemetry=telemetry)
-        self._cond = threading.Condition(self._nl)
-
-    @property
-    def name(self) -> str:
-        return self._nl.name
-
-    @property
-    def rank(self) -> int:
-        return self._nl.rank
-
-    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        return self._nl.acquire(blocking, timeout)
-
-    def release(self):
-        self._nl.release()
-
-    def __enter__(self):
-        self._cond.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self._cond.__exit__(*exc)
-
-    def wait(self, timeout: Optional[float] = None) -> bool:
-        return self._cond.wait(timeout)
-
-    def wait_for(self, predicate, timeout: Optional[float] = None):
-        return self._cond.wait_for(predicate, timeout)
-
-    def notify(self, n: int = 1):
-        self._cond.notify(n)
-
-    def notify_all(self):
-        self._cond.notify_all()
-
-    def __repr__(self):
-        return f"NamedCondition({self.name!r}, rank={self.rank})"
-
-
-def named_lock(name: str, rank: int, *, reentrant: bool = False,
-               telemetry: bool = True) -> NamedLock:
-    """The way the port's data and resilience layers create a mutex.
-    ``rank`` declares the lock's position in the process-wide acquisition order —
-    only strictly-ascending nesting is legal."""
-    return NamedLock(name, rank, reentrant=reentrant, telemetry=telemetry)
-
-
-def named_rlock(name: str, rank: int, *, telemetry: bool = True) -> NamedLock:
-    """Re-entrant variant: same-name re-acquisition by the holding thread
-    is legal (and exempt from the rank check)."""
-    return NamedLock(name, rank, reentrant=True, telemetry=telemetry)
-
-
-def named_condition(name: str, rank: int, *,
-                    telemetry: bool = True) -> NamedCondition:
-    """A condition variable whose underlying lock is named + ranked."""
-    return NamedCondition(name, rank, telemetry=telemetry)
-
-
-refresh_from_flags()
+def named_lock(name: str, rank: int) -> NamedLock:
+    """The way the port's data and resilience layers create a mutex."""
+    return NamedLock(name, rank)

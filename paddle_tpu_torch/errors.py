@@ -13,8 +13,9 @@ server and distributed classes; same names, bases and messages).
     PreemptionError       the process got its preemption notice (SIGTERM):
                           flush a checkpoint and exit resumable
     FatalError            what `classify` cannot place in a recoverable class
-    LockTimeoutError      a named lock not acquired within
-                          FLAGS_lock_timeout_s (core/locks.py; a FatalError)
+    LockTimeoutError      a named lock not acquired within its deadline
+                          (a FatalError; the port's locks carry no deadline
+                          yet, core/locks.py)
     ResourceError         the program cannot fit in device memory (a
                           FatalError; the port has no static planner yet)
     CheckpointError       a checkpoint that must not be loaded as asked
@@ -113,9 +114,11 @@ class FatalError(TrainingError):
 
 
 class LockTimeoutError(FatalError):
-    """A `locks.named_lock` acquisition did not complete within
-    FLAGS_lock_timeout_s (core/locks.py): a deadlock or a lock held across
-    blocking work, both program bugs.  `wanted` / `wanted_rank` name the
+    """A named lock's acquisition did not complete within its deadline: a
+    deadlock or a lock held across blocking work, both program bugs.  The
+    JAX package raises it under FLAGS_lock_timeout_s; the port's locks carry
+    no deadline yet (core/locks.py), and `classify` places it as the JAX
+    package does.  `wanted` / `wanted_rank` name the
     lock that timed out, `held` the [(name, rank), ...] the thread holds."""
 
     def __init__(self, message: str, *, wanted: Optional[str] = None,

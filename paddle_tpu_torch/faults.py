@@ -4,11 +4,12 @@ to survive, with the JAX package's whole grammar.
 
 Every recovery path that is not tested is broken; this module makes the
 failure classes of errors.py reproducible, on the CPU and on the card.
-Single-process entries fire as in the JAX package; the ranked entries
-(kill_worker, stall_worker, flip_bit:RANK) parse and fire in the process
-whose rank matches, but the gang restart that survives them comes with
-ROADMAP A10, and the host-tier entries need a parameter-server supervisor
-(ROADMAP A9).  A `FaultInjector` is driven by a
+Single-process entries fire as in the JAX package.  Every entry parses;
+a `FaultInjector` given an entry that targets a worker rank of a gang
+(kill_worker, stall_worker, flip_bit:RANK, enospc:RANK, ro_fs:RANK) raises
+NotImplementedError naming ROADMAP A10, and one given a host-tier entry
+(kill_pserver, stall_pserver, rot_row) raises naming ROADMAP A9, where the
+parameter server comes.  A `FaultInjector` is driven by a
 schedule string (`FLAGS_fault_spec` or the constructor), every entry
 fires exactly once, and nothing here depends on wall time or real
 hardware — the same spec injects the same faults at the same points on
@@ -41,11 +42,8 @@ native scanner + CRC + FLAGS_data_corrupt_budget machinery:
     truncated_file@N      cut the file mid-payload of global chunk N (the
                           torn-write / partial-copy failure mode)
 
-distributed entries target a specific worker RANK; every
-worker of a gang parses the same spec and an entry fires only in the
-process whose rank matches (`PADDLE_TRAINER_ID`, or the `rank` ctor
-arg), so one spec string drives a whole deterministic multi-worker
-chaos schedule:
+distributed entries target a specific worker RANK of a gang (they parse;
+the gang that fires them, and its once-per-gang ledger, come with A10):
 
     kill_worker@S:RANK        worker RANK dies with SIGKILL at dispatch
                               of train step S — no cleanup, no tombstone:
@@ -56,14 +54,6 @@ chaos schedule:
                               collective watchdog when SECS exceeds its
                               deadline)
 
-ranked entries fire once per GANG, not once per process: a gang restart
-replays the failed step, so without cross-incarnation memory the same
-kill would fire forever.  When `PADDLE_FAULT_STATE_DIR` names a shared
-directory (the JAX package's launcher exports one per gang), a ranked
-entry drops a `fired-...` marker there at its firing point — written
-BEFORE the SIGKILL lands — and every later incarnation treats marked
-entries as already spent.
-
 silent-corruption entries plant wrong-but-FINITE state — the
 class every NaN guard, CRC, and structure check waves through, which
 only the integrity sentinel (integrity.py) can catch:
@@ -73,11 +63,9 @@ only the integrity sentinel (integrity.py) can catch:
                           resilient_train_loop with the scope), flip one
                           exponent-region bit of one element of the
                           LARGEST float state var: the value stays finite
-                          but wildly implausible, the live cross-rank
-                          digests diverge, and the divergence vote must
-                          name RANK.  Without :RANK it fires in every
-                          process that reaches step S (the
-                          single-process form)
+                          but wildly implausible, and only a content
+                          digest can see it.  The :RANK form (the gang's
+                          divergence vote must name RANK) is A10's
     rot_shard@N           flip a payload byte of one shard file of the
                           Nth COMMITTED checkpoint (0-based commit
                           ordinal; `on_commit`, called post-COMMIT) —
@@ -94,21 +82,18 @@ the current train step via `on_dispatch`/`set_step`; op-indexed kinds
 count choke-point operations.  Two exemptions keep injection
 deterministic: paths under `FLAGS_ckpt_fallback_dir` (the fallback dir
 models a different device, so a full primary disk must not also break
-it) and heartbeat-transport beats (the beat thread writes on its own
-clock — counting it would make op indices timing-dependent, and
-failing it would fake the rank's death instead of exercising degraded
-mode; real heartbeat-store failures still go loud via
-`dist.heartbeat.send_errors`):
+it) and the prefixes io.py marks exempt:
 
     enospc@S[:RANK]       every WRITE during train step S raises
                           OSError(ENOSPC) — the save at step S fails
                           all its retries, the next period's succeeds
-                          (the transient-full-disk window).  With :RANK
-                          only that worker's writes fail
+                          (the transient-full-disk window).  The :RANK
+                          form (one worker's writes) is A10's
     ro_fs@S[:RANK]        every WRITE from step S ONWARD raises
                           OSError(EROFS) — the terminal read-only-mount
                           class that must skip retries and go straight
-                          to the fallback dir / degraded mode
+                          to the fallback dir / degraded mode (:RANK as
+                          for enospc)
     eio@N[:PATH_GLOB]     the Nth (0-based) choke-point operation (read
                           or write) whose path fnmatches PATH_GLOB
                           (default *) raises OSError(EIO), exactly once
@@ -117,9 +102,8 @@ mode; real heartbeat-store failures still go loud via
                           milliseconds first (storage latency spike),
                           then proceeds
 
-host-tier entries target the supervised parameter server of
-an online-learning run (`set_pserver(supervisor)` registers the live
-handle; entries stay pending without one):
+host-tier entries target the supervised parameter server of an
+online-learning run (they parse; the parameter server is A9's):
 
     kill_pserver@S        SIGKILL the pserver CHILD PROCESS at dispatch
                           of train step S — the supervisor must respawn
@@ -147,21 +131,16 @@ no-ops once every entry has fired.
 
 Compound schedules: `KIND_INFO` publishes per-kind
 compatibility metadata (what the index counts, which runtime hooks the
-kind needs, whether its firing is ledgered across gang restarts) so a
-chaos campaign generator can draw only schedules
-every entry of which can actually fire in the chosen scenario;
+kind needs, whether the JAX package's gang ledger keeps its firing
+across gang restarts), the same table as the JAX package's;
 `validate_schedule` rejects specs with exact-duplicate entries,
 capability mismatches, or unreachable pairings (an enospc window
-shadowed by an earlier ro_fs).  `sweep_stale_ledgers` reclaims
-`PADDLE_FAULT_STATE_DIR` markers left by dead gangs — call it only at
-run START (a gang launcher / campaign entry), never between incarnations of a
-live gang: a SIGKILLed child's marker has a dead PID by design and must
-keep suppressing its entry until the whole run is over.
+shadowed by an earlier ro_fs).
 """
 from __future__ import annotations
 
 __all__ = ["Fault", "FaultInjector", "parse_fault_spec", "KIND_INFO",
-           "validate_schedule", "sweep_stale_ledgers"]
+           "validate_schedule"]
 
 import errno as _errno
 import fnmatch
@@ -185,16 +164,15 @@ _KINDS = ("bad_batch", "nan", "device", "preempt",
           "flip_bit", "rot_shard",
           "enospc", "eio", "slow_io", "ro_fs",
           "kill_pserver", "stall_pserver", "rot_row")
-# entries that only fire in the worker whose rank matches their arg
-# (flip_bit is rank-gated too, but its rank is OPTIONAL — handled via
-# target_rank, which answers None for the rankless single-process form)
+# entries that always target a worker rank (flip_bit, enospc and ro_fs
+# take one optionally: target_rank answers None for their rankless form)
 _RANKED_KINDS = ("kill_worker", "stall_worker")
 # storage faults: fire inside the io.py choke point via the
 # on_io hook.  enospc/ro_fs are step-WINDOW kinds (active while the
 # tracked train step is at/past their index — a save's whole retry
 # sequence at step S fails, the next period's save succeeds); eio/
 # slow_io are op-INDEXED one-shots (the Nth matching choke-point
-# operation).  enospc/ro_fs take an optional rank like flip_bit
+# operation)
 _STORAGE_KINDS = ("enospc", "eio", "slow_io", "ro_fs")
 _STORAGE_ERRNO = {"enospc": _errno.ENOSPC, "eio": _errno.EIO,
                   "ro_fs": _errno.EROFS}
@@ -203,27 +181,13 @@ _STORAGE_ERRNO = {"enospc": _errno.ENOSPC, "eio": _errno.EIO,
 # (CRC catches it), truncated_file@N cuts the file mid-payload of the
 # Nth chunk.  Both exercise the recordio corrupt-budget path
 _FILE_KINDS = ("corrupt_chunk", "truncated_file")
-# entries whose firing must survive a gang restart: a restarted worker
-# replays the failed step (and re-opens its files), so without the
-# PADDLE_FAULT_STATE_DIR ledger the same fault would fire forever.
-# flip_bit replays too (the restart restores PRE-flip state and replays
-# step S); rot_shard's marker doubles as the cross-rank mutex — every
-# rank observes the commit, exactly one may mutate the shard.  Storage
-# entries replay for the same reason: a restarted gang replays the step
-# whose failed save triggered the restart, and a fault that re-fires
-# forever would starve the run of checkpoints
+# entries the JAX package's gang ledger keeps across gang restarts (a
+# restarted gang replays the failed step; KIND_INFO's `ledgered`)
 _LEDGER_KINDS = _RANKED_KINDS + _FILE_KINDS \
     + ("flip_bit", "rot_shard", "rot_row",
        "kill_pserver", "stall_pserver") + _STORAGE_KINDS
-# host-tier chaos: these need a live handle on the pserver's
-# supervisor (`set_pserver`) — kill_pserver@S SIGKILLs the pserver child
-# at dispatch of step S (the supervisor must respawn it and KVClient's
-# retry loop must ride the gap out); stall_pserver@S:SECS SIGSTOPs it
-# for SECS (beats stop, FleetHealth declares it dead, the supervisor
-# kill+respawns); rot_row@N flips a byte inside a SelectedRows VALUES
-# shard of the Nth committed snapshot (on_commit, like rot_shard) — the
-# publish ladder's sparse rung must quarantine it
-_PSERVER_KINDS = ("kill_pserver", "stall_pserver")
+# host-tier chaos: entries on the parameter server (ROADMAP A9)
+_PSERVER_KINDS = ("kill_pserver", "stall_pserver", "rot_row")
 
 # Per-kind compatibility metadata.  A chaos campaign
 # generator draws schedules from this table; scenarios declare the
@@ -242,8 +206,8 @@ _PSERVER_KINDS = ("kill_pserver", "stall_pserver")
 #              paths), "io" (arm_io around real io.py traffic), "gang"
 #              (a multi-worker gang whose supervisor restarts the
 #              victim), "pserver" (a registered PServerSupervisor)
-#   ledgered — firing survives gang restarts via the
-#              PADDLE_FAULT_STATE_DIR marker ledger
+#   ledgered — the JAX package's gang ledger keeps the firing across
+#              gang restarts
 #   example  — one valid spec entry (parse_fault_spec must accept it)
 KIND_INFO = {
     "bad_batch": dict(grammar="bad_batch@B", scope="batch",
@@ -296,11 +260,8 @@ class Fault:
     arg: Optional[str] = None
     fired: bool = False
     # op-indexed storage entries count their matching choke-point
-    # operations here; `exhausted` marks an entry spent by a previous
-    # gang incarnation's ledger marker (inactive forever, unlike a
-    # step-window entry that stays active while its step lasts)
+    # operations here
     seen: int = 0
-    exhausted: bool = False
 
     def __str__(self):
         s = f"{self.kind}@{self.at}"
@@ -317,18 +278,8 @@ class Fault:
         return int(self.arg.split(":", 1)[0])
 
     @property
-    def stall_s(self) -> float:
-        assert self.kind == "stall_worker"
-        return float(self.arg.split(":", 1)[1])
-
-    @property
     def slow_ms(self) -> float:
         assert self.kind == "slow_io"
-        return float(self.arg)
-
-    @property
-    def pserver_stall_s(self) -> float:
-        assert self.kind == "stall_pserver"
         return float(self.arg)
 
 
@@ -456,113 +407,6 @@ def validate_schedule(spec, capabilities=None) -> List[Fault]:
     return faults
 
 
-def _pid_alive(pid: int) -> bool:
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return False
-    except (PermissionError, OSError):
-        return True  # exists but not ours — definitely alive
-    return True
-
-
-def sweep_stale_ledgers(state_dir: Optional[str] = None,
-                        scan_tmp: bool = True,
-                        min_age_s: float = 3600.0) -> Dict[str, int]:
-    """Reclaim fault-ledger state left by DEAD gangs: every
-    `fired-*` marker records the writing PID, so a marker whose PID is
-    gone belongs to a finished (or aborted) run and would wrongly
-    suppress the same fault in the next run that reuses the directory.
-    Additionally sweeps leaked `pt-fault-state-*` tempdirs (a launcher
-    mints one per run with no checkpoint_root; an aborted chaos run
-    leaks it).
-
-    Call ONLY at run start (a gang launcher / campaign entry), never between
-    incarnations of a live gang: a SIGKILLed child's marker has a dead
-    PID by design and must keep suppressing its entry until the whole
-    run is over.
-
-    Empty tempdirs are only removed past `min_age_s` (a concurrent
-    launcher may have just minted one it has not written to yet).
-    Returns {"markers": removed_marker_count, "dirs": removed_dirs}."""
-    removed = {"markers": 0, "dirs": 0}
-
-    def _sweep_markers(d: str) -> int:
-        n = 0
-        try:
-            names = os.listdir(d)
-        except OSError:
-            return 0
-        for name in names:
-            if not name.startswith("fired-"):
-                continue
-            path = os.path.join(d, name)
-            try:
-                with open(path) as fh:
-                    pid = int(fh.read().strip() or "0")
-            except (OSError, ValueError):
-                pid = 0  # unreadable/unparseable: treat as dead
-            if pid <= 0 or not _pid_alive(pid):
-                try:
-                    os.unlink(path)
-                    n += 1
-                except OSError:
-                    pass
-        return n
-
-    if state_dir is None:
-        state_dir = os.environ.get("PADDLE_FAULT_STATE_DIR")
-    if state_dir and os.path.isdir(state_dir):
-        removed["markers"] += _sweep_markers(state_dir)
-    if scan_tmp:
-        import shutil
-        import tempfile
-
-        tmp = tempfile.gettempdir()
-        try:
-            entries = os.listdir(tmp)
-        except OSError:
-            entries = []
-        for name in entries:
-            if not name.startswith("pt-fault-state-"):
-                continue
-            d = os.path.join(tmp, name)
-            if not os.path.isdir(d) \
-                    or os.path.abspath(d) == os.path.abspath(state_dir or ""):
-                continue
-            try:
-                markers = [m for m in os.listdir(d)
-                           if m.startswith("fired-")]
-            except OSError:
-                continue
-            if not markers:
-                # just-minted dir of a concurrent gang?  only reclaim
-                # once it is old enough that no live run still owns it
-                try:
-                    age = time.time() - os.path.getmtime(d)
-                except OSError:
-                    continue
-                if age < min_age_s:
-                    continue
-                removed["dirs"] += 1
-                shutil.rmtree(d, ignore_errors=True)
-                continue
-            live = False
-            for m in markers:
-                try:
-                    with open(os.path.join(d, m)) as fh:
-                        pid = int(fh.read().strip() or "0")
-                except (OSError, ValueError):
-                    pid = 0
-                if pid > 0 and _pid_alive(pid):
-                    live = True
-                    break
-            if not live:
-                removed["dirs"] += 1
-                shutil.rmtree(d, ignore_errors=True)
-    return removed
-
-
 def _mutate_chunk(paths, chunk_at: int, truncate: bool) -> bool:
     """Apply one on-disk data fault: locate global chunk `chunk_at` across
     the RecordIO `paths` (frames counted in list order) and either flip a
@@ -600,27 +444,26 @@ def _mutate_chunk(paths, chunk_at: int, truncate: bool) -> bool:
 
 class FaultInjector:
     """Seeded, schedule-driven fault source.  One instance = one schedule;
-    construct fresh (or `reset()`) per run."""
+    construct fresh (or `reset()`) per run.  The port runs one process:
+    an entry aimed at a gang's worker rank raises NotImplementedError
+    naming ROADMAP A10, a host-tier entry one naming A9."""
 
-    def __init__(self, spec: str = "", seed: int = 0,
-                 rank: Optional[int] = None):
+    def __init__(self, spec: str = "", seed: int = 0):
         self.spec = spec
         self.seed = seed
         self.faults = parse_fault_spec(spec)
+        for f in self.faults:
+            if f.kind in _PSERVER_KINDS:
+                raise NotImplementedError(
+                    f"FaultInjector: {f} acts on a supervised parameter server, "
+                    f"which comes with ROADMAP A9")
+            if f.target_rank is not None:
+                raise NotImplementedError(
+                    f"FaultInjector: {f} targets worker rank {f.target_rank} of a "
+                    f"gang; gang faults come with data parallelism (ROADMAP A10)")
         self._rng = random.Random(seed)
-        # ranked entries (kill_worker/stall_worker) fire only in the worker
-        # whose rank matches; default from the PADDLE_* trainer contract so
-        # one FLAGS_fault_spec string drives a whole gang deterministically
-        self.rank = rank if rank is not None else int(
-            os.environ.get("PADDLE_TRAINER_ID", "0"))
-        # once-per-gang ledger for ranked entries (survives gang restarts)
-        self.state_dir = os.environ.get("PADDLE_FAULT_STATE_DIR")
-        # rot_shard@N / rot_row@N count COMMITTED checkpoints/snapshots
-        # this injector observed
+        # rot_shard@N counts COMMITTED checkpoints this injector observed
         self._commits = 0
-        # kill_pserver/stall_pserver need a live supervisor handle
-        # (set_pserver); entries stay pending until one is registered
-        self._pserver = None
         # storage faults: the train step the loop is currently inside
         # (on_dispatch/set_step maintain it; -1 = no step dispatched yet,
         # so step-window entries stay dormant outside a training loop
@@ -629,11 +472,10 @@ class FaultInjector:
         self._io_prev_hook = None
         self._io_armed = False
         # serializes Fault.seen/fired mutation: the hook can fire from
-        # more than one thread (training saves, a server's publish) and
-        # an unsynchronized read-modify-write could double-fire or skip
-        # a one-shot op-indexed entry.  Claim-only critical section —
-        # ledger I/O, prints, sleeps, and the raise all happen after
-        # release (blocking work never runs under a framework lock)
+        # more than one thread (a training save, a loader's read) and an
+        # unsynchronized read-modify-write could double-fire or skip a
+        # one-shot op-indexed entry.  Claim-only critical section — the
+        # prints, sleeps and the raise happen after release
         from .core import locks as _locks
 
         self._io_lock = _locks.named_lock("faults.io", rank=48)
@@ -652,7 +494,6 @@ class FaultInjector:
         for f in self.faults:
             f.fired = False
             f.seen = 0
-            f.exhausted = False
         self._rng = random.Random(self.seed)
         self._step = -1
         return self
@@ -671,31 +512,9 @@ class FaultInjector:
         return out
 
     # -- hooks -------------------------------------------------------------
-    def _ranked_marker(self, f: Fault) -> Optional[str]:
-        if self.state_dir is None or f.kind not in _LEDGER_KINDS:
-            return None
-        # eio globs may carry path separators; the marker is a flat file
-        arg = str(f.arg).replace(os.sep, "%2F")
-        return os.path.join(self.state_dir, f"fired-{f.kind}@{f.at}-{arg}")
-
     def _take(self, kind: str, at: int) -> Optional[Fault]:
         for f in self.faults:
             if f.kind == kind and f.at == at and not f.fired:
-                tr = f.target_rank
-                if tr is not None and tr != self.rank:
-                    continue  # another worker's fault: stays pending here
-                marker = self._ranked_marker(f)
-                if marker is not None:
-                    if os.path.exists(marker):
-                        # spent in an earlier gang incarnation: the restart
-                        # replays this step, the fault must not replay too
-                        f.fired = True
-                        continue
-                    os.makedirs(self.state_dir, exist_ok=True)
-                    with open(marker, "w") as fh:
-                        fh.write(str(os.getpid()))
-                        fh.flush()
-                        os.fsync(fh.fileno())  # must hit disk before SIGKILL
                 f.fired = True
                 _MON.counter(f"faults.{kind}").inc()
                 return f
@@ -708,22 +527,13 @@ class FaultInjector:
         mutating the files ON DISK — the corruption then flows through the
         real native scanner + CRC + budget machinery, not a mock.  Chunk
         index N counts frames across the concatenated file list.  Fires
-        once (per gang, when the launcher's fault ledger is armed).
-        Returns `paths` for chaining."""
+        once.  Returns `paths` for chaining."""
         for kind in _FILE_KINDS:
-            for f in list(self.faults):
+            for f in self.faults:
                 if f.kind != kind or f.fired:
-                    continue
-                marker = self._ranked_marker(f)
-                if marker is not None and os.path.exists(marker):
-                    f.fired = True  # spent in an earlier gang incarnation
                     continue
                 if _mutate_chunk(paths, f.at, truncate=(kind == "truncated_file")):
                     f.fired = True
-                    if marker is not None:
-                        os.makedirs(self.state_dir, exist_ok=True)
-                        with open(marker, "w") as fh:
-                            fh.write(str(os.getpid()))
                     _MON.counter(f"faults.{kind}").inc()
         return paths
 
@@ -813,8 +623,8 @@ class FaultInjector:
             else:
                 flat[idx] = flat.dtype.type(
                     {16: 6e4, 32: 3e38, 64: 1e300}[width])
-            print(f"faults: flip_bit@{step} firing on {name!r}[{idx}] "
-                  f"(rank {self.rank})", file=sys.stderr, flush=True)
+            print(f"faults: flip_bit@{step} firing on {name!r}[{idx}]",
+                  file=sys.stderr, flush=True)
             v = scope.find_var(name)
             if isinstance(v, torch.Tensor):
                 # into the tensor the scope holds: a captured CUDA graph
@@ -828,68 +638,34 @@ class FaultInjector:
         raise ValueError(f"flip_bit@{step}: scope has no float state var "
                          f"to corrupt")
 
-    def on_commit(self, ckpt_dir: Optional[str]):
+    def on_commit(self, ckpt_dir: str):
         """Called with each checkpoint directory the moment its COMMIT
         lands (resilient_train_loop's flush path; tests/bench call it
         directly); applies a pending rot_shard@N when this is the Nth
-        commit this injector (or, with the fault ledger armed, this
-        GANG) observed.  The ledger marker is created with O_EXCL before
-        mutating, so exactly one rank of a coordinated save rots the
-        shard and a restarted gang never re-rots.  Returns `ckpt_dir`
-        for chaining."""
+        commit this injector observed: one payload byte of the first
+        shard file (sorted order) is flipped.  Returns `ckpt_dir` for
+        chaining."""
         idx = self._commits
         self._commits += 1
         for f in self.faults:
-            if f.kind not in ("rot_shard", "rot_row") or f.at != idx \
-                    or f.fired:
+            if f.kind != "rot_shard" or f.at != idx or f.fired:
                 continue
-            marker = self._ranked_marker(f)
-            if marker is not None and os.path.exists(marker):
-                f.fired = True  # spent in an earlier gang incarnation
+            shards = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".npy"))
+            path = os.path.join(ckpt_dir, shards[0]) if shards else None
+            size = os.path.getsize(path) if path else 0
+            if not size:
                 continue
-            if ckpt_dir is None or not os.path.isdir(ckpt_dir):
-                # a non-committing rank of a coordinated save: the dir
-                # may not have been renamed into place yet.  The ordinal
-                # was counted (every rank sees the same save sequence);
-                # the committing rank performs the mutation.
-                continue
-            if marker is not None:
-                os.makedirs(self.state_dir, exist_ok=True)
-                try:
-                    with open(marker, "x") as fh:
-                        fh.write(str(os.getpid()))
-                except FileExistsError:
-                    f.fired = True  # another rank won the mutation
-                    continue
-            if self._rot_one_shard(ckpt_dir, f):
-                f.fired = True
-                _MON.counter(f"faults.{f.kind}").inc()
+            with open(path, "r+b") as fh:
+                fh.seek(size // 2)
+                b = fh.read(1)
+                fh.seek(size // 2)
+                fh.write(bytes([b[0] ^ 0xFF]))
+            print(f"faults: rot_shard@{f.at} firing on {path} "
+                  f"(byte {size // 2} flipped post-COMMIT)",
+                  file=sys.stderr, flush=True)
+            f.fired = True
+            _MON.counter("faults.rot_shard").inc()
         return ckpt_dir
-
-    def _rot_one_shard(self, ckpt_dir: str, f: Fault) -> bool:
-        """Flip one payload byte of the first shard file (sorted order).
-        rot_shard takes any .npy; rot_row targets a SelectedRows VALUES
-        shard (`*.vals.*.npy` — the embedding rows of the sparse tier),
-        the silent flipped-row the publish ladder's sparse rung must
-        catch by digest."""
-        shards = sorted(n for n in os.listdir(ckpt_dir)
-                        if n.endswith(".npy")
-                        and (f.kind != "rot_row" or ".vals." in n))
-        if not shards:
-            return False
-        path = os.path.join(ckpt_dir, shards[0])
-        size = os.path.getsize(path)
-        if size == 0:
-            return False
-        with open(path, "r+b") as fh:
-            fh.seek(size // 2)
-            b = fh.read(1)
-            fh.seek(size // 2)
-            fh.write(bytes([b[0] ^ 0xFF]))
-        print(f"faults: rot_shard@{f.at} firing on {path} "
-              f"(byte {size // 2} flipped post-COMMIT)",
-              file=sys.stderr, flush=True)
-        return True
 
     # -- storage faults ----------------------------------------------------
     def arm_io(self) -> "FaultInjector":
@@ -919,23 +695,6 @@ class FaultInjector:
         directly call it by hand)."""
         self._step = int(step)
 
-    def _spend_ledgered(self, f: Fault) -> bool:
-        """True when a previous gang incarnation already fired `f` (ledger
-        marker present) — the entry goes inactive; otherwise the marker is
-        written (plain open: the ledger dir is not storage under test) and
-        the caller fires."""
-        marker = self._ranked_marker(f)
-        if marker is None:
-            return False
-        if os.path.exists(marker):
-            f.fired = True
-            f.exhausted = True
-            return True
-        os.makedirs(self.state_dir, exist_ok=True)
-        with open(marker, "w") as fh:
-            fh.write(str(os.getpid()))
-        return False
-
     def on_io(self, op: str, path: str):
         """The io.py choke-point hook: applies any armed storage fault to
         this operation.  `op` is "read" or "write".  Raises plain OSError
@@ -943,8 +702,7 @@ class FaultInjector:
         errors.classify maps it onto StorageError, exactly the path a real
         disk failure takes.  Paths under FLAGS_ckpt_fallback_dir are
         exempt (the fallback models a different device)."""
-        live = [f for f in self._storage if not f.exhausted]
-        if not live:
+        if not self._storage:
             return
         from . import io as _io
         from .flags import flag as _flag
@@ -960,13 +718,12 @@ class FaultInjector:
                     return
         # CLAIM under the lock (pure bookkeeping: op-index counters and
         # the first-fire latch, so concurrent threads can never double-
-        # fire or skip a one-shot), then FIRE outside it — the ledger's
-        # file I/O, the stderr print, the slow_io sleep, and the raise
-        # are all blocking work that must not serialize other threads'
-        # I/O through a held framework lock.
+        # fire or skip a one-shot), then FIRE outside it — the stderr
+        # print, the slow_io sleep and the raise are blocking work that
+        # must not serialize other threads' I/O through a held lock.
         hits = []  # (fault, first_fire)
         with self._io_lock:
-            for f in live:
+            for f in self._storage:
                 if f.kind in ("slow_io", "eio"):
                     if f.kind == "eio" and \
                             not fnmatch.fnmatch(path, f.arg or "*"):
@@ -979,9 +736,6 @@ class FaultInjector:
                 # step-window kinds: enospc (step == at), ro_fs (step >= at)
                 if op != "write":
                     continue
-                tr = f.target_rank
-                if tr is not None and tr != self.rank:
-                    continue
                 if self._step < 0:
                     continue
                 active = (self._step == f.at if f.kind == "enospc"
@@ -992,8 +746,6 @@ class FaultInjector:
         sleep_ms = 0.0
         err = None
         for f, first in hits:
-            if first and self._spend_ledgered(f):
-                continue  # spent by an earlier gang incarnation
             if f.kind == "slow_io":
                 _MON.counter("faults.slow_io").inc()
                 print(f"faults: slow_io@{f.at} firing on {path} "
@@ -1004,8 +756,8 @@ class FaultInjector:
                 _MON.counter(f"faults.{f.kind}").inc()
                 at = (f"op {f.at}" if f.kind == "eio"
                       else f"step {self._step}")
-                print(f"faults: {f} firing at {at} on {path} "
-                      f"(rank {self.rank})", file=sys.stderr, flush=True)
+                print(f"faults: {f} firing at {at} on {path}",
+                      file=sys.stderr, flush=True)
             err = OSError(_STORAGE_ERRNO[f.kind],
                           f"injected {f.kind.upper().replace('_', '-')} "
                           f"(fault {f})", path)
@@ -1016,12 +768,9 @@ class FaultInjector:
 
     def on_dispatch(self, step: int):
         """Called just before train step `step` is dispatched; raises the
-        scheduled transient device error, delivers a real SIGTERM (the
-        preemption notice), hard-kills this worker (SIGKILL — no cleanup,
-        no tombstone: peers must detect the death by heartbeat staleness),
-        or stalls it to fake a straggler.  Also advances the storage
-        faults' step tracker (enospc/ro_fs windows follow the train
-        step)."""
+        scheduled transient device error or delivers a real SIGTERM (the
+        preemption notice).  Also advances the storage faults' step
+        tracker (enospc/ro_fs windows follow the train step)."""
         self.set_step(step)
         f = self._take("device", step)
         if f is not None:
@@ -1031,33 +780,3 @@ class FaultInjector:
                 code=code, step=step, phase="device")
         if self._take("preempt", step) is not None:
             os.kill(os.getpid(), signal.SIGTERM)
-        f = self._take("kill_worker", step)
-        if f is not None:
-            print(f"faults: kill_worker@{step}:{self.rank} firing (SIGKILL)",
-                  file=sys.stderr, flush=True)
-            os.kill(os.getpid(), signal.SIGKILL)
-        f = self._take("stall_worker", step)
-        if f is not None:
-            _MON.counter("faults.stall_seconds").inc(int(f.stall_s))
-            time.sleep(f.stall_s)
-        # host-tier chaos: only claimable once a supervisor is
-        # registered — without one the entries stay pending, same contract
-        # as a step index never reached
-        if self._pserver is not None:
-            f = self._take("kill_pserver", step)
-            if f is not None:
-                print(f"faults: kill_pserver@{step} firing (SIGKILL on the "
-                      f"pserver child)", file=sys.stderr, flush=True)
-                self._pserver.kill()
-            f = self._take("stall_pserver", step)
-            if f is not None:
-                print(f"faults: stall_pserver@{step} firing (SIGSTOP "
-                      f"{f.pserver_stall_s}s)", file=sys.stderr, flush=True)
-                self._pserver.stall(f.pserver_stall_s)
-
-    def set_pserver(self, supervisor) -> "FaultInjector":
-        """Register the PServerSupervisor the kill_pserver/stall_pserver
-        entries act on (anything with .kill() / .stall(seconds) works).
-        Returns self for chaining."""
-        self._pserver = supervisor
-        return self

@@ -28,10 +28,6 @@ def set_flags(flags: Dict[str, Any]):
         if k not in _REGISTRY:
             raise KeyError(f"unknown flag {k!r}; known: {sorted(_REGISTRY)}")
         _REGISTRY[k]["value"] = _coerce(_REGISTRY[k]["type"], v)
-        if k in ("FLAGS_lock_telemetry", "FLAGS_lock_timeout_s"):
-            from .core import locks
-
-            locks.refresh_from_flags()
 
 
 def get_flags(names) -> Dict[str, Any]:
@@ -94,10 +90,3 @@ _define("FLAGS_publish_period_steps", int, 0,
         "resilient_train_loop calls its publish hook every N steps "
         "(resilience.py); a failed publish is counted and training goes on.  "
         "0 (default): no publish hook")
-_define("FLAGS_lock_telemetry", bool, False,
-        "per-lock monitor counters lock.<name>.acquires / contended / wait_us / "
-        "hold_us and lock.order_inversions for every named lock (core/locks.py)")
-_define("FLAGS_lock_timeout_s", float, 0.0,
-        "deadline on every blocking named-lock acquisition (core/locks.py): "
-        "past it the acquire raises LockTimeoutError naming the wanted lock "
-        "and every lock the thread holds.  0 (default): no deadline")

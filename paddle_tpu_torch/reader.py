@@ -862,18 +862,20 @@ class DataFeeder:
 # --- prefetching loader (PyReader / buffered_reader equivalent) ------------
 
 class _PinnedPool:
-    """Pinned host buffers by (shape, dtype), each with the event of the
-    upload that last read it: a buffer is handed out again only once that
-    event has completed, so the producer never overwrites bytes a copy
-    still has to read."""
+    """Pinned host buffers by (feed name, shape, dtype), each with the event
+    of the upload that last read it: a buffer is handed out again only once
+    that event has completed, so the producer never overwrites bytes a copy
+    still has to read.  Keyed by feed: two feeds of one batch with the same
+    shape and dtype (BERT's token, position and label ids) never share a
+    buffer while the batch's event is not yet recorded."""
 
     def __init__(self, per_key: int):
         self.per_key = per_key
         # key -> [[tensor, event of its last upload, upload ordinal], ...]
         self.bufs: Dict[tuple, List[list]] = {}
 
-    def take(self, shape, dtype) -> list:
-        slots = self.bufs.setdefault((tuple(shape), dtype), [])
+    def take(self, name: str, shape, dtype) -> list:
+        slots = self.bufs.setdefault((name, tuple(shape), dtype), [])
         for slot in slots:
             if slot[1] is None or slot[1].query():
                 return slot
@@ -979,7 +981,7 @@ class DataLoader:
         with torch.cuda.device(self.device):
             for n, a in arrays.items():
                 src = to_tensor(a)  # a host view of the array (bf16 by its bits)
-                slot = self._pool.take(src.shape, src.dtype)
+                slot = self._pool.take(n, src.shape, src.dtype)
                 slot[0].copy_(src)
                 used.append(slot)
                 with torch.cuda.stream(self._stream):

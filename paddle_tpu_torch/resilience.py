@@ -362,11 +362,8 @@ def resilient_train_loop(
     if _integrity_period > 0:
         from . import integrity as _integrity_mod
 
-        _rank = getattr(cm, "rank", None)
-        if _rank is None:
-            _rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
         digester = _integrity_mod.arm_live_digests(
-            scope, period=_integrity_period, rank=_rank)
+            scope, period=_integrity_period, rank=getattr(cm, "rank", 0))
 
     # publish cadence: period from the kwarg, else the flag;
     # no hook (or period 0) disables the whole path at one `if`

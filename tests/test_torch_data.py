@@ -573,6 +573,41 @@ def test_dataloader_defaults_to_the_card_and_refuses_sharding(monkeypatch):
     assert tfluid.PyReader is tfluid.DataLoader
 
 
+class _PendingUpload:
+    """Stands in for a CUDA event of an upload still queued on the card."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+def test_pinned_pool_never_hands_out_a_buffer_an_upload_may_read(monkeypatch):
+    """The loader's pinned buffers (host pages here; `pin_memory` needs a
+    card): feeds of one shape and dtype in one batch each get a buffer of
+    their own, a buffer whose upload is pending is not handed out again,
+    and past the pool's depth the oldest upload is waited for first."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: empty(*a, **k))
+    pool = t_reader._PinnedPool(2)
+    batch = [pool.take(n, (4, 8), torch.int32) for n in ("ids", "pos_ids", "labels")]
+    assert len({s[0].data_ptr() for s in batch}) == 3
+    ev = [_PendingUpload(), _PendingUpload()]
+    batch[0][1:] = [ev[0], 1]
+    second = pool.take("ids", (4, 8), torch.int32)
+    assert second is not batch[0]
+    second[1:] = [ev[1], 2]
+    third = pool.take("ids", (4, 8), torch.int32)  # both pending: wait for upload 1
+    assert third is batch[0] and ev[0].done and not ev[1].done
+    third[1:] = [_PendingUpload(), 3]
+    ev[1].done = True
+    assert pool.take("ids", (4, 8), torch.int32) is second
+
+
 # --- QueueDataset / train_from_dataset on fit-a-line ---------------------------
 
 def _fit_a_line(pkg):

@@ -930,17 +930,20 @@ def test_dataloader_batch_equals_its_source_on_card():
     loader's upload stream held back by a sleep kernel so that every copy
     is still queued when its batch is yielded: a kernel reading each batch
     right after the hand-off, while the producer refills the three pinned
-    buffers with later batches, sees exactly its numpy source (float64 ->
-    float32 and int64 -> int32 on the host first)."""
+    buffers of each feed with later batches, sees exactly its numpy source
+    (float64 -> float32 and int64 -> int32 on the host first).  Three feeds
+    share one shape and dtype, as BERT's token, position and label ids do:
+    none of them is handed another's data."""
     _need_card()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         x = fluid.layers.data("x", [1024, 1024], dtype="float32")
-        ids = fluid.layers.data("ids", [8], dtype="int64")
+        ids = [fluid.layers.data(n, [8], dtype="int64") for n in ("ids", "pos", "lbl")]
     rng = np.random.RandomState(5)
-    batches = [{"x": rng.rand(4, 1024, 1024), "ids": rng.randint(0, 1 << 40, (4, 8))}
+    batches = [{"x": rng.rand(4, 1024, 1024),
+                **{n: rng.randint(0, 1 << 40, (4, 8)) for n in ("ids", "pos", "lbl")}}
                for _ in range(6)]
-    loader = fluid.DataLoader.from_generator([x, ids], capacity=1, device=fluid.CUDAPlace(0))
+    loader = fluid.DataLoader.from_generator([x] + ids, capacity=1, device=fluid.CUDAPlace(0))
     loader.set_batch_generator(lambda: iter(batches))
     with torch.cuda.stream(loader._stream):
         torch.cuda._sleep(500_000_000)  # ~0.3 s: the uploads queue behind it
@@ -949,10 +952,12 @@ def test_dataloader_batch_equals_its_source_on_card():
         assert b["x"].is_cuda and b["x"].dtype == torch.float32 and b["ids"].dtype == torch.int32
         seen.append({k: v * 1 for k, v in b.items()})  # a kernel on the consumer's stream
     torch.cuda.synchronize()
+    assert len(loader._pool.bufs) == 4  # a pool of its own for each feed
     assert all(len(slots) == 3 for slots in loader._pool.bufs.values())  # buffers were reused
     for got, want in zip(seen, batches):
         np.testing.assert_array_equal(got["x"].cpu().numpy(), want["x"].astype(np.float32))
-        np.testing.assert_array_equal(got["ids"].cpu().numpy(), want["ids"].astype(np.int32))
+        for n in ("ids", "pos", "lbl"):
+            np.testing.assert_array_equal(got[n].cpu().numpy(), want[n].astype(np.int32))
 
 
 @pytest.mark.gpu

@@ -188,6 +188,30 @@ def test_fault_spec_grammar_parses_alike(spec):
         assert errs[0] == errs[1]
 
 
+@pytest.mark.parametrize("spec,item", [
+    ("kill_worker@3:1", "A10"), ("stall_worker@6:0:0.2", "A10"), ("flip_bit@5:1", "A10"),
+    ("enospc@4:1", "A10"), ("ro_fs@3:0", "A10"), ("kill_pserver@3", "A9"),
+    ("stall_pserver@3:0.5", "A9"), ("rot_row@0", "A9")])
+def test_injector_refuses_gang_and_parameter_server_entries(spec, item):
+    """The port runs one process: an entry aimed at a gang's worker rank or
+    at the parameter server parses, and the injector refuses it, naming the
+    ROADMAP item that brings it."""
+    assert tfluid.faults.parse_fault_spec(spec)[0].kind == spec.split("@")[0]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tfluid.FaultInjector("nan@1;" + spec)
+
+
+def test_named_locks_keep_one_rank_per_name():
+    from paddle_tpu_torch.core import locks
+
+    lk = locks.named_lock("test.locks.rank", rank=7)
+    with lk:
+        assert lk.locked() and not lk.acquire(blocking=False)
+    assert not lk.locked() and locks.named_lock("test.locks.rank", rank=7).rank == 7
+    with pytest.raises(ValueError, match="already registered with rank 7"):
+        locks.named_lock("test.locks.rank", rank=8)
+
+
 def test_injector_hooks_fire_once_and_from_flags():
     inj = tfluid.FaultInjector("bad_batch@1;nan@2")
     with pytest.raises(DataError, match="injected bad batch 1"):
