@@ -183,7 +183,37 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      shape and dtype), resilient_train_loop with preempt@5, then a resume
      to step 10: losses and every persistable, the generator's state
      included, bitwise equal to 10 straight steps fed from numpy; launches
-     FUSED_PER_STEP for each eager or captured step.
+     FUSED_PER_STEP for each eager or captured step; the preemption's
+     drain writes the flight recorder's BLACKBOX.p0.json, reason
+     "sigterm_drain";
+ 31. se_resnext_train / se_resnext_serve: SE-ResNeXt-50 (224 x 224, 1000
+     classes, float32 as built, Momentum 0.1 / 0.9) trains 6 steps at batch
+     64 through Executor(CUDAPlace(0)).run, eager then graphed (train_arm:
+     each step's launches held, the monitor read, a profiled step; the
+     first step lowers the loss, the lowest is below the first, the running
+     statistics move), every step launching the BN epilogue 53 + 53 times
+     and the xent 1 + 1, as the program's ops say; then, its batch norms
+     calibrated, saved by save_inference_model and served through
+     create_predictor at batch 1 and 64 (53 BN epilogue launches a request);
+ 32. vgg_train / vgg_serve: phase 31 for VGG-16 (Adam): BN epilogue 13 +
+     13, xent 1 + 1, Adam 60 a step, 13 a request;
+ 33. lstm_train: the stacked dynamic LSTM (3 layers, embedding and hidden
+     512, vocab 5000, Adam) on 32 ragged sentences of 20-128 tokens (bucket
+     128), eager then graphed: xent 1 + 1, Adam 15 a step;
+ 34. word2vec_train: word2vec at the builder's sizes, batch 256, eager then
+     graphed: xent 1 + 1, Adam 5 a step;
+ 35. vision_parity: card against CPU at reduced size: the conv nets' test-mode
+     logits at 64 x 64, batch 2 (1e-3 * max(1, max|logits|)) and 3 steps
+     each from the CPU's state at batch 4 by phase 11's rule
+     (conv_step_shares); the LSTM (width 128, 8 sentences of 5-32) and
+     word2vec: test-mode logits (1e-4 * max(1, max|logits|)) and 3 Adam
+     steps by phase 7's rule;
+ 36. profiled_trace: phase 31's graphed step under
+     profiler.profiler(state="All", trace_dir=...): the Chrome trace names
+     every kernel of the step's launches and holds the executor's spans;
+     the Prometheus page and the summary table are not empty.
+Phase 3 also times the BN epilogue, the xent and Adam at the family's
+float32 shapes (check_vision_kernels).
 
 Before phase 1 the host's ml_dtypes is required: a numpy fetch of a bf16
 value is an ml_dtypes bfloat16 array of the card's bits (ROADMAP C1), and
@@ -194,7 +224,7 @@ wrapper's launch count moves at the first run (eager) and the second (the
 capture) only: each phase holds those counts and reads a replay's launches
 off a profiled replay (`hold_run_launches`, `profile_replay`); the kernels
 line gives the wrappers' counts, the replays' and their sum by path.  The
-executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15, 17 and 24 print
+executor's monitor is on: phases 4, 6, 8, 10, 12, 13, 15, 17, 24 and 31-34 print
 its counters (held, the verifier's runs among them), its dispatch, fetch
 and verify spans and memory gauges a run of steps or requests
 (`read_monitor`); phases 27-30 also print the reader's and the resilience
@@ -350,8 +380,46 @@ RESILIENT_STEPS = 16
 RESILIENT_EPOCHS = 3  # 24 raw batches, 18 of them needed
 BERT_RESUME_SPEC = "preempt@5"
 BERT_RESUME_STEPS = 10
+# the fluid_benchmark model family (phases 31-36; benchmark/fluid/models/ of
+# the reference, paddle_tpu_torch/models/vision.py): SE-ResNeXt-50 and VGG-16
+# at 224 x 224 and 1000 classes, float32 as built (no fusion pass, so no
+# bias-act kernel), batch 64; the stacked dynamic LSTM at its benchmark's
+# width (3 layers, embedding and hidden 512, vocab 5000) on 32 ragged
+# sentences of 20-128 tokens (cut from the IMDB reviews' lengths to bucket
+# 128); word2vec at the builder's own sizes (dict 1000, embedding 32, hidden
+# 64, 3 context words) at batch 256
+VISION = {"se_resnext": ("build_se_resnext", dict(class_dim=1000, image_shape=(3, 224, 224),
+                                                   learning_rate=0.1)),
+          "vgg": ("build_vgg", dict(class_dim=1000, image_shape=(3, 224, 224))),
+          "stacked_lstm": ("build_stacked_dynamic_lstm",
+                           dict(vocab_size=5000, emb_dim=512, hidden_dim=512, stacked_num=3)),
+          "word2vec": ("build_word2vec", {})}
+VISION_BATCH = 64
+VISION_SERVE_BATCHES = (1, 64)
+LSTM_BATCH, LSTM_MIN_LEN, LSTM_BUCKET = 32, 20, 128
+W2V_BATCH = 256
+# a step's launches, as launches_of_program reads them off each program: 53
+# batch norms over NCHW in SE-ResNeXt-50 (the stem, 3 per block x 16, 4
+# shortcuts) and 13 in VGG-16 (its fc's batch norm is 2-D: the composite);
+# one hard-label loss each; one Adam update per parameter (VGG-16: 13 conv
+# weights and biases, 14 batch-norm scales and biases, 3 fc weights and
+# biases; the LSTM: the embedding, 4 per layer, the fc's 2; word2vec: the
+# shared embedding and 2 fc's 2); Momentum has no kernel
+VISION_PER_STEP = {
+    "se_resnext": dict(NONE, bn_epilogue_fwd=53, bn_epilogue_bwd=53, softmax_xent_fwd=1,
+                       softmax_xent_bwd=1),
+    "vgg": dict(NONE, bn_epilogue_fwd=13, bn_epilogue_bwd=13, softmax_xent_fwd=1,
+                softmax_xent_bwd=1, adam=60),
+    "stacked_lstm": dict(NONE, softmax_xent_fwd=1, softmax_xent_bwd=1, adam=15),
+    "word2vec": dict(NONE, softmax_xent_fwd=1, softmax_xent_bwd=1, adam=5)}
+VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
+                      "vgg": dict(NONE, bn_epilogue_fwd=13)}
+# phase 35: the conv nets at 64 x 64 (the last stage 2 x 2, not 1 x 1:
+# tests/test_torch_resnet.py), the LSTM at width 128 on 8 sentences of 5-32
+VISION_PARITY_SIZE = 64
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
+LAUNCH_ORDER = ("se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
+                "se_resnext_serve", "vgg_serve", "nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
                 "resilient_bert")
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
@@ -1163,6 +1231,133 @@ def check_bn_kernels(torch, ck):
     return record
 
 
+def check_vision_kernels(torch, ck, record):
+    """Phase 3, the shapes the fluid_benchmark family gives the kernels, in
+    float32 as the models are built: the BN epilogue forward and backward at
+    SE-ResNeXt-50's first stage ([64*128, 56*56] with relu, the grouped
+    conv's output; [64*256, 56*56] without, the block's last batch norm, the
+    squeeze-excitation's input) and VGG-16's first block ([64*64, 224*224]
+    with relu); the cross-entropy forward and backward at [64, 1000]; Adam at
+    VGG-16's largest parameter (25088 x 512).  Each against its plain version
+    (the forward at FUSED_KERNELS' tolerances, the backward element by
+    element), timed with its plain version and a library call, and added to
+    `record` under at_<shape>_f32."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * s
+
+    def timed(err, fn, plain, library, library_name, bytes_moved, ops, shape):
+        b_ms, b_by = bound(bytes_moved, ops, F32_FLOPS)
+        return dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+                    library_ms=time_ms(library), library=library_name, bound_ms=b_ms,
+                    bound_by=b_by, shape=shape)
+
+    f32 = torch.float32
+    for rows, w, relu, where in ((64 * 128, 3136, True, "se_resnext_stage1"),
+                                 (64 * 256, 3136, False, "se_resnext_stage1_out"),
+                                 (64 * 64, 50176, True, "vgg_block1")):
+        x, g = randn(rows, w), randn(rows, w)
+        mul = 0.5 + torch.rand(rows, generator=gen, device=dev)
+        add = randn(rows, s=0.5)
+        case = f"[{rows},{w}] {where} relu={relu}"
+        err_f = check("bn_epilogue_fwd", "y", f32, case, ck._epilogue_fwd(x, mul, add, relu),
+                      ck.bn_epilogue_plain(x, mul, add, relu), TOL["float32"]["bn_epilogue_fwd"])
+        got = ck.bn_epilogue_bwd(x, mul, add, g, relu)
+        want = ck.bn_epilogue_bwd_plain(x, mul, add, g, relu)
+        allowed = epilogue_bwd_allowed(x, mul, g, want)
+        rules = ("one rounding of |plain|", "1e-5*sum|g*x| of the row", "1e-5*sum|g| of the row")
+        err_b = max(check_within("bn_epilogue_bwd", what, f32, case, a, b, t, rule)
+                    for what, a, b, t, rule in zip(("dx", "dmul", "dadd"), got, want, allowed,
+                                                   rules))
+        del got, want, allowed
+        mul_x, add_x = mul[:, None], add[:, None]
+        y = ck.bn_epilogue_plain(x, mul, add, relu)
+        key = f"at_{rows}x{w}_{where}_f32"
+        shape = f"[{rows},{w}] f32 relu={relu} ({where})"
+        record["bn_epilogue_fwd"][key] = timed(
+            err_f, lambda: ck._epilogue_fwd(x, mul, add, relu),
+            lambda: ck.bn_epilogue_plain(x, mul, add, relu),
+            (lambda: torch.addcmul(add_x, x, mul_x).relu_()) if relu
+            else (lambda: torch.addcmul(add_x, x, mul_x)),
+            "torch.addcmul(add, x, mul)" + (".relu_(): two calls" if relu else ""),
+            2 * nbytes(x) + 8 * rows, 3.0 * x.numel(), shape)
+
+        def library_bwd():
+            gm = torch.ops.aten.threshold_backward(g, y, 0) if relu else g
+            gm * mul_x
+            (gm * x).sum(-1)
+            gm.sum(-1)
+
+        record["bn_epilogue_bwd"][key] = timed(
+            err_b, lambda: ck.bn_epilogue_bwd(x, mul, add, g, relu),
+            lambda: ck.bn_epilogue_bwd_plain(x, mul, add, g, relu), library_bwd,
+            ("aten.threshold_backward(g, y, 0), then " if relu else "") +
+            "gm*mul, (gm*x).sum(-1) and gm.sum(-1)", 3 * nbytes(x) + 16 * rows,
+            6.0 * x.numel(), shape)
+        del x, g, y
+        torch.cuda.empty_cache()
+    # the cross-entropy at the conv nets' [64, 1000], every row labelled
+    logits = randn(64, 1000, s=2.0)
+    labels = torch.randint(0, 1000, (64,), generator=gen, device=dev)
+    err_f, _ = hold_xent_fwd(torch, ck, logits, labels, "[64,1000] f32")
+    loss, lse = ck.softmax_xent_fwd(logits, labels, -100)
+    gl = 1.0 + torch.rand(64, generator=gen, device=dev)
+    dx = ck.softmax_xent_bwd(logits, labels, lse, gl, -100)
+    dx_p = ck.softmax_xent_bwd_plain(logits, labels, lse, gl, -100)
+    err_b = check_within("softmax_xent_bwd", "dlogits", f32, "[64,1000] f32", dx, dx_p,
+                         XENT_BWD_REL["float32"] * dx_p.abs() + 1e-12, "1e-06*|plain| + 1e-12")
+    lab64 = labels.long()
+    row = 1000 * 4
+    record["softmax_xent_fwd"]["at_64x1000_f32"] = timed(
+        err_f, lambda: ck.softmax_xent_fwd(logits, labels, -100),
+        lambda: ck.softmax_xent_fwd_plain(logits, labels, -100),
+        lambda: F.cross_entropy(logits, lab64, reduction="none"),
+        "F.cross_entropy(reduction='none')", 64 * row + 64 * 8 + 64 * 8, 4.0 * 64 * 1000,
+        "[64,1000] f32")
+    lx = logits.detach().requires_grad_()
+    lib_loss = F.cross_entropy(lx, lab64, reduction="none")
+    record["softmax_xent_bwd"]["at_64x1000_f32"] = timed(
+        err_b, lambda: ck.softmax_xent_bwd(logits, labels, lse, gl, -100),
+        lambda: ck.softmax_xent_bwd_plain(logits, labels, lse, gl, -100),
+        lambda: torch.autograd.grad(lib_loss, lx, gl, retain_graph=True),
+        "backward of F.cross_entropy(reduction='none')", 2 * 64 * row + 64 * 16,
+        4.0 * 64 * 1000, "[64,1000] f32")
+    del lx, lib_loss
+    # Adam at VGG-16's fc over the flattened 7 x 7 x 512 features
+    n = 25088 * 512
+    p, g = randn(n, s=0.02), randn(n, s=0.01)
+    m, v = randn(n, s=0.01), (0.5 + torch.rand(n, generator=gen, device=dev)) * 1e-4
+    lr_t = torch.full((1,), 1e-3, device=dev)
+    want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
+    got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
+    terms_m = 0.9 * m.abs() + 0.1 * g.abs()
+    terms_v = 0.999 * v + 0.001 * g * g
+    terms_p = p.abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8)
+    err = max(check_within("adam", what, f32, f"n={n} (VGG-16 fc)", a, c,
+                           F32_ERR * terms + 1e-30, "2^-20*|terms|")
+              for what, terms, a, c in zip(("p", "m", "v"), (terms_p, terms_m, terms_v),
+                                          got, want))
+    step = torch.zeros((), device=dev)
+    record["adam"][f"at_{n}_f32"] = timed(
+        err, lambda: ck.fused_adam(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
+        lambda: ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
+        lambda: torch._fused_adam_([p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9,
+                                   beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                                   maximize=False),
+        "torch._fused_adam_ on one tensor", nbytes(p, m, v, g, p, m, v), 10.0 * n,
+        f"[{n}] float32 (VGG-16 fc)")
+    del p, g, m, v, got, want, terms_m, terms_v, terms_p
+    torch.cuda.empty_cache()
+    for name in ("bn_epilogue_fwd", "bn_epilogue_bwd", "softmax_xent_fwd", "softmax_xent_bwd",
+                 "adam"):
+        emit({"timing": name, **{k: r for k, r in record[name].items()
+                                 if k.startswith("at_") and k.endswith("_f32")}})
+
+
 def build_bert(fluid, dtype, n_layers):
     """Full-width BERT-base, random weights from seed 0, run through the two fusion
     passes; returns (main, startup, logits name)."""
@@ -1338,6 +1533,21 @@ def serve(fluid, torch, ck, tmp, card):
 # milliseconds for a whole process (phase 24 once missed one of the step's
 # LayerNorm forwards in every session of a process)
 PROFILE_MARGIN_S = 0.05
+# spin kernels launched at both ends of a profiler session and left out of
+# every count: late in a long process the profiler dropped 13 kernel
+# records at an end of every session (a graphed SE-ResNeXt-50 request
+# showed 1,221 of its 1,234 kernels, one BN epilogue among the lost, three
+# times)
+PROFILE_PAD_KERNELS = 64
+PAD_KERNEL = re.compile(r"\bspin_kernel\b")
+
+
+def pad_session(torch):
+    """PROFILE_PAD_KERNELS spin kernels, at each end of a profiler session,
+    so that the records the profiler drops there are theirs."""
+    for _ in range(PROFILE_PAD_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
 
 
 def profile_run(torch, what, run, card):
@@ -1350,14 +1560,17 @@ def profile_run(torch, what, run, card):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad_session(torch)
         time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
+        pad_session(torch)
         time.sleep(PROFILE_MARGIN_S)
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not PAD_KERNEL.search(e.key)]
     host_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
                 and e.key.startswith("aten::")]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1470,10 +1683,11 @@ def profile_replay(torch, what, run, card, per_run):
     """profile_run of a graph's replay, whose port kernels must equal the
     reckoned launches `per_run`.  The profiler once lost the first ~500
     kernel records of a 3,189-kernel replay (12.6 of its 17.0 ms of kernels
-    seen, the forward's uncounted), and in another process the first 14 of
-    every session (PROFILE_MARGIN_S), so a replay whose count differs is
-    profiled again, up to 3 times: the graph replays the same kernels every
-    time, so a wrong graph never passes.  Returns the passing record."""
+    seen, the forward's uncounted), and in other processes the first 14 or
+    the last 13 of every session (PROFILE_MARGIN_S, PROFILE_PAD_KERNELS),
+    so a replay whose count differs is profiled again, up to 3 times: the
+    graph replays the same kernels every time, so a wrong graph never
+    passes.  Returns the passing record."""
     for attempt in range(3):
         counts, record = profile_run(torch, what, run, card)
         emit({"replay_launches": what, "graphed": True, "attempt": attempt, "launches": counts})
@@ -3381,6 +3595,8 @@ def resilient_bert(fluid, torch, ck, tmp, card):
     gc.collect()
     ck.reset_launches()  # the main path's count starts here
     fluid.monitor.reset()
+    blackbox = os.path.join(tmp, "BLACKBOX.p0.json")
+    fluid.monitor.arm_flight_recorder(blackbox, 0)  # the preemption's drain dumps it
     segments = []
     for resume in (False, True):
         exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
@@ -3396,6 +3612,19 @@ def resilient_bert(fluid, torch, ck, tmp, card):
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     mon = fluid.monitor.get_monitor()
+    mon._bb_path = None  # disarmed: the recorder has no other API for it, as in the JAX package
+    box = {}
+    if os.path.exists(blackbox):
+        with open(blackbox) as f:
+            box = json.load(f)
+    emit({"phase": "resilient_bert", "blackbox": os.path.basename(blackbox),
+          "reason": box.get("reason"), "steps_in_ring": len(box.get("steps", ())),
+          "events_in_ring": len(box.get("events", ())),
+          "resilience_events": [r.get("action") for r in box.get("steps", ())
+                                if r.get("kind") == "resilience_event"]})
+    if box.get("reason") != "sigterm_drain":
+        raise AssertionError(f"resilient_bert: the preemption wrote no black box with the "
+                             f"drain's reason (found {box.get('reason')!r})")
     saves, save_s = span_total(mon, "checkpoint.save")
     restores, restore_s = span_total(mon, "checkpoint.restore")
     staged = mon.counter("reader.bytes_staged").value
@@ -3426,6 +3655,378 @@ def resilient_bert(fluid, torch, ck, tmp, card):
                              f"{losses} vs {want_losses}, {len(differ)} persistables differ, "
                              f"generator equal {rng_equal}, {staged} bytes staged")
     return launches
+
+
+# --- the fluid_benchmark model family (phases 31-36) --------------------------
+
+
+def build_vision(fluid, model, with_optimizer=True, **overrides):
+    """The `model` of paddle_tpu_torch/models/vision.py in its configuration
+    (VISION, updated by `overrides`), random weights from seed 0, float32 as
+    built (no fusion pass); returns (main, startup, fetches) with the
+    logits (the loss's input) among the fetches."""
+    from paddle_tpu_torch.models import vision
+
+    fn, config = VISION[model]
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = getattr(vision, fn)(with_optimizer=with_optimizer,
+                                                        **dict(config, **overrides))
+    startup.random_seed = main.random_seed = 0
+    xent = next(op for op in main.global_block().ops if op.type == "softmax_with_cross_entropy")
+    return main, startup, dict(fetches, logits=main.global_block().var(xent.input("Logits")[0]))
+
+
+def on_card(torch, feed):
+    """The feed's arrays as tensors on the card: loading data is set-up."""
+    return {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+
+
+def vision_feed(model, batch, seed, size=224, vocab=None, max_len=LSTM_BUCKET, min_len=None):
+    """A seeded batch for `model`: images in [0, 1) of `size` and 1000-class
+    labels (10 below 224); the LSTM's ragged word ids (lengths uniform in
+    [min_len, max_len], padded to max_len, with their `words@LOD`) and
+    binary labels; word2vec's context and target ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if model in ("se_resnext", "vgg"):
+        return {"img": rng.rand(batch, 3, size, size).astype(np.float32),
+                "label": rng.randint(0, 1000 if size == 224 else 10, (batch, 1)).astype(np.int64)}
+    vocab = vocab or (VISION[model][1].get("vocab_size") or 1000)
+    if model == "stacked_lstm":
+        lens = rng.randint(min_len or LSTM_MIN_LEN, max_len + 1, batch).astype(np.int32)
+        words = np.zeros((batch, max_len, 1), np.int64)
+        for i, n in enumerate(lens):
+            words[i, :n, 0] = rng.randint(0, vocab, n)
+        return {"words": words, "words@LOD": lens,
+                "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+    feed = {f"w{i}": rng.randint(0, vocab, (batch, 1)).astype(np.int64) for i in range(3)}
+    feed["target"] = rng.randint(0, vocab, (batch, 1)).astype(np.int64)
+    return feed
+
+
+def vision_train(fluid, torch, ck, card, model, phase, feed, units):
+    """Phases 31-34: `model` trains TRAIN_STEPS steps on one fixed `feed`
+    through Executor(CUDAPlace(0)).run, eager then graphed (train_arm: each
+    step's launches held, the monitor read, a profiled step); in each arm
+    the first step lowers the loss, the lowest loss is below the first and
+    the batch norms' running statistics move.  A step's launches are read
+    off the program and must equal VISION_PER_STEP.  Returns the launches counted and what phase 36
+    profiles."""
+    t0 = time.perf_counter()
+    main, startup, fetches = build_vision(fluid, model)
+    loss = fetches["loss"].name
+    per_step = launches_of_program(main, loss)
+    if per_step != VISION_PER_STEP[model]:
+        raise AssertionError(f"{phase}: the program's kernel ops {per_step} != the reckoned "
+                             f"{VISION_PER_STEP[model]}")
+    emit({"phase": phase, "model": model, "config": {k: str(v) for k, v in VISION[model][1].items()},
+          "units_per_step": units, "ops": len(main.global_block().ops),
+          "params": len(main.all_parameters()), "setup_s": time.perf_counter() - t0})
+    stats = [op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")]
+    init = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    for arm in ("eager", "graphed"):
+        losses, scope, _ = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed,
+                                     per_step, launches, units)
+        # the first update lowers the loss of the batch it was taken on, and
+        # the steps reach below the start; the last need not (the H100: the
+        # LSTM learns its one fixed batch to 0.003 by step 5, and Adam's
+        # next step, of lr per weight whatever the gradient, overshoots to 2.3)
+        if not (losses[1] < losses[0] and min(losses) < losses[0]):
+            raise AssertionError(f"{phase} {arm}: the loss did not fall: {losses}")
+        # as phase 10: the running statistics move, a graph's replays included
+        still = [n for n in stats if torch.equal(scope.find_var(n), init.find_var(n))]
+        if still:
+            raise AssertionError(f"{phase} {arm}: running statistics that did not move: "
+                                 f"{still[:4]}")
+        del scope
+    return launches, (main, startup, loss, feed, per_step)
+
+
+def vision_serve(fluid, torch, ck, tmp, card, model, phase):
+    """Phase 31-32's serving: `model` (batch-norm running statistics set to a
+    calibration batch's, as phase 8) saved by save_inference_model and
+    served through AnalysisConfig / create_predictor on cuda:0, REQUESTS
+    requests at each of VISION_SERVE_BATCHES (eager, capture, replay): every
+    request launches the BN epilogue forward once per batch norm over NCHW
+    and no other kernel; one more request profiled."""
+    import numpy as np
+    from paddle_tpu_torch.core.dtypes import to_numpy
+
+    per_request = VISION_PER_REQUEST[model]
+    model_dir = os.path.join(tmp, f"{model}_f32")
+    t0 = time.perf_counter()
+    main, startup, fetches = build_vision(fluid, model, with_optimizer=False)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    calibrate(fluid, main, exe, scope, images(16, 70))
+    fluid.io.save_inference_model(model_dir, ["img"], [fetches["logits"]], exe, main, scope)
+    del exe, scope
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    emit({"phase": phase, "model": f"{model} f32 served", "setup_s": time.perf_counter() - t0,
+          "place": repr(predictor.config.place)})
+    ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
+    for i, batch in enumerate(VISION_SERVE_BATCHES):
+        feed = {"img": images(batch, 80 + i)["img"]}
+        for r in range(REQUESTS):
+            before = dict(ck.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = predictor.run(feed, return_numpy=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = to_numpy(out)
+            t2 = time.perf_counter()
+            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+            replayed = hold_run_launches(predictor.exe, r, delta, per_request,
+                                         f"{phase} batch {batch}", phase)
+            emit({"vision_request": model, "batch": batch, "graphed": replayed,
+                  "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
+                  "fetch_ms": (t2 - t1) * 1e3, "images_per_s": batch / (t2 - t0),
+                  "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
+            if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
+                raise AssertionError(f"{phase} batch {batch}: logits {logits.shape}, finite="
+                                     f"{bool(np.isfinite(logits).all())}")
+    launches = dict(ck.LAUNCHES)  # read before the profiled request
+    read_monitor(phase, monitor_want(list(range(REQUESTS)) * len(VISION_SERVE_BATCHES), True), card)
+    profile_replay(torch, f"{phase} request {VISION_SERVE_BATCHES[-1]}",
+                   lambda: predictor.run(feed, return_numpy=False), card, per_request)
+    return launches
+
+
+def learning_rate(scope, names):
+    """The optimizer's learning rate, as its startup wrote it."""
+    return float(next(scope.to_numpy(n) for n in names
+                      if n.startswith("learning_rate")).reshape(-1)[0])
+
+
+def conv_step_shares(cpu_after, card_after, before, stats, params, removed, zero_grad, lr):
+    """One step of a conv net on the card against the CPU from one state
+    (phase 11's rule, as tests/test_torch_vision.py holds it): the running
+    statistics' error as a share of their move; each accumulator's and
+    each parameter update's L2 error as a share of the CPU's; elements whose
+    gradient is 0 in exact arithmetic (`zero_grad`: the biases a batch norm
+    removes, and gradients within ZERO_GRAD of the step's largest) move by
+    Adam's +-lr on rounding alone and are held to 2 * lr + 1e-5, a removed
+    bias's accumulators to 1e-4 of the largest of their kind.  Returns
+    (worst shares by kind, the accumulators' cosine)."""
+    import numpy as np
+
+    worst = {"stat": (0.0, ""), "accumulator": (0.0, ""), "update": (0.0, ""),
+             "zero_grad_abs": (0.0, "")}
+    dot = ng = nc = 0.0
+    acc = ("_velocity_0", "_moment1_0", "_moment2_0")
+    for n, want in cpu_after.items():
+        got, prev = card_after[n], before[n]
+        if n in stats:
+            moved = float(np.abs(want - prev).max())
+            worst["stat"] = max(worst["stat"], (float(np.abs(got - want).max()) / max(moved, 1e-30), n))
+        elif n.endswith(acc):
+            owner, kind = n[:n.rindex("_", 0, -2)], n[n.rindex("_", 0, -2):]
+            if owner in removed:
+                peak = max(float(np.abs(v).max()) for m, v in cpu_after.items() if m.endswith(kind))
+                share = float(np.abs(got - want).max()) / max(peak, 1e-30)
+                worst["zero_grad_abs"] = max(worst["zero_grad_abs"], (share, n))
+                continue
+            share = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+            worst["accumulator"] = max(worst["accumulator"], (share, n))
+            if kind != "_moment2_0":
+                dot += float(np.sum(got.astype(np.float64) * want))
+                ng += float(np.sum(got.astype(np.float64) ** 2))
+                nc += float(np.sum(want.astype(np.float64) ** 2))
+        elif n in params:
+            keep = ~zero_grad[n]
+            flip = float(np.abs(got - want)[~keep].max(initial=0.0))
+            if not flip <= 2 * lr + 1e-5:
+                raise AssertionError(f"card vs CPU {n}: a 0-gradient element moved {flip} > "
+                                     f"2 * lr + 1e-5")
+            upd = (want - prev)[keep]
+            share = float(np.linalg.norm((got - want)[keep]) / max(np.linalg.norm(upd), 1e-30))
+            worst["update"] = max(worst["update"], (share, n))
+    return worst, dot / np.sqrt(ng * nc)
+
+
+def vision_conv_parity(fluid, torch, model):
+    """Phase 35, a conv net: its test-mode forward at VISION_PARITY_SIZE,
+    batch 2, card against CPU from one startup state (logits within 1e-3 *
+    max(1, max|logits|)); then PARITY_STEPS training steps at batch 4,
+    dropout 0, each taken on the CPU and on the card from the CPU's state
+    before it, held by phase 11's rule (conv_step_shares: loss 1e-3 *
+    max(1, |loss|), statistics 1e-3, accumulators and updates 0.2 in L2,
+    cosine 0.99)."""
+    import numpy as np
+
+    size = VISION_PARITY_SIZE
+    kw = dict(class_dim=10, image_shape=(3, size, size))
+    cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
+    main, startup, fetches = build_vision(fluid, model, with_optimizer=False, **kw)
+    test = main.clone(for_test=True)
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    gpu = fluid.Scope()
+    fluid.io.load_numpy_params(gpu, {n: cpu.to_numpy(n) for n in names}, device="cuda:0")
+    img = {"img": vision_feed(model, 2, 90, size)["img"]}
+    logits = fetches["logits"].name
+    want = cpu_exe.run(test, feed=img, fetch_list=[logits], scope=cpu)[0]
+    got = gpu_exe.run(test, feed=img, fetch_list=[logits], scope=gpu)[0]
+    dlogits, tol = float(np.abs(got - want).max()), 1e-3 * max(1.0, float(np.abs(want).max()))
+    emit({"phase": "vision_parity", "model": model, "forward": f"test mode, {size} x {size}, "
+          "batch 2", "max_abs_dlogits": dlogits, "max_abs_logits": float(np.abs(want).max()),
+          "tol": tol})
+    if not dlogits <= tol:
+        raise AssertionError(f"{model}: card vs CPU test-mode logits differ by {dlogits} > {tol}")
+
+    main, startup, fetches = build_vision(fluid, model, **kw)
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    loss = fetches["loss"].name
+    ops = main.global_block().ops
+    bn_in = {op.input("X")[0] for op in ops if op.type == "batch_norm"}
+    removed = {op.input("Y")[0] for op in ops
+               if op.type == "elementwise_add" and op.output("Out")[0] in bn_in}
+    stats = {op.input(s)[0] for op in ops if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    lr = learning_rate(cpu, names)
+    feed = vision_feed(model, 4, 91, size)
+    worst = {"loss": 0.0}
+    cosines, losses = [], []
+    for step in range(PARITY_STEPS):
+        before = {n: cpu.to_numpy(n).copy() for n in names}
+        gpu = fluid.Scope()
+        fluid.io.load_numpy_params(gpu, before, device="cuda:0")
+        gl = float(gpu_exe.run(main, feed=feed, fetch_list=[loss], scope=gpu)[0].reshape(-1)[0])
+        out = cpu_exe.run(main, feed=feed, fetch_list=[loss] + [f"{p}@GRAD" for p in params],
+                          scope=cpu)
+        cl = float(out[0].reshape(-1)[0])
+        peak = max(float(np.abs(g).max()) for g in out[1:])
+        zero_grad = {p: (np.abs(g) <= ZERO_GRAD * peak) | (p in removed)
+                     for p, g in zip(params, out[1:])}
+        del out
+        losses.append((gl, cl))
+        worst["loss"] = max(worst["loss"], abs(gl - cl) / max(1.0, abs(cl)))
+        shares, cosine = conv_step_shares({n: cpu.to_numpy(n) for n in names},
+                                          {n: gpu.to_numpy(n) for n in names}, before, stats,
+                                          set(params), removed, zero_grad, lr)
+        for k, v in shares.items():
+            worst[k] = max(worst.get(k, (0.0, "")), v)
+        cosines.append(cosine)
+    emit({"phase": "vision_parity", "model": model, "train": f"{size} x {size}, batch 4, "
+          "dropout 0, one step at a time from the CPU's state", "losses_card_cpu": losses,
+          **{f"worst_{k}": v for k, v in worst.items()}, "cosines": cosines,
+          "removed_biases": len(removed),
+          "bounds": {"loss": 1e-3, "stat": 1e-3, "accumulator": 0.2, "update": 0.2,
+                     "zero_grad_abs": 1e-4, "cosine": 0.99}})
+    if not (np.isfinite([c for pair in losses for c in pair]).all() and losses[-1][1] != losses[0][1]):
+        raise AssertionError(f"{model}: the CPU's losses are not finite or did not move: {losses}")
+    for what, limit in (("stat", 1e-3), ("accumulator", 0.2), ("update", 0.2),
+                        ("zero_grad_abs", 1e-4)):
+        if not worst[what][0] <= limit:
+            raise AssertionError(f"{model}: card vs CPU {what} {worst[what][1]} off by "
+                                 f"{worst[what][0]} > {limit}")
+    if not (worst["loss"] <= 1e-3 and min(cosines) >= 0.99):
+        raise AssertionError(f"{model}: card vs CPU losses {losses}, cosines {cosines}")
+
+
+def vision_free_parity(fluid, torch, model, overrides, feed, forward_feed):
+    """Phase 35, the LSTM or word2vec: the test-mode forward card against
+    CPU (logits within 1e-4 * max(1, max|logits|)), then PARITY_STEPS Adam
+    steps from one numpy state by phase 7's rule (hold_parity)."""
+    import numpy as np
+
+    main, startup, fetches = build_vision(fluid, model, **overrides)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
+    test = main.clone(for_test=True)
+    logits = fetches["logits"].name
+    out = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        out.append(fluid.Executor(place).run(test, feed=forward_feed, fetch_list=[logits],
+                                             scope=scope)[0])
+    dlogits, tol = float(np.abs(out[0] - out[1]).max()), 1e-4 * max(1.0, float(np.abs(out[1]).max()))
+    emit({"phase": "vision_parity", "model": model, "forward": "test mode",
+          "max_abs_dlogits": dlogits, "tol": tol})
+    if not dlogits <= tol:
+        raise AssertionError(f"{model}: card vs CPU test-mode logits differ by {dlogits} > {tol}")
+    runs, near_zero = parity_runs(fluid, main, fetches["loss"].name, state, feed)
+    lr = learning_rate(init, state)
+    hold_parity({"phase": "vision_parity", "model": model,
+                 "config": {k: str(v) for k, v in overrides.items()}}, runs, near_zero, state, lr)
+
+
+def vision_parity(fluid, torch):
+    """Phase 35: each model of the family card against CPU at a reduced size."""
+    for model in ("se_resnext", "vgg"):
+        vision_conv_parity(fluid, torch, model)
+    lstm = dict(vocab_size=5000, emb_dim=128, hidden_dim=128, stacked_num=3)
+    vision_free_parity(fluid, torch, "stacked_lstm", lstm,
+                       vision_feed("stacked_lstm", 8, 92, max_len=32, min_len=5),
+                       {k: v for k, v in vision_feed("stacked_lstm", 8, 93, max_len=32,
+                                                     min_len=5).items() if k != "label"})
+    vision_free_parity(fluid, torch, "word2vec", {}, vision_feed("word2vec", 64, 94),
+                       vision_feed("word2vec", 16, 95))
+
+
+def profiled_trace(fluid, torch, ck, tmp, card, profiled):
+    """Phase 36: phase 31's SE-ResNeXt-50 step under
+    profiler.profiler(state="All", trace_dir=...): a fresh graphed executor
+    takes two steps (eager, capture), the third (a replay) runs under the
+    profiler, whose Chrome trace must name every kernel of the step's
+    launches (counted by name) and hold the executor's spans; the monitor's
+    Prometheus page and the profiler's summary table are printed (their
+    sizes) and must not be empty."""
+    main, startup, loss, feed, per_step = profiled
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    fluid.monitor.reset()
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    with fluid.profiler.profiler(state="All", profile_path=os.path.join(tmp, "summary.txt"),
+                                 trace_dir=trace_dir):
+        pad_session(torch)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        pad_session(torch)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(trace_dir, fluid.profiler.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    counts = dict(NONE)
+    for ev in events:
+        if ev.get("cat") == "kernel" and PORT_KERNEL.search(ev.get("name", "")):
+            key = KERNEL_KEY.get(KERNEL_OF.search(ev["name"]).group(1))
+            if key is not None:
+                counts[key] += 1
+    spans = sorted({ev["name"] for ev in events if ev.get("pid") == "paddle_tpu_torch.monitor"
+                    and ev.get("ph") == "X"})
+    prom = fluid.monitor.export_prometheus()
+    table = fluid.profiler.summary()
+    emit({"phase": "profiled_trace", "model": "se_resnext f32 batch 64, graphed step",
+          "trace_events": len(events), "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+          "port_kernels_by_name": {k: v for k, v in counts.items() if v}, "per_step": {
+              k: v for k, v in per_step.items() if v}, "monitor_spans": spans,
+          "prometheus_bytes": len(prom), "summary_rows": len(table.splitlines()) - 1,
+          "trace_bytes": os.path.getsize(os.path.join(trace_dir, fluid.profiler.TRACE_FILE)),
+          "profiled_wall_s": wall_s, "card": card})
+    print(table, flush=True)
+    missing = [k for k, v in per_step.items() if v and not counts[k]]
+    if missing or "executor.dispatch" not in spans:
+        raise AssertionError(f"profiled_trace: kernels {missing} not in the trace, or no "
+                             f"executor span in {spans}")
+    if "executor_dispatch" not in prom or len(table.splitlines()) < 2:
+        raise AssertionError("profiled_trace: an empty Prometheus page or summary table")
+    fluid.monitor.reset()
 
 
 def main():
@@ -3465,6 +4066,7 @@ def main():
     timings.update(check_train_kernels(torch, ck))
     check_nmt_kernels(torch, ck, timings)
     timings.update(check_bn_kernels(torch, ck))
+    check_vision_kernels(torch, ck, timings)
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
@@ -3501,6 +4103,22 @@ def main():
         resilient_trained = resilient_resnet(fluid, torch, ck, tmp, card,
                                              os.path.join(tmp, "images.rio"))
         bert_resumed = resilient_bert(fluid, torch, ck, tmp, card)
+        se_trained, profiled = vision_train(fluid, torch, ck, card, "se_resnext",
+                                            "se_resnext_train", on_card(torch, images(
+                                                VISION_BATCH, 100)), {"images": VISION_BATCH})
+        se_served = vision_serve(fluid, torch, ck, tmp, card, "se_resnext", "se_resnext_serve")
+        vgg_trained, _ = vision_train(fluid, torch, ck, card, "vgg", "vgg_train", on_card(
+            torch, images(VISION_BATCH, 101)), {"images": VISION_BATCH})
+        vgg_served = vision_serve(fluid, torch, ck, tmp, card, "vgg", "vgg_serve")
+        lstm_feed = vision_feed("stacked_lstm", LSTM_BATCH, 102)
+        lstm_trained, _ = vision_train(fluid, torch, ck, card, "stacked_lstm", "lstm_train",
+                                       lstm_feed, {"sentences": LSTM_BATCH,
+                                                   "tokens": int(lstm_feed["words@LOD"].sum())})
+        w2v_trained, _ = vision_train(fluid, torch, ck, card, "word2vec", "word2vec_train",
+                                      vision_feed("word2vec", W2V_BATCH, 103),
+                                      {"examples": W2V_BATCH})
+        vision_parity(fluid, torch)
+        profiled_trace(fluid, torch, ck, tmp, card, profiled)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3523,7 +4141,13 @@ def main():
              "loader_resnet": (RESNET_PER_STEP, loader_trained),
              "dataset_deepfm": (NONE, dataset_trained),
              "resilient_resnet": (RESNET_PER_STEP, resilient_trained),
-             "resilient_bert": (FUSED_PER_STEP, bert_resumed)}
+             "resilient_bert": (FUSED_PER_STEP, bert_resumed),
+             "se_resnext_train": (VISION_PER_STEP["se_resnext"], se_trained),
+             "se_resnext_serve": (VISION_PER_REQUEST["se_resnext"], se_served),
+             "vgg_train": (VISION_PER_STEP["vgg"], vgg_trained),
+             "vgg_serve": (VISION_PER_REQUEST["vgg"], vgg_served),
+             "lstm_train": (VISION_PER_STEP["stacked_lstm"], lstm_trained),
+             "word2vec_train": (VISION_PER_STEP["word2vec"], w2v_trained)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

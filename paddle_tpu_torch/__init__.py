@@ -32,7 +32,7 @@ device errors, storage faults and preemption, resuming bit for bit.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
 from . import (clip, errors, flags, inference, io, layers, lod, models, monitor,  # noqa: F401
-               optimizer, pipeline)
+               nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
                recordio_writer, resilience)
 from .checkpoint_manager import CheckpointManager  # noqa: F401

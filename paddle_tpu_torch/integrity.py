@@ -20,8 +20,9 @@
 
 A digest reads every tensor back to the host, which waits for the work
 already enqueued on the card: a digest at a dispatch boundary is exactly
-"the state after the steps dispatched so far".  The flight recorder the
-JAX package dumps on a divergence is not ported yet (ROADMAP A7).
+"the state after the steps dispatched so far".  The first divergence
+`observe_gang` records also dumps the monitor's flight recorder, where one
+is armed (reason "integrity_divergence").
 
 Monitor surface: `integrity.digests / digest_bytes / files_verified /
 file_mismatches / divergences / ckpt_rejected / rollbacks` counters,
@@ -737,4 +738,5 @@ def observe_gang(tel: Dict[int, dict], world: int,
             "attributed": verdict["attributed"],
             "chunk": verdict["chunk"], "safe_step": verdict["safe_step"],
             "digests": verdict["digests"]})
+        _MON.dump_blackbox("integrity_divergence")
     return verdict

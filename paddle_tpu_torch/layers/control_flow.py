@@ -1,5 +1,6 @@
 """Control-flow layers (counterpart of paddle_tpu/layers/control_flow.py):
-`While` with its block guard, `increment` and `less_than`.  The `while`
+`While` with its block guard, `increment`, `less_than`, `equal` and
+`greater_than`.  The `while`
 op's sub-block runs as a Python loop (core/lowering.py run_while)."""
 from __future__ import annotations
 
@@ -20,6 +21,23 @@ def less_than(x, y, cond=None):
     if cond is None:
         cond = helper.create_variable_for_type_inference("bool", shape=(1,))
     helper.append_op("less_than", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [cond.name]})
+    return cond
+
+
+def equal(x, y, cond=None):
+    helper = LayerHelper("equal")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool", shape=(1,))
+    helper.append_op("equal", inputs={"X": [x.name], "Y": [y.name]}, outputs={"Out": [cond.name]})
+    return cond
+
+
+def greater_than(x, y, cond=None):
+    helper = LayerHelper("greater_than")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool", shape=(1,))
+    helper.append_op("greater_than", inputs={"X": [x.name], "Y": [y.name]},
                      outputs={"Out": [cond.name]})
     return cond
 

@@ -1,6 +1,7 @@
 """The in-program beam search layers and the tensor layers the beam decode
 uses (counterpart of part of paddle_tpu/layers/misc.py): `beam_search`,
-`beam_search_decode`, `key_padding_bias`, `logical_and` and `expand`."""
+`beam_search_decode`, `key_padding_bias`, `logical_and`, `logical_or`,
+`logical_not` and `expand`."""
 from __future__ import annotations
 
 from ..core.layer_helper import LayerHelper
@@ -52,6 +53,24 @@ def logical_and(x, y, out=None, name=None):
         out = _out(helper, "bool", shape=x.shape)
     helper.append_op("logical_and", inputs={"X": [x.name], "Y": [y.name]},
                      outputs={"Out": [out.name]}, attrs={})
+    return out
+
+
+def logical_or(x, y, out=None, name=None):
+    helper = LayerHelper("logical_or", name=name)
+    if out is None:
+        out = _out(helper, "bool", shape=x.shape)
+    helper.append_op("logical_or", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]}, attrs={})
+    return out
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    if out is None:
+        out = _out(helper, "bool", shape=x.shape)
+    helper.append_op("logical_not", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={})
     return out
 
 

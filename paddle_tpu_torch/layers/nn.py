@@ -339,10 +339,33 @@ def _act_layer(op_type):
 
 
 relu = _act_layer("relu")
+relu6 = _act_layer("relu6")
 sigmoid = _act_layer("sigmoid")
+logsigmoid = _act_layer("logsigmoid")
+tanh = _act_layer("tanh")
+exp = _act_layer("exp")
+log = _act_layer("log")
 sqrt = _act_layer("sqrt")
+abs = _act_layer("abs")
 square = _act_layer("square")
+softplus = _act_layer("softplus")
+softsign = _act_layer("softsign")
 gelu = _act_layer("gelu")
+erf = _act_layer("erf")
+floor = _act_layer("floor")
+ceil = _act_layer("ceil")
+round = _act_layer("round")
+reciprocal = _act_layer("reciprocal")
+sin = _act_layer("sin")
+cos = _act_layer("cos")
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("leaky_relu", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"alpha": alpha})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -471,6 +494,167 @@ elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
 elementwise_max = _elementwise_layer("elementwise_max")
 elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
+
+
+def _reduce_layer(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = _out(helper, input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            attrs = {"dim": [dim] if isinstance(dim, int) else list(dim), "keep_dim": keep_dim,
+                     "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+                         attrs=attrs)
+        return out
+
+    f.__name__ = op_type
+    return f
+
+
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else len(input.shape) + dim
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [_out(helper, input.dtype) for _ in range(n)]
+    helper.append_op("split", inputs={"X": [input.name]},
+                     outputs={"Out": [o.name for o in outs]}, attrs=attrs)
+    return outs
+
+
+def _shape_op(op_type, input, attrs, name):
+    """squeeze2 / unsqueeze2: Out and the XShape carrier."""
+    helper = LayerHelper(op_type, name=name)
+    out = _out(helper, input.dtype)
+    xshape = _out(helper, input.dtype)
+    helper.append_op(op_type, inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "XShape": [xshape.name]}, attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _shape_op("squeeze2", input, {"axes": list(axes)}, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _shape_op("unsqueeze2", input, {"axes": list(axes)}, name)
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    out = _out(helper, x.dtype)
+    helper.append_op("flatten2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "XShape": [_out(helper, x.dtype).name]},
+                     attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = _out(helper, xs[0].dtype)
+    helper.append_op("stack", inputs={"X": [v.name for v in xs]}, outputs={"Y": [out.name]},
+                     attrs={"axis": axis})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    shape = None
+    if input.shape is not None:
+        shape = list(input.shape)
+        for ax, st, en in zip(axes, starts, ends):
+            dim = shape[ax]
+            if dim is None or dim < 0:
+                continue
+            st2 = max(st + dim, 0) if st < 0 else min(st, dim)
+            en2 = max(en + dim, 0) if en < 0 else min(en, dim)
+            shape[ax] = max(en2 - st2, 0)
+        shape = tuple(shape)
+    out = _out(helper, input.dtype, shape=shape)
+    helper.append_op("slice", inputs={"Input": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"axes": list(axes), "starts": list(starts), "ends": list(ends)})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    """[B, C, H, W] -> [B, C*bs^2, H/bs, W/bs] (C must divide bs^2)."""
+    helper = LayerHelper("space_to_depth", name=name)
+    bs = int(blocksize)
+    shape = None
+    if x.shape is not None and None not in x.shape[1:]:
+        b, c, h, w = x.shape
+        shape = (b, c * bs * bs, h // bs, w // bs)
+    out = _out(helper, x.dtype, shape=shape)
+    helper.append_op("space_to_depth", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"blocksize": bs})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-10, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    norm = _out(helper, x.dtype)
+    helper.append_op("norm", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Norm": [norm.name]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def gather(input, index, name=None):
+    helper = LayerHelper("gather", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("gather", inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("gather_nd", inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = _out(helper, input.dtype, shape=input.shape)
+    helper.append_op("scatter",
+                     inputs={"X": [input.name], "Ids": [index.name], "Updates": [updates.name]},
+                     outputs={"Out": [out.name]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("cumsum", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"axis": axis, "exclusive": exclusive, "reverse": reverse})
+    return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = _out(helper, input.dtype, shape=input.shape)
+    ids = _out(helper, "int64", shape=input.shape)
+    helper.append_op("argsort", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "Indices": [ids.name]},
+                     attrs={"axis": axis, "descending": descending})
+    return out, ids
 
 
 def fused_attention(q, k, v, bias=None, causal=False, scale=None, score_dtype=None, name=None):

@@ -4,8 +4,10 @@ A ragged variable is padded dense [batch, time, *feature] with an int32
 lengths companion `<name>@LOD` (paddle_tpu_torch/lod.py).  The layers pass
 the lengths as an explicit input slot, so a program carried by
 `to_dict` / `from_dict` (which drops the Python-side `_lod_ref`) still runs;
-ragged outputs carry `_lod_ref` for the next layer.  The port has the four
-layers NMT uses so far.
+ragged outputs carry `_lod_ref` for the next layer.  The port has the
+layers of NMT and of the fluid_benchmark models: sequence_pool with its
+first / last step forms, sequence_mask, attention_bias, position_encoding,
+sequence_conv and dynamic_lstm.
 """
 from __future__ import annotations
 
@@ -42,6 +44,69 @@ def sequence_pool(input, pool_type="average"):
         attrs={"pooltype": pool_type.upper()},
     )
     return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1, padding=True,
+                  padding_start=None, bias_attr=None, param_attr=None, act=None, name=None):
+    helper = LayerHelper("sequence_conv", name=name, act=act)
+    lod = _lod_of(input)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(param_attr, [filter_size * d, num_filters], input.dtype)
+    out_shape = None
+    if input.shape is not None:
+        out_shape = tuple(input.shape[:2]) + (num_filters,)
+    out = helper.create_variable_for_type_inference(input.dtype, shape=out_shape)
+    helper.append_op(
+        "sequence_conv",
+        inputs={"X": [input.name], "XLod": [lod.name], "Filter": [w.name]},
+        outputs={"Out": [out.name]},
+        attrs={"contextStart": padding_start, "contextLength": filter_size,
+               "contextStride": filter_stride},
+    )
+    pre_act = helper.append_bias_op(out, bias_attr, [num_filters], dim_start=2)
+    return _set_lod(helper.append_activation(pre_act), lod)
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None, bias_attr=None,
+                 use_peepholes=True, is_reverse=False, gate_activation="sigmoid",
+                 cell_activation="tanh", candidate_activation="tanh",
+                 dtype="float32", name=None):
+    """`input` is the ragged pre-projected sequence [*, 4D]; returns
+    (hidden, cell), both ragged [*, D].  Weight is the (D, 4D) hidden-hidden
+    matrix {W_ch, W_ih, W_fh, W_oh}; bias is (1, 4D), or with peepholes
+    (1, 7D) = {b, W_ic, W_fc, W_oc}."""
+    if gate_activation != "sigmoid" or cell_activation != "tanh" or \
+            candidate_activation != "tanh":
+        raise NotImplementedError("dynamic_lstm: only the default activations")
+    helper = LayerHelper("dynamic_lstm", name=name)
+    hidden = size // 4
+    lod = _lod_of(input)
+    weight = helper.create_parameter(param_attr, [hidden, 4 * hidden], dtype)
+    bias_size = [1, 7 * hidden] if use_peepholes else [1, 4 * hidden]
+    bias = helper.create_parameter(bias_attr, bias_size, dtype, is_bias=True)
+    shape = None
+    if input.shape is not None:
+        shape = (input.shape[0], input.shape[1], hidden)
+    hidden_out = helper.create_variable_for_type_inference(dtype, shape=shape)
+    cell_out = helper.create_variable_for_type_inference(dtype, shape=shape)
+    inputs = {"Input": [input.name], "XLod": [lod.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    if c_0 is not None:
+        inputs["C0"] = [c_0.name]
+    helper.append_op("dynamic_lstm", inputs=inputs,
+                     outputs={"Hidden": [hidden_out.name], "Cell": [cell_out.name]},
+                     attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse})
+    return _set_lod(hidden_out, lod), _set_lod(cell_out, lod)
 
 
 def sequence_mask(x, maxlen, dtype="int64", name=None):

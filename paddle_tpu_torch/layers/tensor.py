@@ -1,4 +1,5 @@
-"""Tensor layers (counterpart of paddle_tpu/layers/tensor.py)."""
+"""Tensor layers (counterpart of paddle_tpu/layers/tensor.py): fill_constant,
+cast, sums, assign, concat, zeros_like and linspace."""
 from __future__ import annotations
 
 import numpy as np
@@ -51,3 +52,38 @@ def assign(input, output=None):
         output = helper.create_variable_for_type_inference(input.dtype, shape=input.shape)
     helper.append_op("assign", inputs={"X": [input.name]}, outputs={"Out": [output.name]})
     return output
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    shape = None
+    if all(v.shape is not None for v in input):
+        shapes = [tuple(v.shape) for v in input]
+        ax = axis % len(shapes[0])
+        rest = {s[:ax] + s[ax + 1:] for s in shapes}
+        cat_dims = [s[ax] for s in shapes]
+        if len(rest) == 1 and all(d is not None and d >= 0 for d in cat_dims):
+            shape = shapes[0][:ax] + (sum(cat_dims),) + shapes[0][ax + 1:]
+    out = helper.create_variable_for_type_inference(input[0].dtype, shape=shape)
+    helper.append_op("concat", inputs={"X": [v.name for v in input]}, outputs={"Out": [out.name]},
+                     attrs={"axis": axis})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op("fill_zeros_like", inputs={"X": [x.name]}, outputs={"Out": [out.name]})
+    return out
+
+
+def linspace(start, stop, num, dtype="float32", name=None):
+    """`num` (a Python int) evenly spaced values in [start, stop]."""
+    helper = LayerHelper("linspace", name=name)
+    out = helper.create_variable_for_type_inference(dtype, shape=(int(num),))
+    s = fill_constant([1], dtype, float(start))
+    e = fill_constant([1], dtype, float(stop))
+    helper.append_op("linspace", inputs={"Start": [s.name], "Stop": [e.name]},
+                     outputs={"Out": [out.name]}, attrs={"num_v": int(num)})
+    return out

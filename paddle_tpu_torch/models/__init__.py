@@ -1,2 +1,2 @@
 """Model builders."""
-from . import deepfm, mnist, nmt, resnet, transformer  # noqa: F401
+from . import deepfm, mnist, nmt, resnet, transformer, vision  # noqa: F401

@@ -1,21 +1,44 @@
-"""Monitor core: span tracer, counter/gauge registry and step records (the
-part of paddle_tpu/monitor/core.py that the executor and
-`pipeline.train_loop` report into).
+"""Monitor core: span tracer, counter/gauge registry, step records and the
+flight recorder (counterpart of paddle_tpu/monitor/core.py).
+
+Every layer of the port reports spans and counters into one process-global
+`Monitor`; the exporters (exporters.py) render the same state as a
+Prometheus text page, a JSON snapshot, a Chrome trace, a summary table or
+an appended JSONL stream.
 
 Disabled (the default), `span()` returns a shared do-nothing singleton and
-`Counter.inc` / `Gauge.set` / `observe` / `record_step` are one branch.  The
-exporters, the flight recorder and the request-trace rings of the JAX
-package's monitor are not ported yet (ROADMAP A7).
+`Counter.inc` / `Gauge.set` / `observe` / `record_step` are one branch.
+
+Flight recorder: besides the capped buffers (which keep the oldest
+records), the monitor keeps bounded rings of the NEWEST step records and
+span events.  `arm_flight_recorder(path, rank)` names a
+`BLACKBOX.p<rank>.json` destination; `dump_blackbox(reason)` writes the
+rings and the live counters and gauges there atomically (tmp + fsync +
+rename).  The first dump wins.  The resilience layer dumps on a SIGTERM
+drain and on a preemption, integrity.py when a divergence latches.
+
+The request-trace ring and the slow-request exemplars of the JAX package's
+monitor have no writer until serving is ported (ROADMAP A9); the black box
+keeps its `exemplars` key, empty.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
 
-# cap on buffered step records, so an always-on monitor in a long-running
-# trainer cannot grow without bound
+from ..core.locks import named_lock
+
+# caps on buffered span events and step records, so an always-on monitor in
+# a long-running trainer cannot grow without bound
+EVENT_CAP = 200_000
 STEP_CAP = 50_000
+# flight-recorder ring depth: the last N step records and span events a
+# black box carries
+FLIGHT_RECORDER_CAP = 256
 
 
 class _NullSpan:
@@ -37,15 +60,18 @@ NULL_SPAN = _NullSpan()
 
 
 class Span:
-    """Timed region, aggregated under its name (`Monitor.span_stats`)."""
+    """Timed region.  Nesting is tracked per thread: its depth and a tid land
+    in the event buffer, so the Chrome trace draws child spans inside their
+    parents."""
 
-    __slots__ = ("mon", "name", "args", "t0")
+    __slots__ = ("mon", "name", "args", "t0", "ts")
 
     def __init__(self, mon: "Monitor", name: str, args: Optional[dict]):
         self.mon = mon
         self.name = name
         self.args = args
         self.t0 = 0.0
+        self.ts = 0.0
 
     def annotate(self, **kw):
         if self.args is None:
@@ -55,11 +81,18 @@ class Span:
         return self
 
     def __enter__(self):
+        tls = self.mon._tls
+        tls.depth = getattr(tls, "depth", 0) + 1
+        self.ts = time.time()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.mon._record(self.name, time.perf_counter() - self.t0)
+        dur = time.perf_counter() - self.t0
+        tls = self.mon._tls
+        depth = getattr(tls, "depth", 1)
+        tls.depth = depth - 1
+        self.mon._record(self.name, self.ts, dur, depth - 1, self.args)
         return False
 
 
@@ -119,13 +152,35 @@ class Monitor:
 
     def __init__(self):
         self.enabled = False
-        self._lock = threading.Lock()
+        self._lock = named_lock("monitor.registry", rank=64)
+        self._tls = threading.local()
         # span aggregates: name -> [calls, total_s, max_s, min_s]
         self._agg: Dict[str, list] = {}
+        # raw events for the trace: (name, ts_s, dur_s, tid, depth, args)
+        self._events: List[tuple] = []
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._steps: List[dict] = []
+        self._loggers: List[Any] = []
+        # flight recorder: bounded rings of the NEWEST records
+        self._bb_steps: deque = deque(maxlen=FLIGHT_RECORDER_CAP)
+        self._bb_events: deque = deque(maxlen=FLIGHT_RECORDER_CAP)
+        self._bb_path: Optional[str] = None
+        self._bb_rank = 0
+        self._bb_dumped: Optional[str] = None
+        # the dump latch: held across snapshot and write (not self._lock,
+        # which the snapshot takes)
+        self._bb_dump_lock = named_lock("monitor.blackbox", rank=60)
+        # this process's lane in a merged multi-process trace
+        self.lane = 0
+        self.lane_name = "paddle_tpu"
+        # the steps/sec EMA has its own lock: record_step also takes the
+        # registry lock, and nesting the two would invite deadlock
+        self._rate_lock = named_lock("monitor.rate", rank=62)
+        self._last_step_t: Optional[float] = None
+        self._steps_per_sec_ema = 0.0
 
+    # -- lifecycle ---------------------------------------------------------
     def enable(self):
         self.enabled = True
         return self
@@ -137,12 +192,28 @@ class Monitor:
     def reset(self):
         with self._lock:
             self._agg.clear()
+            self._events.clear()
             self._steps.clear()
+            self._bb_steps.clear()
+            self._bb_events.clear()
+            # a reset starts a fresh run: the dump latch re-opens (the armed
+            # path survives)
+            self._bb_dumped = None
             for c in self._counters.values():
                 c.value = 0
             for g in self._gauges.values():
                 if g.fn is None:
                     g.value = 0.0
+            self._last_step_t = None
+            self._steps_per_sec_ema = 0.0
+        return self
+
+    def set_lane(self, lane: int, name: Optional[str] = None):
+        """This process's trace lane (a Chrome-trace pid), so merged traces
+        show one lane per worker."""
+        self.lane = int(lane)
+        if name is not None:
+            self.lane_name = str(name)
         return self
 
     # -- spans -------------------------------------------------------------
@@ -151,12 +222,15 @@ class Monitor:
             return NULL_SPAN
         return Span(self, name, args or None)
 
-    def observe(self, name: str, seconds: float, **args):
+    def observe(self, name: str, seconds: float, ts: Optional[float] = None, **args):
         """Record a completed duration without a context manager."""
-        if self.enabled:
-            self._record(name, seconds)
+        if not self.enabled:
+            return
+        self._record(name, ts if ts is not None else time.time() - seconds, seconds,
+                     getattr(self._tls, "depth", 0), args or None)
 
-    def _record(self, name, dur):
+    def _record(self, name, ts, dur, depth, args):
+        tid = threading.get_ident() & 0xFFFF
         with self._lock:
             a = self._agg.get(name)
             if a is None:
@@ -164,13 +238,22 @@ class Monitor:
             else:
                 a[0] += 1
                 a[1] += dur
-                a[2] = max(a[2], dur)
-                a[3] = min(a[3], dur)
+                if dur > a[2]:
+                    a[2] = dur
+                if dur < a[3]:
+                    a[3] = dur
+            if len(self._events) < EVENT_CAP:
+                self._events.append((name, ts, dur, tid, depth, args))
+            self._bb_events.append((name, ts, dur, tid, depth, args))
 
     def span_stats(self) -> Dict[str, dict]:
         with self._lock:
             return {n: {"calls": a[0], "total_s": a[1], "max_s": a[2], "min_s": a[3]}
                     for n, a in self._agg.items()}
+
+    def events(self) -> List[tuple]:
+        with self._lock:
+            return list(self._events)
 
     # -- counters / gauges -------------------------------------------------
     def counter(self, name: str) -> Counter:
@@ -190,24 +273,113 @@ class Monitor:
     def counter_values(self) -> Dict[str, int]:
         return {n: c.value for n, c in sorted(self._counters.items())}
 
+    def gauge_values(self) -> Dict[str, float]:
+        return {n: g.read() for n, g in sorted(self._gauges.items())}
+
     # -- step records ------------------------------------------------------
     def record_step(self, record: dict):
         """Append one record (the executor's kind="step", or train_loop's
-        kind="pipeline_step").  Only kind="step" records advance the
-        executor.steps counter."""
+        kind="pipeline_step") and hand it to the attached loggers.  Only
+        kind="step" records advance the executor.steps counter and the
+        steps/sec EMA."""
         if not self.enabled:
             return
         record = dict(record)
         record.setdefault("kind", "step")
         record.setdefault("ts", time.time())
-        steps = self.counter("executor.steps")
-        record["step"] = steps.value
+        is_exec_step = record["kind"] == "step"
+        steps_counter = self.counter("executor.steps")  # before _lock: counter() locks too
+        if is_exec_step:
+            rate_gauge = self.gauge("executor.steps_per_sec_ema")
+            now = time.perf_counter()
+            with self._rate_lock:
+                if self._last_step_t is not None:
+                    dt = now - self._last_step_t
+                    if dt > 0:
+                        inst = 1.0 / dt
+                        ema = self._steps_per_sec_ema
+                        self._steps_per_sec_ema = inst if ema == 0.0 else 0.9 * ema + 0.1 * inst
+                        rate_gauge.set(self._steps_per_sec_ema)
+                self._last_step_t = now
+        record.setdefault("lane", self.lane)
+        record["step"] = steps_counter.value
         with self._lock:
             if len(self._steps) < STEP_CAP:
                 self._steps.append(record)
-        if record["kind"] == "step":
-            steps.inc()
+            self._bb_steps.append(record)
+        if is_exec_step:
+            steps_counter.inc()
+        for lg in list(self._loggers):
+            try:
+                lg.on_step(record)
+            except Exception:
+                pass
 
     def step_records(self) -> List[dict]:
         with self._lock:
             return list(self._steps)
+
+    # -- flight recorder ---------------------------------------------------
+    def arm_flight_recorder(self, path: str, rank: int = 0) -> "Monitor":
+        """Name the black-box destination (`BLACKBOX.p<rank>.json`).  Arming
+        does not enable the monitor."""
+        self._bb_path = str(path)
+        self._bb_rank = int(rank)
+        return self
+
+    def flight_recorder_path(self) -> Optional[str]:
+        return self._bb_path
+
+    def blackbox_snapshot(self, reason: str = "manual") -> dict:
+        """The flight-recorder rings as one JSON-able document: the last
+        FLIGHT_RECORDER_CAP step records and span events, and the live
+        counters and gauges."""
+        with self._lock:
+            steps = list(self._bb_steps)
+            events = [{"name": n, "ts": ts, "dur_s": dur, "tid": tid, "depth": depth,
+                       "args": ({k: str(v) for k, v in args.items()} if args else None)}
+                      for (n, ts, dur, tid, depth, args) in self._bb_events]
+        try:
+            gauges = self.gauge_values()
+        except Exception:
+            gauges = {}
+        return {"kind": "blackbox", "reason": str(reason), "rank": self._bb_rank,
+                "pid": os.getpid(), "ts": time.time(), "lane": self.lane,
+                "lane_name": self.lane_name, "steps": steps, "events": events,
+                "exemplars": [], "counters": self.counter_values(), "gauges": gauges}
+
+    def dump_blackbox(self, reason: str = "manual", path: Optional[str] = None) -> Optional[str]:
+        """Write the black box atomically (tmp + fsync + rename) and return
+        its path; None when unarmed.  The first dump wins, so a cascade of
+        failures keeps the first one's reason.  Never raises: it runs on
+        crash paths."""
+        with self._bb_dump_lock:
+            if self._bb_dumped is not None:
+                return self._bb_dumped
+            p = path or self._bb_path
+            if p is None:
+                return None
+            try:
+                snap = self.blackbox_snapshot(reason)
+                tmp = f"{p}.tmp{os.getpid()}"
+                with open(tmp, "w") as f:
+                    json.dump(snap, f, default=str)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, p)
+                self._bb_dumped = p
+                return p
+            except Exception:
+                return None
+
+    # -- loggers -----------------------------------------------------------
+    def attach_logger(self, logger):
+        self._loggers.append(logger)
+        return logger
+
+    def detach_logger(self, logger):
+        if logger in self._loggers:
+            self._loggers.remove(logger)
+        close = getattr(logger, "close", None)
+        if callable(close):
+            close()

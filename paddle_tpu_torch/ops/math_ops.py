@@ -1,8 +1,9 @@
-"""Math lowerings: elementwise_add (with the fused bias-act epilogue),
-elementwise_sub, _mul, _div, _max and _min, sum, activations, pow, clip,
-clip_by_norm, scale, reduce_sum, mean, mul, matmul, less_than and
-logical_and (counterpart of paddle_tpu/ops/math_ops.py), with their
-build-time inference rules.
+"""Math lowerings (counterpart of paddle_tpu/ops/math_ops.py): the
+elementwise family (elementwise_add with the fused bias-act epilogue), sum,
+the activations, pow, clip, clip_by_norm, scale, the reductions, mean, mul,
+matmul, the compare and logical ops, isfinite and the norm / fill tail, with
+their build-time inference rules.  The four fake-quantize ops come with
+contrib/slim.
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -10,20 +11,49 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import bcast_y_to_x, first, match_dtype
+from ..core.selected_rows import SelectedRows
+from .common import bcast_y_to_x, canon_dtype, first, match_dtype
 from .cuda_kernels import fused_bias_act
 
 _UNARY = {
     "relu": torch.relu,
-    "gelu": F.gelu,  # exact erf form, as jax.nn.gelu(approximate=False)
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
     "sigmoid": torch.sigmoid,
-    "square": torch.square,
+    "logsigmoid": F.logsigmoid,
+    "tanh": torch.tanh,
+    "exp": torch.exp,
+    "log": torch.log,
     "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "abs": torch.abs,
+    "square": torch.square,
+    "reciprocal": torch.reciprocal,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "round": torch.round,  # half to even, as jnp.round
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "gelu": F.gelu,  # exact erf form, as jax.nn.gelu(approximate=False)
+    "softplus": lambda x: torch.logaddexp(x, x.new_zeros(())),
+    "softsign": F.softsign,
+    "tanh_shrink": lambda x: x - torch.tanh(x),
+    "erf": torch.erf,
     "sign": torch.sign,
+    "tan": torch.tan,
+    "asin": torch.asin,
+    "acos": torch.acos,
+    "atan": torch.atan,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "log2": torch.log2,
+    "log10": torch.log10,
+    "log1p": torch.log1p,
+    "expm1": torch.expm1,
 }
 
 
@@ -61,6 +91,9 @@ register_op("elementwise_mul")(_binary(torch.mul))
 register_op("elementwise_div")(_binary(torch.div))
 register_op("elementwise_min")(_binary(torch.minimum))
 register_op("elementwise_max")(_binary(torch.maximum))
+register_op("elementwise_pow")(_binary(torch.pow))
+register_op("elementwise_mod")(_binary(torch.remainder))  # the divisor's sign, as jnp.mod
+register_op("elementwise_floordiv")(_binary(torch.floor_divide))
 
 
 @register_op("sum")
@@ -95,15 +128,73 @@ def _pow(ctx, op, ins):
     return {"Out": torch.pow(first(ins, "X"), op.attr("factor", 1.0))}
 
 
-@register_op("less_than")
-def _less_than(ctx, op, ins):
-    x = first(ins, "X")
-    return {"Out": torch.lt(x, bcast_y_to_x(x, first(ins, "Y"), op.attr("axis", -1)))}
+def _cmp(fn):
+    def lower(ctx, op, ins):
+        x = first(ins, "X")
+        return {"Out": fn(x, bcast_y_to_x(x, first(ins, "Y"), op.attr("axis", -1)))}
+
+    return lower
+
+
+for _name, _fn in {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
+                   "less_equal": torch.le, "greater_than": torch.gt,
+                   "greater_equal": torch.ge}.items():
+    register_op(_name)(_cmp(_fn))
 
 
 @register_op("logical_and")
 def _logical_and(ctx, op, ins):
     return {"Out": torch.logical_and(first(ins, "X"), first(ins, "Y"))}
+
+
+@register_op("logical_or")
+def _logical_or(ctx, op, ins):
+    return {"Out": torch.logical_or(first(ins, "X"), first(ins, "Y"))}
+
+
+@register_op("logical_not")
+def _logical_not(ctx, op, ins):
+    return {"Out": torch.logical_not(first(ins, "X"))}
+
+
+@register_op("isfinite")
+def _isfinite(ctx, op, ins):
+    """One bool [1]: every value finite (of a SelectedRows gradient, only
+    its touched rows)."""
+    x = first(ins, "X")
+    if isinstance(x, SelectedRows):
+        x = x.values
+    return {"Out": torch.isfinite(x).all().reshape(1)}
+
+
+# --- the attr'd activations
+
+
+def _attr_unary(fn):
+    def lower(ctx, op, ins):
+        return {"Out": fn(first(ins, "X"), op)}
+
+    return lower
+
+
+def _softshrink(x, op):
+    lam = op.attr("lambda", 0.5)
+    return torch.where(x > lam, x - lam, torch.where(x < -lam, x + lam, x.new_zeros(())))
+
+
+_ATTR_UNARY = {
+    "hard_shrink": lambda x, op: torch.where(x.abs() > op.attr("threshold", 0.5), x,
+                                             x.new_zeros(())),
+    "stanh": lambda x, op: op.attr("scale_b", 1.7159) * torch.tanh(op.attr("scale_a", 0.67) * x),
+    "leaky_relu": lambda x, op: torch.where(x >= 0, x, op.attr("alpha", 0.02) * x),
+    "elu": lambda x, op: F.elu(x, alpha=op.attr("alpha", 1.0)),
+    "hard_sigmoid": lambda x, op: torch.clamp(op.attr("slope", 0.2) * x + op.attr("offset", 0.5),
+                                              0.0, 1.0),
+    "swish": lambda x, op: x * torch.sigmoid(op.attr("beta", 1.0) * x),
+    "softshrink": _softshrink,
+}
+for _name, _fn in _ATTR_UNARY.items():
+    register_op(_name)(_attr_unary(_fn))
 
 
 @register_op("scale")
@@ -117,22 +208,64 @@ def _scale(ctx, op, ins):
     return {"Out": (x + bias) * scale}
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, op, ins):
-    """Sum over `dim` (every axis with reduce_all), keeping the reduced axes
-    as 1 with keep_dim.  An integer sum stays int32 (the x32 rule), where
-    torch would widen it to int64."""
-    x = first(ins, "X")
+def _reduce_axes(op, x):
     if op.attr("reduce_all", False):
-        axes = tuple(range(x.dim()))
-    else:
-        dim = op.attr("dim", [0])
-        dim = [dim] if isinstance(dim, int) else dim
-        axes = tuple(sorted({d % x.dim() for d in dim}))
-    if not axes:
-        return {"Out": x}
-    out = x.sum(axes, keepdim=op.attr("keep_dim", False))
-    return {"Out": out if x.is_floating_point() else out.to(torch.int32)}
+        return tuple(range(x.dim()))
+    dim = op.attr("dim", [0])
+    dim = [dim] if isinstance(dim, int) else dim
+    return tuple(sorted({d % x.dim() for d in dim}))
+
+
+def _prod(x, axes, keepdim):
+    for a in sorted(axes, reverse=True):
+        x = x.prod(a, keepdim=keepdim)
+    return x
+
+
+def _mean(x, axes, keepdim):
+    """jnp.mean: a low-precision float accumulates in float32 and rounds
+    once; an integer mean is float32."""
+    if not x.is_floating_point():
+        return x.to(torch.float32).mean(axes, keepdim=keepdim)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.to(torch.float32).mean(axes, keepdim=keepdim).to(x.dtype)
+    return x.mean(axes, keepdim=keepdim)
+
+
+_REDUCE = {
+    "reduce_sum": lambda x, axes, keep: x.sum(axes, keepdim=keep),
+    "reduce_mean": _mean,
+    "reduce_max": lambda x, axes, keep: x.amax(axes, keepdim=keep),
+    "reduce_min": lambda x, axes, keep: x.amin(axes, keepdim=keep),
+    "reduce_prod": _prod,
+}
+
+
+def _reduce(fn):
+    def lower(ctx, op, ins):
+        """Over `dim` (every axis with reduce_all), keeping the reduced axes
+        as 1 with keep_dim.  An integer sum or product stays int32 (the x32
+        rule), where torch would widen it to int64."""
+        x = first(ins, "X")
+        axes = _reduce_axes(op, x)
+        if not axes:
+            return {"Out": x}
+        out = fn(x, axes, op.attr("keep_dim", False))
+        if not x.is_floating_point() and out.dtype == torch.int64:
+            out = out.to(torch.int32)
+        return {"Out": out}
+
+    return lower
+
+
+for _name, _fn in _REDUCE.items():
+    register_op(_name)(_reduce(_fn))
+
+
+@register_op("frobenius_norm")
+def _frobenius_norm(ctx, op, ins):
+    # over every element, a 0-d result, as the JAX lowering
+    return {"Out": torch.sqrt(torch.sum(torch.square(first(ins, "X"))))}
 
 
 @register_op("elementwise_add")
@@ -186,16 +319,68 @@ def _matmul(ctx, op, ins):
     return {"Out": out}
 
 
+# --- the norm and fill tail (reference minus_op.cc, l1_norm_op.cc,
+# squared_l2_norm_op.cc, squared_l2_distance_op.cc, fill_op.cc,
+# fill_zeros_like_op.cc)
+
+@register_op("minus")
+def _minus(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": x - match_dtype(x, first(ins, "Y"))}
+
+
+@register_op("l1_norm")
+def _l1_norm(ctx, op, ins):
+    return {"Out": torch.sum(torch.abs(first(ins, "X"))).reshape(())}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, op, ins):
+    return {"Out": torch.sum(torch.square(first(ins, "X"))).reshape(())}
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ctx, op, ins):
+    """Row-wise squared distance; Y may be one row [1, D] broadcast to X."""
+    x = first(ins, "X")
+    y = match_dtype(x, first(ins, "Y"))
+    sub = x.reshape(x.shape[0], -1) - y.reshape(y.shape[0], -1)
+    return {"sub_result": sub, "Out": torch.sum(torch.square(sub), dim=1, keepdim=True)}
+
+
+@register_op("fill")
+def _fill(ctx, op, ins):
+    """The `value` attr as a tensor of `shape` (via float32, as the JAX
+    lowering), copied to the device once per plan."""
+    shape = tuple(op.attr("shape"))
+    dtype = canon_dtype(op.attr("dtype", "float32"))
+    out = ctx.constant((op.type, id(op)), lambda: torch.as_tensor(
+        np.asarray(op.attr("value"), np.float32).reshape(shape)).to(device=ctx.device, dtype=dtype))
+    return {"Out": out.clone()}
+
+
+@register_op("fill_zeros_like2")
+def _fill_zeros_like2(ctx, op, ins):
+    x = first(ins, "X")
+    dt = op.attr("dtype", None)
+    dtype = x.dtype if dt in (None, -1) else canon_dtype(dt)
+    return {"Out": torch.zeros(x.shape, dtype=dtype, device=x.device)}
+
+
 # --- build-time shape/dtype inference (core/analysis.py), as the JAX
 # package registers it next to the same lowerings
 
 from ..core import analysis as _A
 
 _A.register_elementwise_infer("elementwise_add", "elementwise_sub", "elementwise_mul",
-                              "elementwise_div", "elementwise_max", "elementwise_min")
-_A.register_elementwise_infer("less_than", "logical_and", out_dtype="bool")
-_A.register_unary_infer(*_UNARY, "pow", "clip", "clip_by_norm", "scale")
-_A.register_reduce_infer("reduce_sum")
+                              "elementwise_div", "elementwise_max", "elementwise_min",
+                              "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+                              "minus")
+# logical_xor is not ported yet; its rule comes with its lowering
+_A.register_elementwise_infer(*sorted(_A.BOOL_OUT_OPS - {"logical_xor"}), out_dtype="bool")
+_A.register_unary_infer("logical_not", out_dtype="bool")
+_A.register_unary_infer(*_UNARY, *_ATTR_UNARY, "pow", "clip", "clip_by_norm", "scale")
+_A.register_reduce_infer(*_REDUCE)
 
 
 def _infer_sum(ctx):

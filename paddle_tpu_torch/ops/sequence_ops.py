@@ -1,7 +1,8 @@
 """Sequence (ragged) lowerings over padded batches [batch, time, *feature]
 and int32 lengths [batch] (counterpart of paddle_tpu/ops/sequence_ops.py):
 masks derived from the lengths take the place of the reference's walks over
-offset tables."""
+offset tables.  The ops: sequence_pool, sequence_mask, attention_bias,
+position_encoding, sequence_conv and dynamic_lstm."""
 from __future__ import annotations
 
 import torch
@@ -88,9 +89,82 @@ def _position_encoding(ctx, op, ins):
     return {"Out": x + pe[None].to(x.dtype)}
 
 
+@register_op("sequence_conv")
+def _sequence_conv(ctx, op, ins):
+    """Context-window projection (reference sequence_conv_op.cc): for each
+    step t, x[t+start : t+start+length] concatenated (zero outside the
+    row's length) times Filter [length * d, num_filters]; padded steps
+    give 0."""
+    x = first(ins, "X")  # [b, T, d]
+    lens = first(ins, "XLod")
+    w = first(ins, "Filter")
+    length = op.attr("contextLength", 3)
+    start = op.attr("contextStart", None)
+    if start is None:  # the reference layer's -(filter_size // 2)
+        start = -(length // 2)
+    T = x.shape[1]
+    m = _mask(lens, T, 1)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xz = torch.where(m, x, zero)
+    t = torch.arange(T, device=x.device)
+    cols = []
+    for k in range(length):
+        idx = t + (start + k)
+        g = xz[:, idx.clamp(0, T - 1), :]
+        valid = (idx[None, :] >= 0) & (idx[None, :] < lens[:, None])
+        cols.append(torch.where(valid[:, :, None], g, zero))
+    out = torch.cat(cols, dim=-1) @ w.to(x.dtype)
+    return {"Out": torch.where(m, out, zero)}
+
+
+def _lstm(x, lens, w, bias, use_peepholes, is_reverse, h0=None, c0=None):
+    """The LSTM time loop of the JAX package's _lstm_scan without a
+    projection: gate blocks {c, i, f, o}, peepholes {W_ic, W_fc, W_oc} in
+    the bias tail, and past each row's length the memories freeze and the
+    outputs are 0.  A Python loop over the padded time axis: no host read,
+    so a plan that holds it can be captured as a CUDA graph."""
+    D = w.shape[0]
+    b, T = x.shape[0], x.shape[1]
+    bias = bias.reshape(-1)
+    gate_bias = bias[:4 * D]
+    if use_peepholes:
+        w_ic, w_fc, w_oc = bias[4 * D:5 * D], bias[5 * D:6 * D], bias[6 * D:7 * D]
+    h = h0 if h0 is not None else torch.zeros((b, D), dtype=x.dtype, device=x.device)
+    c = c0 if c0 is not None else torch.zeros((b, D), dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    hs, cs = [None] * T, [None] * T
+    for t in (range(T - 1, -1, -1) if is_reverse else range(T)):
+        gates = x[:, t] + h @ w + gate_bias
+        gc, gi, gf, go = gates[:, :D], gates[:, D:2 * D], gates[:, 2 * D:3 * D], gates[:, 3 * D:]
+        if use_peepholes:
+            gi = gi + w_ic * c
+            gf = gf + w_fc * c
+        c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
+        if use_peepholes:
+            go = go + w_oc * c_new
+        h_new = torch.sigmoid(go) * torch.tanh(c_new)
+        active = (lens > t).reshape(b, 1)
+        h = torch.where(active, h_new, h)
+        c = torch.where(active, c_new, c)
+        hs[t] = torch.where(active, h, zero)
+        cs[t] = torch.where(active, c, zero)
+    return torch.stack(hs, 1), torch.stack(cs, 1)
+
+
+@register_op("dynamic_lstm")
+def _dynamic_lstm(ctx, op, ins):
+    """Fused LSTM over the padded time axis (reference lstm_op.cc):
+    Input [b, T, 4D] already projected, Weight [D, 4D], Bias [1, 4D] or
+    with peepholes [1, 7D], optional H0 / C0 [b, D]."""
+    hs, cs = _lstm(first(ins, "Input"), first(ins, "XLod"), first(ins, "Weight"),
+                   first(ins, "Bias"), op.attr("use_peepholes", True),
+                   op.attr("is_reverse", False), first(ins, "H0"), first(ins, "C0"))
+    return {"Hidden": hs, "Cell": cs}
+
+
 # --- build-time shape/dtype inference (core/analysis.py), as the JAX
-# package registers it next to the same lowerings.  sequence_mask has no
-# rule there either.
+# package registers it next to the same lowerings.  sequence_mask,
+# sequence_conv and dynamic_lstm have no rule there either.
 
 from ..core import analysis as _A
 

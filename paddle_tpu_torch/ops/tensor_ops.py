@@ -1,10 +1,15 @@
 """Tensor creation / manipulation lowerings (counterpart of
-paddle_tpu/ops/tensor_ops.py): fill_constant, assign, assign_value, the random
-fills, cast, reshape2, transpose2, expand, one_hot and increment."""
+paddle_tpu/ops/tensor_ops.py): the fills (constant, random, zeros, range,
+linspace), cast, the reshapes, transposes, squeezes and flattens, concat,
+split, stack, slice, pad, the gathers and scatters, cumsum, argsort, expand,
+one_hot, norm, shard_index and space_to_depth."""
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import as_torch_dtype
 from ..core.registry import register_op
@@ -48,6 +53,20 @@ def _gaussian_random(ctx, op, ins):
     return {"Out": out.to(as_torch_dtype(op.attr("dtype", "float32")))}
 
 
+@register_op("truncated_gaussian_random")
+def _truncated_gaussian_random(ctx, op, ins):
+    """mean + std * z, z a standard normal truncated to [-2, 2] (reference
+    truncated_gaussian_random_op.cc), by the inverse CDF of a uniform draw
+    over [Phi(-2), Phi(2)]."""
+    shape = tuple(op.attr("shape"))
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = _draw(ctx, op, shape, lambda s, g: torch.rand(s, generator=g, dtype=torch.float32,
+                                                      device=ctx.device))
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
+    out = op.attr("mean", 0.0) + op.attr("std", 1.0) * torch.clamp(z, -2.0, 2.0)
+    return {"Out": out.to(as_torch_dtype(op.attr("dtype", "float32")))}
+
+
 @register_op("cast")
 def _cast(ctx, op, ins):
     return {"Out": first(ins, "X").to(canon_dtype(op.attr("out_dtype", op.attr("dtype", "float32"))))}
@@ -74,6 +93,269 @@ def _transpose2(ctx, op, ins):
     # materialized, as the JAX transpose is: the kernels downstream take
     # contiguous tensors
     return {"Out": x.permute(*op.attr("axis")).contiguous(), "XShape": _xshape(ctx, op, x)}
+
+
+@register_op("reshape")
+def _reshape(ctx, op, ins):
+    return {"Out": _reshape2(ctx, op, ins)["Out"]}
+
+
+@register_op("transpose")
+def _transpose(ctx, op, ins):
+    return {"Out": _transpose2(ctx, op, ins)["Out"]}
+
+
+@register_op("squeeze2")
+def _squeeze2(ctx, op, ins):
+    """Drop the `axes` of size 1 (every size-1 axis when `axes` is empty)."""
+    x = first(ins, "X")
+    axes = op.attr("axes", [])
+    out = x.squeeze(tuple(a % x.dim() for a in axes)) if axes else x.squeeze()
+    return {"Out": out, "XShape": _xshape(ctx, op, x)}
+
+
+@register_op("squeeze")
+def _squeeze(ctx, op, ins):
+    return {"Out": _squeeze2(ctx, op, ins)["Out"]}
+
+
+@register_op("unsqueeze2")
+def _unsqueeze2(ctx, op, ins):
+    x = first(ins, "X")
+    out = x
+    for a in sorted(op.attr("axes")):
+        out = out.unsqueeze(a)
+    return {"Out": out, "XShape": _xshape(ctx, op, x)}
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ctx, op, ins):
+    return {"Out": _unsqueeze2(ctx, op, ins)["Out"]}
+
+
+@register_op("flatten2")
+def _flatten2(ctx, op, ins):
+    """[prod(shape[:axis]), prod(shape[axis:])]."""
+    x = first(ins, "X")
+    ax = op.attr("axis", 1)
+    out = x.reshape(math.prod(x.shape[:ax]), math.prod(x.shape[ax:]))
+    return {"Out": out, "XShape": _xshape(ctx, op, x)}
+
+
+@register_op("flatten")
+def _flatten(ctx, op, ins):
+    return {"Out": _flatten2(ctx, op, ins)["Out"]}
+
+
+@register_op("concat")
+def _concat(ctx, op, ins):
+    return {"Out": torch.cat(ins["X"], dim=op.attr("axis", 0))}
+
+
+@register_op("split")
+def _split(ctx, op, ins):
+    """`num` equal parts, or parts of `sections` sizes, along `axis`."""
+    x = first(ins, "X")
+    axis = op.attr("axis", 0)
+    num = op.attr("num", 0)
+    if num:
+        return {"Out": list(x.tensor_split(num, dim=axis))}
+    idx = np.cumsum(op.attr("sections", [])[:-1]).tolist()
+    return {"Out": list(x.tensor_split(idx, dim=axis))}
+
+
+@register_op("stack")
+def _stack(ctx, op, ins):
+    return {"Y": torch.stack(ins["X"], dim=op.attr("axis", 0))}
+
+
+@register_op("unstack")
+def _unstack(ctx, op, ins):
+    return {"Y": list(first(ins, "X").unbind(op.attr("axis", 0)))}
+
+
+@register_op("shape")
+def _shape(ctx, op, ins):
+    """x's shape as int32, built once per plan and shape (no host copy at a
+    graph's capture)."""
+    x = first(ins, "Input")
+    dims = tuple(x.shape)
+    return {"Out": ctx.constant((op.type, id(op), dims), lambda: torch.tensor(
+        dims, dtype=torch.int32, device=ctx.device)).clone()}
+
+
+@register_op("slice")
+def _slice(ctx, op, ins):
+    """Python slicing per axis: negative bounds count from the end, bounds
+    past the end clamp."""
+    x = first(ins, "Input")
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(op.attr("axes"), op.attr("starts"), op.attr("ends")):
+        idx[ax] = slice(st, en)
+    return {"Out": x[tuple(idx)]}
+
+
+@register_op("pad")
+def _pad(ctx, op, ins):
+    """Constant padding; `paddings` is [before0, after0, before1, ...]."""
+    x = first(ins, "X")
+    p = op.attr("paddings")
+    flat = []
+    for i in reversed(range(x.dim())):  # F.pad takes the last axis first
+        flat += [p[2 * i], p[2 * i + 1]]
+    return {"Out": F.pad(x, flat, value=op.attr("pad_value", 0.0))}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, op, ins):
+    return {"Out": torch.zeros_like(first(ins, "X"))}
+
+
+def _index(t):
+    return t.to(torch.long)
+
+
+@register_op("gather")
+def _gather(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": x.index_select(0, _index(first(ins, "Index").reshape(-1)))}
+
+
+@register_op("gather_nd")
+def _gather_nd(ctx, op, ins):
+    """Index [..., K] selects into x's first K axes."""
+    x = first(ins, "X")
+    index = _index(first(ins, "Index"))
+    k = index.shape[-1]
+    flat = index.reshape(-1, k)
+    out = x[tuple(flat[:, i] for i in range(k))]
+    return {"Out": out.reshape(tuple(index.shape[:-1]) + tuple(x.shape[k:]))}
+
+
+@register_op("scatter")
+def _scatter(ctx, op, ins):
+    """Rows of Updates written (or with overwrite=False added) into X at Ids."""
+    x = first(ins, "X")
+    ids = _index(first(ins, "Ids").reshape(-1))
+    upd = first(ins, "Updates").to(x.dtype)
+    return {"Out": x.index_put((ids,), upd, accumulate=not op.attr("overwrite", True))}
+
+
+@register_op("scatter_nd_add")
+def _scatter_nd_add(ctx, op, ins):
+    x = first(ins, "X")
+    index = _index(first(ins, "Index"))
+    k = index.shape[-1]
+    flat = index.reshape(-1, k)
+    upd = first(ins, "Updates").to(x.dtype).reshape((flat.shape[0],) + tuple(x.shape[k:]))
+    return {"Out": x.index_put(tuple(flat[:, i] for i in range(k)), upd, accumulate=True)}
+
+
+@register_op("range")
+def _range(ctx, op, ins):
+    """arange(start, end, step): each bound from its `*_v` attr, else from
+    its input (a host read, as the JAX lowering's concrete path).  The
+    output is `dtype`, else int32 when every bound is an attr, else what
+    the bounds give (int32 or float32)."""
+    vals, from_attrs = [], True
+    for slot, key in (("Start", "start_v"), ("End", "end_v"), ("Step", "step_v")):
+        v = op.attr(key, None)
+        if v is None:
+            v, from_attrs = first(ins, slot).reshape(()).item(), False
+        vals.append(v)
+    out = torch.arange(*vals, device=ctx.device)
+    dtype = op.attr("dtype", None)
+    if dtype:
+        return {"Out": out.to(canon_dtype(dtype))}
+    if from_attrs:
+        return {"Out": out.to(torch.int32)}
+    return {"Out": out.to(canon_dtype(out.dtype))}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, op, ins):
+    x = first(ins, "X")
+    axis = op.attr("axis", -1)
+    rev = op.attr("reverse", False)
+    if rev:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, axis).to(x.dtype)  # an int32 sum stays int32
+    if op.attr("exclusive", False):
+        out = out - x
+    if rev:
+        out = torch.flip(out, (axis,))
+    return {"Out": out}
+
+
+@register_op("argsort")
+def _argsort(ctx, op, ins):
+    """A stable sort along `axis`; Indices int32 (the x32 rule)."""
+    x = first(ins, "X")
+    out, idx = torch.sort(x, dim=op.attr("axis", -1), descending=op.attr("descending", False),
+                          stable=True)
+    return {"Out": out, "Indices": idx.to(torch.int32)}
+
+
+@register_op("expand_as")
+def _expand_as(ctx, op, ins):
+    x = first(ins, "X")
+    target = first(ins, "target_tensor")
+    if target is None:
+        target = first(ins, "Y")
+    return {"Out": torch.tile(x, tuple(t // s for t, s in zip(target.shape, x.shape)))}
+
+
+@register_op("linspace")
+def _linspace(ctx, op, ins):
+    """`num_v` points from Start to Stop, as jnp.linspace computes them:
+    start * (1 - s) + stop * s for s = i / (num - 1), the last point Stop."""
+    start = first(ins, "Start").reshape(())
+    stop = first(ins, "Stop").reshape(())
+    num = op.attr("num_v", None)
+    if num is None:
+        num = int(first(ins, "Num").reshape(()).item())
+    if num == 1:
+        return {"Out": start.reshape(1)}
+    div = num - 1
+    step = torch.arange(div, dtype=start.dtype, device=start.device) / div
+    out = start * (1 - step) + stop * step
+    return {"Out": torch.cat([out, stop.reshape(1)])}
+
+
+@register_op("norm")
+def _norm(ctx, op, ins):
+    """x l2-normalized along `axis`; Norm is the l2 norm (with epsilon)."""
+    x = first(ins, "X")
+    n = torch.sqrt(torch.sum(torch.square(x), dim=op.attr("axis", -1), keepdim=True)
+                   + op.attr("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+@register_op("shard_index")
+def _shard_index(ctx, op, ins):
+    """Global ids to shard-local ids; ids of other shards become ignore_value."""
+    x = first(ins, "X")
+    shard_size = (op.attr("index_num") + op.attr("nshards") - 1) // op.attr("nshards")
+    in_shard = torch.floor_divide(x, shard_size) == op.attr("shard_id")
+    return {"Out": torch.where(in_shard, torch.remainder(x, shard_size),
+                               torch.full((), op.attr("ignore_value", -1), dtype=x.dtype,
+                                          device=x.device))}
+
+
+@register_op("space_to_depth")
+def _space_to_depth(ctx, op, ins):
+    """The reference's buffer layout: written as [B, C/bs^2, H*bs, W*bs]
+    and read back as [B, C*bs^2, H/bs, W/bs], as the JAX lowering."""
+    x = first(ins, "X")
+    bs = int(op.attr("blocksize"))
+    B, C, H, W = x.shape
+    if C % (bs * bs) != 0 or H % bs != 0 or W % bs != 0:
+        raise ValueError(
+            f"space_to_depth: C ({C}) must divide blocksize^2 and H/W ({H},{W}) "
+            f"must divide blocksize ({bs}) -- reference InferShape contract")
+    cout = C // (bs * bs)
+    a = x.reshape(B, bs, bs, cout, H, W).permute(0, 3, 4, 1, 5, 2)
+    return {"Out": a.reshape(B, C * bs * bs, H // bs, W // bs)}
 
 
 @register_op("one_hot")
@@ -119,13 +401,14 @@ def _assign(ctx, op, ins):
 
 
 # --- build-time shape/dtype inference (core/analysis.py), as the JAX
-# package registers it next to the same lowerings.  assign_value and expand
-# have no rule there either.
+# package registers it next to the same lowerings.  The ops without a rule
+# there (assign_value, expand, the squeezes, slice, pad, ...) have none here
+# either: their layers declare the output shapes.
 
 from ..core import analysis as _A
 from ..core.dtypes import canonical_dtype as _canon
 
-_A.register_unary_infer("assign", "increment")
+_A.register_unary_infer("assign", "increment", "fill_zeros_like", "cumsum")
 
 
 def _infer_filled(ctx):
@@ -135,7 +418,8 @@ def _infer_filled(ctx):
     ctx.set_out("Out", tuple(shape), _canon(ctx.op.attr("dtype", "float32")))
 
 
-_A.register_rule(["fill_constant", "uniform_random", "gaussian_random"], _infer_filled)
+_A.register_rule(["fill_constant", "uniform_random", "gaussian_random",
+                  "truncated_gaussian_random"], _infer_filled)
 
 
 def _infer_cast(ctx):
@@ -180,7 +464,7 @@ def _infer_reshape(ctx):
         ctx.set_out("XShape", (0,) + tuple(xs), ctx.in_dtype("X"))
 
 
-_A.register_rule(["reshape2"], _infer_reshape)
+_A.register_rule(["reshape2", "reshape"], _infer_reshape)
 
 
 def _infer_transpose(ctx):
@@ -196,7 +480,7 @@ def _infer_transpose(ctx):
         ctx.set_out("XShape", (0,) + tuple(xs), ctx.in_dtype("X"))
 
 
-_A.register_rule(["transpose2"], _infer_transpose)
+_A.register_rule(["transpose2", "transpose"], _infer_transpose)
 
 
 def _infer_one_hot(ctx):
@@ -209,3 +493,90 @@ def _infer_one_hot(ctx):
 
 
 _A.register_rule(["one_hot"], _infer_one_hot)
+
+
+def _infer_concat(ctx):
+    shapes = [ctx.in_shape("X", i) for i in range(ctx.n_inputs("X"))]
+    if any(s is None for s in shapes) or not shapes:
+        return
+    rank = len(shapes[0])
+    if any(len(s) != rank for s in shapes):
+        ctx.fail(f"concat inputs have mixed ranks: {[tuple(s) for s in shapes]}")
+    axis = ctx.op.attr("axis", 0) % rank
+    out = list(shapes[0])
+    for i, s in enumerate(shapes[1:], start=1):
+        for d in range(rank):
+            if d == axis:
+                continue
+            u = _A.unify_dim(out[d], s[d])
+            if u is None:
+                ctx.fail(f"concat input {i} shape {tuple(s)} mismatches "
+                         f"{tuple(out)} outside axis {axis}", var=ctx.op.input("X")[i])
+            out[d] = u
+    cat = 0
+    for s in shapes:
+        if s[axis] == _A.DYN:
+            cat = _A.DYN
+            break
+        cat += s[axis]
+    out[axis] = cat
+    ctx.set_out("Out", tuple(out), ctx.in_dtype("X"))
+
+
+_A.register_rule(["concat"], _infer_concat)
+
+
+def _infer_split(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    axis = ctx.op.attr("axis", 0) % len(xs)
+    num = ctx.op.attr("num", 0)
+    sections = ctx.op.attr("sections", [])
+    for i in range(len(ctx.op.output("Out"))):
+        out = list(xs)
+        if num:
+            if xs[axis] == _A.DYN:
+                out[axis] = _A.DYN
+            elif xs[axis] % num:
+                ctx.fail(f"split axis dim {xs[axis]} not divisible by num={num}")
+            else:
+                out[axis] = xs[axis] // num
+        elif sections:
+            if i < len(sections):
+                out[axis] = sections[i]
+        ctx.set_out("Out", tuple(out), ctx.in_dtype("X"), i=i)
+
+
+_A.register_rule(["split"], _infer_split)
+
+
+def _infer_stack(ctx):
+    shapes = [ctx.in_shape("X", i) for i in range(ctx.n_inputs("X"))]
+    if any(s is None for s in shapes) or not shapes:
+        return
+    base = shapes[0]
+    for s in shapes[1:]:
+        u = _A.unify_shape(base, s)
+        if u is None:
+            ctx.fail(f"stack inputs have mismatched shapes: {[tuple(s) for s in shapes]}")
+        base = u
+    axis = ctx.op.attr("axis", 0) % (len(base) + 1)
+    ctx.set_out("Y", tuple(base[:axis]) + (len(shapes),) + tuple(base[axis:]), ctx.in_dtype("X"))
+
+
+_A.register_rule(["stack"], _infer_stack)
+
+
+def _infer_gather(ctx):
+    xs = ctx.in_shape("X")
+    idx = ctx.in_shape("Index")
+    if xs is None or idx is None:
+        return
+    n = _A.DYN
+    if all(d != _A.DYN for d in idx):
+        n = int(np.prod(idx)) if idx else 1
+    ctx.set_out("Out", (n,) + tuple(xs[1:]), ctx.in_dtype("X"))
+
+
+_A.register_rule(["gather"], _infer_gather)

@@ -58,8 +58,9 @@ window recorded raises.
 Monitor surface: `resilience.skipped_batches / skipped_steps / retries /
 rollbacks / degraded_inflight / preemptions` counters, `resilience.
 snapshot / recover / backoff` spans, one `kind="resilience_event"` record
-per recovery action.  The elastic resume of a gang and the flight
-recorder come with ROADMAP A10 and A7.
+per recovery action.  A preemption's drain dumps the monitor's flight
+recorder, where one is armed (reason "sigterm_drain").  The elastic resume
+of a gang comes with ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -761,6 +762,9 @@ def resilient_train_loop(
                     stats.checkpoint_dir = _flush_checkpoint(step)
             _event("preempt_flush", "PreemptionError", step=step,
                    checkpoint=stats.checkpoint_dir)
+            # the drain is this process's last act: the black box goes out
+            # after the flush's records reached the ring
+            _MON.dump_blackbox("sigterm_drain")
             start_step = step
             return "preempted"
         if not isinstance(ce, TrainingError) or isinstance(ce, DataError):
@@ -973,6 +977,7 @@ def resilient_train_loop(
                     stats.checkpoint_dir = _flush_checkpoint(start_step)
                 _event("preempt_flush", "PreemptionError", step=start_step,
                        checkpoint=stats.checkpoint_dir)
+                _MON.dump_blackbox("sigterm_drain")
             break
         stats.steps = start_step
         stats.final_max_inflight = eff_inflight

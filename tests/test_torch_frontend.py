@@ -883,6 +883,24 @@ def test_load_persistables_defaults_to_the_card(tmp_path, monkeypatch):
         tfluid.io.load_persistables(None, str(tmp_path), main, tfluid.Scope())
 
 
+@pytest.mark.parametrize("entry", ["Executor", "AnalysisConfig", "profile_program"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a place, the entry points take CUDAPlace(0): on a machine with
+    a card that is cuda:0, and without one they raise rather than fall back
+    to the CPU."""
+    main, _, _ = _fit_a_line(PKGS["torch"])
+    make = {"Executor": lambda: tfluid.Executor().place,
+            "AnalysisConfig": lambda: tfluid.inference.AnalysisConfig("model_dir").place,
+            "profile_program": lambda: tfluid.profiler.profile_program(main, {})}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    if entry != "profile_program":  # which would then run on the card
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert make().device == torch.device("cuda:0")
+
+
 # --- what the port still lacks, pinned so that no later change loses a name ----
 
 def test_registered_ops_the_port_lacks():
@@ -895,7 +913,7 @@ def test_registered_ops_the_port_lacks():
     port_ops = set(t_registry.registered_ops())
     assert port_ops <= jax_ops, sorted(port_ops - jax_ops)
     missing = sorted(jax_ops - port_ops)
-    assert len(missing) <= 243, missing  # of 305
+    assert len(missing) <= 156, missing  # of 305
     assert {"sum", "sqrt", "sign", "elementwise_max", "clip", "clip_by_norm",
             "square_error_cost", "cross_entropy", "while"} <= port_ops
 
@@ -921,11 +939,15 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 772, len(missing)  # of 1232
+    assert len(missing) <= 656, len(missing)  # of 1232
     for n in ("paddle_tpu.layers.square_error_cost", "paddle_tpu.layers.sums",
               "paddle_tpu.io.save_persistables", "paddle_tpu.io.load_persistables",
               "paddle_tpu.layers.clip", "paddle_tpu.layers.cross_entropy",
               "paddle_tpu.core.analysis.check_program",
               "paddle_tpu.CheckpointManager", "paddle_tpu.dataset.QueueDataset",
-              "paddle_tpu.faults.FaultInjector", "paddle_tpu.integrity.StateDigester"):
+              "paddle_tpu.faults.FaultInjector", "paddle_tpu.integrity.StateDigester",
+              "paddle_tpu.layers.concat", "paddle_tpu.layers.dynamic_lstm",
+              "paddle_tpu.layers.reduce_mean", "paddle_tpu.nets.glu",
+              "paddle_tpu.profiler.profiler", "paddle_tpu.profiler.cuda_profiler",
+              "paddle_tpu.monitor.dump_blackbox"):
         assert n in names and _resolves(n), n

@@ -250,3 +250,55 @@ def test_source_hash_covers_sources_and_flags(monkeypatch):
     assert h == _build.source_hash()
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     assert _build.source_hash() != h
+
+
+def _wrapper_calls():
+    """(name, call, the LAUNCHES keys it must count) for every public
+    wrapper of the kernel modules, on small CPU operands."""
+    r = np.random.RandomState(0)
+    f = lambda *s: torch.from_numpy(r.randn(*s).astype(np.float32))  # noqa: E731
+    x, g = f(4, 8), f(4, 8)
+    q, k, v = f(1, 2, 16, 64), f(1, 2, 16, 64), f(1, 2, 16, 64)
+    lse = torch.zeros(1, 2, 16)
+    labels = torch.tensor([1, 0, 7, 3], dtype=torch.int32)
+    lr = torch.tensor([0.01])
+    return [
+        ("fused_ln_residual", lambda: ck.fused_ln_residual(x, f(4, 8), f(8), f(8), 1e-5),
+         ["ln_residual_fwd"]),
+        ("ln_residual_bwd", lambda: ck.ln_residual_bwd(x, None, f(8), g, 1e-5),
+         ["ln_residual_bwd"]),
+        ("fused_bias_act", lambda: ck.fused_bias_act(x, f(8), "gelu"), ["bias_act_fwd"]),
+        ("bias_act_bwd", lambda: ck.bias_act_bwd(x, f(8), g, "relu"), ["bias_act_bwd"]),
+        ("bn_epilogue", lambda: ck.bn_epilogue(f(2, 2, 2, 4), f(2), f(2), True),
+         ["bn_epilogue_fwd"]),
+        ("bn_epilogue_bwd", lambda: ck.bn_epilogue_bwd(x, f(4), f(4), g), ["bn_epilogue_bwd"]),
+        ("fused_softmax_xent", lambda: ck.fused_softmax_xent(x, labels), ["softmax_xent_fwd"]),
+        ("softmax_xent_bwd", lambda: ck.softmax_xent_bwd(x, labels, torch.zeros(4), torch.ones(4)),
+         ["softmax_xent_bwd"]),
+        ("fused_adam", lambda: ck.fused_adam(f(4, 8), g, f(4, 8), f(4, 8).abs(), lr, 0.9, 0.999,
+                                             1e-8), ["adam"]),
+        ("fused_sdpa", lambda: ca.fused_sdpa(q, k, v, None, True, 0.125), ["attention_fwd"]),
+        ("attention_bwd", lambda: ca.attention_bwd(q, k, v, None, False, 0.125, q, lse, g.new_zeros(
+            q.shape)), ["attention_bwd_dq", "attention_bwd_dkv"]),
+    ]
+
+
+@pytest.mark.parametrize("which", [c[0] for c in _wrapper_calls()])
+def test_every_wrapper_launches_its_kernel_on_a_card_tensor(which, monkeypatch):
+    """With its operands on the card (on_card answers True here), every
+    wrapper launches its kernel, counts the launch and takes no plain path:
+    the kernel entry is called (stubbed: there is no card) once per count."""
+    calls = []
+    for mod in (ck, ca):
+        monkeypatch.setattr(mod, "on_card", lambda name, *t: True)
+        monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_build, "call", lambda entry, *args: calls.append(entry))
+    for mod in (ck, ca):  # a plain version reached on the card would fail the test
+        for plain in [n for n in dir(mod) if n.endswith("_plain")]:
+            monkeypatch.setattr(mod, plain, lambda *a, **kw: pytest.fail("plain path taken"))
+    monkeypatch.setattr(ck, "LAUNCHES", dict.fromkeys(ck.LAUNCHES, 0))
+    monkeypatch.setattr(ca, "LAUNCHES", ck.LAUNCHES)
+    _, call, keys = next(c for c in _wrapper_calls() if c[0] == which)
+    call()
+    assert {k: n for k, n in ck.LAUNCHES.items() if n} == dict.fromkeys(keys, 1)
+    assert calls == ["ptt_" + k for k in keys]

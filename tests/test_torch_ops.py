@@ -13,10 +13,19 @@ from paddle_tpu.core.dtypes import canonical_dtype as j_canon
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 
-def _run(fluid, op_type, inputs, attrs, out_slots):
-    """Build {slot: array or [arrays]} -> one op -> fetch out_slots, on the CPU.  The
+def _out_names(out_slots):
+    """[(slot, var name)]: "Out" is one var, "Out:3" three vars of one slot."""
+    names = []
+    for spec in out_slots:
+        slot, _, n = spec.partition(":")
+        names += [(slot, f"out_{slot}{i}") for i in range(int(n))] if n else [(slot, f"out_{slot}")]
+    return names
+
+
+def _build(fluid, op_type, inputs, attrs, out_slots):
+    """The one-op program: {slot: array or [arrays]} fed as data vars; the
     output vars take attrs' `out_dtype`, or per slot `out_dtypes` (not an
-    attr of the op)."""
+    attr of the op), and no shape (the op's inference rule declares it)."""
     attrs = dict(attrs)
     out_dtypes = attrs.pop("out_dtypes", {})
     prog = fluid.Program()
@@ -31,17 +40,28 @@ def _run(fluid, op_type, inputs, attrs, out_slots):
             for k, v in enumerate(vals):
                 arr = np.asarray(v)
                 name = f"in_{slot}" if len(vals) == 1 else f"in_{slot}{k}"
-                block.create_var(name, shape=arr.shape, dtype=j_canon(arr.dtype), is_data=True)
+                var = block.create_var(name, shape=arr.shape, dtype=j_canon(arr.dtype), is_data=True)
+                var.stop_gradient = False
                 feed[name] = arr
                 in_io[slot].append(name)
         out_io = {}
-        for slot in out_slots:
-            block.create_var(f"out_{slot}",
-                             dtype=out_dtypes.get(slot, attrs.get("out_dtype", "float32")))
-            out_io[slot] = [f"out_{slot}"]
+        for slot, name in _out_names(out_slots):
+            block.create_var(name, dtype=out_dtypes.get(slot, attrs.get("out_dtype", "float32")))
+            out_io.setdefault(slot, []).append(name)
         block.append_op(op_type, inputs=in_io, outputs=out_io, attrs=dict(attrs))
+    return prog, feed
+
+
+def _run(fluid, op_type, inputs, attrs, out_slots, declared=None):
+    """Build -> one op -> fetch every output var, on the CPU.  `declared`,
+    a dict, receives each output var's declared (shape, dtype)."""
+    prog, feed = _build(fluid, op_type, inputs, attrs, out_slots)
+    names = [n for _, n in _out_names(out_slots)]
+    if declared is not None:
+        block = prog.global_block()
+        declared.update({n: (block.var(n).shape, str(block.var(n).dtype)) for n in names})
     exe = fluid.Executor(fluid.CPUPlace())
-    return exe.run(prog, feed=feed, fetch_list=[f"out_{s}" for s in out_slots], scope=fluid.Scope())
+    return exe.run(prog, feed=feed, fetch_list=names, scope=fluid.Scope())
 
 
 rng = np.random.RandomState(0)
@@ -303,19 +323,277 @@ CASES = [
 ]
 
 
+# --- the rest of ops/math_ops.py and ops/tensor_ops.py, and the sequence
+# conv.  (input maker, tolerance) per unary op; the domains keep log, rsqrt,
+# asin, ... finite
+UNIT = lambda *s: (rng.rand(*s) * 1.8 - 0.9).astype("float32")  # noqa: E731
+INTS = lambda *s: rng.randint(-3, 4, s).astype("int32")  # noqa: E731
+UNARY_NEW = {
+    "relu6": (lambda: F32(4, 5) * 4, 0.0), "logsigmoid": (lambda: F32(4, 5) * 3, 1e-6),
+    "tanh": (lambda: F32(4, 5), 1e-6), "exp": (lambda: F32(4, 5), 1e-5),
+    "log": (lambda: POS(4, 5), 1e-6), "rsqrt": (lambda: POS(4, 5), 1e-6),
+    "abs": (lambda: F32(4, 5), 0.0), "reciprocal": (lambda: POS(4, 5), 1e-6),
+    "floor": (lambda: F32(4, 5) * 3, 0.0), "ceil": (lambda: F32(4, 5) * 3, 0.0),
+    "round": (lambda: np.concatenate([F32(4, 5) * 3, [[0.5, 1.5, -2.5, 2.5, -0.5]]]).astype("f4"),
+              0.0),
+    "sin": (lambda: F32(4, 5), 1e-6), "cos": (lambda: F32(4, 5), 1e-6),
+    "softplus": (lambda: F32(4, 5) * 5, 1e-6), "softsign": (lambda: F32(4, 5), 1e-6),
+    "tanh_shrink": (lambda: F32(4, 5), 1e-6), "erf": (lambda: F32(4, 5), 1e-6),
+    "tan": (lambda: UNIT(4, 5), 1e-6), "asin": (lambda: UNIT(4, 5), 1e-6),
+    "acos": (lambda: UNIT(4, 5), 1e-6), "atan": (lambda: F32(4, 5), 1e-6),
+    "sinh": (lambda: F32(4, 5), 1e-5), "cosh": (lambda: F32(4, 5), 1e-5),
+    "log2": (lambda: POS(4, 5), 1e-6), "log10": (lambda: POS(4, 5), 1e-6),
+    "log1p": (lambda: POS(4, 5), 1e-6), "expm1": (lambda: F32(4, 5), 1e-5),
+}
+ATTR_UNARY_NEW = [
+    ("hard_shrink", {"threshold": 0.6}), ("stanh", {"scale_a": 0.5, "scale_b": 1.5}),
+    ("leaky_relu", {"alpha": 0.1}), ("elu", {"alpha": 0.7}),
+    ("hard_sigmoid", {"slope": 0.3, "offset": 0.4}), ("swish", {"beta": 1.3}),
+    ("softshrink", {"lambda": 0.4}),
+]
+REDUCE_NEW = ["reduce_mean", "reduce_max", "reduce_min", "reduce_prod"]
+CMP_NEW = ["equal", "not_equal", "less_equal", "greater_than", "greater_equal"]
+BOOLS = lambda *s: rng.rand(*s) < 0.5  # noqa: E731
+NAN_ROW = np.array([[1.0, np.nan, 2.0]], np.float32)
+SEQ = F32(3, 6, 4)
+SEQ_LOD = np.array([6, 2, 4], np.int32)
+
+NEW_CASES = (
+    [(f"{n}", n, {"X": make()}, {}, ["Out"], tol) for n, (make, tol) in UNARY_NEW.items()]
+    + [(f"{n}_bf16", n, {"X": BF16(4, 6)}, {"out_dtype": "bfloat16"}, ["Out"], 2e-2)
+       for n in ("tanh", "exp", "sin", "softsign", "erf")]
+    + [(n, n, {"X": F32(4, 5) * 2}, a, ["Out"], 1e-6) for n, a in ATTR_UNARY_NEW]
+    + [(f"{n}_default", n, {"X": F32(4, 5) * 2}, {}, ["Out"], 1e-6) for n, _ in ATTR_UNARY_NEW]
+    + [(f"{n}_dims", n, {"X": POS(3, 4, 5)}, {"dim": [0, 2], "keep_dim": False}, ["Out"], 1e-5)
+       for n in REDUCE_NEW]
+    + [(f"{n}_keep_neg", n, {"X": POS(3, 4, 5)}, {"dim": [-1], "keep_dim": True}, ["Out"], 1e-5)
+       for n in REDUCE_NEW]
+    + [(f"{n}_all", n, {"X": POS(3, 4)}, {"dim": [0], "reduce_all": True}, ["Out"], 1e-5)
+       for n in REDUCE_NEW]
+    # an integer mean is float32, where the inference rule declares X's int32
+    + [(f"{n}_int32", n, {"X": INTS(3, 4)}, {"dim": [1], "out_dtype": "int32"}, ["Out"], 1e-6)
+       for n in REDUCE_NEW]
+    + [("reduce_mean_bf16", "reduce_mean", {"X": BF16(4, 16)}, {"dim": [1], "out_dtype": "bfloat16"},
+        ["Out"], 1e-2)]
+    + [(n, n, {"X": INTS(3, 4), "Y": INTS(3, 4)}, {"out_dtype": "bool"}, ["Out"], 0.0) for n in CMP_NEW]
+    + [(f"{n}_axis", n, {"X": F32(2, 3, 4), "Y": F32(3)}, {"axis": 1, "out_dtype": "bool"}, ["Out"], 0.0)
+       for n in CMP_NEW]
+    + [
+        ("elementwise_pow", "elementwise_pow", {"X": POS(3, 4), "Y": F32(3, 4)}, {}, ["Out"], 1e-5),
+        ("elementwise_pow_axis", "elementwise_pow", {"X": POS(2, 3, 4), "Y": F32(3)}, {"axis": 1},
+         ["Out"], 1e-5),
+        ("elementwise_mod", "elementwise_mod", {"X": F32(3, 4) * 5, "Y": POS(3, 4) + 0.5}, {},
+         ["Out"], 1e-5),
+        ("elementwise_mod_int", "elementwise_mod", {"X": INTS(3, 4) * 3, "Y": np.array([2, -3, 4, 5],
+                                                                                     np.int32)},
+         {"out_dtype": "int32"}, ["Out"], 0.0),
+        ("elementwise_floordiv", "elementwise_floordiv",
+         {"X": INTS(3, 4) * 5, "Y": np.array([[2, -3, 4, 7]], np.int32).repeat(3, 0)},
+         {"out_dtype": "int32"}, ["Out"], 0.0),
+        ("frobenius_norm", "frobenius_norm", {"X": F32(3, 4)}, {"dim": [0, 1]}, ["Out"], 1e-5),
+        ("logical_or", "logical_or", {"X": BOOLS(3, 4), "Y": BOOLS(3, 4)}, {"out_dtype": "bool"},
+         ["Out"], 0.0),
+        ("logical_not", "logical_not", {"X": BOOLS(3, 4)}, {"out_dtype": "bool"}, ["Out"], 0.0),
+        ("isfinite", "isfinite", {"X": F32(3, 4)}, {"out_dtype": "bool"}, ["Out"], 0.0),
+        ("isfinite_nan", "isfinite", {"X": NAN_ROW}, {"out_dtype": "bool"}, ["Out"], 0.0),
+        ("minus", "minus", {"X": F32(3, 4), "Y": F32(3, 4)}, {}, ["Out"], 1e-6),
+        ("l1_norm", "l1_norm", {"X": F32(3, 4)}, {}, ["Out"], 1e-5),
+        ("squared_l2_norm", "squared_l2_norm", {"X": F32(3, 4)}, {}, ["Out"], 1e-5),
+        ("squared_l2_distance", "squared_l2_distance", {"X": F32(4, 3), "Y": F32(4, 3)}, {},
+         ["Out", "sub_result"], 1e-5),
+        ("squared_l2_distance_row", "squared_l2_distance", {"X": F32(4, 3), "Y": F32(1, 3)}, {},
+         ["Out", "sub_result"], 1e-5),
+        ("fill", "fill", {}, {"shape": [2, 3], "dtype": "float32", "value": list(range(6))},
+         ["Out"], 0.0),
+        ("fill_int64", "fill", {}, {"shape": [3], "dtype": "int64", "value": [4, -1, 7],
+                                    "out_dtype": "int64"}, ["Out"], 0.0),
+        ("fill_zeros_like2", "fill_zeros_like2", {"X": F32(3, 4)}, {}, ["Out"], 0.0),
+        ("fill_zeros_like2_int", "fill_zeros_like2", {"X": F32(3, 4)},
+         {"dtype": "int32", "out_dtype": "int32"}, ["Out"], 0.0),
+        # tensor_ops
+        ("reshape", "reshape", {"X": F32(2, 3, 4)}, {"shape": [0, -1]}, ["Out"], 0.0),
+        ("transpose", "transpose", {"X": F32(2, 3, 4)}, {"axis": [2, 0, 1]}, ["Out"], 0.0),
+        ("concat", "concat", {"X": [F32(2, 3), F32(2, 1), F32(2, 4)]}, {"axis": 1}, ["Out"], 0.0),
+        ("concat_neg_bf16", "concat", {"X": [BF16(2, 3), BF16(2, 2)]},
+         {"axis": -1, "out_dtype": "bfloat16"}, ["Out"], 0.0),
+        ("split_num", "split", {"X": F32(2, 6, 3)}, {"axis": 1, "num": 3}, ["Out:3"], 0.0),
+        ("split_sections", "split", {"X": F32(5, 4)}, {"axis": 0, "sections": [1, 3, 1]},
+         ["Out:3"], 0.0),
+        ("shape", "shape", {"Input": F32(2, 3, 5)}, {"out_dtype": "int32"}, ["Out"], 0.0),
+        ("slice", "slice", {"Input": F32(4, 5, 6)},
+         {"axes": [0, 2], "starts": [1, -4], "ends": [3, 100]}, ["Out"], 0.0),
+        ("stack", "stack", {"X": [F32(2, 3), F32(2, 3), F32(2, 3)]}, {"axis": 1}, ["Y"], 0.0),
+        ("unstack", "unstack", {"X": F32(2, 3, 4)}, {"axis": 1, "num": 3}, ["Y:3"], 0.0),
+        ("squeeze", "squeeze", {"X": F32(2, 1, 3, 1)}, {"axes": [1]}, ["Out"], 0.0),
+        ("squeeze2_all", "squeeze2", {"X": F32(2, 1, 3, 1)}, {"axes": []}, ["Out"], 0.0),
+        ("squeeze2_neg", "squeeze2", {"X": F32(2, 1, 3, 1)}, {"axes": [-1, 1]}, ["Out"], 0.0),
+        ("unsqueeze", "unsqueeze", {"X": F32(2, 3)}, {"axes": [0, 2]}, ["Out"], 0.0),
+        ("unsqueeze2", "unsqueeze2", {"X": F32(2, 3)}, {"axes": [1]}, ["Out"], 0.0),
+        ("flatten", "flatten", {"X": F32(2, 3, 4, 5)}, {"axis": 2}, ["Out"], 0.0),
+        ("flatten2", "flatten2", {"X": F32(2, 3, 4)}, {"axis": 1}, ["Out"], 0.0),
+        ("flatten2_axis0", "flatten2", {"X": F32(2, 3)}, {"axis": 0}, ["Out"], 0.0),
+        ("gather", "gather", {"X": F32(5, 3), "Index": np.array([4, 0, 2, 2], np.int32)}, {},
+         ["Out"], 0.0),
+        ("gather_nd", "gather_nd", {"X": F32(3, 4, 5), "Index": np.array([[[0, 1], [2, 3]],
+                                                                          [[1, 0], [2, 2]]])},
+         {}, ["Out"], 0.0),
+        ("scatter", "scatter", {"X": F32(5, 3), "Ids": np.array([3, 0], np.int32),
+                                "Updates": F32(2, 3)}, {}, ["Out"], 0.0),
+        ("scatter_add", "scatter", {"X": F32(5, 3), "Ids": np.array([3, 0, 3], np.int32),
+                                    "Updates": F32(3, 3)}, {"overwrite": False}, ["Out"], 1e-6),
+        ("scatter_nd_add", "scatter_nd_add",
+         {"X": F32(3, 4, 2), "Index": np.array([[0, 1], [2, 3], [0, 1]]), "Updates": F32(3, 2)},
+         {}, ["Out"], 1e-6),
+        ("pad", "pad", {"X": F32(2, 3)}, {"paddings": [1, 0, 2, 3], "pad_value": 0.5}, ["Out"], 0.0),
+        ("fill_zeros_like", "fill_zeros_like", {"X": F32(3, 4)}, {}, ["Out"], 0.0),
+        ("range_int", "range", {}, {"start_v": 1, "end_v": 11, "step_v": 3, "dtype": "int64",
+                                    "out_dtype": "int64"}, ["Out"], 0.0),
+        ("range_float", "range", {}, {"start_v": 0.5, "end_v": 3.0, "step_v": 0.5,
+                                      "dtype": "float32"}, ["Out"], 1e-7),
+        ("cumsum", "cumsum", {"X": F32(3, 5)}, {"axis": 1}, ["Out"], 1e-6),
+        ("cumsum_excl_rev", "cumsum", {"X": F32(3, 5)},
+         {"axis": 0, "exclusive": True, "reverse": True}, ["Out"], 1e-6),
+        ("cumsum_int", "cumsum", {"X": INTS(2, 6)}, {"axis": -1, "out_dtype": "int32"}, ["Out"], 0.0),
+        ("argsort", "argsort", {"X": F32(3, 6)}, {"axis": -1, "out_dtypes": {"Indices": "int64"}},
+         ["Out", "Indices"], 0.0),
+        ("argsort_desc_axis0", "argsort", {"X": F32(5, 3)},
+         {"axis": 0, "descending": True, "out_dtypes": {"Indices": "int64"}},
+         ["Out", "Indices"], 0.0),
+        ("expand_as", "expand_as", {"X": F32(2, 1, 3), "target_tensor": F32(4, 5, 3)}, {},
+         ["Out"], 0.0),
+        ("linspace", "linspace", {"Start": np.array([-1.0], np.float32),
+                                  "Stop": np.array([2.5], np.float32)}, {"num_v": 8}, ["Out"], 1e-6),
+        ("norm", "norm", {"X": F32(3, 4, 5)}, {"axis": 1, "epsilon": 1e-6}, ["Out", "Norm"], 1e-6),
+        ("shard_index", "shard_index", {"X": rng.randint(0, 20, (6, 1)).astype(np.int64)},
+         {"index_num": 20, "nshards": 3, "shard_id": 1, "ignore_value": -1, "out_dtype": "int64"},
+         ["Out"], 0.0),
+        ("space_to_depth", "space_to_depth", {"X": F32(2, 8, 4, 6)}, {"blocksize": 2}, ["Out"], 0.0),
+        ("sequence_conv", "sequence_conv",
+         {"X": SEQ, "XLod": SEQ_LOD, "Filter": F32(12, 5)}, {"contextLength": 3}, ["Out"], 1e-5),
+        ("sequence_conv_start", "sequence_conv",
+         {"X": SEQ, "XLod": SEQ_LOD, "Filter": F32(16, 2)},
+         {"contextLength": 4, "contextStart": -3}, ["Out"], 1e-5),
+    ]
+)
+CASES += NEW_CASES
+
+# (id, op_type, inputs, attrs, out_slots, the input slots to differentiate)
+GRAD_CASES = (
+    [(n, n, {"X": make()}, {}, ["Out"], ["X"]) for n, (make, _) in UNARY_NEW.items()]
+    + [(n, n, {"X": F32(4, 5) * 2}, a, ["Out"], ["X"]) for n, a in ATTR_UNARY_NEW]
+    + [(f"{n}_dims", n, {"X": POS(3, 4, 5)}, {"dim": [0, 2]}, ["Out"], ["X"]) for n in REDUCE_NEW]
+    + [(f"{n}_all", n, {"X": POS(3, 4)}, {"dim": [0], "reduce_all": True}, ["Out"], ["X"])
+       for n in REDUCE_NEW]
+    + [
+        ("elementwise_pow", "elementwise_pow", {"X": POS(3, 4), "Y": F32(3, 4)}, {}, ["Out"],
+         ["X", "Y"]),
+        ("elementwise_mod", "elementwise_mod", {"X": F32(3, 4) * 5, "Y": POS(3, 4) + 0.5}, {},
+         ["Out"], ["X"]),
+        ("frobenius_norm", "frobenius_norm", {"X": F32(3, 4)}, {}, ["Out"], ["X"]),
+        ("minus", "minus", {"X": F32(3, 4), "Y": F32(3, 4)}, {}, ["Out"], ["X", "Y"]),
+        ("l1_norm", "l1_norm", {"X": F32(3, 4)}, {}, ["Out"], ["X"]),
+        ("squared_l2_norm", "squared_l2_norm", {"X": F32(3, 4)}, {}, ["Out"], ["X"]),
+        ("squared_l2_distance", "squared_l2_distance", {"X": F32(4, 3), "Y": F32(1, 3)}, {},
+         ["Out", "sub_result"], ["X", "Y"]),
+        ("reshape", "reshape", {"X": F32(2, 3, 4)}, {"shape": [0, -1]}, ["Out"], ["X"]),
+        ("transpose", "transpose", {"X": F32(2, 3, 4)}, {"axis": [2, 0, 1]}, ["Out"], ["X"]),
+        ("concat", "concat", {"X": [F32(2, 3), F32(2, 1)]}, {"axis": 1}, ["Out"], ["X0", "X1"]),
+        ("split_sections", "split", {"X": F32(5, 4)}, {"axis": 0, "sections": [1, 3, 1]},
+         ["Out:3"], ["X"]),
+        ("slice", "slice", {"Input": F32(4, 5, 6)},
+         {"axes": [0, 2], "starts": [1, -4], "ends": [3, 100]}, ["Out"], ["Input"]),
+        ("stack", "stack", {"X": [F32(2, 3), F32(2, 3)]}, {"axis": 1}, ["Y"], ["X0", "X1"]),
+        ("unstack", "unstack", {"X": F32(2, 3, 4)}, {"axis": 1, "num": 3}, ["Y:3"], ["X"]),
+        ("squeeze2", "squeeze2", {"X": F32(2, 1, 3, 1)}, {"axes": [1]}, ["Out"], ["X"]),
+        ("squeeze", "squeeze", {"X": F32(2, 1, 3)}, {"axes": []}, ["Out"], ["X"]),
+        ("unsqueeze2", "unsqueeze2", {"X": F32(2, 3)}, {"axes": [0, 2]}, ["Out"], ["X"]),
+        ("unsqueeze", "unsqueeze", {"X": F32(2, 3)}, {"axes": [1]}, ["Out"], ["X"]),
+        ("flatten2", "flatten2", {"X": F32(2, 3, 4)}, {"axis": 2}, ["Out"], ["X"]),
+        ("flatten", "flatten", {"X": F32(2, 3, 4)}, {"axis": 1}, ["Out"], ["X"]),
+        ("gather", "gather", {"X": F32(5, 3), "Index": np.array([4, 0, 2, 2], np.int32)}, {},
+         ["Out"], ["X"]),
+        ("gather_nd", "gather_nd", {"X": F32(3, 4, 5), "Index": np.array([[0, 1], [2, 3], [0, 1]])},
+         {}, ["Out"], ["X"]),
+        ("scatter", "scatter", {"X": F32(5, 3), "Ids": np.array([3, 0], np.int32),
+                                "Updates": F32(2, 3)}, {}, ["Out"], ["X", "Updates"]),
+        ("scatter_add", "scatter", {"X": F32(5, 3), "Ids": np.array([3, 0, 3], np.int32),
+                                    "Updates": F32(3, 3)}, {"overwrite": False}, ["Out"],
+         ["X", "Updates"]),
+        ("scatter_nd_add", "scatter_nd_add",
+         {"X": F32(3, 4, 2), "Index": np.array([[0, 1], [2, 3], [0, 1]]), "Updates": F32(3, 2)},
+         {}, ["Out"], ["X", "Updates"]),
+        ("pad", "pad", {"X": F32(2, 3)}, {"paddings": [1, 0, 2, 3], "pad_value": 0.5}, ["Out"],
+         ["X"]),
+        ("cumsum_excl_rev", "cumsum", {"X": F32(3, 5)},
+         {"axis": 0, "exclusive": True, "reverse": True}, ["Out"], ["X"]),
+        ("argsort", "argsort", {"X": F32(3, 6)}, {"axis": -1, "out_dtypes": {"Indices": "int64"}},
+         ["Out"], ["X"]),
+        ("expand_as", "expand_as", {"X": F32(2, 1, 3), "target_tensor": F32(4, 5, 3)}, {},
+         ["Out"], ["X"]),
+        ("norm", "norm", {"X": F32(3, 4, 5)}, {"axis": 1}, ["Out", "Norm"], ["X"]),
+        ("space_to_depth", "space_to_depth", {"X": F32(2, 8, 4, 6)}, {"blocksize": 2}, ["Out"],
+         ["X"]),
+        ("sequence_conv", "sequence_conv", {"X": SEQ, "XLod": SEQ_LOD, "Filter": F32(12, 5)},
+         {"contextLength": 3}, ["Out"], ["X", "Filter"]),
+    ]
+)
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):
+    """Same fetches, and the same declared output shapes and dtypes (the
+    build-time inference rules), in both packages."""
     _, op_type, inputs, attrs, out_slots, atol = case
     before = dict(ck.LAUNCHES)
-    want = _run(jfluid, op_type, inputs, attrs, out_slots)
-    got = _run(tfluid, op_type, inputs, attrs, out_slots)
+    j_decl, t_decl = {}, {}
+    want = _run(jfluid, op_type, inputs, attrs, out_slots, j_decl)
+    got = _run(tfluid, op_type, inputs, attrs, out_slots, t_decl)
     assert ck.LAUNCHES == before
-    for slot, w, g in zip(out_slots, want, got):
+    assert t_decl == j_decl
+    for (slot, _), w, g in zip(_out_names(out_slots), want, got):
         w = np.asarray(w)
         assert g.dtype == w.dtype, (slot, g.dtype, w.dtype)  # bfloat16 too: ml_dtypes in both
         assert g.shape == w.shape, (slot, g.shape, w.shape)
         np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64), atol=atol, rtol=0,
                                    err_msg=f"{op_type} {slot}")
+
+
+def _grads(fluid, op_type, inputs, attrs, out_slots, wrt, weights):
+    """d/d(wrt inputs) of sum_k mean(out_k * weights_k) through
+    `append_backward`, fetching each `in_<slot>@GRAD`."""
+    prog, feed = _build(fluid, op_type, inputs, attrs, out_slots)
+    names = [n for _, n in _out_names(out_slots)]
+    with fluid.program_guard(prog, fluid.Program()):
+        block = prog.global_block()
+        parts = []
+        for n, w in zip(names, weights):
+            wv = block.create_var(f"w_{n}", shape=w.shape, dtype="float32", is_data=True)
+            feed[wv.name] = w
+            prod = fluid.layers.elementwise_mul(block.var(n), wv)
+            parts.append(fluid.layers.mean(prod))
+        loss = parts[0] if len(parts) == 1 else fluid.layers.sums(parts)
+        grads = fluid.append_backward(loss, parameter_list=[f"in_{s}" for s in wrt])
+    exe = fluid.Executor(fluid.CPUPlace())
+    return exe.run(prog, feed=feed, fetch_list=[g.name for _, g in grads], scope=fluid.Scope())
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_op_gradient_matches_jax(case):
+    """The gradient of each differentiable op through `append_backward`,
+    against the JAX package's vjp: sum_k mean(out_k * w_k) with fixed random
+    weights w_k, so a permuted or misplaced gradient shows; within
+    1e-5 * (1 + max|ref|) in float32."""
+    _, op_type, inputs, attrs, out_slots, wrt = case
+    outs = _run(jfluid, op_type, inputs, attrs, out_slots)
+    wr = np.random.RandomState(1)
+    weights = [np.asarray(wr.randn(*np.shape(o)), np.float32) for o in outs]
+    want = _grads(jfluid, op_type, inputs, attrs, out_slots, wrt, weights)
+    got = _grads(tfluid, op_type, inputs, attrs, out_slots, wrt, weights)
+    for slot, w, g in zip(wrt, want, got):
+        w = np.asarray(w, np.float64)
+        assert g.shape == w.shape, (slot, g.shape, w.shape)
+        np.testing.assert_allclose(np.asarray(g, np.float64), w, rtol=0,
+                                   atol=1e-5 * (1 + np.abs(w).max()), err_msg=f"{op_type} {slot}")
 
 
 def test_long_attention_takes_plain_path_on_cpu():
@@ -334,9 +612,11 @@ def test_long_attention_takes_plain_path_on_cpu():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+# the standard normal truncated to [-2, 2] has std 0.8796
 @pytest.mark.parametrize("op_type,attrs,mean,std", [
     ("gaussian_random", {"mean": 1.0, "std": 2.0}, 1.0, 2.0),
     ("uniform_random", {"min": -1.0, "max": 3.0}, 1.0, 4.0 / np.sqrt(12.0)),
+    ("truncated_gaussian_random", {"mean": 1.0, "std": 2.0}, 1.0, 2.0 * 0.87962566),
 ])
 def test_random_ops_by_moments(op_type, attrs, mean, std):
     attrs = dict(attrs, shape=[400, 250], dtype="float32")
