@@ -211,9 +211,35 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  36. profiled_trace: phase 31's graphed step under
      profiler.profiler(state="All", trace_dir=...): the Chrome trace names
      every kernel of the step's launches and holds the executor's spans;
-     the Prometheus page and the summary table are not empty.
+     the Prometheus page and the summary table are not empty;
+ 37. train_lamb: phase 12 with Lamb(lamb_weight_decay 0.01, epsilon 1e-6) on
+     linear_lr_warmup(polynomial_decay(1e-3, 1000, 0, 1), 2, 0, 1e-3), eager
+     and graphed in turns: launches FUSED_PER_STEP with Adam 0, the graphed
+     runs bitwise equal, the loss falling; the LAMB tail's kernels and
+     device time from a profiled replay against the same step without
+     updates (lamb_tail);
+ 38. resnet_lars: phase 10 with LarsMomentum(0.9, lars_coeff 0.001,
+     lars_weight_decay 5e-4) on cosine_decay(0.1, 5, 90), graphed, launches
+     RESNET_PER_STEP, phase 10's loss rule;
+ 39. seq2seq_train: Fluid's benchmark machine_translation (seq2seq with
+     attention, a DynamicRNN decoder) at full width (512, vocabularies
+     30,000, f32, Adam 1e-3) on 32 ragged pairs of 10-60 tokens (bucket 64),
+     eager then graphed: sentences and real target tokens a second, idle
+     share, ATen calls, peak memory; Adam launches = the program's 26
+     parameters a step;
+ 40. optim_parity: card vs CPU, f32: seven optimizers 3 steps on an MLP by
+     phase 7's rule, dgc / proximal_gd / proximal_adagrad as one-op runs,
+     dpsgd's noise moments, BERT 2 layers with LAMB (phase 7), ResNet-50 at
+     phase 11's size with LARS (phase 11), EMA and ModelAverage apply /
+     restore under a captured graph (bit for bit back), the seven
+     learning-rate schedules over 8 runs;
+ 41. ragged_parity: card vs CPU: the seq2seq at width 64 (3 Adam steps,
+     phase 7's rule), a CRF tagger (NLL 1e-4, paths equal), dynamic_gru,
+     dynamic_lstmp, lstm, warpctc, a StaticRNN, cond and the arrays; the
+     cond and array plans refused a CUDA graph with their reason.
 Phase 3 also times the BN epilogue, the xent and Adam at the family's
-float32 shapes (check_vision_kernels).
+float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
+512 (check_seq2seq_kernels).
 
 Before phase 1 the host's ml_dtypes is required: a numpy fetch of a bf16
 value is an ml_dtypes bfloat16 array of the card's bits (ROADMAP C1), and
@@ -418,10 +444,60 @@ VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
 # tests/test_torch_resnet.py), the LSTM at width 128 on 8 sentences of 5-32
 VISION_PARITY_SIZE = 64
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
+LAUNCH_ORDER = ("train_lamb", "resnet_lars", "seq2seq_train",
+                "se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
                 "se_resnext_serve", "vgg_serve", "nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
                 "resilient_bert")
+# phases 37-41: the other optimizers and the rest of the ragged path.  LAMB
+# as BERT's large-batch recipe (You et al. 2019) on warmup into linear
+# decay; LARS as ResNet-50's (You, Gitman and Ginsburg 2017) on a cosine
+# schedule over 90 epochs of 5 steps; no Adam kernel runs on either path
+LAMB_PER_STEP = dict(FUSED_PER_STEP, adam=0)
+LARS_PER_STEP = RESNET_PER_STEP  # Momentum had no kernel either
+OPTIMIZER_NAMES = {
+    "lamb": "Lamb(lamb_weight_decay 0.01, epsilon 1e-6) on linear_lr_warmup(polynomial_decay("
+            "1e-3, 1000, 0.0, 1.0), 2, 0.0, 1e-3)",
+    "lars": "LarsMomentum(mu 0.9, lars_coeff 0.001, lars_weight_decay 5e-4) on "
+            "cosine_decay(0.1, 5, 90)",
+    "lamb_parity": f"Lamb(lr {LR}, lamb_weight_decay 0.01, epsilon 1e-6)",
+    "lars_parity": f"LarsMomentum(lr {RESNET_PARITY_LR}, mu 0.9, lars_coeff 0.001, "
+                   "lars_weight_decay 5e-4)",
+}
+# Fluid's benchmark machine_translation (benchmark/fluid/models/
+# machine_translation.py, SURVEY.md:610) at its width: embedding, encoder
+# and decoder 512, WMT14's 30,000-word vocabularies, Adam 1e-3 (the
+# default of benchmark/fluid/fluid_benchmark.py); 32 ragged pairs of 10-60 tokens
+# (bucket 64), float32
+SEQ2SEQ = dict(src_vocab=30000, tgt_vocab=30000, emb_dim=512, enc_dim=512, dec_dim=512)
+SEQ2SEQ_BATCH, SEQ2SEQ_MIN_LEN, SEQ2SEQ_MAX_LEN = 32, 10, 60
+SEQ2SEQ_LR = 1e-3
+# phase 41: width 64, vocab 200, 4 pairs
+SEQ2SEQ_PARITY = dict(src_vocab=200, tgt_vocab=200, emb_dim=64, enc_dim=64, dec_dim=64)
+# phase 40: each optimizer 3 steps on an MLP [64] -> 128 -> 128 -> 1 at batch
+# 64 (the 128 x 128 weight is the one DGCMomentum would compress); the
+# squared-gradient accumulators of RMSProp, Ftrl and DecayedAdagrad start at
+# 0.1 on both sides, so that a first step is proportional to g and not
+# lr * g / |g| where g is 0 to rounding (tests/test_torch_optimizers.py)
+OPTIM_PARITY = {
+    "rmsprop": ("RMSProp", (0.01,), {"momentum": 0.5, "centered": True}),
+    "adamax": ("Adamax", (0.01,), {}),
+    "adadelta": ("Adadelta", (1.0,), {"rho": 0.9}),
+    "ftrl": ("Ftrl", (0.05,), {"l1": 0.001, "l2": 0.01}),
+    "lamb": ("Lamb", (0.01,), {"lamb_weight_decay": 0.01}),
+    "lars_momentum": ("LarsMomentum", (0.1, 0.9), {"lars_coeff": 0.01, "lars_weight_decay": 5e-4}),
+    "decayed_adagrad": ("DecayedAdagrad", (0.01,), {}),
+}
+WARM_START = {"RMSProp": "_mean_square_0", "Ftrl": "_squared_0", "DecayedAdagrad": "_moment_0"}
+SCHEDULES = {
+    "exponential_decay": ((0.1, 3, 0.5), {"staircase": True}),
+    "natural_exp_decay": ((0.1, 4, 0.3), {}),
+    "inverse_time_decay": ((0.1, 2, 0.5), {}),
+    "polynomial_decay": ((0.1, 4), {"end_learning_rate": 0.0, "cycle": True}),
+    "piecewise_decay": (([2, 5, 7], [1.0, 0.5, 0.1, 0.01]), {}),
+    "cosine_decay": ((0.1, 2, 5), {}),
+    "linear_lr_warmup": ((0.1, 4, 0.0, 0.1), {}),
+}
 ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest is 0 to rounding
 # forwards: paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS (and the attention
 # tests), save the loss and lse of the cross-entropy, which are float32 on both
@@ -1231,6 +1307,40 @@ def check_bn_kernels(torch, ck):
     return record
 
 
+def hold_adam_at(torch, ck, record, gen, n, where):
+    """Adam over one float32 parameter of `n` elements against its plain
+    version element by element (2^-20 of its terms), timed with its plain
+    version and torch._fused_adam_, added to `record` under at_<n>_f32."""
+    dev = torch.device("cuda:0")
+    f32 = torch.float32
+    p = torch.randn(n, generator=gen, device=dev) * 0.02
+    g = torch.randn(n, generator=gen, device=dev) * 0.01
+    m = torch.randn(n, generator=gen, device=dev) * 0.01
+    v = (0.5 + torch.rand(n, generator=gen, device=dev)) * 1e-4
+    lr_t = torch.full((1,), 1e-3, device=dev)
+    want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
+    got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
+    terms_m = 0.9 * m.abs() + 0.1 * g.abs()
+    terms_v = 0.999 * v + 0.001 * g * g
+    terms_p = p.abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8)
+    err = max(check_within("adam", what, f32, f"n={n} ({where})", a, c,
+                           F32_ERR * terms + 1e-30, "2^-20*|terms|")
+              for what, terms, a, c in zip(("p", "m", "v"), (terms_p, terms_m, terms_v),
+                                          got, want))
+    step = torch.zeros((), device=dev)
+    b_ms, b_by = bound(nbytes(p, m, v, g, p, m, v), 10.0 * n, F32_FLOPS)
+    record["adam"][f"at_{n}_f32"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: ck.fused_adam(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)),
+        plain_ms=time_ms(lambda: ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)),
+        library_ms=time_ms(lambda: torch._fused_adam_(
+            [p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
+            eps=1e-8, amsgrad=False, maximize=False)),
+        library="torch._fused_adam_ on one tensor", bound_ms=b_ms, bound_by=b_by,
+        shape=f"[{n}] float32 ({where})")
+    del p, g, m, v, got, want, terms_m, terms_v, terms_p
+    torch.cuda.empty_cache()
+
+
 def check_vision_kernels(torch, ck, record):
     """Phase 3, the shapes the fluid_benchmark family gives the kernels, in
     float32 as the models are built: the BN epilogue forward and backward at
@@ -1328,30 +1438,7 @@ def check_vision_kernels(torch, ck, record):
         4.0 * 64 * 1000, "[64,1000] f32")
     del lx, lib_loss
     # Adam at VGG-16's fc over the flattened 7 x 7 x 512 features
-    n = 25088 * 512
-    p, g = randn(n, s=0.02), randn(n, s=0.01)
-    m, v = randn(n, s=0.01), (0.5 + torch.rand(n, generator=gen, device=dev)) * 1e-4
-    lr_t = torch.full((1,), 1e-3, device=dev)
-    want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
-    got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
-    terms_m = 0.9 * m.abs() + 0.1 * g.abs()
-    terms_v = 0.999 * v + 0.001 * g * g
-    terms_p = p.abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8)
-    err = max(check_within("adam", what, f32, f"n={n} (VGG-16 fc)", a, c,
-                           F32_ERR * terms + 1e-30, "2^-20*|terms|")
-              for what, terms, a, c in zip(("p", "m", "v"), (terms_p, terms_m, terms_v),
-                                          got, want))
-    step = torch.zeros((), device=dev)
-    record["adam"][f"at_{n}_f32"] = timed(
-        err, lambda: ck.fused_adam(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
-        lambda: ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
-        lambda: torch._fused_adam_([p], [g], [m], [v], [], [step], lr=1e-3, beta1=0.9,
-                                   beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-                                   maximize=False),
-        "torch._fused_adam_ on one tensor", nbytes(p, m, v, g, p, m, v), 10.0 * n,
-        f"[{n}] float32 (VGG-16 fc)")
-    del p, g, m, v, got, want, terms_m, terms_v, terms_p
-    torch.cuda.empty_cache()
+    hold_adam_at(torch, ck, record, gen, 25088 * 512, "VGG-16 fc")
     for name in ("bn_epilogue_fwd", "bn_epilogue_bwd", "softmax_xent_fwd", "softmax_xent_bwd",
                  "adam"):
         emit({"timing": name, **{k: r for k, r in record[name].items()
@@ -1720,26 +1807,34 @@ def parity(fluid, torch, tmp):
 
 
 def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
-                clip_decay=False):
+                clip_decay=False, optimizer=None):
     """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention or
     the fused_attention op, through the two fusion passes; returns (main,
     startup, loss name).  `clip_decay` builds it as a fine-tuning user does:
     Adam(LR, regularization=L2Decay(WEIGHT_DECAY)) under
     set_gradient_clip(GradientClipByGlobalNorm(CLIP_NORM)), the program's
     shapes inferred by the port's own layers; the global norm's var then
-    stays fetchable (global_norm_name)."""
+    stays fetchable (global_norm_name).  `optimizer` names one of
+    make_optimizer's in place of Adam ("backward_only": the gradients and
+    no update)."""
     from paddle_tpu_torch.models import transformer
 
     with fluid.unique_name.guard():
         main, startup, _, fetches = transformer.build_bert(
             vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
             d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
-            use_fused_attention=fused, with_optimizer=not clip_decay)
+            use_fused_attention=fused, with_optimizer=not (clip_decay or optimizer))
         if clip_decay:
             with fluid.program_guard(main, startup):
                 fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
                 fluid.optimizer.Adam(LR, regularization=fluid.regularizer.L2Decay(
                     WEIGHT_DECAY)).minimize(fetches["loss"])
+        elif optimizer == "backward_only":
+            with fluid.program_guard(main, startup):
+                fluid.append_backward(fetches["loss"])
+        elif optimizer:
+            with fluid.program_guard(main, startup):
+                make_optimizer(fluid, optimizer).minimize(fetches["loss"])
     startup.random_seed = 0
     main.random_seed = 0
     loss = fetches["loss"].name
@@ -1854,7 +1949,8 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
               "warm_dispatch_ms": statistics.median(mon["dispatch_ms_by_run"][2:]),
               "profiled_step_ms": prof["run_ms"], "device_busy_ms": prof["device_busy_ms"],
               "device_idle_share": prof["device_idle_share"],
-              "host_aten_calls": prof["host_aten_calls"], "card": card}
+              "host_aten_calls": prof["host_aten_calls"],
+              "graph_refusal": exe.last_plan.graph_refusal, "card": card}
     emit(record)
     return losses, scope, record
 
@@ -1877,19 +1973,21 @@ def hold_graphed_repeat(phase, runs):
 
 
 def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
-          per_step=PER_STEP, arms=("graphed",), clip_decay=False):
+          per_step=PER_STEP, arms=("graphed",), clip_decay=False, optimizer=None):
     """Phases 6, 12, 13 and 24: bf16 BERT-base (12 layers, dropout 0.1, Adam
     lr 1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one
     fixed batch of `batch` x `seq_len`, with unfused attention (phase 6) or
     the fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8;
-    24: phase 12 with L2Decay and a global-norm clip, `clip_decay`), once
-    per arm of `arms` (train_arm).  Two graphed arms (the AB_ARMS of phases
+    24: phase 12 with L2Decay and a global-norm clip, `clip_decay`; 37:
+    phase 12 with LAMB on its schedule, `optimizer`), once per arm of `arms`
+    (train_arm).  Two graphed arms (the AB_ARMS of phases
     12 and 24) must agree bit for bit.  Returns the launches counted."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
     t0 = time.perf_counter()
-    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused, clip_decay)
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused, clip_decay,
+                                      optimizer)
     derived = launches_of_program(main, loss)
     if derived != per_step:
         raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
@@ -1897,7 +1995,8 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     attention = "fused attention" if fused else "unfused attention"
     tail = (f", L2Decay({WEIGHT_DECAY}), GradientClipByGlobalNorm({CLIP_NORM})"
             if clip_decay else "")
-    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, Adam lr 1e-4{tail}",
+    opt = OPTIMIZER_NAMES.get(optimizer, "Adam lr 1e-4")
+    emit({"phase": phase, "model": f"bert-base bf16, {attention}, dropout 0.1, {opt}{tail}",
           "batch": batch, "seq_len": seq_len, "arms": list(arms),
           "ops": len(main.global_block().ops),
           **({"clip_decay_ops": clip_decay_ops(main)} if clip_decay else {}),
@@ -2024,16 +2123,20 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
                  "batch": batch, "seq_len": seq_len}, runs, near_zero, state, LR)
 
 
-def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1):
+def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1, optimizer=None):
     """ResNet-50 in the JAX package's full configuration (NCHW, space-to-depth
-    stem, 1000 classes, 224 x 224, Momentum 0.9), random weights from seed 0,
-    through fuse_bn_relu and fuse_bias_act; returns (main, startup, fetches)."""
+    stem, 1000 classes, 224 x 224, Momentum 0.9, or make_optimizer's
+    `optimizer`), random weights from seed 0, through fuse_bn_relu and
+    fuse_bias_act; returns (main, startup, fetches)."""
     from paddle_tpu_torch.models import resnet
 
     with fluid.unique_name.guard():
-        main, startup, _, fetches = resnet.build(dtype=dtype, with_optimizer=with_optimizer,
-                                                 learning_rate=learning_rate, momentum=0.9,
-                                                 **RESNET)
+        main, startup, _, fetches = resnet.build(
+            dtype=dtype, with_optimizer=with_optimizer and optimizer is None,
+            learning_rate=learning_rate, momentum=0.9, **RESNET)
+        if optimizer:
+            with fluid.program_guard(main, startup):
+                make_optimizer(fluid, optimizer).minimize(fetches["loss"])
     startup.random_seed = 0
     main.random_seed = 0
     keep = [fetches["loss"].name, fetches["logits"].name]
@@ -2142,16 +2245,17 @@ def resnet_parity(fluid, torch, tmp):
         raise AssertionError(f"card vs CPU ResNet-50 logits differ by {diff} > 1e-3")
 
 
-def resnet_train(fluid, torch, ck, card):
-    """Phase 10: bf16 ResNet-50 (Momentum lr 0.1, 0.9, batch 256) trains
-    TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch, from
-    the second step on as a CUDA graph (Momentum's velocities and batch
-    norm's running statistics are new tensors a step, copied back inside
-    the graph)."""
+def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None):
+    """Phases 10 and 38: bf16 ResNet-50 (Momentum lr 0.1, 0.9, or LARS on its
+    cosine schedule, `optimizer`; batch 256) trains TRAIN_STEPS steps
+    through Executor.run on cuda:0 on one fixed batch, from the second step
+    on as a CUDA graph (the velocities and batch norm's running statistics
+    are new tensors a step, copied back inside the graph)."""
     import numpy as np
 
     t0 = time.perf_counter()
-    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True,
+                                          optimizer=optimizer)
     loss = fetches["loss"].name
     derived = launches_of_program(main, loss)
     if derived != RESNET_PER_STEP:
@@ -2163,8 +2267,8 @@ def resnet_train(fluid, torch, ck, card):
     feed = {k: torch.from_numpy(v).cuda() for k, v in images(RESNET_TRAIN_BATCH, 50).items()}
     stats = [op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")]
     stats0 = {n: scope.find_var(n).clone() for n in stats}
-    emit({"phase": "resnet_train", "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu, "
-          "Momentum lr 0.1 mu 0.9", "batch": RESNET_TRAIN_BATCH,
+    emit({"phase": phase, "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu, "
+          + OPTIMIZER_NAMES.get(optimizer, "Momentum lr 0.1 mu 0.9"), "batch": RESNET_TRAIN_BATCH,
           "setup_s": time.perf_counter() - t0})
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
@@ -2178,9 +2282,8 @@ def resnet_train(fluid, torch, ck, card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.reshape(-1)[0]))
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        replayed = hold_run_launches(exe, step, delta, RESNET_PER_STEP, "resnet_train",
-                                     "resnet_train")
-        emit({"resnet_step": step, "graphed": replayed, "loss": losses[-1],
+        replayed = hold_run_launches(exe, step, delta, RESNET_PER_STEP, phase, phase)
+        emit({"phase": phase, "resnet_step": step, "graphed": replayed, "loss": losses[-1],
               "step_ms": step_ms[-1], "launches": delta, "card": card})
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"step {step}: loss {losses[-1]}")
@@ -2196,20 +2299,21 @@ def resnet_train(fluid, torch, ck, card):
     if still:
         raise AssertionError(f"running statistics that did not move: {still[:4]}")
     launches = dict(ck.LAUNCHES)  # read before the profiled step
-    read_monitor("resnet_train", monitor_want(range(TRAIN_STEPS), True), card)
+    read_monitor(phase, monitor_want(range(TRAIN_STEPS), True), card)
     warm = statistics.median(step_ms[2:])
-    emit({"phase": "resnet_train", "losses": losses, "warm_step_ms": warm,
+    emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
           "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
-    profile_replay(torch, "resnet train step",
+    profile_replay(torch, f"{phase} step",
                    lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                                    return_numpy=False), card, RESNET_PER_STEP)
     return launches
 
 
-def resnet_train_parity(fluid, torch):
+def resnet_train_parity(fluid, torch, optimizer=None):
     """Phase 11: float32 ResNet-50 (batch 8, lr RESNET_PARITY_LR) takes
-    PARITY_STEPS Momentum steps on the CPU; before each, the CPU's state is
+    PARITY_STEPS Momentum steps (phase 40: LARS, `optimizer`) on the CPU;
+    before each, the CPU's state is
     loaded on the card, which takes the same step.  Batch statistics make a
     ResNet-50's gradients at initialization explode with depth, so two
     implementations that round differently agree on single gradient
@@ -2225,7 +2329,7 @@ def resnet_train_parity(fluid, torch):
     import numpy as np
 
     main, startup, fetches = build_resnet(fluid, "float32", with_optimizer=True,
-                                          learning_rate=RESNET_PARITY_LR)
+                                          learning_rate=RESNET_PARITY_LR, optimizer=optimizer)
     loss = fetches["loss"].name
     cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
     cpu = fluid.Scope()
@@ -2262,8 +2366,9 @@ def resnet_train_parity(fluid, torch):
                 share = float(np.linalg.norm(got - want) / max(np.linalg.norm(upd), 1e-30))
                 worst["update"] = max(worst["update"], (share, n))
         cosines.append(dot / np.sqrt(ng * nc))
-    emit({"phase": "resnet_train_parity", "model": "resnet-50 f32, batch 8, Momentum lr "
-          f"{RESNET_PARITY_LR}", "losses_card_cpu": losses, "worst_loss_share": worst["loss"],
+    emit({"phase": "resnet_train_parity", "model": "resnet-50 f32, batch 8, "
+          + OPTIMIZER_NAMES.get(optimizer, f"Momentum lr {RESNET_PARITY_LR}"),
+          "losses_card_cpu": losses, "worst_loss_share": worst["loss"],
           "worst_stat_share": worst["stat"], "worst_velocity_l2_share": worst["velocity"],
           "worst_update_l2_share": worst["update"], "velocity_cosines": cosines,
           "bounds": {"loss": 1e-3, "stat": 1e-3, "velocity": 0.2, "update": 0.2, "cosine": 0.99}})
@@ -4029,6 +4134,599 @@ def profiled_trace(fluid, torch, ck, tmp, card, profiled):
     fluid.monitor.reset()
 
 
+def make_optimizer(fluid, which):
+    """The optimizer of phases 37, 38 and 40 (OPTIMIZER_NAMES), built inside
+    the caller's program_guard: its schedule's ops join the program."""
+    layers = fluid.layers
+    if which == "lamb":
+        lr = layers.linear_lr_warmup(layers.polynomial_decay(1e-3, decay_steps=1000,
+                                                             end_learning_rate=0.0, power=1.0),
+                                     warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+        return fluid.optimizer.Lamb(lr, lamb_weight_decay=0.01, epsilon=1e-6)
+    if which == "lars":
+        return fluid.optimizer.LarsMomentum(layers.cosine_decay(0.1, step_each_epoch=5, epochs=90),
+                                            momentum=0.9, lars_coeff=0.001,
+                                            lars_weight_decay=5e-4)
+    if which == "lamb_parity":
+        return fluid.optimizer.Lamb(LR, lamb_weight_decay=0.01, epsilon=1e-6)
+    if which == "lars_parity":
+        return fluid.optimizer.LarsMomentum(RESNET_PARITY_LR, momentum=0.9, lars_coeff=0.001,
+                                            lars_weight_decay=5e-4)
+    raise ValueError(which)
+
+
+def lamb_tail(fluid, torch, card):
+    """Phase 37's LAMB tail: phase 37's graphed step profiled against the
+    same BERT-base step with no update (append_backward alone, one gradient
+    fetched so the backward runs); the difference in kernels and device time
+    is the tail (198 lamb ops and the schedule's ops)."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0))
+    rec = {}
+    for which in ("lamb", "backward_only"):
+        main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, 128, True, False, which)
+        fetch = [loss] + ([main.all_parameters()[0].name + "@GRAD"]
+                          if which == "backward_only" else [])
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        run = lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope,  # noqa: E731
+                              return_numpy=False)
+        for _ in range(3):  # eager, capture, replay
+            run()
+        if not exe.last_plan.graphed:
+            raise AssertionError(f"lamb_tail {which}: not graphed ({exe.last_plan.graph_refusal})")
+        _, rec[which] = profile_run(torch, f"train_lamb tail: {which} graphed step", run, card)
+        del exe, scope
+        gc.collect()
+    tail = {"phase": "train_lamb", "lamb_tail_kernels": rec["lamb"]["kernel_launches"]
+            - rec["backward_only"]["kernel_launches"],
+            "lamb_tail_device_ms": rec["lamb"]["device_busy_ms"]
+            - rec["backward_only"]["device_busy_ms"],
+            "step_kernels": rec["lamb"]["kernel_launches"],
+            "backward_only_kernels": rec["backward_only"]["kernel_launches"],
+            "step_device_busy_ms": rec["lamb"]["device_busy_ms"],
+            "backward_only_device_busy_ms": rec["backward_only"]["device_busy_ms"], "card": card}
+    emit(tail)
+    return tail
+
+
+def build_seq2seq(fluid, src_vocab, tgt_vocab, emb_dim, enc_dim, dec_dim,
+                  learning_rate=SEQ2SEQ_LR):
+    """benchmark/fluid/models/machine_translation.py of the reference on a
+    padded ragged batch (the same function as tests/test_torch_ragged.py's):
+    a bidirectional LSTM encoder (fc(tanh) -> dynamic_lstm, no peepholes,
+    one reversed), a tanh boot state from the reverse LSTM's first step,
+    and a DynamicRNN decoder with Bahdanau attention (fc -> sequence_expand
+    -> concat -> fc(1, tanh) -> sequence_softmax -> scale ->
+    sequence_pool(sum)) and a hand-written LSTM step (four fc's over [h, x],
+    sums) under a softmax fc over the target vocabulary; cross_entropy,
+    token-masked mean, Adam.  The lengths companion is set by hand where a
+    layer does not carry it, and concat takes axis 2 on padded ragged
+    values.  Returns (main, startup, {"loss", "pred"}) under a unique-name
+    guard, random weights from seed 0."""
+    layers = fluid.layers
+    seq = fluid.layers.sequence
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = layers.data("src_word", [1], dtype="int64", lod_level=1)
+        tgt = layers.data("trg_word", [1], dtype="int64", lod_level=1)
+        lbl = layers.data("lbl_word", [1], dtype="int64", lod_level=1)
+        src_lod, tgt_lod = seq._lod_of(src), seq._lod_of(tgt)
+        src_emb = seq._set_lod(layers.embedding(src, [src_vocab, emb_dim]), src_lod)
+
+        def encoder_lstm(reverse):
+            proj = seq._set_lod(layers.fc(src_emb, enc_dim * 4, num_flatten_dims=2, act="tanh",
+                                          bias_attr=False), src_lod)
+            return layers.dynamic_lstm(proj, enc_dim * 4, use_peepholes=False,
+                                       is_reverse=reverse)[0]
+
+        fwd, rev = encoder_lstm(False), encoder_lstm(True)
+        enc_vec = seq._set_lod(layers.concat([fwd, rev], axis=2), src_lod)
+        enc_proj = seq._set_lod(layers.fc(enc_vec, dec_dim, num_flatten_dims=2, bias_attr=False),
+                                src_lod)
+        boot = layers.fc(layers.sequence_first_step(rev), dec_dim, act="tanh", bias_attr=False)
+        tgt_emb = seq._set_lod(layers.embedding(tgt, [tgt_vocab, emb_dim]), tgt_lod)
+        rnn = layers.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(tgt_emb)
+            h_prev = rnn.memory(init=boot)
+            c_prev = rnn.memory(shape=[dec_dim], value=0.0)
+            state = layers.fc(h_prev, dec_dim, bias_attr=False)
+            expanded = layers.sequence_expand(state, enc_proj)
+            scores = seq._set_lod(layers.fc(layers.concat([enc_proj, expanded], axis=2), 1,
+                                            num_flatten_dims=2, act="tanh", bias_attr=False),
+                                  src_lod)
+            weights = layers.sequence_softmax(scores)
+            context = layers.sequence_pool(
+                seq._set_lod(layers.elementwise_mul(enc_vec, weights), src_lod), "sum")
+            x = layers.concat([context, word], axis=1)
+            f, i, o = (layers.sigmoid(layers.fc([h_prev, x], dec_dim)) for _ in range(3))
+            cand = layers.tanh(layers.fc([h_prev, x], dec_dim))
+            c = layers.sums([layers.elementwise_mul(f, c_prev), layers.elementwise_mul(i, cand)])
+            h = layers.elementwise_mul(o, layers.tanh(c))
+            rnn.update_memory(h_prev, h)
+            rnn.update_memory(c_prev, c)
+            rnn.output(layers.fc(h, tgt_vocab, act="softmax"))
+        pred = rnn()
+        ce = seq._set_lod(layers.cross_entropy(pred, lbl), tgt_lod)
+        ntok = layers.reduce_sum(layers.cast(tgt_lod, "float32"))
+        loss = layers.elementwise_div(layers.reduce_sum(layers.sequence_pool(ce, "sum")), ntok)
+        fluid.optimizer.Adam(learning_rate).minimize(loss)
+    main.random_seed = startup.random_seed = 0
+    return main, startup, {"loss": loss, "pred": pred}
+
+
+def seq2seq_feed(lod_cls, n_pairs, min_len, max_len, src_vocab, tgt_vocab, seed):
+    """`n_pairs` ragged pairs, lengths uniform in [min_len, max_len]; the
+    labels are the targets shifted by one."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    src, tgt, lbl = [], [], []
+    for _ in range(n_pairs):
+        ns, nt = r.randint(min_len, max_len + 1, 2)
+        src.append(r.randint(2, src_vocab, (ns, 1)).astype(np.int64))
+        t = r.randint(2, tgt_vocab, (nt + 1, 1)).astype(np.int64)
+        tgt.append(t[:-1])
+        lbl.append(t[1:])
+    return {"src_word": lod_cls(src), "trg_word": lod_cls(tgt), "lbl_word": lod_cls(lbl)}
+
+
+def seq2seq_train(fluid, torch, ck, card):
+    """Phase 39: the seq2seq at full width (SEQ2SEQ) trains TRAIN_STEPS Adam
+    steps on one fixed batch of 32 ragged pairs, eager then graphed
+    (train_arm; a refused plan's reason is in its record): the loss finite
+    and falling, Adam's launches a step equal to the program's parameters
+    (no other kernel: the tanh / sigmoid fc's and the softmax +
+    cross_entropy have none in either package)."""
+    t0 = time.perf_counter()
+    main, startup, fetches = build_seq2seq(fluid, **SEQ2SEQ)
+    loss = fetches["loss"].name
+    per_step = launches_of_program(main, loss)
+    n_params = len(main.all_parameters())
+    if per_step != dict(NONE, adam=n_params):
+        raise AssertionError(f"seq2seq: the program's kernel ops {per_step} != Adam x {n_params}")
+    feed = seq2seq_feed(fluid.LoDTensor, SEQ2SEQ_BATCH, SEQ2SEQ_MIN_LEN, SEQ2SEQ_MAX_LEN,
+                        SEQ2SEQ["src_vocab"], SEQ2SEQ["tgt_vocab"], 140)
+    tokens = int(feed["trg_word"].lengths.sum())
+    emit({"phase": "seq2seq_train", "model": "machine_translation f32 " + str(SEQ2SEQ),
+          "optimizer": f"Adam({SEQ2SEQ_LR})", "pairs": SEQ2SEQ_BATCH,
+          "target_tokens": tokens, "source_tokens": int(feed["src_word"].lengths.sum()),
+          "ops": len(main.global_block().ops), "body_ops": len(main.blocks[1].ops),
+          "params": n_params, "setup_s": time.perf_counter() - t0})
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    for arm in ("eager", "graphed"):
+        losses, scope, rec = train_arm(fluid, torch, ck, card, "seq2seq_train", arm, main, startup,
+                                       loss, feed, per_step, launches,
+                                       {"sentences": SEQ2SEQ_BATCH, "target_tokens": tokens})
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"seq2seq_train {arm}: the loss did not fall: {losses}")
+        if arm == "graphed" and rec["graph_refusal"]:
+            emit({"phase": "seq2seq_train", "graph_refused": rec["graph_refusal"]})
+        del scope
+    return launches
+
+
+def hold_state_parity(record, runs, near_zero, state, lr, steps=PARITY_STEPS):
+    """Phase 7's rule for any optimizer: losses 1e-3; each parameter 1e-5,
+    save elements whose CPU gradient is 0 to rounding at some step
+    (2·lr·steps + 1e-5); every other persistable (the accumulators, by the
+    suffix after the parameter's name) 1e-4 of the largest of its kind."""
+    import numpy as np
+
+    (gl, gs), (cl, cs) = runs
+    dloss = max(abs(a - b) for a, b in zip(gl, cl))
+    worst_p, worst_flip = (0.0, ""), 0.0
+    for p, small in near_zero.items():
+        err = np.abs(gs.to_numpy(p).astype(np.float64) - cs.to_numpy(p))
+        held = err[~small]
+        worst_p = max(worst_p, (float(held.max()) if held.size else 0.0, p))
+        worst_flip = max(worst_flip, float(err.max()))
+    kinds = {}
+    for n in state:
+        if n in near_zero:
+            continue
+        owner = max((p for p in near_zero if n.startswith(p + "_")), key=len, default=None)
+        kinds.setdefault(n[len(owner):] if owner else n, []).append(n)
+    worst_acc = {}
+    for kind, names in kinds.items():
+        peak = max(float(np.abs(cs.to_numpy(n)).max()) for n in names)
+        worst = max(float(np.abs(gs.to_numpy(n).astype(np.float64) - cs.to_numpy(n)).max())
+                    for n in names)
+        worst_acc[kind] = (worst, 1e-4 * peak)
+    emit({**record, "losses_card": gl, "losses_cpu": cl, "max_abs_dloss": dloss,
+          "max_abs_dparam": worst_p[0], "param": worst_p[1], "max_abs_dparam_all": worst_flip,
+          "sign_flip_tol": 2 * lr * steps + 1e-5,
+          "accumulators": {k: {"max_abs_d": w, "tol": t} for k, (w, t) in worst_acc.items()}})
+    if not (dloss <= 1e-3 and worst_p[0] <= 1e-5 and worst_flip <= 2 * lr * steps + 1e-5):
+        raise AssertionError(f"{record}: card vs CPU losses {gl} / {cl}, parameter {worst_p}, "
+                             f"any element {worst_flip}")
+    bad = {k: v for k, v in worst_acc.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"{record}: card vs CPU accumulators {bad}")
+
+
+def build_mlp(fluid, which=None, extra=None):
+    """Phase 40's MLP: x [64] -> fc 128 tanh -> fc 128 tanh -> fc 1, square
+    error; `which` an OPTIM_PARITY key (or `extra(fluid, loss)` builds the
+    update), random weights from seed 0."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    made = None
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data("x", [64], dtype="float32")
+        y = layers.data("y", [1], dtype="float32")
+        h = layers.fc(layers.fc(x, 128, act="tanh"), 128, act="tanh")
+        loss = layers.mean(layers.square_error_cost(layers.fc(h, 1), y))
+        if which is not None:
+            cls, args, kw = OPTIM_PARITY[which]
+            getattr(fluid.optimizer, cls)(*args, **kw).minimize(loss)
+        if extra is not None:
+            made = extra(fluid, loss)
+    main.random_seed = startup.random_seed = 0
+    return main, startup, loss.name, made
+
+
+def mlp_feed(seed, batch=64):
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    x = r.randn(batch, 64).astype(np.float32)
+    return {"x": x, "y": np.tanh(x[:, :8].sum(1, keepdims=True)).astype(np.float32)}
+
+
+def cpu_state(fluid, main, startup):
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {v.name: scope.to_numpy(v.name).copy() for v in main.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+
+
+def op_parity(fluid, op_type, ins, attrs, state_slots, steps=PARITY_STEPS):
+    """One update op run `steps` times on the card (graphed from its second
+    run) and on the CPU from the same inputs, each run's `<Slot>Out` fed back
+    as the next run's `<Slot>` (persistables written in place); returns the
+    largest difference of each slot, relative to the CPU's largest value."""
+    import numpy as np
+
+    out = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main = fluid.Program()
+        block = main.global_block()
+        for slot, arr in ins.items():
+            block.create_var(slot.lower(), shape=arr.shape, dtype=str(arr.dtype),
+                             persistable=True)
+        block.append_op(op_type, inputs={k: [k.lower()] for k in ins},
+                        outputs={f"{k}Out": [k.lower()] for k in state_slots}, attrs=attrs)
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, {k.lower(): v for k, v in ins.items()},
+                                   device=place.device)
+        exe = fluid.Executor(place)
+        for _ in range(steps):
+            exe.run(main, scope=scope, fetch_list=[k.lower() for k in state_slots])
+        out[place.device.type] = {k: scope.to_numpy(k.lower()).copy() for k in state_slots}
+    return {k: float(np.abs(out["cuda"][k] - out["cpu"][k]).max())
+            / max(1e-30, float(np.abs(out["cpu"][k]).max())) for k in state_slots}
+
+
+def averages_under_graph(fluid, torch, card):
+    """EMA and ModelAverage: SGD steps with the average's ops, graphed from
+    the second run; apply() swaps the average into the tensors the captured
+    graph reads (the same objects), an eval plan captured inside it gives
+    the CPU's loss over the averaged values; on exit the parameters are
+    back bit for bit and the training graph replays on without a
+    recapture."""
+    import numpy as np
+
+    def ema(fl, loss):
+        fl.optimizer.SGD(0.05).minimize(loss)
+        e = fl.optimizer.ExponentialMovingAverage(0.9)
+        e.update()
+        return e
+
+    def model_average(fl, loss):
+        fl.optimizer.SGD(0.05).minimize(loss)
+        a = fl.optimizer.ModelAverage(max_average_window=3)
+        a.update()
+        return a
+
+    results = {}
+    for name, extra in (("ema", ema), ("model_average", model_average)):
+        main, startup, loss, avg = build_mlp(fluid, extra=extra)
+        test = main.clone(for_test=True)
+        state = cpu_state(fluid, main, startup)
+        scopes, exes, losses = {}, {}, {}
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope = fluid.Scope()
+            fluid.io.load_numpy_params(scope, state, device=place.device)
+            exe = fluid.Executor(place)
+            for step in range(4):
+                exe.run(main, feed=mlp_feed(step), fetch_list=[loss], scope=scope)
+            scopes[place.device.type], exes[place.device.type] = scope, exe
+        exe, scope = exes["cuda"], scopes["cuda"]
+        plan = exe.last_plan
+        if not plan.graphed:
+            raise AssertionError(f"{name}: the training plan is not graphed: {plan.graph_refusal}")
+        graph = plan.graph
+        params = [p.name for p in main.all_parameters()]
+        tensors = {n: scope.find_var(n) for n in params}
+        before = {n: t.clone() for n, t in tensors.items()}
+        with avg.apply(exes["cpu"], scopes["cpu"]):
+            cpu_eval = float(exes["cpu"].run(test, feed=mlp_feed(9), fetch_list=[loss],
+                                             scope=scopes["cpu"])[0].reshape(-1)[0])
+        with avg.apply(exe, scope):
+            same = all(scope.find_var(n) is tensors[n] for n in params)
+            evals = [float(exe.run(test, feed=mlp_feed(9), fetch_list=[loss],
+                                   scope=scope)[0].reshape(-1)[0]) for _ in range(3)]
+            eval_graphed = exe.last_plan.graphed
+            swapped = any(not torch.equal(tensors[n], before[n]) for n in params)
+        back = all(scope.find_var(n) is tensors[n] and torch.equal(tensors[n], before[n])
+                   for n in params)
+        after = float(exe.run(main, feed=mlp_feed(4), fetch_list=[loss], scope=scope)[0]
+                      .reshape(-1)[0])
+        replayed_on = exe.last_plan.graph is graph
+        results[name] = {"same_tensors": same, "swapped": swapped, "eval_graphed": eval_graphed,
+                         "eval_losses_card": evals, "eval_loss_cpu": cpu_eval,
+                         "restored_bitwise": back, "training_graph_kept": replayed_on,
+                         "loss_after": after}
+        if not (same and swapped and eval_graphed and back and replayed_on
+                and np.isfinite(after) and max(abs(e - cpu_eval) for e in evals)
+                <= 1e-5 * max(1.0, abs(cpu_eval))):
+            raise AssertionError(f"{name} apply/restore under a graph: {results[name]}")
+    emit({"phase": "optim_parity", "averages": results, "card": card})
+
+
+def optim_parity(fluid, torch, card):
+    """Phase 40: card vs CPU, float32.  Each optimizer of OPTIM_PARITY 3
+    steps on build_mlp from one CPU-initialized state by phase 7's rule
+    (hold_state_parity); DGC's transform, proximal_gd and proximal_adagrad
+    as one-op runs fed back 3 times (1e-5 of the CPU's largest; DGC's top-k
+    on identical inputs: selections equal); dpsgd by its noise's moments;
+    BERT-base 2 layers with LAMB by phase 7's rule; ResNet-50 at phase 11's
+    size with LARS by phase 11's; EMA and ModelAverage apply / restore
+    under a captured graph; the seven schedules over 8 runs (graphed from
+    the second) equal to the CPU's within 1e-6 of their largest."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    feed = mlp_feed(0)
+    for which, (cls, _, _) in OPTIM_PARITY.items():
+        main, startup, loss, _ = build_mlp(fluid, which)
+        state = cpu_state(fluid, main, startup)
+        warm = WARM_START.get(cls)
+        for n in state:
+            if warm and n.endswith(warm):
+                state[n] = np.full_like(state[n], 0.1)
+        runs, near_zero = parity_runs(fluid, main, loss, state, feed)
+        lr = OPTIM_PARITY[which][1][0]
+        hold_state_parity({"phase": "optim_parity", "optimizer": which, "mlp": "64-128-128-1",
+                           "batch": 64}, runs, near_zero, state, lr)
+    r = np.random.RandomState(40)
+    f32 = lambda *s: r.randn(*s).astype(np.float32)  # noqa: E731
+    lr1 = np.array([0.1], np.float32)
+    one_op = {
+        "dgc": ("dgc", {"Grad": f32(128, 128), "U": f32(128, 128), "V": f32(128, 128),
+                        "CurrentStep": np.array([3.0], np.float32)},
+                {"m": 0.9, "rampup_begin_step": 1.0, "rampup_step": 4.0,
+                 "sparsity": [0.75, 0.9]}, ("U", "V")),
+        "proximal_gd": ("proximal_gd", {"Param": f32(64, 128), "Grad": f32(64, 128),
+                                        "LearningRate": lr1}, {"l1": 0.05, "l2": 0.1},
+                        ("Param",)),
+        "proximal_adagrad": ("proximal_adagrad", {"Param": f32(64, 128), "Grad": f32(64, 128),
+                                                  "Moment": np.abs(f32(64, 128)) + 0.1,
+                                                  "LearningRate": lr1},
+                             {"l1": 0.05, "l2": 0.1}, ("Param", "Moment")),
+    }
+    ops_rec = {}
+    for name, (op_type, ins, attrs, slots) in one_op.items():
+        ops_rec[name] = op_parity(fluid, op_type, ins, attrs, slots)
+        if max(ops_rec[name].values()) > 1e-5:
+            raise AssertionError(f"{name} card vs CPU: {ops_rec[name]}")
+    # dpsgd: a 0 gradient, so the update is -lr * sigma * clip * z / batch = 0.75 z
+    prog = fluid.Program()
+    block = prog.global_block()
+    for n in ("p", "g", "lr"):
+        block.create_var(n, shape=(1,) if n == "lr" else (400, 250), dtype="float32",
+                         persistable=True)
+    block.append_op("dpsgd", inputs={"Param": ["p"], "Grad": ["g"], "LearningRate": ["lr"]},
+                    outputs={"ParamOut": ["p"]}, attrs={"clip": 2.0, "sigma": 1.5,
+                                                        "batch_size": 4.0})
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, {"p": np.zeros((400, 250), np.float32),
+                                       "g": np.zeros((400, 250), np.float32),
+                                       "lr": np.ones(1, np.float32)}, device="cuda:0")
+    fluid.Executor(fluid.CUDAPlace(0)).run(prog, scope=scope, fetch_list=["p"])
+    noise = scope.to_numpy("p")
+    ops_rec["dpsgd"] = {"mean": float(noise.mean()), "std": float(noise.std()), "want_std": 0.75}
+    if not (abs(noise.mean()) < 0.01 and abs(noise.std() - 0.75) < 0.01):
+        raise AssertionError(f"dpsgd noise moments {ops_rec['dpsgd']}")
+    emit({"phase": "optim_parity", "one_op_rel_err": ops_rec, "tol": 1e-5})
+    # BERT-base 2 layers with LAMB (phase 7), ResNet-50 at phase 11's size with LARS
+    main, startup, loss = build_train(fluid, "float32", 2, 0.0, optimizer="lamb_parity")
+    state = cpu_state(fluid, main, startup)
+    for name in state:
+        if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):
+            state[name] = np.ones_like(state[name])
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    runs, near_zero = parity_runs(fluid, main, loss, state,
+                                  make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1)))
+    hold_parity({"phase": "optim_parity", "model": "bert-base f32, 2 layers, dropout 0, "
+                 + OPTIMIZER_NAMES["lamb_parity"], "batch": 2, "seq_len": 128}, runs, near_zero,
+                state, LR)
+    resnet_train_parity(fluid, torch, optimizer="lars_parity")
+    averages_under_graph(fluid, torch, card)
+    values = {}
+    for fn, (args, kw) in SCHEDULES.items():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            lr = getattr(fluid.layers, fn)(*args, **kw)
+        got = {}
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            got[place.device.type] = [float(exe.run(main, fetch_list=[lr], scope=scope)[0]
+                                            .reshape(-1)[0]) for _ in range(8)]
+        values[fn] = got
+        peak = max(abs(v) for v in got["cpu"])
+        if max(abs(a - b) for a, b in zip(got["cuda"], got["cpu"])) > 1e-6 * peak:
+            raise AssertionError(f"{fn}: card {got['cuda']} vs CPU {got['cpu']}")
+    emit({"phase": "optim_parity", "schedules": values, "seconds": time.perf_counter() - t0,
+          "card": card})
+
+
+def ragged_programs(fluid):
+    """Phase 41's small programs (name -> (main, startup, fetch names, feed)),
+    each built as a user builds it: a CRF tagger (fc emissions,
+    linear_chain_crf, crf_decoding), the recurrences (dynamic_gru reversed,
+    dynamic_lstmp, a 2-layer bidirectional lstm), warpctc, a StaticRNN, a
+    cond and the tensor arrays."""
+    import numpy as np
+
+    layers = fluid.layers
+    r = np.random.RandomState(41)
+    lens = [5, 2, 7, 4]
+    seqs = fluid.LoDTensor([r.randn(n, 6).astype(np.float32) for n in lens])
+    tags = fluid.LoDTensor([r.randint(0, 4, (n, 1)).astype(np.int64) for n in lens])
+    ctc_lbl = fluid.LoDTensor([r.randint(1, 5, (m, 1)).astype(np.int64) for m in (2, 1, 3, 2)])
+    dense = r.randn(4, 5, 3).astype(np.float32)
+    out = {}
+
+    def program(name, build, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetches = build()
+        main.random_seed = startup.random_seed = 0
+        out[name] = (main, startup, [f.name for f in fetches], feed)
+
+    def crf():
+        x = layers.data("x", [6], dtype="float32", lod_level=1)
+        label = layers.data("label", [1], dtype="int64", lod_level=1)
+        emission = layers.fc(x, 4, num_flatten_dims=2)
+        layers.sequence._set_lod(emission, layers.sequence._lod_of(x))
+        attr = fluid.ParamAttr(name="crfw")
+        return [layers.linear_chain_crf(emission, label, param_attr=attr),
+                layers.crf_decoding(emission, param_attr=attr)]
+
+    def recurrences():
+        x = layers.data("x", [6], dtype="float32", lod_level=1)
+        d = layers.data("dense", [5, 3], dtype="float32")
+        lod = layers.sequence._lod_of(x)
+        gru = layers.dynamic_gru(layers.sequence._set_lod(
+            layers.fc(x, 24, num_flatten_dims=2), lod), 8, is_reverse=True)
+        proj, cell = layers.dynamic_lstmp(layers.sequence._set_lod(
+            layers.fc(x, 32, num_flatten_dims=2), lod), 32, 5)
+        init = layers.fill_constant([4, 4, 8], "float32", 0.1)
+        seq_out, last_h, last_c = layers.lstm(d, init, init, 5, 8, 2, is_bidirec=True)
+        return [gru, proj, cell, seq_out, last_h, last_c]
+
+    def ctc():
+        x = layers.data("x", [6], dtype="float32", lod_level=1)
+        label = layers.data("ctc_label", [1], dtype="int64", lod_level=1)
+        logits = layers.sequence._set_lod(layers.fc(x, 5, num_flatten_dims=2),
+                                          layers.sequence._lod_of(x))
+        return [layers.warpctc(logits, label, norm_by_times=True)]
+
+    def static_rnn():
+        d = layers.data("dense", [5, 3], dtype="float32")
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            step = rnn.step_input(d)
+            acc = rnn.memory(shape=[3], value=0.0)
+            new = layers.tanh(acc + step)
+            rnn.update_memory(acc, new)
+            rnn.step_output(new)
+        return [rnn()]
+
+    def cond():
+        d = layers.data("dense", [5, 3], dtype="float32")
+        flag = layers.data("flag", [1], dtype="bool", append_batch_size=False)
+        return [layers.cond(flag, lambda: layers.scale(d, 2.0), lambda: layers.exp(d))]
+
+    def arrays():
+        d = layers.data("dense", [5, 3], dtype="float32")
+        i0 = layers.fill_constant([1], "int64", 0)
+        i1 = layers.fill_constant([1], "int64", 1)
+        arr = layers.array_write(d, i0)
+        layers.array_write(layers.tanh(d), i1, array=arr)
+        return [layers.array_length(arr), layers.array_read(arr, i1)]
+
+    program("crf", crf, {"x": seqs, "label": tags})
+    program("recurrences", recurrences, {"x": seqs, "dense": dense})
+    program("warpctc", ctc, {"x": seqs, "ctc_label": ctc_lbl})
+    program("static_rnn", static_rnn, {"dense": dense})
+    for flag in (True, False):
+        program(f"cond_{flag}", cond, {"dense": dense, "flag": np.array([flag])})
+    program("arrays", arrays, {"dense": dense})
+    return out
+
+
+def ragged_parity(fluid, torch, card):
+    """Phase 41: card vs CPU.  The seq2seq at width 64, vocab 200, 4 pairs,
+    3 Adam steps by phase 7's rule; ragged_programs' forwards from one CPU
+    state: the CRF's NLL within 1e-4 and its Viterbi paths equal, the rest
+    within 1e-5 * (1 + max|CPU|), integers equal; each run 3 times, and the
+    cond and array plans are refused a CUDA graph with their reason and run
+    eagerly, while the others replay theirs."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    main, startup, fetches = build_seq2seq(fluid, **SEQ2SEQ_PARITY)
+    state = cpu_state(fluid, main, startup)
+    feed = seq2seq_feed(fluid.LoDTensor, 4, 5, 20, SEQ2SEQ_PARITY["src_vocab"],
+                        SEQ2SEQ_PARITY["tgt_vocab"], 141)
+    runs, near_zero = parity_runs(fluid, main, fetches["loss"].name, state, feed)
+    hold_parity({"phase": "ragged_parity", "model": "seq2seq f32 " + str(SEQ2SEQ_PARITY),
+                 "pairs": 4}, runs, near_zero, state, SEQ2SEQ_LR)
+    records = {}
+    for name, (prog, startup, fetch, pfeed) in ragged_programs(fluid).items():
+        state = cpu_state(fluid, prog, startup)
+        got = {}
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope = fluid.Scope()
+            fluid.io.load_numpy_params(scope, state, device=place.device)
+            exe = fluid.Executor(place)
+            for _ in range(3):
+                vals = exe.run(prog, feed=pfeed, fetch_list=fetch, scope=scope)
+            got[place.device.type] = (vals, exe.last_plan)
+        (card_vals, plan), (cpu_vals, _) = got["cuda"], got["cpu"]
+        errs = []
+        for k, (a, b) in enumerate(zip(card_vals, cpu_vals)):
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name} output {k}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+            if not np.issubdtype(b.dtype, np.floating):
+                errs.append(int((a != b).sum()))
+                continue
+            tol = 1e-4 if name == "crf" else 1e-5 * (1 + float(np.abs(b).max()))
+            errs.append(float(np.abs(a.astype(np.float64) - b).max()))
+            if not errs[-1] <= tol:
+                raise AssertionError(f"{name} output {k}: card vs CPU {errs[-1]} > {tol}")
+        if any(e != 0 for e, b in zip(errs, cpu_vals)
+               if not np.issubdtype(np.asarray(b).dtype, np.floating)):
+            raise AssertionError(f"{name}: integer outputs differ {errs}")
+        refused = name.startswith(("cond", "arrays"))
+        records[name] = {"max_abs_err": errs, "graphed": plan.graphed,
+                         "graph_refusal": plan.graph_refusal}
+        if refused != (plan.graph_refusal is not None) or plan.graphed == refused:
+            raise AssertionError(f"{name}: graphed {plan.graphed}, refusal {plan.graph_refusal}")
+    emit({"phase": "ragged_parity", "programs": records, "seconds": time.perf_counter() - t0,
+          "card": card})
+
+
+def check_seq2seq_kernels(torch, ck, record):
+    """Phase 3 at the seq2seq's shapes: its one kernel is Adam, at its
+    largest parameters (the 30,000 x 512 embeddings and the 512 x 30,000
+    softmax fc, float32)."""
+    hold_adam_at(torch, ck, record, torch.Generator(device="cuda:0").manual_seed(5),
+                 30000 * 512, "seq2seq embedding / softmax fc")
+    emit({"timing": "adam", **{k: r for k, r in record["adam"].items()
+                               if k == f"at_{30000 * 512}_f32"}})
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -4067,6 +4765,7 @@ def main():
     check_nmt_kernels(torch, ck, timings)
     timings.update(check_bn_kernels(torch, ck))
     check_vision_kernels(torch, ck, timings)
+    check_seq2seq_kernels(torch, ck, timings)
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
@@ -4119,6 +4818,25 @@ def main():
                                       {"examples": W2V_BATCH})
         vision_parity(fluid, torch)
         profiled_trace(fluid, torch, ck, tmp, card, profiled)
+        phase_t0 = time.perf_counter()
+        lamb_trained = train(fluid, torch, ck, card, "train_lamb", True, 128, 32, LAMB_PER_STEP,
+                             arms=AB_ARMS, optimizer="lamb")
+        lamb_tail(fluid, torch, card)
+        emit({"phase_seconds": "train_lamb", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        lars_trained = resnet_train(fluid, torch, ck, card, "resnet_lars", optimizer="lars")
+        emit({"phase_seconds": "resnet_lars", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        seq2seq_trained = seq2seq_train(fluid, torch, ck, card)
+        emit({"phase_seconds": "seq2seq_train", "s": time.perf_counter() - phase_t0,
+              "card": card})
+        phase_t0 = time.perf_counter()
+        optim_parity(fluid, torch, card)
+        emit({"phase_seconds": "optim_parity", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        ragged_parity(fluid, torch, card)
+        emit({"phase_seconds": "ragged_parity", "s": time.perf_counter() - phase_t0,
+              "card": card})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4129,7 +4847,10 @@ def main():
     # `replayed_by_path` what the graph replays after each capture ran
     # (REPLAYED), and `ran_by_path` the two together: how often the path ran
     # the kernel
-    paths = {"serve": (PER_REQUEST, served), "train": (PER_STEP, trained),
+    paths = {"train_lamb": (LAMB_PER_STEP, lamb_trained),
+             "resnet_lars": (LARS_PER_STEP, lars_trained),
+             "seq2seq_train": (dict(NONE, adam=1), seq2seq_trained),
+             "serve": (PER_REQUEST, served), "train": (PER_STEP, trained),
              "resnet_serve": (RESNET_PER_REQUEST, resnet_served),
              "resnet_train": (RESNET_PER_STEP, resnet_trained),
              "train_fused": (FUSED_PER_STEP, fused_trained),

@@ -31,8 +31,8 @@ and `integrity` make a single-device run survive bad batches, NaNs,
 device errors, storage faults and preemption, resuming bit for bit.
 """
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import (clip, errors, flags, inference, io, layers, lod, models, monitor,  # noqa: F401
-               nets, optimizer, pipeline, profiler)
+from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noqa: F401
+               models, monitor, nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
                recordio_writer, resilience)
 from .checkpoint_manager import CheckpointManager  # noqa: F401
@@ -54,6 +54,6 @@ from .core.program import (  # noqa: F401
 )
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
-from .lod import LoDTensor, create_lod_tensor  # noqa: F401
+from .lod import LoDTensor, LoDTensorArray, create_lod_tensor  # noqa: F401
 from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
 from .pipeline import PipelineStats, train_loop  # noqa: F401

@@ -11,7 +11,8 @@ FLAGS_executor_cache_capacity entries, counting `executor.cache_hit` /
 verifier under FLAGS_verify_program (core/analysis.py `check_program`, in
 an `analysis.verify` span).  A
 plan holds the pruned ops (those that feed a fetch or write a persistable,
-a `while` op's sub-block counted as its own reads and writes), the names
+the sub-block of a `while`, `conditional_block` or `dynamic_rnn` op
+counted as its own reads and writes), the names
 they read, and the persistables they write back.
 
 A plan runs its ops' torch lowerings in order (core/lowering.py); a
@@ -37,9 +38,11 @@ replay the scope holds the same tensor objects as before.  When some
 copies a replaced state tensor into the one it captured, or captures anew
 if its shape or dtype changed.  Whether a plan can be captured is decided
 from its ops before capture (`_graph_refusal`): a `while` op, whose
-condition the host reads every iteration, and SelectedRows gradients,
-whose merge waits for the card, run eagerly, with the reason in
-`plan.graph_refusal` and the counter `executor.graph_refused`.  A capture
+condition the host reads every iteration, a `conditional_block` (its
+predicate), the tensor-array reads and writes (their index), and
+SelectedRows gradients, whose merge waits for the card, run eagerly, with
+the reason in `plan.graph_refusal` and the counter
+`executor.graph_refused`.  A capture
 or replay that fails raises.
 
 `steps=K` runs K steps from feeds stacked on a leading [K] axis, uploaded
@@ -59,7 +62,7 @@ import torch
 
 from .. import flags
 from ..errors import NumericError, classify
-from ..lod import LoDTensor, lod_var_name
+from ..lod import LoDTensor, LoDTensorArray, lod_var_name
 from ..monitor import MONITOR as _MON
 from ..ops import cuda_kernels
 from ..ops.common import canon_dtype
@@ -110,11 +113,16 @@ def _runnable_ops(block):
     return [op for op in block.ops if op.type not in ("feed", "fetch")]
 
 
+_SUB_BLOCK_OPS = ("while", "conditional_block", "dynamic_rnn")
+
+
 def _effective_io(op):
-    """(reads, writes) of `op`, a `while` op's sub-block included."""
+    """(reads, writes) of `op`, the sub-block of a `while`,
+    `conditional_block` or `dynamic_rnn` op included: a parameter that only
+    such a body reads is kept, and its slot read."""
     reads = list(op.input_arg_names)
     writes = list(op.output_arg_names)
-    if op.type == "while":
+    if op.type in _SUB_BLOCK_OPS:
         for sop in op.block.program.blocks[op.attr("sub_block")].ops:
             r, w = _effective_io(sop)
             reads.extend(r)
@@ -124,8 +132,8 @@ def _effective_io(op):
 
 def _prune(ops, fetch_names, persistable):
     """Fetch-driven dead-op elimination: keep an op if it (transitively)
-    feeds a fetch or writes a persistable var, counting a `while` op's
-    sub-block.  A kept `backward` op needs its loss and its parameters."""
+    feeds a fetch or writes a persistable var, counting the sub-blocks of
+    control-flow ops.  A kept `backward` op needs its loss and its parameters."""
     needed = set(fetch_names)
     kept = []
     for op in reversed(ops):
@@ -141,8 +149,8 @@ def _prune(ops, fetch_names, persistable):
 
 
 def _read_names(ops):
-    """Every name the ops read, a `while` op's sub-block and a `backward`
-    op's parameters included."""
+    """Every name the ops read, the sub-blocks of control-flow ops and a
+    `backward` op's parameters included."""
     names = set()
     for op in ops:
         names.update(_effective_io(op)[0])
@@ -151,12 +159,32 @@ def _read_names(ops):
     return names
 
 
+def _with_sub_blocks(ops):
+    """`ops` and, recursively, the ops of their sub-blocks."""
+    for op in ops:
+        yield op
+        if op.type in _SUB_BLOCK_OPS:
+            yield from _with_sub_blocks(op.block.program.blocks[op.attr("sub_block")].ops)
+
+
+_HOST_READ = {
+    "while": "a while op: its condition is read on the host every iteration "
+             "(core/lowering.py run_while)",
+    "conditional_block": "a conditional_block op: its predicate is read on the host to pick "
+                         "the branch (core/lowering.py run_conditional_block)",
+    "array_write": "a tensor-array op: array_write reads its index on the host "
+                   "(ops/control_flow_ops.py)",
+    "array_read": "a tensor-array op: array_read reads its index on the host "
+                  "(ops/control_flow_ops.py)",
+}
+
+
 def _graph_refusal(ops) -> Optional[str]:
     """Why a plan's step cannot be captured as a CUDA graph, read off its
-    ops before any capture; None when it can."""
-    if any(op.type == "while" for op in ops):
-        return ("a while op: its condition is read on the host every iteration "
-                "(core/lowering.py run_while)")
+    ops (and their sub-blocks') before any capture; None when it can."""
+    for op in _with_sub_blocks(ops):
+        if op.type in _HOST_READ:
+            return _HOST_READ[op.type]
     for op in ops:
         if op.type == "backward" and set(op.attrs.get("sparse_param_names", [])) & set(
                 op.attrs.get("param_names", [])):
@@ -194,6 +222,12 @@ def _expand_ragged_feeds(block, feed, steps=1):
         else:
             out[name] = value
     return out
+
+
+def _array_host_copy(arr):
+    """A fetched tensor array as numpy arrays; an index never written stays None."""
+    copies = iter(host_copies([t for t in arr if t is not None]))
+    return LoDTensorArray(None if t is None else next(copies) for t in arr)
 
 
 def _dense(t):
@@ -269,6 +303,8 @@ class _Plan:
             raise KeyError(f"fetch targets {missing} were not produced by the program")
         # a fetched persistable is copied: a later step may update it in place
         return [env[n] if isinstance(env[n], SelectedRows)
+                else LoDTensorArray(t if t is None else t.detach() for t in env[n])
+                if isinstance(env[n], list)
                 else env[n].detach().clone() if n in self.persistable else env[n].detach()
                 for n in self.fetch_names]
 
@@ -633,8 +669,11 @@ class Executor:
             return [FetchHandle(pending, i, n) for i, n in enumerate(fetch_names)]
         t1 = time.perf_counter()
         if return_numpy:
-            out = [t.numpy() if isinstance(t, SelectedRows) else None for t in fetches]
-            copies = iter(host_copies([t for t in fetches if not isinstance(t, SelectedRows)]))
+            out = [t.numpy() if isinstance(t, SelectedRows)
+                   else _array_host_copy(t) if isinstance(t, LoDTensorArray) else None
+                   for t in fetches]
+            copies = iter(host_copies([t for t in fetches
+                                       if not isinstance(t, (SelectedRows, LoDTensorArray))]))
             out = [v if v is not None else next(copies) for v in out]
         else:
             out = fetches
@@ -665,6 +704,10 @@ class Executor:
         for name, val in zip(fetch_names, values):
             if isinstance(val, SelectedRows):
                 val = val.values
+            if isinstance(val, list):  # a tensor array: each entry
+                entries = [v for v in val if v is not None]
+                Executor._check_nan_inf([name] * len(entries), entries)
+                continue
             if isinstance(val, torch.Tensor):
                 bad = val.is_floating_point() and not bool(torch.isfinite(val).all())
             else:

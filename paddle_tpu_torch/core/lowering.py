@@ -60,6 +60,7 @@ class LoweringContext:
         self.constants = {} if constants is None else constants
         self.remat = remat
         self.sparse_taps: Optional["SparseTaps"] = None  # set while a backward region runs
+        self.env: Dict[str, torch.Tensor] = {}  # the env of the op being lowered (dynamic_rnn)
 
     def wants(self, op: Operator, slot: str) -> bool:
         """True when an output of `op` in `slot` is read by an op of the run or fetched."""
@@ -138,9 +139,16 @@ def run_ops(ctx: LoweringContext, ops: List[Operator], env: Dict[str, torch.Tens
                                "the executor must handle it")
         if op.type == "while":
             run_while(ctx, op, env)
+        elif op.type == "conditional_block":
+            run_conditional_block(ctx, op, env)
         else:
             lower_one(ctx, op, env)
     return env
+
+
+def _sub_block_ops(op: Operator) -> List[Operator]:
+    return [o for o in op.block.program.blocks[op.attr("sub_block")].ops
+            if o.type not in ("feed", "fetch")]
 
 
 def run_while(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) -> None:
@@ -153,8 +161,7 @@ def run_while(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) 
     cond = op.input("Condition")[0]
     if cond not in env:
         raise KeyError(f"while: condition var {cond!r} must exist before the loop")
-    body = [o for o in op.block.program.blocks[op.attr("sub_block")].ops
-            if o.type not in ("feed", "fetch")]
+    body = _sub_block_ops(op)
     written = dict.fromkeys(n for o in body for n in o.output_arg_names)
     carry = {n: env[n] for n in written if n in env}
     carry[cond] = env[cond]
@@ -164,6 +171,36 @@ def run_while(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) 
         run_ops(ctx, body, inner)
         carry = {n: inner[n] for n in carry}
     env.update(carry)
+
+
+def run_conditional_block(ctx: LoweringContext, op: Operator,
+                          env: Dict[str, torch.Tensor]) -> None:
+    """A `conditional_block` op (counterpart of the JAX package's lax.cond
+    lowering): read the Cond var on the host; when true, run the sub-block
+    and write back every name it writes.  When false, names that exist
+    outside keep their values and fresh ones become zeros of the shape the
+    true branch would give them: the body runs on a copy of the env with a
+    copy of the generator, and only the shapes are kept, so the random
+    stream advances on the true branch alone, as under lax.cond."""
+    body = _sub_block_ops(op)
+    written = list(dict.fromkeys(n for o in body for n in o.output_arg_names))
+    if bool(env[op.input("Cond")[0]].reshape(())):
+        inner = run_ops(ctx, body, dict(env))
+        env.update({n: inner[n] for n in written if n in inner})
+        return
+    fresh = [n for n in written if n not in env]
+    if not fresh:
+        return
+    gen = ctx.generator
+    probe = torch.Generator(device=gen.device)
+    probe.set_state(gen.get_state())
+    ctx.generator = probe
+    try:
+        with torch.no_grad():
+            inner = run_ops(ctx, body, dict(env))
+    finally:
+        ctx.generator = gen
+    env.update({n: torch.zeros_like(inner[n]) for n in fresh if n in inner})
 
 
 def lower_one(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) -> None:
@@ -178,6 +215,7 @@ def lower_one(ctx: LoweringContext, op: Operator, env: Dict[str, torch.Tensor]) 
                     "feed it, initialize it via the startup program, or check op order")
             vals.append(env[n])
         ins[slot] = vals
+    ctx.env = env
     outs = opdef.lower(ctx, op, ins)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)

@@ -1,7 +1,10 @@
 """Control-flow layers (counterpart of paddle_tpu/layers/control_flow.py):
-`While` with its block guard, `increment`, `less_than`, `equal` and
-`greater_than`.  The `while`
-op's sub-block runs as a Python loop (core/lowering.py run_while)."""
+`While` with its block guard, `increment`, `less_than`, `equal`,
+`greater_than`, `cond` and the tensor-array layers `create_array`,
+`array_write`, `array_read` and `array_length`.  The `while` op's
+sub-block runs as a Python loop (core/lowering.py run_while), a
+`conditional_block`'s once when its predicate holds
+(run_conditional_block)."""
 from __future__ import annotations
 
 from ..core.layer_helper import LayerHelper
@@ -84,3 +87,90 @@ class _WhileBlockGuard:
             "while", inputs={"X": x_names, "Condition": [self.w.cond_var.name]}, outputs={},
             attrs={"sub_block": self.sub_block.idx})
         return False
+
+
+def array_write(x, i, array=None):
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op("create_array", outputs={"Out": [array.name]})
+    inputs = {"X": [x.name], "I": [i.name], "Array": [array.name]}
+    helper.append_op("array_write", inputs=inputs, outputs={"Out": [array.name]})
+    return array
+
+
+def create_array(dtype="float32"):
+    helper = LayerHelper("create_array")
+    array = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("create_array", outputs={"Out": [array.name]})
+    return array
+
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op(
+        "array_read", inputs={"X": [array.name], "I": [i.name]}, outputs={"Out": [out.name]}
+    )
+    return out
+
+
+def array_length(array):
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference("int32", shape=(1,))
+    helper.append_op("array_length", inputs={"X": [array.name]}, outputs={"Out": [out.name]})
+    return out
+
+
+def cond(pred, true_fn, false_fn=None):
+    """Two-branch conditional: each branch builds a sub-block run by a
+    `conditional_block` op (the false one on the negated predicate); the
+    branches' outputs merge by `select_input` on the predicate.  The
+    executor reads the predicate on the host, so such a plan runs
+    eagerly."""
+    main = default_main_program()
+    helper = LayerHelper("cond")
+
+    parent = main.current_block()
+    tb = main.create_block()
+    t_out = true_fn()
+    main.rollback()
+    t_idx = tb.idx
+    parent.append_op(
+        "conditional_block",
+        inputs={"Cond": [pred.name]},
+        outputs={},
+        attrs={"sub_block": t_idx},
+    )
+    if false_fn is None:
+        return t_out
+    fb = main.create_block()
+    f_out = false_fn()
+    main.rollback()
+    # invert predicate
+    not_pred = helper.create_variable_for_type_inference("bool", shape=pred.shape)
+    helper.append_op("logical_not", inputs={"X": [pred.name]}, outputs={"Out": [not_pred.name]})
+    parent.append_op(
+        "conditional_block",
+        inputs={"Cond": [not_pred.name]},
+        outputs={},
+        attrs={"sub_block": fb.idx},
+    )
+    if t_out is None or f_out is None:
+        return t_out
+    single = not isinstance(t_out, (list, tuple))
+    t_list = [t_out] if single else list(t_out)
+    f_list = [f_out] if single else list(f_out)
+    outs = []
+    for tv, fv in zip(t_list, f_list):
+        sel = helper.create_variable_for_type_inference(tv.dtype, shape=tv.shape)
+        mask = helper.create_variable_for_type_inference("int32", shape=(1,))
+        helper.append_op("cast", inputs={"X": [pred.name]}, outputs={"Out": [mask.name]},
+                         attrs={"out_dtype": "int32"})
+        helper.append_op(
+            "select_input",
+            inputs={"X": [fv.name, tv.name], "Mask": [mask.name]},
+            outputs={"Out": [sel.name]},
+        )
+        outs.append(sel)
+    return outs[0] if single else outs

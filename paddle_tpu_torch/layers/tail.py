@@ -1,6 +1,7 @@
 """Layers of the JAX package's layers/tail.py whose ops the port has: the
 attr'd and plain activations of its tail, elementwise_mod / _floordiv, the
-compare layers, isfinite, shape, pad, unstack, range and the random fills."""
+compare layers, isfinite, shape, pad, unstack, range, the random fills,
+sequence_reshape and the one-step recurrences gru_unit and lstm_unit."""
 from __future__ import annotations
 
 import builtins
@@ -140,3 +141,57 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
                      attrs={"shape": list(shape), "dtype": dtype, "mean": mean, "std": std,
                             "seed": seed})
     return out
+
+
+def sequence_reshape(input, new_dim):
+    from .sequence import _lod_of, _set_lod
+
+    helper = LayerHelper("sequence_reshape")
+    lod = _lod_of(input)
+    out = _out(helper, input.dtype)
+    out_lod = helper.create_variable_for_type_inference("int32")
+    helper.append_op("sequence_reshape", inputs={"X": [input.name], "XLod": [lod.name]},
+                     outputs={"Out": [out.name], "OutLod": [out_lod.name]},
+                     attrs={"new_dim": new_dim})
+    _set_lod(out, out_lod)
+    return out
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None, activation="tanh",
+             gate_activation="sigmoid", origin_mode=False):
+    """One GRU step; size = 3*D.  Returns (hidden, reset hidden, gates)."""
+    helper = LayerHelper("gru_unit")
+    d = size // 3
+    w = helper.create_parameter(param_attr, [d, 3 * d], input.dtype)
+    inputs = {"Input": [input.name], "HiddenPrev": [hidden.name], "Weight": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [1, 3 * d], input.dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    hid = _out(helper, input.dtype, shape=(input.shape[0], d))
+    reset_h = _out(helper, input.dtype)
+    gate = _out(helper, input.dtype)
+    helper.append_op("gru_unit", inputs=inputs,
+                     outputs={"Hidden": [hid.name], "ResetHiddenPrev": [reset_h.name],
+                              "Gate": [gate.name]},
+                     attrs={"origin_mode": origin_mode})
+    return hid, reset_h, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0, param_attr=None,
+              bias_attr=None, name=None):
+    """One LSTM step: fc([x, h]) then the `lstm_unit` op; returns (h, c)."""
+    helper = LayerHelper("lstm_unit", name=name)
+    d = int(cell_t_prev.shape[1])
+    fc_out = _nn.fc(_concat([x_t, hidden_t_prev], axis=1), 4 * d, param_attr=param_attr,
+                    bias_attr=bias_attr)
+    c = _out(helper, x_t.dtype, shape=cell_t_prev.shape)
+    h = _out(helper, x_t.dtype, shape=cell_t_prev.shape)
+    helper.append_op("lstm_unit", inputs={"X": [fc_out.name], "C_prev": [cell_t_prev.name]},
+                     outputs={"C": [c.name], "H": [h.name]}, attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def _concat(xs, axis):
+    from .tensor import concat
+
+    return concat(xs, axis=axis)

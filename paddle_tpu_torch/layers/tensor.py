@@ -1,5 +1,5 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py): fill_constant,
-cast, sums, assign, concat, zeros_like and linspace."""
+create_global_var, cast, sums, assign, concat, zeros_like and linspace."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,6 +18,23 @@ def fill_constant(shape, dtype, value, name=None):
     )
     out.stop_gradient = True
     return out
+
+
+def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, name=None):
+    """A var of the main program's global block, filled with `value` by the
+    startup program."""
+    from ..core import unique_name
+    from ..core.program import default_main_program, default_startup_program
+
+    name = name if name is not None else unique_name.generate("global_var")
+    var = default_main_program().global_block().create_var(name, shape=shape, dtype=dtype,
+                                                           persistable=persistable)
+    startup = default_startup_program().global_block()
+    startup.create_var(name, shape=shape, dtype=dtype, persistable=persistable)
+    startup.append_op("fill_constant", outputs={"Out": [name]},
+                      attrs={"shape": list(shape), "dtype": canonical_dtype(dtype),
+                             "value": float(value)})
+    return var
 
 
 def cast(x, dtype):

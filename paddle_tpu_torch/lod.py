@@ -114,3 +114,8 @@ def create_lod_tensor(data, recursive_seq_lens, place=None) -> LoDTensor:
         raise ValueError(f"sum of seq lens {sum(lens)} != leading dim {flat.shape[0]}")
     offsets = np.cumsum([0] + lens)
     return LoDTensor([flat[a:b] for a, b in zip(offsets[:-1], offsets[1:])])
+
+
+class LoDTensorArray(list):
+    """A tensor array: a list of arrays (a fetched `create_array` /
+    `array_write` var comes back as one)."""

@@ -997,3 +997,87 @@ def test_snapshot_restore_between_replays_equals_eager_restore_on_card(exact_car
     for n in state:
         np.testing.assert_array_equal(arms[True][1][n], arms[False][1][n], err_msg=n)
     assert torch.equal(arms[True][2], arms[False][2])
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, for build_seq2seq."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.gpu
+def test_tiny_seq2seq_trains_on_card_like_cpu(exact_card_math):
+    """The seq2seq with attention (a DynamicRNN decoder) at width 16, 3 Adam
+    steps on 4 ragged pairs: the card's plan is captured (no host read in the
+    per-step body) and launches Adam once a parameter a step; losses 1e-4,
+    parameters 1e-5 (2*lr*steps + 1e-5 where the CPU gradient is 0 to
+    rounding)."""
+    _need_card()
+    cs = _chip_smoke()
+    main, startup, fetches = cs.build_seq2seq(fluid, src_vocab=50, tgt_vocab=60, emb_dim=16,
+                                              enc_dim=16, dec_dim=16)
+    loss = fetches["loss"].name
+    state = cs.cpu_state(fluid, main, startup)
+    feed = cs.seq2seq_feed(fluid.LoDTensor, 4, 3, 9, 50, 60, 0)
+    params = [p.name for p in main.all_parameters()]
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        before = dict(ck.LAUNCHES)
+        outs = [exe.run(main, feed=feed, fetch_list=[loss] + [f"{p}@GRAD" for p in params],
+                        scope=scope) for _ in range(3)]
+        runs.append(([float(o[0].reshape(-1)[0]) for o in outs], scope, [o[1:] for o in outs],
+                     {k: ck.LAUNCHES[k] - before[k] for k in before}, exe.last_plan))
+    (gl, gs, _, gd, plan), (cl, cs_scope, cpu_grads, cd, _) = runs
+    assert cd == NO_LAUNCHES
+    _hold_graphed_launches(gd, plan, dict(NO_LAUNCHES, adam=len(params)))
+    np.testing.assert_allclose(gl, cl, atol=1e-4)
+    peaks = [max(float(np.abs(g).max()) for g in step) for step in cpu_grads]
+    for i, p in enumerate(params):
+        err = np.abs(gs.to_numpy(p) - cs_scope.to_numpy(p))
+        near_zero = np.zeros(err.shape, bool)
+        for step, peak in zip(cpu_grads, peaks):
+            near_zero |= np.abs(step[i]) <= 1e-6 * peak
+        assert err.max() <= 2 * 1e-3 * 3 + 1e-5, p
+        assert not (err[~near_zero] > 1e-5).any(), p
+
+
+@pytest.mark.gpu
+def test_cond_and_array_plans_are_refused_on_card():
+    """A cond (conditional_block) plan and a tensor-array plan carry their
+    refusal, run eagerly and give the CPU's values; a schedule's plan (mask
+    arithmetic over the step counter) replays its graph."""
+    _need_card()
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data("x", [3], dtype="float32")
+        flag = layers.data("flag", [1], dtype="bool", append_batch_size=False)
+        out = layers.cond(flag, lambda: layers.scale(x, 2.0), lambda: layers.exp(x))
+        arr = layers.array_write(x, layers.fill_constant([1], "int64", 1))
+        back = layers.array_read(arr, layers.fill_constant([1], "int64", 1))
+        lr = layers.piecewise_decay([2, 4], [1.0, 0.5, 0.1])
+    xv = np.random.RandomState(0).randn(2, 3).astype("float32")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)  # the schedule's step counter, which every plan advances
+    for fetch, reason in ((out, "predicate"), (back, "index")):
+        for flag_v in (True, False, True):
+            (got,) = exe.run(main, feed={"x": xv, "flag": np.array([flag_v])},
+                             fetch_list=[fetch], scope=scope)
+            want = (xv * 2.0 if flag_v else np.exp(xv)) if fetch is out else xv
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert reason in exe.last_plan.graph_refusal and not exe.last_plan.graphed
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    got = [float(exe.run(main, fetch_list=[lr], scope=scope)[0][0]) for _ in range(6)]
+    np.testing.assert_array_equal(np.float32(got), np.float32([1.0, 1.0, 0.5, 0.5, 0.1, 0.1]))
+    assert exe.last_plan.graphed

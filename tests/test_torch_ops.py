@@ -539,6 +539,232 @@ GRAD_CASES = (
 )
 
 
+# --- the other optimizers' updates, the ragged path and the select op ------
+# (own seed, so the cases above keep their inputs)
+r14 = np.random.RandomState(14)
+G32 = lambda *s: r14.randn(*s).astype("float32")  # noqa: E731
+GPOS = lambda *s: (r14.rand(*s) + 0.5).astype("float32")  # noqa: E731
+LR1 = np.array([0.1], np.float32)
+LENS = np.array([5, 2, 3], np.int32)
+
+
+def _opt(op_type, extra, outs, attrs):
+    """An update op on a [4, 5] parameter: (op type, inputs, attrs, outputs)."""
+    return op_type, dict({"Param": G32(4, 5), "Grad": G32(4, 5), "LearningRate": LR1}, **extra), \
+        attrs, outs
+
+
+_LAMB_IN = {"Moment1": G32(4, 5) * 0.1, "Moment2": GPOS(4, 5) * 0.1,
+            "Beta1Pow": np.array([0.81], np.float32), "Beta2Pow": np.array([0.998], np.float32)}
+_ADAM_OUT = ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"]
+_RMS_OUT = ["ParamOut", "MeanSquareOut", "MeanGradOut", "MomentOut"]
+_FTRL_OUT = ["ParamOut", "SquaredAccumOut", "LinearAccumOut"]
+OPT_CASES = {
+    "rmsprop": _opt("rmsprop", {"MeanSquare": GPOS(4, 5), "MeanGrad": G32(4, 5) * 0.1,
+                                "Moment": G32(4, 5)}, _RMS_OUT,
+                    {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5}),
+    "rmsprop_centered": _opt("rmsprop", {"MeanSquare": GPOS(4, 5) + 1.0,
+                                         "MeanGrad": G32(4, 5) * 0.1, "Moment": G32(4, 5)},
+                             _RMS_OUT, {"centered": True}),
+    "adamax": _opt("adamax", {"Moment": G32(4, 5), "InfNorm": GPOS(4, 5),
+                              "Beta1Pow": np.array([0.729], np.float32)},
+                   ["ParamOut", "MomentOut", "InfNormOut"], {"beta1": 0.9, "beta2": 0.99}),
+    "adadelta": _opt("adadelta", {"AvgSquaredGrad": GPOS(4, 5), "AvgSquaredUpdate": GPOS(4, 5)},
+                     ["ParamOut", "AvgSquaredGradOut", "AvgSquaredUpdateOut"], {"rho": 0.9}),
+    "lamb": _opt("lamb", _LAMB_IN, _ADAM_OUT, {"weight_decay": 0.01}),
+    "lamb_no_decay": _opt("lamb", _LAMB_IN, _ADAM_OUT, {"epsilon": 1e-4}),
+    "ftrl": _opt("ftrl", {"SquaredAccumulator": GPOS(4, 5), "LinearAccumulator": G32(4, 5)},
+                 _FTRL_OUT, {"l1": 0.1, "l2": 0.2, "lr_power": -0.5}),
+    "ftrl_power": _opt("ftrl", {"SquaredAccumulator": GPOS(4, 5),
+                                "LinearAccumulator": G32(4, 5)}, _FTRL_OUT,
+                       {"l1": 0.5, "lr_power": -0.3}),
+    "lars_momentum": _opt("lars_momentum", {"Velocity": G32(4, 5)}, ["ParamOut", "VelocityOut"],
+                          {"mu": 0.9, "lars_coeff": 0.01, "lars_weight_decay": 5e-4}),
+    "lars_momentum_eps": _opt("lars_momentum", {"Velocity": G32(4, 5)},
+                              ["ParamOut", "VelocityOut"],
+                              {"lars_weight_decay": 0.1, "epsilon": 0.5}),
+    "dpsgd_no_noise": _opt("dpsgd", {}, ["ParamOut"],
+                           {"clip": 1.0, "sigma": 0.0, "batch_size": 4.0}),
+    "proximal_gd": _opt("proximal_gd", {}, ["ParamOut"], {"l1": 0.5, "l2": 0.1}),
+    "proximal_adagrad": _opt("proximal_adagrad", {"Moment": GPOS(4, 5)}, ["ParamOut", "MomentOut"],
+                             {"l1": 0.2, "l2": 0.3}),
+    "decayed_adagrad": _opt("decayed_adagrad", {"Moment": GPOS(4, 5)}, ["ParamOut", "MomentOut"],
+                            {"decay": 0.9, "epsilon": 1e-5}),
+}
+SLICE14_CASES = (
+    [(n, op_type, ins, attrs, outs, 1e-5) for n, (op_type, ins, attrs, outs) in OPT_CASES.items()]
+    + [
+        ("model_average_accum", "model_average_accum",
+         {"Sum": G32(4, 5), "Count": np.array([2.0], np.float32), "Param": G32(4, 5)},
+         {"max_average_window": 4}, ["SumOut"], 1e-6),
+        ("model_average_accum_halve", "model_average_accum",
+         {"Sum": G32(4, 5), "Count": np.array([3.0], np.float32), "Param": G32(4, 5)},
+         {"max_average_window": 4}, ["SumOut"], 1e-6),
+        ("model_average_count", "model_average_count", {"Count": np.array([3.0], np.float32)},
+         {"max_average_window": 4}, ["CountOut"], 0.0),
+        ("dgc_ramp", "dgc", {"Grad": G32(4, 8), "U": G32(4, 8), "V": G32(4, 8),
+                             "CurrentStep": np.array([3.0], np.float32)},
+         {"m": 0.9, "rampup_begin_step": 1.0, "rampup_step": 4.0, "sparsity": [0.75, 0.5]},
+         ["GradOut", "UOut", "VOut"], 1e-6),
+        ("dgc_before_ramp", "dgc", {"Grad": G32(4, 8), "U": G32(4, 8), "V": G32(4, 8),
+                                    "CurrentStep": np.array([0.0], np.float32)},
+         {"rampup_begin_step": 1.0, "sparsity": [0.75]}, ["GradOut", "UOut", "VOut"], 0.0),
+        ("dgc_clip", "dgc", {"Grad": G32(4, 8) * 3, "U": G32(4, 8), "V": G32(4, 8),
+                             "CurrentStep": np.array([5.0], np.float32)},
+         {"clip_norm": 1.0, "sparsity": [0.9]}, ["GradOut", "UOut", "VOut"], 1e-6),
+        ("select_input", "select_input", {"X": [G32(2, 3), G32(2, 3)],
+                                          "Mask": np.array([1], np.int32)}, {}, ["Out"], 0.0),
+        ("select_input_0", "select_input", {"X": [G32(2, 3), G32(2, 3)],
+                                            "Mask": np.array([0], np.int32)}, {}, ["Out"], 0.0),
+        ("sequence_softmax", "sequence_softmax", {"X": G32(3, 5), "XLod": LENS}, {}, ["Out"], 1e-6),
+        ("sequence_softmax_3d", "sequence_softmax", {"X": G32(3, 5, 1), "XLod": LENS}, {}, ["Out"],
+         1e-6),
+        ("sequence_expand", "sequence_expand", {"X": G32(3, 4), "Y": G32(3, 5, 2), "YLod": LENS},
+         {}, ["Out"], 0.0),
+        ("sequence_expand_as", "sequence_expand_as",
+         {"X": G32(3, 1, 4), "Y": G32(3, 5, 2), "YLod": LENS}, {}, ["Out"], 0.0),
+        ("sequence_reverse", "sequence_reverse", {"X": G32(3, 5, 4), "XLod": LENS}, {}, ["Out"],
+         0.0),
+        ("sequence_pad", "sequence_pad", {"X": G32(3, 5, 4), "XLod": LENS,
+                                          "PadValue": np.array([0.5], np.float32)},
+         {"padded_length": 7, "out_dtypes": {"Length": "int64"}}, ["Out", "Length"], 0.0),
+        ("sequence_pad_cut", "sequence_pad", {"X": G32(3, 5), "XLod": LENS,
+                                              "PadValue": np.array([-1.0], np.float32)},
+         {"padded_length": 4, "out_dtypes": {"Length": "int64"}}, ["Out", "Length"], 0.0),
+        ("sequence_unpad", "sequence_unpad", {"X": G32(3, 5, 4), "Length": LENS.astype(np.int64)},
+         {"out_dtypes": {"OutLod": "int32"}}, ["Out", "OutLod"], 0.0),
+        ("sequence_concat", "sequence_concat",
+         {"X": [G32(3, 4, 2), G32(3, 3, 2)], "XLod": [np.array([4, 1, 2], np.int32),
+                                                    np.array([2, 3, 0], np.int32)]},
+         {"out_dtypes": {"OutLod": "int32"}}, ["Out", "OutLod"], 0.0),
+        ("sequence_slice", "sequence_slice",
+         {"X": G32(3, 5, 4), "XLod": LENS, "Offset": np.array([[1], [0], [1]], np.int64),
+          "Length": np.array([[3], [2], [1]], np.int64)},
+         {"out_dtypes": {"OutLod": "int32"}}, ["Out", "OutLod"], 0.0),
+        ("sequence_erase", "sequence_erase",
+         {"X": r14.randint(0, 5, (3, 6)).astype(np.int32), "XLod": np.array([6, 3, 5], np.int32)},
+         {"tokens": [1, 3], "out_dtypes": {"Out": "int32", "OutLod": "int32"}},
+         ["Out", "OutLod"], 0.0),
+        ("sequence_erase_3d", "sequence_erase",
+         {"X": r14.randint(0, 5, (3, 6, 1)).astype(np.int32), "XLod": np.array([6, 3, 5], np.int32)},
+         {"tokens": [0], "out_dtypes": {"Out": "int32", "OutLod": "int32"}}, ["Out", "OutLod"], 0.0),
+        ("sequence_enumerate", "sequence_enumerate",
+         {"X": r14.randint(0, 9, (3, 6)).astype(np.int32), "XLod": np.array([6, 3, 5], np.int32)},
+         {"win_size": 3, "pad_value": 9, "out_dtypes": {"Out": "int32", "OutLod": "int32"}},
+         ["Out", "OutLod"], 0.0),
+        ("sequence_scatter", "sequence_scatter",
+         {"X": G32(3, 6), "Ids": r14.randint(0, 6, (3, 4)).astype(np.int32),
+          "IdsLod": np.array([4, 2, 3], np.int32), "Updates": G32(3, 4)}, {}, ["Out"], 1e-6),
+        ("sequence_reshape", "sequence_reshape",
+         {"X": G32(3, 4, 6), "XLod": np.array([4, 2, 3], np.int32)},
+         {"new_dim": 3, "out_dtypes": {"OutLod": "int32"}}, ["Out", "OutLod"], 0.0),
+        ("dynamic_gru", "dynamic_gru", {"Input": G32(3, 5, 12), "XLod": LENS,
+                                        "Weight": G32(4, 12) * 0.5, "Bias": G32(1, 12)}, {},
+         ["Hidden"], 1e-5),
+        ("dynamic_gru_rev_origin_h0", "dynamic_gru",
+         {"Input": G32(3, 5, 12), "XLod": LENS, "Weight": G32(4, 12) * 0.5, "Bias": G32(1, 12),
+          "H0": G32(3, 4)}, {"is_reverse": True, "origin_mode": True}, ["Hidden"], 1e-5),
+        ("dynamic_lstmp", "dynamic_lstmp",
+         {"Input": G32(3, 5, 16), "XLod": LENS, "Weight": G32(3, 16) * 0.5,
+          "ProjWeight": G32(4, 3) * 0.5, "Bias": G32(1, 28)}, {}, ["Projection", "Cell"], 1e-5),
+        ("dynamic_lstmp_rev_identity", "dynamic_lstmp",
+         {"Input": G32(3, 5, 16), "XLod": LENS, "Weight": G32(3, 16) * 0.5,
+          "ProjWeight": G32(4, 3) * 0.5, "Bias": G32(1, 16)},
+         {"use_peepholes": False, "is_reverse": True, "proj_activation": "identity"},
+         ["Projection", "Cell"], 1e-5),
+        ("cudnn_lstm", "cudnn_lstm",
+         {"Input": G32(2, 4, 3), "W": G32(456) * 0.3, "InitH": G32(4, 2, 3),
+          "InitC": G32(4, 2, 3)},
+         {"hidden_size": 3, "num_layers": 2, "is_bidirec": True, "is_test": True},
+         ["Out", "LastH", "LastC"], 1e-5),
+        ("cudnn_lstm_1layer", "cudnn_lstm",
+         {"Input": G32(2, 4, 3), "W": G32(96) * 0.3, "InitH": G32(1, 2, 3),
+          "InitC": G32(1, 2, 3)}, {"hidden_size": 3}, ["Out", "LastH", "LastC"], 1e-5),
+        ("gru_unit", "gru_unit", {"Input": G32(3, 12), "HiddenPrev": G32(3, 4),
+                                  "Weight": G32(4, 12), "Bias": G32(1, 12)}, {},
+         ["Hidden", "ResetHiddenPrev", "Gate"], 1e-6),
+        ("gru_unit_origin", "gru_unit", {"Input": G32(3, 12), "HiddenPrev": G32(3, 4),
+                                         "Weight": G32(4, 12)}, {"origin_mode": True},
+         ["Hidden", "ResetHiddenPrev", "Gate"], 1e-6),
+        ("lstm_unit", "lstm_unit", {"X": G32(3, 16), "C_prev": G32(3, 4)}, {"forget_bias": 0.5},
+         ["C", "H"], 1e-6),
+        ("warpctc", "warpctc",
+         {"Logits": G32(3, 6, 5), "XLod": np.array([6, 4, 5], np.int32),
+          "Label": r14.randint(1, 5, (3, 3)).astype(np.int32),
+          "LabelLod": np.array([3, 1, 2], np.int32)}, {}, ["Loss"], 1e-5),
+        ("warpctc_norm_repeat_empty", "warpctc",
+         {"Logits": G32(3, 6, 5), "XLod": np.array([6, 4, 5], np.int32),
+          "Label": np.array([[2, 2, 3], [1, 0, 0], [4, 1, 1]], np.int32),
+          "LabelLod": np.array([3, 0, 3], np.int32)}, {"norm_by_times": True}, ["Loss"], 1e-5),
+        ("linear_chain_crf", "linear_chain_crf",
+         {"Emission": G32(3, 5, 4), "XLod": LENS, "Transition": G32(6, 4),
+          "Label": r14.randint(0, 4, (3, 5)).astype(np.int32), "LabelLod": LENS}, {},
+         ["LogLikelihood"], 1e-5),
+        ("crf_decoding", "crf_decoding",
+         {"Emission": G32(3, 5, 4), "XLod": LENS, "Transition": G32(6, 4)},
+         {"out_dtype": "int64"}, ["ViterbiPath"], 0.0),
+        ("crf_decoding_label", "crf_decoding",
+         {"Emission": G32(3, 5, 4), "XLod": LENS, "Transition": G32(6, 4),
+          "Label": r14.randint(0, 4, (3, 5)).astype(np.int32)},
+         {"out_dtype": "int64"}, ["ViterbiPath"], 0.0),
+    ]
+)
+CASES += SLICE14_CASES
+GRAD_CASES += [
+    ("sequence_softmax", "sequence_softmax", {"X": G32(3, 5), "XLod": LENS}, {}, ["Out"], ["X"]),
+    ("sequence_expand", "sequence_expand", {"X": G32(3, 4), "Y": G32(3, 5, 2), "YLod": LENS}, {},
+     ["Out"], ["X"]),
+    ("sequence_reverse", "sequence_reverse", {"X": G32(3, 5, 4), "XLod": LENS}, {}, ["Out"],
+     ["X"]),
+    ("sequence_pad", "sequence_pad", {"X": G32(3, 5, 4), "XLod": LENS,
+                                      "PadValue": np.array([0.5], np.float32)},
+     {"padded_length": 7}, ["Out"], ["X"]),
+    ("sequence_unpad", "sequence_unpad", {"X": G32(3, 5, 4), "Length": LENS.astype(np.int64)}, {},
+     ["Out"], ["X"]),
+    ("sequence_concat", "sequence_concat",
+     {"X": [G32(3, 4, 2), G32(3, 3, 2)], "XLod": [np.array([4, 1, 2], np.int32),
+                                                np.array([2, 3, 0], np.int32)]}, {}, ["Out"],
+     ["X0", "X1"]),
+    ("sequence_slice", "sequence_slice",
+     {"X": G32(3, 5, 4), "XLod": LENS, "Offset": np.array([[1], [0], [1]], np.int64),
+      "Length": np.array([[3], [2], [1]], np.int64)}, {}, ["Out"], ["X"]),
+    ("sequence_scatter", "sequence_scatter",
+     {"X": G32(3, 6), "Ids": r14.randint(0, 6, (3, 4)).astype(np.int32),
+      "IdsLod": np.array([4, 2, 3], np.int32), "Updates": G32(3, 4)}, {}, ["Out"],
+     ["X", "Updates"]),
+    ("sequence_reshape", "sequence_reshape", {"X": G32(3, 4, 6), "XLod": np.array([4, 2, 3],
+                                                                                  np.int32)},
+     {"new_dim": 3}, ["Out"], ["X"]),
+    ("dynamic_gru", "dynamic_gru", {"Input": G32(3, 5, 12), "XLod": LENS,
+                                    "Weight": G32(4, 12) * 0.5, "Bias": G32(1, 12),
+                                    "H0": G32(3, 4)}, {"is_reverse": True}, ["Hidden"],
+     ["Input", "Weight", "Bias", "H0"]),
+    ("dynamic_lstmp", "dynamic_lstmp",
+     {"Input": G32(3, 5, 16), "XLod": LENS, "Weight": G32(3, 16) * 0.5,
+      "ProjWeight": G32(4, 3) * 0.5, "Bias": G32(1, 28)}, {}, ["Projection", "Cell"],
+     ["Input", "Weight", "ProjWeight", "Bias"]),
+    ("cudnn_lstm", "cudnn_lstm",
+     {"Input": G32(2, 4, 3), "W": G32(456) * 0.3, "InitH": G32(4, 2, 3), "InitC": G32(4, 2, 3)},
+     {"hidden_size": 3, "num_layers": 2, "is_bidirec": True, "is_test": True},
+     ["Out", "LastH", "LastC"], ["Input", "W", "InitH", "InitC"]),
+    ("gru_unit", "gru_unit", {"Input": G32(3, 12), "HiddenPrev": G32(3, 4), "Weight": G32(4, 12),
+                              "Bias": G32(1, 12)}, {}, ["Hidden", "ResetHiddenPrev", "Gate"],
+     ["Input", "HiddenPrev", "Weight", "Bias"]),
+    ("lstm_unit", "lstm_unit", {"X": G32(3, 16), "C_prev": G32(3, 4)}, {"forget_bias": 0.5},
+     ["C", "H"], ["X", "C_prev"]),
+    ("warpctc", "warpctc",
+     {"Logits": G32(3, 6, 5), "XLod": np.array([6, 4, 5], np.int32),
+      "Label": np.array([[2, 2, 3], [1, 0, 0], [4, 1, 1]], np.int32),
+      "LabelLod": np.array([3, 1, 2], np.int32)}, {"norm_by_times": True}, ["Loss"], ["Logits"]),
+    ("linear_chain_crf", "linear_chain_crf",
+     {"Emission": G32(3, 5, 4), "XLod": LENS, "Transition": G32(6, 4),
+      "Label": r14.randint(0, 4, (3, 5)).astype(np.int32), "LabelLod": LENS}, {},
+     ["LogLikelihood"], ["Emission", "Transition"]),
+    ("select_input", "select_input", {"X": [G32(2, 3), G32(2, 3)],
+                                      "Mask": np.array([1], np.int32)}, {}, ["Out"], ["X0", "X1"]),
+]
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):
     """Same fetches, and the same declared output shapes and dtypes (the
