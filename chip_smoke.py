@@ -236,8 +236,24 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  41. ragged_parity: card vs CPU: the seq2seq at width 64 (3 Adam steps,
      phase 7's rule), a CRF tagger (NLL 1e-4, paths equal), dynamic_gru,
      dynamic_lstmp, lstm, warpctc, a StaticRNN, cond and the arrays; the
-     cond and array plans refused a CUDA graph with their reason.
-Phase 3 also times the BN epilogue, the xent and Adam at the family's
+     cond and array plans refused a CUDA graph with their reason;
+ 42. bert_bf16_scores: phase 12 with attention_score_dtype="bfloat16"
+     (launches FUSED_BF16_SCORES_PER_STEP: the kernels' bf16-score
+     variants), graphed runs bitwise equal; served at batch 32, run_ms;
+ 43-46. ssd_train, ssd_serve, yolov3_train, yolov3_serve: MobileNet-SSD
+     (300 x 300, 21 classes, batch 64, RMSProp) and YOLOv3 on DarkNet-53
+     (608 x 608, 80 classes, batch 8, Momentum + L2Decay), f32, eager then
+     graphed 6 steps (loss falling, no graph refusal, BN-epilogue launches
+     as read off the program), served at batch 1 / 64 and 1 / 8 through
+     create_predictor with their NMS heads, [N, keep_top_k, 6];
+ 47. detection_parity: card vs CPU: a tiny SSD, a 2-layer YOLOv3 head, the
+     Faster R-CNN second stage and the RetinaNet head (3 Momentum steps
+     and their outputs), every one-op case of tests/detection_cases.py,
+     and the graph refusals of print, py_func and detection_map.
+Phase 3 also holds the bf16-score variants of the attention kernels
+(check_bf16_score_kernels: forward, dQ, dK/dV, float32 and bfloat16,
+element by element, the f32-score kernel's miss of the bf16-score plain
+version printed as a ratio) and times the BN epilogue, the xent and Adam at the family's
 float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
 512 (check_seq2seq_kernels).
 
@@ -305,6 +321,18 @@ KERNEL_INFO = {
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (row 12c, stock dQ)"),
     "bn_epilogue_fwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:271"),
     "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
+    # the bf16-score variants (kBS) of the three attention kernels: the JAX
+    # composite's score_dtype="bfloat16" (paddle_tpu/ops/nn_ops.py:680-684)
+    "attention_fwd_bf16_scores": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:193 (row 10, _fused_sdpa_fwd), bf16-score variant"),
+    "attention_bwd_dq_bf16_scores": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dq), bf16-score variant"),
+    "attention_bwd_dkv_bf16_scores": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dk, dv), bf16-score "
+        "variant"),
 }
 NONE = dict.fromkeys(KERNEL_INFO, 0)
 # a kernel of paddle_tpu_torch/csrc by its function name, in a profiler trace
@@ -313,6 +341,8 @@ PORT_KERNEL = re.compile(
 # such a kernel's LAUNCHES key (the column sums belong to the LN and bias-act
 # backward launches that start them)
 KERNEL_OF = re.compile(r"::(\w+?)(?:_f32)?_kernel\b")
+# an attention kernel's bf16-score instantiation (template arguments <DH, true>)
+BF16_SCORES_OF = re.compile(r"attention_\w+_kernel<\d+,\s*(?:true|1)>")
 KERNEL_KEY = {"ln_residual_fwd": "ln_residual_fwd", "ln_residual_bwd": "ln_residual_bwd",
               "bias_act_fwd": "bias_act_fwd", "bias_act_bwd": "bias_act_bwd",
               "softmax_xent_fwd": "softmax_xent_fwd", "softmax_xent_bwd": "softmax_xent_bwd",
@@ -331,6 +361,13 @@ PER_STEP = dict(NONE, ln_residual_fwd=25, ln_residual_bwd=25, bias_act_fwd=12, b
 # with fused attention each of the 12 layers adds one attention forward and
 # one each of its backward kernels (one backward region: the forward runs once)
 FUSED_PER_STEP = dict(PER_STEP, attention_fwd=12, attention_bwd_dkv=12, attention_bwd_dq=12)
+# phase 42: FUSED_PER_STEP with score_dtype="bfloat16": the kernels' bf16-score
+# variants in place of the attention kernels, 12 of each a step
+FUSED_BF16_SCORES_PER_STEP = dict(PER_STEP, attention_fwd_bf16_scores=12,
+                                  attention_bwd_dkv_bf16_scores=12,
+                                  attention_bwd_dq_bf16_scores=12)
+BF16_SCORES_PER_REQUEST = dict(NONE, ln_residual_fwd=25, bias_act_fwd=12,
+                               attention_fwd_bf16_scores=12)
 # ResNet-50 has 53 batch_norms (the stem, 3 per bottleneck x 16, 4 shortcuts),
 # each the epilogue kernel (33 with fuse_relu); its residual adds are not
 # 1-D bias adds, so no bias-act kernel; Momentum has no kernel
@@ -444,7 +481,8 @@ VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
 # tests/test_torch_resnet.py), the LSTM at width 128 on 8 sentences of 5-32
 VISION_PARITY_SIZE = 64
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("train_lamb", "resnet_lars", "seq2seq_train",
+LAUNCH_ORDER = ("bert_bf16_scores", "ssd_train", "yolov3_train", "ssd_serve", "yolov3_serve",
+                "bert_bf16_scores_serve", "train_lamb", "resnet_lars", "seq2seq_train",
                 "se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
                 "se_resnext_serve", "vgg_serve", "nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
@@ -948,6 +986,150 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
             for name, by_seq in record.items()}
 
 
+# bf16-score cases of phase 3: the BERT-base shapes at seq 128 and 2048,
+# causal with Lq < Lk and Lq > Lk, a bias (B, H, Lq, Lk, dh, bias, causal)
+BF16_SCORE_CASES = [
+    (32, 12, 128, 128, 64, None, False),
+    (8, 12, 2048, 2048, 64, None, False),
+    (2, 12, 128, 512, 64, None, True),
+    (2, 12, 200, 72, 64, None, True),
+    (32, 12, 128, 128, 64, "per_head", False),
+]
+# the rule must see the rounding: the f32-score kernel, held to the
+# bf16-score plain version, misses it by at least this many times the mean
+# absolute difference of the bf16-score kernel
+SCORE_MUTANT_RATIO = 2.0
+
+
+def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32", "bfloat16")):
+    """Phase 3, the bf16-score variants of the attention kernels (forward, dQ,
+    dK/dV; float32 and bfloat16 inputs) against their plain versions
+    (sdpa_plain and sdpa_bwd_plain with score_bf16) at BF16_SCORE_CASES,
+    element by element: float32 at TOL and grad_tol, bfloat16 by
+    FWD_BF16_RULE and BWD_BF16_RULE, both plus SCORE_ROUNDING_RULE (one bf16
+    rounding of each score and of s - m on either side).  The backward is
+    held on the kernel's own output, two runs agree bit for bit.  The
+    f32-score kernel's output held to the bf16-score plain version must miss
+    it by SCORE_MUTANT_RATIO times the bf16-score kernel's mean absolute
+    difference (the rule sees the rounding); the ratio is printed.  Times
+    each kernel at [32,12,128,64] and [8,12,2048,64] bf16 beside the
+    f32-score kernel at the same shape, in the same process."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape, dtype=torch.float32, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    record = {}
+    for dtype in (getattr(torch, d) for d in dtypes):
+        dn = dname(dtype)
+        for B, H, Lq, Lk, dh, bias_kind, causal in cases:
+            q, do = randn(B, H, Lq, dh, dtype=dtype), randn(B, H, Lq, dh, dtype=dtype)
+            k, v = randn(B, H, Lk, dh, dtype=dtype), randn(B, H, Lk, dh, dtype=dtype)
+            bias = None
+            if bias_kind is not None:
+                bias = randn(B, 1 if bias_kind == "bcast" else H, Lq, Lk, s=2.0)
+            scale = dh ** -0.5
+            args = (q, k, v, bias, causal, scale)
+            case = f"[{B},{H},{Lq},{dh}] x {Lk} bias={bias_kind} causal={causal} bf16 scores"
+            out, lse = ca.attention_fwd(*args, score_bf16=True)
+            dq, di = ca.attention_bwd_dq(*args, out, lse, do, score_bf16=True)
+            dk, dv = ca.attention_bwd_dkv(*args, lse, di, do, score_bf16=True)
+            again = ca.attention_bwd_dq(*args, out, lse, do, score_bf16=True)[0]
+            repeatable("attention_bwd_dq_bf16_scores", f"dq {case} {dn}", dq, again)
+            again = ca.attention_bwd_dkv(*args, lse, di, do, score_bf16=True)
+            repeatable("attention_bwd_dkv_bf16_scores", f"dk {case} {dn}", dk, again[0])
+            repeatable("attention_bwd_dkv_bf16_scores", f"dv {case} {dn}", dv, again[1])
+            del again
+            want = ca.sdpa_plain(*args, score_bf16=True)
+            extra = ca.score_rounding_allowed(*args)
+            rule = ca.SCORE_ROUNDING_RULE
+            if dtype == torch.float32:
+                allowed = TOL[dn]["attention_fwd"] + extra
+                rule = f"{TOL[dn]['attention_fwd']} + {rule}"
+            else:
+                allowed = ca.sdpa_fwd_bf16_allowed(*args, want, score_bf16=True) + extra
+                rule = f"{ca.FWD_BF16_RULE} + {rule}"
+            err_f = check_within("attention_fwd_bf16_scores", "out", dtype, case, out, want,
+                                 allowed, rule)
+            # the rule sees the rounding: the f32-score kernel's output misses
+            f32_out = ca.attention_fwd(*args)[0]
+            if dtype == torch.float32:  # SCORE_ROUNDING_RULE admits no unrounded scores
+                share = float(((f32_out - want).abs() / allowed).max())
+                emit({"rule_refuses_unrounded_scores": case, "worst_share_of_allowed": share})
+                if not share > 1.0:
+                    raise AssertionError(f"attention_fwd_bf16_scores {case}: the rule admits "
+                                         "the f32-score kernel")
+            mad_bs = float((out.float() - want.float()).abs().mean())
+            mad_f32 = float((f32_out.float() - want.float()).abs().mean())
+            ratio = mad_f32 / max(mad_bs, 1e-30)
+            emit({"score_rounding_seen": "attention_fwd_bf16_scores", "case": case, "dtype": dn,
+                  "mean_abs_diff_bf16_score_kernel": mad_bs,
+                  "mean_abs_diff_f32_score_kernel": mad_f32, "ratio": ratio,
+                  "want_at_least": SCORE_MUTANT_RATIO})
+            if not ratio >= SCORE_MUTANT_RATIO:
+                raise AssertionError(f"attention_fwd_bf16_scores {case} {dn}: the f32-score "
+                                     f"kernel misses the bf16-score plain version by only "
+                                     f"{ratio}x the bf16-score kernel's mean difference")
+            del f32_out, allowed
+            want = ca.sdpa_bwd_plain(*args, out, do, score_bf16=True)
+            extra = ca.score_rounding_allowed(*args, out, do)
+            if dtype == torch.float32:
+                allowed = [grad_tol(dn, w) + e for w, e in zip(want, extra)]
+                rule = f"grad_tol + {ca.SCORE_ROUNDING_RULE}"
+            else:
+                allowed = [a + e for a, e in zip(ca.sdpa_bwd_bf16_allowed(
+                    *args, out, do, want, score_bf16=True), extra)]
+                rule = f"{ca.BWD_BF16_RULE} + {ca.SCORE_ROUNDING_RULE}"
+            err_q = check_within("attention_bwd_dq_bf16_scores", "dq", dtype, case, dq, want[0],
+                                 allowed[0], rule)
+            err_kv = max(check_within("attention_bwd_dkv_bf16_scores", w, dtype, case, a, b, t,
+                                      rule)
+                         for w, a, b, t in zip(("dk", "dv"), (dk, dv), want[1:], allowed[1:]))
+            del want, allowed, extra
+            torch.cuda.empty_cache()
+            where = ATTENTION_TIMED.get((B, Lq))
+            if not (dtype == torch.bfloat16 and where and bias is None and not causal
+                    and cases is BF16_SCORE_CASES):
+                continue
+            slow = dict(warmup=2, iters=10)
+            qkv = nbytes(q, k, v)
+            a0 = (q, k, v, None, False, scale)
+            lse32 = ca.attention_fwd(*a0)[1]
+            di32 = ca.attention_bwd_dq(*a0, out, lse32, do)[1]
+            timed = {
+                "attention_fwd_bf16_scores": (
+                    lambda: ca.attention_fwd(*a0, score_bf16=True),
+                    lambda: ca.attention_fwd(*a0), qkv + nbytes(out, lse), 6.0, err_f,
+                    lambda: ca.sdpa_plain(*a0, score_bf16=True)),
+                "attention_bwd_dq_bf16_scores": (
+                    lambda: ca.attention_bwd_dq(*a0, out, lse, do, score_bf16=True),
+                    lambda: ca.attention_bwd_dq(*a0, out, lse32, do),
+                    qkv + nbytes(out, do, lse, dq, di), 6.0, err_q,
+                    lambda: ca.sdpa_bwd_dq_plain(*a0, out, do, score_bf16=True)),
+                "attention_bwd_dkv_bf16_scores": (
+                    lambda: ca.attention_bwd_dkv(*a0, lse, di, do, score_bf16=True),
+                    lambda: ca.attention_bwd_dkv(*a0, lse32, di32, do),
+                    qkv + nbytes(do, lse, di, dk, dv), 8.0, err_kv,
+                    lambda: ca.sdpa_bwd_dkv_plain(*a0, out, do, score_bf16=True)),
+            }
+            for name, (fn, f32_fn, moved, ops, err, plain) in timed.items():
+                b_ms, b_by = attention_bound(q, k, v, False, moved, ops)
+                f32_first = time_ms(f32_fn)
+                ms = time_ms(fn)
+                f32_ms = (f32_first + time_ms(f32_fn)) / 2
+                rec = dict(max_abs_err=err, ms=ms, f32_score_kernel_ms=f32_ms,
+                           plain_ms=time_ms(plain, **slow), library_ms=None,
+                           library="none: no PyTorch call rounds the scores to bf16",
+                           bound_ms=b_ms, bound_by=b_by, ops_per_qk_dh=ops,
+                           shape=f"[{B},{H},{Lq},{dh}] bf16")
+                emit({"timing": name, "at": where, **rec})
+                record.setdefault(name, {})[where] = rec
+        torch.cuda.empty_cache()
+    return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
+            for name, by_seq in record.items()}
+
+
 def attention_occupancy(_build):
     """Phase 2: what the card makes of each attention kernel (forward, dQ,
     dK/dV; float32 and bfloat16; dh 16-128): CTAs an SM holds, registers a
@@ -959,10 +1141,12 @@ def attention_occupancy(_build):
     for which, name in enumerate(("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")):
         for dtype, code in (("float32", 0), ("bfloat16", 1)):
             for dh in (16, 32, 64, 128):
-                out = (ctypes.c_int * 4)()
-                _build.call("ptt_attention_occupancy", which, dh, code, out)
-                emit({"occupancy": name, "dtype": dtype, "dh": dh, "ctas_per_sm": out[0],
-                      "registers": out[1], "smem_bytes": out[2], "local_bytes": out[3]})
+                for bs in (0, 1):
+                    out = (ctypes.c_int * 4)()
+                    _build.call("ptt_attention_occupancy", which, dh, code, bs, out)
+                    emit({"occupancy": name + ("_bf16_scores" if bs else ""), "dtype": dtype,
+                          "dh": dh, "ctas_per_sm": out[0], "registers": out[1],
+                          "smem_bytes": out[2], "local_bytes": out[3]})
 
 
 def check_train_kernels(torch, ck):
@@ -1445,7 +1629,7 @@ def check_vision_kernels(torch, ck, record):
                                  if k.startswith("at_") and k.endswith("_f32")}})
 
 
-def build_bert(fluid, dtype, n_layers):
+def build_bert(fluid, dtype, n_layers, score_dtype=None):
     """Full-width BERT-base, random weights from seed 0, run through the two fusion
     passes; returns (main, startup, logits name)."""
     from paddle_tpu_torch.models import transformer
@@ -1453,7 +1637,8 @@ def build_bert(fluid, dtype, n_layers):
     with fluid.unique_name.guard():
         main, startup, _, _ = transformer.build_bert(
             vocab_size=30522, seq_len=128, d_model=768, n_layers=n_layers, n_heads=12,
-            d_ff=3072, dtype=dtype, use_fused_attention=True, with_optimizer=False)
+            d_ff=3072, dtype=dtype, use_fused_attention=True, with_optimizer=False,
+            attention_score_dtype=score_dtype)
     startup.random_seed = 0
     logits = next(op for op in main.global_block().ops
                   if op.type == "softmax_with_cross_entropy").input("Logits")[0]
@@ -1462,8 +1647,8 @@ def build_bert(fluid, dtype, n_layers):
     return main, startup, logits
 
 
-def save_model(fluid, torch, dirname, dtype, n_layers, unit_ln_scale=False):
-    main, startup, logits = build_bert(fluid, dtype, n_layers)
+def save_model(fluid, torch, dirname, dtype, n_layers, unit_ln_scale=False, score_dtype=None):
+    main, startup, logits = build_bert(fluid, dtype, n_layers, score_dtype)
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -1670,6 +1855,8 @@ def profile_run(torch, what, run, card):
     for e in ours:
         key = KERNEL_KEY.get(KERNEL_OF.search(e.key).group(1))
         if key is not None:
+            if BF16_SCORES_OF.search(e.key):
+                key += "_bf16_scores"
             counts[key] += e.count
     record = {"profile": what, "run_ms": run_ms, "device_busy_ms": busy_us / 1e3,
               "device_idle_share": 1.0 - busy_us / 1e3 / run_ms, "card": card,
@@ -1807,7 +1994,7 @@ def parity(fluid, torch, tmp):
 
 
 def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
-                clip_decay=False, optimizer=None):
+                clip_decay=False, optimizer=None, score_dtype=None):
     """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention or
     the fused_attention op, through the two fusion passes; returns (main,
     startup, loss name).  `clip_decay` builds it as a fine-tuning user does:
@@ -1823,7 +2010,8 @@ def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
         main, startup, _, fetches = transformer.build_bert(
             vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
             d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
-            use_fused_attention=fused, with_optimizer=not (clip_decay or optimizer))
+            use_fused_attention=fused, with_optimizer=not (clip_decay or optimizer),
+            attention_score_dtype=score_dtype)
         if clip_decay:
             with fluid.program_guard(main, startup):
                 fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
@@ -1886,11 +2074,15 @@ def launches_of_program(main, loss):
     sparse = {n for op in ops if op.type == "backward" for n in op.attrs.get("sparse_param_names", [])}
     n_adam = sum(1 for op in ops if op.type == "adam" and not (
         op.attrs.get("lazy_mode") and op.input("Param")[0] in sparse))
-    n_attn = sum(1 for op in ops if op.type == "fused_attention")
+    attn = [op for op in ops if op.type == "fused_attention"]
+    n_bs = sum(1 for op in attn if op.attrs.get("score_dtype") == "bfloat16")
+    n_attn = len(attn) - n_bs
     return dict(NONE, ln_residual_fwd=n_ln, ln_residual_bwd=n_ln, bias_act_fwd=n_act,
                 bias_act_bwd=n_act, softmax_xent_fwd=n_xent, softmax_xent_bwd=n_xent,
                 adam=n_adam, bn_epilogue_fwd=n_bn, bn_epilogue_bwd=n_bn, attention_fwd=n_attn,
-                attention_bwd_dkv=n_attn, attention_bwd_dq=n_attn)
+                attention_bwd_dkv=n_attn, attention_bwd_dq=n_attn,
+                attention_fwd_bf16_scores=n_bs, attention_bwd_dkv_bf16_scores=n_bs,
+                attention_bwd_dq_bf16_scores=n_bs)
 
 
 def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per_step,
@@ -1973,7 +2165,8 @@ def hold_graphed_repeat(phase, runs):
 
 
 def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
-          per_step=PER_STEP, arms=("graphed",), clip_decay=False, optimizer=None):
+          per_step=PER_STEP, arms=("graphed",), clip_decay=False, optimizer=None,
+          score_dtype=None):
     """Phases 6, 12, 13 and 24: bf16 BERT-base (12 layers, dropout 0.1, Adam
     lr 1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one
     fixed batch of `batch` x `seq_len`, with unfused attention (phase 6) or
@@ -1987,12 +2180,14 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
 
     t0 = time.perf_counter()
     main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, fused, clip_decay,
-                                      optimizer)
+                                      optimizer, score_dtype)
     derived = launches_of_program(main, loss)
     if derived != per_step:
         raise AssertionError(f"the program's kernel ops {derived} != the reckoned {per_step}")
     feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0))
     attention = "fused attention" if fused else "unfused attention"
+    if score_dtype:
+        attention += f", {score_dtype} scores"
     tail = (f", L2Decay({WEIGHT_DECAY}), GradientClipByGlobalNorm({CLIP_NORM})"
             if clip_decay else "")
     opt = OPTIMIZER_NAMES.get(optimizer, "Adam lr 1e-4")
@@ -4727,6 +4922,301 @@ def check_seq2seq_kernels(torch, ck, record):
                                if k == f"at_{30000 * 512}_f32"}})
 
 
+# --- the detection family and bf16 attention scores (phases 42-47) ----------
+
+# MobileNet-v1 SSD as PaddlePaddle/models PaddleCV/object_detection/
+# mobilenet_ssd.py trains it on Pascal VOC (300 x 300, 21 classes, RMSProp
+# 1e-3) and YOLOv3 on DarkNet-53 as PaddleCV/yolov3 trains it on COCO
+# (608 x 608, 80 classes, Momentum 1e-3 / 0.9, L2Decay 5e-4), both float32
+# and full depth; ground truth synthetic from the seed, 1-20 boxes an image
+# padded to 50 (paddle_tpu_torch/models/detection.py)
+SSD_BATCH = 64
+YOLO_BATCH = 8
+SSD_SERVE_BATCHES = (1, 64)
+YOLO_SERVE_BATCHES = (1, 8)
+# 35 batch norms over NCHW in the SSD (27 in MobileNet-v1, 2 in each of the
+# 4 extra blocks), 72 in YOLOv3 (52 in DarkNet-53, 6 in each of the 3
+# detection blocks, 2 transitions); RMSProp and Momentum have no kernel
+SSD_PER_STEP = dict(NONE, bn_epilogue_fwd=35, bn_epilogue_bwd=35)
+YOLO_PER_STEP = dict(NONE, bn_epilogue_fwd=72, bn_epilogue_bwd=72)
+SSD_PER_REQUEST = dict(NONE, bn_epilogue_fwd=35)
+YOLO_PER_REQUEST = dict(NONE, bn_epilogue_fwd=72)
+# phase 47: a trained state after PARITY_STEPS Momentum steps, card against
+# CPU, each tensor within this share of max(1, its largest magnitude) (float32,
+# TF32 off, cuDNN deterministic: sums in other orders); served detections:
+# labels equal, boxes and scores within 1e-5 of max(1, |CPU|)
+DETECTION_STATE_TOL = 1e-4
+DETECTION_OUT_TOL = 1e-5
+
+
+def bert_bf16_scores(fluid, torch, ck, tmp, card):
+    """Phase 42: bf16 BERT-base 32 x 128 with fused attention and
+    attention_score_dtype="bfloat16", dropout 0.1, Adam 1e-4, eager and
+    graphed in turns (phase 12's train: launches exactly
+    FUSED_BF16_SCORES_PER_STEP, the graphed runs bit for bit, the loss
+    falling); then served at batch 32 through create_predictor, REQUESTS
+    requests (eager, capture, replay), BF16_SCORES_PER_REQUEST launches a
+    request, run_ms printed.  Returns (training launches, serving
+    launches)."""
+    import numpy as np
+    from paddle_tpu_torch.core.dtypes import to_numpy
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    trained = train(fluid, torch, ck, card, "bert_bf16_scores", True, 128, 32,
+                    FUSED_BF16_SCORES_PER_STEP, arms=AB_ARMS, score_dtype="bfloat16")
+    model_dir = os.path.join(tmp, "bert_base_bf16_scores")
+    save_model(fluid, torch, model_dir, "bfloat16", 12, score_dtype="bfloat16")
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(42))
+    ck.reset_launches()
+    fluid.monitor.reset()
+    for r in range(REQUESTS):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = predictor.run(feed, return_numpy=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = to_numpy(out)
+        t2 = time.perf_counter()
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        replayed = hold_run_launches(predictor.exe, r, delta, BF16_SCORES_PER_REQUEST,
+                                     "bert_bf16_scores serve", "bert_bf16_scores_serve")
+        emit({"phase": "bert_bf16_scores", "request": 32, "graphed": replayed,
+              "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3, "launches": delta,
+              "card": card})
+        if logits.shape != (32 * 128, 30522) or not np.isfinite(logits.astype(np.float32)).all():
+            raise AssertionError(f"bert_bf16_scores serve: logits {logits.shape}")
+    served = dict(ck.LAUNCHES)
+    read_monitor("bert_bf16_scores serve", monitor_want(list(range(REQUESTS)), True), card)
+    return trained, served
+
+
+def detection_program(fluid, model, with_optimizer=True, **overrides):
+    """(main, startup, feeds, fetches) of models/detection.py's `model`
+    ("ssd" or "yolov3") at its full configuration, `overrides` applied;
+    random weights from seed 0."""
+    from paddle_tpu_torch.models import detection
+
+    build = {"ssd": detection.build_mobilenet_ssd, "yolov3": detection.build_yolov3}[model]
+    with fluid.unique_name.guard():
+        main, startup, feeds, fetches = build(with_optimizer=with_optimizer, **overrides)
+    main.random_seed = startup.random_seed = 0
+    return main, startup, feeds, fetches
+
+
+def detection_batch(model, batch, seed, **kw):
+    from paddle_tpu_torch.models import detection
+
+    import numpy as np
+
+    make = {"ssd": detection.make_ssd_batch, "yolov3": detection.make_yolo_batch}[model]
+    return make(batch, rng=np.random.RandomState(seed), **kw)
+
+
+def detection_train(fluid, torch, ck, card, model):
+    """Phases 43 and 45: MobileNet-SSD (batch 64) or YOLOv3 (batch 8) trains
+    TRAIN_STEPS steps on one fixed batch through Executor(CUDAPlace(0)).run,
+    eager then graphed (train_arm: launches held each step, the monitor
+    read, a profiled step); the graphed arm replays from its second step
+    with no graph refusal; the loss falls in each arm; a step's BN-epilogue
+    launches, read off the program, equal the reckoned count.  Returns the
+    launches counted."""
+    phase = f"{model}_train"
+    batch = SSD_BATCH if model == "ssd" else YOLO_BATCH
+    per_want = SSD_PER_STEP if model == "ssd" else YOLO_PER_STEP
+    t0 = time.perf_counter()
+    main, startup, _, fetches = detection_program(fluid, model)
+    loss = fetches["loss"].name
+    per_step = launches_of_program(main, loss)
+    emit({"phase": phase, "model": model, "batch": batch, "ops": len(main.global_block().ops),
+          "params": len(main.all_parameters()), "bn_epilogue_per_step_of_program":
+          per_step["bn_epilogue_fwd"], "setup_s": time.perf_counter() - t0})
+    if per_step != per_want:
+        raise AssertionError(f"{phase}: the program's kernel ops {per_step} != {per_want}")
+    feed = on_card(torch, detection_batch(model, batch, 7))
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    for arm in ("eager", "graphed"):
+        losses, scope, record = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss,
+                                          feed, per_step, launches, {"images": batch})
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{phase} {arm}: the loss did not fall: {losses}")
+        if arm == "graphed" and record["graph_refusal"] is not None:
+            raise AssertionError(f"{phase}: the graph was refused: {record['graph_refusal']}")
+        del scope
+    return launches
+
+
+def detection_serve(fluid, torch, ck, tmp, card, model):
+    """Phases 44 and 46: the model (batch norms calibrated, as phase 8)
+    saved by save_inference_model and served through AnalysisConfig /
+    create_predictor on cuda:0 with its detection head (SSD:
+    detection_output, nms_threshold 0.45; YOLOv3: yolo_box + multiclass_nms,
+    nms_top_k 1000, keep_top_k 100), REQUESTS requests at each batch
+    (eager, capture, replay): [N, keep_top_k, 6] finite detections, label -1
+    or a class; the BN epilogue once per batch norm a request, no other
+    kernel; run_ms and fetch_ms printed; one replay profiled."""
+    import numpy as np
+    from paddle_tpu_torch.core.dtypes import to_numpy
+
+    phase = f"{model}_serve"
+    batches = SSD_SERVE_BATCHES if model == "ssd" else YOLO_SERVE_BATCHES
+    per_request = SSD_PER_REQUEST if model == "ssd" else YOLO_PER_REQUEST
+    keep, classes = (200, 21) if model == "ssd" else (100, 80)
+    inputs = ["img"] if model == "ssd" else ["img", "im_size"]
+    t0 = time.perf_counter()
+    main, startup, _, fetches = detection_program(fluid, model, with_optimizer=False)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    calibrate(fluid, main, exe, scope, detection_batch(model, 4, 70))
+    model_dir = os.path.join(tmp, phase)
+    fluid.io.save_inference_model(model_dir, inputs, [fetches["detections"]], exe, main, scope)
+    del exe, scope
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    emit({"phase": phase, "setup_s": time.perf_counter() - t0,
+          "place": repr(predictor.config.place)})
+    ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
+    for i, batch in enumerate(batches):
+        full = detection_batch(model, batch, 80 + i)
+        feed = {k: full[k] for k in inputs}
+        for r in range(REQUESTS):
+            before = dict(ck.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = predictor.run(feed, return_numpy=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            det = to_numpy(out)
+            t2 = time.perf_counter()
+            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+            replayed = hold_run_launches(predictor.exe, r, delta, per_request,
+                                         f"{phase} batch {batch}", phase)
+            labels = det[..., 0]
+            emit({"detection_request": model, "batch": batch, "graphed": replayed,
+                  "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3,
+                  "images_per_s": batch / (t2 - t0), "detections": int((labels >= 0).sum()),
+                  "launches": delta, "card": card})
+            ok = (det.shape == (batch, keep, 6) and np.isfinite(det).all()
+                  and np.isin(labels, np.arange(-1, classes)).all())
+            if not ok:
+                raise AssertionError(f"{phase} batch {batch}: detections {det.shape}")
+    launches = dict(ck.LAUNCHES)
+    read_monitor(phase, monitor_want(list(range(REQUESTS)) * len(batches), True), card)
+    profile_replay(torch, f"{phase} request {batches[-1]}",
+                   lambda: predictor.run(feed, return_numpy=False), card, per_request)
+    return launches
+
+
+def detection_parity(fluid, torch, card):
+    """Phase 47, card against CPU, float32 (TF32 off, cuDNN deterministic):
+    the four models of tests/detection_cases.py (the SSD of
+    tests/test_detection_train.py:548, a YOLOv3 head with a second scale,
+    the Faster R-CNN second stage of :657 and the RetinaNet head of :595),
+    each PARITY_STEPS Momentum steps from one numpy
+    state (the card graphed): losses and every persistable within
+    DETECTION_STATE_TOL, and each one's output at the first run, from that
+    state (detections, sampled labels): labels and ids equal, boxes and
+    scores within DETECTION_OUT_TOL; every one-op case of tests/detection_cases.py (the
+    28 detection ops and the nn and host ops) within DETECTION_OUT_TOL of
+    max(1, |CPU|), index outputs equal; plans holding print, py_func or
+    detection_map refused a graph with their reason (executor._HOST_READ),
+    counted in executor.graph_refused."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import _HOST_READ
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import detection_cases  # no JAX: the one-op cases and the four models of the CPU tests
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (build, make_feed) in detection_cases.MODELS.items():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+                loss, (out, *_) = build(fluid)
+                # lr 1e-3: the YOLOv3 head's loss of ~100 overshoots at 0.01
+                fluid.optimizer.Momentum(1e-3, 0.9).minimize(loss)
+            main.random_seed = startup.random_seed = 3
+            init = fluid.Scope()
+            fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+            names = sorted(v.name for v in main.list_vars() if v.persistable)
+            state = {n: init.to_numpy(n).copy() for n in names}
+            results = []
+            for place, graphs in ((fluid.CUDAPlace(0), True), (fluid.CPUPlace(), False)):
+                scope = fluid.Scope()
+                fluid.io.load_numpy_params(scope, state, device=place.device)
+                exe = fluid.Executor(place, _graphs=graphs)
+                rng = np.random.RandomState(0)
+                fetched = [exe.run(main, feed=make_feed(rng), fetch_list=[loss, out], scope=scope)
+                           for _ in range(PARITY_STEPS)]
+                results.append((fetched, {n: scope.to_numpy(n).copy() for n in names},
+                                exe.last_plan.graph_refusal))
+            (card_f, card_s, refusal), (cpu_f, cpu_s, _) = results
+            # the output at the first run, from the one numpy state (the
+            # later runs' states part by DETECTION_STATE_TOL)
+            hold = detection_cases.hold_close
+            worst = hold(f"{name} output", cpu_f[0][1], card_f[0][1], DETECTION_OUT_TOL)
+            for i, (g, c) in enumerate(zip(card_f, cpu_f)):
+                worst = max(worst, hold(f"{name} step {i} loss", c[0], g[0],
+                                        DETECTION_STATE_TOL, True))
+            worst_state = max(hold(f"{name} {n}", cpu_s[n], card_s[n], DETECTION_STATE_TOL,
+                                   True) for n in names)
+            emit({"phase": "detection_parity", "model": name, "steps": PARITY_STEPS,
+                  "losses_card": [float(np.asarray(f[0]).reshape(-1)[0]) for f in card_f],
+                  "losses_cpu": [float(np.asarray(f[0]).reshape(-1)[0]) for f in cpu_f],
+                  "worst_share_of_tol": worst, "worst_state_share_of_tol": worst_state,
+                  "tol": DETECTION_STATE_TOL, "card_graph_refusal": refusal, "card": card})
+        cases = detection_cases.DETECTION_CASES + detection_cases.NN_CASES
+        worst = (0.0, "")
+        for cid, op_type, inputs, attrs, slots, *_ in cases:
+            outs = []
+            for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+                prog, feed, fetch = detection_cases.build_one_op(fluid, op_type, inputs, attrs,
+                                                                 slots)
+                outs.append(fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
+                                                      scope=fluid.Scope()))
+            for k, (g, w) in enumerate(zip(*outs)):
+                worst = max(worst, (hold(f"one-op {cid} out {k}", w, g, DETECTION_OUT_TOL), cid))
+        emit({"phase": "detection_parity", "one_op_cases": len(cases),
+              "worst_share_of_tol": worst[0], "worst_case": worst[1], "tol": DETECTION_OUT_TOL})
+        refused = {}
+        from paddle_tpu_torch.ops.control_flow_ops import register_py_func
+
+        def py_func_program():  # py_func's own attrs include out_dtypes: built by hand
+            prog = fluid.Program()
+            with fluid.program_guard(prog, fluid.Program()):
+                block = prog.global_block()
+                block.create_var("x", shape=(2, 3), dtype="float32", is_data=True)
+                block.create_var("y", shape=(2, 3), dtype="float32")
+                block.append_op("py_func", inputs={"X": ["x"]}, outputs={"Out": ["y"]},
+                                attrs={"func_id": register_py_func(lambda a: a * 2),
+                                       "out_shapes": [[2, 3]], "out_dtypes": ["float32"]})
+            return prog, {"x": np.ones((2, 3), np.float32)}, ["y"]
+
+        host_cases = {
+            "print": lambda: detection_cases.build_one_op(
+                fluid, "print", {"X": np.ones((2, 3), np.float32)},
+                {"message": "x: ", "first_n": 1}, ["Out"]),
+            "py_func": py_func_program,
+            "detection_map": lambda: detection_cases.build_one_op(fluid, *next(
+                c[1:] for c in detection_cases.DETECTION_CASES if c[1] == "detection_map"))}
+        for op_type, build_program in host_cases.items():
+            prog, feed, fetch = build_program()
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            fluid.monitor.reset()
+            for _ in range(2):
+                exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+            counted = fluid.monitor.get_monitor().counter("executor.graph_refused").value
+            refused[op_type] = exe.last_plan.graph_refusal
+            if refused[op_type] != _HOST_READ[op_type] or not counted:
+                raise AssertionError(f"detection_parity: a plan with {op_type} was not refused a "
+                                     f"graph with its reason: {refused[op_type]!r}, {counted}")
+        fluid.monitor.reset()
+        emit({"phase": "detection_parity", "graph_refusals": refused})
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -4761,6 +5251,7 @@ def main():
 
     timings = check_kernels(torch, ck)
     timings.update(check_attention_kernels(torch, ca))
+    timings.update(check_bf16_score_kernels(torch, ca))
     timings.update(check_train_kernels(torch, ck))
     check_nmt_kernels(torch, ck, timings)
     timings.update(check_bn_kernels(torch, ck))
@@ -4837,6 +5328,24 @@ def main():
         ragged_parity(fluid, torch, card)
         emit({"phase_seconds": "ragged_parity", "s": time.perf_counter() - phase_t0,
               "card": card})
+        phase_t0 = time.perf_counter()
+        bs_trained, bs_served = bert_bf16_scores(fluid, torch, ck, tmp, card)
+        emit({"phase_seconds": "bert_bf16_scores", "s": time.perf_counter() - phase_t0,
+              "card": card})
+        detected = {}
+        for model in ("ssd", "yolov3"):
+            phase_t0 = time.perf_counter()
+            detected[f"{model}_train"] = detection_train(fluid, torch, ck, card, model)
+            emit({"phase_seconds": f"{model}_train", "s": time.perf_counter() - phase_t0,
+                  "card": card})
+            phase_t0 = time.perf_counter()
+            detected[f"{model}_serve"] = detection_serve(fluid, torch, ck, tmp, card, model)
+            emit({"phase_seconds": f"{model}_serve", "s": time.perf_counter() - phase_t0,
+                  "card": card})
+        phase_t0 = time.perf_counter()
+        detection_parity(fluid, torch, card)
+        emit({"phase_seconds": "detection_parity", "s": time.perf_counter() - phase_t0,
+              "card": card})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4847,7 +5356,13 @@ def main():
     # `replayed_by_path` what the graph replays after each capture ran
     # (REPLAYED), and `ran_by_path` the two together: how often the path ran
     # the kernel
-    paths = {"train_lamb": (LAMB_PER_STEP, lamb_trained),
+    paths = {"bert_bf16_scores": (FUSED_BF16_SCORES_PER_STEP, bs_trained),
+             "bert_bf16_scores_serve": (BF16_SCORES_PER_REQUEST, bs_served),
+             "ssd_train": (SSD_PER_STEP, detected["ssd_train"]),
+             "ssd_serve": (SSD_PER_REQUEST, detected["ssd_serve"]),
+             "yolov3_train": (YOLO_PER_STEP, detected["yolov3_train"]),
+             "yolov3_serve": (YOLO_PER_REQUEST, detected["yolov3_serve"]),
+             "train_lamb": (LAMB_PER_STEP, lamb_trained),
              "resnet_lars": (LARS_PER_STEP, lars_trained),
              "seq2seq_train": (dict(NONE, adam=1), seq2seq_trained),
              "serve": (PER_REQUEST, served), "train": (PER_STEP, trained),

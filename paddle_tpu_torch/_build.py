@@ -47,10 +47,10 @@ SIGNATURES = {
     "ptt_adam": ([_P, _P, _P, _P, _P, _L, _D, _D, _F, _I, _I, _I, _P], _I),
     "ptt_bn_epilogue_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_bn_epilogue_bwd": ([_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-    "ptt_attention_fwd": ([_P] * 6 + [_I] * 6 + [_F, _I, _I, _P], _I),
-    "ptt_attention_bwd_dq": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
-    "ptt_attention_bwd_dkv": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
-    "ptt_attention_occupancy": ([_I, _I, _I, _P], _I),
+    "ptt_attention_fwd": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),
+    "ptt_attention_bwd_dq": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),
+    "ptt_attention_bwd_dkv": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),
+    "ptt_attention_occupancy": ([_I, _I, _I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -176,6 +176,14 @@ _HOST_READ = {
                    "(ops/control_flow_ops.py)",
     "array_read": "a tensor-array op: array_read reads its index on the host "
                   "(ops/control_flow_ops.py)",
+    "print": "a print op: it copies its input to the host to print it at execution "
+             "(ops/nn_ops.py)",
+    "py_func": "a py_func op: its Python callable runs on host copies of its inputs "
+               "(ops/control_flow_ops.py)",
+    "detection_map": "a detection_map op: the mAP is computed on the host from host copies "
+                     "of the detections and labels (ops/detection_ops.py)",
+    "generate_mask_labels": "a generate_mask_labels op: its polygons are rasterized on the "
+                            "host from host copies (ops/detection_ops.py)",
 }
 
 

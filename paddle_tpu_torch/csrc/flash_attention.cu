@@ -98,6 +98,19 @@
 // (never TF32), S, P, dP, dS and the accumulators in shared memory tiles,
 // synchronous tile loads.
 //
+// bf16 scores (score_dtype="bfloat16" of the JAX composite,
+// paddle_tpu/ops/nn_ops.py:680-684: s rounded to bf16, the row max m over
+// the rounded scores, P = exp(f32(bf16(s - m))) / l, l summed in float32):
+// every kernel above has a compile-time variant kBS, for float32 and
+// bfloat16 inputs alike.  An online softmax subtracts a running max, and
+// bf16(s - m_j) is not bf16(s - m), so the forward first passes over the K
+// tiles for each row's m (and, in bf16, again for l, so that it rounds the
+// normalized P / l to bf16 before P V, as the composite does), then makes
+// the usual pass with m (and l) fixed: 8 units of B*H*Lq*Lk*dh in bf16, 6 in
+// float32, against 4.  It saves log l and m; the backward recomputes P from
+// the same roundings and rounds P (dP - di) to bf16 (the cast's VJP) before
+// the scale.
+//
 // Why two kernels and no atomics: dK/dV and dQ reduce over different axes
 // (queries and keys).  One kernel would have to add its dQ partial sums
 // across CTAs with float atomics, in an order that changes from run to
@@ -265,9 +278,16 @@ struct MmaTiles {
   // dQ: Q, dO, di of the CTA's rows; a stage is a K and a V tile
   static constexpr size_t kStageDQ = 2 * kTileBytes;
   static constexpr size_t kDQ = 2 * kTileBytes + kVecBytes + kStages * kStageDQ;
-  // dK/dV: K, V; a stage is a Q and a dO tile, then lse and di
-  static constexpr size_t kStageDKV = 2 * kTileBytes + 2 * kVecBytes;
-  static constexpr size_t kDKV = 2 * kTileBytes + kStages * kStageDKV;
+  // dK/dV: K, V; a stage is a Q and a dO tile, then lse and di (and the
+  // bf16-score variant's row maxima)
+  template <bool kBS>
+  __host__ __device__ static constexpr size_t stage_dkv() {
+    return 2 * kTileBytes + (kBS ? 3 : 2) * kVecBytes;
+  }
+  template <bool kBS>
+  __host__ __device__ static constexpr size_t dkv() {
+    return 2 * kTileBytes + kStages * stage_dkv<kBS>();
+  }
   // registers: at most 168 a thread (3 CTAs an SM) to dh 64, 255 at dh 128
   static constexpr int kMinBlocks = DH <= 64 ? 3 : 2;
 };
@@ -363,15 +383,66 @@ __device__ __forceinline__ void fwd_edge_scores(float (&s)[MT][N / 8][4], const 
       }
 }
 
+// bf16(x), as a float: the one rounding of a score in the bf16-score variant.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// bf16-score forward, per pass of N keys: the lane's raw scores become
+// bf16(s * scale + bias) in natural units, bf16(kMasked) where causal masks
+// them and -inf past the end of the keys (checked per element only when
+// kEdge).  Element (m, j, e) as in fwd_edge_scores.
+template <bool kEdge, int MT, int N>
+__device__ __forceinline__ void bs_fwd_scores(float (&s)[MT][N / 8][4], const Problem& pr,
+                                              const float* bias, int q0, int k0, int r, int c,
+                                              int q_rows, int kv_rows) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kEdge) {
+          const int row = r + 16 * m + 8 * (e >> 1), col = c + 8 * j + (e & 1);
+          float x = -INFINITY;
+          if (col < kv_rows) {
+            x = s[m][j][e] * pr.scale;
+            if (row < q_rows) {
+              const int qi = q0 + row, kc = k0 + col;
+              if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+              if (pr.masked(qi, kc)) x = kMasked;
+            }
+            x = round_bf16(x);
+          }
+          s[m][j][e] = x;
+        } else {
+          s[m][j][e] = round_bf16(s[m][j][e] * pr.scale);
+        }
+      }
+}
+
 // out = attention(q, k, v) and lse, bf16.  One CTA per (b*h, kRowsQ query
 // rows), each warp kWarpRows of them; Q held as A fragments, K and V tiles
 // through the cp.async ring, S, P, the running max and sum and O in
 // registers (see the note at the top).
-template <int DH>
+//
+// kBS, the bf16-score variant (the JAX composite's score_dtype="bfloat16",
+// paddle_tpu/ops/nn_ops.py:680-684): P = exp(bf16(bf16(s) - m)) / l with m
+// the row's max over all its rounded scores.  A running max would round
+// bf16(s) - m_j against a max that is not yet the row's, so a first pass over
+// the K tiles (K only) takes each row's m; a second (K only) its sum l of
+// exp(bf16(s - m)); the third runs with m and l fixed (no rescale) and
+// rounds P / l to bf16, the normalized probability the composite rounds (P
+// rounded before its division would differ from the composite's by as much
+// as the score rounding itself).  lse then holds log l and rowmax m, which
+// the backward reads to recompute P.  It does 8 B H Lq Lk dh operations
+// against the others' 4 (the float32 twin, which rounds no P, 6).
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
     attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                         bf16* __restrict__ out, float* __restrict__ lse, Problem pr) {
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         float* __restrict__ rowmax, Problem pr) {
   using F = FwdTiles<DH>;
   constexpr int kLd = F::kLd, kMT = F::kMT, kC = F::kC;
   namespace fr = ptt::frag;
@@ -391,10 +462,11 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
   const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1; the forward's key tiles
   const float scale_log2 = pr.scale * kLog2e;
 
-  auto load_kv = [&](int t, int st) {
+  auto load_kv = [&](int t, int st, bool with_v) {
     const int k0 = t * kRows, rows = min(kRows, pr.Lk - k0);
     cp_async_tile<DH>(k_tile(st), kp + static_cast<int64_t>(k0) * DH, rows);
-    cp_async_tile<DH>(k_tile(st) + F::kTileElems, vp + static_cast<int64_t>(k0) * DH, rows);
+    if (with_v)
+      cp_async_tile<DH>(k_tile(st) + F::kTileElems, vp + static_cast<int64_t>(k0) * DH, rows);
     fr::cp_async_commit();
   };
 #pragma unroll
@@ -402,12 +474,13 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
     const int rows = q_rows - h * kRows;
     cp_async_tile<DH>(Qs + h * kRows * kLd, q + (row0 + (rows > 0 ? h * kRows : 0)) * DH, rows);
   }
-  load_kv(0, 0);  // one group with Q
+  load_kv(0, 0, !kBS);  // one group with Q
 
   uint32_t qa[kMT][DH / 16][4];
   float o[kMT][DH / 8][4] = {};
-  // rows wr + 16 m + g + 8 h: the running max of the scores in log2 units,
-  // and this lane's share of the running sum of P
+  // rows wr + 16 m + g + 8 h: the running max of the scores in log2 units
+  // (kBS: the row's max of the rounded scores, in natural units), and this
+  // lane's share of the running sum of P
   float m_run[kMT][2], l_run[kMT][2];
 #pragma unroll
   for (int m = 0; m < kMT; ++m)
@@ -416,16 +489,80 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
       m_run[m][h] = -INFINITY;
       l_run[m][h] = 0.f;
     }
+  float inv_l[kMT][2];  // kBS: 1 / the row's sum, from the second pass
+  if constexpr (kBS) {
+    // pass 0: each row's max m of the rounded scores; pass 1: the row's sum
+    // l of exp(bf16(s - m)); K tiles only
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 1) load_kv(0, 0, false);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % F::kStages;
+        if (t + 1 < n_tiles) {
+          load_kv(t + 1, (t + 1) % F::kStages, false);
+          fr::cp_async_wait<1>();
+        } else {
+          fr::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (pass == 0 && t == 0) {
+#pragma unroll
+          for (int m = 0; m < kMT; ++m) fr::load_a<DH>(qa[m], Qs + (wr + 16 * m) * kLd, kLd);
+        }
+        const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+#pragma unroll
+        for (int c0 = 0; c0 < kRows; c0 += kC) {
+          float s[kMT][kC / 8][4] = {};
+          fr::gemm_nt_rows<kMT, DH, kC>(s, qa, k_tile(st) + c0 * kLd, kLd);
+          const bool edge = bias_bh != nullptr || kv_rows < c0 + kC ||
+                            (pr.causal && k0 + c0 + kC - 1 > q0 + wr + pr.offset());
+          if (edge)
+            bs_fwd_scores<true, kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                                         kv_rows - c0);
+          else
+            bs_fwd_scores<false, kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                                          kv_rows - c0);
+#pragma unroll
+          for (int m = 0; m < kMT; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int j = 0; j < kC / 8; ++j)
+#pragma unroll
+                for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                  if (pass == 0)
+                    m_run[m][h] = fmaxf(m_run[m][h], s[m][j][e]);
+                  else
+                    l_run[m][h] += fr::exp2_approx(round_bf16(s[m][j][e] - m_run[m][h]) * kLog2e);
+                }
+        }
+        __syncthreads();  // every warp is done with stage st before it is refilled
+      }
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pass == 0) {
+            m_run[m][h] = fmaxf(m_run[m][h], __shfl_xor_sync(0xffffffffu, m_run[m][h], 1));
+            m_run[m][h] = fmaxf(m_run[m][h], __shfl_xor_sync(0xffffffffu, m_run[m][h], 2));
+          } else {
+            l_run[m][h] += __shfl_xor_sync(0xffffffffu, l_run[m][h], 1);
+            l_run[m][h] += __shfl_xor_sync(0xffffffffu, l_run[m][h], 2);
+            inv_l[m][h] = 1.f / l_run[m][h];
+          }
+        }
+    }
+    load_kv(0, 0, true);
+  }
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % F::kStages;
     if (t + 1 < n_tiles) {
-      load_kv(t + 1, (t + 1) % F::kStages);
+      load_kv(t + 1, (t + 1) % F::kStages, true);
       fr::cp_async_wait<1>();
     } else {
       fr::cp_async_wait<0>();
     }
     __syncthreads();  // tile t (and at t = 0 Q) landed for every thread
-    if (t == 0) {
+    if (!kBS && t == 0) {
 #pragma unroll
       for (int m = 0; m < kMT; ++m) fr::load_a<DH>(qa[m], Qs + (wr + 16 * m) * kLd, kLd);
     }
@@ -437,6 +574,25 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
       fr::gemm_nt_rows<kMT, DH, kC>(s, qa, Kc, kLd);
       const bool edge = bias_bh != nullptr || kv_rows < c0 + kC || !(pr.scale > 0.f) ||
                         (pr.causal && k0 + c0 + kC - 1 > q0 + wr + pr.offset());
+      if constexpr (kBS) {
+        if (edge)
+          bs_fwd_scores<true, kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                                       kv_rows - c0);
+        else
+          bs_fwd_scores<false, kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                                        kv_rows - c0);
+        // P normalized before its rounding to bf16, as the composite rounds it
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < kC / 8; ++j)
+#pragma unroll
+              for (int e = 2 * h; e < 2 * h + 2; ++e)
+                s[m][j][e] = fr::exp2_approx(round_bf16(s[m][j][e] - m_run[m][h]) * kLog2e) *
+                             inv_l[m][h];
+      } else {
       if (edge)
         fwd_edge_scores<kMT, kC>(s, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows, kv_rows - c0);
       // the edge path's scores are in log2 units already; the others are
@@ -471,6 +627,7 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
             o[m][j][2 * h + 1] *= alpha;
           }
         }
+      }
       uint32_t pa[kMT][kC / 16][4];
 #pragma unroll
       for (int m = 0; m < kMT; ++m) fr::to_a<kC>(pa[m], s[m]);  // P rounded to bf16
@@ -484,11 +641,20 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float l = l_run[m][h];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      inv[h] = 1.f / l;
+      if constexpr (!kBS) {  // (kBS: summed across the quad already, O normalized)
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+      }
+      inv[h] = kBS ? 1.f : 1.f / l;
       const int row = wr + 16 * m + g + 8 * h;
-      if (c2 == 0 && row < q_rows) lse[row0 + row] = (m_run[m][h] + log2f(l)) * kLn2;
+      if (c2 == 0 && row < q_rows) {
+        if constexpr (kBS) {
+          lse[row0 + row] = log2f(l) * kLn2;
+          rowmax[row0 + row] = m_run[m][h];
+        } else {
+          lse[row0 + row] = (m_run[m][h] + log2f(l)) * kLn2;
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
@@ -507,11 +673,15 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
 // column c + 8 * j + e % 2 of the tile.  kEdge: the tile has ragged rows or
 // columns, masked scores or a bias, each checked per element (P and dS of
 // a masked or absent score are 0); else none of them.
-template <bool kEdge, int N>
+// kBS: P = exp(bf16(bf16(x) - m) - lse) with the forward's row max m and lse
+// = log l, and dS = bf16(P (dP - di)) * scale: the composite's cast of s to
+// bf16 rounds its cotangent.
+template <bool kEdge, bool kBS, int N>
 __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp)[N / 8][4],
                                           const float (&lse)[2], const float (&di)[2],
-                                          const Problem& pr, const float* bias, int q0, int k0,
-                                          int r, int c, int q_rows, int kv_rows) {
+                                          const float (&mx)[2], const Problem& pr,
+                                          const float* bias, int q0, int k0, int r, int c,
+                                          int q_rows, int kv_rows) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -525,12 +695,18 @@ __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp
         if (row < q_rows && col < kv_rows && !pr.masked(qi, kc)) {
           float x = s[j][e] * pr.scale;
           if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+          if constexpr (kBS) x = round_bf16(round_bf16(x) - mx[h]);
           p = exp2f((x - lse[h]) * kLog2e);
         }
       } else {
-        p = exp2f((s[j][e] * pr.scale - lse[h]) * kLog2e);
+        float x = s[j][e] * pr.scale;
+        if constexpr (kBS) x = round_bf16(round_bf16(x) - mx[h]);
+        p = exp2f((x - lse[h]) * kLog2e);
       }
-      s[j][e] = p * (dp[j][e] - di[h]) * pr.scale;
+      if constexpr (kBS)
+        s[j][e] = round_bf16(p * (dp[j][e] - di[h])) * pr.scale;
+      else
+        s[j][e] = p * (dp[j][e] - di[h]) * pr.scale;
     }
 }
 
@@ -539,22 +715,35 @@ __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp
 // and query column c + 8 * j + e % 2 of the tile; lse holds the tile's 64
 // values.  A masked score's P is 0, or 1/Lk in a query row with no visible
 // key (its scores are all the constant -1e30: the uniform average).
-template <bool kEdge, int N>
+// kBS: mx holds the tile's 64 row maxima, and P = exp(bf16(bf16(x) - m) -
+// lse) at every score, masked ones included (x = kMasked): a row with no
+// visible key has m = bf16(kMasked) and P = 1/l there, the uniform average.
+template <bool kEdge, bool kBS, int N>
 __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse,
-                                          const Problem& pr, const float* bias, int q0, int k0,
-                                          int r, int c, int q_rows, int k_rows) {
+                                          const float* mx, const Problem& pr, const float* bias,
+                                          int q0, int k0, int r, int c, int q_rows, int k_rows) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(lse + c + 8 * j);
+    float2 mq2 = make_float2(0.f, 0.f);
+    if constexpr (kBS) mq2 = *reinterpret_cast<const float2*>(mx + c + 8 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float lq = e & 1 ? l.y : l.x;
+      const float mq = e & 1 ? mq2.y : mq2.x;
       if constexpr (kEdge) {
         const int row = r + 8 * (e >> 1), col = c + 8 * j + (e & 1);
         const int kc = k0 + row, qi = q0 + col;
         float p = 0.f;
         if (col < q_rows && row < k_rows) {
-          if (pr.masked(qi, kc)) {
+          if constexpr (kBS) {
+            float x = kMasked;
+            if (!pr.masked(qi, kc)) {
+              x = s[j][e] * pr.scale;
+              if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
+            }
+            p = exp2f((round_bf16(round_bf16(x) - mq) - lq) * kLog2e);
+          } else if (pr.masked(qi, kc)) {
             p = qi + pr.offset() < 0 ? 1.f / pr.Lk : 0.f;
           } else {
             float x = s[j][e] * pr.scale;
@@ -563,6 +752,8 @@ __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse
           }
         }
         s[j][e] = p;
+      } else if constexpr (kBS) {
+        s[j][e] = exp2f((round_bf16(round_bf16(s[j][e] * pr.scale) - mq) - lq) * kLog2e);
       } else {
         s[j][e] = exp2f((s[j][e] * pr.scale - lq) * kLog2e);
       }
@@ -571,7 +762,8 @@ __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse
 }
 
 // dK/dV kernel: dS^T = P^T * (dP^T - di) * scale, 0 at masked scores, into dp.
-template <bool kEdge, int N>
+// (kBS: dS^T = bf16(P^T * (dP^T - di)) * scale.)
+template <bool kEdge, bool kBS, int N>
 __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (&p)[N / 8][4],
                                             const float* di, const Problem& pr, int q0, int k0,
                                             int r, int c) {
@@ -580,7 +772,9 @@ __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (
     const float2 d = *reinterpret_cast<const float2*>(di + c + 8 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float ds = p[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x)) * pr.scale;
+      float ds = p[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x));
+      if constexpr (kBS) ds = round_bf16(ds);
+      ds *= pr.scale;
       if constexpr (kEdge) {
         if (pr.masked(q0 + c + 8 * j + (e & 1), k0 + r + 8 * (e >> 1))) ds = 0.f;
       }
@@ -595,13 +789,14 @@ __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (
 // stream through a 2-stage cp.async ring; per pass of 32 keys a warp does
 // S = Q K^T and dP = dO V^T, dS = P (dP - di) scale rounded to bf16 as the A
 // fragments of dQ += dS K, all in registers.
-template <int DH>
+// kBS: the bf16-score variant, P and dS as in dq_scores.
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
                             const bf16* __restrict__ out, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, float* __restrict__ di,
-                            bf16* __restrict__ dq, Problem pr) {
+                            const float* __restrict__ lse, const float* __restrict__ rowmax,
+                            float* __restrict__ di, bf16* __restrict__ dq, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
   namespace fr = ptt::frag;
@@ -659,11 +854,12 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       }
     }
   }
-  float lse_r[2], di_r[2];  // rows wr + g and wr + g + 8
+  float lse_r[2], di_r[2], m_r[2] = {0.f, 0.f};  // rows wr + g and wr + g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = wr + g + 8 * h;
     lse_r[h] = row < q_rows ? lse[row0 + row] : 0.f;
+    if constexpr (kBS) m_r[h] = row < q_rows ? rowmax[row0 + row] : 0.f;
   }
   __syncwarp();
 #pragma unroll
@@ -694,11 +890,11 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       fr::gemm_nt<DH, kC>(s, qa, Kc, kLd);
       fr::gemm_nt<DH, kC>(dp, doa, Kc + M::kTileElems, kLd);  // V
       if (edge)
-        dq_scores<true, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
-                            kv_rows - c0);
+        dq_scores<true, kBS, kC>(s, dp, lse_r, di_r, m_r, pr, bias_bh, q0, k0 + c0, wr + g, c2,
+                                 q_rows, kv_rows - c0);
       else
-        dq_scores<false, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
-                             kv_rows - c0);
+        dq_scores<false, kBS, kC>(s, dp, lse_r, di_r, m_r, pr, bias_bh, q0, k0 + c0, wr + g, c2,
+                                  q_rows, kv_rows - c0);
       uint32_t ds[kC / 16][4];
       fr::to_a<kC>(ds, s);  // dS rounded to bf16
       fr::gemm_nn<kC, DH>(acc, ds, Kc, kLd);
@@ -715,25 +911,27 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
 // of 64 queries stream through a 2-stage cp.async ring.  Per pass of 32 queries a
 // warp does S^T = K Q^T, P^T in place, dV += bf16(P^T) dO, dP^T = V dO^T,
 // dS^T rounded to bf16, dK += dS^T Q, all in registers.
-template <int DH>
+// kBS: the bf16-score variant; a stage also holds the 64 queries' row maxima.
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ bias,
                              const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ di, bf16* __restrict__ dk,
-                             bf16* __restrict__ dv, Problem pr) {
+                             const float* __restrict__ rowmax, const float* __restrict__ di,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
+  constexpr size_t kStage = M::template stage_dkv<kBS>();
   namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   bf16* Ks = cv.take<bf16>(M::kTileBytes);
   bf16* Vs = cv.take<bf16>(M::kTileBytes);
-  unsigned char* ring = cv.take<unsigned char>(M::kStages * M::kStageDKV);
-  // stage st: Q, dO, then lse and di of its 64 queries
-  auto q_tile = [&](int st) { return reinterpret_cast<bf16*>(ring + st * M::kStageDKV); };
+  unsigned char* ring = cv.take<unsigned char>(M::kStages * kStage);
+  // stage st: Q, dO, then lse, di (and with kBS the row maxima) of its 64 queries
+  auto q_tile = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStage); };
   auto lse_of = [&](int st) {
-    return reinterpret_cast<float*>(ring + st * M::kStageDKV + 2 * M::kTileBytes);
+    return reinterpret_cast<float*>(ring + st * kStage + 2 * M::kTileBytes);
   };
 
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
@@ -758,6 +956,11 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     const int i = threadIdx.x % kRows;
     const float* src = (threadIdx.x < kRows ? lse : di) + qrow0 + q0;
     fr::cp_async_4(lse_of(st) + threadIdx.x, src + (i < rows ? i : 0), i < rows);
+    if constexpr (kBS) {
+      if (threadIdx.x < kRows)
+        fr::cp_async_4(lse_of(st) + 2 * kRows + i, rowmax + qrow0 + q0 + (i < rows ? i : 0),
+                       i < rows);
+    }
     fr::cp_async_commit();
   };
   cp_async_tile<DH>(Ks, k + key0 * DH, k_rows);
@@ -788,21 +991,22 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       const float* di_c = lse_c + kRows;
       float s[kC / 8][4] = {};
       fr::gemm_nt_smem<DH, kC>(s, Kw, kLd, Qc, kLd);  // S^T: the warp's 16 keys x 32 queries
+      const float* m_c = lse_c + 2 * kRows;
       if (edge)
-        dkv_probs<true, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
-                            q_rows - c0, k_rows);
+        dkv_probs<true, kBS, kC>(s, lse_c, m_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
+                                 q_rows - c0, k_rows);
       else
-        dkv_probs<false, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
-                             q_rows - c0, k_rows);
+        dkv_probs<false, kBS, kC>(s, lse_c, m_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
+                                  q_rows - c0, k_rows);
       uint32_t a[kC / 16][4];
       fr::to_a<kC>(a, s);  // P^T rounded to bf16
       fr::gemm_nn<kC, DH>(dv_acc, a, dOc, kLd);
       float dp[kC / 8][4] = {};
       fr::gemm_nt_smem<DH, kC>(dp, Vw, kLd, dOc, kLd);  // dP^T
       if (edge)
-        dkv_dscores<true, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+        dkv_dscores<true, kBS, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
       else
-        dkv_dscores<false, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+        dkv_dscores<false, kBS, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
       fr::to_a<kC>(a, dp);  // dS^T rounded to bf16
       fr::gemm_nn<kC, DH>(dk_acc, a, Qc, kLd);
     }
@@ -818,11 +1022,15 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
 
 // out = attention(q, k, v) and lse, float32: the warp's 16 rows one at a
 // time, two key columns a lane, with a full-warp max and sum per row.
-template <int DH>
+// kBS: the bf16-score variant, as in attention_fwd_kernel: a first pass over
+// the K tiles takes each row's max m of bf16(s), the second runs with m
+// fixed and P = exp(bf16(bf16(s) - m)); lse = log l, rowmax = m.
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ bias,
-                             float* __restrict__ out, float* __restrict__ lse, Problem pr) {
+                             float* __restrict__ out, float* __restrict__ lse,
+                             float* __restrict__ rowmax, Problem pr) {
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -850,6 +1058,42 @@ __global__ void __launch_bounds__(kThreads)
     l_s[threadIdx.x] = 0.f;
   }
   const int n_tiles = pr.key_tiles(q0 + q_rows);
+  // row r's scores of the tile in Sb: s * scale + bias, kMasked where causal
+  // masks them, -inf past the end of the keys; kBS rounds them to bf16
+  auto row_scores = [&](int row, int k0, int kv_rows, float (&s)[2]) {
+    const int qi = q0 + row;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane + 32 * h, kc = k0 + c;
+      if (c >= kv_rows) {
+        s[h] = -INFINITY;  // past the end of the keys: no weight at all
+      } else {
+        s[h] = Sb[row * L::kF + c] * pr.scale;
+        if (row < q_rows) {
+          if (bias_bh != nullptr) s[h] += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
+          if (pr.masked(qi, kc)) s[h] = kMasked;
+        }
+        if constexpr (kBS) s[h] = round_bf16(s[h]);
+      }
+    }
+  };
+  if constexpr (kBS) {  // the first pass: each row's max, K tiles only
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+      __syncthreads();
+      load_tile<DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
+      __syncthreads();
+      warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
+      __syncwarp();
+      for (int r = 0; r < 16; ++r) {
+        float s[2];
+        row_scores(wr + r, k0, kv_rows, s);
+        const float mx = ptt::warp_max(fmaxf(s[0], s[1]));
+        if (lane == 0) m_s[wr + r] = fmaxf(m_s[wr + r], mx);
+      }
+      __syncwarp();
+    }
+  }
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
     __syncthreads();  // the previous K/V tiles are consumed
@@ -860,30 +1104,27 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     // the warp's 16 rows one at a time, two key columns a lane
     for (int r = 0; r < 16; ++r) {
-      const int row = wr + r, qi = q0 + row;
+      const int row = wr + r;
       float s[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h, kc = k0 + c;
-        if (c >= kv_rows) {
-          s[h] = -INFINITY;  // past the end of the keys: no weight at all
-        } else {
-          s[h] = Sb[row * L::kF + c] * pr.scale;
-          if (row < q_rows) {
-            if (bias_bh != nullptr) s[h] += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
-            if (pr.masked(qi, kc)) s[h] = kMasked;
-          }
-        }
-      }
+      row_scores(row, k0, kv_rows, s);
       // tile 0 holds a real key, so m_new is finite from the first tile on
+      // (kBS: m is the row's max from the first pass, fixed)
       const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, ptt::warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
+      const float m_new = kBS ? m_old : fmaxf(m_old, ptt::warp_max(fmaxf(s[0], s[1])));
+      float p0, p1;
+      if constexpr (kBS) {
+        p0 = expf(round_bf16(s[0] - m_new));
+        p1 = expf(round_bf16(s[1] - m_new));
+      } else {
+        p0 = expf(s[0] - m_new);
+        p1 = expf(s[1] - m_new);
+      }
       PT[row * L::kP + lane] = p0;
       PT[row * L::kP + lane + 32] = p1;
       const float psum = ptt::warp_sum(p0 + p1);
       if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile (m_old = -inf)
+        // 0 on the first tile (m_old = -inf); kBS: 1, nothing to rescale
+        const float alpha = kBS ? 1.f : expf(m_old - m_new);
         m_s[row] = m_new;
         l_s[row] = l_s[row] * alpha + psum;
         a_s[row] = alpha;
@@ -905,18 +1146,26 @@ __global__ void __launch_bounds__(kThreads)
       op[static_cast<int64_t>(row) * DH + e % DH] =
           Ob[row * L::kAcc + e % DH] / l_s[row];
   }
-  if (lane < 16 && wr + lane < q_rows)
-    lse[static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane] = m_s[wr + lane] + logf(l_s[wr + lane]);
+  if (lane < 16 && wr + lane < q_rows) {
+    const int64_t i = static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane;
+    if constexpr (kBS) {
+      lse[i] = logf(l_s[wr + lane]);
+      rowmax[i] = m_s[wr + lane];
+    } else {
+      lse[i] = m_s[wr + lane] + logf(l_s[wr + lane]);
+    }
+  }
 }
 
 // dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it).
-template <int DH>
+// (kBS: P and dS as in dq_scores.)
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ bias,
                                 const float* __restrict__ out, const float* __restrict__ dout,
-                                const float* __restrict__ lse, float* __restrict__ di,
-                                float* __restrict__ dq, Problem pr) {
+                                const float* __restrict__ lse, const float* __restrict__ rowmax,
+                                float* __restrict__ di, float* __restrict__ dq, Problem pr) {
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -929,6 +1178,7 @@ __global__ void __launch_bounds__(kThreads)
   float* dQb = cv.take<float>(L::kAccBytes);
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
+  float* m_s = kBS ? cv.take<float>(L::kVecBytes) : nullptr;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int q_rows = min(kRows, pr.Lq - q0);
@@ -951,6 +1201,7 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) {
       di_s[row] = acc;
       lse_s[row] = row < q_rows ? lse[row0 + row] : 0.f;
+      if constexpr (kBS) m_s[row] = row < q_rows ? rowmax[row0 + row] : 0.f;
       if (row < q_rows) di[row0 + row] = acc;
     }
   }
@@ -972,6 +1223,7 @@ __global__ void __launch_bounds__(kThreads)
         if (c < kv_rows && row < q_rows && !pr.masked(qi, kc)) {
           float s = Sb[row * L::kF + c] * pr.scale;
           if (bias_bh != nullptr) s += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
+          if constexpr (kBS) s = round_bf16(round_bf16(s) - m_s[row]);
           p = expf(s - lse_s[row]);
         }
         PT[row * L::kP + c] = p;
@@ -982,7 +1234,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     for (int e = lane; e < 16 * kRows; e += 32) {  // dS; 0 where the score is a constant
       const int row = wr + e / kRows, c = e % kRows;
-      PT[row * L::kP + c] = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]) * pr.scale;
+      float ds = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]);
+      if constexpr (kBS) ds = round_bf16(ds);
+      PT[row * L::kP + c] = ds * pr.scale;
     }
     __syncwarp();
     warp_nn_acc<kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks,
@@ -995,13 +1249,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DH>
+// (kBS: P and dS as in dkv_probs and dkv_dscores.)
+template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const float* __restrict__ bias,
                                  const float* __restrict__ dout, const float* __restrict__ lse,
-                                 const float* __restrict__ di, float* __restrict__ dk,
-                                 float* __restrict__ dv, Problem pr) {
+                                 const float* __restrict__ rowmax, const float* __restrict__ di,
+                                 float* __restrict__ dk, float* __restrict__ dv, Problem pr) {
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -1015,6 +1270,7 @@ __global__ void __launch_bounds__(kThreads)
   float* dVb = cv.take<float>(L::kAccBytes);
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
+  float* m_s = kBS ? cv.take<float>(L::kVecBytes) : nullptr;
 
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   const int k_rows = min(kRows, pr.Lk - k0);
@@ -1040,6 +1296,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool in = static_cast<int>(threadIdx.x) < q_rows;
       lse_s[threadIdx.x] = in ? lse[qrow0 + q0 + threadIdx.x] : 0.f;
       di_s[threadIdx.x] = in ? di[qrow0 + q0 + threadIdx.x] : 0.f;
+      if constexpr (kBS) m_s[threadIdx.x] = in ? rowmax[qrow0 + q0 + threadIdx.x] : 0.f;
     }
     __syncthreads();
     // S^T: the warp's 16 keys against the tile's 64 queries
@@ -1052,7 +1309,14 @@ __global__ void __launch_bounds__(kThreads)
         const int j = lane + 32 * h, qi = q0 + j;
         float p = 0.f;
         if (j < q_rows && row < k_rows) {
-          if (pr.masked(qi, kc)) {
+          if constexpr (kBS) {
+            float s = kMasked;
+            if (!pr.masked(qi, kc)) {
+              s = Sb[row * L::kF + j] * pr.scale;
+              if (bias_bh != nullptr) s += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
+            }
+            p = expf(round_bf16(round_bf16(s) - m_s[j]) - lse_s[j]);
+          } else if (pr.masked(qi, kc)) {
             p = qi + pr.offset() < 0 ? uniform : 0.f;
           } else {
             float s = Sb[row * L::kF + j] * pr.scale;
@@ -1072,8 +1336,9 @@ __global__ void __launch_bounds__(kThreads)
       const int row = wr + e / kRows, j = e % kRows, qi = q0 + j;
       float ds = 0.f;
       if (j < q_rows && row < k_rows && !pr.masked(qi, k0 + row))
-        ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]) * pr.scale;
-      PT[row * L::kP + j] = ds;
+        ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]);
+      if constexpr (kBS) ds = round_bf16(ds);
+      PT[row * L::kP + j] = ds * pr.scale;
     }
     __syncwarp();
     warp_nn_acc<kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs,
@@ -1102,30 +1367,33 @@ struct Args {
   const float* lse_r;
   float* di_w;
   const float* di_r;
+  float* m_w;  // the bf16-score variant's row maxima: the forward writes them
+  const float* m_r;  // and the backward reads them
 };
 
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 const void* kernel_of(Which which) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<DH>);
-    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH>)
-                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH>);
+    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<DH, BS>);
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH, BS>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH, BS>);
   } else {
-    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_f32_kernel<DH>);
-    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH>)
-                           : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<DH>);
+    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_f32_kernel<DH, BS>);
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH, BS>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<DH, BS>);
   }
 }
 
 // Dynamic shared memory of a kernel, in bytes.
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 size_t smem_of(Which which) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == kForward) return FwdTiles<DH>::kBytes;
-    return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
+    return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::template dkv<BS>();
   } else {
     if (which == kForward) return Ld<DH>::kFwd;
-    return which == kBwdDQ ? Ld<DH>::kDQ : Ld<DH>::kDKV;
+    const size_t more = BS ? Ld<DH>::kVecBytes : 0;  // the row maxima
+    return (which == kBwdDQ ? Ld<DH>::kDQ : Ld<DH>::kDKV) + more;
   }
 }
 
@@ -1137,48 +1405,50 @@ int cta_rows(Which which) {
   return kRows;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 cudaError_t set_smem_attribute(Which which) {
-  const size_t bytes = smem_of<T, DH>(which);
+  const size_t bytes = smem_of<T, DH, BS>(which);
   if (bytes > 227u * 1024u) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel_of<T, DH>(which),
+  return cudaFuncSetAttribute(kernel_of<T, DH, BS>(which),
                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
 // The shared-memory attributes of an instantiation's three kernels, set
 // once, at its first launch or query: a launch then makes no runtime call
 // but its own, as a CUDA graph's capture wants.
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 cudaError_t prepare(Which which) {
-  static const cudaError_t set[3] = {set_smem_attribute<T, DH>(kForward),
-                                     set_smem_attribute<T, DH>(kBwdDQ),
-                                     set_smem_attribute<T, DH>(kBwdDKV)};
+  static const cudaError_t set[3] = {set_smem_attribute<T, DH, BS>(kForward),
+                                     set_smem_attribute<T, DH, BS>(kBwdDQ),
+                                     set_smem_attribute<T, DH, BS>(kBwdDKV)};
   return set[which];
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t stream) {
-  cudaError_t e = prepare<T, DH>(which);
+  cudaError_t e = prepare<T, DH, BS>(which);
   if (e != cudaSuccess) return e;
   const int own = which == kBwdDKV ? pr.Lk : pr.Lq, rows = cta_rows<T, DH>(which);
   const dim3 grid((own + rows - 1) / rows, static_cast<unsigned>(B) * H);
   // each kernel's parameters, in order
-  void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};
-  void* dq[] = {&a.q, &a.k, &a.v, &a.bias, &a.out, &a.dout, &a.lse_r, &a.di_w, &a.o_or_dq, &pr};
-  void* dkv[] = {&a.q, &a.k, &a.v, &a.bias, &a.dout, &a.lse_r, &a.di_r, &a.dk, &a.dv, &pr};
-  return cudaLaunchKernel(kernel_of<T, DH>(which), grid, dim3(kThreads),
+  void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &a.m_w, &pr};
+  void* dq[] = {&a.q,   &a.k,   &a.v,    &a.bias,    &a.out, &a.dout,
+                &a.lse_r, &a.m_r, &a.di_w, &a.o_or_dq, &pr};
+  void* dkv[] = {&a.q,   &a.k,   &a.v,    &a.bias, &a.dout, &a.lse_r,
+                 &a.m_r, &a.di_r, &a.dk, &a.dv,   &pr};
+  return cudaLaunchKernel(kernel_of<T, DH, BS>(which), grid, dim3(kThreads),
                           which == kForward ? fwd : which == kBwdDQ ? dq : dkv,
-                          smem_of<T, DH>(which), stream);
+                          smem_of<T, DH, BS>(which), stream);
 }
 
 // What the card makes of a kernel: out = {CTAs an SM holds, registers a
 // thread, dynamic shared bytes a CTA, local (spilled) bytes a thread}.
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 cudaError_t occupancy(Which which, int* out) {
-  cudaError_t e = prepare<T, DH>(which);
+  cudaError_t e = prepare<T, DH, BS>(which);
   if (e != cudaSuccess) return e;
-  const void* kern = kernel_of<T, DH>(which);
-  const size_t bytes = smem_of<T, DH>(which);
+  const void* kern = kernel_of<T, DH, BS>(which);
+  const size_t bytes = smem_of<T, DH, BS>(which);
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, kern);
   if (e != cudaSuccess) return e;
@@ -1189,32 +1459,41 @@ cudaError_t occupancy(Which which, int* out) {
   return e;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 cudaError_t launch_or_query(Which which, const Args* a, int B, int H, const Problem& pr,
                             cudaStream_t s, int* occ) {
-  return a != nullptr ? launch<T, DH>(which, *a, B, H, pr, s) : occupancy<T, DH>(which, occ);
+  return a != nullptr ? launch<T, DH, BS>(which, *a, B, H, pr, s)
+                      : occupancy<T, DH, BS>(which, occ);
 }
 
-// Launch (a != null) or ask for the occupancy (into occ) of one instantiation.
-template <typename T>
-cudaError_t dispatch(Which which, const Args* a, int B, int H, int dh, const Problem& pr,
-                     cudaStream_t s, int* occ) {
+template <typename T, bool BS>
+cudaError_t dispatch_dh(Which which, const Args* a, int B, int H, int dh, const Problem& pr,
+                        cudaStream_t s, int* occ) {
   switch (dh) {
-    case 16: return launch_or_query<T, 16>(which, a, B, H, pr, s, occ);
-    case 32: return launch_or_query<T, 32>(which, a, B, H, pr, s, occ);
-    case 64: return launch_or_query<T, 64>(which, a, B, H, pr, s, occ);
-    case 128: return launch_or_query<T, 128>(which, a, B, H, pr, s, occ);
+    case 16: return launch_or_query<T, 16, BS>(which, a, B, H, pr, s, occ);
+    case 32: return launch_or_query<T, 32, BS>(which, a, B, H, pr, s, occ);
+    case 64: return launch_or_query<T, 64, BS>(which, a, B, H, pr, s, occ);
+    case 128: return launch_or_query<T, 128, BS>(which, a, B, H, pr, s, occ);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Launch (a != null) or ask for the occupancy (into occ) of one instantiation.
+template <typename T>
+cudaError_t dispatch(Which which, const Args* a, int B, int H, int dh, int score_bf16,
+                     const Problem& pr, cudaStream_t s, int* occ) {
+  return score_bf16 ? dispatch_dh<T, true>(which, a, B, H, dh, pr, s, occ)
+                    : dispatch_dh<T, false>(which, a, B, H, dh, pr, s, occ);
+}
+
 int run(Which which, const Args& a, const void* const* aligned, int n_aligned, int B, int H,
         int Lq, int Lk, int dh, int bias_heads, float scale, int causal, int dtype,
-        void* stream) {
+        int score_bf16, const void* rowmax, void* stream) {
   if (B < 0 || H < 0 || Lq < 0 || Lk < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || Lq == 0 || (which == kBwdDKV && Lk == 0)) return 0;
   if (Lk == 0 || static_cast<int64_t>(B) * H > 65535 || (a.bias == nullptr) != (bias_heads == 0) ||
-      (bias_heads != 0 && bias_heads != 1 && bias_heads != H))
+      (bias_heads != 0 && bias_heads != 1 && bias_heads != H) ||
+      (rowmax == nullptr) != (score_bf16 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_aligned; ++i)
     if (!ptt::aligned16(aligned[i])) return static_cast<int>(cudaErrorInvalidValue);
@@ -1228,8 +1507,8 @@ int run(Which which, const Args& a, const void* const* aligned, int n_aligned, i
   pr.scale = scale;
   pr.causal = causal;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kFloat32) return dispatch<float>(which, &a, B, H, dh, pr, s, nullptr);
-  if (dtype == ptt::kBFloat16) return dispatch<bf16>(which, &a, B, H, dh, pr, s, nullptr);
+  if (dtype == ptt::kFloat32) return dispatch<float>(which, &a, B, H, dh, score_bf16, pr, s, nullptr);
+  if (dtype == ptt::kBFloat16) return dispatch<bf16>(which, &a, B, H, dh, score_bf16, pr, s, nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1237,53 +1516,64 @@ int run(Which which, const Args& a, const void* const* aligned, int n_aligned, i
 
 // Every tensor is contiguous and 16-byte aligned; q, out, dout, dq: [B, H, Lq,
 // dh]; k, v, dk, dv: [B, H, Lk, dh], all of dtype `dtype` (0 float32, 1
-// bfloat16); lse, di: float32 [B, H, Lq]; bias: null (bias_heads 0) or
-// float32 [B, bias_heads, Lq, Lk] with bias_heads 1 or H.  Each launches on
-// `stream` and returns the CUDA error code.
+// bfloat16); lse, di, rowmax: float32 [B, H, Lq]; bias: null (bias_heads 0)
+// or float32 [B, bias_heads, Lq, Lk] with bias_heads 1 or H.  score_bf16
+// picks the bf16-score variant, whose rowmax is not null (and is null
+// otherwise).  Each launches on `stream` and returns the CUDA error code.
 
-// out = attention(q, k, v), lse = the log-sum-exp of each score row.
+// out = attention(q, k, v), lse = the log-sum-exp of each score row (the
+// bf16-score variant: lse = log l and rowmax = m, P = exp(bf16(bf16(s) - m) - lse)).
 extern "C" int ptt_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                                 void* out, void* lse, int B, int H, int Lq, int Lk, int dh,
-                                 int bias_heads, float scale, int causal, int dtype,
-                                 void* stream) {
+                                 void* out, void* lse, void* rowmax, int B, int H, int Lq,
+                                 int Lk, int dh, int bias_heads, float scale, int causal,
+                                 int dtype, int score_bf16, void* stream) {
   Args a{q, k, v, bias, nullptr, nullptr, out, nullptr, nullptr,
-         static_cast<float*>(lse), nullptr, nullptr, nullptr};
+         static_cast<float*>(lse), nullptr, nullptr, nullptr, static_cast<float*>(rowmax), nullptr};
   const void* al[] = {q, k, v, out};
-  return run(kForward, a, al, 4, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, stream);
+  return run(kForward, a, al, 4, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, score_bf16,
+             rowmax, stream);
 }
 
 // dq, and di = rowsum(dout * out) for the dK/dV kernel, which runs after it.
 extern "C" int ptt_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* bias, const void* out, const void* dout,
-                                    const void* lse, void* di, void* dq, int B, int H, int Lq,
-                                    int Lk, int dh, int bias_heads, float scale, int causal,
-                                    int dtype, void* stream) {
+                                    const void* lse, const void* rowmax, void* di, void* dq,
+                                    int B, int H, int Lq, int Lk, int dh, int bias_heads,
+                                    float scale, int causal, int dtype, int score_bf16,
+                                    void* stream) {
   Args a{q, k, v, bias, out, dout, dq, nullptr, nullptr, nullptr,
-         static_cast<const float*>(lse), static_cast<float*>(di), nullptr};
+         static_cast<const float*>(lse), static_cast<float*>(di), nullptr, nullptr,
+         static_cast<const float*>(rowmax)};
   const void* al[] = {q, k, v, out, dout, dq};
-  return run(kBwdDQ, a, al, 6, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, stream);
+  return run(kBwdDQ, a, al, 6, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, score_bf16,
+             rowmax, stream);
 }
 
-// dk and dv, from the forward's lse and the dQ kernel's di.
+// dk and dv, from the forward's lse (and rowmax) and the dQ kernel's di.
 extern "C" int ptt_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                      const void* bias, const void* dout, const void* lse,
-                                     const void* di, void* dk, void* dv, int B, int H, int Lq,
-                                     int Lk, int dh, int bias_heads, float scale, int causal,
-                                     int dtype, void* stream) {
+                                     const void* rowmax, const void* di, void* dk, void* dv,
+                                     int B, int H, int Lq, int Lk, int dh, int bias_heads,
+                                     float scale, int causal, int dtype, int score_bf16,
+                                     void* stream) {
   Args a{q, k, v, bias, nullptr, dout, nullptr, dk, dv, nullptr,
-         static_cast<const float*>(lse), nullptr, static_cast<const float*>(di)};
+         static_cast<const float*>(lse), nullptr, static_cast<const float*>(di), nullptr,
+         static_cast<const float*>(rowmax)};
   const void* al[] = {q, k, v, dout, dk, dv};
-  return run(kBwdDKV, a, al, 6, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, stream);
+  return run(kBwdDKV, a, al, 6, B, H, Lq, Lk, dh, bias_heads, scale, causal, dtype, score_bf16,
+             rowmax, stream);
 }
 
 // out[0..3] = CTAs an SM holds, registers a thread, dynamic shared bytes a
 // CTA and local (spilled) bytes a thread of one kernel: `which` 0 forward,
-// 1 dQ, 2 dK/dV, at head dim `dh` and dtype `dtype`.
-extern "C" int ptt_attention_occupancy(int which, int dh, int dtype, int* out) {
+// 1 dQ, 2 dK/dV, at head dim `dh`, dtype `dtype` and score_bf16.
+extern "C" int ptt_attention_occupancy(int which, int dh, int dtype, int score_bf16, int* out) {
   if (which < kForward || which > kBwdDKV) return static_cast<int>(cudaErrorInvalidValue);
   const Which w = static_cast<Which>(which);
   const Problem pr{};
-  if (dtype == ptt::kFloat32) return dispatch<float>(w, nullptr, 0, 0, dh, pr, nullptr, out);
-  if (dtype == ptt::kBFloat16) return dispatch<bf16>(w, nullptr, 0, 0, dh, pr, nullptr, out);
+  if (dtype == ptt::kFloat32)
+    return dispatch<float>(w, nullptr, 0, 0, dh, score_bf16, pr, nullptr, out);
+  if (dtype == ptt::kBFloat16)
+    return dispatch<bf16>(w, nullptr, 0, 0, dh, score_bf16, pr, nullptr, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

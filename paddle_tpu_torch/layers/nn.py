@@ -678,3 +678,163 @@ def fused_attention(q, k, v, bias=None, causal=False, scale=None, score_dtype=No
         attrs["score_dtype"] = sd
     helper.append_op("fused_attention", inputs=inputs, outputs={"Out": [out.name]}, attrs=attrs)
     return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None, stride=1, padding=0,
+                     dilation=1, groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name, act=act)
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    num_channels = input.shape[1]
+    filter_shape = [num_channels, num_filters // groups, filter_size[0], filter_size[1]]
+    w = helper.create_parameter(param_attr, filter_shape, input.dtype)
+    pre_bias = _out(helper, input.dtype)
+    helper.append_op(
+        "conv2d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation, "groups": groups},
+    )
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, [num_filters], dim_start=1)
+    return helper.append_activation(pre_act)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None, align_corners=True):
+    """reference nn.py resize_bilinear over bilinear_interp_op."""
+    helper = LayerHelper("bilinear_interp", name=name)
+    attrs = {"align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+        oshape = None
+        if input.shape is not None:
+            oshape = (input.shape[0], input.shape[1], attrs["out_h"], attrs["out_w"])
+    else:
+        attrs["scale"] = float(scale)
+        oshape = None
+    out = _out(helper, input.dtype, shape=oshape)
+    helper.append_op("bilinear_interp", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None, align_corners=True):
+    helper = LayerHelper("nearest_interp", name=name)
+    attrs = {"align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    else:
+        attrs["scale"] = float(scale)
+    out = _out(helper, input.dtype)
+    helper.append_op("nearest_interp", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0, name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = _out(helper, input.dtype)
+    helper.append_op("pad2d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    if shape is None:
+        raise ValueError("crop: `shape` is required (static output extents)")
+    helper = LayerHelper("crop", name=name)
+    out = _out(helper, x.dtype, shape=tuple(shape) if shape else None)
+    helper.append_op("crop", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"offsets": list(offsets or [0] * len(shape)),
+                            "shape": list(shape)})
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=-1, print_tensor_name=True,
+          print_tensor_type=True, print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """reference layers.Print (print_op.cc): identity that prints at
+    execution (a host read: its plan runs eagerly)."""
+    helper = LayerHelper("print")
+    out = _out(helper, input.dtype, shape=input.shape)
+    msg = message or f"{input.name}: " if print_tensor_name else (message or "")
+    helper.append_op("print", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"message": msg, "first_n": first_n})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name, act=act)
+    if data_layout != "NCHW":
+        raise NotImplementedError("group_norm: only NCHW")
+    c = input.shape[1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+    out = _out(helper, input.dtype, shape=input.shape)
+    mean = _out(helper, "float32")
+    var = _out(helper, "float32")
+    helper.append_op(
+        "group_norm",
+        inputs={"X": [input.name], "Scale": [scale.name], "Bias": [bias.name]},
+        outputs={"Y": [out.name], "Mean": [mean.name], "Variance": [var.name]},
+        attrs={"epsilon": epsilon, "groups": groups},
+    )
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    c = input.shape[1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+    out = _out(helper, input.dtype, shape=input.shape)
+    smean = _out(helper, "float32")
+    svar = _out(helper, "float32")
+    helper.append_op(
+        "instance_norm",
+        inputs={"X": [input.name], "Scale": [scale.name], "Bias": [bias.name]},
+        outputs={"Y": [out.name], "SavedMean": [smean.name],
+                 "SavedVariance": [svar.name]},
+        attrs={"epsilon": epsilon},
+    )
+    return out
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
+    """Embed a host python callable in the program (reference layers.py_func
+    over py_func_op.cc).  `out` declares the output variables (shapes/dtypes
+    must be exact); backward_func is not supported (the callable is opaque
+    to autodiff; stop-gradient semantics)."""
+    from ..ops.control_flow_ops import register_py_func
+
+    if backward_func is not None:
+        raise NotImplementedError(
+            "py_func: backward_func is not supported — the host callback is "
+            "opaque to the vjp; compute gradients with program ops instead")
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for o in outs:
+        if o.shape is None or any(s is None or s < 0 for s in o.shape):
+            raise ValueError(
+                f"py_func: output {o.name!r} needs a fully static shape")
+    fid = register_py_func(func)
+    helper.append_op(
+        "py_func",
+        inputs={"X": [v.name for v in xs]},
+        outputs={"Out": [o.name for o in outs]},
+        attrs={"func_id": fid,
+               "out_shapes": [list(o.shape) for o in outs],
+               "out_dtypes": [str(o.dtype) for o in outs]},
+    )
+    return out

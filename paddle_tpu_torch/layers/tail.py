@@ -1,11 +1,14 @@
 """Layers of the JAX package's layers/tail.py whose ops the port has: the
 attr'd and plain activations of its tail, elementwise_mod / _floordiv, the
 compare layers, isfinite, shape, pad, unstack, range, the random fills,
-sequence_reshape and the one-step recurrences gru_unit and lstm_unit."""
+sequence_reshape, the one-step recurrences gru_unit and lstm_unit, prelu,
+huber_loss, conv3d_transpose, image_resize (and _short), deformable_conv
+and deformable_roi_pooling."""
 from __future__ import annotations
 
 import builtins
 
+from ..core.initializer import ConstantInitializer
 from ..core.layer_helper import LayerHelper
 from . import nn as _nn
 from .nn import _out
@@ -195,3 +198,175 @@ def _concat(xs, axis):
     from .tensor import concat
 
     return concat(xs, axis=axis)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """reference layers/nn.py conv3d_transpose (conv_transpose_op.cc)."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act)
+    groups = groups or 1
+
+    def _triple(v):
+        return [v] * 3 if isinstance(v, int) else list(v)
+
+    st = _triple(stride)
+    pd = _triple(padding)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("conv3d_transpose: give filter_size or "
+                             "output_size")
+        # out = (in-1)*stride - 2*pad + filter  =>  solve for filter
+        osz = _triple(output_size)
+        fs = [osz[i] - (int(input.shape[2 + i]) - 1) * st[i] + 2 * pd[i]
+              for i in range(3)]
+    else:
+        fs = _triple(filter_size)
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, [num_channels, num_filters // groups, fs[0], fs[1], fs[2]],
+        input.dtype)
+    pre_bias = _out(helper, input.dtype)
+    helper.append_op(
+        "conv3d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": st, "paddings": pd,
+               "dilations": _triple(dilation), "groups": groups},
+    )
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, [num_filters], dim_start=1)
+    return helper.append_activation(pre_act)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """reference layers/nn.py prelu (modes all|channel|element)."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        shape = [1]
+    elif mode == "channel":
+        shape = [int(x.shape[1])]
+    elif mode == "element":
+        shape = [int(d) for d in x.shape[1:]]
+    else:
+        raise ValueError(f"prelu: unknown mode {mode!r}")
+    alpha = helper.create_parameter(param_attr, shape, x.dtype,
+                                    default_initializer=ConstantInitializer(0.25))
+    out = _out(helper, x.dtype, shape=x.shape)
+    helper.append_op("prelu", inputs={"X": [x.name], "Alpha": [alpha.name]},
+                     outputs={"Out": [out.name]}, attrs={"mode": mode})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = _out(helper, input.dtype)
+    res = _out(helper, input.dtype)
+    helper.append_op("huber_loss",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [out.name], "Residual": [res.name]},
+                     attrs={"delta": delta})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """reference layers/nn.py image_resize: dispatch on resample."""
+    if resample.upper() == "BILINEAR":
+        return _nn.resize_bilinear(input, out_shape=out_shape, scale=scale,
+                                      name=name, align_corners=align_corners)
+    if resample.upper() == "NEAREST":
+        return _nn.resize_nearest(input, out_shape=out_shape, scale=scale,
+                                     name=name, align_corners=align_corners)
+    raise ValueError(f"image_resize: unsupported resample {resample!r}")
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """reference layers/nn.py image_resize_short: scale so the short side
+    equals out_short_len."""
+    h, w = int(input.shape[2]), int(input.shape[3])
+    short = min(h, w)
+    out_shape = [int(round(h * out_short_len / short)),
+                 int(round(w * out_short_len / short))]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None, modulated=True,
+                    name=None):
+    """Deformable conv v1/v2 (reference layers/nn.py:11965).  `mask` None
+    (or modulated=False) selects v1."""
+    helper = LayerHelper("deformable_conv", name=name)
+    groups = groups or 1
+    deformable_groups = deformable_groups or 1
+
+    def _pair(v):
+        return [v, v] if isinstance(v, int) else list(v)
+
+    fs = _pair(filter_size)
+    if input.shape is None:
+        raise ValueError("deformable_conv: input needs a static channel "
+                         "count (shape is None)")
+    num_channels = int(input.shape[1])
+    w = helper.create_parameter(
+        param_attr, [num_filters, num_channels // groups, fs[0], fs[1]],
+        input.dtype)
+    st, pd, dl = _pair(stride), _pair(padding), _pair(dilation)
+    oh = (int(input.shape[2]) + 2 * pd[0] - (dl[0] * (fs[0] - 1) + 1)) // st[0] + 1
+    ow = (int(input.shape[3]) + 2 * pd[1] - (dl[1] * (fs[1] - 1) + 1)) // st[1] + 1
+    pre_bias = _out(helper, input.dtype,
+                    shape=(input.shape[0], num_filters, oh, ow))
+    inputs = {"Input": [input.name], "Offset": [offset.name],
+              "Filter": [w.name]}
+    if modulated and mask is not None:
+        inputs["Mask"] = [mask.name]
+    helper.append_op(
+        "deformable_conv", inputs=inputs,
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "deformable_groups": deformable_groups},
+    )
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, [num_filters],
+                                    dim_start=1)
+    return pre_act
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1, 1),
+                           pooled_height=1, pooled_width=1, part_size=None,
+                           sample_per_part=1, trans_std=0.1, position_sensitive=False,
+                           rois_batch=None, name=None):
+    """reference layers/nn.py:12250 deformable_roi_pooling over
+    deformable_psroi_pooling_op.h; dense [R, 4] rois + optional batch
+    vector (static-shape form)."""
+    helper = LayerHelper("deformable_psroi_pooling", name=name)
+    c_in = int(input.shape[1])
+    gh, gw = (group_size if isinstance(group_size, (list, tuple))
+              else (group_size, group_size))
+    # reference layers/nn.py: position-sensitive pooling divides channels
+    # by the POOLED grid (each bin owns its channel slice)
+    output_dim = (c_in // (pooled_height * pooled_width)
+                  if position_sensitive else c_in)
+    if part_size is None:
+        part_size = (pooled_height, pooled_width)
+    out = _out(helper, input.dtype)
+    cnt = _out(helper, "float32")
+    inputs = {"Input": [input.name], "ROIs": [rois.name]}
+    if not no_trans and trans is not None:
+        inputs["Trans"] = [trans.name]
+    if rois_batch is not None:
+        inputs["RoisBatch"] = [rois_batch.name]
+    helper.append_op(
+        "deformable_psroi_pooling", inputs=inputs,
+        outputs={"Output": [out.name], "TopCount": [cnt.name]},
+        attrs={"no_trans": no_trans, "spatial_scale": spatial_scale,
+               "output_dim": output_dim, "group_size": [gh, gw],
+               "pooled_height": pooled_height, "pooled_width": pooled_width,
+               "part_size": list(part_size),
+               "sample_per_part": sample_per_part, "trans_std": trans_std},
+    )
+    return out

@@ -104,3 +104,17 @@ def linspace(start, stop, num, dtype="float32", name=None):
     helper.append_op("linspace", inputs={"Start": [s.name], "Stop": [e.name]},
                      outputs={"Out": [out.name]}, attrs={"num_v": int(num)})
     return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_max", inputs={"X": [x.name]}, outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_min", inputs={"X": [x.name]}, outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out

@@ -1,7 +1,7 @@
 """Control-flow and tensor-array ops (counterpart of
 paddle_tpu/ops/control_flow_ops.py): `while`, `conditional_block`,
-`select_input`, `create_array`, `array_write`, `array_read` and
-`array_length`.
+`select_input`, `create_array`, `array_write`, `array_read`,
+`array_length` and `py_func`.
 
 The interpreter runs `while` and `conditional_block` itself, because their
 bodies are sub-blocks of the program, not inputs (core/lowering.py
@@ -14,6 +14,9 @@ their index on the host, so a plan that holds one runs eagerly
 does."""
 from __future__ import annotations
 
+import itertools
+
+import numpy as np
 import torch
 
 from ..core.registry import register_op
@@ -104,3 +107,45 @@ def _infer_select_input(ctx):
 
 
 _A.register_rule(["select_input"], _infer_select_input)
+
+# layers.py_func's callables, by the func_id attr of their op
+_PY_FUNC_REGISTRY = {}
+_PY_FUNC_IDS = itertools.count()
+
+
+def register_py_func(fn) -> int:
+    fid = next(_PY_FUNC_IDS)
+    _PY_FUNC_REGISTRY[fid] = fn
+    return fid
+
+
+def release_py_func(fid: int):
+    """Drop a registered callable (call when its program is discarded)."""
+    _PY_FUNC_REGISTRY.pop(fid, None)
+
+
+@register_op("py_func")
+def _py_func(ctx, op, ins):
+    """reference operators/py_func_op.cc (layers.py_func): a Python callable
+    on host copies of X, its outputs cast to the declared dtypes and put on
+    X's device (the JAX package's pure_callback).  A host read: no graph
+    captures it (core/executor.py _HOST_READ)."""
+    from ..core.dtypes import to_numpy
+    from .common import canon_dtype
+
+    fn = _PY_FUNC_REGISTRY[op.attr("func_id")]
+    dtypes = [canon_dtype(d) for d in op.attr("out_dtypes")]
+    outs = fn(*[to_numpy(x.detach()) for x in ins.get("X", [])])
+    if not isinstance(outs, (list, tuple)):
+        outs = (outs,)
+    if len(outs) != len(dtypes):
+        raise ValueError(f"py_func returned {len(outs)} outputs, program declares {len(dtypes)}")
+    got = []
+    for o, d, want in zip(outs, dtypes, op.attr("out_shapes")):
+        a = np.asarray(o)
+        if a.shape != tuple(want):
+            raise ValueError(f"py_func returned shape {a.shape}, program declares {tuple(want)}")
+        a = a.astype(np.float32) if d == torch.bfloat16 else a
+        got.append(torch.from_numpy(np.ascontiguousarray(a)).to(d).to(ctx.device))
+    return {"Out": got}
+

@@ -14,6 +14,14 @@ Contract (the JAX composite's and fused_sdpa's): q [B, H, Lq, dh], k and v
 the card, any length; optional additive bias [B, 1|H, Lq, Lk], not
 differentiable (pallas_attention.py:16-19); causal masking keeps key c for
 query i when c <= i + (Lk - Lq), masked scores are -1e30.
+
+`score_bf16=True` is the composite's score_dtype="bfloat16"
+(paddle_tpu/ops/nn_ops.py:680-684), for float32 and bfloat16 inputs alike:
+s is rounded to bf16, the row max m is taken over the rounded scores, and
+P = exp(f32(bf16(s - m))) / sum, the sum in float32.  Its kernels are the
+same three with a compile-time variant (csrc/flash_attention.cu kBS), which
+count under `LAUNCHES["attention_fwd_bf16_scores"]` and so on; their saved
+statistics are [2, B, H, Lq]: log of the row sum, and m.
 """
 from __future__ import annotations
 
@@ -38,40 +46,56 @@ def _scores_plain(q, k, bias, causal, scale):
     return s, keep
 
 
-def sdpa_plain(q, k, v, bias, causal, scale):
+def _probs_plain(q, k, bias, causal, scale, score_bf16):
+    """float32 P of the composite, the rounded scores and their row max (the
+    last two None unless score_bf16), and the causal keep-mask."""
+    s, keep = _scores_plain(q, k, bias, causal, scale)
+    if not score_bf16:
+        return torch.softmax(s, dim=-1), None, None, keep
+    sb = s.to(torch.bfloat16)
+    m = sb.amax(-1, keepdim=True)
+    e = torch.exp((sb - m).float())
+    return e / e.sum(-1, keepdim=True), sb.float(), m.float(), keep
+
+
+def sdpa_plain(q, k, v, bias, causal, scale, score_bf16=False):
     """The JAX composite attention (paddle_tpu/ops/nn_ops.py:672-689): float32
-    scores and softmax, P rounded to q.dtype before the PV product, which
-    accumulates in float32."""
-    s, _ = _scores_plain(q, k, bias, causal, scale)
-    p = torch.softmax(s, dim=-1)
+    scores and softmax (score_bf16: the bf16-score softmax of :680-684), P
+    rounded to q.dtype before the PV product, which accumulates in float32."""
+    p = _probs_plain(q, k, bias, causal, scale, score_bf16)[0]
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
-def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout):
+def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """float32 P and dS of the backward: dP = dO V^T, di = rowsum(dO * O)
-    from the forward's output, dS = P (dP - di) scale rounded to q.dtype.
-    A masked score is a constant, so its dS is 0."""
-    s, keep = _scores_plain(q, k, bias, causal, scale)
-    p = torch.softmax(s, dim=-1)
+    from the forward's output, dS = P (dP - di) scale rounded to q.dtype
+    (score_bf16: P (dP - di) is rounded to bf16 first, the VJP of the
+    composite's cast of s; the cotangent the VJP sends through the row max,
+    -sum_j bf16(P_j (dP_j - di)), is 0 in exact arithmetic and left out).  A
+    masked score is a constant, so its dS is 0."""
+    p, _, _, keep = _probs_plain(q, k, bias, causal, scale, score_bf16)
     do = dout.float()
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     di = (do * out.float()).sum(-1, keepdim=True)
-    ds = p * (dp - di) * scale
+    ds = p * (dp - di)
+    if score_bf16:
+        ds = ds.to(torch.bfloat16).float()
+    ds = ds * scale
     if keep is not None:
         ds = torch.where(keep, ds, torch.zeros_like(ds))
     return p, ds.to(q.dtype).float()
 
 
-def sdpa_bwd_dq_plain(q, k, v, bias, causal, scale, out, dout):
+def sdpa_bwd_dq_plain(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """dq of `sdpa_plain`, the plain version of the dQ kernel: dQ = dS K."""
-    _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16)
     return torch.matmul(ds, k.float()).to(q.dtype)
 
 
-def sdpa_bwd_dkv_plain(q, k, v, bias, causal, scale, out, dout):
+def sdpa_bwd_dkv_plain(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """(dk, dv) of `sdpa_plain`, the plain version of the dK/dV kernel:
     dK = dS^T Q, dV = P^T dO with P rounded to q.dtype."""
-    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16)
     return _dkv(p, ds, q, v, dout)
 
 
@@ -84,7 +108,7 @@ def _dkv(p, ds, q, v, dout):
 FWD_BF16_RULE = "2^-7 * (|plain| + sdpa_plain(q, k, |v|)), at most 5e-2"
 
 
-def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want):
+def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want, score_bf16=False):
     """What a bfloat16 forward's output may differ from the plain output
     `want` by, element by element (FWD_BF16_RULE): the worst case of the
     roundings the two make differently.  Each rounds every probability to
@@ -94,7 +118,7 @@ def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want):
     rounds its output once, 2^-7 * |want| for the two.  At most the flat
     5e-2 of the other bfloat16 forwards.  At seq 2048 a row spreads over
     hundreds of keys and |out| is ~0.04, below what a flat 5e-2 can see."""
-    pv = sdpa_plain(q, k, v.abs(), bias, causal, scale).float()
+    pv = sdpa_plain(q, k, v.abs(), bias, causal, scale, score_bf16).float()
     return torch.clamp(2.0 ** -7 * (want.float().abs() + pv), max=5e-2)
 
 
@@ -103,7 +127,7 @@ BWD_BF16_RULE = ("2^-7 * (|plain| + |dS| |K|) + E |K| for dq, 2^-7 * (|plain| + 
                  "(|dO| |V|^T + rowsum(|dO| |O|)); at most 5e-2 * max|plain|")
 
 
-def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want):
+def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want, score_bf16=False):
     """What a bfloat16 backward's (dq, dk, dv) may differ from the plain
     versions' `want` by, element by element (BWD_BF16_RULE): the roundings
     the two make differently.  Both round dS (and, for dv, P) to bfloat16
@@ -117,7 +141,7 @@ def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want):
     + rowsum(|dO| |O|)) more in dS.  Both round their float32 sums once, at
     most 2^-7 |want| apart.  Capped at the flat 5e-2 * max|want| it
     replaces."""
-    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16)
     ado = dout.float().abs()
     e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
     e += (ado * out.float().abs()).sum(-1, keepdim=True)
@@ -134,12 +158,63 @@ def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want):
     return tuple(allowed)
 
 
-def sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout):
+SCORE_ROUNDING_RULE = ("2^-6 (|s_j| + |m|) of each term of sum_j P_j (v_j - out) for out, of "
+                       "|dS| |K| for dq, |dS|^T |Q| for dk, P^T |dO| for dv, at the scores whose "
+                       "bf16 rounding can flip (s within eps = 2 dh 2^-24 scale |q| |k|^T + "
+                       "2^-23 (|s| + |bias|) of a rounding boundary, and every score of a row "
+                       "whose max can flip); float32 inputs also 2^-7 |dS| |K| and |dS|^T "
+                       "|Q|, one bf16 step of each rounded dS")
+
+
+def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
+    """What a bf16-score kernel's output (out=None) or gradients (dq, dk, dv)
+    may differ from the plain versions' by beyond the other terms of their
+    rules (SCORE_ROUNDING_RULE).  Both sides round each float32 score to
+    bf16 from float32 values that differ in their last bits (dh products
+    summed in another order: at most eps apart), so a score within eps of a
+    bf16 rounding boundary may round one bf16 step (at most 2^-7 of it)
+    apart, and with it s - m; a row whose max is such a score may have
+    another m, and then every s - m of the row rounds anew.  Such a P_j
+    moves by at most a factor exp(2^-7 (|s_j| + |m| + |s_j - m|)), within
+    2^-6 (|s_j| + |m|) of 1.  The output moves by that share of the terms of
+    sum_j P_j (v_j - out); each gradient by that share of the terms of its
+    product (dS = P (dP - di) moves with P).  Elsewhere both sides round
+    alike: a kernel that does not round its scores is not admitted.  With
+    float32 inputs both also round each dS to bf16 from float32 values that
+    differ in their last bits, one bf16 step (2^-7 of it) apart at most; the
+    bfloat16 inputs' rule (BWD_BF16_RULE) holds that term already."""
+    s, keep = _scores_plain(q, k, bias, causal, scale)
+    p, sb, m, _ = _probs_plain(q, k, bias, causal, scale, True)
+    dh = q.shape[-1]
+    eps = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2)) * (
+        2.0 * dh * 2.0 ** -24 * scale) + 2.0 ** -23 * s.abs()
+    if bias is not None:
+        eps += 2.0 ** -23 * bias.float().abs()
+    half_ulp = torch.ldexp(torch.ones_like(s), torch.frexp(s)[1] - 9)
+    near = (half_ulp - (s - sb).abs()) <= eps
+    if keep is not None:
+        near &= keep
+    near |= (near & (sb == m)).any(-1, keepdim=True)
+    if keep is not None:
+        near &= keep
+    share = torch.where(near, (sb.abs() + m.abs()) * 2.0 ** -6, torch.zeros_like(sb))
+    if dout is None:
+        w = p * share
+        ref = sdpa_plain(q, k, v, bias, causal, scale, True).float().abs()
+        return torch.matmul(w, v.float().abs()) + w.sum(-1, keepdim=True) * ref
+    _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, True)
+    ads = ds.abs().mul_(share + (2.0 ** -7 if q.dtype == torch.float32 else 0.0))
+    return (torch.matmul(ads, k.float().abs()),
+            torch.matmul(ads.transpose(-1, -2), q.float().abs()),
+            torch.matmul((p * share).transpose(-1, -2), dout.float().abs()))
+
+
+def sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """(dq, dk, dv) of `sdpa_plain` for the output gradient `dout`, by the
     backward's own arithmetic (the Pallas _sdpa_tile_bwd's): P recomputed in
     float32, dS as in `_probs_and_dscores`, dQ = dS K, dK = dS^T Q,
     dV = P^T dO, all accumulated in float32."""
-    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout)
+    p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16)
     return (torch.matmul(ds, k.float()).to(q.dtype),) + _dkv(p, ds, q, v, dout)
 
 
@@ -171,8 +246,9 @@ def _check(name, q, k, v, bias, more=(), stats=()):
         if t.shape != q.shape:
             raise ValueError(f"{name}: {what} {tuple(t.shape)} is not q's {tuple(q.shape)}")
     for what, t in stats:
-        if t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous float32 {tuple(q.shape[:3])}")
+        want = ((2,) if what == "stats" else ()) + tuple(q.shape[:3])
+        if t.dtype != torch.float32 or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous float32 {want}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {q.shape[-1]} not in {_HEAD_DIMS}")
     return None if bias is None else bias.float().contiguous()
@@ -183,86 +259,103 @@ def _dims(q, k, bias):
     return (B, H, Lq, k.shape[2], dh, 0 if bias is None else bias.shape[1])
 
 
-def attention_fwd(q, k, v, bias, causal, scale):
+def _stats(lse, score_bf16):
+    """(what, tensor) of the forward's saved statistics for _check, and the
+    pointers of lse and the row maxima (0 for none)."""
+    if score_bf16:
+        return ("stats", lse), lse[0].data_ptr(), lse[1].data_ptr()
+    return ("lse", lse), lse.data_ptr(), 0
+
+
+def _key(name, score_bf16):
+    return name + ("_bf16_scores" if score_bf16 else "")
+
+
+def attention_fwd(q, k, v, bias, causal, scale, score_bf16=False):
     """(out, lse): the forward kernel on the card (lse float32 [B, H, Lq],
-    the log-sum-exp of each score row, saved for the backward); on the CPU
-    (sdpa_plain, None)."""
+    the log-sum-exp of each score row, saved for the backward; score_bf16:
+    [2, B, H, Lq], log l and the row max m); on the CPU (sdpa_plain, None)."""
     name = "attention forward"
     if not on_card(name, q, k, v, bias):
-        return sdpa_plain(q, k, v, bias, causal, scale), None
+        return sdpa_plain(q, k, v, bias, causal, scale, score_bf16), None
     bias = _check(name, q, k, v, bias)
     out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lse = torch.empty(((2,) if score_bf16 else ()) + tuple(q.shape[:3]), dtype=torch.float32,
+                      device=q.device)
+    _, lse_p, m_p = _stats(lse, score_bf16)
     _build.call("ptt_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                out.data_ptr(), lse.data_ptr(), *_dims(q, k, bias), float(scale),
-                int(bool(causal)), _DTYPE_CODE[q.dtype], stream_ptr(q))
-    LAUNCHES["attention_fwd"] += 1
+                out.data_ptr(), lse_p, m_p or None, *_dims(q, k, bias), float(scale),
+                int(bool(causal)), _DTYPE_CODE[q.dtype], int(bool(score_bf16)), stream_ptr(q))
+    LAUNCHES[_key("attention_fwd", score_bf16)] += 1
     return out, lse
 
 
-def attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout):
+def attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout, score_bf16=False):
     """(dq, di) on the card: the dQ kernel, which also writes di =
     rowsum(dout * out) (float32 [B, H, Lq]) for the dK/dV kernel."""
     name = "attention backward dQ"
-    bias = _check(name, q, k, v, bias, (("out", out), ("dout", dout)), (("lse", lse),))
+    st, lse_p, m_p = _stats(lse, score_bf16)
+    bias = _check(name, q, k, v, bias, (("out", out), ("dout", dout)), (st,))
     dq = torch.empty_like(q)
-    di = torch.empty_like(lse)
+    di = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _build.call("ptt_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                out.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                *_dims(q, k, bias), float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-                stream_ptr(q))
-    LAUNCHES["attention_bwd_dq"] += 1
+                out.data_ptr(), dout.data_ptr(), lse_p, m_p or None, di.data_ptr(),
+                dq.data_ptr(), *_dims(q, k, bias), float(scale), int(bool(causal)),
+                _DTYPE_CODE[q.dtype], int(bool(score_bf16)), stream_ptr(q))
+    LAUNCHES[_key("attention_bwd_dq", score_bf16)] += 1
     return dq, di
 
 
-def attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout):
+def attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout, score_bf16=False):
     """(dk, dv) on the card: the dK/dV kernel, from the forward's lse and
     the dQ kernel's di."""
     name = "attention backward dK/dV"
-    bias = _check(name, q, k, v, bias, (("dout", dout),), (("lse", lse), ("di", di)))
+    st, lse_p, m_p = _stats(lse, score_bf16)
+    bias = _check(name, q, k, v, bias, (("dout", dout),), (st, ("di", di)))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _build.call("ptt_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                *_dims(q, k, bias), float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-                stream_ptr(q))
-    LAUNCHES["attention_bwd_dkv"] += 1
+                dout.data_ptr(), lse_p, m_p or None, di.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_dims(q, k, bias), float(scale), int(bool(causal)),
+                _DTYPE_CODE[q.dtype], int(bool(score_bf16)), stream_ptr(q))
+    LAUNCHES[_key("attention_bwd_dkv", score_bf16)] += 1
     return dk, dv
 
 
-def attention_bwd(q, k, v, bias, causal, scale, out, lse, dout):
+def attention_bwd(q, k, v, bias, causal, scale, out, lse, dout, score_bf16=False):
     """(dq, dk, dv): on the card the dQ kernel, then the dK/dV kernel; on the
     CPU sdpa_bwd_plain."""
     if not on_card("attention backward", q, k, v, bias, out, lse, dout):
-        return sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout)
-    dq, di = attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout)
-    dk, dv = attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout)
+        return sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout, score_bf16)
+    dq, di = attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout, score_bf16)
+    dk, dv = attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout, score_bf16)
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
-        out, lse = attention_fwd(q, k, v, bias, causal, scale)
+    def forward(ctx, q, k, v, bias, causal, scale, score_bf16):
+        out, lse = attention_fwd(q, k, v, bias, causal, scale, score_bf16)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.score_bf16 = causal, scale, score_bf16
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, bias, ctx.causal, ctx.scale, out, lse,
-                                   dout.contiguous())
-        return dq, dk, dv, None, None, None
+                                   dout.contiguous(), ctx.score_bf16)
+        return dq, dk, dv, None, None, None, None
 
 
-def fused_sdpa(q, k, v, bias, causal, scale):
+def fused_sdpa(q, k, v, bias, causal, scale, score_bf16=False):
     """Fused attention over [B, H, L, dh], any length; the backward
     recomputes P (only q, k, v, out and lse are saved).  The bias is not
-    differentiable: one that requires grad raises."""
+    differentiable: one that requires grad raises.  score_bf16: the
+    composite's score_dtype="bfloat16"."""
     _check_shapes("fused_sdpa", q, k, v, bias)
     if bias is not None and torch.is_grad_enabled() and bias.requires_grad:
         raise ValueError("fused_sdpa: the bias requires grad, but it is not differentiable "
                          "in the fused_sdpa contract (paddle_tpu/ops/pallas_attention.py"
                          ":16-19); detach it")
-    return _Attention.apply(q, k, v, bias, bool(causal), float(scale))
+    return _Attention.apply(q, k, v, bias, bool(causal), float(scale), bool(score_bf16))

@@ -35,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "ln_residual_fwd": 0, "ln_residual_bwd": 0, "bias_act_fwd": 0, "bias_act_bwd": 0,
     "softmax_xent_fwd": 0, "softmax_xent_bwd": 0, "adam": 0, "attention_fwd": 0,
     "attention_bwd_dkv": 0, "attention_bwd_dq": 0, "bn_epilogue_fwd": 0, "bn_epilogue_bwd": 0,
+    "attention_fwd_bf16_scores": 0, "attention_bwd_dq_bf16_scores": 0,
+    "attention_bwd_dkv_bf16_scores": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

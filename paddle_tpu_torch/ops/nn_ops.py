@@ -1,9 +1,12 @@
-"""NN lowerings: conv2d, pool2d, batch_norm (with the fused epilogue),
+"""NN lowerings: conv2d (and depthwise), the transposed convs, pool2d,
+batch_norm (with the fused epilogue), group_norm, instance_norm,
 lookup_table (with its sparse gradient tap), layer_norm (with the fused
-residual), dropout, softmax, cross_entropy, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, square_error_cost, fused_attention, top_k
-and accuracy, with their build-time inference rules (counterpart of
-paddle_tpu/ops/nn_ops.py).
+residual), dropout, softmax, log_softmax, cross_entropy,
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
+square_error_cost, huber_loss, fused_attention, top_k, arg_max / arg_min,
+accuracy, auc, mean_iou, the interpolations, pad2d, crop, prelu, the
+deformable convs and print, with their build-time inference rules
+(counterpart of paddle_tpu/ops/nn_ops.py).
 
 Layouts are NCHW only: the JAX package's channels-last paths (the
 `data_format` / `data_layout` attrs, `_NHWC_LOWERING`) are TPU layout
@@ -340,7 +343,8 @@ def _fused_attention(ctx, op, ins):
     and backward; the plain versions on the CPU).  One contract, the JAX
     composite's, where the JAX package also sends kv >= 2048 to the stock
     flash kernel on a TPU (ROADMAP C: that kernel's bias and causal rules
-    differ from the composite's)."""
+    differ from the composite's).  score_dtype="bfloat16" takes the kernels'
+    bf16-score variant (the composite's rounding, :680-684)."""
     q = first(ins, "Q")
     k = first(ins, "K")
     v = first(ins, "V")
@@ -349,9 +353,8 @@ def _fused_attention(ctx, op, ins):
     scale = op.attr("scale", None)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if op.attr("score_dtype", "float32") == "bfloat16":
-        raise NotImplementedError("fused_attention score_dtype='bfloat16' is not ported yet")
-    return {"Out": fused_sdpa(q, k, v, bias, causal, float(scale))}
+    score_bf16 = op.attr("score_dtype", "float32") == "bfloat16"
+    return {"Out": fused_sdpa(q, k, v, bias, causal, float(scale), score_bf16)}
 
 
 @register_op("top_k")
@@ -388,13 +391,354 @@ def _label_smooth(ctx, op, ins):
     return {"Out": (1.0 - eps) * x + eps / x.shape[-1]}
 
 
+register_op("depthwise_conv2d")(_conv2d)
+
+
+@register_op("conv2d_transpose")
+@register_op("depthwise_conv2d_transpose")
+def _conv2d_transpose(ctx, op, ins):
+    """Transposed conv, fluid filter layout (in, out / groups, kh, kw): the
+    JAX package's lhs-dilated conv with the flipped kernel
+    (conv2d_transpose_math) is F.conv_transpose2d with the same padding."""
+    x = first(ins, "Input")
+    w = match_dtype(x, first(ins, "Filter"))
+    pads = list(op.attr("paddings", [0, 0]))
+    return {"Output": F.conv_transpose2d(
+        x, w, None, tuple(op.attr("strides", [1, 1])), (pads[0], pads[1]), 0,
+        op.attr("groups", 1) or 1, tuple(op.attr("dilations", [1, 1])))}
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, op, ins):
+    """3-D transposed conv, filter (in, out / groups, kd, kh, kw)
+    (paddle_tpu/ops/nn_ops.py conv3d_transpose_math)."""
+    x = first(ins, "Input")
+    w = first(ins, "Filter")
+    return {"Output": F.conv_transpose3d(
+        x, w, None, tuple(op.attr("strides", [1, 1, 1])), tuple(op.attr("paddings", [0, 0, 0])),
+        0, op.attr("groups", 1) or 1, tuple(op.attr("dilations", [1, 1, 1])))}
+
+
+def _interp_2d(x, out_h, out_w, method, align_corners, align_mode=1):
+    """Bilinear or nearest resize of NCHW by Fluid's rules
+    (paddle_tpu/ops/nn_ops.py _interp_2d, reference interpolate_op.h):
+    align_corners maps the corners onto each other; otherwise align_mode 0
+    is the half-pixel rule (dst + 0.5) * scale - 0.5, align_mode 1 (Fluid's
+    default) the plain scaling dst * scale, which F.interpolate has not."""
+    n, c, h, w = x.shape
+    dev = x.device
+    f32 = torch.float32
+    if method == "nearest":
+        if align_corners:
+            hi = torch.round(torch.linspace(0.0, h - 1.0, out_h, device=dev)).long()
+            wi = torch.round(torch.linspace(0.0, w - 1.0, out_w, device=dev)).long()
+        else:
+            hi = torch.floor(torch.arange(out_h, device=dev, dtype=f32) * (h / out_h)).long()
+            wi = torch.floor(torch.arange(out_w, device=dev, dtype=f32) * (w / out_w)).long()
+        return x.index_select(2, hi).index_select(3, wi)
+
+    def src(out_n, in_n):
+        if align_corners and out_n > 1:
+            return torch.linspace(0.0, in_n - 1.0, out_n, device=dev)
+        if align_mode == 1:
+            return torch.arange(out_n, device=dev, dtype=f32) * (in_n / out_n)
+        return torch.clamp_min((torch.arange(out_n, device=dev, dtype=f32) + 0.5)
+                               * (in_n / out_n) - 0.5, 0.0)
+
+    ys, xs = src(out_h, h), src(out_w, w)
+    y0 = torch.clamp(torch.floor(ys).long(), 0, h - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs).long(), 0, w - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = (ys - y0).to(x.dtype).reshape(1, 1, out_h, 1)
+    wx = (xs - x0).to(x.dtype).reshape(1, 1, 1, out_w)
+    r0, r1 = x.index_select(2, y0), x.index_select(2, y1)
+    top = r0.index_select(3, x0) * (1 - wx) + r0.index_select(3, x1) * wx
+    bot = r1.index_select(3, x0) * (1 - wx) + r1.index_select(3, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _interp_size(op, x):
+    out_h, out_w = op.attr("out_h"), op.attr("out_w")
+    scale = op.attr("scale", 0.0)
+    if scale:
+        out_h, out_w = int(x.shape[2] * scale), int(x.shape[3] * scale)
+    return out_h, out_w
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": _interp_2d(x, *_interp_size(op, x), "bilinear",
+                              op.attr("align_corners", True), op.attr("align_mode", 1))}
+
+
+@register_op("nearest_interp")
+def _nearest_interp(ctx, op, ins):
+    x = first(ins, "X")
+    return {"Out": _interp_2d(x, *_interp_size(op, x), "nearest", op.attr("align_corners", True))}
+
+
+@register_op("group_norm")
+def _group_norm(ctx, op, ins):
+    """Normalization within channel groups of [N, C, *], float32 statistics."""
+    x = first(ins, "X")
+    scale = first(ins, "Scale")
+    bias = first(ins, "Bias")
+    eps = op.attr("epsilon", 1e-5)
+    groups = op.attr("groups", 1)
+    n, c = x.shape[0], x.shape[1]
+    xf = x.float().reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xf.dim()))
+    mean = xf.mean(axes, keepdim=True)
+    var = xf.var(axes, correction=0, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    return {"Y": y.to(x.dtype), "Mean": mean.reshape(n, groups), "Variance": var.reshape(n, groups)}
+
+
+@register_op("instance_norm")
+def _instance_norm(ctx, op, ins):
+    """Per-(sample, channel) normalization, float32 statistics."""
+    x = first(ins, "X")
+    scale = first(ins, "Scale")
+    bias = first(ins, "Bias")
+    eps = op.attr("epsilon", 1e-5)
+    xf = x.float()
+    axes = tuple(range(2, x.dim()))
+    mean = xf.mean(axes, keepdim=True)
+    var = xf.var(axes, correction=0, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    cshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    n, c = x.shape[0], x.shape[1]
+    return {"Y": y.to(x.dtype), "SavedMean": mean.reshape(n, c), "SavedVariance": var.reshape(n, c)}
+
+
+@register_op("prelu")
+def _prelu(ctx, op, ins):
+    """x where x > 0, else alpha * x; alpha one value, one a channel or one
+    an element."""
+    x = first(ins, "X")
+    alpha = first(ins, "Alpha")
+    mode = op.attr("mode", "all")
+    if mode == "channel":
+        a = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "element":
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    else:
+        a = alpha.reshape(())
+    return {"Out": torch.where(x > 0, x, a * x)}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, op, ins):
+    return {"Out": torch.log_softmax(first(ins, "X"), dim=op.attr("axis", -1))}
+
+
+@register_op("arg_max")
+def _arg_max(ctx, op, ins):
+    """The first index of the max along `axis`, int32 (the x32 rule)."""
+    return {"Out": torch.argmax(first(ins, "X"), op.attr("axis", -1)).to(canon_dtype("int64"))}
+
+
+@register_op("arg_min")
+def _arg_min(ctx, op, ins):
+    return {"Out": torch.argmin(first(ins, "X"), op.attr("axis", -1)).to(canon_dtype("int64"))}
+
+
+@register_op("pad2d")
+def _pad2d(ctx, op, ins):
+    """NCHW spatial padding [top, bottom, left, right]: constant (pad_value),
+    reflect or edge."""
+    x = first(ins, "X")
+    p = list(op.attr("paddings", [0, 0, 0, 0]))
+    mode = op.attr("mode", "constant")
+    pad = (p[2], p[3], p[0], p[1])
+    if mode == "constant":
+        return {"Out": F.pad(x, pad, value=op.attr("pad_value", 0.0))}
+    return {"Out": F.pad(x, pad, mode={"reflect": "reflect", "edge": "replicate"}[mode])}
+
+
+@register_op("crop")
+def _crop(ctx, op, ins):
+    """Static offsets and shape."""
+    x = first(ins, "X")
+    idx = tuple(slice(o, o + n) for o, n in zip(op.attr("offsets"), op.attr("shape")))
+    return {"Out": x[idx]}
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx, op, ins):
+    x = first(ins, "X")
+    y = first(ins, "Y")
+    d = op.attr("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    return {"Out": torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d)), "Residual": r}
+
+
+@register_op("mean_iou")
+def _mean_iou(ctx, op, ins):
+    """Per-class intersection over union over the batch (reference
+    mean_iou_op.h); classes absent from both predictions and labels leave
+    the mean.  Class counts by index_add_ over a fixed C (integer sums:
+    the same in any order), ids outside [0, C) dropped as segment_sum
+    drops them."""
+    pred = first(ins, "Predictions").reshape(-1).long()
+    label = first(ins, "Labels").reshape(-1).long()
+    C = op.attr("num_classes")
+
+    def count(ids, vals):
+        ok = (ids >= 0) & (ids < C)
+        return torch.zeros(C, dtype=torch.int32, device=ids.device).index_add_(
+            0, torch.where(ok, ids, torch.zeros_like(ids)), torch.where(ok, vals, 0).to(torch.int32))
+
+    ones = torch.ones_like(pred)
+    correct = count(label, (pred == label).long())
+    pred_cnt = count(pred, ones)
+    label_cnt = count(label, ones)
+    union = pred_cnt + label_cnt - correct
+    valid = union > 0
+    iou = torch.where(valid, correct / torch.clamp_min(union, 1), torch.zeros((), device=pred.device))
+    mean = iou.sum() / torch.clamp_min(valid.sum(), 1)
+    return {"OutMeanIou": mean.float().reshape(1),
+            "OutWrong": (pred_cnt + label_cnt - 2 * correct).to(torch.int32),
+            "OutCorrect": correct}
+
+
+@register_op("auc")
+def _auc(ctx, op, ins):
+    """Streaming ROC AUC (reference auc_op.h): the positive-class
+    probability bucketed into num_thresholds + 1 bins per label polarity,
+    accumulated into the persistable StatPos / StatNeg (in place when the
+    outputs name them; integer index_add_, the same in any order), the ROC
+    integrated by trapezoid in integers, the ratio in float32."""
+    predict = first(ins, "Predict")
+    label = first(ins, "Label").reshape(-1)
+    stat_pos = first(ins, "StatPos")
+    stat_neg = first(ins, "StatNeg")
+    T = op.attr("num_thresholds", 4095)
+    p = predict[:, 1] if predict.dim() == 2 and predict.shape[1] == 2 else predict.reshape(-1)
+    bucket = torch.clamp((p * T).to(torch.int32), 0, T).long()
+    is_pos = (label > 0).to(stat_pos.dtype)
+    # in place where the output names the state itself (the layer's), so
+    # a captured graph keeps updating the scope's tensors
+    same = (op.output("StatPosOut") == op.input("StatPos")
+            and op.output("StatNegOut") == op.input("StatNeg"))
+    pos_new = (stat_pos if same else stat_pos.clone()).index_add_(0, bucket, is_pos)
+    neg_new = (stat_neg if same else stat_neg.clone()).index_add_(0, bucket, 1 - is_pos)
+    tp = torch.flip(torch.cumsum(torch.flip(pos_new, [0]), 0), [0]).to(pos_new.dtype)
+    fp = torch.flip(torch.cumsum(torch.flip(neg_new, [0]), 0), [0]).to(neg_new.dtype)
+    zero = tp.new_zeros(1)
+    tp_ext, fp_ext = torch.cat([tp, zero]), torch.cat([fp, zero])
+    area2 = ((fp_ext[:-1] - fp_ext[1:]) * (tp_ext[:-1] + tp_ext[1:])).sum().to(tp.dtype)
+    denom2 = 2 * tp[0] * fp[0]
+    auc_v = torch.where(denom2 > 0, area2.float() / torch.clamp_min(denom2, 1).float(),
+                        torch.zeros((), device=tp.device))
+    return {"AUC": auc_v.reshape(1), "StatPosOut": pos_new, "StatNegOut": neg_new}
+
+
+def _bilinear_sample_grid(img, ys, xs):
+    """Bilinear samples of img [N, C, H, W] at ys, xs [N, Ho, Wo] -> [N, C,
+    Ho, Wo]: each of the four corners contributes only inside the image
+    (reference deformable_im2col_bilinear)."""
+    N, _, H, W = img.shape
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = (ys - y0)[:, None]
+    wx = (xs - x0)[:, None]
+    y0i, x0i = y0.long(), x0.long()
+    n = torch.arange(N, device=img.device)[:, None, None]
+
+    def corner(yi, xi):
+        ok = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        v = img[n, :, torch.clamp(yi, 0, H - 1), torch.clamp(xi, 0, W - 1)].permute(0, 3, 1, 2)
+        return torch.where(ok[:, None], v, torch.zeros((), device=img.device))
+
+    return ((corner(y0i, x0i) * (1 - wx) + corner(y0i, x0i + 1) * wx) * (1 - wy)
+            + (corner(y0i + 1, x0i) * (1 - wx) + corner(y0i + 1, x0i + 1) * wx) * wy)
+
+
+@register_op("deformable_conv")
+def _deformable_conv(ctx, op, ins):
+    """Deformable convolution v1 / v2 (reference deformable_conv_op.cc,
+    paddle_tpu/ops/nn_ops.py _deformable_conv): each kernel tap samples the
+    input bilinearly at its position plus a learned offset, times the
+    modulation mask (v2); the sampled patches contract with the filter per
+    group.  float32; gradients by autograd."""
+    x_in = first(ins, "Input")
+    x = x_in.float()
+    offset = first(ins, "Offset").float()
+    mask = first(ins, "Mask")
+    mask = mask.float() if mask is not None else None
+    w = first(ins, "Filter").float()
+    strides = op.attr("strides", [1, 1])
+    pads = op.attr("paddings", [0, 0])
+    dil = op.attr("dilations", [1, 1])
+    groups = op.attr("groups", 1) or 1
+    dg = op.attr("deformable_groups", 1) or 1
+    N, C, H, W = x.shape
+    O, _, kh, kw = w.shape
+    Ho = (H + 2 * pads[0] - (dil[0] * (kh - 1) + 1)) // strides[0] + 1
+    Wo = (W + 2 * pads[1] - (dil[1] * (kw - 1) + 1)) // strides[1] + 1
+    base_y = (torch.arange(Ho, device=x.device) * strides[0] - pads[0])[None, :, None].float()
+    base_x = (torch.arange(Wo, device=x.device) * strides[1] - pads[1])[None, None, :].float()
+    cpg = C // dg
+    cols = []
+    for k in range(kh * kw):
+        i, j = k // kw, k % kw
+        taps = []
+        for g in range(dg):
+            ys = base_y + i * dil[0] + offset[:, 2 * (g * kh * kw + k)]
+            xs = base_x + j * dil[1] + offset[:, 2 * (g * kh * kw + k) + 1]
+            v = _bilinear_sample_grid(x[:, g * cpg:(g + 1) * cpg], ys, xs)
+            if mask is not None:
+                v = v * mask[:, g * kh * kw + k][:, None]
+            taps.append(v)
+        cols.append(torch.cat(taps, 1))
+    patches = torch.stack(cols, 2)  # [N, C, K, Ho, Wo]
+    cg, og = C // groups, O // groups
+    wk = w.reshape(O, cg, kh * kw)
+    outs = [torch.einsum("nckhw,ock->nohw", patches[:, g * cg:(g + 1) * cg],
+                         wk[g * og:(g + 1) * og]) for g in range(groups)]
+    out = torch.cat(outs, 1) if groups > 1 else outs[0]
+    return {"Output": out.to(x_in.dtype)}
+
+
+register_op("deformable_conv_v1")(_deformable_conv)
+
+
+@register_op("print")
+def _print(ctx, op, ins):
+    """layers.Print (reference print_op.cc): the input passes through, and
+    its value is printed at execution, at most first_n times a plan (the
+    JAX package's callback counts per compiled program).  A host read: no
+    graph captures it (core/executor.py _HOST_READ)."""
+    x = first(ins, "X")
+    first_n = op.attr("first_n", -1)
+    count = ctx.constant(("print", id(op)), lambda: {"n": 0})
+    if first_n < 0 or count["n"] < first_n:
+        print(f"{op.attr('message', '')}{x.detach().cpu().numpy()}", flush=True)
+        count["n"] += 1
+    return {"Out": x}
+
+
 # --- build-time shape/dtype inference (core/analysis.py), as the JAX
 # package registers it next to the same lowerings.  fused_attention has no
 # rule there either.
 
 from ..core import analysis as _A
 
-_A.register_unary_infer("softmax", "label_smooth", "sigmoid_cross_entropy_with_logits")
+_A.register_unary_infer("softmax", "log_softmax", "label_smooth", "prelu",
+                        "sigmoid_cross_entropy_with_logits")
 _A.register_elementwise_infer("square_error_cost")
 
 
@@ -442,7 +786,7 @@ def _infer_conv2d(ctx):
     ctx.set_out("Output", (n, oh, ow, o) if nhwc else (n, o, oh, ow), ctx.in_dtype("Input"))
 
 
-_A.register_rule(["conv2d"], _infer_conv2d)
+_A.register_rule(["conv2d", "depthwise_conv2d"], _infer_conv2d)
 
 
 def _infer_pool2d(ctx):
@@ -581,3 +925,14 @@ def _infer_accuracy(ctx):
 
 
 _A.register_rule(["accuracy"], _infer_accuracy)
+
+
+def _infer_arg_extreme(ctx):
+    xs = ctx.in_shape("X")
+    if xs is None:
+        return
+    axis = ctx.op.attr("axis", -1) % len(xs)
+    ctx.set_out("Out", tuple(d for i, d in enumerate(xs) if i != axis), "int64")
+
+
+_A.register_rule(["arg_max", "arg_min"], _infer_arg_extreme)

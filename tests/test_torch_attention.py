@@ -273,3 +273,89 @@ def test_backward_kernel_wrappers_refuse_operands_off_one_device():
         ca.attention_bwd_dkv(q, q, q, bias, False, 1.0, lse, lse, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ca.attention_bwd_dq(q, q, q, None, False, 1.0, q, lse, q)
+
+
+def _composite_bf16_scores(q, k, v, bias, causal, scale, stop_max=False):
+    """The JAX package's composite with score_dtype="bfloat16"
+    (paddle_tpu/ops/nn_ops.py:672-689): s rounded to bf16, m the max of the
+    rounded scores, exp of f32(bf16(s - m)), the sum in float32.  stop_max
+    stops the gradient through m, as the port's backward does."""
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32) * scale
+    if bias is not None:
+        s = s + bias
+    if causal:
+        Lq, Lk = s.shape[-2], s.shape[-1]
+        s = jnp.where(jnp.tril(jnp.ones((Lq, Lk), bool), k=Lk - Lq), s, -1e30)
+    s = s.astype(jnp.bfloat16)
+    m = jnp.max(s, axis=-1, keepdims=True)
+    if stop_max:
+        m = jax.lax.stop_gradient(m)
+    e = jnp.exp((s - m).astype(jnp.float32))
+    p = e / jnp.sum(e, axis=-1, keepdims=True)
+    out = jnp.einsum("bhqk,bhkd->bhqd", p.astype(q.dtype), v, preferred_element_type=jnp.float32)
+    return out.astype(q.dtype)
+
+
+BF16_SCORE_CASES = [  # (B, H, Lq, Lk, dh, bias, causal)
+    (2, 2, 32, 32, 16, None, False),
+    (2, 2, 24, 40, 16, "per_head", True),   # causal with Lq < Lk, a bias
+    (1, 2, 40, 24, 16, "bcast", True),      # causal with Lq > Lk: rows with no visible key
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", BF16_SCORE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_scores_plain_matches_composite(dtype, case):
+    """fused_sdpa(score_bf16=True) on the CPU (sdpa_plain and sdpa_bwd_plain
+    with bf16 scores) against the JAX composite with score_dtype="bfloat16",
+    forward and jax.vjp, float32 and bfloat16 inputs.  Tolerances: the
+    forward's and gradients' of the f32-score tests, plus, element by
+    element, cuda_attention.score_rounding_allowed (the two sides may round
+    a float32 score that differs in its last bits to neighbouring bf16
+    values).  The port's backward stops the gradient through the row max m
+    (its cotangent, -sum_j bf16(P_j (dP_j - di)), is 0 in exact arithmetic):
+    it is held to the composite with m stopped, and the composite's full
+    gradient differs from that by at most 2^-7 of its largest element."""
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    q, k, v, g, bias = _inputs(np.random.RandomState(8), B, H, Lq, Lk, dh, dtype, bias_kind)
+    scale = 1.0 / np.sqrt(dh)
+    want, vjp = jax.vjp(lambda q, k, v: _composite_bf16_scores(q, k, v, bias, causal, scale,
+                                                                True), q, k, v)
+    want_grads = vjp(g)
+    full_grads = jax.vjp(lambda q, k, v: _composite_bf16_scores(q, k, v, bias, causal, scale),
+                         q, k, v)[1](g)
+    tq, tk, tv = (to_tensor(np.asarray(a)).clone().requires_grad_(True) for a in (q, k, v))
+    tb = None if bias is None else to_tensor(np.asarray(bias))
+    out = ca.fused_sdpa(tq, tk, tv, tb, causal, scale, True)
+    grads = torch.autograd.grad(out, (tq, tk, tv), to_tensor(np.asarray(g)))
+    assert out.dtype == tq.dtype and out.shape == (B, H, Lq, dh)
+    qd, kd, vd = (t.detach() for t in (tq, tk, tv))
+    allowed = FWD_TOL[dtype] + ca.score_rounding_allowed(qd, kd, vd, tb, causal, scale).numpy()
+    assert (np.abs(np.asarray(want, np.float32) - out.detach().float().numpy()) <= allowed).all()
+    extra = ca.score_rounding_allowed(qd, kd, vd, tb, causal, scale, out.detach(),
+                                      to_tensor(np.asarray(g)))
+    for name, w, got, e, full in zip(("dq", "dk", "dv"), want_grads, grads, extra, full_grads):
+        assert got.dtype == out.dtype
+        diff = np.abs(np.asarray(w, np.float32) - got.float().numpy())
+        assert (diff <= _grad_tol(dtype, w) + e.numpy()).all(), name
+        w32, f32 = np.asarray(w, np.float32), np.asarray(full, np.float32)
+        assert np.abs(f32 - w32).max() <= 2.0 ** -7 * np.abs(f32).max(), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bf16_scores_differ_from_f32_scores(dtype):
+    """The bf16-score plain version is not the f32-score one: at scores of
+    magnitude ~4 the rounding of s and of s - m moves the output by far
+    more than the f32-score tolerance, while a second call agrees bit for
+    bit; the fused_attention lowering routes score_dtype="bfloat16" there."""
+    q, k, v, _, _ = _inputs(np.random.RandomState(9), 1, 2, 32, 32, 16, dtype)
+    tq, tk, tv = (to_tensor(np.asarray(a)) for a in (q, k, v))
+    a = ca.sdpa_plain(tq, tk, tv, None, False, 1.0, True)
+    assert torch.equal(a, ca.sdpa_plain(tq, tk, tv, None, False, 1.0, True))
+    b = ca.sdpa_plain(tq, tk, tv, None, False, 1.0)
+    assert float((a.float() - b.float()).abs().max()) > 10 * FWD_TOL["float32"]
+    want = _composite_bf16_scores(q, k, v, None, False, 1.0)
+    assert _err(want, a) <= FWD_TOL[dtype] + 1e-6
+    if dtype == "float32":  # the rule admits a flip only near a rounding boundary
+        allowed = FWD_TOL[dtype] + ca.score_rounding_allowed(tq, tk, tv, None, False, 1.0)
+        assert ((a - b).abs() > allowed).any()

@@ -913,10 +913,14 @@ def test_registered_ops_the_port_lacks():
     port_ops = set(t_registry.registered_ops())
     assert port_ops <= jax_ops, sorted(port_ops - jax_ops)
     missing = sorted(jax_ops - port_ops)
-    assert len(missing) <= 116, missing  # of 305
+    assert len(missing) <= 67, missing  # of 305
     assert {"sum", "sqrt", "sign", "elementwise_max", "clip", "clip_by_norm",
             "square_error_cost", "cross_entropy", "while", "lamb", "lars_momentum",
-            "dynamic_rnn", "conditional_block", "array_write", "linear_chain_crf"} <= port_ops
+            "dynamic_rnn", "conditional_block", "array_write", "linear_chain_crf",
+            "prior_box", "multiclass_nms", "ssd_loss", "yolov3_loss", "yolo_box",
+            "detection_map", "generate_mask_labels", "deformable_psroi_pooling",
+            "nearest_interp", "bilinear_interp", "depthwise_conv2d", "conv2d_transpose",
+            "group_norm", "auc", "deformable_conv_v1", "print", "py_func"} <= port_ops
 
 
 def _spec_names():
@@ -940,7 +944,7 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 582, len(missing)  # of 1232
+    assert len(missing) <= 532, len(missing)  # of 1232
     for n in ("paddle_tpu.layers.square_error_cost", "paddle_tpu.layers.sums",
               "paddle_tpu.io.save_persistables", "paddle_tpu.io.load_persistables",
               "paddle_tpu.layers.clip", "paddle_tpu.layers.cross_entropy",
@@ -954,5 +958,8 @@ def test_public_names_of_the_api_spec_the_port_lacks():
               "paddle_tpu.optimizer.LarsMomentum", "paddle_tpu.optimizer.ModelAverage",
               "paddle_tpu.layers.DynamicRNN",
               "paddle_tpu.layers.cond", "paddle_tpu.layers.cosine_decay",
-              "paddle_tpu.layers.linear_lr_warmup", "paddle_tpu.LoDTensorArray"):
+              "paddle_tpu.layers.linear_lr_warmup", "paddle_tpu.LoDTensorArray",
+              "paddle_tpu.layers.multi_box_head", "paddle_tpu.layers.detection_output",
+              "paddle_tpu.layers.ssd_loss", "paddle_tpu.layers.yolov3_loss",
+              "paddle_tpu.layers.resize_nearest", "paddle_tpu.layers.Print"):
         assert n in names and _resolves(n), n

@@ -1081,3 +1081,85 @@ def test_cond_and_array_plans_are_refused_on_card():
     got = [float(exe.run(main, fetch_list=[lr], scope=scope)[0][0]) for _ in range(6)]
     np.testing.assert_array_equal(np.float32(got), np.float32([1.0, 1.0, 0.5, 0.5, 0.1, 0.1]))
     assert exe.last_plan.graphed
+
+
+# --- the detection slice: bf16 attention scores and the detection models ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_score_attention_kernels_at_their_edges_on_card(case, dtype):
+    """The bf16-score variants (score_bf16=True) against the plain versions
+    with bf16 scores: forward, dQ and dK/dV, float32 within the f32 bounds
+    and bfloat16 by FWD_BF16_RULE / BWD_BF16_RULE, each plus
+    SCORE_ROUNDING_RULE; one launch a call, counted under the
+    `_bf16_scores` keys; the backward repeatable bit for bit."""
+    _need_card()
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, do = (torch.randn(B, H, n, dh, generator=g, device="cuda").to(dt)
+                   for n in (Lq, Lk, Lk, Lq))
+    bias = None
+    if bias_kind == "per_head":
+        bias = torch.randn(B, H, Lq, Lk, generator=g, device="cuda") * 2.0
+    args = (q, k, v, bias, causal, dh ** -0.5)
+    before = dict(ck.LAUNCHES)
+    out, stats = ca.attention_fwd(*args, score_bf16=True)
+    dq, di = ca.attention_bwd_dq(*args, out, stats, do, score_bf16=True)
+    dk, dv = ca.attention_bwd_dkv(*args, stats, di, do, score_bf16=True)
+    assert {n: ck.LAUNCHES[n] - before[n] for n in before} == dict(
+        NO_LAUNCHES, attention_fwd_bf16_scores=1, attention_bwd_dq_bf16_scores=1,
+        attention_bwd_dkv_bf16_scores=1)
+    assert stats.shape == (2, B, H, Lq)
+    assert torch.equal(dq, ca.attention_bwd_dq(*args, out, stats, do, score_bf16=True)[0])
+    want = ca.sdpa_plain(*args, score_bf16=True)
+    extra = ca.score_rounding_allowed(*args)
+    base = (1e-4 if dtype == "float32"
+            else ca.sdpa_fwd_bf16_allowed(*args, want, score_bf16=True))
+    assert ((out.float() - want.float()).abs() <= base + extra).all()
+    want = ca.sdpa_bwd_plain(*args, out, do, score_bf16=True)
+    extra = ca.score_rounding_allowed(*args, out, do)
+    if dtype == "float32":
+        base = [_grad_tol(dtype, w) for w in want]
+    else:
+        base = ca.sdpa_bwd_bf16_allowed(*args, out, do, want, score_bf16=True)
+    for name, got, w, a, e in zip(("dq", "dk", "dv"), (dq, dk, dv), want, base, extra):
+        assert got.dtype == dt and got.shape == w.shape
+        assert ((got.float() - w.float()).abs() <= a + e).all(), name
+
+
+@pytest.mark.gpu
+def test_tiny_ssd_and_yolov3_train_graphed_on_card(exact_card_math):
+    """models/detection.py's MobileNet-SSD and YOLOv3 at 64 x 64 (YOLOv3 one
+    block a stage): three graphed Momentum / RMSProp steps launch the BN
+    epilogue once per batch norm at the eager and capture runs, the plan
+    captures (no refusal), the loss is finite, and the served detections
+    are [N, keep_top_k, 6]."""
+    _need_card()
+    from paddle_tpu_torch.models import detection
+
+    for build, make, kw in (
+            (detection.build_mobilenet_ssd, detection.make_ssd_batch,
+             dict(num_classes=5, image_size=64, max_boxes=6)),
+            (detection.build_yolov3, detection.make_yolo_batch,
+             dict(num_classes=4, image_size=64, max_boxes=6, stages=[1, 1, 1, 1, 1],
+                  nms_top_k=50, keep_top_k=10))):
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build(**kw)
+        n_bn = sum(op.type == "batch_norm" for op in main.global_block().ops)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = make(2, rng=np.random.RandomState(0), **{k: kw[k] for k in (
+            "image_size", "num_classes", "max_boxes")}, most_boxes=4)
+        for step in range(3):
+            before = dict(ck.LAUNCHES)
+            loss, det = exe.run(main, feed=feed, fetch_list=[fetches["loss"], fetches["detections"]],
+                                scope=scope)
+            delta = {n: ck.LAUNCHES[n] - before[n] for n in before}
+            want = dict(NO_LAUNCHES, bn_epilogue_fwd=n_bn, bn_epilogue_bwd=n_bn) if step < 2 \
+                else NO_LAUNCHES
+            assert delta == want, (step, delta)
+            assert np.isfinite(loss).all() and det.shape[0] == 2 and det.shape[2] == 6
+        assert exe.last_plan.graphed and exe.last_plan.graph_refusal is None

@@ -11,6 +11,7 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.core.dtypes import canonical_dtype as j_canon
 from paddle_tpu_torch.ops import cuda_kernels as ck
+import detection_cases as _cases
 
 
 def _out_names(out_slots):
@@ -765,6 +766,44 @@ GRAD_CASES += [
 ]
 
 
+# the nn and host ops of the detection slice (ROADMAP A8.6): tests/detection_cases.py
+SLICE15_CASES = _cases.NN_CASES
+H32, r15 = _cases.H32, _cases.r15
+CASES += SLICE15_CASES
+GRAD_CASES += [
+    ("depthwise_conv2d", "depthwise_conv2d", {"Input": H32(2, 4, 7, 7), "Filter": H32(4, 1, 3, 3)},
+     {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1], "groups": 4}, ["Output"],
+     ["Input", "Filter"]),
+    ("conv2d_transpose", "conv2d_transpose", {"Input": H32(2, 4, 5, 6), "Filter": H32(4, 3, 3, 2)},
+     {"strides": [1, 2], "paddings": [2, 0], "dilations": [2, 1], "groups": 2}, ["Output"],
+     ["Input", "Filter"]),
+    ("conv3d_transpose", "conv3d_transpose", {"Input": H32(1, 2, 3, 4, 3), "Filter": H32(2, 3, 2, 3, 2)},
+     {"strides": [2, 1, 2], "paddings": [0, 1, 0], "dilations": [1, 1, 1], "groups": 1},
+     ["Output"], ["Input", "Filter"]),
+    ("bilinear_interp", "bilinear_interp", {"X": H32(2, 3, 5, 7)},
+     {"out_h": 8, "out_w": 11, "align_corners": False, "align_mode": 1}, ["Out"], ["X"]),
+    ("nearest_interp", "nearest_interp", {"X": H32(2, 3, 5, 7)},
+     {"out_h": 10, "out_w": 14, "align_corners": True}, ["Out"], ["X"]),
+    ("group_norm", "group_norm", {"X": H32(2, 6, 4, 5), "Scale": H32(6), "Bias": H32(6)},
+     {"groups": 3}, ["Y"], ["X", "Scale", "Bias"]),
+    ("instance_norm", "instance_norm", {"X": H32(2, 3, 4, 5), "Scale": H32(3), "Bias": H32(3)}, {},
+     ["Y"], ["X", "Scale", "Bias"]),
+    ("prelu_channel", "prelu", {"X": H32(2, 3, 4, 4), "Alpha": H32(3)}, {"mode": "channel"},
+     ["Out"], ["X", "Alpha"]),
+    ("log_softmax", "log_softmax", {"X": H32(3, 7)}, {"axis": -1}, ["Out"], ["X"]),
+    ("pad2d_reflect", "pad2d", {"X": H32(2, 3, 4, 5)}, {"paddings": [2, 1, 3, 1], "mode": "reflect"},
+     ["Out"], ["X"]),
+    ("crop", "crop", {"X": H32(3, 5, 6)}, {"offsets": [1, 0, 2], "shape": [2, 4, 3]}, ["Out"], ["X"]),
+    ("huber_loss", "huber_loss", {"X": H32(6, 1) * 2, "Y": H32(6, 1) * 2}, {"delta": 1.0},
+     ["Out"], ["X", "Y"]),
+    ("deformable_conv", "deformable_conv",
+     {"Input": H32(2, 4, 6, 6), "Offset": H32(2, 2 * 2 * 9, 6, 6) * 1.5,
+      "Mask": r15.rand(2, 2 * 9, 6, 6).astype(np.float32), "Filter": H32(6, 2, 3, 3)},
+     {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1], "groups": 2,
+      "deformable_groups": 2}, ["Output"], ["Input", "Offset", "Mask", "Filter"]),
+]
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):
     """Same fetches, and the same declared output shapes and dtypes (the
@@ -901,3 +940,35 @@ def test_xshape_is_built_only_when_read():
         env = {"x": torch.zeros(2, 3)}
         lower_one(LoweringContext(gen, torch.device("cpu"), fetch_names=fetch), op, env)
         assert ("xs" in env) == present
+
+
+def test_py_func_runs_the_callable_on_host_copies():
+    """py_func (ops/control_flow_ops.py) against the JAX package's: the same
+    callable registered in each package's registry runs on host copies of X
+    and its outputs take the declared dtypes; backward_func is refused."""
+    from paddle_tpu.ops.control_flow_ops import register_py_func as j_reg
+    from paddle_tpu_torch.ops.control_flow_ops import register_py_func as t_reg
+
+    def fn(a, b):
+        return (a * 2 + b).tolist(), np.arange(a.shape[0])  # a list (float64) and int64
+
+    x, y = H32(3, 4), H32(3, 4)
+    outs = {}
+    for fluid, reg in ((jfluid, j_reg), (tfluid, t_reg)):
+        prog = fluid.Program()
+        with fluid.program_guard(prog, fluid.Program()):
+            block = prog.global_block()
+            for n in ("x", "y"):
+                block.create_var(n, shape=(3, 4), dtype="float32", is_data=True)
+            block.create_var("o1", shape=(3, 4), dtype="float32")
+            block.create_var("o2", shape=(3,), dtype="int32")
+            block.append_op("py_func", inputs={"X": ["x", "y"]}, outputs={"Out": ["o1", "o2"]},
+                            attrs={"func_id": reg(fn), "out_shapes": [[3, 4], [3]],
+                                   "out_dtypes": ["float32", "int32"]})
+        outs[fluid] = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={"x": x, "y": y}, fetch_list=["o1", "o2"], scope=fluid.Scope())
+    for w, g in zip(outs[jfluid], outs[tfluid]):
+        assert g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(NotImplementedError, match="backward_func"):
+        tfluid.layers.py_func(fn, None, None, backward_func=fn)

@@ -43,7 +43,7 @@ import ctypes, json, torch, chip_smoke
 from paddle_tpu_torch import _build
 from paddle_tpu_torch.ops import cuda_attention as ca
 occ = (ctypes.c_int * 4)()
-_build.call("ptt_attention_occupancy", 0, 64, 1, occ)
+_build.call("ptt_attention_occupancy", 0, 64, 1, 0, occ)
 rec = {"ctas_per_sm": occ[0], "registers": occ[1], "smem_bytes": occ[2], "local_bytes": occ[3]}
 gen = torch.Generator(device="cuda").manual_seed(0)
 for B, L in ((8, 2048), (32, 128)):
