@@ -248,12 +248,15 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      create_predictor with their NMS heads, [N, keep_top_k, 6];
  47. detection_parity: card vs CPU: a tiny SSD, a 2-layer YOLOv3 head, the
      Faster R-CNN second stage and the RetinaNet head (3 Momentum steps
-     and their outputs), every one-op case of tests/detection_cases.py,
+     and their outputs), every one-op case of models/detection_cases.py,
      and the graph refusals of print, py_func and detection_map.
 Phase 3 also holds the bf16-score variants of the attention kernels
 (check_bf16_score_kernels: forward, dQ, dK/dV, float32 and bfloat16,
 element by element, the f32-score kernel's miss of the bf16-score plain
-version printed as a ratio) and times the BN epilogue, the xent and Adam at the family's
+version printed as a ratio; with float32 inputs the f32-score backward
+kernels refused by the backward rule, and the backward without the
+rounding of dS held apart by its ratio; the forward's bound counts QK^T
+and PV, its extra max pass reported as design_ops_per_qk_dh) and times the BN epilogue, the xent and Adam at the family's
 float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
 512 (check_seq2seq_kernels).
 
@@ -1011,7 +1014,9 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
     held on the kernel's own output, two runs agree bit for bit.  The
     f32-score kernel's output held to the bf16-score plain version must miss
     it by SCORE_MUTANT_RATIO times the bf16-score kernel's mean absolute
-    difference (the rule sees the rounding); the ratio is printed.  Times
+    difference (the rule sees the rounding); the ratio is printed.  With
+    float32 inputs the backward rule must see both of its roundings too
+    (backward_rule_sees_rounding).  Times
     each kernel at [32,12,128,64] and [8,12,2048,64] bf16 beside the
     f32-score kernel at the same shape, in the same process."""
     dev = torch.device("cuda:0")
@@ -1086,6 +1091,9 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             err_kv = max(check_within("attention_bwd_dkv_bf16_scores", w, dtype, case, a, b, t,
                                       rule)
                          for w, a, b, t in zip(("dk", "dv"), (dk, dv), want[1:], allowed[1:]))
+            if dtype == torch.float32:
+                backward_rule_sees_rounding(torch, ca, args, case, out, do, (dq, dk, dv), want,
+                                            allowed)
             del want, allowed, extra
             torch.cuda.empty_cache()
             where = ATTENTION_TIMED.get((B, Lq))
@@ -1100,20 +1108,23 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             timed = {
                 "attention_fwd_bf16_scores": (
                     lambda: ca.attention_fwd(*a0, score_bf16=True),
-                    lambda: ca.attention_fwd(*a0), qkv + nbytes(out, lse), 6.0, err_f,
+                    lambda: ca.attention_fwd(*a0), qkv + nbytes(out, lse), 4.0, 6.0, err_f,
                     lambda: ca.sdpa_plain(*a0, score_bf16=True)),
                 "attention_bwd_dq_bf16_scores": (
                     lambda: ca.attention_bwd_dq(*a0, out, lse, do, score_bf16=True),
                     lambda: ca.attention_bwd_dq(*a0, out, lse32, do),
-                    qkv + nbytes(out, do, lse, dq, di), 6.0, err_q,
+                    qkv + nbytes(out, do, lse, dq, di), 6.0, 6.0, err_q,
                     lambda: ca.sdpa_bwd_dq_plain(*a0, out, do, score_bf16=True)),
                 "attention_bwd_dkv_bf16_scores": (
                     lambda: ca.attention_bwd_dkv(*a0, lse, di, do, score_bf16=True),
                     lambda: ca.attention_bwd_dkv(*a0, lse32, di32, do),
-                    qkv + nbytes(do, lse, di, dk, dv), 8.0, err_kv,
+                    qkv + nbytes(do, lse, di, dk, dv), 8.0, 8.0, err_kv,
                     lambda: ca.sdpa_bwd_dkv_plain(*a0, out, do, score_bf16=True)),
             }
-            for name, (fn, f32_fn, moved, ops, err, plain) in timed.items():
+            for name, (fn, f32_fn, moved, ops, design_ops, err, plain) in timed.items():
+                # the bound counts the function's work (forward: QK^T and PV,
+                # 4 units); the forward's first pass for the row max is the
+                # design's cost, reported beside it as design_ops_per_qk_dh
                 b_ms, b_by = attention_bound(q, k, v, False, moved, ops)
                 f32_first = time_ms(f32_fn)
                 ms = time_ms(fn)
@@ -1122,12 +1133,62 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                            plain_ms=time_ms(plain, **slow), library_ms=None,
                            library="none: no PyTorch call rounds the scores to bf16",
                            bound_ms=b_ms, bound_by=b_by, ops_per_qk_dh=ops,
+                           design_ops_per_qk_dh=design_ops,
                            shape=f"[{B},{H},{Lq},{dh}] bf16")
                 emit({"timing": name, "at": where, **rec})
                 record.setdefault(name, {})[where] = rec
         torch.cuda.empty_cache()
     return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
             for name, by_seq in record.items()}
+
+
+def unrounded_ds_grads(torch, ca, args, out, do):
+    """(dq, dk, dv) of the bf16-score plain backward with the cast's VJP
+    left out: the scores rounded, dS = P (dP - di) scale not rounded to
+    bf16.  The mutant the bf16-score backward rule must see."""
+    q, k, v, bias, causal, scale = args
+    p, _, _, keep = ca._probs_plain(q, k, bias, causal, scale, True)
+    dof = do.float()
+    ds = p * (torch.matmul(dof, v.float().transpose(-1, -2))
+              - (dof * out.float()).sum(-1, keepdim=True)) * scale
+    if keep is not None:
+        ds = torch.where(keep, ds, torch.zeros_like(ds))
+    return (torch.matmul(ds, k.float()),) + ca._dkv(p, ds, q, v, do)
+
+
+def backward_rule_sees_rounding(torch, ca, args, case, out, do, got, want, allowed):
+    """Phase 3, float32 inputs: the bf16-score backward rule sees both
+    roundings.  The f32-score dQ and dK/dV kernels (no rounding of s or of
+    dS), held to the bf16-score plain version, must exceed its rule
+    (`allowed`) in each of dq, dk and dv.  The plain backward without the
+    rounding of dS must miss the plain version by SCORE_MUTANT_RATIO times
+    the bf16-score kernels' mean absolute difference in dq and dk; its
+    worst share of the rule is printed beside it (at seq 2048 dS is small
+    beside grad_tol's 1e-4 floor, and the rule alone may admit it)."""
+    out32, lse32 = ca.attention_fwd(*args)
+    dq32, di32 = ca.attention_bwd_dq(*args, out32, lse32, do)
+    f32_score = (dq32,) + ca.attention_bwd_dkv(*args, lse32, di32, do)
+    mutant = unrounded_ds_grads(torch, ca, args, out, do)
+    rec = {"rule_refuses_unrounded_backward": case}
+    for i, what in enumerate(("dq", "dk", "dv")):
+        share = float(((f32_score[i] - want[i]).abs() / allowed[i]).max())
+        rec[f"f32_score_kernel_{what}_worst_share"] = share
+        if not share > 1.0:
+            raise AssertionError(f"attention bwd bf16 scores {case}: the rule admits the "
+                                 f"f32-score kernel's {what} (worst share {share})")
+        if what == "dv":  # dV = P^T dO holds no dS
+            continue
+        rec[f"unrounded_ds_{what}_worst_share"] = float(
+            ((mutant[i] - want[i]).abs() / allowed[i]).max())
+        mad_kernel = float((got[i].float() - want[i].float()).abs().mean())
+        mad_mutant = float((mutant[i] - want[i].float()).abs().mean())
+        ratio = mad_mutant / max(mad_kernel, 1e-30)
+        rec[f"unrounded_ds_{what}_ratio"] = ratio
+        if not ratio >= SCORE_MUTANT_RATIO:
+            raise AssertionError(f"attention bwd bf16 scores {case}: the plain backward without "
+                                 f"the rounding of dS misses the plain version by only {ratio}x "
+                                 f"the kernel's mean difference in {what}")
+    emit({**rec, "want_at_least": SCORE_MUTANT_RATIO})
 
 
 def attention_occupancy(_build):
@@ -2376,11 +2437,9 @@ def save_resnet(fluid, place, dirname, dtype, calib_feed):
 
 def resnet_serve(fluid, torch, ck, tmp, card):
     """Phase 8: bf16 ResNet-50 through AnalysisConfig / create_predictor on
-    cuda:0, REQUESTS requests at each batch of RESNET_BATCHES: the first runs
-    eagerly, the second captures a CUDA graph, the rest replay it."""
-    import numpy as np
-    from paddle_tpu_torch.core.dtypes import to_numpy
-
+    cuda:0, served by serve_requests at each batch of RESNET_BATCHES: the
+    first request runs eagerly, the second captures a CUDA graph, the rest
+    replay it; [batch, 1000] finite logits."""
     model_dir = os.path.join(tmp, "resnet50_bf16")
     t0 = time.perf_counter()
     save_resnet(fluid, fluid.CUDAPlace(0), model_dir, "bfloat16", images(32, 10))
@@ -2388,35 +2447,12 @@ def resnet_serve(fluid, torch, ck, tmp, card):
     emit({"phase": "resnet_serve", "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu",
           "setup_s": time.perf_counter() - t0, "place": repr(predictor.config.place)})
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()  # the main path's count starts here
-    fluid.monitor.reset()
-    for i, batch in enumerate(RESNET_BATCHES):
-        feed = {"img": images(batch, 20 + i)["img"]}
-        for r in range(REQUESTS):
-            before = dict(ck.LAUNCHES)
-            t0 = time.perf_counter()
-            (out,) = predictor.run(feed, return_numpy=False)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            logits = to_numpy(out)
-            t2 = time.perf_counter()
-            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-            replayed = hold_run_launches(predictor.exe, r, delta, RESNET_PER_REQUEST,
-                                         f"resnet_serve batch {batch}", "resnet_serve")
-            emit({"resnet_request": batch, "graphed": replayed, "latency_ms": (t2 - t0) * 1e3,
-                  "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3,
-                  "logits_shape": list(logits.shape),
-                  "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
-            if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
-                raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
-                                     f"{bool(np.isfinite(logits).all())}")
-    launches = dict(ck.LAUNCHES)  # read before the profiled request
-    read_monitor("resnet_serve", monitor_want(list(range(REQUESTS)) * len(RESNET_BATCHES), True),
-                 card)
+    feeds = [(batch, {"img": images(batch, 20 + i)["img"]})
+             for i, batch in enumerate(RESNET_BATCHES)]
+    launches = serve_requests(fluid, torch, ck, card, "resnet_serve", predictor, feeds,
+                              RESNET_PER_REQUEST, check_logits)
     emit({"phase": "resnet_serve", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "reserved_gb": torch.cuda.memory_reserved() / 1e9, "card": card})
-    profile_replay(torch, f"resnet request {RESNET_BATCHES[-1]}",
-                   lambda: predictor.run(feed, return_numpy=False), card, RESNET_PER_REQUEST)
     return launches
 
 
@@ -4046,55 +4082,91 @@ def vision_train(fluid, torch, ck, card, model, phase, feed, units):
     return launches, (main, startup, loss, feed, per_step)
 
 
-def vision_serve(fluid, torch, ck, tmp, card, model, phase):
-    """Phase 31-32's serving: `model` (batch-norm running statistics set to a
-    calibration batch's, as phase 8) saved by save_inference_model and
-    served through AnalysisConfig / create_predictor on cuda:0, REQUESTS
-    requests at each of VISION_SERVE_BATCHES (eager, capture, replay): every
-    request launches the BN epilogue forward once per batch norm over NCHW
-    and no other kernel; one more request profiled."""
-    import numpy as np
+def serve_requests(fluid, torch, ck, card, phase, predictor, feeds, per_request, check):
+    """REQUESTS requests of each (batch, feed) of `feeds` through `predictor`
+    (the first eager, the second captures a CUDA graph, the rest replay it):
+    each request's launches held to `per_request` (hold_run_launches), its
+    run_ms, fetch_ms and samples/s printed beside what `check(batch,
+    output)` returns (it raises on a wrong output); the monitor read; one
+    more request profiled.  The main path's count starts here; returns the
+    launches counted."""
     from paddle_tpu_torch.core.dtypes import to_numpy
 
-    per_request = VISION_PER_REQUEST[model]
-    model_dir = os.path.join(tmp, f"{model}_f32")
-    t0 = time.perf_counter()
-    main, startup, fetches = build_vision(fluid, model, with_optimizer=False)
-    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
-    exe.run(startup, scope=scope)
-    calibrate(fluid, main, exe, scope, images(16, 70))
-    fluid.io.save_inference_model(model_dir, ["img"], [fetches["logits"]], exe, main, scope)
-    del exe, scope
-    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
-    emit({"phase": phase, "model": f"{model} f32 served", "setup_s": time.perf_counter() - t0,
-          "place": repr(predictor.config.place)})
-    ck.reset_launches()  # the main path's count starts here
+    ck.reset_launches()
     fluid.monitor.reset()
-    for i, batch in enumerate(VISION_SERVE_BATCHES):
-        feed = {"img": images(batch, 80 + i)["img"]}
+    for batch, feed in feeds:
         for r in range(REQUESTS):
             before = dict(ck.LAUNCHES)
             t0 = time.perf_counter()
             (out,) = predictor.run(feed, return_numpy=False)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            logits = to_numpy(out)
+            got = to_numpy(out)
             t2 = time.perf_counter()
             delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
             replayed = hold_run_launches(predictor.exe, r, delta, per_request,
                                          f"{phase} batch {batch}", phase)
-            emit({"vision_request": model, "batch": batch, "graphed": replayed,
+            emit({"request": phase, "batch": batch, "graphed": replayed,
                   "latency_ms": (t2 - t0) * 1e3, "run_ms": (t1 - t0) * 1e3,
-                  "fetch_ms": (t2 - t1) * 1e3, "images_per_s": batch / (t2 - t0),
-                  "max_abs_logit": float(np.abs(logits).max()), "launches": delta, "card": card})
-            if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
-                raise AssertionError(f"{phase} batch {batch}: logits {logits.shape}, finite="
-                                     f"{bool(np.isfinite(logits).all())}")
+                  "fetch_ms": (t2 - t1) * 1e3, "samples_per_s": batch / (t2 - t0),
+                  **check(batch, got), "launches": delta, "card": card})
     launches = dict(ck.LAUNCHES)  # read before the profiled request
-    read_monitor(phase, monitor_want(list(range(REQUESTS)) * len(VISION_SERVE_BATCHES), True), card)
-    profile_replay(torch, f"{phase} request {VISION_SERVE_BATCHES[-1]}",
+    read_monitor(phase, monitor_want(list(range(REQUESTS)) * len(feeds), True), card)
+    batch, feed = feeds[-1]
+    profile_replay(torch, f"{phase} request {batch}",
                    lambda: predictor.run(feed, return_numpy=False), card, per_request)
     return launches
+
+
+def served_model(fluid, torch, ck, tmp, card, phase, program, inputs, make_batch, calib_batch,
+                 batches, per_request, check):
+    """A float32 model served as phases 31-32, 44 and 46 serve it:
+    `program()` gives (main, startup, output var) without an optimizer;
+    the batch norms' running statistics set to make_batch(calib_batch, 70)'s
+    (as phase 8); saved by save_inference_model with the feeds `inputs`;
+    served through AnalysisConfig / create_predictor on cuda:0 by
+    serve_requests at each of `batches` (make_batch(batch, 80 + i)).
+    Returns the launches counted."""
+    t0 = time.perf_counter()
+    main, startup, fetch = program()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    calibrate(fluid, main, exe, scope, make_batch(calib_batch, 70))
+    model_dir = os.path.join(tmp, phase)
+    fluid.io.save_inference_model(model_dir, inputs, [fetch], exe, main, scope)
+    del exe, scope
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
+    emit({"phase": phase, "setup_s": time.perf_counter() - t0,
+          "place": repr(predictor.config.place)})
+    feeds = []
+    for i, batch in enumerate(batches):
+        full = make_batch(batch, 80 + i)
+        feeds.append((batch, {k: full[k] for k in inputs}))
+    return serve_requests(fluid, torch, ck, card, phase, predictor, feeds, per_request, check)
+
+
+def check_logits(batch, logits):
+    """serve_requests' check of [batch, 1000] finite logits."""
+    import numpy as np
+
+    if logits.shape != (batch, 1000) or not np.isfinite(logits).all():
+        raise AssertionError(f"batch {batch}: logits {logits.shape}, finite="
+                             f"{bool(np.isfinite(logits).all())}")
+    return {"max_abs_logit": float(np.abs(logits).max())}
+
+
+def vision_serve(fluid, torch, ck, tmp, card, model, phase):
+    """Phases 31-32: `model` f32 served by served_model at each of
+    VISION_SERVE_BATCHES: every request launches the BN epilogue forward
+    once per batch norm over NCHW and no other kernel; [batch, 1000] finite
+    logits."""
+    def program():
+        main, startup, fetches = build_vision(fluid, model, with_optimizer=False)
+        return main, startup, fetches["logits"]
+
+    return served_model(fluid, torch, ck, tmp, card, phase, program, ["img"],
+                        images, 16, VISION_SERVE_BATCHES,
+                        VISION_PER_REQUEST[model], check_logits)
 
 
 def learning_rate(scope, names):
@@ -4956,10 +5028,9 @@ def bert_bf16_scores(fluid, torch, ck, tmp, card):
     FUSED_BF16_SCORES_PER_STEP, the graphed runs bit for bit, the loss
     falling); then served at batch 32 through create_predictor, REQUESTS
     requests (eager, capture, replay), BF16_SCORES_PER_REQUEST launches a
-    request, run_ms printed.  Returns (training launches, serving
-    launches)."""
+    request, run_ms printed, one replay profiled (serve_requests).  Returns
+    (training launches, serving launches)."""
     import numpy as np
-    from paddle_tpu_torch.core.dtypes import to_numpy
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
     trained = train(fluid, torch, ck, card, "bert_bf16_scores", True, 128, 32,
@@ -4968,26 +5039,15 @@ def bert_bf16_scores(fluid, torch, ck, tmp, card):
     save_model(fluid, torch, model_dir, "bfloat16", 12, score_dtype="bfloat16")
     predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
     feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(42))
-    ck.reset_launches()
-    fluid.monitor.reset()
-    for r in range(REQUESTS):
-        before = dict(ck.LAUNCHES)
-        t0 = time.perf_counter()
-        (out,) = predictor.run(feed, return_numpy=False)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        logits = to_numpy(out)
-        t2 = time.perf_counter()
-        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        replayed = hold_run_launches(predictor.exe, r, delta, BF16_SCORES_PER_REQUEST,
-                                     "bert_bf16_scores serve", "bert_bf16_scores_serve")
-        emit({"phase": "bert_bf16_scores", "request": 32, "graphed": replayed,
-              "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3, "launches": delta,
-              "card": card})
-        if logits.shape != (32 * 128, 30522) or not np.isfinite(logits.astype(np.float32)).all():
+
+    def check(batch, logits):
+        if logits.shape != (batch * 128, 30522) or not np.isfinite(
+                logits.astype(np.float32)).all():
             raise AssertionError(f"bert_bf16_scores serve: logits {logits.shape}")
-    served = dict(ck.LAUNCHES)
-    read_monitor("bert_bf16_scores serve", monitor_want(list(range(REQUESTS)), True), card)
+        return {}
+
+    served = serve_requests(fluid, torch, ck, card, "bert_bf16_scores_serve", predictor,
+                            [(32, feed)], BF16_SCORES_PER_REQUEST, check)
     return trained, served
 
 
@@ -5048,75 +5108,45 @@ def detection_train(fluid, torch, ck, card, model):
 
 
 def detection_serve(fluid, torch, ck, tmp, card, model):
-    """Phases 44 and 46: the model (batch norms calibrated, as phase 8)
-    saved by save_inference_model and served through AnalysisConfig /
-    create_predictor on cuda:0 with its detection head (SSD:
-    detection_output, nms_threshold 0.45; YOLOv3: yolo_box + multiclass_nms,
-    nms_top_k 1000, keep_top_k 100), REQUESTS requests at each batch
-    (eager, capture, replay): [N, keep_top_k, 6] finite detections, label -1
-    or a class; the BN epilogue once per batch norm a request, no other
-    kernel; run_ms and fetch_ms printed; one replay profiled."""
+    """Phases 44 and 46: the model served by served_model with its detection
+    head (SSD: detection_output, nms_threshold 0.45; YOLOv3: yolo_box +
+    multiclass_nms, nms_top_k 1000, keep_top_k 100) at each of its serving
+    batches: [N, keep_top_k, 6] finite detections, label -1 or a class; the
+    BN epilogue once per batch norm a request, no other kernel."""
     import numpy as np
-    from paddle_tpu_torch.core.dtypes import to_numpy
 
-    phase = f"{model}_serve"
-    batches = SSD_SERVE_BATCHES if model == "ssd" else YOLO_SERVE_BATCHES
-    per_request = SSD_PER_REQUEST if model == "ssd" else YOLO_PER_REQUEST
     keep, classes = (200, 21) if model == "ssd" else (100, 80)
-    inputs = ["img"] if model == "ssd" else ["img", "im_size"]
-    t0 = time.perf_counter()
-    main, startup, _, fetches = detection_program(fluid, model, with_optimizer=False)
-    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
-    exe.run(startup, scope=scope)
-    calibrate(fluid, main, exe, scope, detection_batch(model, 4, 70))
-    model_dir = os.path.join(tmp, phase)
-    fluid.io.save_inference_model(model_dir, inputs, [fetches["detections"]], exe, main, scope)
-    del exe, scope
-    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(model_dir))
-    emit({"phase": phase, "setup_s": time.perf_counter() - t0,
-          "place": repr(predictor.config.place)})
-    ck.reset_launches()  # the main path's count starts here
-    fluid.monitor.reset()
-    for i, batch in enumerate(batches):
-        full = detection_batch(model, batch, 80 + i)
-        feed = {k: full[k] for k in inputs}
-        for r in range(REQUESTS):
-            before = dict(ck.LAUNCHES)
-            t0 = time.perf_counter()
-            (out,) = predictor.run(feed, return_numpy=False)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            det = to_numpy(out)
-            t2 = time.perf_counter()
-            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-            replayed = hold_run_launches(predictor.exe, r, delta, per_request,
-                                         f"{phase} batch {batch}", phase)
-            labels = det[..., 0]
-            emit({"detection_request": model, "batch": batch, "graphed": replayed,
-                  "run_ms": (t1 - t0) * 1e3, "fetch_ms": (t2 - t1) * 1e3,
-                  "images_per_s": batch / (t2 - t0), "detections": int((labels >= 0).sum()),
-                  "launches": delta, "card": card})
-            ok = (det.shape == (batch, keep, 6) and np.isfinite(det).all()
-                  and np.isin(labels, np.arange(-1, classes)).all())
-            if not ok:
-                raise AssertionError(f"{phase} batch {batch}: detections {det.shape}")
-    launches = dict(ck.LAUNCHES)
-    read_monitor(phase, monitor_want(list(range(REQUESTS)) * len(batches), True), card)
-    profile_replay(torch, f"{phase} request {batches[-1]}",
-                   lambda: predictor.run(feed, return_numpy=False), card, per_request)
-    return launches
+
+    def program():
+        main, startup, _, fetches = detection_program(fluid, model, with_optimizer=False)
+        return main, startup, fetches["detections"]
+
+    def check(batch, det):
+        labels = det[..., 0]
+        if not (det.shape == (batch, keep, 6) and np.isfinite(det).all()
+                and np.isin(labels, np.arange(-1, classes)).all()):
+            raise AssertionError(f"{model}_serve batch {batch}: detections {det.shape}")
+        return {"detections": int((labels >= 0).sum())}
+
+    return served_model(
+        fluid, torch, ck, tmp, card, f"{model}_serve", program,
+        ["img"] if model == "ssd" else ["img", "im_size"],
+        lambda batch, seed: detection_batch(model, batch, seed), 4,
+        SSD_SERVE_BATCHES if model == "ssd" else YOLO_SERVE_BATCHES,
+        SSD_PER_REQUEST if model == "ssd" else YOLO_PER_REQUEST, check)
 
 
 def detection_parity(fluid, torch, card):
     """Phase 47, card against CPU, float32 (TF32 off, cuDNN deterministic):
-    the four models of tests/detection_cases.py (the SSD of
+    the four models of models/detection_cases.py (the SSD of
     tests/test_detection_train.py:548, a YOLOv3 head with a second scale,
     the Faster R-CNN second stage of :657 and the RetinaNet head of :595),
     each PARITY_STEPS Momentum steps from one numpy
     state (the card graphed): losses and every persistable within
-    DETECTION_STATE_TOL, and each one's output at the first run, from that
-    state (detections, sampled labels): labels and ids equal, boxes and
-    scores within DETECTION_OUT_TOL; every one-op case of tests/detection_cases.py (the
+    DETECTION_STATE_TOL; each one's output (detections, sampled labels):
+    labels and ids equal, boxes and scores within DETECTION_OUT_TOL at the
+    first run, from that state, and within DETECTION_STATE_TOL at the later
+    runs; every one-op case of models/detection_cases.py (the
     28 detection ops and the nn and host ops) within DETECTION_OUT_TOL of
     max(1, |CPU|), index outputs equal; plans holding print, py_func or
     detection_map refused a graph with their reason (executor._HOST_READ),
@@ -5124,8 +5154,7 @@ def detection_parity(fluid, torch, card):
     import numpy as np
     from paddle_tpu_torch.core.executor import _HOST_READ
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import detection_cases  # no JAX: the one-op cases and the four models of the CPU tests
+    from paddle_tpu_torch.models import detection_cases
 
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -5152,13 +5181,17 @@ def detection_parity(fluid, torch, card):
                 results.append((fetched, {n: scope.to_numpy(n).copy() for n in names},
                                 exe.last_plan.graph_refusal))
             (card_f, card_s, refusal), (cpu_f, cpu_s, _) = results
-            # the output at the first run, from the one numpy state (the
-            # later runs' states part by DETECTION_STATE_TOL)
+            # the output at the first run, from the one numpy state, within
+            # DETECTION_OUT_TOL; the later runs' outputs come from states
+            # that part by DETECTION_STATE_TOL, and are held by it
             hold = detection_cases.hold_close
             worst = hold(f"{name} output", cpu_f[0][1], card_f[0][1], DETECTION_OUT_TOL)
             for i, (g, c) in enumerate(zip(card_f, cpu_f)):
                 worst = max(worst, hold(f"{name} step {i} loss", c[0], g[0],
                                         DETECTION_STATE_TOL, True))
+                if i:
+                    worst = max(worst, hold(f"{name} step {i} output", c[1], g[1],
+                                            DETECTION_STATE_TOL, True))
             worst_state = max(hold(f"{name} {n}", cpu_s[n], card_s[n], DETECTION_STATE_TOL,
                                    True) for n in names)
             emit({"phase": "detection_parity", "model": name, "steps": PARITY_STEPS,

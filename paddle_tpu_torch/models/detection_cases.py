@@ -1,10 +1,13 @@
-"""The one-op cases of the detection slice (ops/detection_ops.py and the nn
-and host ops beside it), shared by tests/test_torch_detection.py and
-tests/test_torch_ops.py (against the JAX package on the CPU) and by
-chip_smoke.py's detection_parity phase (the card against the CPU): numpy
-inputs from fixed seeds, no JAX.  A case is (id, op type, inputs, attrs,
-output slots); attrs' `out_dtypes` declares output var dtypes and is not an
-attr of the op.  `run_one_op` builds and runs one case in either package."""
+"""Reduced detection programs and the one-op cases of the detection family
+(ops/detection_ops.py and the nn and host ops beside it), the data that
+holds the port against a reference: against the JAX package on the CPU
+(tests/test_torch_detection.py, tests/test_torch_ops.py) and the card
+against the CPU (chip_smoke.py's detection_parity).  Numpy inputs from
+fixed seeds; numpy only, so either package's `fluid` builds them.  A case
+is (id, op type, inputs, attrs, output slots); attrs' `out_dtypes` declares
+output var dtypes and is not an attr of the op.  `build_one_op` builds one
+case's program; MODELS maps a name to (builder, feed maker) of a reduced
+model; `hold_close` is the comparison both callers use."""
 import numpy as np
 
 r = np.random.RandomState(2015)
@@ -323,7 +326,7 @@ def _out_names(out_slots):
 
 
 def build_one_op(fluid, op_type, inputs, attrs, out_slots):
-    """The one-op program of tests/test_torch_ops.py's harness: each input
+    """The one-op program of a case: each input
     a data var, each output a var of attrs' `out_dtype` or per-slot
     `out_dtypes`, no output shapes.  Returns (program, feed, fetch names)."""
     attrs = dict(attrs)

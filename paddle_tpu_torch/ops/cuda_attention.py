@@ -162,8 +162,18 @@ SCORE_ROUNDING_RULE = ("2^-6 (|s_j| + |m|) of each term of sum_j P_j (v_j - out)
                        "|dS| |K| for dq, |dS|^T |Q| for dk, P^T |dO| for dv, at the scores whose "
                        "bf16 rounding can flip (s within eps = 2 dh 2^-24 scale |q| |k|^T + "
                        "2^-23 (|s| + |bias|) of a rounding boundary, and every score of a row "
-                       "whose max can flip); float32 inputs also 2^-7 |dS| |K| and |dS|^T "
-                       "|Q|, one bf16 step of each rounded dS")
+                       "whose max can flip); float32 inputs also 2^-7 of the terms of |dS| |K| "
+                       "and |dS|^T |Q| at the dS whose bf16 rounding can flip (P (dP - di) "
+                       "within P 2^-16 (|dO| |V|^T + rowsum(|dO| |O|)) + |P (dP - di)| "
+                       "2^-24 (2 Lk + 8 + 3 |log P|) of a rounding boundary)")
+
+
+def _near_boundary(x, xb, eps):
+    """Where the float32 `x`, rounded to bf16 as `xb`, lies within `eps` of
+    a bf16 rounding boundary (half a bf16 step from `xb`): a value that
+    differs from `x` by at most eps may round to a neighbouring bf16 value."""
+    half_ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 9)
+    return (half_ulp - (x - xb).abs()) <= eps
 
 
 def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
@@ -179,10 +189,18 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
     2^-6 (|s_j| + |m|) of 1.  The output moves by that share of the terms of
     sum_j P_j (v_j - out); each gradient by that share of the terms of its
     product (dS = P (dP - di) moves with P).  Elsewhere both sides round
-    alike: a kernel that does not round its scores is not admitted.  With
-    float32 inputs both also round each dS to bf16 from float32 values that
-    differ in their last bits, one bf16 step (2^-7 of it) apart at most; the
-    bfloat16 inputs' rule (BWD_BF16_RULE) holds that term already."""
+    alike: a kernel that does not round its scores is not admitted.
+
+    With float32 inputs both sides also round each x = P (dP - di) to bf16
+    (the cast's VJP) from float32 values that differ in their last bits:
+    dP and di are dh-term sums (each side within dh 2^-24 <= 2^-17 of the
+    sum of its terms' magnitudes, as BWD_BF16_RULE's E), and P's relative
+    error is the row sum's (at most Lk - 1 roundings of positive terms on
+    either side), the log's and exp's of its argument, within 2^-24 (2 Lk +
+    8 + 3 |log P|).  An x within that of a rounding boundary may round one
+    bf16 step (2^-7 of dS) apart; elsewhere both round alike, so a kernel
+    that does not round dS is not admitted.  The bfloat16 inputs' rule
+    (BWD_BF16_RULE) holds a step of every dS already."""
     s, keep = _scores_plain(q, k, bias, causal, scale)
     p, sb, m, _ = _probs_plain(q, k, bias, causal, scale, True)
     dh = q.shape[-1]
@@ -190,20 +208,34 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
         2.0 * dh * 2.0 ** -24 * scale) + 2.0 ** -23 * s.abs()
     if bias is not None:
         eps += 2.0 ** -23 * bias.float().abs()
-    half_ulp = torch.ldexp(torch.ones_like(s), torch.frexp(s)[1] - 9)
-    near = (half_ulp - (s - sb).abs()) <= eps
+    near = _near_boundary(s, sb, eps)
+    del eps
     if keep is not None:
         near &= keep
     near |= (near & (sb == m)).any(-1, keepdim=True)
     if keep is not None:
         near &= keep
     share = torch.where(near, (sb.abs() + m.abs()) * 2.0 ** -6, torch.zeros_like(sb))
+    del near, s
     if dout is None:
         w = p * share
         ref = sdpa_plain(q, k, v, bias, causal, scale, True).float().abs()
         return torch.matmul(w, v.float().abs()) + w.sum(-1, keepdim=True) * ref
     _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, True)
-    ads = ds.abs().mul_(share + (2.0 ** -7 if q.dtype == torch.float32 else 0.0))
+    ads = ds.abs().mul_(share)
+    if q.dtype == torch.float32:
+        do = dout.float()
+        x = p * (torch.matmul(do, v.float().transpose(-1, -2))
+                 - (do * out.float()).sum(-1, keepdim=True))
+        ado = do.abs()
+        e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
+        e += (ado * out.float().abs()).sum(-1, keepdim=True)
+        e *= p * 2.0 ** -16
+        lk = k.shape[-2]
+        e += x.abs() * (2.0 ** -24 * (2 * lk + 8 + 3 * p.clamp_min(1e-38).log().abs()))
+        near = _near_boundary(x, x.to(torch.bfloat16).float(), e)
+        del e, x
+        ads += torch.where(near, ds.abs() * 2.0 ** -7, torch.zeros_like(ds))
     return (torch.matmul(ads, k.float().abs()),
             torch.matmul(ads.transpose(-1, -2), q.float().abs()),
             torch.matmul((p * share).transpose(-1, -2), dout.float().abs()))

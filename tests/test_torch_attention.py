@@ -359,3 +359,57 @@ def test_bf16_scores_differ_from_f32_scores(dtype):
     if dtype == "float32":  # the rule admits a flip only near a rounding boundary
         allowed = FWD_TOL[dtype] + ca.score_rounding_allowed(tq, tk, tv, None, False, 1.0)
         assert ((a - b).abs() > allowed).any()
+
+
+def _bf16_score_bwd_f64(q, k, v, bias, causal, scale, out, dout):
+    """(dq, dk, dv) of the bf16-score backward in float64 (another order of
+    the same arithmetic): the scores, s - m and P (dP - di) rounded to bf16
+    from float64 values, everything else exact until the float32 result."""
+    d = torch.float64
+    s = torch.matmul(q.to(d), k.to(d).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(d)
+    keep = None
+    if causal:
+        lq, lk = s.shape[-2:]
+        keep = torch.ones(lq, lk, dtype=torch.bool).tril(lk - lq)
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    sb = s.to(torch.bfloat16).to(d)
+    e = torch.exp((sb - sb.amax(-1, keepdim=True)).to(torch.bfloat16).to(d))
+    p = e / e.sum(-1, keepdim=True)
+    do = dout.to(d)
+    x = p * (do @ v.to(d).transpose(-1, -2) - (do * out.to(d)).sum(-1, keepdim=True))
+    ds = x.to(torch.bfloat16).to(d) * scale
+    if keep is not None:
+        ds = torch.where(keep, ds, torch.zeros_like(ds))
+    return tuple(t.float() for t in (ds @ k.to(d), ds.transpose(-1, -2) @ q.to(d),
+                                     p.transpose(-1, -2) @ do))
+
+
+@pytest.mark.parametrize("case", BF16_SCORE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_score_backward_rule_sees_rounding(case):
+    """The rule chip_smoke.py holds the float32 bf16-score backward kernels
+    by (grad_tol + score_rounding_allowed) sees both roundings: the
+    f32-score backward exceeds it in dq, dk and dv, and the bf16-score
+    backward without the rounding of dS (chip_smoke.unrounded_ds_grads)
+    exceeds it in dq and dk, while the same backward computed in float64
+    (another order of the same roundings) stays within it."""
+    import chip_smoke
+
+    B, H, Lq, Lk, dh, bias_kind, causal = case
+    q, k, v, g, bias = _inputs(np.random.RandomState(10), B, H, Lq, Lk, dh, "float32",
+                               bias_kind)
+    tq, tk, tv, tg = (to_tensor(np.asarray(a)) for a in (q, k, v, g))
+    args = (tq, tk, tv, None if bias is None else to_tensor(np.asarray(bias)), causal,
+            1.0 / np.sqrt(dh))
+    out = ca.sdpa_plain(*args, score_bf16=True)
+    want = ca.sdpa_bwd_plain(*args, out, tg, score_bf16=True)
+    allowed = [_grad_tol("float32", w.numpy()) + e
+               for w, e in zip(want, ca.score_rounding_allowed(*args, out, tg))]
+
+    def worst(got):
+        return [float(((a - w).abs() / t).max()) for a, w, t in zip(got, want, allowed)]
+
+    assert max(worst(_bf16_score_bwd_f64(*args, out, tg))) <= 1.0
+    assert min(worst(ca.sdpa_bwd_plain(*args, ca.sdpa_plain(*args), tg))) > 1.0
+    assert min(worst(chip_smoke.unrounded_ds_grads(torch, ca, args, out, tg))[:2]) > 1.0

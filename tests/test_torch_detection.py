@@ -23,8 +23,8 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.core import unique_name as j_unique
 from paddle_tpu_torch.core import unique_name as t_unique
+from paddle_tpu_torch.models import detection_cases as _cases
 from paddle_tpu_torch.ops import cuda_kernels as ck
-import detection_cases as _cases
 from test_torch_ops import _grads, _out_names, _run
 
 PKGS = {"jax": (jfluid, j_unique), "torch": (tfluid, t_unique)}

@@ -10,8 +10,8 @@ import torch
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.core.dtypes import canonical_dtype as j_canon
+from paddle_tpu_torch.models import detection_cases as _cases
 from paddle_tpu_torch.ops import cuda_kernels as ck
-import detection_cases as _cases
 
 
 def _out_names(out_slots):
@@ -766,7 +766,7 @@ GRAD_CASES += [
 ]
 
 
-# the nn and host ops of the detection slice (ROADMAP A8.6): tests/detection_cases.py
+# the nn and host ops of the detection slice (ROADMAP A8.6): paddle_tpu_torch/models/detection_cases.py
 SLICE15_CASES = _cases.NN_CASES
 H32, r15 = _cases.H32, _cases.r15
 CASES += SLICE15_CASES
