@@ -255,8 +255,12 @@ Phase 3 also holds the bf16-score variants of the attention kernels
 element by element, the f32-score kernel's miss of the bf16-score plain
 version printed as a ratio; with float32 inputs the f32-score backward
 kernels refused by the backward rule, and the backward without the
-rounding of dS held apart by its ratio; the forward's bound counts QK^T
-and PV, its extra max pass reported as design_ops_per_qk_dh) and times the BN epilogue, the xent and Adam at the family's
+rounding of dS held apart by its ratio; the bf16-input forward, a
+warpgroup kernel of its own, at every path of its plan: dh 16 to 128, one
+CTA, clusters of 2 to 8 and a recomputed tail, each case's path printed
+and held to the kernel's; the forward's bound counts QK^T and PV, what a
+design does beyond it reported as design_ops_per_qk_dh) and times the BN
+epilogue, the xent and Adam at the family's
 float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
 512 (check_seq2seq_kernels).
 
@@ -324,10 +328,11 @@ KERNEL_INFO = {
         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (row 12c, stock dQ)"),
     "bn_epilogue_fwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:271"),
     "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
-    # the bf16-score variants (kBS) of the three attention kernels: the JAX
-    # composite's score_dtype="bfloat16" (paddle_tpu/ops/nn_ops.py:680-684)
+    # the bf16-score kernels, the JAX composite's score_dtype="bfloat16"
+    # (paddle_tpu/ops/nn_ops.py:680-684): the forward of bf16 inputs a kernel
+    # of its own, the backward kernels' kBS variants
     "attention_fwd_bf16_scores": (
-        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu_torch/csrc/attention_fwd_bs.cu",
         "paddle_tpu/ops/pallas_attention.py:193 (row 10, _fused_sdpa_fwd), bf16-score variant"),
     "attention_bwd_dq_bf16_scores": (
         "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -351,6 +356,8 @@ KERNEL_KEY = {"ln_residual_fwd": "ln_residual_fwd", "ln_residual_bwd": "ln_resid
               "softmax_xent_fwd": "softmax_xent_fwd", "softmax_xent_bwd": "softmax_xent_bwd",
               "adam": "adam", "attention_fwd": "attention_fwd",
               "attention_bwd_dq": "attention_bwd_dq", "attention_bwd_dkv": "attention_bwd_dkv",
+              # the bf16-score forward of bf16 inputs, a kernel of its own
+              "attention_fwd_bf16_scores": "attention_fwd_bf16_scores",
               "epilogue_fwd": "bn_epilogue_fwd", "epilogue_bwd": "bn_epilogue_bwd"}
 # launches per request of BERT-base (12 layers) served with fused attention:
 # every LN, every GELU and every attention is a kernel; no backward kernel runs
@@ -990,13 +997,28 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
 
 
 # bf16-score cases of phase 3: the BERT-base shapes at seq 128 and 2048,
-# causal with Lq < Lk and Lq > Lk, a bias (B, H, Lq, Lk, dh, bias, causal)
+# causal with Lq < Lk and Lq > Lk, a bias (B, H, Lq, Lk, dh, bias, causal);
+# then every path of the bf16-score forward (ca.bf16_score_fwd_plan): dh 16,
+# 32 and 128, dh 128 over a cluster of 8 (causal, bias broadcast over heads),
+# one key past one CTA's score buffer (513 at dh 64: a cluster of 2, its
+# last tile one key), keys past what the largest cluster holds (4196: each
+# CTA recomputes a tile; a per-head bias, so that a row leans on few keys
+# and float32's flat 1e-4 can see the rounding of its scores, which 4196
+# keys of unbiased scores average away), and causal with Lq > Lk over a
+# cluster
 BF16_SCORE_CASES = [
     (32, 12, 128, 128, 64, None, False),
     (8, 12, 2048, 2048, 64, None, False),
     (2, 12, 128, 512, 64, None, True),
     (2, 12, 200, 72, 64, None, True),
     (32, 12, 128, 128, 64, "per_head", False),
+    (4, 12, 96, 200, 16, None, False),
+    (4, 12, 128, 128, 32, None, False),
+    (4, 12, 128, 128, 128, None, False),
+    (2, 12, 128, 2048, 128, "bcast", True),
+    (2, 12, 128, 513, 64, None, False),
+    (1, 4, 128, 4196, 64, "per_head", False),
+    (1, 4, 700, 600, 64, None, True),
 ]
 # the rule must see the rounding: the f32-score kernel, held to the
 # bf16-score plain version, misses it by at least this many times the mean
@@ -1018,7 +1040,13 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
     float32 inputs the backward rule must see both of its roundings too
     (backward_rule_sees_rounding).  Times
     each kernel at [32,12,128,64] and [8,12,2048,64] bf16 beside the
-    f32-score kernel at the same shape, in the same process."""
+    f32-score kernel at the same shape, in the same process.  Prints the
+    path the bf16-score forward takes at each case (bf16_score_fwd_plan), and
+    holds that plan to the kernel's own (ptt_attention_fwd_bs_plan)."""
+    import ctypes
+
+    from paddle_tpu_torch import _build
+
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(14)
 
@@ -1037,6 +1065,15 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             scale = dh ** -0.5
             args = (q, k, v, bias, causal, scale)
             case = f"[{B},{H},{Lq},{dh}] x {Lk} bias={bias_kind} causal={causal} bf16 scores"
+            plan = ca.bf16_score_fwd_plan(Lk, dh)
+            if dtype == torch.bfloat16:
+                got = (ctypes.c_int * 4)()
+                _build.call("ptt_attention_fwd_bs_plan", Lk, dh, got)
+                emit({"bf16_score_fwd_path": case, **plan, "kernel_plan": list(got)})
+                if list(got) != [plan[k] for k in ("cluster", "per_cta", "buffered",
+                                                   "recomputed")]:
+                    raise AssertionError(f"bf16_score_fwd_plan {plan} is not the kernel's "
+                                         f"{list(got)} at {case}")
             out, lse = ca.attention_fwd(*args, score_bf16=True)
             dq, di = ca.attention_bwd_dq(*args, out, lse, do, score_bf16=True)
             dk, dv = ca.attention_bwd_dkv(*args, lse, di, do, score_bf16=True)
@@ -1105,10 +1142,12 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             a0 = (q, k, v, None, False, scale)
             lse32 = ca.attention_fwd(*a0)[1]
             di32 = ca.attention_bwd_dq(*a0, out, lse32, do)[1]
+            # the forward's design: QK^T of a recomputed tile runs three times
+            fwd_ops = 4.0 + 4.0 * plan["recomputed"] / plan["per_cta"]
             timed = {
                 "attention_fwd_bf16_scores": (
                     lambda: ca.attention_fwd(*a0, score_bf16=True),
-                    lambda: ca.attention_fwd(*a0), qkv + nbytes(out, lse), 4.0, 6.0, err_f,
+                    lambda: ca.attention_fwd(*a0), qkv + nbytes(out, lse), 4.0, fwd_ops, err_f,
                     lambda: ca.sdpa_plain(*a0, score_bf16=True)),
                 "attention_bwd_dq_bf16_scores": (
                     lambda: ca.attention_bwd_dq(*a0, out, lse, do, score_bf16=True),
@@ -1123,8 +1162,9 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             }
             for name, (fn, f32_fn, moved, ops, design_ops, err, plain) in timed.items():
                 # the bound counts the function's work (forward: QK^T and PV,
-                # 4 units); the forward's first pass for the row max is the
-                # design's cost, reported beside it as design_ops_per_qk_dh
+                # 4 units); what a design does beyond it (the backward's
+                # recomputed S and dP, a forward's recomputed tiles) is
+                # reported beside it as design_ops_per_qk_dh
                 b_ms, b_by = attention_bound(q, k, v, False, moved, ops)
                 f32_first = time_ms(f32_fn)
                 ms = time_ms(fn)
@@ -1135,6 +1175,8 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                            bound_ms=b_ms, bound_by=b_by, ops_per_qk_dh=ops,
                            design_ops_per_qk_dh=design_ops,
                            shape=f"[{B},{H},{Lq},{dh}] bf16")
+                if name == "attention_fwd_bf16_scores":
+                    rec["path"] = plan
                 emit({"timing": name, "at": where, **rec})
                 record.setdefault(name, {})[where] = rec
         torch.cuda.empty_cache()
@@ -5279,7 +5321,8 @@ def main():
     emit({"phase": "build", "seconds": info["seconds"]})
     print("\n".join(line for line in info["log"].splitlines()
                     if "Used" in line or "spill" in line or "entry function" in line
-                    or line.startswith("==")), flush=True)
+                    or "Potential Performance Loss" in line or line.startswith("==")),
+          flush=True)
     attention_occupancy(_build)
 
     timings = check_kernels(torch, ck)

@@ -51,6 +51,7 @@ SIGNATURES = {
     "ptt_attention_bwd_dq": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),
     "ptt_attention_bwd_dkv": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),
     "ptt_attention_occupancy": ([_I, _I, _I, _I, _P], _I),
+    "ptt_attention_fwd_bs_plan": ([_I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -35,7 +35,9 @@ class Variable:
         stop_gradient: bool = False,
         trainable: bool = False,
         is_data: bool = False,
+        initializer=None,
         regularizer=None,
+        error_clip=None,
     ):
         self.block = block
         self.name = name
@@ -46,7 +48,9 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.trainable = trainable
         self.is_data = is_data
+        self.initializer = initializer
         self.regularizer = regularizer
+        self.error_clip = error_clip
 
     @property
     def program(self) -> "Program":

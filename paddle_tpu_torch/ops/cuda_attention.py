@@ -19,9 +19,13 @@ query i when c <= i + (Lk - Lq), masked scores are -1e30.
 (paddle_tpu/ops/nn_ops.py:680-684), for float32 and bfloat16 inputs alike:
 s is rounded to bf16, the row max m is taken over the rounded scores, and
 P = exp(f32(bf16(s - m))) / sum, the sum in float32.  Its kernels are the
-same three with a compile-time variant (csrc/flash_attention.cu kBS), which
-count under `LAUNCHES["attention_fwd_bf16_scores"]` and so on; their saved
-statistics are [2, B, H, Lq]: log of the row sum, and m.
+same backward kernels with a compile-time variant (csrc/flash_attention.cu
+kBS), and for bfloat16 inputs a forward kernel of its own
+(csrc/attention_fwd_bs.cu: wgmma fed by TMA, each score computed once and
+kept on chip, long rows split over a thread-block cluster, see
+`bf16_score_fwd_plan`; float32 inputs take flash_attention.cu's float32
+twin).  They count under `LAUNCHES["attention_fwd_bf16_scores"]` and so on;
+their saved statistics are [2, B, H, Lq]: log of the row sum, and m.
 """
 from __future__ import annotations
 
@@ -31,6 +35,31 @@ from .. import _build
 from .cuda_kernels import LAUNCHES, _DTYPE_CODE, _ptr, check_operand, on_card, stream_ptr
 
 _HEAD_DIMS = (16, 32, 64, 128)
+# the bf16-score forward (csrc/attention_fwd_bs.cu): keys a tile, score tiles
+# one CTA's buffer holds (by head dim), the largest cluster
+_BS_TILE = 64
+_BS_BUF_TILES = {16: 8, 32: 8, 64: 8, 128: 4}
+_BS_MAX_CLUSTER = 8
+
+
+def bf16_score_fwd_plan(lk, dh):
+    """The path the bf16-score forward of bfloat16 inputs takes at key length
+    `lk` (csrc/attention_fwd_bs.cu plan_of, which ptt_attention_fwd_bs_plan
+    reports): `cluster` CTAs (the least power of 2 whose score buffers hold
+    the row's key tiles, at most 8) share each block of 64 query rows, each
+    takes at most `per_cta` key tiles of 64, keeps `buffered` of them on
+    chip and recomputes the other `recomputed` in its later passes."""
+    if dh not in _BS_BUF_TILES or lk < 1:
+        raise ValueError(f"bf16_score_fwd_plan: head dim {dh}, key length {lk}")
+    tiles = -(-lk // _BS_TILE)
+    buf = _BS_BUF_TILES[dh]
+    need = -(-tiles // buf)
+    cluster = 1
+    while cluster < need and cluster < _BS_MAX_CLUSTER:
+        cluster *= 2
+    per = -(-tiles // cluster)
+    kept = min(per, buf)
+    return {"cluster": cluster, "per_cta": per, "buffered": kept, "recomputed": per - kept}
 
 
 def _scores_plain(q, k, bias, causal, scale):

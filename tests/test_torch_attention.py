@@ -296,6 +296,49 @@ def _composite_bf16_scores(q, k, v, bias, causal, scale, stop_max=False):
     return out.astype(q.dtype)
 
 
+# the bf16-score forward's path (csrc/attention_fwd_bs.cu plan_of) at key
+# length Lk and head dim dh: (cluster, per_cta, buffered, recomputed)
+BS_PLANS = [
+    (1, 64, (1, 1, 1, 0)),
+    (128, 64, (1, 2, 2, 0)),       # BERT at seq 128: one CTA keeps every score
+    (512, 64, (1, 8, 8, 0)),       # one CTA's buffer, full
+    (513, 64, (2, 5, 5, 0)),       # one key past it: a cluster of 2
+    (2048, 64, (4, 8, 8, 0)),      # BERT at seq 2048
+    (4096, 64, (8, 8, 8, 0)),      # what the largest cluster holds
+    (4196, 64, (8, 9, 8, 1)),      # past it: each CTA recomputes a tile
+    (2048, 128, (8, 4, 4, 0)),     # dh 128 keeps 4 tiles a CTA
+    (2049, 128, (8, 5, 4, 1)),
+    (200, 16, (1, 4, 4, 0)),
+    (600, 32, (2, 5, 5, 0)),
+]
+
+
+@pytest.mark.parametrize("lk,dh,want", BS_PLANS, ids=lambda c: str(c))
+def test_bf16_score_fwd_plan(lk, dh, want):
+    """The Python mirror of the kernel's plan (chip_smoke.py holds it to the
+    kernel's own, ptt_attention_fwd_bs_plan)."""
+    got = ca.bf16_score_fwd_plan(lk, dh)
+    assert (got["cluster"], got["per_cta"], got["buffered"], got["recomputed"]) == want
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_bf16_score_fwd_plan_covers_every_key_with_the_least_cluster(dh):
+    """At every key length: the cluster is a power of 2 up to 8, its CTAs
+    take every key tile, each keeps what its buffer holds and recomputes
+    the rest, and no smaller cluster would have held the row."""
+    buf = {16: 8, 32: 8, 64: 8, 128: 4}[dh]
+    for lk in range(1, 9000, 7):
+        p = ca.bf16_score_fwd_plan(lk, dh)
+        tiles, c = -(-lk // 64), p["cluster"]
+        assert c in (1, 2, 4, 8) and c * p["per_cta"] >= tiles > c * (p["per_cta"] - 1)
+        assert p["buffered"] == min(p["per_cta"], buf)
+        assert p["recomputed"] == p["per_cta"] - p["buffered"]
+        assert c == 1 or (c // 2) * buf < tiles
+        assert p["recomputed"] == 0 or c == 8
+    with pytest.raises(ValueError):
+        ca.bf16_score_fwd_plan(128, 48)
+
+
 BF16_SCORE_CASES = [  # (B, H, Lq, Lk, dh, bias, causal)
     (2, 2, 32, 32, 16, None, False),
     (2, 2, 24, 40, 16, "per_head", True),   # causal with Lq < Lk, a bias

@@ -774,6 +774,28 @@ def test_param_attr_regularizer_wins_and_clip_param_list_limits_the_clip():
     assert sorted(op["attrs"]["scale"] for op in ops if op["type"] == "scale") == [0.1, 0.5, 0.5, 0.5]
 
 
+@pytest.mark.parametrize("keyword", ["initializer", "error_clip"])
+def test_create_var_and_parameter_keep_initializer_and_error_clip(keyword):
+    """ROADMAP C4: `Block.create_var` and `create_parameter` take
+    `initializer=` and `error_clip=` and keep them as attributes, as the
+    JAX package does; the programs' `to_dict` agree."""
+    def build(pkg):
+        fluid = pkg["fluid"]
+        value = {"initializer": fluid.initializer.ConstantInitializer(0.5),
+                 "error_clip": fluid.clip.ErrorClipByValue(1.0)}[keyword]
+        main = fluid.Program()
+        block = main.global_block()
+        v = block.create_var(name="v", shape=[2, 3], dtype="float32", **{keyword: value})
+        p = block.create_parameter("p", [3], "float32", **{keyword: value})
+        assert getattr(v, keyword) is value and getattr(p, keyword) is value
+        other = {"initializer": "error_clip", "error_clip": "initializer"}[keyword]
+        assert getattr(v, other) is None and getattr(p, other) is None
+        return main.to_dict()
+
+    progs = _both(build)
+    assert progs["torch"] == progs["jax"]
+
+
 # --- checkpoints across the packages -------------------------------------------
 
 def _fit_a_line(pkg, seed=0, lr=0.05):

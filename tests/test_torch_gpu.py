@@ -533,6 +533,37 @@ def test_attention_forward_kernel_at_its_edges_on_card(case, dtype):
     assert ((lse - ref).abs() <= 1e-5 * (1.0 + ref.abs())).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [513, 4196])
+def test_bf16_score_forward_across_its_buffers_on_card(lk):
+    """The bf16-score forward of bf16 inputs where a row's keys straddle its
+    buffers: 513 keys (one past one CTA's score buffer: a cluster of 2, its
+    last tile one key) and 4196 (past what a cluster of 8 holds: each CTA
+    recomputes a tile), ragged query rows.  out against sdpa_plain with bf16
+    scores element by element (FWD_BF16_RULE + SCORE_ROUNDING_RULE), the row
+    maxima within one bf16 step of the plain version's, two runs bit for
+    bit, one launch a call."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(1, 4, 100, 64, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 4, lk, 64, generator=g, device="cuda").bfloat16() for _ in range(2))
+    args = (q, k, v, None, False, 0.125)
+    before = dict(ck.LAUNCHES)
+    out, stats = ca.attention_fwd(*args, score_bf16=True)
+    assert {n: ck.LAUNCHES[n] - before[n] for n in before} == dict(
+        NO_LAUNCHES, attention_fwd_bf16_scores=1)
+    want = ca.sdpa_plain(*args, score_bf16=True)
+    allowed = (ca.sdpa_fwd_bf16_allowed(*args, want, score_bf16=True)
+               + ca.score_rounding_allowed(*args))
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    assert ((out.float() - want.float()).abs() <= allowed).all()
+    m = ca._probs_plain(q, k, None, False, 0.125, True)[2][..., 0]
+    assert stats.shape == (2, 1, 4, 100)
+    assert ((stats[1] - m).abs() <= 2.0 ** -7 * m.abs()).all()
+    again = ca.attention_fwd(*args, score_bf16=True)
+    assert torch.equal(out, again[0]) and torch.equal(stats, again[1])
+
+
 # the cross-entropy forward at its edges: one row, a few columns, V below and
 # above the block's vectors, odd V (bf16 rows off the 16-byte grid), BERT's
 # vocabulary at seq 128 and 2048

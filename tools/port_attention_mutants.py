@@ -21,6 +21,17 @@ at seq 2048, no bias, not causal):
     64 queries;
   - dq_skips_last_key_tile: the dQ kernel stops before its last tile of 64
     keys.
+The bf16-score forward's mutants (csrc/attention_fwd_bs.cu) run
+chip_smoke.check_bf16_score_kernels, bf16, each at two shapes: [8, 12,
+2048, 64] (a cluster of 4, 8 buffered tiles a CTA) and [2, 12, 128, 64] x
+513 keys (one key past one CTA's score buffer: a cluster of 2, the last
+tile one key):
+  - bs_fwd_score_pass_skips_last_tile: the score pass leaves out each CTA's
+    last key tile (its row maxima and its buffered scores);
+  - bs_fwd_output_reads_neighbouring_tile: the output pass reads the next
+    tile of the score buffer;
+  - bs_fwd_drops_peer_partial: the cluster's sum of partial P V leaves out
+    the last CTA's.
 The row-wise mutants run one call at the BERT-base training shape, bf16,
 [4096, 3072] gelu for the bias+activation backward, [4096, 768] with a
 residual for the LayerNorm forward and [4096, 30522] with MLM labels (85%
@@ -53,6 +64,7 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTENTION = "paddle_tpu_torch/csrc/flash_attention.cu"
+BS_FWD = "paddle_tpu_torch/csrc/attention_fwd_bs.cu"
 BIAS_ACT = "paddle_tpu_torch/csrc/bias_act.cu"
 LAYER_NORM = "paddle_tpu_torch/csrc/ln_residual.cu"
 XENT = "paddle_tpu_torch/csrc/softmax_xent.cu"
@@ -97,7 +109,20 @@ MUTANTS = {
     "xent_fwd_drops_last_chunk": (
         XENT, "    if (i < n_vec) {\n      dst[k] = body[i];\n",
         "    if (i < n_vec - 1) {\n      dst[k] = body[i];\n"),
+    "bs_fwd_score_pass_skips_last_tile": _after(
+        BS_FWD, "    st_cur = st_nxt;\n", "    if (i == n - 1) return;\n"),
+    "bs_fwd_output_reads_neighbouring_tile": (
+        BS_FWD, "  auto make_p = [&](int i, uint32_t (&pa)[16]) {\n    if (i < nb) {\n"
+                "      load_words(i, w);\n",
+        "  auto make_p = [&](int i, uint32_t (&pa)[16]) {\n    if (i < nb) {\n"
+        "      load_words((i + 1) % nb, w);\n"),
+    "bs_fwd_drops_peer_partial": (
+        BS_FWD, "      for (int x = 0; x < C; ++x) {  // the cluster's partial P V, in rank order\n",
+        "      for (int x = 0; x < C - 1; ++x) {\n"),
 }
+# the shapes each bf16-score forward mutant runs at, by suffix
+BS_CASES = {"seq2048": (8, 12, 2048, 2048, 64, None, False),
+            "lk513": (2, 12, 128, 513, 64, None, False)}
 CHECK_ATTENTION = (
     "import torch, chip_smoke\n"
     "from paddle_tpu_torch.ops import cuda_attention as ca\n"
@@ -148,9 +173,14 @@ if bad:
 """
 
 
-def check_code(source):
+def check_code(source, case=None):
     if source == ATTENTION:
         return CHECK_ATTENTION
+    if source == BS_FWD:
+        return ("import torch, chip_smoke\n"
+                "from paddle_tpu_torch.ops import cuda_attention as ca\n"
+                f"chip_smoke.check_bf16_score_kernels(torch, ca, cases=[{case!r}], "
+                "dtypes=('bfloat16',))\n")
     kernel = {BIAS_ACT: "bias_act_bwd", LAYER_NORM: "ln_residual_fwd",
               XENT: "softmax_xent_fwd"}[source]
     return f"KERNEL = {kernel!r}\n" + CHECK_ROWWISE
@@ -186,12 +216,24 @@ def run_in_copy(edits, code, timeout=900, source=ATTENTION):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def runs(names):
+    """(run name, mutant, its check code): a bf16-score forward mutant once
+    for each of BS_CASES."""
+    for name in names:
+        source = MUTANTS[name][0]
+        if source == BS_FWD:
+            for suffix, case in BS_CASES.items():
+                yield f"{name}@{suffix}", name, check_code(source, case)
+        else:
+            yield name, name, check_code(source)
+
+
 def main():
     names = sys.argv[1:] or list(MUTANTS)
     rejected_all = True
-    for name in names:
+    for run_name, name, code in runs(names):
         source, old, new = MUTANTS[name]
-        run = run_in_copy([(old, new)], check_code(source), source=source)
+        run = run_in_copy([(old, new)], code, source=source)
         records = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
         checks = [r for r in records if r.get("check", "").startswith("attention_")
                   or "worst_share_of_allowed" in r and "kernel" in r]
@@ -199,7 +241,7 @@ def main():
         rejected = run.returncode != 0 and error.startswith("AssertionError") and (
             "exceeds" in error)
         rejected_all &= rejected
-        print(json.dumps({"mutant": name, "rejected": rejected, "returncode": run.returncode,
+        print(json.dumps({"mutant": run_name, "rejected": rejected, "returncode": run.returncode,
                           "checks": checks, "error": error[:400]}), flush=True)
     return 0 if rejected_all else 1
 
