@@ -238,8 +238,9 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      dynamic_lstmp, lstm, warpctc, a StaticRNN, cond and the arrays; the
      cond and array plans refused a CUDA graph with their reason;
  42. bert_bf16_scores: phase 12 with attention_score_dtype="bfloat16"
-     (launches FUSED_BF16_SCORES_PER_STEP: the kernels' bf16-score
-     variants), graphed runs bitwise equal; served at batch 32, run_ms;
+     (launches FUSED_BF16_SCORES_PER_STEP: the bf16-score kernels), graphed
+     runs bitwise equal; served at batch 32, run_ms; then phase 13 with bf16
+     scores (8 x 2048, graphed), its warm step beside phase 13's;
  43-46. ssd_train, ssd_serve, yolov3_train, yolov3_serve: MobileNet-SSD
      (300 x 300, 21 classes, batch 64, RMSProp) and YOLOv3 on DarkNet-53
      (608 x 608, 80 classes, batch 8, Momentum + L2Decay), f32, eager then
@@ -258,8 +259,10 @@ kernels refused by the backward rule, and the backward without the
 rounding of dS held apart by its ratio; the bf16-input forward, a
 warpgroup kernel of its own, at every path of its plan: dh 16 to 128, one
 CTA, clusters of 2 to 8 and a recomputed tail, each case's path printed
-and held to the kernel's; the forward's bound counts QK^T and PV, what a
-design does beyond it reported as design_ops_per_qk_dh) and times the BN
+and held to the kernel's; the bf16-input dQ and dK/dV, warpgroup kernels
+of their own, at every tile edge of theirs; the forward's bound counts QK^T
+and PV, what a design does beyond it reported as design_ops_per_qk_dh) and
+times the BN
 epilogue, the xent and Adam at the family's
 float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
 512 (check_seq2seq_kernels).
@@ -329,16 +332,16 @@ KERNEL_INFO = {
     "bn_epilogue_fwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:271"),
     "bn_epilogue_bwd": ("paddle_tpu_torch/csrc/bn_epilogue.cu", "paddle_tpu/ops/pallas_kernels.py:288"),
     # the bf16-score kernels, the JAX composite's score_dtype="bfloat16"
-    # (paddle_tpu/ops/nn_ops.py:680-684): the forward of bf16 inputs a kernel
-    # of its own, the backward kernels' kBS variants
+    # (paddle_tpu/ops/nn_ops.py:680-684), each of bf16 inputs a warpgroup
+    # kernel of its own
     "attention_fwd_bf16_scores": (
         "paddle_tpu_torch/csrc/attention_fwd_bs.cu",
         "paddle_tpu/ops/pallas_attention.py:193 (row 10, _fused_sdpa_fwd), bf16-score variant"),
     "attention_bwd_dq_bf16_scores": (
-        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu_torch/csrc/attention_bwd_bs.cu",
         "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dq), bf16-score variant"),
     "attention_bwd_dkv_bf16_scores": (
-        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu_torch/csrc/attention_bwd_bs.cu",
         "paddle_tpu/ops/pallas_attention.py:221 (row 11, _fused_sdpa_bwd: dk, dv), bf16-score "
         "variant"),
 }
@@ -349,15 +352,18 @@ PORT_KERNEL = re.compile(
 # such a kernel's LAUNCHES key (the column sums belong to the LN and bias-act
 # backward launches that start them)
 KERNEL_OF = re.compile(r"::(\w+?)(?:_f32)?_kernel\b")
-# an attention kernel's bf16-score instantiation (template arguments <DH, true>)
+# an attention kernel's bf16-score instantiation (template arguments <DH, true>:
+# the float32 twins; the bf16-input kernels carry the suffix in their names)
 BF16_SCORES_OF = re.compile(r"attention_\w+_kernel<\d+,\s*(?:true|1)>")
 KERNEL_KEY = {"ln_residual_fwd": "ln_residual_fwd", "ln_residual_bwd": "ln_residual_bwd",
               "bias_act_fwd": "bias_act_fwd", "bias_act_bwd": "bias_act_bwd",
               "softmax_xent_fwd": "softmax_xent_fwd", "softmax_xent_bwd": "softmax_xent_bwd",
               "adam": "adam", "attention_fwd": "attention_fwd",
               "attention_bwd_dq": "attention_bwd_dq", "attention_bwd_dkv": "attention_bwd_dkv",
-              # the bf16-score forward of bf16 inputs, a kernel of its own
+              # the bf16-score kernels of bf16 inputs, kernels of their own
               "attention_fwd_bf16_scores": "attention_fwd_bf16_scores",
+              "attention_bwd_dq_bf16_scores": "attention_bwd_dq_bf16_scores",
+              "attention_bwd_dkv_bf16_scores": "attention_bwd_dkv_bf16_scores",
               "epilogue_fwd": "bn_epilogue_fwd", "epilogue_bwd": "bn_epilogue_bwd"}
 # launches per request of BERT-base (12 layers) served with fused attention:
 # every LN, every GELU and every attention is a kernel; no backward kernel runs
@@ -371,8 +377,9 @@ PER_STEP = dict(NONE, ln_residual_fwd=25, ln_residual_bwd=25, bias_act_fwd=12, b
 # with fused attention each of the 12 layers adds one attention forward and
 # one each of its backward kernels (one backward region: the forward runs once)
 FUSED_PER_STEP = dict(PER_STEP, attention_fwd=12, attention_bwd_dkv=12, attention_bwd_dq=12)
-# phase 42: FUSED_PER_STEP with score_dtype="bfloat16": the kernels' bf16-score
-# variants in place of the attention kernels, 12 of each a step
+# phase 42: FUSED_PER_STEP with score_dtype="bfloat16": the bf16-score
+# kernels in place of the attention kernels, 12 of each a step (at seq 128
+# and, in its long arm, at seq 2048)
 FUSED_BF16_SCORES_PER_STEP = dict(PER_STEP, attention_fwd_bf16_scores=12,
                                   attention_bwd_dkv_bf16_scores=12,
                                   attention_bwd_dq_bf16_scores=12)
@@ -492,7 +499,7 @@ VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
 VISION_PARITY_SIZE = 64
 # the path whose count a kernel's `launches` reports: this slice's first
 LAUNCH_ORDER = ("bert_bf16_scores", "ssd_train", "yolov3_train", "ssd_serve", "yolov3_serve",
-                "bert_bf16_scores_serve", "train_lamb", "resnet_lars", "seq2seq_train",
+                "bert_bf16_scores_serve", "bert_bf16_scores_long", "train_lamb", "resnet_lars", "seq2seq_train",
                 "se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
                 "se_resnext_serve", "vgg_serve", "nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
@@ -1005,7 +1012,13 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
 # CTA recomputes a tile; a per-head bias, so that a row leans on few keys
 # and float32's flat 1e-4 can see the rounding of its scores, which 4196
 # keys of unbiased scores average away), and causal with Lq > Lk over a
-# cluster
+# cluster; then the tile edges of the backward (attention_bwd_bs.cu: 64
+# rows a CTA, 64-row streamed tiles, dK/dV 32 queries a step at dh 128): one
+# row past a CTA's own rows and a streamed tile at dh 64 (65) and dh 128
+# (129), causal with Lq <= Lk at dh 128 whose dK/dV CTAs skip their first
+# query tiles (four of five at the last keys), causal with Lq > Lk at dh 128
+# with a bias (rows with no visible key, the 32-query steps), and one
+# ragged tile each way at dh 16
 BF16_SCORE_CASES = [
     (32, 12, 128, 128, 64, None, False),
     (8, 12, 2048, 2048, 64, None, False),
@@ -1019,6 +1032,11 @@ BF16_SCORE_CASES = [
     (2, 12, 128, 513, 64, None, False),
     (1, 4, 128, 4196, 64, "per_head", False),
     (1, 4, 700, 600, 64, None, True),
+    (4, 12, 65, 65, 64, None, False),
+    (2, 12, 129, 129, 128, None, False),
+    (2, 4, 320, 384, 128, None, True),
+    (2, 4, 100, 70, 128, "per_head", True),
+    (8, 12, 40, 24, 16, None, False),
 ]
 # the rule must see the rounding: the f32-score kernel, held to the
 # bf16-score plain version, misses it by at least this many times the mean
@@ -1170,6 +1188,7 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                 ms = time_ms(fn)
                 f32_ms = (f32_first + time_ms(f32_fn)) / 2
                 rec = dict(max_abs_err=err, ms=ms, f32_score_kernel_ms=f32_ms,
+                           ratio_to_f32_score_kernel=ms / f32_ms, share_of_bound=b_ms / ms,
                            plain_ms=time_ms(plain, **slow), library_ms=None,
                            library="none: no PyTorch call rounds the scores to bf16",
                            bound_ms=b_ms, bound_by=b_by, ops_per_qk_dh=ops,
@@ -1977,6 +1996,10 @@ def profile_run(torch, what, run, card):
     return counts, record
 
 
+# each training phase's arm records (train_arm), by phase: phase 42's long
+# arm prints its step beside phase 13's
+ARM_RECORDS = {}
+
 # the kernels that replays ran on each path of the kernels line, by path: a
 # replay runs no wrapper, so hold_run_launches adds the graph's launches
 # (held at its capture, and read off a profiled replay by profile_replay)
@@ -2275,8 +2298,9 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     fixed batch of `batch` x `seq_len`, with unfused attention (phase 6) or
     the fused_attention op (12: seq 128, batch 32; 13: seq 2048, batch 8;
     24: phase 12 with L2Decay and a global-norm clip, `clip_decay`; 37:
-    phase 12 with LAMB on its schedule, `optimizer`), once per arm of `arms`
-    (train_arm).  Two graphed arms (the AB_ARMS of phases
+    phase 12 with LAMB on its schedule, `optimizer`; 42: bf16 scores,
+    `score_dtype`), once per arm of `arms` (train_arm; each arm's record
+    kept in ARM_RECORDS[phase]).  Two graphed arms (the AB_ARMS of phases
     12 and 24) must agree bit for bit.  Returns the launches counted."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
@@ -2303,9 +2327,10 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     ck.reset_launches()  # the main path's count starts here
     graphed = []
     for arm in arms:
-        losses, scope, _ = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed,
-                                     per_step, launches,
-                                     {"sequences": batch, "tokens": batch * seq_len})
+        losses, scope, rec = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss,
+                                       feed, per_step, launches,
+                                       {"sequences": batch, "tokens": batch * seq_len})
+        ARM_RECORDS.setdefault(phase, []).append(rec)
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{phase} {arm}: the loss did not fall: {losses}")
         if arm == "graphed":
@@ -5070,8 +5095,11 @@ def bert_bf16_scores(fluid, torch, ck, tmp, card):
     FUSED_BF16_SCORES_PER_STEP, the graphed runs bit for bit, the loss
     falling); then served at batch 32 through create_predictor, REQUESTS
     requests (eager, capture, replay), BF16_SCORES_PER_REQUEST launches a
-    request, run_ms printed, one replay profiled (serve_requests).  Returns
-    (training launches, serving launches)."""
+    request, run_ms printed, one replay profiled (serve_requests); then its
+    long arm: the same model at 8 x 2048, graphed (phase 13's train with bf16
+    scores, FUSED_BF16_SCORES_PER_STEP a step), its warm step printed beside
+    phase 13's f32-score step of the same run.  Returns (training launches,
+    serving launches, the long arm's launches)."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
@@ -5090,7 +5118,18 @@ def bert_bf16_scores(fluid, torch, ck, tmp, card):
 
     served = serve_requests(fluid, torch, ck, card, "bert_bf16_scores_serve", predictor,
                             [(32, feed)], BF16_SCORES_PER_REQUEST, check)
-    return trained, served
+    long_trained = train(fluid, torch, ck, card, "bert_bf16_scores_long", True, 2048, 8,
+                         FUSED_BF16_SCORES_PER_STEP, score_dtype="bfloat16")
+    bs, f32 = ARM_RECORDS["bert_bf16_scores_long"][-1], ARM_RECORDS["train_long"][-1]
+    emit({"phase": "bert_bf16_scores_long", "vs": "train_long (phase 13, f32 scores)",
+          "warm_step_ms": bs["warm_step_ms"], "f32_score_warm_step_ms": f32["warm_step_ms"],
+          "difference_ms": bs["warm_step_ms"] - f32["warm_step_ms"],
+          "device_busy_ms": bs["device_busy_ms"], "f32_score_device_busy_ms": f32["device_busy_ms"],
+          "device_idle_share": bs["device_idle_share"],
+          "f32_score_device_idle_share": f32["device_idle_share"],
+          "launches_per_step": {k: v for k, v in FUSED_BF16_SCORES_PER_STEP.items() if v},
+          "card": card})
+    return trained, served, long_trained
 
 
 def detection_program(fluid, model, with_optimizer=True, **overrides):
@@ -5405,7 +5444,7 @@ def main():
         emit({"phase_seconds": "ragged_parity", "s": time.perf_counter() - phase_t0,
               "card": card})
         phase_t0 = time.perf_counter()
-        bs_trained, bs_served = bert_bf16_scores(fluid, torch, ck, tmp, card)
+        bs_trained, bs_served, bs_long = bert_bf16_scores(fluid, torch, ck, tmp, card)
         emit({"phase_seconds": "bert_bf16_scores", "s": time.perf_counter() - phase_t0,
               "card": card})
         detected = {}
@@ -5434,6 +5473,7 @@ def main():
     # the kernel
     paths = {"bert_bf16_scores": (FUSED_BF16_SCORES_PER_STEP, bs_trained),
              "bert_bf16_scores_serve": (BF16_SCORES_PER_REQUEST, bs_served),
+             "bert_bf16_scores_long": (FUSED_BF16_SCORES_PER_STEP, bs_long),
              "ssd_train": (SSD_PER_STEP, detected["ssd_train"]),
              "ssd_serve": (SSD_PER_REQUEST, detected["ssd_serve"]),
              "yolov3_train": (YOLO_PER_STEP, detected["yolov3_train"]),

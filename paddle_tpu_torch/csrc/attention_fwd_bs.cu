@@ -554,54 +554,6 @@ __global__ void __launch_bounds__(kThreadsBS, 2)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (the library links no libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A [BH, L, DH] bf16 tensor as TMA boxes of 64 rows and Bs<DH>::kBox
-// columns, swizzled as the wgmma descriptors read them; rows past L arrive
-// as zeros.
-template <int DH>
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int BH, int L) {
-  using T = Bs<DH>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {DH, static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {DH * 2, static_cast<cuuint64_t>(L) * DH * 2};
-  const cuuint32_t box[3] = {T::kBox, kRowsBS, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = T::kSwizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : T::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DH>
 cudaError_t prepare_bs() {
   static const cudaError_t set = cudaFuncSetAttribute(
@@ -619,9 +571,10 @@ cudaError_t launch_bs(const void* q, const void* k, const void* v, const float* 
   if (e != cudaSuccess) return e;
   CUtensorMap tq, tk, tv;
   const int BH = B * H;
-  if ((e = tensor_map<DH>(&tq, q, BH, Lq)) != cudaSuccess ||
-      (e = tensor_map<DH>(&tk, k, BH, Lk)) != cudaSuccess ||
-      (e = tensor_map<DH>(&tv, v, BH, Lk)) != cudaSuccess)
+  constexpr int kBox = Bs<DH>::kBox;
+  if ((e = h::tensor_map_rows(&tq, q, DH, Lq, BH, kBox, kRowsBS)) != cudaSuccess ||
+      (e = h::tensor_map_rows(&tk, k, DH, Lk, BH, kBox, kRowsBS)) != cudaSuccess ||
+      (e = h::tensor_map_rows(&tv, v, DH, Lk, BH, kBox, kRowsBS)) != cudaSuccess)
     return e;
   BsArgs a;
   a.bias = bias;

@@ -101,22 +101,21 @@
 // bf16 scores (score_dtype="bfloat16" of the JAX composite,
 // paddle_tpu/ops/nn_ops.py:680-684: s rounded to bf16, the row max m over
 // the rounded scores, P = exp(f32(bf16(s - m))) / l, l summed in float32):
-// the backward kernels and the float32 forward have a compile-time variant
-// kBS.  The forward saves log l and m; the backward recomputes P from the
-// same roundings and rounds P (dP - di) to bf16 (the cast's VJP) before the
-// scale.  The bf16-input forward is a kernel of its own,
-// attention_fwd_bs.cu (launched from ptt_attention_fwd): an online softmax
-// cannot give bf16(s - m) (a running max is not the row's) nor round the
-// normalized P / l, so each 64-row block computes its scores once on wgmma
-// (TMA-fed, a producer warp), keeps them rounded in shared memory, and
-// makes its sum and output passes over them, 4 units of B*H*Lq*Lk*dh where
-// the three passes here had recomputed Q K^T (8); rows longer than one
-// CTA's buffer split their keys over a thread-block cluster.  What bounds
-// it: two exps a score on the special-function unit past the tensor-core
-// bound.  ptxas -v: 128 registers (216 in its consumer warpgroup), no
-// spills, 81,000-111,720 shared bytes, 2 CTAs an SM (its own note).  The
-// float32-input kBS twin makes three passes (max, sum, output) with m and
-// l fixed, 6 units.
+// the forward saves log l and m; the backward recomputes P from the same
+// roundings and rounds P (dP - di) to bf16 (the cast's VJP) before the
+// scale.  With bfloat16 inputs all three are warpgroup kernels of their own
+// (wgmma fed by a TMA producer warp, helpers in hopper.cuh):
+// attention_fwd_bs.cu, launched from ptt_attention_fwd (an online softmax
+// cannot give bf16(s - m) nor round the normalized P / l, so each 64-row
+// block computes its scores once, keeps them rounded in shared memory and
+// makes its sum and output passes over them; long rows split over a
+// thread-block cluster), and attention_bwd_bs.cu, launched from
+// ptt_attention_bwd_dq and ptt_attention_bwd_dkv (this file's split, each
+// CTA's own two tiles resident, the other two streamed, the per-score work
+// in bf16 pairs).  Each file's note says what bounds it and what ptxas
+// makes of it.  The float32 kernels have a compile-time variant kBS: the
+// forward makes three passes (max, sum, output) with m and l fixed, the
+// backward recomputes P as above.
 //
 // Why two kernels and no atomics: dK/dV and dQ reduce over different axes
 // (queries and keys).  One kernel would have to add its dQ partial sums
@@ -144,6 +143,20 @@ cudaError_t attention_fwd_bf16_scores(const void* q, const void* k, const void* 
                                       int B, int H, int Lq, int Lk, int dh,
                                       int64_t bias_b_stride, int64_t bias_h_stride, float scale,
                                       int causal, cudaStream_t stream, int* occ);
+// attention_bwd_bs.cu: the bf16-score dQ and dK/dV of bf16 inputs (occ !=
+// null: their occupancy query).
+cudaError_t attention_bwd_dq_bf16_scores(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* out, const void* dout,
+                                         const float* lse, const float* rowmax, float* di,
+                                         void* dq, int B, int H, int Lq, int Lk, int dh,
+                                         int64_t bias_b_stride, int64_t bias_h_stride,
+                                         float scale, int causal, cudaStream_t stream, int* occ);
+cudaError_t attention_bwd_dkv_bf16_scores(const void* q, const void* k, const void* v,
+                                          const void* bias, const void* dout, const float* lse,
+                                          const float* rowmax, const float* di, void* dk, void* dv,
+                                          int B, int H, int Lq, int Lk, int dh,
+                                          int64_t bias_b_stride, int64_t bias_h_stride,
+                                          float scale, int causal, cudaStream_t stream, int* occ);
 }  // namespace ptt
 
 namespace {
@@ -295,16 +308,9 @@ struct MmaTiles {
   // dQ: Q, dO, di of the CTA's rows; a stage is a K and a V tile
   static constexpr size_t kStageDQ = 2 * kTileBytes;
   static constexpr size_t kDQ = 2 * kTileBytes + kVecBytes + kStages * kStageDQ;
-  // dK/dV: K, V; a stage is a Q and a dO tile, then lse and di (and the
-  // bf16-score variant's row maxima)
-  template <bool kBS>
-  __host__ __device__ static constexpr size_t stage_dkv() {
-    return 2 * kTileBytes + (kBS ? 3 : 2) * kVecBytes;
-  }
-  template <bool kBS>
-  __host__ __device__ static constexpr size_t dkv() {
-    return 2 * kTileBytes + kStages * stage_dkv<kBS>();
-  }
+  // dK/dV: K, V; a stage is a Q and a dO tile, then lse and di
+  static constexpr size_t kStageDKV = 2 * kTileBytes + 2 * kVecBytes;
+  static constexpr size_t kDKV = 2 * kTileBytes + kStages * kStageDKV;
   // registers: at most 168 a thread (3 CTAs an SM) to dh 64, 255 at dh 128
   static constexpr int kMinBlocks = DH <= 64 ? 3 : 2;
 };
@@ -550,15 +556,11 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
 // column c + 8 * j + e % 2 of the tile.  kEdge: the tile has ragged rows or
 // columns, masked scores or a bias, each checked per element (P and dS of
 // a masked or absent score are 0); else none of them.
-// kBS: P = exp(bf16(bf16(x) - m) - lse) with the forward's row max m and lse
-// = log l, and dS = bf16(P (dP - di)) * scale: the composite's cast of s to
-// bf16 rounds its cotangent.
-template <bool kEdge, bool kBS, int N>
+template <bool kEdge, int N>
 __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp)[N / 8][4],
                                           const float (&lse)[2], const float (&di)[2],
-                                          const float (&mx)[2], const Problem& pr,
-                                          const float* bias, int q0, int k0, int r, int c,
-                                          int q_rows, int kv_rows) {
+                                          const Problem& pr, const float* bias, int q0, int k0,
+                                          int r, int c, int q_rows, int kv_rows) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -572,18 +574,12 @@ __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp
         if (row < q_rows && col < kv_rows && !pr.masked(qi, kc)) {
           float x = s[j][e] * pr.scale;
           if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
-          if constexpr (kBS) x = round_bf16(round_bf16(x) - mx[h]);
           p = exp2f((x - lse[h]) * kLog2e);
         }
       } else {
-        float x = s[j][e] * pr.scale;
-        if constexpr (kBS) x = round_bf16(round_bf16(x) - mx[h]);
-        p = exp2f((x - lse[h]) * kLog2e);
+        p = exp2f((s[j][e] * pr.scale - lse[h]) * kLog2e);
       }
-      if constexpr (kBS)
-        s[j][e] = round_bf16(p * (dp[j][e] - di[h])) * pr.scale;
-      else
-        s[j][e] = p * (dp[j][e] - di[h]) * pr.scale;
+      s[j][e] = p * (dp[j][e] - di[h]) * pr.scale;
     }
 }
 
@@ -592,35 +588,22 @@ __device__ __forceinline__ void dq_scores(float (&s)[N / 8][4], const float (&dp
 // and query column c + 8 * j + e % 2 of the tile; lse holds the tile's 64
 // values.  A masked score's P is 0, or 1/Lk in a query row with no visible
 // key (its scores are all the constant -1e30: the uniform average).
-// kBS: mx holds the tile's 64 row maxima, and P = exp(bf16(bf16(x) - m) -
-// lse) at every score, masked ones included (x = kMasked): a row with no
-// visible key has m = bf16(kMasked) and P = 1/l there, the uniform average.
-template <bool kEdge, bool kBS, int N>
+template <bool kEdge, int N>
 __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse,
-                                          const float* mx, const Problem& pr, const float* bias,
-                                          int q0, int k0, int r, int c, int q_rows, int k_rows) {
+                                          const Problem& pr, const float* bias, int q0, int k0,
+                                          int r, int c, int q_rows, int k_rows) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(lse + c + 8 * j);
-    float2 mq2 = make_float2(0.f, 0.f);
-    if constexpr (kBS) mq2 = *reinterpret_cast<const float2*>(mx + c + 8 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float lq = e & 1 ? l.y : l.x;
-      const float mq = e & 1 ? mq2.y : mq2.x;
       if constexpr (kEdge) {
         const int row = r + 8 * (e >> 1), col = c + 8 * j + (e & 1);
         const int kc = k0 + row, qi = q0 + col;
         float p = 0.f;
         if (col < q_rows && row < k_rows) {
-          if constexpr (kBS) {
-            float x = kMasked;
-            if (!pr.masked(qi, kc)) {
-              x = s[j][e] * pr.scale;
-              if (bias != nullptr) x += bias[static_cast<int64_t>(qi) * pr.Lk + kc];
-            }
-            p = exp2f((round_bf16(round_bf16(x) - mq) - lq) * kLog2e);
-          } else if (pr.masked(qi, kc)) {
+          if (pr.masked(qi, kc)) {
             p = qi + pr.offset() < 0 ? 1.f / pr.Lk : 0.f;
           } else {
             float x = s[j][e] * pr.scale;
@@ -629,8 +612,6 @@ __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse
           }
         }
         s[j][e] = p;
-      } else if constexpr (kBS) {
-        s[j][e] = exp2f((round_bf16(round_bf16(s[j][e] * pr.scale) - mq) - lq) * kLog2e);
       } else {
         s[j][e] = exp2f((s[j][e] * pr.scale - lq) * kLog2e);
       }
@@ -639,8 +620,7 @@ __device__ __forceinline__ void dkv_probs(float (&s)[N / 8][4], const float* lse
 }
 
 // dK/dV kernel: dS^T = P^T * (dP^T - di) * scale, 0 at masked scores, into dp.
-// (kBS: dS^T = bf16(P^T * (dP^T - di)) * scale.)
-template <bool kEdge, bool kBS, int N>
+template <bool kEdge, int N>
 __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (&p)[N / 8][4],
                                             const float* di, const Problem& pr, int q0, int k0,
                                             int r, int c) {
@@ -649,9 +629,7 @@ __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (
     const float2 d = *reinterpret_cast<const float2*>(di + c + 8 * j);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float ds = p[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x));
-      if constexpr (kBS) ds = round_bf16(ds);
-      ds *= pr.scale;
+      float ds = p[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x)) * pr.scale;
       if constexpr (kEdge) {
         if (pr.masked(q0 + c + 8 * j + (e & 1), k0 + r + 8 * (e >> 1))) ds = 0.f;
       }
@@ -665,15 +643,15 @@ __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (
 // once and stay as A fragments in registers; K and V tiles of 64 keys
 // stream through a 2-stage cp.async ring; per pass of 32 keys a warp does
 // S = Q K^T and dP = dO V^T, dS = P (dP - di) scale rounded to bf16 as the A
-// fragments of dQ += dS K, all in registers.
-// kBS: the bf16-score variant, P and dS as in dq_scores.
-template <int DH, bool kBS>
+// fragments of dQ += dS K, all in registers.  (The bf16-score dQ of bf16
+// inputs is a kernel of its own, attention_bwd_bs.cu.)
+template <int DH>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
                             const bf16* __restrict__ out, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ rowmax,
-                            float* __restrict__ di, bf16* __restrict__ dq, Problem pr) {
+                            const float* __restrict__ lse, float* __restrict__ di,
+                            bf16* __restrict__ dq, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
   namespace fr = ptt::frag;
@@ -731,12 +709,11 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       }
     }
   }
-  float lse_r[2], di_r[2], m_r[2] = {0.f, 0.f};  // rows wr + g and wr + g + 8
+  float lse_r[2], di_r[2];  // rows wr + g and wr + g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = wr + g + 8 * h;
     lse_r[h] = row < q_rows ? lse[row0 + row] : 0.f;
-    if constexpr (kBS) m_r[h] = row < q_rows ? rowmax[row0 + row] : 0.f;
   }
   __syncwarp();
 #pragma unroll
@@ -767,11 +744,11 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       fr::gemm_nt<DH, kC>(s, qa, Kc, kLd);
       fr::gemm_nt<DH, kC>(dp, doa, Kc + M::kTileElems, kLd);  // V
       if (edge)
-        dq_scores<true, kBS, kC>(s, dp, lse_r, di_r, m_r, pr, bias_bh, q0, k0 + c0, wr + g, c2,
-                                 q_rows, kv_rows - c0);
+        dq_scores<true, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                            kv_rows - c0);
       else
-        dq_scores<false, kBS, kC>(s, dp, lse_r, di_r, m_r, pr, bias_bh, q0, k0 + c0, wr + g, c2,
-                                  q_rows, kv_rows - c0);
+        dq_scores<false, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
+                             kv_rows - c0);
       uint32_t ds[kC / 16][4];
       fr::to_a<kC>(ds, s);  // dS rounded to bf16
       fr::gemm_nn<kC, DH>(acc, ds, Kc, kLd);
@@ -787,25 +764,25 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
 // in registers they would spill beside dK and dV); Q, dO, lse and di tiles
 // of 64 queries stream through a 2-stage cp.async ring.  Per pass of 32 queries a
 // warp does S^T = K Q^T, P^T in place, dV += bf16(P^T) dO, dP^T = V dO^T,
-// dS^T rounded to bf16, dK += dS^T Q, all in registers.
-// kBS: the bf16-score variant; a stage also holds the 64 queries' row maxima.
-template <int DH, bool kBS>
+// dS^T rounded to bf16, dK += dS^T Q, all in registers.  (The bf16-score
+// dK/dV of bf16 inputs is a kernel of its own, attention_bwd_bs.cu.)
+template <int DH>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ bias,
                              const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ rowmax, const float* __restrict__ di,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, Problem pr) {
+                             const float* __restrict__ di, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
-  constexpr size_t kStage = M::template stage_dkv<kBS>();
+  constexpr size_t kStage = M::kStageDKV;
   namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   bf16* Ks = cv.take<bf16>(M::kTileBytes);
   bf16* Vs = cv.take<bf16>(M::kTileBytes);
   unsigned char* ring = cv.take<unsigned char>(M::kStages * kStage);
-  // stage st: Q, dO, then lse, di (and with kBS the row maxima) of its 64 queries
+  // stage st: Q, dO, then lse and di of its 64 queries
   auto q_tile = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStage); };
   auto lse_of = [&](int st) {
     return reinterpret_cast<float*>(ring + st * kStage + 2 * M::kTileBytes);
@@ -833,11 +810,6 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     const int i = threadIdx.x % kRows;
     const float* src = (threadIdx.x < kRows ? lse : di) + qrow0 + q0;
     fr::cp_async_4(lse_of(st) + threadIdx.x, src + (i < rows ? i : 0), i < rows);
-    if constexpr (kBS) {
-      if (threadIdx.x < kRows)
-        fr::cp_async_4(lse_of(st) + 2 * kRows + i, rowmax + qrow0 + q0 + (i < rows ? i : 0),
-                       i < rows);
-    }
     fr::cp_async_commit();
   };
   cp_async_tile<DH>(Ks, k + key0 * DH, k_rows);
@@ -868,22 +840,20 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       const float* di_c = lse_c + kRows;
       float s[kC / 8][4] = {};
       fr::gemm_nt_smem<DH, kC>(s, Kw, kLd, Qc, kLd);  // S^T: the warp's 16 keys x 32 queries
-      const float* m_c = lse_c + 2 * kRows;
       if (edge)
-        dkv_probs<true, kBS, kC>(s, lse_c, m_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
-                                 q_rows - c0, k_rows);
+        dkv_probs<true, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2, q_rows - c0, k_rows);
       else
-        dkv_probs<false, kBS, kC>(s, lse_c, m_c, pr, bias_bh, q0 + c0, k0, wr + g, c2,
-                                  q_rows - c0, k_rows);
+        dkv_probs<false, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2, q_rows - c0,
+                             k_rows);
       uint32_t a[kC / 16][4];
       fr::to_a<kC>(a, s);  // P^T rounded to bf16
       fr::gemm_nn<kC, DH>(dv_acc, a, dOc, kLd);
       float dp[kC / 8][4] = {};
       fr::gemm_nt_smem<DH, kC>(dp, Vw, kLd, dOc, kLd);  // dP^T
       if (edge)
-        dkv_dscores<true, kBS, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+        dkv_dscores<true, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
       else
-        dkv_dscores<false, kBS, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
+        dkv_dscores<false, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
       fr::to_a<kC>(a, dp);  // dS^T rounded to bf16
       fr::gemm_nn<kC, DH>(dk_acc, a, Qc, kLd);
     }
@@ -1249,12 +1219,14 @@ struct Args {
   const float* m_r;  // and the backward reads them
 };
 
+// (bf16 inputs with bf16 scores take the kernels of attention_fwd_bs.cu and
+// attention_bwd_bs.cu: own_kernel.)
 template <typename T, int DH, bool BS>
 const void* kernel_of(Which which) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<DH>);
-    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH, BS>)
-                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH, BS>);
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH>);
   } else {
     if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_f32_kernel<DH, BS>);
     return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH, BS>)
@@ -1267,7 +1239,7 @@ template <typename T, int DH, bool BS>
 size_t smem_of(Which which) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == kForward) return FwdTiles<DH>::kBytes;
-    return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::template dkv<BS>();
+    return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
   } else {
     if (which == kForward) return Ld<DH>::kFwd;
     const size_t more = BS ? Ld<DH>::kVecBytes : 0;  // the row maxima
@@ -1302,34 +1274,51 @@ cudaError_t prepare(Which which) {
   return set[which];
 }
 
-// The bf16-score forward of bf16 inputs (attention_fwd_bs.cu).
-constexpr bool kOwnKernel(bool bf16_inputs, bool bs, Which which) {
-  return bf16_inputs && bs && which == kForward;
+// The bf16-score kernels of bf16 inputs are kernels of their own
+// (attention_fwd_bs.cu, attention_bwd_bs.cu): launch one (a != null) or ask
+// for its occupancy (into occ).
+template <int DH>
+cudaError_t own_kernel(Which which, const Args* a, int B, int H, const Problem& pr,
+                       cudaStream_t s, int* occ) {
+  static const Args none{};
+  const Args& x = a != nullptr ? *a : none;
+  if (which == kForward)
+    return ptt::attention_fwd_bf16_scores(x.q, x.k, x.v, static_cast<const float*>(x.bias),
+                                          x.o_or_dq, x.lse_w, x.m_w, B, H, pr.Lq, pr.Lk, DH,
+                                          pr.bias_b_stride, pr.bias_h_stride, pr.scale,
+                                          pr.causal, s, occ);
+  if (which == kBwdDQ)
+    return ptt::attention_bwd_dq_bf16_scores(x.q, x.k, x.v, x.bias, x.out, x.dout, x.lse_r,
+                                             x.m_r, x.di_w, x.o_or_dq, B, H, pr.Lq, pr.Lk, DH,
+                                             pr.bias_b_stride, pr.bias_h_stride, pr.scale,
+                                             pr.causal, s, occ);
+  return ptt::attention_bwd_dkv_bf16_scores(x.q, x.k, x.v, x.bias, x.dout, x.lse_r, x.m_r,
+                                            x.di_r, x.dk, x.dv, B, H, pr.Lq, pr.Lk, DH,
+                                            pr.bias_b_stride, pr.bias_h_stride, pr.scale,
+                                            pr.causal, s, occ);
 }
 
 template <typename T, int DH, bool BS>
 cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t stream) {
-  if (kOwnKernel(std::is_same<T, bf16>::value, BS, which)) {
-    return ptt::attention_fwd_bf16_scores(a.q, a.k, a.v, static_cast<const float*>(a.bias),
-                                          a.o_or_dq, a.lse_w, a.m_w, B, H, pr.Lq, pr.Lk, DH,
-                                          pr.bias_b_stride, pr.bias_h_stride, pr.scale,
-                                          pr.causal, stream, nullptr);
-  }
   cudaError_t e = prepare<T, DH, BS>(which);
   if (e != cudaSuccess) return e;
   const int own = which == kBwdDKV ? pr.Lk : pr.Lq, rows = cta_rows<T, DH>(which);
   const dim3 grid((own + rows - 1) / rows, static_cast<unsigned>(B) * H);
-  // each kernel's parameters, in order
-  void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};  // bf16
+  // each kernel's parameters, in order (the float32 kernels also take the
+  // row maxima of their kBS variant)
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};
   void* fwd_f32[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &a.m_w, &pr};
-  void* dq[] = {&a.q,   &a.k,   &a.v,    &a.bias,    &a.out, &a.dout,
-                &a.lse_r, &a.m_r, &a.di_w, &a.o_or_dq, &pr};
-  void* dkv[] = {&a.q,   &a.k,   &a.v,    &a.bias, &a.dout, &a.lse_r,
-                 &a.m_r, &a.di_r, &a.dk, &a.dv,   &pr};
+  void* dq[] = {&a.q, &a.k, &a.v, &a.bias, &a.out, &a.dout, &a.lse_r, &a.di_w, &a.o_or_dq, &pr};
+  void* dq_f32[] = {&a.q,   &a.k,   &a.v,    &a.bias,    &a.out, &a.dout,
+                    &a.lse_r, &a.m_r, &a.di_w, &a.o_or_dq, &pr};
+  void* dkv[] = {&a.q, &a.k, &a.v, &a.bias, &a.dout, &a.lse_r, &a.di_r, &a.dk, &a.dv, &pr};
+  void* dkv_f32[] = {&a.q,   &a.k,   &a.v,    &a.bias, &a.dout, &a.lse_r,
+                     &a.m_r, &a.di_r, &a.dk, &a.dv,   &pr};
   return cudaLaunchKernel(kernel_of<T, DH, BS>(which), grid, dim3(kThreads),
-                          which == kForward ? (std::is_same<T, bf16>::value ? fwd : fwd_f32)
-                          : which == kBwdDQ ? dq
-                                            : dkv,
+                          which == kForward ? (kBf16 ? fwd : fwd_f32)
+                          : which == kBwdDQ ? (kBf16 ? dq : dq_f32)
+                                            : (kBf16 ? dkv : dkv_f32),
                           smem_of<T, DH, BS>(which), stream);
 }
 
@@ -1337,9 +1326,6 @@ cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t s
 // thread, dynamic shared bytes a CTA, local (spilled) bytes a thread}.
 template <typename T, int DH, bool BS>
 cudaError_t occupancy(Which which, int* out) {
-  if (kOwnKernel(std::is_same<T, bf16>::value, BS, which))
-    return ptt::attention_fwd_bf16_scores(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                          nullptr, 0, 0, 0, 0, DH, 0, 0, 0.f, 0, nullptr, out);
   cudaError_t e = prepare<T, DH, BS>(which);
   if (e != cudaSuccess) return e;
   const void* kern = kernel_of<T, DH, BS>(which);
@@ -1357,8 +1343,11 @@ cudaError_t occupancy(Which which, int* out) {
 template <typename T, int DH, bool BS>
 cudaError_t launch_or_query(Which which, const Args* a, int B, int H, const Problem& pr,
                             cudaStream_t s, int* occ) {
-  return a != nullptr ? launch<T, DH, BS>(which, *a, B, H, pr, s)
-                      : occupancy<T, DH, BS>(which, occ);
+  if constexpr (std::is_same<T, bf16>::value && BS)
+    return own_kernel<DH>(which, a, B, H, pr, s, occ);
+  else
+    return a != nullptr ? launch<T, DH, BS>(which, *a, B, H, pr, s)
+                        : occupancy<T, DH, BS>(which, occ);
 }
 
 template <typename T, bool BS>

@@ -18,13 +18,14 @@ query i when c <= i + (Lk - Lq), masked scores are -1e30.
 `score_bf16=True` is the composite's score_dtype="bfloat16"
 (paddle_tpu/ops/nn_ops.py:680-684), for float32 and bfloat16 inputs alike:
 s is rounded to bf16, the row max m is taken over the rounded scores, and
-P = exp(f32(bf16(s - m))) / sum, the sum in float32.  Its kernels are the
-same backward kernels with a compile-time variant (csrc/flash_attention.cu
-kBS), and for bfloat16 inputs a forward kernel of its own
-(csrc/attention_fwd_bs.cu: wgmma fed by TMA, each score computed once and
+P = exp(f32(bf16(s - m))) / sum, the sum in float32.  For bfloat16 inputs
+its kernels are warpgroup kernels of their own (wgmma fed by a TMA producer
+warp): the forward in csrc/attention_fwd_bs.cu (each score computed once and
 kept on chip, long rows split over a thread-block cluster, see
-`bf16_score_fwd_plan`; float32 inputs take flash_attention.cu's float32
-twin).  They count under `LAUNCHES["attention_fwd_bf16_scores"]` and so on;
+`bf16_score_fwd_plan`), dQ and dK/dV in csrc/attention_bwd_bs.cu; float32
+inputs take flash_attention.cu's float32 twins (compile-time variant kBS).
+They count under `LAUNCHES["attention_fwd_bf16_scores"]`,
+`["attention_bwd_dq_bf16_scores"]` and `["attention_bwd_dkv_bf16_scores"]`;
 their saved statistics are [2, B, H, Lq]: log of the row sum, and m.
 """
 from __future__ import annotations

@@ -1116,10 +1116,23 @@ def test_cond_and_array_plans_are_refused_on_card():
 
 # --- the detection slice: bf16 attention scores and the detection models ---
 
+# EDGE_CASES and the tile edges of the bf16-score backward kernels
+# (csrc/attention_bwd_bs.cu: 64 rows a CTA and a streamed tile, dK/dV 32
+# queries a step at dh 128): one past them at dh 64 and 128, causal with
+# Lq <= Lk at dh 128 whose dK/dV CTAs skip their first query tiles, causal
+# with Lq > Lk at dh 128 with a bias, one ragged tile each way at dh 16
+BF16_EDGE_CASES = EDGE_CASES + [
+    (2, 3, 65, 65, 64, None, False),
+    (2, 2, 129, 129, 128, None, False),
+    (1, 2, 320, 384, 128, None, True),
+    (2, 2, 100, 70, 128, "per_head", True),
+    (2, 3, 40, 24, 16, None, False),
+]
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_bf16_score_attention_kernels_at_their_edges_on_card(case, dtype):
     """The bf16-score variants (score_bf16=True) against the plain versions
     with bf16 scores: forward, dQ and dK/dV, float32 within the f32 bounds

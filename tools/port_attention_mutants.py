@@ -32,6 +32,15 @@ tile one key):
     tile of the score buffer;
   - bs_fwd_drops_peer_partial: the cluster's sum of partial P V leaves out
     the last CTA's.
+The bf16-score backward's mutants (csrc/attention_bwd_bs.cu) run the same
+check at [8, 12, 2048, 64] and at [4, 12, 65, 64] x 65 keys (one row past
+a CTA's own 64 and a streamed tile's, so that each last tile holds one row):
+  - bs_dkv_skips_last_query_tile: dK/dV takes nothing from its last tile of
+    64 queries (its P^T and dS^T fragments zeroed);
+  - bs_dkv_reads_neighbouring_row_max: dK/dV takes each query's row max m
+    from the neighbouring query of its pair;
+  - bs_dq_skips_last_key_tile: dQ takes nothing from its last tile of 64 keys;
+  - bs_dq_drops_di: dQ forms dS = bf16(P dP) * scale, di taken as 0.
 The row-wise mutants run one call at the BERT-base training shape, bf16,
 [4096, 3072] gelu for the bias+activation backward, [4096, 768] with a
 residual for the LayerNorm forward and [4096, 30522] with MLM labels (85%
@@ -65,6 +74,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTENTION = "paddle_tpu_torch/csrc/flash_attention.cu"
 BS_FWD = "paddle_tpu_torch/csrc/attention_fwd_bs.cu"
+BS_BWD = "paddle_tpu_torch/csrc/attention_bwd_bs.cu"
 BIAS_ACT = "paddle_tpu_torch/csrc/bias_act.cu"
 LAYER_NORM = "paddle_tpu_torch/csrc/ln_residual.cu"
 XENT = "paddle_tpu_torch/csrc/softmax_xent.cu"
@@ -119,10 +129,26 @@ MUTANTS = {
     "bs_fwd_drops_peer_partial": (
         BS_FWD, "      for (int x = 0; x < C; ++x) {  // the cluster's partial P V, in rank order\n",
         "      for (int x = 0; x < C - 1; ++x) {\n"),
+    "bs_dkv_skips_last_query_tile": (
+        BS_BWD, "    const uint32_t q_addr = ring_addr + (i % S) * T::kStageKV;\n    rs_issue",
+        "    if (i == n - 1)\n      for (int w = 0; w < NC / 4; ++w) pa[w] = ds[w] = 0u;\n"
+        "    const uint32_t q_addr = ring_addr + (i % S) * T::kStageKV;\n    rs_issue"),
+    "bs_dkv_reads_neighbouring_row_max": (
+        BS_BWD, "        const float2 mf = *reinterpret_cast<const float2*>(m_s + col);\n",
+        "        const float2 mf = make_float2(m_s[col + 1], m_s[col]);\n"),
+    "bs_dq_skips_last_key_tile": (
+        BS_BWD, "    rs_issue<DH, 4>(dq, ds, ring_addr + (t % S) * T::kStageQ, 0);  // dQ += dS K\n",
+        "    if (t == n - 1)\n      for (int w = 0; w < 16; ++w) ds[w] = 0u;\n"
+        "    rs_issue<DH, 4>(dq, ds, ring_addr + (t % S) * T::kStageQ, 0);\n"),
+    "bs_dq_drops_di": (
+        BS_BWD, "    di_r[hh] = di_s[row];\n", "    di_r[hh] = 0.f;\n"),
 }
 # the shapes each bf16-score forward mutant runs at, by suffix
 BS_CASES = {"seq2048": (8, 12, 2048, 2048, 64, None, False),
             "lk513": (2, 12, 128, 513, 64, None, False)}
+# the shapes each bf16-score backward mutant runs at, by suffix
+BS_BWD_CASES = {"seq2048": (8, 12, 2048, 2048, 64, None, False),
+                "l65": (4, 12, 65, 65, 64, None, False)}
 CHECK_ATTENTION = (
     "import torch, chip_smoke\n"
     "from paddle_tpu_torch.ops import cuda_attention as ca\n"
@@ -176,7 +202,7 @@ if bad:
 def check_code(source, case=None):
     if source == ATTENTION:
         return CHECK_ATTENTION
-    if source == BS_FWD:
+    if source in (BS_FWD, BS_BWD):
         return ("import torch, chip_smoke\n"
                 "from paddle_tpu_torch.ops import cuda_attention as ca\n"
                 f"chip_smoke.check_bf16_score_kernels(torch, ca, cases=[{case!r}], "
@@ -221,8 +247,8 @@ def runs(names):
     for each of BS_CASES."""
     for name in names:
         source = MUTANTS[name][0]
-        if source == BS_FWD:
-            for suffix, case in BS_CASES.items():
+        if source in (BS_FWD, BS_BWD):
+            for suffix, case in (BS_CASES if source == BS_FWD else BS_BWD_CASES).items():
                 yield f"{name}@{suffix}", name, check_code(source, case)
         else:
             yield name, name, check_code(source)
