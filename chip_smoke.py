@@ -250,7 +250,19 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  47. detection_parity: card vs CPU: a tiny SSD, a 2-layer YOLOv3 head, the
      Faster R-CNN second stage and the RetinaNet head (3 Momentum steps
      and their outputs), every one-op case of models/detection_cases.py,
-     and the graph refusals of print, py_func and detection_map.
+     and the graph refusals of print, py_func and detection_map;
+ 48. tail_parity: card vs CPU, every one-op case of models/tail_cases.py
+     (the ops of misc_ops and tail_ops, phase 47's rule), the random ones on
+     the card by their moments, and the graph refusals of chunk_eval and
+     merge_selected_rows;
+ 49. tagger_train: the CRF tagger (build_crf_tagger: 128-wide token
+     features, 9 IOB tags) with chunk_eval on its Viterbi path, 6 Adam steps
+     on 64 ragged sentences, eager (its plan refused a graph with
+     chunk_eval's reason), Adam 3 a step, loss falling and F1 rising;
+ 50-51. word2vec_nce_train, word2vec_hsigmoid_train: phase 34's word2vec
+     (dict 1,000, embedding 32, hidden 64, 4 words, batch 256) with its
+     softmax head replaced by nce (5 negatives) and by hsigmoid, eager then
+     graphed, Adam 5 a step; the four phases' total seconds printed.
 Phase 3 also holds the bf16-score variants of the attention kernels
 (check_bf16_score_kernels: forward, dQ, dK/dV, float32 and bfloat16,
 element by element, the f32-score kernel's miss of the bf16-score plain
@@ -261,7 +273,13 @@ warpgroup kernel of its own, at every path of its plan: dh 16 to 128, one
 CTA, clusters of 2 to 8 and a recomputed tail, each case's path printed
 and held to the kernel's; the bf16-input dQ and dK/dV, warpgroup kernels
 of their own, at every tile edge of theirs; the forward's bound counts QK^T
-and PV, what a design does beyond it reported as design_ops_per_qk_dh) and
+and PV, what a design does beyond it reported as design_ops_per_qk_dh;
+the backward is the composite's full gradient, the row max's cotangent
+included: the gradients are held with TIE_RULE added at the tied scores,
+the cases include 65 keys and three and twelve tied keys, and each case
+prints the worst share the backward without that cotangent takes, which
+must exceed the float32 rule at 65 keys; the FFMA kBS variants timed beside
+their f32-score twins) and
 times the BN
 epilogue, the xent and Adam at the family's
 float32 shapes (check_vision_kernels) and Adam at the seq2seq's 30,000 x
@@ -473,7 +491,11 @@ VISION = {"se_resnext": ("build_se_resnext", dict(class_dim=1000, image_shape=(3
           "vgg": ("build_vgg", dict(class_dim=1000, image_shape=(3, 224, 224))),
           "stacked_lstm": ("build_stacked_dynamic_lstm",
                            dict(vocab_size=5000, emb_dim=512, hidden_dim=512, stacked_num=3)),
-          "word2vec": ("build_word2vec", {})}
+          "word2vec": ("build_word2vec", {}),
+          # phases 50-51: word2vec's softmax head replaced by NCE (5 uniform
+          # negatives a row) and by the hierarchical sigmoid
+          "word2vec_nce": ("build_word2vec", {"head": "nce", "num_neg_samples": 5}),
+          "word2vec_hsigmoid": ("build_word2vec", {"head": "hsigmoid"})}
 VISION_BATCH = 64
 VISION_SERVE_BATCHES = (1, 64)
 LSTM_BATCH, LSTM_MIN_LEN, LSTM_BUCKET = 32, 20, 128
@@ -491,7 +513,12 @@ VISION_PER_STEP = {
     "vgg": dict(NONE, bn_epilogue_fwd=13, bn_epilogue_bwd=13, softmax_xent_fwd=1,
                 softmax_xent_bwd=1, adam=60),
     "stacked_lstm": dict(NONE, softmax_xent_fwd=1, softmax_xent_bwd=1, adam=15),
-    "word2vec": dict(NONE, softmax_xent_fwd=1, softmax_xent_bwd=1, adam=5)}
+    "word2vec": dict(NONE, softmax_xent_fwd=1, softmax_xent_bwd=1, adam=5),
+    # the embedding, the hidden fc's 2 and the head's weight and bias; no xent
+    "word2vec_nce": dict(NONE, adam=5), "word2vec_hsigmoid": dict(NONE, adam=5)}
+# phase 49: the tagger's Adam over the emissions fc's weight and bias and the
+# CRF transitions; no other kernel (the CRF and its decode are composites)
+TAGGER_PER_STEP = dict(NONE, adam=3)
 VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
                       "vgg": dict(NONE, bn_epilogue_fwd=13)}
 # phase 35: the conv nets at 64 x 64 (the last stage 2 x 2, not 1 x 1:
@@ -501,6 +528,7 @@ VISION_PARITY_SIZE = 64
 LAUNCH_ORDER = ("bert_bf16_scores", "ssd_train", "yolov3_train", "ssd_serve", "yolov3_serve",
                 "bert_bf16_scores_serve", "bert_bf16_scores_long", "train_lamb", "resnet_lars", "seq2seq_train",
                 "se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
+                "word2vec_nce_train", "word2vec_hsigmoid_train", "tagger_train",
                 "se_resnext_serve", "vgg_serve", "nmt_train", "nmt_decode", "deepfm_train", "train_fused", "resnet_train", "resnet_serve", "train", "serve",
                 "train_long", "loader_resnet", "dataset_deepfm", "resilient_resnet",
                 "resilient_bert")
@@ -1018,7 +1046,11 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
 # (129), causal with Lq <= Lk at dh 128 whose dK/dV CTAs skip their first
 # query tiles (four of five at the last keys), causal with Lq > Lk at dh 128
 # with a bias (rows with no visible key, the 32-query steps), and one
-# ragged tile each way at dh 16
+# ragged tile each way at dh 16; then the row max's cotangent (fault C5):
+# 65 keys at dh 16 (the case that showed it), three keys made one, which
+# most queries score highest (ties at the row max: dQ's slots), and twelve
+# keys made one, 8 apart (more ties in one lane of a quad than dQ's slots
+# hold, and more in a row than the float32 dQ's: their second pass), causal
 BF16_SCORE_CASES = [
     (32, 12, 128, 128, 64, None, False),
     (8, 12, 2048, 2048, 64, None, False),
@@ -1037,7 +1069,22 @@ BF16_SCORE_CASES = [
     (2, 4, 320, 384, 128, None, True),
     (2, 4, 100, 70, 128, "per_head", True),
     (8, 12, 40, 24, 16, None, False),
+    (1, 2, 65, 65, 16, None, False),
+    (2, 4, 96, 130, 128, "ties", False),
+    (1, 4, 70, 100, 64, "many_ties", True),
 ]
+# the keys each kind of forced ties makes one
+TIED_KEYS = {"ties": [3, 5, 7], "many_ties": list(range(0, 96, 8))}
+
+
+def tie_keys(torch, q, k, keys):
+    """k with `keys` made one key that most queries score highest: 2.5
+    sqrt(dh) times the unit vector of the queries' mean, in k's dtype."""
+    u = q.float().mean(2, keepdim=True)
+    u = u * (2.5 * q.shape[-1] ** 0.5) / u.norm(dim=-1, keepdim=True)
+    k = k.clone()
+    k[:, :, keys, :] = u.to(k.dtype)
+    return k
 # the rule must see the rounding: the f32-score kernel, held to the
 # bf16-score plain version, misses it by at least this many times the mean
 # absolute difference of the bf16-score kernel
@@ -1050,7 +1097,10 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
     (sdpa_plain and sdpa_bwd_plain with score_bf16) at BF16_SCORE_CASES,
     element by element: float32 at TOL and grad_tol, bfloat16 by
     FWD_BF16_RULE and BWD_BF16_RULE, both plus SCORE_ROUNDING_RULE (one bf16
-    rounding of each score and of s - m on either side).  The backward is
+    rounding of each score and of s - m on either side), the gradients
+    also TIE_RULE at the tied scores (the row max's cotangent: the kernel's
+    float32 sum of it against the plain version's); the backward without
+    that cotangent's worst share printed (rule_sees_max_cotangent).  The backward is
     held on the kernel's own output, two runs agree bit for bit.  The
     f32-score kernel's output held to the bf16-score plain version must miss
     it by SCORE_MUTANT_RATIO times the bf16-score kernel's mean absolute
@@ -1058,7 +1108,8 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
     float32 inputs the backward rule must see both of its roundings too
     (backward_rule_sees_rounding).  Times
     each kernel at [32,12,128,64] and [8,12,2048,64] bf16 beside the
-    f32-score kernel at the same shape, in the same process.  Prints the
+    f32-score kernel at the same shape, in the same process, and the
+    float32 inputs' FFMA kBS dQ and dK/dV beside their f32-score twins.  Prints the
     path the bf16-score forward takes at each case (bf16_score_fwd_plan), and
     holds that plan to the kernel's own (ptt_attention_fwd_bs_plan)."""
     import ctypes
@@ -1078,7 +1129,9 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             q, do = randn(B, H, Lq, dh, dtype=dtype), randn(B, H, Lq, dh, dtype=dtype)
             k, v = randn(B, H, Lk, dh, dtype=dtype), randn(B, H, Lk, dh, dtype=dtype)
             bias = None
-            if bias_kind is not None:
+            if bias_kind in TIED_KEYS:
+                k = tie_keys(torch, q, k, TIED_KEYS[bias_kind])
+            elif bias_kind is not None:
                 bias = randn(B, 1 if bias_kind == "bcast" else H, Lq, Lk, s=2.0)
             scale = dh ** -0.5
             args = (q, k, v, bias, causal, scale)
@@ -1133,14 +1186,19 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                                      f"{ratio}x the bf16-score kernel's mean difference")
             del f32_out, allowed
             want = ca.sdpa_bwd_plain(*args, out, do, score_bf16=True)
+            # the kernel's share of each row's max cotangent within TIE_RULE's
+            # range; the gradients held with the term of that share
+            share_range, ties, ties_any = ca.tie_terms(*args, out, do, di[1])
+            hold_tie_shares(case, dn, di[1], *share_range)
             extra = ca.score_rounding_allowed(*args, out, do)
             if dtype == torch.float32:
-                allowed = [grad_tol(dn, w) + e for w, e in zip(want, extra)]
-                rule = f"grad_tol + {ca.SCORE_ROUNDING_RULE}"
+                base = [grad_tol(dn, w) + e for w, e in zip(want, extra)]
+                rule = f"grad_tol + {ca.SCORE_ROUNDING_RULE} + {ca.TIE_RULE}"
             else:
-                allowed = [a + e for a, e in zip(ca.sdpa_bwd_bf16_allowed(
+                base = [a + e for a, e in zip(ca.sdpa_bwd_bf16_allowed(
                     *args, out, do, want, score_bf16=True), extra)]
-                rule = f"{ca.BWD_BF16_RULE} + {ca.SCORE_ROUNDING_RULE}"
+                rule = f"{ca.BWD_BF16_RULE} + {ca.SCORE_ROUNDING_RULE} + {ca.TIE_RULE}"
+            allowed = [b + t for b, t in zip(base, ties + (0.0,))]  # dq and dk
             err_q = check_within("attention_bwd_dq_bf16_scores", "dq", dtype, case, dq, want[0],
                                  allowed[0], rule)
             err_kv = max(check_within("attention_bwd_dkv_bf16_scores", w, dtype, case, a, b, t,
@@ -1149,13 +1207,35 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             if dtype == torch.float32:
                 backward_rule_sees_rounding(torch, ca, args, case, out, do, (dq, dk, dv), want,
                                             allowed)
-            del want, allowed, extra
+            rule_sees_max_cotangent(torch, ca, args, case, dn, out, do, want,
+                                    [b + t for b, t in zip(base, ties_any)],
+                                    must=dtype == torch.float32 and (Lk, dh) == (65, 16))
+            del want, allowed, extra, base, ties, ties_any, share_range
             torch.cuda.empty_cache()
             where = ATTENTION_TIMED.get((B, Lq))
-            if not (dtype == torch.bfloat16 and where and bias is None and not causal
-                    and cases is BF16_SCORE_CASES):
+            if not (where and bias_kind is None and not causal and cases is BF16_SCORE_CASES):
                 continue
             slow = dict(warmup=2, iters=10)
+            if dtype == torch.float32:  # the FFMA kBS variants beside their f32-score twins
+                a0 = (q, k, v, None, False, scale)
+                lse32 = ca.attention_fwd(*a0)[1]
+                di32 = ca.attention_bwd_dq(*a0, out, lse32, do)[1]
+                for name, fn, f32_fn in (
+                        ("attention_bwd_dq_bf16_scores",
+                         lambda: ca.attention_bwd_dq(*a0, out, lse, do, score_bf16=True),
+                         lambda: ca.attention_bwd_dq(*a0, out, lse32, do)),
+                        ("attention_bwd_dkv_bf16_scores",
+                         lambda: ca.attention_bwd_dkv(*a0, lse, di, do, score_bf16=True),
+                         lambda: ca.attention_bwd_dkv(*a0, lse32, di32, do))):
+                    f32_first = time_ms(f32_fn, **slow)
+                    ms = time_ms(fn, **slow)
+                    f32_ms = (f32_first + time_ms(f32_fn, **slow)) / 2
+                    emit({"timing": name, "inputs": "float32: the FFMA kBS variant", "at": where,
+                          "ms": ms, "f32_score_kernel_ms": f32_ms,
+                          "ratio_to_f32_score_kernel": ms / f32_ms,
+                          "shape": f"[{B},{H},{Lq},{dh}] float32"})
+                del lse32, di32
+                continue
             qkv = nbytes(q, k, v)
             a0 = (q, k, v, None, False, scale)
             lse32 = ca.attention_fwd(*a0)[1]
@@ -1215,6 +1295,53 @@ def unrounded_ds_grads(torch, ca, args, out, do):
     if keep is not None:
         ds = torch.where(keep, ds, torch.zeros_like(ds))
     return (torch.matmul(ds, k.float()),) + ca._dkv(p, ds, q, v, do)
+
+
+def no_max_cotangent_grads(torch, ca, args, out, do):
+    """(dq, dk) of the bf16-score plain backward without the row max's
+    cotangent (fault C5 of the port before its repair): dS = bf16(P (dP -
+    di)) * scale everywhere.  The mutant the tie term must not admit."""
+    q, k, v, bias, causal, scale = args
+    p, _, _, keep = ca._probs_plain(q, k, bias, causal, scale, True)
+    dof = do.float()
+    ds = (p * (torch.matmul(dof, v.float().transpose(-1, -2))
+               - (dof * out.float()).sum(-1, keepdim=True))).to(torch.bfloat16).float() * scale
+    if keep is not None:
+        ds = torch.where(keep, ds, torch.zeros_like(ds))
+    ds = ds.to(q.dtype).float()
+    return torch.matmul(ds, k.float()), torch.matmul(ds.transpose(-1, -2), q.float())
+
+
+def hold_tie_shares(case, dn, t, lo, hi, held):
+    """Phase 3: the dQ kernel's share t of each row's max cotangent (what it
+    writes beside di, [B, H, Lq]) within TIE_RULE's range [lo, hi]
+    (ca.tie_share_range) in every `held` row; the rows held and their worst
+    share of the range's half width are printed."""
+    mid, half = (lo + hi) / 2, (hi - lo) / 2
+    off = ((t - mid).abs() - half).clamp_min(0)[held]
+    share = float(((t - mid).abs()[held] / (half[held] + 1e-30)).max()) if held.any() else 0.0
+    emit({"tie_shares": case, "dtype": dn, "rows_held": int(held.sum()),
+          "rows_outside": int((off > 0).sum()), "worst_share_of_half_range": share})
+    if (off > 0).any():
+        raise AssertionError(f"attention_bwd_dq_bf16_scores {case} {dn}: a row's share t of its "
+                             f"max cotangent exceeds TIE_RULE's range in {int((off > 0).sum())} "
+                             f"rows (by up to {float(off.max())})")
+
+
+def rule_sees_max_cotangent(torch, ca, args, case, dn, out, do, want, allowed, must):
+    """Phase 3: the worst share of the backward rule (`allowed`: with the
+    tie term of any share in TIE_RULE's range, not the kernel's own) that
+    the plain backward without the row max's cotangent
+    (no_max_cotangent_grads, the port before fault C5's repair) takes in dq
+    and dk, printed for each case and dtype; `must` (float32 inputs at 65
+    keys): it exceeds the rule."""
+    mutant = no_max_cotangent_grads(torch, ca, args, out, do)
+    shares = [float(((m - w.float()).abs() / a).max()) for m, w, a in zip(mutant, want, allowed)]
+    emit({"rule_sees_max_cotangent": case, "dtype": dn, "no_max_cotangent_dq_worst_share":
+          shares[0], "no_max_cotangent_dk_worst_share": shares[1], "must_refuse": must})
+    if must and not max(shares) > 1.0:
+        raise AssertionError(f"attention bwd bf16 scores {case} {dn}: the rule admits the "
+                             f"backward without the row max's cotangent (worst share {shares})")
 
 
 def backward_rule_sees_rounding(torch, ca, args, case, out, do, got, want, allowed):
@@ -4075,8 +4202,10 @@ def build_vision(fluid, model, with_optimizer=True, **overrides):
         main, startup, _, fetches = getattr(vision, fn)(with_optimizer=with_optimizer,
                                                         **dict(config, **overrides))
     startup.random_seed = main.random_seed = 0
-    xent = next(op for op in main.global_block().ops if op.type == "softmax_with_cross_entropy")
-    return main, startup, dict(fetches, logits=main.global_block().var(xent.input("Logits")[0]))
+    xent = [op for op in main.global_block().ops if op.type == "softmax_with_cross_entropy"]
+    if not xent:  # word2vec's NCE and hierarchical-sigmoid heads have no logits
+        return main, startup, dict(fetches)
+    return main, startup, dict(fetches, logits=main.global_block().var(xent[0].input("Logits")[0]))
 
 
 def on_card(torch, feed):
@@ -5331,6 +5460,207 @@ def detection_parity(fluid, torch, card):
         torch.backends.cudnn.deterministic = saved
 
 
+# phase 49: the CRF tagger at the width of label_semantic_roles' emissions
+# (a 128-wide token feature, 4 chunk types in IOB: 9 tags) on 64 ragged
+# sentences of 10-40 tokens
+TAGGER_CONFIG = dict(feature_dim=128, num_chunk_types=4)
+TAGGER_BATCH, TAGGER_LENS = 64, (10, 40)
+
+
+def tail_parity(fluid, torch, card):
+    """Phase 48, card against CPU: every one-op case of
+    models/tail_cases.py (the last op files, misc_ops and tail_ops) within
+    DETECTION_OUT_TOL of max(1, |CPU|), index outputs equal; the random ops
+    on the card by their moments (NCE's three samplers, sampled softmax's
+    log-uniform draws, the batch-size-like fillers, sampling_id, random_crop);
+    plans holding chunk_eval or merge_selected_rows refused a graph with
+    their reason (executor._HOST_READ)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import _HOST_READ
+
+    from paddle_tpu_torch.models import detection_cases, tail_cases
+
+    hold = detection_cases.hold_close
+    cases = tail_cases.MISC_CASES + tail_cases.TAIL_CASES
+    worst = (0.0, "")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for cid, op_type, inputs, attrs, slots, _ in cases:
+            outs = []
+            for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+                prog, feed, fetch = detection_cases.build_one_op(fluid, op_type, inputs, attrs,
+                                                                 slots)
+                outs.append(fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
+                                                      scope=fluid.Scope()))
+            for k, (g, w) in enumerate(zip(*outs)):
+                worst = max(worst, (hold(f"one-op {cid} out {k}", w, g, DETECTION_OUT_TOL), cid))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    emit({"phase": "tail_parity", "one_op_cases": len(cases), "worst_share_of_tol": worst[0],
+          "worst_case": worst[1], "tol": DETECTION_OUT_TOL, "card": card})
+
+    def on_card_op(op_type, inputs, attrs, slots, exe=None, scope=None):
+        prog, feed, fetch = detection_cases.build_one_op(fluid, op_type, inputs, attrs, slots)
+        return [np.asarray(v) for v in (exe or fluid.Executor(fluid.CUDAPlace(0))).run(
+            prog, feed=feed, fetch_list=fetch, scope=scope or fluid.Scope())]
+
+    rng = np.random.RandomState(48)
+    C, B, S = 8, 2000, 20
+    probs = rng.dirichlet(np.ones(C)).astype(np.float32)
+    k = np.arange(C)
+    log_uniform = np.log((k + 2.0) / (k + 1.0)) / np.log(C + 1.0)
+    moments = {}
+    for sampler, want in ((0, np.full(C, 1.0 / C)), (1, log_uniform / log_uniform.sum()),
+                          (2, probs)):
+        inputs = {"Input": rng.randn(B, 4).astype(np.float32),
+                  "Label": rng.randint(0, C, (B, 1)).astype(np.int64),
+                  "Weight": rng.randn(C, 4).astype(np.float32)}
+        if sampler == 2:
+            inputs["CustomDistProbs"] = probs
+        _, labels = on_card_op("nce", inputs, {"num_total_classes": C, "num_neg_samples": S,
+                                               "sampler": sampler,
+                                               "out_dtypes": {"SampleLabels": "int64"}},
+                               ["Cost", "SampleLabels"])
+        freq = np.bincount(labels[:, 1:].reshape(-1), minlength=C) / (B * S)
+        se = np.sqrt(want * (1 - want) / (B * S))
+        moments[f"nce_sampler_{sampler}_worst_se"] = float((np.abs(freq - want) / se).max())
+        if not (np.abs(freq - want) <= 4 * se + 1e-3).all() or not np.array_equal(
+                labels[:, 0], inputs["Label"][:, 0]):
+            raise AssertionError(f"tail_parity: nce sampler {sampler} draws {freq}, not {want}")
+    logits, samples = on_card_op("sample_logits", {
+        "Logits": rng.randn(B, C).astype(np.float32),
+        "Labels": rng.randint(0, C, (B, 1)).astype(np.int64)}, {"num_samples": S,
+                                                                "out_dtypes": {"Samples": "int64"}},
+        ["SampledLogits", "Samples"])
+    freq = np.bincount(samples[:, 1:].reshape(-1), minlength=C) / (B * S)
+    moments["sample_logits_worst_freq_err"] = float(np.abs(freq - log_uniform
+                                                           / log_uniform.sum()).max())
+    if not (moments["sample_logits_worst_freq_err"] < 0.01
+            and (logits[:, 1:][samples[:, 1:] == samples[:, :1]] == -1e20).all()):
+        raise AssertionError(f"tail_parity: sample_logits draws {freq}")
+    ref = np.zeros((2000, 3), np.float32)
+    for op_type, attrs, mean, std in (
+            ("uniform_random_batch_size_like", {"min": -1.0, "max": 3.0}, 1.0,
+             4.0 / math.sqrt(12.0)),
+            ("gaussian_random_batch_size_like", {"mean": 1.0, "std": 2.0}, 1.0, 2.0)):
+        (out,) = on_card_op(op_type, {"Input": ref}, dict(attrs, shape=[-1, 250]), ["Out"])
+        moments[f"{op_type}_mean_std"] = [float(out.mean()), float(out.std())]
+        if out.shape != (2000, 250) or abs(out.mean() - mean) > 0.01 * std or abs(
+                out.std() - std) > 0.01 * std:
+            raise AssertionError(f"tail_parity: {op_type} {moments[f'{op_type}_mean_std']}")
+    (ids,) = on_card_op("sampling_id", {"X": np.tile(np.array([[0.1, 0.6, 0.3]], np.float32),
+                                                     (20000, 1))}, {"out_dtype": "int32"}, ["Out"])
+    freq = np.bincount(ids.reshape(-1), minlength=3) / 20000
+    moments["sampling_id_freq"] = freq.tolist()
+    if np.abs(freq - [0.1, 0.6, 0.3]).max() > 0.015:
+        raise AssertionError(f"tail_parity: sampling_id draws {freq}")
+    x = rng.randn(4, 3, 9, 9).astype(np.float32)
+    exe, scope, starts = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope(), set()
+    for _ in range(12):
+        (out,) = on_card_op("random_crop", {"X": x}, {"shape": [3, 5, 4]}, ["Out"], exe, scope)
+        hit = [(i, j) for i in range(5) for j in range(6)
+               if np.array_equal(x[:, :, i:i + 5, j:j + 4], out)]
+        if len(hit) != 1:
+            raise AssertionError(f"tail_parity: random_crop's window is no window of x: {hit}")
+        starts.add(hit[0])
+    moments["random_crop_offsets_seen"] = len(starts)
+    if len(starts) < 4:
+        raise AssertionError(f"tail_parity: random_crop took {len(starts)} offsets in 12 runs")
+    emit({"phase": "tail_parity", "moments": moments, "card": card})
+    refused = {}
+    host_cases = {
+        "chunk_eval": next(c[1:5] for c in tail_cases.MISC_CASES if c[1] == "chunk_eval"),
+        "merge_selected_rows": next(c[1:5] for c in tail_cases.TAIL_CASES
+                                    if c[1] == "merge_selected_rows")}
+    for op_type, case in host_cases.items():
+        prog, feed, fetch = detection_cases.build_one_op(fluid, *case)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        fluid.monitor.reset()
+        for _ in range(2):
+            exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        counted = fluid.monitor.get_monitor().counter("executor.graph_refused").value
+        refused[op_type] = exe.last_plan.graph_refusal
+        if refused[op_type] != _HOST_READ[op_type] or not counted:
+            raise AssertionError(f"tail_parity: a plan with {op_type} was not refused a graph "
+                                 f"with its reason: {refused[op_type]!r}, {counted}")
+    fluid.monitor.reset()
+    emit({"phase": "tail_parity", "graph_refusals": refused})
+
+
+def tagger_batch(fluid, seed):
+    """TAGGER_BATCH ragged sentences of TAGGER_LENS tokens, each token's
+    feature holding its IOB tag (a 2.0 in the tag's channel), as LoDTensors."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tags = 2 * TAGGER_CONFIG["num_chunk_types"] + 1
+    rows, labels = [], []
+    for n in rng.randint(TAGGER_LENS[0], TAGGER_LENS[1] + 1, TAGGER_BATCH):
+        lab = rng.randint(0, tags, (n, 1)).astype(np.int64)
+        row = (rng.randn(n, TAGGER_CONFIG["feature_dim"]) * 0.1).astype(np.float32)
+        row[np.arange(n), lab[:, 0]] += 2.0
+        rows.append(row)
+        labels.append(lab)
+    return {"x": fluid.LoDTensor(rows), "label": fluid.LoDTensor(labels)}
+
+
+def tagger_train(fluid, torch, ck, card):
+    """Phase 49: models.vision.build_crf_tagger (fc emissions, the CRF loss,
+    Adam, the Viterbi path scored by chunk_eval) trains TRAIN_STEPS steps on
+    one batch through Executor(CUDAPlace(0)).run: the plan is refused a
+    graph with chunk_eval's reason and runs eagerly, every step launching
+    exactly the program's kernels (Adam 3: the fc's weight and bias and the
+    transitions); the loss falls and the chunk F1 rises.  Returns the
+    launches counted."""
+    from paddle_tpu_torch.core.executor import _HOST_READ
+    from paddle_tpu_torch.models import vision
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = vision.build_crf_tagger(**TAGGER_CONFIG)
+    startup.random_seed = main.random_seed = 0
+    loss = fetches["loss"].name
+    per_step = launches_of_program(main, loss)
+    if per_step != TAGGER_PER_STEP:
+        raise AssertionError(f"tagger_train: the program's kernel ops {per_step} != the reckoned "
+                             f"{TAGGER_PER_STEP}")
+    feed = tagger_batch(fluid, 49)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.monitor.reset()
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    names = [loss] + [fetches[k].name for k in ("f1", "num_infer", "num_label", "num_correct")]
+    losses, f1s, step_ms = [], [], []
+    for step in range(TRAIN_STEPS):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=names, scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        add_launches(launches, delta)
+        hold_run_launches(exe, step, delta, per_step, "tagger_train")
+        losses.append(float(out[0].reshape(-1)[0]))
+        f1s.append(float(out[1].reshape(-1)[0]))
+        emit({"phase": "tagger_train", "step": step, "loss": losses[-1], "f1": f1s[-1],
+              "chunks_infer_label_correct": [int(o.reshape(-1)[0]) for o in out[2:]],
+              "step_ms": step_ms[-1], "launches": delta, "card": card})
+    read_monitor("tagger_train", monitor_want(range(TRAIN_STEPS), False, refused=1), card)
+    refusal = exe.last_plan.graph_refusal
+    record = {"phase": "tagger_train", "config": TAGGER_CONFIG, "sentences": TAGGER_BATCH,
+              "losses": losses, "f1": f1s, "warm_step_ms": statistics.median(step_ms[2:]),
+              "sentences_per_s": TAGGER_BATCH / statistics.median(step_ms[2:]) * 1e3,
+              "graphed": exe.last_plan.graphed, "graph_refusal": refusal, "card": card}
+    emit(record)
+    if refusal != _HOST_READ["chunk_eval"] or exe.last_plan.graphed:
+        raise AssertionError(f"tagger_train: the plan was not refused a graph for chunk_eval: "
+                             f"{refusal!r}")
+    if not (losses[-1] < losses[0] and f1s[-1] > f1s[0]):
+        raise AssertionError(f"tagger_train: loss {losses} or F1 {f1s} did not improve")
+    return launches
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -5461,6 +5791,22 @@ def main():
         detection_parity(fluid, torch, card)
         emit({"phase_seconds": "detection_parity", "s": time.perf_counter() - phase_t0,
               "card": card})
+        tail_t0 = phase_t0 = time.perf_counter()
+        tail_parity(fluid, torch, card)
+        emit({"phase_seconds": "tail_parity", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        tagged = tagger_train(fluid, torch, ck, card)
+        emit({"phase_seconds": "tagger_train", "s": time.perf_counter() - phase_t0, "card": card})
+        w2v_heads = {}
+        for head in ("nce", "hsigmoid"):
+            phase_t0 = time.perf_counter()
+            w2v_heads[head], _ = vision_train(fluid, torch, ck, card, f"word2vec_{head}",
+                                              f"word2vec_{head}_train",
+                                              vision_feed("word2vec", W2V_BATCH, 103),
+                                              {"examples": W2V_BATCH})
+            emit({"phase_seconds": f"word2vec_{head}_train", "s": time.perf_counter() - phase_t0,
+                  "card": card})
+        emit({"phase_seconds": "phases 48-51", "s": time.perf_counter() - tail_t0, "card": card})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5499,7 +5845,11 @@ def main():
              "vgg_train": (VISION_PER_STEP["vgg"], vgg_trained),
              "vgg_serve": (VISION_PER_REQUEST["vgg"], vgg_served),
              "lstm_train": (VISION_PER_STEP["stacked_lstm"], lstm_trained),
-             "word2vec_train": (VISION_PER_STEP["word2vec"], w2v_trained)}
+             "word2vec_train": (VISION_PER_STEP["word2vec"], w2v_trained),
+             "word2vec_nce_train": (VISION_PER_STEP["word2vec_nce"], w2v_heads["nce"]),
+             "word2vec_hsigmoid_train": (VISION_PER_STEP["word2vec_hsigmoid"],
+                                         w2v_heads["hsigmoid"]),
+             "tagger_train": (TAGGER_PER_STEP, tagged)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

@@ -28,8 +28,13 @@ stages batches in pinned memory and uploads them on a side stream, or
 through `QueueDataset` / `Executor.train_from_dataset` (`dataset`,
 `datasets`); `CheckpointManager`, `resilient_train_loop`, `FaultInjector`
 and `integrity` make a single-device run survive bad batches, NaNs,
-device errors, storage faults and preemption, resuming bit for bit.
+device errors, storage faults and preemption, resuming bit for bit.  Every
+op of the JAX package but the fake-quantize ops, `update_loss_scaling`,
+`pipeline` and `ring_attention` has a lowering; `metrics`, `evaluator` and
+`debugger` are numpy-only copies.
 """
+import numpy as np
+
 from . import ops  # registers the op lowerings  # noqa: F401
 from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noqa: F401
                models, monitor, nets, optimizer, pipeline, profiler)
@@ -42,18 +47,47 @@ from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
 from .resilience import ResilienceStats, RetryPolicy, resilient_train_loop  # noqa: F401
 from .core import analysis, initializer, passes, regularizer, unique_name  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
-from .core.executor import CPUPlace, CUDAPlace, Executor, FetchHandle, TPUPlace  # noqa: F401
-from .core.param_attr import ParamAttr  # noqa: F401
+from .backward import gradients  # noqa: F401
+from .core.executor import (  # noqa: F401
+    CPUPlace,
+    CUDAPinnedPlace,
+    CUDAPlace,
+    Executor,
+    FetchHandle,
+    TPUPlace,
+    cpu_places,
+    cuda_pinned_places,
+    cuda_places,
+)
+from .core.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from .core.program import (  # noqa: F401
     Parameter,
     Program,
     Variable,
     default_main_program,
     default_startup_program,
+    name_scope,
     program_guard,
 )
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .lod import LoDTensor, LoDTensorArray, create_lod_tensor  # noqa: F401
+from . import parallel  # noqa: F401
+from . import parallel as compiler  # fluid.compiler.CompiledProgram  # noqa: F401
 from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
 from .pipeline import PipelineStats, train_loop  # noqa: F401
+from . import debugger, evaluator, metrics  # noqa: F401,E402
+
+
+def in_dygraph_mode():
+    """False: the port has no dygraph mode yet."""
+    return False
+
+
+def create_random_int_lodtensor(recursive_seq_lens, base_shape, place, low, high):
+    """A LoDTensor of int64 sequences of the given lengths, each step of
+    `base_shape`, drawn uniformly from [low, high] with numpy's global
+    generator."""
+    seqs = [np.random.randint(low, high + 1, (ln,) + tuple(base_shape)).astype("int64")
+            for ln in recursive_seq_lens[0]]
+    return LoDTensor(seqs)

@@ -52,6 +52,7 @@ pinned memory, and the FLAGS_check_nan_inf guard happen at resolution.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -107,6 +108,37 @@ class CPUPlace(Place):
 
     def __repr__(self):
         return "CPUPlace()"
+
+
+class CUDAPinnedPlace(Place):
+    """Host memory for staging uploads to the card: a program run there runs
+    on the CPU (the loaders pin their own staging buffers)."""
+
+    def __init__(self):
+        self.device_id = 0
+        self.device = torch.device("cpu")
+
+    def __repr__(self):
+        return "CUDAPinnedPlace()"
+
+
+def cpu_places(device_count=None):
+    """`device_count` CPU places (default: $CPU_NUM, else 1)."""
+    n = device_count or int(os.environ.get("CPU_NUM", 1))
+    return [CPUPlace() for _ in range(n)]
+
+
+def cuda_places(device_ids=None):
+    """A CUDAPlace for each of `device_ids` (default: every card there is;
+    none on a machine without one)."""
+    if device_ids is None:
+        device_ids = range(torch.cuda.device_count())
+    return [CUDAPlace(i) for i in device_ids]
+
+
+def cuda_pinned_places(device_count=None):
+    n = device_count or int(os.environ.get("CPU_NUM", 1))
+    return [CUDAPinnedPlace() for _ in range(n)]
 
 
 def _runnable_ops(block):
@@ -184,6 +216,11 @@ _HOST_READ = {
                      "of the detections and labels (ops/detection_ops.py)",
     "generate_mask_labels": "a generate_mask_labels op: its polygons are rasterized on the "
                             "host from host copies (ops/detection_ops.py)",
+    "chunk_eval": "a chunk_eval op: its chunks are counted on the host from host copies of "
+                  "the tags (ops/misc_ops.py)",
+    "merge_selected_rows": "a merge_selected_rows op: merging SelectedRows rows calls "
+                           "torch.unique_consecutive, which waits for the card "
+                           "(core/selected_rows.py)",
 }
 
 

@@ -36,3 +36,13 @@ class ParamAttr:
         if isinstance(arg, bool):
             return ParamAttr() if arg else ParamAttr(trainable=False)
         raise TypeError(f"cannot convert {arg!r} to ParamAttr")
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that names the axis `dim` of a weight-normalized
+    parameter; the layers build a plain parameter from it, as the JAX
+    package's do."""
+
+    def __init__(self, dim=None, **kw):
+        super().__init__(**kw)
+        self.dim = dim

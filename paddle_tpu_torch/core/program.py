@@ -56,6 +56,12 @@ class Variable:
     def program(self) -> "Program":
         return self.block.program
 
+    def astype(self, dtype):
+        """A cast of this variable to `dtype` (layers.cast)."""
+        from ..layers import tensor as tensor_layers
+
+        return tensor_layers.cast(self, dtype)
+
     # Python operator sugar, as the JAX package's Variable has it
     def _binary(self, other, op):
         from ..layers import math_sugar
@@ -275,6 +281,21 @@ class Program:
         """Mark a mutation: plans cached for the old version are not reused."""
         self.version += 1
 
+    def block(self, index: int) -> Block:
+        return self.blocks[index]
+
+    def to_string(self, throw_on_error=False, with_details=False) -> str:
+        """The program as JSON text over `to_dict` (the JAX package's form)."""
+        import json
+
+        return json.dumps(self.to_dict(), indent=2, default=str)
+
+    @staticmethod
+    def parse_from_string(s: str) -> "Program":
+        import json
+
+        return Program.from_dict(json.loads(s))
+
     def global_block(self) -> Block:
         return self.blocks[0]
 
@@ -383,3 +404,15 @@ def program_guard(main_program: Program, startup_program: Optional[Program] = No
     finally:
         _main_program = old_main
         _startup_program = old_startup
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Prefix the op and variable names generated inside with `prefix`
+    (nested scopes compose as outer/inner, repeated siblings take suffixes;
+    the counters are not reset)."""
+    if prefix:
+        with unique_name.name_scope_guard(prefix):
+            yield
+    else:
+        yield

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import uuid
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -32,7 +32,14 @@ class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, object] = {}
         self.parent = parent
+        self.kids: List["Scope"] = []
         self._uuid = uuid.uuid4().hex
+
+    def new_scope(self) -> "Scope":
+        """A child scope: its lookups fall through to this one."""
+        kid = Scope(self)
+        self.kids.append(kid)
+        return kid
 
     def set_var(self, name: str, value) -> None:
         global _writes
@@ -50,8 +57,25 @@ class Scope:
     def has_var(self, name: str) -> bool:
         return self.find_var(name) is not None
 
+    def erase(self, names) -> None:
+        """Drop `names` from this scope (not from its parents); counts as a
+        write, as set_var does."""
+        global _writes
+        for n in names:
+            self._vars.pop(n, None)
+        _writes += 1
+
     def local_var_names(self):
         return list(self._vars)
+
+    def var_names(self) -> List[str]:
+        """Every name this scope or a parent holds, sorted."""
+        names = set()
+        s: Optional[Scope] = self
+        while s is not None:
+            names.update(s._vars)
+            s = s.parent
+        return sorted(names)
 
     def to_numpy(self, name: str) -> np.ndarray:
         v = self.find_var(name)

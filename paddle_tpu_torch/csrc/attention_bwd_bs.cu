@@ -3,7 +3,9 @@
 // (paddle_tpu/ops/nn_ops.py:680-684) and the VJP of its casts:
 //   x = bf16(s * scale + bias) (-1e30 where causal masks, rounded alike),
 //   P = exp(bf16(x - m) - log l) with the forward's m and log l,
-//   dP = dO V^T,  di = rowsum(dO * O),  dS = bf16(P (dP - di)) * scale
+//   dP = dO V^T,  di = rowsum(dO * O),  g = bf16(P (dP - di)),
+//   dm = -bf16(sum_j g_j) (the row max's cotangent),  t = bf16(dm / c) over
+//   the row's c scores tied at m,  dS = (g, or bf16(g + t) at a tie) * scale
 //   (0 where masked),  dQ = dS K,  dK = dS^T Q,  dV = bf16(P)^T dO.
 // Replaces, for these inputs, the kBS variant of paddle_tpu/ops/
 // pallas_attention.py _fused_sdpa_bwd (the pl.pallas_call at :221, row 11 bs
@@ -53,6 +55,25 @@
 //     pair loop without the edge tests: tests inside the unrolled loop cut
 //     it into a basic block a pair, and with two consumer warps a scheduler
 //     the exp and conversion latencies then showed.
+//   - The row max's cotangent: dQ sums each row's g in float32 (a lane its
+//     keys, then the quad) and rounds once (the JAX composite's CPU order of
+//     bf16 steps is another: cuda_attention.TIE_RULE), counts the ties (x -
+//     m is 0: one compare a pair), and writes t beside di; dK/dV stages t
+//     with di and adds it where its recomputed x - m is 0 (one bf16 add, one
+//     compare and one select a pair).  dQ's own share, (bf16(g + t) - g) K
+//     at each tie, is known only after the row's last key tile: dQ takes g
+//     unscaled as its A fragment (one multiply by scale at the end, and g
+//     stays exact), each lane keeps a row's tie of a tile (key, g; picked
+//     out of the A fragment by a select chain after the pair loop) in
+//     shared memory, up to kTieSub, and after the loop the
+//     warp adds each tie's share with K's row read from device memory, in
+//     lane and key order, no atomics.  A row with two ties in one lane's
+//     keys of a tile, or more than its slots hold (equal scores), takes the
+//     share in a second pass over the key tiles, the same S, dP and g, one
+//     stage loaded by a consumer thread: a slow path only where it is
+//     needed.  Recording the ties costs dQ most of what the repair costs
+//     it (tools/port_bs_bwd_variants.py times dQ without the tie block and
+//     without the sum; PERF.md has the numbers).
 //   - Causal dK/dV CTAs (Lq <= Lk) skip the query tiles that see none of
 //     their keys, and dQ CTAs the key tiles past their last visible key;
 //     columns past the end (queries in dK/dV, keys in dQ), which TMA fills
@@ -65,9 +86,10 @@
 //     the last unit is its own copy of the loop body.
 // ptxas -v, sm_90a, dh 16 / 32 / 64 / 128 (chip_smoke.py phase 2): 128
 // registers a thread at launch (the consumers' 232 through setmaxnreg), 0
-// spill bytes; dQ 21,832 / 42,312 / 83,272 / 132,408 dynamic shared bytes,
-// 2 / 2 / 2 / 1 CTAs an SM; dK/dV 25,672 / 46,152 / 87,112 / 101,416, 2
-// CTAs an SM.
+// spill bytes but dQ at dh 128 (160 stored, 184 loaded: the row max's
+// cotangent's state, its second pass and epilogue); dQ 31,064 / 51,544 /
+// 92,504 / 141,640 dynamic shared bytes, 2 / 2 / 2 / 1 CTAs an SM; dK/dV
+// 25,672 / 46,152 / 87,112 / 101,416, 2 CTAs an SM.
 #include <cuda.h>
 
 #include <cmath>
@@ -101,28 +123,38 @@ struct Bw {
   static constexpr int kRing = 2 * kTileBytes;         // after the CTA's own two tiles
   // dK/dV: queries of a tile each product step takes (S^T and dP^T columns)
   static constexpr int kChunk = DH == 128 ? 32 : 64;
-  // dK/dV: K, V, then a ring of stages: Q, dO, then log l, di and m (float
-  // [64] each)
+  // dK/dV: K, V, then a ring of stages: Q, dO, then log l, di, m and the
+  // row max's share t (float [64] each)
   static constexpr int kStagesKV = DH == 128 ? 2 : 4;
   static constexpr int kStatBytes = 1024;
   static constexpr int kStageKV = 2 * kTileBytes + kStatBytes;
   static constexpr int kBarsKV = kRing + kStagesKV * kStageKV;
   static constexpr int kBytesKV = kBarsKV + (2 * kStagesKV + 1) * 8 + 1024;
-  // dQ: Q, dO, then a ring of stages (K, V), then di of the CTA's rows
+  // dQ: Q, dO, then a ring of stages (K, V), then di of the CTA's rows,
+  // the tie slots (each lane of a row's quad keeps up to kTieSub ties, key
+  // and bf16(P (dP - di))), each lane's sum of g a row, a flag, and the
+  // barriers (the ring's, Q and dO's, the second pass's)
   static constexpr int kStagesQ = DH == 128 ? 3 : 4;
   static constexpr int kStageQ = 2 * kTileBytes;
   static constexpr int kDiQ = kRing + kStagesQ * kStageQ;
-  static constexpr int kBarsQ = kDiQ + kRowsBW * 4;
-  static constexpr int kBytesQ = kBarsQ + (2 * kStagesQ + 1) * 8 + 1024;
+  static constexpr int kTieSub = 4;
+  static constexpr int kTieKeyQ = kDiQ + kRowsBW * 4;
+  static constexpr int kTieGQ = kTieKeyQ + kRowsBW * 4 * kTieSub * 4;
+  static constexpr int kDmQ = kTieGQ + kRowsBW * 4 * kTieSub * 4;  // a lane's sum of g a row
+  static constexpr int kFlagQ = kDmQ + kRowsBW * 4 * 4;
+  static constexpr int kBarsQ = kFlagQ + 8;
+  static constexpr int kBytesQ = kBarsQ + (2 * kStagesQ + 2) * 8 + 1024;
 };
 
 struct BwArgs {
   const float* bias;    // null, or float32 [B, 1|H, Lq, Lk]
   const bf16* out;      // dQ: O and dO, for di
   const bf16* dout;
+  const bf16* k;        // dQ: K, for the ties' share of dQ
   const float* lse;     // log l
   const float* rowmax;  // m
   float* di;            // written by dQ, read by dK/dV
+  float* tie;           // t = bf16(dm / c) of each row: written by dQ, read by dK/dV
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -145,6 +177,26 @@ __device__ __forceinline__ uint32_t sub2(uint32_t w, uint32_t m) {
   const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
                                    *reinterpret_cast<const __nv_bfloat162*>(&m));
   return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 0xffff in each half of a bf16 pair that is 0 (x - m of a score tied at m)
+__device__ __forceinline__ uint32_t zero_halves(uint32_t w) {
+  return __heq2_mask(*reinterpret_cast<const __nv_bfloat162*>(&w), __float2bfloat162_rn(0.f));
+}
+
+__device__ __forceinline__ uint32_t add2(uint32_t w, uint32_t t) {
+  const __nv_bfloat162 d = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&w),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&t));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// the consumer warpgroup's own barrier (the producer warpgroup has left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumersBW) : "memory");
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -308,6 +360,7 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
           ptt::cp_async_4(lse_s + r, a.lse + at, in);
           ptt::cp_async_4(lse_s + kRowsBW + r, a.di + at, in);
           ptt::cp_async_4(lse_s + 2 * kRowsBW + r, a.rowmax + at, in);
+          ptt::cp_async_4(lse_s + 3 * kRowsBW + r, a.tie + at, in);
         }
         h::cp_async_mbar_arrive(&full[st]);
         if (lane == 0) {
@@ -382,6 +435,7 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
         reinterpret_cast<const float*>(ring + (i % S) * T::kStageKV + 2 * T::kTileBytes);
     const float* di_s = lse_s + kRowsBW;
     const float* m_s = di_s + kRowsBW;
+    const float* t_s = m_s + kRowsBW;
     h::wgmma_wait<2>();  // S^T and dP^T are done, and all but the last unit's products
     h::fence_regs(s);
     h::fence_regs(dp);
@@ -391,9 +445,11 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
     if (u >= 2 && (u - 2) % kParts == kParts - 1) give_back((u - 2) / kParts);
     // a pair of scores at a time (key r0 + 8 hh, queries qi and qi + 1):
     // x = s * scale (+ bias), kMaskedBW where causal masks it; P^T =
-    // 2^(bf16(bf16(x) - m) log2 e - log l log2 e), 0 past the queries; dS^T
-    // = bf16(P^T (dP^T - di)) * scale, 0 where masked.  Interior tiles take
-    // a copy without the edge tests: one basic block, whose pairs the
+    // 2^(bf16(bf16(x) - m) log2 e - log l log2 e), 0 past the queries; g =
+    // bf16(P^T (dP^T - di)), and bf16(g + t) where the score is tied at its
+    // row max (x - m is 0: the row max's share of its cotangent, t = 0 past
+    // the queries); dS^T = that * scale, 0 where masked.  Interior tiles
+    // take a copy without the edge tests: one basic block, whose pairs the
     // scheduler interleaves.
     auto pairs = [&](auto edge_tile) {
       constexpr bool edge = decltype(edge_tile)::value;
@@ -405,6 +461,8 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
         const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
         const float l2x = l2.x * kLog2eBW, l2y = l2.y * kLog2eBW;
         const float2 d2 = *reinterpret_cast<const float2*>(di_s + col);
+        const float2 tf = *reinterpret_cast<const float2*>(t_s + col);
+        const uint32_t t2 = pack2(tf.x, tf.y);  // bf16 values: exact
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int k = 4 * j + 2 * hh, kc = k0 + r0 + 8 * hh;
@@ -418,7 +476,8 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
             x0 = a.causal && kc > qi + off ? kMaskedBW : x0;
             x1 = a.causal && kc > qi + 1 + off ? kMaskedBW : x1;
           }
-          const float2 d = unpack2(sub2(pack2(x0, x1), m2));
+          const uint32_t dw = sub2(pack2(x0, x1), m2);
+          const float2 d = unpack2(dw);
           float p0 = ptt::exp2_approx(fmaf(d.x, kLog2eBW, -l2x));
           float p1 = ptt::exp2_approx(fmaf(d.y, kLog2eBW, -l2y));
           if constexpr (edge) {
@@ -426,7 +485,9 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
             p1 = qi + 1 < a.Lq ? p1 : 0.f;
           }
           pa[2 * j + hh] = pack2(p0, p1);
-          const float2 y = unpack2(pack2(p0 * (dp[k] - d2.x), p1 * (dp[k + 1] - d2.y)));
+          const uint32_t g = pack2(p0 * (dp[k] - d2.x), p1 * (dp[k + 1] - d2.y));
+          const uint32_t tie = zero_halves(dw);
+          const float2 y = unpack2((add2(g, t2) & tie) | (g & ~tie));
           float v0 = y.x * a.scale, v1 = y.y * a.scale;
           if constexpr (edge) {
             v0 = a.causal && kc > qi + off ? 0.f : v0;
@@ -481,9 +542,14 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
   unsigned char* base = align1024(smem_raw);
   unsigned char* ring = base + T::kRing;
   float* di_s = reinterpret_cast<float*>(base + T::kDiQ);
+  int* tie_key_s = reinterpret_cast<int*>(base + T::kTieKeyQ);
+  float* tie_g_s = reinterpret_cast<float*>(base + T::kTieGQ);
+  float* dm_s = reinterpret_cast<float*>(base + T::kDmQ);
+  int* flag_s = reinterpret_cast<int*>(base + T::kFlagQ);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + T::kBarsQ);
   uint64_t* empty = full + S;
   uint64_t* qd_full = empty + S;
+  uint64_t* fix_full = qd_full + 1;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRowsBW;
   const int q_rows = min(kRowsBW, a.Lq - q0);
@@ -504,6 +570,8 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
       h::mbar_init(&empty[s], kConsumersBW / 32);
     }
     h::mbar_init(qd_full, 1);
+    h::mbar_init(fix_full, 1);
+    *flag_s = 0;
     h::fence_barrier_init();
     h::mbar_arrive_expect_tx(qd_full, 2 * T::kTileBytes);
     for (int b = 0; b < T::kBoxes; ++b) {
@@ -609,6 +677,48 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
     h::wgmma_commit();
   };
 
+  // pair k of key tile k0 (query r0 + 8 (k % 2), keys kc and kc + 1): g =
+  // bf16(P (dP - di)) as a bf16 pair from S and dP, x = s * scale (+ bias),
+  // kMaskedBW where causal masks it, P = 2^(bf16(bf16(x) - m) log2 e - log l
+  // log2 e); 0 where masked or past the keys.  `tie` gets 0xffff in each
+  // half whose score is tied at the row max (x - m is 0) and counts.
+  auto pair = [&](int k, int k0, auto edge_tile, uint32_t& tie) {
+    constexpr bool edge = decltype(edge_tile)::value;
+    const int hh = k & 1, qi = q0 + r0 + 8 * hh, kc = k0 + 8 * (k >> 1) + c2;
+    float x0 = s[2 * k] * a.scale, x1 = s[2 * k + 1] * a.scale;
+    if constexpr (edge) {
+      if (bias_bh != nullptr && qi < a.Lq) {
+        const float* brow = bias_bh + static_cast<int64_t>(qi) * a.Lk + kc;
+        if (kc < a.Lk) x0 += brow[0];
+        if (kc + 1 < a.Lk) x1 += brow[1];
+      }
+      x0 = a.causal && kc > qi + off ? kMaskedBW : x0;
+      x1 = a.causal && kc + 1 > qi + off ? kMaskedBW : x1;
+    }
+    const uint32_t dw = sub2(pack2(x0, x1), m2[hh]);
+    const float2 d = unpack2(dw);
+    const float p0 = ptt::exp2_approx(fmaf(d.x, kLog2eBW, -l2[hh]));
+    const float p1 = ptt::exp2_approx(fmaf(d.y, kLog2eBW, -l2[hh]));
+    uint32_t g = pack2(p0 * (dp[2 * k] - di_r[hh]), p1 * (dp[2 * k + 1] - di_r[hh]));
+    tie = zero_halves(dw);
+    if constexpr (edge) {
+      const uint32_t keep = (kc >= a.Lk || (a.causal && kc > qi + off) ? 0u : 0xffffu) |
+                            (kc + 1 >= a.Lk || (a.causal && kc + 1 > qi + off) ? 0u : 0xffff0000u);
+      g &= keep;
+      tie &= keep;
+    }
+    return g;
+  };
+
+  // the row max's cotangent: each lane sums g over its keys of rows r0 and
+  // r0 + 8 in float32, a tile's sum into its own word of shared memory (a
+  // sum carried in registers across the products made ptxas serialize
+  // every wgmma: C7515), and counts their ties, keeping them in its slots
+  // (key, g)
+  float* dm_own = dm_s + r0 * 4 + (lane & 3);  // row r0; row r0 + 8 is 32 words on
+  dm_own[0] = dm_own[32] = 0.f;
+  int tcnt[2] = {0, 0}, nslot[2] = {0, 0};  // a lane's ties of rows r0, r0 + 8, its slots
+  bool ovf[2] = {false, false};             // a tie the slots could not keep
   h::mbar_wait(qd_full, 0);
   take(0);
   scores_issue(0);
@@ -626,43 +736,51 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
     h::fence_regs(dp);
     h::fence_regs(ds);
     if (t >= 2) give_back(t - 2);  // its dQ is done
-    // a pair of scores at a time (query r0 + 8 (k % 2), keys kc and kc + 1):
-    // x = s * scale (+ bias), kMaskedBW where causal masks it; P =
-    // 2^(bf16(bf16(x) - m) log2 e - log l log2 e); dS = bf16(P (dP - di)) *
-    // scale, 0 where masked or past the keys (interior tiles: no tests, as
-    // dK/dV's)
+    // dS / scale = g, the A fragment of dQ += dS K (scaled once at the end;
+    // interior tiles: no tests, as dK/dV's); the pair's g summed into the
+    // row's dm, its ties marked in tb (bit k, and 16 + k for the second key)
+    uint32_t tb = 0u;
+    float part[2] = {0.f, 0.f};
     auto pairs = [&](auto edge_tile) {
-      constexpr bool edge = decltype(edge_tile)::value;
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
-        const int hh = k & 1, qi = q0 + r0 + 8 * hh, kc = k0 + 8 * (k >> 1) + c2;
-        float x0 = s[2 * k] * a.scale, x1 = s[2 * k + 1] * a.scale;
-        if constexpr (edge) {
-          if (bias_bh != nullptr && qi < a.Lq) {
-            const float* brow = bias_bh + static_cast<int64_t>(qi) * a.Lk + kc;
-            if (kc < a.Lk) x0 += brow[0];
-            if (kc + 1 < a.Lk) x1 += brow[1];
-          }
-          x0 = a.causal && kc > qi + off ? kMaskedBW : x0;
-          x1 = a.causal && kc + 1 > qi + off ? kMaskedBW : x1;
-        }
-        const float2 d = unpack2(sub2(pack2(x0, x1), m2[hh]));
-        const float p0 = ptt::exp2_approx(fmaf(d.x, kLog2eBW, -l2[hh]));
-        const float p1 = ptt::exp2_approx(fmaf(d.y, kLog2eBW, -l2[hh]));
-        const float2 y =
-            unpack2(pack2(p0 * (dp[2 * k] - di_r[hh]), p1 * (dp[2 * k + 1] - di_r[hh])));
-        float v0 = y.x * a.scale, v1 = y.y * a.scale;
-        if constexpr (edge) {
-          v0 = kc >= a.Lk || (a.causal && kc > qi + off) ? 0.f : v0;
-          v1 = kc + 1 >= a.Lk || (a.causal && kc + 1 > qi + off) ? 0.f : v1;
-        }
-        ds[k] = pack2(v0, v1);
+        uint32_t tie;
+        ds[k] = pair(k, k0, edge_tile, tie);
+        const float2 y = unpack2(ds[k]);
+        part[k & 1] += y.x + y.y;
+        tb |= (tie & 0x00010001u) << k;
       }
     };
     if (edge)
       pairs(std::true_type{});
     else
       pairs(std::false_type{});
+    // the tile's ties into the slots, while ds is this unit's A fragment:
+    // a row's one tie in this tile (its g picked out of ds by a select
+    // chain), every tile, with no branch; two in one tile, or slots full,
+    // send the row to the second pass.  This block is most of what the
+    // repair costs dQ (tools/port_bs_bwd_variants.py without_tie_block; a
+    // warp-wide branch around it, or its counts in shared memory, cost more)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t mine = tb & (hh ? 0xAAAAAAAAu : 0x55555555u);
+      const int n = __popc(mine), bit = __ffs(mine) - 1, k = bit & 15, e = (bit >> 4) & 1;
+      uint32_t w = 0u;
+#pragma unroll
+      for (int kk = hh; kk < 16; kk += 2) w = k == kk ? ds[kk] : w;
+      const float2 y = unpack2(w);
+      const bool keep_it = n == 1 && nslot[hh] < T::kTieSub;
+      if (keep_it) {
+        const int at = ((r0 + 8 * hh) * 4 + (lane & 3)) * T::kTieSub + nslot[hh];
+        tie_key_s[at] = k0 + 8 * (k >> 1) + c2 + e;
+        tie_g_s[at] = e ? y.y : y.x;
+      }
+      nslot[hh] += keep_it ? 1 : 0;
+      ovf[hh] = ovf[hh] || (n > 0 && !keep_it);
+      tcnt[hh] += n;
+    }
+    dm_own[0] += part[0];
+    dm_own[32] += part[1];
     if (issue_next) {
       take(t + 1);
       scores_issue(t + 1);
@@ -674,7 +792,119 @@ __global__ void __launch_bounds__(kThreadsBW, 2)
   h::fence_regs(dss[1]);
 #pragma unroll
   for (int b = 0; b < T::kBoxes; ++b) h::fence_regs(dq[b]);
-  store_acc<DH>(a.dq + row0 * DH, dq, r0, c2, q_rows);
+
+  // each row's dm = -bf16(sum of g) over the quad (lanes 4 r .. 4 r + 3, one
+  // order for all four), c ties, t = bf16(dm / c), written for dK/dV; a row
+  // with a tie its slots did not keep overflows
+  float t_r[2];
+  int cs[2][4];  // the quad's lanes' slots
+  bool over[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = dm_own[32 * hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    int c = tcnt[hh];
+    c += __shfl_xor_sync(0xffffffffu, c, 1);
+    c += __shfl_xor_sync(0xffffffffu, c, 2);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) cs[hh][x] = __shfl_sync(0xffffffffu, nslot[hh], (lane & ~3) | x);
+    over[hh] = ((__ballot_sync(0xffffffffu, ovf[hh]) >> (lane & ~3)) & 0xfu) != 0u;
+    t_r[hh] = c > 0 ? round_bf16(round_bf16(-sum) / static_cast<float>(c)) : 0.f;
+    const int row = r0 + 8 * hh;
+    if ((lane & 3) == 0 && row < q_rows) a.tie[row0 + row] = t_r[hh];
+  }
+  // rows that overflowed take their ties' share in a second pass over the
+  // key tiles (the same S, dP and g; one stage, loaded by a consumer):
+  // dQ += (bf16(g + t) - g) K at each tie
+  if (over[0] || over[1]) *flag_s = 1;
+  consumers_sync();
+  if (*flag_s != 0) {
+    uint32_t fx[16];
+    for (int t = 0; t < n; ++t) {
+      if (tid == 0) {
+        h::mbar_arrive_expect_tx(fix_full, 2 * T::kTileBytes);
+        for (int b = 0; b < T::kBoxes; ++b) {
+          h::tma_load_3d(ring + b * T::kBoxBytes, &tm_k, fix_full, b * T::kBox, t * kRowsBW, bh);
+          h::tma_load_3d(ring + T::kTileBytes + b * T::kBoxBytes, &tm_v, fix_full, b * T::kBox,
+                         t * kRowsBW, bh);
+        }
+      }
+      h::mbar_wait(fix_full, t & 1);
+      h::fence_regs(s);
+      h::fence_regs(dp);
+      h::wgmma_fence();
+      ss_issue<DH, 64>(s, q_addr, ring_addr, 0);
+      h::wgmma_commit();
+      ss_issue<DH, 64>(dp, do_addr, ring_addr + T::kTileBytes, 0);
+      h::wgmma_commit();
+      h::wgmma_wait<0>();
+      h::fence_regs(s);
+      h::fence_regs(dp);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int hh = k & 1;
+        uint32_t tie;
+        const float2 y = unpack2(pair(k, t * kRowsBW, std::true_type{}, tie));
+        tie = over[hh] ? tie : 0u;
+        fx[k] = pack2((tie & 1u) ? round_bf16(y.x + t_r[hh]) - y.x : 0.f,
+                      (tie >> 16) ? round_bf16(y.y + t_r[hh]) - y.y : 0.f);
+      }
+      rs_issue<DH, 4>(dq, fx, ring_addr, 0);
+      h::wgmma_wait<0>();
+      h::fence_regs(fx);
+#pragma unroll
+      for (int b = 0; b < T::kBoxes; ++b) h::fence_regs(dq[b]);
+      consumers_sync();  // every warp's products read the stage before its next load
+    }
+  }
+  // the other rows' ties, from the slots in lane order: (bf16(g + t) - g)
+  // K_key into `cor` (the accumulator takes only wgmma writes), K read from
+  // device memory at the lane's columns; a loop as long as the warp's most
+  // ties, no branch on a lane's own count
+  float cor[T::kBoxes][T::kBox / 2];
+#pragma unroll
+  for (int b = 0; b < T::kBoxes; ++b)
+#pragma unroll
+    for (int i = 0; i < T::kBox / 2; ++i) cor[b][i] = 0.f;
+  int most = 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    if (!over[hh]) most = max(most, cs[hh][0] + cs[hh][1] + cs[hh][2] + cs[hh][3]);
+  most = __reduce_max_sync(0xffffffffu, most);
+  __syncwarp();
+  const bf16* k_bh = a.k + static_cast<int64_t>(bh) * a.Lk * DH;
+  constexpr int kGroups = T::kBox / 8;
+  for (int e = 0; e < most; ++e) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      int at = -1, rest = e;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int nx = cs[hh][x];
+        if (at < 0 && rest < nx) at = ((r0 + 8 * hh) * 4 + x) * T::kTieSub + rest;
+        if (at < 0) rest -= nx;
+      }
+      const bool live = at >= 0 && !over[hh];
+      at = live ? at : 0;
+      const float g = tie_g_s[at];
+      const float corr = live ? round_bf16(g + t_r[hh]) - g : 0.f;
+      const bf16* krow = k_bh + static_cast<int64_t>(live ? tie_key_s[at] : 0) * DH + c2;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const float2 kf = unpack2(*reinterpret_cast<const uint32_t*>(krow + 8 * j));
+        float* v = &cor[j / kGroups][4 * (j % kGroups) + 2 * hh];
+        v[0] = fmaf(corr, kf.x, v[0]);
+        v[1] = fmaf(corr, kf.y, v[1]);
+      }
+    }
+  }
+  float fin[T::kBoxes][T::kBox / 2];
+#pragma unroll
+  for (int b = 0; b < T::kBoxes; ++b)
+#pragma unroll
+    for (int i = 0; i < T::kBox / 2; ++i) fin[b][i] = (dq[b][i] + cor[b][i]) * a.scale;
+  store_acc<DH>(a.dq + row0 * DH, fin, r0, c2, q_rows);
 }
 
 template <int DH>
@@ -766,8 +996,9 @@ namespace ptt {
 // The bf16-score backward of bf16 q, k, v, out, dout ([B, H, L, dh],
 // contiguous, 16-byte aligned; the checks are flash_attention.cu's run())
 // and a float32 bias (null, or batch and head strides in elements), from the
-// forward's lse = log l and rowmax = m.  dQ writes dq and di = rowsum(dout *
-// out); dK/dV reads that di.  occ != null: the occupancy query instead
+// forward's lse = log l and rowmax = m.  di is float32 [2, B, H, Lq]: dQ
+// writes dq, di[0] = rowsum(dout * out) and di[1] = t, the share of the row
+// max's cotangent each tie takes; dK/dV reads both.  occ != null: the occupancy query instead
 // (out[0..3] as ptt_attention_occupancy's).
 cudaError_t attention_bwd_dq_bf16_scores(const void* q, const void* k, const void* v,
                                          const void* bias, const void* out, const void* dout,
@@ -778,7 +1009,9 @@ cudaError_t attention_bwd_dq_bf16_scores(const void* q, const void* k, const voi
   BwArgs a = args_of(bias, lse, rowmax, H, Lq, Lk, bias_b_stride, bias_h_stride, scale, causal);
   a.out = static_cast<const bf16*>(out);
   a.dout = static_cast<const bf16*>(dout);
+  a.k = static_cast<const bf16*>(k);
   a.di = di;
+  a.tie = di + static_cast<int64_t>(B) * H * Lq;
   a.dq = static_cast<bf16*>(dq);
   return dispatch_bw(false, q, k, v, dout, a, B, dh, stream, occ);
 }
@@ -791,6 +1024,7 @@ cudaError_t attention_bwd_dkv_bf16_scores(const void* q, const void* k, const vo
                                           float scale, int causal, cudaStream_t stream, int* occ) {
   BwArgs a = args_of(bias, lse, rowmax, H, Lq, Lk, bias_b_stride, bias_h_stride, scale, causal);
   a.di = const_cast<float*>(di);
+  a.tie = a.di + static_cast<int64_t>(B) * H * Lq;
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   return dispatch_bw(true, q, k, v, dout, a, B, dh, stream, occ);

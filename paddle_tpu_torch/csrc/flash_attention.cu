@@ -115,7 +115,11 @@
 // in bf16 pairs).  Each file's note says what bounds it and what ptxas
 // makes of it.  The float32 kernels have a compile-time variant kBS: the
 // forward makes three passes (max, sum, output) with m and l fixed, the
-// backward recomputes P as above.
+// backward recomputes P as above and takes the row max's cotangent: dQ sums
+// each row's bf16(P (dP - di)) in float32 (dm = -that, rounded once),
+// writes each row's share t = bf16(dm / c) of its c ties beside di, and
+// dK/dV adds t in bf16 where its score ties; the non-kBS instantiations
+// compile as before (the terms sit under `if constexpr (kBS)`).
 //
 // Why two kernels and no atomics: dK/dV and dQ reduce over different axes
 // (queries and keys).  One kernel would have to add its dQ partial sums
@@ -187,6 +191,9 @@ struct Ld {
   static constexpr size_t kDQ = 4 * kTileBytes + kFBytes + kPBytes + kAccBytes + 2 * kVecBytes;
   // dK/dV: the same with two accumulators (231,936 bytes at dh 128)
   static constexpr size_t kDKV = kDQ + kAccBytes;
+  // the bf16-score dQ's tie slots: each row's first kTies ties (key, g)
+  static constexpr int kTies = 8;
+  static constexpr size_t kTieBytes = align128(sizeof(float) * kRows * 2 * kTies);
 };
 
 // A bump allocator over the dynamic shared memory.
@@ -1006,7 +1013,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it).
-// (kBS: P and dS as in dq_scores.)
+// (kBS: P and dS as in dq_scores, and the row max's cotangent: g =
+// bf16(P (dP - di)) summed over each row in float32 and rounded once, dm =
+// -that, t = bf16(dm / c) over the row's c ties (x - m is 0), written to
+// di + B H Lq for the dK/dV kernel; each tie a takes bf16(g_a + t) in place
+// of g_a.  A row's first kTies ties are kept (key, g) in shared memory in
+// key order, and their share, scale (bf16(g + t) - g) K_a, goes into the
+// accumulator after the loop; a row with more takes it in a second pass
+// over the key tiles.)
 template <int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1027,6 +1041,8 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
   float* m_s = kBS ? cv.take<float>(L::kVecBytes) : nullptr;
+  int* tie_key = kBS ? cv.take<int>(L::kTieBytes) : nullptr;
+  float* tie_g = kBS ? reinterpret_cast<float*>(tie_key + kRows * L::kTies) : nullptr;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int q_rows = min(kRows, pr.Lq - q0);
@@ -1053,8 +1069,22 @@ __global__ void __launch_bounds__(kThreads)
       if (row < q_rows) di[row0 + row] = acc;
     }
   }
+  // kBS: the lane's sums of g over its keys of the warp's 16 rows, the
+  // rows' tie counts (warp-uniform), and after the loop the rows' t and
+  // whether they overflow their slots (bit r)
+  float dmacc[16];
+  int tcnt[16];
+  float t_r[16];
+  uint32_t over = 0u;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    dmacc[r] = t_r[r] = 0.f;
+    tcnt[r] = 0;
+  }
   const int n_tiles = pr.key_tiles(q0 + q_rows);
-  for (int t = 0; t < n_tiles; ++t) {
+  // key tile t; the second pass (fix) adds only the overflowing rows'
+  // share of their ties
+  auto tile = [&](int t, bool fix) {
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
     __syncthreads();
     load_tile<DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
@@ -1062,6 +1092,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
     __syncwarp();
+    uint32_t ties = 0u;  // kBS: bit 2 r + h, score (wr + r, lane + 32 h) tied at m
     for (int r = 0; r < 16; ++r) {  // P = exp(S - lse) where it feeds dS
       const int row = wr + r, qi = q0 + row;
 #pragma unroll
@@ -1071,7 +1102,10 @@ __global__ void __launch_bounds__(kThreads)
         if (c < kv_rows && row < q_rows && !pr.masked(qi, kc)) {
           float s = Sb[row * L::kF + c] * pr.scale;
           if (bias_bh != nullptr) s += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
-          if constexpr (kBS) s = round_bf16(round_bf16(s) - m_s[row]);
+          if constexpr (kBS) {
+            s = round_bf16(round_bf16(s) - m_s[row]);
+            ties |= (s == 0.f ? 1u : 0u) << (2 * r + h);
+          }
           p = expf(s - lse_s[row]);
         }
         PT[row * L::kP + c] = p;
@@ -1080,15 +1114,63 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, dOs + wr * L::kTile, L::kTile, Vs, L::kTile);
     __syncwarp();
-    for (int e = lane; e < 16 * kRows; e += 32) {  // dS; 0 where the score is a constant
-      const int row = wr + e / kRows, c = e % kRows;
-      float ds = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]);
-      if constexpr (kBS) ds = round_bf16(ds);
-      PT[row * L::kP + c] = ds * pr.scale;
+    if constexpr (!kBS) {
+      for (int e = lane; e < 16 * kRows; e += 32) {  // dS; 0 where the score is a constant
+        const int row = wr + e / kRows, c = e % kRows;
+        const float ds = PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]);
+        PT[row * L::kP + c] = ds * pr.scale;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // the same, element e = lane + 32 i: row wr + i / 2
+        const int e = lane + 32 * i, row = wr + e / kRows, c = e % kRows;
+        float ds = round_bf16(PT[row * L::kP + c] * (Sb[row * L::kF + c] - di_s[row]));
+        const bool tie = (ties >> i) & 1u;
+        if (fix) {
+          ds = tie && ((over >> (i / 2)) & 1u) ? round_bf16(ds + t_r[i / 2]) - ds : 0.f;
+        } else {
+          dmacc[i / 2] += ds;
+          const uint32_t b = __ballot_sync(0xffffffffu, tie);
+          if (b != 0u) {  // the row's ties in key order: the lane's slot
+            const int at = tcnt[i / 2] + __popc(b & ((1u << lane) - 1u));
+            if (tie && at < L::kTies) {
+              tie_key[row * L::kTies + at] = k0 + c;
+              tie_g[row * L::kTies + at] = ds;
+            }
+            tcnt[i / 2] += __popc(b);
+          }
+        }
+        PT[row * L::kP + c] = ds * pr.scale;
+      }
     }
     __syncwarp();
     warp_nn_acc<kRows, DH>(dQb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Ks,
                            L::kTile);
+  };
+  for (int t = 0; t < n_tiles; ++t) tile(t, false);
+  if constexpr (kBS) {
+    float* tie_out = di + static_cast<int64_t>(gridDim.y) * pr.Lq;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float sum = __shfl_sync(0xffffffffu, ptt::warp_sum(dmacc[r]), 0);
+      const int c = tcnt[r];
+      t_r[r] = c > 0 ? round_bf16(round_bf16(-sum) / static_cast<float>(c)) : 0.f;
+      over |= (c > L::kTies ? 1u : 0u) << r;
+      if (lane == 0 && wr + r < q_rows) tie_out[row0 + wr + r] = t_r[r];
+    }
+    if (__syncthreads_or(over != 0u))
+      for (int t = 0; t < n_tiles; ++t) tile(t, true);
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {  // the other rows' ties, from the slots
+      const int row = wr + r, ties = (over >> r) & 1u ? 0 : tcnt[r];
+      for (int j = 0; j < ties; ++j) {
+        const float g = tie_g[row * L::kTies + j];
+        const float corr = pr.scale * (round_bf16(g + t_r[r]) - g);
+        const float* krow = kp + static_cast<int64_t>(tie_key[row * L::kTies + j]) * DH;
+        for (int c = lane; c < DH; c += 32) dQb[row * L::kAcc + c] += corr * krow[c];
+      }
+    }
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
@@ -1119,6 +1201,7 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = cv.take<float>(L::kVecBytes);
   float* di_s = cv.take<float>(L::kVecBytes);
   float* m_s = kBS ? cv.take<float>(L::kVecBytes) : nullptr;
+  float* t_s = kBS ? cv.take<float>(L::kVecBytes) : nullptr;
 
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   const int k_rows = min(kRows, pr.Lk - k0);
@@ -1144,12 +1227,17 @@ __global__ void __launch_bounds__(kThreads)
       const bool in = static_cast<int>(threadIdx.x) < q_rows;
       lse_s[threadIdx.x] = in ? lse[qrow0 + q0 + threadIdx.x] : 0.f;
       di_s[threadIdx.x] = in ? di[qrow0 + q0 + threadIdx.x] : 0.f;
-      if constexpr (kBS) m_s[threadIdx.x] = in ? rowmax[qrow0 + q0 + threadIdx.x] : 0.f;
+      if constexpr (kBS) {
+        m_s[threadIdx.x] = in ? rowmax[qrow0 + q0 + threadIdx.x] : 0.f;
+        t_s[threadIdx.x] = in ? di[static_cast<int64_t>(gridDim.y) * pr.Lq + qrow0 + q0 +
+                                   threadIdx.x] : 0.f;
+      }
     }
     __syncthreads();
     // S^T: the warp's 16 keys against the tile's 64 queries
     warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Ks + wr * L::kTile, L::kTile, Qs, L::kTile);
     __syncwarp();
+    uint32_t ties = 0u;  // kBS: bit 2 r + h, score (key wr + r, query lane + 32 h) tied at m
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r, kc = k0 + row;
 #pragma unroll
@@ -1159,11 +1247,14 @@ __global__ void __launch_bounds__(kThreads)
         if (j < q_rows && row < k_rows) {
           if constexpr (kBS) {
             float s = kMasked;
-            if (!pr.masked(qi, kc)) {
+            const bool masked = pr.masked(qi, kc);
+            if (!masked) {
               s = Sb[row * L::kF + j] * pr.scale;
               if (bias_bh != nullptr) s += bias_bh[static_cast<int64_t>(qi) * pr.Lk + kc];
             }
-            p = expf(round_bf16(round_bf16(s) - m_s[j]) - lse_s[j]);
+            s = round_bf16(round_bf16(s) - m_s[j]);
+            ties |= (s == 0.f && !masked ? 1u : 0u) << (2 * r + h);
+            p = expf(s - lse_s[j]);
           } else if (pr.masked(qi, kc)) {
             p = qi + pr.offset() < 0 ? uniform : 0.f;
           } else {
@@ -1180,13 +1271,25 @@ __global__ void __launch_bounds__(kThreads)
                            L::kTile);
     warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
     __syncwarp();
-    for (int e = lane; e < 16 * kRows; e += 32) {
-      const int row = wr + e / kRows, j = e % kRows, qi = q0 + j;
-      float ds = 0.f;
-      if (j < q_rows && row < k_rows && !pr.masked(qi, k0 + row))
-        ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]);
-      if constexpr (kBS) ds = round_bf16(ds);
-      PT[row * L::kP + j] = ds * pr.scale;
+    if constexpr (!kBS) {
+      for (int e = lane; e < 16 * kRows; e += 32) {
+        const int row = wr + e / kRows, j = e % kRows, qi = q0 + j;
+        float ds = 0.f;
+        if (j < q_rows && row < k_rows && !pr.masked(qi, k0 + row))
+          ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]);
+        PT[row * L::kP + j] = ds * pr.scale;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // the same, key wr + i / 2, query lane + 32 (i % 2)
+        const int e = lane + 32 * i, row = wr + e / kRows, j = e % kRows, qi = q0 + j;
+        float ds = 0.f;
+        if (j < q_rows && row < k_rows && !pr.masked(qi, k0 + row))
+          ds = PT[row * L::kP + j] * (Sb[row * L::kF + j] - di_s[j]);
+        ds = round_bf16(ds);
+        if ((ties >> i) & 1u) ds = round_bf16(ds + t_s[j]);  // a tie takes its row's share
+        PT[row * L::kP + j] = ds * pr.scale;
+      }
     }
     __syncwarp();
     warp_nn_acc<kRows, DH>(dKb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Qs,
@@ -1242,7 +1345,9 @@ size_t smem_of(Which which) {
     return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
   } else {
     if (which == kForward) return Ld<DH>::kFwd;
-    const size_t more = BS ? Ld<DH>::kVecBytes : 0;  // the row maxima
+    // the row maxima, and dQ's tie slots or dK/dV's row max shares
+    const size_t more = BS ? Ld<DH>::kVecBytes + (which == kBwdDQ ? Ld<DH>::kTieBytes
+                                                                  : Ld<DH>::kVecBytes) : 0;
     return (which == kBwdDQ ? Ld<DH>::kDQ : Ld<DH>::kDKV) + more;
   }
 }

@@ -5,7 +5,7 @@ it.  Types and defaults are the JAX package's."""
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 _REGISTRY: Dict[str, dict] = {}
 
@@ -15,6 +15,22 @@ def _define(name: str, typ, default, help: str):
     if name in os.environ:
         value = _coerce(typ, os.environ[name])
     _REGISTRY[name] = {"type": typ, "value": value, "default": default, "help": help}
+
+
+def DEFINE_bool(name, default, help=""):
+    _define(name, bool, default, help)
+
+
+def DEFINE_int(name, default, help=""):
+    _define(name, int, default, help)
+
+
+def DEFINE_float(name, default, help=""):
+    _define(name, float, default, help)
+
+
+def DEFINE_string(name, default, help=""):
+    _define(name, str, default, help)
 
 
 def _coerce(typ, v):
@@ -38,6 +54,18 @@ def get_flags(names) -> Dict[str, Any]:
 
 def flag(name: str):
     return _REGISTRY[name]["value"]
+
+
+def all_flags() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def init_from_env():
+    """Seed every registered flag from its FLAGS_* environment variable
+    (a flag defined later reads it when it is defined)."""
+    for name, ent in _REGISTRY.items():
+        if name in os.environ:
+            ent["value"] = _coerce(ent["type"], os.environ[name])
 
 
 _define("FLAGS_check_nan_inf", bool, False,

@@ -21,15 +21,65 @@ import numpy as np
 
 from . import io as _io
 from .core.dtypes import to_numpy
-from .core.executor import CUDAPlace, Executor, Place
+from .core.executor import CPUPlace, CUDAPlace, Executor, Place
 from .core.scope import Scope
 
 
 class AnalysisConfig:
+    """Where and how a Predictor serves a saved model.  The place and the
+    CUDA-graph switch act; the other knobs are recorded and shown by
+    `summary`, as in the JAX package, and each says what it does here."""
+
     def __init__(self, model_dir: str, place: Optional[Place] = None):
         self.model_dir = model_dir
         self.place = place if place is not None else CUDAPlace(0)
         self._graphs = True  # False: an eager Executor (the graphed-vs-eager A/B)
+        self._ir_optim = True
+        self._memory_optim = True
+        self._int8 = True
+        self._threads = 1
+
+    def enable_tpu(self, device_id: int = 0):
+        """Serve on card `device_id` (the JAX package's TPU chip)."""
+        self.place = CUDAPlace(device_id)
+        return self
+
+    def disable_tpu(self):
+        """Serve on the CPU, through the kernels' plain versions."""
+        self.place = CPUPlace()
+        return self
+
+    def switch_ir_optim(self, on: bool = True):
+        """Recorded only: the predictor runs the program as it was saved (the
+        passes run when a program is built or saved), on or off."""
+        self._ir_optim = bool(on)
+        return self
+
+    def enable_memory_optim(self, on: bool = True):
+        """Recorded only: on the card a plan's CUDA graph reuses its own
+        memory pool from the second request on, on or off."""
+        self._memory_optim = bool(on)
+        return self
+
+    def set_cpu_math_library_num_threads(self, n: int):
+        """Recorded only: nothing on the card reads it, and torch's CPU
+        threads are the process's (torch.set_num_threads)."""
+        self._threads = int(n)
+        return self
+
+    def enable_quantize(self, on: bool = True):
+        """Recorded only: an int8 model (`__quant__.json`) does not load in
+        the port yet, whatever this says."""
+        self._int8 = bool(on)
+        return self
+
+    def summary(self) -> dict:
+        return {"model_dir": self.model_dir, "place": type(self.place).__name__,
+                "ir_optim": self._ir_optim, "memory_optim": self._memory_optim,
+                "int8": self._int8, "threads": self._threads}
+
+
+PredictConfig = AnalysisConfig
 
 
 class PredictorTensor:

@@ -232,6 +232,11 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
     return _keep_lod(input, helper.append_activation(out))
 
 
+def dropout_prob_check(p):
+    if not 0 <= p < 1:
+        raise ValueError("dropout prob must be in [0,1)")
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     helper = LayerHelper("dropout", name=name)

@@ -1,5 +1,6 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py): fill_constant,
-create_global_var, cast, sums, assign, concat, zeros_like and linspace."""
+zeros, ones, create_global_var, cast, sums, assign, concat, zeros_like and
+linspace."""
 from __future__ import annotations
 
 import numpy as np
@@ -35,6 +36,14 @@ def create_global_var(shape, value, dtype, persistable=False, force_cpu=False, n
                       attrs={"shape": list(shape), "dtype": canonical_dtype(dtype),
                              "value": float(value)})
     return var
+
+
+def zeros(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 1.0)
 
 
 def cast(x, dtype):

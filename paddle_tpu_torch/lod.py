@@ -58,6 +58,28 @@ class LoDTensor:
     def recursive_sequence_lengths(self) -> List[List[int]]:
         return [self.lengths.tolist()]
 
+    def set_lod(self, lod):
+        """Re-segment the flat payload by an offset table [[0, l1, l1+l2, ...]]."""
+        flat = np.concatenate(self.sequences, axis=0)
+        offs = lod[0]
+        self.sequences = [flat[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+
+    def set_recursive_sequence_lengths(self, lengths):
+        """Re-segment the flat payload by lengths [[l1, l2, ...]]."""
+        flat = np.concatenate(self.sequences, axis=0)
+        out, pos = [], 0
+        for ln in lengths[0]:
+            out.append(flat[pos:pos + ln])
+            pos += ln
+        self.sequences = out
+
+    def has_valid_recursive_sequence_lengths(self) -> bool:
+        """At least one sequence, all with the same feature dims."""
+        if not self.sequences:
+            return False
+        feat = self.sequences[0].shape[1:]
+        return all(s.shape[1:] == feat for s in self.sequences)
+
     def shape(self):
         return (int(self.lengths.sum()),) + tuple(self.sequences[0].shape[1:])
 

@@ -1,8 +1,9 @@
 """The fluid_benchmark model builders (counterpart of
 paddle_tpu/models/vision.py): VGG-16, SE-ResNeXt-50, the stacked dynamic
 LSTM (reference benchmark/fluid/models/{vgg,se_resnext,
-stacked_dynamic_lstm}.py, the fluid_benchmark model list) and the word2vec
-N-gram model (book/test_word2vec.py)."""
+stacked_dynamic_lstm}.py, the fluid_benchmark model list), the word2vec
+N-gram model (book/test_word2vec.py) with a softmax, NCE or hierarchical
+sigmoid head, and a CRF sequence tagger scored by chunk_eval."""
 from __future__ import annotations
 
 from .. import layers, nets, optimizer
@@ -138,9 +139,13 @@ def build_stacked_dynamic_lstm(vocab_size=5000, emb_dim=64, hidden_dim=64,
 # --- word2vec (book test: test_word2vec.py N-gram model) --------------------
 
 def build_word2vec(dict_size=1000, embed_size=32, hidden_size=64, n=4,
-                   learning_rate=0.01, with_optimizer=True):
-    """N-gram language model: (n-1) context words -> next-word softmax
-    (reference book/test_word2vec.py network)."""
+                   learning_rate=0.01, with_optimizer=True, head="softmax", num_neg_samples=5,
+                   custom_neg_classes=None):
+    """N-gram language model: (n-1) context words -> the next word
+    (reference book/test_word2vec.py network).  `head`: "softmax" (the
+    builder of the JAX package), "nce" (noise-contrastive estimation with
+    `num_neg_samples` uniform negatives, or `custom_neg_classes`) or
+    "hsigmoid" (the hierarchical sigmoid over the default tree)."""
     main, startup = Program(), Program()
     with program_guard(main, startup):
         words = [layers.data(f"w{i}", [1], dtype="int64") for i in range(n - 1)]
@@ -150,10 +155,43 @@ def build_word2vec(dict_size=1000, embed_size=32, hidden_size=64, n=4,
                 for w in words]
         concat = layers.concat(embs, axis=1)
         hidden = layers.fc(concat, hidden_size, act="sigmoid")
-        logits = layers.fc(hidden, dict_size)
-        loss = layers.mean(layers.softmax_with_cross_entropy(logits, target))
+        if head == "softmax":
+            cost = layers.softmax_with_cross_entropy(layers.fc(hidden, dict_size), target)
+        elif head == "nce":
+            cost = layers.nce(hidden, target, dict_size, num_neg_samples=num_neg_samples,
+                              custom_neg_classes=custom_neg_classes)
+        elif head == "hsigmoid":
+            cost = layers.hsigmoid(hidden, target, dict_size)
+        else:
+            raise ValueError(f"build_word2vec: head {head!r} is not softmax, nce or hsigmoid")
+        loss = layers.mean(cost)
         if with_optimizer:
             optimizer.Adam(learning_rate=learning_rate).minimize(loss)
     feeds = {f"w{i}": w for i, w in enumerate(words)}
     feeds["target"] = target
     return main, startup, feeds, {"loss": loss}
+
+
+def build_crf_tagger(feature_dim=16, num_chunk_types=2, learning_rate=0.05):
+    """A sequence tagger (reference label_semantic_roles' tail): fc
+    emissions over ragged token features, the linear-chain CRF loss trained
+    by Adam, and the Viterbi path scored by chunk_eval against the labels
+    (IOB tags: 2 num_chunk_types + 1).  chunk_eval counts on the host, so
+    the executor captures no graph of its step."""
+    num_tags = 2 * num_chunk_types + 1
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", [feature_dim], dtype="float32", lod_level=1)
+        label = layers.data("label", [1], dtype="int64", lod_level=1)
+        emis = layers.fc(x, num_tags, num_flatten_dims=2)
+        crf = ParamAttr(name="crfw")
+        loss = layers.mean(layers.linear_chain_crf(emis, label, param_attr=crf))
+        optimizer.Adam(learning_rate=learning_rate).minimize(loss)
+        path = layers.crf_decoding(emis, param_attr=crf)
+        from ..layers.sequence import _lod_of
+
+        precision, recall, f1, n_infer, n_label, n_correct = layers.chunk_eval(
+            path, label, "IOB", num_chunk_types, seq_info=_lod_of(x))
+    return main, startup, {"x": x, "label": label}, {
+        "loss": loss, "precision": precision, "recall": recall, "f1": f1,
+        "num_infer": n_infer, "num_label": n_label, "num_correct": n_correct}

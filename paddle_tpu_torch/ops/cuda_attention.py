@@ -26,7 +26,10 @@ kept on chip, long rows split over a thread-block cluster, see
 inputs take flash_attention.cu's float32 twins (compile-time variant kBS).
 They count under `LAUNCHES["attention_fwd_bf16_scores"]`,
 `["attention_bwd_dq_bf16_scores"]` and `["attention_bwd_dkv_bf16_scores"]`;
-their saved statistics are [2, B, H, Lq]: log of the row sum, and m.
+their saved statistics are [2, B, H, Lq]: log of the row sum, and m; the
+dQ kernel hands the dK/dV kernel [2, B, H, Lq] too: di, and each row's share
+of its max's cotangent (the backward is the composite's full VJP, the
+gradient through the row max included).
 """
 from __future__ import annotations
 
@@ -96,20 +99,67 @@ def sdpa_plain(q, k, v, bias, causal, scale, score_bf16=False):
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
+def _xla_bf16_sum(x):
+    """Sum over the last axis of `x` (float32 holding bf16 values) as XLA's
+    CPU backend sums a bfloat16 reduce_sum: every partial sum rounded to
+    bf16 (the reduction's add is a float32 add converted to bf16), in its
+    order: a row of at most 32 left to right; a longer one zero-padded to a
+    multiple of 32 (the lower half of the padding first), each window of 32
+    summed left to right, then the window sums reduced the same way."""
+    n = x.shape[-1]
+    if n > 32:
+        m = -(-n // 32) * 32
+        lo = (m - n) // 2
+        x = torch.nn.functional.pad(x, (lo, m - n - lo))
+        x = _xla_bf16_sum(x.reshape(*x.shape[:-1], m // 32, 32))
+        return _xla_bf16_sum(x)
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for i in range(n):
+        acc = (acc + x[..., i]).to(torch.bfloat16).float()
+    return acc
+
+
+def _max_cotangent(g, sb, m):
+    """The bf16 cotangent of the rounded scores with the row max's share
+    (score_bf16): g = bf16(P (dP - di)) everywhere, plus t = bf16(dm / c) in
+    bf16 at the c scores tied at the row max m, dm = -sum_j g_j (jax.vjp of
+    the composite's max, paddle_tpu/ops/nn_ops.py:681: the max's cotangent
+    split evenly among its ties, add_any in bf16).  The sum and the count
+    are taken in float32 and rounded once, as the kernels take them (the
+    JAX composite's order is `_xla_bf16_sum`'s)."""
+    tied = sb == m
+    dm = -g.sum(-1).to(torch.bfloat16).float()
+    t = (dm / tied.sum(-1).float()).to(torch.bfloat16).float().unsqueeze(-1)
+    return torch.where(tied, (g + t).to(torch.bfloat16).float(), g)
+
+
 def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """float32 P and dS of the backward: dP = dO V^T, di = rowsum(dO * O)
-    from the forward's output, dS = P (dP - di) scale rounded to q.dtype
-    (score_bf16: P (dP - di) is rounded to bf16 first, the VJP of the
-    composite's cast of s; the cotangent the VJP sends through the row max,
-    -sum_j bf16(P_j (dP_j - di)), is 0 in exact arithmetic and left out).  A
-    masked score is a constant, so its dS is 0."""
-    p, _, _, keep = _probs_plain(q, k, bias, causal, scale, score_bf16)
+    from the forward's output, dS = P (dP - di) scale rounded to q.dtype.
+
+    score_bf16: the full VJP of the composite's bf16 scores.  P (dP - di) is
+    rounded to bf16 (the VJP of the cast of s - m), and the row max m sends
+    back dm = -sum_j bf16(P_j (dP_j - di)), 0 in exact arithmetic but not
+    after the roundings: its share bf16(dm / c) is added in bf16 at each of
+    the c scores tied at m (`_max_cotangent`), then the sum is scaled.  XLA's
+    CPU backend forms that bf16 sum in bf16 steps, each partial sum rounded
+    (a probe of rows whose partial sums land on bf16 boundaries: 1 + 4 x
+    2^-8 sums to 1, not to 1 + 2^-6), over windows of 32 keys
+    (`_xla_bf16_sum` mirrors it bit for bit).  The kernels cannot mirror that
+    order (a row's keys are spread over the lanes of a quad and over tiles)
+    at a cost the backward can carry: they sum the bf16 values in float32 and
+    round once, and so does this version, the kernels' plain version.  The
+    two orders part by about as much as dm itself (each step's rounding is
+    of the order of the g's own), so TIE_RULE states what the float32 orders
+    may move, and, against the composite (`tie_allowed`'s xla_order), what
+    its order moves.  A masked score is a constant, so its dS is 0."""
+    p, sb, m, keep = _probs_plain(q, k, bias, causal, scale, score_bf16)
     do = dout.float()
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     di = (do * out.float()).sum(-1, keepdim=True)
     ds = p * (dp - di)
     if score_bf16:
-        ds = ds.to(torch.bfloat16).float()
+        ds = _max_cotangent(ds.to(torch.bfloat16).float(), sb, m)
     ds = ds * scale
     if keep is not None:
         ds = torch.where(keep, ds, torch.zeros_like(ds))
@@ -206,6 +256,59 @@ def _near_boundary(x, xb, eps):
     return (half_ulp - (x - xb).abs()) <= eps
 
 
+def _score_flips(q, k, bias, causal, scale):
+    """(P, the rounded scores, their row max m, share, rival) of the
+    bf16-score softmax: share is 2^-6 (|s| + |m|) at the scores whose bf16
+    rounding can flip between two orders of the same sums (s within eps = 2
+    dh 2^-24 scale |q| |k|^T + 2^-23 (|s| + |bias|) of a rounding boundary)
+    and at every score of a row whose max can flip, else 0; rival marks, in
+    a row where a score near a boundary lies within two bf16 steps of m (its
+    max or its ties may differ), the scores that may be tied at the max on
+    either side."""
+    s, keep = _scores_plain(q, k, bias, causal, scale)
+    p, sb, m, _ = _probs_plain(q, k, bias, causal, scale, True)
+    dh = q.shape[-1]
+    eps = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2)) * (
+        2.0 * dh * 2.0 ** -24 * scale) + 2.0 ** -23 * s.abs()
+    if bias is not None:
+        eps += 2.0 ** -23 * bias.float().abs()
+    near = _near_boundary(s, sb, eps)
+    del eps, s
+    if keep is not None:
+        near &= keep
+    flip = (near & (sb == m)).any(-1, keepdim=True)
+    # the scores that may round to a row's max, or off it: near a boundary
+    # and within two bf16 steps of m; their rows' ties may differ
+    step = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    close = near & (sb >= m - 2 * step)
+    rival = close.any(-1, keepdim=True) & (close | (sb == m))
+    near |= flip
+    if keep is not None:
+        near &= keep
+        rival &= keep
+    share = torch.where(near, (sb.abs() + m.abs()) * 2.0 ** -6, torch.zeros_like(sb))
+    return p, sb, m, share, rival
+
+
+def _dscore_flips(p, v, out, dout):
+    """(x, near, e): x = P (dP - di) in float32, e the most another order
+    of its sums may move it (dP and di are dh-term sums, each side within dh
+    2^-24 <= 2^-17 of the sum of its terms' magnitudes, and P's relative
+    error is the row sum's, the log's and the exp's, within 2^-24 (2 Lk + 8
+    + 3 |log P|)), and where x lies near enough to a bf16 rounding boundary
+    that it may round to the neighbouring value."""
+    do = dout.float()
+    x = p * (torch.matmul(do, v.float().transpose(-1, -2))
+             - (do * out.float()).sum(-1, keepdim=True))
+    ado = do.abs()
+    e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
+    e += (ado * out.float().abs()).sum(-1, keepdim=True)
+    e *= p * 2.0 ** -16
+    lk = v.shape[-2]
+    e += x.abs() * (2.0 ** -24 * (2 * lk + 8 + 3 * p.clamp_min(1e-38).log().abs()))
+    return x, _near_boundary(x, x.to(torch.bfloat16).float(), e), e
+
+
 def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
     """What a bf16-score kernel's output (out=None) or gradients (dq, dk, dv)
     may differ from the plain versions' by beyond the other terms of their
@@ -231,22 +334,7 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
     bf16 step (2^-7 of dS) apart; elsewhere both round alike, so a kernel
     that does not round dS is not admitted.  The bfloat16 inputs' rule
     (BWD_BF16_RULE) holds a step of every dS already."""
-    s, keep = _scores_plain(q, k, bias, causal, scale)
-    p, sb, m, _ = _probs_plain(q, k, bias, causal, scale, True)
-    dh = q.shape[-1]
-    eps = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2)) * (
-        2.0 * dh * 2.0 ** -24 * scale) + 2.0 ** -23 * s.abs()
-    if bias is not None:
-        eps += 2.0 ** -23 * bias.float().abs()
-    near = _near_boundary(s, sb, eps)
-    del eps
-    if keep is not None:
-        near &= keep
-    near |= (near & (sb == m)).any(-1, keepdim=True)
-    if keep is not None:
-        near &= keep
-    share = torch.where(near, (sb.abs() + m.abs()) * 2.0 ** -6, torch.zeros_like(sb))
-    del near, s
+    p, sb, m, share, _ = _score_flips(q, k, bias, causal, scale)
     if dout is None:
         w = p * share
         ref = sdpa_plain(q, k, v, bias, causal, scale, True).float().abs()
@@ -254,21 +342,171 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
     _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, True)
     ads = ds.abs().mul_(share)
     if q.dtype == torch.float32:
-        do = dout.float()
-        x = p * (torch.matmul(do, v.float().transpose(-1, -2))
-                 - (do * out.float()).sum(-1, keepdim=True))
-        ado = do.abs()
-        e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
-        e += (ado * out.float().abs()).sum(-1, keepdim=True)
-        e *= p * 2.0 ** -16
-        lk = k.shape[-2]
-        e += x.abs() * (2.0 ** -24 * (2 * lk + 8 + 3 * p.clamp_min(1e-38).log().abs()))
-        near = _near_boundary(x, x.to(torch.bfloat16).float(), e)
-        del e, x
+        near = _dscore_flips(p, v, out, dout)[1]
         ads += torch.where(near, ds.abs() * 2.0 ** -7, torch.zeros_like(ds))
     return (torch.matmul(ads, k.float().abs()),
             torch.matmul(ads.transpose(-1, -2), q.float().abs()),
             torch.matmul((p * share).transpose(-1, -2), dout.float().abs()))
+
+
+TIE_RULE = ("the kernel's share t' of each row's max cotangent within bf16(bf16(-S') / c), S' "
+            "between the plain version's and the kernel's float32 row sums of g = bf16(P (dP - "
+            "di)) (the kernel's order mirrored), widened in a row where some g_j may round apart "
+            "by e_j + 2^-7 (|g_j| + e_j) + share_j |g_j| (e_j: the error of P (dP - di) "
+            "across orders) and 2^-24 Lk sum |g| (against the JAX composite also "
+            "its sum in XLA's bf16 steps); then dq and dk: at each score tied at m, scale "
+            "|bf16(g + t') - bf16(g + t)|, and in a row whose ties can differ (a score near a "
+            "boundary within two bf16 steps of m), scale (d + 2^-7 (|g| + d)), d the largest "
+            "|bf16(S')|, at the scores that may be tied at its max; times |K| for dq, |Q| for dk")
+
+
+def kernel_order_sum(g, dtype):
+    """The float32 row sums of g [..., Lk] in the order the dQ kernel of
+    inputs of `dtype` takes them, bit for bit: bfloat16 inputs
+    (attention_bwd_bs.cu) a lane of a quad its keys 8 j + 2 lane + (0, 1)
+    of each 64-key tile, a pair's sum added to the tile's, the tiles' sums
+    in order, then (lane 0 + lane 1) + (lane 2 + lane 3); float32 inputs
+    (flash_attention.cu) a lane its keys lane and lane + 32 of each tile in
+    order, then the warp's butterfly (16, 8, 4, 2, 1) as lane 0 sees it.
+    Masked and past-the-end keys are 0 there, as in `g`."""
+    n = g.shape[-1]
+    tiles = -(-n // 64)
+    gp = torch.nn.functional.pad(g, (0, tiles * 64 - n))
+    if dtype == torch.bfloat16:
+        gp = gp.reshape(*g.shape[:-1], tiles, 8, 4, 2)
+        pair = gp[..., 0] + gp[..., 1]
+        part = torch.zeros_like(pair[..., 0, :])
+        for j in range(8):
+            part = part + pair[..., j, :]
+        acc = torch.zeros_like(part[..., 0, :])
+        for t in range(tiles):
+            acc = acc + part[..., t, :]
+        return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    gp = gp.reshape(*g.shape[:-1], tiles, 2, 32)
+    acc = torch.zeros_like(gp[..., 0, 0, :])
+    for t in range(tiles):
+        for h in range(2):
+            acc = acc + gp[..., t, h, :]
+    lanes = torch.arange(32, device=g.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
+
+
+def _tie_range(q, k, v, bias, causal, scale, out, dout, xla_order=False):
+    """The pieces of TIE_RULE: g, the plain version's bf16 cotangent (with
+    its shares), the tied scores, the rival ones (rows whose ties can differ),
+    the causal keep-mask, the ends of dm's range and of t's.
+
+    Both the plain version and a kernel sum the row's bf16 values g in
+    float32 and round once, each in an order of its own: the kernel's is
+    mirrored bit for bit (`kernel_order_sum`), so where both take the same
+    g the range is the two sums.  A g_j that may round apart (every one
+    with bfloat16 inputs, those near a boundary with float32 inputs,
+    `_dscore_flips`: by its x's error e_j and a bf16 step of the larger,
+    all of g_j where dP - di cancels), or whose P may move with a flipped
+    score (share, as in score_rounding_allowed), moves its row's sum by
+    that much more, and the roundings after it by at most 2^-24 Lk sum |g|.
+    The kernels count only the unmasked ties (a row all masked is masked
+    whole).  Rounding and dividing by a positive count keep order, so t =
+    bf16(bf16(-S) / c) lies between its values at the ends of S's range and
+    the counts.  xla_order: the JAX composite's sum and count, in XLA's
+    bf16 steps (`_xla_bf16_sum`), make one more end."""
+    p, sb, m, share, rival = _score_flips(q, k, bias, causal, scale)
+    keep = None
+    if causal:
+        lq, lk = sb.shape[-2:]
+        keep = torch.ones(lq, lk, dtype=torch.bool, device=sb.device).tril(lk - lq)
+    x, near, e = _dscore_flips(p, v, out, dout)
+    g = x.to(torch.bfloat16).float()
+    near |= (x == 0) & (e > 0)  # an exact 0 (dP = di) may come out as a tiny value
+    del x
+    if q.dtype != torch.float32:
+        near = torch.ones_like(near)
+    ag = g.abs()
+    apart = near | (share > 0)
+    del near
+    # rows where some g may round apart: their float32 sums may part too.
+    # Such a g moves by its x's error e, and the two roundings by a bf16
+    # step of the larger (where dP - di cancels, e exceeds x itself)
+    moved = torch.where(apart, e + 2.0 ** -7 * (ag + e), torch.zeros_like(ag)) + share * ag
+    del e
+    eps = torch.where(apart.any(-1), moved.sum(-1) + 2.0 ** -24 * k.shape[-2] * ag.sum(-1),
+                      torch.zeros_like(ag[..., 0])).double()
+    del moved, apart
+    gk = g if keep is None else torch.where(keep, g, torch.zeros_like(g))
+    sums = torch.stack([g.sum(-1), kernel_order_sum(gk, q.dtype)]).double()
+    del gk
+    tied = sb == m
+    counts = (tied.sum(-1).float(), (tied if keep is None else tied & keep).sum(-1).float())
+    dms = [(-(sums.amax(0) + eps)).float().to(torch.bfloat16).float(),
+           (-(sums.amin(0) - eps)).float().to(torch.bfloat16).float()]
+    ts = [(dm / c.clamp_min(1.0)).to(torch.bfloat16).float() for dm in dms for c in counts]
+    if xla_order:
+        dms.append(-_xla_bf16_sum(g))
+        ts.append((dms[-1] / _xla_bf16_sum(tied.float())).to(torch.bfloat16).float())
+    ts = torch.stack(ts)
+    want = _max_cotangent(g, sb, m)
+    d = torch.stack(dms).abs().amax(0)
+    return g, want, tied, rival, keep, d, ts.amin(0), ts.amax(0)
+
+
+def tie_share_range(q, k, v, bias, causal, scale, out, dout):
+    """(lo, hi, held) [B, H, Lq]: the range TIE_RULE gives each row's share
+    t of its max's cotangent (what the dQ kernel writes beside di), and the
+    rows it holds: not those whose ties can differ (`_score_flips`' rival),
+    nor those that see no key."""
+    return _held_range(_tie_range(q, k, v, bias, causal, scale, out, dout))
+
+
+def _held_range(parts):
+    _, _, _, rival, keep, _, lo, hi = parts
+    held = ~rival.any(-1)
+    if keep is not None:
+        held &= keep.any(-1)
+    return lo, hi, held
+
+
+def tie_allowed(q, k, v, bias, causal, scale, out, dout, t=None, xla_order=False):
+    """What a bf16-score kernel's (dq, dk) may differ from the plain
+    versions' by through the row max's cotangent, beyond the other terms of
+    their rules (TIE_RULE), at the tied scores: |bf16(g + t') - bf16(g + t)|
+    * scale, t the plain version's share and t' the kernel's (`t`, [B, H,
+    Lq], as the dQ kernel writes it; the share itself is held by
+    `tie_share_range`), or, without `t`, either end of the share's range
+    (`_tie_range`; xla_order: against the JAX composite).  In a row whose
+    max or ties can flip (a score near a boundary within two bf16 steps of
+    m) the ties themselves may differ: there each score that may be tied at
+    the max on either side may take or lose a share of dm whole.  Elsewhere
+    both sides take the same ties, so a kernel that leaves dm out is not
+    admitted."""
+    parts = _tie_range(q, k, v, bias, causal, scale, out, dout, xla_order)
+    return _tie_term(parts, t, q, k, scale)
+
+
+def tie_terms(q, k, v, bias, causal, scale, out, dout, t):
+    """tie_share_range, tie_allowed(t=t) and tie_allowed() of one case from
+    one `_tie_range`: (lo, hi, held), the (dq, dk) terms of the kernel's
+    shares `t`, and those of any share in the range."""
+    parts = _tie_range(q, k, v, bias, causal, scale, out, dout)
+    return (_held_range(parts), _tie_term(parts, t, q, k, scale),
+            _tie_term(parts, None, q, k, scale))
+
+
+def _tie_term(parts, t, q, k, scale):
+    g, want, tied, rival, keep, d, lo, hi = parts
+    if t is not None:
+        lo = hi = t.float()
+    term = torch.maximum((g + lo.unsqueeze(-1)).to(torch.bfloat16).float().sub_(want).abs_(),
+                         (g + hi.unsqueeze(-1)).to(torch.bfloat16).float().sub_(want).abs_())
+    term = torch.where(tied, term, torch.zeros_like(term))
+    d = d.unsqueeze(-1)
+    term = torch.where(rival, torch.maximum(term, d + 2.0 ** -7 * (g.abs() + d)), term)
+    term *= scale
+    if keep is not None:
+        term = torch.where(keep, term, torch.zeros_like(term))
+    return (torch.matmul(term, k.float().abs()),
+            torch.matmul(term.transpose(-1, -2), q.float().abs()))
 
 
 def sdpa_bwd_plain(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
@@ -308,7 +546,7 @@ def _check(name, q, k, v, bias, more=(), stats=()):
         if t.shape != q.shape:
             raise ValueError(f"{name}: {what} {tuple(t.shape)} is not q's {tuple(q.shape)}")
     for what, t in stats:
-        want = ((2,) if what == "stats" else ()) + tuple(q.shape[:3])
+        want = ((2,) if what in ("stats", "dstats") else ()) + tuple(q.shape[:3])
         if t.dtype != torch.float32 or tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous float32 {want}")
     if q.shape[-1] not in _HEAD_DIMS:
@@ -354,12 +592,15 @@ def attention_fwd(q, k, v, bias, causal, scale, score_bf16=False):
 
 def attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout, score_bf16=False):
     """(dq, di) on the card: the dQ kernel, which also writes di =
-    rowsum(dout * out) (float32 [B, H, Lq]) for the dK/dV kernel."""
+    rowsum(dout * out) (float32 [B, H, Lq]) for the dK/dV kernel; score_bf16:
+    [2, B, H, Lq], di and t = bf16(dm / c), the share of its row max's
+    cotangent each tied score takes (`_max_cotangent`)."""
     name = "attention backward dQ"
     st, lse_p, m_p = _stats(lse, score_bf16)
     bias = _check(name, q, k, v, bias, (("out", out), ("dout", dout)), (st,))
     dq = torch.empty_like(q)
-    di = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    di = torch.empty(((2,) if score_bf16 else ()) + tuple(q.shape[:3]), dtype=torch.float32,
+                     device=q.device)
     _build.call("ptt_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                 out.data_ptr(), dout.data_ptr(), lse_p, m_p or None, di.data_ptr(),
                 dq.data_ptr(), *_dims(q, k, bias), float(scale), int(bool(causal)),
@@ -370,10 +611,11 @@ def attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, dout, score_bf16=Fa
 
 def attention_bwd_dkv(q, k, v, bias, causal, scale, lse, di, dout, score_bf16=False):
     """(dk, dv) on the card: the dK/dV kernel, from the forward's lse and
-    the dQ kernel's di."""
+    the dQ kernel's di (score_bf16: with t)."""
     name = "attention backward dK/dV"
     st, lse_p, m_p = _stats(lse, score_bf16)
-    bias = _check(name, q, k, v, bias, (("dout", dout),), (st, ("di", di)))
+    bias = _check(name, q, k, v, bias, (("dout", dout),),
+                  (st, ("dstats" if score_bf16 else "di", di)))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _build.call("ptt_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),

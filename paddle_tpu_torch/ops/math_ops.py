@@ -376,7 +376,7 @@ _A.register_elementwise_infer("elementwise_add", "elementwise_sub", "elementwise
                               "elementwise_div", "elementwise_max", "elementwise_min",
                               "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
                               "minus")
-# logical_xor is not ported yet; its rule comes with its lowering
+# logical_xor takes its rule beside its lowering (ops/tail_ops.py)
 _A.register_elementwise_infer(*sorted(_A.BOOL_OUT_OPS - {"logical_xor"}), out_dtype="bool")
 _A.register_unary_infer("logical_not", out_dtype="bool")
 _A.register_unary_infer(*_UNARY, *_ATTR_UNARY, "pow", "clip", "clip_by_norm", "scale")

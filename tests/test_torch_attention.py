@@ -13,6 +13,7 @@ float32 (as tests/test_pallas_kernels.py holds the Pallas backward),
 (tests/test_torch_gpu.py, chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -279,7 +280,8 @@ def _composite_bf16_scores(q, k, v, bias, causal, scale, stop_max=False):
     """The JAX package's composite with score_dtype="bfloat16"
     (paddle_tpu/ops/nn_ops.py:672-689): s rounded to bf16, m the max of the
     rounded scores, exp of f32(bf16(s - m)), the sum in float32.  stop_max
-    stops the gradient through m, as the port's backward does."""
+    stops the gradient through m, as the port's backward did before it took
+    the row max's cotangent."""
     s = jnp.einsum("bhqd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32) * scale
     if bias is not None:
         s = s + bias
@@ -343,7 +345,44 @@ BF16_SCORE_CASES = [  # (B, H, Lq, Lk, dh, bias, causal)
     (2, 2, 32, 32, 16, None, False),
     (2, 2, 24, 40, 16, "per_head", True),   # causal with Lq < Lk, a bias
     (1, 2, 40, 24, 16, "bcast", True),      # causal with Lq > Lk: rows with no visible key
+    (1, 2, 65, 65, 16, None, False),        # a row past two windows of XLA's bf16 sum
+    (1, 2, 48, 40, 16, "ties", False),      # keys 3, 5 and 7 the same: ties at the row max
 ]
+
+
+def _tied_keys(q, k):
+    """k with keys 3, 5 and 7 made one key that most queries score highest
+    (2.5 times the queries' mean direction, rounded to q's dtype), so that
+    their rounded scores tie at the row max."""
+    k = np.array(k, np.float32)
+    u = np.asarray(q, np.float32).mean(axis=2, keepdims=True)
+    u = 2.5 * u * np.sqrt(k.shape[-1]) / np.linalg.norm(u, axis=-1, keepdims=True)
+    k[:, :, [3, 5, 7], :] = u
+    return jnp.asarray(k, q.dtype)
+
+
+class _OpStub:
+    """An op of the JAX package as its lowerings read it: attributes only."""
+
+    def __init__(self, **attrs):
+        self.attrs = attrs
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+
+def _jax_fused_attention(q, k, v, bias, causal, scale):
+    """The JAX package's own fused_attention lowering on the CPU
+    (paddle_tpu/ops/nn_ops.py:610-689) with score_dtype="bfloat16"."""
+    from types import SimpleNamespace
+
+    from paddle_tpu.core.registry import get_op_def
+
+    ins = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    op = _OpStub(causal=causal, scale=scale, score_dtype="bfloat16")
+    return get_op_def("fused_attention").lower(SimpleNamespace(platform="cpu"), op, ins)["Out"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -351,38 +390,56 @@ BF16_SCORE_CASES = [  # (B, H, Lq, Lk, dh, bias, causal)
 def test_bf16_scores_plain_matches_composite(dtype, case):
     """fused_sdpa(score_bf16=True) on the CPU (sdpa_plain and sdpa_bwd_plain
     with bf16 scores) against the JAX composite with score_dtype="bfloat16",
-    forward and jax.vjp, float32 and bfloat16 inputs.  Tolerances: the
-    forward's and gradients' of the f32-score tests, plus, element by
-    element, cuda_attention.score_rounding_allowed (the two sides may round
-    a float32 score that differs in its last bits to neighbouring bf16
-    values).  The port's backward stops the gradient through the row max m
-    (its cotangent, -sum_j bf16(P_j (dP_j - di)), is 0 in exact arithmetic):
-    it is held to the composite with m stopped, and the composite's full
-    gradient differs from that by at most 2^-7 of its largest element."""
+    forward and the full jax.vjp (the gradient through the row max m
+    included), float32 and bfloat16 inputs; the tied case runs the JAX
+    package's own fused_attention lowering.  Tolerances: the forward's and
+    gradients' of the f32-score tests, plus, element by element,
+    cuda_attention.score_rounding_allowed (the two sides may round a float32
+    score that differs in its last bits to neighbouring bf16 values) and,
+    for dq and dk, cuda_attention.tie_allowed with xla_order (such a
+    rounding of a bf16(P (dP - di)) moves the row max's cotangent, and the
+    composite sums it in XLA's bf16 steps, the port in float32).  The composite with m
+    stopped (the port's backward before the repair) lies outside those
+    tolerances with float32 inputs from 65 keys on and at the forced ties
+    (bfloat16's 5e-2 of the largest gradient cannot see it)."""
     B, H, Lq, Lk, dh, bias_kind, causal = case
-    q, k, v, g, bias = _inputs(np.random.RandomState(8), B, H, Lq, Lk, dh, dtype, bias_kind)
+    rng = np.random.RandomState(8)
+    q, k, v, g, bias = _inputs(rng, B, H, Lq, Lk, dh, dtype,
+                               None if bias_kind == "ties" else bias_kind)
+    composite = _composite_bf16_scores
+    if bias_kind == "ties":
+        k = _tied_keys(q, k)
+        composite = (lambda q, k, v, bias, causal, scale, stop_max=False:
+                     composite_stop(q, k, v, bias, causal, scale) if stop_max
+                     else _jax_fused_attention(q, k, v, bias, causal, scale))
+        composite_stop = lambda *a: _composite_bf16_scores(*a, stop_max=True)  # noqa: E731
     scale = 1.0 / np.sqrt(dh)
-    want, vjp = jax.vjp(lambda q, k, v: _composite_bf16_scores(q, k, v, bias, causal, scale,
-                                                                True), q, k, v)
+    want, vjp = jax.vjp(lambda q, k, v: composite(q, k, v, bias, causal, scale), q, k, v)
     want_grads = vjp(g)
-    full_grads = jax.vjp(lambda q, k, v: _composite_bf16_scores(q, k, v, bias, causal, scale),
-                         q, k, v)[1](g)
+    stopped = jax.vjp(lambda q, k, v: composite(q, k, v, bias, causal, scale, True),
+                      q, k, v)[1](g)
     tq, tk, tv = (to_tensor(np.asarray(a)).clone().requires_grad_(True) for a in (q, k, v))
     tb = None if bias is None else to_tensor(np.asarray(bias))
     out = ca.fused_sdpa(tq, tk, tv, tb, causal, scale, True)
     grads = torch.autograd.grad(out, (tq, tk, tv), to_tensor(np.asarray(g)))
     assert out.dtype == tq.dtype and out.shape == (B, H, Lq, dh)
-    qd, kd, vd = (t.detach() for t in (tq, tk, tv))
+    qd, kd, vd, gd = (t.detach() for t in (tq, tk, tv, to_tensor(np.asarray(g))))
     allowed = FWD_TOL[dtype] + ca.score_rounding_allowed(qd, kd, vd, tb, causal, scale).numpy()
     assert (np.abs(np.asarray(want, np.float32) - out.detach().float().numpy()) <= allowed).all()
-    extra = ca.score_rounding_allowed(qd, kd, vd, tb, causal, scale, out.detach(),
-                                      to_tensor(np.asarray(g)))
-    for name, w, got, e, full in zip(("dq", "dk", "dv"), want_grads, grads, extra, full_grads):
+    extra = list(ca.score_rounding_allowed(qd, kd, vd, tb, causal, scale, out.detach(), gd))
+    for i, t in enumerate(ca.tie_allowed(qd, kd, vd, tb, causal, scale, out.detach(), gd,
+                                         xla_order=True)):
+        extra[i] = extra[i] + t
+    seen = []
+    for name, w, got, e, stop in zip(("dq", "dk", "dv"), want_grads, grads, extra, stopped):
         assert got.dtype == out.dtype
-        diff = np.abs(np.asarray(w, np.float32) - got.float().numpy())
-        assert (diff <= _grad_tol(dtype, w) + e.numpy()).all(), name
-        w32, f32 = np.asarray(w, np.float32), np.asarray(full, np.float32)
-        assert np.abs(f32 - w32).max() <= 2.0 ** -7 * np.abs(f32).max(), name
+        tol = _grad_tol(dtype, w) + e.numpy()
+        w32 = np.asarray(w, np.float32)
+        assert (np.abs(w32 - got.float().numpy()) <= tol).all(), name
+        seen.append(bool((np.abs(w32 - np.asarray(stop, np.float32)) > tol).any()))
+    if dtype == "float32" and (Lk >= 65 or bias_kind == "ties"):
+        assert seen[0] or seen[1], "the tolerance cannot see the row max's cotangent"
+    assert not seen[2]  # dV = P^T dO holds no dS
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -406,8 +463,10 @@ def test_bf16_scores_differ_from_f32_scores(dtype):
 
 def _bf16_score_bwd_f64(q, k, v, bias, causal, scale, out, dout):
     """(dq, dk, dv) of the bf16-score backward in float64 (another order of
-    the same arithmetic): the scores, s - m and P (dP - di) rounded to bf16
-    from float64 values, everything else exact until the float32 result."""
+    the same arithmetic): the scores, s - m, P (dP - di), the row max's
+    cotangent and its share rounded to bf16 from float64 values, the
+    cotangent summed exactly and rounded once (as the kernels sum it in
+    float32), everything else exact until the float32 result."""
     d = torch.float64
     s = torch.matmul(q.to(d), k.to(d).transpose(-1, -2)) * scale
     if bias is not None:
@@ -422,7 +481,15 @@ def _bf16_score_bwd_f64(q, k, v, bias, causal, scale, out, dout):
     p = e / e.sum(-1, keepdim=True)
     do = dout.to(d)
     x = p * (do @ v.to(d).transpose(-1, -2) - (do * out.to(d)).sum(-1, keepdim=True))
-    ds = x.to(torch.bfloat16).to(d) * scale
+    g = x.to(torch.bfloat16).to(d)
+    # the row max's cotangent: the sum of g rounded to bf16 once, its share
+    # at the unmasked ties
+    tied = sb == sb.amax(-1, keepdim=True)
+    if keep is not None:
+        tied &= keep
+    dm = (-g.sum(-1, keepdim=True)).to(torch.bfloat16).to(d)
+    t = (dm / tied.sum(-1, keepdim=True).clamp_min(1)).to(torch.bfloat16).to(d)
+    ds = torch.where(tied, (g + t).to(torch.bfloat16).to(d), g) * scale
     if keep is not None:
         ds = torch.where(keep, ds, torch.zeros_like(ds))
     return tuple(t.float() for t in (ds @ k.to(d), ds.transpose(-1, -2) @ q.to(d),
@@ -432,16 +499,21 @@ def _bf16_score_bwd_f64(q, k, v, bias, causal, scale, out, dout):
 @pytest.mark.parametrize("case", BF16_SCORE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_bf16_score_backward_rule_sees_rounding(case):
     """The rule chip_smoke.py holds the float32 bf16-score backward kernels
-    by (grad_tol + score_rounding_allowed) sees both roundings: the
-    f32-score backward exceeds it in dq, dk and dv, and the bf16-score
-    backward without the rounding of dS (chip_smoke.unrounded_ds_grads)
-    exceeds it in dq and dk, while the same backward computed in float64
-    (another order of the same roundings) stays within it."""
+    by (grad_tol + score_rounding_allowed, + tie_allowed for dq and dk) sees
+    each rounding: the f32-score backward exceeds it in dq, dk and dv, and
+    the bf16-score backward without the rounding of dS
+    (chip_smoke.unrounded_ds_grads) exceeds it in dq and dk, and from 65
+    keys on and at forced ties so does the one without the row max's
+    cotangent (chip_smoke.no_max_cotangent_grads), while the same backward
+    computed in float64 (another order of the same roundings) stays within
+    it."""
     import chip_smoke
 
     B, H, Lq, Lk, dh, bias_kind, causal = case
     q, k, v, g, bias = _inputs(np.random.RandomState(10), B, H, Lq, Lk, dh, "float32",
-                               bias_kind)
+                               None if bias_kind == "ties" else bias_kind)
+    if bias_kind == "ties":
+        k = _tied_keys(q, k)
     tq, tk, tv, tg = (to_tensor(np.asarray(a)) for a in (q, k, v, g))
     args = (tq, tk, tv, None if bias is None else to_tensor(np.asarray(bias)), causal,
             1.0 / np.sqrt(dh))
@@ -449,6 +521,8 @@ def test_bf16_score_backward_rule_sees_rounding(case):
     want = ca.sdpa_bwd_plain(*args, out, tg, score_bf16=True)
     allowed = [_grad_tol("float32", w.numpy()) + e
                for w, e in zip(want, ca.score_rounding_allowed(*args, out, tg))]
+    for i, t in enumerate(ca.tie_allowed(*args, out, tg)):
+        allowed[i] = allowed[i] + t
 
     def worst(got):
         return [float(((a - w).abs() / t).max()) for a, w, t in zip(got, want, allowed)]
@@ -456,3 +530,45 @@ def test_bf16_score_backward_rule_sees_rounding(case):
     assert max(worst(_bf16_score_bwd_f64(*args, out, tg))) <= 1.0
     assert min(worst(ca.sdpa_bwd_plain(*args, ca.sdpa_plain(*args), tg))) > 1.0
     assert min(worst(chip_smoke.unrounded_ds_grads(torch, ca, args, out, tg))[:2]) > 1.0
+    if Lk >= 65 or bias_kind == "ties":
+        assert max(worst(chip_smoke.no_max_cotangent_grads(torch, ca, args, out, tg))) > 1.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lk", [1, 64, 65, 200])
+def test_kernel_order_sum_is_the_dq_kernels_loop(dtype, lk):
+    """cuda_attention.kernel_order_sum, which TIE_RULE takes as the dQ
+    kernel's float32 sum of a row's g, against the kernels' loops written
+    out scalar by scalar (attention_bwd_bs.cu for bfloat16 inputs: a quad's
+    lanes, a pair at a time, a tile's sum into the lane's; flash_attention.cu
+    for float32: 32 lanes, two columns a tile, the warp's butterfly), bit
+    for bit."""
+    rng = np.random.RandomState(lk)
+    g = (rng.randn(3, lk) * np.exp2(rng.randint(-12, 2, (3, lk)))).astype(np.float32)
+    g = g.astype(ml_dtypes.bfloat16).astype(np.float32)
+    f = np.float32
+    want = []
+    for row in g:
+        padded = np.concatenate([row, np.zeros(-lk % 64, np.float32)])
+        tiles = padded.reshape(-1, 64)
+        if dtype == "bfloat16":
+            acc = [f(0)] * 4
+            for tile in tiles:
+                for lane in range(4):
+                    part = f(0)
+                    for j in range(8):
+                        key = 8 * j + 2 * lane
+                        part = f(part + f(tile[key] + tile[key + 1]))
+                    acc[lane] = f(acc[lane] + part)
+            want.append(f(f(acc[0] + acc[1]) + f(acc[2] + acc[3])))
+        else:
+            acc = [f(0)] * 32
+            for tile in tiles:
+                for lane in range(32):
+                    for h in range(2):
+                        acc[lane] = f(acc[lane] + tile[lane + 32 * h])
+            for o in (16, 8, 4, 2, 1):
+                acc = [f(acc[lane] + acc[lane ^ o]) for lane in range(32)]
+            want.append(acc[0])
+    got = ca.kernel_order_sum(torch.from_numpy(g), getattr(torch, dtype)).numpy()
+    np.testing.assert_array_equal(got, np.array(want, np.float32))

@@ -1137,7 +1137,9 @@ def test_bf16_score_attention_kernels_at_their_edges_on_card(case, dtype):
     """The bf16-score variants (score_bf16=True) against the plain versions
     with bf16 scores: forward, dQ and dK/dV, float32 within the f32 bounds
     and bfloat16 by FWD_BF16_RULE / BWD_BF16_RULE, each plus
-    SCORE_ROUNDING_RULE; one launch a call, counted under the
+    SCORE_ROUNDING_RULE (and TIE_RULE: the dQ kernel's shares of the row
+    maxima's cotangents in its range, dq and dk with their term); one launch a call,
+    counted under the
     `_bf16_scores` keys; the backward repeatable bit for bit."""
     _need_card()
     B, H, Lq, Lk, dh, bias_kind, causal = case
@@ -1164,7 +1166,11 @@ def test_bf16_score_attention_kernels_at_their_edges_on_card(case, dtype):
             else ca.sdpa_fwd_bf16_allowed(*args, want, score_bf16=True))
     assert ((out.float() - want.float()).abs() <= base + extra).all()
     want = ca.sdpa_bwd_plain(*args, out, do, score_bf16=True)
-    extra = ca.score_rounding_allowed(*args, out, do)
+    lo, hi, held = ca.tie_share_range(*args, out, do)  # the row max's cotangent
+    assert ((di[1] >= lo) & (di[1] <= hi))[held].all()
+    extra = list(ca.score_rounding_allowed(*args, out, do))
+    for i, t in enumerate(ca.tie_allowed(*args, out, do, t=di[1])):
+        extra[i] = extra[i] + t
     if dtype == "float32":
         base = [_grad_tol(dtype, w) for w in want]
     else:

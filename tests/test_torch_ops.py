@@ -11,6 +11,7 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.core.dtypes import canonical_dtype as j_canon
 from paddle_tpu_torch.models import detection_cases as _cases
+from paddle_tpu_torch.models import tail_cases as _tail
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 
@@ -802,6 +803,40 @@ GRAD_CASES += [
      {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1], "groups": 2,
       "deformable_groups": 2}, ["Output"], ["Input", "Offset", "Mask", "Filter"]),
 ]
+
+
+# the last op files (models/tail_cases.py, which chip_smoke's tail_parity
+# shares); the random ones are held by their moments in test_torch_tail_models.py
+MISC18_CASES, TAIL18_CASES = _tail.MISC_CASES, _tail.TAIL_CASES
+CASES += MISC18_CASES + TAIL18_CASES
+_BY_ID18 = {c[0]: c for c in MISC18_CASES + TAIL18_CASES}
+GRAD_CASES += [(name,) + _BY_ID18[name][1:4] + (_BY_ID18[name][4][:1], wrt) for name, wrt in (
+    ("hinge_loss", ["Logits"]), ("log_loss", ["Predicted"]), ("rank_loss", ["Left", "Right"]),
+    ("margin_rank_loss", ["X1", "X2"]), ("bpr_loss", ["X"]), ("kldiv_none", ["X"]),
+    ("modified_huber_loss", ["X"]), ("selu", ["X"]), ("lrn", ["X"]), ("maxout", ["X"]),
+    ("affine_channel", ["X", "Scale", "Bias"]), ("reverse", ["X"]), ("diag", ["Diagonal"]),
+    ("conv3d", ["Input", "Filter"]), ("pool3d_max", ["X"]), ("pool3d_avg_exclusive", ["X"]),
+    ("affine_grid", ["Theta"]), ("grid_sampler", ["X", "Grid"]), ("spectral_norm", ["Weight"]),
+    ("row_conv", ["X", "Filter"]), ("im2sequence", ["X"]),
+    ("nce_custom_negs", ["Input", "Weight", "Bias"]), ("hsigmoid", ["X", "W", "Bias"]),
+    ("tree_conv", ["NodesVector", "Filter"]), ("brelu", ["X"]), ("soft_relu", ["X"]),
+    ("thresholded_relu", ["X"]), ("cos_sim", ["X", "Y"]), ("smooth_l1", ["X", "Y"]),
+    ("teacher_student", ["X"]), ("pixel_shuffle", ["X"]), ("shuffle_channel", ["X"]),
+    ("temporal_shift", ["X"]), ("fsp", ["X", "Y"]), ("unfold", ["X"]),
+    ("adaptive_pool2d_max", ["X"]), ("adaptive_pool2d_avg", ["X"]),
+    ("add_position_encoding", ["X"]), ("bilinear_tensor_product", ["X", "Y", "Weight", "Bias"]),
+    ("cvm", ["X"]), ("data_norm", ["X"]))]
+# lookup_table_v2 (the lookup_table lowering, no trailing 1 on the ids), dense
+# and is_sparse (its gradient a SelectedRows, fetched dense)
+_rv2 = np.random.RandomState(22)
+_V2_IDS, _V2_W = _rv2.randint(0, 10, (3, 5)), _rv2.randn(10, 4).astype(np.float32)
+CASES += [("lookup_v2", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS}, {}, ["Out"], 0.0),
+          ("lookup_v2_pad", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS},
+           {"padding_idx": 3}, ["Out"], 0.0)]
+GRAD_CASES += [("lookup_v2", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS},
+                {"padding_idx": 3}, ["Out"], ["W"]),
+               ("lookup_v2_sparse", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS},
+                {"is_sparse": True}, ["Out"], ["W"])]
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])

@@ -19,9 +19,23 @@ def _source(relpath):
 
 @pytest.mark.parametrize("name", sorted(mutants.MUTANTS))
 def test_mutant_anchor_occurs_once_and_changes_the_source(name):
-    source, old, new = mutants.MUTANTS[name]
-    src = _source(source)
-    assert src.count(old) == 1
-    assert old != new
-    compile(mutants.check_code(source), name, "exec")
+    for source, old, new in mutants.edits_of(name):
+        src = _source(source)
+        assert src.count(old) == 1
+        assert old != new
+        compile(mutants.check_code(source), name, "exec")
+    for _, _, code in mutants.runs([name]):
+        compile(code, name, "exec")
 
+
+
+import port_bs_bwd_variants as bs_variants  # noqa: E402
+
+
+@pytest.mark.parametrize("name", sorted(bs_variants.VARIANTS))
+def test_bs_bwd_variant_anchor_occurs_once(name):
+    """tools/port_bs_bwd_variants.py edits copies of attention_bwd_bs.cu by
+    text too: each of a variant's anchors occurs exactly once."""
+    src = _source(bs_variants.BS_BWD)
+    for old, new in bs_variants.VARIANTS[name]:
+        assert src.count(old) == 1 and old != new

@@ -41,6 +41,15 @@ a CTA's own 64 and a streamed tile's, so that each last tile holds one row):
     from the neighbouring query of its pair;
   - bs_dq_skips_last_key_tile: dQ takes nothing from its last tile of 64 keys;
   - bs_dq_drops_di: dQ forms dS = bf16(P dP) * scale, di taken as 0.
+The mutant of fault C5 (the port's bf16-score backward before it took the
+gradient through the row max) is both bf16-score backwards without it:
+  - bs_bwd_drops_max_cotangent: dQ takes each row's share of its max's
+    cotangent as 0 (so dK/dV adds 0 too), in attention_bwd_bs.cu and in
+    flash_attention.cu's float32-input kBS dQ.
+It runs the same check with float32 inputs (the FFMA kBS kernels) at the
+65-key case of phase 3, [1, 2, 65, 16] x 65, and at its many forced ties,
+causal [1, 4, 70, 64] x 100 (twelve keys made one, 8 apart); phase 3 prints the
+worst share bfloat16's rule gives the same fault (rule_sees_max_cotangent).
 The row-wise mutants run one call at the BERT-base training shape, bf16,
 [4096, 3072] gelu for the bias+activation backward, [4096, 768] with a
 residual for the LayerNorm forward and [4096, 30522] with MLM labels (85%
@@ -142,7 +151,16 @@ MUTANTS = {
         "    rs_issue<DH, 4>(dq, ds, ring_addr + (t % S) * T::kStageQ, 0);\n"),
     "bs_dq_drops_di": (
         BS_BWD, "    di_r[hh] = di_s[row];\n", "    di_r[hh] = 0.f;\n"),
+    "bs_bwd_drops_max_cotangent": [
+        (BS_BWD, "    t_r[hh] = c > 0 ? round_bf16(round_bf16(-sum) / static_cast<float>(c)) : 0.f;\n",
+         "    t_r[hh] = 0.f;\n"),
+        (ATTENTION,
+         "      t_r[r] = c > 0 ? round_bf16(round_bf16(-sum) / static_cast<float>(c)) : 0.f;\n",
+         "      t_r[r] = 0.f;\n")],
 }
+# the shapes and input dtype the C5 mutant runs at, by suffix
+C5_CASES = {"l65": (1, 2, 65, 65, 16, None, False),
+            "many_ties": (1, 4, 70, 100, 64, "many_ties", True)}
 # the shapes each bf16-score forward mutant runs at, by suffix
 BS_CASES = {"seq2048": (8, 12, 2048, 2048, 64, None, False),
             "lk513": (2, 12, 128, 513, 64, None, False)}
@@ -199,55 +217,64 @@ if bad:
 """
 
 
-def check_code(source, case=None):
+def check_code(source, case=None, dtype="bfloat16"):
     if source == ATTENTION:
         return CHECK_ATTENTION
     if source in (BS_FWD, BS_BWD):
         return ("import torch, chip_smoke\n"
                 "from paddle_tpu_torch.ops import cuda_attention as ca\n"
                 f"chip_smoke.check_bf16_score_kernels(torch, ca, cases=[{case!r}], "
-                "dtypes=('bfloat16',))\n")
+                f"dtypes=({dtype!r},))\n")
     kernel = {BIAS_ACT: "bias_act_bwd", LAYER_NORM: "ln_residual_fwd",
               XENT: "softmax_xent_fwd"}[source]
     return f"KERNEL = {kernel!r}\n" + CHECK_ROWWISE
 
 
-def copy_port(workdir, edits, source=ATTENTION):
+def copy_port(workdir, edits):
     """Copy paddle_tpu_torch (without its build) and chip_smoke.py into
-    `workdir`, then replace in `source` each `old` of `edits` [(old, new)],
-    which must occur exactly once."""
+    `workdir`, then replace in each `source` of `edits` [(source, old,
+    new)] its `old`, which must occur exactly once."""
     shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), os.path.join(workdir, "paddle_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), workdir)
-    path = os.path.join(workdir, source)
-    with open(path) as f:
-        src = f.read()
-    for old, new in edits:
+    for source, old, new in edits:
+        path = os.path.join(workdir, source)
+        with open(path) as f:
+            src = f.read()
         if src.count(old) != 1:
             raise RuntimeError(f"{source}: {old.strip()!r} occurs {src.count(old)} times")
-        src = src.replace(old, new)
-    with open(path, "w") as f:
-        f.write(src)
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
 
 
 def run_in_copy(edits, code, timeout=900, source=ATTENTION):
     """Run `code` with Python in a fresh copy of the port built with `edits`
-    of `source`."""
+    [(source, old, new)], or [(old, new)] of `source`."""
     workdir = tempfile.mkdtemp(prefix="port-copy-")
     try:
-        copy_port(workdir, edits, source)
+        copy_port(workdir, [e if len(e) == 3 else (source,) + tuple(e) for e in edits])
         return subprocess.run([sys.executable, "-c", code], cwd=workdir, capture_output=True,
                               text=True, timeout=timeout)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def edits_of(name):
+    """[(source, old, new)] of a mutant."""
+    m = MUTANTS[name]
+    return m if isinstance(m, list) else [m]
+
+
 def runs(names):
     """(run name, mutant, its check code): a bf16-score forward mutant once
-    for each of BS_CASES."""
+    for each of BS_CASES, a backward one for each of BS_BWD_CASES, the C5
+    mutant for each of C5_CASES with float32 inputs."""
     for name in names:
-        source = MUTANTS[name][0]
-        if source in (BS_FWD, BS_BWD):
+        source = edits_of(name)[0][0]
+        if name == "bs_bwd_drops_max_cotangent":
+            for suffix, case in C5_CASES.items():
+                yield f"{name}@{suffix}", name, check_code(source, case, "float32")
+        elif source in (BS_FWD, BS_BWD):
             for suffix, case in (BS_CASES if source == BS_FWD else BS_BWD_CASES).items():
                 yield f"{name}@{suffix}", name, check_code(source, case)
         else:
@@ -258,8 +285,7 @@ def main():
     names = sys.argv[1:] or list(MUTANTS)
     rejected_all = True
     for run_name, name, code in runs(names):
-        source, old, new = MUTANTS[name]
-        run = run_in_copy([(old, new)], code, source=source)
+        run = run_in_copy(edits_of(name), code)
         records = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
         checks = [r for r in records if r.get("check", "").startswith("attention_")
                   or "worst_share_of_allowed" in r and "kernel" in r]

@@ -9,13 +9,19 @@ process (chip_smoke.time_ms) beside the f32-score dQ and dK/dV kernels of
 the same build, at [8, 12, 2048, 64] and [32, 12, 128, 64] bf16 (BERT-base
 at seq 2048 and 128, no bias, not causal):
   - committed: the kernels as they are (held to BWD_BF16_RULE +
-    SCORE_ROUNDING_RULE, the worst share printed);
+    SCORE_ROUNDING_RULE + TIE_RULE, the worst share printed);
   - edge_tests_everywhere: every tile takes the pair loop with the edge
     tests (what interior tiles took before they had a copy of their own);
   - no_per_score_work: the pair loops run no pair (the products run on
     stale fragments): the products, the stream and the barriers;
   - stream_only: neither products nor per-score work: the TMA stream, the
-    statistics' copies and the barriers alone.
+    statistics' copies and the barriers alone;
+  - without_tie_block: dQ records no tie in its slots (the row max's
+    cotangent's bookkeeping in the tiles that hold a row's maximum);
+  - without_dm_sum: dQ sums no g into its rows' dm (the cotangent's sum a
+    score pair);
+  - tie_block_as_branch: the tie block runs only in the tiles where the
+    warp has a tie, behind a warp-wide branch.
 The variants other than committed compute wrong gradients and are not
 checked.  Prints one JSON line a variant.  Imports nothing of JAX or
 paddle_tpu.
@@ -34,13 +40,13 @@ EDGE_EVERYWHERE = [
      "    if (issue_next) {\n      const int nc",
      "    pairs(std::true_type{});\n    if (issue_next) {\n      const int nc"),
     ("    if (edge)\n      pairs(std::true_type{});\n    else\n      pairs(std::false_type{});\n"
-     "    if (issue_next) {\n      take(t + 1);",
-     "    pairs(std::true_type{});\n    if (issue_next) {\n      take(t + 1);"),
+     "    // the tile's ties",
+     "    pairs(std::true_type{});\n    // the tile's ties"),
 ]
 NO_PAIRS = [
     ("      for (int j = 0; j < NC / 8; ++j) {\n", "      for (int j = 0; j < 0; ++j) {\n"),
-    ("      for (int k = 0; k < 16; ++k) {\n        const int hh",
-     "      for (int k = 0; k < 0; ++k) {\n        const int hh"),
+    ("      for (int k = 0; k < 16; ++k) {\n        uint32_t tie;\n        ds[k] = pair(",
+     "      for (int k = 0; k < 0; ++k) {\n        uint32_t tie;\n        ds[k] = pair("),
 ]
 NO_PRODUCTS = [
     ("    if constexpr (N == 64) h::wgmma_ss_n64(d, da, db, kk > 0);\n"
@@ -49,8 +55,17 @@ NO_PRODUCTS = [
      "      else if constexpr (T::kBox == 32) h::wgmma_rs_n32_tb(acc[b], f, d);\n"
      "      else h::wgmma_rs_n16_tb(acc[b], f, d);\n", "      (void)d, (void)f;\n"),
 ]
+NO_TIE_BLOCK = [("    for (int hh = 0; hh < 2; ++hh) {\n      const uint32_t mine = tb",
+                 "    for (int hh = 0; hh < 0; ++hh) {\n      const uint32_t mine = tb")]
+# the tie block as a warp-wide branch taken in the tiles that hold a tie
+TIE_BRANCH = [("#pragma unroll\n    for (int hh = 0; hh < 2; ++hh) {\n      const uint32_t mine = tb",
+               "    if (__any_sync(0xffffffffu, tb != 0u))\n#pragma unroll\n"
+               "    for (int hh = 0; hh < 2; ++hh) {\n      const uint32_t mine = tb")]
+NO_DM_SUM = [("        part[k & 1] += y.x + y.y;\n", "")]
 VARIANTS = {"committed": [], "edge_tests_everywhere": EDGE_EVERYWHERE,
-            "no_per_score_work": NO_PAIRS, "stream_only": NO_PAIRS + NO_PRODUCTS}
+            "no_per_score_work": NO_PAIRS, "stream_only": NO_PAIRS + NO_PRODUCTS,
+            "without_tie_block": NO_TIE_BLOCK, "without_dm_sum": NO_DM_SUM,
+            "tie_block_as_branch": TIE_BRANCH}
 
 TIME = """
 import json, torch, chip_smoke
@@ -67,7 +82,9 @@ for B, L in ((8, 2048), (32, 128)):
     r = {}
     if CHECK:
         want = ca.sdpa_bwd_plain(*a0, out, do, score_bf16=True)
-        extra = ca.score_rounding_allowed(*a0, out, do)
+        extra = list(ca.score_rounding_allowed(*a0, out, do))
+        for i, t in enumerate(ca.tie_allowed(*a0, out, do, t=di[1])):
+            extra[i] = extra[i] + t
         base = ca.sdpa_bwd_bf16_allowed(*a0, out, do, want, score_bf16=True)
         r["worst_share_of_allowed"] = max(
             float(((g.float() - w.float()).abs() / (b + e)).max())
