@@ -262,7 +262,45 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  50-51. word2vec_nce_train, word2vec_hsigmoid_train: phase 34's word2vec
      (dict 1,000, embedding 32, hidden 64, 4 words, batch 256) with its
      softmax head replaced by nce (5 negatives) and by hsigmoid, eager then
-     graphed, Adam 5 a step; the four phases' total seconds printed.
+     graphed, Adam 5 a step; the four phases' total seconds printed;
+ 52. bert_f16_amp: BERT-base at full width in float16 (12 layers, fused
+     attention, dropout 0.1, 32 x 128), build_bert(dtype="float16",
+     with_optimizer=False) under contrib.mixed_precision.decorate(Adam(1e-4))
+     at the decorator's defaults, 6 steps eager then graphed: warm step,
+     tokens/s, idle share of a profiled step, peak memory, the loss and the
+     loss scale each step; launches exactly FUSED_PER_STEP (the kernels'
+     float16 instantiations, Adam on the float32 master weights); the graph
+     captured with no refusal; the loss falling;
+ 53. bert_f16_overflow: the same from a loss scale of 2^32 halved at every
+     overflow, graphed, until 3 steps have applied: every skipped step
+     leaves every parameter, moment and beta pow bit for bit, every
+     applied one moves them, and the scale and the two step counters follow
+     update_loss_scaling's state machine exactly; the skipped steps counted;
+ 54. resnet_f16_amp: ResNet-50 float16 at batch 256 under
+     decorate(Momentum(0.1, 0.9)), 6 steps graphed: warm step, images/s,
+     peak memory; BN epilogue 53 + 53 and xent 1 + 1 a step; phase 10's
+     loss rule over the steps an applied update leads to;
+ 55. amp_parity: card vs CPU: BERT 2 layers float16 with AMP at 2 x 128
+     (dropout 0; the host's float16 matmuls set the size), 3 steps, the
+     second forced to overflow through the scope's loss_scaling_0 (every
+     state bit for bit on both sides), held by AMP_BERT_PARITY; and
+     ResNet-50 float16 with AMP at phase 11's batch of 8 and phase 35's
+     64 x 64 from a scale of 2^10 (AMP_RESNET_PARITY), 5 steps one at a
+     time, each also taken in float32 on the CPU: the card's float16 error
+     from the float32 step at most AMP_RESNET_RATIO times the CPU's, and
+     that rule refuses a step with half the batch, with half the momentum,
+     and a frozen one; the AMP vars exactly equal; phases 52-55's seconds
+     printed.
+Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
+float16, which the JAX kernels compute): check_float16_kernels for the row
+kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
+bit, the launch counted) and the BN epilogue, element by element
+(FWD_ROUNDING_RULE for the forwards), with one overflow case a forward
+whose +-inf lie where the plain version's do; the attention kernels'
+float16 instantiations at ATTENTION_CASES (FWD_F16_RULE, BWD_F16_RULE) and
+float16 inputs with bf16 scores (the FFMA kBS twins) at BF16_SCORE_CASES;
+each float16 variant timed beside its bfloat16 record under an
+at_<shape>_f16 key.
 Phase 3 also holds the bf16-score variants of the attention kernels
 (check_bf16_score_kernels: forward, dQ, dK/dV, float32 and bfloat16,
 element by element, the f32-score kernel's miss of the bf16-score plain
@@ -525,7 +563,8 @@ VISION_PER_REQUEST = {"se_resnext": dict(NONE, bn_epilogue_fwd=53),
 # tests/test_torch_resnet.py), the LSTM at width 128 on 8 sentences of 5-32
 VISION_PARITY_SIZE = 64
 # the path whose count a kernel's `launches` reports: this slice's first
-LAUNCH_ORDER = ("bert_bf16_scores", "ssd_train", "yolov3_train", "ssd_serve", "yolov3_serve",
+LAUNCH_ORDER = ("bert_f16_amp", "resnet_f16_amp", "bert_f16_overflow", "bert_bf16_scores",
+                "ssd_train", "yolov3_train", "ssd_serve", "yolov3_serve",
                 "bert_bf16_scores_serve", "bert_bf16_scores_long", "train_lamb", "resnet_lars", "seq2seq_train",
                 "se_resnext_train", "vgg_train", "lstm_train", "word2vec_train",
                 "word2vec_nce_train", "word2vec_hsigmoid_train", "tagger_train",
@@ -589,7 +628,10 @@ ZERO_GRAD = 1e-6  # phase 7: a gradient within this share of the model's largest
 TOL = {"float32": {"ln_residual_fwd": 2e-5, "bias_act_fwd": 2e-5, "attention_fwd": 1e-4,
                    "softmax_xent_fwd": 2e-5, "bn_epilogue_fwd": 2e-5},
        "bfloat16": {"ln_residual_fwd": 5e-2, "bias_act_fwd": 5e-2, "softmax_xent_fwd": 2e-5,
-                    "bn_epilogue_fwd": 2e-2}}
+                    "bn_epilogue_fwd": 2e-2},
+       # float16's forwards are held element by element (FWD_ROUNDING_RULE);
+       # the cross-entropy's loss and lse are float32 on both sides
+       "float16": {"softmax_xent_fwd": 2e-5}}
 # the bfloat16 attention gradients: cuda_attention.BWD_BF16_RULE, element by
 # element (sdpa_bwd_bf16_allowed), at most the flat 5e-2 * max|plain| of grad_tol
 XENT_BWD_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
@@ -601,9 +643,10 @@ STORED_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 
 def grad_tol(dtype, ref):
     """Gradients: 1e-4 * (1 + max|ref|) in float32, as tests/test_pallas_kernels.py
-    holds the Pallas backward kernels; 5e-2 relative to max|ref| in bfloat16."""
+    holds the Pallas backward kernels; 5e-2 relative to max|ref| in bfloat16,
+    and the same 12.8 steps of float16's, 6.25e-3, in float16."""
     peak = float(ref.float().abs().max())
-    return 1e-4 * (1.0 + peak) if dtype == "float32" else 5e-2 * peak
+    return {"float32": 1e-4 * (1.0 + peak), "bfloat16": 5e-2 * peak}.get(dtype, 6.25e-3 * peak)
 
 
 def emit(obj):
@@ -664,9 +707,11 @@ def epilogue_bwd_allowed(x, mul, g, want):
     sum of the magnitudes of their terms, sum|g*x| and sum|g| over the row.
     A kernel that drops the relu mask or a row misses by orders of magnitude
     (tests/test_torch_resnet.py shows it on the CPU)."""
-    ulp = 2.0 ** -23 if dname(x.dtype) == "float32" else 2.0 ** -8
+    w = want[0].float().abs()
+    ulp = {"float32": 2.0 ** -23 * w, "bfloat16": 2.0 ** -8 * w}.get(
+        dname(x.dtype), 2.0 ** -10 * w + 2.0 ** -24)  # float16: a step, or a subnormal one
     gf = g.float()
-    return (ulp * want[0].float().abs() + 1e-30,
+    return (ulp + 1e-30,
             1e-5 * (gf * x.float()).abs().sum(-1) + 1e-30,
             1e-5 * gf.abs().sum(-1) + 1e-30)
 
@@ -898,23 +943,26 @@ def attention_bound(q, k, v, causal, extra_bytes, ops_per_qk):
     return bound(extra_bytes, ops, BF16_TENSOR_FLOPS)
 
 
-def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32", "bfloat16")):
+def check_attention_kernels(torch, ca, cases=ATTENTION_CASES,
+                            dtypes=("float32", "bfloat16", "float16")):
     """Phase 3, the attention kernels (forward, dQ, dK/dV): each against its
-    plain version on the card, float32 and bfloat16, at ATTENTION_CASES: the
+    plain version on the card, float32, bfloat16 and float16, at ATTENTION_CASES: the
     BERT-base shapes at seq 128 and 2048, every bias mode, causal with Lq < Lk
     and Lq > Lk, long causal, dh 128, and rows whose max moves late (a bias
     that grows along the keys; keys scaled by position), which an online
     softmax that forgets to rescale fails by orders of magnitude.  The
-    bfloat16 forward is held element by element
-    (cuda_attention.sdpa_fwd_bf16_allowed).  The backward is held against
-    sdpa_bwd_plain on the kernel's own output (so it is held alone), in
-    bfloat16 element by element (cuda_attention.sdpa_bwd_bf16_allowed), two
-    runs must agree bit for bit, and at kv >= 2048 in bfloat16 the forward
+    16-bit forward is held element by element
+    (cuda_attention.sdpa_fwd_bf16_allowed: FWD_BF16_RULE, FWD_F16_RULE).  The
+    backward is held against sdpa_bwd_plain on the kernel's own output (so
+    it is held alone), in 16 bits element by element
+    (cuda_attention.sdpa_bwd_bf16_allowed: BWD_BF16_RULE, BWD_F16_RULE), two
+    runs must agree bit for bit, and at kv >= 2048 in 16 bits the forward
     plus backward may allocate less than 1/8 of one float32 score tensor
     [B, H, Lq, Lk].  Times the forward, each backward
     kernel and the whole backward at [32,12,128,64] and [8,12,2048,64] bf16
-    against their bounds and plain versions, and the forward and the whole
-    backward against F.scaled_dot_product_attention (a yardstick only).
+    and float16 (the latter under at_seq_*_f16) against their bounds and
+    plain versions, and the forward and the whole backward against
+    F.scaled_dot_product_attention in the same dtype (a yardstick only).
     `cases` and `dtypes` narrow the checks, to run one case alone; only the
     full set is timed."""
     import torch.nn.functional as F
@@ -954,7 +1002,7 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
             score_bytes = 4 * B * H * Lq * Lk
             emit({"memory": "attention forward + backward", "case": case, "dtype": dn,
                   "peak_extra_bytes": extra, "score_tensor_bytes": score_bytes})
-            if dtype == torch.bfloat16 and Lk >= 2048 and not extra < score_bytes / 8:
+            if dtype != torch.float32 and Lk >= 2048 and not extra < score_bytes / 8:
                 raise AssertionError(f"attention {case}: forward + backward allocated {extra} "
                                      f"bytes, not under 1/8 of a score tensor ({score_bytes})")
             again = ca.attention_bwd_dq(q, k, v, bias, causal, scale, out, lse, do)[0]
@@ -970,7 +1018,7 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
             else:
                 err_f = check_within("attention_fwd", "out", dtype, case, out, want,
                                      ca.sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want),
-                                     ca.FWD_BF16_RULE)
+                                     ca.fwd_rule(dtype))
             want = ca.sdpa_bwd_plain(q, k, v, bias, causal, scale, out, do)
             if dtype == torch.float32:
                 err_q = check("attention_bwd_dq", "dq", dtype, case, dq, want[0],
@@ -980,16 +1028,17 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
             else:
                 allowed = ca.sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, do, want)
                 err_q = check_within("attention_bwd_dq", "dq", dtype, case, dq, want[0],
-                                     allowed[0], ca.BWD_BF16_RULE)
+                                     allowed[0], ca.bwd_rule(dtype))
                 err_kv = max(check_within("attention_bwd_dkv", w, dtype, case, a, b, t,
-                                          ca.BWD_BF16_RULE)
+                                          ca.bwd_rule(dtype))
                              for w, a, b, t in zip(("dk", "dv"), (dk, dv), want[1:], allowed[1:]))
                 del allowed
             del want
             torch.cuda.empty_cache()
             where = ATTENTION_TIMED.get((B, Lq)) if cases is ATTENTION_CASES else None
-            if not (dtype == torch.bfloat16 and where and bias is None and not causal):
+            if not (dtype != torch.float32 and where and bias is None and not causal):
                 continue
+            short = "bf16" if dtype == torch.bfloat16 else "f16"
             slow = dict(warmup=2, iters=10)  # the plain versions and library calls at L = 2048
             ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
@@ -1021,14 +1070,29 @@ def check_attention_kernels(torch, ca, cases=ATTENTION_CASES, dtypes=("float32",
                 rec = dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain, **slow),
                            library_ms=None if lib_fn is None else time_ms(lib_fn, **slow),
                            library=lib, bound_ms=b_ms, bound_by=b_by,
-                           shape=f"[{B},{H},{Lq},{dh}] bf16")
+                           shape=f"[{B},{H},{Lq},{dh}] {short}")
                 emit({"timing": name, "at": where, **rec})
-                record.setdefault(name, {})[where] = rec
+                record.setdefault(name, {})[where if short == "bf16" else f"{where} f16"] = rec
             del ql, kl, vl, lib_out
         torch.cuda.empty_cache()
-    # the kernels' line reports the seq-128 shape; seq 2048 rides beside it
-    return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
-            for name, by_seq in record.items()}
+    # the kernels' line reports the seq-128 shape; seq 2048 and float16 ride beside it
+    return by_seq_record(record)
+
+
+def by_seq_record(record):
+    """{kernel: {"seq 128": rec, "seq 2048": rec, "seq 128 f16": ...}} as the
+    kernels line takes it: the bf16 seq-128 record with the others beside
+    it under at_seq_2048, at_seq_128_f16 and at_seq_2048_f16 (a float16
+    check alone gives only the latter two)."""
+    out = {}
+    for name, by_seq in record.items():
+        rec = dict(by_seq.get("seq 128", {}))
+        for where, key in (("seq 2048", "at_seq_2048"), ("seq 128 f16", "at_seq_128_f16"),
+                           ("seq 2048 f16", "at_seq_2048_f16")):
+            if where in by_seq:
+                rec[key] = by_seq[where]
+        out[name] = rec
+    return out
 
 
 # bf16-score cases of phase 3: the BERT-base shapes at seq 128 and 2048,
@@ -1091,12 +1155,15 @@ def tie_keys(torch, q, k, keys):
 SCORE_MUTANT_RATIO = 2.0
 
 
-def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32", "bfloat16")):
+def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES,
+                             dtypes=("float32", "bfloat16", "float16")):
     """Phase 3, the bf16-score variants of the attention kernels (forward, dQ,
-    dK/dV; float32 and bfloat16 inputs) against their plain versions
+    dK/dV; float32, bfloat16 and float16 inputs, the last through the FFMA
+    kBS twins instantiated for float16 loads) against their plain versions
     (sdpa_plain and sdpa_bwd_plain with score_bf16) at BF16_SCORE_CASES,
     element by element: float32 at TOL and grad_tol, bfloat16 by
-    FWD_BF16_RULE and BWD_BF16_RULE, both plus SCORE_ROUNDING_RULE (one bf16
+    FWD_BF16_RULE and BWD_BF16_RULE, float16 by FWD_F16_RULE and
+    BWD_F16_RULE, each plus SCORE_ROUNDING_RULE (one bf16
     rounding of each score and of s - m on either side), the gradients
     also TIE_RULE at the tied scores (the row max's cotangent: the kernel's
     float32 sum of it against the plain version's); the backward without
@@ -1109,7 +1176,9 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
     (backward_rule_sees_rounding).  Times
     each kernel at [32,12,128,64] and [8,12,2048,64] bf16 beside the
     f32-score kernel at the same shape, in the same process, and the
-    float32 inputs' FFMA kBS dQ and dK/dV beside their f32-score twins.  Prints the
+    float32 inputs' FFMA kBS dQ and dK/dV beside their f32-score twins, and
+    the float16 inputs' FFMA kBS kernels beside their f32-score (mma.sync)
+    twins under at_seq_*_f16.  Prints the
     path the bf16-score forward takes at each case (bf16_score_fwd_plan), and
     holds that plan to the kernel's own (ptt_attention_fwd_bs_plan)."""
     import ctypes
@@ -1162,7 +1231,7 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                 rule = f"{TOL[dn]['attention_fwd']} + {rule}"
             else:
                 allowed = ca.sdpa_fwd_bf16_allowed(*args, want, score_bf16=True) + extra
-                rule = f"{ca.FWD_BF16_RULE} + {rule}"
+                rule = f"{ca.fwd_rule(dtype)} + {rule}"
             err_f = check_within("attention_fwd_bf16_scores", "out", dtype, case, out, want,
                                  allowed, rule)
             # the rule sees the rounding: the f32-score kernel's output misses
@@ -1197,7 +1266,7 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             else:
                 base = [a + e for a, e in zip(ca.sdpa_bwd_bf16_allowed(
                     *args, out, do, want, score_bf16=True), extra)]
-                rule = f"{ca.BWD_BF16_RULE} + {ca.SCORE_ROUNDING_RULE} + {ca.TIE_RULE}"
+                rule = f"{ca.bwd_rule(dtype)} + {ca.SCORE_ROUNDING_RULE} + {ca.TIE_RULE}"
             allowed = [b + t for b, t in zip(base, ties + (0.0,))]  # dq and dk
             err_q = check_within("attention_bwd_dq_bf16_scores", "dq", dtype, case, dq, want[0],
                                  allowed[0], rule)
@@ -1240,8 +1309,11 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
             a0 = (q, k, v, None, False, scale)
             lse32 = ca.attention_fwd(*a0)[1]
             di32 = ca.attention_bwd_dq(*a0, out, lse32, do)[1]
+            short = "bf16" if dtype == torch.bfloat16 else "f16"
             # the forward's design: QK^T of a recomputed tile runs three times
-            fwd_ops = 4.0 + 4.0 * plan["recomputed"] / plan["per_cta"]
+            # (float16's FFMA twin: QK^T in each of its three passes)
+            fwd_ops = (4.0 + 4.0 * plan["recomputed"] / plan["per_cta"] if short == "bf16"
+                       else 8.0)
             timed = {
                 "attention_fwd_bf16_scores": (
                     lambda: ca.attention_fwd(*a0, score_bf16=True),
@@ -1264,23 +1336,24 @@ def check_bf16_score_kernels(torch, ca, cases=BF16_SCORE_CASES, dtypes=("float32
                 # recomputed S and dP, a forward's recomputed tiles) is
                 # reported beside it as design_ops_per_qk_dh
                 b_ms, b_by = attention_bound(q, k, v, False, moved, ops)
-                f32_first = time_ms(f32_fn)
-                ms = time_ms(fn)
-                f32_ms = (f32_first + time_ms(f32_fn)) / 2
+                # float16's FFMA twins run for tens of ms at seq 2048: fewer calls
+                kw = {} if short == "bf16" else slow
+                f32_first = time_ms(f32_fn, **kw)
+                ms = time_ms(fn, **kw)
+                f32_ms = (f32_first + time_ms(f32_fn, **kw)) / 2
                 rec = dict(max_abs_err=err, ms=ms, f32_score_kernel_ms=f32_ms,
                            ratio_to_f32_score_kernel=ms / f32_ms, share_of_bound=b_ms / ms,
                            plain_ms=time_ms(plain, **slow), library_ms=None,
                            library="none: no PyTorch call rounds the scores to bf16",
                            bound_ms=b_ms, bound_by=b_by, ops_per_qk_dh=ops,
                            design_ops_per_qk_dh=design_ops,
-                           shape=f"[{B},{H},{Lq},{dh}] bf16")
-                if name == "attention_fwd_bf16_scores":
+                           shape=f"[{B},{H},{Lq},{dh}] {short}")
+                if name == "attention_fwd_bf16_scores" and short == "bf16":
                     rec["path"] = plan
                 emit({"timing": name, "at": where, **rec})
-                record.setdefault(name, {})[where] = rec
+                record.setdefault(name, {})[where if short == "bf16" else f"{where} f16"] = rec
         torch.cuda.empty_cache()
-    return {name: dict(by_seq["seq 128"], at_seq_2048=by_seq["seq 2048"])
-            for name, by_seq in record.items()}
+    return by_seq_record(record)
 
 
 def unrounded_ds_grads(torch, ca, args, out, do):
@@ -1381,14 +1454,14 @@ def backward_rule_sees_rounding(torch, ca, args, case, out, do, got, want, allow
 
 def attention_occupancy(_build):
     """Phase 2: what the card makes of each attention kernel (forward, dQ,
-    dK/dV; float32 and bfloat16; dh 16-128): CTAs an SM holds, registers a
-    thread, dynamic shared bytes a CTA and local (spilled) bytes a thread,
-    from cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+    dK/dV; float32, bfloat16 and float16; dh 16-128): CTAs an SM holds,
+    registers a thread, dynamic shared bytes a CTA and local (spilled)
+    bytes a thread, from cudaOccupancyMaxActiveBlocksPerMultiprocessor and
     cudaFuncGetAttributes."""
     import ctypes
 
     for which, name in enumerate(("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")):
-        for dtype, code in (("float32", 0), ("bfloat16", 1)):
+        for dtype, code in (("float32", 0), ("bfloat16", 1), ("float16", 2)):
             for dh in (16, 32, 64, 128):
                 for bs in (0, 1):
                     out = (ctypes.c_int * 4)()
@@ -1738,6 +1811,309 @@ def check_bn_kernels(torch, ck):
     for name, rec in record.items():
         emit({"timing": name, **rec})
     return record
+
+
+# float16 overflow: of the elements that are +-inf on one side only, at
+# most this share of the infs (and at least 2) may be the largest finite
+# value on the other, +-65504: the float32 value lay within its noise of the
+# threshold 65520 (one float16 step apart)
+OVERFLOW_EDGE_SHARE = 1e-4
+
+
+def hold_overflow(kernel, what, case, got, want, allowed):
+    """A float16 output past 65504 from finite inputs: +-inf where the plain
+    version has it, with its signs (never clamped to 65504: AMP's isfinite
+    must see it), save at most OVERFLOW_EDGE_SHARE of them, where one side
+    is inf and the other +-65504 of the same sign (the threshold's noise);
+    the elements finite on both sides within `allowed`."""
+    import torch
+
+    torch.cuda.synchronize()
+    inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+    both = inf_g & inf_w
+    same_signs = bool(torch.equal(got[both], want[both]))
+    apart = inf_g ^ inf_w
+    edge = torch.where(inf_g, want, got)[apart].float()
+    sign = torch.where(inf_g, got, want)[apart].float().sign()
+    edge_ok = bool(((edge.abs() == 65504.0) & (edge.sign() == sign)).all())
+    n_inf, n_apart = int(inf_w.sum()), int(apart.sum())
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    share = float(((got.float() - want.float()).abs()[fin] / allowed[fin]).max())
+    emit({"overflow": kernel, "out": what, "case": case, "infs": n_inf,
+          "inf_signs_equal": same_signs, "inf_on_one_side_only": n_apart,
+          "those_65504_on_the_other": edge_ok, "finite_worst_share_of_allowed": share})
+    if not (n_inf and same_signs and edge_ok
+            and n_apart <= max(2, OVERFLOW_EDGE_SHARE * n_inf) and share <= 1.0):
+        raise AssertionError(f"{kernel} {what} {case}: float16 overflow differs from the plain "
+                             f"version (infs {n_inf}, one side only {n_apart}, share {share})")
+
+
+def f16_timing(name, fn, plain, library_fn, library, moved, ops, shape, err):
+    """One float16 variant's timing record: ms, plain_ms, library_ms (the
+    library call in float16), bound (16-bit bytes; `ops` over the float32
+    CUDA-core rate, as the row kernels' bfloat16 records)."""
+    b_ms, b_by = bound(moved, ops, F32_FLOPS)
+    rec = dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+               library_ms=None if library_fn is None else time_ms(library_fn), library=library,
+               bound_ms=b_ms, bound_by=b_by, shape=shape)
+    emit({"timing": name, "dtype": "float16", **rec})
+    return rec
+
+
+def check_float16_kernels(torch, ck, record):
+    """Phase 3 in float16 (fault C6: the kernels refused float16, which the
+    JAX kernels compute), at the shapes phase 3 holds the other dtypes at:
+    the LayerNorm forward (FWD_ROUNDING_RULE, element by element, into
+    NaN-poisoned memory) and backward (dx by grad_tol's float16 form, the
+    column sums by LN_BWD_RULE, bit for bit twice), bias+GELU/ReLU forward
+    and backward (BIAS_ACT_BWD_RULE), the cross-entropy (loss and lse
+    float32 within 2e-5, dlogits one float16 step), Adam over a float16
+    parameter with float32 moments (2^-20 of the terms plus a float16 step;
+    with found_inf set p, m and v bit for bit and the launch counted), the
+    BN epilogue (FWD_ROUNDING_RULE; epilogue_bwd_allowed).  Each forward
+    also overflows: a float32 scale, bias or multiplier lifts finite float16
+    inputs past 65504, and the kernel's +-inf lie where the plain
+    version's do.  Times each at the bfloat16 record's shape and adds it
+    beside under at_<shape>_f16."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    h = torch.float16
+
+    def randn(*shape, dtype=h, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    eps = 1e-5
+    # LayerNorm forward: BERT-base rows, ragged R, no residual, seq 2048's rows
+    for rows, with_res in ((4096, True), (4096, False), (4095, True), (16384, True)):
+        x = randn(rows, 768)
+        res = randn(rows, 768) if with_res else None
+        scale = randn(768, dtype=torch.float32, s=0.2) + 1.0
+        bias = randn(768, dtype=torch.float32, s=0.1)
+        case = f"[{rows},768] residual={with_res}"
+        poison(torch, (x.shape, h))
+        got = ck.fused_ln_residual(x, res, scale, bias, eps)
+        want = ck.ln_residual_plain(x, res, scale, bias, eps)
+        err = check_within("ln_residual_fwd", "out", h, case, got, want,
+                           ck.ln_residual_fwd_allowed(x, res, scale, bias, want),
+                           ck.FWD_ROUNDING_RULE)
+        if rows == 4096 and with_res:
+            w_x, b_x = scale.to(h), bias.to(h)
+            record["ln_residual_fwd"]["at_4096x768_f16"] = f16_timing(
+                "ln_residual_fwd", lambda: ck.fused_ln_residual(x, res, scale, bias, eps),
+                lambda: ck.ln_residual_plain(x, res, scale, bias, eps),
+                lambda: F.layer_norm(x + res, (768,), w_x, b_x, eps), "F.layer_norm(x+res) f16",
+                nbytes(x, res, x, scale, bias), 10.0 * x.numel(), "[4096,768] f16 + residual",
+                err)
+            big = scale * 3e4
+            want = ck.ln_residual_plain(x, res, big, bias, eps)
+            hold_overflow("ln_residual_fwd", "out", f"{case}, scale x 3e4",
+                          ck.fused_ln_residual(x, res, big, bias, eps), want,
+                          ck.ln_residual_fwd_allowed(x, res, big, bias, want))
+    # LayerNorm backward
+    for rows, with_res in ((4096, True), (4095, True), (4096, False)):
+        x = randn(rows, 768)
+        res = randn(rows, 768) if with_res else None
+        scale = randn(768, dtype=torch.float32, s=0.2) + 1.0
+        g = randn(rows, 768)
+        err = hold_ln_bwd(torch, ck, x, res, scale, g, f"[{rows},768] residual={with_res}")
+        if rows == 4096 and with_res:
+            z = x + res
+            w_x, b_x = scale.to(h), randn(768, s=0.1)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(z, [768], w_x, b_x, eps)
+            record["ln_residual_bwd"]["at_4096x768_f16"] = f16_timing(
+                "ln_residual_bwd", lambda: ck.ln_residual_bwd(x, res, scale, g, eps),
+                lambda: ck.ln_residual_bwd_plain(x, res, scale, g, eps),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    g, z, [768], mean, rstd, w_x, b_x, [True, True, True]),
+                "aten.native_layer_norm_backward of F.layer_norm(x+res) f16",
+                nbytes(x, res, scale, g, x) + 2 * 768 * 4, 20.0 * x.numel(),
+                "[4096,768] f16 + residual", err)
+    # bias + activation, forward and backward: the FFN rows of 3072
+    for rows in (4096, 4095, 16384):
+        x = randn(rows, 3072)
+        b = randn(3072, dtype=torch.float32, s=0.1)
+        g = randn(rows, 3072)
+        for act in ("gelu", "relu"):
+            case = f"[{rows},3072] {act}"
+            poison(torch, (x.shape, h))
+            got = ck.fused_bias_act(x, b, act)
+            want = ck.bias_act_plain(x, b, act)
+            err_f = check_within("bias_act_fwd", "out", h, case, got, want,
+                                 ck.bias_act_fwd_allowed(x, b, want), ck.FWD_ROUNDING_RULE)
+            err_b = hold_bias_act_bwd(torch, ck, x, b, g, act, case)
+            if rows == 4096 and act == "gelu":
+                b_x = b.to(h)
+                z = x + b_x
+                record["bias_act_fwd"]["at_4096x3072_f16"] = f16_timing(
+                    "bias_act_fwd", lambda: ck.fused_bias_act(x, b, "gelu"),
+                    lambda: ck.bias_act_plain(x, b, "gelu"), lambda: F.gelu(x + b_x),
+                    "F.gelu(x+b) f16", nbytes(x, x, b), 9.0 * x.numel(), "[4096,3072] f16 gelu",
+                    err_f)
+                record["bias_act_bwd"]["at_4096x3072_f16"] = f16_timing(
+                    "bias_act_bwd", lambda: ck.bias_act_bwd(x, b, g, "gelu"),
+                    lambda: ck.bias_act_bwd_plain(x, b, g, "gelu"),
+                    lambda: torch.ops.aten.gelu_backward(g, z).sum(0),
+                    "aten.gelu_backward(g, x+b) then .sum(0) f16: two calls",
+                    nbytes(x, b, g, x) + 3072 * 4, 30.0 * x.numel(), "[4096,3072] f16 gelu",
+                    err_b)
+                big = b + 6.5e4
+                x1k = x * 1e3  # finite: |x| < 65.5
+                want = ck.bias_act_plain(x1k, big, "gelu")
+                hold_overflow("bias_act_fwd", "out", f"{case}, x x 1e3, bias + 6.5e4",
+                              ck.fused_bias_act(x1k, big, "gelu"), want,
+                              ck.bias_act_fwd_allowed(x1k, big, want))
+        del x, g
+        torch.cuda.empty_cache()
+    # softmax cross-entropy: the LM head's [4096, V] at the MLM share and
+    # ResNet's [256, 1000]; dlogits one float16 step of the plain one; the
+    # backward of a 2^32 loss scale overflows as AMP needs it to
+    V = 30522
+    for rows, v in ((4096, V), (256, 1000)):
+        logits = randn(rows, v, s=2.0)
+        labels = torch.randint(0, v, (rows,), generator=gen, device=dev)
+        if v == V:
+            masked = torch.rand(rows, generator=gen, device=dev) < 0.85
+            labels = torch.where(masked, torch.full_like(labels, -100), labels)
+            labels[0], labels[1], labels[2] = 0, V - 1, -100
+        labels = labels.to(torch.int32)
+        n_live = int((labels != -100).sum())
+        case = f"[{rows},{v}] {n_live} rows labelled"
+        err_f, lse_p = hold_xent_fwd(torch, ck, logits, labels, case)
+        g = 1.0 + torch.rand(rows, generator=gen, device=dev)
+        dx = ck.softmax_xent_bwd(logits, labels, lse_p, g, -100)
+        dx_p = ck.softmax_xent_bwd_plain(logits, labels, lse_p, g, -100)
+        err_b = check_within("softmax_xent_bwd", "dlogits", h, case, dx, dx_p,
+                             ck.stored_step(h, dx_p) + 1e-12, "one float16 step (stored_step)")
+        up = torch.full((rows,), 2.0 ** 32 / rows, device=dev)
+        want = ck.softmax_xent_bwd_plain(logits, labels, lse_p, up, -100)
+        hold_overflow("softmax_xent_bwd", "dlogits", f"{case}, upstream 2^32 / rows",
+                      ck.softmax_xent_bwd(logits, labels, lse_p, up, -100), want,
+                      ck.stored_step(h, want) + 1e-12)
+        if v == V:
+            row = v * logits.element_size()
+            lab64 = labels.long()
+            record["softmax_xent_fwd"]["at_4096x30522_f16"] = f16_timing(
+                "softmax_xent_fwd", lambda: ck.softmax_xent_fwd(logits, labels, -100),
+                lambda: ck.softmax_xent_fwd_plain(logits, labels, -100),
+                lambda: F.cross_entropy(logits, lab64, reduction="none", ignore_index=-100),
+                "F.cross_entropy(reduction='none', ignore_index=-100) f16",
+                n_live * row + rows * 4 * 3, 5.0 * n_live * v,
+                f"[4096,{V}] f16, {n_live} rows labelled", err_f)
+            lx = logits.detach().requires_grad_()
+            lib_loss = F.cross_entropy(lx, lab64, reduction="none", ignore_index=-100)
+            record["softmax_xent_bwd"]["at_4096x30522_f16"] = f16_timing(
+                "softmax_xent_bwd", lambda: ck.softmax_xent_bwd(logits, labels, lse_p, g, -100),
+                lambda: ck.softmax_xent_bwd_plain(logits, labels, lse_p, g, -100),
+                lambda: torch.autograd.grad(lib_loss, lx, g, retain_graph=True),
+                "backward of F.cross_entropy(reduction='none', ignore_index=-100) f16",
+                n_live * row + rows * 4 * 3 + rows * row, 4.0 * n_live * v,
+                f"[4096,{V}] f16, {n_live} rows labelled", err_b)
+            del lx, lib_loss
+        del logits
+        torch.cuda.empty_cache()
+    # Adam: a float16 parameter and gradient with float32 moments, at the
+    # token embedding's size and an odd one; the AMP skip flag
+    lr_t = torch.full((1,), 1e-3, device=dev)
+    for n in (23_440_896, 1_000_003):
+        p, g = randn(n, s=0.02), randn(n, s=0.01)
+        m = randn(n, dtype=torch.float32, s=0.01)
+        v = (0.5 + torch.rand(n, generator=gen, device=dev)) * 1e-4
+        want = ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8)
+        got = ck.fused_adam(p.clone(), g, m.clone(), v.clone(), lr_t, 0.9, 0.999, 1e-8)
+        gf = g.float()
+        terms_m = 0.9 * m.abs() + 0.1 * gf.abs()
+        terms = (p.float().abs() + lr_t * terms_m / (want[2].sqrt() + 1e-8), terms_m,
+                 0.999 * v + 0.001 * gf * gf)
+        errs = [check_within("adam", what, h, f"n={n}", a, c,
+                             F32_ERR * t + ck.stored_step(c.dtype, c) + 1e-30,
+                             "2^-20*|terms| + one rounding of the stored dtype (stored_step)")
+                for what, t, a, c in zip(("p", "m", "v"), terms, got, want)]
+        for flag in (True, False):
+            pc, mc, vc = p.clone(), m.clone(), v.clone()
+            before = ck.LAUNCHES["adam"]
+            ck.fused_adam(pc, g, mc, vc, lr_t, 0.9, 0.999, 1e-8,
+                          torch.tensor([flag], device=dev))
+            torch.cuda.synchronize()
+            counted = ck.LAUNCHES["adam"] - before
+            held = (torch.equal(pc, p) and torch.equal(mc, m) and torch.equal(vc, v)) if flag \
+                else all(torch.equal(a, b) for a, b in zip((pc, mc, vc), got))
+            emit({"adam_found_inf": flag, "n": n, "launches": counted,
+                  "state_bitwise_unchanged" if flag else "state_bitwise_as_without_flag": held})
+            if not (held and counted == 1):
+                raise AssertionError(f"adam found_inf={flag} n={n}: state held {held}, "
+                                     f"launches {counted}")
+        if n == 23_440_896:
+            step = torch.zeros((), device=dev)
+            p16, g16, m16, v16 = p.clone(), g.clone(), m.to(h), v.to(h)
+            record["adam"]["at_23440896_f16"] = f16_timing(
+                "adam", lambda: ck.fused_adam(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
+                lambda: ck.adam_plain(p, g, m, v, lr_t, 0.9, 0.999, 1e-8),
+                lambda: torch._fused_adam_([p16], [g16], [m16], [v16], [], [step], lr=1e-3,
+                                           beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                                           amsgrad=False, maximize=False),
+                "torch._fused_adam_ on one tensor, all float16 (it takes one dtype)",
+                nbytes(p, m, v, g, p, m, v), 10.0 * n,
+                f"[{n}] float16 p and g, float32 moments", max(errs))
+            del p16, g16, m16, v16
+        del p, g, m, v, want, got, terms
+        torch.cuda.empty_cache()
+    # the BN epilogue: the ResNet-50 stem's rows and an odd R of 49
+    for rows, w, where in ((256 * 64, 12544, "stem"), (65535, 49, "odd R")):
+        x, g = randn(rows, w), randn(rows, w)
+        mul = 0.5 + torch.rand(rows, generator=gen, device=dev)
+        add = randn(rows, dtype=torch.float32, s=0.5)
+        for relu in (True, False):
+            case = f"[{rows},{w}] {where} relu={relu}"
+            want = ck.bn_epilogue_plain(x, mul, add, relu)
+            err_f = check_within("bn_epilogue_fwd", "y", h, case,
+                                 ck._epilogue_fwd(x, mul, add, relu), want,
+                                 ck.bn_epilogue_fwd_allowed(x, mul, add, want),
+                                 ck.FWD_ROUNDING_RULE)
+            got = ck.bn_epilogue_bwd(x, mul, add, g, relu)
+            want_b = ck.bn_epilogue_bwd_plain(x, mul, add, g, relu)
+            errs = [check_within("bn_epilogue_bwd", what, h, case, a, b, t, rule)
+                    for what, a, b, t, rule in zip(
+                        ("dx", "dmul", "dadd"), got, want_b,
+                        epilogue_bwd_allowed(x, mul, g, want_b),
+                        ("one float16 step of |plain|", "1e-5*sum|g*x| of the row",
+                         "1e-5*sum|g| of the row"))]
+            again = ck.bn_epilogue_bwd(x, mul, add, g, relu)
+            for what, i in (("dmul", 1), ("dadd", 2)):
+                repeatable("bn_epilogue_bwd", f"{what} {case} float16", got[i], again[i])
+            del got, want_b, again
+            if where == "stem" and relu:
+                mul_x, add_x = mul.to(h)[:, None], add.to(h)[:, None]
+                y = want
+
+                def library_bwd():
+                    gm = torch.ops.aten.threshold_backward(g, y, 0)
+                    gm * mul_x
+                    (gm * x).sum(-1, dtype=torch.float32)
+                    gm.sum(-1, dtype=torch.float32)
+
+                record["bn_epilogue_fwd"][f"at_{rows}x{w}_f16"] = f16_timing(
+                    "bn_epilogue_fwd", lambda: ck._epilogue_fwd(x, mul, add, True),
+                    lambda: ck.bn_epilogue_plain(x, mul, add, True),
+                    lambda: torch.addcmul(add_x, x, mul_x).relu_(),
+                    "torch.addcmul(add, x, mul).relu_() f16: two calls",
+                    2 * nbytes(x) + 8 * rows, 3.0 * x.numel(), f"[{rows},{w}] f16 relu", err_f)
+                record["bn_epilogue_bwd"][f"at_{rows}x{w}_f16"] = f16_timing(
+                    "bn_epilogue_bwd", lambda: ck.bn_epilogue_bwd(x, mul, add, g, True),
+                    lambda: ck.bn_epilogue_bwd_plain(x, mul, add, g, True), library_bwd,
+                    "aten.threshold_backward(g, y, 0), then gm*mul, (gm*x).sum(-1) and "
+                    "gm.sum(-1) f16: five calls",
+                    3 * nbytes(x) + 16 * rows, 6.0 * x.numel(), f"[{rows},{w}] f16 relu",
+                    max(errs))
+                big = mul * 4e4
+                want = ck.bn_epilogue_plain(x, big, add, False)
+                hold_overflow("bn_epilogue_fwd", "y", f"{case}, mul x 4e4",
+                              ck._epilogue_fwd(x, big, add, False), want,
+                              ck.bn_epilogue_fwd_allowed(x, big, add, want))
+                del y
+        del x, g
+        torch.cuda.empty_cache()
 
 
 def hold_adam_at(torch, ck, record, gen, n, where):
@@ -2339,7 +2715,7 @@ def launches_of_program(main, loss):
 
 
 def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per_step,
-              launches, tokens, check_first_step=None):
+              launches, tokens, check_first_step=None, watch=()):
     """TRAIN_STEPS steps of `main` on one fixed `feed` through a fresh
     Executor(CUDAPlace(0)) and scope, eager or graphed (`arm`): every loss
     finite, the last below the first, each step's launches held
@@ -2347,7 +2723,8 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
     (read_monitor); then one step profiled (a graphed arm's replay must
     launch exactly `per_step`).  Returns the losses, the scope and the
     arm's record (warm step: the median of steps 3-6, past the warm-up and
-    the capture)."""
+    the capture).  The scope's scalar vars named in `watch` are printed
+    after each step and kept in the record."""
     import numpy as np
 
     exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=arm == "graphed")
@@ -2360,7 +2737,7 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated() / 1e9  # this arm's scope and whatever else lives
-    losses, step_ms = [], []
+    losses, step_ms, watched = [], [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
         t0 = time.perf_counter()
@@ -2368,11 +2745,12 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.reshape(-1)[0]))
+        watched.append({n: float(scope.find_var(n).reshape(-1)[0]) for n in watch})
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
         add_launches(launches, delta)
         replayed = hold_run_launches(exe, step, delta, per_step, f"{phase} {arm}", phase)
         emit({"phase": phase, "arm": arm, "step": step, "graphed": replayed, "loss": losses[-1],
-              "step_ms": step_ms[-1], "launches": delta, "card": card})
+              "step_ms": step_ms[-1], "launches": delta, "card": card, **watched[-1]})
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"{phase} {arm} step {step}: loss {losses[-1]}")
         if step == 0 and check_first_step is not None:
@@ -2395,7 +2773,8 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
               "profiled_step_ms": prof["run_ms"], "device_busy_ms": prof["device_busy_ms"],
               "device_idle_share": prof["device_idle_share"],
               "host_aten_calls": prof["host_aten_calls"],
-              "graph_refusal": exe.last_plan.graph_refusal, "card": card}
+              "graph_refusal": exe.last_plan.graph_refusal, "card": card,
+              **({"watched": watched} if watch else {})}
     emit(record)
     return losses, scope, record
 
@@ -2573,34 +2952,43 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
                  "batch": batch, "seq_len": seq_len}, runs, near_zero, state, LR)
 
 
-def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1, optimizer=None):
+def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1, optimizer=None, amp=None,
+                 size=224, momentum=0.9):
     """ResNet-50 in the JAX package's full configuration (NCHW, space-to-depth
-    stem, 1000 classes, 224 x 224, Momentum 0.9, or make_optimizer's
-    `optimizer`), random weights from seed 0, through fuse_bn_relu and
-    fuse_bias_act; returns (main, startup, fetches)."""
+    stem, 1000 classes, size x size, Momentum 0.9, or make_optimizer's
+    `optimizer`; `amp`, a dict of the decorator's settings: Momentum
+    (`momentum`) under contrib.mixed_precision.decorate with them, the
+    overflow flag fetchable as fetches["found_inf"]), random weights from
+    seed 0, through fuse_bn_relu and fuse_bias_act; returns (main, startup,
+    fetches)."""
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.models import resnet
 
     with fluid.unique_name.guard():
         main, startup, _, fetches = resnet.build(
-            dtype=dtype, with_optimizer=with_optimizer and optimizer is None,
-            learning_rate=learning_rate, momentum=0.9, **RESNET)
-        if optimizer:
+            dtype=dtype, with_optimizer=with_optimizer and not (optimizer or amp),
+            learning_rate=learning_rate, momentum=0.9, image_shape=(3, size, size), **RESNET)
+        if optimizer or amp:
             with fluid.program_guard(main, startup):
-                make_optimizer(fluid, optimizer).minimize(fetches["loss"])
+                opt = (decorate(fluid.optimizer.Momentum(learning_rate, momentum), **amp) if amp
+                       else make_optimizer(fluid, optimizer))
+                opt.minimize(fetches["loss"])
+            if amp:
+                fetches["found_inf"] = opt._found_inf
     startup.random_seed = 0
     main.random_seed = 0
-    keep = [fetches["loss"].name, fetches["logits"].name]
+    keep = [fetches[k].name for k in ("loss", "logits", "found_inf") if k in fetches]
     for p in ("fuse_bn_relu", "fuse_bias_act"):
         fluid.passes.apply_pass(main, p, keep=keep)
     return main, startup, fetches
 
 
-def images(batch, seed):
-    """A seeded batch of 224 x 224 images in [0, 1) and labels of 1000 classes."""
+def images(batch, seed, size=224):
+    """A seeded batch of size x size images in [0, 1) and labels of 1000 classes."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    return {"img": rng.rand(batch, 3, 224, 224).astype(np.float32),
+    return {"img": rng.rand(batch, 3, size, size).astype(np.float32),
             "label": rng.randint(0, 1000, (batch, 1)).astype(np.int64)}
 
 
@@ -2670,18 +3058,24 @@ def resnet_parity(fluid, torch, tmp):
         raise AssertionError(f"card vs CPU ResNet-50 logits differ by {diff} > 1e-3")
 
 
-def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None):
-    """Phases 10 and 38: bf16 ResNet-50 (Momentum lr 0.1, 0.9, or LARS on its
-    cosine schedule, `optimizer`; batch 256) trains TRAIN_STEPS steps
-    through Executor.run on cuda:0 on one fixed batch, from the second step
-    on as a CUDA graph (the velocities and batch norm's running statistics
-    are new tensors a step, copied back inside the graph)."""
+def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None, amp=False):
+    """Phases 10, 38 and 54: bf16 ResNet-50 (Momentum lr 0.1, 0.9, or LARS on
+    its cosine schedule, `optimizer`; batch 256), or float16 under
+    contrib.mixed_precision.decorate(Momentum(0.1, 0.9)) (`amp`), trains
+    TRAIN_STEPS steps through Executor.run on cuda:0 on one fixed batch,
+    from the second step on as a CUDA graph (the velocities and batch
+    norm's running statistics are new tensors a step, copied back inside
+    the graph; under AMP the plan is captured with no refusal, and a step
+    whose gradients overflow, read off the fetched flag, leaves the weights
+    as they were)."""
     import numpy as np
 
     t0 = time.perf_counter()
-    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True,
-                                          optimizer=optimizer)
+    main, startup, fetches = build_resnet(fluid, "float16" if amp else "bfloat16",
+                                          with_optimizer=True, optimizer=optimizer,
+                                          amp=AMP_DEFAULTS if amp else None)
     loss = fetches["loss"].name
+    extra = [fetches["found_inf"].name] if amp else []
     derived = launches_of_program(main, loss)
     if derived != RESNET_PER_STEP:
         raise AssertionError(f"the program's kernel ops {derived} != the reckoned {RESNET_PER_STEP}")
@@ -2692,32 +3086,45 @@ def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None):
     feed = {k: torch.from_numpy(v).cuda() for k, v in images(RESNET_TRAIN_BATCH, 50).items()}
     stats = [op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")]
     stats0 = {n: scope.find_var(n).clone() for n in stats}
-    emit({"phase": phase, "model": "resnet-50 bf16, space-to-depth stem, fuse_bn_relu, "
-          + OPTIMIZER_NAMES.get(optimizer, "Momentum lr 0.1 mu 0.9"), "batch": RESNET_TRAIN_BATCH,
+    model = ("resnet-50 f16, space-to-depth stem, fuse_bn_relu, decorate(Momentum lr 0.1 mu "
+             "0.9) at the decorator's defaults" if amp else
+             "resnet-50 bf16, space-to-depth stem, fuse_bn_relu, "
+             + OPTIMIZER_NAMES.get(optimizer, "Momentum lr 0.1 mu 0.9"))
+    emit({"phase": phase, "model": model, "batch": RESNET_TRAIN_BATCH,
           "setup_s": time.perf_counter() - t0})
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()  # the main path's count starts here
     fluid.monitor.reset()
-    losses, step_ms = [], []
+    losses, step_ms, skipped = [], [], []
     for step in range(TRAIN_STEPS):
         before = dict(ck.LAUNCHES)
         t0 = time.perf_counter()
-        (out,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        out = exe.run(main, feed=feed, fetch_list=[loss] + extra, scope=scope,
+                      return_numpy=False)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(out.reshape(-1)[0]))
+        losses.append(float(out[0].reshape(-1)[0]))
+        skipped.append(bool(out[1].reshape(-1)[0]) if amp else False)
         delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
         replayed = hold_run_launches(exe, step, delta, RESNET_PER_STEP, phase, phase)
         emit({"phase": phase, "resnet_step": step, "graphed": replayed, "loss": losses[-1],
-              "step_ms": step_ms[-1], "launches": delta, "card": card})
+              "step_ms": step_ms[-1], "launches": delta, "card": card,
+              **({"skipped": skipped[-1], "loss_scaling": float(
+                  scope.find_var("loss_scaling_0").reshape(-1)[0])} if amp else {})})
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"step {step}: loss {losses[-1]}")
     # the first update must lower the loss of the batch it was taken on, and
     # the last loss must be below the first; in between, momentum 0.9 at lr
     # 0.1 overshoots on one fixed batch from random weights (the H100 at batch
-    # 256: 7.65, 6.53, 5.92, 5.78, 5.97, 6.15)
-    if not (losses[1] < losses[0] and losses[-1] < losses[0]):
-        raise AssertionError(f"the loss did not fall: {losses}")
+    # 256: 7.65, 6.53, 5.92, 5.78, 5.97, 6.15).  Under AMP a skipped step
+    # leaves the weights, so the step after it sees the same loss: the rule
+    # holds the losses of the steps each applied update leads to
+    seen = [losses[0]] + [losses[i] for i in range(1, len(losses)) if not skipped[i - 1]]
+    if not (len(seen) >= 3 and seen[1] < seen[0] and seen[-1] < seen[0]):
+        raise AssertionError(f"the loss did not fall: {losses} (skipped {skipped})")
+    if amp and exe.last_plan.graph_refusal is not None:
+        raise AssertionError(f"{phase}: the plan was refused a graph: "
+                             f"{exe.last_plan.graph_refusal}")
     # the graph copies the new running statistics (and velocities) into the
     # tensors the scope holds
     still = [n for n in stats if torch.equal(scope.find_var(n), stats0[n])]
@@ -2728,9 +3135,12 @@ def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None):
     warm = statistics.median(step_ms[2:])
     emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
           "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
+          **({"skipped_steps": sum(skipped), "graph_refusal": exe.last_plan.graph_refusal}
+             if amp else {})})
+    # the steps' own fetches: another fetch list is another plan, run eagerly
     profile_replay(torch, f"{phase} step",
-                   lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                   lambda: exe.run(main, feed=feed, fetch_list=[loss] + extra, scope=scope,
                                    return_numpy=False), card, RESNET_PER_STEP)
     return launches
 
@@ -5661,6 +6071,425 @@ def tagger_train(fluid, torch, ck, card):
     return launches
 
 
+# phases 52-55: float16 with contrib.mixed_precision's dynamic loss scaling.
+# The decorator's state, and its defaults (scale 2^15, growth after 1000
+# finite steps, halving after 2 overflows)
+AMP_VARS = ("loss_scaling_0", "good_steps_0", "bad_steps_0")
+AMP_DEFAULTS = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=1000,
+                    decr_every_n_nan_or_inf=2, incr_ratio=2.0, decr_ratio=0.5)
+# phase 53: a scale no float16 gradient of the first steps survives (the
+# cross-entropy backward's cotangent is 2^32 / 4096 rows = 2^20 times 1 - p,
+# past 65504), halved at every overflow, until AMP_APPLIED steps have
+# applied (at most AMP_MAX_STEPS steps)
+AMP_OVERFLOW = dict(AMP_DEFAULTS, init_loss_scaling=2.0 ** 32, decr_every_n_nan_or_inf=1)
+AMP_APPLIED = 3
+AMP_MAX_STEPS = 40
+# phase 55: the scope's scale before each step (the second overflows, the
+# third is set back); the 2-layer BERT at 2 x 128 tokens, two sequences a
+# step: the card's host multiplies float16 matrices on its CPU at a few
+# GFLOP/s (three steps at 8 x 128 took 298 s on the host of an NVIDIA H100
+# 80GB HBM3), so the batch is cut to the least that holds more than one
+# sequence
+AMP_PARITY_BATCH = 2
+AMP_PARITY_SCALES = {1: 2.0 ** 40, 2: 2.0 ** 15}
+# phase 55's BERT rules, float16's forms of phase 7's.  The card (cuBLAS,
+# the float16 kernels) and the CPU round each float16 activation once,
+# after sums taken in other orders: the two sides' activations part by
+# float16 steps (2^-11, 2^13 times float32's 2^-24), compounded over the
+# layers.  The losses within 1e-2 * max(1, |loss|); Adam's steps are
+# lr-sized whatever the gradient's size, so each parameter within 2 lr per
+# applied step + 1e-5, and the update of all parameters within 10% of the
+# CPU's in L2 (tests/test_torch_training.py's bfloat16 rule); the moments
+# within 5e-2 of the largest of their kind; the beta pows and the AMP vars
+# exactly
+AMP_BERT_PARITY = {"loss": 1e-2, "update_l2": 0.1, "moment": 5e-2}
+# phase 55's ResNet-50.  The CPU's float16 convolution backward is orders of
+# magnitude slower than its float32 one (three steps at 224 x 224 took
+# minutes), so the parity runs at phase 35's 64 x 64 (the last stage 2 x
+# 2), batch 8; the decorator's 2^15 overflows every step there on both
+# sides (the weight gradients pass 65504), as it does at 224 x 224, so it
+# starts from 2^10, where the steps apply
+AMP_RESNET_PARITY = {"size": 64, "scale": 2.0 ** 10}
+AMP_RESNET_STEPS = 5
+# Batch statistics make ResNet-50's gradients at initialization
+# ill-conditioned (phase 11), and float16 rounds each activation 2^13 times
+# coarser than float32: float16's step itself, on either side, lies O(1)
+# of the step away from float32's at the first steps, the port's CPU as
+# much as the card (amp_resnet_parity prints it each step), shrinking as
+# the weights leave their initialization.  So each side is held against
+# the float32 step from the same state (the same program built in float32,
+# on the CPU): for the velocities, the parameter updates and the running
+# statistics, each kind summed in L2 over all its tensors, the card's
+# float16 error may be at most AMP_RESNET_RATIO times the CPU's float16
+# error.  Two float16 implementations that round alike score ~1; the loss
+# within 1e-2 * max(1, |loss|) of the CPU's float16 loss, the AMP vars
+# exactly.  From step AMP_RESNET_CONTROLS_FROM on, where float16's own
+# error has fallen below a third of the update, the phase also takes each
+# step on the card with half the batch and with half the momentum, and
+# scores a frozen step: the rule must refuse each
+AMP_RESNET_RATIO = 1.25
+AMP_RESNET_LOSS = 1e-2
+AMP_RESNET_CONTROLS_FROM = 2
+
+
+def build_amp_bert(fluid, n_layers, dropout_prob, seq_len=128, amp=AMP_DEFAULTS):
+    """BERT-base at full width (vocab 30522, d 768, 12 heads, d_ff 3072) of
+    `n_layers` layers in float16 with fused attention, built by
+    build_bert(dtype="float16", with_optimizer=False) and trained by
+    contrib.mixed_precision.decorate(Adam(LR), **amp), through the two
+    fusion passes; returns (main, startup, loss name, found_inf name)."""
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.models import transformer
+
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = transformer.build_bert(
+            vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
+            d_ff=3072, dtype="float16", dropout_prob=dropout_prob, use_fused_attention=True,
+            with_optimizer=False)
+        with fluid.program_guard(main, startup):
+            opt = decorate(fluid.optimizer.Adam(LR), **amp)
+            opt.minimize(fetches["loss"])
+    startup.random_seed = 0
+    main.random_seed = 0
+    loss, found = fetches["loss"].name, opt._found_inf.name
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=[loss, found])
+    return main, startup, loss, found
+
+
+def bert_f16_amp(fluid, torch, ck, card):
+    """Phase 52: BERT-base float16 (12 layers, fused attention, dropout 0.1)
+    under decorate(Adam(1e-4)) at the decorator's defaults, TRAIN_STEPS
+    steps on one batch of 32 x 128, eager then graphed (train_arm: warm
+    step, tokens a second, idle share of a profiled step, peak memory, and
+    the loss and the scale each step): FUSED_PER_STEP's launches every step
+    (the LayerNorms, bias+GELU, attention and the loss's kernels in their
+    float16 instantiations, the embedding's LayerNorm before the cast in
+    float32, Adam on the float32 master weights), the graph captured with
+    no refusal, the loss falling."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    t0 = time.perf_counter()
+    main, startup, loss, _ = build_amp_bert(fluid, 12, 0.1)
+    derived = launches_of_program(main, loss)
+    if derived != FUSED_PER_STEP:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {FUSED_PER_STEP}")
+    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0))
+    emit({"phase": "bert_f16_amp", "model": "bert-base f16, fused attention, dropout 0.1, "
+          "decorate(Adam lr 1e-4) at the decorator's defaults", "batch": 32, "seq_len": 128,
+          "ops": len(main.global_block().ops), "setup_s": time.perf_counter() - t0})
+    launches = dict(NONE)
+    ck.reset_launches()  # the main path's count starts here
+    for arm in ("eager", "graphed"):
+        losses, scope, rec = train_arm(fluid, torch, ck, card, "bert_f16_amp", arm, main, startup,
+                                       loss, feed, FUSED_PER_STEP, launches,
+                                       {"sequences": 32, "tokens": 32 * 128}, watch=AMP_VARS)
+        ARM_RECORDS.setdefault("bert_f16_amp", []).append(rec)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"bert_f16_amp {arm}: the loss did not fall: {losses}")
+        if arm == "graphed" and rec["graph_refusal"] is not None:
+            raise AssertionError(f"bert_f16_amp: the plan was refused a graph: "
+                                 f"{rec['graph_refusal']}")
+        del scope
+    return launches
+
+
+def loss_scaling_after(state, found):
+    """update_loss_scaling's state machine (paddle_tpu/ops/optimizer_ops.py)
+    on the host: (scale, good, bad) after a step whose overflow flag is
+    `found`, under AMP_OVERFLOW's settings."""
+    scale, good, bad = state
+    good, bad = (0, bad + 1) if found else (good + 1, 0)
+    if good >= AMP_OVERFLOW["incr_every_n_steps"]:
+        grown = scale * AMP_OVERFLOW["incr_ratio"]
+        scale, good = (grown if math.isfinite(grown) else scale), 0
+    if bad >= AMP_OVERFLOW["decr_every_n_nan_or_inf"]:
+        scale, bad = max(scale * AMP_OVERFLOW["decr_ratio"], 1.0), 0
+    return scale, good, bad
+
+
+def bert_f16_overflow(fluid, torch, ck, card):
+    """Phase 53: phase 52's BERT from a loss scale of 2^32, halved at every
+    overflow (AMP_OVERFLOW), graphed, until AMP_APPLIED steps have applied.
+    Each step's overflow flag is fetched; on a skipped step every parameter,
+    moment and beta pow is bit for bit what it was before the step; on an
+    applied one some moved; after every step the scale and the two counters
+    are update_loss_scaling's state machine's (loss_scaling_after) exactly;
+    every run's launches FUSED_PER_STEP (the kernels run whatever the flag).
+    Returns the launches."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss, found = build_amp_bert(fluid, 12, 0.1, amp=AMP_OVERFLOW)
+    derived = launches_of_program(main, loss)
+    if derived != FUSED_PER_STEP:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {FUSED_PER_STEP}")
+    feed = make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(v.name for v in main.list_vars() if v.persistable and v.name not in AMP_VARS)
+    state = (AMP_OVERFLOW["init_loss_scaling"], 0, 0)
+    launches = dict(NONE)
+    ck.reset_launches()
+    skipped = applied = 0
+    for step in range(AMP_MAX_STEPS):
+        before = {n: scope.find_var(n).clone() for n in names}
+        counted = dict(ck.LAUNCHES)
+        out = exe.run(main, feed=feed, fetch_list=[loss, found], scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        delta = {k: ck.LAUNCHES[k] - counted[k] for k in ck.LAUNCHES}
+        add_launches(launches, delta)
+        hold_run_launches(exe, step, delta, FUSED_PER_STEP, "bert_f16_overflow",
+                          "bert_f16_overflow")
+        flag = bool(out[1].reshape(-1)[0])
+        state = loss_scaling_after(state, flag)
+        got = (float(scope.find_var("loss_scaling_0").reshape(-1)[0]),
+               int(scope.find_var("good_steps_0").reshape(-1)[0]),
+               int(scope.find_var("bad_steps_0").reshape(-1)[0]))
+        moved = [n for n in names if not torch.equal(scope.find_var(n), before[n])]
+        emit({"phase": "bert_f16_overflow", "step": step, "found_inf": flag,
+              "loss": float(out[0].reshape(-1)[0]), "loss_scaling": got[0], "good_steps": got[1],
+              "bad_steps": got[2], "state_machine": list(state), "persistables_moved": len(moved),
+              "card": card})
+        if got != state:
+            raise AssertionError(f"bert_f16_overflow step {step}: (scale, good, bad) {got} != "
+                                 f"update_loss_scaling's {state}")
+        if flag and moved:
+            raise AssertionError(f"bert_f16_overflow step {step}: a skipped step moved {moved[:4]}")
+        if not flag and not moved:
+            raise AssertionError(f"bert_f16_overflow step {step}: an applied step moved nothing")
+        skipped += flag
+        applied += not flag
+        del before
+        if applied >= AMP_APPLIED:
+            break
+    emit({"phase": "bert_f16_overflow", "steps": step + 1, "skipped_steps": skipped,
+          "applied_steps": applied, "persistables_held": len(names),
+          "graph_refusal": exe.last_plan.graph_refusal, "card": card})
+    if not (skipped >= 1 and applied >= AMP_APPLIED):
+        raise AssertionError(f"bert_f16_overflow: {skipped} skipped, {applied} applied in "
+                             f"{AMP_MAX_STEPS} steps")
+    if exe.last_plan.graph_refusal is not None:
+        raise AssertionError(f"bert_f16_overflow: refused a graph: {exe.last_plan.graph_refusal}")
+    return launches
+
+
+def amp_bert_parity(fluid, torch):
+    """Phase 55, BERT: 2 layers of phase 52's model (dropout 0) at
+    AMP_PARITY_BATCH x 128, PARITY_STEPS steps on the card (graphed) and on
+    the CPU from one numpy state (the LayerNorm gains 1, as phase 7); the
+    scope's scale is set
+    before a step as AMP_PARITY_SCALES says, so the second step overflows
+    on both sides and leaves every other persistable bit for bit; the AMP
+    vars and the flags equal exactly, the losses, parameters and moments by
+    AMP_BERT_PARITY."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss, found = build_amp_bert(fluid, 2, 0.0)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: init.to_numpy(n).copy() for n in names}
+    for n in state:
+        if n.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):
+            state[n] = np.ones_like(state[n])
+    feed = make_fake_batch(AMP_PARITY_BATCH, 128, 30522, rng=np.random.RandomState(1))
+    runs = {}
+    for arm, place in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        losses, flags, amp_vars = [], [], []
+        for step in range(PARITY_STEPS):
+            if step in AMP_PARITY_SCALES:  # in place: a captured graph keeps its pointers
+                scope.find_var("loss_scaling_0").fill_(AMP_PARITY_SCALES[step])
+            before = {n: scope.to_numpy(n).copy() for n in names}
+            out = exe.run(main, feed=feed, fetch_list=[loss, found], scope=scope)
+            losses.append(float(out[0].reshape(-1)[0]))
+            flags.append(bool(out[1].reshape(-1)[0]))
+            amp_vars.append({n: scope.to_numpy(n).copy() for n in AMP_VARS})
+            if flags[-1]:
+                moved = [n for n in names if n not in AMP_VARS
+                         and not np.array_equal(scope.to_numpy(n), before[n])]
+                if moved:
+                    raise AssertionError(f"amp_bert_parity {arm} step {step}: the skipped step "
+                                         f"moved {moved[:4]}")
+        runs[arm] = (losses, flags, amp_vars, {n: scope.to_numpy(n).copy() for n in names})
+    (gl, gf, ga, gs), (cl, cf, ca_, cs) = runs["card"], runs["cpu"]
+    want_flags = [step in AMP_PARITY_SCALES and AMP_PARITY_SCALES[step] > 2.0 ** 30
+                  for step in range(PARITY_STEPS)]
+    dloss = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(gl, cl))
+    applied = PARITY_STEPS - sum(want_flags)
+    flip_tol = 2 * LR * applied + 1e-5
+    params = {p.name for p in main.all_parameters()}
+    sq_diff = sq_update = worst_flip = 0.0
+    for n in params:
+        got, want = gs[n].astype(np.float64), cs[n].astype(np.float64)
+        worst_flip = max(worst_flip, float(np.abs(got - want).max()))
+        sq_diff += float(np.sum((got - want) ** 2))
+        sq_update += float(np.sum((want - state[n]) ** 2))
+    update_share = math.sqrt(sq_diff / max(sq_update, 1e-30))
+    moments = {}
+    for kind in ("moment1", "moment2"):
+        kn = [n for n in names if n.endswith(f"_{kind}_0")]
+        peak = max(float(np.abs(cs[n]).max()) for n in kn)
+        moments[kind] = (max(float(np.abs(gs[n] - cs[n]).max()) for n in kn),
+                         AMP_BERT_PARITY["moment"] * peak)
+    pows = [n for n in names if "beta" in n and "pow" in n]
+    emit({"phase": "amp_bert_parity", "model": "bert-base f16, 2 layers, fused attention, "
+          "dropout 0, decorate(Adam lr 1e-4)", "batch": AMP_PARITY_BATCH, "seq_len": 128,
+          "losses_card": gl, "losses_cpu": cl, "found_inf_card": gf, "found_inf_cpu": cf,
+          "max_rel_dloss": dloss, "max_abs_dparam": worst_flip, "param_tol": flip_tol,
+          "update_l2_share": update_share,
+          "max_abs_dmoment": {k: w for k, (w, _) in moments.items()},
+          "moment_tol": {k: t for k, (_, t) in moments.items()},
+          "rules": AMP_BERT_PARITY})
+    if not (gf == cf == want_flags):
+        raise AssertionError(f"amp_bert_parity: overflow flags card {gf}, cpu {cf}, "
+                             f"want {want_flags}")
+    for step, (a, b) in enumerate(zip(ga, ca_)):
+        for n in AMP_VARS:
+            if not (a[n].dtype == b[n].dtype and np.array_equal(a[n], b[n])):
+                raise AssertionError(f"amp_bert_parity step {step}: {n} card {a[n]} cpu {b[n]}")
+    for n in pows:
+        if not np.array_equal(gs[n], cs[n]):
+            raise AssertionError(f"amp_bert_parity: {n} card {gs[n]} cpu {cs[n]}")
+    if not dloss <= AMP_BERT_PARITY["loss"]:
+        raise AssertionError(f"amp_bert_parity: losses card {gl} cpu {cl}")
+    if not (worst_flip <= flip_tol and update_share <= AMP_BERT_PARITY["update_l2"]):
+        raise AssertionError(f"amp_bert_parity: parameters differ by {worst_flip} (> {flip_tol}?) "
+                             f"or the update by {update_share} of the CPU's in L2")
+    for kind, (worst, tol) in moments.items():
+        if not worst <= tol:
+            raise AssertionError(f"amp_bert_parity: {kind} differs by {worst} > {tol}")
+
+
+def amp_float32_errors(after, truth, before, stats, params):
+    """For the velocities, the parameter updates and the running statistics
+    of one step: the L2 distance of `after` from the float32 step `truth`
+    over all tensors of the kind, as a share of the float32 step's own
+    (the velocities, the update truth - before, the statistics' move)."""
+    import numpy as np
+
+    sums = {"velocity": [0.0, 0.0], "update": [0.0, 0.0], "stat": [0.0, 0.0]}
+    for n, want in truth.items():
+        if n in stats:
+            kind, base = "stat", want.astype(np.float64) - before[n]
+        elif n.endswith("_velocity_0"):
+            kind, base = "velocity", want.astype(np.float64)
+        elif n in params:
+            kind, base = "update", want.astype(np.float64) - before[n]
+        else:
+            continue
+        sums[kind][0] += float(np.sum((after[n].astype(np.float64) - want) ** 2))
+        sums[kind][1] += float(np.sum(base ** 2))
+    return {k: math.sqrt(d / max(b, 1e-30)) for k, (d, b) in sums.items()}
+
+
+def amp_resnet_parity(fluid, torch):
+    """Phase 55, ResNet-50: float16 under decorate(Momentum(RESNET_PARITY_LR,
+    0.9)) from AMP_RESNET_PARITY's scale at its image size, batch 8,
+    AMP_RESNET_STEPS steps on the CPU; before each, the CPU's state is
+    loaded on the card, which takes the same step, and the same step is
+    taken in float32 on the CPU (the program built in float32, the state
+    cast).  Every step applies on all sides, the AMP vars equal exactly, the
+    losses within AMP_RESNET_LOSS, and the card's float16 error from the
+    float32 step at most AMP_RESNET_RATIO times the CPU's
+    (amp_float32_errors); from AMP_RESNET_CONTROLS_FROM on, the card's step
+    with half the batch, with momentum 0.45, and a frozen step must each
+    break that rule."""
+    import numpy as np
+
+    size, lr = AMP_RESNET_PARITY["size"], RESNET_PARITY_LR
+    amp = dict(AMP_DEFAULTS, init_loss_scaling=AMP_RESNET_PARITY["scale"])
+    progs = {key: build_resnet(fluid, dtype, True, lr, amp=amp, size=size, momentum=mu)
+             for key, dtype, mu in (("float16", "float16", 0.9), ("float32", "float32", 0.9),
+                                    ("half_momentum", "float16", 0.45))}
+    main, startup, fetches = progs["float16"]
+    fetch = [fetches["loss"].name, fetches["found_inf"].name]
+    cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
+    params = {p.name for p in main.all_parameters() if p.trainable}
+    feed = images(8, 60, size)
+    half = {k: v[:4] for k, v in feed.items()}
+
+    def take(exe, key, state, device, batch):
+        """One step of program `key` from `state` on `device`: (the
+        persistables after it, the loss, the overflow flag)."""
+        prog, _, fetches = progs[key]
+        if key == "float32":
+            state = {n: a.astype(np.float32) if a.dtype == np.float16 else a
+                     for n, a in state.items()}
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=device)
+        out = exe.run(prog, feed=batch, fetch_list=[fetches["loss"].name,
+                                                    fetches["found_inf"].name], scope=scope)
+        return ({n: scope.to_numpy(n) for n in names}, float(out[0].reshape(-1)[0]),
+                bool(out[1].reshape(-1)[0]))
+
+    ratio = AMP_RESNET_RATIO
+    worst = {"loss": 0.0, "ratio": (0.0, "", -1)}
+    records = []
+    for step in range(AMP_RESNET_STEPS):
+        state = {n: cpu.to_numpy(n) for n in names}
+        card = take(gpu_exe, "float16", state, "cuda:0", feed)
+        out = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu)
+        host = ({n: cpu.to_numpy(n) for n in names}, float(out[0].reshape(-1)[0]),
+                bool(out[1].reshape(-1)[0]))
+        truth = take(cpu_exe, "float32", state, "cpu", feed)
+        if card[2] or host[2] or truth[2]:
+            raise AssertionError(f"amp_resnet_parity step {step}: an overflow (card {card[2]}, "
+                                 f"cpu {host[2]}, cpu float32 {truth[2]}): nothing to compare")
+        for n in AMP_VARS:
+            if not np.array_equal(card[0][n], host[0][n]):
+                raise AssertionError(f"amp_resnet_parity step {step}: {n} card {card[0][n]} "
+                                     f"cpu {host[0][n]}")
+        worst["loss"] = max(worst["loss"], abs(card[1] - host[1]) / max(1.0, abs(host[1])))
+        err = {"cpu": amp_float32_errors(host[0], truth[0], state, stats, params),
+               "card": amp_float32_errors(card[0], truth[0], state, stats, params)}
+        if step >= AMP_RESNET_CONTROLS_FROM:
+            err["half_batch"] = amp_float32_errors(take(gpu_exe, "float16", state, "cuda:0",
+                                                        half)[0], truth[0], state, stats, params)
+            err["half_momentum"] = amp_float32_errors(
+                take(gpu_exe, "half_momentum", state, "cuda:0", feed)[0], truth[0], state,
+                stats, params)
+            err["frozen"] = amp_float32_errors(state, truth[0], state, stats, params)
+        ratios = {run: {k: e[k] / max(err["cpu"][k], 1e-30) for k in e}
+                  for run, e in err.items() if run != "cpu"}
+        for k, r in ratios["card"].items():
+            worst["ratio"] = max(worst["ratio"], (r, k, step))
+        records.append({"step": step, "losses_card_cpu_cpu_float32": [card[1], host[1], truth[1]],
+                        "cpu_float16_error": err["cpu"], "ratio_to_cpu": ratios})
+    admitted = [(rec["step"], run) for rec in records for run, r in rec["ratio_to_cpu"].items()
+                if run != "card" and max(r.values()) <= ratio]
+    emit({"phase": "amp_resnet_parity", "model": f"resnet-50 f16, batch 8, {size} x {size}, "
+          f"decorate(Momentum lr {lr}) from scale {AMP_RESNET_PARITY['scale']}", "steps": records,
+          "worst_loss_share": worst["loss"], "worst_card_ratio": worst["ratio"],
+          "controls_admitted": admitted,
+          "rules": {"loss": AMP_RESNET_LOSS, "ratio": ratio,
+                    "controls_from": AMP_RESNET_CONTROLS_FROM}})
+    losses = [rec["losses_card_cpu_cpu_float32"][1] for rec in records]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"amp_resnet_parity: the CPU's losses are not finite or did not "
+                             f"fall: {losses}")
+    if not worst["loss"] <= AMP_RESNET_LOSS:
+        raise AssertionError(f"amp_resnet_parity: card vs CPU losses differ by {worst['loss']}")
+    if not worst["ratio"][0] <= ratio:
+        raise AssertionError(f"amp_resnet_parity: the card's float16 {worst['ratio'][1]} error "
+                             f"at step {worst['ratio'][2]} is {worst['ratio'][0]} times the "
+                             f"CPU's > {ratio}")
+    if admitted:
+        raise AssertionError(f"amp_resnet_parity: the rule admits the controls {admitted}: it "
+                             f"cannot tell them from rounding")
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -5700,6 +6529,7 @@ def main():
     timings.update(check_train_kernels(torch, ck))
     check_nmt_kernels(torch, ck, timings)
     timings.update(check_bn_kernels(torch, ck))
+    check_float16_kernels(torch, ck, timings)
     check_vision_kernels(torch, ck, timings)
     check_seq2seq_kernels(torch, ck, timings)
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
@@ -5807,6 +6637,22 @@ def main():
             emit({"phase_seconds": f"word2vec_{head}_train", "s": time.perf_counter() - phase_t0,
                   "card": card})
         emit({"phase_seconds": "phases 48-51", "s": time.perf_counter() - tail_t0, "card": card})
+        amp_t0 = phase_t0 = time.perf_counter()
+        amp_trained = bert_f16_amp(fluid, torch, ck, card)
+        emit({"phase_seconds": "bert_f16_amp", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        amp_overflowed = bert_f16_overflow(fluid, torch, ck, card)
+        emit({"phase_seconds": "bert_f16_overflow", "s": time.perf_counter() - phase_t0,
+              "card": card})
+        phase_t0 = time.perf_counter()
+        amp_resnet = resnet_train(fluid, torch, ck, card, "resnet_f16_amp", amp=True)
+        emit({"phase_seconds": "resnet_f16_amp", "s": time.perf_counter() - phase_t0,
+              "card": card})
+        phase_t0 = time.perf_counter()
+        amp_bert_parity(fluid, torch)
+        amp_resnet_parity(fluid, torch)
+        emit({"phase_seconds": "amp_parity", "s": time.perf_counter() - phase_t0, "card": card})
+        emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5817,7 +6663,10 @@ def main():
     # `replayed_by_path` what the graph replays after each capture ran
     # (REPLAYED), and `ran_by_path` the two together: how often the path ran
     # the kernel
-    paths = {"bert_bf16_scores": (FUSED_BF16_SCORES_PER_STEP, bs_trained),
+    paths = {"bert_f16_amp": (FUSED_PER_STEP, amp_trained),
+             "bert_f16_overflow": (FUSED_PER_STEP, amp_overflowed),
+             "resnet_f16_amp": (RESNET_PER_STEP, amp_resnet),
+             "bert_bf16_scores": (FUSED_BF16_SCORES_PER_STEP, bs_trained),
              "bert_bf16_scores_serve": (BF16_SCORES_PER_REQUEST, bs_served),
              "bert_bf16_scores_long": (FUSED_BF16_SCORES_PER_STEP, bs_long),
              "ssd_train": (SSD_PER_STEP, detected["ssd_train"]),

@@ -29,13 +29,16 @@ through `QueueDataset` / `Executor.train_from_dataset` (`dataset`,
 `datasets`); `CheckpointManager`, `resilient_train_loop`, `FaultInjector`
 and `integrity` make a single-device run survive bad batches, NaNs,
 device errors, storage faults and preemption, resuming bit for bit.  Every
-op of the JAX package but the fake-quantize ops, `update_loss_scaling`,
-`pipeline` and `ring_attention` has a lowering; `metrics`, `evaluator` and
-`debugger` are numpy-only copies.
+op of the JAX package but the fake-quantize ops, `pipeline` and
+`ring_attention` has a lowering; `metrics`, `evaluator` and `debugger` are
+numpy-only copies.  `contrib.mixed_precision.decorate` trains in float16
+with dynamic loss scaling, the kernels taking float16 as they take
+bfloat16.
 """
 import numpy as np
 
 from . import ops  # registers the op lowerings  # noqa: F401
+from . import contrib  # mixed_precision  # noqa: F401
 from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noqa: F401
                models, monitor, nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401

@@ -44,7 +44,7 @@ SIGNATURES = {
     "ptt_bias_act_bwd": ([_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "ptt_softmax_xent_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_softmax_xent_bwd": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-    "ptt_adam": ([_P, _P, _P, _P, _P, _L, _D, _D, _F, _I, _I, _I, _P], _I),
+    "ptt_adam": ([_P, _P, _P, _P, _P, _P, _L, _D, _D, _F, _I, _I, _I, _P], _I),
     "ptt_bn_epilogue_fwd": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_bn_epilogue_bwd": ([_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     "ptt_attention_fwd": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P], _I),

@@ -14,12 +14,24 @@
 // elements) that is 656 MB, 196 us at 3.35 TB/s; 3.70 GB and 1.10 ms for
 // all 198 parameters of a step.
 //
+// AMP (contrib/mixed_precision): `found_inf`, when not null, points to one
+// bool on the device, the decorator's overflow flag.  When it is set the
+// step is skipped: every thread reads it before any other load and returns,
+// so p, m and v keep their bits.  The flag is read on the device, never on
+// the host, so a step that carries it can be captured in a CUDA graph (the
+// replay launches the kernel whatever the flag says).  The JAX package
+// selects old against new after its update (paddle_tpu/ops/optimizer_ops.py
+// register_opt); here p, m and v are written in place, so a select after
+// the kernel would see only the updated values: the kernel applies the
+// flag itself.
+//
 // Design: one grid-stride pass.  Each thread moves 4 elements of every array
-// per load (16 bytes in float32, 8 in bfloat16) and a scalar loop takes the
+// per load (16 bytes in float32, 8 in bfloat16 and float16) and a scalar loop takes the
 // last n % 4 elements, so any n works: the TPU kernel's lane rule
 // (n % 256 == 0, else the composite) has no counterpart.  Vectors need every
 // pointer 16-byte aligned; otherwise the whole pass is scalar.  p, m/v and g
-// are each float32 or bfloat16 (m and v share a type); the math is float32.
+// are each float32, bfloat16 or float16 (m and v share a type); the math is
+// float32.
 #include "common.cuh"
 
 namespace {
@@ -43,8 +55,9 @@ __device__ __forceinline__ void adam_one(TP& p, TM& m, TM& v, TG g, float lr, co
 
 template <typename TP, typename TM, typename TG, int VEC>
 __global__ void adam_kernel(TP* __restrict__ p, const TG* __restrict__ g, TM* __restrict__ m,
-                            TM* __restrict__ v, const float* __restrict__ lr_t, int64_t n,
-                            Betas k) {
+                            TM* __restrict__ v, const float* __restrict__ lr_t,
+                            const bool* __restrict__ found_inf, int64_t n, Betas k) {
+  if (found_inf != nullptr && *found_inf) return;  // an overflowed step: nothing moves
   const float lr = *lr_t;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -64,8 +77,8 @@ __global__ void adam_kernel(TP* __restrict__ p, const TG* __restrict__ g, TM* __
 }
 
 template <typename TP, typename TM, typename TG>
-cudaError_t launch(void* p, const void* g, void* m, void* v, const void* lr_t, int64_t n,
-                   const Betas& k, cudaStream_t stream) {
+cudaError_t launch(void* p, const void* g, void* m, void* v, const void* lr_t,
+                   const bool* found_inf, int64_t n, const Betas& k, cudaStream_t stream) {
   constexpr int kThreads = 256;
   constexpr int kVec = 4;
   const bool vec = ptt::aligned16(p) && ptt::aligned16(g) && ptt::aligned16(m) &&
@@ -82,46 +95,56 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, const void* lr_t, i
   auto* lp = static_cast<const float*>(lr_t);
   if (vec)
     adam_kernel<TP, TM, TG, kVec><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        pp, gp, mp, vp, lp, n, k);
+        pp, gp, mp, vp, lp, found_inf, n, k);
   else
     adam_kernel<TP, TM, TG, 1><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        pp, gp, mp, vp, lp, n, k);
+        pp, gp, mp, vp, lp, found_inf, n, k);
   return cudaGetLastError();
 }
 
 template <typename TP, typename TM>
 cudaError_t dispatch_g(int g_dtype, void* p, const void* g, void* m, void* v, const void* lr_t,
-                       int64_t n, const Betas& k, cudaStream_t s) {
-  if (g_dtype == ptt::kFloat32) return launch<TP, TM, float>(p, g, m, v, lr_t, n, k, s);
-  if (g_dtype == ptt::kBFloat16) return launch<TP, TM, __nv_bfloat16>(p, g, m, v, lr_t, n, k, s);
+                       const bool* fi, int64_t n, const Betas& k, cudaStream_t s) {
+  if (g_dtype == ptt::kFloat32) return launch<TP, TM, float>(p, g, m, v, lr_t, fi, n, k, s);
+  if (g_dtype == ptt::kBFloat16)
+    return launch<TP, TM, __nv_bfloat16>(p, g, m, v, lr_t, fi, n, k, s);
+  if (g_dtype == ptt::kFloat16) return launch<TP, TM, __half>(p, g, m, v, lr_t, fi, n, k, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename TP>
 cudaError_t dispatch_m(int m_dtype, int g_dtype, void* p, const void* g, void* m, void* v,
-                       const void* lr_t, int64_t n, const Betas& k, cudaStream_t s) {
-  if (m_dtype == ptt::kFloat32) return dispatch_g<TP, float>(g_dtype, p, g, m, v, lr_t, n, k, s);
+                       const void* lr_t, const bool* fi, int64_t n, const Betas& k,
+                       cudaStream_t s) {
+  if (m_dtype == ptt::kFloat32)
+    return dispatch_g<TP, float>(g_dtype, p, g, m, v, lr_t, fi, n, k, s);
   if (m_dtype == ptt::kBFloat16)
-    return dispatch_g<TP, __nv_bfloat16>(g_dtype, p, g, m, v, lr_t, n, k, s);
+    return dispatch_g<TP, __nv_bfloat16>(g_dtype, p, g, m, v, lr_t, fi, n, k, s);
+  if (m_dtype == ptt::kFloat16)
+    return dispatch_g<TP, __half>(g_dtype, p, g, m, v, lr_t, fi, n, k, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // p: [n] dtype p_dtype; g: [n] dtype g_dtype; m, v: [n] dtype m_dtype (all
-// contiguous); lr_t: one float32 on the device.  Updates p, m and v in place.
+// contiguous); lr_t: one float32 on the device; found_inf: null, or one bool
+// on the device that skips the step when set.  Updates p, m and v in place.
 // beta1 and beta2 come as doubles: 1 - beta is taken in double, then rounded once.
-extern "C" int ptt_adam(void* p, const void* g, void* m, void* v, const void* lr_t, int64_t n,
-                        double beta1, double beta2, float eps, int p_dtype, int g_dtype,
-                        int m_dtype, void* stream) {
+extern "C" int ptt_adam(void* p, const void* g, void* m, void* v, const void* lr_t,
+                        const void* found_inf, int64_t n, double beta1, double beta2, float eps,
+                        int p_dtype, int g_dtype, int m_dtype, void* stream) {
   if (n == 0) return 0;
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const Betas k{static_cast<float>(beta1), static_cast<float>(1.0 - beta1),
                 static_cast<float>(beta2), static_cast<float>(1.0 - beta2), eps};
+  const auto* fi = static_cast<const bool*>(found_inf);
   if (p_dtype == ptt::kFloat32)
-    return dispatch_m<float>(m_dtype, g_dtype, p, g, m, v, lr_t, n, k, s);
+    return dispatch_m<float>(m_dtype, g_dtype, p, g, m, v, lr_t, fi, n, k, s);
   if (p_dtype == ptt::kBFloat16)
-    return dispatch_m<__nv_bfloat16>(m_dtype, g_dtype, p, g, m, v, lr_t, n, k, s);
+    return dispatch_m<__nv_bfloat16>(m_dtype, g_dtype, p, g, m, v, lr_t, fi, n, k, s);
+  if (p_dtype == ptt::kFloat16)
+    return dispatch_m<__half>(m_dtype, g_dtype, p, g, m, v, lr_t, fi, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -310,6 +310,7 @@ extern "C" int ptt_bias_act_fwd(const void* x, const void* b, void* out, int64_t
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32) return dispatch<float>(x, b, out, rows, d, act, s);
   if (dtype == ptt::kBFloat16) return dispatch<__nv_bfloat16>(x, b, out, rows, d, act, s);
+  if (dtype == ptt::kFloat16) return dispatch<__half>(x, b, out, rows, d, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -328,5 +329,7 @@ extern "C" int ptt_bias_act_bwd(const void* x, const void* b, const void* g, voi
     return dispatch_bwd<float>(x, b, g, dx, part, db, rows, d, act, n_blocks, s);
   if (dtype == ptt::kBFloat16)
     return dispatch_bwd<__nv_bfloat16>(x, b, g, dx, part, db, rows, d, act, n_blocks, s);
+  if (dtype == ptt::kFloat16)
+    return dispatch_bwd<__half>(x, b, g, dx, part, db, rows, d, act, n_blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

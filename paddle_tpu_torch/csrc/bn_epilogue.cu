@@ -183,6 +183,7 @@ extern "C" int ptt_bn_epilogue_fwd(const void* x, const void* mul, const void* a
   if (dtype == ptt::kFloat32) return dispatch_fwd<float>(x, mul, add, out, rows, w, relu, s);
   if (dtype == ptt::kBFloat16)
     return dispatch_fwd<__nv_bfloat16>(x, mul, add, out, rows, w, relu, s);
+  if (dtype == ptt::kFloat16) return dispatch_fwd<__half>(x, mul, add, out, rows, w, relu, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -198,5 +199,7 @@ extern "C" int ptt_bn_epilogue_bwd(const void* x, const void* mul, const void* a
     return launch_bwd<float>(x, mul, add, g, dx, dmul, dadd, rows, w, relu, s);
   if (dtype == ptt::kBFloat16)
     return launch_bwd<__nv_bfloat16>(x, mul, add, g, dx, dmul, dadd, rows, w, relu, s);
+  if (dtype == ptt::kFloat16)
+    return launch_bwd<__half>(x, mul, add, g, dx, dmul, dadd, rows, w, relu, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,13 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes float32 or bfloat16 tensors (dtype code 0 and 1 in the
-// C entry points), computes in float32 and rounds once on the store, which
-// is what the TPU kernels they replace do.
+// Every kernel takes float32, bfloat16 or float16 tensors (dtype code 0, 1
+// and 2 in the C entry points), computes in float32 and rounds once on the
+// store (to nearest even; a float16 past 65504 becomes +-inf, never clamped,
+// as torch's .to(float16)), which is what the TPU kernels they replace do.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -13,7 +15,7 @@
 
 namespace ptt {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -23,6 +25,8 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -32,6 +36,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);  // nearest even; past 65504 +-inf, as torch's .to(float16)
+}
 
 // VEC elements moved as one load or store: 16 bytes when VEC * sizeof(T) == 16.
 template <typename T, int VEC>
@@ -39,14 +47,22 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-// A Vec as floats, and floats rounded once into a Vec; bfloat16 pairs go
-// through the packed conversions (one instruction a pair for the rounding).
+// A Vec as floats, and floats rounded once into a Vec; bfloat16 and float16
+// pairs go through the packed conversions (one instruction a pair for the
+// rounding).
 template <typename T, int VEC>
 __device__ __forceinline__ void unpack(const Vec<T, VEC>& v, float (&f)[VEC]) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC % 2 == 0) {
 #pragma unroll
     for (int i = 0; i < VEC; i += 2) {
       const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.v[i]));
+      f[i] = p.x;
+      f[i + 1] = p.y;
+    }
+  } else if constexpr (std::is_same<T, __half>::value && VEC % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 2) {
+      const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&v.v[i]));
       f[i] = p.x;
       f[i + 1] = p.y;
     }
@@ -63,6 +79,10 @@ __device__ __forceinline__ Vec<T, VEC> pack(const float (&f)[VEC]) {
 #pragma unroll
     for (int i = 0; i < VEC; i += 2)
       *reinterpret_cast<__nv_bfloat162*>(&v.v[i]) = __floats2bfloat162_rn(f[i], f[i + 1]);
+  } else if constexpr (std::is_same<T, __half>::value && VEC % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 2)
+      *reinterpret_cast<__half2*>(&v.v[i]) = __floats2half2_rn(f[i], f[i + 1]);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) v.v[i] = from_f32<T>(f[i]);

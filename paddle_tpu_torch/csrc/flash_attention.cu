@@ -11,7 +11,7 @@
 // (jax/experimental/pallas/ops/tpu/flash_attention.py: forward pallas_call
 // at :758, dK/dV at :1121, dQ at :1456).  One contract, the composite's
 // (paddle_tpu/ops/nn_ops.py:672-689) and fused_sdpa's: q [B, H, Lq, dh],
-// k and v [B, H, Lk, dh], float32 or bfloat16, dh in {16, 32, 64, 128};
+// k and v [B, H, Lk, dh], float32, bfloat16 or float16, dh in {16, 32, 64, 128};
 // optional float32 bias [B, 1|H, Lq, Lk] added after the scale; causal keeps
 // key c for query i when c <= i + (Lk - Lq), masked scores are -1e30 (a row
 // with no visible key is the uniform average of V, as in the composite); no
@@ -92,6 +92,14 @@
 // Registers, not shared memory, set the count to dh 64.  The backward's
 // tiles with ragged rows, masked scores or a bias take a per-element path;
 // the others (all of BERT's) take one without checks.
+//
+// float16 (fault C6: the kernels refused it, the JAX kernels compute it):
+// the bf16 kernels' code instantiated for __half (mma.sync
+// m16n8k16.f32.f16.f16.f32, pairs rounded by __floats2half2_rn: to nearest
+// even, past 65504 to +-inf, as torch's .to(float16)); P goes to float16
+// before the PV product, as the composite's p.astype(q.dtype).  With bf16
+// scores, float16 inputs take the FFMA kBS twins below, instantiated for
+// __half loads: the warpgroup kernels stay bf16-only.
 //
 // float32 forward and backward (for float32 parity with the CPU; untimed):
 // 64 rows a CTA, 16 a warp, the backward's split, FFMA on the CUDA cores
@@ -207,13 +215,20 @@ struct Carve {
   }
 };
 
-// dst[r * LD + c] = r < valid ? src[r * DH + c] : 0, for r < kRows, c < DH.
-template <int DH, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int valid) {
+// dst[r * LD + c] = r < valid ? src[r * DH + c] : 0, for r < kRows, c < DH,
+// as float32 (src float32 or float16).
+template <int DH, int LD, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int valid) {
   for (int i = threadIdx.x; i < kRows * DH; i += kThreads) {
     const int r = i / DH, c = i % DH;
-    dst[r * LD + c] = r < valid ? src[static_cast<int64_t>(r) * DH + c] : 0.f;
+    dst[r * LD + c] = r < valid ? ptt::to_f32(src[static_cast<int64_t>(r) * DH + c]) : 0.f;
   }
+}
+
+// x rounded to RA and back, as a float (RA float: x itself).
+template <typename RA>
+__device__ __forceinline__ float round_to(float x) {
+  return ptt::to_f32(ptt::from_f32<RA>(x));
 }
 
 // One warp, FFMA: C[16][N] = A[16][K] * B[N][K]^T (row-major in shared
@@ -245,8 +260,9 @@ __device__ __forceinline__ void warp_nt(float* C, int ldc, const float* A, int l
     for (int j = 0; j < N / 8; ++j) C[(r0 + i) * ldc + c0 + 8 * j] = acc[i][j];
 }
 
-// One warp, FFMA: C[16][N] += A[16][K] * B[K][N] (row-major in shared memory).
-template <int K, int N>
+// One warp, FFMA: C[16][N] += A[16][K] * B[K][N] (row-major in shared
+// memory), each element of A rounded to RA first (float: as it is).
+template <int K, int N, typename RA = float>
 __device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const float* A, int lda,
                                             const float* B, int ldb) {
   const int lane = threadIdx.x & 31, r0 = (lane >> 3) * 4, c0 = lane & 7;
@@ -259,7 +275,7 @@ __device__ __forceinline__ void warp_nn_acc(float* C, int ldc, const float* A, i
   for (int kk = 0; kk < K; ++kk) {
     float a[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(r0 + i) * lda + kk];
+    for (int i = 0; i < 4; ++i) a[i] = round_to<RA>(A[(r0 + i) * lda + kk]);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const float b = B[kk * ldb + c0 + 8 * j];
@@ -294,13 +310,15 @@ struct Problem {
 };
 
 // ---------------------------------------------------------------------------
-// The bfloat16 kernels: mma.sync fragments in registers, cp.async ring.
+// The 16-bit kernels (T = __nv_bfloat16 or __half): mma.sync fragments in
+// registers, cp.async ring.  bf16 is the type the notes below name; f16
+// takes the same code with the f16 mma.sync and pair rounding.
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared tiles of the bf16 kernels: [64][DH + 8] bf16, the 16-byte pad
+// Shared tiles of the 16-bit kernels: [64][DH + 8] bf16 (or f16), the 16-byte pad
 // putting the 8 row addresses of each ldmatrix on 8 distinct 16-byte bank
 // groups.  A backward CTA holds its own two tiles for the whole loop and a
 // ring of kStages pairs of streamed tiles.
@@ -324,8 +342,8 @@ struct MmaTiles {
 
 // Start copying rows [0, 64) of a [rows][DH] bf16 block into a tile (rows
 // at or past `valid` become zeros, and nothing past them is read).
-template <int DH>
-__device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src, int valid) {
+template <int DH, typename T>
+__device__ __forceinline__ void cp_async_tile(T* dst, const T* src, int valid) {
   constexpr int kPerRow = DH / 8;  // 16-byte pieces of a row
   constexpr int kLd = MmaTiles<DH>::kLd;
 #pragma unroll
@@ -340,18 +358,18 @@ __device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src, int va
 // Write a warp's 16 x DH float32 accumulator fragments, rounded, to rows
 // [row0, row0 + 16) of a [rows][DH] bf16 tensor; rows at or past `valid` are
 // not written.
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 8][4], int row0,
+template <int DH, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[DH / 8][4], int row0,
                                            int valid) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c2 = 2 * (lane & 3);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     if (row >= valid) continue;
-    bf16* p = dst + static_cast<int64_t>(row) * DH + c2;
+    T* p = dst + static_cast<int64_t>(row) * DH + c2;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + 8 * j) = ptt::frag::pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(p + 8 * j) = ptt::frag::pack2<T>(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
@@ -418,22 +436,22 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// out = attention(q, k, v) and lse, bf16.  One CTA per (b*h, kRowsQ query
+// out = attention(q, k, v) and lse, bf16 or f16 (T).  One CTA per (b*h, kRowsQ query
 // rows), each warp kWarpRows of them; Q held as A fragments, K and V tiles
 // through the cp.async ring, S, P, the running max and sum and O in
 // registers (see the note at the top).  The bf16-score forward of bf16
 // inputs is a kernel of its own (attention_fwd_bs.cu).
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
-    attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                         bf16* __restrict__ out, float* __restrict__ lse, Problem pr) {
+    attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ bias,
+                         T* __restrict__ out, float* __restrict__ lse, Problem pr) {
   using F = FwdTiles<DH>;
   constexpr int kLd = F::kLd, kMT = F::kMT, kC = F::kC;
   namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = Qs + F::kRowsQ * kLd;  // stage st: K, then V
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = Qs + F::kRowsQ * kLd;  // stage st: K, then V
   auto k_tile = [&](int st) { return ring + 2 * st * F::kTileElems; };
 
   const int bh = blockIdx.y, q0 = blockIdx.x * F::kRowsQ;
@@ -441,8 +459,8 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * F::kWarpRows;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
   const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
-  const bf16* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const bf16* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
   const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1; the forward's key tiles
   const float scale_log2 = pr.scale * kLog2e;
@@ -488,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
 #pragma unroll
     for (int c0 = 0; c0 < kRows; c0 += kC) {
-      const bf16* Kc = k_tile(st) + c0 * kLd;
+      const T* Kc = k_tile(st) + c0 * kLd;
       float s[kMT][kC / 8][4] = {};
       fr::gemm_nt_rows<kMT, DH, kC>(s, qa, Kc, kLd);
       const bool edge = bias_bh != nullptr || kv_rows < c0 + kC || !(pr.scale > 0.f) ||
@@ -529,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, FwdTiles<DH>::kMinBlocks)
         }
       uint32_t pa[kMT][kC / 16][4];
 #pragma unroll
-      for (int m = 0; m < kMT; ++m) fr::to_a<kC>(pa[m], s[m]);  // P rounded to bf16
+      for (int m = 0; m < kMT; ++m) fr::to_a<kC, T>(pa[m], s[m]);  // P rounded to T
       fr::gemm_nn_rows<kMT, kC, DH>(o, pa, Kc + F::kTileElems, kLd);  // V
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -645,29 +663,29 @@ __device__ __forceinline__ void dkv_dscores(float (&dp)[N / 8][4], const float (
   }
 }
 
-// dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it), bf16.
+// dQ (and di = rowsum(dO * O), which the dK/dV kernel reads after it), bf16 or f16.
 // One CTA per (b*h, 64 query rows), each warp 16 of them.  Q and dO load
 // once and stay as A fragments in registers; K and V tiles of 64 keys
 // stream through a 2-stage cp.async ring; per pass of 32 keys a warp does
 // S = Q K^T and dP = dO V^T, dS = P (dP - di) scale rounded to bf16 as the A
 // fragments of dQ += dS K, all in registers.  (The bf16-score dQ of bf16
 // inputs is a kernel of its own, attention_bwd_bs.cu.)
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
-    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const float* __restrict__ bias,
-                            const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const float* __restrict__ bias,
+                            const T* __restrict__ out, const T* __restrict__ dout,
                             const float* __restrict__ lse, float* __restrict__ di,
-                            bf16* __restrict__ dq, Problem pr) {
+                            T* __restrict__ dq, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
   namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  bf16* Qs = cv.take<bf16>(M::kTileBytes);
-  bf16* dOs = cv.take<bf16>(M::kTileBytes);
+  T* Qs = cv.take<T>(M::kTileBytes);
+  T* dOs = cv.take<T>(M::kTileBytes);
   float* di_s = cv.take<float>(M::kVecBytes);
-  bf16* ring = cv.take<bf16>(M::kStages * M::kStageDQ);  // stage st: K, then V
+  T* ring = cv.take<T>(M::kStages * M::kStageDQ);  // stage st: K, then V
   auto k_tile = [&](int st) { return ring + 2 * st * M::kTileElems; };
 
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
@@ -675,8 +693,8 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
   const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
-  const bf16* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const bf16* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
   const int n_tiles = pr.key_tiles(q0 + q_rows);  // >= 1: every row sees key 0 or all keys
 
@@ -698,15 +716,11 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
       const int row = wr + r0 + lane / kLanes, c = lane % kLanes * 8;
       float acc = 0.f;
       if (row < q_rows) {
-        const uint4 o = *reinterpret_cast<const uint4*>(out + (row0 + row) * DH + c);
-        const uint4 d = *reinterpret_cast<const uint4*>(dout + (row0 + row) * DH + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+        float of[8], df[8];
+        ptt::unpack(*reinterpret_cast<const ptt::Vec<T, 8>*>(out + (row0 + row) * DH + c), of);
+        ptt::unpack(*reinterpret_cast<const ptt::Vec<T, 8>*>(dout + (row0 + row) * DH + c), df);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
-          acc += of.x * df.x + of.y * df.y;
-        }
+        for (int i = 0; i < 4; ++i) acc += of[2 * i] * df[2 * i] + of[2 * i + 1] * df[2 * i + 1];
       }
 #pragma unroll
       for (int o = kLanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -746,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
                       (pr.causal && k0 + kRows - 1 > q0 + pr.offset());
 #pragma unroll
     for (int c0 = 0; c0 < kRows; c0 += kC) {
-      const bf16* Kc = k_tile(st) + c0 * kLd;
+      const T* Kc = k_tile(st) + c0 * kLd;
       float s[kC / 8][4] = {}, dp[kC / 8][4] = {};
       fr::gemm_nt<DH, kC>(s, qa, Kc, kLd);
       fr::gemm_nt<DH, kC>(dp, doa, Kc + M::kTileElems, kLd);  // V
@@ -757,7 +771,7 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
         dq_scores<false, kC>(s, dp, lse_r, di_r, pr, bias_bh, q0, k0 + c0, wr + g, c2, q_rows,
                              kv_rows - c0);
       uint32_t ds[kC / 16][4];
-      fr::to_a<kC>(ds, s);  // dS rounded to bf16
+      fr::to_a<kC, T>(ds, s);  // dS rounded to T
       fr::gemm_nn<kC, DH>(acc, ds, Kc, kLd);
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -765,32 +779,32 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
   store_rows<DH>(dq + row0 * DH, acc, wr, q_rows);
 }
 
-// dK and dV, bf16, from the forward's lse and the dQ kernel's di.  One CTA
+// dK and dV, bf16 or f16, from the forward's lse and the dQ kernel's di.  One CTA
 // per (b*h, 64 key rows), each warp 16 keys.  K and V load once into shared
 // memory, whence ldmatrix takes their A fragments one k-step at a time (held
 // in registers they would spill beside dK and dV); Q, dO, lse and di tiles
 // of 64 queries stream through a 2-stage cp.async ring.  Per pass of 32 queries a
 // warp does S^T = K Q^T, P^T in place, dV += bf16(P^T) dO, dP^T = V dO^T,
-// dS^T rounded to bf16, dK += dS^T Q, all in registers.  (The bf16-score
+// dS^T rounded to T, dK += dS^T Q, all in registers.  (The bf16-score
 // dK/dV of bf16 inputs is a kernel of its own, attention_bwd_bs.cu.)
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
-    attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const float* __restrict__ bias,
-                             const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ di, bf16* __restrict__ dk,
-                             bf16* __restrict__ dv, Problem pr) {
+    attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const float* __restrict__ bias,
+                             const T* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ di, T* __restrict__ dk,
+                             T* __restrict__ dv, Problem pr) {
   using M = MmaTiles<DH>;
   constexpr int kLd = M::kLd, kC = M::kChunk;
   constexpr size_t kStage = M::kStageDKV;
   namespace fr = ptt::frag;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  bf16* Ks = cv.take<bf16>(M::kTileBytes);
-  bf16* Vs = cv.take<bf16>(M::kTileBytes);
+  T* Ks = cv.take<T>(M::kTileBytes);
+  T* Vs = cv.take<T>(M::kTileBytes);
   unsigned char* ring = cv.take<unsigned char>(M::kStages * kStage);
   // stage st: Q, dO, then lse and di of its 64 queries
-  auto q_tile = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStage); };
+  auto q_tile = [&](int st) { return reinterpret_cast<T*>(ring + st * kStage); };
   auto lse_of = [&](int st) {
     return reinterpret_cast<float*>(ring + st * kStage + 2 * M::kTileBytes);
   };
@@ -823,8 +837,8 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
   cp_async_tile<DH>(Vs, v + key0 * DH, k_rows);
   load_q(t_begin, 0);  // one group with K and V
 
-  const bf16* Kw = Ks + wr * kLd;  // the warp's 16 keys
-  const bf16* Vw = Vs + wr * kLd;
+  const T* Kw = Ks + wr * kLd;  // the warp's 16 keys
+  const T* Vw = Vs + wr * kLd;
   float dk_acc[DH / 8][4] = {}, dv_acc[DH / 8][4] = {};
   for (int t = t_begin; t < t_end; ++t) {
     const int st = (t - t_begin) % M::kStages;
@@ -841,8 +855,8 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
     // not unrolled: two passes interleaved by the compiler spill at dh 64
 #pragma unroll 1
     for (int c0 = 0; c0 < kRows; c0 += kC) {
-      const bf16* Qc = q_tile(st) + c0 * kLd;
-      const bf16* dOc = Qc + M::kTileElems;
+      const T* Qc = q_tile(st) + c0 * kLd;
+      const T* dOc = Qc + M::kTileElems;
       const float* lse_c = lse_of(st) + c0;
       const float* di_c = lse_c + kRows;
       float s[kC / 8][4] = {};
@@ -853,7 +867,7 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
         dkv_probs<false, kC>(s, lse_c, pr, bias_bh, q0 + c0, k0, wr + g, c2, q_rows - c0,
                              k_rows);
       uint32_t a[kC / 16][4];
-      fr::to_a<kC>(a, s);  // P^T rounded to bf16
+      fr::to_a<kC, T>(a, s);  // P^T rounded to T
       fr::gemm_nn<kC, DH>(dv_acc, a, dOc, kLd);
       float dp[kC / 8][4] = {};
       fr::gemm_nt_smem<DH, kC>(dp, Vw, kLd, dOc, kLd);  // dP^T
@@ -861,7 +875,7 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
         dkv_dscores<true, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
       else
         dkv_dscores<false, kC>(dp, s, di_c, pr, q0 + c0, k0, wr + g, c2);
-      fr::to_a<kC>(a, dp);  // dS^T rounded to bf16
+      fr::to_a<kC, T>(a, dp);  // dS^T rounded to T
       fr::gemm_nn<kC, DH>(dk_acc, a, Qc, kLd);
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -879,13 +893,19 @@ __global__ void __launch_bounds__(kThreads, MmaTiles<DH>::kMinBlocks)
 // kBS: the bf16-score variant (the composite's, as attention_fwd_bs.cu
 // computes it for bf16 inputs): a first pass over the K tiles takes each
 // row's max m of bf16(s), the second runs with m fixed and P =
-// exp(bf16(bf16(s) - m)); lse = log l, rowmax = m.
-template <int DH, bool kBS>
+// exp(bf16(bf16(s) - m)); lse = log l, rowmax = m.  T is float, or __half
+// for the kBS variant of float16 inputs, which loads them as floats and
+// rounds once on the store, as the float32 one; and rounds P / l to float16
+// before the PV product, as the composite's p.astype(q.dtype) does: a
+// second pass takes each row's sum l, a third the output with P / l, not
+// divided at the end.
+template <typename T, int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
-    attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             float* __restrict__ out, float* __restrict__ lse,
+    attention_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const float* __restrict__ bias,
+                             T* __restrict__ out, float* __restrict__ lse,
                              float* __restrict__ rowmax, Problem pr) {
+  constexpr bool kRoundP = kBS && !std::is_same<T, float>::value;
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -902,8 +922,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int q_rows = min(kRows, pr.Lq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
-  const float* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const float* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
 
   load_tile<DH, L::kTile>(Qs, q + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH, q_rows);
@@ -949,6 +969,24 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
   }
+  if constexpr (kRoundP) {  // the sum pass: each row's l, K tiles only
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
+      __syncthreads();
+      load_tile<DH, L::kTile>(Ks, kp + static_cast<int64_t>(k0) * DH, kv_rows);
+      __syncthreads();
+      warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Qs + wr * L::kTile, L::kTile, Ks, L::kTile);
+      __syncwarp();
+      for (int r = 0; r < 16; ++r) {
+        float s[2];
+        row_scores(wr + r, k0, kv_rows, s);
+        const float m = m_s[wr + r];
+        const float psum = ptt::warp_sum(expf(round_bf16(s[0] - m)) + expf(round_bf16(s[1] - m)));
+        if (lane == 0) l_s[wr + r] += psum;
+      }
+      __syncwarp();
+    }
+  }
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kRows, kv_rows = min(kRows, pr.Lk - k0);
     __syncthreads();  // the previous K/V tiles are consumed
@@ -967,7 +1005,10 @@ __global__ void __launch_bounds__(kThreads)
       const float m_old = m_s[row];
       const float m_new = kBS ? m_old : fmaxf(m_old, ptt::warp_max(fmaxf(s[0], s[1])));
       float p0, p1;
-      if constexpr (kBS) {
+      if constexpr (kRoundP) {  // P / l, rounded to T
+        p0 = round_to<T>(expf(round_bf16(s[0] - m_new)) / l_s[row]);
+        p1 = round_to<T>(expf(round_bf16(s[1] - m_new)) / l_s[row]);
+      } else if constexpr (kBS) {
         p0 = expf(round_bf16(s[0] - m_new));
         p1 = expf(round_bf16(s[1] - m_new));
       } else {
@@ -976,7 +1017,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       PT[row * L::kP + lane] = p0;
       PT[row * L::kP + lane + 32] = p1;
-      const float psum = ptt::warp_sum(p0 + p1);
+      const float psum = kRoundP ? 0.f : ptt::warp_sum(p0 + p1);  // kRoundP: l is known
       if (lane == 0) {
         // 0 on the first tile (m_old = -inf); kBS: 1, nothing to rescale
         const float alpha = kBS ? 1.f : expf(m_old - m_new);
@@ -994,12 +1035,13 @@ __global__ void __launch_bounds__(kThreads)
     warp_nn_acc<kRows, DH>(Ob + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, Vs, L::kTile);
   }
   __syncwarp();
-  float* op = out + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH;
+  T* op = out + (static_cast<int64_t>(bh) * pr.Lq + q0) * DH;
   for (int e = lane; e < 16 * DH; e += 32) {
     const int row = wr + e / DH;
-    if (row < q_rows)
-      op[static_cast<int64_t>(row) * DH + e % DH] =
-          Ob[row * L::kAcc + e % DH] / l_s[row];
+    if (row < q_rows) {
+      const float o = Ob[row * L::kAcc + e % DH];
+      op[static_cast<int64_t>(row) * DH + e % DH] = ptt::from_f32<T>(kRoundP ? o : o / l_s[row]);
+    }
   }
   if (lane < 16 && wr + lane < q_rows) {
     const int64_t i = static_cast<int64_t>(bh) * pr.Lq + q0 + wr + lane;
@@ -1021,13 +1063,16 @@ __global__ void __launch_bounds__(kThreads)
 // key order, and their share, scale (bf16(g + t) - g) K_a, goes into the
 // accumulator after the loop; a row with more takes it in a second pass
 // over the key tiles.)
-template <int DH, bool kBS>
+// (T: float, or __half for the kBS variant of float16 inputs: loaded as
+// floats, dq rounded once on the store; dS stays float32 after its bf16
+// rounding, as the composite's cotangent of the scores does.)
+template <typename T, int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ bias,
-                                const float* __restrict__ out, const float* __restrict__ dout,
+    attention_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const float* __restrict__ bias,
+                                const T* __restrict__ out, const T* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ rowmax,
-                                float* __restrict__ di, float* __restrict__ dq, Problem pr) {
+                                float* __restrict__ di, T* __restrict__ dq, Problem pr) {
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -1048,8 +1093,8 @@ __global__ void __launch_bounds__(kThreads)
   const int q_rows = min(kRows, pr.Lq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wr = warp * 16;
   const int64_t row0 = static_cast<int64_t>(bh) * pr.Lq + q0;
-  const float* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
-  const float* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* kp = k + static_cast<int64_t>(bh) * pr.Lk * DH;
+  const T* vp = v + static_cast<int64_t>(bh) * pr.Lk * DH;
   const float* bias_bh = pr.bias_of(bias, bh);
 
   load_tile<DH, L::kTile>(Qs, q + row0 * DH, q_rows);
@@ -1060,7 +1105,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = wr + r;
     float acc = 0.f;
     if (row < q_rows)
-      for (int c = lane; c < DH; c += 32) acc += out[(row0 + row) * DH + c] * dout[(row0 + row) * DH + c];
+      for (int c = lane; c < DH; c += 32)
+        acc += ptt::to_f32(out[(row0 + row) * DH + c]) * ptt::to_f32(dout[(row0 + row) * DH + c]);
     acc = ptt::warp_sum(acc);
     if (lane == 0) {
       di_s[row] = acc;
@@ -1167,26 +1213,29 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < ties; ++j) {
         const float g = tie_g[row * L::kTies + j];
         const float corr = pr.scale * (round_bf16(g + t_r[r]) - g);
-        const float* krow = kp + static_cast<int64_t>(tie_key[row * L::kTies + j]) * DH;
-        for (int c = lane; c < DH; c += 32) dQb[row * L::kAcc + c] += corr * krow[c];
+        const T* krow = kp + static_cast<int64_t>(tie_key[row * L::kTies + j]) * DH;
+        for (int c = lane; c < DH; c += 32) dQb[row * L::kAcc + c] += corr * ptt::to_f32(krow[c]);
       }
     }
   }
   __syncwarp();
   for (int e = lane; e < 16 * DH; e += 32) {
     const int row = wr + e / DH;
-    if (row < q_rows) dq[(row0 + row) * DH + e % DH] = dQb[row * L::kAcc + e % DH];
+    if (row < q_rows) dq[(row0 + row) * DH + e % DH] = ptt::from_f32<T>(dQb[row * L::kAcc + e % DH]);
   }
 }
 
-// (kBS: P and dS as in dkv_probs and dkv_dscores.)
-template <int DH, bool kBS>
+// (kBS: P and dS as in dkv_probs and dkv_dscores.  T: float, or __half for
+// the kBS variant of float16 inputs: loaded as floats, dk and dv rounded
+// once on the store, P rounded to float16 in dV += P^T dO, as the
+// composite's p.astype(q.dtype) is, and dS from the unrounded P.)
+template <typename T, int DH, bool kBS>
 __global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                 const float* __restrict__ v, const float* __restrict__ bias,
-                                 const float* __restrict__ dout, const float* __restrict__ lse,
+    attention_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const float* __restrict__ bias,
+                                 const T* __restrict__ dout, const float* __restrict__ lse,
                                  const float* __restrict__ rowmax, const float* __restrict__ di,
-                                 float* __restrict__ dk, float* __restrict__ dv, Problem pr) {
+                                 T* __restrict__ dk, T* __restrict__ dv, Problem pr) {
   using L = Ld<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -1267,8 +1316,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_nn_acc<kRows, DH>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs,
-                           L::kTile);
+    warp_nn_acc<kRows, DH, T>(dVb + wr * L::kAcc, L::kAcc, PT + wr * L::kP, L::kP, dOs,
+                              L::kTile);
     warp_nt<DH, kRows>(Sb + wr * L::kF, L::kF, Vs + wr * L::kTile, L::kTile, dOs, L::kTile);
     __syncwarp();
     if constexpr (!kBS) {
@@ -1299,8 +1348,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = lane; e < 16 * DH; e += 32) {
     const int row = wr + e / DH, c = e % DH;
     if (row < k_rows) {
-      dk[(key0 + row) * DH + c] = dKb[row * L::kAcc + c];
-      dv[(key0 + row) * DH + c] = dVb[row * L::kAcc + c];
+      dk[(key0 + row) * DH + c] = ptt::from_f32<T>(dKb[row * L::kAcc + c]);
+      dv[(key0 + row) * DH + c] = ptt::from_f32<T>(dVb[row * L::kAcc + c]);
     }
   }
 }
@@ -1322,25 +1371,32 @@ struct Args {
   const float* m_r;  // and the backward reads them
 };
 
-// (bf16 inputs with bf16 scores take the kernels of attention_fwd_bs.cu and
-// attention_bwd_bs.cu: own_kernel.)
+// Which kernels an instantiation takes: the mma.sync kernels for 16-bit
+// inputs (bf16, f16) with f32 scores; the FFMA kernels for float32 inputs,
+// and for f16 inputs with bf16 scores (their kBS twins, instantiated for
+// __half loads).  (bf16 inputs with bf16 scores take the kernels of
+// attention_fwd_bs.cu and attention_bwd_bs.cu: own_kernel.)
+template <typename T, bool BS>
+constexpr bool kMma = !std::is_same<T, float>::value && !BS;
+
 template <typename T, int DH, bool BS>
 const void* kernel_of(Which which) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<DH>);
-    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<DH>)
-                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<DH>);
+  if constexpr (kMma<T, BS>) {
+    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_kernel<T, DH>);
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_kernel<T, DH>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_kernel<T, DH>);
   } else {
-    if (which == kForward) return reinterpret_cast<const void*>(attention_fwd_f32_kernel<DH, BS>);
-    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<DH, BS>)
-                           : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<DH, BS>);
+    if (which == kForward)
+      return reinterpret_cast<const void*>(attention_fwd_f32_kernel<T, DH, BS>);
+    return which == kBwdDQ ? reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<T, DH, BS>)
+                           : reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<T, DH, BS>);
   }
 }
 
 // Dynamic shared memory of a kernel, in bytes.
 template <typename T, int DH, bool BS>
 size_t smem_of(Which which) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kMma<T, BS>) {
     if (which == kForward) return FwdTiles<DH>::kBytes;
     return which == kBwdDQ ? MmaTiles<DH>::kDQ : MmaTiles<DH>::kDKV;
   } else {
@@ -1353,9 +1409,9 @@ size_t smem_of(Which which) {
 }
 
 // Rows of its own axis a CTA of the kernel owns (queries, or dK/dV's keys).
-template <typename T, int DH>
+template <typename T, int DH, bool BS>
 int cta_rows(Which which) {
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (kMma<T, BS>)
     if (which == kForward) return FwdTiles<DH>::kRowsQ;
   return kRows;
 }
@@ -1407,11 +1463,11 @@ template <typename T, int DH, bool BS>
 cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t stream) {
   cudaError_t e = prepare<T, DH, BS>(which);
   if (e != cudaSuccess) return e;
-  const int own = which == kBwdDKV ? pr.Lk : pr.Lq, rows = cta_rows<T, DH>(which);
+  const int own = which == kBwdDKV ? pr.Lk : pr.Lq, rows = cta_rows<T, DH, BS>(which);
   const dim3 grid((own + rows - 1) / rows, static_cast<unsigned>(B) * H);
-  // each kernel's parameters, in order (the float32 kernels also take the
-  // row maxima of their kBS variant)
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  // each kernel's parameters, in order (the FFMA kernels also take the row
+  // maxima of their kBS variant)
+  constexpr bool kMmaArgs = kMma<T, BS>;
   void* fwd[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &pr};
   void* fwd_f32[] = {&a.q, &a.k, &a.v, &a.bias, &a.o_or_dq, &a.lse_w, &a.m_w, &pr};
   void* dq[] = {&a.q, &a.k, &a.v, &a.bias, &a.out, &a.dout, &a.lse_r, &a.di_w, &a.o_or_dq, &pr};
@@ -1421,9 +1477,9 @@ cudaError_t launch(Which which, Args a, int B, int H, Problem pr, cudaStream_t s
   void* dkv_f32[] = {&a.q,   &a.k,   &a.v,    &a.bias, &a.dout, &a.lse_r,
                      &a.m_r, &a.di_r, &a.dk, &a.dv,   &pr};
   return cudaLaunchKernel(kernel_of<T, DH, BS>(which), grid, dim3(kThreads),
-                          which == kForward ? (kBf16 ? fwd : fwd_f32)
-                          : which == kBwdDQ ? (kBf16 ? dq : dq_f32)
-                                            : (kBf16 ? dkv : dkv_f32),
+                          which == kForward ? (kMmaArgs ? fwd : fwd_f32)
+                          : which == kBwdDQ ? (kMmaArgs ? dq : dq_f32)
+                                            : (kMmaArgs ? dkv : dkv_f32),
                           smem_of<T, DH, BS>(which), stream);
 }
 
@@ -1498,6 +1554,8 @@ int run(Which which, const Args& a, const void* const* aligned, int n_aligned, i
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32) return dispatch<float>(which, &a, B, H, dh, score_bf16, pr, s, nullptr);
   if (dtype == ptt::kBFloat16) return dispatch<bf16>(which, &a, B, H, dh, score_bf16, pr, s, nullptr);
+  if (dtype == ptt::kFloat16)
+    return dispatch<__half>(which, &a, B, H, dh, score_bf16, pr, s, nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1505,7 +1563,7 @@ int run(Which which, const Args& a, const void* const* aligned, int n_aligned, i
 
 // Every tensor is contiguous and 16-byte aligned; q, out, dout, dq: [B, H, Lq,
 // dh]; k, v, dk, dv: [B, H, Lk, dh], all of dtype `dtype` (0 float32, 1
-// bfloat16); lse, di, rowmax: float32 [B, H, Lq]; bias: null (bias_heads 0)
+// bfloat16, 2 float16); lse, di, rowmax: float32 [B, H, Lq]; bias: null (bias_heads 0)
 // or float32 [B, bias_heads, Lq, Lk] with bias_heads 1 or H.  score_bf16
 // picks the bf16-score variant, whose rowmax is not null (and is null
 // otherwise).  Each launches on `stream` and returns the CUDA error code.
@@ -1564,5 +1622,7 @@ extern "C" int ptt_attention_occupancy(int which, int dh, int dtype, int score_b
     return dispatch<float>(w, nullptr, 0, 0, dh, score_bf16, pr, nullptr, out);
   if (dtype == ptt::kBFloat16)
     return dispatch<bf16>(w, nullptr, 0, 0, dh, score_bf16, pr, nullptr, out);
+  if (dtype == ptt::kFloat16)
+    return dispatch<__half>(w, nullptr, 0, 0, dh, score_bf16, pr, nullptr, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -442,6 +442,7 @@ extern "C" int ptt_ln_residual_fwd(const void* x, const void* res, const void* s
   if (dtype == ptt::kFloat32) return dispatch<float>(x, res, scale, bias, out, rows, d, eps, s);
   if (dtype == ptt::kBFloat16)
     return dispatch<__nv_bfloat16>(x, res, scale, bias, out, rows, d, eps, s);
+  if (dtype == ptt::kFloat16) return dispatch<__half>(x, res, scale, bias, out, rows, d, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -460,5 +461,7 @@ extern "C" int ptt_ln_residual_bwd(const void* x, const void* res, const void* s
   if (dtype == ptt::kBFloat16)
     return dispatch_bwd<__nv_bfloat16>(x, res, scale, g, dx, part, dsdb, rows, d, eps,
                                        n_blocks, s);
+  if (dtype == ptt::kFloat16)
+    return dispatch_bwd<__half>(x, res, scale, g, dx, part, dsdb, rows, d, eps, n_blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -293,6 +293,8 @@ extern "C" int ptt_softmax_xent_fwd(const void* x, const void* labels, void* los
     return static_cast<int>(launch_fwd<float>(x, labels, loss, lse, rows, v, ignore, s));
   if (dtype == ptt::kBFloat16)
     return static_cast<int>(launch_fwd<__nv_bfloat16>(x, labels, loss, lse, rows, v, ignore, s));
+  if (dtype == ptt::kFloat16)
+    return static_cast<int>(launch_fwd<__half>(x, labels, loss, lse, rows, v, ignore, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -319,6 +321,11 @@ extern "C" int ptt_softmax_xent_bwd(const void* x, const void* labels, const voi
         static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(labels),
         static_cast<const float*>(lse), static_cast<const float*>(g),
         static_cast<__nv_bfloat16*>(dx), v, ignore, vec);
+  else if (dtype == ptt::kFloat16)
+    softmax_xent_bwd_kernel<__half><<<grid, kThreads, 0, s>>>(
+        static_cast<const __half*>(x), static_cast<const int*>(labels),
+        static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<__half*>(dx), v,
+        ignore, vec);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

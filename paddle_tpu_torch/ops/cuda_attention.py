@@ -10,20 +10,27 @@ then in the backward the dQ kernel and the dK/dV kernel) and bump
 `["attention_bwd_dkv"]`.
 
 Contract (the JAX composite's and fused_sdpa's): q [B, H, Lq, dh], k and v
-[B, H, Lk, dh], one dtype (float32 or bfloat16), dh in {16, 32, 64, 128} on
-the card, any length; optional additive bias [B, 1|H, Lq, Lk], not
+[B, H, Lk, dh], one dtype (float32, bfloat16 or float16), dh in {16, 32, 64,
+128} on the card, any length; optional additive bias [B, 1|H, Lq, Lk], not
 differentiable (pallas_attention.py:16-19); causal masking keeps key c for
 query i when c <= i + (Lk - Lq), masked scores are -1e30.
 
+float16 inputs take the bfloat16 inputs' mma.sync kernels instantiated for
+float16 (P rounded to float16 before the PV product, as the composite's
+p.astype(q.dtype)), and their own rules, FWD_F16_RULE and BWD_F16_RULE.
+
 `score_bf16=True` is the composite's score_dtype="bfloat16"
-(paddle_tpu/ops/nn_ops.py:680-684), for float32 and bfloat16 inputs alike:
+(paddle_tpu/ops/nn_ops.py:680-684), for float32, bfloat16 and float16
+inputs alike:
 s is rounded to bf16, the row max m is taken over the rounded scores, and
 P = exp(f32(bf16(s - m))) / sum, the sum in float32.  For bfloat16 inputs
 its kernels are warpgroup kernels of their own (wgmma fed by a TMA producer
 warp): the forward in csrc/attention_fwd_bs.cu (each score computed once and
 kept on chip, long rows split over a thread-block cluster, see
 `bf16_score_fwd_plan`), dQ and dK/dV in csrc/attention_bwd_bs.cu; float32
-inputs take flash_attention.cu's float32 twins (compile-time variant kBS).
+inputs take flash_attention.cu's float32 twins (compile-time variant kBS),
+and so do float16 inputs, the twins instantiated for float16 loads (P / l
+rounded to float16 before the PV product and in dV, dS kept float32).
 They count under `LAUNCHES["attention_fwd_bf16_scores"]`,
 `["attention_bwd_dq_bf16_scores"]` and `["attention_bwd_dkv_bf16_scores"]`;
 their saved statistics are [2, B, H, Lq]: log of the row sum, and m; the
@@ -36,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .cuda_kernels import LAUNCHES, _DTYPE_CODE, _ptr, check_operand, on_card, stream_ptr
+from .cuda_kernels import LAUNCHES, ROUNDING, _DTYPE_CODE, _ptr, check_operand, on_card, stream_ptr
 
 _HEAD_DIMS = (16, 32, 64, 128)
 # the bf16-score forward (csrc/attention_fwd_bs.cu): keys a tile, score tiles
@@ -135,7 +142,8 @@ def _max_cotangent(g, sb, m):
 
 def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16=False):
     """float32 P and dS of the backward: dP = dO V^T, di = rowsum(dO * O)
-    from the forward's output, dS = P (dP - di) scale rounded to q.dtype.
+    from the forward's output, dS = P (dP - di) scale rounded to q.dtype
+    (save with bf16 scores and float16 inputs, below).
 
     score_bf16: the full VJP of the composite's bf16 scores.  P (dP - di) is
     rounded to bf16 (the VJP of the cast of s - m), and the row max m sends
@@ -152,7 +160,25 @@ def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16=False
     two orders part by about as much as dm itself (each step's rounding is
     of the order of the g's own), so TIE_RULE states what the float32 orders
     may move, and, against the composite (`tie_allowed`'s xla_order), what
-    its order moves.  A masked score is a constant, so its dS is 0."""
+    its order moves.  A masked score is a constant, so its dS is 0.
+
+    float16 inputs with bf16 scores, as jax.make_jaxpr(jax.vjp(...)) of the
+    composite reads at 65 keys and with forced ties: the scores and s - m
+    round to bf16 as above; the normalized P = e / l (float32) is rounded to
+    float16 once, before the PV product (`u:f16 = convert(s)`), and that
+    float16 P is also dV's operand (dV = f16(P16^T dO), summed in float32);
+    the cotangent of P is float16 (dP = f16(dO V^T), widened to float32),
+    that of the rounded scores is bf16 (`bf16(P (dP - di))`), and the row
+    max's cotangent is C5's: dm = -sum_j of those bf16 values in bf16 steps,
+    each of the c ties taking bf16(dm / c) added in bf16; then the sum is
+    widened to float32 and scaled, and dS stays float32 into dQ = dS K and
+    dK = dS^T Q (each summed in float32, rounded once to float16).  The port
+    follows those roundings but two: dP stays float32, and di is rowsum(dO *
+    O) from the rounded output, not sum_j P_j f16(dP_j) (the flash
+    formulation every kernel of the port shares; the tests hold the
+    difference by their tolerances).  So dS is not rounded to float16 here,
+    nor in the kernels (flash_attention.cu's FFMA kBS twins, instantiated
+    for float16 loads)."""
     p, sb, m, keep = _probs_plain(q, k, bias, causal, scale, score_bf16)
     do = dout.float()
     dp = torch.matmul(do, v.float().transpose(-1, -2))
@@ -163,6 +189,8 @@ def _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16=False
     ds = ds * scale
     if keep is not None:
         ds = torch.where(keep, ds, torch.zeros_like(ds))
+    if score_bf16 and q.dtype == torch.float16:
+        return p, ds
     return p, ds.to(q.dtype).float()
 
 
@@ -186,11 +214,38 @@ def _dkv(p, ds, q, v, dout):
 
 
 FWD_BF16_RULE = "2^-7 * (|plain| + sdpa_plain(q, k, |v|)), at most 5e-2"
+FWD_F16_RULE = ("2^-10 * (|plain| + sdpa_plain(q, k, |v|)) + 2^-24 * (1 + sum_j |v_j|), at most "
+                "6.25e-3")
+# the flat cap of a 16-bit dtype's rules: 5e-2 in bf16, the same 12.8 steps,
+# 6.25e-3, in float16
+_RULE_CAP = {torch.bfloat16: 5e-2, torch.float16: 6.25e-3}
+
+
+def _rule_form(dtype):
+    """(one step of a rounding on either side, 2 u, u the unit roundoff;
+    the subnormal step, 2^-24 in float16, which an element below 2^-14 may
+    move by; the flat cap) of the rules of 16-bit inputs of `dtype`, from
+    cuda_kernels.ROUNDING."""
+    u, sub = ROUNDING[dtype]
+    return 2.0 * u, 2.0 * sub, _RULE_CAP[dtype]
+
+
+def fwd_rule(dtype):
+    """The name of the forward rule of 16-bit inputs of `dtype`."""
+    return FWD_F16_RULE if dtype == torch.float16 else FWD_BF16_RULE
+
+
+def bwd_rule(dtype):
+    """The name of the backward rule of 16-bit inputs of `dtype`."""
+    return BWD_F16_RULE if dtype == torch.float16 else BWD_BF16_RULE
 
 
 def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want, score_bf16=False):
-    """What a bfloat16 forward's output may differ from the plain output
-    `want` by, element by element (FWD_BF16_RULE): the worst case of the
+    """What a 16-bit forward's output may differ from the plain output
+    `want` by, element by element (FWD_BF16_RULE; float16 inputs
+    FWD_F16_RULE, the same with float16's step 2^-10 in place of 2^-7, its
+    subnormal step 2^-24 for each P below 2^-14 and for the output, and the
+    cap scaled alike).  Of bfloat16: the worst case of the
     roundings the two make differently.  Each rounds every probability to
     bfloat16 before the PV product (a kernel the unnormalized exp(s - m),
     the plain version the normalized p), 2^-8 of each term at most, so
@@ -198,18 +253,29 @@ def sdpa_fwd_bf16_allowed(q, k, v, bias, causal, scale, want, score_bf16=False):
     rounds its output once, 2^-7 * |want| for the two.  At most the flat
     5e-2 of the other bfloat16 forwards.  At seq 2048 a row spreads over
     hundreds of keys and |out| is ~0.04, below what a flat 5e-2 can see."""
+    step, sub, cap = _rule_form(q.dtype)
     pv = sdpa_plain(q, k, v.abs(), bias, causal, scale, score_bf16).float()
-    return torch.clamp(2.0 ** -7 * (want.float().abs() + pv), max=5e-2)
+    allowed = step * (want.float().abs() + pv)
+    if sub:
+        allowed += sub * (1.0 + v.float().abs().sum(-2, keepdim=True))
+    return torch.clamp(allowed, max=cap)
 
 
 BWD_BF16_RULE = ("2^-7 * (|plain| + |dS| |K|) + E |K| for dq, 2^-7 * (|plain| + |dS|^T |Q|) "
                  "+ E^T |Q| for dk, 2^-7 * (|plain| + P^T |dO|) for dv, E = 2^-16 * P * scale * "
                  "(|dO| |V|^T + rowsum(|dO| |O|)); at most 5e-2 * max|plain|")
+BWD_F16_RULE = ("BWD_BF16_RULE with float16's step: 2^-10 * (|plain| + |dS| |K|) + (E + 2^-24) |K| "
+                "for dq, 2^-10 * (|plain| + |dS|^T |Q|) + (E + 2^-24)^T |Q| for dk, 2^-10 * "
+                "|plain| + (2^-10 P + 2^-24)^T |dO| for dv, each + 2^-24; at most 6.25e-3 * "
+                "max|plain|")
 
 
 def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want, score_bf16=False):
-    """What a bfloat16 backward's (dq, dk, dv) may differ from the plain
-    versions' `want` by, element by element (BWD_BF16_RULE): the roundings
+    """What a 16-bit backward's (dq, dk, dv) may differ from the plain
+    versions' `want` by, element by element (BWD_BF16_RULE; float16 inputs
+    BWD_F16_RULE, the same with float16's step 2^-10 in place of 2^-7 and
+    its subnormal step 2^-24 for every rounded dS and P and each output,
+    the cap scaled alike).  Of bfloat16: the roundings
     the two make differently.  Both round dS (and, for dv, P) to bfloat16
     from float32 values whose last bits differ (sums taken in another
     order), so a term of each product may land one bfloat16 step apart, at
@@ -221,20 +287,22 @@ def sdpa_bwd_bf16_allowed(q, k, v, bias, causal, scale, out, dout, want, score_b
     + rowsum(|dO| |O|)) more in dS.  Both round their float32 sums once, at
     most 2^-7 |want| apart.  Capped at the flat 5e-2 * max|want| it
     replaces."""
+    step, sub, cap = _rule_form(q.dtype)
     p, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, score_bf16)
     ado = dout.float().abs()
     e = torch.matmul(ado, v.float().abs().transpose(-1, -2))
     e += (ado * out.float().abs()).sum(-1, keepdim=True)
     e *= p * (2.0 ** -16 * scale)
-    ads = ds.abs().mul_(2.0 ** -7).add_(e)
+    ads = ds.abs().mul_(step).add_(e).add_(sub)
     del e
+    pb = p.to(q.dtype).float().mul_(step).add_(sub)
     terms = (torch.matmul(ads, k.float().abs()),
              torch.matmul(ads.transpose(-1, -2), q.float().abs()),
-             2.0 ** -7 * torch.matmul(p.to(q.dtype).float().transpose(-1, -2), ado))
+             torch.matmul(pb.transpose(-1, -2), ado))
     allowed = []
     for w, t in zip(want, terms):
         wf = w.float().abs()
-        allowed.append(torch.clamp(2.0 ** -7 * wf + t, max=5e-2 * float(wf.max())) + 1e-30)
+        allowed.append(torch.clamp(step * wf + sub + t, max=cap * float(wf.max())) + 1e-30)
     return tuple(allowed)
 
 
@@ -242,7 +310,8 @@ SCORE_ROUNDING_RULE = ("2^-6 (|s_j| + |m|) of each term of sum_j P_j (v_j - out)
                        "|dS| |K| for dq, |dS|^T |Q| for dk, P^T |dO| for dv, at the scores whose "
                        "bf16 rounding can flip (s within eps = 2 dh 2^-24 scale |q| |k|^T + "
                        "2^-23 (|s| + |bias|) of a rounding boundary, and every score of a row "
-                       "whose max can flip); float32 inputs also 2^-7 of the terms of |dS| |K| "
+                       "whose max can flip); float32 and float16 inputs also 2^-7 of the terms "
+                       "of |dS| |K| "
                        "and |dS|^T |Q| at the dS whose bf16 rounding can flip (P (dP - di) "
                        "within P 2^-16 (|dO| |V|^T + rowsum(|dO| |O|)) + |P (dP - di)| "
                        "2^-24 (2 Lk + 8 + 3 |log P|) of a rounding boundary)")
@@ -324,7 +393,10 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
     product (dS = P (dP - di) moves with P).  Elsewhere both sides round
     alike: a kernel that does not round its scores is not admitted.
 
-    With float32 inputs both sides also round each x = P (dP - di) to bf16
+    With float32 inputs (and float16 ones, whose kernels are the float32
+    twins with float16 loads: the same float32 arithmetic from there, so
+    the rule's float16 form is its float32 one) both sides also round each
+    x = P (dP - di) to bf16
     (the cast's VJP) from float32 values that differ in their last bits:
     dP and di are dh-term sums (each side within dh 2^-24 <= 2^-17 of the
     sum of its terms' magnitudes, as BWD_BF16_RULE's E), and P's relative
@@ -341,7 +413,7 @@ def score_rounding_allowed(q, k, v, bias, causal, scale, out=None, dout=None):
         return torch.matmul(w, v.float().abs()) + w.sum(-1, keepdim=True) * ref
     _, ds = _probs_and_dscores(q, k, v, bias, causal, scale, out, dout, True)
     ads = ds.abs().mul_(share)
-    if q.dtype == torch.float32:
+    if q.dtype != torch.bfloat16:
         near = _dscore_flips(p, v, out, dout)[1]
         ads += torch.where(near, ds.abs() * 2.0 ** -7, torch.zeros_like(ds))
     return (torch.matmul(ads, k.float().abs()),
@@ -365,8 +437,9 @@ def kernel_order_sum(g, dtype):
     inputs of `dtype` takes them, bit for bit: bfloat16 inputs
     (attention_bwd_bs.cu) a lane of a quad its keys 8 j + 2 lane + (0, 1)
     of each 64-key tile, a pair's sum added to the tile's, the tiles' sums
-    in order, then (lane 0 + lane 1) + (lane 2 + lane 3); float32 inputs
-    (flash_attention.cu) a lane its keys lane and lane + 32 of each tile in
+    in order, then (lane 0 + lane 1) + (lane 2 + lane 3); float32 and
+    float16 inputs (flash_attention.cu's FFMA twins) a lane its keys lane
+    and lane + 32 of each tile in
     order, then the warp's butterfly (16, 8, 4, 2, 1) as lane 0 sees it.
     Masked and past-the-end keys are 0 there, as in `g`."""
     n = g.shape[-1]
@@ -402,7 +475,8 @@ def _tie_range(q, k, v, bias, causal, scale, out, dout, xla_order=False):
     float32 and round once, each in an order of its own: the kernel's is
     mirrored bit for bit (`kernel_order_sum`), so where both take the same
     g the range is the two sums.  A g_j that may round apart (every one
-    with bfloat16 inputs, those near a boundary with float32 inputs,
+    with bfloat16 inputs, those near a boundary with float32 and float16
+    inputs,
     `_dscore_flips`: by its x's error e_j and a bf16 step of the larger,
     all of g_j where dP - di cancels), or whose P may move with a flipped
     score (share, as in score_rounding_allowed), moves its row's sum by
@@ -421,7 +495,7 @@ def _tie_range(q, k, v, bias, causal, scale, out, dout, xla_order=False):
     g = x.to(torch.bfloat16).float()
     near |= (x == 0) & (e > 0)  # an exact 0 (dP = di) may come out as a tiny value
     del x
-    if q.dtype != torch.float32:
+    if q.dtype == torch.bfloat16:
         near = torch.ones_like(near)
     ag = g.abs()
     apart = near | (share > 0)
@@ -479,7 +553,9 @@ def tie_allowed(q, k, v, bias, causal, scale, out, dout, t=None, xla_order=False
     m) the ties themselves may differ: there each score that may be tied at
     the max on either side may take or lose a share of dm whole.  Elsewhere
     both sides take the same ties, so a kernel that leaves dm out is not
-    admitted."""
+    admitted.  float16 inputs take the rule as float32 inputs do: their
+    kernels are the FFMA twins (flash_attention.cu, float16 loads), whose
+    row sums `kernel_order_sum` mirrors for every dtype but bfloat16."""
     parts = _tie_range(q, k, v, bias, causal, scale, out, dout, xla_order)
     return _tie_term(parts, t, q, k, scale)
 

@@ -17,7 +17,16 @@ forward and the backward each take the kernel on the card, and on the CPU
 the plain forward and an explicit plain backward (`*_bwd_plain`, the
 backward's own arithmetic, not autograd of the plain forward).
 `fused_adam` updates p, m and v in place on the card (the TPU kernel's
-`input_output_aliases`); its plain version returns new tensors.
+`input_output_aliases`); its plain version returns new tensors.  Given the
+AMP decorator's overflow flag (`found_inf`, one bool on the device), the
+kernel reads it on the device and writes nothing when it is set; on the CPU
+the wrapper returns its inputs' values.
+
+Every kernel takes float32, bfloat16 and float16 tensors, as the JAX
+kernels do (each takes its output dtype from its input): it computes in
+float32 and rounds once to the tensor's dtype, to nearest even, a float16
+past 65504 to +-inf (never clamped: AMP's `isfinite` must see an
+overflow), as the plain versions' `.to(dtype)` does.
 """
 from __future__ import annotations
 
@@ -39,7 +48,23 @@ LAUNCHES: Dict[str, int] = {
     "attention_bwd_dkv_bf16_scores": 0,
 }
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# one rounding of a stored value: (unit roundoff, half the smallest subnormal
+# step) of each dtype the kernels take; float16's subnormals start at 2^-14,
+# bfloat16's where float32's do (below any value the kernels hold to a rule)
+ROUNDING = {torch.float32: (2.0 ** -24, 0.0), torch.bfloat16: (2.0 ** -8, 0.0),
+            torch.float16: (2.0 ** -11, 2.0 ** -25)}
+
+
+def stored_step(dtype, x):
+    """How far apart two roundings to `dtype` of float32 values that differ
+    in their last bits may land, element by element: one step of the dtype,
+    2 u |x| (u the unit roundoff), or, below float16's normal range, one
+    subnormal step 2^-24."""
+    u, sub = ROUNDING[dtype]
+    return 2.0 * u * x.float().abs() + 2.0 * sub
+
+
 _ACT_CODE = {"relu": 0, "gelu": 1}
 LN_BWD_MAX_D = 1024  # the backward kernel holds a row in one warp's registers
 
@@ -67,7 +92,8 @@ def check_operand(name: str, what: str, t: torch.Tensor, dtype=None) -> None:
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name}: {what} is {t.dtype}, expected {dtype}")
     if t.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: {what} dtype {t.dtype} not supported (float32, bfloat16)")
+        raise TypeError(f"{name}: {what} dtype {t.dtype} not supported "
+                        "(float32, bfloat16, float16)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {what} must be contiguous")
 
@@ -94,9 +120,9 @@ def _row_blocks(rows: int, rows_per_block: int, cap: int) -> int:
 
 def ln_residual_plain(x, res, scale, bias, eps=1e-5):
     """paddle_tpu/ops/pallas_kernels.py _ln_reference: LN(x + res) over the
-    last axis, statistics in float32, output in x.dtype."""
-    r = x if res is None else x + res
-    rf = r.float()
+    last axis, the residual added and the statistics taken in float32, as
+    the kernels do, output in x.dtype."""
+    rf = x.float() if res is None else x.float() + res.float()
     mean = rf.mean(-1, keepdim=True)
     var = rf.var(-1, correction=0, keepdim=True)
     y = (rf - mean) * torch.rsqrt(var + eps)
@@ -124,6 +150,33 @@ def ln_residual_bwd_plain(x, res, scale, g, eps=1e-5):
     dx = inv * (gs - m1 - xhat * m2)
     d = x.shape[-1]
     return dx.to(x.dtype), (gf * xhat).reshape(-1, d).sum(0), gf.reshape(-1, d).sum(0)
+
+
+FWD_ROUNDING_RULE = ("one rounding of the output's dtype of |plain| (stored_step) + 2^-20 * the "
+                     "magnitudes of the output's float32 terms")
+
+
+def fwd_allowed(dtype, want, terms):
+    """What a forward's output of `dtype` may differ from the plain one
+    (`want`) by, element by element (FWD_ROUNDING_RULE): both compute in
+    float32 from the same inputs, in other orders or with other libm
+    routines (erf, rsqrt), so a few float32 roundings of the terms that make
+    each element (under 2^-20 of their magnitudes, `terms`; gelu's 1 + erf
+    cancels for z below -3, where that noise is the element's whole
+    magnitude), then round once: at most one step of the dtype apart."""
+    return stored_step(dtype, want) + 2.0 ** -20 * terms + 1e-30
+
+
+def ln_residual_fwd_allowed(x, res, scale, bias, want, eps=1e-5):
+    """fwd_allowed of the LayerNorm forward: the terms are (|r| + |mean|)
+    * rstd * |scale| and |bias|, r = x + res: r - mean carries the float32
+    noise of r and of the mean, not of the difference (where r is near its
+    row's mean, the output is bias plus noise times scale)."""
+    r = x.float() if res is None else x.float() + res.float()
+    mean = r.mean(-1, keepdim=True)
+    inv = torch.rsqrt((r - mean).square().mean(-1, keepdim=True) + eps)
+    terms = (r.abs() + mean.abs()) * inv * scale.float().abs() + bias.float().abs()
+    return fwd_allowed(x.dtype, want, terms)
 
 
 LN_BWD_RULE = "1e-5 * sum|g * xhat| (dscale), 1e-5 * sum|g| (dbias) of the column"
@@ -252,9 +305,9 @@ def bias_act_bwd_plain(x, b, g, act="gelu"):
     return dz.to(x.dtype), dz.sum(0)
 
 
-BIAS_ACT_BWD_RULE = ("dx: one rounding of x's dtype of |plain| + 2^-20 * |g| * the magnitudes "
-                     "of act'(z)'s terms; dbias: 1e-5 * sum|dz| + 2^-20 * sum(|g| * terms) of "
-                     "the column")
+BIAS_ACT_BWD_RULE = ("dx: one rounding of x's dtype of |plain| (stored_step) + 2^-20 * |g| * the "
+                     "magnitudes of act'(z)'s terms; dbias: 1e-5 * sum|dz| + 2^-20 * sum(|g| * "
+                     "terms) of the column")
 
 
 def bias_act_bwd_allowed(x, b, g, act, want):
@@ -264,8 +317,9 @@ def bias_act_bwd_allowed(x, b, g, act, want):
     differ by the float32 noise of act'(z) (erf, exp and the sum of gelu's
     terms 0.5, 0.5*erf and z*phi each carry a few roundings; relu's step
     none), under 2^-20 of the terms' magnitudes times |g|; rounding to x's
-    dtype then adds at most one unit in the last place, 2^-7 of |dx| in
-    bfloat16 (2^-23 in float32).  dbias: float32 column sums of dz taken in
+    dtype then adds at most one unit in the last place (stored_step: 2^-7 of
+    |dx| in bfloat16, 2^-10 in float16 or 2^-24 below its normal range,
+    2^-23 in float32).  dbias: float32 column sums of dz taken in
     another order, 1e-5 of the sum of their magnitudes, plus the sum of dz's
     own noise (where Phi(z) and z*phi(z) cancel, as near z = -0.75, a small
     dz carries the noise of its larger terms; with few rows that noise is
@@ -279,11 +333,16 @@ def bias_act_bwd_allowed(x, b, g, act, want):
     else:
         phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
         terms = 0.5 * (1.0 + torch.erf(z * 2.0 ** -0.5).abs()) + (z * phi).abs()
-    ulp = 2.0 ** -23 if x.dtype == torch.float32 else 2.0 ** -7
     noise = 2.0 ** -20 * gf.abs() * terms
     dz = gf * _act_grad(z, act)
-    return (ulp * want[0].float().abs() + noise + 1e-30,
+    return (stored_step(x.dtype, want[0]) + noise + 1e-30,
             1e-5 * dz.abs().sum(0) + noise.sum(0) + 1e-30)
+
+
+def bias_act_fwd_allowed(x, b, want):
+    """fwd_allowed of the bias+activation forward: the term is |x + b|
+    (gelu's 0.5 z (1 + erf(z / sqrt 2)), or relu's z)."""
+    return fwd_allowed(x.dtype, want, (x.float() + b.float()).abs())
 
 
 def _bias_act_fwd(x, bias, act):
@@ -367,6 +426,13 @@ def bn_epilogue_plain(x, mul, add, relu=True):
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
+
+
+def bn_epilogue_fwd_allowed(x, mul, add, want):
+    """fwd_allowed of the BN epilogue forward over x:[R, W]: the terms are
+    |x * mul| and |add|."""
+    return fwd_allowed(x.dtype, want, (x.float() * mul.float()[:, None]).abs()
+                       + add.float().abs()[:, None])
 
 
 def bn_epilogue_bwd_plain(x, mul, add, g, relu=True):
@@ -580,15 +646,22 @@ def adam_plain(p, g, m, v, lr_t, beta1, beta2, eps):
     return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
 
-def fused_adam(p, g, m, v, lr_t, beta1, beta2, eps):
+def fused_adam(p, g, m, v, lr_t, beta1, beta2, eps, found_inf=None):
     """One Adam step over a parameter of any shape and size; lr_t is a
     float32 tensor of one element, read by the kernel on the device.
+    found_inf (AMP's overflow flag, one bool, or None) skips the step when
+    set: the kernel reads it on the device and writes nothing, and is
+    launched (and counted) whatever it says, as a graph's replay launches it.
 
     On the card p, m and v are updated in place and returned; on the CPU
-    the plain version returns new tensors."""
+    the plain version returns new tensors, the inputs' values where
+    found_inf is set (a device select, no host read)."""
     name = "fused_adam"
-    if not on_card(name, p, g, m, v, lr_t):
-        return adam_plain(p, g, m, v, lr_t.reshape(()).float(), beta1, beta2, eps)
+    if not on_card(name, p, g, m, v, lr_t, found_inf):
+        new = adam_plain(p, g, m, v, lr_t.reshape(()).float(), beta1, beta2, eps)
+        if found_inf is None:
+            return new
+        return tuple(torch.where(found_inf.reshape(()), old, n) for old, n in zip((p, m, v), new))
     check_operand(name, "p", p)
     check_operand(name, "g", g)
     check_operand(name, "m", m)
@@ -597,8 +670,12 @@ def fused_adam(p, g, m, v, lr_t, beta1, beta2, eps):
         raise ValueError(f"{name}: p, g, m and v must share a shape")
     if lr_t.numel() != 1 or lr_t.dtype != torch.float32:
         raise ValueError(f"{name}: lr_t must be one float32")
+    if found_inf is not None and (found_inf.numel() != 1 or found_inf.dtype != torch.bool):
+        raise ValueError(f"{name}: found_inf must be one bool")
     _build.call("ptt_adam", p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                lr_t.contiguous().data_ptr(), p.numel(), float(beta1), float(beta2), float(eps),
+                lr_t.contiguous().data_ptr(),
+                None if found_inf is None else found_inf.contiguous().data_ptr(), p.numel(),
+                float(beta1), float(beta2), float(eps),
                 _DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype], _DTYPE_CODE[m.dtype], stream_ptr(p))
     LAUNCHES["adam"] += 1
     return p, m, v

@@ -81,6 +81,12 @@ def _add(op, ins):
 
 def _binary(fn):
     def lower(ctx, op, ins):
+        x, y = first(ins, "X"), first(ins, "Y")
+        if isinstance(x, SelectedRows) and y.numel() == 1:
+            # SelectedRows op scalar (AMP's gradient unscale, clip-by-value):
+            # the value slab, the rows kept, as the JAX package's _ew
+            yv = y.reshape(()).to(x.values.dtype)
+            return {"Out": SelectedRows(x.rows, fn(x.values, yv), x.height)}
         return {"Out": fn(*_operands(op, ins))}
 
     return lower

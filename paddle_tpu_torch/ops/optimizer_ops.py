@@ -3,7 +3,8 @@ and of `decayed_adagrad` in paddle_tpu/ops/tail_ops.py): `sgd`, `momentum`,
 `adam` and `adagrad`, each with its SelectedRows branch; the dense-only
 `rmsprop`, `adamax`, `adadelta`, `lamb`, `ftrl`, `lars_momentum`, `dpsgd`,
 `proximal_gd`, `proximal_adagrad` and `decayed_adagrad`; ModelAverage's
-`model_average_accum` / `_count` and DGCMomentum's `dgc` transform.
+`model_average_accum` / `_count`, DGCMomentum's `dgc` transform, and
+contrib/mixed_precision's `update_loss_scaling`.
 
 Each update writes its `<Slot>Out` outputs in the dtype of `<Slot>`, as the
 JAX package's register_opt does.  The bias-corrected step size and the
@@ -15,7 +16,12 @@ repeated rows (`merged()`, in a fixed order), then only those rows of the
 parameter and its accumulators are read and written: untouched rows keep
 their values exactly.  Adam densifies it by default and takes the dense
 update (the fused Adam kernel on the card); under `lazy_mode` it updates the
-touched rows only.  An update op without a sparse branch refuses it."""
+touched rows only.  An update op without a sparse branch refuses it.
+
+A wired `FoundInf` (contrib/mixed_precision's overflow flag) skips the
+step as the JAX package does: every `<Slot>Out` keeps `<Slot>`'s value bit
+for bit, by a select on the device.  `update_loss_scaling` is the decorator's
+dynamic loss-scaling state machine, all of it device selects."""
 from __future__ import annotations
 
 import torch
@@ -28,12 +34,24 @@ from .cuda_kernels import fused_adam
 _SPARSE_CAPABLE = {"sgd", "momentum", "adam", "adagrad"}
 
 
+def _found_inf(ins):
+    """The AMP decorator's overflow flag as a 0-d bool on the device, or None."""
+    fi = first(ins, "FoundInf") if ins.get("FoundInf") else None
+    return None if fi is None else fi.reshape(()).to(torch.bool)
+
+
 def register_opt(type: str):
     """register_op + the JAX package's register_opt contract: a SelectedRows
     gradient reaches only the sparse-capable updates, each `<Slot>Out` takes
-    `<Slot>`'s dtype.  A wired `FoundInf` (the AMP decorator's overflow
-    flag) raises: the port has no AMP ops yet, and an update that ignored it
-    would apply an overflowed step."""
+    `<Slot>`'s dtype, and with a wired `FoundInf` (the AMP decorator's
+    overflow flag) each `<Slot>Out` whose `<Slot>` is an input becomes
+    where(found_inf, <Slot>, new): an overflowed step leaves every state
+    buffer, the beta powers included, bit for bit as it was.  An output that
+    is its input tensor itself was written in place by a kernel (the dense
+    Adam's), which must read the flag on the device and skip the write: a
+    select there would pick between two names of the updated tensor.  The
+    flag stays on the device (no host read), so the step can be captured in
+    a CUDA graph."""
 
     def deco(fn):
         def wrapped(ctx, op, ins):
@@ -42,15 +60,16 @@ def register_opt(type: str):
                 raise NotImplementedError(
                     f"{type}: no SelectedRows (sparse) update; use sgd/momentum/adagrad/adam "
                     "for is_sparse embeddings, or set is_sparse=False")
-            if op.input("FoundInf"):
-                raise NotImplementedError(
-                    f"{type}: the FoundInf input (AMP's skip-on-overflow) is not ported yet; "
-                    "the AMP ops that set it come with contrib/mixed_precision (ROADMAP A9)")
             outs = fn(ctx, op, ins)
+            skip = _found_inf(ins)
             for k, v in outs.items():
-                src = first(ins, k[:-3]) if k.endswith("Out") else None
-                if isinstance(src, torch.Tensor) and v.dtype != src.dtype:
-                    outs[k] = v.to(src.dtype)
+                src = first(ins, k[:-3]) if k.endswith("Out") and ins.get(k[:-3]) else None
+                if isinstance(src, torch.Tensor):
+                    if v.dtype != src.dtype:
+                        v = v.to(src.dtype)
+                    if skip is not None and v is not src:
+                        v = torch.where(skip, src, v)
+                    outs[k] = v
             return outs
 
         register_op(type)(wrapped)
@@ -112,7 +131,9 @@ def _adam(ctx, op, ins):
     Param, Moment1 and Moment2 in place on the card (their outputs name the
     same vars); the CPU takes the plain version.  A SelectedRows gradient is
     densified first, save under lazy_mode: then the touched rows alone
-    move, in plain torch, while the beta powers advance for every row."""
+    move, in plain torch, while the beta powers advance for every row.
+    A wired FoundInf goes to the kernel, which writes in place; the other
+    outputs take register_opt's select."""
     p = first(ins, "Param")
     g = first(ins, "Grad")
     m1 = first(ins, "Moment1")
@@ -133,7 +154,8 @@ def _adam(ctx, op, ins):
                 "Moment1Out": _set_rows(m1, m, m1r), "Moment2Out": _set_rows(m2, m, m2r), **pows}
     if isinstance(g, SelectedRows):
         g = g.to_dense()
-    p_new, m1n, m2n = fused_adam(p, g.contiguous(), m1, m2, lr_t, beta1, beta2, eps)
+    p_new, m1n, m2n = fused_adam(p, g.contiguous(), m1, m2, lr_t, beta1, beta2, eps,
+                                 _found_inf(ins))
     return {"ParamOut": p_new, "Moment1Out": m1n, "Moment2Out": m2n, **pows}
 
 
@@ -264,6 +286,33 @@ def _ftrl(ctx, op, ins):
     pre = torch.clamp(new_lin, -l1, l1) - new_lin
     p_new = torch.where(torch.abs(new_lin) > l1, pre / quad, torch.zeros_like(p))
     return {"ParamOut": p_new, "SquaredAccumOut": new_sq, "LinearAccumOut": new_lin}
+
+
+@register_op("update_loss_scaling")
+def _update_loss_scaling(ctx, op, ins):
+    """The dynamic loss-scaling state machine of contrib/mixed_precision
+    (paddle_tpu/ops/optimizer_ops.py _update_loss_scaling): after
+    incr_every_n_steps finite steps in a row the scale grows by incr_ratio,
+    unless the product is not finite (then it stays); after
+    decr_every_n_nan_or_inf overflow steps it shrinks by decr_ratio, never
+    below 1.0.  GoodSteps and BadSteps keep their dtype and shape [1].
+    Device selects only: nothing is read on the host."""
+    fi = first(ins, "FoundInf").reshape(()).to(torch.bool)
+    s = first(ins, "LossScaling").reshape(())
+    good = first(ins, "GoodSteps").reshape(())
+    bad = first(ins, "BadSteps").reshape(())
+    zero = torch.zeros_like(good)
+    good_new = torch.where(fi, zero, good + 1)
+    bad_new = torch.where(fi, bad + 1, zero)
+    do_incr = good_new >= op.attr("incr_every_n_steps", 1000)
+    do_decr = bad_new >= op.attr("decr_every_n_nan_or_inf", 2)
+    grown = s * op.attr("incr_ratio", 2.0)
+    s_new = torch.where(do_incr & torch.isfinite(grown), grown, s)
+    s_new = torch.where(do_decr, torch.clamp_min(s * op.attr("decr_ratio", 0.5), 1.0), s_new)
+    good_new = torch.where(do_incr, zero, good_new)
+    bad_new = torch.where(do_decr, zero, bad_new)
+    return {"LossScalingOut": s_new.reshape(1), "GoodStepsOut": good_new.reshape(1),
+            "BadStepsOut": bad_new.reshape(1)}
 
 
 @register_opt("lars_momentum")

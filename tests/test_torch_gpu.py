@@ -45,7 +45,7 @@ def exact_card_math():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_kernels_match_plain_on_card(dtype):
     _need_card()
     dt = getattr(torch, dtype)
@@ -57,13 +57,22 @@ def test_kernels_match_plain_on_card(dtype):
     tol = 2e-5 if dtype == "float32" else 5e-2
     before = dict(ck.LAUNCHES)
     out = ck.fused_ln_residual(x, r, s, b, 1e-5)
-    assert (out.float() - ck.ln_residual_plain(x, r, s, b).float()).abs().max() <= tol
+    want = ck.ln_residual_plain(x, r, s, b)
+    if dtype == "float16":  # element by element (FWD_ROUNDING_RULE)
+        tol = ck.ln_residual_fwd_allowed(x, r, s, b, want)
+    assert ((out.float() - want.float()).abs() <= tol).all()
     out = ck.fused_bias_act(x, b, "gelu")
-    assert (out.float() - ck.bias_act_plain(x, b).float()).abs().max() <= tol
+    want = ck.bias_act_plain(x, b)
+    if dtype == "float16":
+        tol = ck.bias_act_fwd_allowed(x, b, want)
+    assert ((out.float() - want.float()).abs() <= tol).all()
     q = torch.randn(2, 12, 128, 64, generator=g, device="cuda").to(dt)
     out = ca.fused_sdpa(q, q, q, None, True, 0.125)
-    tol = 1e-4 if dtype == "float32" else 5e-2
-    assert (out.float() - ca.sdpa_plain(q, q, q, None, True, 0.125).float()).abs().max() <= tol
+    want = ca.sdpa_plain(q, q, q, None, True, 0.125)
+    tol = {"float32": 1e-4, "bfloat16": 5e-2}.get(dtype)
+    if tol is None:  # float16: FWD_F16_RULE
+        tol = ca.sdpa_fwd_bf16_allowed(q, q, q, None, True, 0.125, want)
+    assert ((out.float() - want.float()).abs() <= tol).all()
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
         NO_LAUNCHES, ln_residual_fwd=1, bias_act_fwd=1, attention_fwd=1)
 
@@ -74,8 +83,8 @@ def test_kernel_wrappers_check_their_operands_on_card():
     x = torch.zeros(8, 16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         ck.fused_bias_act(x.t(), torch.zeros(8, device="cuda"), "gelu")
-    with pytest.raises(TypeError, match="not supported"):
-        ck.fused_bias_act(x.half(), torch.zeros(16, device="cuda"), "gelu")
+    with pytest.raises(TypeError, match="not supported"):  # float64: no kernel takes it
+        ck.fused_bias_act(x.double(), torch.zeros(16, device="cuda"), "gelu")
     q = torch.zeros(1, 1, 4, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         ca.fused_sdpa(q, q, q, None, False, 1.0)
@@ -131,12 +140,14 @@ def _err(a, b):
 
 
 def _grad_tol(dtype, ref):
+    """1e-4 * (1 + max|ref|) in float32; 5e-2 of max|ref| in bfloat16, and
+    the same 12.8 steps of float16's, 6.25e-3, in float16."""
     peak = float(ref.float().abs().max())
-    return 1e-4 * (1.0 + peak) if dtype == "float32" else 5e-2 * peak
+    return {"float32": 1e-4 * (1.0 + peak), "bfloat16": 5e-2 * peak}.get(dtype, 6.25e-3 * peak)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_training_kernels_match_plain_on_card(dtype):
     """The five training kernels against their plain versions, ragged rows
     and an odd Adam size included, and their backward reductions repeat
@@ -184,8 +195,11 @@ def test_training_kernels_match_plain_on_card(dtype):
         assert _err(loss, loss_p) <= 2e-5  # float32 on both sides
         dx = ck.softmax_xent_bwd(x, labels, lse_p, gl)
         dx_p = ck.softmax_xent_bwd_plain(x, labels, lse_p, gl)
-        rel = 1e-6 if dtype == "float32" else 2.0 ** -7
-        assert ((dx.float() - dx_p.float()).abs() <= rel * dx_p.float().abs() + 1e-12).all()
+        if dtype == "float32":
+            allowed = 1e-6 * dx_p.float().abs() + 1e-12
+        else:  # one rounding of the logits' dtype
+            allowed = ck.stored_step(dt, dx_p) + 1e-12
+        assert ((dx.float() - dx_p.float()).abs() <= allowed).all()
         assert not dx[::3].any()
     # g^2 of v's order: one step moves p, m and v by ~1e3 times the allowance,
     # 2^-20 of the magnitudes of each output's terms (+ a bf16 rounding of p)
@@ -200,8 +214,7 @@ def test_training_kernels_match_plain_on_card(dtype):
     got = ck.fused_adam(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8)
     assert got[0] is p  # updated in place
     for a, w, t in zip(got, want, terms):
-        ulp = 0.0 if w.dtype == torch.float32 else 2.0 ** -7
-        assert ((a.float() - w.float()).abs() <= 2.0 ** -20 * t + ulp * w.float().abs()
+        assert ((a.float() - w.float()).abs() <= 2.0 ** -20 * t + ck.stored_step(w.dtype, w)
                 + 1e-30).all()
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(
         NO_LAUNCHES, ln_residual_bwd=2, bias_act_bwd=2, softmax_xent_fwd=2, softmax_xent_bwd=2,
@@ -212,7 +225,7 @@ ROW_COUNTS = [1, 3, 301, 4095, 16384]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d", [768, 1000, 1024, 3072])
 @pytest.mark.parametrize("rows", ROW_COUNTS)
 def test_bias_act_backward_kernel_at_its_edges_on_card(rows, d, dtype):
@@ -246,7 +259,7 @@ def test_bias_act_backward_kernel_at_its_edges_on_card(rows, d, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("d", [768, 1000, 1024, 2048, 3072, 4096])
 @pytest.mark.parametrize("rows", ROW_COUNTS)
 def test_ln_forward_kernel_at_its_edges_on_card(rows, d, dtype):
@@ -282,13 +295,16 @@ def test_ln_forward_kernel_at_its_edges_on_card(rows, d, dtype):
             assert got.dtype == dt and got.shape == want.shape
             if dtype == "float32":
                 assert _err(got, want) <= 2e-5, r is None
+            elif dtype == "float16":  # FWD_ROUNDING_RULE, element by element
+                allowed = ck.ln_residual_fwd_allowed(xs, r, scale, bias, want)
+                assert ((got.float() - want.float()).abs() <= allowed).all(), r is None
             else:
                 allowed = 2.0 ** -7 * want.float().abs() + 1e-4
                 assert ((got.float() - want.float()).abs() <= allowed).all(), r is None
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
 @pytest.mark.parametrize("rows,w", [(2 * 64, 12544), (3 * 2048 + 1, 49), (5, 7)])
 def test_bn_epilogue_kernels_match_plain_on_card(rows, w, relu, dtype):
@@ -306,17 +322,22 @@ def test_bn_epilogue_kernels_match_plain_on_card(rows, w, relu, dtype):
     gy = torch.randn(rows, w, generator=g, device="cuda").to(dt)
     mul = torch.rand(rows, generator=g, device="cuda") + 0.5
     add = torch.randn(rows, generator=g, device="cuda") * 0.1
-    tol = 2e-5 if dtype == "float32" else 2e-2
     before = dict(ck.LAUNCHES)
-    assert _err(ck._epilogue_fwd(x, mul, add, relu), ck.bn_epilogue_plain(x, mul, add, relu)) <= tol
     off = torch.randn(rows * w + 1, generator=g, device="cuda").to(dt)[1:].view(rows, w)
-    assert _err(ck._epilogue_fwd(off, mul, add, relu),
-                ck.bn_epilogue_plain(off, mul, add, relu)) <= tol
+    for xs in (x, off):
+        want = ck.bn_epilogue_plain(xs, mul, add, relu)
+        tol = {"float32": 2e-5, "bfloat16": 2e-2}.get(dtype)
+        if tol is None:  # float16: FWD_ROUNDING_RULE, element by element
+            tol = ck.bn_epilogue_fwd_allowed(xs, mul, add, want)
+        assert ((ck._epilogue_fwd(xs, mul, add, relu).float() - want.float()).abs() <= tol).all()
     got = ck.bn_epilogue_bwd(x, mul, add, gy, relu)
     want = ck.bn_epilogue_bwd_plain(x, mul, add, gy, relu)
     gf = gy.float()
-    ulp = 2.0 ** -23 if dtype == "float32" else 2.0 ** -8
-    allowed = (ulp * want[0].float().abs() + 1e-30, 1e-5 * (gf * x.float()).abs().sum(-1) + 1e-30,
+    ulp = {"float32": 2.0 ** -23 * want[0].float().abs(),
+           "bfloat16": 2.0 ** -8 * want[0].float().abs()}.get(dtype)
+    if ulp is None:
+        ulp = ck.stored_step(dt, want[0])
+    allowed = (ulp + 1e-30, 1e-5 * (gf * x.float()).abs().sum(-1) + 1e-30,
                1e-5 * gf.abs().sum(-1) + 1e-30)
     for a, b, t in zip(got, want, allowed):
         assert ((a.float() - b.float()).abs() <= t).all()
@@ -335,8 +356,8 @@ def test_bn_epilogue_checks_its_operands_on_card():
         ck.fused_scale_shift_relu(x, v.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="contiguous"):
         ck.fused_scale_shift_relu(x.t().contiguous().t(), v, v)
-    with pytest.raises(TypeError, match="not supported"):
-        ck.fused_scale_shift_relu(x.half(), v, v)
+    with pytest.raises(TypeError, match="not supported"):  # float64: no kernel takes it
+        ck.fused_scale_shift_relu(x.double(), v, v)
     # a CUDA input that requires grad is fine: the backward is a kernel too
     xg = torch.randn(2, 3, 4, 4, device="cuda", requires_grad=True)
     m = torch.ones(3, device="cuda", requires_grad=True)
@@ -464,7 +485,7 @@ EDGE_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_attention_backward_kernels_at_their_edges_on_card(case, dtype):
     """dq against sdpa_bwd_dq_plain and dk, dv against sdpa_bwd_dkv_plain, on
@@ -502,7 +523,7 @@ def test_attention_backward_kernels_at_their_edges_on_card(case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_attention_forward_kernel_at_its_edges_on_card(case, dtype):
     """out against sdpa_plain: float32 within 1e-4, bfloat16 element by
@@ -582,7 +603,7 @@ def _xent_labels(kind, rows, v, g):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", ["mixed", "all_ignored"])
 @pytest.mark.parametrize("rows,v", XENT_SHAPES, ids=lambda s: str(s))
 def test_xent_forward_kernel_at_its_edges_on_card(rows, v, kind, dtype):
@@ -1131,7 +1152,7 @@ BF16_EDGE_CASES = EDGE_CASES + [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_bf16_score_attention_kernels_at_their_edges_on_card(case, dtype):
     """The bf16-score variants (score_bf16=True) against the plain versions
@@ -1213,3 +1234,109 @@ def test_tiny_ssd_and_yolov3_train_graphed_on_card(exact_card_math):
             assert delta == want, (step, delta)
             assert np.isfinite(loss).all() and det.shape[0] == 2 and det.shape[2] == 6
         assert exe.last_plan.graphed and exe.last_plan.graph_refusal is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_adam_kernel_applies_found_inf_on_card(dtype):
+    """The in-place Adam kernel with AMP's overflow flag (one bool on the
+    device): set, p, m and v keep their bits and the launch still counts;
+    clear, the step of adam_plain (2^-20 of each output's terms, one
+    rounding of p's dtype); an odd size and a view off the 16-byte grid
+    (the scalar path); and captured in a CUDA graph, whose replays read the
+    flag on the device: a replay with it set moves nothing, one with it
+    clear takes the step."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    base = (torch.randn(1002, generator=g, device="cuda") * 0.02).to(dt)
+    lr_t = torch.full((1,), 1e-3, device="cuda")
+    for p0 in (base[:1001], base[1:]):
+        gr = (torch.randn(1001, generator=g, device="cuda") * 0.01).to(dt)
+        m0 = torch.randn(1001, generator=g, device="cuda") * 0.01
+        v0 = (0.5 + torch.rand(1001, generator=g, device="cuda")) * 1e-4
+        for flag in (True, False):
+            p, m, v = p0.clone(), m0.clone(), v0.clone()
+            found = torch.tensor([flag], device="cuda")
+            before = dict(ck.LAUNCHES)
+            got = ck.fused_adam(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8, found)
+            assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(NO_LAUNCHES, adam=1)
+            assert got[0] is p
+            want = ((p0, m0, v0) if flag
+                    else ck.adam_plain(p0, gr, m0, v0, lr_t, 0.9, 0.999, 1e-8))
+            if flag:
+                for a, b in zip((p, m, v), (p0, m0, v0)):
+                    assert torch.equal(a, b)
+            # 2^-20 of the magnitudes of each output's terms, plus one
+            # rounding of its stored dtype (test_training_kernels' rule)
+            gf = gr.float()
+            terms_m = 0.9 * m0.abs() + 0.1 * gf.abs()
+            terms = (p0.float().abs() + lr_t * terms_m / (want[2].float().sqrt() + 1e-8),
+                     terms_m, 0.999 * v0 + 0.001 * gf * gf)
+            for a, w, t in zip(got, want, terms):
+                assert ((a.float() - w.float()).abs()
+                        <= 2.0 ** -20 * t + ck.stored_step(w.dtype, w) + 1e-30).all()
+    p, m, v = p0.clone(), m0.clone(), v0.clone()
+    found = torch.tensor([True], device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        ck.fused_adam(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8, found)  # warm, skipped
+        with torch.cuda.graph(graph, stream=stream):
+            ck.fused_adam(p, gr, m, v, lr_t, 0.9, 0.999, 1e-8, found)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0) and torch.equal(m, m0) and torch.equal(v, v0)
+    found.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(p, p0) and not torch.equal(m, m0)
+
+
+@pytest.mark.gpu
+def test_float16_overflow_is_inf_where_the_plain_version_has_it_on_card():
+    """float16 outputs past 65504 from finite inputs: the LayerNorm forward
+    (a float32 scale of 3e4), bias+GELU (a float32 bias of 6.5e4), the BN
+    epilogue (multipliers of 4e4) and the cross-entropy backward (an upstream
+    of 2^32 / 8, AMP's overflow): +-inf at the plain version's elements with
+    its signs, the finite elements within one rounding (FWD_ROUNDING_RULE;
+    the backward's, one float16 step); never clamped to 65504."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    h = torch.float16
+
+    def rn(*shape, s=1.0, d=h):
+        return (torch.randn(*shape, generator=g, device="cuda") * s).to(d)
+
+    def hold(got, want, allowed):
+        # +-inf where the plain version has it, save a few elements where
+        # the other side is +-65504 (the float32 value within its noise of
+        # the threshold 65520: one step apart; chip_smoke's hold_overflow)
+        inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+        assert got.dtype == h and bool(inf_w.any())
+        both, apart = inf_g & inf_w, inf_g ^ inf_w
+        assert torch.equal(got[both], want[both])
+        edge = torch.where(inf_g, want, got)[apart].float()
+        assert int(apart.sum()) <= 2 and bool((edge.abs() == 65504.0).all())
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        assert ((got.float() - want.float()).abs()[fin] <= allowed[fin]).all()
+
+    x, r = rn(301, 768), rn(301, 768)
+    s, b = rn(768, s=3e4, d=torch.float32).abs() + 3e4, rn(768, d=torch.float32)
+    want = ck.ln_residual_plain(x, r, s, b)
+    hold(ck.fused_ln_residual(x, r, s, b, 1e-5), want, ck.ln_residual_fwd_allowed(x, r, s, b, want))
+    x, b = rn(301, 1000, s=1e3), rn(1000, d=torch.float32) + 6.5e4
+    want = ck.bias_act_plain(x, b)
+    hold(ck.fused_bias_act(x, b, "gelu"), want, ck.bias_act_fwd_allowed(x, b, want))
+    x = rn(64, 49)
+    mul, add = torch.full((64,), 4e4, device="cuda"), torch.zeros(64, device="cuda")
+    want = ck.bn_epilogue_plain(x, mul, add, False)
+    hold(ck._epilogue_fwd(x, mul, add, False), want, ck.bn_epilogue_fwd_allowed(x, mul, add, want))
+    logits = rn(8, 1001, s=2.0)
+    labels = torch.randint(0, 1001, (8,), generator=g, device="cuda").to(torch.int32)
+    _, lse = ck.softmax_xent_fwd_plain(logits, labels)
+    up = torch.full((8,), 2.0 ** 32 / 8, device="cuda")
+    want = ck.softmax_xent_bwd_plain(logits, labels, lse, up)
+    hold(ck.softmax_xent_bwd(logits, labels, lse, up), want, ck.stored_step(h, want) + 1e-12)

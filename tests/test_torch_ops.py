@@ -838,6 +838,41 @@ GRAD_CASES += [("lookup_v2", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS},
                ("lookup_v2_sparse", "lookup_table_v2", {"W": _V2_W, "Ids": _V2_IDS},
                 {"is_sparse": True}, ["Out"], ["W"])]
 
+# contrib/mixed_precision: update_loss_scaling's state machine (growth after
+# incr_every_n_steps finite steps, growth to inf keeping the old scale, decay
+# floored at 1.0, the int32 counters), and the update ops with FoundInf wired
+# (set: every output state is its input; clear: the step)
+_ULS = {"incr_every_n_steps": 1000, "decr_every_n_nan_or_inf": 2, "incr_ratio": 2.0,
+        "decr_ratio": 0.5, "out_dtypes": {"GoodStepsOut": "int32", "BadStepsOut": "int32"}}
+_ULS_OUT = ["LossScalingOut", "GoodStepsOut", "BadStepsOut"]
+
+
+def _uls(found, scale, good, bad):
+    return {"FoundInf": np.array([found]), "LossScaling": np.array([scale], np.float32),
+            "GoodSteps": np.array([good], np.int32), "BadSteps": np.array([bad], np.int32)}
+
+
+_ADAM_IN = dict(CASES[[c[0] for c in CASES].index("adam")][2])
+CASES += [
+    ("uls_finite_step", "update_loss_scaling", _uls(False, 32768.0, 3, 1), _ULS, _ULS_OUT, 0.0),
+    ("uls_growth", "update_loss_scaling", _uls(False, 32768.0, 999, 0), _ULS, _ULS_OUT, 0.0),
+    ("uls_growth_to_inf_keeps_scale", "update_loss_scaling", _uls(False, 3e38, 999, 0), _ULS,
+     _ULS_OUT, 0.0),
+    ("uls_first_overflow", "update_loss_scaling", _uls(True, 32768.0, 5, 0), _ULS, _ULS_OUT, 0.0),
+    ("uls_decay", "update_loss_scaling", _uls(True, 32768.0, 0, 1), _ULS, _ULS_OUT, 0.0),
+    ("uls_decay_floored", "update_loss_scaling", _uls(True, 1.5, 0, 1), _ULS, _ULS_OUT, 0.0),
+    ("adam_found_inf_set", "adam", dict(_ADAM_IN, FoundInf=np.array([True])),
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+     ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"], 0.0),
+    ("adam_found_inf_clear", "adam", dict(_ADAM_IN, FoundInf=np.array([False])),
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+     ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut", "Beta2PowOut"], 1e-6),
+    ("momentum_found_inf_set", "momentum",
+     {"Param": F32(4, 6), "Grad": F32(4, 6), "Velocity": F32(4, 6),
+      "LearningRate": np.array([0.1], np.float32), "FoundInf": np.array([True])}, {"mu": 0.9},
+     ["ParamOut", "VelocityOut"], 0.0),
+]
+
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):

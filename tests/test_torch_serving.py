@@ -256,28 +256,40 @@ def test_training_builders_emit_the_same_ops(dtype):
 
 
 def test_training_program_is_refused():
-    """A training program the port cannot run yet is refused, naming what is
-    missing: an update op that carries the AMP decorator's FoundInf (ROADMAP
-    A9).  The is_sparse embedding that was refused here before trains since
-    ROADMAP A5 (tests/test_torch_sparse.py): its gradient is a SelectedRows."""
-    main, startup = TProgram(), TProgram()
-    with t_unique.guard(), tfluid.program_guard(main, startup):
-        ids = tfluid.layers.data("ids", [4], dtype="int64")
-        emb = tfluid.layers.embedding(ids, [10, 3], is_sparse=True)
-        loss = tfluid.layers.mean(emb)
-        tfluid.optimizer.Adam(0.1).minimize(loss)
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    scope = tfluid.Scope()
-    exe.run(startup, scope=scope)
+    """A training program the port cannot run is refused, naming what is
+    missing: an is_sparse embedding's SelectedRows gradient into an update
+    without a sparse branch (RMSProp), as the JAX package's register_opt
+    refuses it.  Under Adam the same embedding trains (ROADMAP A5,
+    tests/test_torch_sparse.py): its gradient is a SelectedRows; and the AMP
+    decorator's FoundInf, refused here until contrib.mixed_precision was
+    ported (ROADMAP A9.1), is applied: a step with it set keeps the state."""
+    def build(make_opt):
+        main, startup = TProgram(), TProgram()
+        with t_unique.guard(), tfluid.program_guard(main, startup):
+            ids = tfluid.layers.data("ids", [4], dtype="int64")
+            emb = tfluid.layers.embedding(ids, [10, 3], is_sparse=True)
+            loss = tfluid.layers.mean(emb)
+            make_opt().minimize(loss)
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        scope = tfluid.Scope()
+        exe.run(startup, scope=scope)
+        return main, loss, exe, scope
+
     feed = {"ids": np.zeros((2, 4), np.int64)}
+    main, loss, exe, scope = build(lambda: tfluid.optimizer.Adam(0.1))
     grad = next(n for n in main.global_block().ops[-1].input("Grad"))
     (sr,) = exe.run(main, feed=feed, fetch_list=[grad], scope=scope, return_numpy=False)
     assert type(sr).__name__ == "SelectedRows" and tuple(sr.values.shape) == (8, 3)
     main.global_block().create_var("found_inf", shape=(1,), dtype="bool", is_data=True)
     main.global_block().ops[-1].inputs["FoundInf"] = ["found_inf"]
-    with pytest.raises(NotImplementedError, match="FoundInf"):
-        exe.run(main, feed=dict(feed, found_inf=np.array([False])), fetch_list=[loss],
-                scope=scope)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    before = {n: scope.to_numpy(n).copy() for n in names}
+    exe.run(main, feed=dict(feed, found_inf=np.array([True])), fetch_list=[loss], scope=scope)
+    for n in names:
+        np.testing.assert_array_equal(scope.to_numpy(n), before[n], err_msg=n)
+    main, loss, exe, scope = build(lambda: tfluid.optimizer.RMSProp(0.1))
+    with pytest.raises(NotImplementedError, match="SelectedRows"):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 
 
 def test_host_arrays_in_scope_are_moved_to_the_place():

@@ -227,21 +227,99 @@ def test_sparse_gradient_into_a_dense_only_update_raises():
         registry._REGISTRY.pop(name)
 
 
-@pytest.mark.parametrize("opt_name", OPTS)
-def test_update_ops_refuse_found_inf(opt_name):
-    """AMP's FoundInf is not ported: an update op that carries it raises
-    and names it, where ignoring it would apply an overflowed step."""
-    tm, _, tl, _ = _embedding_model("torch", False, opt_name)
-    block = tm.global_block()
+def _wire_found_inf(main, op_types):
+    """A fed bool [1] `found_inf` wired as FoundInf into every op of
+    `op_types`, as contrib/mixed_precision's decorator wires its flag."""
+    block = main.global_block()
     block.create_var("found_inf", shape=(1,), dtype="bool", is_data=True)
+    wired = 0
     for op in block.ops:
-        if op.type == opt_name:
+        if op.type in op_types:
             op.inputs["FoundInf"] = ["found_inf"]
-    _, _, state = _jax_start(*_embedding_model("jax", False, opt_name)[:2])
+            wired += 1
+    assert wired
+    return main
+
+
+@pytest.mark.parametrize("opt_name", OPTS)
+def test_update_ops_apply_found_inf(opt_name):
+    """AMP's FoundInf (contrib/mixed_precision) as the JAX package applies
+    it: on a step with the flag set every output state (parameters,
+    accumulators, beta powers) is bit for bit the input's, dense and
+    SelectedRows gradients alike (the sparse branch of each update; Adam's
+    lazy one, and the densifying one through the in-place kernel's plain
+    version); with it clear the step is the JAX package's (TOL).  The flag
+    is a device tensor: no host read."""
+    for is_sparse, lazy in ((False, False), (True, False), (True, True)):
+        if lazy and opt_name != "adam":
+            continue
+        models = {pkg: _wire_found_inf(_embedding_model(pkg, is_sparse, opt_name, lazy)[0],
+                                       {opt_name})
+                  for pkg in ("jax", "torch")}
+        _, js, jl, _ = _embedding_model("jax", is_sparse, opt_name, lazy)
+        _, _, tl, _ = _embedding_model("torch", is_sparse, opt_name, lazy)
+        jexe, jscope, state = _jax_start(models["jax"], js)
+        texe, tscope = _torch_start(state)
+        names = _persistables(models["jax"])
+        feeds = _feeds(steps=3)
+        for step, (feed, skip) in enumerate(zip(feeds, (True, False, True))):
+            before = {n: tscope.to_numpy(n).copy() for n in names}
+            f = dict(feed, found_inf=np.array([skip]))
+            jexe.run(models["jax"], feed=f, fetch_list=[jl], scope=jscope)
+            texe.run(models["torch"], feed=f, fetch_list=[tl], scope=tscope)
+            for n in names:
+                got = tscope.to_numpy(n)
+                assert got.dtype == before[n].dtype, n
+                if skip:
+                    np.testing.assert_array_equal(got, before[n], err_msg=f"{n} step {step}")
+                _close(got, np.asarray(jscope.find_var(n)), f"{n} step {step}")
+        assert any(not np.array_equal(tscope.to_numpy(n), state[n]) for n in names)
+
+
+# the updates the JAX package registers with register_op, not register_opt,
+# that an optimizer's apply_gradients returns: they ignore FoundInf there
+# (ROADMAP C, "Reference-side defects"), and the port matches it
+IGNORING = {"decayed_adagrad": (lambda fluid: fluid.optimizer.DecayedAdagrad(0.1),
+                                {"decayed_adagrad"}),
+            "dgc": (lambda fluid: fluid.optimizer.DGCMomentum(0.1, 0.9, rampup_begin_step=0,
+                                                              sparsity=[0.9]),
+                    {"dgc", "momentum"})}
+
+
+@pytest.mark.parametrize("update", list(IGNORING))
+def test_register_op_updates_apply_an_overflowed_step_as_the_jax_package(update):
+    """decayed_adagrad and dgc with FoundInf set still apply their step, in
+    both packages alike (the JAX package's register_op does not read the
+    flag); dgc's momentum, a register_opt update, skips.  The table has
+    16384 elements, so DGCMomentum compresses its gradient."""
+    make, wire = IGNORING[update]
+    models = {}
+    for pkg in ("jax", "torch"):
+        fluid, unique = _pkg(pkg)
+        main, startup = fluid.Program(), fluid.Program()
+        with unique.guard(), fluid.program_guard(main, startup):
+            ids = fluid.layers.data("ids", [3], dtype="int64")
+            label = fluid.layers.data("label", [1], dtype="float32")
+            emb = fluid.layers.embedding(ids, size=[4096, 4],
+                                         param_attr=fluid.ParamAttr(name="tbl"))
+            pred = fluid.layers.fc(fluid.layers.reshape(emb, [-1, 12]), 1)
+            loss = fluid.layers.mean(fluid.layers.square(pred - label))
+            make(fluid).minimize(loss)
+        models[pkg] = (_wire_found_inf(main, wire), startup, loss.name)
+    assert update in [op.type for op in models["torch"][0].global_block().ops]
+    jexe, jscope, state = _jax_start(*models["jax"][:2])
     texe, tscope = _torch_start(state)
-    feed = dict(_feeds(steps=1)[0], found_inf=np.array([False]))
-    with pytest.raises(NotImplementedError, match="FoundInf"):
-        texe.run(tm, feed=feed, fetch_list=[tl], scope=tscope)
+    names = _persistables(models["jax"][0])
+    for feed in _feeds(steps=2, vocab=4096):
+        f = dict(feed, found_inf=np.array([True]))
+        jexe.run(models["jax"][0], feed=f, fetch_list=[models["jax"][2]], scope=jscope)
+        texe.run(models["torch"][0], feed=f, fetch_list=[models["torch"][2]], scope=tscope)
+    moved = [n for n in names if not np.array_equal(tscope.to_numpy(n), state[n])]
+    for n in names:
+        _close(tscope.to_numpy(n), np.asarray(jscope.find_var(n)), n)
+    assert moved, "the register_op update applied no step"
+    if update == "dgc":  # momentum skipped: the parameters keep their bits
+        np.testing.assert_array_equal(tscope.to_numpy("tbl"), state["tbl"])
 
 
 def test_table_read_by_two_lookups_concatenates_and_an_unread_table_is_empty():

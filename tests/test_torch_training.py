@@ -18,7 +18,10 @@ only that bound holds, and the whole update (parameters after minus before)
 must agree to 10% in L2.  The same rule holds the tiny BERT trained with
 each regularizer and gradient clip (CLIP_DECAY), built as a user would.
 The kernels' plain versions are held against the Pallas kernels run in
-interpret mode."""
+interpret mode, in float32, bfloat16 and float16 (float16's tolerances:
+a float16 output 6.25e-3 of the largest, bfloat16's 5e-2 scaled by the 2^-3
+of float16's three more bits; a float32 one float32's; Adam's float16
+parameter one float16 step, tests/test_torch_kernels.one_float16_step)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,7 @@ from paddle_tpu.ops import pallas_kernels as jpk
 from paddle_tpu_torch.core.dtypes import to_tensor
 from paddle_tpu_torch.models import transformer as t_transformer
 from paddle_tpu_torch.ops import cuda_kernels as ck
+from test_torch_kernels import one_float16_step
 
 LR = 1e-3
 STEPS = 3
@@ -44,7 +48,7 @@ PARAM_TOL = 1e-5  # float32
 SIGN_FLIP_TOL = 2 * LR * STEPS + 1e-5
 ZERO_GRAD = 1e-6  # of the model's largest gradient at the step
 UPDATE_RTOL_BF16 = 0.1
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 PASSES = ("fuse_ln_residual", "fuse_bias_act")
 
 
@@ -420,11 +424,16 @@ def _t(a, grad=False):
 
 def _close(name, got, want, dtype):
     """Scale-aware: 1e-4 * (1 + max|ref|) in float32, as the Pallas grad
-    tests; 5e-2 of max|ref| in bfloat16."""
+    tests; 5e-2 of max|ref| in bfloat16; in float16 6.25e-3 of max|ref|
+    for a float16 output, float32's rule for a float32 one (the column
+    sums)."""
+    if dtype == "float16" and isinstance(got, torch.Tensor) and got.dtype == torch.float32:
+        dtype = "float32"
     want = np.asarray(want, np.float32)
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     peak = float(np.abs(want).max())
-    tol = 1e-4 * (1.0 + peak) if dtype == "float32" else 5e-2 * max(peak, 1e-6)
+    tol = (1e-4 * (1.0 + peak) if dtype == "float32"
+           else {"bfloat16": 5e-2, "float16": 6.25e-3}[dtype] * max(peak, 1e-6))
     err = float(np.abs(got.astype(np.float32) - want).max())
     assert err <= tol, f"{name}: {err} > {tol}"
 
@@ -437,7 +446,7 @@ def _xent_example(dtype):
     return logits, jnp.asarray(labels)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kernel", ["softmax_xent", "adam_slab"])
 def test_plain_forward_matches_pallas(kernel, dtype):
     spec = jpk.FUSED_KERNELS[kernel]
@@ -452,12 +461,15 @@ def test_plain_forward_matches_pallas(kernel, dtype):
         want = spec["fused"](args, interpret=True)
         got = ck.fused_adam(*(_t(a) for a in args), torch.tensor([1e-3]), 0.9, 0.999, 1e-8)
         outs = list(zip(got, want))
+        if dtype == "float16":  # the parameter float16, its moments float32
+            one_float16_step(want[0], got[0])
+            outs = outs[1:]
     for g, w in outs:
         assert float(np.abs(g.float().numpy() - np.asarray(w, np.float32)).max()) \
-            <= spec["tol"][dtype]
+            <= spec["tol"]["float32" if dtype == "float16" else dtype]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kernel", ["ln_residual", "bias_act", "softmax_xent"])
 def test_plain_backward_matches_pallas_vjp(kernel, dtype):
     """The explicit plain backward against jax.vjp through the Pallas custom
