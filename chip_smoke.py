@@ -290,7 +290,42 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      from the float32 step at most AMP_RESNET_RATIO times the CPU's, and
      that rule refuses a step with half the batch, with half the momentum,
      and a frozen one; the AMP vars exactly equal; phases 52-55's seconds
-     printed.
+     printed;
+ 56. serving_bert: BERT-base bf16 at full width (12 layers, fused
+     attention, seq 128; the encoder's hidden states [rows, 128, 768] are
+     the served output) loaded into serving.ModelRegistry(CUDAPlace(0))
+     under Server(buckets 1-32, workers=2) and warmed: each bucket's plan
+     graphed, 2 x 6 x (25, 12, 12) launches (a warm-up and a capture a
+     bucket); 4 client threads submit 400 requests of seeded 1-32 rows:
+     each response within 5e-2 of a direct eager Predictor.run of it
+     alone, no capture, no plan and no wrapper launch under the traffic,
+     the ledger balanced with no shed and no error, a profiled replay 25,
+     12 and 12 kernels; requests/s, rows/s, p50 / p99, pad and queue-wait
+     fractions printed;
+ 57. serving_admission: max_queue 8, a burst of 64: 56 shed as overload,
+     3 deadlines lapse in the queue as timeout while their batch
+     proceeds, a 33-row request refused at the door; the ledger and every
+     trace's outcome and reason code exact;
+ 58. serving_publish: the served BERT-base fine-tuned 2 steps (Adam
+     PUBLISH_LR) under a CheckpointManager, its committed checkpoint
+     published weights-only into phase 56's server while 4 clients keep
+     submitting: nothing dropped, each response the old or the new
+     version's direct output, every one submitted after the swap the new;
+     rollback restores the old outputs; the served model saved with a NaN
+     weight, and a copy with a truncated shard, rejected and quarantined
+     while the old version serves on; p99 during the publish beside phase
+     56's;
+ 59. serving_budget: BERT-base and ResNet-50 (phase 8's model) under a
+     budget that holds either but not both: loading the second evicts
+     the first, the executor keeps no plan of it, its weights are freed
+     and memory_allocated comes back to within BUDGET_MARGIN_BYTES of the
+     survivor alone (an unload too); a load
+     with nothing to evict raises hbm_budget; each model's
+     plan_model_bytes at 32, ledger bytes and allocator deltas printed;
+ 60. serving_parity: a float32 BERT (2 layers) served by a Server on the
+     card and one on the CPU, the same 12 requests (two shed, one timed
+     out): responses within 1e-3, ledgers and trace outcomes equal;
+     phases 56-60's seconds printed.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -353,6 +388,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -2623,7 +2659,7 @@ def parity(fluid, torch, tmp):
 
 
 def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
-                clip_decay=False, optimizer=None, score_dtype=None):
+                clip_decay=False, optimizer=None, score_dtype=None, learning_rate=LR):
     """Full-width BERT-base with Adam(LR).minimize(loss), unfused attention or
     the fused_attention op, through the two fusion passes; returns (main,
     startup, loss name).  `clip_decay` builds it as a fine-tuning user does:
@@ -2632,13 +2668,13 @@ def build_train(fluid, dtype, n_layers, dropout_prob, seq_len=128, fused=False,
     shapes inferred by the port's own layers; the global norm's var then
     stays fetchable (global_norm_name).  `optimizer` names one of
     make_optimizer's in place of Adam ("backward_only": the gradients and
-    no update)."""
+    no update).  `learning_rate` is Adam's (default LR)."""
     from paddle_tpu_torch.models import transformer
 
     with fluid.unique_name.guard():
         main, startup, _, fetches = transformer.build_bert(
             vocab_size=30522, seq_len=seq_len, d_model=768, n_layers=n_layers, n_heads=12,
-            d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=LR,
+            d_ff=3072, dtype=dtype, dropout_prob=dropout_prob, learning_rate=learning_rate,
             use_fused_attention=fused, with_optimizer=not (clip_decay or optimizer),
             attention_score_dtype=score_dtype)
         if clip_decay:
@@ -6490,6 +6526,646 @@ def amp_resnet_parity(fluid, torch):
                              f"cannot tell them from rounding")
 
 
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_WORKERS = 2
+SERVE_CLIENTS = 4
+SERVE_REQUESTS = 400
+SERVE_TOL = 5e-2  # phase 4's bf16 rule
+ADMISSION_QUEUE = 8
+ADMISSION_BURST = 64
+ADMISSION_DEADLINED = 3  # of the admitted requests, these carry a deadline that lapses queued
+PUBLISH_POOL = 16  # distinct requests the clients cycle through in phase 58
+PUBLISH_MIN_REQUESTS = 200
+# phase 58's fine-tuning rate, 10x LR: two Adam steps at LR moved the
+# served hidden states of some requests by only 0.065 at most (on an H100)
+PUBLISH_LR = 1e-3
+BUDGET_BUCKETS = (1, 8, 32)
+# phase 59: after the eviction the allocator's bytes lie within this many of
+# what the surviving model held alone, and after an unload within it of
+# what was allocated before the load.  The caching allocator hands out
+# blocks of 2 MiB and up, and cuBLAS / cuDNN workspaces come and go in such
+# blocks (2 MiB and 1.75 MiB seen after the eviction on an H100): 2 MiB and
+# one more block.  That the evicted model's plans are gone is checked
+# exactly besides (no plan of its scope, its weights unreachable)
+BUDGET_MARGIN_BYTES = 4 << 20
+SERVING_PARITY_REQUESTS = 12
+SERVING_PARITY_QUEUE = 10
+SERVING_PARITY_TOL = 1e-3  # phase 5's rule
+
+
+def save_encoder(fluid, torch, dirname, dtype, n_layers, unit_ln_scale=False, seed=0):
+    """BERT-base (build_bert) saved for inference with the encoder's last
+    hidden states [batch, 128, 768] as its output (the masked-LM head's
+    projection pruned): what a sentence-encoding server returns, and a
+    per-row output a serving batch splits back by request.  Returns the
+    output's name."""
+    main, startup, _ = build_bert(fluid, dtype, n_layers)
+    head = next(op for op in main.global_block().ops if "bert.lm_head.w" in op.input_arg_names)
+    hidden = next(n for n in head.input_arg_names if n != "bert.lm_head.w")
+    startup.random_seed = seed
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if unit_ln_scale:
+        for p in main.all_parameters():
+            if p.name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):
+                scope.set_var(p.name, torch.ones_like(scope.find_var(p.name)))
+    fluid.io.save_inference_model(dirname, ["ids", "pos_ids"], [hidden], exe, main, scope)
+    return hidden
+
+
+def bert_request(rows, rng):
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    full = make_fake_batch(rows, 128, 30522, rng=rng)
+    return {"ids": full["ids"], "pos_ids": full["pos_ids"]}
+
+
+def bucket_plans(registry, version):
+    """The executor's cached plans of a version's scope."""
+    return [p for k, p in registry.executor._cache.items() if k[4] == version.scope._uuid]
+
+
+def eager_predictor(fluid, model_dir):
+    config = fluid.inference.AnalysisConfig(model_dir)
+    config._graphs = False
+    return fluid.inference.create_predictor(config)
+
+
+def max_diff(a, b):
+    import numpy as np
+
+    return float(np.abs(np.asarray(a).astype(np.float32) - np.asarray(b).astype(np.float32)).max())
+
+
+def l2_diff(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(np.asarray(a).astype(np.float32)
+                                - np.asarray(b).astype(np.float32)))
+
+
+def pct(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q)) if values else 0.0
+
+
+def counters_of(fluid, *names):
+    return {n: fluid.monitor.counter(n).value for n in names}
+
+
+def run_clients(srv, model, requests, clients, stop=None, min_each=0):
+    """`clients` threads submitting `requests` (a list of feeds) through
+    srv.infer, client c taking c, c + clients, ... in turn; with `stop` (an
+    Event), each cycles through its share until it is set and it has made
+    `min_each` requests.  Returns [(request index, output, t_submit, t_done
+    | exception)] in completion order."""
+    import threading
+
+    done, lock = [], threading.Lock()
+
+    def client(c):
+        mine = list(range(c, len(requests), clients))
+        n = 0
+        while True:
+            i = mine[n % len(mine)]
+            t0 = time.perf_counter()
+            try:
+                (out,) = srv.infer(model, requests[i])
+                rec = (i, out, t0, time.perf_counter())
+            except Exception as e:  # noqa: BLE001 - held by the caller
+                rec = (i, e, t0, time.perf_counter())
+            with lock:
+                done.append(rec)
+            n += 1
+            if stop is None:
+                if n == len(mine):
+                    return
+            elif stop.is_set() and n >= min_each:
+                return
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    return threads, done
+
+
+def hold_ledger(what, srv, **want):
+    led = srv.ledger()
+    if not led["balanced"] or any(led[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: ledger {led}, want {want} and balanced")
+    return led
+
+
+def serving_bert(fluid, torch, ck, tmp, card):
+    """Phase 56: BERT-base bf16 at full width (12 layers, fused attention,
+    seq 128; the encoder's hidden states served) loaded into
+    serving.ModelRegistry(CUDAPlace(0)) under Server(buckets=SERVE_BUCKETS,
+    workers=SERVE_WORKERS) and warmed: each bucket's plan graphed; then
+    SERVE_CLIENTS client threads submit SERVE_REQUESTS requests of seeded
+    1-32 rows.  Every response equals a direct eager Predictor.run of that
+    request alone within SERVE_TOL; executor.graph_capture and
+    executor.cache_miss do not move under the traffic; the ledger balances
+    with no shed and no error; a profiled replay shows 25 LN, 12 bias-act
+    and 12 attention kernels.  Returns (server, model dir, launches,
+    steady p99 ms)."""
+    import numpy as np
+
+    serving = fluid.serving
+    model_dir = os.path.join(tmp, "bert_base_bf16_encoder")
+    t0 = time.perf_counter()
+    save_encoder(fluid, torch, model_dir, "bfloat16", 12)
+    save_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    before_mem = torch.cuda.memory_allocated()
+    registry = serving.ModelRegistry(place=fluid.CUDAPlace(0))
+    srv = serving.Server(registry, buckets=SERVE_BUCKETS, workers=SERVE_WORKERS)
+    ck.reset_launches()  # the main path's count starts here
+    t0 = time.perf_counter()
+    version = srv.load_model("bert", model_dir, warm=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    captures0 = fluid.monitor.counter("executor.graph_capture").value
+    t0 = time.perf_counter()
+    registry.warm("bert", srv.buckets)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    plans = bucket_plans(registry, version)
+    graphed = sorted(p.graphed for p in plans)
+    warm_launches = dict(ck.LAUNCHES)
+    want_warm = {k: 2 * len(SERVE_BUCKETS) * v for k, v in PER_REQUEST.items()}
+    emit({"phase": "serving_bert", "model": "bert-base bf16 encoder, fused attention",
+          "save_s": save_s, "load_s": load_s, "warm_s": warm_s,
+          "captures": fluid.monitor.counter("executor.graph_capture").value - captures0,
+          "plans": len(plans), "graphed": graphed, "warm_launches": warm_launches,
+          "weights_bytes": version.bytes,
+          "allocated_delta_gb": (torch.cuda.memory_allocated() - before_mem) / 1e9, "card": card})
+    if len(plans) != len(SERVE_BUCKETS) or not all(graphed):
+        raise AssertionError(f"serving_bert: after the warm {len(plans)} plans, graphed {graphed}")
+    if warm_launches != want_warm:
+        raise AssertionError(f"serving_bert: the warm launched {warm_launches} != {want_warm} "
+                             "(a warm-up and a capture a bucket)")
+    rng = np.random.RandomState(56)
+    rows = rng.randint(1, 33, SERVE_REQUESTS)
+    requests = [bert_request(int(r), rng) for r in rows]
+    before = counters_of(fluid, "executor.graph_capture", "executor.cache_miss")
+    t0 = time.perf_counter()
+    threads, done = run_clients(srv, "bert", requests, SERVE_CLIENTS)
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    after = counters_of(fluid, "executor.graph_capture", "executor.cache_miss")
+    launches = dict(ck.LAUNCHES)
+    errors = [r for r in done if isinstance(r[1], BaseException)]
+    stats = srv.stats()
+    lat = srv.latency_ms()
+    client_ms = [(t1 - t0_) * 1e3 for _, _, t0_, t1 in done]
+    record = {"phase": "serving_bert", "requests": len(done), "errors": len(errors),
+              "wall_s": wall_s, "requests_per_s": len(done) / wall_s,
+              "rows_per_s": int(rows.sum()) / wall_s, "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+              "client_p50_ms": pct(client_ms, 50), "client_p99_ms": pct(client_ms, 99),
+              "batches": stats["batches"], "rows": stats["rows"],
+              "pad_fraction": stats["padded_rows"] / (stats["rows"] + stats["padded_rows"]),
+              "queue_wait_fraction": srv.queue_wait_frac(),
+              "buckets": srv.bucket_attribution(), "counters_before": before,
+              "counters_after": after, "launches_in_traffic": {
+                  k: launches[k] - warm_launches[k] for k in launches}, "card": card}
+    emit(record)
+    if errors:
+        raise AssertionError(f"serving_bert: {len(errors)} requests failed: {errors[0][1]!r}")
+    if after != before:
+        raise AssertionError(f"serving_bert: the traffic moved {before} -> {after}")
+    if launches != warm_launches:
+        raise AssertionError("serving_bert: a wrapper launched under the traffic: the batches "
+                             "did not all replay graphs")
+    hold_ledger("serving_bert", srv, requests=SERVE_REQUESTS, completed=SERVE_REQUESTS, shed=0,
+                errors=0)
+    # every batch replayed a graph holding PER_REQUEST
+    add_launches(REPLAYED.setdefault("serving_bert", dict(NONE)),
+                 {k: v * stats["batches"] for k, v in PER_REQUEST.items()})
+    eager = eager_predictor(fluid, model_dir)
+    worst = 0.0
+    for i, out, _, _ in done:
+        want = eager.run(requests[i])[0]
+        if out.shape != (rows[i], 128, 768) or not np.isfinite(out.astype(np.float32)).all():
+            raise AssertionError(f"serving_bert: request {i} gave {out.shape}")
+        worst = max(worst, max_diff(out, want))
+    emit({"phase": "serving_bert", "vs_direct_eager_max_abs": worst, "tol": SERVE_TOL,
+          "compared": len(done)})
+    if not worst <= SERVE_TOL:
+        raise AssertionError(f"serving_bert: a response differs from its direct eager run by "
+                             f"{worst} > {SERVE_TOL}")
+    del eager
+    profile_replay(torch, "serving_bert batch of 32 rows",
+                   lambda: srv.infer("bert", requests[int(np.argmax(rows))]), card, PER_REQUEST)
+    return srv, model_dir, launches, lat["p99"]
+
+
+def serving_admission(fluid, torch, card, registry):
+    """Phase 57: a Server(max_queue=ADMISSION_QUEUE, start=False) over phase
+    56's registry takes a burst of ADMISSION_BURST requests: the first
+    ADMISSION_QUEUE admitted, every later one shed with
+    ServingError(reason="overload"), counted exactly; ADMISSION_DEADLINED
+    of the admitted carry a 1 ms deadline that lapses in the queue and end
+    as timeout while their batch proceeds; an oversize request (33 rows) is
+    refused at the door.  The ledger balances and every outcome's trace is
+    closed with its reason code."""
+    import numpy as np
+
+    serving = fluid.serving
+    fluid.monitor.reset()
+    srv = serving.Server(registry, buckets=SERVE_BUCKETS, max_queue=ADMISSION_QUEUE,
+                         start=False)
+    rng = np.random.RandomState(57)
+    futures, shed = [], 0
+    t0 = time.perf_counter()
+    for i in range(ADMISSION_BURST):
+        deadline = 1.0 if i < ADMISSION_DEADLINED else None
+        try:
+            futures.append(srv.submit("bert", bert_request(int(rng.randint(1, 5)), rng),
+                                      deadline_ms=deadline))
+        except fluid.errors.ServingError as e:
+            if e.reason != "overload":
+                raise
+            shed += 1
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        srv.submit("bert", bert_request(33, rng))
+        raise AssertionError("serving_admission: a 33-row request was admitted")
+    except fluid.errors.ServingError as e:
+        if e.reason != "oversize":
+            raise
+    time.sleep(0.02)  # the deadlines lapse in the queue
+    srv.start()
+    outcomes = {"completed": 0, "timeout": 0}
+    for f in futures:
+        try:
+            f.result(timeout=60)
+            outcomes["completed"] += 1
+        except fluid.errors.ServingError as e:
+            if e.reason != "timeout":
+                raise
+            outcomes["timeout"] += 1
+    srv.stop()
+    led = hold_ledger("serving_admission", srv, requests=ADMISSION_BURST,
+                      shed=ADMISSION_BURST - ADMISSION_QUEUE, timeouts=ADMISSION_DEADLINED,
+                      completed=ADMISSION_QUEUE - ADMISSION_DEADLINED, rejected=1, errors=0)
+    traces = fluid.monitor.request_traces()
+    by = {}
+    for t in traces:
+        key = f"{t['outcome']}:{t.get('reason')}"
+        by[key] = by.get(key, 0) + 1
+    want = {"completed:None": ADMISSION_QUEUE - ADMISSION_DEADLINED,
+            "timeout:timeout": ADMISSION_DEADLINED,
+            "shed:overload": ADMISSION_BURST - ADMISSION_QUEUE, "rejected:oversize": 1}
+    emit({"phase": "serving_admission", "burst": ADMISSION_BURST, "max_queue": ADMISSION_QUEUE,
+          "shed": shed, "burst_submit_ms": burst_ms, "outcomes": outcomes, "ledger": led,
+          "traces": by, "shed_counter": fluid.monitor.counter("serving.shed").value,
+          "card": card})
+    if shed != ADMISSION_BURST - ADMISSION_QUEUE or by != want:
+        raise AssertionError(f"serving_admission: shed {shed}, traces {by} != {want}")
+    fluid.monitor.reset()
+
+
+def train_bert_checkpoint(fluid, torch, root, steps=2):
+    """The served BERT-base's training program (build_train: bf16, fused
+    attention, dropout 0, Adam(PUBLISH_LR)) from the served model's initial
+    weights (seed 0), `steps` steps on seeded batches of 8 x 128 under a
+    CheckpointManager at `root`, saved after the last.  Returns the
+    manager."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.0, 128, True,
+                                      learning_rate=PUBLISH_LR)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(58)
+    for _ in range(steps):
+        exe.run(main, feed=make_fake_batch(8, 128, 30522, rng=rng), fetch_list=[loss],
+                scope=scope)
+    cm = fluid.CheckpointManager(root, program=main, scope=scope, place=fluid.CUDAPlace(0))
+    cm.save(step=steps)
+    return cm
+
+
+def serving_publish(fluid, torch, card, tmp, srv, model_dir, steady_p99):
+    """Phase 58: train the served BERT-base 2 steps under a
+    CheckpointManager and publish its committed checkpoint weights-only into
+    phase 56's server while SERVE_CLIENTS clients keep submitting (a pool
+    of PUBLISH_POOL requests): no request dropped, each response the old or
+    the new version's direct eager output (the one nearer in L2, within
+    SERVE_TOL and within a quarter of their distance), every request
+    submitted after the swap the new one's; rollback restores the old
+    outputs; the served model saved with one NaN weight, and a copy of it
+    with a truncated shard, are each rejected and quarantined while the old
+    version serves on.  p99
+    during the publish (the staged buckets' captures included) printed
+    beside phase 56's steady p99."""
+    import threading
+
+    import numpy as np
+
+    serving = fluid.serving
+    t0 = time.perf_counter()
+    cm = train_bert_checkpoint(fluid, torch, os.path.join(tmp, "bert_ckpt"))
+    train_s = time.perf_counter() - t0
+    rng = np.random.RandomState(580)
+    pool = [bert_request(int(r), rng) for r in rng.randint(1, 33, PUBLISH_POOL)]
+    old = eager_predictor(fluid, model_dir)
+    old_out = [old.run(f)[0] for f in pool]
+    params = [v.name for v in fluid.io._persistables(old.program)]
+    # the served model saved again with one NaN weight
+    bad = {"nan_weight": os.path.join(tmp, "bert_nan"),
+           "truncated_shard": os.path.join(tmp, "bert_truncated")}
+    w = old.scope.find_var("bert.l0.ffn1.w")
+    w.view(-1)[0] = float("nan")
+    fluid.io.save_inference_model(bad["nan_weight"], old.feed_names, old.fetch_names, old.exe,
+                                  old.program, old.scope)
+    new = eager_predictor(fluid, model_dir)
+    fluid.io.load_sharded(cm.latest(), var_names=params, scope=new.scope,
+                          device=torch.device("cuda:0"))
+    new_out = [new.run(f)[0] for f in pool]
+    # a response is the version it is nearer to in L2, and must lie within
+    # SERVE_TOL of it and within a quarter of the versions' distance: the
+    # two-step fine-tune moves some requests' outputs by a few bf16 steps
+    # only (0.08-0.18 at most), so the max-abs rule alone cannot tell them
+    apart = [l2_diff(a, b) for a, b in zip(old_out, new_out)]
+    del old, new
+    if not min(apart) > 0:
+        raise AssertionError("serving_publish: the versions agree on a request")
+    led0 = srv.ledger()
+    captures0 = fluid.monitor.counter("executor.graph_capture").value
+    stop = threading.Event()
+    threads, done = run_clients(srv, "bert", pool, SERVE_CLIENTS, stop,
+                                PUBLISH_MIN_REQUESTS // SERVE_CLIENTS)
+    time.sleep(0.5)
+    t_pub0 = time.perf_counter()
+    srv.publish("bert", cm)
+    t_swap = time.perf_counter()
+    del cm  # its training scope
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join()
+    publish_s = t_swap - t_pub0
+    captures = fluid.monitor.counter("executor.graph_capture").value - captures0
+    errors = [r for r in done if isinstance(r[1], BaseException)]
+    matched = {"old": 0, "new": 0}
+    during, worst_near = [], 0.0
+    for i, out, ts, td in done:
+        if isinstance(out, BaseException):
+            continue
+        d_old, d_new = l2_diff(out, old_out[i]), l2_diff(out, new_out[i])
+        which = "new" if d_new < d_old else "old"
+        near = max_diff(out, (new_out if which == "new" else old_out)[i])
+        if near > SERVE_TOL or min(d_old, d_new) > apart[i] / 4:
+            raise AssertionError(f"serving_publish: request {i} matches neither version "
+                                 f"(L2 to old {d_old}, to new {d_new}, apart {apart[i]}; "
+                                 f"max abs to the nearer {near})")
+        worst_near = max(worst_near, near)
+        if ts > t_swap and which != "new":
+            raise AssertionError(f"serving_publish: request {i} submitted after the swap "
+                                 "got the old version's output")
+        matched[which] += 1
+        if td >= t_pub0 and ts <= t_swap:
+            during.append((td - ts) * 1e3)
+    led1 = srv.ledger()
+    emit({"phase": "serving_publish", "train_s": train_s, "publish_s": publish_s,
+          "captures": captures, "requests": len(done), "errors": len(errors),
+          "matched": matched, "versions_apart_l2": [min(apart), max(apart)],
+          "versions_apart_max_abs": min(max_diff(a, b) for a, b in zip(old_out, new_out)),
+          "response_vs_its_version_max_abs": worst_near,
+          "p99_during_publish_ms": pct(during, 99), "requests_during_publish": len(during),
+          "steady_p99_ms": steady_p99, "card": card})
+    if errors or led1["completed"] - led0["completed"] != len(done) or not led1["balanced"]:
+        raise AssertionError(f"serving_publish: {len(errors)} failed, ledger {led0} -> {led1}")
+    if matched["old"] == 0 or matched["new"] == 0:
+        raise AssertionError(f"serving_publish: the swap was not under load: {matched}")
+    srv.rollback("bert")
+    back = max(max_diff(srv.infer("bert", f)[0], o) for f, o in zip(pool, old_out))
+    emit({"phase": "serving_publish", "after_rollback_vs_old_max_abs": back, "tol": SERVE_TOL})
+    if not back <= SERVE_TOL:
+        raise AssertionError(f"serving_publish: rollback serves {back} off the old outputs")
+    shutil.copytree(model_dir, bad["truncated_shard"])
+    victim = max((os.path.join(r, f) for r, _, fs in os.walk(bad["truncated_shard"])
+                  for f in fs if not f.endswith(".json")), key=os.path.getsize)
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    rejected = {}
+    for what, src in bad.items():
+        try:
+            srv.publish("bert", src)
+            raise AssertionError(f"serving_publish: the {what} checkpoint was published")
+        except fluid.errors.ServingError as e:
+            if e.reason != "publish_rejected":
+                raise
+            rejected[what] = str(e)[:200]
+        if not os.path.exists(os.path.join(src, serving.QUARANTINE_MARKER)):
+            raise AssertionError(f"serving_publish: the {what} checkpoint was not quarantined")
+        still = max(max_diff(srv.infer("bert", f)[0], o) for f, o in zip(pool[:4], old_out))
+        if not still <= SERVE_TOL:
+            raise AssertionError(f"serving_publish: after the {what} rejection the server "
+                                 f"serves {still} off the old outputs")
+    emit({"phase": "serving_publish", "rejected": rejected, "card": card})
+
+
+def serving_budget(fluid, torch, card, tmp, bert_dir):
+    """Phase 59: BERT-base bf16 (phase 56's encoder) and ResNet-50 bf16
+    (phase 8's model) under one registry whose budget holds either but not
+    both (the larger plan_model_bytes at bucket 32), each warmed at
+    BUDGET_BUCKETS.  The model of the larger plan is loaded and unloaded,
+    loaded again (its bytes alone measured) and unloaded (the unload must
+    give its bytes back); then the other is loaded, and loading the first
+    again evicts it: the executor must hold no plan of the evicted scope, a
+    weak reference to one of its weights must be dead, and the allocator's
+    bytes must come back to within BUDGET_MARGIN_BYTES of what the survivor
+    held alone, so the evicted model's weights and graph pools are gone.  A
+    load with nothing to evict raises reason="hbm_budget".  For each model:
+    plan_model_bytes at 32, the ledger's bytes, the allocator's allocated
+    and reserved deltas after load and warm."""
+    import numpy as np
+
+    serving = fluid.serving
+    resnet_dir = os.path.join(tmp, "resnet50_bf16_budget")
+    save_resnet(fluid, fluid.CUDAPlace(0), resnet_dir, "bfloat16", images(32, 10))
+    need = {"bert": serving.plan_model_bytes(bert_dir, 32),
+            "resnet": serving.plan_model_bytes(resnet_dir, 32)}
+    dirs = {"bert": bert_dir, "resnet": resnet_dir}
+    small, large = sorted(need, key=need.get)
+    budget = need[large]
+    registry = serving.ModelRegistry(place=fluid.CUDAPlace(0), hbm_budget_mb=budget / 1e6)
+    probe = {"bert": bert_request(3, np.random.RandomState(59)),
+             "resnet": {"img": images(3, 59)["img"]}}
+
+    def mem():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    rec = {}
+    held = {}  # name -> (scope id, weak reference to one of its weights) of the latest load
+
+    def load(name):
+        a0, r0 = mem()
+        t0 = time.perf_counter()
+        version = registry.load(name, dirs[name], warm_buckets=BUDGET_BUCKETS)
+        load_s = time.perf_counter() - t0
+        out = version.run(probe[name])[0]
+        if not np.isfinite(np.asarray(out).astype(np.float32)).all():
+            raise AssertionError(f"serving_budget: {name} served non-finite values")
+        a1, r1 = mem()
+        rec.setdefault(name, []).append({
+            "plan_model_bytes_at_32": need[name], "ledger_bytes": version.bytes,
+            "allocated_delta": a1 - a0, "reserved_delta": r1 - r0, "load_warm_s": load_s,
+            "plans": len(bucket_plans(registry, version))})
+        scope = version.scope
+        weight = next(t for t in map(scope.find_var, scope.local_var_names())
+                      if isinstance(t, torch.Tensor) and t.is_cuda)
+        held[name] = (scope._uuid, weakref.ref(weight))
+        del version, scope, weight
+        return a0, a1
+
+    first_base, _ = load(large)  # the first load also makes the side stream's workspaces
+    registry.unload(large)
+    primed, _ = mem()
+    base, alone = load(large)
+    registry.unload(large)
+    after_unload, _ = mem()
+    load(small)
+    evictions0 = fluid.monitor.counter("serving.evictions").value
+    _, with_large = load(large)
+    evicted = sorted(set(dirs) - set(registry.models()))
+    small_bytes = rec[small][0]["allocated_delta"]
+    err = abs(with_large - alone)
+    small_uuid, small_ref = held[small]
+    small_plans = sum(1 for k in registry.executor._cache if k[4] == small_uuid)
+    gc.collect()
+    small_weight_alive = small_ref() is not None
+    try:
+        tiny = serving.ModelRegistry(place=fluid.CUDAPlace(0), hbm_budget_mb=need[small] / 2e6,
+                                     executor=registry.executor)
+        tiny.load(small, dirs[small], warm_buckets=BUDGET_BUCKETS)
+        raise AssertionError("serving_budget: a load past the budget with nothing to evict "
+                             "was accepted")
+    except fluid.errors.ServingError as e:
+        if e.reason != "hbm_budget":
+            raise
+        refused = str(e)[:200]
+    emit({"phase": "serving_budget", "budget_bytes": budget, "order": [large, small, large],
+          "models": rec, "allocated": {"first_base": first_base, "after_first_unload": primed,
+                                        "base": base, "alone": alone,
+                                        "after_unload": after_unload,
+                                        "after_eviction": with_large},
+          "evicted": evicted, "evictions": fluid.monitor.counter("serving.evictions").value
+          - evictions0, "eviction_error_bytes": err, "margin_bytes": BUDGET_MARGIN_BYTES,
+          "evicted_plans_left": small_plans, "evicted_weight_alive": small_weight_alive,
+          "refused": refused, "card": card})
+    if evicted != [small]:
+        raise AssertionError(f"serving_budget: evicted {evicted}, want [{small!r}]")
+    if small_plans or small_weight_alive:
+        raise AssertionError(f"serving_budget: after evicting {small} the executor holds "
+                             f"{small_plans} of its plans, its weight alive: {small_weight_alive}")
+    if abs(after_unload - base) > BUDGET_MARGIN_BYTES:
+        raise AssertionError(f"serving_budget: unloading {large} left {after_unload - base} "
+                             f"of its {alone - base} bytes allocated")
+    if err > BUDGET_MARGIN_BYTES:
+        raise AssertionError(f"serving_budget: after evicting {small} the allocator holds "
+                             f"{with_large} bytes, {large} alone held {alone}: {small}'s "
+                             f"{small_bytes} bytes were not freed")
+    registry.unload(large)
+
+
+def serving_parity(fluid, torch, card, tmp):
+    """Phase 60: a float32 BERT (2 layers; the encoder's hidden states)
+    served by a Server on the card and one on the CPU (both
+    max_queue=SERVING_PARITY_QUEUE, start=False, one worker), the same
+    SERVING_PARITY_REQUESTS requests submitted to each (two shed, one with a
+    deadline that lapses in the queue): the responses agree within
+    SERVING_PARITY_TOL, the ledgers are equal, and so are the traces'
+    outcomes and reason codes."""
+    import numpy as np
+
+    serving = fluid.serving
+    model_dir = os.path.join(tmp, "bert_f32_2l_encoder")
+    save_encoder(fluid, torch, model_dir, "float32", 2, unit_ln_scale=True)
+    rng = np.random.RandomState(60)
+    requests = [bert_request(int(r), rng) for r in rng.randint(1, 9, SERVING_PARITY_REQUESTS)]
+    sides = {}
+    for side, place in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
+        fluid.monitor.reset()
+        srv = serving.Server(serving.ModelRegistry(place=place), buckets=(2, 8, 16),
+                             max_queue=SERVING_PARITY_QUEUE, start=False)
+        srv.load_model("bert", model_dir)
+        futures = []
+        for i, feed in enumerate(requests):
+            try:
+                futures.append((i, srv.submit("bert", feed, deadline_ms=1.0 if i == 1 else None)))
+            except fluid.errors.ServingError as e:
+                futures.append((i, e))
+        time.sleep(0.02)
+        srv.start()
+        outs = {}
+        for i, f in futures:
+            try:
+                outs[i] = f.result(timeout=120)[0] if not isinstance(f, BaseException) else f.reason
+            except fluid.errors.ServingError as e:
+                outs[i] = e.reason
+        srv.stop()
+        sides[side] = {"outs": outs, "ledger": srv.ledger(),
+                       "traces": [(t["outcome"], t.get("reason"))
+                                  for t in fluid.monitor.request_traces()]}
+    card_side, cpu_side = sides["card"], sides["cpu"]
+    worst = 0.0
+    for i, o in card_side["outs"].items():
+        c = cpu_side["outs"][i]
+        if isinstance(o, str) or isinstance(c, str):
+            if o != c:
+                raise AssertionError(f"serving_parity: request {i}: card {o!r}, CPU {c!r}")
+            continue
+        worst = max(worst, max_diff(o, c))
+    emit({"phase": "serving_parity", "model": "bert f32, 2 layers, encoder",
+          "max_abs_diff": worst, "tol": SERVING_PARITY_TOL, "ledger": card_side["ledger"],
+          "cpu_ledger": cpu_side["ledger"], "traces": sorted(set(card_side["traces"])),
+          "card": card})
+    if not worst <= SERVING_PARITY_TOL:
+        raise AssertionError(f"serving_parity: card vs CPU responses differ by {worst}")
+    if card_side["ledger"] != cpu_side["ledger"] or card_side["traces"] != cpu_side["traces"]:
+        raise AssertionError(f"serving_parity: ledgers {card_side['ledger']} vs "
+                             f"{cpu_side['ledger']}, traces differ")
+    if card_side["ledger"]["shed"] != 2 or card_side["ledger"]["timeouts"] != 1:
+        raise AssertionError(f"serving_parity: ledger {card_side['ledger']}")
+
+
+
+def serving_phases(fluid, torch, ck, tmp, card):
+    """Phases 56-60 (the serving runtime), each's seconds printed; returns
+    phase 56's launches."""
+    serving_t0 = phase_t0 = time.perf_counter()
+    srv, bert_dir, launches, steady_p99 = serving_bert(fluid, torch, ck, tmp, card)
+    emit({"phase_seconds": "serving_bert", "s": time.perf_counter() - phase_t0, "card": card})
+    phase_t0 = time.perf_counter()
+    serving_admission(fluid, torch, card, srv.registry)
+    emit({"phase_seconds": "serving_admission", "s": time.perf_counter() - phase_t0,
+          "card": card})
+    phase_t0 = time.perf_counter()
+    serving_publish(fluid, torch, card, tmp, srv, bert_dir, steady_p99)
+    srv.stop()
+    emit({"phase_seconds": "serving_publish", "s": time.perf_counter() - phase_t0,
+          "card": card})
+    del srv
+    phase_t0 = time.perf_counter()
+    serving_budget(fluid, torch, card, tmp, bert_dir)
+    emit({"phase_seconds": "serving_budget", "s": time.perf_counter() - phase_t0, "card": card})
+    phase_t0 = time.perf_counter()
+    serving_parity(fluid, torch, card, tmp)
+    emit({"phase_seconds": "serving_parity", "s": time.perf_counter() - phase_t0, "card": card})
+    emit({"phase_seconds": "phases 56-60", "s": time.perf_counter() - serving_t0, "card": card})
+    return launches
+
+
 def main():
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
@@ -6653,6 +7329,7 @@ def main():
         amp_resnet_parity(fluid, torch)
         emit({"phase_seconds": "amp_parity", "s": time.perf_counter() - phase_t0, "card": card})
         emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
+        served_bert = serving_phases(fluid, torch, ck, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6698,7 +7375,8 @@ def main():
              "word2vec_nce_train": (VISION_PER_STEP["word2vec_nce"], w2v_heads["nce"]),
              "word2vec_hsigmoid_train": (VISION_PER_STEP["word2vec_hsigmoid"],
                                          w2v_heads["hsigmoid"]),
-             "tagger_train": (TAGGER_PER_STEP, tagged)}
+             "tagger_train": (TAGGER_PER_STEP, tagged),
+             "serving_bert": (PER_REQUEST, served_bert)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

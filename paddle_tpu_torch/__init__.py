@@ -28,7 +28,11 @@ stages batches in pinned memory and uploads them on a side stream, or
 through `QueueDataset` / `Executor.train_from_dataset` (`dataset`,
 `datasets`); `CheckpointManager`, `resilient_train_loop`, `FaultInjector`
 and `integrity` make a single-device run survive bad batches, NaNs,
-device errors, storage faults and preemption, resuming bit for bit.  Every
+device errors, storage faults and preemption, resuming bit for bit.
+`serving` is the in-process serving runtime: a bounded queue batched into
+buckets replayed as CUDA graphs, deadlines, several models under a memory
+budget (priced by `core.resource_plan`), verified hot reload and rollback,
+and request traces.  Every
 op of the JAX package but the fake-quantize ops, `pipeline` and
 `ring_attention` has a lowering; `metrics`, `evaluator` and `debugger` are
 numpy-only copies.  `contrib.mixed_precision.decorate` trains in float16
@@ -43,12 +47,14 @@ from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noq
                models, monitor, nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
                recordio_writer, resilience)
+from . import serving  # noqa: F401
 from .checkpoint_manager import CheckpointManager  # noqa: F401
 from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from .faults import FaultInjector  # noqa: F401
 from .reader import DataFeeder, DataLoader, PyReader  # noqa: F401
 from .resilience import ResilienceStats, RetryPolicy, resilient_train_loop  # noqa: F401
 from .core import analysis, initializer, passes, regularizer, unique_name  # noqa: F401
+from .core import resource_plan  # noqa: F401
 from .core.autodiff import append_backward, calc_gradient  # noqa: F401
 from .backward import gradients  # noqa: F401
 from .core.executor import (  # noqa: F401

@@ -45,6 +45,11 @@ the reason in `plan.graph_refusal` and the counter
 `executor.graph_refused`.  A capture
 or replay that fails raises.
 
+`warm(...)` is `run` repeated until the step's plan holds its graph (the
+serving registry warms its buckets with it); `release_scope(scope)` drops
+every plan of a scope, its graph and its graph's memory pool with it (the
+serving registry calls it when it lets a model version go).
+
 `steps=K` runs K steps from feeds stacked on a leading [K] axis, uploaded
 once, and returns fetches stacked the same way; `run_async` returns
 `FetchHandle`s as soon as the step is enqueued, and the host copy, through
@@ -581,6 +586,23 @@ class Executor:
     def close(self):
         self._cache.clear()
 
+    def release_scope(self, scope: Scope) -> int:
+        """Drop every cached plan of `scope`, its CUDA graph, graph memory
+        pool and static buffers with it, so that the scope's tensors are
+        freed once nothing else holds them; returns how many were dropped.
+        A run already holding one of the plans finishes on it.  The serving
+        registry calls this when it lets a model version go."""
+        with self._cache_lock:
+            keys = [k for k in self._cache if k[4] == scope._uuid]
+            plans = [self._cache.pop(k) for k in keys]
+            if self.last_plan is not None and self.last_plan in plans:
+                self.last_plan = None
+        for plan in plans:
+            with plan._lock:
+                plan._drop_graph()
+        _MON.counter("executor.plans_released").inc(len(plans))
+        return len(plans)
+
     def run(
         self,
         program: Optional[Program] = None,
@@ -594,6 +616,20 @@ class Executor:
         """steps > 1 runs K steps: every feed must carry a leading [steps]
         axis and fetches come back stacked [steps, ...]."""
         return self._run_impl(program, feed, fetch_list, scope, return_numpy, steps, False)
+
+    def warm(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, object]] = None,
+        fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+        scope: Optional[Scope] = None,
+    ) -> List[object]:
+        """`run`, repeated on the card until the step's plan holds its CUDA
+        graph (a plan's first run is eager, its second captures), so that
+        the next run of these shapes replays.  A plan that cannot be
+        captured, and every plan on the CPU, runs once.  Returns the last
+        run's fetches."""
+        return self._run_impl(program, feed, fetch_list, scope, True, 1, False, warm=True)
 
     def run_async(
         self,
@@ -679,7 +715,8 @@ class Executor:
             scope.set_var(RNG_STATE_VAR, gen)
         return gen
 
-    def _run_impl(self, program, feed, fetch_list, scope, return_numpy, steps, async_mode):
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy, steps, async_mode,
+                  warm=False):
         program, remat = _unwrap(program if program is not None else default_main_program())
         scope = scope if scope is not None else global_scope()
         if steps < 1:
@@ -695,6 +732,8 @@ class Executor:
             self._side_stream = torch.cuda.Stream(self.place.device)
         if steps == 1:
             fetches = plan.run(scope, gen, feeds, self._side_stream)
+            if warm and plan.graphable and not plan.graphed:
+                fetches = plan.run(scope, gen, feeds, self._side_stream)  # captures
         else:
             per_step = [plan.run(scope, gen, {n: t[k] for n, t in feeds.items()},
                                  self._side_stream) for k in range(steps)]

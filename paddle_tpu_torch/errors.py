@@ -1,5 +1,5 @@
-"""Failure taxonomy (paddle_tpu/errors.py without the serving, parameter-
-server and distributed classes; same names, bases and messages).
+"""Failure taxonomy (paddle_tpu/errors.py without the parameter-server and
+distributed classes; same names, bases and messages).
 
     TrainingError         base: RuntimeError with step / batch / phase context
     DataError             a batch the input pipeline could not produce or
@@ -14,8 +14,7 @@ server and distributed classes; same names, bases and messages).
                           flush a checkpoint and exit resumable
     FatalError            what `classify` cannot place in a recoverable class
     LockTimeoutError      a named lock not acquired within its deadline
-                          (a FatalError; the port's locks carry no deadline
-                          yet, core/locks.py)
+                          (a FatalError; FLAGS_lock_timeout_s, core/locks.py)
     ResourceError         the program cannot fit in device memory (a
                           FatalError; the port has no static planner yet)
     CheckpointError       a checkpoint that must not be loaded as asked
@@ -25,6 +24,9 @@ server and distributed classes; same names, bases and messages).
                           fallback dir / degraded mode
     IntegrityError        a file named by a manifest no longer hashes to
                           its recorded sha256 and byte length (io.load_vars)
+    ServingError          the serving runtime (serving/) refused or failed a
+                          request or a control action on purpose; `reason`
+                          carries the stable code clients route on
 
 The build-time analysis failures (StaticAnalysisError and its subclasses,
 FatalErrors) live with the verifier in core/analysis.py, as in the JAX
@@ -44,7 +46,8 @@ import torch
 
 __all__ = ["TrainingError", "DataError", "NumericError", "TransientDeviceError",
            "PreemptionError", "FatalError", "CheckpointError", "ResourceError",
-           "LockTimeoutError", "IntegrityError", "StorageError", "attach_context",
+           "LockTimeoutError", "IntegrityError", "StorageError", "ServingError",
+           "attach_context",
            "get_context", "classify", "TRANSIENT_STORAGE_ERRNOS", "TERMINAL_STORAGE_ERRNOS"]
 
 # The storage-failure split: transient errnos may pass (space freed, a
@@ -116,9 +119,7 @@ class FatalError(TrainingError):
 class LockTimeoutError(FatalError):
     """A named lock's acquisition did not complete within its deadline: a
     deadlock or a lock held across blocking work, both program bugs.  The
-    JAX package raises it under FLAGS_lock_timeout_s; the port's locks carry
-    no deadline yet (core/locks.py), and `classify` places it as the JAX
-    package does.  `wanted` / `wanted_rank` name the
+    named locks raise it under FLAGS_lock_timeout_s (core/locks.py).  `wanted` / `wanted_rank` name the
     lock that timed out, `held` the [(name, rank), ...] the thread holds."""
 
     def __init__(self, message: str, *, wanted: Optional[str] = None,
@@ -234,6 +235,54 @@ class IntegrityError(TrainingError):
 _TRANSIENT_CODES = ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "ABORTED",
                     "DEADLINE_EXCEEDED", "CANCELLED")
 
+
+class ServingError(TrainingError):
+    """The serving runtime (serving/) refused or failed a request or a
+    control action by design:
+
+        reason="overload"          admission control shed the request (the
+                                   bounded queue was full)
+        reason="timeout"           the request's deadline expired before a
+                                   batch picked it up
+        reason="oversize"          more rows than the largest bucket; split it
+        reason="bad_request"       the request is malformed (empty, scalar,
+                                   mismatched batch dims, feed names or shapes
+                                   off the model's contract): refused at the
+                                   door so it never poisons a batch
+        reason="publish_rejected"  a staged snapshot failed verification and
+                                   was quarantined; the old model serves on
+        reason="publish_io"        store I/O failed the publish (retries
+                                   exhausted, or terminal): not quarantined
+        reason="hbm_budget"        the model does not fit the registry's
+                                   budget even after eviction
+        reason="model_missing"     no model under that name
+        reason="shutdown"          the server is draining or stopped
+        reason="unsupported"       the port cannot serve this yet (a
+                                   quantized model directory: ROADMAP A9.3)
+
+    "overload" / "timeout" are backpressure the client routes on; the rest
+    are operator-facing.  `model` names the model, `trace_id` the request
+    trace (serving/tracing.py) when the monitor was on."""
+
+    def __init__(self, message: str, *, reason: Optional[str] = None,
+                 model: Optional[str] = None,
+                 trace_id: Optional[str] = None, **kw):
+        kw.setdefault("phase", "serving")
+        super().__init__(message, **kw)
+        self.reason = reason
+        self.model = model
+        self.trace_id = trace_id
+
+    def __str__(self):
+        base = super().__str__()
+        ctx = []
+        if self.reason:
+            ctx.append(f"reason={self.reason}")
+        if self.model:
+            ctx.append(f"model={self.model}")
+        if self.trace_id:
+            ctx.append(f"trace={self.trace_id}")
+        return f"{base} [{', '.join(ctx)}]" if ctx else base
 
 def attach_context(exc: BaseException, *, step: Optional[int] = None,
                    batch_index: Optional[int] = None,

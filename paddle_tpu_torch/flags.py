@@ -44,6 +44,10 @@ def set_flags(flags: Dict[str, Any]):
         if k not in _REGISTRY:
             raise KeyError(f"unknown flag {k!r}; known: {sorted(_REGISTRY)}")
         _REGISTRY[k]["value"] = _coerce(_REGISTRY[k]["type"], v)
+        if k in ("FLAGS_lock_telemetry", "FLAGS_lock_timeout_s"):
+            from .core import locks as _locks
+
+            _locks.refresh_from_flags()
 
 
 def get_flags(names) -> Dict[str, Any]:
@@ -118,3 +122,37 @@ _define("FLAGS_publish_period_steps", int, 0,
         "resilient_train_loop calls its publish hook every N steps "
         "(resilience.py); a failed publish is counted and training goes on.  "
         "0 (default): no publish hook")
+_define("FLAGS_serving_max_queue", int, 256,
+        "admission bound on the serving runtime's request queue "
+        "(serving/server.py): a submit past this depth is shed with "
+        "ServingError(reason='overload'), counted in serving.shed; "
+        "Server(max_queue=...) overrides it")
+_define("FLAGS_serving_default_deadline_ms", float, 0.0,
+        "deadline of a serving submit that passes none: a request still queued "
+        "when it expires ends with ServingError(reason='timeout') and its batch "
+        "goes on without it.  0 (default): no deadline")
+_define("FLAGS_serving_hbm_budget_mb", float, 0.0,
+        "device-memory budget of the serving model registry (serving/"
+        "registry.py): a load past it evicts the least recently used models, "
+        "then refuses with ServingError(reason='hbm_budget').  0 (default): "
+        "unlimited")
+_define("FLAGS_serving_quant_atol", float, 5e-2,
+        "accuracy gate of publishing a quantized model over its float parent "
+        "(serving/publisher.py); a quantized directory is refused by the port "
+        "until int8 models load (ROADMAP A9.3)")
+_define("FLAGS_serving_slo_target", float, 0.99,
+        "good-fraction target of the serving SLO gauges (serving/server.py): "
+        "burn_rate = bad_frac / (1 - target); sheds, timeouts, errors and late "
+        "completions are bad, admission-door rejections are not SLO traffic")
+_define("FLAGS_serving_buckets", str, "1,2,4,8,16,32",
+        "comma-separated batch buckets the serving runtime warms (serving/"
+        "batcher.py): a batch pads up to the next bucket, so a novel size "
+        "builds no plan and, on the card, captures no CUDA graph")
+_define("FLAGS_lock_telemetry", bool, False,
+        "per-lock contention counters for every named lock (core/locks.py): "
+        "lock.<name>.acquires/contended/wait_us/hold_us and "
+        "lock.order_inversions.  Off (default): one branch over the raw lock")
+_define("FLAGS_lock_timeout_s", float, 0.0,
+        "deadline on every blocking named-lock acquisition (core/locks.py): "
+        "past it the acquire raises errors.LockTimeoutError naming the wanted "
+        "lock and every lock the thread holds.  0 (default): no deadline")

@@ -8,20 +8,26 @@ replayed as a CUDA graph on the card from its second request (the first
 runs eagerly).  `run` copies the outputs to the host through pinned
 memory; `run_zero_copy` leaves them on the device until `copy_to_cpu`,
 which takes the same pinned path.  `clone()` shares the program, the
-weights and the executor's plans; `run` / `run_zero_copy` hold a
-per-predictor re-entrant lock, and a zero-copy transaction spanning
-several calls holds `lock()`.
+weights and the executor's plans; `Predictor(config, executor=exe)` serves
+through a shared Executor (the serving registry passes one for every
+model, version and clone, so each bucket of a program has one plan).
+`run` / `run_zero_copy` hold the per-predictor re-entrant lock
+`inference.predictor` (rank 20), and a zero-copy transaction spanning
+several calls holds `lock()`.  Clones serving one bucket from several
+threads share its plan: the plan's own lock serialises its replays, and
+each replay returns clones of the graph's static outputs.
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from . import io as _io
+from .core import locks
 from .core.dtypes import to_numpy
-from .core.executor import CPUPlace, CUDAPlace, Executor, Place
+from .core.executor import CPUPlace, CUDAPlace, Executor, Place, TPUPlace  # noqa: F401
+from .core.program import Program  # noqa: F401
 from .core.scope import Scope
 
 
@@ -110,22 +116,28 @@ class PredictorTensor:
 
 
 class Predictor:
-    def __init__(self, config: AnalysisConfig, _shared=None):
+    def __init__(self, config: AnalysisConfig, _shared=None,
+                 executor: Optional[Executor] = None):
+        """`_shared` = (program, feed_names, fetch_names, scope) serves
+        already-loaded weights (clone, the serving publisher's staged
+        snapshot); `executor` shares its plans (default: a new one)."""
         self.config = config
-        if _shared is not None:  # clone: share program, weights and executor
-            self.program, self.feed_names, self.fetch_names, self.scope, self.exe = _shared
+        self.exe = (executor if executor is not None
+                    else Executor(config.place, _graphs=config._graphs))
+        if _shared is not None:
+            self.program, self.feed_names, self.fetch_names, self.scope = _shared
         else:
             self.scope = Scope()
-            self.exe = Executor(config.place, _graphs=config._graphs)
             self.program, self.feed_names, self.fetch_names = _io.load_inference_model(
                 config.model_dir, self.exe, scope=self.scope)
-        self._lock = threading.RLock()
+        self._lock = locks.named_rlock("inference.predictor", rank=20)
         self._inputs = {n: PredictorTensor(n) for n in self.feed_names}
         self._outputs = {n: PredictorTensor(n) for n in self.fetch_names}
 
-    def lock(self) -> threading.RLock:
-        """The per-predictor lock; hold it across copy_from_cpu ->
-        run_zero_copy -> copy_to_cpu when threads share one predictor."""
+    def lock(self) -> locks.NamedLock:
+        """The per-predictor re-entrant lock; hold it across copy_from_cpu ->
+        run_zero_copy -> copy_to_cpu when threads share one predictor (or
+        clone() per thread)."""
         return self._lock
 
     def run(self, feeds: Dict[str, np.ndarray], fetch_names: Optional[Sequence[str]] = None,
@@ -137,6 +149,16 @@ class Predictor:
             return self.exe.run(self.program, feed=dict(feeds),
                                 fetch_list=list(fetch_names or self.fetch_names),
                                 scope=self.scope, return_numpy=return_numpy)
+
+    def warm(self, feeds: Dict[str, np.ndarray]) -> List[object]:
+        """`run`, repeated until these shapes' plan replays a CUDA graph
+        (Executor.warm)."""
+        missing = set(self.feed_names) - set(feeds)
+        if missing:
+            raise KeyError(f"Predictor.warm: missing feeds {sorted(missing)}")
+        with self._lock:
+            return self.exe.warm(self.program, feed=dict(feeds),
+                                 fetch_list=list(self.fetch_names), scope=self.scope)
 
     def get_input_names(self) -> List[str]:
         return list(self.feed_names)
@@ -170,7 +192,7 @@ class Predictor:
         """Another predictor over the same program and weights, with its own
         handles and lock."""
         return Predictor(self.config, _shared=(
-            self.program, self.feed_names, self.fetch_names, self.scope, self.exe))
+            self.program, self.feed_names, self.fetch_names, self.scope), executor=self.exe)
 
 
 def create_predictor(config: AnalysisConfig) -> Predictor:

@@ -21,21 +21,23 @@ reports `executor.cache_hit` / `executor.cache_miss` (plan cache),
 kind="step" record a run; `pipeline.train_loop` the `pipeline.inflight`
 gauge, the `pipeline.host_blocked` span and kind="pipeline_step" records;
 memstats the lazy `memory.*` gauges.  `paddle_tpu_torch.profiler` is the
-Fluid profiler's surface over this module.  The request-trace ring and the
-exemplars come with serving (ROADMAP A9).
+Fluid profiler's surface over this module.  The serving runtime records
+its request traces (`record_trace`, `request_traces`) and the exemplars of
+slow or bad requests (`record_exemplar`, `exemplars`) here.
 """
 from __future__ import annotations
 
 from . import exporters as _exp
-from .core import (FLIGHT_RECORDER_CAP, NULL_SPAN, Counter, Gauge, Monitor,  # noqa: F401
-                   Span)
+from .core import (EXEMPLAR_CAP, FLIGHT_RECORDER_CAP, NULL_SPAN, TRACE_RING_CAP,  # noqa: F401
+                   Counter, Gauge, Monitor, Span)
 from .exporters import (MonitorLogger, escape_label_value, prometheus_text,  # noqa: F401
                         summary_table)
 from .memstats import register_memory_gauges
 
 __all__ = ["Counter", "Gauge", "Monitor", "MonitorLogger", "Span", "NULL_SPAN",
-           "FLIGHT_RECORDER_CAP", "MONITOR", "get_monitor", "enable", "disable", "is_enabled",
+           "FLIGHT_RECORDER_CAP", "TRACE_RING_CAP", "EXEMPLAR_CAP", "MONITOR", "get_monitor", "enable", "disable", "is_enabled",
            "reset", "span", "observe", "counter", "gauge", "record_step", "step_records",
+           "record_trace", "request_traces", "record_exemplar", "exemplars",
            "set_lane", "attach_logger", "detach_logger", "export_prometheus", "export_json",
            "json_snapshot", "export_chrome_trace", "merge_chrome_traces", "summary",
            "prometheus_text", "escape_label_value", "arm_flight_recorder", "dump_blackbox",
@@ -88,6 +90,22 @@ def record_step(record: dict):
 
 def step_records():
     return MONITOR.step_records()
+
+
+def record_trace(record: dict):
+    return MONITOR.record_trace(record)
+
+
+def request_traces():
+    return MONITOR.request_traces()
+
+
+def record_exemplar(record: dict):
+    return MONITOR.record_exemplar(record)
+
+
+def exemplars():
+    return MONITOR.exemplars()
 
 
 def set_lane(lane: int, name=None):

@@ -17,9 +17,12 @@ rings and the live counters and gauges there atomically (tmp + fsync +
 rename).  The first dump wins.  The resilience layer dumps on a SIGTERM
 drain and on a preemption, integrity.py when a divergence latches.
 
-The request-trace ring and the slow-request exemplars of the JAX package's
-monitor have no writer until serving is ported (ROADMAP A9); the black box
-keeps its `exemplars` key, empty.
+Request traces: the serving runtime (serving/tracing.py) closes one
+`serving_trace` record a request into a bounded ring (`record_trace`,
+`request_traces`; TRACE_RING_CAP), which also rides the step records, and
+keeps the slow or bad ones (shed, timeout, error, late, rejected publish)
+in an exemplar ring (`record_exemplar`, `exemplars`; EXEMPLAR_CAP) that
+the black box carries under `exemplars`.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ STEP_CAP = 50_000
 # flight-recorder ring depth: the last N step records and span events a
 # black box carries
 FLIGHT_RECORDER_CAP = 256
+# the newest closed request traces kept (serving/tracing.py)
+TRACE_RING_CAP = 1024
+# the slow / bad-request traces the black box keeps
+EXEMPLAR_CAP = 64
 
 
 class _NullSpan:
@@ -152,7 +159,7 @@ class Monitor:
 
     def __init__(self):
         self.enabled = False
-        self._lock = named_lock("monitor.registry", rank=64)
+        self._lock = named_lock("monitor.registry", rank=64, telemetry=False)
         self._tls = threading.local()
         # span aggregates: name -> [calls, total_s, max_s, min_s]
         self._agg: Dict[str, list] = {}
@@ -168,15 +175,18 @@ class Monitor:
         self._bb_path: Optional[str] = None
         self._bb_rank = 0
         self._bb_dumped: Optional[str] = None
+        self._traces: deque = deque(maxlen=TRACE_RING_CAP)
+        self._exemplars: deque = deque(maxlen=EXEMPLAR_CAP)
         # the dump latch: held across snapshot and write (not self._lock,
         # which the snapshot takes)
-        self._bb_dump_lock = named_lock("monitor.blackbox", rank=60)
+        self._bb_dump_lock = named_lock("monitor.blackbox", rank=60,
+                                        telemetry=False)
         # this process's lane in a merged multi-process trace
         self.lane = 0
         self.lane_name = "paddle_tpu"
         # the steps/sec EMA has its own lock: record_step also takes the
         # registry lock, and nesting the two would invite deadlock
-        self._rate_lock = named_lock("monitor.rate", rank=62)
+        self._rate_lock = named_lock("monitor.rate", rank=62, telemetry=False)
         self._last_step_t: Optional[float] = None
         self._steps_per_sec_ema = 0.0
 
@@ -196,6 +206,8 @@ class Monitor:
             self._steps.clear()
             self._bb_steps.clear()
             self._bb_events.clear()
+            self._traces.clear()
+            self._exemplars.clear()
             # a reset starts a fresh run: the dump latch re-opens (the armed
             # path survives)
             self._bb_dumped = None
@@ -319,6 +331,36 @@ class Monitor:
         with self._lock:
             return list(self._steps)
 
+    # -- request traces ----------------------------------------------------
+    def record_trace(self, record: dict):
+        """Append one closed request trace (a `serving_trace` record of
+        serving/tracing.py) to the bounded ring, and pass it through
+        `record_step` so it rides the JSONL stream and the black box."""
+        if not self.enabled:
+            return
+        record = dict(record)
+        record.setdefault("kind", "serving_trace")
+        with self._lock:
+            self._traces.append(record)
+        self.record_step(record)
+
+    def request_traces(self) -> List[dict]:
+        """The newest TRACE_RING_CAP closed request traces."""
+        with self._lock:
+            return list(self._traces)
+
+    def record_exemplar(self, record: dict):
+        """Keep a slow or bad request's trace (deadline miss, shed, error,
+        rejected publish) in the exemplar ring the black box carries."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._exemplars.append(dict(record))
+
+    def exemplars(self) -> List[dict]:
+        with self._lock:
+            return list(self._exemplars)
+
     # -- flight recorder ---------------------------------------------------
     def arm_flight_recorder(self, path: str, rank: int = 0) -> "Monitor":
         """Name the black-box destination (`BLACKBOX.p<rank>.json`).  Arming
@@ -336,6 +378,7 @@ class Monitor:
         counters and gauges."""
         with self._lock:
             steps = list(self._bb_steps)
+            exemplars = list(self._exemplars)
             events = [{"name": n, "ts": ts, "dur_s": dur, "tid": tid, "depth": depth,
                        "args": ({k: str(v) for k, v in args.items()} if args else None)}
                       for (n, ts, dur, tid, depth, args) in self._bb_events]
@@ -346,7 +389,7 @@ class Monitor:
         return {"kind": "blackbox", "reason": str(reason), "rank": self._bb_rank,
                 "pid": os.getpid(), "ts": time.time(), "lane": self.lane,
                 "lane_name": self.lane_name, "steps": steps, "events": events,
-                "exemplars": [], "counters": self.counter_values(), "gauges": gauges}
+                "exemplars": exemplars, "counters": self.counter_values(), "gauges": gauges}
 
     def dump_blackbox(self, reason: str = "manual", path: Optional[str] = None) -> Optional[str]:
         """Write the black box atomically (tmp + fsync + rename) and return

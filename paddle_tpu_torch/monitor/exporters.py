@@ -9,8 +9,9 @@ One source of truth (monitor.core.Monitor), several formats:
     depth kept), and the merge of several processes' traces;
   * the summary table the Fluid profiler printed;
   * MonitorLogger: a JSONL appender of step records and snapshots;
-  * the per-worker telemetry plane (`init_worker_telemetry`).
-The JAX package's request-trace lanes come with serving (ROADMAP A9).
+  * the per-worker telemetry plane (`init_worker_telemetry`);
+  * the serving runtime's request traces as Chrome-trace async lanes
+    (`request_trace_events`), inside the same trace document.
 """
 from __future__ import annotations
 
@@ -117,6 +118,37 @@ def export_json(mon, path: str, include_steps: bool = True) -> str:
     return path
 
 
+def request_trace_events(mon, pid: Optional[int] = None) -> list:
+    """The monitor's request traces (serving/tracing.py) as Chrome-trace
+    async lanes: a b/e pair a span, keyed by the request's trace id, so a
+    request shows from submit to respond above the executor spans that
+    served it."""
+    pid = mon.lane if pid is None else pid
+    events = []
+    for tr in getattr(mon, "request_traces", list)() or ():
+        rid = str(tr.get("trace_id", "?"))
+        t0_us = float(tr.get("ts", 0.0) or 0.0) * 1e6
+        spans = tr.get("spans") or ()
+        for i, sp in enumerate(spans):
+            ts = t0_us + float(sp.get("t_ms", 0.0) or 0.0) * 1e3
+            b = {"name": f"req.{sp.get('name', '?')}", "ph": "b",
+                 "cat": "request", "id": rid, "pid": pid, "tid": 0,
+                 "ts": ts}
+            if i == 0:
+                b["args"] = {"trace_id": rid,
+                             "model": str(tr.get("model", "")),
+                             "outcome": str(tr.get("outcome", "")),
+                             "reason": str(tr.get("reason", "")),
+                             "bucket": str(tr.get("bucket", "")),
+                             "pad_rows": str(tr.get("pad_rows", ""))}
+            events.append(b)
+            events.append({"name": b["name"], "ph": "e", "cat": "request",
+                           "id": rid, "pid": pid, "tid": 0,
+                           "ts": ts + float(sp.get("dur_ms", 0.0) or 0.0)
+                           * 1e3})
+    return events
+
+
 def chrome_trace_events(mon, pid: Optional[int] = None,
                         process_name: Optional[str] = None) -> list:
     pid = mon.lane if pid is None else pid
@@ -128,13 +160,15 @@ def chrome_trace_events(mon, pid: Optional[int] = None,
         if args:
             ev["args"] = {k: str(v) for k, v in args.items()}
         events.append(ev)
+    events.extend(request_trace_events(mon, pid))
     return events
 
 
 def export_chrome_trace(mon, path: str, pid: Optional[int] = None,
                         process_name: Optional[str] = None) -> int:
     """Write buffered span events as Chrome trace JSON; returns the number
-    of span events written (metadata rows excluded)."""
+    of span events written (metadata rows and request-lane events
+    excluded)."""
     events = chrome_trace_events(mon, pid, process_name)
     with open(path, "w") as f:
         json.dump({"traceEvents": events}, f)
@@ -205,7 +239,7 @@ class MonitorLogger:
         # records arrive from more than one thread (the heartbeat thread
         # emits dist_events, the training thread emits steps); a lock keeps
         # lines whole — interleaved partial writes would tear the JSONL
-        self._wlock = named_lock("monitor.logger", rank=66)
+        self._wlock = named_lock("monitor.logger", rank=66, telemetry=False)
 
     def bind(self, mon):
         self._mon = mon

@@ -1340,3 +1340,105 @@ def test_float16_overflow_is_inf_where_the_plain_version_has_it_on_card():
     up = torch.full((8,), 2.0 ** 32 / 8, device="cuda")
     want = ck.softmax_xent_bwd_plain(logits, labels, lse, up)
     hold(ck.softmax_xent_bwd(logits, labels, lse, up), want, ck.stored_step(h, want) + 1e-12)
+
+
+def _tiny_encoder_dir(tmp_path):
+    """The tiny zoo BERT through the two fusion passes, saved for inference
+    with its encoder's hidden states [batch, 16, 32] as the output, weights
+    from seed 0."""
+    with fluid.unique_name.guard():
+        main, startup, _, _ = transformer.build_bert(dtype="bfloat16", **TINY)
+    logits = next(op for op in main.global_block().ops
+                  if op.type == "softmax_with_cross_entropy").input("Logits")[0]
+    for p in ("fuse_ln_residual", "fuse_bias_act"):
+        fluid.passes.apply_pass(main, p, keep=[logits])
+    head = next(op for op in main.global_block().ops if "bert.lm_head.w" in op.input_arg_names)
+    hidden = next(n for n in head.input_arg_names if n != "bert.lm_head.w")
+    startup.random_seed = 0
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    d = str(tmp_path / "encoder")
+    fluid.io.save_inference_model(d, ["ids", "pos_ids"], [hidden], exe, main, scope)
+    return d
+
+
+def _tiny_request(rows, seed):
+    full = transformer.make_fake_batch(rows, TINY["seq_len"], TINY["vocab_size"],
+                                       rng=np.random.RandomState(seed))
+    return {"ids": full["ids"], "pos_ids": full["pos_ids"]}
+
+
+def _plans(registry, version):
+    return [p for k, p in registry.executor._cache.items() if k[4] == version.scope._uuid]
+
+
+@pytest.mark.gpu
+def test_a_warmed_bucket_is_graphed_on_card(tmp_path):
+    """Server.load_model leaves each bucket's plan holding a CUDA graph, and
+    traffic of novel sizes captures nothing and builds no plan."""
+    _need_card()
+    d = _tiny_encoder_dir(tmp_path)
+    fluid.monitor.reset()
+    fluid.monitor.enable()
+    try:
+        registry = fluid.serving.ModelRegistry()
+        with fluid.serving.Server(registry, buckets=(1, 4, 8), workers=2) as srv:
+            version = srv.load_model("m", d)
+            plans = _plans(registry, version)
+            assert len(plans) == 3 and all(p.graphed for p in plans)
+            capture0 = fluid.monitor.counter("executor.graph_capture").value
+            miss0 = fluid.monitor.counter("executor.cache_miss").value
+            before = dict(ck.LAUNCHES)
+            eager = fluid.inference.AnalysisConfig(d)
+            eager._graphs = False
+            direct = fluid.inference.create_predictor(eager)
+            for i, rows in enumerate((3, 1, 7, 2, 8, 5)):
+                feed = _tiny_request(rows, i)
+                (out,) = srv.infer("m", feed)
+                want = direct.run(feed)[0]
+                assert out.shape == (rows, TINY["seq_len"], TINY["d_model"])
+                assert np.abs(out.astype(np.float32) - want.astype(np.float32)).max() <= 5e-2
+            assert fluid.monitor.counter("executor.graph_capture").value == capture0
+            assert fluid.monitor.counter("executor.cache_miss").value == miss0 + 6  # direct's
+            served = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+            assert served == {k: 6 * v for k, v in dict(
+                NO_LAUNCHES, ln_residual_fwd=5, bias_act_fwd=2, attention_fwd=2).items()}
+    finally:
+        fluid.monitor.disable()
+
+
+@pytest.mark.gpu
+def test_an_evicted_models_bytes_are_freed_on_card(tmp_path):
+    """Evicting a graphed model gives its weights and its graphs' pools back
+    to the allocator: memory_allocated comes back to what the survivor
+    holds alone."""
+    _need_card()
+    import gc
+
+    d = _tiny_encoder_dir(tmp_path)
+    d2 = str(tmp_path / "encoder2")
+    import shutil
+
+    shutil.copytree(d, d2)
+    need = fluid.serving.plan_model_bytes(d, 8)
+    registry = fluid.serving.ModelRegistry(hbm_budget_mb=need * 1.2 / 1e6)
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    registry.load("b", d2, warm_buckets=(1, 8))  # makes the side stream's workspaces
+    registry.unload("b")
+    base = allocated()
+    registry.load("b", d2, warm_buckets=(1, 8))
+    alone = allocated()
+    own = alone - base  # the model's weights, graph pools and static buffers
+    assert own > 0
+    registry.unload("b")
+    assert abs(allocated() - base) <= 0.01 * own
+    registry.load("a", d, warm_buckets=(1, 8))
+    assert abs(allocated() - base - own) <= 0.01 * own  # the same model, the same bytes
+    registry.load("b", d2, warm_buckets=(1, 8))  # evicts "a"
+    assert sorted(registry.models()) == ["b"]
+    assert abs(allocated() - alone) <= 0.01 * own
