@@ -326,6 +326,42 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      card and one on the CPU, the same 12 requests (two shed, one timed
      out): responses within 1e-3, ledgers and trace outcomes equal;
      phases 56-60's seconds printed.
+Before the fleet phases the process drops what phases 56-60 held, releases
+the allocator's cached blocks and prints torch.cuda.mem_get_info().
+ 61. fleet_serve: phase 56's BERT-base saved with the first token's hidden
+     state [rows, 1, 768] as its output (a slice of the encoder's) and
+     served by ServingFleet(n_replicas=2, buckets=(1, 8, 32)) on the card:
+     two replica processes, each a Server with its own CUDA context, behind
+     the router and its JSON wire; 4 clients send 400 requests of 1-32 rows
+     through fleet.infer: each response within 5e-2 of a direct eager run,
+     requests == completed with no error, both replicas served, each
+     replica's replica_up record shows the LayerNorm, bias-act and
+     attention forward launched (a warm-up and a capture a bucket);
+     boot-to-healthy seconds, requests/s, rows/s, router p50 / p99,
+     completed per replica, the ledger and each replica's largest sampled
+     allocated bytes printed beside phase 56's requests/s and p99;
+ 62. fleet_roll: rolling_publish of the fleet model with phase 58's
+     committed checkpoint weights while 4 clients submit: nothing dropped,
+     each response the old or the new version's direct eager output (the
+     nearer in L2, within 5e-2 and a quarter of their distance), every one
+     submitted after the roll the new; both replicas active on it and
+     ACTIVE.json naming it; then a roll of phase 58's NaN-weight snapshot
+     halts at the first replica (roll_halted, roll_rolled_back), leaves its
+     quarantine marker, and no response comes from it;
+     tools/serve_trace.py --fleet --check and tools/perf_report.py --check
+     router.jsonl --check-roll-convergence pass over the fleet's telemetry;
+     the roll's seconds and the p99 during it printed beside phase 61's;
+ 63. fleet_kill: SIGKILL replica 1 under load: the only errors are
+     replica_down, at most its inflight cap; the survivor serves the new
+     traffic; replica_dead and replica_restarted appear; the restarted
+     replica reaches healthy on the rolled version and its responses meet
+     phase 61's rule; fleet.stop() drains both replicas (exit 0, nothing
+     shed), requests == completed + errors exactly, and each incarnation
+     that drained launched nothing under traffic (its replica_drained
+     count is its replica_up count plus a warm for each version it
+     staged); the seconds to detect the death and from restart to healthy
+     printed; phases 61-63's seconds printed.  The kernels line's path
+     serving_fleet sums the replicas' records.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -383,6 +419,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -6669,7 +6706,7 @@ def serving_bert(fluid, torch, ck, tmp, card):
     executor.cache_miss do not move under the traffic; the ledger balances
     with no shed and no error; a profiled replay shows 25 LN, 12 bias-act
     and 12 attention kernels.  Returns (server, model dir, launches,
-    steady p99 ms)."""
+    traffic record)."""
     import numpy as np
 
     serving = fluid.serving
@@ -6760,7 +6797,7 @@ def serving_bert(fluid, torch, ck, tmp, card):
     del eager
     profile_replay(torch, "serving_bert batch of 32 rows",
                    lambda: srv.infer("bert", requests[int(np.argmax(rows))]), card, PER_REQUEST)
-    return srv, model_dir, launches, lat["p99"]
+    return srv, model_dir, launches, record
 
 
 def serving_admission(fluid, torch, card, registry):
@@ -6863,7 +6900,8 @@ def serving_publish(fluid, torch, card, tmp, srv, model_dir, steady_p99):
     with a truncated shard, are each rejected and quarantined while the old
     version serves on.  p99
     during the publish (the staged buckets' captures included) printed
-    beside phase 56's steady p99."""
+    beside phase 56's steady p99.  Returns the committed checkpoint's and
+    the NaN-weight snapshot's directories."""
     import threading
 
     import numpy as np
@@ -6905,6 +6943,7 @@ def serving_publish(fluid, torch, card, tmp, srv, model_dir, steady_p99):
     t_pub0 = time.perf_counter()
     srv.publish("bert", cm)
     t_swap = time.perf_counter()
+    checkpoint = cm.latest()
     del cm  # its training scope
     time.sleep(0.5)
     stop.set()
@@ -6970,6 +7009,7 @@ def serving_publish(fluid, torch, card, tmp, srv, model_dir, steady_p99):
             raise AssertionError(f"serving_publish: after the {what} rejection the server "
                                  f"serves {still} off the old outputs")
     emit({"phase": "serving_publish", "rejected": rejected, "card": card})
+    return {"checkpoint": checkpoint, "nan_weight": bad["nan_weight"]}
 
 
 def serving_budget(fluid, torch, card, tmp, bert_dir):
@@ -7142,16 +7182,21 @@ def serving_parity(fluid, torch, card, tmp):
 
 def serving_phases(fluid, torch, ck, tmp, card):
     """Phases 56-60 (the serving runtime), each's seconds printed; returns
-    phase 56's launches."""
+    phase 56's launches and what the fleet phases take from 56 and 58: the
+    fleet's model (phase 56's weights), the checkpoint and the NaN-weight
+    snapshot of phase 58, phase 56's traffic record."""
     serving_t0 = phase_t0 = time.perf_counter()
-    srv, bert_dir, launches, steady_p99 = serving_bert(fluid, torch, ck, tmp, card)
+    srv, bert_dir, launches, steady = serving_bert(fluid, torch, ck, tmp, card)
+    steady_p99 = steady["p99_ms"]
+    fleet_dir = os.path.join(tmp, "bert_base_bf16_first_token")
+    save_fleet_encoder(fluid, fleet_dir, srv.registry.acquire("bert"))
     emit({"phase_seconds": "serving_bert", "s": time.perf_counter() - phase_t0, "card": card})
     phase_t0 = time.perf_counter()
     serving_admission(fluid, torch, card, srv.registry)
     emit({"phase_seconds": "serving_admission", "s": time.perf_counter() - phase_t0,
           "card": card})
     phase_t0 = time.perf_counter()
-    serving_publish(fluid, torch, card, tmp, srv, bert_dir, steady_p99)
+    snapshots = serving_publish(fluid, torch, card, tmp, srv, bert_dir, steady_p99)
     srv.stop()
     emit({"phase_seconds": "serving_publish", "s": time.perf_counter() - phase_t0,
           "card": card})
@@ -7163,10 +7208,480 @@ def serving_phases(fluid, torch, ck, tmp, card):
     serving_parity(fluid, torch, card, tmp)
     emit({"phase_seconds": "serving_parity", "s": time.perf_counter() - phase_t0, "card": card})
     emit({"phase_seconds": "phases 56-60", "s": time.perf_counter() - serving_t0, "card": card})
+    return launches, dict(snapshots, model_dir=fleet_dir, steady=steady)
+
+
+FLEET_REPLICAS = 2
+FLEET_BUCKETS = (1, 8, 32)
+FLEET_CLIENTS = 4
+FLEET_REQUESTS = 400
+FLEET_BOOT_S = 120.0  # a replica's boot: imports, CUDA context, load, warm
+FLEET_SETTLE_S = 30.0
+# a replica's launches at a load or a stage: a warm-up and a capture a
+# bucket (at a stage the golden smoke is bucket 1's warm-up)
+FLEET_WARM = {k: 2 * len(FLEET_BUCKETS) * v for k, v in PER_REQUEST.items()}
+
+
+def save_fleet_encoder(fluid, dirname, version):
+    """Phase 56's served BERT-base (the registry's active version: its
+    program and the weights in its scope) saved for the fleet with the
+    first token's hidden state, [rows, 1, 768], as its output: a slice of
+    the encoder's [rows, 128, 768].  That is the sentence vector a
+    sentence-encoding service returns, and it keeps a response on the
+    fleet's JSON wire (the JAX package's: lists of numbers) a 128th of
+    the hidden states'."""
+    program = version.program.clone()
+    with fluid.program_guard(program, fluid.Program()):
+        hidden = program.global_block().var(version.fetch_names[0])
+        first = fluid.layers.slice(hidden, axes=[1], starts=[0], ends=[1])
+    fluid.io.save_inference_model(dirname, version.feed_names, [first], None, program,
+                                  version.scope)
+
+
+def fleet_events(fleet, action=None):
+    path = os.path.join(fleet.root, "telemetry", "router.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return [r for r in recs if r.get("kind") == "fleet_event"
+            and (action is None or r.get("action") == action)]
+
+
+def fleet_logs(fleet):
+    """The tail of every replica incarnation's standard error."""
+    logs = os.path.join(fleet.root, "logs")
+    tails = []
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        if name.endswith(".err"):
+            with open(os.path.join(logs, name), errors="replace") as f:
+                tails.append(f"== {name}\n{f.read()[-3000:]}")
+    return "\n".join(tails)
+
+
+def fleet_wait(fleet, cond, what, timeout):
+    """Poll `cond()` until it is truthy (returned); past `timeout` raise
+    with the replicas' logs."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: waited {timeout}s for {what}; events "
+                                 f"{[e['action'] for e in fleet_events(fleet)]}\n"
+                                 + fleet_logs(fleet))
+        time.sleep(0.02)
+
+
+def fleet_listening(fleet, ranks):
+    """The ranks alive in the health table with their serving port beaten."""
+    table = fleet.health.poll()
+    return [r for r in ranks if table[r]["status"] == "alive"
+            and (table[r]["tel"] or {}).get("port")]
+
+
+def fleet_records(fleet):
+    """Each replica incarnation's telemetry: {incarnation: {"rank", "up",
+    "drained" (the launches of its replica_up / replica_drained records,
+    None where there is none), "peak_bytes" (the largest
+    memory.device_bytes_in_use its snapshots sampled), "counters" (its
+    last snapshot's)}}."""
+    out = {}
+    tel = os.path.join(fleet.root, "telemetry")
+    for inc in os.listdir(tel):
+        if not inc.startswith("i"):
+            continue
+        for name in os.listdir(os.path.join(tel, inc)):
+            if not (name.startswith("metrics.p") and name.endswith(".jsonl")):
+                continue
+            rec = {"rank": int(name[len("metrics.p"):-len(".jsonl")]), "up": None,
+                   "drained": None, "peak_bytes": 0.0, "counters": {}, "snapshot_ts": 0.0}
+            with open(os.path.join(tel, inc, name)) as f:
+                for line in f:
+                    r = json.loads(line)
+                    if r.get("kind") == "serving_event" and r.get("action") in (
+                            "replica_up", "replica_drained"):
+                        rec["up" if r["action"] == "replica_up" else "drained"] = r["launches"]
+                    elif r.get("kind") == "snapshot":
+                        used = r["gauges"].get("memory.device_bytes_in_use")
+                        if used is not None and used == used:
+                            rec["peak_bytes"] = max(rec["peak_bytes"], used)
+                        rec["counters"], rec["snapshot_ts"] = r["counters"], r["ts"]
+            out[int(inc[1:])] = rec
+    return out
+
+
+def fleet_stages(fleet):
+    """{incarnation: versions it staged}: each replica_staged or
+    replica_restaged event of a rank goes to that rank's incarnation of the
+    moment (fleet_started spawns incarnations 1..n in rank order,
+    replica_restarted names the next)."""
+    current, staged = {}, {}
+    for e in fleet_events(fleet):
+        if e["action"] == "fleet_started":
+            current = {r: r + 1 for r in range(e["n_replicas"])}
+        elif e["action"] == "replica_restarted":
+            current[e["rank"]] = e["incarnation"]
+        elif e["action"] in ("replica_staged", "replica_restaged"):
+            inc = current[e["rank"]]
+            staged[inc] = staged.get(inc, 0) + 1
+    return staged
+
+
+def fleet_settled(fleet, since):
+    """Every snapshot the fleet's tools read was written after `since`:
+    the router's and each live replica's."""
+    snaps = []
+    path = os.path.join(fleet.root, "telemetry", "router.jsonl")
+    with open(path) as f:
+        snaps = [json.loads(line)["ts"] for line in f if '"kind": "snapshot"' in line]
+    if not snaps or snaps[-1] <= since:
+        return False
+    with fleet._lock:
+        live = {rep["incarnation"] for rep in fleet._replicas.values()}
+    recs = fleet_records(fleet)
+    return all(recs.get(i, {}).get("snapshot_ts", 0.0) > since for i in live)
+
+
+def fleet_serve(fluid, card, tmp, model_dir, steady):
+    """Phase 61: ServingFleet({"bert": model_dir}, n_replicas=FLEET_REPLICAS,
+    buckets=FLEET_BUCKETS) on the card; FLEET_CLIENTS clients send
+    FLEET_REQUESTS requests of seeded 1-32 rows through fleet.infer.  Each
+    response is held within SERVE_TOL of a direct eager run of the same
+    model in this process; requests == completed with no error; both
+    replicas served; each replica's replica_up record shows FLEET_WARM.
+    Returns the fleet."""
+    import numpy as np
+
+    rng = np.random.RandomState(61)
+    rows = rng.randint(1, 33, FLEET_REQUESTS)
+    requests = [bert_request(int(r), rng) for r in rows]
+    eager = eager_predictor(fluid, model_dir)
+    want = [eager.run(r)[0] for r in requests]
+    del eager
+    t0 = time.perf_counter()
+    fleet = fluid.serving.ServingFleet({"bert": model_dir}, n_replicas=FLEET_REPLICAS,
+                                       root=os.path.join(tmp, "fleet"), buckets=FLEET_BUCKETS)
+    healthy_s = {}
+
+    def booted():
+        for r in fleet_listening(fleet, range(FLEET_REPLICAS)):
+            healthy_s.setdefault(r, time.perf_counter() - t0)
+        if fleet_events(fleet, "replica_dead"):
+            raise AssertionError("fleet_serve: a replica died booting\n" + fleet_logs(fleet))
+        return len(healthy_s) == FLEET_REPLICAS
+
+    try:
+        fleet_wait(fleet, booted, "both replicas listening", FLEET_BOOT_S)
+        t0 = time.perf_counter()
+        threads, done = run_clients(fleet, "bert", requests, FLEET_CLIENTS)
+        for t in threads:
+            t.join()
+        wall_s = time.perf_counter() - t0
+        errors = [r for r in done if isinstance(r[1], BaseException)]
+        ledger = fleet.stats()
+        recs = fleet_records(fleet)
+        client_ms = [(t1 - ts) * 1e3 for _, _, ts, t1 in done]
+        record = {"phase": "fleet_serve", "replicas": FLEET_REPLICAS, "buckets": FLEET_BUCKETS,
+                  "boot_to_healthy_s": healthy_s, "requests": len(done), "errors": len(errors),
+                  "wall_s": wall_s, "requests_per_s": len(done) / wall_s,
+                  "rows_per_s": int(rows.sum()) / wall_s, "router_p50_ms": pct(client_ms, 50),
+                  "router_p99_ms": pct(client_ms, 99),
+                  "completed_per_replica": ledger["routed"], "ledger": ledger,
+                  "replica_peak_allocated_bytes": {
+                      recs[i]["rank"]: recs[i]["peak_bytes"] for i in sorted(recs)},
+                  "replica_up_launches": {recs[i]["rank"]: recs[i]["up"] for i in sorted(recs)},
+                  "phase56_requests_per_s": steady["requests_per_s"],
+                  "phase56_p99_ms": steady["p99_ms"], "card": card}
+        emit(record)
+        if errors:
+            raise AssertionError(f"fleet_serve: {len(errors)} requests failed: {errors[0][1]!r}")
+        if not (ledger["requests"] == ledger["completed"] == FLEET_REQUESTS
+                and ledger["errors"] == 0):
+            raise AssertionError(f"fleet_serve: ledger {ledger}")
+        if sorted(r for r, n in ledger["routed"].items() if n > 0) != list(range(FLEET_REPLICAS)):
+            raise AssertionError(f"fleet_serve: not every replica served: {ledger['routed']}")
+        for inc, rec in recs.items():
+            if rec["up"] is None or {k: rec["up"][k] for k in FLEET_WARM} != FLEET_WARM:
+                raise AssertionError(f"fleet_serve: replica {rec['rank']} (incarnation {inc}) "
+                                     f"booted with launches {rec['up']}, want {FLEET_WARM}")
+        worst = 0.0
+        for i, out, _, _ in done:
+            if out.shape != want[i].shape or out.shape[:2] != (rows[i], 1) or \
+                    not np.isfinite(out.astype(np.float32)).all():
+                raise AssertionError(f"fleet_serve: request {i} gave {out.shape}")
+            worst = max(worst, max_diff(out, want[i]))
+        emit({"phase": "fleet_serve", "vs_direct_eager_max_abs": worst, "tol": SERVE_TOL,
+              "compared": len(done)})
+        if not worst <= SERVE_TOL:
+            raise AssertionError(f"fleet_serve: a response differs from its direct eager run "
+                                 f"by {worst} > {SERVE_TOL}")
+        return fleet, record
+    except BaseException:
+        fleet.stop()
+        raise
+
+
+def run_tool(*argv):
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", argv[0]), *argv[1:]],
+                       capture_output=True, text=True, timeout=120)
+    emit({"phase": "fleet_roll", "tool": " ".join(argv[:2]), "rc": r.returncode,
+          "out": r.stdout[-600:]})
+    if r.returncode != 0:
+        raise AssertionError(f"fleet_roll: {' '.join(argv)} failed:\n{r.stdout[-3000:]}"
+                             f"\n{r.stderr[-3000:]}")
+
+
+def fleet_roll(fluid, torch, card, tmp, fleet, model_dir, snapshots, steady_p99):
+    """Phase 62: the fleet's model with phase 58's committed checkpoint
+    weights, saved as a snapshot, rolled by fleet.rolling_publish while
+    FLEET_CLIENTS clients cycle through PUBLISH_POOL requests: none dropped,
+    each response the old or the new version's direct eager output (phase
+    58's rule), every one submitted after the roll the new; both replicas
+    active on the new and ACTIVE.json naming it.  Then a roll of phase
+    58's NaN-weight snapshot (a copy without its quarantine marker) halts at
+    the first replica with roll_halted and roll_rolled_back, leaves the
+    marker, and no response comes from it.  The stdlib-only tools then
+    check the fleet's telemetry.  Returns (pool, new outputs, new dir)."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.RandomState(620)
+    pool = [bert_request(int(r), rng) for r in rng.randint(1, 33, PUBLISH_POOL)]
+    old = eager_predictor(fluid, model_dir)
+    old_out = [old.run(f)[0] for f in pool]
+    params = [v.name for v in fluid.io._persistables(old.program)]
+    del old
+    new = eager_predictor(fluid, model_dir)
+    fluid.io.load_sharded(snapshots["checkpoint"], var_names=params, scope=new.scope,
+                          device=torch.device("cuda:0"))
+    new_dir = os.path.join(tmp, "bert_base_bf16_first_token_finetuned")
+    fluid.io.save_inference_model(new_dir, new.feed_names, new.fetch_names, new.exe, new.program,
+                                  new.scope)
+    new_out = [new.run(f)[0] for f in pool]
+    del new
+    apart = [l2_diff(a, b) for a, b in zip(old_out, new_out)]
+    if not min(apart) > 0:
+        raise AssertionError("fleet_roll: the versions agree on a request")
+    bad_dir = os.path.join(tmp, "bert_nan_fleet")
+    shutil.copytree(snapshots["nan_weight"], bad_dir,
+                    ignore=shutil.ignore_patterns(fluid.serving.QUARANTINE_MARKER))
+    led0 = fleet.stats()
+    stop = threading.Event()
+    threads, done = run_clients(fleet, "bert", pool, FLEET_CLIENTS, stop, 1)
+    fleet_wait(fleet, lambda: len(done) >= FLEET_CLIENTS, "traffic before the roll", 60)
+    t_roll0 = time.perf_counter()
+    fleet.rolling_publish("bert", new_dir)
+    t_roll1 = time.perf_counter()
+    actives = fleet.active_versions("bert")
+    with open(os.path.join(fleet.root, "ACTIVE.json")) as f:
+        active_src = json.load(f)["models"]["bert"]["src"]
+    try:
+        fleet.rolling_publish("bert", bad_dir)
+        raise AssertionError("fleet_roll: the NaN-weight snapshot rolled")
+    except fluid.errors.ServingError as e:
+        if e.reason != "roll_halted" or e.__cause__.reason != "publish_rejected":
+            raise
+        halted = str(e.__cause__)[:200]
+    t_bad1 = time.perf_counter()
+    n = len(done)
+    fleet_wait(fleet, lambda: len(done) >= n + FLEET_CLIENTS, "traffic after the rolls", 60)
+    stop.set()
+    for t in threads:
+        t.join()
+    t_after = time.time()
+    errors = [r for r in done if isinstance(r[1], BaseException)]
+    matched, during, worst_near = {"old": 0, "new": 0}, [], 0.0
+    for i, out, ts, td in done:
+        if isinstance(out, BaseException):
+            continue
+        if not np.isfinite(out.astype(np.float32)).all():
+            raise AssertionError(f"fleet_roll: request {i} served non-finite values")
+        d_old, d_new = l2_diff(out, old_out[i]), l2_diff(out, new_out[i])
+        which = "new" if d_new < d_old else "old"
+        near = max_diff(out, (new_out if which == "new" else old_out)[i])
+        if near > SERVE_TOL or min(d_old, d_new) > apart[i] / 4:
+            raise AssertionError(f"fleet_roll: request {i} matches neither version (L2 to old "
+                                 f"{d_old}, to new {d_new}, apart {apart[i]}; max abs to the "
+                                 f"nearer {near})")
+        worst_near = max(worst_near, near)
+        if ts > t_roll1 and which != "new":
+            raise AssertionError(f"fleet_roll: request {i} submitted after the roll got the old "
+                                 "version's output")
+        matched[which] += 1
+        if td >= t_roll0 and ts <= t_roll1:
+            during.append((td - ts) * 1e3)
+    led1 = fleet.stats()
+    rolls = {}
+    for e in fleet_events(fleet):
+        if e["action"].startswith("roll_"):
+            rolls.setdefault(e["ctl"], []).append((e["action"], e.get("rank")))
+    emit({"phase": "fleet_roll", "roll_s": t_roll1 - t_roll0, "halted_roll_s": t_bad1 - t_roll1,
+          "requests": len(done), "errors": len(errors), "matched": matched,
+          "versions_apart_l2": [min(apart), max(apart)],
+          "response_vs_its_version_max_abs": worst_near,
+          "p99_during_roll_ms": pct(during, 99), "requests_during_roll": len(during),
+          "steady_p99_ms": steady_p99, "actives": actives, "rolls": list(rolls.values()),
+          "halted": halted, "ledger": led1, "card": card})
+    if errors or led1["completed"] - led0["completed"] != len(done) or \
+            led1["requests"] != led1["completed"] + led1["errors"]:
+        raise AssertionError(f"fleet_roll: {len(errors)} failed, ledger {led0} -> {led1}")
+    if matched["old"] == 0 or matched["new"] == 0:
+        raise AssertionError(f"fleet_roll: the roll was not under load: {matched}")
+    if sorted(actives) != list(range(FLEET_REPLICAS)) or \
+            any(a["src"] != new_dir for a in actives.values()) or active_src != new_dir:
+        raise AssertionError(f"fleet_roll: after the roll {actives}, ACTIVE.json {active_src}")
+    want_rolls = [[("roll_started", None), ("roll_converged", None)],
+                  [("roll_started", None), ("roll_halted", 0), ("roll_rolled_back", None)]]
+    if list(rolls.values()) != want_rolls:
+        raise AssertionError(f"fleet_roll: roll events {rolls}")
+    if not os.path.exists(os.path.join(bad_dir, fluid.serving.QUARANTINE_MARKER)):
+        raise AssertionError("fleet_roll: the NaN-weight snapshot was not quarantined")
+    fleet_wait(fleet, lambda: fleet_settled(fleet, t_after), "snapshots after the traffic",
+               FLEET_SETTLE_S)
+    run_tool("serve_trace.py", "--fleet", "--check", fleet.root)
+    run_tool("perf_report.py", "--check", os.path.join(fleet.root, "telemetry", "router.jsonl"),
+             "--check-roll-convergence")
+    return pool, new_out, new_dir
+
+
+def fleet_kill(fluid, card, fleet, pool, new_out, new_dir):
+    """Phase 63: SIGKILL replica 1 while FLEET_CLIENTS clients submit: the
+    only errors are replica_down, at most its inflight cap; requests
+    submitted after the kill are served by the survivor; replica_dead and
+    replica_restarted appear; the restarted replica reaches healthy on the
+    fleet-active (rolled) version and its responses, asked of it directly,
+    meet phase 61's rule.  Then fleet.stop() drains: both replicas exit 0,
+    their final snapshots count nothing shed, the router's ledger balances
+    exactly, and each incarnation that drained launched nothing under
+    traffic.  Returns the replicas' launches (each incarnation's last
+    record, summed)."""
+    import threading
+
+    import numpy as np
+
+    router = fluid.serving.router
+    stop = threading.Event()
+    threads, done = run_clients(fleet, "bert", pool, FLEET_CLIENTS, stop, 1)
+    fleet_wait(fleet, lambda: len(done) >= 2 * FLEET_CLIENTS, "traffic before the kill", 60)
+    with fleet._lock:
+        victim = fleet._replicas[1]["proc"]
+    t_kill = time.time()
+    victim.send_signal(signal.SIGKILL)
+    dead = fleet_wait(fleet, lambda: fleet_events(fleet, "replica_dead"), "replica_dead", 60)
+    restarted = fleet_wait(fleet, lambda: fleet_events(fleet, "replica_restarted"),
+                           "replica_restarted", 60)
+    routed_at_restart = fleet.stats()["routed"].get(0, 0)
+    fleet_wait(fleet, lambda: fleet_listening(fleet, [1]), "the restarted replica listening",
+               FLEET_BOOT_S)
+    t_healthy = time.time()
+    # the survivor served traffic that came after the kill
+    fleet_wait(fleet, lambda: fleet.stats()["routed"].get(0, 0) > routed_at_restart,
+               "the survivor serving", 60)
+    n = len(done)
+    fleet_wait(fleet, lambda: len(done) >= n + FLEET_CLIENTS, "traffic after the restart", 60)
+    stop.set()
+    for t in threads:
+        t.join()
+    errors = [r[1] for r in done if isinstance(r[1], BaseException)]
+    worst = 0.0
+    for i, out, _, _ in done:
+        if isinstance(out, BaseException):
+            continue
+        if not np.isfinite(out.astype(np.float32)).all():
+            raise AssertionError(f"fleet_kill: request {i} served non-finite values")
+        worst = max(worst, max_diff(out, new_out[i]))
+    actives = fleet.active_versions("bert")
+    port = fleet.health.poll()[1]["tel"]["port"]
+    direct = 0.0
+    for i, feed in enumerate(pool[:FLEET_CLIENTS]):
+        reply = router.rpc(port, {"op": "infer", "model": "bert",
+                                  "feeds": router.encode_feeds(feed)})
+        if not reply.get("ok"):
+            raise AssertionError(f"fleet_kill: the restarted replica refused: {reply}")
+        direct = max(direct, max_diff(router.decode_arrays(reply["outputs"])[0], new_out[i]))
+    ledger_live = fleet.stats()
+    fleet.stop()
+    with fleet._lock:
+        exits = {r: rep["proc"].returncode for r, rep in fleet._replicas.items()}
+    ledger = fleet.stats()
+    recs, stages = fleet_records(fleet), fleet_stages(fleet)
+    with fleet._lock:
+        last = {rep["incarnation"] for rep in fleet._replicas.values()}
+    emit({"phase": "fleet_kill", "seconds_to_detect_death": dead[0]["ts"] - t_kill,
+          "seconds_restart_to_healthy": t_healthy - restarted[0]["ts"],
+          "errors": [getattr(e, "reason", repr(e)) for e in errors],
+          "inflight_cap": fleet.router.inflight_cap, "requests": len(done),
+          "vs_new_version_max_abs": worst, "restarted_direct_max_abs": direct,
+          "actives": actives, "exit_codes": exits, "ledger_before_stop": ledger_live,
+          "ledger": ledger, "stages": stages,
+          "replicas": {i: {k: v for k, v in r.items() if k != "counters"}
+                       for i, r in sorted(recs.items())},
+          "card": card})
+    if any(getattr(e, "reason", None) != "replica_down" for e in errors) or \
+            len(errors) > fleet.router.inflight_cap:
+        raise AssertionError(f"fleet_kill: errors {errors}")
+    if (dead[0]["rank"], restarted[0]["rank"]) != (1, 1):
+        raise AssertionError(f"fleet_kill: events {dead} {restarted}")
+    if not worst <= SERVE_TOL or not direct <= SERVE_TOL:
+        raise AssertionError(f"fleet_kill: responses {worst}, the restarted replica's {direct} "
+                             f"off the rolled version's direct eager outputs")
+    if sorted(actives) != list(range(FLEET_REPLICAS)) or \
+            any(a["src"] != new_dir for a in actives.values()):
+        raise AssertionError(f"fleet_kill: active versions {actives}")
+    if any(code != 0 for code in exits.values()):
+        raise AssertionError(f"fleet_kill: the drain's exit codes {exits}\n" + fleet_logs(fleet))
+    counts = ("requests", "completed", "errors", "by_reason")
+    if ledger["requests"] != ledger["completed"] + ledger["errors"] or \
+            ledger["errors"] != len(errors) or \
+            any(ledger[k] != ledger_live[k] for k in counts):
+        raise AssertionError(f"fleet_kill: ledger {ledger_live} -> {ledger}")
+    launches = dict(NONE)
+    for inc, rec in recs.items():
+        if inc in last:
+            c = rec["counters"]
+            if rec["drained"] is None or c.get("serving.shed", 0) or c.get("serving.shutdowns", 0):
+                raise AssertionError(f"fleet_kill: incarnation {inc} did not drain clean: {rec}")
+            want = {k: rec["up"][k] + stages.get(inc, 0) * v for k, v in FLEET_WARM.items()}
+            if {k: rec["drained"][k] for k in FLEET_WARM} != want:
+                raise AssertionError(f"fleet_kill: incarnation {inc} launched "
+                                     f"{rec['drained']} by its drain, want {want}: a wrapper "
+                                     "launched under traffic")
+        add_launches(launches, rec["drained"] or rec["up"])
+    return launches
+
+
+def fleet_phases(fluid, torch, card, tmp, inputs):
+    """Phases 61-63 (the serving fleet), each's seconds printed, after the
+    parent drops its cached blocks.  Returns the replicas' launches."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "fleet", "mem_get_info": {"free": free, "total": total},
+          "allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+          "card": card})
+    fleet_t0 = phase_t0 = time.perf_counter()
+    fleet, record = fleet_serve(fluid, card, tmp, inputs["model_dir"], inputs["steady"])
+    try:
+        emit({"phase_seconds": "fleet_serve", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        pool, new_out, new_dir = fleet_roll(fluid, torch, card, tmp, fleet, inputs["model_dir"],
+                                            inputs, record["router_p99_ms"])
+        emit({"phase_seconds": "fleet_roll", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        launches = fleet_kill(fluid, card, fleet, pool, new_out, new_dir)
+        emit({"phase_seconds": "fleet_kill", "s": time.perf_counter() - phase_t0, "card": card})
+    finally:
+        fleet.stop()
+    emit({"phase_seconds": "phases 61-63", "s": time.perf_counter() - fleet_t0, "card": card})
     return launches
 
 
 def main():
+    run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
     import torch
     from paddle_tpu_torch import _build
@@ -7329,7 +7844,8 @@ def main():
         amp_resnet_parity(fluid, torch)
         emit({"phase_seconds": "amp_parity", "s": time.perf_counter() - phase_t0, "card": card})
         emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
-        served_bert = serving_phases(fluid, torch, ck, tmp, card)
+        served_bert, fleet_inputs = serving_phases(fluid, torch, ck, tmp, card)
+        fleet_served = fleet_phases(fluid, torch, card, tmp, fleet_inputs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7376,7 +7892,8 @@ def main():
              "word2vec_hsigmoid_train": (VISION_PER_STEP["word2vec_hsigmoid"],
                                          w2v_heads["hsigmoid"]),
              "tagger_train": (TAGGER_PER_STEP, tagged),
-             "serving_bert": (PER_REQUEST, served_bert)}
+             "serving_bert": (PER_REQUEST, served_bert),
+             "serving_fleet": (PER_REQUEST, fleet_served)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():
@@ -7397,6 +7914,7 @@ def main():
                         "library": rec["library"], "shape": rec["shape"], "card": card,
                         **{k: v for k, v in rec.items()
                            if k.startswith("at_") or k == "launch_split_us"}})
+    emit({"phase_seconds": "total", "s": time.perf_counter() - run_t0, "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

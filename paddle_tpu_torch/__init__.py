@@ -29,10 +29,13 @@ through `QueueDataset` / `Executor.train_from_dataset` (`dataset`,
 `datasets`); `CheckpointManager`, `resilient_train_loop`, `FaultInjector`
 and `integrity` make a single-device run survive bad batches, NaNs,
 device errors, storage faults and preemption, resuming bit for bit.
-`serving` is the in-process serving runtime: a bounded queue batched into
-buckets replayed as CUDA graphs, deadlines, several models under a memory
-budget (priced by `core.resource_plan`), verified hot reload and rollback,
-and request traces.  Every
+`serving` is the serving runtime: a bounded queue batched into buckets
+replayed as CUDA graphs, deadlines, several models under a memory budget
+(priced by `core.resource_plan`), verified hot reload and rollback, and
+request traces in one process, and `serving.ServingFleet`: replica
+processes behind a router, health read off heartbeat files
+(`dist_resilience`), restarts and a rolling publish, which `launch --serve`
+runs from the command line.  Every
 op of the JAX package but the fake-quantize ops, `pipeline` and
 `ring_attention` has a lowering; `metrics`, `evaluator` and `debugger` are
 numpy-only copies.  `contrib.mixed_precision.decorate` trains in float16
@@ -48,6 +51,7 @@ from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noq
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
                recordio_writer, resilience)
 from . import serving  # noqa: F401
+from . import dist_resilience, launch  # noqa: F401
 from .checkpoint_manager import CheckpointManager  # noqa: F401
 from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from .faults import FaultInjector  # noqa: F401

@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `csrc/` compile with `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, `_build/libpaddle_tpu_torch_kernels.so`,
-which `ctypes` loads.  The library is built at first use and rebuilt when
-the hash of the sources (and of the compiler flags) changes; each `.cu`
-compiles in its own `nvcc` process, all started together.  A build that
-fails raises: there is no fallback.
+shared library with a plain C interface,
+`_build/libpaddle_tpu_torch_kernels.<digest>.so`, which `ctypes` loads.  The
+file is named by the hash of the sources (and of the compiler flags), so it
+is up to date exactly when it exists: it is built at first use and again
+when the hash changes; each `.cu` compiles in its own `nvcc` process, all
+started together.  Processes that load the library at once (the replicas
+of a serving fleet) take an `flock` on `_build/build.lock` around the check
+and the build, so one of them runs nvcc and the others load its library.
+A build that fails raises: there is no fallback.
 
 Nothing here runs at import time, so the CPU-only tests can import every
 module of the package.
@@ -13,6 +17,7 @@ module of the package.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -26,7 +31,7 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_NAME = "libpaddle_tpu_torch_kernels.so"
+LIB_PREFIX = "libpaddle_tpu_torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -69,6 +74,11 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def lib_path(digest: str) -> str:
+    """Where the library of the sources with hash `digest` lives."""
+    return os.path.join(BUILD_DIR, f"{LIB_PREFIX}.{digest[:16]}.so")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -107,26 +117,30 @@ def build() -> Dict[str, object]:
                 failed.append(os.path.basename(src))
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
-        tmp_lib = os.path.join(work, LIB_NAME)
+        tmp_lib = os.path.join(work, "lib.so")
         link = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *[o for _, o, _ in procs]],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-        os.replace(tmp_lib, lib_path)  # atomic: a concurrent loader sees old or new, whole
-        with open(lib_path + ".sha256", "w") as f:
-            f.write(digest)
+        path = lib_path(digest)
+        os.replace(tmp_lib, path)  # atomic: a loader sees the whole library or none
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"path": lib_path, "seconds": time.perf_counter() - t0, "log": "\n".join(log)}
+    return {"path": path, "seconds": time.perf_counter() - t0, "log": "\n".join(log)}
 
 
-def _stamp(lib_path: str) -> Optional[str]:
-    try:
-        with open(lib_path + ".sha256") as f:
-            return f.read().strip()
-    except FileNotFoundError:
-        return None
+def ensure_built() -> str:
+    """The path of the library of the current sources, built first if it
+    does not exist.  The check and the build hold an exclusive `flock` on
+    `BUILD_DIR/build.lock`: of processes that call this at once, the first
+    builds and the others wait for it and find the library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = lib_path(source_hash())
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(path):
+            path = build()["path"]
+    return path
 
 
 def library() -> ctypes.CDLL:
@@ -134,10 +148,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-            if not (os.path.exists(lib_path) and _stamp(lib_path) == source_hash()):
-                build()
-            lib = ctypes.CDLL(lib_path)
+            lib = ctypes.CDLL(ensure_built())
             for name, (argtypes, restype) in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -638,17 +638,20 @@ class FaultInjector:
         raise ValueError(f"flip_bit@{step}: scope has no float state var "
                          f"to corrupt")
 
-    def on_commit(self, ckpt_dir: str):
+    def on_commit(self, ckpt_dir: Optional[str]):
         """Called with each checkpoint directory the moment its COMMIT
         lands (resilient_train_loop's flush path; tests/bench call it
         directly); applies a pending rot_shard@N when this is the Nth
         commit this injector observed: one payload byte of the first
-        shard file (sorted order) is flipped.  Returns `ckpt_dir` for
-        chaining."""
+        shard file (sorted order) is flipped.  A commit whose directory is
+        None or not (yet) a directory is counted and mutates nothing.
+        Returns `ckpt_dir` for chaining."""
         idx = self._commits
         self._commits += 1
         for f in self.faults:
             if f.kind != "rot_shard" or f.at != idx or f.fired:
+                continue
+            if ckpt_dir is None or not os.path.isdir(ckpt_dir):
                 continue
             shards = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".npy"))
             path = os.path.join(ckpt_dir, shards[0]) if shards else None

@@ -156,3 +156,20 @@ _define("FLAGS_lock_timeout_s", float, 0.0,
         "deadline on every blocking named-lock acquisition (core/locks.py): "
         "past it the acquire raises errors.LockTimeoutError naming the wanted "
         "lock and every lock the thread holds.  0 (default): no deadline")
+# Accepted for scripts written against the reference framework; none of the
+# four changes anything in the port.
+_define("FLAGS_cudnn_deterministic", bool, True,
+        "accepted no-op: it sets nothing on the card.  cuDNN's deterministic "
+        "algorithms are torch.backends.cudnn.deterministic, which the caller "
+        "sets (the executor's plan key includes it)")
+_define("FLAGS_fraction_of_gpu_memory_to_use", float, 1.0,
+        "accepted no-op: it reserves nothing on the card.  Device memory is "
+        "PyTorch's caching allocator's (torch.cuda.set_per_process_memory_"
+        "fraction caps it; the serving registry's budget is "
+        "FLAGS_serving_hbm_budget_mb)")
+_define("FLAGS_allocator_strategy", str, "auto_growth",
+        "accepted no-op: it selects no allocator on the card.  Allocation is "
+        "PyTorch's caching allocator's (PYTORCH_CUDA_ALLOC_CONF configures it)")
+_define("FLAGS_paddle_num_threads", int, 1,
+        "accepted no-op: it sets no thread count.  CPU threading is "
+        "torch.set_num_threads / OMP_NUM_THREADS, which the caller sets")

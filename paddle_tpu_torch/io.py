@@ -195,8 +195,8 @@ def save_vars(dirname: str, var_names: Sequence[str], scope: Optional[Scope] = N
 
 
 def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
-              scope: Optional[Scope] = None, device="cpu",
-              verify: Optional[bool] = None) -> List[str]:
+              scope: Optional[Scope] = None, verify: Optional[bool] = None,
+              device="cpu") -> List[str]:
     """Load a save_vars directory into `scope` as tensors on `device`.
     `verify=None` follows FLAGS_integrity_verify_load."""
     scope = scope or global_scope()

@@ -27,6 +27,8 @@ slow or bad requests (`record_exemplar`, `exemplars`) here.
 """
 from __future__ import annotations
 
+import time
+
 from . import exporters as _exp
 from .core import (EXEMPLAR_CAP, FLIGHT_RECORDER_CAP, NULL_SPAN, TRACE_RING_CAP,  # noqa: F401
                    Counter, Gauge, Monitor, Span)
@@ -37,7 +39,7 @@ from .memstats import register_memory_gauges
 __all__ = ["Counter", "Gauge", "Monitor", "MonitorLogger", "Span", "NULL_SPAN",
            "FLIGHT_RECORDER_CAP", "TRACE_RING_CAP", "EXEMPLAR_CAP", "MONITOR", "get_monitor", "enable", "disable", "is_enabled",
            "reset", "span", "observe", "counter", "gauge", "record_step", "step_records",
-           "record_trace", "request_traces", "record_exemplar", "exemplars",
+           "record_fleet_event", "record_trace", "request_traces", "record_exemplar", "exemplars",
            "set_lane", "attach_logger", "detach_logger", "export_prometheus", "export_json",
            "json_snapshot", "export_chrome_trace", "merge_chrome_traces", "summary",
            "prometheus_text", "escape_label_value", "arm_flight_recorder", "dump_blackbox",
@@ -90,6 +92,19 @@ def record_step(record: dict):
 
 def step_records():
     return MONITOR.step_records()
+
+
+def record_fleet_event(action: str, **fields):
+    """One serving-fleet lifecycle transition (replica_dead /
+    replica_restarted / roll_started / roll_halted / roll_converged / ...)
+    as a `kind="fleet_event"` step record plus a per-action counter: the
+    stream `tools/serve_trace.py --fleet` renders as roll episodes and
+    `tools/perf_report.py --check --check-roll-convergence` gates.  Returns
+    the record."""
+    rec = {"kind": "fleet_event", "action": action, "ts": time.time(), **fields}
+    MONITOR.counter(f"serving.fleet.events[{action}]").inc()
+    MONITOR.record_step(rec)
+    return rec
 
 
 def record_trace(record: dict):

@@ -1,6 +1,7 @@
-"""paddle_tpu_torch.serving: the in-process serving runtime (counterpart of
-paddle_tpu/serving; the fleet half, `ServingFleet` and `Router`, is ROADMAP
-A9.2b).
+"""paddle_tpu_torch.serving: the serving runtime (counterpart of
+paddle_tpu/serving): the in-process `Server`, and the fleet, `ServingFleet`
+(replica processes, each a `Server`, supervised and rolled) behind a
+`Router`.
 
 Continuous batching into padded buckets that are warmed into CUDA graphs
 at load, per-request deadlines, admission control with load shedding,
@@ -16,8 +17,15 @@ instant rollback, over the port's `Predictor` and one shared `Executor`.
         srv.publish("ranker", ckpt_manager)          # verify -> swap
         srv.rollback("ranker")                       # instant undo
 
+    fleet = serving.ServingFleet({"ranker": "/models/ranker"}, n_replicas=2)
+    fleet.wait_healthy()
+    out = fleet.infer("ranker", {"x": batch})          # least-inflight pick
+    fleet.rolling_publish("ranker", "/models/ranker_v2")  # zero downtime
+    fleet.stop()                                       # drain
+
 On the CPU: `serving.ModelRegistry(place=fluid.CPUPlace())` (the plans run
-eagerly through the kernels' plain versions).  Failures are
+eagerly through the kernels' plain versions), `ServingFleet(...,
+place=fluid.CPUPlace())`.  Failures are
 `errors.ServingError` with a reason code (overload / timeout / oversize /
 bad_request / publish_rejected / publish_io / hbm_budget / model_missing /
 shutdown / unsupported); metrics ride the monitor (serving.* counters and
@@ -36,6 +44,8 @@ from .registry import (ModelRegistry, ModelVersion,  # noqa: F401
                        manifest_weight_bytes, model_precision,
                        plan_model_bytes, quant_manifest, synthetic_feeds)
 from .server import Future, Server  # noqa: F401
+from .router import Router  # noqa: F401
+from .fleet import ServingFleet  # noqa: F401
 from .tracing import (NULL_TRACE, RequestTrace, TRACE_PHASES,  # noqa: F401
                       control_trace_id, maybe_trace)
 
@@ -48,7 +58,7 @@ __all__ = [
     "quant_manifest", "model_precision",
     "publish", "rollback", "verify_snapshot_dir",
     "QUARANTINE_MARKER", "quarantine_marker",
-    "Server", "Future",
+    "Server", "Future", "Router", "ServingFleet",
     "RequestTrace", "NULL_TRACE", "maybe_trace", "control_trace_id",
     "TRACE_PHASES",
 ]

@@ -54,6 +54,11 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "from paddle_tpu_torch import (checkpoint_manager, dataset, datasets, faults, integrity,\n"
         "                              reader, recordio, recordio_writer, resilience)\n"
         "from paddle_tpu_torch.core import locks\n"
+        "from paddle_tpu_torch import dist_resilience, launch\n"
+        "from paddle_tpu_torch.serving import fleet, replica_main, router\n"
+        "assert fluid.launch is launch and fluid.dist_resilience is dist_resilience\n"
+        "assert fluid.serving.ServingFleet is fleet.ServingFleet and fluid.serving.Router\n"
+        "assert {'FLAGS_cudnn_deterministic', 'FLAGS_paddle_num_threads'} <= set(flags._REGISTRY)\n"
         "assert fluid.DataLoader is fluid.PyReader is reader.DataLoader\n"
         "assert fluid.CheckpointManager is checkpoint_manager.CheckpointManager\n"
         "assert fluid.QueueDataset is dataset.QueueDataset and fluid.InMemoryDataset\n"

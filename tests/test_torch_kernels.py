@@ -280,7 +280,62 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.library()
-    assert not os.path.exists(tmp_path / "build" / _build.LIB_NAME)
+    assert not os.path.exists(_build.lib_path(_build.source_hash()))
+
+
+_BUILD_RACER = """
+import os, sys, time
+from paddle_tpu_torch import _build
+build_dir, count, ready, go = sys.argv[1:]
+_build.BUILD_DIR = build_dir
+
+def counted_build():
+    with open(count, "a") as f:
+        f.write("built\\n")
+    time.sleep(0.5)  # the other process reaches the lock meanwhile
+    path = _build.lib_path(_build.source_hash())
+    open(path, "w").close()
+    return {"path": path}
+
+_build.build = counted_build
+open(ready, "w").close()
+deadline = time.monotonic() + 60
+while not os.path.exists(go):
+    if time.monotonic() > deadline:
+        sys.exit("no go")
+    time.sleep(0.01)
+print(_build.ensure_built())
+"""
+
+
+def test_two_processes_build_the_library_once(tmp_path):
+    """Two processes check-and-build at once (released together after both
+    have imported the package): the build lock lets one build, and the
+    other loads the library the first made."""
+    import subprocess
+    import sys
+    import time
+
+    build_dir, count, go = tmp_path / "build", tmp_path / "count", tmp_path / "go"
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_RACER, str(build_dir), str(count),
+                               str(tmp_path / f"ready{i}"), str(go)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for i in range(2)]
+    try:
+        deadline = time.monotonic() + 60
+        while not all((tmp_path / f"ready{i}").exists() for i in range(2)):
+            assert time.monotonic() < deadline and all(p.poll() is None for p in procs)
+            time.sleep(0.01)
+        go.touch()
+        outs = [p.communicate(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert count.read_text() == "built\n"
+    want = build_dir / os.path.basename(_build.lib_path(_build.source_hash()))
+    assert outs[0][0] == outs[1][0] == f"{want}\n"
 
 
 def test_source_hash_covers_sources_and_flags(monkeypatch):
