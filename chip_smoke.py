@@ -285,7 +285,7 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      second forced to overflow through the scope's loss_scaling_0 (every
      state bit for bit on both sides), held by AMP_BERT_PARITY; and
      ResNet-50 float16 with AMP at phase 11's batch of 8 and phase 35's
-     64 x 64 from a scale of 2^10 (AMP_RESNET_PARITY), 5 steps one at a
+     64 x 64 from a scale of 2^10 (AMP_RESNET_PARITY), 3 steps one at a
      time, each also taken in float32 on the CPU: the card's float16 error
      from the float32 step at most AMP_RESNET_RATIO times the CPU's, and
      that rule refuses a step with half the batch, with half the momentum,
@@ -362,6 +362,40 @@ the allocator's cached blocks and prints torch.cuda.mem_get_info().
      staged); the seconds to detect the death and from restart to healthy
      printed; phases 61-63's seconds printed.  The kernels line's path
      serving_fleet sums the replicas' records.
+ 64. quant_serving: phase 56's bf16 encoder dir loaded into a scope of its
+     own on the card and saved by io.save_quantized_inference_model
+     (per-tensor post-training int8, served in bf16); a Server of its own
+     (phase 56's buckets and workers) loads the bf16 dir and serves 400
+     requests of 1-32 rows twice, then the int8 dir is published over it while
+     4 clients submit: nothing dropped, each response one version's direct
+     eager output by phase 58's rule, one quant_parity event within the
+     default FLAGS_serving_quant_atol, precision "int8->bfloat16" after;
+     every weight the quant manifest names is bitwise (q * scale / qmax)
+     in bf16, computed in numpy from the dir's own files; the int8
+     version serves the same 400 requests twice, each within 5e-2 of a
+     direct eager run of the int8 dir, launching nothing (the publish's smoke and
+     warm launch the LayerNorm, bias-act and attention forward); a copy of
+     the int8 dir with its scales times 37 is rejected on the parity rung
+     and quarantined while the int8 version serves on bit for bit;
+     tools/perf_report.py --check --require-quant-parity passes over the
+     publish's telemetry; the quantize-and-save seconds, both dirs' bytes,
+     the publish seconds, the versions' bytes and precisions, and each
+     version's requests/s and p99 printed;
+ 65. qat_resnet: the bf16 ResNet-50 training program (Momentum, batch 256)
+     instrumented by slim.quant_aware (channel-wise weights, no
+     activations: 54 fake-quantize ops) takes 4 steps, graphed from the
+     second: finite losses, the BN epilogue 53 + 53 and the cross-entropy
+     1 + 1 a step; the step's time printed beside phase 10's plain step;
+     then the forward-only program, instrumented the same way, its running
+     statistics calibrated on the batch, is deployed by
+     save_quantized_inference_model (int8 -> bf16) and create_predictor on
+     the card: each fake-quantized weight lies on its per-channel int8 grid,
+     each deployed weight within one bf16 ulp of it (the instrumented op
+     computes in float32 and the conv casts to bf16; the deploy dequantizes
+     into bf16 once), the deployed logits of a 32-image batch within 5e-2 *
+     max(1, max|logits|) of the instrumented test-mode forward (phase 8
+     holds only finiteness: this is the rule for a deployed ResNet), 53 BN
+     epilogue launches a request; phases 64-65's seconds printed.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -3131,6 +3165,9 @@ def resnet_parity(fluid, torch, tmp):
         raise AssertionError(f"card vs CPU ResNet-50 logits differ by {diff} > 1e-3")
 
 
+WARM_STEP_MS = {}  # phase -> its warm step (resnet_train), for later phases to print beside
+
+
 def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None, amp=False):
     """Phases 10, 38 and 54: bf16 ResNet-50 (Momentum lr 0.1, 0.9, or LARS on
     its cosine schedule, `optimizer`; batch 256), or float16 under
@@ -3206,6 +3243,7 @@ def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None, a
     launches = dict(ck.LAUNCHES)  # read before the profiled step
     read_monitor(phase, monitor_want(range(TRAIN_STEPS), True), card)
     warm = statistics.median(step_ms[2:])
+    WARM_STEP_MS[phase] = warm
     emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
           "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
@@ -6183,7 +6221,7 @@ AMP_BERT_PARITY = {"loss": 1e-2, "update_l2": 0.1, "moment": 5e-2}
 # sides (the weight gradients pass 65504), as it does at 224 x 224, so it
 # starts from 2^10, where the steps apply
 AMP_RESNET_PARITY = {"size": 64, "scale": 2.0 ** 10}
-AMP_RESNET_STEPS = 5
+AMP_RESNET_STEPS = 3  # the controls run from AMP_RESNET_CONTROLS_FROM on (the host's float16 sets the time)
 # Batch statistics make ResNet-50's gradients at initialization
 # ill-conditioned (phase 11), and float16 rounds each activation 2^13 times
 # coarser than float32: float16's step itself, on either side, lies O(1)
@@ -6588,6 +6626,9 @@ BUDGET_MARGIN_BYTES = 4 << 20
 SERVING_PARITY_REQUESTS = 12
 SERVING_PARITY_QUEUE = 10
 SERVING_PARITY_TOL = 1e-3  # phase 5's rule
+QUANT_DRIFT = 37.0  # the JAX package's drifted-scales case (tests/test_serving.py:525-546)
+QAT_STEPS = 4
+QAT_SERVE_BATCH = 32
 
 
 def save_encoder(fluid, torch, dirname, dtype, n_layers, unit_ln_scale=False, seed=0):
@@ -6682,7 +6723,9 @@ def run_clients(srv, model, requests, clients, stop=None, min_each=0):
             elif stop.is_set() and n >= min_each:
                 return
 
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    # daemon threads: a phase that fails before it sets `stop` must not keep
+    # the process alive, its clients appending failures for ever
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
     for t in threads:
         t.start()
     return threads, done
@@ -7208,7 +7251,7 @@ def serving_phases(fluid, torch, ck, tmp, card):
     serving_parity(fluid, torch, card, tmp)
     emit({"phase_seconds": "serving_parity", "s": time.perf_counter() - phase_t0, "card": card})
     emit({"phase_seconds": "phases 56-60", "s": time.perf_counter() - serving_t0, "card": card})
-    return launches, dict(snapshots, model_dir=fleet_dir, steady=steady)
+    return launches, dict(snapshots, model_dir=fleet_dir, steady=steady, bert_dir=bert_dir)
 
 
 FLEET_REPLICAS = 2
@@ -7423,13 +7466,13 @@ def fleet_serve(fluid, card, tmp, model_dir, steady):
         raise
 
 
-def run_tool(*argv):
+def run_tool(*argv, phase="fleet_roll"):
     r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", argv[0]), *argv[1:]],
                        capture_output=True, text=True, timeout=120)
-    emit({"phase": "fleet_roll", "tool": " ".join(argv[:2]), "rc": r.returncode,
+    emit({"phase": phase, "tool": " ".join(argv[:2]), "rc": r.returncode,
           "out": r.stdout[-600:]})
     if r.returncode != 0:
-        raise AssertionError(f"fleet_roll: {' '.join(argv)} failed:\n{r.stdout[-3000:]}"
+        raise AssertionError(f"{phase}: {' '.join(argv)} failed:\n{r.stdout[-3000:]}"
                              f"\n{r.stderr[-3000:]}")
 
 
@@ -7680,6 +7723,374 @@ def fleet_phases(fluid, torch, card, tmp, inputs):
     return launches
 
 
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def serve_round(srv, model, requests, what, card):
+    """SERVE_CLIENTS clients send `requests` once through srv.infer; returns
+    (record, done) with requests/s, rows/s and client p50 / p99."""
+    rows = sum(int(r["ids"].shape[0]) for r in requests)
+    t0 = time.perf_counter()
+    threads, done = run_clients(srv, model, requests, SERVE_CLIENTS)
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    errors = [r for r in done if isinstance(r[1], BaseException)]
+    if errors:
+        raise AssertionError(f"{what}: {len(errors)} requests failed: {errors[0][1]!r}")
+    client_ms = [(t1 - t0_) * 1e3 for _, _, t0_, t1 in done]
+    return {"requests": len(done), "wall_s": wall, "requests_per_s": len(done) / wall,
+            "rows_per_s": rows / wall, "client_p50_ms": pct(client_ms, 50),
+            "client_p99_ms": pct(client_ms, 99), "card": card}, done
+
+
+def dequantized_from_files(qdir):
+    """Each quantized weight as io.load_vars must give it: (q -> float32) *
+    scale / qmax in its record's dtype, computed in numpy from the dir's own
+    int8 files and __quant__.json."""
+    import ml_dtypes
+    import numpy as np
+
+    with open(os.path.join(qdir, "__quant__.json")) as f:
+        qman = json.load(f)["weights"]
+    out = {}
+    for name, rec in qman.items():
+        q = np.load(os.path.join(qdir, name.replace("/", "%2F") + ".npy"))
+        if q.dtype != np.int8:
+            raise AssertionError(f"quant_serving: {name} is stored as {q.dtype}, not int8")
+        shp = [1] * q.ndim
+        if rec["axis"] is not None:
+            shp[rec["axis"]] = -1
+        qmax = float(2 ** (rec["bits"] - 1) - 1)
+        dtype = ml_dtypes.bfloat16 if rec["dtype"] == "bfloat16" else np.dtype(rec["dtype"])
+        out[name] = (q.astype(np.float32) * np.asarray(rec["scale"], np.float32).reshape(shp)
+                     / qmax).astype(dtype)
+    return out
+
+
+def quant_serving(fluid, torch, ck, tmp, card, bert_dir):
+    """Phase 64 (see the module docstring): BERT-base's int8 weights, served
+    in bf16.  Returns the publish's launches (the int8 version's smoke and
+    warm)."""
+    serving = fluid.serving
+    qdir = os.path.join(tmp, "bert_base_int8")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    program, feed_names, fetch_names = fluid.io.load_inference_model(bert_dir, exe, scope=scope)
+    t0 = time.perf_counter()
+    fluid.io.save_quantized_inference_model(qdir, feed_names, fetch_names, exe, program, scope,
+                                            weight_bits=8, serve_dtype="bfloat16")
+    quantize_s = time.perf_counter() - t0
+    del exe, scope, program
+    expect = dequantized_from_files(qdir)
+    emit({"phase": "quant_serving", "quantize_and_save_s": quantize_s,
+          "float_dir_bytes": dir_bytes(bert_dir), "int8_dir_bytes": dir_bytes(qdir),
+          "quantized_weights": len(expect),
+          "quantized_elements": int(sum(a.size for a in expect.values())), "card": card})
+    registry = serving.ModelRegistry(place=fluid.CUDAPlace(0))
+    srv = serving.Server(registry, buckets=SERVE_BUCKETS, workers=SERVE_WORKERS)
+    try:
+        return quant_serving_on(fluid, torch, ck, tmp, card, srv, bert_dir, qdir, expect)
+    finally:
+        srv.stop()
+        for name in list(registry.models()):
+            registry.unload(name)
+        del srv, registry
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def quant_serving_on(fluid, torch, ck, tmp, card, srv, bert_dir, qdir, expect):
+    """Phase 64 on `srv` (a Server of its own): the bf16 dir loaded and
+    served, the int8 dir published under load and served, the drifted copy
+    rejected.  Returns the publish's launches."""
+    import threading
+
+    import numpy as np
+
+    serving = fluid.serving
+    registry = srv.registry
+    srv.load_model("bert", bert_dir)
+    before = registry.models()["bert"]
+    rng = np.random.RandomState(64)
+    rows = rng.randint(1, 33, SERVE_REQUESTS)
+    requests = [bert_request(int(r), rng) for r in rows]
+    # a first round takes the host's first pinned buffers of each size: the
+    # bf16 version's second round is the one set beside the int8 version's
+    bf16_first, _ = serve_round(srv, "bert", requests, "quant_serving bf16", card)
+    bf16_record, _ = serve_round(srv, "bert", requests, "quant_serving bf16", card)
+    # the publish under load, each response held to one version's direct
+    # eager output (phase 58's rule)
+    pool = requests[:PUBLISH_POOL]
+    old = eager_predictor(fluid, bert_dir)
+    old_out = [old.run(f)[0] for f in pool]
+    del old
+    new = eager_predictor(fluid, qdir)
+    new_out = [new.run(f)[0] for f in pool]
+    del new
+    apart = [l2_diff(a, b) for a, b in zip(old_out, new_out)]
+    if not min(apart) > 0:
+        raise AssertionError("quant_serving: the int8 and bf16 versions agree on a request")
+    telemetry = os.path.join(tmp, "quant_metrics.jsonl")
+    fluid.monitor.reset()
+    logger = fluid.monitor.attach_logger(fluid.monitor.MonitorLogger(telemetry))
+    led0 = srv.ledger()
+    ck.reset_launches()  # the int8 version's count starts here
+    stop = threading.Event()
+    threads, done = run_clients(srv, "bert", pool, SERVE_CLIENTS, stop,
+                                PUBLISH_MIN_REQUESTS // SERVE_CLIENTS)
+    time.sleep(0.5)
+    t_pub0 = time.perf_counter()
+    srv.publish("bert", qdir)
+    t_swap = time.perf_counter()
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join()
+    launches = dict(ck.LAUNCHES)
+    want_warm = {k: 2 * len(SERVE_BUCKETS) * v for k, v in PER_REQUEST.items()}
+    errors = [r for r in done if isinstance(r[1], BaseException)]
+    matched = {"old": 0, "new": 0}
+    during = []
+    for i, out, ts, td in done:
+        if isinstance(out, BaseException):
+            continue
+        d_old, d_new = l2_diff(out, old_out[i]), l2_diff(out, new_out[i])
+        which = "new" if d_new < d_old else "old"
+        near = max_diff(out, (new_out if which == "new" else old_out)[i])
+        if near > SERVE_TOL or min(d_old, d_new) > apart[i] / 4:
+            raise AssertionError(f"quant_serving: request {i} matches neither version (L2 to "
+                                 f"bf16 {d_old}, to int8 {d_new}, apart {apart[i]})")
+        if ts > t_swap and which != "new":
+            raise AssertionError(f"quant_serving: request {i} submitted after the swap got "
+                                 "the bf16 version's output")
+        matched[which] += 1
+        if td >= t_pub0 and ts <= t_swap:
+            during.append((td - ts) * 1e3)
+    led1 = srv.ledger()
+    parity = [r for r in fluid.monitor.step_records() if r.get("kind") == "serving_event"
+              and r.get("action") == "quant_parity"]
+    after = registry.models()["bert"]
+    emit({"phase": "quant_serving", "publish_s": t_swap - t_pub0, "requests": len(done),
+          "errors": len(errors), "matched": matched,
+          "p99_during_publish_ms": pct(during, 99), "versions_apart_l2": [min(apart), max(apart)],
+          "versions_apart_max_abs": max(max_diff(a, b) for a, b in zip(old_out, new_out)),
+          "quant_parity": [{k: r.get(k) for k in ("max_abs_diff", "atol")} for r in parity],
+          "bytes": [before["bytes"], after["bytes"]],
+          "precision": [before["precision"], after["precision"]],
+          "publish_launches": launches, "card": card})
+    if errors or led1["completed"] - led0["completed"] != len(done) or not led1["balanced"]:
+        raise AssertionError(f"quant_serving: {len(errors)} dropped, ledger {led0} -> {led1}")
+    if matched["old"] == 0 or matched["new"] == 0:
+        raise AssertionError(f"quant_serving: the swap was not under load: {matched}")
+    if len(parity) != 1 or not parity[0]["max_abs_diff"] <= parity[0]["atol"] == 5e-2:
+        raise AssertionError(f"quant_serving: quant_parity events {parity}")
+    if after["precision"] != "int8->bfloat16" or before["precision"] != "float32":
+        raise AssertionError(f"quant_serving: precision {before['precision']} -> "
+                             f"{after['precision']}")
+    if launches != want_warm:
+        raise AssertionError(f"quant_serving: the publish launched {launches}, want {want_warm} "
+                             "(the smoke and a capture a bucket, a warm-up a bucket past 1)")
+    # the served weights, bitwise from the dir's files
+    version = registry.acquire("bert")
+    for name, want in expect.items():
+        got = fluid.core.dtypes.to_numpy(version.scope.find_var(name))
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise AssertionError(f"quant_serving: served {name} is not its dequantized int8 "
+                                 "payload bit for bit")
+    del version
+    # the int8 version under the same traffic: nothing launched, each
+    # response its direct eager run's
+    # (two rounds, as the bf16 version had; the second is the one compared)
+    counters0 = counters_of(fluid, "executor.graph_capture", "executor.cache_miss")
+    int8_first, int8_done = serve_round(srv, "bert", requests, "quant_serving int8", card)
+    int8_record, int8_again = serve_round(srv, "bert", requests, "quant_serving int8", card)
+    if dict(ck.LAUNCHES) != launches or counters_of(
+            fluid, "executor.graph_capture", "executor.cache_miss") != counters0:
+        raise AssertionError("quant_serving: the int8 version launched or captured under "
+                             "traffic")
+    eager = eager_predictor(fluid, qdir)
+    worst = 0.0
+    first = {i: out for i, out, _, _ in int8_done}
+    for i, out, _, _ in int8_done:
+        if (out.shape != (requests[i]["ids"].shape[0], 128, 768)
+                or not np.isfinite(out.astype(np.float32)).all()):
+            raise AssertionError(f"quant_serving: request {i} gave {out.shape}")
+        worst = max(worst, max_diff(out, eager.run(requests[i])[0]))
+    del eager
+    again = max(max_diff(out, first[i]) for i, out, _, _ in int8_again)
+    emit({"phase": "quant_serving", "bf16_first_round": bf16_first, "bf16": bf16_record,
+          "int8_first_round": int8_first, "int8": int8_record,
+          "int8_vs_direct_eager_max_abs": worst, "int8_rounds_max_abs": again,
+          "tol": SERVE_TOL, "card": card})
+    if not again <= SERVE_TOL:
+        raise AssertionError(f"quant_serving: the int8 version's second round differs from its "
+                             f"first by {again}")
+    if not worst <= SERVE_TOL:
+        raise AssertionError(f"quant_serving: an int8 response differs from its direct eager run "
+                             f"by {worst} > {SERVE_TOL}")
+    logger.write_snapshot()
+    fluid.monitor.detach_logger(logger)
+    run_tool("perf_report.py", "--check", telemetry, "--require-quant-parity",
+             phase="quant_serving")
+    # drifted scales: the parity rung rejects and quarantines the snapshot
+    drift = os.path.join(tmp, "bert_base_int8_drift")
+    shutil.copytree(qdir, drift)
+    qpath = os.path.join(drift, "__quant__.json")
+    with open(qpath) as f:
+        qman = json.load(f)
+    for rec in qman["weights"].values():
+        rec["scale"] = (np.asarray(rec["scale"], np.float32) * QUANT_DRIFT).tolist()
+    with open(qpath, "w") as f:
+        json.dump(qman, f)
+    probe = pool[:4]
+    served = [srv.infer("bert", f)[0] for f in probe]
+    try:
+        srv.publish("bert", drift)
+        raise AssertionError("quant_serving: the drifted int8 dir was published")
+    except fluid.errors.ServingError as e:
+        if e.reason != "publish_rejected" or "quant parity" not in str(e):
+            raise
+        rejected = str(e)[:300]
+    marker = serving.quarantine_marker(drift)
+    still = [srv.infer("bert", f)[0] for f in probe]
+    emit({"phase": "quant_serving", "drifted_rejected": rejected,
+          "quarantined": marker is not None, "card": card})
+    if marker is None or os.path.realpath(drift) not in registry.quarantined:
+        raise AssertionError("quant_serving: the drifted int8 dir was not quarantined")
+    if not all(np.array_equal(a, b) for a, b in zip(served, still)):
+        raise AssertionError("quant_serving: after the rejection the int8 version does not "
+                             "serve bit for bit as before")
+    return launches
+
+
+def qat_resnet(fluid, torch, ck, tmp, card):
+    """Phase 65 (see the module docstring): ResNet-50 bf16, QAT-trained,
+    then deployed int8.  Returns the training steps' launches."""
+    import numpy as np
+    from paddle_tpu_torch.contrib import slim
+
+    t0 = time.perf_counter()
+    main, startup, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    n_fake = slim.quant_aware(main, weight_quantize_type="channel_wise_abs_max",
+                              quantize_activations=False)
+    loss = fetches["loss"].name
+    derived = launches_of_program(main, loss)
+    if derived != RESNET_PER_STEP:
+        raise AssertionError(f"qat_resnet: the program's kernel ops {derived} != "
+                             f"{RESNET_PER_STEP}")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in images(RESNET_TRAIN_BATCH, 65).items()}
+    emit({"phase": "qat_resnet", "model": "resnet-50 bf16, Momentum lr 0.1 mu 0.9, "
+          "quant_aware(channel_wise_abs_max, weights only)", "fake_quant_ops": n_fake,
+          "batch": RESNET_TRAIN_BATCH, "setup_s": time.perf_counter() - t0, "card": card})
+    ck.reset_launches()  # the main path's count starts here
+    fluid.monitor.reset()
+    losses, step_ms, graphed = [], [], []
+    for step in range(QAT_STEPS):
+        before = dict(ck.LAUNCHES)
+        t1 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        graphed.append(hold_run_launches(exe, step, delta, RESNET_PER_STEP, "qat_resnet",
+                                         "qat_resnet"))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"qat_resnet: step {step}: loss {losses[-1]}")
+    launches = dict(ck.LAUNCHES)
+    plan = exe.last_plan
+    warm = statistics.median(step_ms[2:])
+    emit({"phase": "qat_resnet", "losses": losses, "step_ms": step_ms, "graphed": graphed,
+          "plan_graphed": plan.graphed, "graph_refusal": plan.graph_refusal,
+          "warm_step_ms": warm, "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3,
+          "phase_10_warm_step_ms": WARM_STEP_MS.get("resnet_train"),
+          "card": card})
+    # the deployed path: the forward-only program instrumented the same way,
+    # its running statistics calibrated on the batch
+    fwd, _, ffetch = build_resnet(fluid, "bfloat16", with_optimizer=False)
+    slim.quant_aware(fwd, weight_quantize_type="channel_wise_abs_max",
+                     quantize_activations=False)
+    missing = [p.name for p in fwd.all_parameters() if scope.find_var(p.name) is None]
+    if missing:
+        raise AssertionError(f"qat_resnet: the forward program's parameters {missing[:3]} are "
+                             "not the trained ones")
+    calibrate(fluid, fwd, exe, scope, feed)
+    logits = ffetch["logits"].name
+    wnames = [op.input("X")[0] for op in fwd.global_block().ops
+              if op.type == "fake_channel_wise_quantize_abs_max"]
+    batch = {"img": images(QAT_SERVE_BATCH, 650)["img"]}
+    test = fwd.clone(for_test=True)
+    got = exe.run(test, feed=batch, scope=scope,
+                  fetch_list=[logits] + [f"{w}@QUANT" for w in wnames]
+                  + [f"{w}@QSCALE" for w in wnames])
+    ref, fq, sc = got[0], got[1:1 + len(wnames)], got[1 + len(wnames):]
+    grid = 0.0
+    for w, o, s in zip(wnames, fq, sc):
+        axis = 1 if o.ndim == 2 else 0  # mul's Y [in, out], conv filters [O, I, kh, kw]
+        shp = [1] * o.ndim
+        shp[axis] = -1
+        q = o.astype(np.float64) / np.maximum(s.astype(np.float64), 1e-8).reshape(shp) * 127.0
+        grid = max(grid, float(np.abs(q - np.round(q)).max()))
+    qat_dir = os.path.join(tmp, "resnet50_qat_int8")
+    t1 = time.perf_counter()
+    fluid.io.save_quantized_inference_model(qat_dir, ["img"], [logits], exe, fwd, scope,
+                                            serve_dtype="bfloat16")
+    save_s = time.perf_counter() - t1
+    predictor = fluid.inference.create_predictor(fluid.inference.AnalysisConfig(qat_dir))
+    before = dict(ck.LAUNCHES)
+    (served,) = predictor.run(batch)
+    request = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+    worst_ulps = 0.0
+    for w, o in zip(wnames, fq):
+        dep = fluid.core.dtypes.to_numpy(predictor.scope.find_var(w)).astype(np.float64)
+        o = o.astype(np.float64)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(o), 2.0 ** -126))) - 7)
+        worst_ulps = max(worst_ulps, float((np.abs(dep - o) / ulp).max()))
+    gap = max_diff(served, ref)
+    bound = SERVE_TOL * max(1.0, float(np.abs(ref).max()))
+    emit({"phase": "qat_resnet", "deployed_dir_bytes": dir_bytes(qat_dir), "save_s": save_s,
+          "quantized_weights": len(wnames), "grid_residual_max": grid,
+          "deployed_vs_fake_quant_max_bf16_ulps": worst_ulps,
+          "deployed_max_abs_logits": float(np.abs(served).max()),
+          "instrumented_max_abs_logits": float(np.abs(ref).max()),
+          "deployed_vs_instrumented_max_abs": gap, "bound": bound,
+          "request_launches": request, "card": card})
+    if not np.isfinite(served).all() or served.shape != (QAT_SERVE_BATCH, 1000):
+        raise AssertionError(f"qat_resnet: deployed logits {served.shape}, finite "
+                             f"{np.isfinite(served).all()}")
+    if grid > 1e-3:
+        raise AssertionError(f"qat_resnet: a fake-quantized weight lies {grid} of a step off "
+                             "its per-channel int8 grid")
+    if worst_ulps > 1.0:
+        raise AssertionError(f"qat_resnet: a deployed weight lies {worst_ulps} bf16 ulps from "
+                             "the instrumented program's fake-quantized weight")
+    if not gap <= bound:
+        raise AssertionError(f"qat_resnet: deployed logits {gap} off the instrumented forward "
+                             f"(bound {bound})")
+    if request != RESNET_PER_REQUEST:
+        raise AssertionError(f"qat_resnet: a request launched {request}, want "
+                             f"{RESNET_PER_REQUEST}")
+    return launches
+
+
+def quant_phases(fluid, torch, ck, tmp, card, bert_dir):
+    """Phases 64-65, each's seconds printed; returns their launches."""
+    quant_t0 = phase_t0 = time.perf_counter()
+    served = quant_serving(fluid, torch, ck, tmp, card, bert_dir)
+    emit({"phase_seconds": "quant_serving", "s": time.perf_counter() - phase_t0, "card": card})
+    phase_t0 = time.perf_counter()
+    trained = qat_resnet(fluid, torch, ck, tmp, card)
+    emit({"phase_seconds": "qat_resnet", "s": time.perf_counter() - phase_t0, "card": card})
+    emit({"phase_seconds": "phases 64-65", "s": time.perf_counter() - quant_t0, "card": card})
+    return served, trained
+
+
 def main():
     run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
@@ -7846,6 +8257,8 @@ def main():
         emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
         served_bert, fleet_inputs = serving_phases(fluid, torch, ck, tmp, card)
         fleet_served = fleet_phases(fluid, torch, card, tmp, fleet_inputs)
+        quant_served, qat_trained = quant_phases(fluid, torch, ck, tmp, card,
+                                                 fleet_inputs["bert_dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7893,7 +8306,9 @@ def main():
                                          w2v_heads["hsigmoid"]),
              "tagger_train": (TAGGER_PER_STEP, tagged),
              "serving_bert": (PER_REQUEST, served_bert),
-             "serving_fleet": (PER_REQUEST, fleet_served)}
+             "serving_fleet": (PER_REQUEST, fleet_served),
+             "quant_serving": (PER_REQUEST, quant_served),
+             "qat_resnet": (RESNET_PER_STEP, qat_trained)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

@@ -36,16 +36,19 @@ request traces in one process, and `serving.ServingFleet`: replica
 processes behind a router, health read off heartbeat files
 (`dist_resilience`), restarts and a rolling publish, which `launch --serve`
 runs from the command line.  Every
-op of the JAX package but the fake-quantize ops, `pipeline` and
-`ring_attention` has a lowering; `metrics`, `evaluator` and `debugger` are
-numpy-only copies.  `contrib.mixed_precision.decorate` trains in float16
-with dynamic loss scaling, the kernels taking float16 as they take
-bfloat16.
+op of the JAX package but `pipeline` and `ring_attention` has a lowering;
+`metrics`, `evaluator` and `debugger` are numpy-only copies.
+`contrib.mixed_precision.decorate` trains in float16 with dynamic loss
+scaling, the kernels taking float16 as they take bfloat16.
+`contrib.slim` quantizes (QAT, post-training, the freeze), prunes and
+distils; `io.save_quantized_inference_model` stores int8 weights, which a
+load dequantizes into their serve dtype (no int8 product runs, as in the
+JAX package).
 """
 import numpy as np
 
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import contrib  # mixed_precision  # noqa: F401
+from . import contrib  # mixed_precision, slim  # noqa: F401
 from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noqa: F401
                models, monitor, nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401

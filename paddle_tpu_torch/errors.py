@@ -257,8 +257,9 @@ class ServingError(TrainingError):
                                    budget even after eviction
         reason="model_missing"     no model under that name
         reason="shutdown"          the server is draining or stopped
-        reason="unsupported"       the port cannot serve this yet (a
-                                   quantized model directory: ROADMAP A9.3)
+        reason="replica_down"      fleet routing (serving/router.py): the
+                                   replica carrying the request died, or no
+                                   healthy replica is left for new traffic
 
     "overload" / "timeout" are backpressure the client routes on; the rest
     are operator-facing.  `model` names the model, `trace_id` the request

@@ -137,9 +137,13 @@ _define("FLAGS_serving_hbm_budget_mb", float, 0.0,
         "then refuses with ServingError(reason='hbm_budget').  0 (default): "
         "unlimited")
 _define("FLAGS_serving_quant_atol", float, 5e-2,
-        "accuracy gate of publishing a quantized model over its float parent "
-        "(serving/publisher.py); a quantized directory is refused by the port "
-        "until int8 models load (ROADMAP A9.3)")
+        "accuracy-parity gate of publishing a quantized model over its float "
+        "parent (serving/publisher.py): the staged snapshot's outputs on the "
+        "golden smoke's feeds are compared elementwise with the active "
+        "version's; a max |diff| past it rejects and quarantines the snapshot "
+        "as a NaN weight does, and the parent serves on bit for bit.  Applies "
+        "only when the staged dir has a __quant__.json and an active version "
+        "of the same feeds and fetches exists")
 _define("FLAGS_serving_slo_target", float, 0.99,
         "good-fraction target of the serving SLO gauges (serving/server.py): "
         "burn_rate = bad_frac / (1 - target); sheds, timeouts, errors and late "

@@ -74,8 +74,9 @@ class AnalysisConfig:
         return self
 
     def enable_quantize(self, on: bool = True):
-        """Recorded only: an int8 model (`__quant__.json`) does not load in
-        the port yet, whatever this says."""
+        """Recorded only: an int8 model is detected from its
+        `__quant__.json` and dequantized at load whatever this says; the
+        flag records intent for `summary()`."""
         self._int8 = bool(on)
         return self
 

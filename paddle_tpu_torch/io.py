@@ -14,8 +14,11 @@ raises `errors.IntegrityError` on a mismatch.  `save_sharded` /
 `load_sharded` write and read the JAX package's sharded checkpoint format
 for one process (`__sharded_manifest__.json`, one `<name>.p0s0.npy` a
 var; SelectedRows as row and value files), which `CheckpointManager` uses;
-a mesh and multi-process shards come with data parallelism (ROADMAP A10),
-int8 models with a later slice.
+a mesh and multi-process shards come with data parallelism (ROADMAP A10).
+`save_quantized_inference_model` stores a model's weights as int8 with
+their scales in `__quant__.json`; `load_vars` (and so
+`load_inference_model` and `Predictor`) dequantizes them into their serve
+dtype with no flag.
 
 Storage choke point, as in the JAX package: every checkpoint, manifest
 and sidecar byte goes through `atomic_write` / `save_array` (writes) and
@@ -36,7 +39,7 @@ import torch
 
 from . import flags
 from . import integrity as _integrity
-from .core.dtypes import to_tensor
+from .core.dtypes import _numpy_bfloat16, to_numpy, to_tensor
 from .core.executor import CUDAPlace, _prune, _runnable_ops
 from .core.program import Program, Variable, default_main_program
 from .core.scope import RNG_STATE_VAR, Scope, global_scope
@@ -201,8 +204,10 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
     `verify=None` follows FLAGS_integrity_verify_load."""
     scope = scope or global_scope()
     manifest = read_json(os.path.join(dirname, MANIFEST))
-    if os.path.exists(os.path.join(dirname, QUANT_MANIFEST)):
-        raise NotImplementedError("int8 (quantized) inference models are not ported yet")
+    qman = {}
+    qpath = os.path.join(dirname, QUANT_MANIFEST)
+    if os.path.exists(qpath):
+        qman = read_json(qpath).get("weights", {})
     verify = flags.flag("FLAGS_integrity_verify_load") if verify is None else bool(verify)
     want = set(var_names) if var_names is not None else None
     loaded = []
@@ -213,7 +218,12 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
             _integrity.verify_file_entry(dirname, entry["file"], entry.get("sha256"),
                                          entry.get("bytes"))
         arr = load_array(os.path.join(dirname, entry["file"]))
-        if entry.get("dtype") == "bfloat16" and arr.dtype == np.uint16:
+        if entry["name"] in qman and arr.dtype == np.int8:
+            # an int8 payload: dequantized on the host into its record's
+            # dtype, in the JAX package's expression (the manifest may say
+            # bfloat16 for it, so this comes before the bf16 branch)
+            t = to_tensor(_dequantize(arr, qman[entry["name"]]), None, device)
+        elif entry.get("dtype") == "bfloat16" and arr.dtype == np.uint16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
         else:
             t = to_tensor(arr, None, device)
@@ -224,6 +234,19 @@ def load_vars(dirname: str, var_names: Optional[Sequence[str]] = None,
         if missing:
             raise KeyError(f"load_vars: checkpoint lacks {sorted(missing)}")
     return loaded
+
+
+def _dequantize(q: np.ndarray, rec: dict) -> np.ndarray:
+    """(q -> float32) * scale / qmax, cast to the record's dtype."""
+    qmax = float(2 ** (rec["bits"] - 1) - 1)
+    scale = np.asarray(rec["scale"], np.float32)
+    shp = [1] * q.ndim
+    axis = rec.get("axis")
+    if axis is not None:
+        shp[axis] = -1
+    dtype = rec.get("dtype", "float32")
+    return (q.astype(np.float32) * scale.reshape(shp) / qmax).astype(
+        _numpy_bfloat16() if dtype == "bfloat16" else dtype)
 
 
 def load_numpy_params(scope: Scope, params: Dict[str, np.ndarray], device="cpu") -> None:
@@ -550,3 +573,78 @@ def load_inference_model(dirname: str, executor, scope: Optional[Scope] = None,
     program = Program.from_dict(doc)
     load_vars(dirname, None, scope, device=executor.place.device, verify=verify)
     return program, doc["feed_names"], doc["fetch_names"]
+
+
+# --- int8 quantized inference models ---------------------------------------
+
+def save_quantized_inference_model(dirname: str, feeded_var_names: Sequence[str],
+                                   target_vars: Sequence[Variable], executor,
+                                   main_program: Optional[Program] = None,
+                                   scope: Optional[Scope] = None, weight_bits: int = 8,
+                                   serve_dtype: Optional[str] = None):
+    """save_inference_model with int8 weight storage.  A QAT-instrumented
+    program is frozen (slim.convert_quant_model: per-tensor or per-channel
+    scales); a float program gets per-tensor post-training scales.  Each
+    quantized weight is stored as an int8 `.npy` (its digest re-stamped in
+    `__manifest__.json`) with its scale, axis, bits and serve dtype in
+    `__quant__.json`; `load_vars` dequantizes it into that dtype (the
+    weight's own, or `serve_dtype`, e.g. "bfloat16"), so the served program
+    computes in float on values that lie on the int8 grid.  No int8
+    product runs, as in the JAX package.
+
+    The scope is left as it was: the freeze snaps weights by putting new
+    tensors into it, and the snapshot taken first is put back by reference
+    afterwards, with the shadows a child scope got of its parent's
+    parameters erased."""
+    from .contrib.slim.quantization import convert_quant_model, post_training_quantize
+
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    work = program.clone()
+    snapshot = {n: scope.find_var(n) for n in scope.local_var_names()}
+    try:
+        manifest = convert_quant_model(work, scope, weight_bits=weight_bits)
+        if not manifest["weights"]:
+            # a float program: per-tensor post-training scales
+            manifest["weights"] = {
+                name: {"scale": np.float32(scale), "axis": None}
+                for name, scale in post_training_quantize(
+                    scope, work, weight_bits=weight_bits).items()}
+        fetch = save_inference_model(dirname, feeded_var_names, target_vars,
+                                     executor, work, scope)
+        # the int8 payloads over the float files, with the scale sidecar
+        qmax = float(2 ** (weight_bits - 1) - 1)
+        qrec = {}
+        for wname, rec in manifest["weights"].items():
+            w = to_numpy(scope.find_var(wname))
+            scale_arr = np.asarray(rec["scale"], np.float32)
+            axis = rec["axis"]
+            shp = [1] * w.ndim
+            if axis is not None:
+                shp[axis] = -1
+            q = np.clip(np.round(w / scale_arr.reshape(shp) * qmax),
+                        -qmax - 1, qmax).astype(np.int8)
+            fname = wname.replace("/", "%2F") + ".npy"
+            save_array(os.path.join(dirname, fname), q)
+            qrec[wname] = {"scale": scale_arr.tolist(), "axis": axis,
+                           "bits": weight_bits,
+                           "dtype": serve_dtype or str(w.dtype)}
+        if qrec:
+            # the files save_vars stamped as floats hold int8 now
+            mpath = os.path.join(dirname, MANIFEST)
+            man = read_json(mpath)
+            overwritten = {w.replace("/", "%2F") + ".npy" for w in qrec}
+            for entry in man["vars"]:
+                if entry["file"] in overwritten:
+                    entry.update(_integrity.stamp_file(
+                        os.path.join(dirname, entry["file"])))
+            atomic_write(mpath, json.dumps(man, indent=1))
+        atomic_write(os.path.join(dirname, QUANT_MANIFEST),
+                     json.dumps({"weights": qrec,
+                                 "activations": manifest["activations"]},
+                                indent=1))
+        return fetch
+    finally:
+        scope.erase(set(scope.local_var_names()) - set(snapshot))
+        for n, v in snapshot.items():
+            scope.set_var(n, v)

@@ -28,11 +28,27 @@ from typing import Dict, List, Optional, Sequence
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _ephemeral_low() -> Optional[int]:
+    """The first port the kernel hands to outgoing connections, or None."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+
+
 def allocate_port_block(n: int, tries: int = 64,
                         low: int = 20000, high: int = 50000) -> int:
     """Base port of `n` CONSECUTIVE free TCP ports, verified by binding
     all of them simultaneously (close-then-reuse races shrink to the
-    spawn window instead of `n` independent guesses)."""
+    spawn window instead of `n` independent guesses).  The block lies below
+    the kernel's ephemeral range where [low, high) reaches into it: while a
+    replica restarts, the router's outgoing connections (one a request)
+    could otherwise take its port as their local one and keep its
+    successor from binding it (EADDRINUSE, SO_REUSEADDR notwithstanding)."""
+    eph = _ephemeral_low()
+    if eph is not None and low + n < eph < high:
+        high = eph
     rng = random.Random(os.getpid() * 7919 + int(time.time() * 1e3) % 65536)
     last_err: Optional[OSError] = None
     for _ in range(tries):

@@ -1,9 +1,10 @@
 """Math lowerings (counterpart of paddle_tpu/ops/math_ops.py): the
 elementwise family (elementwise_add with the fused bias-act epilogue), sum,
 the activations, pow, clip, clip_by_norm, scale, the reductions, mean, mul,
-matmul, the compare and logical ops, isfinite and the norm / fill tail, with
-their build-time inference rules.  The four fake-quantize ops come with
-contrib/slim.
+matmul, the compare and logical ops, isfinite, the four fake-quantize ops
+and the norm / fill tail, with their build-time inference rules (the
+fake-quantize rules are registered by contrib/slim/quantization.py, as in
+the JAX package).
 
 The `mul` / `matmul` products stay `torch.matmul`: the JAX package leaves
 them to XLA outside any Pallas kernel."""
@@ -171,6 +172,77 @@ def _isfinite(ctx, op, ins):
     if isinstance(x, SelectedRows):
         x = x.values
     return {"Out": torch.isfinite(x).all().reshape(1)}
+
+
+# --- the fake-quantize family (QAT): round to a symmetric bit_length-bit grid
+# in the forward, straight through in the backward.  The straight-through form
+# is the JAX package's x + stop_gradient(out - x), in that order, so that Out
+# has its bits; the scales stay on the device (no host read, so a QAT step
+# captures).  Mixed dtypes promote as jnp does: a 0-d float32 scale widens a
+# bf16 X, where torch's 0-d rule would narrow the scale.  The division by the
+# constant qmax is a product with its reciprocal: XLA rewrites the JAX
+# lowering's `/ qmax` so, and torch on CUDA divides by a host scalar so, while
+# torch on the CPU would divide (one float32 ulp apart).
+
+
+def _qmax(op) -> float:
+    return float(2 ** (op.attr("bit_length", 8) - 1) - 1)
+
+
+def _straight_through(x, out):
+    return x + (out - x).detach()
+
+
+@register_op("fake_quantize_abs_max")
+def _fake_quantize_abs_max(ctx, op, ins):
+    x = first(ins, "X")
+    qmax = _qmax(op)
+    scale = x.abs().amax()
+    safe = torch.clamp_min(scale, 1e-8)
+    q = torch.round(x / safe * qmax)
+    return {"Out": _straight_through(x, q * safe * (1.0 / qmax)), "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_channel_wise_quantize_abs_max")
+def _fake_channel_wise_quantize_abs_max(ctx, op, ins):
+    """One grid per slice along `quant_axis` (0: conv filters; 1: mul /
+    matmul Y); OutScale is [C]."""
+    x = first(ins, "X")
+    axis = op.attr("quant_axis", 0)
+    qmax = _qmax(op)
+    moved = torch.movedim(x, axis, 0)
+    scale = moved.reshape(moved.shape[0], -1).abs().amax(1)
+    safe = torch.clamp_min(scale, 1e-8).reshape((-1,) + (1,) * (x.dim() - 1))
+    q = torch.round(moved / safe * qmax)
+    out = torch.movedim(q * safe * (1.0 / qmax), 0, axis)
+    return {"Out": _straight_through(x, out), "OutScale": scale}
+
+
+@register_op("fake_quantize_moving_average_abs_max")
+def _fake_quantize_ma_abs_max(ctx, op, ins):
+    """The scale is moving_rate * InScale + (1 - moving_rate) * max|X| once
+    InScale is positive; X / scale is clipped to [-1, 1]."""
+    x = first(ins, "X")
+    in_scale = first(ins, "InScale").reshape(())
+    rate = op.attr("moving_rate", 0.9)
+    qmax = _qmax(op)
+    dt = torch.promote_types(x.dtype, in_scale.dtype)
+    cur = x.abs().amax()
+    mixed = (rate * in_scale).to(dt) + ((1 - rate) * cur).to(dt)
+    scale = torch.where(in_scale > 0, mixed, cur.to(dt))
+    safe = torch.clamp_min(scale, 1e-8)
+    xw = x.to(dt)
+    q = torch.round(torch.clamp(xw / safe, -1.0, 1.0) * qmax)
+    return {"Out": _straight_through(xw, q * safe * (1.0 / qmax)),
+            "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_dequantize_max_abs")
+def _fake_dequantize_max_abs(ctx, op, ins):
+    x = first(ins, "X")
+    scale = first(ins, "Scale").reshape(())
+    dt = torch.promote_types(x.dtype, scale.dtype)
+    return {"Out": x.to(dt) * scale.to(dt) * (1.0 / op.attr("max_range", 127.0))}
 
 
 # --- the attr'd activations

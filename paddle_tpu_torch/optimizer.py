@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import contextlib
 
-from typing import Dict, List, Optional
+# Tuple and Program are names of this module in the JAX package's API.spec
+from typing import Dict, List, Optional, Tuple  # noqa: F401
 
 from .core import unique_name
 from .core.autodiff import append_backward
 from .core.dtypes import canonical_dtype
-from .core.program import Parameter, Variable, default_main_program, default_startup_program
+from .core.program import (Parameter, Program, Variable,  # noqa: F401
+                           default_main_program, default_startup_program)
 from .core.regularizer import append_regularization_ops
 
 

@@ -28,7 +28,7 @@ eagerly through the kernels' plain versions), `ServingFleet(...,
 place=fluid.CPUPlace())`.  Failures are
 `errors.ServingError` with a reason code (overload / timeout / oversize /
 bad_request / publish_rejected / publish_io / hbm_budget / model_missing /
-shutdown / unsupported); metrics ride the monitor (serving.* counters and
+shutdown / replica_down); metrics ride the monitor (serving.* counters and
 gauges, `serving_batch` / `serving_event` / `serving_trace` records), which
 `tools/serve_trace.py --check` and `tools/perf_report.py --check
 --max-shed-frac --max-p99-ms` read as they read the JAX package's.

@@ -25,9 +25,11 @@ Nothing touches traffic until the staged snapshot passes the ladder:
   6. the golden smoke: the staged predictor must give finite outputs on a
      golden batch (the caller's, or synthesized), equal to `golden_expect`
      when the caller pins one;
-  7. quantized-snapshot parity: refused before the ladder in the port, with
-     ServingError(reason="unsupported") and no quarantine, until int8
-     models load (ROADMAP A9.3);
+  7. quantized-snapshot parity: a quantized dir (`__quant__.json`) whose
+     feed and fetch names are the active version's must give the active
+     version's outputs on the smoke's feeds within FLAGS_serving_quant_atol
+     (a shape mismatch or a larger drift rejects, as a NaN weight does); a
+     pass records the `quant_parity` serving_event with its max_abs_diff;
   8. the pre-swap warm: each serving bucket of the staged version is run
      until its plan holds a CUDA graph (Predictor.warm), so the
      traffic after the swap captures nothing.
@@ -64,8 +66,8 @@ from ..inference import Predictor
 from ..monitor import MONITOR as _MON
 from .. import io as _io
 from . import tracing as _tr
-from .registry import (ModelRegistry, ModelVersion, refuse_quantized,
-                       synthetic_feeds)
+from ..flags import flag as _flag
+from .registry import ModelRegistry, ModelVersion, quant_manifest, synthetic_feeds
 
 __all__ = ["publish", "rollback", "verify_snapshot_dir",
            "QUARANTINE_MARKER", "quarantine_marker"]
@@ -258,7 +260,6 @@ def publish(registry: ModelRegistry, name: str, src,
                     marker=False)
         src = latest
     src = str(src)
-    refuse_quantized(src, name, "publish")
     # one ladder at a time per model, marked in flight rather than locked:
     # staging and the warm take seconds and nothing should queue on a lock
     with registry._publish_cv:
@@ -426,6 +427,8 @@ def _verify_staged(registry, name, src, ctl, active, program, feed_names,
                 _reject(registry, name, src, ctl,
                         f"golden output {fname!r} drifted past "
                         f"rtol={golden_rtol}")
+    _quant_parity(registry, name, src, ctl, active, feed_names, fetch_names,
+                  feeds, outs)
     version = ModelVersion(program, feed_names, fetch_names, staged,
                            predictor, src=src)
     # the pre-swap warm: each serving bucket of the staged version graphed,
@@ -440,6 +443,44 @@ def _verify_staged(registry, name, src, ctl, active, program, feed_names,
                 f"pre-swap bucket warm failed "
                 f"({type(e).__name__}: {e})")
     return version, sparse_digest
+
+
+def _quant_parity(registry, name, src, ctl, active, feed_names, fetch_names,
+                  feeds, outs):
+    """Rung 7: a quantized snapshot publishing over a version of the same
+    feed and fetch names must reproduce its outputs on the smoke's feeds
+    within FLAGS_serving_quant_atol; quantization drift past it is a
+    content defect, rejected as a NaN weight is."""
+    if (quant_manifest(src) is None or active.feed_names != list(feed_names)
+            or active.fetch_names != list(fetch_names)):
+        return
+    atol = float(_flag("FLAGS_serving_quant_atol") or 0.0)
+    if atol <= 0:
+        return
+    try:
+        ref = active.run(feeds)
+    except Exception:
+        # the active version cannot run these feeds: nothing to hold it to
+        return
+    worst, worst_name = 0.0, None
+    for fname, got, want in zip(fetch_names, outs, ref):
+        g = _as_float(got).astype(np.float64)
+        w = _as_float(want).astype(np.float64)
+        if g.shape != w.shape:
+            _reject(registry, name, src, ctl,
+                    f"quant parity: output {fname!r} shape {g.shape} != "
+                    f"serving parent's {w.shape}")
+        d = float(np.max(np.abs(g - w))) if g.size else 0.0
+        if d > worst:
+            worst, worst_name = d, fname
+    if worst > atol:
+        _reject(registry, name, src, ctl,
+                f"quant parity: output {worst_name!r} drifted "
+                f"max|diff|={worst:.3e} past FLAGS_serving_quant_atol={atol:g} "
+                f"vs the serving parent's outputs")
+    _MON.record_step({"kind": "serving_event", "action": "quant_parity",
+                      "model": name, "src": src, "max_abs_diff": worst,
+                      "atol": atol, "trace_id": ctl})
 
 
 def rollback(registry: ModelRegistry, name: str) -> ModelVersion:

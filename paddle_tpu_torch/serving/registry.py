@@ -41,9 +41,11 @@ atomically and keep the old version for an instant rollback.
     bucket's pool is not in it, which is why chip_smoke phase 59 prints the
     estimate, the ledger and the allocator side by side.
 
-A quantized model directory (`__quant__.json`) is refused at `load` and at
-`publish` with ServingError(reason="unsupported"): the port's loader
-reads int8 models from ROADMAP A9.3 on.
+A quantized model directory (`io.save_quantized_inference_model`: int8
+payloads, `__quant__.json`) loads and publishes like any other: its weights
+are dequantized into their serve dtype at load, both estimates price them
+at that dtype, and its version's `precision` (e.g. "int8->bfloat16") is on
+`models()` and on the load and publish events.
 
 The default place is `CUDAPlace(0)`; pass `CPUPlace()` to serve on the
 CPU through the kernels' plain versions.
@@ -74,7 +76,7 @@ from . import tracing as _tr
 
 __all__ = ["ModelVersion", "ModelRegistry", "synthetic_feeds",
            "manifest_weight_bytes", "plan_model_bytes", "quant_manifest",
-           "model_precision", "refuse_quantized"]
+           "model_precision"]
 
 
 def quant_manifest(model_dir: str) -> Optional[dict]:
@@ -100,15 +102,6 @@ def model_precision(model_dir: str) -> str:
         {int(r.get("bits", 8)) for r in recs}))
     dts = "/".join(sorted({str(r.get("dtype", "float32")) for r in recs}))
     return f"int{bits}->{dts}"
-
-
-def refuse_quantized(model_dir: str, name: str, what: str):
-    """Raise ServingError(reason="unsupported") for a quantized dir."""
-    if os.path.exists(os.path.join(model_dir, _io.QUANT_MANIFEST)):
-        raise ServingError(
-            f"cannot {what} {model_dir!r}: it is a quantized (int8) model "
-            f"directory ({_io.QUANT_MANIFEST}), which the port loads from "
-            f"ROADMAP A9.3 on", reason="unsupported", model=name)
 
 
 def _np_dtype(dtype) -> np.dtype:
@@ -164,9 +157,11 @@ def synthetic_feeds(program, feed_names: Sequence[str], rows: int,
 def plan_model_bytes(model_dir: str, rows: int) -> int:
     """Pre-load estimate from the static resource plan of the saved program
     at the `rows`-row bucket: weights, live activations and staged feeds
-    (core/resource_plan.py).  Reads only `__model__.json`.  0 when the
-    program is absent or cannot be planned; callers fall back to
-    `manifest_weight_bytes`."""
+    (core/resource_plan.py).  Reads only `__model__.json` (and a quantized
+    dir's `__quant__.json`: the plan prices a weight at the program's dtype,
+    the load dequantizes it into its serve dtype, so the narrowing is taken
+    off).  0 when the program is absent or cannot be planned; callers fall
+    back to `manifest_weight_bytes`."""
     try:
         with open(os.path.join(model_dir, _io.MODEL_FILENAME)) as f:
             doc = json.load(f)
@@ -177,16 +172,32 @@ def plan_model_bytes(model_dir: str, rows: int) -> int:
         feed_shapes = synthetic_feed_shapes(program, doc.get("feed_names", []),
                                             rows)
         plan = plan_program(program, feed_shapes, doc.get("fetch_names", []))
-        return int(plan.peak_bytes)
+        total = int(plan.peak_bytes)
+        qweights = (quant_manifest(model_dir) or {}).get("weights", {})
+        if qweights:
+            block = program.global_block()
+            for wname, rec in qweights.items():
+                try:
+                    var = block.var(wname)
+                except Exception:
+                    continue
+                elems = 1
+                for d in (var.shape or []):
+                    elems *= max(int(d), 1)
+                orig = _dtype_itemsize(var.dtype or "float32")
+                total -= elems * max(orig - _dtype_itemsize(rec.get("dtype", "float32")), 0)
+        return total
     except Exception:
         return 0
 
 
 def manifest_weight_bytes(model_dir: str) -> int:
     """Pre-load estimate from the dir's manifest (shape x dtype a
-    persistable), the fallback when the program cannot be planned;
-    activations are invisible to it.  0 when the manifest is unreadable."""
+    persistable; a weight the quant manifest names at its serve dtype), the
+    fallback when the program cannot be planned; activations are invisible
+    to it.  0 when the manifest is unreadable."""
     total = 0
+    qweights = (quant_manifest(model_dir) or {}).get("weights", {})
     try:
         with open(os.path.join(model_dir, _io.MANIFEST)) as f:
             manifest = json.load(f)
@@ -194,7 +205,10 @@ def manifest_weight_bytes(model_dir: str) -> int:
             n = 1
             for d in entry.get("shape", []):
                 n *= max(int(d), 1)
-            total += n * _dtype_itemsize(entry.get("dtype", "float32"))
+            qrec = qweights.get(entry.get("name"))
+            dtype = (qrec.get("dtype", "float32") if qrec
+                     else entry.get("dtype", "float32"))
+            total += n * _dtype_itemsize(dtype)
     except (OSError, ValueError, KeyError):
         return 0
     return total
@@ -406,7 +420,6 @@ class ModelRegistry:
         package) under `name`.  A dir already loaded under another name is
         aliased: the new name shares its ModelVersion, plans and bytes.
         `warm_buckets` graphs those buckets before the load returns."""
-        refuse_quantized(model_dir, name, "load")
         real = os.path.realpath(model_dir)
         # estimated outside the lock: planning reads the saved program, and
         # a worker's acquire() must not wait on that

@@ -1442,3 +1442,109 @@ def test_an_evicted_models_bytes_are_freed_on_card(tmp_path):
     registry.load("b", d2, warm_buckets=(1, 8))  # evicts "a"
     assert sorted(registry.models()) == ["b"]
     assert abs(allocated() - alone) <= 0.01 * own
+
+
+# --- contrib.slim: the fake-quantize ops and int8 model dirs ----------------------
+
+FAKE_QUANT = {
+    "fake_quantize_abs_max": ({}, {"bit_length": 8}),
+    "fake_channel_wise_quantize_abs_max": ({}, {"bit_length": 8, "quant_axis": 1}),
+    "fake_quantize_moving_average_abs_max": ({"InScale": np.array([1.5], np.float32)},
+                                             {"bit_length": 8, "moving_rate": 0.9}),
+    "fake_dequantize_max_abs": ({"Scale": np.array([0.3], np.float32)}, {"max_range": 127.0}),
+}
+
+
+def _fake_quant_run(op_type, dtype, place):
+    """One fake-quantize op on a seeded [48, 40] X; returns its outputs and
+    X's gradient through sum(Out * w)."""
+    import ml_dtypes
+
+    extra, attrs = FAKE_QUANT[op_type]
+    r = np.random.RandomState(22)
+    x = r.randn(48, 40).astype(np.float32) * 3
+    if op_type == "fake_dequantize_max_abs":
+        x = np.round(x * 20)
+    x = x.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else x
+    w = r.randn(48, 40).astype(np.float32)
+    outs = ["Out"] if op_type == "fake_dequantize_max_abs" else ["Out", "OutScale"]
+    main = fluid.Program()
+    feed = {"x": x, "w": w, **{k.lower(): v for k, v in extra.items()}}
+    with fluid.program_guard(main, fluid.Program()):
+        block = main.global_block()
+        xv = block.create_var("x", shape=x.shape, dtype=dtype, is_data=True)
+        xv.stop_gradient = False
+        ins = {"X": ["x"]}
+        for slot, v in extra.items():
+            block.create_var(slot.lower(), shape=v.shape, dtype="float32", is_data=True)
+            ins[slot] = [slot.lower()]
+        for o in outs:
+            block.create_var(f"out_{o}")
+        block.append_op(op_type, inputs=ins, outputs={o: [f"out_{o}"] for o in outs},
+                        attrs=attrs)
+        wv = block.create_var("w", shape=w.shape, dtype="float32", is_data=True)
+        loss = fluid.layers.mean(fluid.layers.elementwise_mul(block.var("out_Out"), wv))
+        grads = fluid.append_backward(loss, parameter_list=["x"])
+    exe = fluid.Executor(place)
+    return exe.run(main, feed=feed, fetch_list=[f"out_{o}" for o in outs] + [grads[0][1].name],
+                   scope=fluid.Scope())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op_type", list(FAKE_QUANT))
+def test_fake_quantize_ops_on_card_match_the_cpu_run(op_type, dtype):
+    """Each fake-quantize op and its straight-through gradient on the card
+    equal its CPU run bit for bit (IEEE division and round-half-even on
+    both; a bf16 op rounds once on both), and launch no kernel."""
+    _need_card()
+    before = dict(ck.LAUNCHES)
+    card = _fake_quant_run(op_type, dtype, fluid.CUDAPlace(0))
+    cpu = _fake_quant_run(op_type, dtype, fluid.CPUPlace())
+    assert ck.LAUNCHES == before
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        assert a.dtype == b.dtype and a.shape == b.shape, (i, a.dtype, b.dtype)
+        assert a.tobytes() == b.tobytes(), (op_type, dtype, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("serve_dtype", [None, "bfloat16"])
+def test_an_int8_dir_loads_on_the_card_bitwise_as_on_the_cpu(tmp_path, serve_dtype,
+                                                            exact_card_math):
+    """An int8 dir (channel-wise QAT conv net, saved on the CPU) loads onto
+    the card with each weight bitwise its CPU load, and its predictor's
+    fetches on the card are within float32 rounding of the CPU's."""
+    _need_card()
+    from paddle_tpu_torch.contrib import slim
+
+    layers = fluid.layers
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = layers.data("x", [3, 8, 8], dtype="float32")
+            c = layers.conv2d(x, num_filters=8, filter_size=3, padding=1, act="relu")
+            out = layers.fc(layers.reshape(c, [-1, 8 * 8 * 8]), 10, act="softmax")
+    startup.random_seed = 3
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    slim.quant_aware(main, weight_quantize_type="channel_wise_abs_max",
+                     quantize_activations=False)
+    d = str(tmp_path / "q")
+    fluid.io.save_quantized_inference_model(d, ["x"], [out], exe, main, scope,
+                                            serve_dtype=serve_dtype)
+    loaded = {}
+    for where, device in (("card", "cuda:0"), ("cpu", "cpu")):
+        s = fluid.Scope()
+        names = fluid.io.load_vars(d, None, s, device=device)
+        loaded[where] = {n: s.find_var(n) for n in names}
+    for n, t in loaded["card"].items():
+        c = loaded["cpu"][n]
+        assert t.is_cuda and t.dtype == c.dtype and t.shape == c.shape, n
+        assert torch.equal(t.cpu().view(torch.uint8) if t.dtype == torch.bfloat16 else t.cpu(),
+                           c.view(torch.uint8) if c.dtype == torch.bfloat16 else c), n
+    xv = np.random.RandomState(0).rand(4, 3, 8, 8).astype(np.float32)
+    got = {w: fluid.inference.create_predictor(fluid.inference.AnalysisConfig(d, place=p)).run(
+        {"x": xv})[0] for w, p in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace()))}
+    np.testing.assert_allclose(np.asarray(got["card"], np.float32),
+                               np.asarray(got["cpu"], np.float32), rtol=0, atol=1e-4)

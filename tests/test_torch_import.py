@@ -56,6 +56,13 @@ def test_package_imports_with_jax_and_paddle_tpu_blocked():
         "from paddle_tpu_torch.core import locks\n"
         "from paddle_tpu_torch import dist_resilience, launch\n"
         "from paddle_tpu_torch.serving import fleet, replica_main, router\n"
+        "from paddle_tpu_torch.contrib import slim\n"
+        "from paddle_tpu_torch.contrib.slim import distillation, prune, quantization\n"
+        "assert fluid.contrib.slim is slim and slim.quant_aware is quantization.quant_aware\n"
+        "assert {'fake_quantize_abs_max', 'fake_channel_wise_quantize_abs_max',\n"
+        "        'fake_quantize_moving_average_abs_max', 'fake_dequantize_max_abs'} <= set(\n"
+        "    registered_ops())\n"
+        "assert fluid.io.save_quantized_inference_model\n"
         "assert fluid.launch is launch and fluid.dist_resilience is dist_resilience\n"
         "assert fluid.serving.ServingFleet is fleet.ServingFleet and fluid.serving.Router\n"
         "assert {'FLAGS_cudnn_deterministic', 'FLAGS_paddle_num_threads'} <= set(flags._REGISTRY)\n"

@@ -874,6 +874,55 @@ CASES += [
 ]
 
 
+# the fake-quantize family (contrib/slim's QAT ops), float32 and bf16: OutScale
+# is computed in X's dtype while the rule declares float32, in both packages.
+# Bit for bit, save the moving average: XLA's CPU backend contracts its
+# float32 scale update (one ulp), and keeps a bf16 product in float32 where
+# the update widens to float32 (up to half a bf16 step of the scale)
+_qr = np.random.RandomState(22)
+_QF32 = lambda *s: _qr.randn(*s).astype("float32")  # noqa: E731
+_QBF16 = lambda *s: _qr.randn(*s).astype(ml_dtypes.bfloat16)  # noqa: E731
+_FQ_OUT = ["Out", "OutScale"]
+FAKE_QUANT_CASES = [
+    ("fq_abs_max", "fake_quantize_abs_max", {"X": _QF32(4, 6)}, {"bit_length": 8}, _FQ_OUT, 0.0),
+    ("fq_abs_max_4bit", "fake_quantize_abs_max", {"X": _QF32(3, 5)}, {"bit_length": 4}, _FQ_OUT,
+     0.0),
+    ("fq_abs_max_bf16", "fake_quantize_abs_max", {"X": _QBF16(4, 6)},
+     {"bit_length": 8, "out_dtype": "bfloat16"}, _FQ_OUT, 0.0),
+    ("fq_channel_conv", "fake_channel_wise_quantize_abs_max", {"X": _QF32(5, 3, 2, 2)},
+     {"bit_length": 8, "quant_axis": 0}, _FQ_OUT, 0.0),
+    ("fq_channel_mul_axis1", "fake_channel_wise_quantize_abs_max", {"X": _QF32(6, 7)},
+     {"bit_length": 8, "quant_axis": 1}, _FQ_OUT, 0.0),
+    ("fq_channel_bf16", "fake_channel_wise_quantize_abs_max", {"X": _QBF16(6, 7)},
+     {"bit_length": 8, "quant_axis": 1, "out_dtype": "bfloat16"}, _FQ_OUT, 0.0),
+    ("fq_moving_average", "fake_quantize_moving_average_abs_max",
+     {"X": _QF32(4, 6), "InScale": np.array([1.5], np.float32)},
+     {"bit_length": 8, "moving_rate": 0.9}, _FQ_OUT, 1e-6),
+    ("fq_moving_average_first", "fake_quantize_moving_average_abs_max",
+     {"X": _QF32(4, 6) * 3, "InScale": np.array([0.0], np.float32)}, {"bit_length": 8},
+     _FQ_OUT, 1e-6),
+    ("fq_moving_average_clipped", "fake_quantize_moving_average_abs_max",
+     {"X": _QF32(4, 6) * 3, "InScale": np.array([0.5], np.float32)}, {"moving_rate": 0.5},
+     _FQ_OUT, 1e-6),
+    ("fq_moving_average_bf16", "fake_quantize_moving_average_abs_max",
+     {"X": _QBF16(4, 6), "InScale": np.array([1.0], np.float32)}, {"bit_length": 8},
+     _FQ_OUT, 2e-3),  # half a bf16 step of 0.1 * max|X| (max|X| < 4)
+    ("fdq_max_abs", "fake_dequantize_max_abs",
+     {"X": np.round(_QF32(4, 6) * 40), "Scale": np.array([0.3], np.float32)},
+     {"max_range": 127.0}, ["Out"], 0.0),
+    ("fdq_max_abs_bf16", "fake_dequantize_max_abs",
+     {"X": _QBF16(4, 6), "Scale": np.array([0.3], np.float32)}, {"max_range": 15.0}, ["Out"],
+     0.0),
+]
+CASES += FAKE_QUANT_CASES
+# the straight-through gradient (and OutScale's, through max |X|)
+GRAD_CASES += [(c[0],) + c[1:5] + (["X"],) for c in FAKE_QUANT_CASES
+               if "bf16" not in c[0] and not c[0].startswith("fdq")]
+GRAD_CASES += [("fdq_max_abs", "fake_dequantize_max_abs",
+                {"X": _QF32(4, 6) * 40, "Scale": np.array([0.3], np.float32)},
+                {"max_range": 127.0}, ["Out"], ["X", "Scale"])]
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_op_matches_jax(case):
     """Same fetches, and the same declared output shapes and dtypes (the

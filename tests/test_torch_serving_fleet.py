@@ -781,3 +781,15 @@ def test_wire_encoding_matches_the_jax_package():
     for a, b in zip(tfluid.serving.router.decode_arrays(json.loads(json.dumps(jdoc))), arrays):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a.astype("f8"), b.astype("f8"))
+
+
+@pytest.mark.parametrize("eph", [32768, 40000, None])
+def test_a_replica_port_block_lies_below_the_ephemeral_range(monkeypatch, eph):
+    """The port keeps a fleet's ports out of the kernel's ephemeral range
+    (the JAX package draws them from [20000, 50000) whatever the range):
+    while a replica restarts, the router's outgoing connections could take
+    its port and keep its successor from binding it.  Without a readable
+    range the block is drawn from [20000, 50000) as in the JAX package."""
+    monkeypatch.setattr(tfluid.launch, "_ephemeral_low", lambda: eph)
+    bases = [tfluid.launch.allocate_port_block(2) for _ in range(20)]
+    assert all(20000 <= b and b + 2 <= (eph or 50000) for b in bases), bases

@@ -10,8 +10,9 @@ responses, `stats()` without its times, `ledger()`, the monitor's serving.*
 counters, the `serving_event` actions and the traces' outcomes, reason
 codes and phases -- and the two packages must agree.  Times are never
 compared.  On top: the port's registry releases a version's executor plans
-when it drops the version (weakref test), and a quantized model directory
-is refused, naming ROADMAP A9.3.
+when it drops the version (weakref test); quantized (int8) model
+directories load, publish through the quant-parity rung and are priced as
+in the JAX package.
 """
 import errno
 import gc
@@ -125,7 +126,7 @@ def _param_bytes(version):
     """The bytes of a version's persistables (the JAX package's ledger also
     counts the 8-byte PRNG key a run before the version was made leaves in
     its scope, as the publisher's smoke does)."""
-    return sum(int(np.asarray(version.scope.find_var(v.name)).nbytes)
+    return sum(int(version.scope.find_var(v.name).nbytes)
                for v in version.program.list_vars() if v.persistable)
 
 
@@ -867,36 +868,149 @@ def test_a_batch_holds_its_version_from_the_moment_it_takes_it(tmp_path, mon, mo
     assert _plans_of(reg.executor, version.scope) == []
 
 
-def test_quantized_model_dir_is_refused_naming_a93(tmp_path, mon):
-    """The port cannot load an int8 model yet: `load` and `publish` refuse
-    a quantized dir (saved by the JAX package) with reason="unsupported",
-    and the refusal quarantines nothing."""
+# --------------------------------------------------------------------------
+# quantized (int8) model directories: load, the quant-parity rung
+# --------------------------------------------------------------------------
+
+def _save_quant_model(dirname, w_scale=1.0, serve_dtype="bfloat16", weight_bits=8):
+    """The quantized twin of _save_model, saved by the JAX package: the same
+    weights, int8 payloads on disk, dequantized into `serve_dtype` at load."""
     main, startup, out = _build_net(PKGS["jax"])
     exe = jfluid.Executor(jfluid.CPUPlace())
     scope = jfluid.Scope()
+    startup.random_seed = 3
     exe.run(startup, scope=scope)
-    qdir = str(tmp_path / "quant")
-    jfluid.io.save_quantized_inference_model(qdir, ["x"], [out], exe, main, scope,
-                                             weight_bits=8, serve_dtype="bfloat16")
-    assert tfluid.serving.model_precision(qdir) == jfluid.serving.model_precision(qdir) \
-        == "int8->bfloat16"
-    reg = tfluid.serving.ModelRegistry(place=tfluid.CPUPlace())
-    with pytest.raises(tfluid.errors.ServingError) as ei:
-        reg.load("q", qdir)
-    assert ei.value.reason == "unsupported" and "A9.3" in str(ei.value)
-    reg.load("m", _save_model(str(tmp_path / "m")))
-    with pytest.raises(tfluid.errors.ServingError) as ei:
-        tfluid.serving.publish(reg, "m", qdir)
-    assert ei.value.reason == "unsupported" and "A9.3" in str(ei.value)
-    assert not reg.quarantined
-    assert not os.path.exists(os.path.join(qdir, tfluid.serving.QUARANTINE_MARKER))
+    for v in main.list_vars():
+        if v.persistable:
+            scope.set_var(v.name, np.full(np.asarray(scope.find_var(v.name)).shape, w_scale,
+                                          dtype="float32"))
+    jfluid.io.save_quantized_inference_model(dirname, ["x"], [out], exe, main, scope,
+                                             weight_bits=weight_bits, serve_dtype=serve_dtype)
+    return dirname
+
+
+def _quant_events(P):
+    return [{k: r.get(k) for k in ("model", "max_abs_diff", "atol")}
+            for r in P.mon.step_records()
+            if r.get("kind") == "serving_event" and r.get("action") == "quant_parity"]
+
+
+def _case_quant_load(P, tmp):
+    quant = _save_quant_model(str(tmp / "quant"))
+    srv = P.serving.Server(P.serving.ModelRegistry(place=P.fluid.CPUPlace()), buckets=(2,))
+    try:
+        srv.load_model("q", quant)
+        xv = np.random.RandomState(3).rand(2, D_IN).astype("f4")
+        (out,) = srv.infer("q", {"x": xv})
+        version = srv.registry.acquire("q")
+        dtypes = sorted({str(np.asarray(P.fluid.core.dtypes.to_numpy(version.scope.find_var(
+            v.name)) if P.name == "torch" else version.scope.find_var(v.name)).dtype)
+            for v in version.program.list_vars() if v.persistable})
+        load = [r for r in P.mon.step_records()
+                if r.get("kind") == "serving_event" and r.get("action") == "load"]
+        info = srv.registry.models()["q"]
+    finally:
+        srv.stop()
+    return _observe(P, srv, out=out, dtypes=dtypes, load_precision=load[-1]["precision"],
+                    precision=info["precision"])
+
+
+def test_quantized_dir_loads_with_the_jax_packages_precision_and_bytes(tmp_path, mon):
+    """A quantized dir (int8 payloads, bf16 serve dtype) loads in the port:
+    the same precision on models() and on the load event, the same
+    persistables' bytes (bf16 weights) and the same responses."""
+    got = _both(_case_quant_load, tmp_path)["torch"]
+    assert got["precision"] == got["load_precision"] == "int8->bfloat16"
+    assert got["dtypes"] == ["bfloat16", "float32"]  # the weight; the bias is not quantized
+    assert got["stats"]["models"]["q"]["bytes"] == 2 * D_IN * D_OUT + 4 * D_OUT
+
+
+def _case_quant_publish(P, tmp):
+    srv, _ = _server(P, tmp, buckets=(2,))
+    try:
+        fp32 = srv.registry.models()["m"]
+        qd = _save_quant_model(str(tmp / "quant_ok"))
+        xv = np.ones((1, D_IN), "f4")
+        before = srv.infer("m", {"x": xv})[0]
+        srv.publish("m", qd)
+        info = srv.registry.models()["m"]
+        after = srv.infer("m", {"x": xv})[0]
+        pub = [r for r in P.mon.step_records()
+               if r.get("kind") == "serving_event" and r.get("action") == "publish"]
+    finally:
+        srv.stop()
+    return _observe(P, srv, before=before, after=after, parity=_quant_events(P),
+                    precision=(fp32["precision"], info["precision"], pub[-1]["precision"]),
+                    narrower=info["bytes"] < fp32["bytes"])
+
+
+def test_quant_publish_passes_the_parity_rung_as_in_the_jax_package(tmp_path, mon):
+    """An int8 snapshot of the served weights publishes through the ladder:
+    one quant_parity event with the same max_abs_diff and atol in both
+    packages, the precision on models() and the publish event, half the
+    weight bytes, the same outputs."""
+    got = _both(_case_quant_publish, tmp_path)["torch"]
+    assert got["precision"] == ("float32", "int8->bfloat16", "int8->bfloat16")
+    assert got["narrower"]
+    assert len(got["parity"]) == 1 and got["parity"][0]["model"] == "m"
+    assert got["parity"][0]["max_abs_diff"] <= got["parity"][0]["atol"] == 5e-2
+    np.testing.assert_allclose(got["after"], got["before"], rtol=1e-5)
+
+
+def _case_quant_drift(P, tmp):
+    srv, _ = _server(P, tmp, buckets=(2,))
+    xv = np.ones((1, D_IN), "f4")
+    try:
+        before = srv.infer("m", {"x": xv})[0]
+        bad = _save_quant_model(str(tmp / "quant_drift"))
+        qpath = os.path.join(bad, P.io.QUANT_MANIFEST)
+        with open(qpath) as f:
+            qman = json.load(f)
+        for rec in qman["weights"].values():
+            rec["scale"] = (np.asarray(rec["scale"], "f4") * 37.0).tolist()
+        with open(qpath, "w") as f:
+            json.dump(qman, f)
+        with pytest.raises(P.ServingError) as ei:
+            srv.publish("m", bad)
+        first = (ei.value.reason, "quant parity" in str(ei.value))
+        marker = P.serving.quarantine_marker(bad)
+        after = srv.infer("m", {"x": xv})[0]
+        with pytest.raises(P.ServingError) as ei:  # a repeat rejects fast
+            srv.publish("m", bad)
+        second = (ei.value.reason, "quarantined" in str(ei.value))
+        quarantined = os.path.realpath(bad) in srv.registry.quarantined
+    finally:
+        srv.stop()
+    np.testing.assert_array_equal(after, before)
+    return _observe(P, srv, first=first, second=second, quarantined=quarantined,
+                    marker="quant parity" in marker["detail"], parity=_quant_events(P),
+                    outs=[before, after])
+
+
+def test_drifted_quant_snapshot_is_rejected_and_quarantined(tmp_path, mon):
+    """Scales multiplied by 37 dequantize to finite, wrong weights: the
+    parity rung rejects and quarantines the snapshot, the float version
+    serves on bit for bit, and a repeat publish rejects fast, in both
+    packages."""
+    got = _both(_case_quant_drift, tmp_path)["torch"]
+    assert got["first"] == ("publish_rejected", True)
+    assert got["second"] == ("publish_rejected", True)
+    assert got["quarantined"] and got["marker"] and got["parity"] == []
+    assert got["counters"]["serving.publish_rejected"] == 2
 
 
 def test_plan_and_manifest_bytes_equal_in_both(tmp_path):
     d = _save_model(str(tmp_path / "m"))
-    for rows in (1, 4, 32):
-        assert tfluid.serving.plan_model_bytes(d, rows) == jfluid.serving.plan_model_bytes(d, rows)
-    assert tfluid.serving.manifest_weight_bytes(d) == jfluid.serving.manifest_weight_bytes(d)
+    q = _save_quant_model(str(tmp_path / "q"))
+    for model in (d, q):
+        for rows in (1, 4, 32):
+            assert tfluid.serving.plan_model_bytes(model, rows) == \
+                jfluid.serving.plan_model_bytes(model, rows)
+        assert tfluid.serving.manifest_weight_bytes(model) == \
+            jfluid.serving.manifest_weight_bytes(model)
+    # a quantized dir is priced at its bf16 serve dtype: below its float twin
+    assert tfluid.serving.manifest_weight_bytes(q) < tfluid.serving.manifest_weight_bytes(d)
+    assert tfluid.serving.plan_model_bytes(q, 8) < tfluid.serving.plan_model_bytes(d, 8)
     j = json.load(open(os.path.join(d, "__model__.json")))
     tprog = tfluid.Program.from_dict(j)
     jprog = jfluid.Program.from_dict(j)
