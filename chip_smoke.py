@@ -396,6 +396,26 @@ the allocator's cached blocks and prints torch.cuda.mem_get_info().
      max(1, max|logits|) of the instrumented test-mode forward (phase 8
      holds only finiteness: this is the rule for a deployed ResNet), 53 BN
      epilogue launches a request; phases 64-65's seconds printed.
+ 66. dygraph_resnet: ResNet-50 in dygraph (dygraph_cases.resnet: Conv2D +
+     BatchNorm bottlenecks [3, 4, 6, 3], widths 64-2048, a 7 x 7 stem,
+     Pool2D, Linear to 1000 classes), f32, under dygraph.guard() (no place:
+     cuda:0), batch 32 at 224 x 224, Momentum 0.9 on a PiecewiseDecay from
+     0.1, 6 steps on one batch: warm step (median of steps 3-6), images/s,
+     tape entries a step, peak memory, idle share and host ATen calls of a
+     profiled step; phase 10's loss rule; no kernel of the port launched;
+ 67. dygraph_ptb: the medium PTB LSTM language model (2 x BasicLSTMUnit at
+     650, vocab 10,000, 35 steps, batch 20, Dropout 0.5, uniform +-0.05),
+     GradClipByGlobalNorm(5) written back, SGD on a PiecewiseDecay at 1.0,
+     6 steps on one batch of seeded ids: warm step, tokens/s, tape entries,
+     peak memory, idle share; finite losses, the last below the first, no
+     kernel launched;
+ 68. dygraph_parity: card against CPU in f32, a guard per evaluation: the
+     layer, functional, optimizer (the nine eager rules, Lamb, DGC), clip
+     and rnn-cell cases of dygraph_cases (1e-5 of max(1, |CPU|)); ResNet-50
+     at 64 x 64, batch 4, 3 steps each from the CPU's state (phase 11's
+     rule); the PTB model at width 64, vocab 200, 10 steps, batch 4, 3 steps
+     with dropout (phase 7's rule); its state saved on the card and loaded
+     on the CPU bit for bit; no kernel launched; phases 66-68's seconds.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -7640,8 +7660,14 @@ def fleet_kill(fluid, card, fleet, pool, new_out, new_dir):
     port = fleet.health.poll()[1]["tel"]["port"]
     direct = 0.0
     for i, feed in enumerate(pool[:FLEET_CLIENTS]):
-        reply = router.rpc(port, {"op": "infer", "model": "bert",
-                                  "feeds": router.encode_feeds(feed)})
+        try:
+            reply = router.rpc(port, {"op": "infer", "model": "bert",
+                                      "feeds": router.encode_feeds(feed)})
+        except router.ConnectFailed as e:  # say why: the events, the health table, the logs
+            raise AssertionError(
+                f"fleet_kill: the restarted replica at :{port} refused a connection ({e}); "
+                f"events {fleet_events(fleet)}; health {fleet.health.poll()}\n"
+                + fleet_logs(fleet)) from e
         if not reply.get("ok"):
             raise AssertionError(f"fleet_kill: the restarted replica refused: {reply}")
         direct = max(direct, max_diff(router.decode_arrays(reply["outputs"])[0], new_out[i]))
@@ -8091,6 +8117,342 @@ def quant_phases(fluid, torch, ck, tmp, card, bert_dir):
     return served, trained
 
 
+# --- phases 66-68: dygraph --------------------------------------------------
+
+DYGRAPH_RESNET_BATCH = 32
+DYGRAPH_RESNET_LR = ([3, 5], [0.1, 0.01, 0.001])  # PiecewiseDecay from 0.1
+DYGRAPH_PTB_LR = ([4], [1.0, 0.5])  # PiecewiseDecay at 1.0
+DYGRAPH_PTB_CLIP = 5.0
+DYGRAPH_RANDOM_DRAWS = ("dropout", "nce", "spectral_norm")  # two forwards: the next draws too
+DYGRAPH_PARITY_RESNET = dict(size=64, batch=4, lr=([2], [0.01, 0.005]))
+DYGRAPH_PARITY_PTB = dict(hidden=64, vocab=200, num_layers=2, num_steps=10, init_scale=0.05,
+                          dropout=0.5)
+DYGRAPH_PARITY_BATCH = 4
+DYGRAPH_TOL = 1e-5  # one-op rule of phase 47: 1e-5 of max(1, the CPU's largest)
+
+
+def dygraph_train(fluid, torch, ck, card, phase, model_name, build, units):
+    """Phases 66-67: TRAIN_STEPS eager steps of `build()`'s model under
+    `dygraph.guard()` (no place: CUDAPlace(0)), the launch counts reset just
+    before and read just after; then one profiled step.  The peak memory
+    is printed whole and above what was allocated before the model was
+    built.  Returns the launches and the losses."""
+    import numpy as np
+    from paddle_tpu_torch.models import dygraph_cases as cases
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    with fluid.dygraph.guard():
+        model, forward, opt, clip = build()
+        devices = {p.value.device.type for p in model.parameters()}
+        if devices != {"cuda"}:
+            raise AssertionError(f"{phase}: parameters on {devices}, not the card")
+        tape = fluid.dygraph.base._tape()
+        emit({"phase": phase, "model": model_name, "setup_s": time.perf_counter() - t0,
+              "parameters": sum(p.value.numel() for p in model.parameters()), "card": card})
+        ck.reset_launches()  # the main path's count starts here
+        losses, step_ms, entries = [], [], []
+        for step in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            loss = forward()
+            entries.append(len(tape.entries))
+            losses.append(cases.train_step(fluid, model, opt, loss, clip))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            emit({"phase": phase, "step": step, "loss": losses[-1], "step_ms": step_ms[-1],
+                  "tape_entries": entries[-1], "card": card})
+            if not np.isfinite(losses[-1]):
+                raise AssertionError(f"{phase} step {step}: loss {losses[-1]}")
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        _, prof = profile_run(torch, f"{phase} step",
+                              lambda: cases.train_step(fluid, model, opt, forward(), clip), card)
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: the dygraph path launched the port's kernels: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    warm = statistics.median(step_ms[2:])
+    emit({"phase": phase, "losses": losses, "warm_step_ms": warm, "first_step_ms": step_ms[0],
+          **{f"{k}_per_s": v / warm * 1e3 for k, v in units.items()},
+          "tape_entries_per_step": entries[0], "peak_mem_gb": peak / 1e9,
+          "peak_above_start_gb": (peak - start) / 1e9,
+          "device_idle_share": prof["device_idle_share"],
+          "host_aten_calls": prof["host_aten_calls"], "launches": launches, "card": card})
+    return launches, losses
+
+
+def dygraph_resnet(fluid, torch, ck, card):
+    """Phase 66: ResNet-50 in dygraph (dygraph_cases.resnet at RESNET50),
+    batch 32 at 224 x 224, f32, Momentum 0.9 on a PiecewiseDecay from 0.1,
+    6 steps on one fixed batch: phase 10's loss rule, no kernel launched."""
+    from paddle_tpu_torch.models import dygraph_cases as cases
+
+    def build():
+        model = cases.resnet(fluid, **cases.RESNET50)
+        opt = fluid.optimizer.Momentum(fluid.dygraph.PiecewiseDecay(*DYGRAPH_RESNET_LR), 0.9)
+        xv, yv = cases.images(DYGRAPH_RESNET_BATCH, 224, cases.RESNET50["class_dim"], 66)
+        # the batch goes to the card once: loading data is set-up
+        x = fluid.dygraph.to_variable(torch.from_numpy(xv).cuda())
+        y = fluid.dygraph.to_variable(torch.from_numpy(yv).cuda())
+        return model, lambda: model(x, y), opt, None
+
+    launches, losses = dygraph_train(
+        fluid, torch, ck, card, "dygraph_resnet",
+        "resnet-50 dygraph f32 (Conv2D + BatchNorm bottlenecks, test_imperative_resnet.py), "
+        "Momentum 0.9 on PiecewiseDecay from 0.1", build, {"images": DYGRAPH_RESNET_BATCH})
+    if not (losses[1] < losses[0] and losses[-1] < losses[0]):
+        raise AssertionError(f"dygraph_resnet: the loss did not fall: {losses}")
+    return launches
+
+
+def dygraph_ptb(fluid, torch, ck, card):
+    """Phase 67: the medium PTB LSTM language model in dygraph (2 x
+    BasicLSTMUnit at 650, vocab 10,000, 35 steps, batch 20, Dropout 0.5,
+    uniform +-0.05), GradClipByGlobalNorm(5) written back, SGD on a
+    PiecewiseDecay at 1.0, 6 steps on one batch of seeded ids: finite
+    losses, the last below the first, no kernel launched."""
+    from paddle_tpu_torch.models import dygraph_cases as cases
+
+    cfg = cases.PTB_MEDIUM
+
+    def build():
+        model = cases.ptb(fluid, **cfg)
+        opt = fluid.optimizer.SGD(fluid.dygraph.PiecewiseDecay(*DYGRAPH_PTB_LR))
+        clip = fluid.dygraph_grad_clip.GradClipByGlobalNorm(DYGRAPH_PTB_CLIP)
+        ids, labels = cases.tokens(cases.PTB_BATCH, cfg["num_steps"], cfg["vocab"], 67)
+        return model, lambda: model(ids, labels), opt, clip
+
+    launches, losses = dygraph_train(
+        fluid, torch, ck, card, "dygraph_ptb",
+        "PTB LM medium (Zaremba et al. 2014) dygraph f32, BasicLSTMUnit x 2, clip 5, SGD 1.0",
+        build, {"tokens": cases.PTB_BATCH * cfg["num_steps"]})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dygraph_ptb: the loss did not fall: {losses}")
+    return launches
+
+
+def dygraph_close(worst, kind, name, got, want, tol=DYGRAPH_TOL):
+    """Hold one card array against the CPU's within tol * max(1, |CPU|max);
+    keeps the worst share a kind."""
+    import numpy as np
+
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"dygraph_parity {kind} {name}: shape {got.shape} != {want.shape}")
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    share = float(np.abs(got - want).max(initial=0.0)) / scale
+    worst[kind] = max(worst.get(kind, (0.0, "")), (share, name))
+    if not share <= tol:
+        raise AssertionError(f"dygraph_parity {kind} {name}: card vs CPU {share} > {tol} "
+                             f"of max(1, |CPU|)")
+
+
+def dygraph_resnet_parity(fluid, cases, cpu, gpu, record):
+    """ResNet-50 (dygraph) at 64 x 64, batch 4: 3 Momentum steps on the CPU;
+    before each, the CPU's state (weights, statistics, velocities, the
+    schedule's position) is loaded on the card, which takes the same step.
+    Phase 11's rule: the loss within 1e-3 * max(1, |loss|), the running
+    statistics within 1e-3 of their move, each velocity and update within
+    0.2 of the CPU's in L2, the velocities' cosine at least 0.99; the conv
+    biases a batch norm removes (gradient 0 in exact arithmetic) within
+    1e-5."""
+    import numpy as np
+
+    p = DYGRAPH_PARITY_RESNET
+    xv, yv = cases.images(p["batch"], p["size"], cases.RESNET50["class_dim"], 68)
+    worst = {"loss": 0.0, "stat": (0.0, ""), "velocity": (0.0, ""), "update": (0.0, ""),
+             "removed_bias": (0.0, "")}
+    cosines = []
+    with fluid.dygraph.guard(cpu):
+        model = cases.resnet(fluid, **cases.RESNET50)
+        opt = fluid.optimizer.Momentum(fluid.dygraph.PiecewiseDecay(*p["lr"]), 0.9)
+        for step in range(PARITY_STEPS):
+            state, vel = model.state_dict(), cases.velocities(model, opt)
+            with fluid.dygraph.guard(gpu):
+                g_model = cases.resnet(fluid, **cases.RESNET50)
+                g_model.set_dict(state)
+                g_opt = fluid.optimizer.Momentum(
+                    fluid.dygraph.PiecewiseDecay(*p["lr"], begin=step), 0.9)
+                cases.set_velocities(fluid, g_model, g_opt, vel)
+                gl = cases.train_step(fluid, g_model, g_opt, g_model(
+                    fluid.dygraph.to_variable(xv), fluid.dygraph.to_variable(yv)))
+                g_after, g_vel = g_model.state_dict(), cases.velocities(g_model, g_opt)
+            cl = cases.train_step(fluid, model, opt, model(
+                fluid.dygraph.to_variable(xv), fluid.dygraph.to_variable(yv)))
+            c_after, c_vel = model.state_dict(), cases.velocities(model, opt)
+            worst["loss"] = max(worst["loss"], abs(gl - cl) / max(1.0, abs(cl)))
+            dot = ng = nc = 0.0
+            for n, want in c_after.items():
+                got, before = g_after[n], state[n]
+                if n.endswith(("._mean", "._variance")):
+                    moved = float(np.abs(want - before).max())
+                    worst["stat"] = max(worst["stat"], (float(np.abs(got - want).max())
+                                                        / max(moved, 1e-30), n))
+                elif n.endswith(".conv.bias"):
+                    worst["removed_bias"] = max(worst["removed_bias"],
+                                                (float(np.abs(got - want).max()), n))
+                else:
+                    upd = np.linalg.norm(want - before)
+                    worst["update"] = max(worst["update"], (float(
+                        np.linalg.norm(got - want) / max(upd, 1e-30)), n))
+                    gv, cv = g_vel[n].astype(np.float64), c_vel[n].astype(np.float64)
+                    worst["velocity"] = max(worst["velocity"], (float(
+                        np.linalg.norm(gv - cv) / max(np.linalg.norm(cv), 1e-30)), n))
+                    dot += float(np.sum(gv * cv))
+                    ng += float(np.sum(gv * gv))
+                    nc += float(np.sum(cv * cv))
+            cosines.append(dot / np.sqrt(ng * nc))
+            record.setdefault("resnet_losses_card_cpu", []).append((gl, cl))
+    record.update({"resnet_worst": worst, "resnet_velocity_cosines": cosines})
+    for what, limit in (("stat", 1e-3), ("velocity", 0.2), ("update", 0.2),
+                        ("removed_bias", 1e-5)):
+        if not worst[what][0] <= limit:
+            raise AssertionError(f"dygraph_parity resnet {what} {worst[what][1]} off by "
+                                 f"{worst[what][0]} > {limit}")
+    if not worst["loss"] <= 1e-3 or not min(cosines) >= 0.99:
+        raise AssertionError(f"dygraph_parity resnet: losses {record['resnet_losses_card_cpu']}"
+                             f", cosines {cosines}")
+
+
+def dygraph_parity(fluid, torch, ck, card, tmp):
+    """Phase 68: the dygraph path on the card against the CPU in float32,
+    a guard per evaluation: every layer case of dygraph_cases (forward, the
+    next draws of the random ones, every parameter's and input's gradient,
+    the state after), the 20 functionals, the eager rules and Lamb and DGC
+    over 3 steps, the three clips, both rnn cells (DYGRAPH_TOL of max(1,
+    the CPU's largest); losses 1e-3); ResNet-50 at 64 x 64 (phase 11's
+    rule, dygraph_resnet_parity); the PTB model at width 64, vocab 200, 10
+    steps, batch 4, 3 steps with dropout on (numpy's masks: the same on
+    both; phase 7's rule: losses 1e-3, parameters DYGRAPH_TOL of max(1,
+    |p|)); its state saved on the card and loaded on the CPU bit for bit.
+    No kernel is launched."""
+    import numpy as np
+    from paddle_tpu_torch.models import dygraph_cases as cases
+
+    cpu, gpu = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    worst, record = {}, {"phase": "dygraph_parity", "card": card}
+    ck.reset_launches()
+    for case in sorted(cases.LAYER_CASES):
+        twice = case in DYGRAPH_RANDOM_DRAWS
+        with fluid.dygraph.guard(cpu):
+            c_init, c_outs, c_grads, c_after = cases.layer_run(fluid, case, twice=twice)
+        with fluid.dygraph.guard(gpu):
+            _, g_outs, g_grads, g_after = cases.layer_run(fluid, case, state=c_init, twice=twice)
+        for i, (g, c) in enumerate(zip(g_outs, c_outs)):
+            dygraph_close(worst, "layer_out", f"{case}[{i}]", g, c)
+        if sorted(g_grads) != sorted(c_grads):
+            raise AssertionError(f"dygraph_parity {case}: gradients of {sorted(g_grads)} "
+                                 f"!= {sorted(c_grads)}")
+        for n in c_grads:
+            dygraph_close(worst, "layer_grad", f"{case}.{n}", g_grads[n], c_grads[n])
+        for n in c_after:
+            dygraph_close(worst, "layer_state", f"{case}.{n}", g_after[n], c_after[n])
+    for case in sorted(cases.FUNCTIONAL_CASES):
+        with fluid.dygraph.guard(cpu):
+            c = cases.functional_run(fluid, case)
+        with fluid.dygraph.guard(gpu):
+            g = cases.functional_run(fluid, case)
+        if g[0] != c[0]:
+            raise AssertionError(f"dygraph_parity {case}: dtype {g[0]} != {c[0]}")
+        dygraph_close(worst, "functional_out", case, g[1], c[1])
+        for i, (gg, cg) in enumerate(zip(g[2], c[2])):
+            if (gg is None) != (cg is None):
+                raise AssertionError(f"dygraph_parity {case}: gradient {i} None on one side")
+            if cg is not None:
+                dygraph_close(worst, "functional_grad", f"{case}[{i}]", gg, cg)
+    for which in sorted(cases.OPTIMIZERS):
+        with fluid.dygraph.guard(cpu):
+            c_losses, c_states = cases.train_linear(fluid, cases.OPTIMIZERS[which])
+        with fluid.dygraph.guard(gpu):
+            g_losses, g_states = cases.train_linear(fluid, cases.OPTIMIZERS[which])
+        dygraph_close(worst, "optimizer_loss", which, g_losses, c_losses, tol=1e-3)
+        for step, (gs, cs) in enumerate(zip(g_states, c_states)):
+            for n in cs:
+                dygraph_close(worst, "optimizer_param", f"{which}[{step}].{n}", gs[n], cs[n])
+    for which in sorted(cases.CLIPS):
+        with fluid.dygraph.guard(cpu):
+            c = cases.clip_run(fluid, which)
+        with fluid.dygraph.guard(gpu):
+            g = cases.clip_run(fluid, which)
+        for (_, gg), (_, cg) in zip(g, c):
+            if cg is not None:
+                dygraph_close(worst, "clip", which, gg, cg)
+    for cell in ("lstm", "gru"):
+        with fluid.dygraph.guard(cpu):
+            c = cases.cell_run(fluid, cell)
+        with fluid.dygraph.guard(gpu):
+            g = cases.cell_run(fluid, cell, state=c[3])
+        for i, (go, co) in enumerate(zip(g[0], c[0])):
+            dygraph_close(worst, "cell", f"{cell}.out{i}", go, co)
+        for n in c[1]:
+            dygraph_close(worst, "cell", f"{cell}.{n}", g[1][n], c[1][n])
+        for i, (gg, cg) in enumerate(zip(g[2], c[2])):
+            if cg is not None:
+                dygraph_close(worst, "cell", f"{cell}.input{i}", gg, cg)
+    dygraph_resnet_parity(fluid, cases, cpu, gpu, record)
+    runs = {}
+    for name, place in (("cpu", cpu), ("card", gpu)):
+        with fluid.dygraph.guard(place):
+            model = cases.ptb(fluid, **DYGRAPH_PARITY_PTB)
+            model(*cases.tokens(DYGRAPH_PARITY_BATCH, DYGRAPH_PARITY_PTB["num_steps"],
+                                DYGRAPH_PARITY_PTB["vocab"], 0))  # the cells' weights
+            if name == "card":
+                model.set_dict(runs["cpu"][0])
+            opt = fluid.optimizer.SGD(fluid.dygraph.PiecewiseDecay(*DYGRAPH_PTB_LR))
+            clip = fluid.dygraph_grad_clip.GradClipByGlobalNorm(DYGRAPH_PTB_CLIP)
+            ids, labels = cases.tokens(DYGRAPH_PARITY_BATCH, DYGRAPH_PARITY_PTB["num_steps"],
+                                       DYGRAPH_PARITY_PTB["vocab"], 68)
+            model.drop._rng = np.random.RandomState(0)  # both runs draw the same masks
+            initial = model.state_dict()
+            losses, states = [], []
+            for _ in range(PARITY_STEPS):
+                losses.append(cases.train_step(fluid, model, opt, model(ids, labels), clip))
+                states.append(model.state_dict())
+            runs[name] = (initial, losses, states)
+            if name == "card":
+                ckpt = os.path.join(tmp, "dygraph_ptb")
+                fluid.dygraph.save_persistables(model, ckpt)
+    dygraph_close(worst, "ptb_loss", "losses", runs["card"][1], runs["cpu"][1], tol=1e-3)
+    for step, (gs, cs) in enumerate(zip(runs["card"][2], runs["cpu"][2])):
+        for n in cs:
+            dygraph_close(worst, "ptb_param", f"[{step}].{n}", gs[n], cs[n])
+    loaded = fluid.dygraph.load_persistables(ckpt)
+    with fluid.dygraph.guard(cpu):
+        model = cases.ptb(fluid, **DYGRAPH_PARITY_PTB)
+        model(*cases.tokens(DYGRAPH_PARITY_BATCH, DYGRAPH_PARITY_PTB["num_steps"],
+                            DYGRAPH_PARITY_PTB["vocab"], 0))
+        model.set_dict(loaded)
+        back = model.state_dict()
+    card_final = runs["card"][2][-1]
+    if list(back) != list(card_final) or not all(
+            np.array_equal(back[n], card_final[n]) for n in card_final):
+        raise AssertionError("dygraph_parity: the card's checkpoint did not load bit for bit")
+    launches = dict(ck.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"dygraph_parity launched the port's kernels: {launches}")
+    emit({**record, "ptb_losses_card": runs["card"][1], "ptb_losses_cpu": runs["cpu"][1],
+          "worst_share": worst, "tol": DYGRAPH_TOL, "checkpoint_bitwise": True,
+          "layer_cases": len(cases.LAYER_CASES), "functional_cases": len(cases.FUNCTIONAL_CASES),
+          "optimizer_cases": len(cases.OPTIMIZERS)})
+    return launches
+
+
+def dygraph_phases(fluid, torch, ck, tmp, card):
+    """Phases 66-68; their seconds printed.  Returns each path's launches."""
+    out = {}
+    t0 = time.perf_counter()
+    for phase, run in (("dygraph_resnet", lambda: dygraph_resnet(fluid, torch, ck, card)),
+                       ("dygraph_ptb", lambda: dygraph_ptb(fluid, torch, ck, card)),
+                       ("dygraph_parity", lambda: dygraph_parity(fluid, torch, ck, card, tmp))):
+        phase_t0 = time.perf_counter()
+        out[phase] = run()
+        emit({"phase_seconds": phase, "s": time.perf_counter() - phase_t0, "card": card})
+    emit({"phase_seconds": "phases 66-68", "s": time.perf_counter() - t0, "card": card})
+    return out
+
+
 def main():
     run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
@@ -8259,6 +8621,7 @@ def main():
         fleet_served = fleet_phases(fluid, torch, card, tmp, fleet_inputs)
         quant_served, qat_trained = quant_phases(fluid, torch, ck, tmp, card,
                                                  fleet_inputs["bert_dir"])
+        dygraph_ran = dygraph_phases(fluid, torch, ck, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -8308,7 +8671,8 @@ def main():
              "serving_bert": (PER_REQUEST, served_bert),
              "serving_fleet": (PER_REQUEST, fleet_served),
              "quant_serving": (PER_REQUEST, quant_served),
-             "qat_resnet": (RESNET_PER_STEP, qat_trained)}
+             "qat_resnet": (RESNET_PER_STEP, qat_trained),
+             **{phase: (NONE, ran) for phase, ran in dygraph_ran.items()}}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for path, (want, got) in paths.items():

@@ -43,12 +43,16 @@ scaling, the kernels taking float16 as they take bfloat16.
 `contrib.slim` quantizes (QAT, post-training, the freeze), prunes and
 distils; `io.save_quantized_inference_model` stores int8 weights, which a
 load dequantizes into their serve dtype (no int8 product runs, as in the
-JAX package).
+JAX package).  `dygraph` runs eagerly: `VarBase`s on a guard's device,
+the tape's backward through `torch.autograd`, `Layer` and its layers, the
+eager optimizer updates, the LR schedules, `dygraph_grad_clip` and
+`contrib.rnn_impl`'s cells.
 """
 import numpy as np
 
 from . import ops  # registers the op lowerings  # noqa: F401
-from . import contrib  # mixed_precision, slim  # noqa: F401
+from . import contrib  # mixed_precision, rnn_impl, slim  # noqa: F401
+from . import dygraph, dygraph_grad_clip  # noqa: F401
 from . import (backward, clip, errors, flags, inference, io, layers, lod,  # noqa: F401
                models, monitor, nets, optimizer, pipeline, profiler)
 from . import (dataset, datasets, faults, integrity, reader, recordio,  # noqa: F401
@@ -96,8 +100,8 @@ from . import debugger, evaluator, metrics  # noqa: F401,E402
 
 
 def in_dygraph_mode():
-    """False: the port has no dygraph mode yet."""
-    return False
+    """True inside a `dygraph.guard()`, as in the JAX package."""
+    return dygraph.base.enabled()
 
 
 def create_random_int_lodtensor(recursive_seq_lens, base_shape, place, low, high):

@@ -1,7 +1,8 @@
 """Contributed modules (counterpart of paddle_tpu/contrib): `mixed_precision`,
-float16 training with dynamic loss scaling, and `slim`: quantization (QAT,
-post-training, the int8 freeze), pruning and distillation.  The JAX
-package's `rnn_impl` (BasicGRUUnit, BasicLSTMUnit) is not ported yet: it
-waits for ROADMAP A9.4."""
+float16 training with dynamic loss scaling; `slim`: quantization (QAT,
+post-training, the int8 freeze), pruning and distillation; and `rnn_impl`,
+the dygraph cells `BasicLSTMUnit` and `BasicGRUUnit`."""
 from . import mixed_precision  # noqa: F401
+from . import rnn_impl  # noqa: F401
 from . import slim  # noqa: F401
+from .rnn_impl import BasicGRUUnit, BasicLSTMUnit  # noqa: F401

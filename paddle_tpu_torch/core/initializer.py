@@ -73,3 +73,51 @@ class XavierInitializer(Initializer):
             return UniformInitializer(-limit, limit, self.seed)(var, block)
         std = float(np.sqrt(2.0 / (fi + fo)))
         return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            "truncated_gaussian_random",
+            outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": var.dtype, "mean": self.loc,
+                   "std": self.scale, "seed": self.seed},
+        )
+
+
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fans(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fi))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = float(np.sqrt(2.0 / fi))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        return block.append_op(
+            "assign_value",
+            outputs={"Out": [var.name]},
+            attrs={"values": self.value, "dtype": var.dtype, "shape": list(self.value.shape)},
+        )
+
+
+# the reference's short names
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
+Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -136,3 +136,31 @@ from ..core.dtypes import canonical_dtype  # noqa: F401,E402
 from ..core.layer_helper import LayerHelper  # noqa: F401,E402
 from ..core.program import Variable  # noqa: F401,E402
 from .nn import dropout_prob_check  # noqa: F401,E402
+
+
+def _dygraph_dispatch(name, graph_fn):
+    """Stateless layers work in both modes: inside a `dygraph.guard()` the
+    call goes to dygraph/functional.py, outside it to the graph-mode layer."""
+    import functools
+
+    @functools.wraps(graph_fn)
+    def wrapper(*a, **k):
+        from ..dygraph import base as _db
+
+        if _db.enabled():
+            from ..dygraph import functional as _F
+
+            return getattr(_F, name)(*a, **k)
+        return graph_fn(*a, **k)
+
+    return wrapper
+
+
+for _n in (
+    "mean", "relu", "softmax", "matmul", "reshape", "transpose", "concat",
+    "reduce_sum", "reduce_mean", "square_error_cost", "cross_entropy",
+    "softmax_with_cross_entropy", "accuracy", "dropout", "sigmoid", "tanh",
+    "sqrt", "square", "exp", "log",
+):
+    globals()[_n] = _dygraph_dispatch(_n, globals()[_n])
+del _n

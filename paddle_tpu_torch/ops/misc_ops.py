@@ -595,7 +595,7 @@ def _sample_logits(ctx, op, ins):
             "Probabilities": q}
 
 
-def _tree_conv_one(nodes, edges, w, max_depth):
+def tree_conv_math(nodes, edges, w, max_depth):
     """Tree-based convolution of one tree: nodes [N, F]; edges [E, 2],
     1-indexed (parent, child), (0, 0) padded; w [F, 3, out, nf].  The patch
     of node u is u and its descendants at depth < max_depth, weighted by
@@ -645,7 +645,7 @@ def _tree_conv(ctx, op, ins):
     edges = first(ins, "EdgeSet").to(torch.int32)
     w = first(ins, "Filter").float()
     max_depth = op.attr("max_depth", 2)
-    out = torch.stack([_tree_conv_one(nodes[b], edges[b], w, max_depth)
+    out = torch.stack([tree_conv_math(nodes[b], edges[b], w, max_depth)
                        for b in range(nodes.shape[0])])
     return {"Out": out.to(nodes.dtype)}
 

@@ -394,29 +394,38 @@ def _label_smooth(ctx, op, ins):
 register_op("depthwise_conv2d")(_conv2d)
 
 
+def conv2d_transpose_math(x, w, strides=(1, 1), pads=(0, 0), dilations=(1, 1), groups=1):
+    """Transposed conv, fluid filter layout (in, out / groups, kh, kw): the
+    JAX package's lhs-dilated conv with the flipped kernel
+    (conv2d_transpose_math) is F.conv_transpose2d with the same padding.
+    Shared by the op lowering and the dygraph Conv2DTranspose layer."""
+    return F.conv_transpose2d(x, w, None, tuple(strides), (pads[0], pads[1]), 0,
+                              groups or 1, tuple(dilations))
+
+
+def conv3d_transpose_math(x, w, strides=(1, 1, 1), pads=(0, 0, 0), dilations=(1, 1, 1),
+                          groups=1):
+    """3-D transposed conv, filter (in, out / groups, kd, kh, kw)
+    (paddle_tpu/ops/nn_ops.py conv3d_transpose_math); shared as above."""
+    return F.conv_transpose3d(x, w, None, tuple(strides), tuple(pads), 0, groups or 1,
+                              tuple(dilations))
+
+
 @register_op("conv2d_transpose")
 @register_op("depthwise_conv2d_transpose")
 def _conv2d_transpose(ctx, op, ins):
-    """Transposed conv, fluid filter layout (in, out / groups, kh, kw): the
-    JAX package's lhs-dilated conv with the flipped kernel
-    (conv2d_transpose_math) is F.conv_transpose2d with the same padding."""
     x = first(ins, "Input")
     w = match_dtype(x, first(ins, "Filter"))
-    pads = list(op.attr("paddings", [0, 0]))
-    return {"Output": F.conv_transpose2d(
-        x, w, None, tuple(op.attr("strides", [1, 1])), (pads[0], pads[1]), 0,
-        op.attr("groups", 1) or 1, tuple(op.attr("dilations", [1, 1])))}
+    return {"Output": conv2d_transpose_math(
+        x, w, op.attr("strides", [1, 1]), list(op.attr("paddings", [0, 0])),
+        op.attr("dilations", [1, 1]), op.attr("groups", 1))}
 
 
 @register_op("conv3d_transpose")
 def _conv3d_transpose(ctx, op, ins):
-    """3-D transposed conv, filter (in, out / groups, kd, kh, kw)
-    (paddle_tpu/ops/nn_ops.py conv3d_transpose_math)."""
-    x = first(ins, "Input")
-    w = first(ins, "Filter")
-    return {"Output": F.conv_transpose3d(
-        x, w, None, tuple(op.attr("strides", [1, 1, 1])), tuple(op.attr("paddings", [0, 0, 0])),
-        0, op.attr("groups", 1) or 1, tuple(op.attr("dilations", [1, 1, 1])))}
+    return {"Output": conv3d_transpose_math(
+        first(ins, "Input"), first(ins, "Filter"), op.attr("strides", [1, 1, 1]),
+        op.attr("paddings", [0, 0, 0]), op.attr("dilations", [1, 1, 1]), op.attr("groups", 1))}
 
 
 def _interp_2d(x, out_h, out_w, method, align_corners, align_mode=1):

@@ -11,8 +11,15 @@ optimizer of the JAX package but `PipelineOptimizer` (which needs the
 `pipeline` op and a mesh, ROADMAP A10): `SGD`, `Momentum`, `Adam`,
 `Adagrad`, `RMSProp`, `Adamax`, `Adadelta`, `Ftrl`, `Lamb`,
 `LarsMomentum`, `DecayedAdagrad`, `DGCMomentum` and `Dpsgd`, and the
-parameter averages `ExponentialMovingAverage` and `ModelAverage`.  The
-dygraph (eager) updates come with `dygraph/` (ROADMAP A9).
+parameter averages `ExponentialMovingAverage` and `ModelAverage`.
+
+Inside a `dygraph.guard()`, `minimize` updates each parameter eagerly from
+its `.grad` (`_dygraph_minimize`): nine classes have an eager rule
+(`_eager_update`), the JAX package's expressions in its order, with the
+learning rate a Python float (a `LearningRateDecay` is called once a
+`minimize`).  `Lamb` and `DGCMomentum` inherit Adam's and Momentum's rule,
+`Ftrl`, `Dpsgd` and `ModelAverage` raise, and no regularizer is applied:
+all as in the JAX package.
 
 The averages' `apply()` swaps the averaged values into the parameters and
 back by copying into the tensors the scope holds: a plan replayed as a CUDA
@@ -25,6 +32,8 @@ import contextlib
 
 # Tuple and Program are names of this module in the JAX package's API.spec
 from typing import Dict, List, Optional, Tuple  # noqa: F401
+
+import torch
 
 from .core import unique_name
 from .core.autodiff import append_backward
@@ -137,12 +146,43 @@ class Optimizer:
         return self.apply_gradients(params_grads)
 
     def minimize(self, loss, startup_program=None, parameter_list=None, no_grad_set=None):
+        from .dygraph import base as _dy
+
+        if _dy.enabled():
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
 
+    # --- dygraph (eager) path --------------------------------------------
+    def _dygraph_minimize(self, loss, parameter_list):
+        """Apply the update rule eagerly from each parameter's .grad, which
+        the caller's loss.backward() set."""
+        if parameter_list is None:
+            raise ValueError("dygraph minimize() needs parameter_list")
+        if not hasattr(self, "_eager_state"):
+            self._eager_state: Dict[int, dict] = {}
+        lr = self._learning_rate() if callable(self._learning_rate) else self._learning_rate
+        updated = []
+        with torch.no_grad():
+            for p in parameter_list:
+                if p.grad is None or p.stop_gradient:
+                    continue
+                st = self._eager_state.setdefault(id(p), {})
+                p.value = self._eager_update(p.value, p.grad, float(lr), st)
+                updated.append(p)
+        return [], [(p, p.grad) for p in updated]
+
+    def _eager_update(self, p, g, lr, state):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no eager (dygraph) update rule yet"
+        )
+
 
 class SGDOptimizer(Optimizer):
+    def _eager_update(self, p, g, lr, state):
+        return p - lr * g
+
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
         return block.append_op(
@@ -157,6 +197,17 @@ class MomentumOptimizer(Optimizer):
         super().__init__(learning_rate, **kw)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    def _eager_update(self, p, g, lr, state):
+        v = state.get("velocity")
+        v = torch.zeros_like(p) if v is None else v
+        v_new = self._momentum * v + g
+        if self._use_nesterov:
+            p_new = p - lr * (g + self._momentum * v_new)
+        else:
+            p_new = p - lr * v_new
+        state["velocity"] = v_new
+        return p_new
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -180,6 +231,19 @@ class AdamOptimizer(Optimizer):
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lazy_mode = lazy_mode
+
+    def _eager_update(self, p, g, lr, state):
+        m1 = state.get("m1")
+        m1 = torch.zeros_like(p) if m1 is None else m1
+        m2 = state.get("m2")
+        m2 = torch.zeros_like(p) if m2 is None else m2
+        b1p = state.get("b1p", 1.0) * self._beta1
+        b2p = state.get("b2p", 1.0) * self._beta2
+        m1 = self._beta1 * m1 + (1 - self._beta1) * g
+        m2 = self._beta2 * m2 + (1 - self._beta2) * torch.square(g)
+        lr_t = lr * (1 - b2p) ** 0.5 / (1 - b1p)
+        state.update(m1=m1, m2=m2, b1p=b1p, b2p=b2p)
+        return p - lr_t * m1 / (torch.sqrt(m2) + self._epsilon)
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -227,6 +291,13 @@ class AdagradOptimizer(Optimizer):
         self._epsilon = epsilon
         self._initial = initial_accumulator_value
 
+    def _eager_update(self, p, g, lr, state):
+        m = state.get("moment")
+        m = torch.full_like(p, self._initial) if m is None else m
+        m = m + torch.square(g)
+        state["moment"] = m
+        return p - lr * g / (torch.sqrt(m) + self._epsilon)
+
     def _create_accumulators(self, block, parameters):
         for p in parameters:
             self._add_accumulator("moment", p, fill_value=self._initial)
@@ -248,6 +319,21 @@ class RMSPropOptimizer(Optimizer):
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0, centered=False, **kw):
         super().__init__(learning_rate, **kw)
         self._rho, self._epsilon, self._momentum, self._centered = rho, epsilon, momentum, centered
+
+    def _eager_update(self, p, g, lr, state):
+        if not state:
+            state.update(ms=torch.zeros_like(p), mg=torch.zeros_like(p),
+                         mom=torch.zeros_like(p))
+        ms, mg, mom = state["ms"], state["mg"], state["mom"]
+        ms = self._rho * ms + (1 - self._rho) * torch.square(g)
+        if self._centered:
+            mg = self._rho * mg + (1 - self._rho) * g
+            denom = torch.sqrt(ms - torch.square(mg) + self._epsilon)
+        else:
+            denom = torch.sqrt(ms + self._epsilon)
+        mom = self._momentum * mom + lr * g / denom
+        state.update(ms=ms, mg=mg, mom=mom)
+        return p - mom
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -276,6 +362,16 @@ class AdamaxOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8, **kw):
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _eager_update(self, p, g, lr, state):
+        if not state:
+            state.update(m=torch.zeros_like(p), inf=torch.zeros_like(p), b1p=1.0)
+        m, inf = state["m"], state["inf"]
+        b1p = state["b1p"] * self._beta1
+        m = self._beta1 * m + (1 - self._beta1) * g
+        inf = torch.maximum(self._beta2 * inf, torch.abs(g))
+        state.update(m=m, inf=inf, b1p=b1p)
+        return p - (lr / (1 - b1p)) * m / (inf + self._epsilon)
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -307,6 +403,16 @@ class AdadeltaOptimizer(Optimizer):
     def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
         super().__init__(learning_rate, **kw)
         self._epsilon, self._rho = epsilon, rho
+
+    def _eager_update(self, p, g, lr, state):
+        if not state:
+            state.update(g2=torch.zeros_like(p), u2=torch.zeros_like(p))
+        g2, u2 = state["g2"], state["u2"]
+        g2 = self._rho * g2 + (1 - self._rho) * torch.square(g)
+        upd = -torch.sqrt((u2 + self._epsilon) / (g2 + self._epsilon)) * g
+        u2 = self._rho * u2 + (1 - self._rho) * torch.square(upd)
+        state.update(g2=g2, u2=u2)
+        return p + upd
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -389,6 +495,21 @@ class LarsMomentumOptimizer(MomentumOptimizer):
         self._lars_coeff = lars_coeff
         self._lars_weight_decay = lars_weight_decay
 
+    def _eager_update(self, p, g, lr, state):
+        wd = self._lars_weight_decay
+        p_norm = torch.sqrt(torch.sum(torch.square(p)))
+        g_norm = torch.sqrt(torch.sum(torch.square(g)))
+        local_lr = torch.where(
+            (p_norm > 0) & (g_norm > 0),
+            lr * self._lars_coeff * p_norm / (g_norm + wd * p_norm),
+            lr,
+        )
+        v = state.get("velocity")
+        v = torch.zeros_like(p) if v is None else v
+        v_new = self._momentum * v + local_lr * (g + wd * p)
+        state["velocity"] = v_new
+        return p - v_new
+
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
         v = self._get_accumulator("velocity", p)
@@ -409,6 +530,13 @@ class DecayedAdagradOptimizer(Optimizer):
         super().__init__(learning_rate, **kw)
         self._decay = decay
         self._epsilon = epsilon
+
+    def _eager_update(self, p, g, lr, state):
+        m = state.get("moment")
+        m = torch.zeros_like(p) if m is None else m
+        m = self._decay * m + (1.0 - self._decay) * g * g
+        state["moment"] = m
+        return p - lr * g / (torch.sqrt(m) + self._epsilon)
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:

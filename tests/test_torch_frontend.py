@@ -11,6 +11,7 @@ rounding of a value near 1) unless a case states its own; programs by
 import contextlib
 import json
 import os
+from types import SimpleNamespace
 
 import ml_dtypes
 import numpy as np
@@ -905,7 +906,14 @@ def test_load_persistables_defaults_to_the_card(tmp_path, monkeypatch):
         tfluid.io.load_persistables(None, str(tmp_path), main, tfluid.Scope())
 
 
-@pytest.mark.parametrize("entry", ["Executor", "AnalysisConfig", "profile_program"])
+def _dygraph_guard_place():
+    """The place a `dygraph.guard()` without one runs on."""
+    with tfluid.dygraph.guard():
+        return SimpleNamespace(device=tfluid.dygraph.base.current_device())
+
+
+@pytest.mark.parametrize("entry", ["Executor", "AnalysisConfig", "profile_program",
+                                   "dygraph.guard"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a place, the entry points take CUDAPlace(0): on a machine with
     a card that is cuda:0, and without one they raise rather than fall back
@@ -913,7 +921,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     main, _, _ = _fit_a_line(PKGS["torch"])
     make = {"Executor": lambda: tfluid.Executor().place,
             "AnalysisConfig": lambda: tfluid.inference.AnalysisConfig("model_dir").place,
-            "profile_program": lambda: tfluid.profiler.profile_program(main, {})}[entry]
+            "profile_program": lambda: tfluid.profiler.profile_program(main, {}),
+            "dygraph.guard": _dygraph_guard_place}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
@@ -967,7 +976,8 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 216, len(missing)  # of 1232
+    assert len(missing) <= 121, len(missing)  # of 1232
+    assert [n for n in missing if n.startswith("paddle_tpu.dygraph.")] == []
     assert [n for n in missing if n.startswith("paddle_tpu.layers.")] == [
         "paddle_tpu.layers.ring_attention"]
     for n in ("paddle_tpu.layers.square_error_cost", "paddle_tpu.layers.sums",

@@ -1548,3 +1548,65 @@ def test_an_int8_dir_loads_on_the_card_bitwise_as_on_the_cpu(tmp_path, serve_dty
         {"x": xv})[0] for w, p in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace()))}
     np.testing.assert_allclose(np.asarray(got["card"], np.float32),
                                np.asarray(got["cpu"], np.float32), rtol=0, atol=1e-4)
+
+
+def _dygraph_conv_bn_linear(place, optimizer, state=None):
+    """A Conv2D + BatchNorm + Linear model in dygraph, 3 steps under
+    guard(place) on one batch: the initial state, the losses, the state
+    after each step and the parameters' devices."""
+    dy = fluid.dygraph
+    rng = np.random.RandomState(0)
+    xv = rng.rand(8, 3, 16, 16).astype("f4")
+    yv = rng.randint(0, 5, (8, 1))
+    with dy.guard(place):
+        class Net(dy.Layer):
+            def __init__(self):
+                super().__init__("net")
+                self.conv = dy.Conv2D(3, 8, 3, padding=1)
+                self.bn = dy.BatchNorm(8, act="relu")
+                self.pool = dy.Pool2D(pool_type="avg", global_pooling=True)
+                self.fc = dy.Linear(8, 5)
+
+            def forward(self, x):
+                y = fluid.layers.reshape(self.pool(self.bn(self.conv(x))), [-1, 8])
+                return self.fc(y)
+
+        net = Net()
+        if state is not None:
+            net.set_dict(state)
+        initial = net.state_dict()
+        opt = {"momentum": lambda: fluid.optimizer.Momentum(0.1, 0.9),
+               "adam": lambda: fluid.optimizer.Adam(0.01)}[optimizer]()
+        losses, states = [], []
+        for _ in range(3):
+            loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+                net(dy.to_variable(xv)), dy.to_variable(yv)))
+            loss.backward()
+            opt.minimize(loss, parameter_list=net.parameters())
+            net.clear_gradients()
+            losses.append(float(loss.numpy().reshape(-1)[0]))
+            states.append(net.state_dict())
+        return initial, losses, states, {p.value.device.type for p in net.parameters()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["momentum", "adam"])
+def test_dygraph_conv_bn_linear_on_card_matches_the_cpu_run(optimizer, exact_card_math):
+    """dygraph.guard() without a place trains on cuda:0, launches none of the
+    port's kernels, and matches the CPU run from the same weights: losses
+    within 1e-4 relative, every parameter and running statistic within 1e-5
+    of max(1, |CPU|); under Adam the conv bias, which the batch norm removes
+    (gradient 0 in exact arithmetic), within 2 * lr * steps + 1e-5."""
+    _need_card()
+    cpu = _dygraph_conv_bn_linear(fluid.CPUPlace(), optimizer)
+    before = dict(ck.LAUNCHES)
+    card = _dygraph_conv_bn_linear(None, optimizer, state=cpu[0])
+    assert dict(ck.LAUNCHES) == before
+    assert card[3] == {"cuda"} and cpu[3] == {"cpu"}
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4)
+    for got, want in zip(card[2], cpu[2]):
+        for n in want:
+            tol = 1e-5 * max(1.0, float(np.abs(want[n]).max()))
+            if optimizer == "adam" and n == "conv.bias":
+                tol = 2 * 0.01 * 3 + 1e-5
+            np.testing.assert_allclose(got[n], want[n], rtol=0, atol=tol, err_msg=n)

@@ -286,21 +286,37 @@ def test_disabled_monitor_null_trace(tmp_path):
 # pad waste, queue wait and the SLO
 # --------------------------------------------------------------------------
 
+def _settled(srv, completed, timeout=30.0):
+    """Wait until the server's own ledger counts `completed` requests.  A
+    worker resolves each request's future before it counts the request's
+    batch, in both packages, so a client that reads right after its result
+    can find its batch not yet counted (ROADMAP C)."""
+    deadline = time.monotonic() + timeout
+    while srv.stats()["completed"] < completed:
+        assert time.monotonic() < deadline, srv.stats()
+        time.sleep(0.005)
+
+
 def _case_pad(P, tmp):
     srv, _ = _server(P, tmp, buckets=(2, 4))
     try:
         srv.infer("m", {"x": np.ones((1, D_IN), "f4")})
         srv.infer("m", {"x": np.ones((3, D_IN), "f4")})
-        attr = srv.bucket_attribution()
-        assert 0.0 <= P.monitor.gauge("serving.queue_wait_frac").read() <= 1.0
-        return {"pad_rows": P.monitor.counter("serving.pad_rows").value,
-                "pad_frac": [P.monitor.gauge(f"serving.bucket[{b}].pad_frac").read()
-                             for b in (2, 4)],
-                "attr": {b: {k: a[k] for k in ("pad_rows", "requests", "rows", "occupancy",
-                                               "pad_frac", "batches")}
-                         for b, a in attr.items()}}
+        # the gauges read the server's ledger, and stop() releases them
+        _settled(srv, 2)
+        queue_wait = P.monitor.gauge("serving.queue_wait_frac").read()
+        pad_frac = [P.monitor.gauge(f"serving.bucket[{b}].pad_frac").read() for b in (2, 4)]
     finally:
         srv.stop()
+    # the monitor's counters are bumped after the ledger: read once stop()
+    # has drained the queue and joined the workers
+    attr = srv.bucket_attribution()
+    assert 0.0 <= queue_wait <= 1.0
+    return {"pad_rows": P.monitor.counter("serving.pad_rows").value,
+            "pad_frac": pad_frac,
+            "attr": {b: {k: a[k] for k in ("pad_rows", "requests", "rows", "occupancy",
+                                           "pad_frac", "batches")}
+                     for b, a in attr.items()}}
 
 
 def test_pad_counter_and_bucket_pad_frac_gauge(tmp_path, mon):
@@ -321,13 +337,12 @@ def _case_slo(P, tmp):
     with pytest.raises(P.ServingError):
         doomed.result(timeout=30)
     srv.infer("m", {"x": xv})
-    s = srv.stats()
-    out = {"slo": s["slo"], "good": P.monitor.counter("serving.slo_good").value,
-           "bad": P.monitor.counter("serving.slo_bad").value,
-           "good_frac": round(P.monitor.gauge("serving.slo_good_frac").read(), 6),
-           "burn": round(P.monitor.gauge("serving.slo_burn_rate").read(), 6)}
+    _settled(srv, 1)
+    gauges = {"good_frac": round(P.monitor.gauge("serving.slo_good_frac").read(), 6),
+              "burn": round(P.monitor.gauge("serving.slo_burn_rate").read(), 6)}
     srv.stop()
-    return out
+    return {"slo": srv.stats()["slo"], "good": P.monitor.counter("serving.slo_good").value,
+            "bad": P.monitor.counter("serving.slo_bad").value, **gauges}
 
 
 def test_slo_burn_accounting(tmp_path, mon):

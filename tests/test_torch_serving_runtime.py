@@ -236,9 +236,10 @@ def _case_novel_size(P, tmp):
         rng = np.random.RandomState(1)
         outs = [srv.infer("m", {"x": rng.rand(rows, D_IN).astype("f4")})[0]
                 for rows in (3, 1, 2, 4, 3, 1)]
-        assert P.monitor.counter("executor.cache_miss").value == miss0
     finally:
         srv.stop()
+    # read once stop() has joined the workers: every batch has run
+    assert P.monitor.counter("executor.cache_miss").value == miss0
     return _observe(P, srv, outs=outs)
 
 

@@ -202,6 +202,9 @@ def test_places_compiler_and_dygraph_mode(monkeypatch):
         assert [type(p).__name__ for p in fluid.cuda_pinned_places()] == ["CUDAPinnedPlace"] * 3
         assert fluid.compiler.CompiledProgram is fluid.CompiledProgram
         assert fluid.in_dygraph_mode() is False
+        with fluid.dygraph.guard(fluid.CPUPlace()):
+            assert fluid.in_dygraph_mode() is True
+        assert fluid.in_dygraph_mode() is False
     import torch
 
     assert len(tfluid.cuda_places()) == torch.cuda.device_count()
