@@ -80,7 +80,8 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  13. train_long: the same at seq 2048, batch 8 (16,384 tokens a step), with
      peak memory and sequences and tokens per second;
  14. train_fused_parity: phase 7 with the fused_attention op at batch 32 x 128
-     and 1 x 2048;
+     and 1 x 2048 (the CPU arms run on a thread beside the kernels' build
+     and phase 3, as phase 55's BERT's);
  15. deepfm_train: DeepFM at full width (26 fields, vocab 200,000, embed 16,
      MLP 400 x 3, float32, tools/donation_audit.py:128-132) at batch 4096
      with is_sparse tables: 6 Adagrad(0.05) steps through
@@ -280,10 +281,12 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
      decorate(Momentum(0.1, 0.9)), 6 steps graphed: warm step, images/s,
      peak memory; BN epilogue 53 + 53 and xent 1 + 1 a step; phase 10's
      loss rule over the steps an applied update leads to;
- 55. amp_parity: card vs CPU: BERT 2 layers float16 with AMP at 2 x 128
-     (dropout 0; the host's float16 matmuls set the size), 3 steps, the
-     second forced to overflow through the scope's loss_scaling_0 (every
-     state bit for bit on both sides), held by AMP_BERT_PARITY; and
+ 55. amp_parity: card vs CPU: BERT 1 layer float16 with AMP at 2 x 128
+     (dropout 0; the host's float16 matmuls set the size; the CPU arm runs
+     on a thread beside the kernels' build and phase 3), 3
+     steps, the second forced to overflow through the scope's
+     loss_scaling_0 (every state bit for bit on both sides), held by
+     AMP_BERT_PARITY; and
      ResNet-50 float16 with AMP at phase 11's batch of 8 and phase 35's
      64 x 64 from a scale of 2^10 (AMP_RESNET_PARITY), 3 steps one at a
      time, each also taken in float32 on the CPU: the card's float16 error
@@ -416,6 +419,44 @@ the allocator's cached blocks and prints torch.cuda.mem_get_info().
      rule); the PTB model at width 64, vocab 200, 10 steps, batch 4, 3 steps
      with dropout (phase 7's rule); its state saved on the card and loaded
      on the CPU bit for bit; no kernel launched; phases 66-68's seconds.
+ 69. host_table_deepfm: phase 15's DeepFM at full width (26 fields, vocab
+     200,000, embed 16, MLP 400 x 3, batch 4096, f32) with both tables on
+     a supervised pserver child (`python -m paddle_tpu_torch.param_server`,
+     the card hidden from it; SGD 0.05, a snapshot every 64 ops), each a
+     TieredEmbedding whose hot quarter trains in this process: 32 steps of
+     deepfm_feed batches under resilient_train_loop (max_inflight 1), the
+     loader pulling the rows, the device step deepfm_net's arithmetic over
+     the two pulled blocks with Adam(1e-3) on the 8 MLP parameters (Adam 8
+     launches a step, as read off the program, held run by run and on a
+     profiled replay), on_logged pushing each table's row gradient, the
+     publish hook exporting both tables every 8 steps into a card
+     ModelRegistry serving deepfm.build(is_sparse=True)'s test program
+     (served predictions within 1e-5 of an Executor run on the exported
+     tables); the loss finite and falling; examples/s, the step's wall
+     split into lookup (its pull RPCs apart), the Executor and the loop,
+     and apply_grad (its push RPCs apart, and a probe: a record the size
+     of the V push appended with and without its fsync), cold rows and
+     bytes a step, the profiled step's device busy and idle share, the
+     pserver child's op count and snapshots as its beat reports them,
+     publish seconds and staleness, graphed;
+     perf_report --check --max-publish-staleness-steps 16
+     --max-host-lag-steps 8 on the metrics stream;
+ 70. host_table_chaos: phase 69 under kill_pserver@18;rot_row@1 (KVClient
+     retries 8 from 0.2 s, no degraded mode): 32 steps, the child
+     restarted, the rotted second publish rejected and quarantined with
+     the first version serving on, every hot row, cold row and MLP
+     parameter bitwise equal to phase 69's; the same gates;
+ 71. host_table_parity: f32 at DEEPFM_PARITY (MLP 64 x 64), batch 512, 3
+     steps, pull after push, over in-process ParameterServers: card against
+     CPU (Adam; phase 16's rule) and, on the card, SGD(0.05) everywhere
+     against the in-program deepfm.build(is_sparse=True) (losses 1e-5
+     relative, tables and parameters 1e-5 of their largest);
+ 72. chaos_campaign: chaos.run_campaign over train, online and serving at
+     seed 20 on the card and on the CPU (no violation, the same specs and
+     verdicts, perf_report --check --max-chaos-violations 0 on the card's
+     metrics), then the planted defect at seed 8: caught and shrunk to
+     <= 2 faults on the CPU, and on the card the whole arm giving the
+     same; phases 69-72's seconds.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -621,6 +662,7 @@ RESNET_TRAIN_BATCH = 256
 RESNET_PARITY_LR = 0.01
 TRAIN_STEPS = 6
 PARITY_STEPS = 3
+FUSED_PARITY = ((128, 32), (2048, 1))  # phase 14's (seq_len, batch)
 LR = 1e-4
 # BERT fine-tuning as its users run it: weight decay and a global-norm clip
 # of 1.0 (phases 24-26)
@@ -2975,14 +3017,14 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
 
 
 def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None, also=(),
-                seen=None):
+                seen=None, reference=True):
     """`steps` runs from the numpy `state` in each arm (place, graphs,
     program): by default the card (`main`, graphed from its second run),
     then the CPU (plain path).  Returns [(losses, scope)] in that order, and
-    param -> the elements whose gradient in the last arm (the reference)
-    lies within ZERO_GRAD of the model's largest at some step.  The scalar
-    vars named in `also` are fetched too, seen[arm index] = [[values] a
-    step]."""
+    param -> the elements whose gradient in the last arm (the reference;
+    none where `reference` is false) lies within ZERO_GRAD of the model's
+    largest at some step.  The scalar vars named in `also` are fetched too,
+    seen[arm index] = [[values] a step]."""
     import numpy as np
 
     arms = arms or ((fluid.CUDAPlace(0), True, main), (fluid.CPUPlace(), True, main))
@@ -2993,17 +3035,17 @@ def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None, a
         scope = fluid.Scope()
         fluid.io.load_numpy_params(scope, state, device=place.device)
         exe = fluid.Executor(place, _graphs=graphs)
-        reference = i == len(arms) - 1
+        is_reference = reference and i == len(arms) - 1
         losses = []
         for _ in range(steps):
             out = exe.run(program, feed=feed, scope=scope, fetch_list=[loss] + list(also) + (
-                [f"{p}@GRAD" for p in params] if reference else []))
+                [f"{p}@GRAD" for p in params] if is_reference else []))
             losses.append(float(out[0].reshape(-1)[0]))
             if seen is not None:
                 seen.setdefault(i, []).append([float(v.reshape(-1)[0])
                                                for v in out[1:1 + len(also)]])
             out = out[:1] + out[1 + len(also):]
-            if reference:
+            if is_reference:
                 peak = max(float(np.abs(g).max()) for g in out[1:])
                 for p, g in zip(params, out[1:]):
                     small = np.abs(g) <= ZERO_GRAD * peak
@@ -3057,11 +3099,8 @@ def hold_parity(record, runs, near_zero, state, lr, steps=PARITY_STEPS):
             raise AssertionError(f"card vs CPU {kind} differs by {worst} > {tol}")
 
 
-def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2):
-    """Phases 7 and 14: float32 BERT-base (2 layers, dropout 0) trains
-    PARITY_STEPS Adam(LR) steps on the card and on the CPU (plain path) from
-    the same numpy state, held by hold_parity: unfused attention at batch 2 x
-    128 (phase 7), the fused_attention op at 32 x 128 and 1 x 2048 (phase 14)."""
+def train_parity_setup(fluid, fused=False, seq_len=128, batch=2):
+    """Phase 7's or 14's program, numpy state and feed: (main, loss, state, feed)."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
@@ -3073,10 +3112,31 @@ def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, b
         if name.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):  # LN gains near 1: O(1) activations
             state[name] = np.ones_like(state[name])
     feed = make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(1))
-    runs, near_zero = parity_runs(fluid, main, loss, state, feed)
+    return main, loss, state, feed
+
+
+def train_parity_cpu(fluid, setup):
+    """The CPU arm of train_parity from `setup`: ([(losses, scope)], near_zero)."""
+    main, loss, state, feed = setup
+    return parity_runs(fluid, main, loss, state, feed, arms=((fluid.CPUPlace(), True, main),))
+
+
+def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2,
+                 setup=None, cpu=None):
+    """Phases 7 and 14: float32 BERT-base (2 layers, dropout 0) trains
+    PARITY_STEPS Adam(LR) steps on the card and on the CPU (plain path) from
+    the same numpy state, held by hold_parity: unfused attention at batch 2 x
+    128 (phase 7), the fused_attention op at 32 x 128 and 1 x 2048 (phase 14).
+    `setup` is train_parity_setup's and `cpu` train_parity_cpu's, where
+    start_cpu_arms ran the CPU arm."""
+    setup = setup or train_parity_setup(fluid, fused, seq_len, batch)
+    main, loss, state, feed = setup
+    (cpu_run,), near_zero = cpu or train_parity_cpu(fluid, setup)
+    (card_run,), _ = parity_runs(fluid, main, loss, state, feed, reference=False,
+                                 arms=((fluid.CUDAPlace(0), True, main),))
     attention = "fused attention" if fused else "unfused attention"
     hold_parity({"phase": phase, "model": f"bert-base f32, 2 layers, dropout 0, {attention}",
-                 "batch": batch, "seq_len": seq_len}, runs, near_zero, state, LR)
+                 "batch": batch, "seq_len": seq_len}, [card_run, cpu_run], near_zero, state, LR)
 
 
 def build_resnet(fluid, dtype, with_optimizer, learning_rate=0.1, optimizer=None, amp=None,
@@ -6216,12 +6276,13 @@ AMP_OVERFLOW = dict(AMP_DEFAULTS, init_loss_scaling=2.0 ** 32, decr_every_n_nan_
 AMP_APPLIED = 3
 AMP_MAX_STEPS = 40
 # phase 55: the scope's scale before each step (the second overflows, the
-# third is set back); the 2-layer BERT at 2 x 128 tokens, two sequences a
-# step: the card's host multiplies float16 matrices on its CPU at a few
-# GFLOP/s (three steps at 8 x 128 took 298 s on the host of an NVIDIA H100
-# 80GB HBM3), so the batch is cut to the least that holds more than one
-# sequence
+# third is set back); BERT at 2 x 128 tokens, two sequences a step: the
+# card's host multiplies float16 matrices on its CPU at a few GFLOP/s
+# (three steps at 8 x 128 took 298 s on the host of an NVIDIA H100 80GB
+# HBM3), so the batch is cut to the least that holds more than one
+# sequence, and the encoder to one layer (two before phases 69-72 came)
 AMP_PARITY_BATCH = 2
+AMP_PARITY_LAYERS = 1
 AMP_PARITY_SCALES = {1: 2.0 ** 40, 2: 2.0 ** 15}
 # phase 55's BERT rules, float16's forms of phase 7's.  The card (cuBLAS,
 # the float16 kernels) and the CPU round each float16 activation once,
@@ -6408,19 +6469,41 @@ def bert_f16_overflow(fluid, torch, ck, card):
     return launches
 
 
-def amp_bert_parity(fluid, torch):
-    """Phase 55, BERT: 2 layers of phase 52's model (dropout 0) at
-    AMP_PARITY_BATCH x 128, PARITY_STEPS steps on the card (graphed) and on
-    the CPU from one numpy state (the LayerNorm gains 1, as phase 7); the
-    scope's scale is set
-    before a step as AMP_PARITY_SCALES says, so the second step overflows
-    on both sides and leaves every other persistable bit for bit; the AMP
-    vars and the flags equal exactly, the losses, parameters and moments by
-    AMP_BERT_PARITY."""
+def amp_bert_arm(fluid, arm, place, main, loss, found, names, state, feed):
+    """One arm of phase 55's BERT: PARITY_STEPS steps at `place` from the
+    numpy `state`, the scope's scale set before a step as AMP_PARITY_SCALES
+    says; a skipped step must leave every persistable but the AMP vars bit
+    for bit.  Returns (losses, flags, AMP vars a step, final state)."""
+    import numpy as np
+
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device=place.device)
+    exe = fluid.Executor(place)
+    losses, flags, amp_vars = [], [], []
+    for step in range(PARITY_STEPS):
+        if step in AMP_PARITY_SCALES:  # in place: a captured graph keeps its pointers
+            scope.find_var("loss_scaling_0").fill_(AMP_PARITY_SCALES[step])
+        before = {n: scope.to_numpy(n).copy() for n in names}
+        out = exe.run(main, feed=feed, fetch_list=[loss, found], scope=scope)
+        losses.append(float(out[0].reshape(-1)[0]))
+        flags.append(bool(out[1].reshape(-1)[0]))
+        amp_vars.append({n: scope.to_numpy(n).copy() for n in AMP_VARS})
+        if flags[-1]:
+            moved = [n for n in names if n not in AMP_VARS
+                     and not np.array_equal(scope.to_numpy(n), before[n])]
+            if moved:
+                raise AssertionError(f"amp_bert_parity {arm} step {step}: the skipped step "
+                                     f"moved {moved[:4]}")
+    return losses, flags, amp_vars, {n: scope.to_numpy(n).copy() for n in names}
+
+
+def amp_bert_setup(fluid):
+    """Phase 55's BERT program, numpy state (the LayerNorm gains 1, as
+    phase 7) and feed: (main, loss, found, names, state, feed)."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
-    main, startup, loss, found = build_amp_bert(fluid, 2, 0.0)
+    main, startup, loss, found = build_amp_bert(fluid, AMP_PARITY_LAYERS, 0.0)
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     names = sorted(v.name for v in main.list_vars() if v.persistable)
@@ -6429,27 +6512,58 @@ def amp_bert_parity(fluid, torch):
         if n.endswith(("emb_ln.w", ".ln1.w", ".ln2.w")):
             state[n] = np.ones_like(state[n])
     feed = make_fake_batch(AMP_PARITY_BATCH, 128, 30522, rng=np.random.RandomState(1))
-    runs = {}
-    for arm, place in (("card", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
-        scope = fluid.Scope()
-        fluid.io.load_numpy_params(scope, state, device=place.device)
-        exe = fluid.Executor(place)
-        losses, flags, amp_vars = [], [], []
-        for step in range(PARITY_STEPS):
-            if step in AMP_PARITY_SCALES:  # in place: a captured graph keeps its pointers
-                scope.find_var("loss_scaling_0").fill_(AMP_PARITY_SCALES[step])
-            before = {n: scope.to_numpy(n).copy() for n in names}
-            out = exe.run(main, feed=feed, fetch_list=[loss, found], scope=scope)
-            losses.append(float(out[0].reshape(-1)[0]))
-            flags.append(bool(out[1].reshape(-1)[0]))
-            amp_vars.append({n: scope.to_numpy(n).copy() for n in AMP_VARS})
-            if flags[-1]:
-                moved = [n for n in names if n not in AMP_VARS
-                         and not np.array_equal(scope.to_numpy(n), before[n])]
-                if moved:
-                    raise AssertionError(f"amp_bert_parity {arm} step {step}: the skipped step "
-                                         f"moved {moved[:4]}")
-        runs[arm] = (losses, flags, amp_vars, {n: scope.to_numpy(n).copy() for n in names})
+    return main, loss, found, names, state, feed
+
+
+def start_cpu_arms(jobs):
+    """Run each (name, fn) of `jobs` in turn on one thread of its own and
+    keep what fn returns under its name.  The CPU arms of phases 14 and 55
+    need no kernel and take a minute and more on the card's host (its
+    float16 products above all), so main() starts them before the kernels'
+    build and joins them after phase 3, whose device times CUDA events take
+    behind a backed-up stream.  Returns the handle join_cpu_arms takes."""
+    import threading
+
+    handle = {"results": {}, "seconds": {}}
+
+    def run():
+        for name, fn in jobs:
+            t0 = time.perf_counter()
+            try:
+                handle["results"][name] = fn()
+            except BaseException as e:  # raised again by join_cpu_arms
+                handle["error"] = e
+                return
+            finally:
+                handle["seconds"][name] = time.perf_counter() - t0
+
+    handle["thread"] = threading.Thread(target=run, name="cpu_arms", daemon=True)
+    handle["thread"].start()
+    return handle
+
+
+def join_cpu_arms(handle):
+    """Wait for the thread of start_cpu_arms; raise what a job raised."""
+    handle["thread"].join()
+    if "error" in handle:
+        raise handle["error"]
+    return handle
+
+
+def amp_bert_parity(fluid, torch, setup=None, cpu=None):
+    """Phase 55, BERT: AMP_PARITY_LAYERS of phase 52's model (dropout 0) at
+    AMP_PARITY_BATCH x 128, PARITY_STEPS steps on the card (graphed) and on
+    the CPU from one numpy state (`setup`, amp_bert_setup's; `cpu`, the CPU
+    arm's amp_bert_arm, where start_cpu_arms ran it); the second step
+    overflows on both sides and leaves every other persistable bit for
+    bit; the AMP vars and the flags equal exactly, the losses, parameters
+    and moments by AMP_BERT_PARITY."""
+    import numpy as np
+
+    setup = setup or amp_bert_setup(fluid)
+    main, _, _, names, state, _ = setup
+    runs = {"card": amp_bert_arm(fluid, "card", fluid.CUDAPlace(0), *setup),
+            "cpu": cpu or amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *setup)}
     (gl, gf, ga, gs), (cl, cf, ca_, cs) = runs["card"], runs["cpu"]
     want_flags = [step in AMP_PARITY_SCALES and AMP_PARITY_SCALES[step] > 2.0 ** 30
                   for step in range(PARITY_STEPS)]
@@ -6471,8 +6585,8 @@ def amp_bert_parity(fluid, torch):
         moments[kind] = (max(float(np.abs(gs[n] - cs[n]).max()) for n in kn),
                          AMP_BERT_PARITY["moment"] * peak)
     pows = [n for n in names if "beta" in n and "pow" in n]
-    emit({"phase": "amp_bert_parity", "model": "bert-base f16, 2 layers, fused attention, "
-          "dropout 0, decorate(Adam lr 1e-4)", "batch": AMP_PARITY_BATCH, "seq_len": 128,
+    emit({"phase": "amp_bert_parity", "model": f"bert-base f16, {AMP_PARITY_LAYERS} layer(s), "
+          "fused attention, dropout 0, decorate(Adam lr 1e-4)", "batch": AMP_PARITY_BATCH, "seq_len": 128,
           "losses_card": gl, "losses_cpu": cl, "found_inf_card": gf, "found_inf_cpu": cf,
           "max_rel_dloss": dloss, "max_abs_dparam": worst_flip, "param_tol": flip_tol,
           "update_l2_share": update_share,
@@ -8453,6 +8567,582 @@ def dygraph_phases(fluid, torch, ck, tmp, card):
     return out
 
 
+# phases 69-72: the host parameter-server tier and the chaos campaign.  The
+# two tables of phase 15's DeepFM live on a supervised pserver child (a
+# host process: the card never sees them whole), each a TieredEmbedding
+# whose hot quarter trains in this process (bench.py bench_online's split);
+# the device program is deepfm_net's arithmetic over the two pulled blocks
+HOST_TABLE_STEPS = 32
+HOST_TABLE_PUBLISH_EVERY = 8
+HOST_TABLE_LR = 0.05  # the tiers' SGD and the pserver's
+HOST_TABLE_SNAPSHOT_OPS = 64
+HOST_TABLE_PER_STEP = dict(NONE, adam=8)  # the 4 fc layers' weights and biases
+# bench.py bench_online's kill, tests/test_compound_faults.py:176's rotted snapshot
+HOST_TABLE_SPEC = "kill_pserver@18;rot_row@1"
+HOST_TABLE_SERVE_TOL = 1e-5
+HOST_TABLE_PARITY_STEPS = 3
+FUSED_PARITY = ((128, 32), (2048, 1))  # phase 14's (seq_len, batch)
+HOST_TABLE_MAX_STALENESS = 16  # two publish periods
+HOST_TABLE_MAX_LAG = 8  # one publish period
+CHAOS_SEED, CHAOS_PLANTED_SEED = 20, 8  # tools/chaos_campaign.py's smoke seeds
+
+
+def host_table_dims(config):
+    return {"deepfm_w": 1, "deepfm_v": config["embed_dim"]}
+
+
+def build_host_deepfm(fluid, config, make_optimizer):
+    """deepfm_net's arithmetic (paddle_tpu_torch/models/deepfm.py) over the
+    two pulled blocks as feeds, w_emb [B, F, 1] and v_emb [B, F, K], with
+    its sigmoid cross-entropy; calc_gradient taps both feeds, and
+    `make_optimizer()` updates the MLP's parameters, the only ones the
+    program has.  Returns (main, startup, loss, [d w_emb, d v_emb])."""
+    layers = fluid.layers
+    nf, k = config["num_fields"], config["embed_dim"]
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            w_emb = layers.data("w_emb", [nf, 1], dtype="float32")
+            v_emb = layers.data("v_emb", [nf, k], dtype="float32")
+            label = layers.data("label", [1], dtype="float32")
+            first_order = layers.reduce_sum(w_emb, dim=[1, 2], keep_dim=False)
+            sum_sq = layers.square(layers.reduce_sum(v_emb, dim=[1]))
+            sq_sum = layers.reduce_sum(layers.square(v_emb), dim=[1])
+            fm = layers.reduce_sum(sum_sq - sq_sum, dim=[1]) * 0.5
+            deep = layers.reshape(v_emb, [-1, nf * k])
+            for d in config["mlp_dims"]:
+                deep = layers.fc(deep, size=d, act="relu")
+            logit = layers.reshape(first_order + fm, [-1, 1]) + layers.fc(deep, size=1)
+            loss = layers.mean(layers.sigmoid_cross_entropy_with_logits(logit, label))
+            grads = fluid.calc_gradient(loss, [w_emb, v_emb])
+            make_optimizer().minimize(loss)
+    startup.random_seed = main.random_seed = 0
+    return main, startup, loss, grads
+
+
+def host_table_state(fluid, config):
+    """The host program's persistables after its startup on the CPU, as
+    numpy: every run of phases 69-71 starts its dense state from them."""
+    main, startup, _, _ = build_host_deepfm(fluid, config, lambda: fluid.optimizer.Adam(1e-3))
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {v.name: scope.to_numpy(v.name).copy() for v in main.list_vars() if v.persistable}
+
+
+def host_tables(fluid, client, config, degraded_ok=False):
+    """Both tables as TieredEmbeddings over `client`: the hot quarter here,
+    the cold rest created on the pserver; seeded, so every run starts from
+    the same tables."""
+    from paddle_tpu_torch.parallel import TieredEmbedding
+
+    v = config["vocab_size"]
+    return {name: TieredEmbedding(client, name, v, dim, hot_rows=v // 4, lr=HOST_TABLE_LR,
+                                  degraded_ok=degraded_ok, seed=seed)
+            for seed, (name, dim) in enumerate(host_table_dims(config).items(), 1)}
+
+
+def host_feed(tables, ids, label):
+    return {"w_emb": tables["deepfm_w"].lookup(ids), "v_emb": tables["deepfm_v"].lookup(ids),
+            "label": label}
+
+
+def host_apply(tables, ids, grads):
+    import numpy as np
+
+    for (name, t), g in zip(tables.items(), grads):
+        t.apply_grad(ids.reshape(-1), np.asarray(g).reshape(-1, t.dim))
+
+
+def host_table_values(tables):
+    """Every row of each table (the hot head here, the cold tail fetched)."""
+    return {name: t.export_selected_rows().values.numpy() for name, t in tables.items()}
+
+
+def serving_deepfm(fluid, config):
+    """deepfm.build(is_sparse=True)'s test program: (program, prediction)."""
+    from paddle_tpu_torch.models import deepfm
+
+    with fluid.unique_name.guard():
+        main, _, _, fetches = deepfm.build(with_optimizer=False, is_sparse=True, **config)
+    return main.clone(for_test=True), fetches["prediction"]
+
+
+def host_table_run(fluid, torch, ck, tmp, card, phase, init, spec=None):
+    """Phases 69 and 70: phase 15's DeepFM at full width, batch 4096, its two
+    tables on one supervised pserver child (SGD, HOST_TABLE_LR, a snapshot
+    every HOST_TABLE_SNAPSHOT_OPS ops), HOST_TABLE_STEPS steps of
+    deepfm_feed batches (seeds 0-31) under resilient_train_loop
+    (max_inflight 1, log_period 1): the loader pulls the rows, the device
+    step runs Adam over the 8 MLP parameters (HOST_TABLE_PER_STEP launches
+    a step, held run by run), on_logged pushes each table's row gradient,
+    and the publish hook exports both tables every HOST_TABLE_PUBLISH_EVERY
+    steps, saves them with io.save_sharded and publishes them into a card
+    ModelRegistry serving deepfm.build(is_sparse=True)'s test program, whose
+    predictions on a fixed batch must lie within HOST_TABLE_SERVE_TOL of an
+    Executor run of that program on the exported tables.  With `spec` the
+    run goes through its faults (KVClient retries 8 from 0.2 s, no degraded
+    mode): a rejected publish must be quarantined with the last good
+    version serving on bit for bit.  The metrics stream passes perf_report's
+    staleness and host-lag gates.  Returns (the final state: each table's
+    rows and the dense parameters; the wrappers' launches; the record)."""
+    import numpy as np
+
+    from paddle_tpu_torch import monitor, serving
+    from paddle_tpu_torch.param_server import PS_COMMITTED, KVClient, PServerSupervisor
+    from tools.perf_report import publish_staleness_steps
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, phase)
+    os.makedirs(root)
+    main, startup, loss, grads = build_host_deepfm(fluid, DEEPFM, lambda: fluid.optimizer.Adam(1e-3))
+    derived = launches_of_program(main, loss)
+    if derived != HOST_TABLE_PER_STEP:
+        raise AssertionError(f"{phase}: the program's kernel ops {derived} != {HOST_TABLE_PER_STEP}")
+    dense = [p.name for p in main.all_parameters()]
+    serve_prog, pred = serving_deepfm(fluid, DEEPFM)
+    serve_names = [v.name for v in fluid.io._persistables(serve_prog)]
+    sup = PServerSupervisor(os.path.join(root, "ps"), optimizer="sgd", lr=HOST_TABLE_LR,
+                            snapshot_every_ops=HOST_TABLE_SNAPSHOT_OPS).start()
+    client = None
+    logger = monitor.attach_logger(monitor.MonitorLogger(os.path.join(root, "metrics.jsonl")))
+    try:
+        sup.wait_ready()
+        client = KVClient(sup.endpoint, retries=8, backoff_base_s=0.2)
+        rpc = {"pull": [], "push": []}  # ms of each RPC, retries included
+
+        def timed(op, fn):
+            def call(*args):
+                t = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    rpc[op].append((time.perf_counter() - t) * 1e3)
+            return call
+
+        tables = host_tables(fluid, client, DEEPFM)
+        client.pull, client.push = timed("pull", client.pull), timed("push", client.push)
+        hot_rows = DEEPFM["vocab_size"] // 4
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, init, device="cuda:0")
+        # the served model's first version: the tables and the MLP at step 0
+        first = fluid.Scope()
+        for name, rows in host_table_values(tables).items():
+            first.set_var(name, rows)
+        for n in dense:
+            first.set_var(n, init[n])
+        d0 = os.path.join(root, "model-0")
+        fluid.io.save_inference_model(d0, ["feat_ids"], [pred], fluid.Executor(fluid.CPUPlace()),
+                                      serve_prog, first)
+        reg = serving.ModelRegistry(place=fluid.CUDAPlace(0))
+        reg.load("deepfm", d0)
+        probe = {"feat_ids": deepfm_feed(64, DEEPFM, 99)["feat_ids"]}
+        served = {"out": np.asarray(reg.acquire("deepfm").run(probe)[0]).copy()}
+        serve_exe = fluid.Executor(fluid.CUDAPlace(0))
+        injector = fluid.FaultInjector(spec).set_pserver(sup) if spec else None
+        setup_s = time.perf_counter() - t0
+
+        batches = [deepfm_feed(DEEPFM_BATCH, DEEPFM, s) for s in range(HOST_TABLE_STEPS)]
+        lookup_ms, push_ms, publish_ms, wall_ms, losses, uniq = [], [], {}, [], [], []
+        marks = {"t": None, "launches": dict(ck.LAUNCHES)}
+
+        def loader():
+            for b in batches:
+                t = time.perf_counter()
+                feed = host_feed(tables, b["feat_ids"], b["label"])
+                lookup_ms.append((time.perf_counter() - t) * 1e3)
+                uniq.append(int(np.unique(b["feat_ids"][b["feat_ids"] >= hot_rows]).size))
+                yield feed
+
+        def on_logged(step, vals):
+            delta = {k: ck.LAUNCHES[k] - marks["launches"][k] for k in ck.LAUNCHES}
+            hold_run_launches(exe, step, delta, HOST_TABLE_PER_STEP, f"{phase} step {step}",
+                              "host_table_deepfm" if spec is None else None)
+            losses.append(float(np.asarray(vals[0]).reshape(-1)[0]))
+            t = time.perf_counter()
+            host_apply(tables, batches[step]["feat_ids"], vals[1:])
+            now = time.perf_counter()
+            push_ms.append((now - t) * 1e3)
+            if marks["t"] is not None:
+                wall_ms.append((now - marks["t"]) * 1e3)
+            marks["t"], marks["launches"] = now, dict(ck.LAUNCHES)
+
+        def publish_hook(step):
+            t = time.perf_counter()
+            d = os.path.join(root, f"snap-{step:06d}")
+            pub = fluid.Scope()
+            for name, table in tables.items():
+                pub.set_var(name, table.export_selected_rows())
+            for n in dense:
+                pub.set_var(n, scope.to_numpy(n))
+            fluid.io.save_sharded(d, serve_names, pub, program=serve_prog, process_index=0)
+            if injector is not None:
+                injector.on_commit(d)
+            try:
+                serving.publish(reg, "deepfm", d)
+            except fluid.errors.ServingError as e:
+                publish_ms[step] = ("rejected", (time.perf_counter() - t) * 1e3, str(e)[:160])
+                still = np.asarray(reg.acquire("deepfm").run(probe)[0])
+                if serving.quarantine_marker(d) is None or not np.array_equal(still, served["out"]):
+                    raise AssertionError(f"{phase}: the rejected snapshot at step {step} was not "
+                                         "quarantined, or the last good version stopped serving")
+                raise
+            publish_ms[step] = ("published", (time.perf_counter() - t) * 1e3)
+            out = np.asarray(reg.acquire("deepfm").run(probe)[0]).copy()
+            ref = fluid.Scope()
+            for name in tables:
+                ref.set_var(name, np.asarray(pub.find_var(name)))
+            for n in dense:
+                ref.set_var(n, pub.find_var(n))
+            (want,) = serve_exe.run(serve_prog, feed=probe, fetch_list=[pred], scope=ref)
+            diff = float(np.abs(out - want).max())
+            emit({"phase": phase, "publish_at": step, "served_vs_executor_max_abs": diff,
+                  "tol": HOST_TABLE_SERVE_TOL})
+            if not diff <= HOST_TABLE_SERVE_TOL:
+                raise AssertionError(f"{phase}: the version published at step {step} serves "
+                                     f"{diff} off the Executor")
+            served["out"] = out
+
+        ck_before = dict(ck.LAUNCHES)
+        if spec is None:
+            ck.reset_launches()  # the main path's count starts here
+            marks["launches"] = dict(ck.LAUNCHES)
+        t_loop = time.perf_counter()
+        stats = fluid.resilient_train_loop(
+            exe, main, loader, [loss] + list(grads), scope=scope, injector=injector,
+            max_inflight=1, log_period=1, on_logged=on_logged, publish_hook=publish_hook,
+            publish_period_steps=HOST_TABLE_PUBLISH_EVERY,
+            policy=fluid.RetryPolicy(backoff_base_s=0.0))
+        loop_s = time.perf_counter() - t_loop
+        launches = dict(ck.LAUNCHES) if spec is None else ck_before
+        final = host_table_values(tables)
+        final.update({n: scope.to_numpy(n).copy() for n in dense})
+        # the steps that published: their publish seconds come off their wall
+        pub_steps = set(publish_ms)
+        warm = [w for s, w in enumerate(wall_ms, 1) if s > 1 and s not in pub_steps]
+        lookup_w = statistics.median(lookup_ms[2:])
+        push_w = statistics.median(push_ms[2:])
+        rows = statistics.mean(uniq)
+        # each step pulls and pushes once a table: the RPCs' share of its
+        # lookup and apply_grad (the rest is the client's numpy)
+        pull_rpc = statistics.median(a + b for a, b in zip(rpc["pull"][4::2], rpc["pull"][5::2]))
+        push_rpc = statistics.median(a + b for a, b in zip(rpc["push"][4::2], rpc["push"][5::2]))
+        # a probe of the journal's cost: a record the size of the V table's
+        # push (ids and rows of the step's cold rows), appended here through
+        # io.append_record on the pserver's disk, with and without its fsync
+        # (the child's own appends are not timed apart)
+        record = b"S" * int(rows * (8 + 4 * DEEPFM["embed_dim"]))
+        journal = {}
+        for fsync in (True, False):
+            path = os.path.join(root, f"journal-probe-{fsync}.log")
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fluid.io.append_record(path, record, fsync=fsync)
+                times.append((time.perf_counter() - t) * 1e3)
+            journal["fsync" if fsync else "no_fsync"] = statistics.median(times)
+        wall_w = statistics.median(warm)
+        dims = host_table_dims(DEEPFM)
+        time.sleep(3 * sup._beat_interval)  # a beat after the last push
+        tel = sup._health.poll()[0].get("tel") or {}
+        ops, ps_snapshots = tel.get("ops"), tel.get("snapshots")
+        snaps = [d for d in os.listdir(sup.snapshot_dir) if d.startswith("snap-")
+                 and os.path.exists(os.path.join(sup.snapshot_dir, d, PS_COMMITTED))]
+        logger.write_snapshot()
+        with open(logger.path) as f:
+            staleness = publish_staleness_steps([json.loads(ln) for ln in f if ln.strip()])
+        record = {
+            "phase": phase, "model": "deepfm f32, 26 fields, vocab 200000, embed 16, mlp 400x3, "
+            "tables on a pserver child (hot quarter in process)", "batch": DEEPFM_BATCH,
+            "fault_spec": spec, "steps": stats.steps, "losses": losses, "setup_s": setup_s,
+            "loop_s": loop_s, "examples_per_s": DEEPFM_BATCH / wall_w * 1e3,
+            "warm_step_ms": wall_w, "split_ms": {
+                "lookup": lookup_w, "apply_grad": push_w,
+                "executor_and_loop": wall_w - lookup_w - push_w,
+                "lookup_pull_rpcs": pull_rpc, "apply_grad_push_rpcs": push_rpc,
+                "journal_probe_of_a_v_push": journal, "journal_record_bytes": len(record)},
+            "cold_rows_pulled_per_table": rows,
+            "wire_bytes_per_step": sum(2 * rows * (8 + 4 * d) for d in dims.values()),
+            "card_bytes_per_step": 2 * DEEPFM_BATCH * DEEPFM["num_fields"] * 4 * sum(dims.values()),
+            "publishes": {str(s): v for s, v in sorted(publish_ms.items())},
+            "publish_failures": stats.publish_failures, "max_publish_staleness_steps": staleness,
+            "pserver_ops": ops, "ps_snapshots": ps_snapshots,
+            "committed_snapshots_on_disk": sorted(snaps), "pserver_restarts": sup.restarts,
+            "ps_retries": monitor.counter("ps.retries").value,
+            "graphed": exe.last_plan.graphed, "graph_refusal": exe.last_plan.graph_refusal,
+            "card": card}
+        emit(record)
+        if stats.steps != HOST_TABLE_STEPS or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"{phase}: {stats.steps} steps, losses {losses}")
+        if ops is None or ops < 2 + 2 * HOST_TABLE_STEPS:
+            raise AssertionError(f"{phase}: the pserver applied {ops} ops")
+        run_tool("perf_report.py", "--check", logger.path, "--steady-after", "100000",
+                 "--max-publish-staleness-steps", str(HOST_TABLE_MAX_STALENESS),
+                 "--max-host-lag-steps", str(HOST_TABLE_MAX_LAG), phase=phase)
+        if spec is None:
+            b = batches[0]
+
+            def step():
+                feed = host_feed(tables, b["feat_ids"], b["label"])
+                out = exe.run(main, feed=feed, fetch_list=[loss] + list(grads), scope=scope)
+                host_apply(tables, b["feat_ids"], out[1:])
+
+            profile_replay(torch, f"{phase} step (pull, device step, push)", step, card,
+                           HOST_TABLE_PER_STEP)
+        return {"final": final, "launches": launches, "record": record,
+                "publishes": publish_ms, "restarts": sup.restarts}
+    finally:
+        monitor.detach_logger(logger)
+        logger.close()
+        if client is not None:
+            client.close()
+        sup.stop()
+
+
+def host_table_chaos(fluid, torch, ck, tmp, card, init, clean):
+    """Phase 70: phase 69's run again under HOST_TABLE_SPEC: the pserver
+    child SIGKILLed at step 18's dispatch (KVClient rides the respawn out,
+    the journal replays) and the second published snapshot's values shard
+    rotted.  All 32 steps run, the supervisor restarted the child, the
+    rotted publish was rejected and quarantined while the first version
+    served on, and every hot row, every cold row and every MLP parameter is
+    bitwise equal to phase 69's: exactly-once pushes and a bit-identical
+    recovery at full width."""
+    import numpy as np
+
+    run = host_table_run(fluid, torch, ck, tmp, card, "host_table_chaos", init,
+                         spec=HOST_TABLE_SPEC)
+    outcomes = [v[0] for _, v in sorted(run["publishes"].items())]
+    differ = sorted(n for n, a in clean["final"].items()
+                    if not np.array_equal(a, run["final"][n]))
+    emit({"phase": "host_table_chaos", "publish_outcomes": outcomes,
+          "pserver_restarts": run["restarts"], "bitwise_equal_to_host_table_deepfm": not differ,
+          "differing": differ, "card": card})
+    if run["restarts"] < 1:
+        raise AssertionError("host_table_chaos: kill_pserver never restarted the child")
+    if outcomes != ["published", "rejected", "published"]:
+        raise AssertionError(f"host_table_chaos: publishes {outcomes} != the rotted second "
+                             "one alone rejected")
+    if differ:
+        raise AssertionError(f"host_table_chaos: {differ} differ from the clean run")
+
+
+def host_table_steps(fluid, exe, main, loss, grads, scope, tables, batches):
+    """Pull, device step, push for each batch (pull after the previous
+    push: tests/test_param_server.py's order); returns the losses."""
+    out = []
+    for b in batches:
+        vals = exe.run(main, feed=host_feed(tables, b["feat_ids"], b["label"]),
+                       fetch_list=[loss] + list(grads), scope=scope)
+        out.append(float(vals[0].reshape(-1)[0]))
+        host_apply(tables, b["feat_ids"], vals[1:])
+    return out
+
+
+def within_largest(want, got, names, excused=None, flip_tol=0.0):
+    """The worst share of 1e-5 * max|want| any of `names` reaches (phase 16's
+    rule), the elements in `excused` held to flip_tol + that instead."""
+    import numpy as np
+
+    worst, worst_name = 0.0, ""
+    for n in names:
+        err = np.abs(got[n].astype(np.float64) - want[n])
+        tol = 1e-5 * max(float(np.abs(want[n]).max()), 1e-30)
+        if excused is not None and n in excused:
+            if not float(err.max()) <= tol + flip_tol:
+                raise AssertionError(f"{n} differs by {float(err.max())}")
+            err = err[~excused[n]]
+        share = float(err.max()) / tol if err.size else 0.0
+        if share > worst:
+            worst, worst_name = share, n
+    return worst, worst_name
+
+
+def host_table_parity(fluid, torch, card):
+    """Phase 71, float32 at DEEPFM_PARITY (the MLP cut to 64 x 64), batch
+    512, HOST_TABLE_PARITY_STEPS steps, pull after push.  (a) The host-tier
+    run with Adam(1e-3) on the card against the same on the CPU, each over
+    an in-process ParameterServer made from the same tables: losses within
+    1e-5 relative, the MLP parameters and both tables within 1e-5 of their
+    largest magnitude (the Adam elements whose CPU gradient is 0 to
+    rounding, ZERO_GRAD, move +-lr by its sign: 2*lr*steps + 1e-5).  (b) On
+    the card, the host-tier run with SGD(HOST_TABLE_LR) everywhere against
+    the in-program deepfm.build(is_sparse=True) with SGD(HOST_TABLE_LR) (its
+    tables SelectedRows-updated on the card): the same rule for losses,
+    tables and parameters (tests/test_param_server.py:30's contract at
+    DeepFM's shape)."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.param_server import KVClient, ParameterServer
+
+    batches = [deepfm_feed(DEEPFM_PARITY_BATCH, DEEPFM_PARITY, 40 + s)
+               for s in range(HOST_TABLE_PARITY_STEPS)]
+    runs = {}
+    for arm, place, opt in (("card", fluid.CUDAPlace(0), "adam"), ("cpu", fluid.CPUPlace(), "adam"),
+                            ("card_sgd", fluid.CUDAPlace(0), "sgd")):
+        make = ((lambda: fluid.optimizer.Adam(1e-3)) if opt == "adam"
+                else (lambda: fluid.optimizer.SGD(HOST_TABLE_LR)))
+        main, startup, loss, grads = build_host_deepfm(fluid, DEEPFM_PARITY, make)
+        state = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=state)
+        init = {v.name: state.to_numpy(v.name).copy() for v in main.list_vars() if v.persistable}
+        dense = [p.name for p in main.all_parameters()]
+        srv = ParameterServer(optimizer="sgd", lr=HOST_TABLE_LR).start()
+        client = KVClient(srv.endpoint)
+        try:
+            tables = host_tables(fluid, client, DEEPFM_PARITY)
+            start_tables = host_table_values(tables)
+            exe = fluid.Executor(place)
+            scope = fluid.Scope()
+            fluid.io.load_numpy_params(scope, init, device=place.device)
+            near_zero = {}
+            if arm == "cpu":  # the Adam elements whose gradient is 0 to rounding
+                gnames = [f"{p}@GRAD" for p in dense]
+                losses = []
+                for b in batches:
+                    out = exe.run(main, feed=host_feed(tables, b["feat_ids"], b["label"]),
+                                  fetch_list=[loss] + list(grads) + gnames, scope=scope)
+                    losses.append(float(out[0].reshape(-1)[0]))
+                    host_apply(tables, b["feat_ids"], out[1:3])
+                    peak = max(float(np.abs(g).max()) for g in out[3:])
+                    for p, g in zip(dense, out[3:]):
+                        small = np.abs(g) <= ZERO_GRAD * peak
+                        near_zero[p] = small | near_zero[p] if p in near_zero else small
+            else:
+                losses = host_table_steps(fluid, exe, main, loss, grads, scope, tables, batches)
+            final = host_table_values(tables)
+            final.update({n: scope.to_numpy(n).copy() for n in dense})
+            runs[arm] = {"losses": losses, "final": final, "init": init,
+                         "near_zero": near_zero, "start_tables": start_tables}
+        finally:
+            client.close()
+            srv.stop()
+    # (b)'s reference: the in-program sparse DeepFM from the same start
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = deepfm.build(is_sparse=True, opt="sgd",
+                                                 learning_rate=HOST_TABLE_LR, **DEEPFM_PARITY)
+    start = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=start)
+    scope = fluid.Scope()
+    init = dict(runs["card_sgd"]["init"])
+    init.update(runs["card_sgd"]["start_tables"])
+    for v in main.list_vars():
+        if v.persistable and v.name not in init:
+            init[v.name] = start.to_numpy(v.name)
+    fluid.io.load_numpy_params(scope, init, device="cuda:0")
+    in_losses = []
+    for b in batches:
+        (lv,) = exe.run(main, feed=b, fetch_list=[fetches["loss"]], scope=scope)
+        in_losses.append(float(lv.reshape(-1)[0]))
+    in_final = {n: scope.to_numpy(n).copy() for n in runs["card_sgd"]["final"]}
+    a, c, s = runs["card"], runs["cpu"], runs["card_sgd"]
+    lr_adam = 1e-3
+    flip_tol = 2 * lr_adam * HOST_TABLE_PARITY_STEPS + 1e-5
+    worst_a, name_a = within_largest(c["final"], a["final"], list(c["final"]), c["near_zero"],
+                                     flip_tol)
+    worst_b, name_b = within_largest(in_final, s["final"], list(in_final))
+    dloss_a = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], c["losses"]))
+    dloss_b = max(abs(x - y) / abs(y) for x, y in zip(s["losses"], in_losses))
+    emit({"phase": "host_table_parity", "model": "deepfm f32, 26 fields, vocab 200000, embed 16, "
+          "mlp 64x64, tables on an in-process pserver", "batch": DEEPFM_PARITY_BATCH,
+          "steps": HOST_TABLE_PARITY_STEPS,
+          "card_vs_cpu": {"losses_card": a["losses"], "losses_cpu": c["losses"],
+                          "max_rel_dloss": dloss_a, "worst_share_of_tol": worst_a, "worst": name_a,
+                          "elements_with_gradient_0_to_rounding":
+                              int(sum(m.sum() for m in c["near_zero"].values()))},
+          "host_tier_vs_in_program": {"losses_host_tier": s["losses"], "losses_in_program":
+                                      in_losses, "max_rel_dloss": dloss_b,
+                                      "worst_share_of_tol": worst_b, "worst": name_b},
+          "tol": "losses 1e-5 relative, state 1e-5 * max|reference|", "card": card})
+    if not (dloss_a <= 1e-5 and worst_a <= 1.0):
+        raise AssertionError(f"host_table_parity: card vs CPU losses {dloss_a}, {name_a} "
+                             f"{worst_a}x its tolerance")
+    if not (dloss_b <= 1e-5 and worst_b <= 1.0):
+        raise AssertionError(f"host_table_parity: host tier vs in-program losses {dloss_b}, "
+                             f"{name_b} {worst_b}x its tolerance")
+
+
+def chaos_campaign(fluid, torch, card, tmp):
+    """Phase 72: chaos.run_campaign over train, online and serving at the
+    smoke's seed, one schedule each, on the card (place=CUDAPlace(0)) and on
+    the CPU: no violation, the same specs and verdicts, the card's metrics
+    through perf_report --check --max-chaos-violations 0.  Then the planted
+    defect (PADDLE_CHAOS_PLANTED_BUG, seed CHAOS_PLANTED_SEED) on the CPU:
+    caught by bit_identical_recovery and shrunk to <= 2 faults; on the card
+    the whole planted arm too, which must give the CPU's spec and shrunk
+    spec."""
+    from paddle_tpu_torch import chaos
+
+    root = os.path.join(tmp, "chaos")
+    metrics = os.path.join(root, "chaos_metrics.jsonl")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    on_card = chaos.run_campaign(("train", "online", "serving"), seed=CHAOS_SEED, per_scenario=1,
+                                 out_dir=os.path.join(root, "card"), metrics_path=metrics,
+                                 place=fluid.CUDAPlace(0))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = chaos.run_campaign(("train", "online", "serving"), seed=CHAOS_SEED, per_scenario=1,
+                                out_dir=os.path.join(root, "cpu"), place=fluid.CPUPlace())
+    cpu_s = time.perf_counter() - t0
+    verdicts = {k: [(s["scenario"], s["spec"], s["verdict"]) for s in r.schedules]
+                for k, r in (("card", on_card), ("cpu", on_cpu))}
+    emit({"phase": "chaos_campaign", "seed": CHAOS_SEED, "schedules": verdicts["card"],
+          "violations": {"card": len(on_card.violations), "cpu": len(on_cpu.violations)},
+          "invariants_checked": on_card.invariants_checked, "card_s": card_s, "cpu_s": cpu_s,
+          "card": card})
+    if on_card.violations or on_cpu.violations or verdicts["card"] != verdicts["cpu"]:
+        raise AssertionError(f"chaos_campaign: card {verdicts['card']} {on_card.violations}, "
+                             f"cpu {verdicts['cpu']} {on_cpu.violations}")
+    run_tool("perf_report.py", "--check", metrics, "--max-chaos-violations", "0",
+             phase="chaos_campaign")
+    os.environ[chaos.PLANTED_BUG_ENV] = "1"
+    try:
+        t0 = time.perf_counter()
+        cpu_planted = chaos.run_campaign(("train",), seed=CHAOS_PLANTED_SEED, per_scenario=1,
+                                         out_dir=os.path.join(root, "planted-cpu"),
+                                         place=fluid.CPUPlace())
+        cpu_planted_s = time.perf_counter() - t0
+        (want,) = [v for v in cpu_planted.violations if v["invariant"] == "bit_identical_recovery"]
+        t0 = time.perf_counter()
+        planted = chaos.run_campaign(("train",), seed=CHAOS_PLANTED_SEED, per_scenario=1,
+                                     out_dir=os.path.join(root, "planted-card"),
+                                     place=fluid.CUDAPlace(0))
+        got = [(v["spec"], v.get("shrunk_spec"), v["invariant"]) for v in planted.violations]
+        planted_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop(chaos.PLANTED_BUG_ENV, None)
+    emit({"phase": "chaos_campaign", "planted_seed": CHAOS_PLANTED_SEED,
+          "caught_by": want["spec"], "shrunk_to": want["shrunk_spec"],
+          "probe_runs": want["shrink_runs"], "cpu_planted_s": cpu_planted_s,
+          "card_planted": got, "card_planted_s": planted_s, "card": card})
+    if len([e for e in want["shrunk_spec"].split(";") if e.strip()]) > 2:
+        raise AssertionError(f"chaos_campaign: the shrinker stopped at {want['shrunk_spec']!r}")
+    if got != [(want["spec"], want["shrunk_spec"], "bit_identical_recovery")]:
+        raise AssertionError(f"chaos_campaign: the card's planted arm gave {got}, the CPU's "
+                             f"{want['spec']!r} -> {want['shrunk_spec']!r}")
+
+
+def host_table_phases(fluid, torch, ck, tmp, card):
+    """Phases 69-72; their seconds printed.  Returns phase 69's launches."""
+    t0 = time.perf_counter()
+    init = host_table_state(fluid, DEEPFM)
+    clean = host_table_run(fluid, torch, ck, tmp, card, "host_table_deepfm", init)
+    emit({"phase_seconds": "host_table_deepfm", "s": time.perf_counter() - t0, "card": card})
+    for phase, run in (("host_table_chaos",
+                        lambda: host_table_chaos(fluid, torch, ck, tmp, card, init, clean)),
+                       ("host_table_parity", lambda: host_table_parity(fluid, torch, card)),
+                       ("chaos_campaign", lambda: chaos_campaign(fluid, torch, card, tmp))):
+        phase_t0 = time.perf_counter()
+        run()
+        emit({"phase_seconds": phase, "s": time.perf_counter() - phase_t0, "card": card})
+    emit({"phase_seconds": "phases 69-72", "s": time.perf_counter() - t0, "card": card})
+    return clean["launches"]
+
+
 def main():
     run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
@@ -8479,6 +9169,13 @@ def main():
     if numpy_bf16 is None:
         raise AssertionError("ml_dtypes does not import on this host: bf16 fetches would raise")
 
+    # phases 14's and 55's CPU arms, beside the build and phase 3
+    fused_setups = {shape: train_parity_setup(fluid, True, *shape) for shape in FUSED_PARITY}
+    amp_setup = amp_bert_setup(fluid)
+    cpu_arms = start_cpu_arms(
+        [(shape, lambda s=setup: train_parity_cpu(fluid, s))
+         for shape, setup in fused_setups.items()]
+        + [("amp_bert", lambda: amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *amp_setup))])
     info = _build.build()
     emit({"phase": "build", "seconds": info["seconds"]})
     print("\n".join(line for line in info["log"].splitlines()
@@ -8486,68 +9183,126 @@ def main():
                     or "Potential Performance Loss" in line or line.startswith("==")),
           flush=True)
     attention_occupancy(_build)
+    mark = [time.perf_counter()]
+
+    def lap(phase):
+        """Print the seconds since the last lap as `phase`'s."""
+        now = time.perf_counter()
+        emit({"phase_seconds": phase, "s": now - mark[0], "card": card})
+        mark[0] = now
 
     timings = check_kernels(torch, ck)
+    lap("check_kernels")
     timings.update(check_attention_kernels(torch, ca))
+    lap("check_attention_kernels")
     timings.update(check_bf16_score_kernels(torch, ca))
+    lap("check_bf16_score_kernels")
     timings.update(check_train_kernels(torch, ck))
+    lap("check_train_kernels")
     check_nmt_kernels(torch, ck, timings)
+    lap("check_nmt_kernels")
     timings.update(check_bn_kernels(torch, ck))
+    lap("check_bn_kernels")
     check_float16_kernels(torch, ck, timings)
+    lap("check_float16_kernels")
     check_vision_kernels(torch, ck, timings)
+    lap("check_vision_kernels")
     check_seq2seq_kernels(torch, ck, timings)
+    lap("check_seq2seq_kernels")
+    join_cpu_arms(cpu_arms)
+    emit({"phase_seconds": "cpu_arms", "s": sum(cpu_arms["seconds"].values()),
+          "by_arm": {str(k): v for k, v in cpu_arms["seconds"].items()},
+          "beside": "the build and phase 3", "card": card})
+    lap("cpu_arms_wait")
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
     try:
         served = serve(fluid, torch, ck, tmp, card)
+        lap("serve")
         parity(fluid, torch, tmp)
+        lap("parity")
         trained = train(fluid, torch, ck, card)
+        lap("train")
         train_parity(fluid, torch)
+        lap("train_parity")
         resnet_served = resnet_serve(fluid, torch, ck, tmp, card)
+        lap("resnet_serve")
         resnet_parity(fluid, torch, tmp)
+        lap("resnet_parity")
         resnet_trained = resnet_train(fluid, torch, ck, card)
+        lap("resnet_train")
         resnet_train_parity(fluid, torch)
+        lap("resnet_train_parity")
         fused_trained = train(fluid, torch, ck, card, "train_fused", True, 128, 32, FUSED_PER_STEP,
                               arms=AB_ARMS)
+        lap("train_fused")
         long_trained = train(fluid, torch, ck, card, "train_long", True, 2048, 8, FUSED_PER_STEP)
-        for seq_len, batch in ((128, 32), (2048, 1)):
-            train_parity(fluid, torch, "train_fused_parity", True, seq_len, batch)
+        lap("train_long")
+        for shape in FUSED_PARITY:
+            train_parity(fluid, torch, "train_fused_parity", True, *shape,
+                         setup=fused_setups.pop(shape), cpu=cpu_arms["results"].pop(shape))
+        lap("train_fused_parity")
         deepfm_trained = deepfm_train(fluid, torch, ck, tmp, card)
+        lap("deepfm_train")
         deepfm_train_parity(fluid, torch, ck)
+        lap("deepfm_train_parity")
         nmt_trained, nmt_scope = nmt_train(fluid, torch, ck, card)
+        lap("nmt_train")
         nmt_state = nmt_train_parity(fluid, torch)
+        lap("nmt_train_parity")
         nmt_decoded = nmt_decode(fluid, torch, ck, card, nmt_scope)
+        lap("nmt_decode")
         nmt_decode_parity(fluid, torch, nmt_state)
+        lap("nmt_decode_parity")
         graph_parity(fluid, torch)
+        lap("graph_parity")
         conv_order(fluid, torch, card)
+        lap("conv_order")
         executor_depth(fluid, torch, card)
+        lap("executor_depth")
         remat_parity(fluid, torch, card)
+        lap("remat_parity")
         clipped_trained = train(fluid, torch, ck, card, "train_clipped", True, 128, 32,
                                 FUSED_PER_STEP, arms=AB_ARMS, clip_decay=True)
+        lap("train_clipped")
         train_clipped_parity(fluid, torch, card)
+        lap("train_clipped_parity")
         checkpoint_resume(fluid, torch, tmp, card)
+        lap("checkpoint_resume")
         loader_trained = loader_resnet(fluid, torch, ck, tmp, card)
+        lap("loader_resnet")
         dataset_trained = dataset_deepfm(fluid, torch, ck, tmp, card)
+        lap("dataset_deepfm")
         resilient_trained = resilient_resnet(fluid, torch, ck, tmp, card,
                                              os.path.join(tmp, "images.rio"))
+        lap("resilient_resnet")
         bert_resumed = resilient_bert(fluid, torch, ck, tmp, card)
+        lap("resilient_bert")
         se_trained, profiled = vision_train(fluid, torch, ck, card, "se_resnext",
                                             "se_resnext_train", on_card(torch, images(
                                                 VISION_BATCH, 100)), {"images": VISION_BATCH})
+        lap("se_resnext_train")
         se_served = vision_serve(fluid, torch, ck, tmp, card, "se_resnext", "se_resnext_serve")
+        lap("se_resnext_serve")
         vgg_trained, _ = vision_train(fluid, torch, ck, card, "vgg", "vgg_train", on_card(
             torch, images(VISION_BATCH, 101)), {"images": VISION_BATCH})
+        lap("vgg_train")
         vgg_served = vision_serve(fluid, torch, ck, tmp, card, "vgg", "vgg_serve")
+        lap("vgg_serve")
         lstm_feed = vision_feed("stacked_lstm", LSTM_BATCH, 102)
         lstm_trained, _ = vision_train(fluid, torch, ck, card, "stacked_lstm", "lstm_train",
                                        lstm_feed, {"sentences": LSTM_BATCH,
                                                    "tokens": int(lstm_feed["words@LOD"].sum())})
+        lap("lstm_train")
         w2v_trained, _ = vision_train(fluid, torch, ck, card, "word2vec", "word2vec_train",
                                       vision_feed("word2vec", W2V_BATCH, 103),
                                       {"examples": W2V_BATCH})
+        lap("word2vec_train")
         vision_parity(fluid, torch)
+        lap("vision_parity")
         profiled_trace(fluid, torch, ck, tmp, card, profiled)
+        lap("profiled_trace")
         phase_t0 = time.perf_counter()
         lamb_trained = train(fluid, torch, ck, card, "train_lamb", True, 128, 32, LAMB_PER_STEP,
                              arms=AB_ARMS, optimizer="lamb")
@@ -8613,7 +9368,9 @@ def main():
         emit({"phase_seconds": "resnet_f16_amp", "s": time.perf_counter() - phase_t0,
               "card": card})
         phase_t0 = time.perf_counter()
-        amp_bert_parity(fluid, torch)
+        amp_bert_parity(fluid, torch, amp_setup, cpu_arms["results"].pop("amp_bert"))
+        emit({"phase_seconds": "amp_bert_parity", "s": time.perf_counter() - phase_t0,
+              "card": card})
         amp_resnet_parity(fluid, torch)
         emit({"phase_seconds": "amp_parity", "s": time.perf_counter() - phase_t0, "card": card})
         emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
@@ -8622,6 +9379,7 @@ def main():
         quant_served, qat_trained = quant_phases(fluid, torch, ck, tmp, card,
                                                  fleet_inputs["bert_dir"])
         dygraph_ran = dygraph_phases(fluid, torch, ck, tmp, card)
+        host_table_trained = host_table_phases(fluid, torch, ck, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -8672,6 +9430,7 @@ def main():
              "serving_fleet": (PER_REQUEST, fleet_served),
              "quant_serving": (PER_REQUEST, quant_served),
              "qat_resnet": (RESNET_PER_STEP, qat_trained),
+             "host_table_deepfm": (HOST_TABLE_PER_STEP, host_table_trained),
              **{phase: (NONE, ran) for phase, ran in dygraph_ran.items()}}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

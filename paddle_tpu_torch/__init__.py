@@ -46,7 +46,11 @@ load dequantizes into their serve dtype (no int8 product runs, as in the
 JAX package).  `dygraph` runs eagerly: `VarBase`s on a guard's device,
 the tape's backward through `torch.autograd`, `Layer` and its layers, the
 eager optimizer updates, the LR schedules, `dygraph_grad_clip` and
-`contrib.rnn_impl`'s cells.
+`contrib.rnn_impl`'s cells.  `param_server` is the host sparse-table tier
+(a supervised pserver child process, journaled and recovered bit for bit,
+whose wire the JAX package's clients and servers speak) under
+`parallel.TieredEmbedding`; `chaos` draws seeded multi-fault schedules,
+runs them and shrinks a failing one.
 """
 import numpy as np
 
@@ -93,10 +97,12 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .lod import LoDTensor, LoDTensorArray, create_lod_tensor  # noqa: F401
 from . import parallel  # noqa: F401
+from . import param_server  # noqa: F401  (the host sparse-table tier)
 from . import parallel as compiler  # fluid.compiler.CompiledProgram  # noqa: F401
 from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
 from .pipeline import PipelineStats, train_loop  # noqa: F401
 from . import debugger, evaluator, metrics  # noqa: F401,E402
+from . import chaos  # noqa: F401,E402  (seeded multi-fault campaign engine)
 
 
 def in_dygraph_mode():

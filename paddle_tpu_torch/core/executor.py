@@ -57,6 +57,7 @@ pinned memory, and the FLAGS_check_nan_inf guard happen at resolution.
 """
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import time
@@ -417,21 +418,31 @@ class _Plan:
         before = dict(cuda_kernels.LAUNCHES)
         # thread_local: a DataLoader's producer thread may allocate, pin
         # and upload the next batches on its own stream while this thread
-        # captures; only this thread's calls are checked against the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            env = dict(state)
-            env.update(self._static_feeds)
-            env = run_block_with_backward(self._context(gen), self.ops, env)
-            outs = self._outputs(env)
-            # an output that is another target's tensor is read before the copies
-            srcs = {n: env[n] for n in targets if n in env}
-            ids = {id(t) for t in targets.values()}
-            for n, v in srcs.items():
-                if v is not targets[n] and id(v) in ids:
-                    srcs[n] = v.clone()
-            for n, v in srcs.items():
-                if v is not targets[n]:
-                    targets[n].copy_(v)
+        # captures; only this thread's calls are checked against the capture.
+        # No garbage collection inside it: a collection that frees another
+        # plan's graph would reset that graph mid-capture, which CUDA does
+        # not permit (the capture then fails); torch.cuda.graph collects
+        # before it begins
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                env = dict(state)
+                env.update(self._static_feeds)
+                env = run_block_with_backward(self._context(gen), self.ops, env)
+                outs = self._outputs(env)
+                # an output that is another target's tensor is read before the copies
+                srcs = {n: env[n] for n in targets if n in env}
+                ids = {id(t) for t in targets.values()}
+                for n, v in srcs.items():
+                    if v is not targets[n] and id(v) in ids:
+                        srcs[n] = v.clone()
+                for n, v in srcs.items():
+                    if v is not targets[n]:
+                        targets[n].copy_(v)
+        finally:
+            if collecting:
+                gc.enable()
         self.captured_launches = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
         self._static_outs = outs
         self._state = {**state, **targets}

@@ -1,5 +1,5 @@
-"""Failure taxonomy (paddle_tpu/errors.py without the parameter-server and
-distributed classes; same names, bases and messages).
+"""Failure taxonomy (paddle_tpu/errors.py without the distributed classes;
+same names, bases and messages).
 
     TrainingError         base: RuntimeError with step / batch / phase context
     DataError             a batch the input pipeline could not produce or
@@ -24,6 +24,10 @@ distributed classes; same names, bases and messages).
                           fallback dir / degraded mode
     IntegrityError        a file named by a manifest no longer hashes to
                           its recorded sha256 and byte length (io.load_vars)
+    ParamServerError      the host sparse-table tier (param_server.py) failed
+                          an RPC (phase="pserver"): transient errnos are
+                          retried with reconnect, terminal ones (protocol
+                          violations) are not
     ServingError          the serving runtime (serving/) refused or failed a
                           request or a control action on purpose; `reason`
                           carries the stable code clients route on
@@ -47,13 +51,24 @@ import torch
 __all__ = ["TrainingError", "DataError", "NumericError", "TransientDeviceError",
            "PreemptionError", "FatalError", "CheckpointError", "ResourceError",
            "LockTimeoutError", "IntegrityError", "StorageError", "ServingError",
-           "attach_context",
-           "get_context", "classify", "TRANSIENT_STORAGE_ERRNOS", "TERMINAL_STORAGE_ERRNOS"]
+           "ParamServerError", "attach_context",
+           "get_context", "classify", "TRANSIENT_STORAGE_ERRNOS", "TERMINAL_STORAGE_ERRNOS",
+           "TRANSIENT_PS_ERRNOS"]
 
 # The storage-failure split: transient errnos may pass (space freed, a
 # flapping mount); terminal ones need another destination or an operator.
 TRANSIENT_STORAGE_ERRNOS = (_errno.ENOSPC, _errno.EIO, _errno.EAGAIN, _errno.ETIMEDOUT)
 TERMINAL_STORAGE_ERRNOS = (_errno.EROFS, _errno.EACCES)
+
+# The pserver-failure split: the socket died because the pserver process
+# did (its supervisor is restarting it) or the network flapped, so
+# reconnect and retry.  A socket TimeoutError maps transient too (KVClient
+# checks the type, not only the errno).  Anything else on the wire, above
+# all a protocol violation, is terminal.
+TRANSIENT_PS_ERRNOS = (_errno.ECONNREFUSED, _errno.ECONNRESET,
+                       _errno.ECONNABORTED, _errno.EPIPE,
+                       _errno.ETIMEDOUT, _errno.EAGAIN,
+                       _errno.EHOSTUNREACH)
 
 
 class TrainingError(RuntimeError):
@@ -195,6 +210,45 @@ class StorageError(TrainingError):
         return f"{base} [{', '.join(ctx)}]"
 
 
+class ParamServerError(TrainingError):
+    """The host sparse-table tier (param_server.py) failed an RPC: the
+    parameter-server mirror of `StorageError`, with the same
+    transient/terminal split.  Transient (connection refused or reset,
+    broken pipe, socket timeout, host unreachable): the pserver died or its
+    supervisor is restarting it; `KVClient` retries with reconnect and
+    seeded backoff (`FLAGS_ps_retries`), and a retried push applies exactly
+    once (the server dedups its sequence number).  Terminal (bad magic, a
+    frame past `FLAGS_ps_max_frame_mb`, degraded mode past
+    `FLAGS_max_host_lag_steps`): retrying cannot help.  `op` is the
+    protocol op ("pull", "push", "create", "fetch", ...), `endpoint` the
+    pserver's address, `errno` the OS code when an OSError is behind it."""
+
+    def __init__(self, message: str, *, op: Optional[str] = None,
+                 endpoint: Optional[str] = None,
+                 errno: Optional[int] = None,
+                 transient: Optional[bool] = None, **kw):
+        kw.setdefault("phase", "pserver")
+        super().__init__(message, **kw)
+        self.op = op
+        self.endpoint = endpoint
+        self.errno = errno
+        if transient is None:
+            transient = errno in TRANSIENT_PS_ERRNOS
+        self.transient = bool(transient)
+
+    def __str__(self):
+        base = super().__str__()
+        ctx = []
+        if self.op:
+            ctx.append(f"op={self.op}")
+        if self.errno is not None:
+            ctx.append(f"errno={_errno.errorcode.get(self.errno, self.errno)}")
+        ctx.append("transient" if self.transient else "terminal")
+        if self.endpoint:
+            ctx.append(f"endpoint={self.endpoint}")
+        return f"{base} [{', '.join(ctx)}]"
+
+
 class IntegrityError(TrainingError):
     """Wrong but finite state made loud.  Raised at rest: a file named by a
     checkpoint or inference-model manifest is missing, or no longer hashes
@@ -322,8 +376,10 @@ def classify(exc: BaseException, wrap_unknown: bool = False) -> BaseException:
     when no class applies (with `wrap_unknown=True`, a `FatalError` around
     it instead).  In order: the card's out-of-memory error, and a message
     carrying a transient status code, become a `TransientDeviceError`
-    (RESOURCE_EXHAUSTED for the former); an OSError with a storage errno
-    and the phase="storage" breadcrumb a `StorageError`; anything with the
+    (RESOURCE_EXHAUSTED for the former); an OSError or TimeoutError with
+    the phase="pserver" breadcrumb (the KVClient seam) a `ParamServerError`;
+    an OSError with a storage errno and the phase="storage" breadcrumb a
+    `StorageError`; anything with the
     loader's or the feed boundary's breadcrumb (phase "loader" / "feed") a
     `DataError`; a bare OSError with a storage errno a `StorageError`; the
     NaN guard's message a `NumericError`.  A mapped exception carries the
@@ -353,6 +409,13 @@ def classify(exc: BaseException, wrap_unknown: bool = False) -> BaseException:
                 kw["phase"] = "device"
                 return _wrap(TransientDeviceError, code=code)
     eno = getattr(exc, "errno", None) if isinstance(exc, OSError) else None
+    # checked before storage: a socket's ETIMEDOUT shares an errno with the
+    # transient storage set, but the verdict (retry the RPC, or enter the
+    # degraded sparse mode) is the pserver tier's
+    if ctx.get("phase") == "pserver" and isinstance(exc, (OSError, TimeoutError)):
+        transient = (isinstance(exc, (TimeoutError, ConnectionError))
+                     or eno in TRANSIENT_PS_ERRNOS)
+        return _wrap(ParamServerError, errno=eno, transient=transient)
     storage_errno = eno in TRANSIENT_STORAGE_ERRNOS or eno in TERMINAL_STORAGE_ERRNOS
     if storage_errno and ctx.get("phase") == "storage":
         return _wrap(StorageError, errno=eno, path=getattr(exc, "filename", None))

@@ -4,12 +4,11 @@ to survive, with the JAX package's whole grammar.
 
 Every recovery path that is not tested is broken; this module makes the
 failure classes of errors.py reproducible, on the CPU and on the card.
-Single-process entries fire as in the JAX package.  Every entry parses;
-a `FaultInjector` given an entry that targets a worker rank of a gang
-(kill_worker, stall_worker, flip_bit:RANK, enospc:RANK, ro_fs:RANK) raises
-NotImplementedError naming ROADMAP A10, and one given a host-tier entry
-(kill_pserver, stall_pserver, rot_row) raises naming ROADMAP A9, where the
-parameter server comes.  A `FaultInjector` is driven by a
+Single-process and host-tier entries fire as in the JAX package.  Every
+entry parses; a `FaultInjector` given an entry that targets a worker rank
+of a gang (kill_worker, stall_worker, flip_bit:RANK, enospc:RANK,
+ro_fs:RANK) raises NotImplementedError naming ROADMAP A10.  A
+`FaultInjector` is driven by a
 schedule string (`FLAGS_fault_spec` or the constructor), every entry
 fires exactly once, and nothing here depends on wall time or real
 hardware — the same spec injects the same faults at the same points on
@@ -103,7 +102,8 @@ it) and the prefixes io.py marks exempt:
                           then proceeds
 
 host-tier entries target the supervised parameter server of an
-online-learning run (they parse; the parameter server is A9's):
+online-learning run (`set_pserver(supervisor)` registers the live handle;
+entries stay pending without one):
 
     kill_pserver@S        SIGKILL the pserver CHILD PROCESS at dispatch
                           of train step S — the supervisor must respawn
@@ -186,8 +186,6 @@ _FILE_KINDS = ("corrupt_chunk", "truncated_file")
 _LEDGER_KINDS = _RANKED_KINDS + _FILE_KINDS \
     + ("flip_bit", "rot_shard", "rot_row",
        "kill_pserver", "stall_pserver") + _STORAGE_KINDS
-# host-tier chaos: entries on the parameter server (ROADMAP A9)
-_PSERVER_KINDS = ("kill_pserver", "stall_pserver", "rot_row")
 
 # Per-kind compatibility metadata.  A chaos campaign
 # generator draws schedules from this table; scenarios declare the
@@ -280,6 +278,11 @@ class Fault:
     @property
     def slow_ms(self) -> float:
         assert self.kind == "slow_io"
+        return float(self.arg)
+
+    @property
+    def pserver_stall_s(self) -> float:
+        assert self.kind == "stall_pserver"
         return float(self.arg)
 
 
@@ -444,26 +447,26 @@ def _mutate_chunk(paths, chunk_at: int, truncate: bool) -> bool:
 
 class FaultInjector:
     """Seeded, schedule-driven fault source.  One instance = one schedule;
-    construct fresh (or `reset()`) per run.  The port runs one process:
-    an entry aimed at a gang's worker rank raises NotImplementedError
-    naming ROADMAP A10, a host-tier entry one naming A9."""
+    construct fresh (or `reset()`) per run.  The port runs one training
+    process: an entry aimed at a gang's worker rank raises
+    NotImplementedError naming ROADMAP A10."""
 
     def __init__(self, spec: str = "", seed: int = 0):
         self.spec = spec
         self.seed = seed
         self.faults = parse_fault_spec(spec)
         for f in self.faults:
-            if f.kind in _PSERVER_KINDS:
-                raise NotImplementedError(
-                    f"FaultInjector: {f} acts on a supervised parameter server, "
-                    f"which comes with ROADMAP A9")
             if f.target_rank is not None:
                 raise NotImplementedError(
                     f"FaultInjector: {f} targets worker rank {f.target_rank} of a "
                     f"gang; gang faults come with data parallelism (ROADMAP A10)")
         self._rng = random.Random(seed)
-        # rot_shard@N counts COMMITTED checkpoints this injector observed
+        # rot_shard@N / rot_row@N count COMMITTED checkpoints/snapshots
+        # this injector observed
         self._commits = 0
+        # kill_pserver/stall_pserver need a live supervisor handle
+        # (set_pserver); entries stay pending until one is registered
+        self._pserver = None
         # storage faults: the train step the loop is currently inside
         # (on_dispatch/set_step maintain it; -1 = no step dispatched yet,
         # so step-window entries stay dormant outside a training loop
@@ -641,19 +644,23 @@ class FaultInjector:
     def on_commit(self, ckpt_dir: Optional[str]):
         """Called with each checkpoint directory the moment its COMMIT
         lands (resilient_train_loop's flush path; tests/bench call it
-        directly); applies a pending rot_shard@N when this is the Nth
-        commit this injector observed: one payload byte of the first
-        shard file (sorted order) is flipped.  A commit whose directory is
-        None or not (yet) a directory is counted and mutates nothing.
-        Returns `ckpt_dir` for chaining."""
+        directly); applies a pending rot_shard@N or rot_row@N when this is
+        the Nth commit this injector observed: one payload byte of the
+        first shard file (sorted order) is flipped -- any .npy for
+        rot_shard, a SelectedRows VALUES shard (`*.vals.*.npy`, the rows of
+        the sparse tier) for rot_row.  A commit whose directory is None or
+        not (yet) a directory is counted and mutates nothing.  Returns
+        `ckpt_dir` for chaining."""
         idx = self._commits
         self._commits += 1
         for f in self.faults:
-            if f.kind != "rot_shard" or f.at != idx or f.fired:
+            if f.kind not in ("rot_shard", "rot_row") or f.at != idx or f.fired:
                 continue
             if ckpt_dir is None or not os.path.isdir(ckpt_dir):
                 continue
-            shards = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".npy"))
+            shards = sorted(n for n in os.listdir(ckpt_dir)
+                            if n.endswith(".npy")
+                            and (f.kind != "rot_row" or ".vals." in n))
             path = os.path.join(ckpt_dir, shards[0]) if shards else None
             size = os.path.getsize(path) if path else 0
             if not size:
@@ -667,7 +674,7 @@ class FaultInjector:
                   f"(byte {size // 2} flipped post-COMMIT)",
                   file=sys.stderr, flush=True)
             f.fired = True
-            _MON.counter("faults.rot_shard").inc()
+            _MON.counter(f"faults.{f.kind}").inc()
         return ckpt_dir
 
     # -- storage faults ----------------------------------------------------
@@ -783,3 +790,23 @@ class FaultInjector:
                 code=code, step=step, phase="device")
         if self._take("preempt", step) is not None:
             os.kill(os.getpid(), signal.SIGTERM)
+        # host-tier chaos: claimable only once a supervisor is registered;
+        # without one the entries stay pending, as a step never reached
+        if self._pserver is not None:
+            f = self._take("kill_pserver", step)
+            if f is not None:
+                print(f"faults: kill_pserver@{step} firing (SIGKILL on the "
+                      f"pserver child)", file=sys.stderr, flush=True)
+                self._pserver.kill()
+            f = self._take("stall_pserver", step)
+            if f is not None:
+                print(f"faults: stall_pserver@{step} firing (SIGSTOP "
+                      f"{f.pserver_stall_s}s)", file=sys.stderr, flush=True)
+                self._pserver.stall(f.pserver_stall_s)
+
+    def set_pserver(self, supervisor) -> "FaultInjector":
+        """Register the PServerSupervisor the kill_pserver/stall_pserver
+        entries act on (anything with .kill() / .stall(seconds) works).
+        Returns self for chaining."""
+        self._pserver = supervisor
+        return self

@@ -160,6 +160,45 @@ _define("FLAGS_lock_timeout_s", float, 0.0,
         "deadline on every blocking named-lock acquisition (core/locks.py): "
         "past it the acquire raises errors.LockTimeoutError naming the wanted "
         "lock and every lock the thread holds.  0 (default): no deadline")
+_define("FLAGS_ps_timeout_s", float, 10.0,
+        "socket deadline on every parameter-server RPC "
+        "(param_server.py): connect/send/recv past it "
+        "raise a classified TRANSIENT errors.ParamServerError the "
+        "KVClient retries with reconnect + backoff instead of "
+        "wedging training on a dead pserver forever.  0 = no "
+        "deadline (the pre-hardening behavior)")
+_define("FLAGS_ps_retries", int, 5,
+        "KVClient retry budget per RPC (param_server.py): "
+        "transient ParamServerErrors (timeout, connection refused/"
+        "reset while the supervisor restarts the pserver) retry with "
+        "seeded exponential backoff up to this many attempts; pushes "
+        "carry per-client sequence numbers so a retried push applies "
+        "EXACTLY once server-side.  Exhausting the budget raises the "
+        "last error terminal")
+_define("FLAGS_ps_max_frame_mb", int, 256,
+        "frame-size cap on the pserver wire protocol "
+        "(param_server.py): a length prefix past the cap "
+        "is a corrupt/hostile frame and raises a terminal classified "
+        "ParamServerError instead of mallocing unbounded on either "
+        "end of the socket")
+_define("FLAGS_ps_snapshot_every_ops", int, 256,
+        "pserver durability cadence (param_server.py): a "
+        "full table snapshot commits through the io.py atomic choke "
+        "point every N journaled mutating ops; between snapshots the "
+        "write-ahead op journal alone replays a crash-restarted "
+        "pserver back to bit-identical tables.  0 = journal-only "
+        "(snapshot only at stop())")
+_define("FLAGS_max_host_lag_steps", int, 0,
+        "degraded-mode bound for the host sparse tier "
+        "(parallel/embedding.py): the maximum number of "
+        "consecutive steps training may run hot-shard-only (zero "
+        "cold-tail rows, stale host tables) while the pserver is "
+        "down.  Past the bound the next lookup raises a TERMINAL "
+        "classified errors.ParamServerError — online learning cannot "
+        "silently diverge from its cold tail forever.  0 (default) = "
+        "unbounded degraded mode (the sparse.host_lag_steps gauge "
+        "and host_tier_degraded events still go loud; gate them with "
+        "perf_report --check --max-host-lag-steps)")
 # Accepted for scripts written against the reference framework; none of the
 # four changes anything in the port.
 _define("FLAGS_cudnn_deterministic", bool, True,

@@ -21,8 +21,9 @@ their scales in `__quant__.json`; `load_vars` (and so
 dtype with no flag.
 
 Storage choke point, as in the JAX package: every checkpoint, manifest
-and sidecar byte goes through `atomic_write` / `save_array` (writes) and
-`open_for_read` / `load_array` (reads).  One hook (`set_io_fault_hook`,
+and sidecar byte goes through `atomic_write` / `save_array` /
+`append_record` (writes) and `open_for_read` / `load_array` /
+`read_journal` (reads).  One hook (`set_io_fault_hook`,
 armed by faults.py) sees every operation first, writes are tmp + fsync +
 rename, and an OSError crossing the seam carries phase="storage", which
 `errors.classify` maps onto `StorageError`.
@@ -32,6 +33,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import struct
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -127,6 +129,40 @@ def atomic_write(path: str, data, *, fsync: bool = True):
     _gate("write", path)
     mode = "wb" if isinstance(data, (bytes, bytearray)) else "w"
     _atomic_commit(path, mode, lambda f: f.write(data), fsync=fsync)
+
+
+def append_record(path: str, data: bytes, *, fsync: bool = True):
+    """Append one length-prefixed record to a write-ahead journal through
+    the choke point (the pserver's op journal, param_server.py).  The
+    record is framed as u32 LE length + payload and fsynced before the
+    caller applies the op it describes, so a crash leaves at most one torn
+    tail record, which `read_journal` drops by its length prefix.  An
+    append is no atomic rename (a journal is cheap incremental durability);
+    the framing makes a torn append recoverable."""
+    _gate("write", path)
+    try:
+        with open(path, "ab") as f:
+            f.write(struct.pack("<I", len(data)) + data)
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
+    except OSError as e:
+        raise _storage_ctx(e)
+
+
+def read_journal(path: str):
+    """Yield each whole record `append_record` wrote to `path`, in order;
+    a torn tail (a crash mid-append) is dropped: every record before it
+    was fsynced whole."""
+    with open_for_read(path, "rb") as f:
+        buf = f.read()
+    off = 0
+    while off + 4 <= len(buf):
+        (n,) = struct.unpack_from("<I", buf, off)
+        if off + 4 + n > len(buf):
+            break
+        yield buf[off + 4:off + 4 + n]
+        off += 4 + n
 
 
 def save_array(path: str, arr) -> Optional[str]:

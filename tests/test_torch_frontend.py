@@ -976,8 +976,9 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 121, len(missing)  # of 1232
+    assert len(missing) <= 85, len(missing)  # of 1232
     assert [n for n in missing if n.startswith("paddle_tpu.dygraph.")] == []
+    assert [n for n in missing if n.startswith("paddle_tpu.param_server.")] == []
     assert [n for n in missing if n.startswith("paddle_tpu.layers.")] == [
         "paddle_tpu.layers.ring_attention"]
     for n in ("paddle_tpu.layers.square_error_cost", "paddle_tpu.layers.sums",

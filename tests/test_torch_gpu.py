@@ -1610,3 +1610,137 @@ def test_dygraph_conv_bn_linear_on_card_matches_the_cpu_run(optimizer, exact_car
             if optimizer == "adam" and n == "conv.bias":
                 tol = 2 * 0.01 * 3 + 1e-5
             np.testing.assert_allclose(got[n], want[n], rtol=0, atol=tol, err_msg=n)
+
+
+HOST_DEEPFM = dict(num_fields=5, vocab_size=400, embed_dim=4, mlp_dims=(8, 8))
+
+
+def _host_table_deepfm(place):
+    """A tiny host-tier DeepFM: both tables TieredEmbeddings (hot quarter in
+    process) over an in-process ParameterServer, deepfm_net's arithmetic
+    over the pulled blocks, Adam(1e-3, epsilon 1e-3) on the MLP, 3 steps of
+    batch 32, pull after push.  Returns the losses, every table row and
+    parameter, and the plan."""
+    from paddle_tpu_torch.param_server import KVClient, ParameterServer
+    from paddle_tpu_torch.parallel import TieredEmbedding
+
+    layers, cfg = fluid.layers, HOST_DEEPFM
+    nf, k = cfg["num_fields"], cfg["embed_dim"]
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            w_emb = layers.data("w_emb", [nf, 1], dtype="float32")
+            v_emb = layers.data("v_emb", [nf, k], dtype="float32")
+            label = layers.data("label", [1], dtype="float32")
+            fm = layers.reduce_sum(layers.square(layers.reduce_sum(v_emb, dim=[1]))
+                                   - layers.reduce_sum(layers.square(v_emb), dim=[1]),
+                                   dim=[1]) * 0.5
+            deep = layers.reshape(v_emb, [-1, nf * k])
+            for d in cfg["mlp_dims"]:
+                deep = layers.fc(deep, size=d, act="relu")
+            logit = layers.reshape(layers.reduce_sum(w_emb, dim=[1, 2]) + fm, [-1, 1]) \
+                + layers.fc(deep, size=1)
+            loss = layers.mean(layers.sigmoid_cross_entropy_with_logits(logit, label))
+            grads = fluid.calc_gradient(loss, [w_emb, v_emb])
+            fluid.optimizer.Adam(1e-3, epsilon=1e-3).minimize(loss)
+    startup.random_seed = 0
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    srv = ParameterServer(optimizer="sgd", lr=0.05).start()
+    client = KVClient(srv.endpoint)
+    try:
+        tables = {n: TieredEmbedding(client, n, cfg["vocab_size"], d, cfg["vocab_size"] // 4,
+                                     lr=0.05, degraded_ok=False, seed=s)
+                  for s, (n, d) in enumerate((("deepfm_w", 1), ("deepfm_v", k)), 1)}
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for v in main.list_vars():
+            if v.persistable:
+                scope.set_var(v.name, init.to_numpy(v.name).copy())
+        rng = np.random.RandomState(3)
+        losses = []
+        for _ in range(3):
+            ids = rng.randint(0, cfg["vocab_size"], (32, nf))
+            feed = {"w_emb": tables["deepfm_w"].lookup(ids),
+                    "v_emb": tables["deepfm_v"].lookup(ids),
+                    "label": (rng.rand(32, 1) < 0.3).astype("f4")}
+            out = exe.run(main, feed=feed, fetch_list=[loss] + list(grads), scope=scope)
+            losses.append(float(out[0].reshape(-1)[0]))
+            for (n, t), g in zip(tables.items(), out[1:]):
+                t.apply_grad(ids.reshape(-1), g.reshape(-1, t.dim))
+        state = {n: t.export_selected_rows().values.numpy() for n, t in tables.items()}
+        state.update({p.name: scope.to_numpy(p.name).copy() for p in main.all_parameters()})
+        return losses, state, exe.last_plan
+    finally:
+        client.close()
+        srv.stop()
+
+
+@pytest.mark.gpu
+def test_host_table_deepfm_on_card_matches_the_cpu_run(exact_card_math):
+    """The host tier around a device step on the card: losses within 1e-5
+    relative of the CPU run's, every table row and MLP parameter within 1e-5
+    of max(1, |CPU|), and the Adam kernel launched for the 6 MLP parameters
+    at each eager run and at the capture."""
+    _need_card()
+    cpu_losses, cpu_state, _ = _host_table_deepfm(fluid.CPUPlace())
+    before = dict(ck.LAUNCHES)
+    losses, state, plan = _host_table_deepfm(fluid.CUDAPlace(0))
+    runs = 2 if plan.graphed else 3
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == dict(NO_LAUNCHES, adam=6 * runs)
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5)
+    for n, want in cpu_state.items():
+        np.testing.assert_allclose(state[n], want, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(want).max())), err_msg=n)
+
+
+@pytest.mark.gpu
+def test_a_chaos_schedule_on_card_gives_the_cpu_verdict(tmp_path):
+    """chaos.run_one with no place runs on the card: the seed-8 planted
+    pairing's probes, fires and (clean) verdict equal the CPU run's."""
+    from paddle_tpu_torch import chaos
+
+    _need_card()
+    spec = "nan@2;device@7:UNAVAILABLE"
+    card = chaos.run_one("train", spec, seed=8, workdir=str(tmp_path / "card"))
+    cpu = chaos.run_one("train", spec, seed=8, workdir=str(tmp_path / "cpu"),
+                        place=fluid.CPUPlace())
+    assert card.ok and (card.fired, card.data) == (cpu.fired, cpu.data)
+    assert chaos.evaluate(card) == chaos.evaluate(cpu) == []
+
+
+@pytest.mark.gpu
+def test_a_collection_during_a_capture_frees_no_graph():
+    """Executors whose graphed plans are garbage in reference cycles, and
+    the collector run at every allocation while a new plan captures: the
+    capture goes through and replays.  A collection inside a capture that
+    frees another plan's graph would reset it mid-capture, which CUDA does
+    not permit; the executor keeps the collector out of its captures."""
+    import gc
+
+    _need_card()
+
+    def graphed():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", [8], dtype="float32")
+            loss = fluid.layers.mean(fluid.layers.fc(x, 4))
+            fluid.optimizer.SGD(0.1).minimize(loss)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        out = [exe.run(main, feed={"x": np.full((4, 8), i, "f4")}, fetch_list=[loss],
+                       scope=scope)[0] for i in range(3)]
+        return exe, out
+
+    for _ in range(4):
+        exe, _ = graphed()
+        exe.cycle = exe  # garbage only a collection frees
+        del exe
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        exe, out = graphed()
+    finally:
+        gc.set_threshold(*threshold)
+    assert exe.last_plan.graphed and exe.last_plan.runs == 3
+    assert all(np.isfinite(o).all() for o in out)

@@ -190,15 +190,68 @@ def test_fault_spec_grammar_parses_alike(spec):
 
 @pytest.mark.parametrize("spec,item", [
     ("kill_worker@3:1", "A10"), ("stall_worker@6:0:0.2", "A10"), ("flip_bit@5:1", "A10"),
-    ("enospc@4:1", "A10"), ("ro_fs@3:0", "A10"), ("kill_pserver@3", "A9"),
-    ("stall_pserver@3:0.5", "A9"), ("rot_row@0", "A9")])
+    ("enospc@4:1", "A10"), ("ro_fs@3:0", "A10")])
 def test_injector_refuses_gang_and_parameter_server_entries(spec, item):
-    """The port runs one process: an entry aimed at a gang's worker rank or
-    at the parameter server parses, and the injector refuses it, naming the
-    ROADMAP item that brings it."""
+    """The port runs one training process: an entry aimed at a gang's
+    worker rank parses, and the injector refuses it, naming the ROADMAP
+    item that brings it.  The host-tier entries fire (the next test)."""
     assert tfluid.faults.parse_fault_spec(spec)[0].kind == spec.split("@")[0]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tfluid.FaultInjector("nan@1;" + spec)
+
+
+class _Supervisor:
+    """Stands in for a PServerSupervisor: records the chaos hooks' calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def kill(self):
+        self.calls.append(("kill",))
+
+    def stall(self, seconds):
+        self.calls.append(("stall", seconds))
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+@pytest.mark.parametrize("spec", ["kill_pserver@3", "stall_pserver@3:0.5", "rot_row@1"])
+def test_host_tier_entries_wait_for_their_target_then_fire(pkg, spec, tmp_path):
+    """kill_pserver / stall_pserver stay pending at their step until a
+    supervisor is registered, then fire on it once; rot_row passes its
+    commit ordinal by while the commit holds no SelectedRows values shard,
+    and rots the first one that does.  The same in both packages."""
+    fluid = PKGS[pkg]["fluid"]
+    inj = fluid.FaultInjector(spec)
+    kind = spec.split("@")[0]
+    if kind == "rot_row":
+        dense = tmp_path / "dense"
+        dense.mkdir()
+        np.save(dense / "w.p0s0.npy", np.ones(8, "f4"))
+        inj.on_commit(None)  # ordinal 0
+        inj.on_commit(str(dense))  # ordinal 1: no .vals. shard, nothing to rot
+        assert inj.pending() and (np.load(dense / "w.p0s0.npy") == 1).all()
+        inj = fluid.FaultInjector(spec)
+        sparse = tmp_path / "sparse"
+        sparse.mkdir()
+        vals = np.arange(1024, dtype="f4")  # the middle byte lies in the payload
+        np.save(sparse / "t.rows.p0s0.npy", np.arange(1024))
+        np.save(sparse / "t.vals.p0s0.npy", vals)
+        inj.on_commit(None)
+        inj.on_commit(str(sparse))
+        assert not inj.pending() and inj.summary() == {"rot_row": 1}
+        assert not np.array_equal(np.load(sparse / "t.vals.p0s0.npy"), vals)
+        assert (np.load(sparse / "t.rows.p0s0.npy") == np.arange(1024)).all()
+        return
+    sup = _Supervisor()
+    inj.on_dispatch(3)  # no supervisor: the entry stays pending
+    assert inj.pending() and not sup.calls
+    assert inj.set_pserver(sup) is inj
+    inj.on_dispatch(2)
+    assert inj.pending()
+    inj.on_dispatch(3)
+    inj.on_dispatch(3)  # fires once
+    assert not inj.pending() and inj.summary() == {kind: 1}
+    assert sup.calls == ([("kill",)] if kind == "kill_pserver" else [("stall", 0.5)])
 
 
 def test_named_locks_keep_one_rank_per_name():
