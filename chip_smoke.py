@@ -457,6 +457,23 @@ the allocator's cached blocks and prints torch.cuda.mem_get_info().
      metrics), then the planted defect at seed 8: caught and shrunk to
      <= 2 faults on the CPU, and on the card the whole arm giving the
      same; phases 69-72's seconds.
+ 73. cost_model: the training programs of phases 10, 12, 13, 15 and 17
+     (COST_PROGRAMS), planned by core/resource_plan.py at their phases'
+     feed shapes on start_cpu_arms' thread: FLOPs, bytes moved and the
+     roofline step on the H100 chip model, the plan's peak beside the
+     allocator's peak the phase measured, the measured MFU from the
+     phase's own warm step (no step runs again) and roofline / measured
+     step; every op type priced by its own rule (coverage 1.0) and each
+     MFU in (0, 1];
+ 74. precheck: phase 13's program at 128 x 2048 through a fresh Executor
+     raises ResourceError before anything of the step is allocated (the
+     card's total as the limit, analysis.resource_blocked + 1, no miss
+     counted, no plan cached, the allocator back where it was, the call's
+     peak within the uploaded feeds + 4 KiB), and at 8 x 2048 under
+     FLAGS_resource_hbm_limit_mb at half its plan; every plan-cache miss of
+     the process was priced (analysis.plan's calls = the misses + the
+     refusals, across the monitor's resets); install_check.run_check() on
+     the card.
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -3324,6 +3341,7 @@ def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None, a
     read_monitor(phase, monitor_want(range(TRAIN_STEPS), True), card)
     warm = statistics.median(step_ms[2:])
     WARM_STEP_MS[phase] = warm
+    PEAK_BYTES[phase] = torch.cuda.max_memory_allocated()
     emit({"phase": phase, "losses": losses, "warm_step_ms": warm,
           "images_per_s": RESNET_TRAIN_BATCH / warm * 1e3, "first_step_ms": step_ms[0],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
@@ -3534,6 +3552,8 @@ def deepfm_train(fluid, torch, ck, tmp, card):
                                         DEEPFM_PER_STEP, "deepfm_train", "adam", card)
     launches = dict(ck.LAUNCHES)  # read before the profiled step
     warm = {opt: statistics.median(ms[1:]) for opt, ms in (("adagrad", ada_ms), ("adam", adam_ms))}
+    WARM_STEP_MS.update({f"deepfm_train {opt}": ms for opt, ms in warm.items()})
+    PEAK_BYTES["deepfm_train"] = torch.cuda.max_memory_allocated()
     emit({"phase": "deepfm_train", "losses": {"adagrad": ada_losses, "adam": adam_losses},
           "warm_step_ms": warm, "examples_per_s": {k: DEEPFM_BATCH / v * 1e3 for k, v in warm.items()},
           "first_step_ms": {"adagrad": ada_ms[0], "adam": adam_ms[0]},
@@ -3737,6 +3757,7 @@ def nmt_train(fluid, torch, ck, card):
                 NMT_PER_STEP, launches,
                 {"sentences": NMT_BATCH, "real_target_tokens": real_tokens,
                  "padded_target_tokens": NMT_BATCH * NMT_T}, check_first_step=lr0_step)
+            ARM_RECORDS.setdefault(f"nmt_train {dtype}", []).append(record)
             emit({"phase": "nmt_train", "dtype": dtype, "arm": arm,
                   "loss_step6_below_step2": losses[-1] < losses[1]})
             if arm == "graphed":
@@ -7452,10 +7473,14 @@ def fleet_wait(fleet, cond, what, timeout):
 
 
 def fleet_listening(fleet, ranks):
-    """The ranks alive in the health table with their serving port beaten."""
+    """The ranks alive in the health table with their serving port beaten
+    by their current incarnation's process (never a corpse's last beat)."""
     table = fleet.health.poll()
+    with fleet._lock:
+        pids = {r: fleet._replicas[r]["proc"].pid for r in ranks}
     return [r for r in ranks if table[r]["status"] == "alive"
-            and (table[r]["tel"] or {}).get("port")]
+            and (table[r]["tel"] or {}).get("port")
+            and (table[r]["tel"] or {}).get("pid") == pids[r]]
 
 
 def fleet_records(fleet):
@@ -9143,6 +9168,255 @@ def host_table_phases(fluid, torch, ck, tmp, card):
     return clean["launches"]
 
 
+# the training programs phase 73 prices, each as its phase builds it:
+# (name, phase); the name keys its measured step (measured_step)
+COST_PROGRAMS = (("resnet_train", 10), ("train_fused", 12), ("train_long", 13),
+                 ("deepfm_train adagrad", 15), ("deepfm_train adam", 15),
+                 ("nmt_train float32", 17), ("nmt_train bfloat16", 17))
+PEAK_BYTES = {}  # phase -> the allocator's peak over its steps (resnet_train, deepfm_train)
+PRECHECK_BATCH = 128  # phase 74: phase 13's program at 128 x 2048, past the card's memory
+PRECHECK_SLACK = 4096  # bytes the refused call may allocate beyond its uploaded feeds
+
+
+def cost_programs(fluid):
+    """(name, phase, main, feed, fetch names) of the training programs of
+    COST_PROGRAMS, built by the functions their phases call, with the feeds
+    those phases run (the same shapes: planning needs no values)."""
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    out = []
+    main, _, fetches = build_resnet(fluid, "bfloat16", with_optimizer=True)
+    out.append(("resnet_train", 10, main,
+                {"img": np.zeros((RESNET_TRAIN_BATCH, 3, 224, 224), np.float32),
+                 "label": np.zeros((RESNET_TRAIN_BATCH, 1), np.int64)}, [fetches["loss"].name]))
+    for name, phase, seq_len, batch in (("train_fused", 12, 128, 32), ("train_long", 13, 2048, 8)):
+        main, _, loss = build_train(fluid, "bfloat16", 12, 0.1, seq_len, True)
+        out.append((name, phase, main,
+                    make_fake_batch(batch, seq_len, 30522, rng=np.random.RandomState(0)), [loss]))
+    for opt, make in (("adagrad", lambda: fluid.optimizer.Adagrad(0.05)),
+                      ("adam", lambda: fluid.optimizer.Adam(1e-3))):
+        main, _, loss, _ = build_deepfm(fluid, DEEPFM, make)
+        out.append((f"deepfm_train {opt}", 15, main, deepfm_feed(DEEPFM_BATCH, DEEPFM, 0), [loss]))
+    feed, _ = nmt_batch(fluid)
+    for dtype in ("float32", "bfloat16"):
+        main, _, loss = build_nmt(fluid, dtype)
+        out.append((f"nmt_train {dtype}", 17, main, feed, [loss]))
+    return out
+
+
+def plan_cost_programs(fluid):
+    """Build and plan the programs of cost_programs at the feed shapes the
+    Executor stages for them (its own feed expansion on the CPU: ragged
+    feeds padded to their bucket); card-free, so main() runs it on
+    start_cpu_arms' thread.  Returns {name: {phase, main, feed, fetches,
+    plan, feed_shapes, plan_s}}."""
+    from paddle_tpu_torch.core import resource_plan as rp
+
+    exe = fluid.Executor(fluid.CPUPlace())
+    plans = {}
+    for name, phase, main, feed, fetches in cost_programs(fluid):
+        shapes = {n: tuple(t.shape) for n, t in exe._feeds(main.global_block(), feed, 1).items()}
+        t0 = time.perf_counter()
+        plan = rp.plan_program(main, shapes, fetches)
+        plans[name] = {"phase": phase, "main": main, "feed": feed, "fetches": fetches,
+                       "plan": plan, "feed_shapes": shapes, "plan_s": time.perf_counter() - t0}
+    return plans
+
+
+def measured_step(name):
+    """(warm step ms, the allocator's peak bytes, graphed) of a COST_PROGRAMS
+    program as its phase measured them: the median over its graphed arms'
+    warm steps (train_arm's records) or the phase's own warm step; DeepFM's
+    plans are refused a graph (SelectedRows), so its warm step is eager."""
+    recs = [r for r in ARM_RECORDS.get(name, ()) if r["graphed"]]
+    if recs:
+        return (statistics.median(r["warm_step_ms"] for r in recs),
+                max(r["peak_mem_gb"] for r in recs) * 1e9, True)
+    phase = name.split(" ")[0]
+    return WARM_STEP_MS[name], PEAK_BYTES[phase], phase != "deepfm_train"
+
+
+def cost_model_phase(fluid, card, plans):
+    """Phase 73: the cost model against the card.  For each program of
+    COST_PROGRAMS, planned at its phase's feed shapes (plan_cost_programs):
+    the FLOPs, bytes moved and roofline step time of the plan, its peak
+    beside the allocator's peak the phase measured, the measured MFU
+    (flops_total / (warm step s x CHIP_PEAK_FLOPS), from the step the phase
+    already timed: no step runs again) and roofline / measured step.  Every
+    op type has its cost rule (coverage 1.0, none missing) and the MFU lies
+    in (0, 1]; the roofline ratio is printed, not held."""
+    from paddle_tpu_torch.core import resource_plan as rp
+
+    rows = {}
+    for name, phase in COST_PROGRAMS:
+        entry = plans[name]
+        plan = entry["plan"]
+        warm_ms, peak, graphed = measured_step(name)
+        mfu = plan.flops_total / (warm_ms / 1e3 * rp.CHIP_PEAK_FLOPS)
+        rec = {"phase": "cost_model", "program": name, "of_phase": phase,
+               "feed_shapes": {n: list(s) for n, s in entry["feed_shapes"].items()},
+               "flops_total": plan.flops_total, "traffic_bytes_total": plan.traffic_bytes_total,
+               "roofline_step_s": plan.roofline_step_s, "predicted_mfu": plan.predicted_mfu,
+               "plan_peak_bytes": plan.peak_bytes,
+               "plan_persistable_bytes": plan.persistable_bytes,
+               "plan_peak_temp_bytes": plan.peak_temp_bytes, "measured_peak_bytes": peak,
+               "plan_over_measured_peak": plan.peak_bytes / peak,
+               "warm_step_ms": warm_ms, "warm_step_graphed": graphed, "measured_mfu": mfu,
+               "roofline_over_measured_step": plan.roofline_step_s / (warm_ms / 1e3),
+               "cost_coverage_frac": plan.cost_coverage_frac,
+               "cost_missing_types": plan.cost_missing_types, "ops": len(plan.rows),
+               "plan_s": entry["plan_s"], "chip_model": {
+                   "peak_flops": rp.CHIP_PEAK_FLOPS, "hbm_bytes_per_s": rp.CHIP_HBM_BANDWIDTH},
+               "card": card}
+        emit(rec)
+        rows[name] = rec
+        if plan.cost_coverage_frac != 1.0 or plan.cost_missing_types:
+            raise AssertionError(f"{name}: op types without a cost rule: "
+                                 f"{plan.cost_missing_types}")
+        if not 0.0 < mfu <= 1.0:
+            raise AssertionError(f"{name}: measured MFU {mfu} outside (0, 1]")
+    return rows
+
+
+def tally_across_resets(mon):
+    """The process's totals of the analysis.plan span (calls, seconds) and
+    of the executor.cache_miss and analysis.resource_blocked counters: the
+    phases reset the monitor, so each reset first adds what it clears to
+    the tally.  Returns a function giving the totals so far."""
+    keep = ("executor.cache_miss", "analysis.resource_blocked")
+    tally = dict.fromkeys(keep + ("plan_spans", "plan_s"), 0)
+
+    def current():
+        span = mon.span_stats().get("analysis.plan", {"calls": 0, "total_s": 0.0})
+        counters = mon.counter_values()
+        return {**{k: counters.get(k, 0) for k in keep},
+                "plan_spans": span["calls"], "plan_s": span["total_s"]}
+
+    reset = mon.reset
+
+    def counted_reset():
+        for k, v in current().items():
+            tally[k] += v
+        return reset()
+
+    mon.reset = counted_reset
+    return lambda: {k: tally[k] + v for k, v in current().items()}
+
+
+def refused_run(fluid, torch, exe, main, feed, fetches):
+    """Run `main` once, expecting the pre-check's ResourceError; returns
+    (the error, allocated bytes before and after, the call's peak above
+    before, the bytes of the feeds it uploads: the Executor's own feed
+    conversion, run on the CPU)."""
+    from paddle_tpu_torch.errors import ResourceError
+
+    staged = fluid.Executor(fluid.CPUPlace())._feeds(main.global_block(), feed, 1)
+    uploaded = sum(t.numel() * t.element_size() for t in staged.values())
+    del staged
+    # the earlier phases' garbage is freed first, and no collection runs
+    # inside the call: the allocator's count then moves by the call alone
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            exe.run(main, feed=feed, fetch_list=fetches, scope=fluid.Scope())
+        except ResourceError as e:
+            err = e.with_traceback(None)  # its frames hold the uploaded feeds
+        else:
+            raise AssertionError("the pre-check let a program past its memory limit run")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    return err, before, after, torch.cuda.max_memory_allocated() - before, uploaded
+
+
+def precheck_phase(fluid, torch, card, plans, totals):
+    """Phase 74: the pre-check and install_check on the card.  Phase 13's
+    program (BERT-base bf16 fused, seq 2048) fed at PRECHECK_BATCH x 2048
+    through a fresh Executor raises ResourceError under the card's own
+    limit: needed > limit = torch.cuda.mem_get_info()[1],
+    analysis.resource_blocked + 1, executor.cache_miss unchanged, no plan
+    cached, the allocator back where it was and the call's peak above it at
+    most the uploaded feeds + PRECHECK_SLACK.  At phase 13's 8 x 2048 under
+    FLAGS_resource_hbm_limit_mb at half its plan it raises too.  Every
+    plan-cache miss of this process so far was priced: the analysis.plan
+    span's calls equal the misses plus the refused calls.  Then
+    install_check.run_check() on the card."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+
+    entry = plans["train_long"]
+    main, fetches = entry["main"], entry["fetches"]
+    limit = torch.cuda.mem_get_info()[1]
+    big = make_fake_batch(PRECHECK_BATCH, 2048, 30522, rng=np.random.RandomState(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t_before = totals()
+    t0 = time.perf_counter()
+    err, before, after, peak, uploaded = refused_run(fluid, torch, exe, main, big, fetches)
+    refused_s = time.perf_counter() - t0
+    t_after = totals()
+    rec = {"phase": "precheck", "form": "card limit", "batch": PRECHECK_BATCH, "seq_len": 2048,
+           "needed_bytes": err.needed_bytes, "limit_bytes": err.limit_bytes,
+           "card_total_bytes": limit, "error_phase": err.phase,
+           "watermark_ops": err.watermark_ops[:4],
+           "resource_blocked": t_after["analysis.resource_blocked"]
+           - t_before["analysis.resource_blocked"],
+           "cache_miss": t_after["executor.cache_miss"] - t_before["executor.cache_miss"],
+           "plans_cached": len(exe._cache), "allocated_before": before,
+           "allocated_after": after, "peak_above_before": peak, "uploaded_feed_bytes": uploaded,
+           "refused_s": refused_s, "card": card}
+    emit(rec)
+    if not (err.needed_bytes > err.limit_bytes == limit and err.phase == "build"
+            and err.watermark_ops):
+        raise AssertionError(f"the card-limit refusal: {rec}")
+    if (rec["resource_blocked"], rec["cache_miss"], rec["plans_cached"]) != (1, 0, 0):
+        raise AssertionError(f"the refusal moved the counters or cached a plan: {rec}")
+    if after != before or peak > uploaded + PRECHECK_SLACK:
+        raise AssertionError(f"the refused call allocated: {rec}")
+    half_mb = entry["plan"].peak_bytes / 2 / 1e6
+    old = fluid.get_flags(["FLAGS_resource_hbm_limit_mb"])
+    fluid.set_flags({"FLAGS_resource_hbm_limit_mb": half_mb})
+    try:
+        err2, before2, after2, peak2, uploaded2 = refused_run(fluid, torch, exe, main,
+                                                              entry["feed"], fetches)
+    finally:
+        fluid.set_flags(old)
+    rec2 = {"phase": "precheck", "form": "FLAGS_resource_hbm_limit_mb at half the plan",
+            "batch": 8, "seq_len": 2048, "flag_mb": half_mb,
+            "needed_bytes": err2.needed_bytes, "limit_bytes": err2.limit_bytes,
+            "plan_peak_bytes": entry["plan"].peak_bytes, "plans_cached": len(exe._cache),
+            "allocated_before": before2, "allocated_after": after2,
+            "peak_above_before": peak2, "uploaded_feed_bytes": uploaded2, "card": card}
+    emit(rec2)
+    if not (err2.needed_bytes == entry["plan"].peak_bytes
+            and err2.limit_bytes == int(half_mb * 1e6) and not exe._cache
+            and after2 == before2 and peak2 <= uploaded2 + PRECHECK_SLACK):
+        raise AssertionError(f"the flag's refusal: {rec2}")
+    out = io.StringIO()
+    with redirect_stdout(out):
+        fluid.install_check.run_check()
+    lines = out.getvalue().splitlines()
+    emit({"phase": "install_check", "printed": lines, "card": card})
+    if lines[-1:] != ["install check passed."]:
+        raise AssertionError(f"install_check.run_check() on the card printed {lines}")
+    t = totals()
+    rec3 = {"phase": "plan_span", "plan_spans": t["plan_spans"],
+            "plan_total_ms": t["plan_s"] * 1e3, "cache_misses": t["executor.cache_miss"],
+            "refused": t["analysis.resource_blocked"], "card": card}
+    emit(rec3)
+    if t["plan_spans"] != t["executor.cache_miss"] + t["analysis.resource_blocked"]:
+        raise AssertionError(f"a plan-cache miss was not priced: {rec3}")
+    return rec, rec2, rec3
+
+
 def main():
     run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
@@ -9175,7 +9449,8 @@ def main():
     cpu_arms = start_cpu_arms(
         [(shape, lambda s=setup: train_parity_cpu(fluid, s))
          for shape, setup in fused_setups.items()]
-        + [("amp_bert", lambda: amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *amp_setup))])
+        + [("amp_bert", lambda: amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *amp_setup)),
+           ("cost_plans", lambda: plan_cost_programs(fluid))])
     info = _build.build()
     emit({"phase": "build", "seconds": info["seconds"]})
     print("\n".join(line for line in info["log"].splitlines()
@@ -9217,6 +9492,7 @@ def main():
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
+    totals = tally_across_resets(fluid.monitor.get_monitor())
     try:
         served = serve(fluid, torch, ck, tmp, card)
         lap("serve")
@@ -9380,6 +9656,14 @@ def main():
                                                  fleet_inputs["bert_dir"])
         dygraph_ran = dygraph_phases(fluid, torch, ck, tmp, card)
         host_table_trained = host_table_phases(fluid, torch, ck, tmp, card)
+        phase_t0 = time.perf_counter()
+        plans = cpu_arms["results"].pop("cost_plans")
+        cost_model_phase(fluid, card, plans)
+        emit({"phase_seconds": "cost_model", "s": time.perf_counter() - phase_t0,
+              "plan_s": sum(p["plan_s"] for p in plans.values()), "card": card})
+        phase_t0 = time.perf_counter()
+        precheck_phase(fluid, torch, card, plans, totals)
+        emit({"phase_seconds": "precheck", "s": time.perf_counter() - phase_t0, "card": card})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -103,6 +103,9 @@ from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
 from .pipeline import PipelineStats, train_loop  # noqa: F401
 from . import debugger, evaluator, metrics  # noqa: F401,E402
 from . import chaos  # noqa: F401,E402  (seeded multi-fault campaign engine)
+from . import install_check, transpiler  # noqa: F401,E402
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,  # noqa: F401,E402
+                         memory_optimize, release_memory)
 
 
 def in_dygraph_mode():

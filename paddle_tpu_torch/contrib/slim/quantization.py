@@ -15,9 +15,9 @@ same bits.  A snapped weight goes back into the scope as a new tensor on the
 old one's device, in its dtype: the old tensor is never written, since
 `io.save_quantized_inference_model` restores its snapshot by reference.
 
-The fake-quantize ops' inference rules are registered here, as in the JAX
-package, so that `check_program` sees a QAT program; their cost lines wait
-for the per-op cost model (ROADMAP A9.6)."""
+The fake-quantize ops' inference rules and cost rules are registered here,
+as in the JAX package, so that `check_program` sees a QAT program and the
+resource planner prices it (core/resource_plan.py)."""
 from __future__ import annotations
 
 from typing import Iterable, Optional
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ...core import analysis as _A
+from ...core import resource_plan as _RP
 from ...core.dtypes import to_numpy, to_tensor
 from ...core.program import Operator, Parameter
 
@@ -237,3 +238,11 @@ def _infer_fake_dequant(ctx):
 
 
 _A.register_rule(["fake_dequantize_max_abs"], _infer_fake_dequant)
+
+# abs + max-reduce + round + rescale ~= 4 flops/elem; dequant is one
+# multiply-rescale.  Traffic is the plain elementwise stream (in + out).
+_RP.register_elementwise_cost("fake_quantize_abs_max",
+                              "fake_channel_wise_quantize_abs_max",
+                              "fake_quantize_moving_average_abs_max",
+                              flops_per_elem=4.0)
+_RP.register_elementwise_cost("fake_dequantize_max_abs", flops_per_elem=1.0)

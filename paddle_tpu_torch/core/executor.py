@@ -687,7 +687,7 @@ class Executor:
                 tuple(sorted((n, tuple(t.shape), str(t.dtype)) for n, t in feeds.items())),
                 tuple(fetch_names), scope._uuid, steps, remat, _lowering_flags())
 
-    def _plan(self, key, program, feed_names, fetch_names, steps, remat):
+    def _plan(self, key, program, feeds, fetch_names, steps, remat):
         with self._cache_lock:
             plan = self._cache.pop(key, None)
             if plan is not None:
@@ -702,8 +702,17 @@ class Executor:
             from .analysis import check_program
 
             with _MON.span("analysis.verify", program=program._uuid[:8]):
-                check_program(program, level=level, feed_names=list(feed_names),
+                check_program(program, level=level, feed_names=list(feeds),
                               fetch_names=fetch_names)
+        # the static out-of-memory pre-check (FLAGS_resource_precheck), once
+        # per miss: the liveness plan of this (program, feed shapes) pair
+        # raises ResourceError naming the watermark ops when it cannot fit
+        # the card, before the plan is built or the step allocates anything
+        from .resource_plan import precheck_program
+
+        with _MON.span("analysis.plan", program=program._uuid[:8]):
+            precheck_program(program, {n: tuple(t.shape) for n, t in feeds.items()},
+                             fetch_names, steps=steps, device=self.place.device)
         with _MON.span("executor.build", program=program._uuid[:8]):
             plan = _Plan(program, fetch_names, self.place.device, steps, remat, self._graphs)
         with self._cache_lock:

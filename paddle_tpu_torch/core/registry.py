@@ -9,6 +9,10 @@ its outputs' at `append_op` time.  Rules are registered next to the
 lowerings (ops/*) through `set_infer` / `core.analysis.register_rule`;
 `infer_and_check` turns any failure into a `ShapeInferenceError` naming the
 op, var and block.
+
+`cost(op, block, env)` is the op's static (FLOPs, bytes moved) rule, the
+resource planner's per-op model (core/resource_plan.py), registered beside
+the lowerings through `set_cost` / `resource_plan.register_cost`.
 """
 from __future__ import annotations
 
@@ -17,13 +21,16 @@ from typing import Callable, Dict, List, Optional
 
 OpLowerFn = Callable  # (ctx, op, ins) -> {slot: tensors}
 InferFn = Callable  # (op, block) -> None (sets output var shapes/dtypes)
+CostFn = Callable  # (op, block, env) -> (flops, traffic_bytes)
 
 
 class OpDef:
-    def __init__(self, type: str, lower: OpLowerFn, infer: Optional[InferFn] = None):
+    def __init__(self, type: str, lower: OpLowerFn, infer: Optional[InferFn] = None,
+                 cost: Optional[CostFn] = None):
         self.type = type
         self.lower = lower
         self.infer = infer
+        self.cost = cost
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -37,6 +44,8 @@ def register_op(type: str, infer: Optional[InferFn] = None):
         d = OpDef(type, fn, infer)
         if infer is None and prev is not None and prev.infer is not None:
             d.infer = prev.infer  # re-registration keeps an attached infer
+        if prev is not None and prev.cost is not None:
+            d.cost = prev.cost  # re-registration keeps an attached cost rule
         _REGISTRY[type] = d
         return fn
 
@@ -49,6 +58,15 @@ def set_infer(type: str, infer: InferFn):
         _REGISTRY[type].infer = infer
     except KeyError:
         raise KeyError(f"set_infer({type!r}): op has no registered lowering") from None
+
+
+def set_cost(type: str, cost: CostFn):
+    """Attach a static FLOPs/bytes cost rule to a registered op (the
+    resource planner's per-op model, core/resource_plan.py)."""
+    try:
+        _REGISTRY[type].cost = cost
+    except KeyError:
+        raise KeyError(f"set_cost({type!r}): op has no registered lowering") from None
 
 
 def suggest_ops(type: str, n: int = 3) -> List[str]:

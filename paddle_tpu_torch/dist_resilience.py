@@ -223,11 +223,16 @@ class FleetHealth:
             self._restart_at[rank] = time.monotonic()
 
     def poll(self) -> Dict[int, dict]:
+        read_at = time.monotonic()
         polled = self.transport.poll()
         now = time.monotonic()
         out = {}
         with self._lock:
             for r, (seq, tel) in polled.items():
+                if self._restart_at.get(r, read_at) > read_at:
+                    # read before a concurrent note_restart removed the
+                    # corpse's file: its beat must not register again
+                    continue
                 prev = self._observed.get(r)
                 if seq == -1:
                     self._observed[r] = (-1, now, None)

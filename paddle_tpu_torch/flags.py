@@ -91,6 +91,20 @@ _define("FLAGS_verify_program", str, "structural",
         "and the hazard lints (donation, recompile, RNG determinism).  "
         "Error-severity findings raise ProgramVerificationError naming the "
         "op, var and block")
+_define("FLAGS_resource_precheck", str, "on",
+        "static out-of-memory pre-check on every executor plan-cache miss "
+        "(core/resource_plan.py): 'on' (default) plans the program's "
+        "liveness-based peak device memory and raises a ResourceError naming "
+        "the watermark ops when the plan exceeds the limit, before the plan is "
+        "built or the card's allocator is asked for anything; 'off' skips "
+        "planning.  The limit is FLAGS_resource_hbm_limit_mb when set, else the "
+        "CUDA device's total memory (torch.cuda.mem_get_info); on the CPU, "
+        "which has no limit, the check does nothing")
+_define("FLAGS_resource_hbm_limit_mb", float, 0.0,
+        "device memory limit (MB) the resource pre-check plans against; 0 "
+        "(default) takes the CUDA device's total memory.  Set it to plan for "
+        "another card than the one attached, or to exercise the over-budget "
+        "path")
 _define("FLAGS_feed_validation", str, "shape",
         "feed-boundary validation at DataLoader / DataFeeder (reader.py FeedSpec): "
         "'off' trusts the caller, 'shape' (default) checks dtype kind and shape "

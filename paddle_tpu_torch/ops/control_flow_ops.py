@@ -149,3 +149,13 @@ def _py_func(ctx, op, ins):
         got.append(torch.from_numpy(np.ascontiguousarray(a)).to(d).to(ctx.device))
     return {"Out": got}
 
+
+
+# Static cost rules (core/resource_plan.py, the JAX package's): sub-block
+# owners carry only their own carry/select traffic — the planner descends
+# into the body and prices its ops (one execution; trip counts are not
+# static).
+
+from ..core import resource_plan as _RP  # noqa: E402
+
+_RP.register_bytes_cost("while", "conditional_block", "select_input")

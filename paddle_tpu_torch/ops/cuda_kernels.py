@@ -679,3 +679,163 @@ def fused_adam(p, g, m, v, lr_t, beta1, beta2, eps, found_inf=None):
                 _DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype], _DTYPE_CODE[m.dtype], stream_ptr(p))
     LAUNCHES["adam"] += 1
     return p, m, v
+
+
+# --------------------------------------------------------------------------
+# kernel registry (tools/port_opbench.py --fused, the tests)
+# --------------------------------------------------------------------------
+# paddle_tpu/ops/pallas_kernels.py FUSED_KERNELS: the same five entries,
+# examples at the same shapes and dtypes from the same seeds, the same
+# tolerances and `analytic` (flops, bytes) formulas.  `fused` is the port's
+# kernel (its plain version on CPU tensors), `reference` the plain version;
+# both take the example tuple.  On the card `fused_adam` updates p, m and v
+# in place.
+
+
+def _example_tensor(a, dtype, device):
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _ln_example(dtype, rows=256, d=512, residual=True, rng_seed=0, device="cpu"):
+    import numpy as np
+
+    rng = np.random.RandomState(rng_seed)
+    x = _example_tensor(rng.randn(rows, d), dtype, device)
+    res = _example_tensor(rng.randn(rows, d), dtype, device) if residual else None
+    scale = _example_tensor(rng.rand(d) + 0.5, torch.float32, device)
+    bias = _example_tensor(rng.randn(d) * 0.1, torch.float32, device)
+    return (x, res, scale, bias)
+
+
+def _epilogue_example(dtype, n=8, c=64, hw=196, rng_seed=0, device="cpu"):
+    import numpy as np
+
+    rng = np.random.RandomState(rng_seed)
+    x = _example_tensor(rng.randn(n, c, hw), dtype, device)
+    mul = _example_tensor(rng.rand(c) + 0.5, torch.float32, device)
+    add = _example_tensor(rng.randn(c) * 0.1, torch.float32, device)
+    return (x, mul, add)
+
+
+def _adam_example(dtype, shape=(512, 256), rng_seed=0, device="cpu"):
+    import numpy as np
+
+    rng = np.random.RandomState(rng_seed)
+    p = _example_tensor(rng.randn(*shape), dtype, device)
+    g = _example_tensor(rng.randn(*shape) * 0.01, dtype, device)
+    m = _example_tensor(rng.randn(*shape) * 0.001, torch.float32, device)
+    v = _example_tensor(rng.rand(*shape) * 1e-4, torch.float32, device)
+    return (p, g, m, v)
+
+
+def _sxe_example(dtype, rows=256, v=1024, rng_seed=0, device="cpu"):
+    import numpy as np
+
+    rng = np.random.RandomState(rng_seed)
+    logits = _example_tensor(rng.randn(rows, v) * 2.0, dtype, device)
+    labels = _example_tensor(rng.randint(0, v, size=rows), torch.int32, device)
+    return (logits, labels)
+
+
+def _bias_act_example(dtype, rows=512, d=1024, rng_seed=0, device="cpu"):
+    import numpy as np
+
+    rng = np.random.RandomState(rng_seed)
+    x = _example_tensor(rng.randn(rows, d), dtype, device)
+    b = _example_tensor(rng.randn(d) * 0.1, torch.float32, device)
+    return (x, b)
+
+
+_ADAM_LR_T: Dict[torch.device, torch.Tensor] = {}
+
+
+def _adam_lr_t(device):
+    """The registry's Adam step size 1e-3 as the one-element float32 tensor
+    `fused_adam` reads on the device, made once a device."""
+    if device not in _ADAM_LR_T:
+        _ADAM_LR_T[device] = torch.full((1,), 1e-3, dtype=torch.float32, device=device)
+    return _ADAM_LR_T[device]
+
+
+def _nbytes(a):
+    return int(a.numel()) * int(a.element_size())
+
+
+def _ln_analytic(args):
+    x, res, scale, bias = args
+    streams = _nbytes(x) * (3 if res is not None else 2)
+    return 10.0 * x.numel(), float(streams + _nbytes(scale) + _nbytes(bias))
+
+
+def _epilogue_analytic(args):
+    x, mul, add = args
+    return 3.0 * x.numel(), float(2 * _nbytes(x) + _nbytes(mul) + _nbytes(add))
+
+
+def _adam_analytic(args):
+    p, g, m, v = args
+    io = 2 * (_nbytes(p) + _nbytes(m) + _nbytes(v)) + _nbytes(g)
+    return 10.0 * p.numel(), float(io)
+
+
+def _sxe_analytic(args):
+    logits, labels = args
+    return (8.0 * logits.numel(),
+            float(_nbytes(logits) + _nbytes(labels) + logits.shape[0] * 4))
+
+
+def _bias_act_analytic(args):
+    x, b = args
+    return 9.0 * x.numel(), float(2 * _nbytes(x) + _nbytes(b))
+
+
+FUSED_KERNELS: Dict[str, dict] = {
+    "ln_residual": {
+        "fused": lambda args: fused_ln_residual(args[0], args[1], args[2], args[3], 1e-5),
+        "reference": lambda args: ln_residual_plain(*args),
+        "example": _ln_example,
+        "tol": {"float32": 2e-5, "bfloat16": 5e-2},
+        "grad_argnums": (0, 1, 2, 3),
+        "analytic": _ln_analytic,
+    },
+    "bn_scale_shift_relu": {
+        "fused": lambda args: bn_epilogue(args[0], args[1], args[2], True),
+        "reference": lambda args: bn_epilogue_plain(
+            args[0].reshape(-1, args[0].shape[-1]), args[1].repeat(args[0].shape[0]),
+            args[2].repeat(args[0].shape[0]), True).reshape(args[0].shape),
+        "example": _epilogue_example,
+        "tol": {"float32": 2e-5, "bfloat16": 2e-2},
+        "grad_argnums": (0, 1, 2),
+        "analytic": _epilogue_analytic,
+    },
+    "adam_slab": {
+        "fused": lambda args: fused_adam(args[0], args[1], args[2], args[3],
+                                         _adam_lr_t(args[0].device), 0.9, 0.999, 1e-8),
+        "reference": lambda args: adam_plain(args[0], args[1], args[2], args[3],
+                                             _adam_lr_t(args[0].device), 0.9, 0.999, 1e-8),
+        "example": _adam_example,
+        "tol": {"float32": 2e-6, "bfloat16": 1e-2},
+        "grad_argnums": (),  # state update, not a differentiable layer
+        "analytic": _adam_analytic,
+    },
+    "softmax_xent": {
+        "fused": lambda args: fused_softmax_xent(args[0], args[1], -100),
+        "reference": lambda args: softmax_xent_fwd_plain(args[0], args[1], -100)[0][:, None],
+        "example": _sxe_example,
+        "tol": {"float32": 2e-5, "bfloat16": 5e-2},
+        "grad_argnums": (0,),  # labels are integral
+        "analytic": _sxe_analytic,
+    },
+    "bias_act": {
+        "fused": lambda args: fused_bias_act(args[0], args[1], "gelu"),
+        "reference": lambda args: bias_act_plain(args[0], args[1], "gelu"),
+        "example": _bias_act_example,
+        "tol": {"float32": 2e-5, "bfloat16": 5e-2},
+        "grad_argnums": (0, 1),
+        "analytic": _bias_act_analytic,
+    },
+}
+
+
+def registered_fused_kernels():
+    return sorted(FUSED_KERNELS)

@@ -527,3 +527,76 @@ def _infer_matmul(ctx):
 
 
 _A.register_rule(["matmul"], _infer_matmul)
+
+
+# --- static cost rules (core/resource_plan.py) ------------------------------
+# The JAX package's (paddle_tpu/ops/math_ops.py): the families of the infer
+# rules above, FLOPs and bytes moved instead of shapes.  Transcendental
+# unaries are a few FLOPs an element; the dense contractions exact 2*M*K*N.
+
+from ..core import resource_plan as _RP
+
+_RP.register_elementwise_cost(
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "elementwise_mod", "elementwise_floordiv", "minus",
+    "logical_not", "relu", "relu6", "abs", "square", "floor", "ceil",
+    "round", "sign", "reciprocal", "pow", "clip", "hard_shrink",
+    "leaky_relu", "hard_sigmoid", "softshrink", "clip_by_norm",
+    *sorted(_A.BOOL_OUT_OPS - {"logical_xor"}))
+_RP.register_elementwise_cost(
+    "sigmoid", "logsigmoid", "tanh", "exp", "log", "sqrt", "rsqrt", "sin",
+    "cos", "gelu", "softplus", "softsign", "tanh_shrink", "erf", "tan",
+    "asin", "acos", "atan", "sinh", "cosh", "log2", "log10", "log1p",
+    "expm1", "stanh", "elu", "swish", flops_per_elem=8.0)
+
+
+def _cost_reduce(ctx):
+    return float(ctx.in_elems("X")), ctx.io_bytes()
+
+
+_RP.register_cost(["reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+                   "reduce_prod", "mean"], _cost_reduce)
+
+
+def _cost_sum(ctx):
+    total = sum(ctx.in_elems("X", i) for i in range(len(ctx.op.input("X"))))
+    return float(total), ctx.io_bytes()
+
+
+_RP.register_cost(["sum"], _cost_sum)
+
+
+def _elems_of(shape):
+    n = 1
+    for d in shape:
+        n *= max(int(d), 1)
+    return n
+
+
+def _cost_mul(ctx):
+    xs, ys = ctx.in_shape("X"), ctx.in_shape("Y")
+    if xs is None or ys is None:
+        return float(ctx.out_elems_total()), ctx.io_bytes()
+    xd = ctx.attr("x_num_col_dims", 1)
+    yd = ctx.attr("y_num_col_dims", 1)
+    rows = _elems_of(xs[:xd])
+    inner = _elems_of(xs[xd:])
+    cols = _elems_of(ys[yd:])
+    return 2.0 * rows * inner * cols, ctx.io_bytes()
+
+
+def _cost_matmul(ctx):
+    xs, ys = ctx.in_shape("X"), ctx.in_shape("Y")
+    if xs is None or ys is None or len(xs) < 2 or len(ys) < 2:
+        return float(ctx.out_elems_total()), ctx.io_bytes()
+    if ctx.attr("transpose_X", False):
+        xs = xs[:-2] + (xs[-1], xs[-2])
+    if ctx.attr("transpose_Y", False):
+        ys = ys[:-2] + (ys[-1], ys[-2])
+    batch = _elems_of(ctx.out_shape("Out")[:-2]) if ctx.out_shape("Out") else _elems_of(xs[:-2])
+    return 2.0 * batch * xs[-2] * xs[-1] * ys[-1], ctx.io_bytes()
+
+
+_RP.register_cost(["mul"], _cost_mul)
+_RP.register_cost(["matmul"], _cost_matmul)

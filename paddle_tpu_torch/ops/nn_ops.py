@@ -945,3 +945,114 @@ def _infer_arg_extreme(ctx):
 
 
 _A.register_rule(["arg_max", "arg_min"], _infer_arg_extreme)
+
+
+# --- static cost rules (core/resource_plan.py) ------------------------------
+# The JAX package's (paddle_tpu/ops/nn_ops.py).  They price what the JAX
+# package prices, also where a kernel of the port does other work (ROADMAP
+# C lists where they part).  `ring_attention`'s rule comes with its op
+# (ROADMAP A10).
+
+from ..core import resource_plan as _RP
+
+_RP.register_elementwise_cost("square_error_cost", "label_smooth",
+                              flops_per_elem=3.0)
+_RP.register_elementwise_cost("dropout", flops_per_elem=2.0)
+_RP.register_elementwise_cost("softmax", "log_softmax", "sigmoid_cross_entropy_with_logits",
+                              flops_per_elem=8.0)
+_RP.register_elementwise_cost("batch_norm", flops_per_elem=6.0)
+_RP.register_elementwise_cost("layer_norm", flops_per_elem=10.0)
+_RP.register_elementwise_cost("cross_entropy", flops_per_elem=8.0)
+
+
+def _cost_softmax_ce(ctx):
+    """Fused logsumexp formulation: the [N, V] logits stream once plus the
+    Label and the [N, 1] Loss.  The [N, V] Softmax slot is not written
+    when it is not fetched, so the default io_bytes would charge the
+    dominant stream twice."""
+    b = 0
+    for slot in ("Logits", "Label"):
+        n = ctx.in_name(slot)
+        if n is not None:
+            b += ctx.env.nbytes(n)
+    n = ctx.out_name("Loss")
+    if n is not None:
+        b += ctx.env.nbytes(n)
+    return 8.0 * ctx.in_elems("Logits"), float(b)
+
+
+_RP.register_cost(["softmax_with_cross_entropy"], _cost_softmax_ce)
+_RP.register_elementwise_cost("accuracy", "arg_max", "arg_min",
+                              flops_per_elem=2.0)
+_RP.register_elementwise_cost("top_k", flops_per_elem=6.0)
+
+
+def _elems_xs(shape):
+    n = 1
+    for d in shape:
+        n *= max(int(d), 1)
+    return n
+
+
+def _cost_conv2d(ctx):
+    """2 * out_elems * (Cin/groups * kh * kw): the MACs of the implicit
+    GEMM; traffic = img + filter + out."""
+    out = ctx.out_shape("Output") or ctx.out_shape("Out")
+    filt = ctx.in_shape("Filter")
+    if out is None or filt is None:
+        return float(ctx.out_elems_total()), ctx.io_bytes()
+    cout = max(filt[0], 1)
+    per_out = 1
+    for d in filt:
+        per_out *= max(int(d), 1)
+    per_out //= cout  # Cin/groups * kh * kw
+    n = 1
+    for d in out:
+        n *= max(int(d), 1)
+    return 2.0 * n * per_out, ctx.io_bytes()
+
+
+_RP.register_cost(["conv2d", "depthwise_conv2d"], _cost_conv2d)
+
+
+def _cost_pool2d(ctx):
+    k = ctx.attr("ksize", [1, 1]) or [1, 1]
+    kk = 1
+    for d in (k if isinstance(k, (list, tuple)) else [k]):
+        kk *= max(int(d), 1)
+    if ctx.attr("global_pooling", False):
+        xs = ctx.in_shape("X")
+        kk = _elems_xs(xs[2:]) if xs and len(xs) > 2 else kk
+    out = ctx.out_elems("Out")
+    return float(out * kk), ctx.io_bytes()
+
+
+_RP.register_cost(["pool2d"], _cost_pool2d)
+
+
+def _cost_lookup_table(ctx):
+    """Row gather: traffic = gathered rows in + out plus the ids; the full
+    table is not streamed (the default io_bytes would charge it)."""
+    out_b = 0
+    for n in ctx.op.output_arg_names:
+        out_b += ctx.env.nbytes(n)
+    ids_b = ctx.env.nbytes(ctx.in_name("Ids")) if ctx.in_name("Ids") else 0
+    return 0.0, float(2 * out_b + ids_b)
+
+
+_RP.register_cost(["lookup_table", "lookup_table_v2"], _cost_lookup_table)
+
+
+def _cost_fused_attention(ctx):
+    """QK^T + PV: 4 * B*H*Lq*Lk*dh FLOPs (2 products of 2 FLOPs a MAC),
+    with no causal discount; the [B,H,Lq,Lk] scores never reach memory, so
+    traffic is Q/K/V/Bias in + Out."""
+    qs, ks = ctx.in_shape("Q"), ctx.in_shape("K")
+    if qs is None or ks is None or len(qs) < 4 or len(ks) < 3:
+        return float(ctx.out_elems_total()), ctx.io_bytes()
+    b, h, lq, dh = qs[0], qs[1], qs[2], qs[3]
+    lk = ks[2]
+    return 4.0 * _elems_xs((b, h, lq, lk, dh)), ctx.io_bytes()
+
+
+_RP.register_cost(["fused_attention"], _cost_fused_attention)

@@ -466,3 +466,14 @@ from ..core import analysis as _A
 _A.register_state_update_infer(
     "sgd", "momentum", "adam", "adagrad", "rmsprop", "adamax", "adadelta", "lamb", "ftrl",
     "lars_momentum", "dpsgd", "proximal_gd", "proximal_adagrad")
+
+
+# Static cost rules (core/resource_plan.py, the JAX package's): optimizer
+# updates are pure bandwidth — every state slot reads + writes its full size
+# a step (an in-place update saves residency, not traffic).
+
+from ..core import resource_plan as _RP
+
+_RP.register_state_update_cost(
+    "sgd", "momentum", "adam", "adagrad", "rmsprop", "adamax", "adadelta", "lamb", "ftrl",
+    "lars_momentum", "dpsgd", "proximal_gd", "proximal_adagrad")

@@ -677,3 +677,23 @@ _A.register_rule(["attention_bias"], _infer_attention_bias)
 
 # position_encoding adds a sinusoid table to X: Out mirrors X
 _A.register_unary_infer("position_encoding")
+
+
+
+# --- static cost rules (core/resource_plan.py) ------------------------------
+# The JAX package's (paddle_tpu/ops/sequence_ops.py).
+
+from ..core import resource_plan as _RP
+
+
+def _cost_sequence_pool(ctx):
+    return float(ctx.in_elems("X") * 2), ctx.io_bytes()
+
+
+_RP.register_cost(["sequence_pool", "sequence_softmax"], _cost_sequence_pool)
+_RP.register_elementwise_cost("position_encoding", "attention_bias",
+                              flops_per_elem=4.0)
+_RP.register_bytes_cost("sequence_mask", "sequence_expand",
+                        "sequence_expand_as", "sequence_reverse",
+                        "sequence_pad", "sequence_unpad", "sequence_concat",
+                        "sequence_slice", "dynamic_rnn")

@@ -319,3 +319,13 @@ def _random_crop(ctx, op, ins):
         idx = start + torch.arange(s, device=ctx.device)
         out = out.index_select(lead + i, idx)
     return {"Out": out}
+
+
+
+# --- static cost rules (core/resource_plan.py) ------------------------------
+# The JAX package's (paddle_tpu/ops/tail_ops.py).
+
+from ..core import resource_plan as _RP  # noqa: E402
+
+_RP.register_elementwise_cost("logical_xor")
+_RP.register_elementwise_cost("add_position_encoding", flops_per_elem=4.0)

@@ -580,3 +580,29 @@ def _infer_gather(ctx):
 
 
 _A.register_rule(["gather"], _infer_gather)
+
+
+# --- static cost rules (core/resource_plan.py) ------------------------------
+# The JAX package's (paddle_tpu/ops/tensor_ops.py).
+
+from ..core import resource_plan as _RP
+
+# pure data movement: zero FLOPs, in+out traffic
+_RP.register_bytes_cost("assign", "cast", "reshape2", "reshape",
+                        "transpose2", "transpose", "concat", "split",
+                        "one_hot", "stack", "gather", "fill_zeros_like",
+                        "expand", "squeeze2", "squeeze", "unsqueeze2",
+                        "unsqueeze", "slice", "pad", "pad2d", "shape",
+                        "flatten2", "flatten")
+_RP.register_elementwise_cost("scale", "increment", "cumsum")
+
+
+def _cost_filled(ctx):
+    """Generators write their output once; RNG costs a few FLOPs/elem."""
+    out_b = sum(ctx.env.nbytes(n) for n in ctx.op.output_arg_names)
+    rng = ctx.op.type != "fill_constant"
+    return float(ctx.out_elems_total() * (8 if rng else 0)), float(out_b)
+
+
+_RP.register_cost(["fill_constant", "uniform_random", "gaussian_random",
+                   "truncated_gaussian_random"], _cost_filled)

@@ -54,6 +54,7 @@ and whether its traffic launched anything (graph replays do not count).
 """
 from __future__ import annotations
 
+import errno
 import json
 import os
 import signal
@@ -148,6 +149,27 @@ def _make_handler(ctx):
 class _Listener(socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
+
+
+BIND_RETRY_S = 90.0  # outlasts a TIME_WAIT (60 s) on the port
+
+
+def _listen(port: int, handler, retry_s: float = BIND_RETRY_S) -> _Listener:
+    """The replica's listener on `port`, its bind retried on EADDRINUSE
+    for up to `retry_s`.  A restarted replica rebinds its predecessor's
+    port while the fleet's traffic goes on: where the kernel's ephemeral
+    range covers the fleet's ports, a connection of the router's can hold
+    that port as its local end (in TIME_WAIT for up to 60 s after it
+    closes, which SO_REUSEADDR does not get past), and the bind fails
+    until it goes."""
+    deadline = time.monotonic() + retry_s
+    while True:
+        try:
+            return _Listener(("127.0.0.1", port), handler)
+        except OSError as e:
+            if e.errno != errno.EADDRINUSE or time.monotonic() >= deadline:
+                raise
+            time.sleep(0.25)
 
 
 def _place(name: str):
@@ -249,7 +271,7 @@ def main() -> int:
     ctx = {"srv": srv, "rank": rank, "buckets": buckets,
            "draining": draining}
 
-    listener = _Listener(("127.0.0.1", port), _make_handler(ctx))
+    listener = _listen(port, _make_handler(ctx))
     listen_thread = threading.Thread(target=listener.serve_forever,
                                      name="replica-listener", daemon=True)
     listen_thread.start()

@@ -976,7 +976,11 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 85, len(missing)  # of 1232
+    assert len(missing) <= 57, len(missing)  # of 1232
+    a96 = [n for n in names if n.startswith("paddle_tpu.core.resource_plan.")
+           or n.startswith("paddle_tpu.DistributeTranspiler")
+           or n in ("paddle_tpu.memory_optimize", "paddle_tpu.release_memory")]
+    assert len(a96) >= 28 and [n for n in a96 if n in missing] == [], a96
     assert [n for n in missing if n.startswith("paddle_tpu.dygraph.")] == []
     assert [n for n in missing if n.startswith("paddle_tpu.param_server.")] == []
     assert [n for n in missing if n.startswith("paddle_tpu.layers.")] == [

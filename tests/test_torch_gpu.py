@@ -1744,3 +1744,73 @@ def test_a_collection_during_a_capture_frees_no_graph():
         gc.set_threshold(*threshold)
     assert exe.last_plan.graphed and exe.last_plan.runs == 3
     assert all(np.isfinite(o).all() for o in out)
+
+
+@pytest.mark.gpu
+def test_device_hbm_limit_is_the_cards_total():
+    _need_card()
+    from paddle_tpu_torch.core import resource_plan as rp
+
+    total = torch.cuda.mem_get_info(0)[1]
+    assert rp.device_hbm_limit(torch.device("cuda:0")) == total
+    old = fluid.get_flags(["FLAGS_resource_hbm_limit_mb"])
+    fluid.set_flags({"FLAGS_resource_hbm_limit_mb": 1000.0})
+    try:
+        assert rp.device_hbm_limit(torch.device("cuda:0")) == 10 ** 9
+    finally:
+        fluid.set_flags(old)
+
+
+@pytest.mark.gpu
+def test_precheck_raises_before_any_allocation_on_card():
+    """A program past the card's memory is refused at its plan-cache miss:
+    nothing of the step is allocated (only the uploaded feeds, freed with
+    the error's frames), no plan is cached, and the error names the card's
+    total as its limit."""
+    _need_card()
+    from paddle_tpu_torch.errors import ResourceError
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [1 << 15], dtype="float32")
+        z = fluid.layers.relu(fluid.layers.fc(x, 1 << 20))  # a 137 GB weight
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {"x": np.ones((64, 1 << 15), "f4")}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        exe.run(main, feed=feed, fetch_list=[z], scope=fluid.Scope())
+    except ResourceError as e:
+        err = e.with_traceback(None)
+    else:
+        raise AssertionError("the pre-check let the program run")
+    torch.cuda.synchronize()
+    assert err.needed_bytes > err.limit_bytes == torch.cuda.mem_get_info(0)[1]
+    assert err.phase == "build" and err.watermark_ops
+    assert not exe._cache
+    assert torch.cuda.memory_allocated() == before
+    assert torch.cuda.max_memory_allocated() - before <= 64 * (1 << 15) * 4 + 4096
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", sorted(ck.FUSED_KERNELS))
+def test_fused_kernels_registry_matches_plain_on_card(kernel, dtype):
+    """Each FUSED_KERNELS entry's kernel against its plain version at the
+    registry's example shapes and tolerance (tools/port_opbench.py --fused
+    checks the same before it times), launching its kernel."""
+    _need_card()
+    spec = ck.FUSED_KERNELS[kernel]
+    args = spec["example"](getattr(torch, dtype), device="cuda")
+    want = spec["reference"](args)
+    fresh = [None if a is None else a.clone() for a in args]
+    before = dict(ck.LAUNCHES)
+    got = spec["fused"](fresh)
+    torch.cuda.synchronize()
+    assert any(ck.LAUNCHES[k] > before[k] for k in ck.LAUNCHES)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert float((g.float() - w.float()).abs().max()) <= spec["tol"][dtype]

@@ -175,6 +175,34 @@ def test_replica_beat_and_fleet_health_status_machine(tmp_path):
                             [[], [0]], "dead", ["dead", "dead"], "booting", "draining"]
 
 
+def test_a_corpses_beat_read_before_its_restart_does_not_register(tmp_path):
+    """A poll that read the killed incarnation's beat file just before the
+    supervisor's note_restart removed it must not put that beat back:
+    the port's FleetHealth drops a read older than the rank's restart
+    (chip_smoke phase 63 found the race: the corpse's port looked alive,
+    the restarted replica was not listening yet).  The JAX package's
+    poll registers it (ROADMAP C)."""
+    hb = str(tmp_path / "hb")
+    os.makedirs(hb)
+    beat = tfluid.dist_resilience.ReplicaBeat(hb, 0, 1, interval_s=60.0,
+                                              payload_fn=lambda: {"port": 7, "pid": 1}).start()
+    beat.stop()
+    health = tfluid.dist_resilience.FleetHealth(hb, 1, interval_s=0.05, startup_grace_s=5.0)
+    assert health.poll()[0]["status"] == "alive"
+    read = health.transport.poll
+
+    def read_then_restart():
+        got = read()  # the corpse's beat, read before ...
+        health.note_restart(0)  # ... the supervisor restarts the rank
+        return got
+
+    health.transport.poll = read_then_restart
+    assert health.poll()[0]["status"] == "booting"
+    health.transport.poll = read
+    assert health.poll()[0] == {"rank": 0, "seq": None, "age_s": None, "status": "booting",
+                                "tel": None}
+
+
 class _FakeHealth:
     def __init__(self, table):
         self.table = table
@@ -781,6 +809,40 @@ def test_wire_encoding_matches_the_jax_package():
     for a, b in zip(tfluid.serving.router.decode_arrays(json.loads(json.dumps(jdoc))), arrays):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a.astype("f8"), b.astype("f8"))
+
+
+@pytest.mark.parametrize("freed_after_s", [0.5, None])
+def test_a_restarted_replica_retries_its_bind(freed_after_s):
+    """A restarted replica whose port is still held (a TIME_WAIT of the
+    router's connections where the ephemeral range covers the fleet's
+    ports: chip_smoke phase 63, every restart "Address already in use")
+    retries the bind until the port is free, or raises EADDRINUSE at its
+    deadline."""
+    import errno
+    import socket
+
+    from paddle_tpu_torch.serving import replica_main
+
+    port = tfluid.launch.allocate_port_block(1)
+    holder = socket.socket()
+    holder.bind(("127.0.0.1", port))
+    holder.listen()
+    if freed_after_s is None:
+        with pytest.raises(OSError) as ei:
+            replica_main._listen(port, replica_main._make_handler({}), retry_s=1.0)
+        holder.close()
+        assert ei.value.errno == errno.EADDRINUSE
+        return
+    timer = threading.Timer(freed_after_s, holder.close)
+    timer.start()
+    t0 = time.monotonic()
+    listener = replica_main._listen(port, replica_main._make_handler({}), retry_s=30.0)
+    try:
+        assert listener.server_address == ("127.0.0.1", port)
+        assert freed_after_s <= time.monotonic() - t0 < 30.0
+    finally:
+        listener.server_close()
+        timer.join(5)
 
 
 @pytest.mark.parametrize("eph", [32768, 40000, None])
