@@ -73,10 +73,11 @@ Phases, each of which raises on failure (exit code 1, traceback, no result):
  12. train_fused: phase 6 with the fused_attention op (the JAX package's
      benchmark configuration, tools/bench_kit.py:184-187): every step also
      launches the attention forward, dQ and dK/dV kernels 12 times each;
-     eager and graphed in turns (eager, graphed, eager, graphed, each from the
+     eager and graphed in turns (eager, graphed, eager, each from the
      startup's seed): warm step, tokens a second, idle share, ATen calls a
-     step and peak memory of each, and the two graphed runs (dropout 0.1)
-     agree bit for bit;
+     step and peak memory of each; its graphed arm's losses and state are
+     kept for phase 75, whose three graphed arms must agree with it bit for
+     bit (dropout 0.1);
  13. train_long: the same at seq 2048, batch 8 (16,384 tokens a step), with
      peak memory and sequences and tokens per second;
  14. train_fused_parity: phase 7 with the fused_attention op at batch 32 x 128
@@ -474,6 +475,25 @@ the allocator's cached blocks and prints torch.cuda.mem_get_info().
      the process was priced (analysis.plan's calls = the misses + the
      refusals, across the monitor's resets); install_check.run_check() on
      the card.
+ 75. dp_world1: phase 12's program through
+     CompiledProgram.with_data_parallel, then with_grad_overlap serial and
+     bucketed, at world size 1, 6 steps an arm graphed from the second:
+     every loss and persistable bit for bit phase 12's graphed arm's,
+     FUSED_PER_STEP a step, each arm's warm step beside phase 12's;
+ 76. dp_gang_card: a gang of 2 ranks on the one card over gloo
+     (launch.run_gang of this script with --dp-rank; the ranks start up
+     while phase 75 runs and load the library this process built): bf16
+     BERT-base at 32 x 128, 16 rows a rank, 6 steps (parameters equal
+     before, losses and every persistable equal across the ranks after,
+     FUSED_PER_STEP a step on each rank, the graph refused, the loss
+     falling; warm step, tokens a second, the sync's ms and bytes, the
+     backend, start-up seconds), f32 BERT 2 layers at 8 x 128 in the three
+     modes held by phase 7's rule to a world-size-1 run of the global batch
+     (serial and bucketed bit for bit), and a conv + batch-norm net's global
+     and rank-meaned statistics.
+The card-free CPU arms of phases 7, 11, 14, 18, 25 and 55 and phase 73's
+plans run on two threads beside the kernels' build and phase 3
+(start_cpu_arms).
 Phase 3 holds every kernel in float16 too (fault C6: the kernels refused
 float16, which the JAX kernels compute): check_float16_kernels for the row
 kernels, the cross-entropy, Adam (its found_inf skip: p, m and v bit for
@@ -536,6 +556,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 
@@ -549,6 +570,9 @@ BATCHES = (1, 8, 32)
 REQUESTS = 3
 # eager and graphed in turns, on one host: an A/B of the executor's graphs
 AB_ARMS = ("eager", "graphed", "eager", "graphed")
+# phase 12: its one graphed arm is held bit for bit by phase 75's three
+# graphed arms of the same program, which stand for AB_ARMS' second one
+FUSED_AB_ARMS = ("eager", "graphed", "eager")
 KERNEL_INFO = {
     "ln_residual_fwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:170"),
     "ln_residual_bwd": ("paddle_tpu_torch/csrc/ln_residual.cu", "paddle_tpu/ops/pallas_kernels.py:200"),
@@ -2688,6 +2712,8 @@ def profile_run(torch, what, run, card):
 # each training phase's arm records (train_arm), by phase: phase 42's long
 # arm prints its step beside phase 13's
 ARM_RECORDS = {}
+KEPT = {}  # train(keep=True): phase -> its first graphed arm's program, losses and state
+ARMS_BUILD_LOCK = threading.Lock()  # start_cpu_arms: one lane builds programs at a time
 
 # the kernels that replays ran on each path of the kernels line, by path: a
 # replay runs no wrapper, so hold_run_launches adds the graph's launches
@@ -2901,7 +2927,7 @@ def launches_of_program(main, loss):
 
 
 def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per_step,
-              launches, tokens, check_first_step=None, watch=()):
+              launches, tokens, check_first_step=None, watch=(), snapshot=None):
     """TRAIN_STEPS steps of `main` on one fixed `feed` through a fresh
     Executor(CUDAPlace(0)) and scope, eager or graphed (`arm`): every loss
     finite, the last below the first, each step's launches held
@@ -2910,7 +2936,9 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
     launch exactly `per_step`).  Returns the losses, the scope and the
     arm's record (warm step: the median of steps 3-6, past the warm-up and
     the capture).  The scope's scalar vars named in `watch` are printed
-    after each step and kept in the record."""
+    after each step and kept in the record.  `snapshot(losses, scope)`,
+    when given, is called after the TRAIN_STEPS steps, before the profiled
+    one."""
     import numpy as np
 
     exe = fluid.Executor(fluid.CUDAPlace(0), _graphs=arm == "graphed")
@@ -2942,6 +2970,8 @@ def train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss, feed, per
         if step == 0 and check_first_step is not None:
             check_first_step(scope, step)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if snapshot is not None:
+        snapshot(list(losses), scope)
     mon = read_monitor(f"{phase} {arm}", monitor_want(range(TRAIN_STEPS), arm == "graphed"), card)
     step = lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,  # noqa: E731
                            return_numpy=False)
@@ -2984,7 +3014,7 @@ def hold_graphed_repeat(phase, runs):
 
 def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch=32,
           per_step=PER_STEP, arms=("graphed",), clip_decay=False, optimizer=None,
-          score_dtype=None):
+          score_dtype=None, keep=False):
     """Phases 6, 12, 13 and 24: bf16 BERT-base (12 layers, dropout 0.1, Adam
     lr 1e-4) trains TRAIN_STEPS steps through Executor.run on cuda:0 on one
     fixed batch of `batch` x `seq_len`, with unfused attention (phase 6) or
@@ -2993,7 +3023,10 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     phase 12 with LAMB on its schedule, `optimizer`; 42: bf16 scores,
     `score_dtype`), once per arm of `arms` (train_arm; each arm's record
     kept in ARM_RECORDS[phase]).  Two graphed arms (the AB_ARMS of phases
-    12 and 24) must agree bit for bit.  Returns the launches counted."""
+    12 and 24) must agree bit for bit.  With `keep`, the first graphed
+    arm's program, feed, losses and every persistable after its steps (host
+    copies) are kept in KEPT[phase] (phase 75 holds its arms to them).
+    Returns the launches counted."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
@@ -3019,9 +3052,17 @@ def train(fluid, torch, ck, card, phase="train", fused=False, seq_len=128, batch
     ck.reset_launches()  # the main path's count starts here
     graphed = []
     for arm in arms:
+        snapshot = None
+        if keep and arm == "graphed" and phase not in KEPT:
+            def snapshot(losses, scope):
+                KEPT[phase] = {"program": (main, startup, loss, feed), "losses": losses,
+                               "state": {n: scope.find_var(n).detach().cpu()
+                                         for n in scope.local_var_names()
+                                         if isinstance(scope.find_var(n), torch.Tensor)}}
         losses, scope, rec = train_arm(fluid, torch, ck, card, phase, arm, main, startup, loss,
                                        feed, per_step, launches,
-                                       {"sequences": batch, "tokens": batch * seq_len})
+                                       {"sequences": batch, "tokens": batch * seq_len},
+                                       snapshot=snapshot)
         ARM_RECORDS.setdefault(phase, []).append(rec)
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{phase} {arm}: the loss did not fall: {losses}")
@@ -3050,7 +3091,10 @@ def parity_runs(fluid, main, loss, state, feed, steps=PARITY_STEPS, arms=None, a
     runs = []
     for i, (place, graphs, program) in enumerate(arms):
         scope = fluid.Scope()
-        fluid.io.load_numpy_params(scope, state, device=place.device)
+        # a CPU tensor made from an array shares its memory: the steps must
+        # not write into `state`, which the other arms start from
+        fluid.io.load_numpy_params(scope, state if place.device.type != "cpu" else {
+            n: np.array(a, copy=True) for n, a in state.items()}, device=place.device)
         exe = fluid.Executor(place, _graphs=graphs)
         is_reference = reference and i == len(arms) - 1
         losses = []
@@ -3136,6 +3180,13 @@ def train_parity_cpu(fluid, setup):
     """The CPU arm of train_parity from `setup`: ([(losses, scope)], near_zero)."""
     main, loss, state, feed = setup
     return parity_runs(fluid, main, loss, state, feed, arms=((fluid.CPUPlace(), True, main),))
+
+
+def train_parity_arm(fluid, fused=False, seq_len=128, batch=2):
+    """train_parity_setup and its CPU arm, for start_cpu_arms: (setup, cpu)."""
+    with ARMS_BUILD_LOCK:
+        setup = train_parity_setup(fluid, fused, seq_len, batch)
+    return setup, train_parity_cpu(fluid, setup)
 
 
 def train_parity(fluid, torch, phase="train_parity", fused=False, seq_len=128, batch=2,
@@ -3354,11 +3405,36 @@ def resnet_train(fluid, torch, ck, card, phase="resnet_train", optimizer=None, a
     return launches
 
 
-def resnet_train_parity(fluid, torch, optimizer=None):
+def resnet_parity_cpu(fluid, optimizer=None):
+    """Phase 11's CPU side: its program, and the CPU's PARITY_STEPS
+    Momentum steps (LARS with `optimizer`) from its startup, the state
+    before each and after the last kept (numpy): (main, loss, names, stats,
+    params, feed, states, cpu losses)."""
+    with ARMS_BUILD_LOCK:
+        main, startup, fetches = build_resnet(fluid, "float32", with_optimizer=True,
+                                              learning_rate=RESNET_PARITY_LR, optimizer=optimizer)
+    loss = fetches["loss"].name
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
+    params = {p.name for p in main.all_parameters() if p.trainable}
+    feed = images(8, 60)
+    states, losses = [{n: cpu.to_numpy(n).copy() for n in names}], []
+    for _ in range(PARITY_STEPS):
+        losses.append(float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=cpu)[0].reshape(-1)[0]))
+        states.append({n: cpu.to_numpy(n).copy() for n in names})
+    return main, loss, names, stats, params, feed, states, losses
+
+
+def resnet_train_parity(fluid, torch, optimizer=None, cpu=None):
     """Phase 11: float32 ResNet-50 (batch 8, lr RESNET_PARITY_LR) takes
-    PARITY_STEPS Momentum steps (phase 40: LARS, `optimizer`) on the CPU;
-    before each, the CPU's state is
-    loaded on the card, which takes the same step.  Batch statistics make a
+    PARITY_STEPS Momentum steps (phase 40: LARS, `optimizer`) on the CPU
+    (resnet_parity_cpu; `cpu`, where start_cpu_arms ran it); the CPU's state
+    before each is loaded on the card, which takes the same step.  Batch
+    statistics make a
     ResNet-50's gradients at initialization explode with depth, so two
     implementations that round differently agree on single gradient
     elements only to tens of percent (a 1e-6 perturbation of the images moves
@@ -3372,29 +3448,22 @@ def resnet_train_parity(fluid, torch, optimizer=None):
     scores >= 1; a velocity that lost its momentum ~0.5 or more."""
     import numpy as np
 
-    main, startup, fetches = build_resnet(fluid, "float32", with_optimizer=True,
-                                          learning_rate=RESNET_PARITY_LR, optimizer=optimizer)
-    loss = fetches["loss"].name
-    cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
-    cpu = fluid.Scope()
-    cpu_exe.run(startup, scope=cpu)
-    names = sorted(v.name for v in main.list_vars() if v.persistable)
-    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
-    params = {p.name for p in main.all_parameters() if p.trainable}
-    feed = images(8, 60)
+    main, loss, names, stats, params, feed, states, cpu_losses = (
+        cpu or resnet_parity_cpu(fluid, optimizer))
+    gpu_exe = fluid.Executor(fluid.CUDAPlace(0))
     worst = {"loss": 0.0, "stat": (0.0, ""), "velocity": (0.0, ""), "update": (0.0, "")}
     cosines, losses = [], []
     for step in range(PARITY_STEPS):
-        state = {n: cpu.to_numpy(n) for n in names}
+        state, after = states[step], states[step + 1]
         gpu = fluid.Scope()
         fluid.io.load_numpy_params(gpu, state, device="cuda:0")
         gl = float(gpu_exe.run(main, feed=feed, fetch_list=[loss], scope=gpu)[0].reshape(-1)[0])
-        cl = float(cpu_exe.run(main, feed=feed, fetch_list=[loss], scope=cpu)[0].reshape(-1)[0])
+        cl = cpu_losses[step]
         losses.append((gl, cl))
         worst["loss"] = max(worst["loss"], abs(gl - cl) / max(1.0, abs(cl)))
         dot = ng = nc = 0.0
         for n in names:
-            got, want, before = gpu.to_numpy(n), cpu.to_numpy(n), state[n]
+            got, want, before = gpu.to_numpy(n), after[n], state[n]
             if n in stats:
                 moved = float(np.abs(want - before).max())
                 share = float(np.abs(got - want).max()) / max(moved, 1e-30)
@@ -3770,16 +3839,15 @@ def nmt_train(fluid, torch, ck, card):
     return launches, f32_scope
 
 
-def nmt_train_parity(fluid, torch):
-    """Phase 18: float32 NMT at full width, 2 + 2 layers, dropout 0, trains
-    PARITY_STEPS Adam steps on the noam schedule on 4 ragged pairs, on the
-    card and on the CPU from one numpy state (LN gains 1), held by
-    hold_parity; the step counter and every beta pow must be equal.  Returns
-    the CPU's state after the steps."""
+def nmt_parity_arm(fluid):
+    """Phase 18's program, numpy state (LN gains 1) and feed, and its CPU
+    arm, for start_cpu_arms: ((main, loss, state, feed), (cpu run,
+    near_zero))."""
     import numpy as np
     from paddle_tpu_torch.models import nmt
 
-    main, startup, loss = build_nmt(fluid, "float32", n_layers=2, dropout=0.0)
+    with ARMS_BUILD_LOCK:
+        main, startup, loss = build_nmt(fluid, "float32", n_layers=2, dropout=0.0)
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     state = {v.name: init.to_numpy(v.name) for v in main.list_vars() if v.persistable}
@@ -3787,7 +3855,24 @@ def nmt_train_parity(fluid, torch):
         if name.endswith(".ln.w"):
             state[name] = np.ones_like(state[name])
     feed = nmt.make_fake_nmt_batch([23, 41, 9, 60], [30, 12, 55, 37], 8000, 8000, seed=1)
-    runs, near_zero = parity_runs(fluid, main, loss, state, feed)
+    (cpu_run,), near_zero = parity_runs(fluid, main, loss, state, feed,
+                                        arms=((fluid.CPUPlace(), True, main),))
+    return (main, loss, state, feed), (cpu_run, near_zero)
+
+
+def nmt_train_parity(fluid, torch, arm=None):
+    """Phase 18: float32 NMT at full width, 2 + 2 layers, dropout 0, trains
+    PARITY_STEPS Adam steps on the noam schedule on 4 ragged pairs, on the
+    card and on the CPU from one numpy state (LN gains 1), held by
+    hold_parity; the step counter and every beta pow must be equal.  `arm`
+    is nmt_parity_arm's, where start_cpu_arms ran it.  Returns the CPU's
+    state after the steps."""
+    import numpy as np
+
+    (main, loss, state, feed), (cpu_run, near_zero) = arm or nmt_parity_arm(fluid)
+    (card_run,), _ = parity_runs(fluid, main, loss, state, feed, reference=False,
+                                 arms=((fluid.CUDAPlace(0), True, main),))
+    runs = [card_run, cpu_run]
     # the noam lr of the last step, the largest: the counter reads PARITY_STEPS - 1
     n = PARITY_STEPS - 1
     lr = NMT["learning_rate"] * NMT["d_model"] ** -0.5 * min(n ** -0.5,
@@ -4154,19 +4239,16 @@ def remat_parity(fluid, torch, card):
                 runs, near_zero, state, LR)
 
 
-def train_clipped_parity(fluid, torch, card):
-    """Phase 25: float32 BERT-base (2 layers, fused attention, dropout 0) with
-    L2Decay and the global-norm clip, PARITY_STEPS Adam steps on the card and
-    on the CPU from one numpy state, held by hold_parity (phase 7's
-    tolerances); the gradients' global norm is fetched every step and must
-    exceed CLIP_NORM at some step, so that the clip scales.  Then the
-    fit-a-line program: FIT_A_LINE_STEPS SGD steps on the card and on the
-    CPU from one state, the loss falls and the two agree within
-    FIT_A_LINE_TOL of max(1, |loss|) at every step."""
+def clipped_parity_arm(fluid):
+    """Phase 25's BERT program, numpy state (LN gains 1), feed and the
+    global norm's var, and its CPU arm (with the norm each step), for
+    start_cpu_arms: ((main, loss, state, feed, norm), (cpu run, near_zero,
+    norms))."""
     import numpy as np
     from paddle_tpu_torch.models.transformer import make_fake_batch
 
-    main, startup, loss = build_train(fluid, "float32", 2, 0.0, 128, True, clip_decay=True)
+    with ARMS_BUILD_LOCK:
+        main, startup, loss = build_train(fluid, "float32", 2, 0.0, 128, True, clip_decay=True)
     norm = global_norm_name(main)
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
@@ -4176,8 +4258,30 @@ def train_clipped_parity(fluid, torch, card):
             state[name] = np.ones_like(state[name])
     feed = make_fake_batch(2, 128, 30522, rng=np.random.RandomState(1))
     seen = {}
-    runs, near_zero = parity_runs(fluid, main, loss, state, feed, also=[norm], seen=seen)
-    norms = {"card": [v[0] for v in seen[0]], "cpu": [v[0] for v in seen[1]]}
+    (cpu_run,), near_zero = parity_runs(fluid, main, loss, state, feed, also=[norm], seen=seen,
+                                        arms=((fluid.CPUPlace(), True, main),))
+    return (main, loss, state, feed, norm), (cpu_run, near_zero, [v[0] for v in seen[0]])
+
+
+def train_clipped_parity(fluid, torch, card, arm=None):
+    """Phase 25: float32 BERT-base (2 layers, fused attention, dropout 0) with
+    L2Decay and the global-norm clip, PARITY_STEPS Adam steps on the card and
+    on the CPU from one numpy state, held by hold_parity (phase 7's
+    tolerances); the gradients' global norm is fetched every step and must
+    exceed CLIP_NORM at some step, so that the clip scales.  Then the
+    fit-a-line program: FIT_A_LINE_STEPS SGD steps on the card and on the
+    CPU from one state, the loss falls and the two agree within
+    FIT_A_LINE_TOL of max(1, |loss|) at every step.  `arm` is
+    clipped_parity_arm's, where start_cpu_arms ran it."""
+    import numpy as np
+
+    (main, loss, state, feed, norm), (cpu_run, near_zero, cpu_norms) = (
+        arm or clipped_parity_arm(fluid))
+    seen = {}
+    (card_run,), _ = parity_runs(fluid, main, loss, state, feed, reference=False, also=[norm],
+                                 seen=seen, arms=((fluid.CUDAPlace(0), True, main),))
+    runs = [card_run, cpu_run]
+    norms = {"card": [v[0] for v in seen[0]], "cpu": cpu_norms}
     hold_parity({"phase": "train_clipped_parity", "model": "bert-base f32, 2 layers, fused "
                  f"attention, dropout 0, L2Decay({WEIGHT_DECAY}), "
                  f"GradientClipByGlobalNorm({CLIP_NORM})", "batch": 2, "seq_len": 128,
@@ -6536,36 +6640,39 @@ def amp_bert_setup(fluid):
     return main, loss, found, names, state, feed
 
 
-def start_cpu_arms(jobs):
-    """Run each (name, fn) of `jobs` in turn on one thread of its own and
-    keep what fn returns under its name.  The CPU arms of phases 14 and 55
-    need no kernel and take a minute and more on the card's host (its
-    float16 products above all), so main() starts them before the kernels'
-    build and joins them after phase 3, whose device times CUDA events take
-    behind a backed-up stream.  Returns the handle join_cpu_arms takes."""
-    import threading
+def start_cpu_arms(lanes):
+    """Run each lane of `lanes` (a list of (name, fn) jobs) on a thread of
+    its own, its jobs in turn, and keep what fn returns under its name.
+    The CPU arms of phases 7, 11, 14, 18, 25 and 55 need no kernel and take
+    a minute and more on the card's host (its float16 products above all),
+    so main() starts them before the kernels' build and joins them after
+    phase 3, whose device times CUDA events take behind a backed-up stream.
+    Program builds set process-wide defaults, so a job builds only under
+    ARMS_BUILD_LOCK.  Returns the handle join_cpu_arms takes."""
+    handle = {"results": {}, "seconds": {}, "threads": [], "lanes": lanes}
 
-    handle = {"results": {}, "seconds": {}}
-
-    def run():
+    def run(jobs):
         for name, fn in jobs:
             t0 = time.perf_counter()
             try:
                 handle["results"][name] = fn()
             except BaseException as e:  # raised again by join_cpu_arms
-                handle["error"] = e
+                handle.setdefault("error", e)
                 return
             finally:
                 handle["seconds"][name] = time.perf_counter() - t0
 
-    handle["thread"] = threading.Thread(target=run, name="cpu_arms", daemon=True)
-    handle["thread"].start()
+    for i, jobs in enumerate(lanes):
+        t = threading.Thread(target=run, args=(jobs,), name=f"cpu_arms{i}", daemon=True)
+        handle["threads"].append(t)
+        t.start()
     return handle
 
 
 def join_cpu_arms(handle):
-    """Wait for the thread of start_cpu_arms; raise what a job raised."""
-    handle["thread"].join()
+    """Wait for the threads of start_cpu_arms; raise what a job raised."""
+    for t in handle["threads"]:
+        t.join()
     if "error" in handle:
         raise handle["error"]
     return handle
@@ -6656,13 +6763,63 @@ def amp_float32_errors(after, truth, before, stats, params):
     return {k: math.sqrt(d / max(b, 1e-30)) for k, (d, b) in sums.items()}
 
 
-def amp_resnet_parity(fluid, torch):
+def amp_resnet_take(fluid, exe, progs, names, key, state, device, batch):
+    """One step of phase 55's program `key` from the numpy `state` on
+    `device`: (the persistables after it, the loss, the overflow flag)."""
+    import numpy as np
+
+    prog, _, fetches = progs[key]
+    state = {n: a.astype(np.float32) if key == "float32" and a.dtype == np.float16
+             else np.array(a, copy=True) for n, a in state.items()}
+    scope = fluid.Scope()
+    fluid.io.load_numpy_params(scope, state, device=device)
+    out = exe.run(prog, feed=batch, fetch_list=[fetches["loss"].name,
+                                                fetches["found_inf"].name], scope=scope)
+    return ({n: scope.to_numpy(n).copy() for n in names}, float(out[0].reshape(-1)[0]),
+            bool(out[1].reshape(-1)[0]))
+
+
+def amp_resnet_cpu(fluid):
+    """Phase 55's ResNet programs and its CPU side (start_cpu_arms runs it):
+    AMP_RESNET_STEPS float16 steps on the CPU, and before each its state and
+    the same step in float32 on the CPU.  Returns (progs, names, stats,
+    params, feed, [(state, cpu float16 step, cpu float32 step)] a step)."""
+    import numpy as np
+
+    size, lr = AMP_RESNET_PARITY["size"], RESNET_PARITY_LR
+    amp = dict(AMP_DEFAULTS, init_loss_scaling=AMP_RESNET_PARITY["scale"])
+    with ARMS_BUILD_LOCK:
+        progs = {key: build_resnet(fluid, dtype, True, lr, amp=amp, size=size, momentum=mu)
+                 for key, dtype, mu in (("float16", "float16", 0.9), ("float32", "float32", 0.9),
+                                        ("half_momentum", "float16", 0.45))}
+    main, startup, fetches = progs["float16"]
+    fetch = [fetches["loss"].name, fetches["found_inf"].name]
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = fluid.Scope()
+    cpu_exe.run(startup, scope=cpu)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
+    params = {p.name for p in main.all_parameters() if p.trainable}
+    feed = images(8, 60, size)
+    steps = []
+    for _ in range(AMP_RESNET_STEPS):
+        state = {n: cpu.to_numpy(n).copy() for n in names}
+        out = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu)
+        host = ({n: cpu.to_numpy(n).copy() for n in names}, float(out[0].reshape(-1)[0]),
+                bool(out[1].reshape(-1)[0]))
+        truth = amp_resnet_take(fluid, cpu_exe, progs, names, "float32", state, "cpu", feed)
+        steps.append((state, host, truth))
+    return progs, names, stats, params, feed, steps
+
+
+def amp_resnet_parity(fluid, torch, cpu=None):
     """Phase 55, ResNet-50: float16 under decorate(Momentum(RESNET_PARITY_LR,
     0.9)) from AMP_RESNET_PARITY's scale at its image size, batch 8,
-    AMP_RESNET_STEPS steps on the CPU; before each, the CPU's state is
-    loaded on the card, which takes the same step, and the same step is
-    taken in float32 on the CPU (the program built in float32, the state
-    cast).  Every step applies on all sides, the AMP vars equal exactly, the
+    AMP_RESNET_STEPS steps on the CPU, each also taken in float32 on the
+    CPU from the same state (the program built in float32, the state cast)
+    (amp_resnet_cpu; `cpu`, where start_cpu_arms ran it); the CPU's state
+    before each step is loaded on the card, which takes the same step.
+    Every step applies on all sides, the AMP vars equal exactly, the
     losses within AMP_RESNET_LOSS, and the card's float16 error from the
     float32 step at most AMP_RESNET_RATIO times the CPU's
     (amp_float32_errors); from AMP_RESNET_CONTROLS_FROM on, the card's step
@@ -6670,46 +6827,19 @@ def amp_resnet_parity(fluid, torch):
     break that rule."""
     import numpy as np
 
+    progs, names, stats, params, feed, steps = cpu or amp_resnet_cpu(fluid)
     size, lr = AMP_RESNET_PARITY["size"], RESNET_PARITY_LR
-    amp = dict(AMP_DEFAULTS, init_loss_scaling=AMP_RESNET_PARITY["scale"])
-    progs = {key: build_resnet(fluid, dtype, True, lr, amp=amp, size=size, momentum=mu)
-             for key, dtype, mu in (("float16", "float16", 0.9), ("float32", "float32", 0.9),
-                                    ("half_momentum", "float16", 0.45))}
-    main, startup, fetches = progs["float16"]
-    fetch = [fetches["loss"].name, fetches["found_inf"].name]
-    cpu_exe, gpu_exe = fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0))
-    cpu = fluid.Scope()
-    cpu_exe.run(startup, scope=cpu)
-    names = sorted(v.name for v in main.list_vars() if v.persistable)
-    stats = {op.input(s)[0] for op in bn_ops(main) for s in ("Mean", "Variance")}
-    params = {p.name for p in main.all_parameters() if p.trainable}
-    feed = images(8, 60, size)
+    gpu_exe = fluid.Executor(fluid.CUDAPlace(0))
     half = {k: v[:4] for k, v in feed.items()}
 
-    def take(exe, key, state, device, batch):
-        """One step of program `key` from `state` on `device`: (the
-        persistables after it, the loss, the overflow flag)."""
-        prog, _, fetches = progs[key]
-        if key == "float32":
-            state = {n: a.astype(np.float32) if a.dtype == np.float16 else a
-                     for n, a in state.items()}
-        scope = fluid.Scope()
-        fluid.io.load_numpy_params(scope, state, device=device)
-        out = exe.run(prog, feed=batch, fetch_list=[fetches["loss"].name,
-                                                    fetches["found_inf"].name], scope=scope)
-        return ({n: scope.to_numpy(n) for n in names}, float(out[0].reshape(-1)[0]),
-                bool(out[1].reshape(-1)[0]))
+    def take(key, state, batch):
+        return amp_resnet_take(fluid, gpu_exe, progs, names, key, state, "cuda:0", batch)
 
     ratio = AMP_RESNET_RATIO
     worst = {"loss": 0.0, "ratio": (0.0, "", -1)}
     records = []
-    for step in range(AMP_RESNET_STEPS):
-        state = {n: cpu.to_numpy(n) for n in names}
-        card = take(gpu_exe, "float16", state, "cuda:0", feed)
-        out = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu)
-        host = ({n: cpu.to_numpy(n) for n in names}, float(out[0].reshape(-1)[0]),
-                bool(out[1].reshape(-1)[0]))
-        truth = take(cpu_exe, "float32", state, "cpu", feed)
+    for step, (state, host, truth) in enumerate(steps):
+        card = take("float16", state, feed)
         if card[2] or host[2] or truth[2]:
             raise AssertionError(f"amp_resnet_parity step {step}: an overflow (card {card[2]}, "
                                  f"cpu {host[2]}, cpu float32 {truth[2]}): nothing to compare")
@@ -6721,11 +6851,10 @@ def amp_resnet_parity(fluid, torch):
         err = {"cpu": amp_float32_errors(host[0], truth[0], state, stats, params),
                "card": amp_float32_errors(card[0], truth[0], state, stats, params)}
         if step >= AMP_RESNET_CONTROLS_FROM:
-            err["half_batch"] = amp_float32_errors(take(gpu_exe, "float16", state, "cuda:0",
-                                                        half)[0], truth[0], state, stats, params)
+            err["half_batch"] = amp_float32_errors(take("float16", state, half)[0], truth[0],
+                                                   state, stats, params)
             err["half_momentum"] = amp_float32_errors(
-                take(gpu_exe, "half_momentum", state, "cuda:0", feed)[0], truth[0], state,
-                stats, params)
+                take("half_momentum", state, feed)[0], truth[0], state, stats, params)
             err["frozen"] = amp_float32_errors(state, truth[0], state, stats, params)
         ratios = {run: {k: e[k] / max(err["cpu"][k], 1e-30) for k in e}
                   for run, e in err.items() if run != "cpu"}
@@ -9215,7 +9344,9 @@ def plan_cost_programs(fluid):
 
     exe = fluid.Executor(fluid.CPUPlace())
     plans = {}
-    for name, phase, main, feed, fetches in cost_programs(fluid):
+    with ARMS_BUILD_LOCK:
+        programs = cost_programs(fluid)
+    for name, phase, main, feed, fetches in programs:
         shapes = {n: tuple(t.shape) for n, t in exe._feeds(main.global_block(), feed, 1).items()}
         t0 = time.perf_counter()
         plan = rp.plan_program(main, shapes, fetches)
@@ -9417,6 +9548,367 @@ def precheck_phase(fluid, torch, card, plans, totals):
     return rec, rec2, rec3
 
 
+DP_GANG_RANKS = 2
+DP_GANG_TIMEOUT_S = 420
+DP_PARITY = (128, 8)  # phase 76's f32 parity arm: (seq_len, global batch)
+
+
+def device_digest(torch, t):
+    """Two int64 sums over a tensor's bits on the card, plain and
+    position-weighted: equal tensors give equal digests, and a changed
+    element changes both but for an adversarial pattern."""
+    w = t.detach().contiguous().reshape(-1)
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[w.element_size()]
+    w = w.view(width).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+def state_digests(torch, scope, names):
+    return {n: device_digest(torch, scope.find_var(n)) for n in sorted(names)
+            if isinstance(scope.find_var(n), torch.Tensor)}
+
+
+def dp_world1(fluid, torch, ck, card):
+    """Phase 75: phase 12's program (bf16 BERT-base, fused attention, 32 x
+    128, dropout 0.1, Adam 1e-4) through CompiledProgram.with_data_parallel,
+    then with_grad_overlap(mode="serial") and mode="bucketed", at world size
+    1: each arm TRAIN_STEPS steps, graphed from its second run, FUSED_PER_STEP
+    launches a step, every loss and every persistable bit for bit phase 12's
+    first graphed arm's (same weights, same generator state).  Returns the
+    launches counted."""
+    kept = KEPT["train_fused"]
+    main, startup, loss, feed = kept["program"]
+    plain = next(r for r in ARM_RECORDS["train_fused"] if r["arm"] == "graphed")
+    launches = dict(NONE)
+    for arm in ("with_data_parallel", "serial", "bucketed"):
+        compiled = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss)
+        if arm != "with_data_parallel":
+            compiled = compiled.with_grad_overlap(mode=arm)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        losses, step_ms = [], []
+        for step in range(TRAIN_STEPS):
+            before = dict(ck.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope,
+                             return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(-1)[0]))
+            delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+            add_launches(launches, delta)
+            hold_run_launches(exe, step, delta, FUSED_PER_STEP, f"dp_world1 {arm}", "dp_world1")
+        plan = exe.last_plan
+        differ = [n for n, t in kept["state"].items()
+                  if not torch.equal(scope.find_var(n).detach().cpu(), t)]
+        record = {"phase": "dp_world1", "arm": arm, "losses": losses,
+                  "plain_losses": kept["losses"], "graphed": plan.graphed,
+                  "gang": plan.gang is not None, "persistables": len(kept["state"]),
+                  "persistables_that_differ": differ[:8],
+                  "bitwise_equal": losses == kept["losses"] and not differ,
+                  "warm_step_ms": statistics.median(step_ms[2:]),
+                  "plain_warm_step_ms": plain["warm_step_ms"], "step_ms": step_ms, "card": card}
+        emit(record)
+        if not (record["bitwise_equal"] and plan.graphed and plan.gang is None):
+            raise AssertionError(f"dp_world1 {arm}: not phase 12's plain graphed run: {record}")
+        del scope, exe
+    KEPT.pop("train_fused")
+    return launches
+
+
+def dp_gang_start(tmp):
+    """Start phase 76's gang: launch.run_gang of DP_GANG_RANKS ranks, each
+    this script with --dp-rank (dp_rank_main), on a thread of this process.
+    The ranks start up (imports, the rendezvous, the kernel library this
+    process built), build their programs and their CPU setups, then wait
+    for dp_gang_card's go before they use the card, so main() starts them
+    before phase 75, whose graphed steps leave the host idle.  Returns the
+    handle dp_gang_card and dp_gang_stop take."""
+    from paddle_tpu_torch import _build, launch
+
+    lib = _build.lib_path(_build.source_hash())
+    if not os.path.exists(lib):
+        raise AssertionError(f"dp_gang_card: the kernel library {lib} is not built")
+    d = tempfile.mkdtemp(dir=tmp)
+    handle = {"dir": d, "go": os.path.join(d, "go"), "t0": time.time()}
+
+    def run():
+        handle["result"] = launch.run_gang(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", d], DP_GANG_RANKS,
+            max_restarts=0, timeout=DP_GANG_TIMEOUT_S, peer_grace_s=5.0,
+            extra_env={"PADDLE_DP_SPAWN_T": repr(handle["t0"]), "PADDLE_DP_GO": handle["go"]})
+
+    handle["thread"] = threading.Thread(target=run, name="dp_gang", daemon=True)
+    handle["thread"].start()
+    return handle
+
+
+def dp_gang_signal(handle, word):
+    """Tell the waiting ranks to go on ("go") or to exit ("abort")."""
+    tmp_go = handle["go"] + ".tmp"
+    with open(tmp_go, "w") as f:
+        f.write(word)
+    os.replace(tmp_go, handle["go"])
+
+
+def dp_gang_stop(handle):
+    """Abort a gang dp_gang_card never ran (main() failed before phase 76):
+    the ranks exit, run_gang reaps them."""
+    if handle is not None and handle["thread"].is_alive():
+        dp_gang_signal(handle, "abort")
+        handle["thread"].join(DP_GANG_TIMEOUT_S)
+
+
+def dp_gang_card(fluid, torch, ck, card, handle):
+    """Phase 76: dp_gang_start's gang of DP_GANG_RANKS ranks on the one
+    card, over gloo with CUDA tensors, told to go on here (dp_rank_main).
+    The ranks load the kernel library this process built (not building it,
+    nor taking its lock).  A rank whose checks fail exits non-zero and the
+    phase fails.  Here: both ranks' records agree (the parameters before the
+    first step, the losses, every persistable after the last, by
+    device_digest), and the gang's numbers are printed.  Returns the
+    launches both ranks counted."""
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks' allocations
+    t0 = time.time()
+    dp_gang_signal(handle, "go")
+    handle["thread"].join(DP_GANG_TIMEOUT_S)
+    res = handle.get("result")
+    if res is None:
+        raise AssertionError("dp_gang_card: the gang did not finish")
+    gang_s = time.time() - t0
+    d = handle["dir"]
+    for r, (code, out, err) in enumerate(res.workers):
+        emit({"phase": "dp_gang_card", "rank": r, "returncode": code,
+              "stdout_tail": out[-1500:], "stderr_tail": err[-3000:] if code else err[-300:]})
+    if not res.ok:
+        raise AssertionError(f"dp_gang_card: the gang failed: exit codes "
+                             f"{[w[0] for w in res.workers]}")
+    recs = []
+    for r in range(DP_GANG_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    for key in ("params_before", "losses", "state_after", "parity_losses", "bn"):
+        if any(rec[key] != recs[0][key] for rec in recs[1:]):
+            raise AssertionError(f"dp_gang_card: the ranks' {key} differ")
+    launches = dict(NONE)
+    for rec in recs:
+        add_launches(launches, rec["launches"])
+    full = recs[0]
+    emit({"phase": "dp_gang_card", "ranks": DP_GANG_RANKS, "backend": full["backend"],
+          "model": "bert-base bf16, fused attention, dropout 0.1, Adam lr 1e-4",
+          "global_batch": 32, "seq_len": 128, "rows_a_rank": 32 // DP_GANG_RANKS,
+          "losses": full["losses"], "warm_step_ms": [rec["warm_step_ms"] for rec in recs],
+          "tokens_per_s": 32 * 128 / max(rec["warm_step_ms"] for rec in recs) * 1e3,
+          "sync_ms": [rec["sync_ms"] for rec in recs], "sync_bytes": full["sync_bytes"],
+          "graph_refusal": full["graph_refusal"],
+          "start_up_s": [rec["start_up_s"] for rec in recs],
+          "library_load_s": [rec["library_load_s"] for rec in recs],
+          "rank_seconds": [rec["seconds"] for rec in recs],
+          "gang_s_from_go": gang_s, "persistables_equal_across_ranks": len(full["state_after"]),
+          "card": card})
+    return launches
+
+
+def dp_rank_main(d):
+    """One rank of phase 76's gang: bring the gang up (gloo: the ranks share
+    the one card), load the kernel library the parent built, then
+      * full width: phase 12's bf16 BERT-base, global batch 32 x 128, this
+        rank's 16 rows, TRAIN_STEPS steps of with_data_parallel: parameters'
+        digests before step 1, finite losses falling, FUSED_PER_STEP
+        launches a step, the graph refused with the gang's reason;
+      * parity: f32 BERT, 2 layers, fused, DP_PARITY, dropout 0,
+        PARITY_STEPS Adam steps in each mode (plain, serial, bucketed), held
+        by phase 7's rule (hold_parity) against this process's world-size-1
+        run of the global batch; serial and bucketed bit for bit;
+      * batch norm: a small f32 conv + batch-norm net, one SGD step: the
+        gang's batch statistics and running statistics (plain) within 1e-5
+        of max(1, |ref|) of the world-size-1 run on the global batch, and
+        (with_grad_overlap) the running statistics the mean of the two
+        one-shard runs'.
+    Writes rank<r>.json under `d`; any failed check raises (exit non-zero)."""
+    spawn_t = float(os.environ["PADDLE_DP_SPAWN_T"])
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.models.transformer import make_fake_batch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_distributed()
+    rank, world = dist.trainer_id(), dist.num_trainers()
+    if not os.path.exists(_build.lib_path(_build.source_hash())):
+        raise AssertionError("the kernel library is not built: a rank must not build it")
+    t0 = time.perf_counter()
+    _build.library()
+    rec = {"rank": rank, "world": world, "backend": dist.backend(),
+           "library_load_s": time.perf_counter() - t0, "start_up_s": time.time() - spawn_t}
+    seconds = rec["seconds"] = {}
+    place = fluid.CUDAPlace(0)
+
+    def shard(feed, n):
+        per = n // world
+        return {k: v[rank * per:(rank + 1) * per] for k, v in feed.items()}
+
+    # the programs and the CPU setups, while the parent's phase 75 runs
+    t0 = time.perf_counter()
+    main, startup, loss = build_train(fluid, "bfloat16", 12, 0.1, 128, True)
+    derived = launches_of_program(main, loss)
+    if derived != FUSED_PER_STEP:
+        raise AssertionError(f"the program's kernel ops {derived} != the reckoned {FUSED_PER_STEP}")
+    feed = shard(make_fake_batch(32, 128, 30522, rng=np.random.RandomState(0)), 32)
+    seq, batch = DP_PARITY
+    pmain, ploss, state, gfeed = train_parity_setup(fluid, True, seq, batch)
+    seconds["programs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    go = os.environ["PADDLE_DP_GO"]
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > DP_GANG_TIMEOUT_S:
+            raise AssertionError(f"rank {rank}: no go from the parent in {DP_GANG_TIMEOUT_S} s")
+        time.sleep(0.05)
+    with open(go) as f:
+        if f.read() != "go":
+            return 3  # the parent failed before phase 76
+    seconds["waited_for_go"] = time.perf_counter() - t0
+
+    # full width
+    t0 = time.perf_counter()
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.all_parameters()]
+    rec["params_before"] = state_digests(torch, scope, params)
+    compiled = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss)
+    losses, step_ms, sync_ms, launches = [], [], [], dict(NONE)
+    for step in range(TRAIN_STEPS):
+        before = dict(ck.LAUNCHES)
+        t1 = time.perf_counter()
+        (out,) = exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        add_launches(launches, delta)
+        hold_run_launches(exe, step, delta, FUSED_PER_STEP, f"dp_gang_card rank {rank}")
+        sync_ms.append(exe.last_plan.grad_sync.last_ms)
+    plan = exe.last_plan
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"rank {rank}: losses {losses}")
+    if plan.graphed or not (plan.graph_refusal or "").startswith("a gang step"):
+        raise AssertionError(f"rank {rank}: the gang's plan was not refused its graph: "
+                             f"{plan.graph_refusal}")
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    rec.update(losses=losses, launches=launches, step_ms=step_ms,
+               warm_step_ms=statistics.median(step_ms[2:]),
+               sync_ms=statistics.median(sync_ms[2:]), sync_bytes=plan.grad_sync.last_bytes,
+               graph_refusal=plan.graph_refusal,
+               state_after=state_digests(torch, scope, persist))
+    del scope, exe, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["full_width"] = time.perf_counter() - t0
+
+    # parity: the gang against one process's world-size-1 run of the global batch
+    t0 = time.perf_counter()
+    (ref_run,), near_zero = parity_runs(fluid, pmain, ploss, state, gfeed,
+                                        arms=((place, True, pmain),))
+    runs = {}
+    for mode in ("plain", "serial", "bucketed"):
+        compiled = fluid.CompiledProgram(pmain).with_data_parallel(loss_name=ploss)
+        if mode != "plain":
+            compiled = compiled.with_grad_overlap(mode=mode)
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, state, device=place.device)
+        exe = fluid.Executor(place)
+        mode_losses = [float(exe.run(compiled, feed=shard(gfeed, batch), fetch_list=[ploss],
+                                     scope=scope)[0].reshape(-1)[0])
+                       for _ in range(PARITY_STEPS)]
+        runs[mode] = (mode_losses, scope)
+        hold_parity({"phase": "dp_gang_card parity", "rank": rank, "mode": mode,
+                     "model": "bert-base f32, 2 layers, dropout 0, fused attention",
+                     "batch": batch, "seq_len": seq,
+                     "card_is": f"the gang ({world} ranks, {mode})",
+                     "cpu_is": "one process of the global batch at world size 1, on the card"},
+                    [runs[mode], ref_run], near_zero, state, LR)
+    (sl, ss), (bl, bs) = runs["serial"], runs["bucketed"]
+    differ = [n for n in state if not torch.equal(ss.find_var(n), bs.find_var(n))]
+    if sl != bl or differ:
+        raise AssertionError(f"rank {rank}: serial and bucketed differ: {sl} / {bl}, {differ[:8]}")
+    rec["parity_losses"] = {m: r[0] for m, r in runs.items()}
+    del runs, ss, bs, ref_run
+    gc.collect()
+    seconds["parity"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rec["bn"] = dp_gang_bn(fluid, torch, place, rank, world)
+    seconds["bn"] = time.perf_counter() - t0
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    print(json.dumps({"dp_rank": rank, "warm_step_ms": rec["warm_step_ms"],
+                      "sync_ms": rec["sync_ms"], "start_up_s": rec["start_up_s"]}), flush=True)
+    return 0
+
+
+def dp_gang_bn(fluid, torch, place, rank, world):
+    """Phase 76's batch-norm check (see dp_rank_main); returns the gang's
+    statistics as lists."""
+    import numpy as np
+
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 13
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", [3, 8, 8], dtype="float32")
+            y = fluid.layers.data("y", [1], dtype="float32")
+            c = fluid.layers.batch_norm(fluid.layers.conv2d(img, 4, 3, padding=1))
+            loss = fluid.layers.mean(fluid.layers.square_error_cost(fluid.layers.fc(c, 1), y))
+            fluid.optimizer.SGD(0.1).minimize(loss)
+    bn = next(op for op in main.global_block().ops if op.type == "batch_norm")
+    saved = [bn.output("SavedMean")[0], bn.output("SavedVariance")[0]]
+    running = [bn.output("MeanOut")[0], bn.output("VarianceOut")[0]]
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(16, 3, 8, 8).astype("f4"), "y": rng.rand(16, 1).astype("f4")}
+    per = 16 // world
+    mine = {k: v[rank * per:(rank + 1) * per] for k, v in feed.items()}
+
+    def step(program, f, fetch):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        out = exe.run(program, feed=f, fetch_list=fetch, scope=scope)
+        return [np.asarray(o) for o in out], [scope.to_numpy(n).copy() for n in running]
+
+    (stats_ref, run_ref) = step(main, feed, saved)
+    plain = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+    stats_gang, run_gang = step(plain, mine, saved)
+    shards = [step(main, {k: v[r * per:(r + 1) * per] for k, v in feed.items()}, [])[1]
+              for r in range(world)]
+    overlap = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name) \
+        .with_grad_overlap(mode="serial")
+    _, run_overlap = step(overlap, mine, [])
+    checks = [("batch statistics", stats_gang, stats_ref),
+              ("running statistics", run_gang, run_ref),
+              ("rank-meaned running statistics", run_overlap,
+               [np.mean([s[i] for s in shards], axis=0) for i in range(len(running))])]
+    worst = {}
+    for what, got, want in checks:
+        err = max(float(np.abs(g - w).max() / max(1.0, float(np.abs(w).max())))
+                  for g, w in zip(got, want))
+        worst[what] = err
+        if not err <= 1e-5:
+            raise AssertionError(f"rank {rank}: {what} off by {err} of max(1, |ref|) > 1e-5")
+    emit({"phase": "dp_gang_card bn", "rank": rank, "worst_share_of_max_1_ref": worst,
+          "tol": 1e-5})
+    return {"stats": [s.tolist() for s in stats_gang], "running": [r.tolist() for r in run_gang],
+            "overlap_running": [r.tolist() for r in run_overlap]}
+
+
 def main():
     run_t0 = time.perf_counter()
     import paddle_tpu_torch as fluid  # outside a checkout of the repository this fails
@@ -9443,14 +9935,18 @@ def main():
     if numpy_bf16 is None:
         raise AssertionError("ml_dtypes does not import on this host: bf16 fetches would raise")
 
-    # phases 14's and 55's CPU arms, beside the build and phase 3
-    fused_setups = {shape: train_parity_setup(fluid, True, *shape) for shape in FUSED_PARITY}
+    # the card-free CPU arms of phases 7, 11, 14, 18, 25 and 55 and phase
+    # 73's plans, on two threads beside the build and phase 3
     amp_setup = amp_bert_setup(fluid)
     cpu_arms = start_cpu_arms(
-        [(shape, lambda s=setup: train_parity_cpu(fluid, s))
-         for shape, setup in fused_setups.items()]
-        + [("amp_bert", lambda: amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *amp_setup)),
-           ("cost_plans", lambda: plan_cost_programs(fluid))])
+        [[("amp_bert", lambda: amp_bert_arm(fluid, "cpu", fluid.CPUPlace(), *amp_setup)),
+          ("resnet_train_parity", lambda: resnet_parity_cpu(fluid))],
+         [(shape, lambda s=shape: train_parity_arm(fluid, True, *s)) for shape in FUSED_PARITY]
+         + [("train_parity", lambda: train_parity_arm(fluid)),
+            ("nmt_train_parity", lambda: nmt_parity_arm(fluid)),
+            ("train_clipped_parity", lambda: clipped_parity_arm(fluid)),
+            ("amp_resnet_parity", lambda: amp_resnet_cpu(fluid)),
+            ("cost_plans", lambda: plan_cost_programs(fluid))]])
     info = _build.build()
     emit({"phase": "build", "seconds": info["seconds"]})
     print("\n".join(line for line in info["log"].splitlines()
@@ -9487,12 +9983,14 @@ def main():
     join_cpu_arms(cpu_arms)
     emit({"phase_seconds": "cpu_arms", "s": sum(cpu_arms["seconds"].values()),
           "by_arm": {str(k): v for k, v in cpu_arms["seconds"].items()},
+          "lanes": [[name for name, _ in lane] for lane in cpu_arms["lanes"]],
           "beside": "the build and phase 3", "card": card})
     lap("cpu_arms_wait")
     os.makedirs(os.path.join(ROOT, ".chip_smoke_tmp"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, ".chip_smoke_tmp"))
     fluid.monitor.enable()  # the executor layer's counters and spans (read_monitor)
     totals = tally_across_resets(fluid.monitor.get_monitor())
+    gang = None
     try:
         served = serve(fluid, torch, ck, tmp, card)
         lap("serve")
@@ -9500,7 +9998,8 @@ def main():
         lap("parity")
         trained = train(fluid, torch, ck, card)
         lap("train")
-        train_parity(fluid, torch)
+        setup, cpu = cpu_arms["results"].pop("train_parity")
+        train_parity(fluid, torch, setup=setup, cpu=cpu)
         lap("train_parity")
         resnet_served = resnet_serve(fluid, torch, ck, tmp, card)
         lap("resnet_serve")
@@ -9508,16 +10007,16 @@ def main():
         lap("resnet_parity")
         resnet_trained = resnet_train(fluid, torch, ck, card)
         lap("resnet_train")
-        resnet_train_parity(fluid, torch)
+        resnet_train_parity(fluid, torch, cpu=cpu_arms["results"].pop("resnet_train_parity"))
         lap("resnet_train_parity")
         fused_trained = train(fluid, torch, ck, card, "train_fused", True, 128, 32, FUSED_PER_STEP,
-                              arms=AB_ARMS)
+                              arms=FUSED_AB_ARMS, keep=True)
         lap("train_fused")
         long_trained = train(fluid, torch, ck, card, "train_long", True, 2048, 8, FUSED_PER_STEP)
         lap("train_long")
         for shape in FUSED_PARITY:
-            train_parity(fluid, torch, "train_fused_parity", True, *shape,
-                         setup=fused_setups.pop(shape), cpu=cpu_arms["results"].pop(shape))
+            setup, cpu = cpu_arms["results"].pop(shape)
+            train_parity(fluid, torch, "train_fused_parity", True, *shape, setup=setup, cpu=cpu)
         lap("train_fused_parity")
         deepfm_trained = deepfm_train(fluid, torch, ck, tmp, card)
         lap("deepfm_train")
@@ -9525,7 +10024,7 @@ def main():
         lap("deepfm_train_parity")
         nmt_trained, nmt_scope = nmt_train(fluid, torch, ck, card)
         lap("nmt_train")
-        nmt_state = nmt_train_parity(fluid, torch)
+        nmt_state = nmt_train_parity(fluid, torch, cpu_arms["results"].pop("nmt_train_parity"))
         lap("nmt_train_parity")
         nmt_decoded = nmt_decode(fluid, torch, ck, card, nmt_scope)
         lap("nmt_decode")
@@ -9542,7 +10041,7 @@ def main():
         clipped_trained = train(fluid, torch, ck, card, "train_clipped", True, 128, 32,
                                 FUSED_PER_STEP, arms=AB_ARMS, clip_decay=True)
         lap("train_clipped")
-        train_clipped_parity(fluid, torch, card)
+        train_clipped_parity(fluid, torch, card, cpu_arms["results"].pop("train_clipped_parity"))
         lap("train_clipped_parity")
         checkpoint_resume(fluid, torch, tmp, card)
         lap("checkpoint_resume")
@@ -9647,7 +10146,7 @@ def main():
         amp_bert_parity(fluid, torch, amp_setup, cpu_arms["results"].pop("amp_bert"))
         emit({"phase_seconds": "amp_bert_parity", "s": time.perf_counter() - phase_t0,
               "card": card})
-        amp_resnet_parity(fluid, torch)
+        amp_resnet_parity(fluid, torch, cpu_arms["results"].pop("amp_resnet_parity"))
         emit({"phase_seconds": "amp_parity", "s": time.perf_counter() - phase_t0, "card": card})
         emit({"phase_seconds": "phases 52-55", "s": time.perf_counter() - amp_t0, "card": card})
         served_bert, fleet_inputs = serving_phases(fluid, torch, ck, tmp, card)
@@ -9664,7 +10163,15 @@ def main():
         phase_t0 = time.perf_counter()
         precheck_phase(fluid, torch, card, plans, totals)
         emit({"phase_seconds": "precheck", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        gang = dp_gang_start(tmp)  # its ranks start up while phase 75 runs
+        dp_world1_trained = dp_world1(fluid, torch, ck, card)
+        emit({"phase_seconds": "dp_world1", "s": time.perf_counter() - phase_t0, "card": card})
+        phase_t0 = time.perf_counter()
+        dp_gang_trained = dp_gang_card(fluid, torch, ck, card, gang)
+        emit({"phase_seconds": "dp_gang_card", "s": time.perf_counter() - phase_t0, "card": card})
     finally:
+        dp_gang_stop(gang)
         shutil.rmtree(tmp, ignore_errors=True)
 
     # each path must have launched each of its kernels, and every kernel must
@@ -9715,6 +10222,8 @@ def main():
              "quant_serving": (PER_REQUEST, quant_served),
              "qat_resnet": (RESNET_PER_STEP, qat_trained),
              "host_table_deepfm": (HOST_TABLE_PER_STEP, host_table_trained),
+             "dp_world1": (FUSED_PER_STEP, dp_world1_trained),
+             "dp_gang_card": (FUSED_PER_STEP, dp_gang_trained),
              **{phase: (NONE, ran) for phase, ran in dygraph_ran.items()}}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -9744,4 +10253,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

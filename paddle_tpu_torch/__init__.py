@@ -99,7 +99,7 @@ from .lod import LoDTensor, LoDTensorArray, create_lod_tensor  # noqa: F401
 from . import parallel  # noqa: F401
 from . import param_server  # noqa: F401  (the host sparse-table tier)
 from . import parallel as compiler  # fluid.compiler.CompiledProgram  # noqa: F401
-from .parallel import BuildStrategy, CompiledProgram  # noqa: F401
+from .parallel import BuildStrategy, CompiledProgram, ExecutionStrategy, ParallelExecutor  # noqa: F401
 from .pipeline import PipelineStats, train_loop  # noqa: F401
 from . import debugger, evaluator, metrics  # noqa: F401,E402
 from . import chaos  # noqa: F401,E402  (seeded multi-fault campaign engine)

@@ -77,6 +77,14 @@ RNG_OPS = frozenset({
     "gaussian_random_batch_size_like", "sampling_id", "random_crop",
 })
 
+# Program-level ops whose lowering issues collectives, and the attr naming
+# the mesh axis they communicate over (the JAX package's table).  Both are
+# model-parallel ops the port lowers with ROADMAP A10.3, so today's
+# programs have an empty signature; the data-parallel gradient all-reduce
+# is the executor's, issued in the same order on every rank by
+# construction, and needs no lint.
+COLLECTIVE_OPS = {"pipeline": "axis_name", "ring_attention": "sp_axis"}
+
 SEV_ERROR = "error"
 SEV_WARNING = "warning"
 
@@ -780,6 +788,62 @@ def lint_determinism(program: Program) -> List[Diagnostic]:
     return diags
 
 
+def collective_signature(program: Program) -> List[Tuple]:
+    """Static order of collective-issuing ops, with their mesh axis and
+    whether they sit under divergent (conditional) control flow."""
+    sig: List[Tuple] = []
+
+    def walk(block: Block, divergent: bool, seen):
+        if block.idx in seen:
+            return
+        seen.add(block.idx)
+        for op in block.ops:
+            if op.type in COLLECTIVE_OPS:
+                axis = op.attr(COLLECTIVE_OPS[op.type], None)
+                sig.append((op.type, axis, block.idx, divergent))
+            sub = op.attrs.get("sub_block")
+            if isinstance(sub, int) and 0 <= sub < len(program.blocks):
+                walk(program.blocks[sub],
+                     divergent or op.type == "conditional_block", seen)
+
+    walk(program.blocks[0], False, set())
+    return sig
+
+
+def lint_collective_order(programs: Sequence[Program]) -> List[Diagnostic]:
+    """All ranks must issue collectives in the same static order.
+    Single-program mode flags collectives under divergent control flow;
+    multi-program mode additionally diffs the per-rank signatures."""
+    diags: List[Diagnostic] = []
+    sigs = [collective_signature(p) for p in programs]
+    for (op_type, axis, blk_idx, divergent) in sigs[0]:
+        if divergent:
+            diags.append(Diagnostic(
+                "collective_order", SEV_WARNING,
+                f"collective op {op_type!r} (axis {axis!r}) sits under a "
+                f"conditional_block: ranks whose predicates diverge will "
+                f"issue collectives in different orders and deadlock",
+                block=blk_idx, op_type=op_type,
+            ))
+    base = [(t, a) for (t, a, _, _) in sigs[0]]
+    for rank, sig in enumerate(sigs[1:], start=1):
+        other = [(t, a) for (t, a, _, _) in sig]
+        if other == base:
+            continue
+        n = min(len(base), len(other))
+        at = next((i for i in range(n) if base[i] != other[i]), n)
+        ours = base[at] if at < len(base) else None
+        theirs = other[at] if at < len(other) else None
+        diags.append(Diagnostic(
+            "collective_order", SEV_ERROR,
+            f"rank-program {rank} issues collectives in a different static "
+            f"order: position {at} is {theirs} vs rank 0's {ours} — this "
+            f"deadlocks the gang at runtime",
+            op_type=theirs[0] if theirs else (ours[0] if ours else None),
+        ))
+    return diags
+
+
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
@@ -788,7 +852,9 @@ LEVELS = ("off", "structural", "full")
 
 
 def verify_program(program: Program, level: str = "structural",
-                   feed_names=None, fetch_names=None) -> List[Diagnostic]:
+                   feed_names=None, fetch_names=None,
+                   sibling_programs: Optional[Sequence[Program]] = None
+                   ) -> List[Diagnostic]:
     """Run the analysis suite at `level`; returns diagnostics (errors and
     warnings).  `structural` = verifier (+ feed/fetch when given); `full`
     adds whole-program shape re-inference and the hazard lints."""
@@ -805,6 +871,8 @@ def verify_program(program: Program, level: str = "structural",
         diags += lint_donation(program)
         diags += lint_recompile(program)
         diags += lint_determinism(program)
+        diags += lint_collective_order(
+            [program] + list(sibling_programs or []))
         cov = infer_coverage([program])
         _MON.gauge("analysis.infer_coverage_frac").set(cov["frac"])
     _MON.counter("analysis.verify_runs").inc()
@@ -814,10 +882,12 @@ def verify_program(program: Program, level: str = "structural",
 
 
 def check_program(program: Program, level: str = "structural",
-                  feed_names=None, fetch_names=None) -> List[Diagnostic]:
+                  feed_names=None, fetch_names=None,
+                  sibling_programs=None) -> List[Diagnostic]:
     """`verify_program`, raising `ProgramVerificationError` on any
     error-severity diagnostic.  Returns the (warning-only) diagnostics."""
-    diags = verify_program(program, level, feed_names, fetch_names)
+    diags = verify_program(program, level, feed_names, fetch_names,
+                           sibling_programs)
     errors = [d for d in diags if d.severity == SEV_ERROR]
     if errors:
         lines = "\n".join(f"  {d}" for d in errors)

@@ -54,6 +54,25 @@ serving registry calls it when it lets a model version go).
 once, and returns fetches stacked the same way; `run_async` returns
 `FetchHandle`s as soon as the step is enqueued, and the host copy, through
 pinned memory, and the FLAGS_check_nan_inf guard happen at resolution.
+
+The gang path (a `CompiledProgram` with a mesh whose batch axis spans a
+gang of more than one rank, parallel/distributed.py): each rank runs the
+step on its own shard of the batch, and the plan installs the gradient
+all-reduce (`make_grad_sync`) on the lowering context.  Under plain
+`with_data_parallel` the step computes what the JAX package's GSPMD
+program computes over the global batch: gradients as the mean of equal
+shards', batch norm's statistics all-reduced before it normalizes,
+additive accumulators (auc's) as the base plus every rank's delta, a
+scalar fetch rank-meaned and a per-sample fetch (declared batch dim -1)
+gathered in rank order; an op whose global-batch value a rank would
+silently compute on its shard alone is refused when the plan is built
+(`_batch_reduction_refusal`).  Under `with_grad_overlap` the step is the
+JAX package's manual per-shard region: batch norm normalizes per shard and
+its running statistics are rank-meaned after the step, scalar fetches are
+rank-meaned and a per-sample fetch raises.  Each rank draws dropout from a
+generator of its own, its seed folded with the rank.  A gang plan is not
+captured: its all-reduce over gloo runs on the host.  World size 1 is the
+plain step.
 """
 from __future__ import annotations
 
@@ -73,6 +92,7 @@ from ..lod import LoDTensor, LoDTensorArray, lod_var_name
 from ..monitor import MONITOR as _MON
 from ..ops import cuda_kernels
 from ..ops.common import canon_dtype
+from ..parallel import distributed as _dist
 from . import scope as scope_mod
 from .dtypes import host_copies, to_tensor
 from .lowering import LoweringContext, rerun_generators_needed, run_block_with_backward
@@ -252,6 +272,130 @@ def _lowering_flags():
             "cudnn", torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
 
 
+class _Gang:
+    """What a gang plan is keyed on: the world size, the batch axis, the
+    overlap mode (None: plain with_data_parallel) and the bucket bytes."""
+
+    __slots__ = ("world", "batch_axis", "overlap", "bucket_bytes")
+
+    def __init__(self, world, batch_axis, overlap, bucket_bytes):
+        self.world, self.batch_axis = world, batch_axis
+        self.overlap, self.bucket_bytes = overlap, bucket_bytes
+
+    def key(self):
+        return (self.world, self.batch_axis, self.overlap, self.bucket_bytes)
+
+
+def _gang_of(compiled) -> Optional[_Gang]:
+    """The gang a CompiledProgram's mesh and overlap mode ask for (None for
+    a Program, or a CompiledProgram without a mesh)."""
+    if compiled is None:
+        return None
+    from ..parallel.mesh import data_axis_size
+
+    mesh = getattr(compiled, "mesh", None)
+    axis = getattr(compiled, "batch_axis", "dp")
+    overlap = getattr(compiled, "grad_overlap_mode", None)
+    if overlap and (mesh is None or not dict(getattr(mesh, "shape", {}) or {}).get(axis)):
+        raise ValueError(
+            "with_grad_overlap needs a mesh with a batch axis "
+            "(CompiledProgram.with_data_parallel / with_mesh first)")
+    if mesh is None:
+        return None
+    n = data_axis_size(mesh, axis)
+    world = _dist.num_trainers()
+    if n != world:
+        raise ValueError(f"the mesh's batch axis {axis!r} spans {n} rank(s), the gang "
+                         f"has {world} (parallel.init_distributed): a mesh spans the "
+                         f"whole gang")
+    bucket = int(float(getattr(compiled, "grad_overlap_bucket_mb", 0.0)) * 1e6) if overlap else 0
+    return _Gang(world, axis, overlap, bucket)
+
+
+_GANG_REFUSAL = ("a gang step (world size {world}): its gradient all-reduce runs on the "
+                 "host over gloo, which a CUDA graph cannot capture (core/executor.py "
+                 "gang path)")
+
+_BATCH_REDUCE = ("reduce_sum", "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+                 "reduce_any", "reduce_mean")
+_BATCH_AXIS_OPS = ("arg_max", "arg_min", "argsort", "cumsum", "norm")
+_BATCH_TOTALS = ("squared_l2_norm", "l1_norm", "frobenius_norm")
+_BATCH_COUNTS = ("data_norm", "chunk_eval", "mean_iou", "detection_map", "edit_distance")
+_BATCH_COUNT_SLOTS = {"accuracy": ("Correct", "Total"), "auc": ("AUC", "BatchAUC")}
+
+
+def _batch_var(block, name) -> bool:
+    """A var whose declared leading dim is the batch (-1)."""
+    if not block.has_var(name):
+        return False
+    shape = block.var(name).shape
+    return bool(shape) and shape[0] == -1
+
+
+def _batch_reduction_refusal(block, ops, wanted) -> Optional[str]:
+    """Under plain with_data_parallel, the first op whose global-batch
+    value a rank would silently compute over its own shard: a reduction
+    over the batch axis of a per-sample var (the mean of all its elements
+    excepted: the mean of equal shards' means is the global mean), a count
+    over the batch, or a read of accuracy's / auc's totals.  Batch norm is
+    not among them (its statistics are all-reduced)."""
+    for op in _with_sub_blocks(ops):
+        t = op.type
+        x = (op.input_arg_names or [None])[0]
+        on_batch = x is not None and _batch_var(block, x)
+        why = None
+        if t in _BATCH_REDUCE and on_batch:
+            rank = len(block.var(x).shape)
+            dims = op.attrs.get("dim", [0])
+            dims = {d % rank for d in ([dims] if isinstance(dims, int) else dims)}
+            every = op.attrs.get("reduce_all", False) or dims == set(range(rank))
+            if (0 in dims or every) and not (t == "reduce_mean" and every):
+                why = f"reduces the batch axis of {x!r}"
+        elif t in _BATCH_AXIS_OPS and on_batch and op.attrs.get("axis", -1) % len(
+                block.var(x).shape) == 0:
+            why = f"works along the batch axis of {x!r}"
+        elif t in _BATCH_TOTALS and on_batch:
+            why = f"sums over every sample of {x!r}"
+        elif t in _BATCH_COUNTS:
+            why = "counts over the batch"
+        elif t in _BATCH_COUNT_SLOTS:
+            read = [n for slot in _BATCH_COUNT_SLOTS[t] for n in op.outputs.get(slot, ())
+                    if n in wanted]
+            if read:
+                why = f"its {read} are computed from one rank's samples"
+        if why:
+            return (f"op {t!r} {why}: under with_data_parallel across a gang each rank "
+                    f"holds only its shard of the batch, so its value would silently "
+                    f"differ from the global batch's; fetch a mean, or use "
+                    f"with_grad_overlap for per-shard semantics")
+    return None
+
+
+def _written_stats(program, written):
+    """(batch norm's running statistics, additive accumulators) among the
+    persistables a gang step writes, walking every block."""
+    bn, acc = set(), set()
+    for blk in program.blocks:
+        for op in blk.ops:
+            if (op.type in ("batch_norm", "sync_batch_norm") and not op.attrs.get("is_test")
+                    and not op.attrs.get("use_global_stats")):
+                for slot in ("MeanOut", "VarianceOut"):
+                    bn.update(op.outputs.get(slot, ()))
+            elif op.type == "auc":
+                for slot in ("StatPosOut", "StatNegOut"):
+                    acc.update(op.outputs.get(slot, ()))
+    return bn & set(written), acc & set(written)
+
+
+def _fold_rank(seed: int, rank: int) -> int:
+    """A rank's dropout seed: `seed` with the rank folded in (rank 0 too, so
+    a gang's streams differ from a one-process run's)."""
+    return (seed * 0x9E3779B1 + (rank + 1) * 0x85EBCA77) % (1 << 63)
+
+
+RANK_RNG_VAR = RNG_STATE_VAR + "@rank"
+
+
 def _expand_ragged_feeds(block, feed, steps=1):
     """A `LoDTensor`, or a list of per-sequence arrays fed to a var declared
     with lod_level >= 1, becomes the padded carrier (time axis bucketed,
@@ -291,7 +435,7 @@ class _Plan:
     CUDA graph captured at its second run."""
 
     def __init__(self, program: Program, fetch_names: Sequence[str], device: torch.device,
-                 steps: int, remat: bool, graphs: bool):
+                 steps: int, remat: bool, graphs: bool, gang: Optional[_Gang] = None):
         block = program.global_block()
         self.persistable = frozenset(v.name for v in program.list_vars() if v.persistable)
         self.ops = _prune(_runnable_ops(block), fetch_names, self.persistable)
@@ -311,8 +455,23 @@ class _Plan:
         self.constants: dict = {}
         self.rerun = [torch.Generator(device=device)
                       for _ in range(rerun_generators_needed(self.ops, remat))]
+        if gang is not None and gang.overlap:
+            # refused at any world size, as the JAX package's per-shard
+            # region refuses it: a per-sample fetch cannot be rank-meaned
+            for n in self.fetch_names:
+                shape = block.var(n).shape if block.has_var(n) else None
+                if n not in self.persistable and shape is not None and (
+                        -1 in shape or int(np.prod(shape)) > 1):
+                    raise ValueError(self._overlap_fetch_error(n, shape))
+        self.gang = gang if gang is not None and gang.world > 1 else None
+        self.grad_sync = None
+        if self.gang is not None:
+            self._gang_setup(program)
         on_card = graphs and device.type == "cuda"
-        self.graph_refusal = _graph_refusal(self.ops) if on_card else None
+        self.graph_refusal = None
+        if on_card:
+            self.graph_refusal = (_GANG_REFUSAL.format(world=self.gang.world) if self.gang
+                                  else _graph_refusal(self.ops))
         self.graphable = on_card and self.graph_refusal is None
         if self.graph_refusal is not None:
             _MON.counter("executor.graph_refused").inc()
@@ -330,11 +489,37 @@ class _Plan:
     def graphed(self) -> bool:
         return self.graph is not None
 
+    def _gang_setup(self, program):
+        """A gang plan's refusals, gradient sync and the state and fetches
+        it reduces over the gang."""
+        g, block = self.gang, program.global_block()
+        if g.overlap is None:
+            why = _batch_reduction_refusal(block, self.ops, set(self.fetch_names) | self.read_names)
+            if why:
+                raise ValueError(why)
+        bucket = g.bucket_bytes or int(float(flags.flag("FLAGS_dp_bucket_mb")) * 1e6)
+        self.grad_sync = _dist.make_grad_sync(g.batch_axis, bucket, g.overlap or "serial")
+        bn, acc = _written_stats(program, self.written)
+        # a sorted order: every rank issues the same collectives in the same order
+        self.bn_stats = sorted(bn) if g.overlap else []
+        self.acc_stats = sorted(acc)
+        self.gathered = [g.overlap is None and n not in self.persistable and _batch_var(block, n)
+                         for n in self.fetch_names]
+
+    @staticmethod
+    def _overlap_fetch_error(name, shape):
+        return (f"with_grad_overlap: fetch {name!r} has shape {tuple(shape)} — overlap "
+                f"fetches are dp-MEANed across workers, which is only exact for scalar "
+                f"losses/metrics; fetch a reduced scalar, or run evaluation through a "
+                f"program compiled without grad overlap")
+
     def _context(self, gen: torch.Generator) -> LoweringContext:
         return LoweringContext(gen, self.device, fetch_names=self.fetch_names,
                                read_names=self.read_names, rerun_generators=self.rerun,
                                persistable=self.persistable, constants=self.constants,
-                               remat=self.remat)
+                               remat=self.remat, grad_sync=self.grad_sync,
+                               global_batch_stats=self.gang is not None
+                               and self.gang.overlap is None)
 
     def _state_env(self, scope: Scope) -> Dict[str, torch.Tensor]:
         env = {}
@@ -382,12 +567,49 @@ class _Plan:
     def _eager(self, scope, gen, feeds):
         env = self._state_env(scope)
         env.update(feeds)
+        base = None
+        if self.gang is not None:
+            base = {n: env[n].clone() for n in self.acc_stats if n in env}
         env = run_block_with_backward(self._context(gen), self.ops, env)
+        if self.gang is not None:
+            self._gang_state(env, base)
         for n in self.written:
             if n in env:
                 scope.set_var(n, env[n])
         self.runs += 1
-        return self._outputs(env)
+        outs = self._outputs(env)
+        return self._gang_fetches(outs) if self.gang is not None else outs
+
+    def _gang_state(self, env, base):
+        """Written state that no gradient drives, made the same on every
+        rank: the per-shard batch norm running statistics rank-meaned (with
+        overlap; plain data parallelism computes them from the global
+        batch's statistics already), an additive accumulator's base plus
+        the sum of every rank's delta."""
+        for n in self.bn_stats:
+            if n in env:
+                env[n] = _dist.rank_mean(env[n])
+        for n in self.acc_stats:
+            if n in env and n in base:
+                env[n] = base[n] + _dist.all_reduce_sum_(env[n] - base[n])
+
+    def _gang_fetches(self, outs):
+        """A per-sample fetch gathered over the gang in rank order, a
+        scalar rank-meaned; a persistable (the same on every rank) and
+        anything else as it is."""
+        got = []
+        for n, t, gathered in zip(self.fetch_names, outs, self.gathered):
+            if n in self.persistable or not isinstance(t, torch.Tensor):
+                got.append(t)
+            elif gathered:
+                got.append(_dist.all_gather_rows(t))
+            elif t.numel() == 1:
+                got.append(_dist.rank_mean(t))
+            elif self.gang.overlap:
+                raise ValueError(self._overlap_fetch_error(n, t.shape))
+            else:
+                got.append(t)
+        return got
 
     def _warm_up(self, scope, gen, feeds, side_stream):
         """The first run: eager, on a side stream, as torch.cuda.graph asks
@@ -682,12 +904,13 @@ class Executor:
         return out
 
     @staticmethod
-    def _key(program, feeds, fetch_names, scope, steps, remat):
+    def _key(program, feeds, fetch_names, scope, steps, remat, gang=None):
         return (program._uuid, program.version,
                 tuple(sorted((n, tuple(t.shape), str(t.dtype)) for n, t in feeds.items())),
-                tuple(fetch_names), scope._uuid, steps, remat, _lowering_flags())
+                tuple(fetch_names), scope._uuid, steps, remat, _lowering_flags(),
+                gang.key() if gang is not None else None)
 
-    def _plan(self, key, program, feeds, fetch_names, steps, remat):
+    def _plan(self, key, program, feeds, fetch_names, steps, remat, gang=None):
         with self._cache_lock:
             plan = self._cache.pop(key, None)
             if plan is not None:
@@ -714,7 +937,8 @@ class Executor:
             precheck_program(program, {n: tuple(t.shape) for n, t in feeds.items()},
                              fetch_names, steps=steps, device=self.place.device)
         with _MON.span("executor.build", program=program._uuid[:8]):
-            plan = _Plan(program, fetch_names, self.place.device, steps, remat, self._graphs)
+            plan = _Plan(program, fetch_names, self.place.device, steps, remat, self._graphs,
+                         gang)
         with self._cache_lock:
             existing = self._cache.get(key)
             if existing is not None:  # a racing thread built it: keep one plan
@@ -726,28 +950,34 @@ class Executor:
                 self._cache.popitem(last=False)  # drops the plan's graph and buffers
         return plan, False
 
-    def _generator(self, scope, program) -> torch.Generator:
+    def _generator(self, scope, program, gang=None) -> torch.Generator:
+        """The scope's generator; a gang step's rank draws from one of its
+        own (RANK_RNG_VAR), its seed folded with the rank."""
         device = self.place.device
-        gen = scope.find_var(RNG_STATE_VAR)
+        name = RNG_STATE_VAR if gang is None else RANK_RNG_VAR
+        gen = scope.find_var(name)
         if gen is None or gen.device != device:
+            seed = program.random_seed if program.random_seed is not None else 0
             gen = torch.Generator(device=device)
-            gen.manual_seed(program.random_seed if program.random_seed is not None else 0)
-            scope.set_var(RNG_STATE_VAR, gen)
+            gen.manual_seed(seed if gang is None else _fold_rank(seed, _dist.trainer_id()))
+            scope.set_var(name, gen)
         return gen
 
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy, steps, async_mode,
                   warm=False):
-        program, remat = _unwrap(program if program is not None else default_main_program())
+        program, remat, compiled = _unwrap(program if program is not None
+                                           else default_main_program())
+        gang = _gang_of(compiled)
         scope = scope if scope is not None else global_scope()
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         fetch_names = _fetch_names(fetch_list)
         t0 = time.perf_counter()
         feeds = self._feeds(program.global_block(), feed or {}, steps)
-        key = self._key(program, feeds, fetch_names, scope, steps, remat)
-        plan, hit = self._plan(key, program, feeds, fetch_names, steps, remat)
+        key = self._key(program, feeds, fetch_names, scope, steps, remat, gang)
+        plan, hit = self._plan(key, program, feeds, fetch_names, steps, remat, gang)
         self.last_plan = plan
-        gen = self._generator(scope, program)
+        gen = self._generator(scope, program, plan.gang)
         if self.place.device.type == "cuda" and self._side_stream is None:
             self._side_stream = torch.cuda.Stream(self.place.device)
         if steps == 1:
@@ -828,8 +1058,10 @@ def _fetch_names(fetch_list) -> List[str]:
 
 
 def _unwrap(program):
-    """(Program, remat) of a Program or a CompiledProgram: a BuildStrategy
-    with memory_optimize runs the backward regions rematerialized."""
+    """(Program, remat, the CompiledProgram or None) of a Program or a
+    CompiledProgram: a BuildStrategy with memory_optimize runs the backward
+    regions rematerialized."""
     if hasattr(program, "program") and hasattr(program, "build_strategy"):
-        return program.program, bool(getattr(program.build_strategy, "memory_optimize", False))
-    return program, False
+        return (program.program, bool(getattr(program.build_strategy, "memory_optimize", False)),
+                program)
+    return program, False, None

@@ -13,6 +13,15 @@ under `torch.utils.checkpoint`, as the JAX package wraps it in
 `jax.checkpoint`: autograd keeps only the region's inputs and recomputes
 the rest during the backward.
 
+In a gang step (core/executor.py's gang path) the executor installs the
+gradient all-reduce as `ctx.grad_sync` (parallel/distributed.py
+make_grad_sync), as the JAX package installs its bucketed psum: each
+region's gradients are synced before later regions or the optimizer ops
+read them, in one flat all-reduce after `torch.autograd.grad` ("serial")
+or bucket by bucket from the leaves' tensor hooks while backward runs
+("bucketed").  `ctx.global_batch_stats` makes batch norm normalize with the
+gang's global batch statistics.
+
 The same code runs eagerly and under CUDA-graph capture
 (core/executor.py), so nothing here reads a tensor on the host or moves
 a generator's state: a forward that must repeat the step's random draws
@@ -44,12 +53,16 @@ class LoweringContext:
     run began, one for each forward that repeats the step's draws
     (`rerun_generators_needed`); `persistable` names the vars the executor
     writes back; `constants` holds tensors a lowering builds once per plan
-    (`constant`); `remat` checkpoints each backward region's forward."""
+    (`constant`); `remat` checkpoints each backward region's forward.
+    `grad_sync` (a gang step's gradient all-reduce) and
+    `global_batch_stats` (batch norm over the gang's global batch) are
+    set by the executor's gang path."""
 
     def __init__(self, generator: torch.Generator, device: torch.device, is_test: bool = False,
                  fetch_names: Sequence[str] = (), read_names=frozenset(),
                  rerun_generators: Sequence[torch.Generator] = (), persistable=frozenset(),
-                 constants: Optional[dict] = None, remat: bool = False):
+                 constants: Optional[dict] = None, remat: bool = False, grad_sync=None,
+                 global_batch_stats: bool = False):
         self.generator = generator
         self.device = device
         self.is_test = is_test
@@ -59,6 +72,8 @@ class LoweringContext:
         self.persistable = frozenset(persistable)
         self.constants = {} if constants is None else constants
         self.remat = remat
+        self.grad_sync = grad_sync
+        self.global_batch_stats = global_batch_stats
         self.sparse_taps: Optional["SparseTaps"] = None  # set while a backward region runs
         self.env: Dict[str, torch.Tensor] = {}  # the env of the op being lowered (dynamic_rnn)
 
@@ -284,6 +299,12 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
             env[p] = leaves[p]
     taps = SparseTaps(sparse)
     ctx.sparse_taps = taps if sparse else None
+    # the bucketed gradient all-reduce hooks the dense leaves; a dense
+    # gradient that is not a leaf (an int feed's zeros) joins at finish
+    hooked = None
+    if ctx.grad_sync is not None:
+        hooked = ctx.grad_sync.hooked([(g, leaves.get(p, start_env[p]))
+                                       for p, g in zip(param_names, grad_names) if p not in sparse])
     try:
         with torch.enable_grad():
             if ctx.remat:
@@ -306,6 +327,7 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
     by_param = dict(zip(leaves, got))
     # downstream ops read the scope's tensors and values without history
     out = {n: (start_env[n] if n in leaves else _detached(v)) for n, v in env.items()}
+    named = []
     for p, g in zip(param_names, grad_names):
         if p in sparse:
             gval = taps.gradient(p, start_env[p], got[len(leaves):])
@@ -313,6 +335,11 @@ def _run_one_backward_region(ctx: LoweringContext, ops: List[Operator], split: i
             gval = by_param.get(p)
             if gval is None:
                 gval = torch.zeros_like(start_env[p])
+        named.append((g, gval))
+    if ctx.grad_sync is not None:
+        synced = hooked.finish(named) if hooked is not None else ctx.grad_sync(named)
+        named = [(g, synced.get(g, v)) for g, v in named]
+    for g, gval in named:
         out[g] = gval
         grads_so_far[g] = gval
     return out

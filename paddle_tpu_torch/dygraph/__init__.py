@@ -36,14 +36,19 @@ from .learning_rate_scheduler import (  # noqa: F401
     PiecewiseDecay,
     PolynomialDecay,
 )
-from . import parallel as _parallel
 from .parallel import DataParallel  # noqa: F401
 
 
 def prepare_context(strategy=None):
     """reference dygraph.parallel.prepare_context: bootstrap cross-process
-    dygraph data parallelism.  One process has nothing to bootstrap, and
-    the strategy comes back as given; more than one trainer is ROADMAP
-    A10's."""
-    _parallel.refuse_gang("prepare_context", _parallel.ParallelEnv().nranks)
+    dygraph data parallelism from the PADDLE_TRAINER_* environment
+    (parallel.init_distributed); returns the strategy as given.  Without
+    that environment there is one process and nothing to bootstrap."""
+    from ..parallel import distributed as _dist
+
+    if not _dist.is_initialized():
+        try:
+            _dist.init_distributed()
+        except ValueError:
+            pass  # single-process: nothing to bootstrap
     return strategy

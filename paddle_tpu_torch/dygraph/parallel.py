@@ -2,44 +2,51 @@
 reference dygraph/parallel.py:84 DataParallel, scale_loss:150 and
 apply_collective_grads:171).
 
-One process only: `scale_loss` is the identity and
-`apply_collective_grads` reduces nothing, but opens the
-`collective.apply_grads` span and counts the gradient bytes a reduction
-would move (`collective.grad_bytes`), as the JAX package does.  More than
-one trainer (`PADDLE_TRAINERS_NUM` > 1) or a device mesh comes with data
-parallelism (ROADMAP A10) and raises.
+Over a gang (parallel/distributed.py), each rank runs the model on its own
+shard of the batch; `apply_collective_grads` mean-reduces every
+parameter's gradient over the gang in one flat float32 all-reduce (the 1/n
+scale before the cast back), which is what GSPMD does inside the JAX
+package's backward over the global batch, so each rank's update is the
+global batch's.  `scale_loss` stays the identity, as in the JAX package
+(each rank's loss is its shard's mean).  The `collective.apply_grads` span
+and the `collective.grad_bytes` counter (the parameters' bytes) are kept
+at any world size.  A mesh with an axis besides the batch axis comes with
+the model-parallel paths (ROADMAP A10.3).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
+import torch
+
 from ..monitor import MONITOR as _MON
+from ..parallel import distributed as _dist
 from .layers import Layer
 
 
-def refuse_gang(what: str, nranks: int, mesh=None):
-    """Raise for what needs more than one process or a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what}: a device mesh comes with data parallelism "
-                                  "(ROADMAP A10)")
-    if nranks > 1:
-        raise NotImplementedError(f"{what}: PADDLE_TRAINERS_NUM={nranks}; more than one "
-                                  "trainer comes with data parallelism (ROADMAP A10)")
-
-
 class ParallelEnv:
-    """reference: dygraph/parallel.py Env — trainer id and count from the
-    environment."""
+    """reference: dygraph/parallel.py Env — trainer id and count: the gang's
+    when one is initialized, else from the environment."""
 
     def __init__(self):
-        self.nranks = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
-        self.local_rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+        if _dist.is_initialized():
+            self.nranks = _dist.num_trainers()
+            self.local_rank = _dist.trainer_id()
+        else:
+            self.nranks = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+            self.local_rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
         self.dev_id = self.local_rank
 
 
 def prepare_context():
+    """Bring the gang up (parallel.init_distributed, from the
+    PADDLE_TRAINER_* environment) when more than one trainer is asked for;
+    returns the ParallelEnv."""
     env = ParallelEnv()
-    refuse_gang("prepare_context", env.nranks)
+    if env.nranks > 1 and not _dist.is_initialized():
+        _dist.init_distributed()
+        env = ParallelEnv()
     # per-device trace lane: merged Chrome traces get one row per rank
     _MON.set_lane(env.local_rank, f"trainer{env.local_rank}")
     _MON.gauge("parallel.nranks").set(env.nranks)
@@ -49,7 +56,16 @@ def prepare_context():
 class DataParallel(Layer):
     def __init__(self, layers: Layer, strategy=None, mesh=None):
         super().__init__("data_parallel")
-        refuse_gang("DataParallel", ParallelEnv().nranks, mesh)
+        if mesh is not None:
+            from ..parallel.mesh import data_axis_size
+
+            data_axis_size(mesh)
+        nranks = ParallelEnv().nranks
+        if nranks > 1 and _dist.num_trainers() != nranks:
+            raise RuntimeError(
+                f"DataParallel: {nranks} trainers are asked for but no gang of "
+                f"{nranks} is initialized; call dygraph.parallel.prepare_context() "
+                f"(or parallel.init_distributed()) first")
         self._layers = layers
         self._mesh = mesh
 
@@ -57,18 +73,25 @@ class DataParallel(Layer):
         return self._layers(*args, **kw)
 
     def scale_loss(self, loss):
-        """Identity: one process holds the whole batch's loss."""
+        """Identity: each rank's loss is its shard's mean, and the gradients'
+        mean over the gang (apply_collective_grads) is the global batch's."""
         return loss
 
     def apply_collective_grads(self):
-        """No reduction with one process; the monitor still accounts the
-        gradient bytes a step's reduction would move (the parameters'
-        bytes)."""
-        if _MON.enabled:
-            with _MON.span("collective.apply_grads"):
-                nbytes = sum(p.value.numel() * p.value.element_size()
-                             for p in self._layers.parameters())
-                _MON.counter("collective.grad_bytes").inc(nbytes)
+        """Mean-reduce every parameter's gradient over the gang (a
+        parameter without one contributes zeros), in one flat float32
+        all-reduce; nothing to reduce with one process.  The monitor
+        accounts the parameters' bytes either way."""
+        with _MON.span("collective.apply_grads") if _MON.enabled else contextlib.nullcontext():
+            params = self._layers.parameters()
+            if _MON.enabled:
+                _MON.counter("collective.grad_bytes").inc(
+                    sum(p.value.numel() * p.value.element_size() for p in params))
+            if _dist.num_trainers() == 1:
+                return
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p.value) for p in params]
+            for p, g in zip(params, _dist.all_reduce_mean(grads)):
+                p.grad = g
 
     def parameters(self, include_sublayers: bool = True):
         return self._layers.parameters(include_sublayers)

@@ -1,5 +1,4 @@
-"""Failure taxonomy (paddle_tpu/errors.py without the distributed classes;
-same names, bases and messages).
+"""Failure taxonomy (paddle_tpu/errors.py: same names, bases and messages).
 
     TrainingError         base: RuntimeError with step / batch / phase context
     DataError             a batch the input pipeline could not produce or
@@ -31,6 +30,12 @@ same names, bases and messages).
     ServingError          the serving runtime (serving/) refused or failed a
                           request or a control action on purpose; `reason`
                           carries the stable code clients route on
+    DistributedError      base of the gang-level failures below: one
+                          worker cannot recover from them alone
+    PeerFailureError      a peer worker stopped heartbeating (crashed,
+                          killed, or wedged past the liveness deadline)
+    CollectiveTimeoutError a collective or the gang's rendezvous blew its
+                          armed deadline (FLAGS_dist_bootstrap_timeout_s)
 
 The build-time analysis failures (StaticAnalysisError and its subclasses,
 FatalErrors) live with the verifier in core/analysis.py, as in the JAX
@@ -51,7 +56,8 @@ import torch
 __all__ = ["TrainingError", "DataError", "NumericError", "TransientDeviceError",
            "PreemptionError", "FatalError", "CheckpointError", "ResourceError",
            "LockTimeoutError", "IntegrityError", "StorageError", "ServingError",
-           "ParamServerError", "attach_context",
+           "ParamServerError", "DistributedError", "PeerFailureError",
+           "CollectiveTimeoutError", "attach_context",
            "get_context", "classify", "TRANSIENT_STORAGE_ERRNOS", "TERMINAL_STORAGE_ERRNOS",
            "TRANSIENT_PS_ERRNOS"]
 
@@ -338,6 +344,44 @@ class ServingError(TrainingError):
         if self.trace_id:
             ctx.append(f"trace={self.trace_id}")
         return f"{base} [{', '.join(ctx)}]" if ctx else base
+
+class DistributedError(TrainingError):
+    """Base of the gang-level failures.  A single worker cannot recover
+    from these (every peer is wedged in the same collective); the point of
+    raising instead of hanging is to die loudly and classified, so the
+    gang-restart driver (launch.py) can kill the stragglers and relaunch.
+    Carries the local rank and, where known, the set of implicated peers."""
+
+    def __init__(self, message: str, *, rank: Optional[int] = None,
+                 peers=None, collective: Optional[str] = None, **kw):
+        super().__init__(message, **kw)
+        self.rank = rank
+        self.peers = list(peers) if peers is not None else []
+        self.collective = collective
+
+    def __str__(self):
+        base = super().__str__()
+        ctx = []
+        if self.rank is not None:
+            ctx.append(f"rank={self.rank}")
+        if self.peers:
+            ctx.append(f"peers={self.peers}")
+        if self.collective:
+            ctx.append(f"collective={self.collective}")
+        return f"{base} [{', '.join(ctx)}]" if ctx else base
+
+
+class PeerFailureError(DistributedError):
+    """A peer worker stopped heartbeating -- crashed, killed, or wedged
+    past the liveness deadline.  The next (or current) collective with that
+    peer can never complete.  `peers` lists the dead ranks."""
+
+
+class CollectiveTimeoutError(DistributedError):
+    """A collective or the gang's rendezvous exceeded its armed deadline:
+    a worker that never dialled in, a deadlocked collective, divergent
+    program order, or a straggler past the budget."""
+
 
 def attach_context(exc: BaseException, *, step: Optional[int] = None,
                    batch_index: Optional[int] = None,

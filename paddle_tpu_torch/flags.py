@@ -136,6 +136,31 @@ _define("FLAGS_publish_period_steps", int, 0,
         "resilient_train_loop calls its publish hook every N steps "
         "(resilience.py); a failed publish is counted and training goes on.  "
         "0 (default): no publish hook")
+_define("FLAGS_dist_heartbeat_interval_s", float, 0.5,
+        "seconds between liveness beats each worker of a gang publishes to its "
+        "peers (the gang's health layer, ROADMAP A10.2; kept with the JAX "
+        "package's default)")
+_define("FLAGS_dist_heartbeat_miss_factor", float, 10.0,
+        "a peer is declared dead after interval_s * miss_factor seconds without "
+        "an observed beat (the gang's health layer, ROADMAP A10.2)")
+_define("FLAGS_dist_straggler_lag_steps", float, 1.0,
+        "live straggler detection: a rank whose step count lags the gang by at "
+        "least this many steps across 3 beats is named a straggler (the gang's "
+        "health layer, ROADMAP A10.2)")
+_define("FLAGS_dist_watchdog_timeout_s", float, 120.0,
+        "deadline armed around every collective of a gang when its health "
+        "layer is active (ROADMAP A10.2); on expiry CollectiveTimeoutError")
+_define("FLAGS_dist_bootstrap_timeout_s", float, 120.0,
+        "deadline on parallel.distributed.init_distributed's rendezvous (the "
+        "gen_nccl_id role): a gang whose worker never dials in raises "
+        "CollectiveTimeoutError instead of blocking the others at startup")
+_define("FLAGS_dp_bucket_mb", float, 4.0,
+        "gradient-bucket size cap (MB) of the data-parallel all-reduce "
+        "(parallel/distributed.py make_grad_sync, "
+        "CompiledProgram.with_grad_overlap): gradients are grouped "
+        "reverse-topologically into buckets of at most this many bytes, and in "
+        "the bucketed mode each bucket's all-reduce starts as soon as backward "
+        "has produced its last gradient")
 _define("FLAGS_serving_max_queue", int, 256,
         "admission bound on the serving runtime's request queue "
         "(serving/server.py): a submit past this depth is shed with "

@@ -100,9 +100,11 @@ class PredictorTensor:
         self._value = np.ascontiguousarray(np.array(arr, copy=True))
         return self
 
-    def share_external_data(self, tensor):
-        """Adopt a tensor (on the predictor's device, say) without copying."""
-        self._value = tensor
+    def share_external_data(self, jax_array):
+        """Adopt a torch tensor (on the predictor's device, say) or an array
+        without copying; the parameter keeps the reference's name, so a
+        call by keyword works in both packages."""
+        self._value = jax_array
         return self
 
     def copy_to_cpu(self) -> np.ndarray:

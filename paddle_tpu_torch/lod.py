@@ -141,3 +141,8 @@ def create_lod_tensor(data, recursive_seq_lens, place=None) -> LoDTensor:
 class LoDTensorArray(list):
     """A tensor array: a list of arrays (a fetched `create_array` /
     `array_write` var comes back as one)."""
+
+    def append(self, t):  # noqa: A003 - reference name
+        """Add `t` at the end; `t` may be passed by keyword, as in the
+        reference."""
+        list.append(self, t)

@@ -98,7 +98,9 @@ def _batch_norm(ctx, op, ins):
     bf16 square, var = max(E[x^2] - mean^2, 0)), float32 in two (the mean,
     then the biased variance); MeanOut / VarianceOut move by `momentum`, and
     SavedMean / SavedVariance are written only when something reads them.
-    With a channel axis and spatial dims the normalization is the epilogue
+    Under plain data parallelism across a gang (`ctx.global_batch_stats`)
+    the statistics are the global batch's (`_global_batch_stats`).  With a
+    channel axis and spatial dims the normalization is the epilogue
     kernel (ops/cuda_kernels.py bn_epilogue) with float32 per-channel
     mul = rsqrt(var + eps) * scale and add = bias - mean * mul, built under
     autograd, so gradients reach x through the statistics too; the
@@ -126,7 +128,9 @@ def _batch_norm(ctx, op, ins):
         mean, var = mean_in, var_in
         mean_out, var_out = mean_in, var_in
     else:
-        if fused_pass:
+        if ctx.global_batch_stats:
+            mean, var = _global_batch_stats(x, axes)
+        elif fused_pass:
             inv_n = 1.0 / math.prod(x.shape[i] for i in axes)
             mean = x.sum(axes, dtype=torch.float32) * inv_n
             var = torch.clamp_min(torch.square(x).sum(axes, dtype=torch.float32) * inv_n
@@ -164,6 +168,25 @@ def _batch_norm(ctx, op, ins):
         "SavedMean": mean if ctx.wants(op, "SavedMean") else None,
         "SavedVariance": var if ctx.wants(op, "SavedVariance") else None,
     }
+
+
+def _global_batch_stats(x, axes):
+    """Batch norm's mean and biased variance over the gang's global batch
+    (plain data parallelism across ranks, as the JAX package's GSPMD
+    program normalizes over the global batch): the per-channel sum, the sum
+    of squares and the count, in float32, all-reduced in one differentiable
+    collective (its backward sums the cotangents over the gang), then
+    var = max(E[x^2] - mean^2, 0)."""
+    from ..parallel.distributed import AllReduceSum
+
+    xf = x.float()
+    count = torch.full((1,), float(math.prod(x.shape[i] for i in axes)), device=x.device)
+    local = torch.cat([xf.sum(axes), torch.square(xf).sum(axes), count])
+    total = AllReduceSum.apply(local)
+    c = x.shape[1]
+    mean = total[:c] / total[2 * c]
+    var = torch.clamp_min(total[c:2 * c] / total[2 * c] - torch.square(mean), 0.0)
+    return mean, var
 
 
 @register_op("lookup_table")

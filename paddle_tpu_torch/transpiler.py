@@ -7,11 +7,11 @@ collective:313 — rewriting programs into send/recv or c_allreduce graphs.
 
 As in the JAX package:
   * collective / nccl2 modes need no program rewrite: `transpile()`
-    remembers the program and `get_trainer_program()` hands it back to run
-    on every trainer.  The port runs one trainer: its program is
-    `CompiledProgram(program)`, the one-card program the JAX package's
-    one-device mesh computes.  More than one trainer raises: the
-    multi-process gang and its collectives come with ROADMAP A10;
+    brings the gang up from its `trainers` endpoints
+    (parallel.init_distributed) and remembers the program, and
+    `get_trainer_program()` hands it back compiled for the gang's mesh, so
+    every trainer runs the data-parallel step (core/executor.py's gang
+    path);
   * pserver mode for dense parameters is refused with the JAX package's
     rationale (synchronous allreduce wins); sparse tables live in
     SelectedRows and the host parameter-server tier (param_server.py).
@@ -19,10 +19,6 @@ As in the JAX package:
 from __future__ import annotations
 
 from typing import Optional
-
-_MULTI_TRAINER = ("DistributeTranspiler: more than one trainer needs the multi-process "
-                  "gang and its collectives, which are not ported yet: ROADMAP A10")
-
 
 class DistributeTranspilerConfig:
     """reference transpiler config: carriers kept for source compat."""
@@ -43,8 +39,8 @@ class DistributeTranspiler:
 
     def transpile(self, trainer_id, program=None, pservers="", trainers=1,
                   sync_mode=True, startup_program=None, current_endpoint=""):
-        """collective/nccl2 semantics: remember the program; no graph
-        rewrite.  One trainer only (ROADMAP A10 brings the gang)."""
+        """collective/nccl2 semantics: bootstrap the process group and
+        remember the program; no graph rewrite."""
         from .core.program import default_main_program
 
         # a non-empty `pservers` list IS the legacy pserver-mode request,
@@ -58,22 +54,26 @@ class DistributeTranspiler:
                 "collective mode. Sparse/giant tables: use is_sparse "
                 "embeddings (SelectedRows) or the host parameter-server "
                 "tier (param_server.py) instead.")
-        if isinstance(trainers, str):
-            endpoints = [e for e in trainers.split(",") if e]
-            n_trainers = max(len(endpoints), 1)
-        else:
-            n_trainers = int(trainers)
-        if n_trainers > 1:
-            raise NotImplementedError(_MULTI_TRAINER)
         self._program = program if program is not None else default_main_program()
+        if isinstance(trainers, str) and trainers:
+            endpoints = trainers.split(",")
+        else:
+            endpoints = None
+        if endpoints and len(endpoints) > 1:
+            from .parallel import distributed as dist
+
+            dist.init_distributed(trainer_id=trainer_id,
+                                  trainer_endpoints=endpoints,
+                                  current_endpoint=current_endpoint or None)
         return self
 
     def get_trainer_program(self, wait_port=True):
         from .parallel.compiled_program import CompiledProgram
+        from .parallel.distributed import global_mesh
 
         if self._program is None:
             raise RuntimeError("call transpile() first")
-        return CompiledProgram(self._program)
+        return CompiledProgram(self._program).with_mesh(global_mesh())
 
     def get_pserver_programs(self, endpoint):
         """reference DistributeTranspiler.get_pserver_programs: the

@@ -528,13 +528,27 @@ def test_data_parallel_single_process_hooks_and_counter(launches_unchanged):
 
 
 def test_data_parallel_refuses_a_mesh_and_more_trainers(monkeypatch):
+    """A mesh with an axis besides the batch axis waits for the
+    model-parallel paths (ROADMAP A10.3); more trainers than the gang holds
+    need the gang first: DataParallel says so, the parallel module's
+    prepare_context brings it up from the PADDLE_TRAINER_* environment (and
+    raises without it), and dygraph.prepare_context, as the JAX package's,
+    leaves a single process alone."""
     with tfluid.dygraph.guard(tfluid.CPUPlace()):
         layer = tfluid.dygraph.Linear(2, 2)
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             tfluid.dygraph.DataParallel(layer, mesh=object())
+        with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
+            tfluid.dygraph.DataParallel(
+                layer, mesh=tfluid.parallel.make_mesh((1, 2), ("dp", "tp"), [0, 1]))
+        assert tfluid.dygraph.DataParallel(
+            layer, mesh=tfluid.parallel.make_mesh())._layers is layer
         monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-        for call in (lambda: tfluid.dygraph.DataParallel(layer),
-                     tfluid.dygraph.prepare_context,
-                     tfluid.dygraph.parallel.prepare_context):
-            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-                call()
+        for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINER_ENDPOINTS", "PADDLE_CURRENT_ENDPOINT"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="prepare_context"):
+            tfluid.dygraph.DataParallel(layer)
+        with pytest.raises(ValueError, match="trainer_endpoints"):
+            tfluid.dygraph.parallel.prepare_context()
+        assert tfluid.dygraph.prepare_context("strategy") == "strategy"
+        assert not tfluid.parallel.distributed.is_initialized()

@@ -528,7 +528,14 @@ def test_memory_optimize_remat_matches_no_remat(dropout, monkeypatch):
 
 
 def test_compiled_program_mesh_paths_name_their_slice():
+    """with_data_parallel and with_grad_overlap are ported (ROADMAP A10.1);
+    LocalSGD and a mesh with a model-parallel axis name their slice
+    (A10.3)."""
     compiled = tfluid.CompiledProgram(tfluid.Program())
-    for path in ("with_data_parallel", "with_mesh", "with_grad_overlap", "with_local_sgd"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            getattr(compiled, path)()
+    assert compiled.with_data_parallel() is compiled and dict(compiled.mesh.shape) == {"dp": 1}
+    assert compiled.with_grad_overlap() is compiled
+    with pytest.raises(NotImplementedError, match="A10.3"):
+        tfluid.CompiledProgram(tfluid.Program()).with_local_sgd()
+    with pytest.raises(NotImplementedError, match="A10.3"):
+        tfluid.CompiledProgram(tfluid.Program()).with_mesh(
+            tfluid.parallel.make_mesh((1, 2), ("dp", "tp"), [0, 1]))

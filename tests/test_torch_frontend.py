@@ -976,7 +976,19 @@ def test_public_names_of_the_api_spec_the_port_lacks():
     does not export under the same path.  The count is an upper bound."""
     names = _spec_names()
     missing = [n for n in names if not _resolves(n)]
-    assert len(missing) <= 57, len(missing)  # of 1232
+    assert len(missing) <= 35, len(missing)  # of 1232
+    # data parallelism and the gang (ROADMAP A10.1): nothing of parallel.*
+    # but the model-parallel shard_parameters, of launch.* or of errors.*
+    assert [n for n in missing if n.startswith(("paddle_tpu.parallel.", "paddle_tpu.launch.",
+                                                "paddle_tpu.errors."))] == [
+        "paddle_tpu.parallel.shard_parameters"]
+    a101 = [n for n in names if n.startswith(("paddle_tpu.launch.", "paddle_tpu.errors.",
+                                              "paddle_tpu.ParallelExecutor",
+                                              "paddle_tpu.ExecutionStrategy"))
+            or n in ("paddle_tpu.core.analysis.collective_signature",
+                     "paddle_tpu.core.analysis.lint_collective_order",
+                     "paddle_tpu.BuildStrategy.ReduceStrategy")]
+    assert len(a101) >= 30 and [n for n in a101 if n in missing] == [], a101
     a96 = [n for n in names if n.startswith("paddle_tpu.core.resource_plan.")
            or n.startswith("paddle_tpu.DistributeTranspiler")
            or n in ("paddle_tpu.memory_optimize", "paddle_tpu.release_memory")]

@@ -54,12 +54,28 @@ def test_pserver_mode_refused(pkg, how):
 
 
 @pytest.mark.parametrize("trainers", [2, "127.0.0.1:6170,127.0.0.1:6171"])
-def test_more_than_one_trainer_waits_for_a10(trainers):
-    t = tfluid.DistributeTranspiler()
-    with pytest.raises(NotImplementedError, match="A10"):
-        t.transpile(0, program=tfluid.Program(), trainers=trainers)
-    with pytest.raises(RuntimeError, match="transpile"):
-        t.get_trainer_program()
+def test_more_than_one_trainer_waits_for_a10(trainers, monkeypatch):
+    """More than one trainer (ROADMAP A10.1): an endpoint list brings the
+    gang up through parallel.init_distributed with the JAX package's
+    arguments (recorded here, not run), a count alone does not; the
+    trainer program is compiled for the gang's mesh (one rank here)."""
+    calls = {}
+    for pkg, (fluid, _) in PKGS.items():
+        seen = calls[pkg] = []
+        monkeypatch.setattr(fluid.parallel.distributed, "init_distributed",
+                            lambda *a, _seen=seen, **k: _seen.append((a, k)))
+        t = fluid.DistributeTranspiler()
+        with pytest.raises(RuntimeError, match="transpile"):
+            t.get_trainer_program()
+        program = fluid.Program()
+        assert t.transpile(0, program=program, trainers=trainers) is t
+        compiled = t.get_trainer_program()
+        assert compiled.program is program and compiled.mesh is not None
+    assert calls["torch"] == calls["jax"]
+    assert len(calls["torch"]) == (1 if isinstance(trainers, str) else 0)
+    mesh = tfluid.DistributeTranspiler().transpile(0, program=tfluid.Program()) \
+        .get_trainer_program().mesh
+    assert dict(mesh.shape) == {"dp": 1}
 
 
 @pytest.mark.parametrize("dispatcher", ["RoundRobin", "HashName"])

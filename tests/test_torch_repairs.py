@@ -10,8 +10,12 @@ package, each call now run in both packages and held equal:
   * `io.load_vars(dirname, var_names, scope, verify)` positionally;
   * `FaultInjector.on_commit` of a commit without a directory (None, or a
     path that is not one): counted, nothing mutated, the argument
-    returned.
+    returned;
+  * `LoDTensorArray.append(t=x)` by keyword;
+  * `PredictorTensor.share_external_data(jax_array=x)` by keyword, with
+    the reference's signature.
 """
+import inspect
 import os
 
 import numpy as np
@@ -131,3 +135,36 @@ def test_on_commit_still_rots_a_committed_directory(tmp_path):
         rotted[pkg] = (inj._commits, [f.fired for f in inj.faults],
                        sum(a != b for a, b in zip(before, after)))
     assert rotted["torch"] == rotted["jax"] == (2, [True], 1)
+
+
+def test_tensor_array_append_takes_its_argument_by_keyword():
+    from paddle_tpu.lod import LoDTensorArray as JArray
+    from paddle_tpu_torch.lod import LoDTensorArray as TArray
+
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    seen = {}
+    for pkg, cls in (("jax", JArray), ("torch", TArray)):
+        arr = cls()
+        arr.append(t=x)
+        arr.append(x + 1)
+        seen[pkg] = arr
+    assert len(seen["torch"]) == len(seen["jax"]) == 2
+    for a, b in zip(seen["torch"], seen["jax"]):
+        np.testing.assert_array_equal(a, b)
+    assert (list(inspect.signature(TArray.append).parameters)
+            == list(inspect.signature(JArray.append).parameters))
+
+
+def test_share_external_data_takes_the_references_keyword():
+    from paddle_tpu.inference import PredictorTensor as JTensor
+    from paddle_tpu_torch.inference import PredictorTensor as TTensor
+
+    assert (inspect.signature(TTensor.share_external_data)
+            == inspect.signature(JTensor.share_external_data))
+    x = np.arange(4, dtype=np.float32)
+    got = {}
+    for pkg, cls, value in (("jax", JTensor, x), ("torch", TTensor, torch.from_numpy(x))):
+        t = cls("x")
+        assert t.share_external_data(jax_array=value) is t
+        got[pkg] = t.copy_to_cpu()
+    np.testing.assert_array_equal(got["torch"], got["jax"])

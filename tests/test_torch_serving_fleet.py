@@ -782,8 +782,12 @@ def test_replica_acts_on_a_sigterm_that_a_side_thread_takes():
 
 
 def test_launch_without_serve_names_data_parallelism():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tfluid.launch.main(["--nproc", "2", "worker.py"])
+    """Without --serve the launcher supervises a training gang (ROADMAP
+    A10.1); its elastic and telemetry options name the slice they wait for
+    (A10.2) before anything is spawned."""
+    for extra in (["--elastic"], ["--telemetry-root", "/nonexistent"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
+            tfluid.launch.main(["--nproc", "2", *extra, "worker.py"])
 
 
 def test_worker_env_is_the_ports():
